@@ -1,0 +1,763 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (tpullama_torch) end to end on one CUDA card.
+
+    python3 chip_smoke.py                 # every phase
+    python3 chip_smoke.py --phases card,build,kernels
+
+Phases, each printing one JSON line with its seconds:
+  card      nvidia-smi's name and power limit of the card
+  build     nvcc builds the kernels from tpullama_torch/csrc
+  kernels   every kernel against its plain PyTorch version on the card, at
+            the serving path's shapes, with kernel, plain and library
+            times and the bound from the card's data-sheet rates
+  model     a synthetic Llama-3-8B-shaped GGUF (Q4_K layers, Q6_K output,
+            Q4_K token table, random block bytes from a seed) is written
+            to a temp dir and loaded packed onto the card
+  crosscheck the same widths at 2 layers: prefill logits and an 8-token
+            greedy Context.generate on the card (kernels) against the
+            port on the CPU (plain versions)
+  serve     ServerEngine(n_slots=4, n_ctx=4096, bf16) answers 4
+            concurrent greedy requests and 1 seeded sampled request; a
+            greedy request run again returns the same text. Then, after
+            the path's launch counts are read, torch.profiler splits a
+            packed 4x256 prefill chunk and a B=4 decode step of its
+            Context into host wall time and the card's busy time by kernel
+The crosscheck and serve paths each run with every launch count set to 0
+just before and read just after, and fail unless each kernel that path
+must run was launched. Then one JSON line lists every kernel with its
+launches on each path and its numbers at the served shape from the
+kernels phase, and the last line is the run's result. Any failed
+check raises, so the script exits non-zero and prints no result line.
+Without a CUDA card it exits non-zero at once.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+import time
+from dataclasses import dataclass, replace
+
+import numpy as np
+
+# H100 SXM data-sheet rates (dense): memory bandwidth, bf16 tensor-core
+# and f32 (non-tensor-core) peaks
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+FLUSH_BYTES = 512 << 20  # written between timed launches: evicts the 50 MB L2
+NEG_HIDDEN = -5e29  # additive mask values at or below this hide a cell
+
+ALL_PHASES = ("card", "build", "kernels", "model", "crosscheck", "serve")
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+# ---------------------------------------------------------------- model
+
+
+@dataclass(frozen=True)
+class Widths:
+    """A llama configuration. LLAMA3_8B holds the published widths of
+    meta-llama/Meta-Llama-3-8B (config.json)."""
+
+    n_embd: int = 4096
+    n_layer: int = 32
+    n_head: int = 32
+    n_head_kv: int = 8
+    n_ff: int = 14336
+    n_vocab: int = 128256
+    rope_theta: float = 500000.0
+    rms_eps: float = 1e-5
+    n_ctx_train: int = 8192
+
+
+LLAMA3_8B = Widths()
+
+
+def _fp16_bytes(a: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(a.astype(np.float16)).view(np.uint8).reshape(*a.shape, 2)
+
+
+def q4k_blocks(rng: np.random.Generator, n_blocks: int) -> np.ndarray:
+    """Random Q4_K blocks (ggml block_q4_K: fp16 d, fp16 dmin, 12 bytes of
+    6-bit scales and mins, 128 bytes of nibbles) whose dequantized values
+    d*sc*q - dmin*m have mean near 0 and std near 0.02: sc = m in [24, 40],
+    dmin = 7.5 d, so each 32-value sub-block is d*sc*(q - 7.5)."""
+    b = np.frombuffer(rng.bytes(n_blocks * 144), np.uint8).reshape(n_blocks, 144).copy()
+    d = (1.4e-4 * rng.uniform(0.8, 1.2, n_blocks)).astype(np.float32)
+    b[:, 0:2] = _fp16_bytes(d)
+    b[:, 2:4] = _fp16_bytes(7.5 * d)
+    sc = rng.integers(24, 41, (n_blocks, 8), dtype=np.uint8)
+    m = sc
+    # ggml get_scale_min_k4 packing
+    b[:, 4:8] = sc[:, :4] | ((sc[:, 4:] >> 4) << 6)
+    b[:, 8:12] = m[:, :4] | ((m[:, 4:] >> 4) << 6)
+    b[:, 12:16] = (sc[:, 4:] & 0xF) | ((m[:, 4:] & 0xF) << 4)
+    return b
+
+
+def q6k_blocks(rng: np.random.Generator, n_blocks: int) -> np.ndarray:
+    """Random Q6_K blocks (ql[128], qh[64], int8 scales[16], fp16 d):
+    value d*sc*(q - 32), q uniform in 0..63, sc in [4, 12], so the std is
+    near 0.02."""
+    b = np.frombuffer(rng.bytes(n_blocks * 210), np.uint8).reshape(n_blocks, 210).copy()
+    b[:, 192:208] = rng.integers(4, 13, (n_blocks, 16), dtype=np.uint8)
+    d = (1.35e-4 * rng.uniform(0.8, 1.2, n_blocks)).astype(np.float32)
+    b[:, 208:210] = _fp16_bytes(d)
+    return b
+
+
+def spm_byte_vocab(n_vocab: int):
+    """The byte-level SPM vocab (<unk>, <s>, </s>, 256 byte tokens, the
+    escaped space) padded with filler pieces to n_vocab tokens."""
+    tokens = ["<unk>", "<s>", "</s>"] + [f"<0x{i:02X}>" for i in range(256)] + ["▁"]
+    types = [2, 3, 3] + [6] * 256 + [1]
+    scores = [-1e9, -1e9, -1e9] + [-1e6] * 256 + [-1000.0]
+    n_fill = n_vocab - len(tokens)
+    tokens += [f"fill{i}" for i in range(n_fill)]
+    types += [1] * n_fill
+    scores += [-float(i + 1) for i in range(n_fill)]
+    return tokens, np.asarray(scores, np.float32), np.asarray(types, np.int32)
+
+
+def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
+    """A llama GGUF at widths `w`: every layer matrix and token_embd Q4_K,
+    output Q6_K, norms F32, random block bytes from `seed`."""
+    from tpullama_torch.gguf import GGMLType, GGUFWriter
+
+    rng = np.random.default_rng(seed)
+    g = GGUFWriter()
+    a = "llama"
+    g.add_str("general.architecture", a)
+    g.add_str("general.name", "synthetic-llama3-8b-shape")
+    g.add_u32(f"{a}.context_length", w.n_ctx_train)
+    g.add_u32(f"{a}.embedding_length", w.n_embd)
+    g.add_u32(f"{a}.block_count", w.n_layer)
+    g.add_u32(f"{a}.feed_forward_length", w.n_ff)
+    g.add_u32(f"{a}.attention.head_count", w.n_head)
+    g.add_u32(f"{a}.attention.head_count_kv", w.n_head_kv)
+    g.add_u32(f"{a}.rope.dimension_count", w.n_embd // w.n_head)
+    g.add_f32(f"{a}.attention.layer_norm_rms_epsilon", w.rms_eps)
+    g.add_f32(f"{a}.rope.freq_base", w.rope_theta)
+    g.add_u32(f"{a}.vocab_size", w.n_vocab)
+    tokens, scores, types = spm_byte_vocab(w.n_vocab)
+    g.add_str("tokenizer.ggml.model", "llama")
+    g.add_array("tokenizer.ggml.tokens", tokens)
+    g.add_array("tokenizer.ggml.scores", scores)
+    g.add_array("tokenizer.ggml.token_type", types)
+    g.add_u32("tokenizer.ggml.bos_token_id", 1)
+    g.add_u32("tokenizer.ggml.eos_token_id", 2)
+    g.add_u32("tokenizer.ggml.unknown_token_id", 0)
+    g.add_bool("tokenizer.ggml.add_bos_token", True)
+    g.add_bool("tokenizer.ggml.add_eos_token", False)
+
+    def quant(name, n_out, n_in, qtype):
+        blocks = (q4k_blocks if qtype == GGMLType.Q4_K else q6k_blocks)(
+            rng, n_out * n_in // 256)
+        g.add_tensor(name, (n_out, n_in), qtype, raw=blocks)
+
+    def norm(name, n):
+        g.add_tensor(name, (1.0 + 0.1 * rng.standard_normal(n)).astype(np.float32),
+                     GGMLType.F32)
+
+    E, F, kv = w.n_embd, w.n_ff, (w.n_embd // w.n_head) * w.n_head_kv
+    quant("token_embd.weight", w.n_vocab, E, GGMLType.Q4_K)
+    norm("output_norm.weight", E)
+    quant("output.weight", w.n_vocab, E, GGMLType.Q6_K)
+    for il in range(w.n_layer):
+        p = f"blk.{il}."
+        norm(p + "attn_norm.weight", E)
+        quant(p + "attn_q.weight", E, E, GGMLType.Q4_K)
+        quant(p + "attn_k.weight", kv, E, GGMLType.Q4_K)
+        quant(p + "attn_v.weight", kv, E, GGMLType.Q4_K)
+        quant(p + "attn_output.weight", E, E, GGMLType.Q4_K)
+        norm(p + "ffn_norm.weight", E)
+        quant(p + "ffn_gate.weight", F, E, GGMLType.Q4_K)
+        quant(p + "ffn_up.weight", F, E, GGMLType.Q4_K)
+        quant(p + "ffn_down.weight", E, F, GGMLType.Q4_K)
+    g.write(path)
+
+
+
+# ---------------------------------------------------------------- timing
+
+
+class Timer:
+    """Device time of a call with cold L2: before each timed launch a
+    512 MiB buffer is written, which also keeps the card busy while the
+    host enqueues the call, so the events bracket device work only."""
+
+    def __init__(self, device):
+        import torch
+
+        self.torch = torch
+        self.flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=device)
+
+    def ms(self, fn, iters: int) -> float:
+        torch = self.torch
+        fn()
+        fn()
+        torch.cuda.synchronize()
+        ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(iters)]
+        for s, e in ev:
+            self.flush.zero_()
+            s.record()
+            fn()
+            e.record()
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in ev) / iters
+
+
+def bound_ms(n_bytes: float, flops: float, kind: str) -> tuple[float, str]:
+    """Least time for the work on an H100: the larger of bytes over the
+    memory rate and operations over the peak rate for their type."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+# ---------------------------------------------------------------- kernels
+
+
+def random_planes(ggml_type, N: int, K: int, scale_dtype, gen, device) -> dict:
+    """Random planar fields of one packed matrix, made on the card:
+    uniform stripe bytes and per-group scales so values have std ~0.02."""
+    import torch
+
+    from tpullama_torch.gguf import GGMLType
+
+    def u8(*shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, generator=gen, device=device)
+
+    def scales(G, base):
+        return base * (0.8 + 0.4 * torch.rand((N, G), generator=gen, device=device))
+
+    if ggml_type == GGMLType.Q6_K:
+        s = scales(K // 16, 1.1e-3)
+        return {"q4": u8(N, K // 2), "q2": u8(N, K // 4), "scale": s.to(scale_dtype),
+                "minv": (32.0 * s).to(scale_dtype)}
+    if ggml_type == GGMLType.Q8_0:
+        return {"q8": u8(N, K), "scale": scales(K // 32, 2.7e-4).to(scale_dtype)}
+    s = scales(K // 32, 4.4e-3)
+    return {"q4": u8(N, K // 2), "scale": s.to(scale_dtype),
+            "minv": (7.5 * s).to(scale_dtype)}
+
+
+def qmm_cases(timer, gen, device, out: list) -> None:
+    import torch
+
+    from tpullama_torch.gguf import GGMLType
+    from tpullama_torch.ops.cuda import qmm
+
+    Q4, Q6, Q8 = GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (type, N, K, activation dtype, scale dtype, T values): the serving
+    # path's shapes in bf16 (T = 1 for Context.decode, 4 for the server's
+    # B = 4 decode step, 256 for one prompt chunk, 1024 for the server's
+    # packed 4 x 256 prefill chunk), then the f32 and Q8_0 variants the
+    # kernel covers
+    served = (1, 4, 256, 1024)
+    cases = [(Q4, 4096, 4096, bf16, bf16, served),
+             (Q4, 1024, 4096, bf16, bf16, served),
+             (Q4, 14336, 4096, bf16, bf16, served),
+             (Q4, 4096, 14336, bf16, bf16, served),
+             (Q6, 128256, 4096, bf16, bf16, served),
+             (Q4, 4096, 4096, f32, f32, (1, 256)),
+             (Q6, 4096, 4096, f32, f32, (1, 256)),
+             (Q8, 4096, 4096, f32, bf16, (1, 256))]
+    group = {Q4: 32, Q6: 16, Q8: 32}
+    for qt, N, K, xdt, sdt, Ts in cases:
+        fields = random_planes(qt, N, K, sdt, gen, device)
+        g = group[qt]
+        w_lib = None
+        for T in Ts:
+            x = torch.randn((T, K), generator=gen, device=device).to(xdt)
+            got = qmm.quantized_matmul(x, fields, qt, g, N, K)
+            want = qmm.quantized_matmul_plain(x, fields, qt, g, N, K)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            # f32 sums in another order: 1e-4 of the output's scale is far
+            # above that and far below any layout or decode fault
+            tol = 1e-4 * float(want.abs().max()) + 1e-5
+            check(bool(torch.isfinite(got).all()) and err <= tol,
+                  f"qmm {qt.name} N={N} K={K} T={T}: err {err} > tol {tol}")
+            ms = timer.ms(lambda: qmm.quantized_matmul(x, fields, qt, g, N, K), 20)
+            plain_ms = timer.ms(lambda: qmm.quantized_matmul_plain(x, fields, qt, g, N, K), 3)
+            if w_lib is None:
+                # the yardstick: a cuBLAS product with the weight dequantized
+                # to the activation type ahead of time, in natural order
+                w = qmm.dequant_stored(fields, qt, g)
+                w_lib = w.reshape(N, g, K // g).transpose(1, 2).reshape(N, K)
+                del w
+            wl = w_lib.to(xdt)
+            lib_ms = timer.ms(lambda: torch.matmul(x, wl.T), 20)
+            del wl
+            n_bytes = sum(nbytes(a) for a in fields.values()) + nbytes(x) + T * N * 4
+            b_ms, b_by = bound_ms(n_bytes, 2.0 * T * N * K, "bf16" if xdt == bf16 else "f32")
+            name = "qmm_gemv" if T <= qmm.GEMV_MAX_T else "qmm_tiled"
+            rec = {"phase": "kernels", "kernel": name, "type": qt.name, "N": N, "K": K,
+                   "T": T, "x": str(xdt).split(".")[-1], "scales": str(sdt).split(".")[-1],
+                   "max_abs_err": err, "tol": tol,
+                   "max_rel_err": err / max(float(want.abs().max()), 1e-30),
+                   "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": b_ms, "bound_by": b_by}
+            emit(rec)
+            out.append(rec)
+        del w_lib, fields
+        torch.cuda.empty_cache()
+
+
+def attn_inputs(B, Tq, Hq, Hkv, D, S, dtype, gen, device, kv_pos, q_pos):
+    """Random q/k/v at head-major cache layout and the Context's additive
+    mask: visible iff the cell holds a position at or before the query's."""
+    import torch
+
+    q = torch.randn((B, Tq, Hq, D), generator=gen, device=device).to(dtype)
+    k = torch.randn((B, Hkv, S, D), generator=gen, device=device).to(dtype)
+    v = torch.randn((B, Hkv, S, D), generator=gen, device=device).to(dtype)
+    kp = torch.as_tensor(kv_pos, device=device)[:, None, :]
+    qp = torch.as_tensor(q_pos, device=device)[:, :, None]
+    vis = (kp >= 0) & (kp <= qp)
+    mask = torch.where(vis, 0.0, -1e30).to(torch.float32)[:, None]
+    return q, k, v, mask
+
+
+def attn_case(timer, name, fn, q, k, v, mask, out, **kw):
+    import torch
+    import torch.nn.functional as F
+
+    from tpullama_torch.ops.cuda.common import flash_plain
+
+    B, Tq, Hq, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(D)
+    got = fn(q, k, v, mask, scale, **kw)
+    want = flash_plain(q, k, v, mask, scale, **kw)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    # both sides compute in f32; a bf16 output may round one step apart
+    tol = (2.0 ** -7 if q.dtype == torch.bfloat16 else 1e-5) * float(want.float().abs().max()) + 1e-6
+    check(bool(torch.isfinite(got).all()) and err <= tol,
+          f"{name} B={B} Tq={Tq} S={S}: err {err} > tol {tol}")
+    ms = timer.ms(lambda: fn(q, k, v, mask, scale, **kw), 20)
+    plain_ms = timer.ms(lambda: flash_plain(q, k, v, mask, scale, **kw), 3)
+    lib_ms = None
+    if not kw:
+        m_lib = mask.to(q.dtype)
+        qt = q.transpose(1, 2)
+        lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+            qt, k, v, attn_mask=m_lib, scale=scale, enable_gqa=True), 20)
+    vis = mask[:, 0] > NEG_HIDDEN  # (B, Tq, S)
+    n_pairs = int(vis.sum())
+    n_cells = int(vis.any(dim=1).sum())  # cache rows some query needs
+    elt = k.element_size()
+    n_bytes = (nbytes(q) + 2 * n_cells * Hkv * D * elt + nbytes(mask) + nbytes(q))
+    flops = 4.0 * n_pairs * Hq * D
+    b_ms, b_by = bound_ms(n_bytes, flops, "bf16" if q.dtype == torch.bfloat16 else "f32")
+    rec = {"phase": "kernels", "kernel": name, "B": B, "Tq": Tq, "Hq": Hq, "Hkv": Hkv,
+           "D": D, "S": S, "dtype": str(q.dtype).split(".")[-1],
+           "extras": sorted(kw), "visible_pairs": n_pairs,
+           "max_abs_err": err, "tol": tol,
+           "max_rel_err": err / max(float(want.float().abs().max()), 1e-30),
+           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": b_ms, "bound_by": b_by}
+    emit(rec)
+    out.append(rec)
+
+
+def attention_cases(timer, gen, device, out: list) -> None:
+    import torch
+
+    from tpullama_torch.ops.cuda.flash_attention import flash_attention
+    from tpullama_torch.ops.cuda.flash_decode import flash_decode
+
+    bf16 = torch.bfloat16
+    Hq, Hkv, D, S = 32, 8, 128, 4224
+
+    def decode_pos(lengths, S=S):
+        kv = np.full((len(lengths), S), -1, np.int32)
+        for b, n in enumerate(lengths):
+            kv[b, :n] = np.arange(n)
+        return kv, np.asarray(lengths, np.int32)[:, None] - 1
+
+    # decode at B = 1 (Context.decode) and B = 4 (the server's decode_batch)
+    for lengths, name in (([4000], "flash_decode"),
+                          ([4000, 3000, 1000, 300], "flash_decode_batched")):
+        kv, qp = decode_pos(lengths)
+        q, k, v, mask = attn_inputs(len(lengths), 1, Hq, Hkv, D, S, bf16, gen, device, kv, qp)
+        attn_case(timer, name, flash_decode, q, k, v, mask, out)
+
+    # prefill chunks of Tq = 256: (cached tokens, new tokens) per lane.
+    # Rows past a lane's new tokens are padding (position -1, every key
+    # hidden). B = 1 is Context.decode's chunk; B = 4 is the server's
+    # packed chunk (Context.decode_multi), whose lanes differ in length and
+    # history, one of them without a chunk (every row padding)
+    Tq = 256
+    for lanes in ([(700, 216)], [(0, 256), (700, 216), (1800, 100), (3500, 0)]):
+        kv = np.full((len(lanes), S), -1, np.int32)
+        qp = np.full((len(lanes), Tq), -1, np.int32)
+        for b, (n_past, n_new) in enumerate(lanes):
+            kv[b, :n_past + n_new] = np.arange(n_past + n_new)
+            qp[b, :n_new] = np.arange(n_past, n_past + n_new)
+        q, k, v, mask = attn_inputs(len(lanes), Tq, Hq, Hkv, D, S, bf16, gen, device, kv, qp)
+        attn_case(timer, "flash_attention", flash_attention, q, k, v, mask, out)
+        del q, k, v, mask
+
+    # the options the kernels take beyond the llama path, in f32 and bf16
+    extras = dict(softcap=30.0,
+                  sinks=torch.randn((Hq,), generator=gen, device=device),
+                  alibi_slopes=torch.rand((Hq,), generator=gen, device=device))
+    for dt in (torch.float32, bf16):
+        kv, qp = decode_pos([500, 77], 512)
+        q, k, v, mask = attn_inputs(2, 1, Hq, Hkv, D, 512, dt, gen, device, kv, qp)
+        attn_case(timer, "flash_decode_batched", flash_decode, q, k, v, mask, out, **extras)
+        kv = np.tile(np.arange(512, dtype=np.int32), (2, 1))
+        qp = np.tile(np.arange(448, 512, dtype=np.int32), (2, 1))
+        q, k, v, mask = attn_inputs(2, 64, Hq, Hkv, D, 512, dt, gen, device, kv, qp)
+        attn_case(timer, "flash_attention", flash_attention, q, k, v, mask, out, **extras)
+
+
+# ---------------------------------------------------------------- phases
+
+
+def word_prompt(rng: np.random.Generator, n_bytes: int) -> str:
+    words = ("the a model token cache layer kernel decode prefill card memory "
+             "stream server request answer quantized weight block scale value "
+             "attention query key head batch slot").split()
+    out = []
+    while len(" ".join(out)) < n_bytes:
+        out.append(words[int(rng.integers(len(words)))])
+    return " ".join(out)[:n_bytes]
+
+
+def phase_model(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda"):
+    import torch
+
+    from tpullama_torch.models import load_model
+
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "llama3-8b-shape.gguf")
+    write_llama_gguf(path, widths, seed=0)
+    t_write = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    model = load_model(path, dtype=torch.bfloat16, device=device, packed=True)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t_load = time.perf_counter() - t1
+    os.remove(path)
+    check(model.quant_meta is not None and len(model.quant_meta["layers"]) == 7,
+          "every layer matrix is packed")
+    emit({"phase": "model", "layers": model.hparams.n_layer, "n_embd": model.hparams.n_embd,
+          "n_vocab": model.hparams.n_vocab, "write_s": t_write, "load_s": t_load,
+          "device_bytes": model.nbytes(), "seconds": time.perf_counter() - t0})
+    return model
+
+
+def phase_crosscheck(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda") -> None:
+    """Depth-2 model at the same widths, f32 activations and cache on both
+    sides: `device` (the card) runs the kernels, the CPU the plain versions."""
+    import torch
+
+    from tpullama_torch.models import load_model
+    from tpullama_torch.runtime import Context, ContextParams
+
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "llama3-8b-shape-2l.gguf")
+    write_llama_gguf(path, replace(widths, n_layer=2), seed=1)
+    gpu = load_model(path, dtype=torch.float32, device=device, packed=True)
+    cpu = load_model(path, dtype=torch.float32, device="cpu", packed=True)
+    os.remove(path)
+    prompt = gpu.vocab.tokenize(word_prompt(np.random.default_rng(2), 40), add_special=True)
+    prompt = np.asarray(prompt[:32], np.int32)
+    check(len(prompt) == 32, f"prompt has {len(prompt)} tokens")
+    cp = ContextParams(n_ctx=256)
+    lg = Context(gpu, cp).decode(prompt, n_logits=32)
+    lc = Context(cpu, cp).decode(prompt, n_logits=32)
+    err = float(np.abs(lg - lc).max())
+    # f32 end to end; sums run in another order on the card
+    tol = 1e-3 * float(np.abs(lc).max()) + 1e-4
+    check(np.isfinite(lg).all() and err <= tol, f"prefill logits err {err} > tol {tol}")
+    check(int(lg[-1].argmax()) == int(lc[-1].argmax()), "prefill argmax differs")
+    out_g = Context(gpu, cp).generate(prompt, n_predict=8)
+    out_c = Context(cpu, cp).generate(prompt, n_predict=8)
+    check(out_g == out_c, f"greedy tokens differ: card {out_g} cpu {out_c}")
+    emit({"phase": "crosscheck", "layers": 2, "prompt_tokens": len(prompt),
+          "prefill_max_abs_err": err, "tol": tol, "argmax": int(lc[-1].argmax()),
+          "greedy_tokens": out_g, "seconds": time.perf_counter() - t0})
+
+
+def phase_serve(model, card: str):
+    """4 concurrent greedy requests, then one seeded sampled request alone,
+    then the first greedy request again on erased slots. Rates come from
+    the Context's counters over each window: host clock around work that
+    ends in a device-to-host copy of logits or ids. Returns the engine and
+    one prompt, for phase_serve_profile."""
+    import torch
+
+    from tpullama_torch.runtime.sampling import SamplerChain
+    from tpullama_torch.server import ServerEngine, Task
+
+    def window(perf, before):
+        now = (perf.n_prefill, perf.t_prefill_ms, perf.n_decode, perf.t_decode_ms)
+        d = [a - b for a, b in zip(now, before)]
+        return now, {"prefill_tokens": d[0], "prefill_tok_s": d[0] / d[1] * 1e3 if d[1] else None,
+                     "decode_tokens": d[2], "decode_tok_s": d[2] / d[3] * 1e3 if d[3] else None}
+
+    t0 = time.perf_counter()
+    eng = ServerEngine(model, n_slots=4, n_ctx=4096, dtype=torch.bfloat16)
+    perf = eng.ctx.perf
+    mark = (0, 0.0, 0, 0.0)
+    rng = np.random.default_rng(3)
+    prompts = [word_prompt(rng, n) for n in (300, 550, 780, 1000)]
+    vocab = model.vocab
+    t1 = time.perf_counter()
+    tasks = [eng.submit(Task(prompt_tokens=vocab.tokenize(p, add_special=True), n_predict=32))
+             for p in prompts]
+    while not all(t.done.is_set() for t in tasks):
+        eng.step()
+    wall = time.perf_counter() - t1
+    mark, concurrent = window(perf, mark)
+    sampled = eng.complete(prompts[1], n_predict=32,
+                           sampler=SamplerChain.from_params(seed=7, temp=0.8))
+    mark, alone = window(perf, mark)
+    for t in tasks + [sampled]:
+        check(not t.error and t.stop_reason in ("length", "stop"),
+              f"task {t.id}: error {t.error!r}, stop {t.stop_reason!r}")
+    check(all(len(t.out_tokens) == 32 or t.stop_reason == "stop" for t in tasks),
+          "a greedy request ended early without a stop")
+    for s in range(4):
+        eng.slot_erase(s)
+    again = eng.complete(prompts[0], n_predict=32)
+    check(again.out_tokens == tasks[0].out_tokens,
+          "a greedy request run again gave other tokens")
+    n_out = sum(len(t.out_tokens) for t in tasks)
+    emit({"phase": "serve", "card": card, "requests": len(tasks) + 2,
+          "prompt_tokens": [len(t.prompt_tokens) for t in tasks],
+          "completion_tokens": [len(t.out_tokens) for t in tasks + [sampled, again]],
+          "concurrent4": {**concurrent, "wall_s": wall, "output_tok_s": n_out / wall,
+                          "ttft_ms": [t.ttft_ms for t in tasks]},
+          "sampled_alone": {**alone, "ttft_ms": sampled.ttft_ms},
+          "sampled_text": sampled.out_text[:80], "seconds": time.perf_counter() - t0})
+    return eng, prompts[3]
+
+
+def phase_serve_profile(eng, prompt: str, card: str) -> None:
+    """torch.profiler over the served engine's Context, whose lanes still
+    hold the requests: one packed 4 x 256 prefill chunk and one B = 4
+    decode step."""
+    ctx = eng.ctx
+    chunk = eng.vocab.tokenize(prompt, add_special=False)[:256]
+    emit({"phase": "serve_profile", "card": card,
+          "prefill_chunk_4x256": profile_step(
+              ctx, lambda: ctx.decode_multi([(s, chunk) for s in range(4)]), 4 * len(chunk), 2),
+          "decode_batch_b4": profile_step(
+              ctx, lambda: ctx.decode_batch(np.full(4, 100, np.int32), np.ones(4, bool)), 4, 8)})
+
+
+def step_bound(ctx, rows: int) -> tuple[float, str]:
+    """Least card time of one forward step over `rows` new tokens of a
+    Context on a packed model: every packed weight plane and every K/V row
+    the cache holds now read once, and 2 * rows * N * K operations over
+    the layer matrices plus 2 * N * K per lane for the lm_head, at the
+    bf16 peak. Norms, rope and attention's own operations are left out,
+    so this is a lower bound."""
+    model = ctx.model
+    p, qm = model.params, model.quant_meta
+    planes = [w for w in p["layers"].values() if isinstance(w, dict)] + [p["output"]]
+    n_bytes = sum(nbytes(a) for w in planes for a in w.values())
+    n_bytes += int((ctx._pos_host >= 0).sum()) * 2 * nbytes(ctx.kv_k[:, 0, :, 0])
+    layer_nk = model.hparams.n_layer * sum(m.n_out * m.n_in for m in qm["layers"].values())
+    flops = 2.0 * rows * layer_nk + 2.0 * ctx.p.n_seqs * qm["output"].n_out * qm["output"].n_in
+    return bound_ms(n_bytes, flops, "bf16")
+
+
+def profile_step(ctx, step, rows: int, n_steps: int) -> dict:
+    """Where one kind of Context step spends its time: host wall per step
+    (synchronised, without the profiler), then a second run of n_steps
+    under torch.profiler: its wall, the card's busy time (the sum of the
+    kernels the profiler saw) and idle share in that same window, the
+    kernels that take the most, and the step's bound. The idle share
+    comes from the profiled window alone because each step grows the
+    cache, so the two windows do not do the same work."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync = torch.cuda.synchronize if ctx.device.type == "cuda" else (lambda: None)
+    b_ms, b_by = step_bound(ctx, rows)
+    step()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        step()
+    sync()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            step()
+        sync()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3 / n_steps
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
+    return {"rows": rows, "steps": n_steps, "wall_ms": wall_ms,
+            "profiled_wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / prof_wall_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "device_launches": sum(e.count for e in dev) / n_steps,
+            "top": [{"kernel": e.key[:90], "ms": e.self_device_time_total / 1e3 / n_steps,
+                     "launches": e.count / n_steps} for e in top]}
+
+
+# (name, source, TPU kernel it replaces, the kernels-phase case whose
+# numbers the kernels line carries: the served path's shape)
+KERNELS = (
+    ("qmm_gemv", "tpullama_torch/csrc/qmm.cu", "tpullama/ops/pallas/qmm.py:296",
+     dict(T=4, N=14336, K=4096, x="bfloat16")),
+    ("qmm_tiled", "tpullama_torch/csrc/qmm.cu", "tpullama/ops/pallas/qmm.py:296",
+     dict(T=1024, N=14336, K=4096, x="bfloat16")),
+    ("flash_attention", "tpullama_torch/csrc/flash_attention.cu",
+     "tpullama/ops/pallas/flash_attention.py:40", dict(B=4, Tq=256, extras=[])),
+    ("flash_decode", "tpullama_torch/csrc/flash_decode.cu",
+     "tpullama/ops/pallas/flash_decode.py:60", dict(B=1, extras=[])),
+    ("flash_decode_batched", "tpullama_torch/csrc/flash_decode.cu",
+     "tpullama/ops/pallas/flash_decode.py:141", dict(B=4, extras=[])),
+)
+
+
+# the main path's two runs, and the kernels each must launch: the B = 1
+# Context.generate of the cross-check, and the served B = 4 engine
+PATH_KERNELS = {
+    "crosscheck": ("qmm_gemv", "qmm_tiled", "flash_attention", "flash_decode"),
+    "serve": ("qmm_gemv", "qmm_tiled", "flash_attention", "flash_decode_batched"),
+}
+
+
+def path_launches(path: str, run) -> tuple[dict, object]:
+    """Run one path of the main path with every launch count at 0 just
+    before it; print its own counts and return them with run()'s result.
+    Fails if the path launched none of a kernel it must run."""
+    from tpullama_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    out = run()
+    counts = launch_counts()
+    emit({"phase": f"{path}_launches", "launches": counts})
+    for name in PATH_KERNELS[path]:
+        check(counts[name] > 0, f"kernel {name} was not launched on the {path} path")
+    return counts, out
+
+
+def kernels_line(records: list, launches: dict) -> dict:
+    """Every kernel with its launches on each path that ran (and their sum)
+    and its numbers at the served shape from the kernels phase."""
+    rows = []
+    for name, src, replaces, key in KERNELS:
+        rec = next((r for r in records if r["kernel"] == name
+                    and all(r.get(k) == v for k, v in key.items())), {})
+        by_path = {p: c[name] for p, c in launches.items()}
+        rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                     "launches": sum(by_path.values()) if by_path else None,
+                     "launches_by_path": by_path, "max_abs_err": rec.get("max_abs_err"),
+                     "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),
+                     "bound_ms": rec.get("bound_ms"), "bound_by": rec.get("bound_by"),
+                     "library_ms": rec.get("library_ms")})
+    return {"kernels": rows}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=",".join(ALL_PHASES),
+                    help="comma-separated subset of " + ",".join(ALL_PHASES))
+    args = ap.parse_args()
+    phases = [p for p in args.phases.split(",") if p]
+    for p in phases:
+        check(p in ALL_PHASES, f"unknown phase {p!r}")
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script measures the port on the card",
+              file=sys.stderr)
+        return 1
+    from tpullama_torch.ops.cuda import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_all = time.perf_counter()
+    device = torch.device("cuda")
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    card = torch.cuda.get_device_name(0)
+    print(smi, flush=True)
+    emit({"phase": "card", "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "device_count": torch.cuda.device_count()})
+
+    if "build" in phases or "kernels" in phases:
+        t0 = time.perf_counter()
+        build.library()
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "ptxas.txt"), "w") as f:
+            for src, log in build.ptxas_report.items():
+                f.write(f"==== {src}\n{log}\n")
+        emit({"phase": "build", "nvcc_s": build.build_seconds,
+              "seconds": time.perf_counter() - t0,
+              "spills": sorted({ln.strip() for log in build.ptxas_report.values()
+                                for ln in log.splitlines()
+                                if "spill" in ln and not ln.strip().startswith("0 bytes")})})
+
+    records: list = []
+    if "kernels" in phases:
+        t0 = time.perf_counter()
+        timer = Timer(device)
+        gen = torch.Generator(device=device).manual_seed(0)
+        qmm_cases(timer, gen, device, records)
+        attention_cases(timer, gen, device, records)
+        del timer
+        torch.cuda.empty_cache()
+        emit({"phase": "kernels", "cases": len(records), "seconds": time.perf_counter() - t0})
+
+    launches: dict = {}
+    main_path = [p for p in ("model", "crosscheck", "serve") if p in phases]
+    if main_path:
+        with tempfile.TemporaryDirectory() as tmp:
+            model = phase_model(tmp) if "serve" in phases or "model" in phases else None
+            if "crosscheck" in phases:
+                launches["crosscheck"], _ = path_launches(
+                    "crosscheck", lambda: phase_crosscheck(tmp))
+            if "serve" in phases:
+                launches["serve"], (eng, prompt) = path_launches(
+                    "serve", lambda: phase_serve(model, smi))
+                phase_serve_profile(eng, prompt, smi)
+                del eng
+            del model
+    torch.cuda.synchronize()
+    emit({"phase": "done", "seconds": time.perf_counter() - t_all})
+    print(smi, flush=True)
+    print(json.dumps(kernels_line(records, launches)), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

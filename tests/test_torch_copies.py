@@ -1,0 +1,175 @@
+"""The modules tpullama_torch copies from the JAX package (the port imports
+nothing of it) behave like the originals on the tiny fixtures: HParams,
+GGUF reader tensors and writer bytes, block dequantization, repacked
+planes byte for byte, tokenize/detokenize, and the host sampler chain.
+All comparisons are exact: the copies run the same numpy code."""
+
+import numpy as np
+import pytest
+
+from tpullama import gguf as j_gguf
+from tpullama.gguf import GGMLType
+from tpullama.models.hparams import HParams as JHParams
+from tpullama.models.testing import make_tiny_llama_gguf
+from tpullama.ops import qweights as j_qw
+from tpullama.runtime import sampling as j_sampling
+from tpullama.tokenizer import Vocab as JVocab
+from tpullama_torch import gguf as t_gguf
+from tpullama_torch.models.hparams import HParams as THParams
+from tpullama_torch.ops import qweights as t_qw
+from tpullama_torch.runtime import sampling as t_sampling
+from tpullama_torch.tokenizer import Vocab as TVocab
+
+ARCHS = ["llama", "qwen2", "mistral"]
+PACKED = sorted(j_qw.PACKED_TYPES, key=lambda t: t.value)
+TEXTS = ["Once upon a time", "  two  spaces\tand a tab\n", "bytes: é中\U0001F600",
+         "<s> literal special", ""]
+
+
+@pytest.fixture(scope="module")
+def tiny(tmp_path_factory):
+    paths = {}
+    for arch in ARCHS:
+        p = str(tmp_path_factory.mktemp(arch) / "m.gguf")
+        make_tiny_llama_gguf(p, arch=arch, qtype=GGMLType.Q4_K, n_embd=256, n_ff=256,
+                             seed=5)
+        paths[arch] = p
+    return paths
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_hparams_equal(tiny, arch):
+    j = JHParams.from_gguf(j_gguf.GGUFReader(tiny[arch]))
+    t = THParams.from_gguf(t_gguf.GGUFReader(tiny[arch]))
+    # the port copies the llama family's fields; each must equal the original's
+    assert vars(t) == {k: getattr(j, k) for k in vars(t)}
+
+
+@pytest.mark.parametrize("arch", ["gemma", "mamba", "bert"])
+def test_hparams_refuse_other_archs(tmp_path, arch):
+    p = str(tmp_path / "m.gguf")
+    make_tiny_llama_gguf(p, arch=arch, n_embd=64, n_ff=128, seed=5)
+    JHParams.from_gguf(j_gguf.GGUFReader(p))  # the original reads it
+    with pytest.raises(NotImplementedError, match=arch):
+        THParams.from_gguf(t_gguf.GGUFReader(p))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_reader_tensors_equal(tiny, arch):
+    rj = j_gguf.GGUFReader(tiny[arch])
+    rt = t_gguf.GGUFReader(tiny[arch])
+    assert list(rt.tensors) == list(rj.tensors)
+    assert set(rt.kv) == set(rj.kv)
+    for name, info in rj.tensors.items():
+        ti = rt.tensors[name]
+        assert (ti.shape, int(ti.ggml_type)) == (info.shape, int(info.ggml_type))
+        np.testing.assert_array_equal(rt.tensor_raw(name), rj.tensor_raw(name))
+
+
+def test_reader_bytes_source(tiny):
+    data = open(tiny["llama"], "rb").read()
+    rt = t_gguf.GGUFReader(data)
+    rj = j_gguf.GGUFReader(tiny["llama"])
+    name = "blk.0.attn_q.weight"
+    np.testing.assert_array_equal(rt.tensor_raw(name), rj.tensor_raw(name))
+
+
+@pytest.mark.parametrize("qtype", [GGMLType.F32, GGMLType.F16, GGMLType.BF16],
+                         ids=lambda t: t.name)
+def test_writer_bytes_equal(tmp_path, qtype):
+    rng = np.random.default_rng(1)
+    w = rng.standard_normal((8, 64)).astype(np.float32)
+    out = []
+    for mod in (j_gguf, t_gguf):
+        g = mod.GGUFWriter()
+        g.add_str("general.architecture", "llama")
+        g.add_u32("llama.block_count", 1)
+        g.add_array("tokenizer.ggml.tokens", ["a", "b"])
+        g.add_tensor("w", w, qtype)
+        g.add_tensor("raw", (2, 256), GGMLType.Q4_K,
+                     raw=np.arange(2 * 144, dtype=np.uint8))
+        p = tmp_path / f"{mod.__name__}.gguf"
+        g.write(str(p))
+        out.append(p.read_bytes())
+    assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("qtype", [GGMLType.F32, GGMLType.F16, GGMLType.BF16,
+                                   GGMLType.Q8_0, GGMLType.Q4_K, GGMLType.Q6_K],
+                         ids=lambda t: t.name)
+def test_dequantize_equal(qtype):
+    rng = np.random.default_rng(2)
+    w = rng.standard_normal((4, 256)).astype(np.float32)
+    raw = j_gguf.quantize(w, qtype)
+    np.testing.assert_array_equal(t_gguf.dequantize(raw, qtype, w.shape),
+                                  j_gguf.dequantize(raw, qtype, w.shape))
+
+
+def _raw(qtype, n_out, n_in, seed=3):
+    """Block bytes: the codec's quantizer where the JAX package has one,
+    else random bytes with finite fp16 scales."""
+    rng = np.random.default_rng(seed)
+    if qtype in (GGMLType.Q2_K, GGMLType.Q3_K):
+        traits = j_gguf.GGML_TYPE_TRAITS[qtype]
+        raw = rng.integers(0, 256, n_out * n_in // traits.block_size * traits.type_size,
+                           dtype=np.uint8)
+        blocks = raw.reshape(-1, traits.type_size)
+        # the fp16 d / dmin sit at the block's end: clear their exponent's top bit
+        blocks[:, -1] &= 0x3F
+        if qtype == GGMLType.Q2_K:
+            blocks[:, -3] &= 0x3F
+        return raw
+    return j_gguf.quantize(rng.standard_normal((n_out, n_in)).astype(np.float32), qtype)
+
+
+@pytest.mark.parametrize("qtype", PACKED, ids=lambda t: t.name)
+def test_repacked_planes_equal(qtype):
+    n_out, n_in = 8, 512
+    raw = _raw(qtype, n_out, n_in)
+    pj = j_qw.repack(raw, qtype, (n_out, n_in))
+    pt = t_qw.repack(raw, qtype, (n_out, n_in))
+    assert (pt.group, pt.shape, list(pt.fields)) == (pj.group, pj.shape, list(pj.fields))
+    for k in pj.fields:
+        assert pt.fields[k].dtype == pj.fields[k].dtype
+        np.testing.assert_array_equal(pt.fields[k], pj.fields[k])
+    np.testing.assert_array_equal(t_qw.dequant_planar_np(pt), j_qw.dequant_planar_np(pj))
+
+
+def test_group_permute_equal():
+    v = np.arange(3 * 128).reshape(3, 128)
+    for g in (16, 32):
+        np.testing.assert_array_equal(t_qw.group_permute(v, g), j_qw.group_permute(v, g))
+        np.testing.assert_array_equal(t_qw.group_unpermute(v, g), j_qw.group_unpermute(v, g))
+    for bits in (1, 2, 4):
+        packed = j_qw._stripe_pack(v % (1 << bits), bits)
+        np.testing.assert_array_equal(t_qw._stripe_pack(v % (1 << bits), bits), packed)
+        np.testing.assert_array_equal(t_qw.stripe_unpack_np(packed, bits),
+                                      j_qw.stripe_unpack_np(packed, bits))
+
+
+@pytest.mark.parametrize("text", TEXTS)
+def test_tokenize_detokenize_equal(tiny, text):
+    vj = JVocab.from_gguf(j_gguf.GGUFReader(tiny["llama"]))
+    vt = TVocab.from_gguf(t_gguf.GGUFReader(tiny["llama"]))
+    for add_special in (True, False):
+        ids = vj.tokenize(text, add_special=add_special)
+        assert vt.tokenize(text, add_special=add_special) == ids
+        assert vt.detokenize(ids) == vj.detokenize(ids)
+        assert [vt.token_to_piece(i, special=False) for i in ids] == \
+               [vj.token_to_piece(i, special=False) for i in ids]
+    assert [vt.is_eog(i) for i in range(vt.n_tokens)] == [vj.is_eog(i) for i in range(vj.n_tokens)]
+
+
+@pytest.mark.parametrize("kw", [
+    dict(temp=0.0),
+    dict(seed=11, temp=0.8),
+    dict(seed=12, temp=1.2, top_k=5, top_p=0.9, min_p=0.0, penalty_repeat=1.3),
+    dict(seed=13, temp=0.7, mirostat=2),
+    dict(seed=14, temp=0.9, typical_p=0.8, xtc_probability=0.5, xtc_threshold=0.05),
+], ids=["greedy", "default", "topk-penalty", "mirostat2", "typical-xtc"])
+def test_sampler_chain_equal(kw):
+    rng = np.random.default_rng(4)
+    logits = [rng.standard_normal(300).astype(np.float32) * 3 for _ in range(24)]
+    cj = j_sampling.SamplerChain.from_params(**kw)
+    ct = t_sampling.SamplerChain.from_params(**kw)
+    assert [ct.sample(x) for x in logits] == [cj.sample(x) for x in logits]

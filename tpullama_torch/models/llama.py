@@ -1,0 +1,157 @@
+"""Llama-family forward pass in PyTorch.
+
+Port of tpullama/models/llama.py:llama_forward for the plain llama family
+(llama, llama-2/3, mistral, qwen2 biases; no MoE, SWA, fused layer or
+parallel modes): per layer [rms_norm -> q/k/v (+bias) -> rope -> write K/V
+into the cache -> attention -> o-proj -> residual -> rms_norm -> SwiGLU FFN
+-> residual], final norm, lm_head.
+
+The JAX package scans a stacked layer axis and gets a new cache back from
+each step (the cache argument is donated). Here the layers are nn.Modules
+called in a Python loop, each holding views of the stacked weights, and
+each writes its new K/V rows IN PLACE into its view of one preallocated
+(L, B, Hkv, S, D) cache tensor (index_put_), so no cache copy is made.
+Packed weights go through the fused dequant-matmul (ops/cuda/qmm.py);
+attention through attention_auto (the flash kernels on CUDA tensors).
+"""
+
+from __future__ import annotations
+
+
+import torch
+from torch import nn
+
+from ..ops.activations import silu
+from ..ops.attention import attention_auto
+from ..ops.cuda.qmm import quantized_matmul
+from ..ops.norms import rms_norm
+from ..ops.rope import RopeParams, apply_rope, rope_cache
+from .hparams import HParams
+
+
+def linear(x: torch.Tensor, w, meta=None) -> torch.Tensor:
+    """x: (..., n_in) @ w: (n_out, n_in) -> (..., n_out) in x's dtype. A
+    dict of packed planes goes through the fused dequant-matmul."""
+    if isinstance(w, dict):
+        lead = x.shape[:-1]
+        y = quantized_matmul(x.reshape(-1, x.shape[-1]), w, meta.ggml_type,
+                             meta.group, meta.n_out, meta.n_in)
+        return y.reshape(*lead, meta.n_out).to(x.dtype)
+    return x @ w.T
+
+
+def rope_params(hp: HParams) -> RopeParams:
+    return RopeParams(
+        n_dims=hp.n_rot,
+        mode=hp.rope_type,
+        freq_base=hp.rope_freq_base,
+        freq_scale=hp.rope_freq_scale,
+        ext_factor=hp.rope_yarn_ext_factor,
+        attn_factor=hp.rope_attn_factor,
+        beta_fast=hp.rope_beta_fast,
+        beta_slow=hp.rope_beta_slow,
+        n_ctx_orig=hp.n_ctx_orig_yarn or hp.n_ctx_train,
+    )
+
+
+def scatter_rows(cache: torch.Tensor, slots: torch.Tensor, vals: torch.Tensor) -> None:
+    """Write per-token rows into a HEAD-MAJOR cache in place.
+    cache: (B, H, S, D); vals: (B, T, H, D); slots: (B, T) cell indices."""
+    B, H = cache.shape[0], cache.shape[1]
+    b_ix = torch.arange(B, device=cache.device)[:, None, None]
+    h_ix = torch.arange(H, device=cache.device)[None, :, None]
+    cache.index_put_((b_ix, h_ix, slots[:, None, :].long()),
+                     vals.transpose(1, 2).to(cache.dtype))
+
+
+class LlamaLayer(nn.Module):
+    """One transformer block over views of the stacked layer weights."""
+
+    def __init__(self, w: dict, meta: dict, hp: HParams):
+        super().__init__()
+        self.w = w
+        self.meta = meta
+        self.hp = hp
+
+    def forward(self, x, cos, sin, k_cache, v_cache, slots, mask):
+        hp, w, m = self.hp, self.w, self.meta
+        B, T, _ = x.shape
+        Hq, Hkv = hp.n_head, hp.n_head_kv
+        Dk, Dv = hp.n_embd_head_k, hp.n_embd_head_v
+        h = rms_norm(x, w["attn_norm"], hp.f_norm_rms_eps)
+        q = linear(h, w["attn_q"], m.get("attn_q"))
+        k = linear(h, w["attn_k"], m.get("attn_k"))
+        v = linear(h, w["attn_v"], m.get("attn_v"))
+        if "attn_q_bias" in w:
+            q = q + w["attn_q_bias"]
+            k = k + w["attn_k_bias"]
+            v = v + w["attn_v_bias"]
+        q = q.reshape(B, T, Hq, Dk)
+        k = k.reshape(B, T, Hkv, Dk)
+        v = v.reshape(B, T, Hkv, Dv)
+        if hp.rope_type >= 0:
+            q = apply_rope(q, cos, sin, hp.rope_type, hp.n_rot)
+            k = apply_rope(k, cos, sin, hp.rope_type, hp.n_rot)
+        scatter_rows(k_cache, slots, k)
+        scatter_rows(v_cache, slots, v)
+        kq_scale = hp.f_attention_scale if hp.f_attention_scale != 0.0 else 1.0 / (Dk**0.5)
+        att = attention_auto(q, k_cache, v_cache, mask=mask, scale=kq_scale,
+                             softcap=hp.attn_logit_softcap)
+        att = linear(att.reshape(B, T, Hq * Dv), w["attn_output"], m.get("attn_output"))
+        x = x + att
+        h = rms_norm(x, w["ffn_norm"], hp.f_norm_rms_eps)
+        gate = linear(h, w["ffn_gate"], m.get("ffn_gate"))
+        up = linear(h, w["ffn_up"], m.get("ffn_up"))
+        act = silu(gate.float()).to(gate.dtype) * up
+        return x + linear(act, w["ffn_down"], m.get("ffn_down"))
+
+
+class LlamaModel(nn.Module):
+    """The llama stack over a LoadedModel's params (built once per Context)."""
+
+    def __init__(self, params: dict, hp: HParams, quant_meta: dict | None = None):
+        super().__init__()
+        self.params = params
+        self.hp = hp
+        self.quant_meta = quant_meta or {}
+        lmeta = self.quant_meta.get("layers", {})
+        stacks = params["layers"]
+
+        def view(t, li):
+            return {k: a[li] for k, a in t.items()} if isinstance(t, dict) else t[li]
+
+        self.layers = nn.ModuleList(
+            LlamaLayer({k: view(t, li) for k, t in stacks.items()}, lmeta, hp)
+            for li in range(hp.n_layer)
+        )
+        self.rp = rope_params(hp)
+
+    def forward(self, tokens, positions, kv_k, kv_v, cache_slots, attn_mask,
+                logit_rows=None):
+        """tokens, positions, cache_slots: (B, T) int; kv_k/kv_v: (L, B, Hkv,
+        S, D) caches written in place; attn_mask: (B, 1, T, S) additive f32.
+        logit_rows: optional (B, R) row indices — the lm_head runs on those
+        rows only (the rows a caller reads). Returns f32 logits (B, T or R,
+        n_vocab)."""
+        hp, p = self.hp, self.params
+        x = p["tok_embd"][tokens.long()]
+        cos = sin = None
+        if hp.rope_type >= 0:
+            cos, sin = rope_cache(self.rp, positions, p.get("rope_freqs"))
+            cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+        for li, layer in enumerate(self.layers):
+            x = layer(x, cos, sin, kv_k[li], kv_v[li], cache_slots, attn_mask)
+        x = rms_norm(x, p.get("output_norm"), hp.f_norm_rms_eps)
+        if logit_rows is not None:
+            x = torch.gather(x, 1, logit_rows.long()[:, :, None].expand(-1, -1, x.shape[-1]))
+        out_w = p.get("output", p["tok_embd"])
+        return linear(x, out_w, self.quant_meta.get("output")).float()
+
+
+def llama_forward(params: dict, hp: HParams, tokens, positions, kv_k, kv_v,
+                  cache_slots, attn_mask, quant_meta: dict | None = None):
+    """Functional form of LlamaModel (the JAX package's signature): one
+    decode/prefill step; the new tokens' K/V are written into kv_k/kv_v in
+    place. Returns (logits, (kv_k, kv_v))."""
+    net = LlamaModel(params, hp, quant_meta)
+    return net(tokens, positions, kv_k, kv_v, cache_slots, attn_mask), (kv_k, kv_v)
