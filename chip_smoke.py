@@ -22,11 +22,15 @@ Phases, each printing one JSON line with its seconds:
             the path's launch counts are read, torch.profiler splits a
             packed 4x256 prefill chunk and a B=4 decode step of its
             Context into host wall time and the card's busy time by kernel
-The crosscheck and serve paths each run with every launch count set to 0
-just before and read just after, and fail unless each kernel that path
-must run was launched. Then one JSON line lists every kernel with its
-launches on each path and its numbers at the served shape from the
-kernels phase, and the last line is the run's result. Any failed
+  moe_model, moe_crosscheck, moe_serve
+            the same three on a Mixtral-8x7B-shaped MoE llama (8 experts,
+            2 per token; 8 of its 32 layers, 1 in the cross-check), whose
+            expert FFNs run through the gathered qmm kernels
+The crosscheck and serve paths of both models each run with every launch
+count set to 0 just before and read just after, and fail unless each
+kernel that path must run was launched. Then one JSON line lists every
+kernel with its launches on each path and its numbers at the served shape
+from the kernels phase, and the last line is the run's result. Any failed
 check raises, so the script exits non-zero and prints no result line.
 Without a CUDA card it exits non-zero at once.
 """
@@ -34,6 +38,7 @@ Without a CUDA card it exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -52,7 +57,8 @@ PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 FLUSH_BYTES = 512 << 20  # written between timed launches: evicts the 50 MB L2
 NEG_HIDDEN = -5e29  # additive mask values at or below this hide a cell
 
-ALL_PHASES = ("card", "build", "kernels", "model", "crosscheck", "serve")
+ALL_PHASES = ("card", "build", "kernels", "model", "crosscheck", "serve", "moe_model",
+              "moe_crosscheck", "moe_serve")
 
 
 def emit(obj) -> None:
@@ -69,8 +75,11 @@ def check(cond: bool, msg: str) -> None:
 
 @dataclass(frozen=True)
 class Widths:
-    """A llama configuration. LLAMA3_8B holds the published widths of
-    meta-llama/Meta-Llama-3-8B (config.json)."""
+    """A llama configuration (n_expert > 0: a Mixtral-style MoE, whose
+    n_ff is each expert's). LLAMA3_8B holds the published widths of
+    meta-llama/Meta-Llama-3-8B (config.json); MIXTRAL_8X7B those of
+    mistralai/Mixtral-8x7B-v0.1 (config.json; sliding window null), cut to
+    8 of its 32 layers: every layer has the same shapes and launches."""
 
     n_embd: int = 4096
     n_layer: int = 32
@@ -81,9 +90,13 @@ class Widths:
     rope_theta: float = 500000.0
     rms_eps: float = 1e-5
     n_ctx_train: int = 8192
+    n_expert: int = 0
+    n_expert_used: int = 0
 
 
 LLAMA3_8B = Widths()
+MIXTRAL_8X7B = Widths(n_layer=8, n_vocab=32000, rope_theta=1e6, n_ctx_train=32768,
+                      n_expert=8, n_expert_used=2)
 
 
 def _fp16_bytes(a: np.ndarray) -> np.ndarray:
@@ -133,15 +146,17 @@ def spm_byte_vocab(n_vocab: int):
 
 
 def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
-    """A llama GGUF at widths `w`: every layer matrix and token_embd Q4_K,
-    output Q6_K, norms F32, random block bytes from `seed`."""
+    """A llama GGUF at widths `w`: every layer matrix (expert stacks
+    included) and token_embd Q4_K, output Q6_K, norms and the router F32
+    (as llama.cpp's quantizer leaves it), random block bytes from `seed`."""
     from tpullama_torch.gguf import GGMLType, GGUFWriter
 
     rng = np.random.default_rng(seed)
     g = GGUFWriter()
     a = "llama"
     g.add_str("general.architecture", a)
-    g.add_str("general.name", "synthetic-llama3-8b-shape")
+    g.add_str("general.name", "synthetic-mixtral-8x7b-shape" if w.n_expert
+              else "synthetic-llama3-8b-shape")
     g.add_u32(f"{a}.context_length", w.n_ctx_train)
     g.add_u32(f"{a}.embedding_length", w.n_embd)
     g.add_u32(f"{a}.block_count", w.n_layer)
@@ -152,6 +167,9 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
     g.add_f32(f"{a}.attention.layer_norm_rms_epsilon", w.rms_eps)
     g.add_f32(f"{a}.rope.freq_base", w.rope_theta)
     g.add_u32(f"{a}.vocab_size", w.n_vocab)
+    if w.n_expert:
+        g.add_u32(f"{a}.expert_count", w.n_expert)
+        g.add_u32(f"{a}.expert_used_count", w.n_expert_used)
     tokens, scores, types = spm_byte_vocab(w.n_vocab)
     g.add_str("tokenizer.ggml.model", "llama")
     g.add_array("tokenizer.ggml.tokens", tokens)
@@ -163,30 +181,41 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
     g.add_bool("tokenizer.ggml.add_bos_token", True)
     g.add_bool("tokenizer.ggml.add_eos_token", False)
 
-    def quant(name, n_out, n_in, qtype):
+    def quant(name, shape, qtype):
         blocks = (q4k_blocks if qtype == GGMLType.Q4_K else q6k_blocks)(
-            rng, n_out * n_in // 256)
-        g.add_tensor(name, (n_out, n_in), qtype, raw=blocks)
+            rng, math.prod(shape) // 256)
+        g.add_tensor(name, shape, qtype, raw=blocks)
 
     def norm(name, n):
         g.add_tensor(name, (1.0 + 0.1 * rng.standard_normal(n)).astype(np.float32),
                      GGMLType.F32)
 
     E, F, kv = w.n_embd, w.n_ff, (w.n_embd // w.n_head) * w.n_head_kv
-    quant("token_embd.weight", w.n_vocab, E, GGMLType.Q4_K)
+    Q4 = GGMLType.Q4_K
+    quant("token_embd.weight", (w.n_vocab, E), Q4)
     norm("output_norm.weight", E)
-    quant("output.weight", w.n_vocab, E, GGMLType.Q6_K)
+    quant("output.weight", (w.n_vocab, E), GGMLType.Q6_K)
+    # the router's logits have std ~1.3 on unit-scale inputs: varied routing
+    n_x = w.n_expert
     for il in range(w.n_layer):
         p = f"blk.{il}."
         norm(p + "attn_norm.weight", E)
-        quant(p + "attn_q.weight", E, E, GGMLType.Q4_K)
-        quant(p + "attn_k.weight", kv, E, GGMLType.Q4_K)
-        quant(p + "attn_v.weight", kv, E, GGMLType.Q4_K)
-        quant(p + "attn_output.weight", E, E, GGMLType.Q4_K)
+        quant(p + "attn_q.weight", (E, E), Q4)
+        quant(p + "attn_k.weight", (kv, E), Q4)
+        quant(p + "attn_v.weight", (kv, E), Q4)
+        quant(p + "attn_output.weight", (E, E), Q4)
         norm(p + "ffn_norm.weight", E)
-        quant(p + "ffn_gate.weight", F, E, GGMLType.Q4_K)
-        quant(p + "ffn_up.weight", F, E, GGMLType.Q4_K)
-        quant(p + "ffn_down.weight", E, F, GGMLType.Q4_K)
+        if n_x:
+            g.add_tensor(p + "ffn_gate_inp.weight",
+                         (0.02 * rng.standard_normal((n_x, E))).astype(np.float32),
+                         GGMLType.F32)
+            quant(p + "ffn_gate_exps.weight", (n_x, F, E), Q4)
+            quant(p + "ffn_up_exps.weight", (n_x, F, E), Q4)
+            quant(p + "ffn_down_exps.weight", (n_x, E, F), Q4)
+        else:
+            quant(p + "ffn_gate.weight", (F, E), Q4)
+            quant(p + "ffn_up.weight", (F, E), Q4)
+            quant(p + "ffn_down.weight", (E, F), Q4)
     g.write(path)
 
 
@@ -324,6 +353,108 @@ def qmm_cases(timer, gen, device, out: list) -> None:
         torch.cuda.empty_cache()
 
 
+def gathered_cases(timer, gen, device, out: list) -> None:
+    """Both gathered kernels against their plain versions over 8 experts,
+    with the routing of the served MoE path: the B = 4 decode step (8
+    (token, k) slots, one-row tiles) and the packed 4 x 256 prefill chunk
+    (2048 slots, dispatched into 8-row tiles)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpullama_torch.gguf import GGMLType
+    from tpullama_torch.ops.cuda import qmm, qmm_gathered
+    from tpullama_torch.ops.moe import moe_dispatch
+
+    Q4, Q6, Q8 = GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0
+    bf16, f32 = torch.bfloat16, torch.float32
+    E = 8
+    served, small = ((8, 1), (2048, 8)), ((8, 1), (512, 8))
+    # (transposed, type, n_out per expert, K, scale dtypes, (slots, tile_t)
+    # routings): Mixtral's [gate | up] (row-major) and down (transposed)
+    # stacks, then the other field sets and padded rows (320 of 384)
+    cases = [(False, Q4, 2 * 14336, 4096, (bf16,), served),
+             (True, Q4, 4096, 14336, (bf16,), served),
+             (False, Q6, 4096, 4096, (f32, bf16), small),
+             (True, Q8, 4096, 4096, (f32, bf16), small),
+             (False, Q4, 320, 4096, (f32, bf16), small),
+             (True, Q4, 320, 4096, (f32, bf16), small)]
+    group = {Q4: 32, Q6: 16, Q8: 32}
+    for planes_t, qt, N, K, sdts, routings in cases:
+        g = group[qt]
+        R = -(-N // 128) * 128
+        name = "qmm_gathered_t" if planes_t else "qmm_gathered"
+        # the library's weights: every expert dequantized to bf16 in natural order
+        rows = random_planes(qt, E * R, K, f32, gen, device)
+        rows = {k: v.reshape(E, R, -1) for k, v in rows.items()}
+        for v in rows.values():
+            v[:, N:] = 0  # the loader zero-pads each expert's rows
+        w_lib = torch.stack([
+            qmm.dequant_stored({k: v[e] for k, v in rows.items()}, qt, g)[:N]
+            .reshape(N, g, K // g).transpose(1, 2).reshape(N, K).to(bf16)
+            for e in range(E)])
+        for sdt in sdts:
+            fields = {k: (v.to(sdt) if k in ("scale", "minv") else v) for k, v in rows.items()}
+            if planes_t:  # (E, kcols, R); group rows padded to 16
+                fields = {k: v.transpose(1, 2).contiguous() for k, v in fields.items()}
+                fields = {k: (F.pad(v, (0, 0, 0, -v.shape[1] % 16))
+                              if k in ("scale", "minv") else v) for k, v in fields.items()}
+            per_expert = sum(nbytes(a) for a in fields.values()) / E
+            for S, tt in routings:
+                # top-2 of 8 distinct experts per token
+                sel = torch.rand((S // 2, E), generator=gen, device=device).argsort(-1)[:, :2]
+                sel = sel.reshape(S).to(torch.int32)
+                x_slots = torch.randn((S, K), generator=gen, device=device)
+                if tt == 1:
+                    tiles, x = sel, x_slots
+                else:
+                    perm, tiles, _, _ = moe_dispatch(sel, E, tt)
+                    x = torch.cat([x_slots, x_slots.new_zeros((1, K))])[perm]
+
+                def kern():
+                    return qmm_gathered.quantized_matmul_gathered(
+                        x, fields, tiles, qt, g, N, K, tile_t=tt, planes_t=planes_t)
+
+                def plain():
+                    return qmm_gathered.quantized_matmul_gathered_plain(
+                        x, fields, tiles, qt, g, N, K, tile_t=tt, planes_t=planes_t)
+
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                tol = 1e-4 * float(want.abs().max()) + 1e-5
+                check(bool(torch.isfinite(got).all()) and err <= tol,
+                      f"{name} {qt.name} N={N} K={K} slots={S}: err {err} > tol {tol}")
+                ms = timer.ms(kern, 20)
+                plain_ms = timer.ms(plain, 3)
+                xb = x_slots.to(bf16)
+                if tt == 1:
+                    lib = "torch.bmm on the gathered bf16 expert weights"
+                    w_sel = w_lib[sel.long()].transpose(1, 2)
+                    lib_ms = timer.ms(lambda: torch.bmm(xb[:, None, :], w_sel), 20)
+                    del w_sel
+                else:
+                    lib = "torch.matmul per expert on its rows, summed"
+                    lib_ms = 0.0
+                    for e in range(E):
+                        xe, we = xb[sel == e], w_lib[e]
+                        lib_ms += timer.ms(lambda: torch.matmul(xe, we.T), 10)
+                distinct = int(torch.unique(sel).numel())
+                n_bytes = distinct * per_expert + nbytes(x_slots) + S * N * 4
+                b_ms, b_by = bound_ms(n_bytes, 2.0 * S * N * K, "bf16")
+                rec = {"phase": "kernels", "kernel": name, "type": qt.name, "N": N, "K": K,
+                       "experts": E, "slots": S, "tile_t": tt, "rows": int(x.shape[0]),
+                       "distinct_experts": distinct, "x": "float32",
+                       "scales": str(sdt).split(".")[-1], "max_abs_err": err, "tol": tol,
+                       "max_rel_err": err / max(float(want.abs().max()), 1e-30),
+                       "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "library": lib,
+                       "bound_ms": b_ms, "bound_by": b_by}
+                emit(rec)
+                out.append(rec)
+            del fields
+        del rows, w_lib
+        torch.cuda.empty_cache()
+
+
 def attn_inputs(B, Tq, Hq, Hkv, D, S, dtype, gen, device, kv_pos, q_pos):
     """Random q/k/v at head-major cache layout and the Context's additive
     mask: visible iff the cell holds a position at or before the query's."""
@@ -447,13 +578,14 @@ def word_prompt(rng: np.random.Generator, n_bytes: int) -> str:
     return " ".join(out)[:n_bytes]
 
 
-def phase_model(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda"):
+def phase_model(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
+                phase: str = "model"):
     import torch
 
     from tpullama_torch.models import load_model
 
     t0 = time.perf_counter()
-    path = os.path.join(tmp, "llama3-8b-shape.gguf")
+    path = os.path.join(tmp, f"{phase}.gguf")
     write_llama_gguf(path, widths, seed=0)
     t_write = time.perf_counter() - t0
     t1 = time.perf_counter()
@@ -462,25 +594,39 @@ def phase_model(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda"):
         torch.cuda.synchronize()
     t_load = time.perf_counter() - t1
     os.remove(path)
-    check(model.quant_meta is not None and len(model.quant_meta["layers"]) == 7,
-          "every layer matrix is packed")
-    emit({"phase": "model", "layers": model.hparams.n_layer, "n_embd": model.hparams.n_embd,
-          "n_vocab": model.hparams.n_vocab, "write_s": t_write, "load_s": t_load,
-          "device_bytes": model.nbytes(), "seconds": time.perf_counter() - t0})
+    lm = (model.quant_meta or {}).get("layers", {})
+    attn = {"attn_q", "attn_k", "attn_v", "attn_output"}
+    if widths.n_expert:
+        check(set(lm) == attn | {"ffn_gateup_exps", "ffn_down_exps"},
+              f"every layer matrix and expert stack is packed: {sorted(lm)}")
+        # gate|up (K = 4096: every plane width a multiple of 128) row-major,
+        # down (K = 14336: 448 scale groups) transposed
+        check(not lm["ffn_gateup_exps"].planes_t and lm["ffn_down_exps"].planes_t,
+              "ffn_gateup_exps row-major and ffn_down_exps transposed")
+    else:
+        check(set(lm) == attn | {"ffn_gate", "ffn_up", "ffn_down"},
+              "every layer matrix is packed")
+    emit({"phase": phase, "layers": model.hparams.n_layer, "n_embd": model.hparams.n_embd,
+          "n_vocab": model.hparams.n_vocab, "experts": model.hparams.n_expert,
+          "planes_t": {k: m.planes_t for k, m in lm.items() if k.endswith("_exps")},
+          "write_s": t_write, "load_s": t_load, "device_bytes": model.nbytes(),
+          "seconds": time.perf_counter() - t0})
     return model
 
 
-def phase_crosscheck(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda") -> None:
-    """Depth-2 model at the same widths, f32 activations and cache on both
-    sides: `device` (the card) runs the kernels, the CPU the plain versions."""
+def phase_crosscheck(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
+                     n_layer: int = 2, phase: str = "crosscheck") -> None:
+    """A model at the same widths cut to n_layer layers, f32 activations and
+    cache on both sides: `device` (the card) runs the kernels, the CPU the
+    plain versions."""
     import torch
 
     from tpullama_torch.models import load_model
     from tpullama_torch.runtime import Context, ContextParams
 
     t0 = time.perf_counter()
-    path = os.path.join(tmp, "llama3-8b-shape-2l.gguf")
-    write_llama_gguf(path, replace(widths, n_layer=2), seed=1)
+    path = os.path.join(tmp, f"{phase}.gguf")
+    write_llama_gguf(path, replace(widths, n_layer=n_layer), seed=1)
     gpu = load_model(path, dtype=torch.float32, device=device, packed=True)
     cpu = load_model(path, dtype=torch.float32, device="cpu", packed=True)
     os.remove(path)
@@ -498,12 +644,12 @@ def phase_crosscheck(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda")
     out_g = Context(gpu, cp).generate(prompt, n_predict=8)
     out_c = Context(cpu, cp).generate(prompt, n_predict=8)
     check(out_g == out_c, f"greedy tokens differ: card {out_g} cpu {out_c}")
-    emit({"phase": "crosscheck", "layers": 2, "prompt_tokens": len(prompt),
+    emit({"phase": phase, "layers": n_layer, "prompt_tokens": len(prompt),
           "prefill_max_abs_err": err, "tol": tol, "argmax": int(lc[-1].argmax()),
           "greedy_tokens": out_g, "seconds": time.perf_counter() - t0})
 
 
-def phase_serve(model, card: str):
+def phase_serve(model, card: str, phase: str = "serve"):
     """4 concurrent greedy requests, then one seeded sampled request alone,
     then the first greedy request again on erased slots. Rates come from
     the Context's counters over each window: host clock around work that
@@ -548,7 +694,7 @@ def phase_serve(model, card: str):
     check(again.out_tokens == tasks[0].out_tokens,
           "a greedy request run again gave other tokens")
     n_out = sum(len(t.out_tokens) for t in tasks)
-    emit({"phase": "serve", "card": card, "requests": len(tasks) + 2,
+    emit({"phase": phase, "card": card, "requests": len(tasks) + 2,
           "prompt_tokens": [len(t.prompt_tokens) for t in tasks],
           "completion_tokens": [len(t.out_tokens) for t in tasks + [sampled, again]],
           "concurrent4": {**concurrent, "wall_s": wall, "output_tok_s": n_out / wall,
@@ -558,33 +704,68 @@ def phase_serve(model, card: str):
     return eng, prompts[3]
 
 
-def phase_serve_profile(eng, prompt: str, card: str) -> None:
+def phase_serve_profile(eng, prompt: str, card: str, phase: str = "serve_profile") -> None:
     """torch.profiler over the served engine's Context, whose lanes still
     hold the requests: one packed 4 x 256 prefill chunk and one B = 4
     decode step."""
     ctx = eng.ctx
     chunk = eng.vocab.tokenize(prompt, add_special=False)[:256]
-    emit({"phase": "serve_profile", "card": card,
+    emit({"phase": phase, "card": card,
           "prefill_chunk_4x256": profile_step(
               ctx, lambda: ctx.decode_multi([(s, chunk) for s in range(4)]), 4 * len(chunk), 2),
           "decode_batch_b4": profile_step(
               ctx, lambda: ctx.decode_batch(np.full(4, 100, np.int32), np.ones(4, bool)), 4, 8)})
 
 
-def step_bound(ctx, rows: int) -> tuple[float, str]:
+@contextlib.contextmanager
+def recorded_routing(log: list):
+    """Append the (B, T, k) expert ids of every MoE router call made inside
+    the block to `log` (left on the card)."""
+    from tpullama_torch.ops import moe
+
+    route = moe.route
+
+    def recording(*args, **kw):
+        sel, weights = route(*args, **kw)
+        log.append(sel)
+        return sel, weights
+
+    moe.route = recording
+    try:
+        yield log
+    finally:
+        moe.route = route
+
+
+def step_bound(ctx, rows: int, kv_cells: int, routing: list, n_steps: int) -> tuple[float, str]:
     """Least card time of one forward step over `rows` new tokens of a
-    Context on a packed model: every packed weight plane and every K/V row
-    the cache holds now read once, and 2 * rows * N * K operations over
-    the layer matrices plus 2 * N * K per lane for the lm_head, at the
-    bf16 peak. Norms, rope and attention's own operations are left out,
-    so this is a lower bound."""
+    Context on a packed model: every packed weight plane and each of the
+    kv_cells K/V rows the cache holds read once, and 2 * rows * N * K
+    operations over the layer matrices plus 2 * N * K per lane for the
+    lm_head, at the bf16 peak. An MoE layer counts only the experts its
+    routing selected (`routing`: the (B, T, k) expert ids the router chose
+    over n_steps steps, layer after layer), each expert's planes once, and
+    its experts' operations over rows * k. Norms, rope, the router and
+    attention's own operations are left out, so this is a lower bound."""
     model = ctx.model
-    p, qm = model.params, model.quant_meta
-    planes = [w for w in p["layers"].values() if isinstance(w, dict)] + [p["output"]]
-    n_bytes = sum(nbytes(a) for w in planes for a in w.values())
-    n_bytes += int((ctx._pos_host >= 0).sum()) * 2 * nbytes(ctx.kv_k[:, 0, :, 0])
-    layer_nk = model.hparams.n_layer * sum(m.n_out * m.n_in for m in qm["layers"].values())
-    flops = 2.0 * rows * layer_nk + 2.0 * ctx.p.n_seqs * qm["output"].n_out * qm["output"].n_in
+    hp = model.hparams
+    p, lm = model.params, model.quant_meta["layers"]
+    n_bytes = sum(nbytes(a) for a in p["output"].values())
+    n_bytes += kv_cells * 2 * nbytes(ctx.kv_k[:, 0, :, 0])
+    flops = 2.0 * ctx.p.n_seqs * model.quant_meta["output"].n_out * model.quant_meta["output"].n_in
+    for key, w in p["layers"].items():
+        if not isinstance(w, dict):
+            continue
+        if key.endswith("_exps"):
+            per_expert = sum(nbytes(a) for a in w.values()) / (hp.n_layer * hp.n_expert)
+            picked = sum(int(r.unique().numel()) for r in routing) / n_steps
+            n_bytes += per_expert * picked
+        else:
+            n_bytes += sum(nbytes(a) for a in w.values())
+            flops += 2.0 * rows * hp.n_layer * lm[key].n_out * lm[key].n_in
+    if hp.n_expert:  # gate, up (F x D) and down (D x F) per selected expert
+        F, D = lm["ffn_down_exps"].n_in, hp.n_embd
+        flops += 2.0 * rows * hp.n_expert_used * hp.n_layer * 3 * F * D
     return bound_ms(n_bytes, flops, "bf16")
 
 
@@ -601,7 +782,6 @@ def profile_step(ctx, step, rows: int, n_steps: int) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     sync = torch.cuda.synchronize if ctx.device.type == "cuda" else (lambda: None)
-    b_ms, b_by = step_bound(ctx, rows)
     step()
     sync()
     t0 = time.perf_counter()
@@ -609,12 +789,15 @@ def profile_step(ctx, step, rows: int, n_steps: int) -> dict:
         step()
     sync()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    kv_cells = int((ctx._pos_host >= 0).sum())
+    with recorded_routing([]) as routing, \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
             step()
         sync()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    b_ms, b_by = step_bound(ctx, rows, kv_cells, routing, n_steps)
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3 / n_steps
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
@@ -639,14 +822,23 @@ KERNELS = (
      "tpullama/ops/pallas/flash_decode.py:60", dict(B=1, extras=[])),
     ("flash_decode_batched", "tpullama_torch/csrc/flash_decode.cu",
      "tpullama/ops/pallas/flash_decode.py:141", dict(B=4, extras=[])),
+    ("qmm_gathered", "tpullama_torch/csrc/qmm_gathered.cu", "tpullama/ops/pallas/qmm.py:655",
+     dict(slots=2048, N=28672, K=4096, scales="bfloat16")),
+    ("qmm_gathered_t", "tpullama_torch/csrc/qmm_gathered.cu", "tpullama/ops/pallas/qmm.py:771",
+     dict(slots=2048, N=4096, K=14336, scales="bfloat16")),
 )
 
 
-# the main path's two runs, and the kernels each must launch: the B = 1
-# Context.generate of the cross-check, and the served B = 4 engine
+# the main path's runs, and the kernels each must launch: the B = 1
+# Context.generate of each cross-check, and each served B = 4 engine
+_DENSE_CROSS = ("qmm_gemv", "qmm_tiled", "flash_attention", "flash_decode")
+_DENSE_SERVE = ("qmm_gemv", "qmm_tiled", "flash_attention", "flash_decode_batched")
+_GATHERED = ("qmm_gathered", "qmm_gathered_t")
 PATH_KERNELS = {
-    "crosscheck": ("qmm_gemv", "qmm_tiled", "flash_attention", "flash_decode"),
-    "serve": ("qmm_gemv", "qmm_tiled", "flash_attention", "flash_decode_batched"),
+    "crosscheck": _DENSE_CROSS,
+    "serve": _DENSE_SERVE,
+    "moe_crosscheck": _DENSE_CROSS + _GATHERED,
+    "moe_serve": _DENSE_SERVE + _GATHERED,
 }
 
 
@@ -731,25 +923,33 @@ def main() -> int:
         timer = Timer(device)
         gen = torch.Generator(device=device).manual_seed(0)
         qmm_cases(timer, gen, device, records)
+        gathered_cases(timer, gen, device, records)
         attention_cases(timer, gen, device, records)
         del timer
         torch.cuda.empty_cache()
         emit({"phase": "kernels", "cases": len(records), "seconds": time.perf_counter() - t0})
 
     launches: dict = {}
-    main_path = [p for p in ("model", "crosscheck", "serve") if p in phases]
-    if main_path:
+    # the Llama path, then the Mixtral path (cross-checked at 1 layer)
+    for pre, widths, cross_layers in (("", LLAMA3_8B, 2), ("moe_", MIXTRAL_8X7B, 1)):
+        run = [p for p in ("model", "crosscheck", "serve") if pre + p in phases]
+        if not run:
+            continue
         with tempfile.TemporaryDirectory() as tmp:
-            model = phase_model(tmp) if "serve" in phases or "model" in phases else None
-            if "crosscheck" in phases:
-                launches["crosscheck"], _ = path_launches(
-                    "crosscheck", lambda: phase_crosscheck(tmp))
-            if "serve" in phases:
-                launches["serve"], (eng, prompt) = path_launches(
-                    "serve", lambda: phase_serve(model, smi))
-                phase_serve_profile(eng, prompt, smi)
+            model = None
+            if "model" in run or "serve" in run:
+                model = phase_model(tmp, widths, phase=pre + "model")
+            if "crosscheck" in run:
+                launches[pre + "crosscheck"], _ = path_launches(
+                    pre + "crosscheck", lambda: phase_crosscheck(
+                        tmp, widths, n_layer=cross_layers, phase=pre + "crosscheck"))
+            if "serve" in run:
+                launches[pre + "serve"], (eng, prompt) = path_launches(
+                    pre + "serve", lambda: phase_serve(model, smi, phase=pre + "serve"))
+                phase_serve_profile(eng, prompt, smi, phase=pre + "serve_profile")
                 del eng
             del model
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
     emit({"phase": "done", "seconds": time.perf_counter() - t_all})
     print(smi, flush=True)

@@ -1,8 +1,9 @@
 """The modules tpullama_torch copies from the JAX package (the port imports
 nothing of it) behave like the originals on the tiny fixtures: HParams,
-GGUF reader tensors and writer bytes, block dequantization, repacked
-planes byte for byte, tokenize/detokenize, and the host sampler chain.
-All comparisons are exact: the copies run the same numpy code."""
+GGUF reader tensors and writer bytes, block dequantization, repacked and
+transposed planes byte for byte, tokenize/detokenize, and the host
+sampler chain. All comparisons are exact: the copies run the same numpy
+code."""
 
 import numpy as np
 import pytest
@@ -145,6 +146,21 @@ def test_group_permute_equal():
         np.testing.assert_array_equal(t_qw._stripe_pack(v % (1 << bits), bits), packed)
         np.testing.assert_array_equal(t_qw.stripe_unpack_np(packed, bits),
                                       j_qw.stripe_unpack_np(packed, bits))
+
+
+@pytest.mark.parametrize("n_in", [256, 14336], ids=["8-groups", "448-groups"])
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q8_0], ids=lambda t: t.name)
+def test_transpose_planes_equal(qtype, n_in):
+    """Expert planes (E, rows, kcols) -> (E, kcols, rows), scale/minv group
+    rows zero-padded to 16 (8 groups pad to 16; 448 need none)."""
+    raw = _raw(qtype, 2 * 128, n_in)
+    fields = {k: v.reshape(2, 128, -1) for k, v in j_qw.repack(raw, qtype, (256, n_in)).fields.items()}
+    tj, tt = j_qw.transpose_planes(fields), t_qw.transpose_planes(fields)
+    assert list(tt) == list(tj)
+    for k in tj:
+        assert tt[k].dtype == tj[k].dtype and tt[k].flags.c_contiguous
+        np.testing.assert_array_equal(tt[k], tj[k])
+    assert tt["scale"].shape[1] == -(-(n_in // 32) // 16) * 16
 
 
 @pytest.mark.parametrize("text", TEXTS)

@@ -1,6 +1,7 @@
 """The port's model path held against the JAX package on the tiny fixtures
-(make_tiny_llama_gguf at n_embd=256, n_ff=256, 2 layers): load_model
-dense and packed, params_from_numpy both ways, prefill logits, greedy
+(make_tiny_llama_gguf at n_embd=256, n_ff=256, 2 layers, and the same
+with 4 experts, 2 per token: a Mixtral-style MoE): load_model dense and
+packed, params_from_numpy both ways, prefill logits, greedy
 Context.generate, decode_batch and its greedy burst, and a ServerEngine
 request script. Everything runs on the CPU, where the port takes its
 kernels' plain versions and the JAX package runs its Pallas kernels in
@@ -21,6 +22,9 @@ from tpullama.models.testing import make_tiny_llama_gguf
 QTYPES = [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0]
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 PROMPT = "Once upon a time"
+# 40 tokens: 80 (token, expert) slots, so MoE prefill takes the dispatch path
+LONG_PROMPT = "The quick brown fox jumps over the lazy dog, twice."
+MOE = dict(n_embd=256, n_ff=256, n_layer=2, n_expert=4, n_expert_used=2)
 
 
 @pytest.fixture(scope="module")
@@ -31,6 +35,13 @@ def ggufs(tmp_path_factory):
         make_tiny_llama_gguf(p, n_embd=256, n_ff=256, n_layer=2, qtype=qt, seed=21)
         out[qt] = p
     return out
+
+
+@pytest.fixture(scope="module")
+def moe_gguf(tmp_path_factory):
+    p = str(tmp_path_factory.mktemp("moe") / "m.gguf")
+    make_tiny_llama_gguf(p, qtype=GGMLType.Q4_K, seed=21, **MOE)
+    return p
 
 
 def _jax_load(path, **kw):
@@ -84,16 +95,20 @@ def test_load_dense_matches(ggufs, qtype):
 
 
 def test_load_refuses_moe(tmp_path):
-    # a Mixtral-style llama GGUF loads in the JAX package; the port refuses
-    # it (with the loaded hparams carried across too) until MoE is ported
+    # a Mixtral-style llama GGUF with group-limited routing (an MoE option
+    # not ported yet) loads in the JAX package; the port refuses it, with
+    # the loaded hparams carried across too
     from tpullama_torch.models import params_from_numpy
 
     p = str(tmp_path / "moe.gguf")
-    make_tiny_llama_gguf(p, n_embd=64, n_ff=128, n_expert=4, seed=3)
+    make_tiny_llama_gguf(p, n_embd=64, n_ff=128, n_expert=4, seed=3,
+                         extra_kv={"llama.expert_group_count": 2,
+                                   "llama.expert_group_used_count": 1})
     j = _jax_load(p)
-    with pytest.raises(NotImplementedError, match="MoE"):
+    assert j.hparams.n_expert_groups == 2
+    with pytest.raises(NotImplementedError, match="MoE with group-limited routing"):
         _port_load(p)
-    with pytest.raises(NotImplementedError, match="MoE"):
+    with pytest.raises(NotImplementedError, match="MoE with group-limited routing"):
         params_from_numpy({}, None, j.hparams, device="cpu")
 
 
@@ -128,6 +143,64 @@ def test_params_from_numpy(ggufs, qtype):
     _assert_same_tree(_to_numpy(t.params), _jax_numpy(j.params))
 
 
+@pytest.mark.parametrize("mode", ["dense", "packed-f32", "packed-bf16"])
+def test_load_moe_matches(moe_gguf, mode):
+    """The MoE model's load tree: router and expert stacks (flat
+    (n_layer * n_expert, rows_p, kcols) planes, transposed by the planes_t
+    rule, gate and up fused) and every QuantMeta field equal the JAX
+    package's."""
+    kw = {} if mode == "dense" else dict(packed=True)
+    jkw, tkw = dict(kw), dict(kw)
+    if mode == "packed-f32":
+        jkw["packed_scale_dtype"], tkw["packed_scale_dtype"] = np.float32, torch.float32
+    j = _jax_load(moe_gguf, **jkw)
+    t = _port_load(moe_gguf, **tkw)
+    _assert_same_tree(_to_numpy(t.params), _jax_numpy(j.params))
+    assert vars(t.hparams) == {k: getattr(j.hparams, k) for k in vars(t.hparams)}
+    if mode == "dense":
+        assert t.quant_meta is None and j.quant_meta is None
+        return
+    jm, tm = j.quant_meta["layers"], t.quant_meta["layers"]
+    assert set(tm) == set(jm)
+    for key, m in jm.items():
+        assert (int(tm[key].ggml_type), tm[key].group, tm[key].n_out, tm[key].n_in,
+                tm[key].planes_t) == (int(m.ggml_type), m.group, m.n_out, m.n_in, m.planes_t)
+    # K = 256 gives 8 scale groups, not a multiple of 128: both stacks transposed
+    assert tm["ffn_gateup_exps"].planes_t and tm["ffn_down_exps"].planes_t
+
+
+@pytest.mark.parametrize("planes_t_env", ["auto", "0"])
+def test_params_from_numpy_moe(moe_gguf, planes_t_env, monkeypatch):
+    """A JAX-loaded MoE model carried across equals the port's own load and
+    the JAX arrays; loaded with TPULLAMA_MOE_PLANES_T=0 (the JAX package's
+    switch) it carries row-major expert planes, which the port runs to the
+    same logits."""
+    import jax
+
+    from tpullama.runtime import Context as JC
+    from tpullama.runtime import ContextParams as JCP
+    from tpullama_torch.models import params_from_numpy
+    from tpullama_torch.runtime import Context as TC
+    from tpullama_torch.runtime import ContextParams as TCP
+
+    monkeypatch.setenv("TPULLAMA_MOE_PLANES_T", planes_t_env)
+    j = _jax_load(moe_gguf, packed=True, packed_scale_dtype=np.float32)
+    carried = params_from_numpy(jax.tree.map(np.asarray, j.params), j.quant_meta, j.hparams,
+                                device="cpu", vocab=None)
+    _assert_same_tree(_to_numpy(carried.params), _jax_numpy(j.params))
+    lm = carried.quant_meta["layers"]
+    assert lm["ffn_gateup_exps"].planes_t == lm["ffn_down_exps"].planes_t == \
+        (planes_t_env == "auto")
+    if planes_t_env == "auto":
+        t = _port_load(moe_gguf, packed=True, packed_scale_dtype=torch.float32)
+        assert carried.quant_meta == t.quant_meta
+        _assert_same_tree(_to_numpy(carried.params), _to_numpy(t.params))
+    toks = np.asarray(j.vocab.tokenize(LONG_PROMPT, add_special=True))
+    lj = JC(j, JCP(n_ctx=96)).decode(toks, n_logits=len(toks))
+    lt = TC(carried, TCP(n_ctx=96)).decode(toks, n_logits=len(toks))
+    np.testing.assert_allclose(lt, lj, **LOGIT_TOL)
+
+
 def _contexts(path, n_seqs=1, n_ctx=96, **load_kw):
     from tpullama.runtime import Context as JC
     from tpullama.runtime import ContextParams as JCP
@@ -144,20 +217,34 @@ def _contexts(path, n_seqs=1, n_ctx=96, **load_kw):
             tm.vocab.tokenize(PROMPT, add_special=True))
 
 
-@pytest.mark.parametrize("qtype", QTYPES + [GGMLType.F32], ids=lambda t: t.name)
-def test_prefill_logits_and_greedy_generate(ggufs, qtype):
-    load_kw = {} if qtype == GGMLType.F32 else dict(packed=True, packed_scale_dtype=np.float32)
-    jc, tc, toks = _contexts(ggufs[qtype], **load_kw)
+def _check_prefill_and_generate(path, prompt=PROMPT, **load_kw):
+    jc, tc, _ = _contexts(path, **load_kw)
+    toks = tc.model.vocab.tokenize(prompt, add_special=True)
     lj = jc.decode(np.asarray(toks), n_logits=len(toks))
     lt = tc.decode(np.asarray(toks), n_logits=len(toks))
     assert lt.shape == lj.shape
     np.testing.assert_allclose(lt, lj, **LOGIT_TOL)
-    jc, tc, _ = _contexts(ggufs[qtype], **load_kw)
+    jc, tc, _ = _contexts(path, **load_kw)
     out_j = jc.generate(toks, n_predict=12)
     out_t = tc.generate(toks, n_predict=12)
     assert out_t == out_j
     assert int(tc.n_past[0]) == int(jc.n_past[0])
     np.testing.assert_array_equal(tc._pos_host, jc._pos_host)
+
+
+@pytest.mark.parametrize("qtype", QTYPES + [GGMLType.F32], ids=lambda t: t.name)
+def test_prefill_logits_and_greedy_generate(ggufs, qtype):
+    load_kw = {} if qtype == GGMLType.F32 else dict(packed=True, packed_scale_dtype=np.float32)
+    _check_prefill_and_generate(ggufs[qtype], **load_kw)
+
+
+@pytest.mark.parametrize("prompt", [PROMPT, LONG_PROMPT], ids=["short", "long"])
+@pytest.mark.parametrize("mode", ["dense", "packed"])
+def test_moe_prefill_logits_and_greedy_generate(moe_gguf, mode, prompt):
+    """The short prompt's prefill runs one-row expert tiles, the long one
+    (40 tokens, 80 slots) the dispatch; greedy decode one-row tiles."""
+    load_kw = {} if mode == "dense" else dict(packed=True, packed_scale_dtype=np.float32)
+    _check_prefill_and_generate(moe_gguf, prompt, **load_kw)
 
 
 def test_llama_forward_functional(ggufs):
@@ -197,8 +284,16 @@ def test_decode_batch_and_burst(ggufs):
     """Multi-sequence prefill (decode_multi), one batched step with an
     inactive lane, then a greedy burst: same logits, same burst ids, same
     cache bookkeeping; rollback_to and seq_rm move both the same way."""
-    jc, tc, toks = _contexts(ggufs[GGMLType.Q4_K], n_seqs=3, packed=True,
-                             packed_scale_dtype=np.float32)
+    _check_decode_batch_and_burst(ggufs[GGMLType.Q4_K])
+
+
+def test_moe_decode_batch_and_burst(moe_gguf):
+    """test_decode_batch_and_burst on the MoE model."""
+    _check_decode_batch_and_burst(moe_gguf)
+
+
+def _check_decode_batch_and_burst(path):
+    jc, tc, toks = _contexts(path, n_seqs=3, packed=True, packed_scale_dtype=np.float32)
     chunks = [(0, toks), (2, toks[:3] + [70, 71, 72, 73])]
     mj = jc.decode_multi(chunks)
     mt = tc.decode_multi(chunks)
@@ -260,7 +355,15 @@ def test_server_engine_script(ggufs):
     """Concurrent greedy and sampled requests with prompt chunks, a stop
     string, a prompt-cache reuse, a too-long prompt and a burst-decoded
     tail: the same completions and stop reasons as the JAX engine."""
-    path = ggufs[GGMLType.Q4_K]
+    _check_server_script(ggufs[GGMLType.Q4_K])
+
+
+def test_moe_server_engine_script(moe_gguf):
+    """test_server_engine_script on the MoE model."""
+    _check_server_script(moe_gguf)
+
+
+def _check_server_script(path):
     jm = _jax_load(path, packed=True, packed_scale_dtype=np.float32)
     tm = _port_load(path, packed=True, packed_scale_dtype=torch.float32)
     long_prompt = "The quick brown fox jumps over the lazy dog. " * 2

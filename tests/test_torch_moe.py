@@ -1,0 +1,259 @@
+"""The port's MoE pieces held against the JAX package on the CPU: the plain
+gathered quantized matmul (tpullama_torch/ops/cuda/qmm_gathered.py)
+against quantized_matmul_gathered(..., interpret=True) in both plane
+layouts, moe_dispatch's integer outputs, and moe_ffn dense and packed
+(split and fused [gate | up]) against tpullama/ops/moe.py. The CUDA
+kernels themselves run only on the card (marked cuda). The planes come
+from the port's copies of repack and transpose_planes (byte for byte the
+JAX package's, tests/test_torch_copies.py), and the modules that import
+jax are imported inside the tests that need them, so that the card's
+tests run where jax is not installed.
+
+Tolerances: the gathered products dequantize exactly on both sides and
+sum in f32 in another order: atol = 1e-4 + 1e-6 * max|y|, rtol = 1e-5 (as
+tests/test_torch_qmm.py). moe_ffn within rtol = atol = 2e-4 (the JAX
+package's own packed-vs-dense MoE tolerance). moe_dispatch exactly."""
+
+import numpy as np
+import pytest
+import torch
+
+from tpullama.gguf import GGMLType, quantize
+from tpullama_torch.ops.qweights import repack, transpose_planes
+from tpullama_torch.models.loader import QuantMeta as TQuantMeta
+from tpullama_torch.ops import moe as t_moe
+from tpullama_torch.ops.cuda import qmm_gathered as gq
+
+E, D, F = 4, 256, 320  # F = 320: expert rows padded to 384 (not a multiple of 128)
+
+
+def _experts(qtype, n_rows, n_in, seed, planes_t=False, pad=True):
+    """E random experts (n_rows, n_in) repacked: planes (E, rows_p, kcols),
+    rows zero-padded to 128 when `pad`, transposed when `planes_t`."""
+    rng = np.random.default_rng(seed)
+    pqs = [repack(quantize((rng.standard_normal((n_rows, n_in)) * 0.1).astype(np.float32),
+                           qtype), qtype, (n_rows, n_in)) for _ in range(E)]
+    rows_p = -(-n_rows // 128) * 128 if pad else n_rows
+    fields = {k: np.pad(np.stack([pq.fields[k] for pq in pqs]),
+                        ((0, 0), (0, rows_p - n_rows), (0, 0)))
+              for k in pqs[0].fields}
+    if planes_t:
+        fields = transpose_planes(fields)
+    return fields, pqs[0].group
+
+
+def _tol(want):
+    return dict(rtol=1e-5, atol=1e-4 + 1e-6 * float(np.abs(want).max()))
+
+
+GATHERED_CASES = [(qt, tt, pt) for qt in (GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0)
+                  for tt in (1, 8) for pt in (False, True)
+                  if not (pt and qt == GGMLType.Q6_K)]  # Q6_K is never stored transposed
+
+
+@pytest.mark.parametrize("qtype,tile_t,planes_t", GATHERED_CASES,
+                         ids=lambda v: getattr(v, "name", str(v)))
+def test_gathered_plain_matches_jax(qtype, tile_t, planes_t):
+    import jax.numpy as jnp
+
+    from tpullama.ops.pallas.qmm import quantized_matmul_gathered as j_gathered
+
+    fields, group = _experts(qtype, F, D, seed=tile_t, planes_t=planes_t)
+    rng = np.random.default_rng(50 + tile_t)
+    n_tiles = 6
+    sel = np.asarray([2, 2, 0, 3, 0, 2], np.int32)[:n_tiles]
+    x = rng.standard_normal((n_tiles * tile_t, D)).astype(np.float32)
+    got = gq.quantized_matmul_gathered(
+        torch.from_numpy(x), {k: torch.from_numpy(v) for k, v in fields.items()},
+        torch.from_numpy(sel), qtype, group, F, D, tile_t=tile_t, planes_t=planes_t)
+    assert got.dtype == torch.float32 and got.shape == (n_tiles * tile_t, F)
+    want = np.asarray(j_gathered(jnp.asarray(x), {k: jnp.asarray(v) for k, v in fields.items()},
+                                 jnp.asarray(sel), qtype, group, F, D, tile_t=tile_t,
+                                 interpret=True, planes_t=planes_t))
+    np.testing.assert_allclose(got.numpy(), want, **_tol(want))
+
+
+def test_gathered_plain_bf16_scales():
+    """bf16 scale planes (the served load's default) in both layouts."""
+    import jax.numpy as jnp
+
+    from tpullama.ops.pallas.qmm import quantized_matmul_gathered as j_gathered
+
+    x = np.random.default_rng(3).standard_normal((16, D)).astype(np.float32)
+    sel = np.asarray([1, 3], np.int32)
+    for planes_t in (False, True):
+        fields, group = _experts(GGMLType.Q4_K, F, D, seed=4, planes_t=planes_t)
+        ft = {k: torch.from_numpy(v) for k, v in fields.items()}
+        ft = {k: (v.to(torch.bfloat16) if k in ("scale", "minv") else v) for k, v in ft.items()}
+        fj = {k: (jnp.asarray(v).astype(jnp.bfloat16) if k in ("scale", "minv")
+                  else jnp.asarray(v)) for k, v in fields.items()}
+        got = gq.quantized_matmul_gathered(torch.from_numpy(x), ft, torch.from_numpy(sel),
+                                           GGMLType.Q4_K, group, F, D, tile_t=8,
+                                           planes_t=planes_t).numpy()
+        want = np.asarray(j_gathered(jnp.asarray(x), fj, jnp.asarray(sel), GGMLType.Q4_K,
+                                     group, F, D, tile_t=8, interpret=True, planes_t=planes_t))
+        np.testing.assert_allclose(got, want, **_tol(want))
+
+
+@pytest.mark.parametrize("S,n_expert,tile_t", [(40, 4, 1), (100, 4, 8), (2048, 8, 8), (7, 8, 8)])
+def test_moe_dispatch_matches_jax(S, n_expert, tile_t):
+    import jax.numpy as jnp
+
+    from tpullama.ops import moe as j_moe
+
+    sel = np.random.default_rng(S).integers(0, n_expert, S).astype(np.int32)
+    if S == 7:
+        sel[:] = 5  # one expert takes every slot; the others none
+    pj, tj, rj, Pj = j_moe.moe_dispatch(jnp.asarray(sel), n_expert, tile_t)
+    pt, tt_, rt, Pt = t_moe.moe_dispatch(torch.from_numpy(sel), n_expert, tile_t)
+    assert Pt == Pj
+    for a, b in ((pt, pj), (tt_, tj), (rt, rj)):
+        assert a.dtype == torch.int32
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def _router_inputs(T, seed=0, B=1):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((B, T, D)) * 0.3).astype(np.float32)
+    gate_inp = (rng.standard_normal((E, D)) * 0.05).astype(np.float32)
+    return x, gate_inp
+
+
+def _dense_experts(seed):
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal(s) * 0.1).astype(np.float32)
+            for s in ((E, F, D), (E, F, D), (E, D, F))]
+
+
+@pytest.mark.parametrize("T", [1, 40])
+@pytest.mark.parametrize("opts", [
+    dict(),
+    dict(gating=t_moe.GATING_SIGMOID, norm_w=False, w_scale=2.5),
+    dict(gating=t_moe.GATING_SOFTMAX_WEIGHT),
+    dict(bias=True),
+], ids=["softmax", "sigmoid-wscale", "softmax-weight", "biases"])
+def test_moe_ffn_dense_matches_jax(T, opts):
+    import jax.numpy as jnp
+
+    from tpullama.ops import moe as j_moe
+
+    x, gate_inp = _router_inputs(T, seed=T, B=2)
+    g, u, d = _dense_experts(7)
+    kw = dict(opts)
+    if kw.pop("bias", False):
+        rng = np.random.default_rng(9)
+        kw["exp_probs_b"] = (0.3 * rng.standard_normal(E)).astype(np.float32)
+        kw["gate_inp_b"] = (0.1 * rng.standard_normal(E)).astype(np.float32)
+    jkw = {k: (jnp.asarray(v) if isinstance(v, np.ndarray) else v) for k, v in kw.items()}
+    tkw = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v) for k, v in kw.items()}
+    want = np.asarray(j_moe.moe_ffn(jnp.asarray(x), jnp.asarray(gate_inp), jnp.asarray(g),
+                                    jnp.asarray(u), jnp.asarray(d), n_expert_used=2, **jkw))
+    got = t_moe.moe_ffn(torch.from_numpy(x), torch.from_numpy(gate_inp), torch.from_numpy(g),
+                        torch.from_numpy(u), torch.from_numpy(d), n_expert_used=2, **tkw)
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("T", [1, 40])  # 2 and 80 slots: one-row tiles, then the dispatch
+@pytest.mark.parametrize("layout", ["split", "fused", "fused-planes_t"])
+def test_moe_ffn_packed_matches_jax(T, layout):
+    import jax.numpy as jnp
+
+    from tpullama.models.loader import QuantMeta as JQuantMeta
+    from tpullama.ops import moe as j_moe
+
+    qt = GGMLType.Q4_0  # blocks of 32, so down can contract K = F = 320
+    planes_t = layout == "fused-planes_t"
+    x, gate_inp = _router_inputs(T, seed=11)
+    g, group = _experts(qt, F, D, 1, planes_t, pad=layout != "split")
+    u, _ = _experts(qt, F, D, 2, planes_t, pad=layout != "split")
+    dn, _ = _experts(qt, D, F, 3, planes_t)
+    if layout == "split":  # 2-D (E * F, kcols) planes, as the JAX package's tests pass them
+        g, u = ({k: v.reshape(E * F, -1) for k, v in a.items()} for a in (g, u))
+        stacks = (g, u, dn)
+        shapes = {"gate": (E * F, D), "up": (E * F, D), "down": (E * D, F)}
+    else:  # per expert [gate rows_p | up rows_p] on the rows axis of the layout
+        axis = -1 if planes_t else -2
+        stacks = (None, {k: np.concatenate([g[k], u[k]], axis=axis) for k in g}, dn)
+        shapes = {"gateup": (E * 2 * 384, D), "down": (E * D, F)}
+    jm = {k: JQuantMeta(qt, group, *s, planes_t=planes_t) for k, s in shapes.items()}
+    tm = {k: TQuantMeta(qt, group, *s, planes_t=planes_t) for k, s in shapes.items()}
+    want = np.asarray(j_moe.moe_ffn(
+        jnp.asarray(x), jnp.asarray(gate_inp),
+        *[None if a is None else {k: jnp.asarray(v) for k, v in a.items()} for a in stacks],
+        n_expert_used=2, quant_meta_exps=jm))
+    got = t_moe.moe_ffn(
+        torch.from_numpy(x), torch.from_numpy(gate_inp),
+        *[None if a is None else {k: torch.from_numpy(v) for k, v in a.items()} for a in stacks],
+        n_expert_used=2, quant_meta_exps=tm)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("option", [
+    dict(up_exps_b=np.zeros((E, F), np.float32)), dict(gate_exps_b=np.zeros((E, F), np.float32)),
+    dict(down_exps_b=np.zeros((E, D), np.float32)), dict(weight_before_ffn=True),
+    dict(select_logits=True), dict(x_router=np.zeros((1, 1, D), np.float32)),
+    dict(select_sigmoid=True), dict(expert_div=2), dict(n_expert_groups=2),
+    dict(ep_axis="ep"), dict(act="swiglu_oai"),
+], ids=lambda o: next(iter(o)) + ("=" + o["act"] if "act" in o else ""))
+def test_moe_ffn_refuses_options_not_ported(option):
+    x, gate_inp = _router_inputs(1)
+    g, u, d = (torch.from_numpy(a) for a in _dense_experts(7))
+    kw = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v) for k, v in option.items()}
+    name = next(iter(option))
+    with pytest.raises(NotImplementedError, match=name):
+        t_moe.moe_ffn(torch.from_numpy(x), torch.from_numpy(gate_inp), g, u, d,
+                      n_expert_used=2, **kw)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("the gathered qmm kernels run on a CUDA card only")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_t", [1, 8])
+@pytest.mark.parametrize("qtype,planes_t", [(GGMLType.Q4_K, False), (GGMLType.Q6_K, False),
+                                            (GGMLType.Q8_0, False), (GGMLType.Q4_K, True),
+                                            (GGMLType.Q8_0, True)],
+                         ids=lambda v: getattr(v, "name", str(v)))
+def test_gathered_kernel_matches_plain(cuda, qtype, planes_t, tile_t):
+    """Each kernel against its plain version at K = 1024 (the row-major
+    kernel's Q8_0 K multiple), padded rows, f32 and bf16 scales: the
+    kernels sum in f32 in another order, so 1e-4 of the output's scale."""
+    n_rows, n_in = F, 1024
+    fields, group = _experts(qtype, n_rows, n_in, seed=tile_t, planes_t=planes_t)
+    rng = np.random.default_rng(tile_t)
+    sel = torch.tensor([3, 1, 1, 0, 3], dtype=torch.int32, device=cuda)
+    x = torch.from_numpy(rng.standard_normal((5 * tile_t, n_in)).astype(np.float32)).to(cuda)
+    for sdt in (torch.float32, torch.bfloat16):
+        ft = {k: torch.from_numpy(v).to(cuda, sdt if k in ("scale", "minv") else None)
+              for k, v in fields.items()}
+        name = "qmm_gathered_t" if planes_t else "qmm_gathered"
+        before = gq.LAUNCHES[name]
+        got = gq.quantized_matmul_gathered(x, ft, sel, qtype, group, n_rows, n_in,
+                                           tile_t=tile_t, planes_t=planes_t)
+        assert gq.LAUNCHES[name] == before + 1
+        want = gq.quantized_matmul_gathered_plain(x, ft, sel, qtype, group, n_rows, n_in,
+                                                  tile_t=tile_t, planes_t=planes_t)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planes_t", [False, True])
+def test_gathered_kernel_raises_without_fallback(cuda, planes_t):
+    """A field set the kernels do not cover (MXFP4's LUT planes, which
+    come with the gpt-oss slice) raises on a CUDA tensor in either layout;
+    it does not run the plain version."""
+    fields, group = _experts(GGMLType.MXFP4, 256, 1024, seed=0, planes_t=planes_t)
+    ft = {k: torch.from_numpy(v).to(cuda) for k, v in fields.items()}
+    x = torch.zeros((2, 1024), device=cuda)
+    sel = torch.zeros(2, dtype=torch.int32, device=cuda)
+    before = dict(gq.LAUNCHES)
+    with pytest.raises(NotImplementedError, match="MXFP4"):
+        gq.quantized_matmul_gathered(x, ft, sel, GGMLType.MXFP4, group, 256, 1024,
+                                     planes_t=planes_t)
+    assert gq.LAUNCHES == before

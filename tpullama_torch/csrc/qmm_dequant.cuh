@@ -1,0 +1,182 @@
+// Dequantization helpers shared by the planar qmm kernels (qmm.cu) and the
+// gathered MoE kernels (qmm_gathered.cu).
+//
+// The planes are tpullama/ops/qweights.py's: "global stripe" nibble/crumb
+// planes in group-transposed stored order plus per-group scale (and min)
+// planes, f32 or bf16. A stored position p of a row holds natural element
+// (p % G) * g + p / G (G = K / g), and its scale/min sit at column p % G.
+// Every weight is q * scale - minv in f32 with two roundings and no
+// contraction, the plain versions' arithmetic, so a kernel's weights equal
+// its plain version's bit for bit.
+//
+// Field sets:
+//   KIND_Q4: {q4, scale, minv}      g=32  (Q4_0, Q4_1, Q4_K)
+//   KIND_Q6: {q4, q2, scale, minv}  g=16  (Q6_K: value = q4 | q2 << 4)
+//   KIND_Q8: {q8, scale}            g=32  (Q8_0, signed bytes)
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tpl {
+
+constexpr int KIND_Q4 = 0;
+constexpr int KIND_Q6 = 1;
+constexpr int KIND_Q8 = 2;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// N contiguous elements of T starting at a 16-byte (or, for 8-byte
+// totals, 8-byte) aligned address -> f32.
+template <typename T, int N>
+__device__ __forceinline__ void load_f(const T* __restrict__ p, float (&out)[N]) {
+  constexpr int BYTES = N * (int)sizeof(T);
+  static_assert(BYTES % 8 == 0, "vector load width");
+  if constexpr (BYTES % 16 == 0) {
+    constexpr int PER = 16 / (int)sizeof(T);
+#pragma unroll
+    for (int i = 0; i < BYTES / 16; ++i) {
+      uint4 u = reinterpret_cast<const uint4*>(p)[i];
+      const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+      for (int j = 0; j < PER; ++j) out[i * PER + j] = to_f(e[j]);
+    }
+  } else {
+    constexpr int PER = 8 / (int)sizeof(T);
+#pragma unroll
+    for (int i = 0; i < BYTES / 8; ++i) {
+      uint2 u = reinterpret_cast<const uint2*>(p)[i];
+      const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+      for (int j = 0; j < PER; ++j) out[i * PER + j] = to_f(e[j]);
+    }
+  }
+}
+
+__device__ __forceinline__ float deq(float q, float s, float m) {
+  // two roundings, no contraction: the same arithmetic as the plain
+  // version (q * scale, then - minv)
+  return __fsub_rn(__fmul_rn(q, s), m);
+}
+
+template <int KIND>
+struct Geo {
+  // quant group size, x segments per 32-position chunk, segment length
+  static constexpr int GROUP = KIND == KIND_Q6 ? 16 : 32;
+  static constexpr int NSEG = KIND == KIND_Q4 ? 2 : (KIND == KIND_Q6 ? 4 : 1);
+  static constexpr int SEG = 32 / NSEG;
+  // stored position of segment j of chunk c
+  __device__ __forceinline__ static int seg_start(int c, int j, int K) {
+    if constexpr (KIND == KIND_Q4) return j * (K / 2) + 16 * c;
+    else if constexpr (KIND == KIND_Q6) return j * (K / 4) + 8 * c;
+    else return 32 * c;
+  }
+};
+
+// Dequantize chunk c (32 stored positions) of row n into w, in chunk-local
+// order u = segment * SEG + offset.
+template <int KIND, typename ST>
+__device__ __forceinline__ void decode_chunk(const uint8_t* __restrict__ qa,
+                                             const uint8_t* __restrict__ qb,
+                                             const ST* __restrict__ srow,
+                                             const ST* __restrict__ mrow, int n,
+                                             int c, int K, float (&w)[32]) {
+  constexpr int GROUP = Geo<KIND>::GROUP;
+  const int G = K / GROUP;
+  if constexpr (KIND == KIND_Q4) {
+    uint4 qv = *reinterpret_cast<const uint4*>(qa + (size_t)n * (K / 2) + 16 * c);
+    const uint8_t* b = reinterpret_cast<const uint8_t*>(&qv);
+    const int s0 = (16 * c) % G;
+    float s[16], m[16];
+    load_f<ST, 16>(srow + s0, s);
+    load_f<ST, 16>(mrow + s0, m);
+#pragma unroll
+    for (int t = 0; t < 16; ++t) {
+      w[t] = deq((float)(b[t] & 15), s[t], m[t]);
+      w[16 + t] = deq((float)(b[t] >> 4), s[t], m[t]);
+    }
+  } else if constexpr (KIND == KIND_Q6) {
+    const uint8_t* row4 = qa + (size_t)n * (K / 2);
+    uint2 av = *reinterpret_cast<const uint2*>(row4 + 8 * c);
+    uint2 bv = *reinterpret_cast<const uint2*>(row4 + K / 4 + 8 * c);
+    uint2 hv = *reinterpret_cast<const uint2*>(qb + (size_t)n * (K / 4) + 8 * c);
+    const uint8_t* A = reinterpret_cast<const uint8_t*>(&av);
+    const uint8_t* B = reinterpret_cast<const uint8_t*>(&bv);
+    const uint8_t* H = reinterpret_cast<const uint8_t*>(&hv);
+    const int s0 = (8 * c) % G;
+    float s[8], m[8];
+    load_f<ST, 8>(srow + s0, s);
+    load_f<ST, 8>(mrow + s0, m);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const int h = H[t];
+      w[t] = deq((float)((A[t] & 15) | ((h & 3) << 4)), s[t], m[t]);
+      w[8 + t] = deq((float)((B[t] & 15) | (((h >> 2) & 3) << 4)), s[t], m[t]);
+      w[16 + t] = deq((float)((A[t] >> 4) | (((h >> 4) & 3) << 4)), s[t], m[t]);
+      w[24 + t] = deq((float)((B[t] >> 4) | (((h >> 6) & 3) << 4)), s[t], m[t]);
+    }
+  } else {
+    const uint4* q = reinterpret_cast<const uint4*>(qa + (size_t)n * K + 32 * c);
+    uint4 q0 = q[0], q1 = q[1];
+    const int8_t* b0 = reinterpret_cast<const int8_t*>(&q0);
+    const int8_t* b1 = reinterpret_cast<const int8_t*>(&q1);
+    const int s0 = (32 * c) % G;
+    float s[32];
+    load_f<ST, 32>(srow + s0, s);
+#pragma unroll
+    for (int t = 0; t < 16; ++t) {
+      w[t] = __fmul_rn((float)b0[t], s[t]);
+      w[16 + t] = __fmul_rn((float)b1[t], s[16 + t]);
+    }
+  }
+}
+
+// One warp: y[r * ldy] = x[r] . W[n] for r < T <= TT, x rows of K stored
+// positions. Lanes stride over the row's 32-position chunks, then a shuffle
+// reduction; x rows are read through L1.
+template <int KIND, typename XT, typename ST, int TT>
+__device__ __forceinline__ void warp_row_dot(const XT* __restrict__ x,
+                                             const uint8_t* __restrict__ qa,
+                                             const uint8_t* __restrict__ qb,
+                                             const ST* __restrict__ scale,
+                                             const ST* __restrict__ minv, int n,
+                                             int T, int K, float* __restrict__ y,
+                                             int ldy, int lane) {
+  using GE = Geo<KIND>;
+  const int G = K / GE::GROUP;
+  const ST* srow = scale + (size_t)n * G;
+  const ST* mrow = KIND == KIND_Q8 ? nullptr : minv + (size_t)n * G;
+  float acc[TT];
+#pragma unroll
+  for (int r = 0; r < TT; ++r) acc[r] = 0.f;
+  const int n_chunks = K / 32;
+  for (int c = lane; c < n_chunks; c += 32) {
+    float w[32];
+    decode_chunk<KIND, ST>(qa, qb, srow, mrow, n, c, K, w);
+#pragma unroll
+    for (int r = 0; r < TT; ++r) {
+      if (r < T) {
+        const XT* xr = x + (size_t)r * K;
+#pragma unroll
+        for (int j = 0; j < GE::NSEG; ++j) {
+          float xv[GE::SEG];
+          load_f<XT, GE::SEG>(xr + GE::seg_start(c, j, K), xv);
+#pragma unroll
+          for (int t = 0; t < GE::SEG; ++t) acc[r] = fmaf(xv[t], w[j * GE::SEG + t], acc[r]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < TT; ++r) {
+    float v = acc[r];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (lane == 0 && r < T) y[(size_t)r * ldy] = v;
+  }
+}
+
+}  // namespace tpl

@@ -2,9 +2,10 @@
 
 The part of tpullama/models/hparams.py that the port reads. Key strings
 follow the reference's key-name table exactly (src/llama-arch.cpp:119-268);
-the fields are those of src/llama-hparams.h that a plain llama-family
-model sets. Other architectures' fields and per-arch branches come across
-with the slice that ports them; until then from_gguf refuses them.
+the fields are those of src/llama-hparams.h that a llama-family model,
+Mixtral-style MoE included, sets. Other architectures' fields and
+per-arch branches come across with the slice that ports them; until then
+from_gguf refuses them.
 """
 
 from __future__ import annotations
@@ -52,8 +53,15 @@ class HParams:
     attn_logit_softcap: float = 0.0
     n_swa: int = 0  # sliding window size (0 = none); not ported yet
 
-    # MoE (llama-family GGUFs such as Mixtral carry it); not ported yet
+    # MoE (Mixtral-style llama GGUFs carry it; build_moe_ffn's options)
     n_expert: int = 0
+    n_expert_used: int = 0
+    n_expert_groups: int = 0  # group-limited routing: not ported, refused
+    expert_weights_scale: float = 0.0
+    expert_weights_norm: bool = False
+    expert_gating_func: int = 1  # 1=softmax, 2=sigmoid, 3=post-top-k softmax
+    moe_norm_topk: bool = True  # renormalize the top-k weights (norm_w)
+    moe_act: str = "silu"
 
     @classmethod
     def from_gguf(cls, reader) -> "HParams":
@@ -108,4 +116,9 @@ class HParams:
             attn_logit_softcap=float(g("attn_logit_softcapping", 0.0)),
             n_swa=int(g("attention.sliding_window", 0) or 0),
             n_expert=int(g("expert_count", 0) or 0),
+            n_expert_used=int(g("expert_used_count", 0) or 0),
+            n_expert_groups=int(g("expert_group_count", 0) or 0),
+            expert_weights_scale=float(g("expert_weights_scale", 0.0) or 0.0),
+            expert_weights_norm=bool(g("expert_weights_norm", False)),
+            expert_gating_func=int(g("expert_gating_func", 1) or 1),
         )

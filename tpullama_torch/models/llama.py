@@ -1,18 +1,19 @@
 """Llama-family forward pass in PyTorch.
 
-Port of tpullama/models/llama.py:llama_forward for the plain llama family
-(llama, llama-2/3, mistral, qwen2 biases; no MoE, SWA, fused layer or
-parallel modes): per layer [rms_norm -> q/k/v (+bias) -> rope -> write K/V
-into the cache -> attention -> o-proj -> residual -> rms_norm -> SwiGLU FFN
--> residual], final norm, lm_head.
+Port of tpullama/models/llama.py:llama_forward for the llama family
+(llama, llama-2/3, mistral, qwen2 biases, Mixtral-style MoE; no SWA, fused
+layer or parallel modes): per layer [rms_norm -> q/k/v (+bias) -> rope ->
+write K/V into the cache -> attention -> o-proj -> residual -> rms_norm ->
+SwiGLU FFN or MoE FFN -> residual], final norm, lm_head.
 
 The JAX package scans a stacked layer axis and gets a new cache back from
 each step (the cache argument is donated). Here the layers are nn.Modules
 called in a Python loop, each holding views of the stacked weights, and
 each writes its new K/V rows IN PLACE into its view of one preallocated
 (L, B, Hkv, S, D) cache tensor (index_put_), so no cache copy is made.
-Packed weights go through the fused dequant-matmul (ops/cuda/qmm.py);
-attention through attention_auto (the flash kernels on CUDA tensors).
+Packed weights go through the fused dequant-matmul (ops/cuda/qmm.py),
+packed experts through the gathered one (ops/moe.py); attention through
+attention_auto (the flash kernels on CUDA tensors).
 """
 
 from __future__ import annotations
@@ -24,9 +25,13 @@ from torch import nn
 from ..ops.activations import silu
 from ..ops.attention import attention_auto
 from ..ops.cuda.qmm import quantized_matmul
+from ..ops.moe import moe_ffn
 from ..ops.norms import rms_norm
 from ..ops.rope import RopeParams, apply_rope, rope_cache
 from .hparams import HParams
+
+# packed expert stacks: flat (n_layer * n_expert, ...) planes
+_EXPERT_STACKS = ("ffn_gate_exps", "ffn_up_exps", "ffn_gateup_exps", "ffn_down_exps")
 
 
 def linear(x: torch.Tensor, w, meta=None) -> torch.Tensor:
@@ -100,6 +105,22 @@ class LlamaLayer(nn.Module):
         att = linear(att.reshape(B, T, Hq * Dv), w["attn_output"], m.get("attn_output"))
         x = x + att
         h = rms_norm(x, w["ffn_norm"], hp.f_norm_rms_eps)
+        if "ffn_gate_inp" in w:
+            # MoE branch (the JAX package's llama.py:734-777: softmax gating,
+            # norm_w, SiLU for the llama arch)
+            if "ffn_gateup_exps" in m:
+                metas = {"gateup": m["ffn_gateup_exps"], "down": m["ffn_down_exps"]}
+            elif "ffn_up_exps" in m:
+                metas = {"gate": m["ffn_gate_exps"], "up": m["ffn_up_exps"],
+                         "down": m["ffn_down_exps"]}
+            else:
+                metas = None
+            return x + moe_ffn(
+                h, w["ffn_gate_inp"], w.get("ffn_gate_exps"),
+                w.get("ffn_gateup_exps", w.get("ffn_up_exps")), w["ffn_down_exps"],
+                n_expert_used=hp.n_expert_used, gating=hp.expert_gating_func,
+                norm_w=hp.moe_norm_topk, w_scale=hp.expert_weights_scale, act=hp.moe_act,
+                quant_meta_exps=metas)
         gate = linear(h, w["ffn_gate"], m.get("ffn_gate"))
         up = linear(h, w["ffn_up"], m.get("ffn_up"))
         act = silu(gate.float()).to(gate.dtype) * up
@@ -117,11 +138,16 @@ class LlamaModel(nn.Module):
         lmeta = self.quant_meta.get("layers", {})
         stacks = params["layers"]
 
-        def view(t, li):
-            return {k: a[li] for k, a in t.items()} if isinstance(t, dict) else t[li]
+        def view(key, t, li):
+            if not isinstance(t, dict):
+                return t[li]
+            if key in _EXPERT_STACKS:  # this layer's (n_expert, ...) experts
+                E = hp.n_expert
+                return {k: a[li * E:(li + 1) * E] for k, a in t.items()}
+            return {k: a[li] for k, a in t.items()}
 
         self.layers = nn.ModuleList(
-            LlamaLayer({k: view(t, li) for k, t in stacks.items()}, lmeta, hp)
+            LlamaLayer({k: view(k, t, li) for k, t in stacks.items()}, lmeta, hp)
             for li in range(hp.n_layer)
         )
         self.rp = rope_params(hp)

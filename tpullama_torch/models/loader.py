@@ -1,10 +1,10 @@
 """Model loader: GGUF -> PyTorch parameters on a device.
 
 Port of tpullama/models/loader.py for the llama family (llama, mistral,
-qwen2 without MoE). Per-layer tensors of equal shape are stacked along a
-leading layer axis, as in the JAX package, so the two packages hold the
-same arrays under the same names; the forward pass walks per-layer views
-of the stacks.
+qwen2, and Mixtral-style MoE llama). Per-layer tensors of equal shape are
+stacked along a leading layer axis, as in the JAX package, so the two
+packages hold the same arrays under the same names; the forward pass
+walks per-layer views of the stacks.
 
 Two weight modes:
   - dense (default): blocks decoded to `dtype` at load.
@@ -12,7 +12,10 @@ Two weight modes:
     layout of ops/qweights.py (uint8 planes + scale/min planes), byte for
     byte the JAX package's planes, for the fused dequant-matmul kernel.
     Only `output` among the top-level tensors is packed; the token table
-    stays dense, as in the JAX package.
+    stays dense, as in the JAX package. Expert tensors pack as flat
+    (n_layer * n_expert, rows_p, kcols) stacks, rows zero-padded to 128,
+    transposed by the JAX loader's planes_t rule, with gate and up fused
+    into one [gate | up] stack (ffn_gateup_exps).
 
 `params_from_numpy` carries a JAX-loaded model's parameters across (as
 numpy arrays), so both packages can be held against each other on the
@@ -33,7 +36,8 @@ import torch
 from ..device import resolve_device
 from ..gguf import GGMLType, GGUFReader
 from ..gguf.quants import dequantize
-from ..ops.qweights import PACKED_TYPES, PlanarQuant, repack
+from ..ops.cuda.qmm_gathered import PLANES_T_FIELDS
+from ..ops.qweights import PACKED_TYPES, repack, transpose_planes
 from .hparams import LLAMA_FAMILY, HParams
 
 # per-layer tensor suffixes of the llama family -> param names
@@ -50,7 +54,12 @@ _LAYER_TENSORS = {
     "ffn_gate.weight": "ffn_gate",
     "ffn_up.weight": "ffn_up",
     "ffn_down.weight": "ffn_down",
+    "ffn_gate_inp.weight": "ffn_gate_inp",
+    "ffn_gate_exps.weight": "ffn_gate_exps",
+    "ffn_up_exps.weight": "ffn_up_exps",
+    "ffn_down_exps.weight": "ffn_down_exps",
 }
+_EXPERT_TRIO = ("ffn_gate_exps", "ffn_up_exps", "ffn_down_exps")
 
 _TOP_TENSORS = {
     "token_embd.weight": "tok_embd",
@@ -71,6 +80,9 @@ class QuantMeta:
     group: int
     n_out: int
     n_in: int
+    # transposed planes (..., kcols, rows) of an expert stack, for the
+    # transposed gathered kernel (ops/cuda/qmm_gathered.py)
+    planes_t: bool = False
 
 
 @dataclass
@@ -97,13 +109,38 @@ class LoadedModel:
 
 
 def check_supported(hp: HParams) -> None:
-    """Raise for anything outside the slice: the plain llama family."""
+    """Raise for anything outside the slices ported: the llama family, and
+    MoE on the llama arch (Mixtral) without group-limited routing."""
     if hp.arch not in LLAMA_FAMILY:
         raise NotImplementedError(f"tpullama_torch: arch {hp.arch!r} is not ported yet")
-    if hp.n_expert or hp.n_swa:
+    if hp.n_swa:
         raise NotImplementedError(
-            f"tpullama_torch: {hp.arch!r} with MoE or sliding-window attention is not "
-            "ported yet")
+            f"tpullama_torch: {hp.arch!r} with sliding-window attention is not ported yet")
+    if hp.n_expert and hp.arch != "llama":
+        raise NotImplementedError(f"tpullama_torch: {hp.arch!r} with MoE is not ported yet")
+    if hp.n_expert_groups > 1:
+        raise NotImplementedError(
+            "tpullama_torch: MoE with group-limited routing is not ported yet")
+
+
+def _expert_planes(fields: dict, n_expert: int) -> tuple[dict, bool]:
+    """One layer's repacked expert tensor, planes (n_expert * rows, kcols)
+    -> (n_expert, rows_p, kcols) with rows zero-padded to a multiple of
+    128; then transposed to (n_expert, kcols, rows_p) by the JAX loader's
+    planes_t rule (tpullama/models/loader.py:598-626): some plane's width
+    is not a multiple of 128, the field set has one stripe width, and every
+    quant plane's width is a multiple of 32. Returns (planes, planes_t)."""
+    out = {}
+    for k, v in fields.items():
+        rows = v.shape[0] // n_expert
+        rows_p = -(-rows // 128) * 128
+        a = v.reshape(n_expert, rows, v.shape[-1])
+        out[k] = np.pad(a, ((0, 0), (0, rows_p - rows), (0, 0))) if rows_p != rows else a
+    planes_t = (any(v.shape[-1] % 128 for v in out.values())
+                and set(out) <= PLANES_T_FIELDS
+                and all(v.shape[-1] % (32 if v.dtype.itemsize == 1 else 16) == 0
+                        for k, v in out.items() if k not in ("scale", "minv")))
+    return (transpose_planes(out) if planes_t else out), planes_t
 
 
 def _torch_dtype(d) -> torch.dtype:
@@ -144,10 +181,10 @@ def load_model(source, dtype=torch.float32, device=None, packed: bool = False,
             top[_TOP_TENSORS[name]] = name
     n_layer = hp.n_layer or (max(layer_names) + 1 if layer_names else 0)
 
-    def packable(tname: str) -> bool:
+    def packable(tname: str, allow_3d: bool = False) -> bool:
         info = reader.tensors[tname]
-        return (packed and len(info.shape) == 2 and info.ggml_type in PACKED_TYPES
-                and info.shape[-1] % 256 == 0)
+        return (packed and (len(info.shape) == 2 or (allow_3d and len(info.shape) == 3))
+                and info.ggml_type in PACKED_TYPES and info.shape[-1] % 256 == 0)
 
     def fetch_dense(tname: str, out: torch.Tensor) -> None:
         """Dequantize a tensor into `out` (any device), in row batches."""
@@ -165,10 +202,17 @@ def load_model(source, dtype=torch.float32, device=None, packed: bool = False,
                               (r1 - r0, info.shape[-1]))
             flat[r0:r1].copy_(torch.from_numpy(part))
 
-    def fetch_packed(tname: str) -> PlanarQuant:
+    def fetch_packed(tname: str) -> tuple[dict, QuantMeta]:
+        """A tensor's planes and meta. Expert tensors come back as
+        (n_expert, ...) planes; every other one as (1, n_out, kcols)."""
         info = reader.tensors[tname]
         n_rows = int(np.prod(info.shape[:-1]))
-        return repack(reader.tensor_raw(tname), info.ggml_type, (n_rows, info.shape[-1]))
+        pq = repack(reader.tensor_raw(tname), info.ggml_type, (n_rows, info.shape[-1]))
+        if len(info.shape) == 3:
+            fields, planes_t = _expert_planes(pq.fields, info.shape[0])
+            return fields, QuantMeta(pq.ggml_type, pq.group, *pq.shape, planes_t=planes_t)
+        return ({k: v[None] for k, v in pq.fields.items()},
+                QuantMeta(pq.ggml_type, pq.group, *pq.shape))
 
     def to_device(a: np.ndarray, scale_plane: bool) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(a))
@@ -181,9 +225,9 @@ def load_model(source, dtype=torch.float32, device=None, packed: bool = False,
     for pname, tname in top.items():
         info = reader.tensors[tname]
         if pname == "output" and packable(tname):
-            pq = fetch_packed(tname)
-            params[pname] = {k: to_device(v, k in ("scale", "minv")) for k, v in pq.fields.items()}
-            quant_meta[pname] = QuantMeta(pq.ggml_type, pq.group, *pq.shape)
+            fields, quant_meta[pname] = fetch_packed(tname)
+            params[pname] = {k: to_device(v[0], k in ("scale", "minv"))
+                             for k, v in fields.items()}
         else:
             t = torch.empty(info.shape, dtype=dtype if pname != "rope_freqs" else torch.float32,
                             device=device)
@@ -195,12 +239,21 @@ def load_model(source, dtype=torch.float32, device=None, packed: bool = False,
         stacked: dict = {}
         layer_meta: dict = {}
         jobs = []
-        for key in keys:
-            tnames = [layer_names[il][key] for il in range(n_layer)]
-            types = {reader.tensors[t].ggml_type for t in tnames}
+
+        def uniform(key: str, allow_3d: bool = False) -> bool:
             # a packed stack needs one type across layers (mixed per-layer
             # types fall back to dense for that tensor, as in the JAX loader)
-            if len(types) == 1 and packable(tnames[0]):
+            tnames = [layer_names[il][key] for il in range(n_layer)]
+            return (len({reader.tensors[t].ggml_type for t in tnames}) == 1
+                    and packable(tnames[0], allow_3d))
+
+        # the expert trio packs only as a group (the JAX loader's
+        # _trio_packable): every member present must be uniform and packable
+        exps_ok = "ffn_up_exps" in keys and all(
+            uniform(k, allow_3d=True) for k in _EXPERT_TRIO if k in keys)
+        for key in keys:
+            tnames = [layer_names[il][key] for il in range(n_layer)]
+            if exps_ok if key in _EXPERT_TRIO else uniform(key):
                 jobs.append((key, tnames))
             else:
                 info = reader.tensors[tnames[0]]
@@ -216,18 +269,35 @@ def load_model(source, dtype=torch.float32, device=None, packed: bool = False,
             futs = {pool.submit(fetch_packed, tn): (key, il) for key, il, tn in work}
             for f in _fut.as_completed(futs):
                 key, il = futs[f]
-                pq = f.result()
+                fields, layer_meta[key] = f.result()
                 if key not in stacked:
+                    # (n_layer * c, ...): each layer's c = 1 matrix or
+                    # n_expert experts, layer after layer
                     stacked[key] = {
-                        k: torch.empty((n_layer, *v.shape),
+                        k: torch.empty((n_layer * v.shape[0], *v.shape[1:]),
                                        dtype=(sdt if k in ("scale", "minv")
                                               else torch.from_numpy(v[:0]).dtype),
                                        device=device)
-                        for k, v in pq.fields.items()
+                        for k, v in fields.items()
                     }
-                    layer_meta[key] = QuantMeta(pq.ggml_type, pq.group, *pq.shape)
-                for k, v in pq.fields.items():
-                    stacked[key][k][il].copy_(to_device(v, k in ("scale", "minv")))
+                for k, v in fields.items():
+                    c = v.shape[0]
+                    stacked[key][k][il * c:(il + 1) * c].copy_(
+                        to_device(v, k in ("scale", "minv")))
+        mg, mu = layer_meta.get("ffn_gate_exps"), layer_meta.get("ffn_up_exps")
+        if mg and mu and ((mg.ggml_type, mg.group, mg.n_in, mg.planes_t)
+                          == (mu.ggml_type, mu.group, mu.n_in, mu.planes_t)):
+            # one [gate | up] stack: per expert [gate rows_p | up rows_p],
+            # on the rows axis of either layout (the JAX loader's fusion)
+            axis = -1 if mg.planes_t else -2
+            g_f, u_f = stacked.pop("ffn_gate_exps"), stacked.pop("ffn_up_exps")
+            stacked["ffn_gateup_exps"] = {k: torch.cat([g_f[k], u_f[k]], dim=axis)
+                                          for k in g_f}
+            rows_p = g_f["scale"].shape[axis]
+            del g_f, u_f, layer_meta["ffn_gate_exps"], layer_meta["ffn_up_exps"]
+            layer_meta["ffn_gateup_exps"] = QuantMeta(
+                mg.ggml_type, mg.group, hp.n_expert * 2 * rows_p, mg.n_in,
+                planes_t=mg.planes_t)
         params["layers"] = stacked
         if layer_meta:
             quant_meta["layers"] = layer_meta
@@ -268,7 +338,13 @@ def params_from_numpy(params: dict, quant_meta: dict | None, hparams, device=Non
         return _tensor_from_numpy(t, device)
 
     def meta(m):
-        return QuantMeta(GGMLType(int(m.ggml_type)), int(m.group), int(m.n_out), int(m.n_in))
+        # the JAX package's K-sharded and fourblock layouts have no kernel here
+        if m.k_shards != 1 or m.order != "stripe":
+            raise NotImplementedError(
+                f"tpullama_torch: packed weights with k_shards={m.k_shards}, "
+                f"order={m.order!r} are not ported")
+        return QuantMeta(GGMLType(int(m.ggml_type)), int(m.group), int(m.n_out), int(m.n_in),
+                         planes_t=bool(m.planes_t))
 
     qm = None
     if quant_meta:

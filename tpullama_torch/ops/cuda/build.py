@@ -24,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("qmm.cu", "flash_attention.cu", "flash_decode.cu")
+SOURCES = ("qmm.cu", "qmm_gathered.cu", "flash_attention.cu", "flash_decode.cu")
+HEADERS = ("qmm_dequant.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -82,7 +83,7 @@ def _build(out: Path) -> None:
 
 def _library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update((CSRC / src).read_bytes())
     return BUILD_DIR / f"libtpullama_kernels_{h.hexdigest()[:16]}.so"
 
@@ -99,6 +100,10 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [i, i, i, p, p, p, p, p, p, i, i, i, p]
         fn.restype = i
+    lib.tpl_qmm_gathered.argtypes = [i, i, p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.tpl_qmm_gathered.restype = i
+    lib.tpl_qmm_gathered_t.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.tpl_qmm_gathered_t.restype = i
     lib.tpl_flash_decode.argtypes = [i, i, p, p, p, p, p, p, p, p, p,
                                      i, i, i, i, i, i, f, f, p]
     lib.tpl_flash_decode.restype = i

@@ -1,0 +1,152 @@
+"""Gathered quantized matmul for MoE experts: the CUDA kernels' wrappers
+and their plain PyTorch versions.
+
+Port of tpullama/ops/pallas/qmm.py:quantized_matmul_gathered and
+_qmm_gathered_t. y[t*tt:(t+1)*tt] = x[t*tt:(t+1)*tt] @ W[sel[t]]^T: each
+tile of `tile_t` rows shares one expert, sel holds it per tile. The expert
+planes are one layer's stack, row-major (M, R, kcols) or, with
+planes_t=True, transposed (M, kcols, R) with the scale/minv group rows
+padded to 16 (qweights.transpose_planes); R >= n_out is the stored rows
+per expert. On a CUDA tensor the wrapper launches csrc/qmm_gathered.cu
+(qmm_gathered or qmm_gathered_t) and leaves sel on the card; on a CPU
+tensor it computes the plain version. The row-major kernel takes x in
+stored order (the group permutation runs here, as one PyTorch copy); the
+transposed kernel takes x in natural order and sums its groups for the
+hoisted min term itself.
+
+Not ported: the expert-parallel 4-D planes (L, E_local, R, kcols), the
+N tiling and padding, and the bf16 fast mode (the kernels compute the
+exact f32 mode).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...gguf.constants import GGMLType
+from .qmm import _KINDS, dequant_stored, permute_x
+
+# launches per kernel since the last reset (chip_smoke.py reads them)
+LAUNCHES = {"qmm_gathered": 0, "qmm_gathered_t": 0}
+MAX_TILE_T = 8
+
+# field sets of the transposed kernel: kind id in csrc/qmm_gathered.cu
+_KINDS_T = {frozenset({"q4", "scale", "minv"}): 0, frozenset({"q8", "scale"}): 2}
+_BITS = {"q4": 4, "q2": 2, "q8": 8}
+# field sets the JAX package may store transposed (one stripe width)
+PLANES_T_FIELDS = {"q4", "q4_lut", "q4a", "q1r", "q8", "scale", "minv"}
+
+
+def _check_shapes(x, sel, tile_t, n_in, fields, planes_t):
+    rows, K = x.shape
+    if K != n_in:
+        raise ValueError(f"gathered qmm: x has {K} columns, weight has {n_in}")
+    if tile_t < 1 or rows % tile_t or tuple(sel.shape) != (rows // tile_t,):
+        raise ValueError(f"gathered qmm: {rows} rows, tile_t={tile_t}, sel {tuple(sel.shape)}")
+    if planes_t and not set(fields) <= PLANES_T_FIELDS:
+        raise ValueError(f"gathered qmm: field set {sorted(fields)} is never stored transposed")
+    if "q4a" in fields:
+        raise NotImplementedError("gathered qmm: the A/r re-coded MXFP4 planes are not ported")
+
+
+def quantized_matmul_gathered_plain(x, fields, sel, ggml_type: GGMLType, group: int,
+                                    n_out: int, n_in: int, tile_t: int = 1,
+                                    planes_t: bool = False) -> torch.Tensor:
+    """Plain version: exact f32 dequantization of each selected expert
+    once, then an f32 product over the rows of its tiles. The transposed
+    layout hoists the min term as the JAX package does: x . (q * scale) -
+    xgsum . minv. Returns (rows, n_out) f32."""
+    _check_shapes(x, sel, tile_t, n_in, fields, planes_t)
+    rows, K = x.shape
+    G = K // group
+    xs = x.float()
+    xp = permute_x(xs, group)
+    row_expert = sel.long().repeat_interleave(tile_t)
+    y = torch.zeros((rows, n_out), dtype=torch.float32, device=x.device)
+    xgsum = xs.reshape(rows, G, group).sum(-1) if planes_t and "minv" in fields else None
+    for e in torch.unique(row_expert).tolist():
+        idx = torch.nonzero(row_expert == e)[:, 0]
+        f = {k: v[e] for k, v in fields.items()}
+        minv = None
+        if planes_t:
+            # (kcols, R) -> (R, kcols); scale/minv keep their G true group rows
+            f = {k: (v[:G] if k in ("scale", "minv") else v).T for k, v in f.items()}
+            minv = f.pop("minv", None)
+        w = dequant_stored(f, ggml_type, group)[:n_out]
+        ye = xp[idx] @ w.T
+        if minv is not None:
+            ye = ye - xgsum[idx] @ minv[:n_out].float().T
+        y[idx] = ye
+    return y
+
+
+def quantized_matmul_gathered(x, fields, sel, ggml_type: GGMLType, group: int,
+                              n_out: int, n_in: int, tile_t: int = 1,
+                              planes_t: bool = False) -> torch.Tensor:
+    """x: (n_tiles * tile_t, n_in) f32 or bf16 rows grouped by tile; sel:
+    (n_tiles,) int expert per tile; fields: one layer's expert planes.
+    Returns (rows, n_out) f32. CUDA tensors launch a kernel (or raise); CPU
+    tensors take the plain version."""
+    if x.device.type == "cpu":
+        return quantized_matmul_gathered_plain(x, fields, sel, ggml_type, group, n_out,
+                                               n_in, tile_t, planes_t)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"gathered qmm: unsupported device {x.device}")
+    from .build import check, library, ptr, stream
+
+    _check_shapes(x, sel, tile_t, n_in, fields, planes_t)
+    rows, K = x.shape
+    name = "qmm_gathered_t" if planes_t else "qmm_gathered"
+    if tile_t > MAX_TILE_T:
+        raise ValueError(f"{name} kernel: tile_t={tile_t} (at most {MAX_TILE_T})")
+    if planes_t:
+        kind = _KINDS_T.get(frozenset(fields))
+        k_mult = 32
+    else:
+        kind, k_mult = _KINDS.get(frozenset(fields), (None, 0))
+    if kind is None:
+        raise NotImplementedError(
+            f"{name} kernel: {ggml_type.name} fields {sorted(fields)} are not covered yet "
+            f"(Q4_0/Q4_1/Q4_K{'' if planes_t else ', Q6_K'} and Q8_0 are)")
+    if K % k_mult:
+        raise ValueError(f"{name} kernel: K={K} must be a multiple of {k_mult}")
+    sdt = fields["scale"].dtype
+    if sdt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: scale dtype {sdt} (f32 or bf16)")
+    G = K // group
+    q0 = fields["q8" if "q8" in fields else "q4"]
+    M, R = q0.shape[0], q0.shape[2 if planes_t else 1]
+    for k, a in fields.items():
+        kc = K * _BITS[k] // 8 if k in _BITS else G
+        if planes_t:
+            ok = (a.dim() == 3 and a.shape[0] == M and a.shape[2] == R
+                  and (a.shape[1] == kc if k in _BITS else a.shape[1] >= G))
+        else:
+            ok = tuple(a.shape) == (M, R, kc)
+        if not ok or a.device != x.device or not a.is_contiguous():
+            raise ValueError(f"{name}: field {k} {tuple(a.shape)} on {a.device} "
+                             f"(contiguous={a.is_contiguous()}) does not fit M={M} R={R} K={K}")
+        if k in ("scale", "minv") and a.dtype != sdt:
+            raise TypeError(f"{name}: scale and minv dtypes differ")
+    # the row-major kernel's second grid axis counts blocks of 4 rows
+    if n_out > R or (planes_t and R % 128) or (not planes_t and -(-n_out // 4) > 65535):
+        raise ValueError(f"{name}: n_out={n_out} rows of R={R} stored rows")
+    xs = x.float()
+    xp = xs.contiguous() if planes_t else permute_x(xs, group).contiguous()
+    sel_d = sel.to(device=x.device, dtype=torch.int32).contiguous()
+    y = torch.empty((rows, n_out), dtype=torch.float32, device=x.device)
+    lib = library()
+    s_bf16 = int(sdt == torch.bfloat16)
+    if planes_t:
+        code = lib.tpl_qmm_gathered_t(
+            kind, s_bf16, ptr(xp), ptr(sel_d), ptr(q0), ptr(fields["scale"]),
+            ptr(fields.get("minv")), ptr(y), rows // tile_t, tile_t, n_out, R, K,
+            fields["scale"].shape[1], stream())
+    else:
+        code = lib.tpl_qmm_gathered(
+            kind, s_bf16, ptr(xp), ptr(sel_d), ptr(q0), ptr(fields.get("q2")),
+            ptr(fields["scale"]), ptr(fields.get("minv")), ptr(y), rows // tile_t, tile_t,
+            n_out, R, K, stream())
+    check(code, name)
+    LAUNCHES[name] += 1
+    return y

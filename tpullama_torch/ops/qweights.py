@@ -317,3 +317,20 @@ def dequant_planar_np(pq: PlanarQuant) -> np.ndarray:
     if "minv" in f:
         out = out - tile_scale(f["minv"])
     return unperm(out, g)
+
+
+def transpose_planes(fields: dict, sublane_pad: int = 16) -> dict:
+    """Planar fields (..., rows, kcols) -> transposed (..., kcols, rows),
+    the layout of the transposed gathered kernel (ops/cuda/qmm_gathered.py).
+    scale/minv group rows are zero-padded to a multiple of `sublane_pad`,
+    as the JAX package stores them; the kernel reads only the true groups."""
+    out = {}
+    for k, v in fields.items():
+        a = np.swapaxes(np.asarray(v), -1, -2)
+        if k in ("scale", "minv"):
+            pad = (-a.shape[-2]) % sublane_pad
+            if pad:
+                width = [(0, 0)] * (a.ndim - 2) + [(0, pad), (0, 0)]
+                a = np.pad(a, width)
+        out[k] = np.ascontiguousarray(a)
+    return out
