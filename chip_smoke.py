@@ -26,9 +26,17 @@ Phases, each printing one JSON line with its seconds:
             the same three on a Mixtral-8x7B-shaped MoE llama (8 experts,
             2 per token; 8 of its 32 layers, 1 in the cross-check), whose
             expert FFNs run through the gathered qmm kernels
-The crosscheck and serve paths of both models each run with every launch
-count set to 0 just before and read just after, and fail unless each
-kernel that path must run was launched. Then one JSON line lists every
+  glm_model, glm_crosscheck, glm_serve
+            the same three on a ChatGLM3-6B-shaped model (28 layers; 1 in
+            the cross-check) with the fused post-attention layer and 4
+            K-chunks on (fused_layer=True, qmm_tile_k=4), served with one
+            slot: every decode step runs qmm_ktiled on attn_qkv and the
+            fused_postattn kernel on each layer. The cross-check also
+            holds the card's run with both off, on the same planes, to the
+            same tokens; the profile checks one decode step's launches
+The crosscheck and serve paths of the three models each run with every
+launch count set to 0 just before and read just after, and fail unless
+each kernel that path must run was launched. Then one JSON line lists every
 kernel with its launches on each path and its numbers at the served shape
 from the kernels phase, and the last line is the run's result. Any failed
 check raises, so the script exits non-zero and prints no result line.
@@ -58,7 +66,7 @@ FLUSH_BYTES = 512 << 20  # written between timed launches: evicts the 50 MB L2
 NEG_HIDDEN = -5e29  # additive mask values at or below this hide a cell
 
 ALL_PHASES = ("card", "build", "kernels", "model", "crosscheck", "serve", "moe_model",
-              "moe_crosscheck", "moe_serve")
+              "moe_crosscheck", "moe_serve", "glm_model", "glm_crosscheck", "glm_serve")
 
 
 def emit(obj) -> None:
@@ -75,11 +83,16 @@ def check(cond: bool, msg: str) -> None:
 
 @dataclass(frozen=True)
 class Widths:
-    """A llama configuration (n_expert > 0: a Mixtral-style MoE, whose
-    n_ff is each expert's). LLAMA3_8B holds the published widths of
-    meta-llama/Meta-Llama-3-8B (config.json); MIXTRAL_8X7B those of
-    mistralai/Mixtral-8x7B-v0.1 (config.json; sliding window null), cut to
-    8 of its 32 layers: every layer has the same shapes and launches."""
+    """A llama-family configuration (n_expert > 0: a Mixtral-style MoE,
+    whose n_ff is each expert's; arch "chatglm": fused biased [Q|K|V],
+    fused [gate|up], n_rot rotated dims). LLAMA3_8B holds the published
+    widths of meta-llama/Meta-Llama-3-8B (config.json); MIXTRAL_8X7B those
+    of mistralai/Mixtral-8x7B-v0.1 (config.json; sliding window null), cut
+    to 8 of its 32 layers: every layer has the same shapes and launches;
+    CHATGLM3_6B those of THUDM/chatglm3-6b (config.json: hidden 4096, 28
+    layers, 32 heads, multi_query_group_num 2, ffn 13696,
+    padded_vocab_size 65024, seq_length 8192; rope over half of each
+    head, chatglm.rope.dimension_count 64)."""
 
     n_embd: int = 4096
     n_layer: int = 32
@@ -92,11 +105,18 @@ class Widths:
     n_ctx_train: int = 8192
     n_expert: int = 0
     n_expert_used: int = 0
+    arch: str = "llama"
+    n_rot: int = 0  # 0: the whole head
 
 
 LLAMA3_8B = Widths()
 MIXTRAL_8X7B = Widths(n_layer=8, n_vocab=32000, rope_theta=1e6, n_ctx_train=32768,
                       n_expert=8, n_expert_used=2)
+CHATGLM3_6B = Widths(n_layer=28, n_head_kv=2, n_ff=13696, n_vocab=65024, rope_theta=10000.0,
+                     arch="chatglm", n_rot=64)
+# the ChatGLM path's two opt-ins, the JAX package's TPULLAMA_FUSED_LAYER and
+# TPULLAMA_QMM_TILE_K
+GLM_OPTS = dict(fused_layer=True, qmm_tile_k=4)
 
 
 def _fp16_bytes(a: np.ndarray) -> np.ndarray:
@@ -132,6 +152,14 @@ def q6k_blocks(rng: np.random.Generator, n_blocks: int) -> np.ndarray:
     return b
 
 
+def q8_0_blocks(rng: np.random.Generator, n_blocks: int) -> np.ndarray:
+    """Random Q8_0 blocks (fp16 d, 32 int8 quants): value d*q, q uniform
+    in -128..127, d near 2.7e-4, so the std is near 0.02."""
+    b = np.frombuffer(rng.bytes(n_blocks * 34), np.uint8).reshape(n_blocks, 34).copy()
+    b[:, 0:2] = _fp16_bytes((2.7e-4 * rng.uniform(0.8, 1.2, n_blocks)).astype(np.float32))
+    return b
+
+
 def spm_byte_vocab(n_vocab: int):
     """The byte-level SPM vocab (<unk>, <s>, </s>, 256 byte tokens, the
     escaped space) padded with filler pieces to n_vocab tokens."""
@@ -146,24 +174,27 @@ def spm_byte_vocab(n_vocab: int):
 
 
 def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
-    """A llama GGUF at widths `w`: every layer matrix (expert stacks
-    included) and token_embd Q4_K, output Q6_K, norms and the router F32
-    (as llama.cpp's quantizer leaves it), random block bytes from `seed`."""
+    """A llama-family GGUF at widths `w`: every layer matrix (expert
+    stacks included) and token_embd Q4_K, output Q6_K, norms, biases and
+    the router F32 (as llama.cpp's quantizer leaves them), random block
+    bytes from `seed`. chatglm's ffn_down rows hold n_ff = 13696 values,
+    not a multiple of Q4_K's 256, so they are Q8_0, as llama.cpp's
+    quantizer falls back for such rows."""
     from tpullama_torch.gguf import GGMLType, GGUFWriter
 
     rng = np.random.default_rng(seed)
     g = GGUFWriter()
-    a = "llama"
+    a = w.arch
     g.add_str("general.architecture", a)
-    g.add_str("general.name", "synthetic-mixtral-8x7b-shape" if w.n_expert
-              else "synthetic-llama3-8b-shape")
+    g.add_str("general.name", "synthetic-chatglm3-6b-shape" if a == "chatglm" else
+              "synthetic-mixtral-8x7b-shape" if w.n_expert else "synthetic-llama3-8b-shape")
     g.add_u32(f"{a}.context_length", w.n_ctx_train)
     g.add_u32(f"{a}.embedding_length", w.n_embd)
     g.add_u32(f"{a}.block_count", w.n_layer)
     g.add_u32(f"{a}.feed_forward_length", w.n_ff)
     g.add_u32(f"{a}.attention.head_count", w.n_head)
     g.add_u32(f"{a}.attention.head_count_kv", w.n_head_kv)
-    g.add_u32(f"{a}.rope.dimension_count", w.n_embd // w.n_head)
+    g.add_u32(f"{a}.rope.dimension_count", w.n_rot or w.n_embd // w.n_head)
     g.add_f32(f"{a}.attention.layer_norm_rms_epsilon", w.rms_eps)
     g.add_f32(f"{a}.rope.freq_base", w.rope_theta)
     g.add_u32(f"{a}.vocab_size", w.n_vocab)
@@ -182,8 +213,11 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
     g.add_bool("tokenizer.ggml.add_eos_token", False)
 
     def quant(name, shape, qtype):
-        blocks = (q4k_blocks if qtype == GGMLType.Q4_K else q6k_blocks)(
-            rng, math.prod(shape) // 256)
+        if qtype == GGMLType.Q8_0:
+            blocks = q8_0_blocks(rng, math.prod(shape) // 32)
+        else:
+            blocks = (q4k_blocks if qtype == GGMLType.Q4_K else q6k_blocks)(
+                rng, math.prod(shape) // 256)
         g.add_tensor(name, shape, qtype, raw=blocks)
 
     def norm(name, n):
@@ -200,12 +234,21 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
     for il in range(w.n_layer):
         p = f"blk.{il}."
         norm(p + "attn_norm.weight", E)
-        quant(p + "attn_q.weight", (E, E), Q4)
-        quant(p + "attn_k.weight", (kv, E), Q4)
-        quant(p + "attn_v.weight", (kv, E), Q4)
+        if a == "chatglm":
+            quant(p + "attn_qkv.weight", (E + 2 * kv, E), Q4)
+            g.add_tensor(p + "attn_qkv.bias",
+                         (0.1 * rng.standard_normal(E + 2 * kv)).astype(np.float32),
+                         GGMLType.F32)
+        else:
+            quant(p + "attn_q.weight", (E, E), Q4)
+            quant(p + "attn_k.weight", (kv, E), Q4)
+            quant(p + "attn_v.weight", (kv, E), Q4)
         quant(p + "attn_output.weight", (E, E), Q4)
         norm(p + "ffn_norm.weight", E)
-        if n_x:
+        if a == "chatglm":
+            quant(p + "ffn_up.weight", (2 * F, E), Q4)
+            quant(p + "ffn_down.weight", (E, F), GGMLType.Q8_0)
+        elif n_x:
             g.add_tensor(p + "ffn_gate_inp.weight",
                          (0.02 * rng.standard_normal((n_x, E))).astype(np.float32),
                          GGMLType.F32)
@@ -351,6 +394,151 @@ def qmm_cases(timer, gen, device, out: list) -> None:
             out.append(rec)
         del w_lib, fields
         torch.cuda.empty_cache()
+
+
+def natural_bf16(fields, ggml_type, N: int, K: int, g: int, order: str = "stripe"):
+    """The library's weight: a packed matrix dequantized to bf16 in natural
+    element order, for a cuBLAS product."""
+    import torch
+
+    from tpullama_torch.ops.cuda import qmm
+
+    w = qmm.dequant_stored(fields, ggml_type, g)
+    nat = torch.empty_like(w)
+    # stored column p holds natural element idx[p]
+    idx = qmm.permute_x(torch.arange(K, device=w.device, dtype=torch.float32)[None], g,
+                        order)[0].long()
+    nat[:, idx] = w
+    del w
+    return nat.to(torch.bfloat16)
+
+
+def ktiled_cases(timer, gen, device, out: list) -> None:
+    """qmm_ktiled at ChatGLM3-6B's attn_qkv (4608 x 4096, Q4_K, bf16) for
+    the B = 1 decode step (T = 1) at nk = 2, 4, 8 and the 256-token prefill
+    chunk at nk = 4, and at the Llama-3-8B widths 4096 x 4096 and 14336 x
+    4096 (T = 1, nk = 4), each beside qmm_gemv on the same planes."""
+    import torch
+
+    from tpullama_torch.gguf import GGMLType
+    from tpullama_torch.ops.cuda import qmm
+
+    Q4, bf16, K = GGMLType.Q4_K, torch.bfloat16, 4096
+    cases = [(4608, ((1, 2), (1, 4), (1, 8), (256, 4))), (4096, ((1, 4),)),
+             (14336, ((1, 4),))]
+    for N, runs in cases:
+        fields = random_planes(Q4, N, K, bf16, gen, device)
+        w_lib = natural_bf16(fields, Q4, N, K, 32)
+        gemv_done = False
+        for T, nk in runs:
+            x = torch.randn((T, K), generator=gen, device=device).to(bf16)
+            todo = [("qmm_ktiled", nk)]
+            if T == 1 and not gemv_done:
+                todo.append(("qmm_gemv", None))
+                gemv_done = True
+            for name, tile_k in todo:
+                def kern():
+                    return qmm.quantized_matmul(x, fields, Q4, 32, N, K, tile_k=tile_k)
+
+                def plain():
+                    if tile_k is None:
+                        return qmm.quantized_matmul_plain(x, fields, Q4, 32, N, K)
+                    return qmm.quantized_matmul_ktiled_plain(x, fields, Q4, 32, N, K, tile_k)
+
+                before = dict(qmm.LAUNCHES)
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                check(qmm.LAUNCHES[name] == before[name] + 1, f"{name} was not the route")
+                err = float((got - want).abs().max())
+                tol = 1e-4 * float(want.abs().max()) + 1e-5
+                check(bool(torch.isfinite(got).all()) and err <= tol,
+                      f"{name} N={N} K={K} T={T} nk={tile_k}: err {err} > tol {tol}")
+                ms = timer.ms(kern, 20)
+                plain_ms = timer.ms(plain, 3)
+                lib_ms = timer.ms(lambda: torch.matmul(x, w_lib.T), 20)
+                n_bytes = sum(nbytes(a) for a in fields.values()) + nbytes(x) + T * N * 4
+                b_ms, b_by = bound_ms(n_bytes, 2.0 * T * N * K, "bf16")
+                rec = {"phase": "kernels", "kernel": name, "type": "Q4_K", "N": N, "K": K, "T": T,
+                       "nk": tile_k, "x": "bfloat16", "scales": "bfloat16", "max_abs_err": err,
+                       "tol": tol, "max_rel_err": err / max(float(want.abs().max()), 1e-30),
+                       "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                       "bound_ms": b_ms, "bound_by": b_by}
+                emit(rec)
+                out.append(rec)
+        del fields, w_lib
+        torch.cuda.empty_cache()
+
+
+def fused_cases(timer, gen, device, out: list) -> None:
+    """fused_postattn at ChatGLM3-6B's shape (E = Dq = 4096, [gate|up] 2 x
+    13696 rows, Q4_K fourblock planes with bf16 scales, bf16 activations)
+    against its plain version; beside it the port's own unfused chain
+    (qmm_gemv o-projection, residual, rms_norm, qmm_gemv [gate|up],
+    silu * up) and that chain on pre-dequantized bf16 weights through
+    torch.matmul (the library time)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpullama_torch.gguf import GGMLType
+    from tpullama_torch.ops.cuda import fused_layer, qmm
+    from tpullama_torch.ops.norms import rms_norm
+
+    Q4, bf16 = GGMLType.Q4_K, torch.bfloat16
+    E = Dq = 4096
+    Fd, eps = 13696, 1e-5
+    o = random_planes(Q4, E, Dq, bf16, gen, device)
+    gu = random_planes(Q4, 2 * Fd, E, bf16, gen, device)
+    att = torch.randn((1, Dq), generator=gen, device=device).to(bf16)
+    x = torch.randn((1, E), generator=gen, device=device).to(bf16)
+    w = (1.0 + 0.1 * torch.randn((E,), generator=gen, device=device)).to(bf16)
+
+    def kern():
+        return fused_layer.fused_postattn(att, x, o, w, gu, group=32, eps=eps)
+
+    def plain():
+        return fused_layer.fused_postattn_plain(att, x, o, w, gu, group=32, eps=eps)
+
+    def unfused():
+        r1 = x.float() + qmm.quantized_matmul(att, o, Q4, 32, E, Dq, order="fourblock")
+        g = qmm.quantized_matmul(rms_norm(r1, w, eps), gu, Q4, 32, 2 * Fd, E, order="fourblock")
+        return F.silu(g[:, :Fd]) * g[:, Fd:], r1
+
+    wo = natural_bf16(o, Q4, E, Dq, 32, "fourblock")
+    wgu = natural_bf16(gu, Q4, 2 * Fd, E, 32, "fourblock")
+
+    def library():
+        r1 = x.float() + torch.matmul(att, wo.T).float()
+        g = torch.matmul(rms_norm(r1, w, eps).to(bf16), wgu.T).float()
+        return F.silu(g[:, :Fd]) * g[:, Fd:], r1
+
+    before = fused_layer.LAUNCHES["fused_postattn"]
+    (act, r1), (want_act, want_r1) = kern(), plain()
+    torch.cuda.synchronize()
+    check(fused_layer.LAUNCHES["fused_postattn"] == before + 1, "fused_postattn did not launch")
+    errs, tols = [], []
+    for got, want in ((act, want_act), (r1, want_r1)):
+        errs.append(float((got - want).abs().max()))
+        # f32 sums in another order (both sides dequantize bit-equal weights)
+        tols.append(1e-4 * float(want.abs().max()) + 1e-5)
+        check(bool(torch.isfinite(got).all()) and errs[-1] <= tols[-1],
+              f"fused_postattn: err {errs[-1]} > tol {tols[-1]}")
+    ms = timer.ms(kern, 20)
+    plain_ms = timer.ms(plain, 3)
+    unfused_ms = timer.ms(unfused, 20)
+    lib_ms = timer.ms(library, 20)
+    n_bytes = (sum(nbytes(a) for a in o.values()) + sum(nbytes(a) for a in gu.values())
+               + nbytes(att) + nbytes(x) + nbytes(w) + nbytes(act) + nbytes(r1))
+    b_ms, b_by = bound_ms(n_bytes, 2.0 * (E * Dq + 2 * Fd * E), "bf16")
+    rec = {"phase": "kernels", "kernel": "fused_postattn", "type": "Q4_K", "E": E, "Dq": Dq,
+           "Fd": Fd, "x": "bfloat16", "scales": "bfloat16", "max_abs_err": max(errs),
+           "max_abs_err_act_r1": errs, "tol_act_r1": tols, "ms": ms, "plain_ms": plain_ms,
+           "unfused_ms": unfused_ms, "library_ms": lib_ms,
+           "library": "the unfused chain on pre-dequantized bf16 weights (torch.matmul)",
+           "bound_ms": b_ms, "bound_by": b_by, "plane_bytes": n_bytes}
+    emit(rec)
+    out.append(rec)
+    del o, gu, wo, wgu
+    torch.cuda.empty_cache()
 
 
 def gathered_cases(timer, gen, device, out: list) -> None:
@@ -579,7 +767,7 @@ def word_prompt(rng: np.random.Generator, n_bytes: int) -> str:
 
 
 def phase_model(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
-                phase: str = "model"):
+                phase: str = "model", fused_layer: bool = False):
     import torch
 
     from tpullama_torch.models import load_model
@@ -589,7 +777,8 @@ def phase_model(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
     write_llama_gguf(path, widths, seed=0)
     t_write = time.perf_counter() - t0
     t1 = time.perf_counter()
-    model = load_model(path, dtype=torch.bfloat16, device=device, packed=True)
+    model = load_model(path, dtype=torch.bfloat16, device=device, packed=True,
+                       fused_layer=fused_layer)
     if device == "cuda":
         torch.cuda.synchronize()
     t_load = time.perf_counter() - t1
@@ -603,22 +792,36 @@ def phase_model(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
         # down (K = 14336: 448 scale groups) transposed
         check(not lm["ffn_gateup_exps"].planes_t and lm["ffn_down_exps"].planes_t,
               "ffn_gateup_exps row-major and ffn_down_exps transposed")
+    elif widths.arch == "chatglm":
+        check(set(lm) == {"attn_qkv", "attn_output", "ffn_up"},
+              f"attn_qkv, attn_output and ffn_up are packed: {sorted(lm)}")
+        want = {"attn_qkv": "stripe", "attn_output": "fourblock" if fused_layer else "stripe",
+                "ffn_up": "fourblock" if fused_layer else "stripe"}
+        check({k: m.order for k, m in lm.items()} == want, f"stored orders {want}")
+        # 13696 columns: no Q4_K width, so both loaders keep it dense
+        dn = model.params["layers"]["ffn_down"]
+        check(not isinstance(dn, dict) and dn.dtype == torch.bfloat16,
+              "ffn_down is a dense bf16 stack")
     else:
         check(set(lm) == attn | {"ffn_gate", "ffn_up", "ffn_down"},
               "every layer matrix is packed")
     emit({"phase": phase, "layers": model.hparams.n_layer, "n_embd": model.hparams.n_embd,
           "n_vocab": model.hparams.n_vocab, "experts": model.hparams.n_expert,
           "planes_t": {k: m.planes_t for k, m in lm.items() if k.endswith("_exps")},
+          "orders": {k: m.order for k, m in lm.items()},
           "write_s": t_write, "load_s": t_load, "device_bytes": model.nbytes(),
           "seconds": time.perf_counter() - t0})
     return model
 
 
 def phase_crosscheck(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
-                     n_layer: int = 2, phase: str = "crosscheck") -> None:
+                     n_layer: int = 2, phase: str = "crosscheck", fused_layer: bool = False,
+                     qmm_tile_k: int | None = None) -> None:
     """A model at the same widths cut to n_layer layers, f32 activations and
     cache on both sides: `device` (the card) runs the kernels, the CPU the
-    plain versions."""
+    plain versions, both with the fused layer and K-chunks as given. With
+    the fused layer on, the card's greedy run with both off, on the same
+    fourblock planes, must give the same tokens too."""
     import torch
 
     from tpullama_torch.models import load_model
@@ -627,34 +830,44 @@ def phase_crosscheck(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
     t0 = time.perf_counter()
     path = os.path.join(tmp, f"{phase}.gguf")
     write_llama_gguf(path, replace(widths, n_layer=n_layer), seed=1)
-    gpu = load_model(path, dtype=torch.float32, device=device, packed=True)
-    cpu = load_model(path, dtype=torch.float32, device="cpu", packed=True)
+    gpu = load_model(path, dtype=torch.float32, device=device, packed=True,
+                     fused_layer=fused_layer)
+    cpu = load_model(path, dtype=torch.float32, device="cpu", packed=True,
+                     fused_layer=fused_layer)
     os.remove(path)
+    opts = dict(fused_layer=fused_layer, qmm_tile_k=qmm_tile_k)
     prompt = gpu.vocab.tokenize(word_prompt(np.random.default_rng(2), 40), add_special=True)
     prompt = np.asarray(prompt[:32], np.int32)
     check(len(prompt) == 32, f"prompt has {len(prompt)} tokens")
     cp = ContextParams(n_ctx=256)
-    lg = Context(gpu, cp).decode(prompt, n_logits=32)
-    lc = Context(cpu, cp).decode(prompt, n_logits=32)
+    lg = Context(gpu, cp, **opts).decode(prompt, n_logits=32)
+    lc = Context(cpu, cp, **opts).decode(prompt, n_logits=32)
     err = float(np.abs(lg - lc).max())
     # f32 end to end; sums run in another order on the card
     tol = 1e-3 * float(np.abs(lc).max()) + 1e-4
     check(np.isfinite(lg).all() and err <= tol, f"prefill logits err {err} > tol {tol}")
     check(int(lg[-1].argmax()) == int(lc[-1].argmax()), "prefill argmax differs")
-    out_g = Context(gpu, cp).generate(prompt, n_predict=8)
-    out_c = Context(cpu, cp).generate(prompt, n_predict=8)
+    out_g = Context(gpu, cp, **opts).generate(prompt, n_predict=8)
+    out_c = Context(cpu, cp, **opts).generate(prompt, n_predict=8)
     check(out_g == out_c, f"greedy tokens differ: card {out_g} cpu {out_c}")
-    emit({"phase": phase, "layers": n_layer, "prompt_tokens": len(prompt),
-          "prefill_max_abs_err": err, "tol": tol, "argmax": int(lc[-1].argmax()),
-          "greedy_tokens": out_g, "seconds": time.perf_counter() - t0})
+    rec = {"phase": phase, "layers": n_layer, "prompt_tokens": len(prompt),
+           "prefill_max_abs_err": err, "tol": tol, "argmax": int(lc[-1].argmax()),
+           "greedy_tokens": out_g, **opts}
+    if fused_layer:
+        # nk = 1: no valid K-chunks, the untiled qmm kernels
+        out_u = Context(gpu, cp, fused_layer=False, qmm_tile_k=1).generate(prompt, n_predict=8)
+        check(out_u == out_g, f"fused/K-chunked {out_g} and unfused {out_u} card runs differ")
+        rec["unfused_greedy_tokens"] = out_u
+    emit({**rec, "seconds": time.perf_counter() - t0})
 
 
-def phase_serve(model, card: str, phase: str = "serve"):
-    """4 concurrent greedy requests, then one seeded sampled request alone,
-    then the first greedy request again on erased slots. Rates come from
-    the Context's counters over each window: host clock around work that
-    ends in a device-to-host copy of logits or ids. Returns the engine and
-    one prompt, for phase_serve_profile."""
+def phase_serve(model, card: str, phase: str = "serve", n_slots: int = 4, **engine_kw):
+    """4 greedy requests submitted together (concurrent on 4 slots, in turn
+    on 1), then one seeded sampled request alone, then the first greedy
+    request again on erased slots. Rates come from the Context's counters
+    over each window: host clock around work that ends in a device-to-host
+    copy of logits or ids. `engine_kw` goes to ServerEngine. Returns the
+    engine and one prompt, for phase_serve_profile."""
     import torch
 
     from tpullama_torch.runtime.sampling import SamplerChain
@@ -667,7 +880,7 @@ def phase_serve(model, card: str, phase: str = "serve"):
                      "decode_tokens": d[2], "decode_tok_s": d[2] / d[3] * 1e3 if d[3] else None}
 
     t0 = time.perf_counter()
-    eng = ServerEngine(model, n_slots=4, n_ctx=4096, dtype=torch.bfloat16)
+    eng = ServerEngine(model, n_slots=n_slots, n_ctx=4096, dtype=torch.bfloat16, **engine_kw)
     perf = eng.ctx.perf
     mark = (0, 0.0, 0, 0.0)
     rng = np.random.default_rng(3)
@@ -688,33 +901,49 @@ def phase_serve(model, card: str, phase: str = "serve"):
               f"task {t.id}: error {t.error!r}, stop {t.stop_reason!r}")
     check(all(len(t.out_tokens) == 32 or t.stop_reason == "stop" for t in tasks),
           "a greedy request ended early without a stop")
-    for s in range(4):
+    for s in range(n_slots):
         eng.slot_erase(s)
     again = eng.complete(prompts[0], n_predict=32)
     check(again.out_tokens == tasks[0].out_tokens,
           "a greedy request run again gave other tokens")
     n_out = sum(len(t.out_tokens) for t in tasks)
-    emit({"phase": phase, "card": card, "requests": len(tasks) + 2,
-          "prompt_tokens": [len(t.prompt_tokens) for t in tasks],
+    emit({"phase": phase, "card": card, "requests": len(tasks) + 2, "n_slots": n_slots,
+          **engine_kw, "prompt_tokens": [len(t.prompt_tokens) for t in tasks],
           "completion_tokens": [len(t.out_tokens) for t in tasks + [sampled, again]],
-          "concurrent4": {**concurrent, "wall_s": wall, "output_tok_s": n_out / wall,
-                          "ttft_ms": [t.ttft_ms for t in tasks]},
+          "greedy4": {**concurrent, "wall_s": wall, "output_tok_s": n_out / wall,
+                      "ttft_ms": [t.ttft_ms for t in tasks]},
           "sampled_alone": {**alone, "ttft_ms": sampled.ttft_ms},
           "sampled_text": sampled.out_text[:80], "seconds": time.perf_counter() - t0})
     return eng, prompts[3]
 
 
-def phase_serve_profile(eng, prompt: str, card: str, phase: str = "serve_profile") -> None:
+def phase_serve_profile(eng, prompt: str, card: str, phase: str = "serve_profile",
+                        step_kernels: tuple = ()) -> None:
     """torch.profiler over the served engine's Context, whose lanes still
-    hold the requests: one packed 4 x 256 prefill chunk and one B = 4
-    decode step."""
+    hold the requests: one packed B x 256 prefill chunk and one decode
+    step of all B lanes. Then one more decode step with every launch count
+    at 0: each kernel of `step_kernels` must have launched once per layer."""
+    from tpullama_torch.ops.cuda import launch_counts, reset_launch_counts
+
     ctx = eng.ctx
+    B = ctx.p.n_seqs
     chunk = eng.vocab.tokenize(prompt, add_special=False)[:256]
-    emit({"phase": phase, "card": card,
-          "prefill_chunk_4x256": profile_step(
-              ctx, lambda: ctx.decode_multi([(s, chunk) for s in range(4)]), 4 * len(chunk), 2),
-          "decode_batch_b4": profile_step(
-              ctx, lambda: ctx.decode_batch(np.full(4, 100, np.int32), np.ones(4, bool)), 4, 8)})
+
+    def decode():
+        return ctx.decode_batch(np.full(B, 100, np.int32), np.ones(B, bool))
+
+    rec = {"phase": phase, "card": card,
+           f"prefill_chunk_{B}x{len(chunk)}": profile_step(
+               ctx, lambda: ctx.decode_multi([(s, chunk) for s in range(B)]), B * len(chunk), 2),
+           f"decode_batch_b{B}": profile_step(ctx, decode, B, 8)}
+    reset_launch_counts()
+    decode()
+    rec["decode_step_launches"] = counts = launch_counts()
+    emit(rec)
+    n_layer = ctx.hp.n_layer
+    for name in step_kernels:
+        check(counts[name] == n_layer,
+              f"a decode step launched {name} {counts[name]} times, not once per layer")
 
 
 @contextlib.contextmanager
@@ -739,10 +968,10 @@ def recorded_routing(log: list):
 
 def step_bound(ctx, rows: int, kv_cells: int, routing: list, n_steps: int) -> tuple[float, str]:
     """Least card time of one forward step over `rows` new tokens of a
-    Context on a packed model: every packed weight plane and each of the
-    kv_cells K/V rows the cache holds read once, and 2 * rows * N * K
-    operations over the layer matrices plus 2 * N * K per lane for the
-    lm_head, at the bf16 peak. An MoE layer counts only the experts its
+    Context on a packed model: every packed weight plane, every dense layer
+    matrix and each of the kv_cells K/V rows the cache holds read once, and
+    2 * rows * N * K operations over the layer matrices plus 2 * N * K per
+    lane for the lm_head, at the bf16 peak. An MoE layer counts only the experts its
     routing selected (`routing`: the (B, T, k) expert ids the router chose
     over n_steps steps, layer after layer), each expert's planes once, and
     its experts' operations over rows * k. Norms, rope, the router and
@@ -755,6 +984,9 @@ def step_bound(ctx, rows: int, kv_cells: int, routing: list, n_steps: int) -> tu
     flops = 2.0 * ctx.p.n_seqs * model.quant_meta["output"].n_out * model.quant_meta["output"].n_in
     for key, w in p["layers"].items():
         if not isinstance(w, dict):
+            if w.dim() == 3:  # a dense (L, n_out, n_in) matrix stack
+                n_bytes += nbytes(w)
+                flops += 2.0 * rows * w.numel()
             continue
         if key.endswith("_exps"):
             per_expert = sum(nbytes(a) for a in w.values()) / (hp.n_layer * hp.n_expert)
@@ -826,20 +1058,33 @@ KERNELS = (
      dict(slots=2048, N=28672, K=4096, scales="bfloat16")),
     ("qmm_gathered_t", "tpullama_torch/csrc/qmm_gathered.cu", "tpullama/ops/pallas/qmm.py:771",
      dict(slots=2048, N=4096, K=14336, scales="bfloat16")),
+    ("qmm_ktiled", "tpullama_torch/csrc/qmm_ktiled.cu", "tpullama/ops/pallas/qmm.py:450",
+     dict(T=1, N=4608, K=4096, nk=4)),
+    ("fused_postattn", "tpullama_torch/csrc/fused_layer.cu",
+     "tpullama/ops/pallas/fused_layer.py:112", dict(E=4096, Fd=13696)),
 )
 
 
 # the main path's runs, and the kernels each must launch: the B = 1
-# Context.generate of each cross-check, and each served B = 4 engine
+# Context.generate of each cross-check, the served B = 4 engines and the
+# served one-slot ChatGLM engine (B = 1)
 _DENSE_CROSS = ("qmm_gemv", "qmm_tiled", "flash_attention", "flash_decode")
 _DENSE_SERVE = ("qmm_gemv", "qmm_tiled", "flash_attention", "flash_decode_batched")
 _GATHERED = ("qmm_gathered", "qmm_gathered_t")
+_GLM = ("qmm_ktiled", "fused_postattn") + _DENSE_CROSS
 PATH_KERNELS = {
     "crosscheck": _DENSE_CROSS,
     "serve": _DENSE_SERVE,
     "moe_crosscheck": _DENSE_CROSS + _GATHERED,
     "moe_serve": _DENSE_SERVE + _GATHERED,
+    "glm_crosscheck": _GLM,
+    "glm_serve": _GLM,
 }
+# each path's model: (phase prefix, widths, cross-check layers, served
+# slots, the two opt-ins)
+PATHS = (("", LLAMA3_8B, 2, 4, {}),
+         ("moe_", MIXTRAL_8X7B, 1, 4, {}),
+         ("glm_", CHATGLM3_6B, 1, 1, GLM_OPTS))
 
 
 def path_launches(path: str, run) -> tuple[dict, object]:
@@ -923,6 +1168,8 @@ def main() -> int:
         timer = Timer(device)
         gen = torch.Generator(device=device).manual_seed(0)
         qmm_cases(timer, gen, device, records)
+        ktiled_cases(timer, gen, device, records)
+        fused_cases(timer, gen, device, records)
         gathered_cases(timer, gen, device, records)
         attention_cases(timer, gen, device, records)
         del timer
@@ -930,23 +1177,27 @@ def main() -> int:
         emit({"phase": "kernels", "cases": len(records), "seconds": time.perf_counter() - t0})
 
     launches: dict = {}
-    # the Llama path, then the Mixtral path (cross-checked at 1 layer)
-    for pre, widths, cross_layers in (("", LLAMA3_8B, 2), ("moe_", MIXTRAL_8X7B, 1)):
+    # the Llama path, the Mixtral path, the ChatGLM path
+    for pre, widths, cross_layers, n_slots, opts in PATHS:
         run = [p for p in ("model", "crosscheck", "serve") if pre + p in phases]
         if not run:
             continue
+        fused = bool(opts.get("fused_layer"))
         with tempfile.TemporaryDirectory() as tmp:
             model = None
             if "model" in run or "serve" in run:
-                model = phase_model(tmp, widths, phase=pre + "model")
+                model = phase_model(tmp, widths, phase=pre + "model", fused_layer=fused)
             if "crosscheck" in run:
                 launches[pre + "crosscheck"], _ = path_launches(
                     pre + "crosscheck", lambda: phase_crosscheck(
-                        tmp, widths, n_layer=cross_layers, phase=pre + "crosscheck"))
+                        tmp, widths, n_layer=cross_layers, phase=pre + "crosscheck", **opts))
             if "serve" in run:
                 launches[pre + "serve"], (eng, prompt) = path_launches(
-                    pre + "serve", lambda: phase_serve(model, smi, phase=pre + "serve"))
-                phase_serve_profile(eng, prompt, smi, phase=pre + "serve_profile")
+                    pre + "serve", lambda: phase_serve(model, smi, phase=pre + "serve",
+                                                       n_slots=n_slots, **opts))
+                phase_serve_profile(eng, prompt, smi, phase=pre + "serve_profile",
+                                    step_kernels=("qmm_ktiled", "fused_postattn") if fused
+                                    else ())
                 del eng
             del model
         torch.cuda.empty_cache()

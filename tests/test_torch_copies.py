@@ -21,7 +21,7 @@ from tpullama_torch.ops import qweights as t_qw
 from tpullama_torch.runtime import sampling as t_sampling
 from tpullama_torch.tokenizer import Vocab as TVocab
 
-ARCHS = ["llama", "qwen2", "mistral"]
+ARCHS = ["llama", "qwen2", "mistral", "chatglm"]
 PACKED = sorted(j_qw.PACKED_TYPES, key=lambda t: t.value)
 TEXTS = ["Once upon a time", "  two  spaces\tand a tab\n", "bytes: é中\U0001F600",
          "<s> literal special", ""]
@@ -146,6 +146,34 @@ def test_group_permute_equal():
         np.testing.assert_array_equal(t_qw._stripe_pack(v % (1 << bits), bits), packed)
         np.testing.assert_array_equal(t_qw.stripe_unpack_np(packed, bits),
                                       j_qw.stripe_unpack_np(packed, bits))
+
+
+@pytest.mark.parametrize("K", [256, 4096])
+def test_fourblock_functions_equal(K):
+    """fourblock_permute / _unpermute / _scale_perm, to_fourblock of a Q4_K
+    repack, and dequant_planar_np of its fourblock planes: byte for byte
+    the reference's (K = 256 gives the smallest R = K/128)."""
+    v = np.arange(3 * K).reshape(3, K)
+    for g in (16, 32):
+        np.testing.assert_array_equal(t_qw.fourblock_permute(v, g), j_qw.fourblock_permute(v, g))
+        np.testing.assert_array_equal(t_qw.fourblock_unpermute(v, g),
+                                      j_qw.fourblock_unpermute(v, g))
+        np.testing.assert_array_equal(t_qw.fourblock_scale_perm(K, g),
+                                      j_qw.fourblock_scale_perm(K, g))
+    raw = _raw(GGMLType.Q4_K, 8, K)
+    fj = j_qw.to_fourblock(j_qw.repack(raw, GGMLType.Q4_K, (8, K)))
+    ft = t_qw.to_fourblock(t_qw.repack(raw, GGMLType.Q4_K, (8, K)))
+    layout = (ft.order, ft.group, ft.shape, list(ft.fields))
+    assert layout == (fj.order, fj.group, fj.shape, list(fj.fields))
+    assert layout == ("fourblock", 32, (8, K), ["q4", "scale", "minv"])
+    for k in fj.fields:
+        assert ft.fields[k].dtype == fj.fields[k].dtype
+        np.testing.assert_array_equal(ft.fields[k], fj.fields[k])
+    np.testing.assert_array_equal(t_qw.dequant_planar_np(ft), j_qw.dequant_planar_np(fj))
+    np.testing.assert_array_equal(t_qw.dequant_planar_np(ft),
+                                  j_gguf.dequantize(raw, GGMLType.Q4_K, (8, K)).reshape(8, K))
+    with pytest.raises(ValueError, match="fourblock unsupported"):
+        t_qw.to_fourblock(t_qw.repack(_raw(GGMLType.Q6_K, 8, K), GGMLType.Q6_K, (8, K)))
 
 
 @pytest.mark.parametrize("n_in", [256, 14336], ids=["8-groups", "448-groups"])

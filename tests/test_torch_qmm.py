@@ -132,3 +132,186 @@ def test_kernel_matches_plain(cuda, qtype, T):
             assert sum(qmm.LAUNCHES.values()) == sum(before.values()) + 1
             tol = 1e-4 * float(want.abs().max())
             assert float((got - want).abs().max()) <= tol
+
+
+# ------------------------------------------------ fourblock order, K-chunks
+
+
+@pytest.mark.parametrize("K", [256, 4096])
+def test_permute_x_fourblock_is_fourblock_permute(K):
+    """K = 256 is the smallest R = K/128 (2); 4096 the served width."""
+    from tpullama.ops.qweights import fourblock_permute
+
+    x = np.random.default_rng(K).standard_normal((3, K)).astype(np.float32)
+    np.testing.assert_array_equal(qmm.permute_x(torch.from_numpy(x), 32, "fourblock").numpy(),
+                                  fourblock_permute(x, 32))
+
+
+@pytest.mark.parametrize("T", [1, 5])
+@pytest.mark.parametrize("n_in", [512, 1024])
+def test_plain_fourblock_matches_jax_exact(n_in, T):
+    """Fourblock planes (to_fourblock of the Q4_K repack) through the plain
+    version against the JAX package's order="fourblock" exact product and
+    the numpy oracle, which dequantizes the same planes."""
+    import jax.numpy as jnp
+
+    from tpullama.ops.pallas.qmm import quantized_matmul as jax_qmm
+    from tpullama.ops.qweights import to_fourblock
+
+    rng = np.random.default_rng(n_in + T)
+    raw = quantize(rng.standard_normal((N_OUT, n_in)).astype(np.float32), GGMLType.Q4_K)
+    pq = to_fourblock(repack(raw, GGMLType.Q4_K, (N_OUT, n_in)))
+    ref_w = dequantize(raw, GGMLType.Q4_K, (N_OUT, n_in)).reshape(N_OUT, n_in)
+    np.testing.assert_array_equal(dequant_planar_np(pq), ref_w)
+    x = rng.standard_normal((T, n_in)).astype(np.float32)
+    fields_t = {k: torch.from_numpy(v) for k, v in pq.fields.items()}
+    got = qmm.quantized_matmul(torch.from_numpy(x), fields_t, GGMLType.Q4_K, 32, N_OUT, n_in,
+                               order="fourblock").numpy()
+    want = np.asarray(jax_qmm(jnp.asarray(x), {k: jnp.asarray(v) for k, v in pq.fields.items()},
+                              GGMLType.Q4_K, 32, N_OUT, n_in, tile_n=8, interpret=True,
+                              order="fourblock"))
+    np.testing.assert_allclose(got, want, **_tol(want))
+    oracle = x @ dequant_planar_np(pq).T
+    np.testing.assert_allclose(got, oracle, **_tol(oracle))
+
+
+_FIELD_SETS = {  # name -> (group, {field: (dtype, columns as a function of K)})
+    "q4": (32, {"q4": (np.uint8, lambda K: K // 2), "scale": (np.float32, lambda K: K // 32),
+                "minv": (np.float32, lambda K: K // 32)}),
+    "q8": (32, {"q8": (np.int8, lambda K: K), "scale": (np.float32, lambda K: K // 32)}),
+    "q6": (16, {"q4": (np.uint8, lambda K: K // 2), "q2": (np.uint8, lambda K: K // 4),
+                "scale": (np.float32, lambda K: K // 16), "minv": (np.float32, lambda K: K // 16)}),
+}
+
+
+@pytest.mark.parametrize("fset", sorted(_FIELD_SETS))
+@pytest.mark.parametrize("source", ["none", "arg-4", "arg-8", "env-tile-k-2", "env-tiles-row"])
+def test_kchunks_choice_matches_reference(source, fset, monkeypatch):
+    """choose_kchunks picks the K-chunk count the reference's
+    quantized_matmul runs, over (N, K, T, order) for one field set and one
+    source of nk (the argument, TPULLAMA_QMM_TILE_K, a TPULLAMA_QMM_TILES
+    row, or neither). The reference's choice is observed by recording what
+    it hands its K-chunked kernel (else 1) with both kernel calls stubbed."""
+    import jax.numpy as jnp
+
+    from tpullama.ops.pallas import qmm as jq
+
+    seen = []
+
+    def fake_ktiled(x, xgsum, pq_fields, field_names, ggml_type, group, Tp, N, K, tn, tt, nk,
+                    layer, interpret):
+        seen.append(nk)
+        return jnp.zeros((Tp, N), jnp.float32)
+
+    def fake_call(kernel, grid, in_specs, out_spec, out_shape, operands, **kw):
+        seen.append(1)
+        return jnp.zeros(out_shape.shape, out_shape.dtype)
+
+    monkeypatch.setattr(jq, "_qmm_ktiled", fake_ktiled)
+    monkeypatch.setattr(jq, "_call_qmm_kernel", fake_call)
+    for var in ("TPULLAMA_QMM_TILE_K", "TPULLAMA_QMM_TILES", "TPULLAMA_QMM_VMEM_FIT"):
+        monkeypatch.delenv(var, raising=False)
+    tile_k = None
+    if source.startswith("arg-"):
+        tile_k = int(source.split("-")[1])
+    elif source == "env-tile-k-2":
+        monkeypatch.setenv("TPULLAMA_QMM_TILE_K", "2")
+    elif source == "env-tiles-row":
+        monkeypatch.setenv("TPULLAMA_QMM_TILES", "4608,4096=512:4; 256,14336=256:16")
+    group, spec = _FIELD_SETS[fset]
+    checked = 0
+    # two of the shapes are rows of the JAX package's default tile table
+    for N, K in ((256, 512), (256, 4096), (256, 14336), (4608, 512), (4608, 4096),
+                 (4608, 14336), (28672, 4096), (4096, 14336)):
+        fields = {k: np.zeros((N, cols(K)), dt) for k, (dt, cols) in spec.items()}
+        for T in (1, 33):
+            for order in ("stripe", "fourblock") if fset == "q4" else ("stripe",):
+                seen.clear()
+                x = jnp.zeros((T, K), jnp.float32)
+                jq.quantized_matmul(x, {k: jnp.asarray(v) for k, v in fields.items()},
+                                    GGMLType.Q4_K, group, N, K, interpret=True, exact=False,
+                                    tile_k_chunks=tile_k, order=order)
+                assert len(seen) == 1
+                got = qmm.choose_kchunks(N, K, T, fields, group, order, tile_k)
+                assert got == seen[0], (N, K, T, order, got, seen[0])
+                checked += got > 1
+    assert checked or source == "none" or fset == "q6"
+
+
+def _chunk_case(qtype, n_out, n_in, T, seed):
+    rng = np.random.default_rng(seed)
+    raw = quantize(rng.standard_normal((n_out, n_in)).astype(np.float32), qtype)
+    pq = repack(raw, qtype, (n_out, n_in))
+    x = rng.standard_normal((T, n_in)).astype(np.float32)
+    return pq, x
+
+
+@pytest.mark.parametrize("nk", [2, 4])
+@pytest.mark.parametrize("T", [1, 5])
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q8_0], ids=lambda t: t.name)
+def test_plain_ktiled_matches_jax_and_untiled(qtype, T, nk):
+    """The plain K-chunked product against the JAX K-chunked kernel
+    (tile_k_chunks=nk, fast mode, interpret): that kernel rounds x and the
+    weights to bf16 (qmm.py:489-498), so 1e-2 of the output's max; and
+    against the port's untiled plain product: the same f32 weights summed
+    in another order, so the f32 tolerance."""
+    import jax.numpy as jnp
+
+    from tpullama.ops.pallas.qmm import quantized_matmul as jax_qmm
+
+    n_out, n_in = 16, 1024
+    pq, x = _chunk_case(qtype, n_out, n_in, T, seed=nk * 10 + T)
+    fields_t = {k: torch.from_numpy(v) for k, v in pq.fields.items()}
+    assert qmm.choose_kchunks(n_out, n_in, T, fields_t, pq.group, tile_k=nk) == nk
+    got = qmm.quantized_matmul(torch.from_numpy(x), fields_t, qtype, pq.group, n_out, n_in,
+                               tile_k=nk).numpy()
+    np.testing.assert_array_equal(
+        got, qmm.quantized_matmul_ktiled_plain(torch.from_numpy(x), fields_t, qtype, pq.group,
+                                               n_out, n_in, nk).numpy())
+    untiled = qmm.quantized_matmul_plain(torch.from_numpy(x), fields_t, qtype, pq.group,
+                                         n_out, n_in).numpy()
+    np.testing.assert_allclose(got, untiled, **_tol(untiled))
+    want = np.asarray(jax_qmm(jnp.asarray(x), {k: jnp.asarray(v) for k, v in pq.fields.items()},
+                              qtype, pq.group, n_out, n_in, interpret=True, exact=False,
+                              tile_k_chunks=nk))
+    assert float(np.abs(got - want).max()) <= 1e-2 * float(np.abs(want).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nk", [2, 4, 8])
+@pytest.mark.parametrize("T", [1, 3, 8, 9, 40])
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q8_0], ids=lambda t: t.name)
+def test_ktiled_kernel_matches_plain(cuda, qtype, T, nk):
+    """The K-chunked kernel against its plain version: 1e-4 of the
+    output's scale (f32 sums in another order within each chunk)."""
+    n_out, n_in = 260, 4096
+    pq, x = _chunk_case(qtype, n_out, n_in, T, seed=T * nk)
+    xx = torch.from_numpy(x).to(cuda)
+    for sdt in (torch.float32, torch.bfloat16):
+        fields = {k: torch.from_numpy(v).to(cuda, sdt if k in ("scale", "minv") else None)
+                  for k, v in pq.fields.items()}
+        for xi in (xx, xx.to(torch.bfloat16)):
+            before = qmm.LAUNCHES["qmm_ktiled"]
+            got = qmm.quantized_matmul(xi, fields, qtype, pq.group, n_out, n_in, tile_k=nk)
+            want = qmm.quantized_matmul_ktiled_plain(xi, fields, qtype, pq.group, n_out, n_in,
+                                                     nk)
+            assert qmm.LAUNCHES["qmm_ktiled"] == before + 1
+            assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 4, 9])
+def test_fourblock_kernel_matches_plain(cuda, T):
+    """Fourblock planes through qmm_gemv / qmm_tiled: only the wrapper's x
+    permutation differs from the stripe order."""
+    from tpullama.ops.qweights import to_fourblock
+
+    n_out, n_in = 256, 4096
+    pq, x = _chunk_case(GGMLType.Q4_K, n_out, n_in, T, seed=50 + T)
+    pq = to_fourblock(pq)
+    fields = {k: torch.from_numpy(v).to(cuda) for k, v in pq.fields.items()}
+    xx = torch.from_numpy(x).to(cuda)
+    got = qmm.quantized_matmul(xx, fields, GGMLType.Q4_K, 32, n_out, n_in, order="fourblock")
+    want = qmm.quantized_matmul_plain(xx, fields, GGMLType.Q4_K, 32, n_out, n_in,
+                                      order="fourblock")
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())

@@ -1,10 +1,13 @@
-// Dequantization helpers shared by the planar qmm kernels (qmm.cu) and the
-// gathered MoE kernels (qmm_gathered.cu).
+// Dequantization helpers shared by the planar qmm kernels (qmm.cu,
+// qmm_ktiled.cu), the gathered MoE kernels (qmm_gathered.cu) and the
+// fused post-attention kernel (fused_layer.cu).
 //
 // The planes are tpullama/ops/qweights.py's: "global stripe" nibble/crumb
 // planes in group-transposed stored order plus per-group scale (and min)
-// planes, f32 or bf16. A stored position p of a row holds natural element
-// (p % G) * g + p / G (G = K / g), and its scale/min sit at column p % G.
+// planes, f32 or bf16. In stripe order a stored position p of a row holds
+// natural element (p % G) * g + p / G (G = K / g); in fourblock order
+// (fused_layer.cu) another element, but in both its scale/min sit at
+// column p % G, so these helpers serve both orders.
 // Every weight is q * scale - minv in f32 with two roundings and no
 // contraction, the plain versions' arithmetic, so a kernel's weights equal
 // its plain version's bit for bit.
@@ -134,26 +137,25 @@ __device__ __forceinline__ void decode_chunk(const uint8_t* __restrict__ qa,
   }
 }
 
-// One warp: y[r * ldy] = x[r] . W[n] for r < T <= TT, x rows of K stored
-// positions. Lanes stride over the row's 32-position chunks, then a shuffle
-// reduction; x rows are read through L1.
+// One warp: acc[r] = x[r] . W[n] over the 32-position chunks [c0, c1) of
+// row n, for r < T <= TT, x rows of K stored positions. Lanes stride over
+// the chunks, then a butterfly shuffle reduction leaves every lane with
+// the totals; x rows are read through L1 (or from shared memory).
 template <int KIND, typename XT, typename ST, int TT>
-__device__ __forceinline__ void warp_row_dot(const XT* __restrict__ x,
-                                             const uint8_t* __restrict__ qa,
-                                             const uint8_t* __restrict__ qb,
-                                             const ST* __restrict__ scale,
-                                             const ST* __restrict__ minv, int n,
-                                             int T, int K, float* __restrict__ y,
-                                             int ldy, int lane) {
+__device__ __forceinline__ void warp_row_sums(const XT* __restrict__ x,
+                                              const uint8_t* __restrict__ qa,
+                                              const uint8_t* __restrict__ qb,
+                                              const ST* __restrict__ scale,
+                                              const ST* __restrict__ minv, int n,
+                                              int T, int K, int c0, int c1, int lane,
+                                              float (&acc)[TT]) {
   using GE = Geo<KIND>;
   const int G = K / GE::GROUP;
   const ST* srow = scale + (size_t)n * G;
   const ST* mrow = KIND == KIND_Q8 ? nullptr : minv + (size_t)n * G;
-  float acc[TT];
 #pragma unroll
   for (int r = 0; r < TT; ++r) acc[r] = 0.f;
-  const int n_chunks = K / 32;
-  for (int c = lane; c < n_chunks; c += 32) {
+  for (int c = c0 + lane; c < c1; c += 32) {
     float w[32];
     decode_chunk<KIND, ST>(qa, qb, srow, mrow, n, c, K, w);
 #pragma unroll
@@ -172,11 +174,25 @@ __device__ __forceinline__ void warp_row_dot(const XT* __restrict__ x,
   }
 #pragma unroll
   for (int r = 0; r < TT; ++r) {
-    float v = acc[r];
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    if (lane == 0 && r < T) y[(size_t)r * ldy] = v;
+    for (int o = 16; o > 0; o >>= 1) acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], o);
   }
+}
+
+// One warp: y[r * ldy] = x[r] . W[n] for r < T <= TT over the whole row.
+template <int KIND, typename XT, typename ST, int TT>
+__device__ __forceinline__ void warp_row_dot(const XT* __restrict__ x,
+                                             const uint8_t* __restrict__ qa,
+                                             const uint8_t* __restrict__ qb,
+                                             const ST* __restrict__ scale,
+                                             const ST* __restrict__ minv, int n,
+                                             int T, int K, float* __restrict__ y,
+                                             int ldy, int lane) {
+  float acc[TT];
+  warp_row_sums<KIND, XT, ST, TT>(x, qa, qb, scale, minv, n, T, K, 0, K / 32, lane, acc);
+#pragma unroll
+  for (int r = 0; r < TT; ++r)
+    if (lane == 0 && r < T) y[(size_t)r * ldy] = acc[r];
 }
 
 }  // namespace tpl

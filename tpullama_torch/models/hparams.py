@@ -1,11 +1,12 @@
-"""Model hyperparameters loaded from GGUF metadata: the llama family.
+"""Model hyperparameters loaded from GGUF metadata: the llama family and
+chatglm.
 
 The part of tpullama/models/hparams.py that the port reads. Key strings
 follow the reference's key-name table exactly (src/llama-arch.cpp:119-268);
 the fields are those of src/llama-hparams.h that a llama-family model,
-Mixtral-style MoE included, sets. Other architectures' fields and
-per-arch branches come across with the slice that ports them; until then
-from_gguf refuses them.
+Mixtral-style MoE included, or a chatglm model sets. Other architectures'
+fields and per-arch branches come across with the slice that ports them;
+until then from_gguf refuses them.
 """
 
 from __future__ import annotations
@@ -15,11 +16,12 @@ from dataclasses import dataclass
 ROPE_SCALING_NONE = "none"
 ROPE_SCALING_YARN = "yarn"
 
-# the architectures whose forward is the plain llama block
-LLAMA_FAMILY = ("llama", "mistral", "qwen2")
+# the architectures whose forward is the plain llama block (chatglm's with
+# a fused biased [Q|K|V] and a fused [gate|up] FFN)
+LLAMA_FAMILY = ("llama", "mistral", "qwen2", "chatglm")
 # rope type per arch (llama_model_rope_type, src/llama-model.cpp:7777+):
 # NORM (0, adjacent pairs) for these, NEOX (2, split halves) for the rest
-_NORM_ROPE = ("llama",)
+_NORM_ROPE = ("llama", "chatglm")
 
 
 @dataclass
@@ -52,6 +54,9 @@ class HParams:
     f_attention_scale: float = 0.0
     attn_logit_softcap: float = 0.0
     n_swa: int = 0  # sliding window size (0 = none); not ported yet
+
+    # FFN
+    ffn_fused_up: bool = False  # chatglm: [gate|up] fused in ffn_up
 
     # MoE (Mixtral-style llama GGUFs carry it; build_moe_ffn's options)
     n_expert: int = 0
@@ -121,4 +126,6 @@ class HParams:
             expert_weights_scale=float(g("expert_weights_scale", 0.0) or 0.0),
             expert_weights_norm=bool(g("expert_weights_norm", False)),
             expert_gating_func=int(g("expert_gating_func", 1) or 1),
+            # fused-swiglu FFN (LLM_FFN_SWIGLU on a 2*n_ff up projection)
+            ffn_fused_up=arch == "chatglm",
         )

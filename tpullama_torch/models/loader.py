@@ -1,7 +1,7 @@
 """Model loader: GGUF -> PyTorch parameters on a device.
 
 Port of tpullama/models/loader.py for the llama family (llama, mistral,
-qwen2, and Mixtral-style MoE llama). Per-layer tensors of equal shape are
+qwen2, chatglm, and Mixtral-style MoE llama). Per-layer tensors of equal shape are
 stacked along a leading layer axis, as in the JAX package, so the two
 packages hold the same arrays under the same names; the forward pass
 walks per-layer views of the stacks.
@@ -15,7 +15,10 @@ Two weight modes:
     stays dense, as in the JAX package. Expert tensors pack as flat
     (n_layer * n_expert, rows_p, kcols) stacks, rows zero-padded to 128,
     transposed by the JAX loader's planes_t rule, with gate and up fused
-    into one [gate | up] stack (ffn_gateup_exps).
+    into one [gate | up] stack (ffn_gateup_exps). With `fused_layer` on,
+    the {q4, scale, minv} attn_output, ffn_up and ffn_down stacks are
+    re-encoded to the fourblock stored order the fused post-attention
+    kernel reads (ops/qweights.to_fourblock), as the JAX loader does.
 
 `params_from_numpy` carries a JAX-loaded model's parameters across (as
 numpy arrays), so both packages can be held against each other on the
@@ -36,8 +39,9 @@ import torch
 from ..device import resolve_device
 from ..gguf import GGMLType, GGUFReader
 from ..gguf.quants import dequantize
+from ..ops.cuda.fused_layer import resolve_fused_layer
 from ..ops.cuda.qmm_gathered import PLANES_T_FIELDS
-from ..ops.qweights import PACKED_TYPES, repack, transpose_planes
+from ..ops.qweights import PACKED_TYPES, repack, to_fourblock, transpose_planes
 from .hparams import LLAMA_FAMILY, HParams
 
 # per-layer tensor suffixes of the llama family -> param names
@@ -47,6 +51,8 @@ _LAYER_TENSORS = {
     "attn_k.weight": "attn_k",
     "attn_v.weight": "attn_v",
     "attn_output.weight": "attn_output",
+    "attn_qkv.weight": "attn_qkv",
+    "attn_qkv.bias": "attn_qkv_bias",
     "attn_q.bias": "attn_q_bias",
     "attn_k.bias": "attn_k_bias",
     "attn_v.bias": "attn_v_bias",
@@ -60,6 +66,8 @@ _LAYER_TENSORS = {
     "ffn_down_exps.weight": "ffn_down_exps",
 }
 _EXPERT_TRIO = ("ffn_gate_exps", "ffn_up_exps", "ffn_down_exps")
+# the layer matrices the fused post-attention path reads in fourblock order
+_FOURBLOCK_KEYS = ("attn_output", "ffn_up", "ffn_down")
 
 _TOP_TENSORS = {
     "token_embd.weight": "tok_embd",
@@ -83,6 +91,9 @@ class QuantMeta:
     # transposed planes (..., kcols, rows) of an expert stack, for the
     # transposed gathered kernel (ops/cuda/qmm_gathered.py)
     planes_t: bool = False
+    # stored element order of the planes: "stripe" or "fourblock"
+    # (ops/qweights.py)
+    order: str = "stripe"
 
 
 @dataclass
@@ -109,8 +120,9 @@ class LoadedModel:
 
 
 def check_supported(hp: HParams) -> None:
-    """Raise for anything outside the slices ported: the llama family, and
-    MoE on the llama arch (Mixtral) without group-limited routing."""
+    """Raise for anything outside the slices ported: the llama family
+    (chatglm included), and MoE on the llama arch (Mixtral) without
+    group-limited routing."""
     if hp.arch not in LLAMA_FAMILY:
         raise NotImplementedError(f"tpullama_torch: arch {hp.arch!r} is not ported yet")
     if hp.n_swa:
@@ -152,15 +164,21 @@ def _torch_dtype(d) -> torch.dtype:
 
 
 def load_model(source, dtype=torch.float32, device=None, packed: bool = False,
-               packed_scale_dtype=torch.bfloat16, load_vocab: bool = True) -> LoadedModel:
+               packed_scale_dtype=torch.bfloat16, load_vocab: bool = True,
+               fused_layer: bool | None = None) -> LoadedModel:
     """Load a llama-family GGUF (path or bytes) onto `device` (default
     cuda; raises without a GPU unless device="cpu" is passed).
 
     `packed=True` keeps supported quantized 2-D weights in planar packed
     form for the fused dequant-matmul kernel; their scale/min planes are
     stored in `packed_scale_dtype` (bf16 by default, as in the JAX
-    package; pass torch.float32 for bit-exact planes)."""
+    package; pass torch.float32 for bit-exact planes). `fused_layer`
+    (default: the TPULLAMA_FUSED_LAYER environment variable, as the JAX
+    loader reads it) stores the packed {q4, scale, minv} attn_output,
+    ffn_up and ffn_down in fourblock order for the fused post-attention
+    kernel."""
     device = resolve_device(device)
+    fused_layer = resolve_fused_layer(fused_layer)
     dtype = _torch_dtype(dtype)
     sdt = _torch_dtype(packed_scale_dtype) if packed_scale_dtype is not None else torch.float32
     reader = GGUFReader(source)
@@ -202,17 +220,23 @@ def load_model(source, dtype=torch.float32, device=None, packed: bool = False,
                               (r1 - r0, info.shape[-1]))
             flat[r0:r1].copy_(torch.from_numpy(part))
 
-    def fetch_packed(tname: str) -> tuple[dict, QuantMeta]:
+    def fetch_packed(tname: str, key: str | None = None) -> tuple[dict, QuantMeta]:
         """A tensor's planes and meta. Expert tensors come back as
-        (n_expert, ...) planes; every other one as (1, n_out, kcols)."""
+        (n_expert, ...) planes; every other one as (1, n_out, kcols), in
+        fourblock order where the fused layer reads layer matrix `key`
+        (the JAX loader's condition, loader.py:629-642)."""
         info = reader.tensors[tname]
         n_rows = int(np.prod(info.shape[:-1]))
         pq = repack(reader.tensor_raw(tname), info.ggml_type, (n_rows, info.shape[-1]))
         if len(info.shape) == 3:
             fields, planes_t = _expert_planes(pq.fields, info.shape[0])
             return fields, QuantMeta(pq.ggml_type, pq.group, *pq.shape, planes_t=planes_t)
+        if (fused_layer and key in _FOURBLOCK_KEYS
+                and set(pq.fields) == {"q4", "scale", "minv"}
+                and pq.shape[1] % 128 == 0 and 128 % pq.group == 0):
+            pq = to_fourblock(pq)
         return ({k: v[None] for k, v in pq.fields.items()},
-                QuantMeta(pq.ggml_type, pq.group, *pq.shape))
+                QuantMeta(pq.ggml_type, pq.group, *pq.shape, order=pq.order))
 
     def to_device(a: np.ndarray, scale_plane: bool) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(a))
@@ -266,7 +290,7 @@ def load_model(source, dtype=torch.float32, device=None, packed: bool = False,
         work = [(key, il, tn) for key, tnames in jobs for il, tn in enumerate(tnames)]
         n_workers = max(1, min(8, os.cpu_count() or 1))
         with _fut.ThreadPoolExecutor(n_workers) as pool:
-            futs = {pool.submit(fetch_packed, tn): (key, il) for key, il, tn in work}
+            futs = {pool.submit(fetch_packed, tn, key): (key, il) for key, il, tn in work}
             for f in _fut.as_completed(futs):
                 key, il = futs[f]
                 fields, layer_meta[key] = f.result()
@@ -338,13 +362,12 @@ def params_from_numpy(params: dict, quant_meta: dict | None, hparams, device=Non
         return _tensor_from_numpy(t, device)
 
     def meta(m):
-        # the JAX package's K-sharded and fourblock layouts have no kernel here
-        if m.k_shards != 1 or m.order != "stripe":
+        # the JAX package's K-sharded layout waits for the parallel modes
+        if m.k_shards != 1:
             raise NotImplementedError(
-                f"tpullama_torch: packed weights with k_shards={m.k_shards}, "
-                f"order={m.order!r} are not ported")
+                f"tpullama_torch: packed weights with k_shards={m.k_shards} are not ported")
         return QuantMeta(GGMLType(int(m.ggml_type)), int(m.group), int(m.n_out), int(m.n_in),
-                         planes_t=bool(m.planes_t))
+                         planes_t=bool(m.planes_t), order=str(m.order))
 
     qm = None
     if quant_meta:

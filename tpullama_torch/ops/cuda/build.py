@@ -24,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("qmm.cu", "qmm_gathered.cu", "flash_attention.cu", "flash_decode.cu")
+SOURCES = ("qmm.cu", "qmm_ktiled.cu", "qmm_gathered.cu", "flash_attention.cu",
+           "flash_decode.cu", "fused_layer.cu")
 HEADERS = ("qmm_dequant.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -100,6 +101,10 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [i, i, i, p, p, p, p, p, p, i, i, i, p]
         fn.restype = i
+    lib.tpl_qmm_ktiled.argtypes = [i, i, i, p, p, p, p, p, p, i, i, i, i, p]
+    lib.tpl_qmm_ktiled.restype = i
+    lib.tpl_fused_postattn.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, f, p]
+    lib.tpl_fused_postattn.restype = i
     lib.tpl_qmm_gathered.argtypes = [i, i, p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.tpl_qmm_gathered.restype = i
     lib.tpl_qmm_gathered_t.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i, i, i, p]

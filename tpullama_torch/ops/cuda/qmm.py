@@ -1,19 +1,28 @@
-"""Quantized matmul over planar packed weights: the CUDA kernel's wrapper
-and its plain PyTorch version.
+"""Quantized matmul over planar packed weights: the CUDA kernels'
+wrapper and their plain PyTorch versions.
 
 Port of tpullama/ops/pallas/qmm.py:quantized_matmul. y = x @ W^T with W
-kept packed in the planar layout of ops/qweights.py. On a CUDA tensor the
-wrapper launches csrc/qmm.cu (qmm_gemv for T <= 8, qmm_tiled above); on a
-CPU tensor it computes the plain version. The group permutation of x into
-the stored element order (qweights.group_permute) runs here in the
-wrapper, as one PyTorch copy, for both.
+kept packed in the planar layout of ops/qweights.py, in either stored
+order ("stripe" or "fourblock"). The permutation of x into the stored
+element order runs here in the wrapper, as one PyTorch copy; both orders
+map stored column p mod K/g to one scale group, so the kernels do not
+depend on the order.
 
-Not ported, because only the TPU needed them: N padded to 128 rows, T
-padded to the tile, the layer-stacked `layer=` scalar prefetch, the
-K-chunked grid and the fourblock order.
+The route is the reference's own choice (choose_kchunks): nk > 1 valid
+K-chunks send the call to the K-chunked kernel (csrc/qmm_ktiled.cu,
+Pallas kernel _qmm_ktiled), otherwise it goes to csrc/qmm.cu (qmm_gemv
+for T <= 8, qmm_tiled above). On a CUDA tensor the wrapper launches that
+kernel or raises; on a CPU tensor it computes that route's plain version.
+
+Not ported: N padded to 128 rows and T padded to the tile (the kernels
+mask their edges), the layer-stacked `layer=` scalar prefetch (the port
+holds per-layer views), and the TPULLAMA_QMM_VMEM_FIT rule, which picks
+K-chunks only to fit Mosaic's scoped-VMEM default on the TPU.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -23,7 +32,7 @@ from ..qweights import PACKED_TYPES
 
 # launches per kernel since the last reset (plain integers; chip_smoke.py
 # reads them to show the served path went through the kernels)
-LAUNCHES = {"qmm_gemv": 0, "qmm_tiled": 0}
+LAUNCHES = {"qmm_gemv": 0, "qmm_tiled": 0, "qmm_ktiled": 0}
 GEMV_MAX_T = 8
 
 # kernel field sets: (kind id in csrc/qmm.cu, required K multiple)
@@ -34,10 +43,73 @@ _KINDS = {
 }
 
 
-def permute_x(x: torch.Tensor, group: int) -> torch.Tensor:
-    """Natural element order -> stored order (qweights.group_permute) along
-    the last axis: stored position p holds element (p % (K/g)) * g + p // (K/g)."""
+def resolve_tile_k(value: int | None) -> int | None:
+    """The K-chunk count a caller asked for: `value`, else the
+    TPULLAMA_QMM_TILE_K environment variable, else None (the tile table)."""
+    if value is not None:
+        return int(value)
+    env = os.environ.get("TPULLAMA_QMM_TILE_K")
+    return int(env) if env is not None else None
+
+
+def _table_nk(N: int, K: int) -> int:
+    """nk of the (N padded to 128, K) row of the tile table, as the
+    reference's _tile_cfg reads it: a TPULLAMA_QMM_TILES row
+    ("N,K=tn:nk;..."), else 0. The JAX package's default rows
+    (qmm.py:103-107) all hold nk = 1, which runs no K-chunks, so only the
+    variable's rows can ask for them."""
+    for row in os.environ.get("TPULLAMA_QMM_TILES", "").split(";"):
+        row = row.strip()
+        if not row:
+            continue
+        shp, _, cfg = row.partition("=")
+        n_s, _, k_s = shp.partition(",")
+        if int(n_s) == N and int(k_s) == K:
+            return int(cfg.partition(":")[2])
+    return 0
+
+
+def kchunks_valid(nk: int, K: int, group: int, field_names) -> bool:
+    """nk K-chunks are realizable iff every field's packed columns split
+    evenly and each chunk covers whole tile-repeats of the scale plane
+    (the reference's _kchunks_valid)."""
+    if nk <= 1:
+        return False
+    if not (set(field_names) <= {"q4", "q4_lut", "q8", "scale", "minv"}):
+        return False  # multi-stripe-width types (Q5/Q6/Q3/Q2_K) stay untiled
+    stripes = 1 if "q8" in field_names else 2
+    ce = K // stripes  # elements per stripe
+    if ce % nk:
+        return False
+    ce //= nk
+    return ce % (K // group) == 0 and ce % 128 == 0
+
+
+def choose_kchunks(n_out: int, n_in: int, T: int, field_names, group: int,
+                   order: str = "stripe", tile_k: int | None = None) -> int:
+    """The K-chunk count the reference's quantized_matmul runs
+    (qmm.py:206-214, 254, 258): `tile_k`, else TPULLAMA_QMM_TILE_K, else
+    the tile table's row for T <= 32; the fourblock order forces 1.
+    Returns nk > 1 where the K-chunked kernel runs, else 1."""
+    if order == "fourblock":
+        return 1
+    nk = resolve_tile_k(tile_k)
+    if nk is None:
+        nk = _table_nk(-(-n_out // 128) * 128, n_in) if T <= 32 else 0
+    return nk if kchunks_valid(nk, n_in, group, field_names) else 1
+
+
+def permute_x(x: torch.Tensor, group: int, order: str = "stripe") -> torch.Tensor:
+    """Natural element order -> stored order along the last axis. Stripe
+    (qweights.group_permute): stored position p holds element
+    (p % (K/g)) * g + p // (K/g). Fourblock (qweights.fourblock_permute):
+    p = a*(K/g) + m*R + s holds element s*128 + m*g + a (R = K/128)."""
     T, K = x.shape
+    if order == "fourblock":
+        return (x.reshape(T, K // 128, 128 // group, group).permute(0, 3, 2, 1)
+                .reshape(T, K))
+    if order != "stripe":
+        raise ValueError(f"permute_x: unknown stored order {order!r}")
     return x.reshape(T, K // group, group).transpose(1, 2).reshape(T, K)
 
 
@@ -79,28 +151,56 @@ def dequant_stored(fields: dict, ggml_type: GGMLType, group: int) -> torch.Tenso
 
 
 def quantized_matmul_plain(x: torch.Tensor, fields: dict, ggml_type: GGMLType,
-                           group: int, n_out: int, n_in: int) -> torch.Tensor:
+                           group: int, n_out: int, n_in: int,
+                           order: str = "stripe") -> torch.Tensor:
     """Plain version: exact f32 dequantization of the whole matrix and an
     f32 matmul against the permuted activations (the reference's exact
     mode). x: (T, n_in). Returns (T, n_out) f32."""
     if ggml_type not in PACKED_TYPES:
         raise NotImplementedError(f"quantized_matmul: {ggml_type.name}")
     w = dequant_stored(fields, ggml_type, group)
-    return permute_x(x.float(), group) @ w.T
+    return permute_x(x.float(), group, order) @ w.T
+
+
+def quantized_matmul_ktiled_plain(x: torch.Tensor, fields: dict, ggml_type: GGMLType,
+                                  group: int, n_out: int, n_in: int,
+                                  nk: int) -> torch.Tensor:
+    """Plain version of the K-chunked product (stripe order): the same
+    exact f32 weights, K split as the reference's _qmm_ktiled splits it
+    (chunk k holds stored elements [k*ce, (k+1)*ce) of each stripe, ce =
+    K/stripes/nk), the nk chunk products summed in chunk order. Returns
+    (T, n_out) f32."""
+    if ggml_type not in PACKED_TYPES:
+        raise NotImplementedError(f"quantized_matmul: {ggml_type.name}")
+    T, K = x.shape
+    stripes = 1 if "q8" in fields else 2
+    ce = K // stripes // nk
+    w = dequant_stored(fields, ggml_type, group).reshape(n_out, stripes, nk, ce)
+    xp = permute_x(x.float(), group).reshape(T, stripes, nk, ce)
+    y = None
+    for k in range(nk):
+        part = xp[:, :, k].reshape(T, -1) @ w[:, :, k].reshape(n_out, -1).T
+        y = part if y is None else y + part
+    return y
 
 
 def quantized_matmul(x: torch.Tensor, fields: dict, ggml_type: GGMLType,
-                     group: int, n_out: int, n_in: int) -> torch.Tensor:
-    """y = x @ W^T with W packed. x: (T, n_in) f32 or bf16. Returns (T,
-    n_out) f32. CUDA tensors launch the kernel (or raise); CPU tensors take
-    the plain version."""
+                     group: int, n_out: int, n_in: int, order: str = "stripe",
+                     tile_k: int | None = None) -> torch.Tensor:
+    """y = x @ W^T with W packed in `order`. x: (T, n_in) f32 or bf16.
+    Returns (T, n_out) f32. `tile_k` is the reference's tile_k_chunks (see
+    choose_kchunks). CUDA tensors launch the route's kernel (or raise); CPU
+    tensors take its plain version."""
+    T, K = x.shape
+    nk = choose_kchunks(n_out, n_in, T, fields, group, order, tile_k)
     if x.device.type == "cpu":
-        return quantized_matmul_plain(x, fields, ggml_type, group, n_out, n_in)
+        if nk > 1:
+            return quantized_matmul_ktiled_plain(x, fields, ggml_type, group, n_out, n_in, nk)
+        return quantized_matmul_plain(x, fields, ggml_type, group, n_out, n_in, order)
     if x.device.type != "cuda":
         raise RuntimeError(f"quantized_matmul: unsupported device {x.device}")
     from .build import check, library, ptr, stream
 
-    T, K = x.shape
     N = n_out
     if K != n_in:
         raise ValueError(f"quantized_matmul: x has {K} columns, weight has {n_in}")
@@ -126,11 +226,21 @@ def quantized_matmul(x: torch.Tensor, fields: dict, ggml_type: GGMLType,
                 f"(contiguous={a.is_contiguous()}); want {want} on {x.device}")
         if name in ("scale", "minv") and a.dtype != sdt:
             raise TypeError("quantized_matmul: scale and minv dtypes differ")
-    xp = permute_x(x, group).contiguous()
+    xp = permute_x(x, group, order).contiguous()
     y = torch.empty((T, N), dtype=torch.float32, device=x.device)
     qa = fields["q8"] if kind == 2 else fields["q4"]
     qb = fields.get("q2")
     lib = library()
+    if nk > 1:
+        # per-chunk partial products, summed in chunk order by the kernel's
+        # second pass (no float atomics: the sum does not depend on timing)
+        ws = torch.empty((nk, T, N), dtype=torch.float32, device=x.device)
+        check(lib.tpl_qmm_ktiled(kind, int(x.dtype == torch.bfloat16),
+                                 int(sdt == torch.bfloat16), ptr(xp), ptr(qa),
+                                 ptr(fields["scale"]), ptr(fields.get("minv")), ptr(ws),
+                                 ptr(y), T, N, K, nk, stream()), "qmm_ktiled")
+        LAUNCHES["qmm_ktiled"] += 1
+        return y
     gemv = T <= GEMV_MAX_T
     fn = lib.tpl_qmm_gemv if gemv else lib.tpl_qmm_tiled
     check(fn(kind, int(x.dtype == torch.bfloat16), int(sdt == torch.bfloat16),

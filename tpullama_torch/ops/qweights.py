@@ -49,6 +49,10 @@ class PlanarQuant:
     shape: tuple[int, int]  # (n_out, n_in)
     fields: dict  # name -> array
     group: int  # elements per scale group (32 or 16)
+    # stored element order: "stripe" (group_permute — the canonical
+    # layout every kernel consumes) or "fourblock" (fourblock_permute —
+    # the fused post-attention kernel's order; see to_fourblock)
+    order: str = "stripe"
 
     def nbytes(self) -> int:
         return sum(a.nbytes for a in self.fields.values())
@@ -74,6 +78,60 @@ def group_unpermute(vals: np.ndarray, g: int) -> np.ndarray:
     return np.ascontiguousarray(
         vals.reshape(N, g, K // g).swapaxes(1, 2).reshape(N, K)
     )
+
+
+def fourblock_permute(vals: np.ndarray, g: int) -> np.ndarray:
+    """Natural element order -> "fourblock" stored order.
+
+    Stored position p = a*(K/g) + m*R + s (a < g, m < 128/g, s < R=K/128)
+    holds element s*128 + m*g + a. Like group_permute, each stored column
+    p mod K/g maps to exactly one quant group, so the tile-repeated scale
+    plane still aligns; the JAX package chose this order because its
+    activation permutation is legal inside a Mosaic kernel. The group
+    living at column b = m*R + s is s*(128/g) + m: scale/min planes are
+    column-permuted by fourblock_scale_perm."""
+    N, K = vals.shape[0], vals.shape[-1]
+    R, nb = K // 128, 128 // g
+    v = vals.reshape(N, R, nb, g)          # element s*128+m*g+a -> [s,m,a]
+    return np.ascontiguousarray(v.transpose(0, 3, 2, 1).reshape(N, K))
+
+
+def fourblock_unpermute(vals: np.ndarray, g: int) -> np.ndarray:
+    N, K = vals.shape[0], vals.shape[-1]
+    R, nb = K // 128, 128 // g
+    v = vals.reshape(N, g, nb, R)
+    return np.ascontiguousarray(v.transpose(0, 3, 2, 1).reshape(N, K))
+
+
+def fourblock_scale_perm(K: int, g: int) -> np.ndarray:
+    """Column permutation for scale/min planes in fourblock order:
+    stored column b holds the scale of natural group (b % R)*(128/g) +
+    b // R (R = K/128)."""
+    R, nb = K // 128, 128 // g
+    b = np.arange(K // g)
+    return (b % R) * nb + b // R
+
+
+def to_fourblock(pq: PlanarQuant) -> PlanarQuant:
+    """Re-encode a stripe-order {q4, scale, minv} PlanarQuant into
+    fourblock stored order (same bytes per weight; a load-time numpy
+    transform). Only the 4-bit single-plane layouts are supported — the
+    set the fused post-attention kernel consumes."""
+    if pq.order != "stripe":
+        return pq
+    if set(pq.fields) - {"q4", "scale", "minv"}:
+        raise ValueError(f"fourblock unsupported for fields {set(pq.fields)}")
+    N, K = pq.shape
+    g = pq.group
+    if K % 128 or 128 % g:
+        raise ValueError(f"fourblock needs K%128==0 and g|128, got {K}, {g}")
+    vals_nat = group_unpermute(stripe_unpack_np(pq.fields["q4"], 4), g)
+    perm = fourblock_scale_perm(K, g)
+    fields = {"q4": _stripe_pack(fourblock_permute(vals_nat, g), 4)}
+    for name in ("scale", "minv"):
+        if name in pq.fields:
+            fields[name] = np.ascontiguousarray(pq.fields[name][..., perm])
+    return PlanarQuant(pq.ggml_type, pq.shape, fields, g, order="fourblock")
 
 
 def _stripe_pack(values: np.ndarray, bits: int) -> np.ndarray:
@@ -289,7 +347,7 @@ def dequant_planar_np(pq: PlanarQuant) -> np.ndarray:
     def tile_scale(plane):
         return np.tile(plane, (1, g))
 
-    unperm = group_unpermute
+    unperm = group_unpermute if pq.order == "stripe" else fourblock_unpermute
 
     if pq.ggml_type == GGMLType.Q8_0:
         out = f["q8"].astype(np.float32) * tile_scale(f["scale"])

@@ -69,7 +69,11 @@ class PerfCounters:
 
 
 class Context:
-    def __init__(self, model: LoadedModel, params: ContextParams | None = None):
+    def __init__(self, model: LoadedModel, params: ContextParams | None = None,
+                 fused_layer: bool | None = None, qmm_tile_k: int | None = None):
+        """`fused_layer` and `qmm_tile_k` go to the model (LlamaModel): the
+        fused post-attention path and the packed matmuls' K-chunks, by
+        default from TPULLAMA_FUSED_LAYER and TPULLAMA_QMM_TILE_K."""
         self.model = model
         self.hp: HParams = model.hparams
         check_supported(self.hp)
@@ -89,7 +93,8 @@ class Context:
         self._pos_host = np.full((B, S), -1, np.int32)
         self.n_past = np.zeros(B, np.int32)
         self.perf = PerfCounters()
-        self.net = LlamaModel(model.params, hp, model.quant_meta)
+        self.net = LlamaModel(model.params, hp, model.quant_meta, fused_layer=fused_layer,
+                              qmm_tile_k=qmm_tile_k)
 
     # ------------------------------------------------------------------
 

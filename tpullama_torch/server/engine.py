@@ -75,9 +75,12 @@ class Slot:
 
 class ServerEngine:
     def __init__(self, model, n_slots: int = 4, n_ctx: int = 1024, n_ubatch: int = 256,
-                 dtype=None, burst: int = 8):
+                 dtype=None, burst: int = 8, fused_layer: bool | None = None,
+                 qmm_tile_k: int | None = None):
         """`burst`: widest fused greedy decode round (0 or 1 disables; the
-        JAX package's TPULLAMA_ENGINE_BURST default of 8)."""
+        JAX package's TPULLAMA_ENGINE_BURST default of 8). `fused_layer`
+        and `qmm_tile_k` go to the Context's model (default: the
+        TPULLAMA_FUSED_LAYER and TPULLAMA_QMM_TILE_K variables)."""
         # the port's HParams hold the llama family only, so this also refuses
         # the models that need the recurrent, hybrid or encoder contexts
         check_supported(model.hparams)
@@ -85,7 +88,7 @@ class ServerEngine:
         self.vocab = model.vocab
         cp = ContextParams(n_ctx=n_ctx, n_seqs=n_slots, n_ubatch=n_ubatch,
                            dtype=dtype or torch.float32)
-        self.ctx = Context(model, cp)
+        self.ctx = Context(model, cp, fused_layer=fused_layer, qmm_tile_k=qmm_tile_k)
         self.n_ubatch = n_ubatch
         self.burst = int(burst)
         self.slots = [Slot(i) for i in range(n_slots)]
