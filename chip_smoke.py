@@ -384,7 +384,8 @@ def qmm_cases(timer, gen, device, out: list) -> None:
             n_bytes = sum(nbytes(a) for a in fields.values()) + nbytes(x) + T * N * 4
             b_ms, b_by = bound_ms(n_bytes, 2.0 * T * N * K, "bf16" if xdt == bf16 else "f32")
             name = "qmm_gemv" if T <= qmm.GEMV_MAX_T else "qmm_tiled"
-            rec = {"phase": "kernels", "kernel": name, "type": qt.name, "N": N, "K": K,
+            rec = {"phase": "kernels", "kernel": name, "route": qmm.route(name, T),
+                   "type": qt.name, "N": N, "K": K,
                    "T": T, "x": str(xdt).split(".")[-1], "scales": str(sdt).split(".")[-1],
                    "max_abs_err": err, "tol": tol,
                    "max_rel_err": err / max(float(want.abs().max()), 1e-30),
@@ -458,8 +459,8 @@ def ktiled_cases(timer, gen, device, out: list) -> None:
                 lib_ms = timer.ms(lambda: torch.matmul(x, w_lib.T), 20)
                 n_bytes = sum(nbytes(a) for a in fields.values()) + nbytes(x) + T * N * 4
                 b_ms, b_by = bound_ms(n_bytes, 2.0 * T * N * K, "bf16")
-                rec = {"phase": "kernels", "kernel": name, "type": "Q4_K", "N": N, "K": K, "T": T,
-                       "nk": tile_k, "x": "bfloat16", "scales": "bfloat16", "max_abs_err": err,
+                rec = {"phase": "kernels", "kernel": name, "route": qmm.route(name, T),
+                       "type": "Q4_K", "N": N, "K": K, "T": T, "nk": tile_k, "x": "bfloat16", "scales": "bfloat16", "max_abs_err": err,
                        "tol": tol, "max_rel_err": err / max(float(want.abs().max()), 1e-30),
                        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                        "bound_ms": b_ms, "bound_by": b_by}
@@ -545,7 +546,9 @@ def gathered_cases(timer, gen, device, out: list) -> None:
     """Both gathered kernels against their plain versions over 8 experts,
     with the routing of the served MoE path: the B = 4 decode step (8
     (token, k) slots, one-row tiles) and the packed 4 x 256 prefill chunk
-    (2048 slots, dispatched into 8-row tiles)."""
+    (2048 slots, dispatched into 8-row tiles); [gate | up] also at 512
+    slots (a 1 x 256 chunk), so the tensor-core route is timed at two slot
+    counts."""
     import torch
     import torch.nn.functional as F
 
@@ -560,7 +563,7 @@ def gathered_cases(timer, gen, device, out: list) -> None:
     # (transposed, type, n_out per expert, K, scale dtypes, (slots, tile_t)
     # routings): Mixtral's [gate | up] (row-major) and down (transposed)
     # stacks, then the other field sets and padded rows (320 of 384)
-    cases = [(False, Q4, 2 * 14336, 4096, (bf16,), served),
+    cases = [(False, Q4, 2 * 14336, 4096, (bf16,), ((8, 1), (512, 8), (2048, 8))),
              (True, Q4, 4096, 14336, (bf16,), served),
              (False, Q6, 4096, 4096, (f32, bf16), small),
              (True, Q8, 4096, 4096, (f32, bf16), small),
@@ -629,7 +632,8 @@ def gathered_cases(timer, gen, device, out: list) -> None:
                 distinct = int(torch.unique(sel).numel())
                 n_bytes = distinct * per_expert + nbytes(x_slots) + S * N * 4
                 b_ms, b_by = bound_ms(n_bytes, 2.0 * S * N * K, "bf16")
-                rec = {"phase": "kernels", "kernel": name, "type": qt.name, "N": N, "K": K,
+                rec = {"phase": "kernels", "kernel": name,
+                       "route": qmm_gathered.route(tt, planes_t), "type": qt.name, "N": N, "K": K,
                        "experts": E, "slots": S, "tile_t": tt, "rows": int(x.shape[0]),
                        "distinct_experts": distinct, "x": "float32",
                        "scales": str(sdt).split(".")[-1], "max_abs_err": err, "tol": tol,

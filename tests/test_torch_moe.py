@@ -243,6 +243,45 @@ def test_gathered_kernel_matches_plain(cuda, qtype, planes_t, tile_t):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0],
+                         ids=lambda t: t.name)
+def test_gathered_mma_route_over_expert_runs(cuda, qtype):
+    """The row-major kernel's tensor-core route (tile_t = 8): 24 tiles
+    whose expert runs of 3, 5, 9 and 7 tiles straddle the kernel's 16-tile
+    blocks, zero rows at the end of each run and one whole tile of zero
+    rows (moe_dispatch's padding), N = 320 of R = 384 stored rows, f32 and
+    bf16 scales. Against the plain version at 1e-4 of the output's max;
+    zero rows give exactly 0; and a tile computed alone equals, bit for
+    bit, the same tile inside the 24-tile call."""
+    n_rows, n_in, tt = F, 1024, 8
+    runs = (3, 5, 9, 7)
+    fields, group = _experts(qtype, n_rows, n_in, seed=24)
+    sel = torch.tensor(np.repeat([2, 0, 3, 1], runs), dtype=torch.int32, device=cuda)
+    x = np.random.default_rng(24).standard_normal((sum(runs) * tt, n_in)).astype(np.float32)
+    zero = np.zeros(len(x), bool)
+    for end in np.cumsum(runs) * tt:
+        zero[end - 3:end] = True
+    zero[10 * tt:11 * tt] = True
+    x[zero] = 0.0
+    xx = torch.from_numpy(x).to(cuda)
+    for sdt in (torch.float32, torch.bfloat16):
+        ft = {k: torch.from_numpy(v).to(cuda, sdt if k in ("scale", "minv") else None)
+              for k, v in fields.items()}
+        before = gq.LAUNCHES["qmm_gathered"]
+        got = gq.quantized_matmul_gathered(xx, ft, sel, qtype, group, n_rows, n_in, tile_t=tt)
+        assert gq.LAUNCHES["qmm_gathered"] == before + 1
+        want = gq.quantized_matmul_gathered_plain(xx, ft, sel, qtype, group, n_rows, n_in,
+                                                  tile_t=tt)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()) + 1e-5
+        assert not got[torch.from_numpy(zero).to(cuda)].any()
+        for t in (2, 9, 16, 23):
+            alone = gq.quantized_matmul_gathered(xx[t * tt:(t + 1) * tt], ft, sel[t:t + 1], qtype,
+                                                 group, n_rows, n_in, tile_t=tt)
+            assert torch.equal(alone, got[t * tt:(t + 1) * tt])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("planes_t", [False, True])
 def test_gathered_kernel_raises_without_fallback(cuda, planes_t):
     """A field set the kernels do not cover (MXFP4's LUT planes, which

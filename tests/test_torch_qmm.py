@@ -104,6 +104,49 @@ def test_dequant_stored_matches_oracle(qtype):
     np.testing.assert_array_equal(nat, dequant_planar_np(pq))
 
 
+def _split_bf16(a):
+    """hi = bf16(a) and lo = bf16(a - hi), both as f32 values."""
+    hi = a.to(torch.bfloat16).float()
+    return hi, (a - hi).to(torch.bfloat16).float()
+
+
+def _split_product(x, w):
+    """x @ w.T as the tensor-core routes (csrc/qmm_mma.cuh) compute it: w
+    split into bf16 hi + lo, x too when it is f32, then hi*hi + hi*lo +
+    lo*hi summed in f32 (hi_w*x + lo_w*x for bf16 x). Every product of two
+    bf16 values is exact in f32."""
+    wh, wl = _split_bf16(w)
+    if x.dtype == torch.bfloat16:
+        xf = x.float()
+        return xf @ wh.T + xf @ wl.T
+    xh, xl = _split_bf16(x)
+    return xh @ wh.T + xh @ wl.T + xl @ wh.T
+
+
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16], ids=["x_f32", "x_bf16"])
+@pytest.mark.parametrize("K", [1024, 4096, 14336])
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0],
+                         ids=lambda t: t.name)
+def test_bf16_split_product_is_within_kernel_tolerance(qtype, K, xdt):
+    """The split the tensor-core routes use keeps the product of the plain
+    version's weights within the kernels' tolerance, 1e-4 of the output's
+    max plus 1e-5, of the exact (f64) product; one bf16 pass of the weight
+    does not."""
+    rng = np.random.default_rng(K + qtype.value)
+    n_out, T = 16, 8
+    raw = quantize(rng.standard_normal((n_out, K)).astype(np.float32), qtype)
+    pq = repack(raw, qtype, (n_out, K))
+    w = qmm.dequant_stored({k: torch.from_numpy(v) for k, v in pq.fields.items()}, qtype,
+                           pq.group)
+    x = torch.from_numpy(rng.standard_normal((T, K)).astype(np.float32)).to(xdt)
+    exact = x.double() @ w.double().T
+    tol = 1e-4 * float(exact.abs().max()) + 1e-5
+    err = float((_split_product(x, w).double() - exact).abs().max())
+    assert err <= tol
+    one_pass = x.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float().T
+    assert float((one_pass.double() - exact).abs().max()) > tol
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -279,11 +322,14 @@ def test_plain_ktiled_matches_jax_and_untiled(qtype, T, nk):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("nk", [2, 4, 8])
-@pytest.mark.parametrize("T", [1, 3, 8, 9, 40])
+@pytest.mark.parametrize("T", [1, 3, 8, 9, 40, 64, 70, 256])
 @pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q8_0], ids=lambda t: t.name)
 def test_ktiled_kernel_matches_plain(cuda, qtype, T, nk):
     """The K-chunked kernel against its plain version: 1e-4 of the
-    output's scale (f32 sums in another order within each chunk)."""
+    output's scale (f32 sums in another order within each chunk). T <= 8
+    runs the warp-per-row route, T > 8 the tensor-core route (64- or
+    128-token blocks: T = 70 leaves a ragged block, 256 is the served
+    chunk)."""
     n_out, n_in = 260, 4096
     pq, x = _chunk_case(qtype, n_out, n_in, T, seed=T * nk)
     xx = torch.from_numpy(x).to(cuda)
@@ -297,6 +343,25 @@ def test_ktiled_kernel_matches_plain(cuda, qtype, T, nk):
                                                      nk)
             assert qmm.LAUNCHES["qmm_ktiled"] == before + 1
             assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q8_0], ids=lambda t: t.name)
+def test_ktiled_mma_rows_do_not_depend_on_the_batch(cuda, qtype):
+    """Row t of a T = 9 call equals row t of a T = 256 call whose first 9
+    rows are the same, bit for bit: each output of the tensor-core route
+    depends only on its own weight row, token row and K order."""
+    n_out, n_in, nk = 260, 4096, 4
+    pq, x = _chunk_case(qtype, n_out, n_in, 256, seed=77)
+    for sdt in (torch.float32, torch.bfloat16):
+        fields = {k: torch.from_numpy(v).to(cuda, sdt if k in ("scale", "minv") else None)
+                  for k, v in pq.fields.items()}
+        for xdt in (torch.float32, torch.bfloat16):
+            xx = torch.from_numpy(x).to(cuda, xdt)
+            full = qmm.quantized_matmul(xx, fields, qtype, pq.group, n_out, n_in, tile_k=nk)
+            head = qmm.quantized_matmul(xx[:9].contiguous(), fields, qtype, pq.group, n_out,
+                                        n_in, tile_k=nk)
+            assert torch.equal(head, full[:9])
 
 
 @pytest.mark.cuda

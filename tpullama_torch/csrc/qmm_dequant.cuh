@@ -1,6 +1,7 @@
 // Dequantization helpers shared by the planar qmm kernels (qmm.cu,
-// qmm_ktiled.cu), the gathered MoE kernels (qmm_gathered.cu) and the
-// fused post-attention kernel (fused_layer.cu).
+// qmm_ktiled.cu), the gathered MoE kernels (qmm_gathered.cu), the
+// tensor-core tile body (qmm_mma.cuh) and the fused post-attention kernel
+// (fused_layer.cu).
 //
 // The planes are tpullama/ops/qweights.py's: "global stripe" nibble/crumb
 // planes in group-transposed stored order plus per-group scale (and min)
@@ -79,40 +80,38 @@ struct Geo {
   }
 };
 
-// Dequantize chunk c (32 stored positions) of row n into w, in chunk-local
-// order u = segment * SEG + offset.
+// Dequantize one chunk (32 stored positions) from its packed bytes and its
+// SEG scale (and min) values into w, in chunk-local order u = segment *
+// SEG + offset. q: Q4 the chunk's 16 q4 bytes; Q6 its 8 bytes of the low
+// q4 half (q), of the high half (qh) and of the q2 plane (q2); Q8 its 32
+// q8 bytes. Reads global or shared memory alike.
 template <int KIND, typename ST>
-__device__ __forceinline__ void decode_chunk(const uint8_t* __restrict__ qa,
-                                             const uint8_t* __restrict__ qb,
-                                             const ST* __restrict__ srow,
-                                             const ST* __restrict__ mrow, int n,
-                                             int c, int K, float (&w)[32]) {
-  constexpr int GROUP = Geo<KIND>::GROUP;
-  const int G = K / GROUP;
+__device__ __forceinline__ void decode_raw(const uint8_t* __restrict__ q,
+                                           const uint8_t* __restrict__ qh,
+                                           const uint8_t* __restrict__ q2,
+                                           const ST* __restrict__ sp,
+                                           const ST* __restrict__ mp, float (&w)[32]) {
   if constexpr (KIND == KIND_Q4) {
-    uint4 qv = *reinterpret_cast<const uint4*>(qa + (size_t)n * (K / 2) + 16 * c);
+    uint4 qv = *reinterpret_cast<const uint4*>(q);
     const uint8_t* b = reinterpret_cast<const uint8_t*>(&qv);
-    const int s0 = (16 * c) % G;
     float s[16], m[16];
-    load_f<ST, 16>(srow + s0, s);
-    load_f<ST, 16>(mrow + s0, m);
+    load_f<ST, 16>(sp, s);
+    load_f<ST, 16>(mp, m);
 #pragma unroll
     for (int t = 0; t < 16; ++t) {
       w[t] = deq((float)(b[t] & 15), s[t], m[t]);
       w[16 + t] = deq((float)(b[t] >> 4), s[t], m[t]);
     }
   } else if constexpr (KIND == KIND_Q6) {
-    const uint8_t* row4 = qa + (size_t)n * (K / 2);
-    uint2 av = *reinterpret_cast<const uint2*>(row4 + 8 * c);
-    uint2 bv = *reinterpret_cast<const uint2*>(row4 + K / 4 + 8 * c);
-    uint2 hv = *reinterpret_cast<const uint2*>(qb + (size_t)n * (K / 4) + 8 * c);
+    uint2 av = *reinterpret_cast<const uint2*>(q);
+    uint2 bv = *reinterpret_cast<const uint2*>(qh);
+    uint2 hv = *reinterpret_cast<const uint2*>(q2);
     const uint8_t* A = reinterpret_cast<const uint8_t*>(&av);
     const uint8_t* B = reinterpret_cast<const uint8_t*>(&bv);
     const uint8_t* H = reinterpret_cast<const uint8_t*>(&hv);
-    const int s0 = (8 * c) % G;
     float s[8], m[8];
-    load_f<ST, 8>(srow + s0, s);
-    load_f<ST, 8>(mrow + s0, m);
+    load_f<ST, 8>(sp, s);
+    load_f<ST, 8>(mp, m);
 #pragma unroll
     for (int t = 0; t < 8; ++t) {
       const int h = H[t];
@@ -122,18 +121,40 @@ __device__ __forceinline__ void decode_chunk(const uint8_t* __restrict__ qa,
       w[24 + t] = deq((float)((B[t] >> 4) | (((h >> 6) & 3) << 4)), s[t], m[t]);
     }
   } else {
-    const uint4* q = reinterpret_cast<const uint4*>(qa + (size_t)n * K + 32 * c);
-    uint4 q0 = q[0], q1 = q[1];
+    const uint4* qv = reinterpret_cast<const uint4*>(q);
+    uint4 q0 = qv[0], q1 = qv[1];
     const int8_t* b0 = reinterpret_cast<const int8_t*>(&q0);
     const int8_t* b1 = reinterpret_cast<const int8_t*>(&q1);
-    const int s0 = (32 * c) % G;
     float s[32];
-    load_f<ST, 32>(srow + s0, s);
+    load_f<ST, 32>(sp, s);
 #pragma unroll
     for (int t = 0; t < 16; ++t) {
       w[t] = __fmul_rn((float)b0[t], s[t]);
       w[16 + t] = __fmul_rn((float)b1[t], s[16 + t]);
     }
+  }
+}
+
+// Dequantize chunk c (32 stored positions) of row n into w, in chunk-local
+// order u = segment * SEG + offset. Its scale/min values sit at columns
+// (SEG * c) % G of the row's scale planes.
+template <int KIND, typename ST>
+__device__ __forceinline__ void decode_chunk(const uint8_t* __restrict__ qa,
+                                             const uint8_t* __restrict__ qb,
+                                             const ST* __restrict__ srow,
+                                             const ST* __restrict__ mrow, int n,
+                                             int c, int K, float (&w)[32]) {
+  using GE = Geo<KIND>;
+  const int s0 = (GE::SEG * c) % (K / GE::GROUP);
+  if constexpr (KIND == KIND_Q4) {
+    decode_raw<KIND, ST>(qa + (size_t)n * (K / 2) + 16 * c, nullptr, nullptr, srow + s0,
+                         mrow + s0, w);
+  } else if constexpr (KIND == KIND_Q6) {
+    const uint8_t* row4 = qa + (size_t)n * (K / 2);
+    decode_raw<KIND, ST>(row4 + 8 * c, row4 + K / 4 + 8 * c, qb + (size_t)n * (K / 4) + 8 * c,
+                         srow + s0, mrow + s0, w);
+  } else {
+    decode_raw<KIND, ST>(qa + (size_t)n * K + 32 * c, nullptr, nullptr, srow + s0, nullptr, w);
   }
 }
 

@@ -26,19 +26,19 @@
 //     one packed row and streams it with 16-byte loads, qmm_gathered_t gives
 //     each lane 4 neighbouring rows (4-byte loads, 128 bytes per warp) and
 //     splits the groups of K over 8 warps so that ~2000 warps are in flight.
-//   - prefill (tt = 8 rows per tile, slots sorted by expert): operations,
-//     which these f32 FMA bodies are far from (no tensor cores yet).
-//     The grid runs the tiles fastest, so the tiles of one expert that
-//     share a block of rows run next to each other and read those rows
-//     from the 50 MB L2 once. qmm_gathered's warp loads each x value for
-//     one output row only, so at prefill it is bound by its L1 traffic;
-//     qmm_gathered_t stages each group of x in shared memory.
+//   - prefill (tt = 8 rows per tile, slots sorted by expert): operations.
+//     qmm_gathered routes tiles of more than one row to
+//     qmm_gathered_mma_kernel, the tensor-core tile body of qmm_mma.cuh
+//     (below). qmm_gathered_t still runs its f32 FMA body: it stages each
+//     group of x in shared memory, and the grid runs the tiles fastest, so
+//     the tiles of one expert that share a block of rows run next to each
+//     other and read those rows from the 50 MB L2 once.
 //
-// Field sets: qmm_gathered covers KIND_Q4, KIND_Q6 and KIND_Q8;
-// qmm_gathered_t covers KIND_Q4 and KIND_Q8 (the loader stores no other
-// field set transposed). The wrappers raise on the rest.
+// Field sets: qmm_gathered covers KIND_Q4, KIND_Q6 and KIND_Q8 on both
+// routes; qmm_gathered_t covers KIND_Q4 and KIND_Q8 (the loader stores no
+// other field set transposed). The wrappers raise on the rest.
 
-#include "qmm_dequant.cuh"
+#include "qmm_mma.cuh"
 
 namespace {
 
@@ -58,6 +58,91 @@ __global__ void __launch_bounds__(128) qmm_gathered_kernel(
   warp_row_dot<KIND, float, ST, TT>(x + (size_t)tile * tt * K, qa, qb, scale, minv,
                                     e * R + n, tt, K, y + (size_t)tile * tt * N + n,
                                     N, threadIdx.x & 31);
+}
+
+// Row-major, tiles of 2..8 rows: the tensor-core route. Replaces the warp
+// per output row of an 8-row tile (the same Pallas kernel, qmm.py:655),
+// which dequantized every weight once per tile (~33 times per expert at
+// 2048 slots), re-read the tile's x per warp through L1 and summed in f32
+// FMAs (3.9 TFLOP/s on the H100).
+//
+// What bounds it on an H100: operations. At Mixtral's prefill (28672 x
+// 4096 [gate | up] rows per expert, 2048 slots over 8 experts) the product
+// is 481 GFLOP, three bf16 passes of it for f32 x; its planes (73 MB per
+// expert) do not fit in the 50 MB L2.
+//
+// What the design does about it: one block computes 128 stored rows of
+// one expert against NT = BN / 8 consecutive tiles, each tile one n8
+// column group of the mma (tile rows past tt are zero columns), so a
+// block dequantizes its rows once per NT tiles (16, 128 slots, with bf16
+// scales; 8 where the layout or the registers need it, mma_bn) instead of
+// once per tile, and the products run on the tensor cores (qmm_mma.cuh).
+// x is split into bf16 hi/lo once per call, in place, before the tile
+// kernel runs. The block reads its tiles' experts on the card and runs the
+// K loop once per
+// run of consecutive tiles with one expert, issuing mma only for that
+// run's column groups: moe_dispatch sorts the slots by expert, so a block
+// usually holds one run and at most two or three; any sel, sorted or not,
+// is right. The grid runs the slot-blocks fastest, so the few blocks that
+// read one (expert, row block) run together and share it through L2.
+template <int KIND, typename ST, int BN>
+__global__ void __launch_bounds__(MMA_THREADS, 1) qmm_gathered_mma_kernel(
+    const __nv_bfloat16* __restrict__ x, const int* __restrict__ sel,
+    const uint8_t* __restrict__ qa, const uint8_t* __restrict__ qb,
+    const ST* __restrict__ scale, const ST* __restrict__ minv,
+    float* __restrict__ y, int n_tiles, int tt, int N, int R, int K) {
+  extern __shared__ __align__(16) char smem[];
+  constexpr int NT = BN / 8;
+  constexpr int NG = BN / 32;
+  __shared__ int xrow[BN];
+  __shared__ int tsel[NT];
+  const int tid = threadIdx.x;
+  const int tile0 = blockIdx.x * NT;
+  const int n0 = blockIdx.y * MMA_BM;
+  const int nt = min(NT, n_tiles - tile0);
+  const int rows = min(MMA_BM, N - n0);
+  if (tid < BN) {
+    const int j = tid / 8, r = tid % 8;
+    xrow[tid] = j < nt && r < tt ? (tile0 + j) * tt + r : -1;
+  }
+  if (tid < NT) tsel[tid] = tid < nt ? sel[tile0 + tid] : -1;
+  float acc[2][NG][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < NG; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mi][j][i] = 0.f;
+  __syncthreads();
+  const int G = K / Geo<KIND>::GROUP;
+  const size_t q_row = KIND == KIND_Q8 ? K : K / 2;
+  for (int j0 = 0; j0 < nt;) {
+    const int e = tsel[j0];
+    int j1 = j0 + 1;
+    while (j1 < nt && tsel[j1] == e) ++j1;
+    const size_t row0 = (size_t)e * R + n0;
+    mma_tile<KIND, true, ST, BN>(smem, x, xrow, qa + row0 * q_row,
+                                 KIND == KIND_Q6 ? qb + row0 * (K / 4) : nullptr,
+                                 scale + row0 * G, KIND == KIND_Q8 ? nullptr : minv + row0 * G,
+                                 rows, K, 0, K / 32, j0, j1, acc);
+    j0 = j1;
+  }
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int wm = warp & 3, wn = warp >> 2;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+      const int jb = NG * wn + j;
+      if (jb >= nt) continue;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int n = n0 + 32 * wm + 16 * mi + g + 8 * (i >> 1);
+        const int r = 2 * tig + (i & 1);
+        if (n < N && r < tt) y[((size_t)(tile0 + jb) * tt + r) * N + n] = acc[mi][j][i];
+      }
+    }
 }
 
 constexpr int T_ROWS = 4;    // output rows per lane
@@ -178,19 +263,43 @@ __global__ void __launch_bounds__(T_WARPS * 32) qmm_gathered_t_kernel(
   }
 }
 
-using RmFn = void (*)(const float*, const int*, const void*, const void*, const void*,
-                     const void*, float*, int, int, int, int, int, cudaStream_t);
+using RmFn = int (*)(float*, const int*, const void*, const void*, const void*,
+                    const void*, float*, int, int, int, int, int, cudaStream_t);
 using TFn = void (*)(const float*, const int*, const void*, const void*, const void*,
                     float*, int, int, int, int, int, int, cudaStream_t);
 
-template <int KIND, typename ST, int TT>
-void launch_rm(const float* x, const int* sel, const void* qa, const void* qb,
-               const void* s, const void* m, float* y, int n_tiles, int tt, int N,
-               int R, int K, cudaStream_t st) {
+// one-row tiles (decode)
+template <int KIND, typename ST>
+int launch_rm(float* x, const int* sel, const void* qa, const void* qb, const void* s,
+              const void* m, float* y, int n_tiles, int tt, int N, int R, int K,
+              cudaStream_t st) {
   dim3 grid(n_tiles, (N + 3) / 4), block(128);
-  qmm_gathered_kernel<KIND, ST, TT><<<grid, block, 0, st>>>(
+  qmm_gathered_kernel<KIND, ST, 1><<<grid, block, 0, st>>>(
       x, sel, static_cast<const uint8_t*>(qa), static_cast<const uint8_t*>(qb),
       static_cast<const ST*>(s), static_cast<const ST*>(m), y, tt, N, R, K);
+  return (int)cudaGetLastError();
+}
+
+// tiles of 2..8 rows (prefill): x is split in place, then the tile body
+template <int KIND, typename ST>
+int launch_mma(float* x, const int* sel, const void* qa, const void* qb, const void* s,
+               const void* m, float* y, int n_tiles, int tt, int N, int R, int K,
+               cudaStream_t st) {
+  constexpr int BN = mma_bn<KIND, true, ST>();
+  constexpr int smem = MmaGeo<KIND, true, ST, BN>::BYTES;
+  auto kern = qmm_gathered_mma_kernel<KIND, ST, BN>;
+  // allowed once per process, not once per launch (a driver call)
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const cudaError_t err = mma_split_x_launch(x, (size_t)n_tiles * tt * K, st);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((n_tiles + BN / 8 - 1) / (BN / 8), (N + MMA_BM - 1) / MMA_BM);
+  kern<<<grid, MMA_THREADS, smem, st>>>(
+      reinterpret_cast<const __nv_bfloat16*>(x), sel, static_cast<const uint8_t*>(qa),
+      static_cast<const uint8_t*>(qb), static_cast<const ST*>(s), static_cast<const ST*>(m), y,
+      n_tiles, tt, N, R, K);
+  return (int)cudaGetLastError();
 }
 
 template <int KIND, typename ST, int TT>
@@ -203,13 +312,12 @@ void launch_t(const float* x, const int* sel, const void* q, const void* s,
       static_cast<const ST*>(m), y, tt, N, R, K, Gp);
 }
 
-// the instance for the smallest TT in {1, 2, 4, 8} that holds tt rows
 template <int KIND, typename ST>
 RmFn pick_rm(int tt) {
-  return tt <= 1 ? &launch_rm<KIND, ST, 1> : tt <= 2 ? &launch_rm<KIND, ST, 2>
-       : tt <= 4 ? &launch_rm<KIND, ST, 4> : &launch_rm<KIND, ST, 8>;
+  return tt == 1 ? &launch_rm<KIND, ST> : &launch_mma<KIND, ST>;
 }
 
+// the instance for the smallest TT in {1, 2, 4, 8} that holds tt rows
 template <int KIND, typename ST>
 TFn pick_t(int tt) {
   return tt <= 1 ? &launch_t<KIND, ST, 1> : tt <= 2 ? &launch_t<KIND, ST, 2>
@@ -221,20 +329,22 @@ TFn pick_t(int tt) {
 // Row-major. x: (n_tiles * tt, K) f32 in stored order; sel: (n_tiles,)
 // int32 expert per tile, on the card; qa: q4 or q8 planes (M, R, K*bits/8);
 // qb: q2 planes (Q6) or null; s, m: (M, R, K/g) f32 or bf16 (m null for
-// Q8); y: (n_tiles * tt, N) f32. tt <= 8. Returns cudaGetLastError().
-extern "C" int tpl_qmm_gathered(int kind, int s_bf16, const float* x, const int* sel,
+// Q8); y: (n_tiles * tt, N) f32. tt <= 8: tt = 1 runs one warp per output
+// row, tt > 1 the tensor-core route (K a multiple of 64), which overwrites
+// x with its bf16 hi/lo split (the wrapper passes its own permuted copy).
+// Returns a CUDA error code (cudaGetLastError() after the launches).
+extern "C" int tpl_qmm_gathered(int kind, int s_bf16, float* x, const int* sel,
                                 const void* qa, const void* qb, const void* s,
                                 const void* m, float* y, int n_tiles, int tt, int N,
                                 int R, int K, void* stream) {
   using bf = __nv_bfloat16;
-  if (tt < 1 || tt > 8) return (int)cudaErrorInvalidValue;
+  if (tt < 1 || tt > 8 || K % MMA_BK) return (int)cudaErrorInvalidValue;
   RmFn fn;
   if (kind == KIND_Q4) fn = s_bf16 ? pick_rm<KIND_Q4, bf>(tt) : pick_rm<KIND_Q4, float>(tt);
   else if (kind == KIND_Q6) fn = s_bf16 ? pick_rm<KIND_Q6, bf>(tt) : pick_rm<KIND_Q6, float>(tt);
   else if (kind == KIND_Q8) fn = s_bf16 ? pick_rm<KIND_Q8, bf>(tt) : pick_rm<KIND_Q8, float>(tt);
   else return (int)cudaErrorInvalidValue;
-  fn(x, sel, qa, qb, s, m, y, n_tiles, tt, N, R, K, static_cast<cudaStream_t>(stream));
-  return (int)cudaGetLastError();
+  return fn(x, sel, qa, qb, s, m, y, n_tiles, tt, N, R, K, static_cast<cudaStream_t>(stream));
 }
 
 // Transposed. x: (n_tiles * tt, K) f32 in natural order; sel as above; q:

@@ -43,6 +43,16 @@ _KINDS = {
 }
 
 
+def route(kernel: str, T: int) -> str:
+    """The body a launch of `kernel` runs for T activation rows: "mma",
+    the tensor-core tile body of csrc/qmm_mma.cuh (qmm_ktiled at T > 8);
+    "tiled", qmm_tiled's f32 tile product; else "gemv", one warp per
+    output row."""
+    if kernel == "qmm_ktiled" and T > GEMV_MAX_T:
+        return "mma"
+    return "tiled" if kernel == "qmm_tiled" else "gemv"
+
+
 def resolve_tile_k(value: int | None) -> int | None:
     """The K-chunk count a caller asked for: `value`, else the
     TPULLAMA_QMM_TILE_K environment variable, else None (the tile table)."""
@@ -226,6 +236,8 @@ def quantized_matmul(x: torch.Tensor, fields: dict, ggml_type: GGMLType,
                 f"(contiguous={a.is_contiguous()}); want {want} on {x.device}")
         if name in ("scale", "minv") and a.dtype != sdt:
             raise TypeError("quantized_matmul: scale and minv dtypes differ")
+    # the permutation copies x (K/group > 1), so qmm_ktiled's mma route may
+    # split f32 xp in place
     xp = permute_x(x, group, order).contiguous()
     y = torch.empty((T, N), dtype=torch.float32, device=x.device)
     qa = fields["q8"] if kind == 2 else fields["q4"]

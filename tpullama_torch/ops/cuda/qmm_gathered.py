@@ -12,7 +12,9 @@ per expert. On a CUDA tensor the wrapper launches csrc/qmm_gathered.cu
 tensor it computes the plain version. The row-major kernel takes x in
 stored order (the group permutation runs here, as one PyTorch copy); the
 transposed kernel takes x in natural order and sums its groups for the
-hoisted min term itself.
+hoisted min term itself. The row-major kernel runs tiles of more than one
+row on the tensor cores (`route`): its outputs are batch-invariant within
+a route, but the one-row route sums in another order.
 
 Not ported: the expert-parallel 4-D planes (L, E_local, R, kcols), the
 N tiling and padding, and the bf16 fast mode (the kernels compute the
@@ -35,6 +37,13 @@ _KINDS_T = {frozenset({"q4", "scale", "minv"}): 0, frozenset({"q8", "scale"}): 2
 _BITS = {"q4": 4, "q2": 2, "q8": 8}
 # field sets the JAX package may store transposed (one stripe width)
 PLANES_T_FIELDS = {"q4", "q4_lut", "q4a", "q1r", "q8", "scale", "minv"}
+
+
+def route(tile_t: int, planes_t: bool = False) -> str:
+    """The body a launch runs: "mma", the row-major kernel's tensor-core
+    route for tiles of more than one row (csrc/qmm_mma.cuh), else "gemv",
+    the f32 warp bodies (one-row tiles, and qmm_gathered_t)."""
+    return "mma" if tile_t > 1 and not planes_t else "gemv"
 
 
 def _check_shapes(x, sel, tile_t, n_in, fields, planes_t):
@@ -132,6 +141,8 @@ def quantized_matmul_gathered(x, fields, sel, ggml_type: GGMLType, group: int,
     if n_out > R or (planes_t and R % 128) or (not planes_t and -(-n_out // 4) > 65535):
         raise ValueError(f"{name}: n_out={n_out} rows of R={R} stored rows")
     xs = x.float()
+    # the permutation copies x (K/group > 1), so the mma route may split xp
+    # in place
     xp = xs.contiguous() if planes_t else permute_x(xs, group).contiguous()
     sel_d = sel.to(device=x.device, dtype=torch.int32).contiguous()
     y = torch.empty((rows, n_out), dtype=torch.float32, device=x.device)
