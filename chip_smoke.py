@@ -546,9 +546,9 @@ def gathered_cases(timer, gen, device, out: list) -> None:
     """Both gathered kernels against their plain versions over 8 experts,
     with the routing of the served MoE path: the B = 4 decode step (8
     (token, k) slots, one-row tiles) and the packed 4 x 256 prefill chunk
-    (2048 slots, dispatched into 8-row tiles); [gate | up] also at 512
-    slots (a 1 x 256 chunk), so the tensor-core route is timed at two slot
-    counts."""
+    (2048 slots, dispatched into 8-row tiles); [gate | up] and down also at
+    512 slots (a 1 x 256 chunk), so each tensor-core route is timed at two
+    slot counts."""
     import torch
     import torch.nn.functional as F
 
@@ -564,7 +564,7 @@ def gathered_cases(timer, gen, device, out: list) -> None:
     # routings): Mixtral's [gate | up] (row-major) and down (transposed)
     # stacks, then the other field sets and padded rows (320 of 384)
     cases = [(False, Q4, 2 * 14336, 4096, (bf16,), ((8, 1), (512, 8), (2048, 8))),
-             (True, Q4, 4096, 14336, (bf16,), served),
+             (True, Q4, 4096, 14336, (bf16,), ((8, 1), (512, 8), (2048, 8))),
              (False, Q6, 4096, 4096, (f32, bf16), small),
              (True, Q8, 4096, 4096, (f32, bf16), small),
              (False, Q4, 320, 4096, (f32, bf16), small),
@@ -1114,7 +1114,8 @@ def kernels_line(records: list, launches: dict) -> dict:
         rec = next((r for r in records if r["kernel"] == name
                     and all(r.get(k) == v for k, v in key.items())), {})
         by_path = {p: c[name] for p, c in launches.items()}
-        rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+        rows.append({"name": name, "route": "cuda", "body": rec.get("route"), "source": src,
+                     "replaces": replaces,
                      "launches": sum(by_path.values()) if by_path else None,
                      "launches_by_path": by_path, "max_abs_err": rec.get("max_abs_err"),
                      "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Where the time of the port's tensor-core qmm routes goes, on one CUDA card.
 
-    python3 scripts/torch_mma_probe.py
+    python3 scripts/torch_mma_probe.py [--body all|mma|group]
 
 Builds copies of qmm.cu, qmm_gathered.cu and qmm_ktiled.cu (from
-tpullama_torch/csrc) in which phases of the tile body's slice loop
-(`mma_tile` in qmm_mma.cuh) are removed, and times each copy at the served
-shapes of chip_smoke.py's kernels phase: qmm_gathered over Mixtral's
+tpullama_torch/csrc) in which phases of a tile body's slice loop are
+removed, and times each copy at the served shapes of chip_smoke.py's
+kernels phase.
+
+Body "mma" (qmm_mma.cuh, `mma_tile`): qmm_gathered over Mixtral's
 [gate | up] (28672 x 4096 x 8 experts, bf16 scales) at 2048 and 512 slots
 and over 320-row experts at 512 slots, and qmm_ktiled over ChatGLM3-6B's
 attn_qkv (4608 x 4096, T = 256, nk = 4). Variants:
@@ -16,6 +18,27 @@ attn_qkv (4608 x 4096, T = 256, nk = 4). Variants:
   nocopy    without the loop's copies (dequantization and products)
   mma_only  products only
   empty     the loop's barriers alone
+
+Body "group" (qmm_group_mma.cuh, `group_tile`): qmm_tiled over
+Llama-3-8B's ffn_up (Q4_K 14336 x 4096, bf16 x and scales, T = 1024, the
+packed 4 x 256 chunk) and qmm_gathered_t over Mixtral's down (4096 x
+14336 x 8 experts, bf16 scales, f32 x) at 2048 and 512 slots. Variants:
+  full       the kernels as they are
+  nocopy     without the loop's copies and their waits (the ring keeps its
+             first slices)
+  nox        without the tensor copies of x (and their waits)
+  noweights  without the row-major planes' tensor copies (bytes, scales,
+             mins) and their waits
+  noscales   without the cp.async copies: xgsum (transposed planes: and
+             their bytes, scales and mins)
+  noconv     without the integer unpacking (raw words as fragments)
+  nomma      the products replaced by one integer op each (the unpacking
+             and the fragment loads stay live)
+  nofold     without the per-column epilogue (products summed straight
+             into the accumulators, no scale)
+  nomin      without the min term's products
+  mma_only   products only (no copies, unpacking, epilogue or min term)
+  empty      the loop's barriers alone
 A variant's outputs are wrong by construction; only its time means
 anything. Prints the card's name and power limit (nvidia-smi) and one
 line per (variant, shape) with three timed rounds (ms, CUDA events, L2
@@ -39,39 +62,84 @@ MMA2 = "    mma_steps<KIND, XLO, ST, BN, 2, MMA_BK / 16>(smem, sl & 1, sl % MMA_
 SPLIT = ("    if (wt && sl + 1 < n) split_w(sl + 1);\n", "")
 COPY_W = ("    copy_w(sl + 3);  // GW, into the stage just consumed\n", "    cp_async_commit();\n")
 COPY_X = ("    copy_x(sl + 2);  // GX\n", "    cp_async_commit();\n")
+# group body (qmm_group_mma.cuh)
+G_COPY = [("    copy(sl + S - 1);  // into the stage slice sl - 1 held\n", "    cp_async_commit();\n"),
+          ("    gm_bar_wait(bars + 8 * s, (phases >> s) & 1);  // and its x\n", ""),
+          ("    if (!TRANS && sl % GG::WSL == 0) {  // and its weight buffer\n", "    if (false) {\n")]
+G_CONV = ("      for (int ks = 0; ks < GG::KS; ++ks) frag_a(wd, cc, ks, tig, a[ks]);\n",
+          "      for (int ks = 0; ks < GG::KS; ++ks) for (int mi = 0; mi < 2; ++mi)"
+          " for (int i = 0; i < 4; ++i) a[ks][mi][i] = wd(i, 2 * mi + (i & 1));\n")
+G_MMA_CALL = """                  if (ks == 0 && p == 0)  // the column's first products
+                    gm_mma_first(ca[mi][j], a[ks][mi], b[j / 2][2 * (j % 2)],
+                                 b[j / 2][2 * (j % 2) + 1]);
+                  else
+                    mma_bf16(ca[mi][j], a[ks][mi], b[j / 2][2 * (j % 2)],
+                             b[j / 2][2 * (j % 2) + 1]);
+"""
+G_MMA = (G_MMA_CALL, "                  ca[mi][j][0] = __uint_as_float(a[ks][mi][0] ^ b[j / 2][2 * (j % 2)]);\n")
+G_FOLD_EXPR = "fmaf(sv[cc][2 * mi + (e >> 1)], ca[mi][j][e], acc[mi][h0 + j][e]);"
+G_FOLD = [(G_MMA_CALL, G_MMA_CALL.replace("ca[mi][j]", "acc[mi][h0 + j]").replace(
+               "gm_mma_first", "mma_bf16")),
+          (G_FOLD_EXPR, "acc[mi][h0 + j][e];")]
+G_NOX = [("        group_copy_x<KIND, XLO, ST, BN, TRANS>((unsigned)__cvta_generic_to_shared(st),\n"
+          "                                               bars + 8 * (sl % S), gx, "
+          "sl * GM_CS * GG::GROUP);\n", ""),
+         ("    gm_bar_wait(bars + 8 * s, (phases >> s) & 1);  // and its x\n", "")]
+G_NOW = [("        if (!TRANS && sl % GG::WSL == 0) {\n", "        if (false) {\n"),
+         ("    if (!TRANS && sl % GG::WSL == 0) {  // and its weight buffer\n", "    if (false) {\n")]
+G_NOSMALL = [("      group_copy<KIND, XLO, ST, BN, TRANS>(st, w, xg, xg_rows, xrow, K, sl * GM_CS, "
+              "threadIdx.x,\n", "      if (false) group_copy<KIND, XLO, ST, BN, TRANS>(st, w, xg, "
+              "xg_rows, xrow, K, sl * GM_CS, threadIdx.x,\n")]
+G_MIN = ("    if constexpr (GG::MIN) GroupWarp::template min_slice<ALL>(st, wb, cg, ja, jb, acc);\n",
+         "")
+# (header, patches) per variant of each body
 VARIANTS = {
-    "full": [],
-    "nomma": [(MMA1, ""), (MMA2, "")],
-    "nosplit": [SPLIT],
-    "nocopy": [COPY_W, COPY_X],
-    "mma_only": [SPLIT, COPY_W, COPY_X],
-    "empty": [(MMA1, ""), (MMA2, ""), SPLIT, COPY_W, COPY_X],
+    "mma": {
+        "full": [],
+        "nomma": [(MMA1, ""), (MMA2, "")],
+        "nosplit": [SPLIT],
+        "nocopy": [COPY_W, COPY_X],
+        "mma_only": [SPLIT, COPY_W, COPY_X],
+        "empty": [(MMA1, ""), (MMA2, ""), SPLIT, COPY_W, COPY_X],
+    },
+    "group": {
+        "full": [],
+        "nocopy": G_COPY,
+        "nox": G_NOX,
+        "noweights": G_NOW,
+        "noscales": G_NOSMALL,
+        "noconv": [G_CONV],
+        "nomma": [G_MMA],
+        "nofold": G_FOLD,
+        "nomin": [G_MIN],
+        "mma_only": [*G_COPY, G_CONV, *G_FOLD, G_MIN],
+        "empty": [*G_COPY, G_CONV, (G_MMA_CALL, ""), (G_FOLD_EXPR, "acc[mi][h0 + j][e];"), G_MIN],
+    },
 }
+HEADER = {"mma": "qmm_mma.cuh", "group": "qmm_group_mma.cuh"}
 SOURCES = ("qmm.cu", "qmm_gathered.cu", "qmm_ktiled.cu")
 
 
-def start_build(name: str, patches: list, root: str):
+def start_build(body: str, name: str, patches: list, root: str):
     """Patch a copy of the sources and start its nvcc processes."""
     from tpullama_torch.ops.cuda import build
 
-    d = os.path.join(root, name)
+    d = os.path.join(root, f"{body}-{name}")
     os.makedirs(d)
     for f in os.listdir(build.CSRC):
         if f.endswith((".cu", ".cuh")):
             shutil.copy(build.CSRC / f, d)
-    path = os.path.join(d, "qmm_mma.cuh")
+    path = os.path.join(d, HEADER[body])
     with open(path) as f:
         text = f.read()
     for old, new in patches:
         if old not in text:
-            raise SystemExit(f"{name}: qmm_mma.cuh no longer holds {old!r}")
+            raise SystemExit(f"{body} {name}: {HEADER[body]} no longer holds {old!r}")
         text = text.replace(old, new)
     with open(path, "w") as f:
         f.write(text)
     flags = [a for a in build.NVCC_FLAGS if a not in ("-Xptxas", "-v")]
-    return d, [subprocess.Popen([build._nvcc(), *flags, "-c", os.path.join(d, s), "-o",
-                                 os.path.join(d, s + ".o")],
-                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return d, [[build._nvcc(), *flags, "-c", os.path.join(d, s), "-o", os.path.join(d, s + ".o")]
                for s in SOURCES]
 
 
@@ -85,13 +153,16 @@ def load(d: str) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.tpl_qmm_ktiled.argtypes = [i, i, i, p, p, p, p, p, p, i, i, i, i, p]
     lib.tpl_qmm_gathered.argtypes = [i, i, p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.tpl_qmm_tiled.argtypes = [i, i, i, p, p, p, p, p, p, p, i, i, i, p]
+    lib.tpl_qmm_gathered_t.argtypes = [i, i, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.tpl_error_string.argtypes = [i]
     lib.tpl_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def shapes(device):
+def shapes(device, body: str):
     import torch
+    import torch.nn.functional as F
 
     import chip_smoke as cs
     from tpullama_torch.gguf import GGMLType
@@ -99,57 +170,93 @@ def shapes(device):
     from tpullama_torch.ops.moe import moe_dispatch
 
     gen = torch.Generator(device=device).manual_seed(0)
-    Q4, bf16, E, K = GGMLType.Q4_K, torch.bfloat16, 8, 4096
-    out = []
-    for N, S in ((2 * 14336, 2048), (2 * 14336, 512), (320, 512)):
+    Q4, bf16, E = GGMLType.Q4_K, torch.bfloat16, 8
+
+    def experts(N, K, planes_t):
         R = -(-N // 128) * 128
         f = cs.random_planes(Q4, E * R, K, bf16, gen, device)
         f = {k: v.reshape(E, R, -1) for k, v in f.items()}
+        if planes_t:  # (E, kcols, R); group rows padded to 16
+            f = {k: v.transpose(1, 2).contiguous() for k, v in f.items()}
+            f = {k: (F.pad(v, (0, 0, 0, -v.shape[1] % 16)) if k in ("scale", "minv") else v)
+                 for k, v in f.items()}
+        return f
+
+    def routed(S, K):
         sel = torch.rand((S // 2, E), generator=gen, device=device).argsort(-1)[:, :2]
         perm, tiles, _, _ = moe_dispatch(sel.reshape(S).int(), E, 8)
         xs = torch.randn((S, K), generator=gen, device=device)
-        x = torch.cat([xs, xs.new_zeros((1, K))])[perm]
-        out.append((f"qmm_gathered N={N} slots={S}",
-                    lambda x=x, f=f, t=tiles, N=N: qmm_gathered.quantized_matmul_gathered(
-                        x, f, t, Q4, 32, N, K, tile_t=8)))
-    f = cs.random_planes(Q4, 4608, K, bf16, gen, device)
-    x = torch.randn((256, K), generator=gen, device=device).to(bf16)
-    out.append(("qmm_ktiled N=4608 T=256 nk=4",
-                lambda: qmm.quantized_matmul(x, f, Q4, 32, 4608, K, tile_k=4)))
+        return torch.cat([xs, xs.new_zeros((1, K))])[perm], tiles
+
+    out = []
+    if body == "mma":
+        K = 4096
+        for N, S in ((2 * 14336, 2048), (2 * 14336, 512), (320, 512)):
+            f = experts(N, K, False)
+            x, tiles = routed(S, K)
+            out.append((f"qmm_gathered N={N} slots={S}",
+                        lambda x=x, f=f, t=tiles, N=N, K=K:
+                        qmm_gathered.quantized_matmul_gathered(x, f, t, Q4, 32, N, K, tile_t=8)))
+        f = cs.random_planes(Q4, 4608, K, bf16, gen, device)
+        x = torch.randn((256, K), generator=gen, device=device).to(bf16)
+        out.append(("qmm_ktiled N=4608 T=256 nk=4",
+                    lambda x=x, f=f, K=K: qmm.quantized_matmul(x, f, Q4, 32, 4608, K, tile_k=4)))
+    else:
+        N, K = 14336, 4096
+        f = cs.random_planes(Q4, N, K, bf16, gen, device)
+        x = torch.randn((1024, K), generator=gen, device=device).to(bf16)
+        out.append((f"qmm_tiled N={N} T=1024",
+                    lambda x=x, f=f, N=N, K=K: qmm.quantized_matmul(x, f, Q4, 32, N, K)))
+        N, K = 4096, 14336
+        f = experts(N, K, True)
+        for S in (2048, 512):
+            x, tiles = routed(S, K)
+            out.append((f"qmm_gathered_t N={N} slots={S}",
+                        lambda x=x, f=f, t=tiles, N=N, K=K:
+                        qmm_gathered.quantized_matmul_gathered(x, f, t, Q4, 32, N, K, tile_t=8,
+                                                               planes_t=True)))
     return out
 
 
 def main() -> int:
+    import argparse
+
     import torch
 
     import chip_smoke as cs
     from tpullama_torch.ops.cuda import build
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--body", choices=("all", "mma", "group"), default="all")
+    bodies = ("mma", "group") if ap.parse_args().body == "all" else (ap.parse_args().body,)
     if not torch.cuda.is_available():
         print("torch_mma_probe: no CUDA device", file=sys.stderr)
         return 1
     device = torch.device("cuda")
     with tempfile.TemporaryDirectory() as root:
-        built = {n: start_build(n, p, root) for n, p in VARIANTS.items()}
-        for n, (_d, procs) in built.items():
-            for proc in procs:
+        built = {(b, n): start_build(b, n, p, root) for b in bodies for n, p in VARIANTS[b].items()}
+        cmds = [c for _d, cs_ in built.values() for c in cs_]
+        for i in range(0, len(cmds), 12):  # at most 12 nvcc processes at a time
+            procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True) for c in cmds[i:i + 12]]
+            for c, proc in zip(cmds[i:i + 12], procs):
                 log, _ = proc.communicate()
                 if proc.returncode:
-                    print(f"{n}: nvcc failed\n{log}", file=sys.stderr)
+                    print(f"{c[-1]}: nvcc failed\n{log}", file=sys.stderr)
                     return 1
         timer = cs.Timer(device)
-        cases = shapes(device)
+        cases = {b: shapes(device, b) for b in bodies}
+        libs = {k: load(d) for k, (d, _c) in built.items()}
         times: dict = {}
         for _round in range(3):
-            for n, (d, _procs) in built.items():
-                lib = load(d)
+            for (b, n), lib in libs.items():
                 build.library = lambda lib=lib: lib  # the wrappers launch this copy
-                for name, fn in cases:
-                    times.setdefault((n, name), []).append(timer.ms(fn, 10))
+                for name, fn in cases[b]:
+                    times.setdefault((b, n, name), []).append(timer.ms(fn, 10))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    for (n, name), t in times.items():
-        print(f"{n:9s} {name:30s} " + " ".join(f"{v:.4f}" for v in t))
+    for (b, n, name), t in times.items():
+        print(f"{b:5s} {n:9s} {name:32s} " + " ".join(f"{v:.4f}" for v in t))
     return 0
 
 

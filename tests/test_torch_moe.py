@@ -213,8 +213,15 @@ def cuda():
     return torch.device("cuda")
 
 
+def test_routes():
+    """Tiles of more than one row run a tensor-core route in both plane
+    layouts; one-row tiles the f32 warp bodies."""
+    assert [gq.route(tt, pt) for pt in (False, True) for tt in (2, 8)] == ["mma"] * 4
+    assert [gq.route(1, pt) for pt in (False, True)] == ["gemv"] * 2
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile_t", [1, 8])
+@pytest.mark.parametrize("tile_t", [1, 2, 8])
 @pytest.mark.parametrize("qtype,planes_t", [(GGMLType.Q4_K, False), (GGMLType.Q6_K, False),
                                             (GGMLType.Q8_0, False), (GGMLType.Q4_K, True),
                                             (GGMLType.Q8_0, True)],
@@ -243,19 +250,23 @@ def test_gathered_kernel_matches_plain(cuda, qtype, planes_t, tile_t):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0],
-                         ids=lambda t: t.name)
-def test_gathered_mma_route_over_expert_runs(cuda, qtype):
-    """The row-major kernel's tensor-core route (tile_t = 8): 24 tiles
-    whose expert runs of 3, 5, 9 and 7 tiles straddle the kernel's 16-tile
-    blocks, zero rows at the end of each run and one whole tile of zero
-    rows (moe_dispatch's padding), N = 320 of R = 384 stored rows, f32 and
-    bf16 scales. Against the plain version at 1e-4 of the output's max;
-    zero rows give exactly 0; and a tile computed alone equals, bit for
-    bit, the same tile inside the 24-tile call."""
-    n_rows, n_in, tt = F, 1024, 8
+@pytest.mark.parametrize("qtype,planes_t,tt", [
+    (GGMLType.Q4_K, False, 8), (GGMLType.Q6_K, False, 8), (GGMLType.Q8_0, False, 8),
+    (GGMLType.Q4_K, True, 2), (GGMLType.Q4_K, True, 8), (GGMLType.Q8_0, True, 2),
+    (GGMLType.Q8_0, True, 8)], ids=lambda v: getattr(v, "name", str(v)))
+def test_gathered_mma_route_over_expert_runs(cuda, qtype, planes_t, tt):
+    """Both kernels' tensor-core routes (row-major planes: qmm_mma.cuh,
+    16 tiles per block; transposed: qmm_group_mma.cuh, 8): 24 tiles whose
+    expert runs of 3, 5, 9 and 7 tiles straddle the blocks, zero rows at
+    the end of each run and one whole tile of zero rows (moe_dispatch's
+    padding), N = 320 of R = 384 stored rows, f32 and bf16 scales. Against
+    the plain version at 1e-4 of the output's max; zero rows give exactly
+    0; and a tile computed alone equals, bit for bit, the same tile inside
+    the 24-tile call."""
+    n_rows, n_in = F, 1024
     runs = (3, 5, 9, 7)
-    fields, group = _experts(qtype, n_rows, n_in, seed=24)
+    name = "qmm_gathered_t" if planes_t else "qmm_gathered"
+    fields, group = _experts(qtype, n_rows, n_in, seed=24, planes_t=planes_t)
     sel = torch.tensor(np.repeat([2, 0, 3, 1], runs), dtype=torch.int32, device=cuda)
     x = np.random.default_rng(24).standard_normal((sum(runs) * tt, n_in)).astype(np.float32)
     zero = np.zeros(len(x), bool)
@@ -267,17 +278,19 @@ def test_gathered_mma_route_over_expert_runs(cuda, qtype):
     for sdt in (torch.float32, torch.bfloat16):
         ft = {k: torch.from_numpy(v).to(cuda, sdt if k in ("scale", "minv") else None)
               for k, v in fields.items()}
-        before = gq.LAUNCHES["qmm_gathered"]
-        got = gq.quantized_matmul_gathered(xx, ft, sel, qtype, group, n_rows, n_in, tile_t=tt)
-        assert gq.LAUNCHES["qmm_gathered"] == before + 1
+        before = gq.LAUNCHES[name]
+        got = gq.quantized_matmul_gathered(xx, ft, sel, qtype, group, n_rows, n_in, tile_t=tt,
+                                           planes_t=planes_t)
+        assert gq.LAUNCHES[name] == before + 1
         want = gq.quantized_matmul_gathered_plain(xx, ft, sel, qtype, group, n_rows, n_in,
-                                                  tile_t=tt)
+                                                  tile_t=tt, planes_t=planes_t)
         torch.cuda.synchronize()
         assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()) + 1e-5
         assert not got[torch.from_numpy(zero).to(cuda)].any()
         for t in (2, 9, 16, 23):
             alone = gq.quantized_matmul_gathered(xx[t * tt:(t + 1) * tt], ft, sel[t:t + 1], qtype,
-                                                 group, n_rows, n_in, tile_t=tt)
+                                                 group, n_rows, n_in, tile_t=tt,
+                                                 planes_t=planes_t)
             assert torch.equal(alone, got[t * tt:(t + 1) * tt])
 
 

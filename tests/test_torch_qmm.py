@@ -147,6 +147,141 @@ def test_bf16_split_product_is_within_kernel_tolerance(qtype, K, xdt):
     assert float((one_pass.double() - exact).abs().max()) > tol
 
 
+# ------------------------------------------- the group-scaled tile body
+
+
+def _group_case(qtype, K, layout, seed):
+    """16 random rows of K repacked in `layout`: "stripe", "fourblock"
+    (to_fourblock) or "transposed" (stripe planes through the port's
+    transpose_planes, as the gathered kernel reads them)."""
+    from tpullama.ops.qweights import to_fourblock
+    from tpullama_torch.ops.qweights import transpose_planes
+
+    rng = np.random.default_rng(seed)
+    raw = quantize(rng.standard_normal((16, K)).astype(np.float32), qtype)
+    pq = repack(raw, qtype, (16, K))
+    if layout == "fourblock":
+        pq = to_fourblock(pq)
+    fields = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in pq.fields.items()}
+    planes = (fields if layout != "transposed" else
+              {k: torch.from_numpy(v) for k, v in transpose_planes(pq.fields).items()})
+    return pq, fields, planes, rng
+
+
+def _column_ints(planes, qtype, K, transposed):
+    """The quantized integers q[n, c, a] of every scale column c of every
+    row, gathered from the packed planes by the group body's byte table
+    (csrc/qmm_group_mma.cuh): with G = K/g, column c's bytes sit at c + jG
+    of each plane. Q4: a < 16 the low nibble of byte c + aG, a >= 16 the
+    high nibble of byte c + (a-16)G; Q6: nib(q4[c + (a%8)G], a//8) |
+    crumb(q2[c + (a%4)G], a//4) << 4; Q8: the signed byte c + aG."""
+    g = 16 if qtype == GGMLType.Q6_K else 32
+    G = K // g
+
+    def run(name, n):  # (N, G, n): plane byte c + jG, j < n
+        p = planes[name]
+        p = p.T if transposed else p
+        return p[:, :n * G].reshape(p.shape[0], n, G).transpose(1, 2).to(torch.int32)
+
+    if qtype == GGMLType.Q8_0:
+        return run("q8", 32).to(torch.uint8).view(torch.int8).to(torch.int32)
+    if qtype == GGMLType.Q6_K:
+        q4, q2 = run("q4", 8), run("q2", 4)
+        a = torch.arange(16)
+        return (((q4[..., a % 8] >> (4 * (a // 8))) & 15)
+                | (((q2[..., a % 4] >> (2 * (a // 4))) & 3) << 4))
+    b = run("q4", 16)
+    return torch.cat([b & 15, b >> 4], dim=-1)
+
+
+def _column_scales(planes, name, G, transposed):
+    p = planes[name]
+    return (p[:G].T if transposed else p).float()
+
+
+def _column_groups(K, g, layout):
+    """nu(c): the natural group of scale column c (fourblock_scale_perm in
+    fourblock order, c itself otherwise)."""
+    c = torch.arange(K // g)
+    if layout == "fourblock":
+        R = K // 128
+        return (c % R) * (128 // g) + c // R
+    return c
+
+
+def _group_scaled_product(x, planes, qtype, K, layout, sdt):
+    """y = x @ W^T as the group body computes it: the raw integers (exact
+    in bf16) times x (bf16, or f32 split into bf16 hi + lo) summed per
+    scale column in f32, scaled once per column, and the min term
+    minv . xgsum (xgsum: f32 sums of x's natural groups) as the body's
+    tensor-core epilogue takes it, both split into bf16 hi/lo."""
+    g = 16 if qtype == GGMLType.Q6_K else 32
+    G, T = K // g, x.shape[0]
+    tr = layout == "transposed"
+    q = _column_ints(planes, qtype, K, tr).float()
+    assert torch.equal(q.to(torch.bfloat16).float(), q)  # exact in bf16
+    xc = x.float().reshape(T, G, g)[:, _column_groups(K, g, layout)]  # (T, c, a)
+    parts = [xc] if x.dtype == torch.bfloat16 else list(_split_bf16(xc))
+    col = sum(torch.einsum("nca,tca->tnc", q, p) for p in parts)  # f32 column sums
+    s = _column_scales(planes, "scale", G, tr).to(sdt).float()
+    y = (col * s).sum(-1)
+    if "minv" in planes:
+        m = _column_scales(planes, "minv", G, tr).to(sdt).float()
+        xgsum = xc.sum(-1)
+        mh, ml = _split_bf16(m)
+        xh, xl = _split_bf16(xgsum)
+        y = y - (xh @ mh.T + xl @ mh.T + xh @ ml.T)
+    return y
+
+
+_GROUP_LAYOUTS = [(qt, "stripe") for qt in (GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0)] + [
+    (GGMLType.Q4_K, "fourblock"), (GGMLType.Q4_K, "transposed"),
+    (GGMLType.Q8_0, "transposed")]
+
+
+@pytest.mark.parametrize("qtype,layout", _GROUP_LAYOUTS,
+                         ids=lambda v: getattr(v, "name", str(v)))
+def test_group_byte_table_matches_stored_positions(qtype, layout):
+    """The byte table's integer q[n, c, a], scaled as q * scale[c] -
+    minv[c], is dequant_stored's weight at stored position c + aG, bit
+    for bit, in every layout the group body reads."""
+    K = 1024
+    pq, fields, planes, _ = _group_case(qtype, K, layout, seed=5)
+    g, G = pq.group, K // pq.group
+    w = qmm.dequant_stored(fields, qtype, g)  # (N, K) stored order
+    q = _column_ints(planes, qtype, K, layout == "transposed").float()
+    s = _column_scales(planes, "scale", G, layout == "transposed")[..., None]
+    got = q * s
+    if "minv" in planes:
+        got = got - _column_scales(planes, "minv", G, layout == "transposed")[..., None]
+    c, a = torch.meshgrid(torch.arange(G), torch.arange(g), indexing="ij")
+    assert torch.equal(got, w[:, c + a * G])
+
+
+_GROUP_CASES = [(qt, lay, K, xdt) for qt, lay in _GROUP_LAYOUTS for K in (1024, 4096, 14336)
+                for xdt in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("qtype,layout,K,xdt", _GROUP_CASES,
+                         ids=lambda v: getattr(v, "name", str(v)).replace("torch.", ""))
+def test_group_scaled_product_is_within_kernel_tolerance(qtype, layout, K, xdt):
+    """The group body's arithmetic (raw integers on the tensor cores, a
+    scale per column, the min term apart) against the exact (f64) product
+    of the plain version's weights: within the kernels' tolerance, 1e-4 of
+    the output's max plus 1e-5, with f32 and with bf16 scales."""
+    pq, fields, planes, rng = _group_case(qtype, K, layout, seed=K + qtype.value)
+    x = torch.from_numpy(rng.standard_normal((8, K)).astype(np.float32)).to(xdt)
+    order = "fourblock" if layout == "fourblock" else "stripe"
+    for sdt in (torch.float32, torch.bfloat16):
+        fs = {k: (v.to(sdt) if k in ("scale", "minv") else v) for k, v in fields.items()}
+        ps = {k: (v.to(sdt) if k in ("scale", "minv") else v) for k, v in planes.items()}
+        w = qmm.dequant_stored(fs, qtype, pq.group).double()
+        exact = qmm.permute_x(x.double(), pq.group, order) @ w.T
+        tol = 1e-4 * float(exact.abs().max()) + 1e-5
+        got = _group_scaled_product(x, ps, qtype, K, layout, sdt)
+        assert float((got.double() - exact).abs().max()) <= tol
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -154,12 +289,33 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.mark.parametrize("order", ["stripe", "fourblock"])
+def test_column_x_is_the_group_body_order(order):
+    """column_x lays x out by scale column: block c holds natural group
+    nu(c) (the emulation's _column_groups), for both stored orders."""
+    K = 1024
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((3, K)).astype(np.float32))
+    want = x.reshape(3, K // 32, 32)[:, _column_groups(K, 32, order)].reshape(3, K)
+    assert torch.equal(qmm.column_x(x, 32, order), want)
+
+
+def test_routes():
+    """qmm_tiled and qmm_ktiled run a tensor-core body above 8 rows and a
+    warp per output row up to 8; qmm_gemv always the latter."""
+    assert [qmm.route("qmm_tiled", T) for T in (9, 256, 1024)] == ["mma"] * 3
+    assert [qmm.route("qmm_ktiled", T) for T in (9, 256)] == ["mma"] * 2
+    assert [qmm.route(k, T) for k in ("qmm_tiled", "qmm_ktiled", "qmm_gemv")
+            for T in (1, 8)] == ["gemv"] * 6
+    assert qmm.route("qmm_gemv", 1024) == "gemv"
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [1, 4, 9, 64])
+@pytest.mark.parametrize("T", [1, 4, 9, 64, 256, 1024])
 @pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0],
                          ids=lambda t: t.name)
 def test_kernel_matches_plain(cuda, qtype, T):
-    """The kernel sums in f32 in another order: 1e-4 of the output's scale."""
+    """The kernel sums in f32 in another order (T > 8: the group body's
+    integer products and column scales): 1e-4 of the output's scale."""
     rng = np.random.default_rng(T)
     n_out, n_in = 256, 1024
     raw = quantize(rng.standard_normal((n_out, n_in)).astype(np.float32), qtype)
@@ -365,7 +521,31 @@ def test_ktiled_mma_rows_do_not_depend_on_the_batch(cuda, qtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [1, 4, 9])
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0],
+                         ids=lambda t: t.name)
+def test_tiled_mma_rows_do_not_depend_on_the_batch(cuda, qtype):
+    """Row t of a T = 9 call of qmm_tiled equals row t of a T = 256 call
+    whose first 9 rows are the same, bit for bit (f32 and bf16 x and
+    scales): each output of the group body depends only on its own weight
+    row, token row and column order. N = 260 leaves a ragged row block."""
+    n_out, n_in = 260, 4096
+    pq, x = _chunk_case(qtype, n_out, n_in, 256, seed=78)
+    for sdt in (torch.float32, torch.bfloat16):
+        fields = {k: torch.from_numpy(v).to(cuda, sdt if k in ("scale", "minv") else None)
+                  for k, v in pq.fields.items()}
+        for xdt in (torch.float32, torch.bfloat16):
+            xx = torch.from_numpy(x).to(cuda, xdt)
+            before = qmm.LAUNCHES["qmm_tiled"]
+            full = qmm.quantized_matmul(xx, fields, qtype, pq.group, n_out, n_in)
+            head = qmm.quantized_matmul(xx[:9].contiguous(), fields, qtype, pq.group, n_out,
+                                        n_in)
+            assert qmm.LAUNCHES["qmm_tiled"] == before + 2
+            assert torch.equal(head, full[:9])
+            assert torch.equal(xx, torch.from_numpy(x).to(cuda, xdt))  # x is not split in place
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 4, 9, 64])
 def test_fourblock_kernel_matches_plain(cuda, T):
     """Fourblock planes through qmm_gemv / qmm_tiled: only the wrapper's x
     permutation differs from the stripe order."""

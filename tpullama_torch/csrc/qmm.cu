@@ -6,31 +6,32 @@
 // stores it: "global stripe" nibble/crumb planes in group-transposed order
 // plus per-group scale (and min) planes, f32 or bf16. A stored position p
 // of a row holds natural element (p % G) * g + p / G (G = K / g), and its
-// scale/min sit at column p % G of the scale planes. The wrapper
-// (tpullama_torch/ops/cuda/qmm.py) permutes x into that stored order, so
-// the kernel contracts stored positions with stored positions.
+// scale/min sit at column p % G of the scale planes.
 //
-// Every weight is dequantized in registers as q * scale - minv in f32
-// (the reference's exact mode) and accumulated in f32.
-//
-// What bounds it on an H100:
-//   - decode (T <= 8): bytes. One decode step reads every packed weight
-//     once (~0.6 B/weight for Q4_K with bf16 scales) and does 2*T flops
-//     per weight, far below the card's 295 flop/byte ridge. qmm_gemv gives
-//     each warp whole packed rows and streams them with 16-byte loads, so
-//     the weight planes are read once and nothing else of size is.
-//   - prefill (T > 8): operations. qmm_tiled dequantizes a 64-row x
-//     32-position slab of W into shared memory once per 64 activation
-//     rows and runs a plain f32 FMA tile product (4x4 per thread); it is
-//     far from the tensor-core rate (no mma/wgmma yet), which is the known
-//     gap this first version leaves for a later change.
+// What bounds it on an H100, and the two routes:
+//   - decode (T <= 8), qmm_gemv: bytes. One decode step reads every packed
+//     weight once (~0.6 B/weight for Q4_K with bf16 scales) and does 2*T
+//     flops per weight, far below the card's 295 flop/byte ridge. Each warp
+//     takes whole packed rows and streams them with 16-byte loads; every
+//     weight is dequantized in registers as q * scale - minv in f32 (the
+//     reference's exact mode). The wrapper permutes x into stored order.
+//   - prefill (T > 8), qmm_tiled: operations (120 GFLOP at 14336 x 4096 and
+//     a packed 1024-token chunk, 0.12 ms at the bf16 peak). It runs the
+//     group-scaled tensor-core body of qmm_group_mma.cuh: the raw integers
+//     of each scale column times bf16 x (or f32 x split into bf16 hi/lo),
+//     one f32 scale per column, the min term as its own small product. It
+//     replaced an f32 FMA tile (64 x 64 outputs per block, every weight
+//     dequantized once per 64 tokens; 4.97 ms at that shape on an NVIDIA
+//     H100 80GB HBM3, 700.00 W). The wrapper passes x in column order:
+//     natural order for stripe planes, whole 32-value blocks permuted by
+//     fourblock_scale_perm for fourblock planes.
 //
 // Field sets covered (the wrapper raises on the rest):
 //   KIND_Q4: {q4, scale, minv}      g=32  (Q4_0, Q4_1, Q4_K)
 //   KIND_Q6: {q4, q2, scale, minv}  g=16  (Q6_K: value = q4 | q2 << 4)
 //   KIND_Q8: {q8, scale}            g=32  (Q8_0, signed bytes)
 
-#include "qmm_dequant.cuh"
+#include "qmm_group_mma.cuh"
 
 namespace {
 
@@ -48,147 +49,50 @@ __global__ void __launch_bounds__(128) qmm_gemv_kernel(
                                  threadIdx.x & 31);
 }
 
-// One loader thread's share of a chunk: 8 dequantized weights of row n
-// and their chunk-local positions u.
-template <int KIND, typename ST>
-__device__ __forceinline__ void decode_quarter(const uint8_t* __restrict__ qa,
-                                               const uint8_t* __restrict__ qb,
-                                               const ST* __restrict__ srow,
-                                               const ST* __restrict__ mrow, int n,
-                                               int c, int qq, int K, float (&w)[8],
-                                               int (&u)[8]) {
-  constexpr int GROUP = Geo<KIND>::GROUP;
-  const int G = K / GROUP;
-  if constexpr (KIND == KIND_Q4) {
-    const uint32_t qv = *reinterpret_cast<const uint32_t*>(qa + (size_t)n * (K / 2) + 16 * c + 4 * qq);
-    const int s0 = (16 * c) % G + 4 * qq;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int b = (qv >> (8 * e)) & 0xff;
-      const float s = to_f(srow[s0 + e]);
-      const float m = to_f(mrow[s0 + e]);
-      w[e] = deq((float)(b & 15), s, m);
-      u[e] = 4 * qq + e;
-      w[4 + e] = deq((float)(b >> 4), s, m);
-      u[4 + e] = 16 + 4 * qq + e;
-    }
-  } else if constexpr (KIND == KIND_Q6) {
-    const uint8_t* row4 = qa + (size_t)n * (K / 2);
-    const uint8_t* row2 = qb + (size_t)n * (K / 4);
-    const int s0 = (8 * c) % G + 2 * qq;
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int t = 2 * qq + e;
-      const int A = row4[8 * c + t];
-      const int B = row4[K / 4 + 8 * c + t];
-      const int h = row2[8 * c + t];
-      const float s = to_f(srow[s0 + e]);
-      const float m = to_f(mrow[s0 + e]);
-      w[e] = deq((float)((A & 15) | ((h & 3) << 4)), s, m);
-      u[e] = t;
-      w[2 + e] = deq((float)((B & 15) | (((h >> 2) & 3) << 4)), s, m);
-      u[2 + e] = 8 + t;
-      w[4 + e] = deq((float)((A >> 4) | (((h >> 4) & 3) << 4)), s, m);
-      u[4 + e] = 16 + t;
-      w[6 + e] = deq((float)((B >> 4) | (((h >> 6) & 3) << 4)), s, m);
-      u[6 + e] = 24 + t;
-    }
-  } else {
-    const uint2 qv = *reinterpret_cast<const uint2*>(qa + (size_t)n * K + 32 * c + 8 * qq);
-    const int8_t* b = reinterpret_cast<const int8_t*>(&qv);
-    const int s0 = (32 * c) % G + 8 * qq;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      w[e] = __fmul_rn((float)b[e], to_f(srow[s0 + e]));
-      u[e] = 8 * qq + e;
-    }
-  }
-}
-
-constexpr int TB = 64;   // tile rows of T and of N
-constexpr int TPAD = 4;  // keeps float4 alignment of shared rows
-
-// Prefill T > 8: 64 x 64 output tile per block, 256 threads, 4 x 4 per
-// thread, one 32-position chunk of K per step.
-template <int KIND, typename XT, typename ST>
-__global__ void __launch_bounds__(256) qmm_tiled_kernel(
-    const XT* __restrict__ x, const uint8_t* __restrict__ qa,
-    const uint8_t* __restrict__ qb, const ST* __restrict__ scale,
-    const ST* __restrict__ minv, float* __restrict__ y, int T, int N, int K) {
-  using GE = Geo<KIND>;
-  __shared__ __align__(16) float Ws[32][TB + TPAD];
-  __shared__ __align__(16) float Xs[32][TB + TPAD];
+// Prefill T > 8: the group-scaled tensor-core tile body (qmm_group_mma.cuh)
+// over 128 weight rows x BN tokens per block, grid (row blocks, token
+// blocks). x (column-order bf16 rows, or f32 rows split in place by
+// group_prep, which also writes xgsum, xg) comes through the tensor map
+// tmx, the packed planes through maps (group_w_maps).
+template <int KIND, bool XLO, typename ST, int BN>
+__global__ void __launch_bounds__(GM_THREADS, 1) qmm_tiled_group_kernel(
+    const __grid_constant__ CUtensorMap tmx, const __grid_constant__ GroupMaps maps,
+    const __nv_bfloat16* __restrict__ xg, float* __restrict__ y, int T, int N, int K) {
+  extern __shared__ __align__(16) char smem[];
+  using GG = GroupGeo<KIND, XLO, ST, BN, false>;
+  constexpr int NG = GG::NG;
+  __shared__ int xrow[BN];
+  __shared__ uint64_t xbar[GM_BARS];
   const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * TB;
-  const int t0 = blockIdx.y * TB;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int lr = tid >> 2, lq = tid & 3;  // loader row / quarter
-  const int G = K / GE::GROUP;
-  const int wn = n0 + lr;
-  const int xt = t0 + lr;
-  const ST* srow = scale + (size_t)(wn < N ? wn : 0) * G;
-  const ST* mrow = KIND == KIND_Q8 ? nullptr : minv + (size_t)(wn < N ? wn : 0) * G;
-  float acc[4][4];
+  const int n0 = blockIdx.x * GM_BM;
+  const int t0 = blockIdx.y * BN;
+  if (tid < BN) xrow[tid] = t0 + tid < T ? t0 + tid : -1;
+  if (tid == 0) group_bars_init(xbar);
+  float acc[2][NG][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  const int n_chunks = K / 32;
-  for (int c = 0; c < n_chunks; ++c) {
-    {
-      float w[8];
-      int u[8];
-      if (wn < N) {
-        decode_quarter<KIND, ST>(qa, qb, srow, mrow, wn, c, lq, K, w, u);
-      } else {
+    for (int j = 0; j < NG; ++j)
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          w[e] = 0.f;
-          u[e] = 8 * lq + e;
-        }
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+  const GroupW<ST> w{nullptr, nullptr, nullptr, 0, maps.m, n0};
+  const GroupX gx{&tmx, t0, 0, BN, 1};
+  unsigned phases = 0;
+  group_tile<KIND, XLO, ST, BN, false>(smem, gx, xrow, xg, T, w, K, 0, 2 * NG,
+                                       (unsigned)__cvta_generic_to_shared(xbar), phases, acc);
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int wm = warp & 3, wn = warp >> 2;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < NG; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = n0 + 32 * wm + GG::row(mi, e >> 1, g);
+        const int t = t0 + 8 * (NG * wn + j) + 2 * tig + (e & 1);
+        if (n < N && t < T) y[(size_t)t * N + n] = acc[mi][j][e];
       }
-#pragma unroll
-      for (int e = 0; e < 8; ++e) Ws[u[e]][lr] = w[e];
-    }
-    {
-      const int u0 = 8 * lq;
-      float xv[8];
-      if (xt < T) {
-        const int j = u0 / GE::SEG;
-        const int pos = GE::seg_start(c, j, K) + (u0 % GE::SEG);
-        load_f<XT, 8>(x + (size_t)xt * K + pos, xv);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) xv[e] = 0.f;
-      }
-#pragma unroll
-      for (int e = 0; e < 8; ++e) Xs[u0 + e][lr] = xv[e];
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int u = 0; u < 32; ++u) {
-      const float4 a = *reinterpret_cast<const float4*>(&Xs[u][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Ws[u][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + ty * 4 + i;
-    if (t >= T) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < N) y[(size_t)t * N + n] = acc[i][j];
-    }
-  }
 }
 
 template <int KIND, typename XT, typename ST>
@@ -207,40 +111,47 @@ void launch_gemv(const void* x, const void* qa, const void* qb, const void* s,
 }
 
 template <int KIND, typename XT, typename ST>
-void launch_tiled(const void* x, const void* qa, const void* qb, const void* s,
-                  const void* m, float* y, int T, int N, int K, cudaStream_t st) {
-  dim3 grid((N + TB - 1) / TB, (T + TB - 1) / TB), block(256);
-  qmm_tiled_kernel<KIND, XT, ST><<<grid, block, 0, st>>>(
-      static_cast<const XT*>(x), static_cast<const uint8_t*>(qa),
-      static_cast<const uint8_t*>(qb), static_cast<const ST*>(s),
-      static_cast<const ST*>(m), y, T, N, K);
+int launch_tiled(void* x, void* xg, const void* qa, const void* qb, const void* s,
+                 const void* m, float* y, int T, int N, int K, cudaStream_t st) {
+  constexpr bool XLO = sizeof(XT) == 4;
+  constexpr int BN = group_bn<KIND, XLO, ST, false>();
+  constexpr int smem = GroupGeo<KIND, XLO, ST, BN, false>::BYTES;
+  auto kern = qmm_tiled_group_kernel<KIND, XLO, ST, BN>;
+  // set once per process: the attribute call is slow, a launch is not
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  CUtensorMap tmx;
+  GroupMaps maps;
+  int mapped = group_x_map(&tmx, x, XLO ? 2 * K : K, T, BN);
+  if (!mapped) mapped = group_w_maps<KIND, ST>(maps.m, qa, qb, s, m, N, K);
+  if (mapped) return mapped;
+  auto xgp = static_cast<__nv_bfloat16*>(xg);
+  const cudaError_t err = group_prep_launch<KIND, XT>(static_cast<XT*>(x), xgp, T, K, st);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((N + GM_BM - 1) / GM_BM, (T + BN - 1) / BN);
+  kern<<<grid, GM_THREADS, smem, st>>>(
+      tmx, maps, xgp, y, T, N, K);
+  return (int)cudaGetLastError();
 }
 
-using LaunchFn = void (*)(const void*, const void*, const void*, const void*,
-                          const void*, float*, int, int, int, cudaStream_t);
+using GemvFn = void (*)(const void*, const void*, const void*, const void*, const void*,
+                        float*, int, int, int, cudaStream_t);
+using TiledFn = int (*)(void*, void*, const void*, const void*, const void*, const void*,
+                        float*, int, int, int, cudaStream_t);
 
-template <bool TILED, int KIND>
-LaunchFn pick_dtypes(int x_bf16, int s_bf16) {
+template <int KIND>
+GemvFn pick_gemv(int x_bf16, int s_bf16) {
   using bf = __nv_bfloat16;
-  if (TILED) {
-    if (x_bf16) return s_bf16 ? launch_tiled<KIND, bf, bf> : launch_tiled<KIND, bf, float>;
-    return s_bf16 ? launch_tiled<KIND, float, bf> : launch_tiled<KIND, float, float>;
-  }
   if (x_bf16) return s_bf16 ? launch_gemv<KIND, bf, bf> : launch_gemv<KIND, bf, float>;
   return s_bf16 ? launch_gemv<KIND, float, bf> : launch_gemv<KIND, float, float>;
 }
 
-template <bool TILED>
-int run(int kind, int x_bf16, int s_bf16, const void* x, const void* qa,
-        const void* qb, const void* s, const void* m, float* y, int T, int N,
-        int K, void* stream) {
-  LaunchFn fn;
-  if (kind == KIND_Q4) fn = pick_dtypes<TILED, KIND_Q4>(x_bf16, s_bf16);
-  else if (kind == KIND_Q6) fn = pick_dtypes<TILED, KIND_Q6>(x_bf16, s_bf16);
-  else if (kind == KIND_Q8) fn = pick_dtypes<TILED, KIND_Q8>(x_bf16, s_bf16);
-  else return (int)cudaErrorInvalidValue;
-  fn(x, qa, qb, s, m, y, T, N, K, static_cast<cudaStream_t>(stream));
-  return (int)cudaGetLastError();
+template <int KIND>
+TiledFn pick_tiled(int x_bf16, int s_bf16) {
+  using bf = __nv_bfloat16;
+  if (x_bf16) return s_bf16 ? launch_tiled<KIND, bf, bf> : launch_tiled<KIND, bf, float>;
+  return s_bf16 ? launch_tiled<KIND, float, bf> : launch_tiled<KIND, float, float>;
 }
 
 }  // namespace
@@ -252,14 +163,30 @@ extern "C" int tpl_qmm_gemv(int kind, int x_bf16, int s_bf16, const void* x,
                             const void* qa, const void* qb, const void* s,
                             const void* m, float* y, int T, int N, int K,
                             void* stream) {
-  return run<false>(kind, x_bf16, s_bf16, x, qa, qb, s, m, y, T, N, K, stream);
+  GemvFn fn;
+  if (kind == KIND_Q4) fn = pick_gemv<KIND_Q4>(x_bf16, s_bf16);
+  else if (kind == KIND_Q6) fn = pick_gemv<KIND_Q6>(x_bf16, s_bf16);
+  else if (kind == KIND_Q8) fn = pick_gemv<KIND_Q8>(x_bf16, s_bf16);
+  else return (int)cudaErrorInvalidValue;
+  fn(x, qa, qb, s, m, y, T, N, K, static_cast<cudaStream_t>(stream));
+  return (int)cudaGetLastError();
 }
 
-extern "C" int tpl_qmm_tiled(int kind, int x_bf16, int s_bf16, const void* x,
-                             const void* qa, const void* qb, const void* s,
-                             const void* m, float* y, int T, int N, int K,
-                             void* stream) {
-  return run<true>(kind, x_bf16, s_bf16, x, qa, qb, s, m, y, T, N, K, stream);
+// x: (T, K) in column order (x_col[t, c*g + a] = x[t, nu(c)*g + a]), f32 or
+// bf16; f32 x is overwritten with its bf16 hi/lo split. xg: (2, T, K/g)
+// bf16 scratch for xgsum's hi and lo planes (unused for Q8). The other
+// arguments as tpl_qmm_gemv's. K/g must be a multiple of 16.
+extern "C" int tpl_qmm_tiled(int kind, int x_bf16, int s_bf16, void* x, const void* qa,
+                             const void* qb, const void* s, const void* m, void* xg, float* y,
+                             int T, int N, int K, void* stream) {
+  TiledFn fn;
+  const int g = kind == KIND_Q6 ? 16 : 32;
+  if (K % (16 * g)) return (int)cudaErrorInvalidValue;
+  if (kind == KIND_Q4) fn = pick_tiled<KIND_Q4>(x_bf16, s_bf16);
+  else if (kind == KIND_Q6) fn = pick_tiled<KIND_Q6>(x_bf16, s_bf16);
+  else if (kind == KIND_Q8) fn = pick_tiled<KIND_Q8>(x_bf16, s_bf16);
+  else return (int)cudaErrorInvalidValue;
+  return fn(x, xg, qa, qb, s, m, y, T, N, K, static_cast<cudaStream_t>(stream));
 }
 
 // Message for a code returned by any tpl_* entry point.

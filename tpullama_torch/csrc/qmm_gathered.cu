@@ -17,8 +17,9 @@
 // the rows computed. x is f32: in stored (group-permuted) order for
 // qmm_gathered, as in qmm.cu; in natural order for qmm_gathered_t, whose
 // walk over one scale group's stored positions meets that group's 32
-// natural elements in order. The dequantization helpers are qmm.cu's
-// (qmm_dequant.cuh), so the weights equal the plain version's bit for bit.
+// natural elements in order. The one-row bodies use qmm.cu's dequantization
+// helpers (qmm_dequant.cuh), so their weights equal the plain version's bit
+// for bit.
 //
 // What bounds it on an H100:
 //   - decode (tt = 1, one tile per (token, k) slot): bytes. A step reads
@@ -29,16 +30,18 @@
 //   - prefill (tt = 8 rows per tile, slots sorted by expert): operations.
 //     qmm_gathered routes tiles of more than one row to
 //     qmm_gathered_mma_kernel, the tensor-core tile body of qmm_mma.cuh
-//     (below). qmm_gathered_t still runs its f32 FMA body: it stages each
-//     group of x in shared memory, and the grid runs the tiles fastest, so
-//     the tiles of one expert that share a block of rows run next to each
-//     other and read those rows from the 50 MB L2 once.
+//     (exact f32 weights split into bf16 hi/lo), and qmm_gathered_t to
+//     qmm_gathered_t_mma_kernel, the group-scaled body of
+//     qmm_group_mma.cuh (the raw integers of each scale column on the
+//     tensor cores, one f32 scale per column, the min term as its own
+//     product). Both run 128 rows of one expert against a block of tiles,
+//     so each weight is read once per block instead of once per tile.
 //
 // Field sets: qmm_gathered covers KIND_Q4, KIND_Q6 and KIND_Q8 on both
 // routes; qmm_gathered_t covers KIND_Q4 and KIND_Q8 (the loader stores no
 // other field set transposed). The wrappers raise on the rest.
 
-#include "qmm_mma.cuh"
+#include "qmm_group_mma.cuh"
 
 namespace {
 
@@ -145,11 +148,88 @@ __global__ void __launch_bounds__(MMA_THREADS, 1) qmm_gathered_mma_kernel(
     }
 }
 
+// Transposed, tiles of 2..8 rows: the group-scaled tensor-core route
+// (qmm_group_mma.cuh) on the (kcols, R) planes, in qmm_gathered_mma_kernel's
+// scheme: one block computes 128 stored rows of one expert against NT = BN
+// / 8 consecutive tiles, each tile one n8 column group (tile rows past tt
+// are zero columns); the block reads its tiles' experts on the card and
+// runs the K loop once per run of consecutive tiles with one expert,
+// issuing mma only for that run's column groups; slot-blocks run fastest
+// in the grid. It replaced the f32 FMA body below for tiles of more
+// than one row (14.90 ms at Mixtral's down 4096 x 14336 x 8 experts and
+// 2048 slots, NVIDIA H100 80GB HBM3, 700.00 W), which dequantized each
+// expert's planes again for every one of its ~32 tiles. x is f32 in natural
+// order, split into bf16 hi/lo in place by group_prep, which also writes
+// xgsum (xg), and read through the tensor map tmx.
+template <int KIND, typename ST, int BN>
+__global__ void __launch_bounds__(GM_THREADS, 1) qmm_gathered_t_mma_kernel(
+    const __grid_constant__ CUtensorMap tmx, const __nv_bfloat16* __restrict__ xg,
+    const int* __restrict__ sel, const uint8_t* __restrict__ q, const ST* __restrict__ scale,
+    const ST* __restrict__ minv, float* __restrict__ y, int n_tiles, int tt, int N, int R,
+    int K, int Gp) {
+  extern __shared__ __align__(16) char smem[];
+  using GG = GroupGeo<KIND, true, ST, BN, true>;
+  constexpr int NT = BN / 8;
+  constexpr int NG = GG::NG;
+  __shared__ int xrow[BN];
+  __shared__ int tsel[NT];
+  __shared__ uint64_t xbar[GM_BARS];
+  const int tid = threadIdx.x;
+  const int tile0 = blockIdx.x * NT;
+  const int n0 = blockIdx.y * GM_BM;
+  const int nt = min(NT, n_tiles - tile0);
+  if (tid < BN) {
+    const int j = tid / 8, r = tid % 8;
+    xrow[tid] = j < nt && r < tt ? (tile0 + j) * tt + r : -1;
+  }
+  if (tid < NT) tsel[tid] = tid < nt ? sel[tile0 + tid] : -1;
+  if (tid == 0) group_bars_init(xbar);
+  float acc[2][NG][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < NG; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+  __syncthreads();
+  const size_t q_rows = KIND == KIND_Q8 ? K : K / 2;
+  // 8-row tiles are BN consecutive rows: one box; else one box per tile
+  const GroupX gx = tt == 8 ? GroupX{&tmx, tile0 * 8, 0, BN, 1} : GroupX{&tmx, tile0 * tt, tt, tt, nt};
+  unsigned phases = 0;
+  for (int j0 = 0; j0 < nt;) {
+    const int e = tsel[j0];
+    int j1 = j0 + 1;
+    while (j1 < nt && tsel[j1] == e) ++j1;
+    const GroupW<ST> w{q + (size_t)e * q_rows * R + n0, scale + (size_t)e * Gp * R + n0,
+                       GG::MIN ? minv + (size_t)e * Gp * R + n0 : nullptr, R, nullptr, 0};
+    group_tile<KIND, true, ST, BN, true>(smem, gx, xrow, xg, n_tiles * tt, w, K, j0, j1,
+                                         (unsigned)__cvta_generic_to_shared(xbar), phases, acc);
+    j0 = j1;
+  }
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int wm = warp & 3, wn = warp >> 2;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+      const int jb = NG * wn + j;
+      if (jb >= nt) continue;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int n = n0 + 32 * wm + GG::row(mi, i >> 1, g);
+        const int r = 2 * tig + (i & 1);
+        if (n < N && r < tt) y[((size_t)(tile0 + jb) * tt + r) * N + n] = acc[mi][j][i];
+      }
+    }
+}
+
 constexpr int T_ROWS = 4;    // output rows per lane
 constexpr int T_WARPS = 8;   // warps splitting the groups of K
 constexpr int T_BLOCK_N = 32 * T_ROWS;
 
-// Transposed: grid (tile, block of 128 rows), 8 warps. Lane l holds rows
+// Transposed, one-row tiles (decode, TT = 1): grid (tile, block of 128
+// rows), 8 warps. Lane l holds rows
 // n0..n0+3 (n0 = 4 l); warp w takes the groups gi = w, w + 8, ... For
 // group gi it stages the tile's x over natural elements gi*32 .. gi*32+31
 // in shared memory (one 128-byte load per row), loads the 4 rows' scales
@@ -265,7 +345,7 @@ __global__ void __launch_bounds__(T_WARPS * 32) qmm_gathered_t_kernel(
 
 using RmFn = int (*)(float*, const int*, const void*, const void*, const void*,
                     const void*, float*, int, int, int, int, int, cudaStream_t);
-using TFn = void (*)(const float*, const int*, const void*, const void*, const void*,
+using TFn = int (*)(float*, void*, const int*, const void*, const void*, const void*,
                     float*, int, int, int, int, int, int, cudaStream_t);
 
 // one-row tiles (decode)
@@ -302,14 +382,40 @@ int launch_mma(float* x, const int* sel, const void* qa, const void* qb, const v
   return (int)cudaGetLastError();
 }
 
-template <int KIND, typename ST, int TT>
-void launch_t(const float* x, const int* sel, const void* q, const void* s,
-              const void* m, float* y, int n_tiles, int tt, int N, int R, int K, int Gp,
-              cudaStream_t st) {
+// one-row tiles (decode): the f32 FMA body
+template <int KIND, typename ST>
+int launch_t(float* x, void*, const int* sel, const void* q, const void* s, const void* m,
+             float* y, int n_tiles, int tt, int N, int R, int K, int Gp, cudaStream_t st) {
   dim3 grid(n_tiles, (N + T_BLOCK_N - 1) / T_BLOCK_N), block(T_WARPS * 32);
-  qmm_gathered_t_kernel<KIND, ST, TT><<<grid, block, 0, st>>>(
+  qmm_gathered_t_kernel<KIND, ST, 1><<<grid, block, 0, st>>>(
       x, sel, static_cast<const uint8_t*>(q), static_cast<const ST*>(s),
       static_cast<const ST*>(m), y, tt, N, R, K, Gp);
+  return (int)cudaGetLastError();
+}
+
+// tiles of 2..8 rows (prefill): group_prep, then the group-scaled tile body
+template <int KIND, typename ST>
+int launch_t_mma(float* x, void* xg, const int* sel, const void* q, const void* s,
+                 const void* m, float* y, int n_tiles, int tt, int N, int R, int K, int Gp,
+                 cudaStream_t st) {
+  constexpr int BN = group_bn<KIND, true, ST, true>();
+  constexpr int smem = GroupGeo<KIND, true, ST, BN, true>::BYTES;
+  auto kern = qmm_gathered_t_mma_kernel<KIND, ST, BN>;
+  // set once per process: the attribute call is slow, a launch is not
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  CUtensorMap tmx;
+  const int mapped = group_x_map(&tmx, x, 2 * K, n_tiles * tt, tt == 8 ? BN : tt);
+  if (mapped) return mapped;
+  auto xgp = static_cast<__nv_bfloat16*>(xg);
+  const cudaError_t err = group_prep_launch<KIND, float>(x, xgp, n_tiles * tt, K, st);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((n_tiles + BN / 8 - 1) / (BN / 8), (N + GM_BM - 1) / GM_BM);
+  kern<<<grid, GM_THREADS, smem, st>>>(
+      tmx, xgp, sel, static_cast<const uint8_t*>(q),
+      static_cast<const ST*>(s), static_cast<const ST*>(m), y, n_tiles, tt, N, R, K, Gp);
+  return (int)cudaGetLastError();
 }
 
 template <int KIND, typename ST>
@@ -317,11 +423,9 @@ RmFn pick_rm(int tt) {
   return tt == 1 ? &launch_rm<KIND, ST> : &launch_mma<KIND, ST>;
 }
 
-// the instance for the smallest TT in {1, 2, 4, 8} that holds tt rows
 template <int KIND, typename ST>
 TFn pick_t(int tt) {
-  return tt <= 1 ? &launch_t<KIND, ST, 1> : tt <= 2 ? &launch_t<KIND, ST, 2>
-       : tt <= 4 ? &launch_t<KIND, ST, 4> : &launch_t<KIND, ST, 8>;
+  return tt == 1 ? &launch_t<KIND, ST> : &launch_t_mma<KIND, ST>;
 }
 
 }  // namespace
@@ -349,17 +453,21 @@ extern "C" int tpl_qmm_gathered(int kind, int s_bf16, float* x, const int* sel,
 
 // Transposed. x: (n_tiles * tt, K) f32 in natural order; sel as above; q:
 // q4 or q8 planes (M, K*bits/8, R); s, m: (M, Gp, R) f32 or bf16 (m null
-// for Q8); y: (n_tiles * tt, N) f32. R % 128 == 0, tt <= 8.
-extern "C" int tpl_qmm_gathered_t(int kind, int s_bf16, const float* x, const int* sel,
+// for Q8); xg: (2, n_tiles * tt, K/32) bf16 scratch for xgsum's hi and lo
+// planes (tt > 1, Q4); y: (n_tiles * tt, N) f32. R % 128 == 0, tt <= 8.
+// tt = 1 runs the f32 FMA body; tt > 1 the tensor-core route (K/32 a
+// multiple of 16), which overwrites x with its bf16 hi/lo split (the
+// wrapper passes its own copy).
+extern "C" int tpl_qmm_gathered_t(int kind, int s_bf16, float* x, void* xg, const int* sel,
                                   const void* q, const void* s, const void* m, float* y,
                                   int n_tiles, int tt, int N, int R, int K, int Gp,
                                   void* stream) {
   using bf = __nv_bfloat16;
-  if (tt < 1 || tt > 8 || R % T_BLOCK_N) return (int)cudaErrorInvalidValue;
+  if (tt < 1 || tt > 8 || R % T_BLOCK_N || (tt > 1 && (K / 32) % 16))
+    return (int)cudaErrorInvalidValue;
   TFn fn;
   if (kind == KIND_Q4) fn = s_bf16 ? pick_t<KIND_Q4, bf>(tt) : pick_t<KIND_Q4, float>(tt);
   else if (kind == KIND_Q8) fn = s_bf16 ? pick_t<KIND_Q8, bf>(tt) : pick_t<KIND_Q8, float>(tt);
   else return (int)cudaErrorInvalidValue;
-  fn(x, sel, q, s, m, y, n_tiles, tt, N, R, K, Gp, static_cast<cudaStream_t>(stream));
-  return (int)cudaGetLastError();
+  return fn(x, xg, sel, q, s, m, y, n_tiles, tt, N, R, K, Gp, static_cast<cudaStream_t>(stream));
 }

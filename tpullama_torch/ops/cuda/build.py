@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("qmm.cu", "qmm_ktiled.cu", "qmm_gathered.cu", "flash_attention.cu",
            "flash_decode.cu", "fused_layer.cu")
-HEADERS = ("qmm_dequant.cuh", "qmm_mma.cuh")
+HEADERS = ("qmm_dequant.cuh", "qmm_mma.cuh", "qmm_group_mma.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -97,17 +97,17 @@ def library() -> ctypes.CDLL:
         _build(path)
     lib = ctypes.CDLL(str(path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for name in ("tpl_qmm_gemv", "tpl_qmm_tiled"):
-        fn = getattr(lib, name)
-        fn.argtypes = [i, i, i, p, p, p, p, p, p, i, i, i, p]
-        fn.restype = i
+    lib.tpl_qmm_gemv.argtypes = [i, i, i, p, p, p, p, p, p, i, i, i, p]
+    lib.tpl_qmm_gemv.restype = i
+    lib.tpl_qmm_tiled.argtypes = [i, i, i, p, p, p, p, p, p, p, i, i, i, p]
+    lib.tpl_qmm_tiled.restype = i
     lib.tpl_qmm_ktiled.argtypes = [i, i, i, p, p, p, p, p, p, i, i, i, i, p]
     lib.tpl_qmm_ktiled.restype = i
     lib.tpl_fused_postattn.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, f, p]
     lib.tpl_fused_postattn.restype = i
     lib.tpl_qmm_gathered.argtypes = [i, i, p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.tpl_qmm_gathered.restype = i
-    lib.tpl_qmm_gathered_t.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.tpl_qmm_gathered_t.argtypes = [i, i, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.tpl_qmm_gathered_t.restype = i
     lib.tpl_flash_decode.argtypes = [i, i, p, p, p, p, p, p, p, p, p,
                                      i, i, i, i, i, i, f, f, p]

@@ -3,16 +3,18 @@ wrapper and their plain PyTorch versions.
 
 Port of tpullama/ops/pallas/qmm.py:quantized_matmul. y = x @ W^T with W
 kept packed in the planar layout of ops/qweights.py, in either stored
-order ("stripe" or "fourblock"). The permutation of x into the stored
-element order runs here in the wrapper, as one PyTorch copy; both orders
-map stored column p mod K/g to one scale group, so the kernels do not
-depend on the order.
+order ("stripe" or "fourblock"). Both orders map stored column p mod K/g
+to one scale group, so the kernels do not depend on the order; the
+wrapper arranges x for each route, as one PyTorch copy at most.
 
 The route is the reference's own choice (choose_kchunks): nk > 1 valid
 K-chunks send the call to the K-chunked kernel (csrc/qmm_ktiled.cu,
-Pallas kernel _qmm_ktiled), otherwise it goes to csrc/qmm.cu (qmm_gemv
-for T <= 8, qmm_tiled above). On a CUDA tensor the wrapper launches that
-kernel or raises; on a CPU tensor it computes that route's plain version.
+Pallas kernel _qmm_ktiled), otherwise it goes to csrc/qmm.cu: qmm_gemv for
+T <= 8 (x permuted into stored order), qmm_tiled above, which runs the
+group-scaled tensor-core body of csrc/qmm_group_mma.cuh on x in column
+order (`column_x`: natural order for stripe planes, so bf16 x is not
+copied). On a CUDA tensor the wrapper launches that kernel or raises; on a
+CPU tensor it computes that route's plain version.
 
 Not ported: N padded to 128 rows and T padded to the tile (the kernels
 mask their edges), the layer-stacked `layer=` scalar prefetch (the port
@@ -44,13 +46,11 @@ _KINDS = {
 
 
 def route(kernel: str, T: int) -> str:
-    """The body a launch of `kernel` runs for T activation rows: "mma",
-    the tensor-core tile body of csrc/qmm_mma.cuh (qmm_ktiled at T > 8);
-    "tiled", qmm_tiled's f32 tile product; else "gemv", one warp per
+    """The body a launch of `kernel` runs for T activation rows: "mma", a
+    tensor-core tile body (qmm_tiled at T > 8: csrc/qmm_group_mma.cuh;
+    qmm_ktiled at T > 8: csrc/qmm_mma.cuh); else "gemv", one warp per
     output row."""
-    if kernel == "qmm_ktiled" and T > GEMV_MAX_T:
-        return "mma"
-    return "tiled" if kernel == "qmm_tiled" else "gemv"
+    return "mma" if kernel in ("qmm_tiled", "qmm_ktiled") and T > GEMV_MAX_T else "gemv"
 
 
 def resolve_tile_k(value: int | None) -> int | None:
@@ -121,6 +121,20 @@ def permute_x(x: torch.Tensor, group: int, order: str = "stripe") -> torch.Tenso
     if order != "stripe":
         raise ValueError(f"permute_x: unknown stored order {order!r}")
     return x.reshape(T, K // group, group).transpose(1, 2).reshape(T, K)
+
+
+def column_x(x: torch.Tensor, group: int, order: str = "stripe") -> torch.Tensor:
+    """Natural element order -> the scale-column order qmm_tiled's group
+    body reads: x_col[t, c*g + a] = x[t, nu(c)*g + a], nu(c) being the
+    natural group of stored scale column c (c itself in stripe order;
+    (c % R)*(128/g) + c // R in fourblock order, R = K/128). Stripe order
+    returns x itself."""
+    if order == "stripe":
+        return x
+    if order != "fourblock":
+        raise ValueError(f"column_x: unknown stored order {order!r}")
+    T, K = x.shape
+    return x.reshape(T, K // 128, 128 // group, group).transpose(1, 2).reshape(T, K)
 
 
 def _unpack(plane: torch.Tensor, bits: int) -> torch.Tensor:
@@ -236,27 +250,38 @@ def quantized_matmul(x: torch.Tensor, fields: dict, ggml_type: GGMLType,
                 f"(contiguous={a.is_contiguous()}); want {want} on {x.device}")
         if name in ("scale", "minv") and a.dtype != sdt:
             raise TypeError("quantized_matmul: scale and minv dtypes differ")
-    # the permutation copies x (K/group > 1), so qmm_ktiled's mma route may
-    # split f32 xp in place
-    xp = permute_x(x, group, order).contiguous()
     y = torch.empty((T, N), dtype=torch.float32, device=x.device)
     qa = fields["q8"] if kind == 2 else fields["q4"]
     qb = fields.get("q2")
+    x_bf16, s_bf16 = int(x.dtype == torch.bfloat16), int(sdt == torch.bfloat16)
     lib = library()
     if nk > 1:
-        # per-chunk partial products, summed in chunk order by the kernel's
-        # second pass (no float atomics: the sum does not depend on timing)
+        # the permutation copies x (K/group > 1), so the mma route may split
+        # f32 xp in place; per-chunk partial products, summed in chunk order
+        # by the kernel's second pass (no float atomics: the sum does not
+        # depend on timing)
+        xp = permute_x(x, group, order).contiguous()
         ws = torch.empty((nk, T, N), dtype=torch.float32, device=x.device)
-        check(lib.tpl_qmm_ktiled(kind, int(x.dtype == torch.bfloat16),
-                                 int(sdt == torch.bfloat16), ptr(xp), ptr(qa),
-                                 ptr(fields["scale"]), ptr(fields.get("minv")), ptr(ws),
-                                 ptr(y), T, N, K, nk, stream()), "qmm_ktiled")
+        check(lib.tpl_qmm_ktiled(kind, x_bf16, s_bf16, ptr(xp), ptr(qa), ptr(fields["scale"]),
+                                 ptr(fields.get("minv")), ptr(ws), ptr(y), T, N, K, nk,
+                                 stream()), "qmm_ktiled")
         LAUNCHES["qmm_ktiled"] += 1
         return y
-    gemv = T <= GEMV_MAX_T
-    fn = lib.tpl_qmm_gemv if gemv else lib.tpl_qmm_tiled
-    check(fn(kind, int(x.dtype == torch.bfloat16), int(sdt == torch.bfloat16),
-             ptr(xp), ptr(qa), ptr(qb), ptr(fields["scale"]), ptr(fields.get("minv")),
-             ptr(y), T, N, K, stream()), "qmm")
-    LAUNCHES["qmm_gemv" if gemv else "qmm_tiled"] += 1
+    if T <= GEMV_MAX_T:
+        xp = permute_x(x, group, order).contiguous()
+        check(lib.tpl_qmm_gemv(kind, x_bf16, s_bf16, ptr(xp), ptr(qa), ptr(qb),
+                               ptr(fields["scale"]), ptr(fields.get("minv")), ptr(y), T, N, K,
+                               stream()), "qmm_gemv")
+        LAUNCHES["qmm_gemv"] += 1
+        return y
+    xc = column_x(x, group, order).contiguous()
+    if x_bf16 == 0 and xc.data_ptr() == x.data_ptr():
+        xc = xc.clone()  # the kernel splits f32 x in place: never the caller's tensor
+    # xgsum's bf16 hi and lo planes for the min term (Q8_0 has none)
+    xg = (torch.empty((2, T, K // group), dtype=torch.bfloat16, device=x.device)
+          if "minv" in fields else None)
+    check(lib.tpl_qmm_tiled(kind, x_bf16, s_bf16, ptr(xc), ptr(qa), ptr(qb),
+                            ptr(fields["scale"]), ptr(fields.get("minv")), ptr(xg), ptr(y), T,
+                            N, K, stream()), "qmm_tiled")
+    LAUNCHES["qmm_tiled"] += 1
     return y

@@ -12,9 +12,11 @@ per expert. On a CUDA tensor the wrapper launches csrc/qmm_gathered.cu
 tensor it computes the plain version. The row-major kernel takes x in
 stored order (the group permutation runs here, as one PyTorch copy); the
 transposed kernel takes x in natural order and sums its groups for the
-hoisted min term itself. The row-major kernel runs tiles of more than one
-row on the tensor cores (`route`): its outputs are batch-invariant within
-a route, but the one-row route sums in another order.
+hoisted min term itself. Both kernels run tiles of more than one row on
+the tensor cores (`route`): the row-major one through csrc/qmm_mma.cuh,
+the transposed one through the group-scaled body of
+csrc/qmm_group_mma.cuh. Outputs are batch-invariant within a route, but
+the one-row route sums in another order.
 
 Not ported: the expert-parallel 4-D planes (L, E_local, R, kcols), the
 N tiling and padding, and the bf16 fast mode (the kernels compute the
@@ -40,10 +42,11 @@ PLANES_T_FIELDS = {"q4", "q4_lut", "q4a", "q1r", "q8", "scale", "minv"}
 
 
 def route(tile_t: int, planes_t: bool = False) -> str:
-    """The body a launch runs: "mma", the row-major kernel's tensor-core
-    route for tiles of more than one row (csrc/qmm_mma.cuh), else "gemv",
-    the f32 warp bodies (one-row tiles, and qmm_gathered_t)."""
-    return "mma" if tile_t > 1 and not planes_t else "gemv"
+    """The body a launch runs: "mma", a tensor-core route for tiles of more
+    than one row (row-major planes: csrc/qmm_mma.cuh; transposed planes:
+    csrc/qmm_group_mma.cuh), else "gemv", the f32 warp bodies of one-row
+    tiles."""
+    return "mma" if tile_t > 1 else "gemv"
 
 
 def _check_shapes(x, sel, tile_t, n_in, fields, planes_t):
@@ -117,8 +120,11 @@ def quantized_matmul_gathered(x, fields, sel, ggml_type: GGMLType, group: int,
         raise NotImplementedError(
             f"{name} kernel: {ggml_type.name} fields {sorted(fields)} are not covered yet "
             f"(Q4_0/Q4_1/Q4_K{'' if planes_t else ', Q6_K'} and Q8_0 are)")
+    if planes_t and tile_t > 1:
+        k_mult = 512  # the tensor-core route takes the min term 16 groups at a time
     if K % k_mult:
-        raise ValueError(f"{name} kernel: K={K} must be a multiple of {k_mult}")
+        raise ValueError(f"{name} kernel: K={K} must be a multiple of {k_mult}"
+                         f" at tile_t={tile_t}")
     sdt = fields["scale"].dtype
     if sdt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: scale dtype {sdt} (f32 or bf16)")
@@ -141,16 +147,22 @@ def quantized_matmul_gathered(x, fields, sel, ggml_type: GGMLType, group: int,
     if n_out > R or (planes_t and R % 128) or (not planes_t and -(-n_out // 4) > 65535):
         raise ValueError(f"{name}: n_out={n_out} rows of R={R} stored rows")
     xs = x.float()
-    # the permutation copies x (K/group > 1), so the mma route may split xp
-    # in place
-    xp = xs.contiguous() if planes_t else permute_x(xs, group).contiguous()
+    # the row-major permutation copies x (K/group > 1), and the transposed
+    # route gets its own copy: the mma routes split f32 x in place
+    if planes_t:
+        xp = xs.clone(memory_format=torch.contiguous_format) if tile_t > 1 else xs.contiguous()
+    else:
+        xp = permute_x(xs, group).contiguous()
     sel_d = sel.to(device=x.device, dtype=torch.int32).contiguous()
     y = torch.empty((rows, n_out), dtype=torch.float32, device=x.device)
     lib = library()
     s_bf16 = int(sdt == torch.bfloat16)
     if planes_t:
+        # xgsum's bf16 hi and lo planes for the mma route's min term
+        xg = (torch.empty((2, rows, G), dtype=torch.bfloat16, device=x.device)
+              if tile_t > 1 and "minv" in fields else None)
         code = lib.tpl_qmm_gathered_t(
-            kind, s_bf16, ptr(xp), ptr(sel_d), ptr(q0), ptr(fields["scale"]),
+            kind, s_bf16, ptr(xp), ptr(xg), ptr(sel_d), ptr(q0), ptr(fields["scale"]),
             ptr(fields.get("minv")), ptr(y), rows // tile_t, tile_t, n_out, R, K,
             fields["scale"].shape[1], stream())
     else:
