@@ -34,6 +34,10 @@ Phases, each printing one JSON line with its seconds:
             fused_postattn kernel on each layer. The cross-check also
             holds the card's run with both off, on the same planes, to the
             same tokens; the profile checks one decode step's launches
+  qwen_crosscheck
+            the cross-check at Qwen2-1.5B's widths (2 of its 28 layers):
+            GQA group 6 (12/2 heads) through both attention kernels, q/k/v
+            biases, and ffn_down's K = 8960 through qmm_gemv and qmm_tiled
 The crosscheck and serve paths of the three models each run with every
 launch count set to 0 just before and read just after, and fail unless
 each kernel that path must run was launched. Then one JSON line lists every
@@ -66,7 +70,8 @@ FLUSH_BYTES = 512 << 20  # written between timed launches: evicts the 50 MB L2
 NEG_HIDDEN = -5e29  # additive mask values at or below this hide a cell
 
 ALL_PHASES = ("card", "build", "kernels", "model", "crosscheck", "serve", "moe_model",
-              "moe_crosscheck", "moe_serve", "glm_model", "glm_crosscheck", "glm_serve")
+              "moe_crosscheck", "moe_serve", "glm_model", "glm_crosscheck", "glm_serve",
+              "qwen_crosscheck")
 
 
 def emit(obj) -> None:
@@ -92,7 +97,11 @@ class Widths:
     CHATGLM3_6B those of THUDM/chatglm3-6b (config.json: hidden 4096, 28
     layers, 32 heads, multi_query_group_num 2, ffn 13696,
     padded_vocab_size 65024, seq_length 8192; rope over half of each
-    head, chatglm.rope.dimension_count 64)."""
+    head, chatglm.rope.dimension_count 64); QWEN2_1_5B those of
+    Qwen/Qwen2-1.5B (config.json: hidden 1536, 28 layers, 12 heads, 2 KV
+    heads, intermediate 8960, vocab 151936, rope_theta 1e6, rms_norm_eps
+    1e-6; q/k/v biases), written with an untied output matrix and used at
+    2 layers in the cross-check alone."""
 
     n_embd: int = 4096
     n_layer: int = 32
@@ -117,6 +126,9 @@ CHATGLM3_6B = Widths(n_layer=28, n_head_kv=2, n_ff=13696, n_vocab=65024, rope_th
 # the ChatGLM path's two opt-ins, the JAX package's TPULLAMA_FUSED_LAYER and
 # TPULLAMA_QMM_TILE_K
 GLM_OPTS = dict(fused_layer=True, qmm_tile_k=4)
+QWEN2_1_5B = Widths(n_embd=1536, n_layer=28, n_head=12, n_head_kv=2, n_ff=8960,
+                    n_vocab=151936, rope_theta=1e6, rms_eps=1e-6, n_ctx_train=32768,
+                    arch="qwen2")
 
 
 def _fp16_bytes(a: np.ndarray) -> np.ndarray:
@@ -187,6 +199,7 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
     a = w.arch
     g.add_str("general.architecture", a)
     g.add_str("general.name", "synthetic-chatglm3-6b-shape" if a == "chatglm" else
+              "synthetic-qwen2-1.5b-shape" if a == "qwen2" else
               "synthetic-mixtral-8x7b-shape" if w.n_expert else "synthetic-llama3-8b-shape")
     g.add_u32(f"{a}.context_length", w.n_ctx_train)
     g.add_u32(f"{a}.embedding_length", w.n_embd)
@@ -243,6 +256,11 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
             quant(p + "attn_q.weight", (E, E), Q4)
             quant(p + "attn_k.weight", (kv, E), Q4)
             quant(p + "attn_v.weight", (kv, E), Q4)
+            if a == "qwen2":
+                for nm, n in (("attn_q", E), ("attn_k", kv), ("attn_v", kv)):
+                    g.add_tensor(p + nm + ".bias",
+                                 (0.1 * rng.standard_normal(n)).astype(np.float32),
+                                 GGMLType.F32)
         quant(p + "attn_output.weight", (E, E), Q4)
         norm(p + "ffn_norm.weight", E)
         if a == "chatglm":
@@ -353,7 +371,15 @@ def qmm_cases(timer, gen, device, out: list) -> None:
              (Q6, 128256, 4096, bf16, bf16, served),
              (Q4, 4096, 4096, f32, f32, (1, 256)),
              (Q6, 4096, 4096, f32, f32, (1, 256)),
-             (Q8, 4096, 4096, f32, bf16, (1, 256))]
+             (Q8, 4096, 4096, f32, bf16, (1, 256)),
+             # widths the kernels refused before (K % 512 for Q4, % 1024
+             # for Q8_0): Qwen2-1.5B's ffn_down, Qwen2-7B's hidden at
+             # Q8_0, and 768 / 512
+             (Q4, 1536, 8960, bf16, bf16, (1, 256)),
+             (Q4, 1024, 768, bf16, bf16, (1, 256)),
+             (Q6, 1024, 768, bf16, bf16, (1, 256)),
+             (Q8, 3584, 3584, bf16, bf16, (1, 256)),
+             (Q8, 1024, 512, f32, bf16, (1, 256))]
     group = {Q4: 32, Q6: 16, Q8: 32}
     for qt, N, K, xdt, sdt, Ts in cases:
         fields = random_planes(qt, N, K, sdt, gen, device)
@@ -568,7 +594,11 @@ def gathered_cases(timer, gen, device, out: list) -> None:
              (False, Q6, 4096, 4096, (f32, bf16), small),
              (True, Q8, 4096, 4096, (f32, bf16), small),
              (False, Q4, 320, 4096, (f32, bf16), small),
-             (True, Q4, 320, 4096, (f32, bf16), small)]
+             (True, Q4, 320, 4096, (f32, bf16), small),
+             # K = 768 (24 scale columns): row-major, and the transposed
+             # down stack of a 768-wide expert FFN at Mixtral's width
+             (False, Q4, 1536, 768, (bf16,), small),
+             (True, Q4, 4096, 768, (bf16,), small)]
     group = {Q4: 32, Q6: 16, Q8: 32}
     for planes_t, qt, N, K, sdts, routings in cases:
         g = group[qt]
@@ -666,7 +696,7 @@ def attn_case(timer, name, fn, q, k, v, mask, out, **kw):
     import torch
     import torch.nn.functional as F
 
-    from tpullama_torch.ops.cuda.common import flash_plain
+    from tpullama_torch.ops.cuda.common import flash_plain, route
 
     B, Tq, Hq, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
@@ -694,9 +724,10 @@ def attn_case(timer, name, fn, q, k, v, mask, out, **kw):
     n_bytes = (nbytes(q) + 2 * n_cells * Hkv * D * elt + nbytes(mask) + nbytes(q))
     flops = 4.0 * n_pairs * Hq * D
     b_ms, b_by = bound_ms(n_bytes, flops, "bf16" if q.dtype == torch.bfloat16 else "f32")
-    rec = {"phase": "kernels", "kernel": name, "B": B, "Tq": Tq, "Hq": Hq, "Hkv": Hkv,
-           "D": D, "S": S, "dtype": str(q.dtype).split(".")[-1],
+    rec = {"phase": "kernels", "kernel": name, "route": route(q, k), "B": B, "Tq": Tq,
+           "Hq": Hq, "Hkv": Hkv, "D": D, "S": S, "dtype": str(q.dtype).split(".")[-1],
            "extras": sorted(kw), "visible_pairs": n_pairs,
+           "tflop_s": flops / ms / 1e9, "gb_s": n_bytes / ms / 1e6,
            "max_abs_err": err, "tol": tol,
            "max_rel_err": err / max(float(want.float().abs().max()), 1e-30),
            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -740,6 +771,27 @@ def attention_cases(timer, gen, device, out: list) -> None:
             kv[b, :n_past + n_new] = np.arange(n_past + n_new)
             qp[b, :n_new] = np.arange(n_past, n_past + n_new)
         q, k, v, mask = attn_inputs(len(lanes), Tq, Hq, Hkv, D, S, bf16, gen, device, kv, qp)
+        attn_case(timer, "flash_attention", flash_attention, q, k, v, mask, out)
+        del q, k, v, mask
+
+    # GQA groups beyond powers of two, which the kernels refused before:
+    # Qwen2-1.5B's 12/2 (G = 6), Qwen2-7B's 28/4 (G = 7), 12/1 (G = 12) and
+    # Falcon-7B's 71/1 MQA (head dim 64); decode at Tq = 1 and 4 (G * Tq up
+    # to 284 rows per kv head) and a 256-row prefill chunk of two lanes
+    Sg = 1024
+    for Hq_g, Hkv_g, D_g in ((12, 2, 128), (28, 4, 128), (12, 1, 128), (71, 1, 64)):
+        for Tq_g in (1, 4):
+            lengths = np.asarray([900, 500], np.int32)
+            kv, _ = decode_pos(lengths, Sg)
+            qp = lengths[:, None] - Tq_g + np.arange(Tq_g, dtype=np.int32)
+            q, k, v, mask = attn_inputs(2, Tq_g, Hq_g, Hkv_g, D_g, Sg, bf16, gen, device, kv, qp)
+            attn_case(timer, "flash_decode_batched", flash_decode, q, k, v, mask, out)
+        kv = np.full((2, Sg), -1, np.int32)
+        qp = np.full((2, Tq), -1, np.int32)
+        for b, (n_past, n_new) in enumerate([(0, 256), (500, 100)]):
+            kv[b, :n_past + n_new] = np.arange(n_past + n_new)
+            qp[b, :n_new] = np.arange(n_past, n_past + n_new)
+        q, k, v, mask = attn_inputs(2, Tq, Hq_g, Hkv_g, D_g, Sg, bf16, gen, device, kv, qp)
         attn_case(timer, "flash_attention", flash_attention, q, k, v, mask, out)
         del q, k, v, mask
 
@@ -1083,12 +1135,14 @@ PATH_KERNELS = {
     "moe_serve": _DENSE_SERVE + _GATHERED,
     "glm_crosscheck": _GLM,
     "glm_serve": _GLM,
+    "qwen_crosscheck": _DENSE_CROSS,
 }
 # each path's model: (phase prefix, widths, cross-check layers, served
 # slots, the two opt-ins)
 PATHS = (("", LLAMA3_8B, 2, 4, {}),
          ("moe_", MIXTRAL_8X7B, 1, 4, {}),
-         ("glm_", CHATGLM3_6B, 1, 1, GLM_OPTS))
+         ("glm_", CHATGLM3_6B, 1, 1, GLM_OPTS),
+         ("qwen_", QWEN2_1_5B, 2, 0, {}))  # the cross-check alone
 
 
 def path_launches(path: str, run) -> tuple[dict, object]:

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Where the time of the port's tensor-core qmm routes goes, on one CUDA card.
 
-    python3 scripts/torch_mma_probe.py [--body all|mma|group]
+    python3 scripts/torch_mma_probe.py [--body all|mma|group|attention]
 
-Builds copies of qmm.cu, qmm_gathered.cu and qmm_ktiled.cu (from
-tpullama_torch/csrc) in which phases of a tile body's slice loop are
-removed, and times each copy at the served shapes of chip_smoke.py's
-kernels phase.
+Builds copies of qmm.cu, qmm_gathered.cu and qmm_ktiled.cu (or of
+flash_attention.cu and flash_decode.cu) from tpullama_torch/csrc in which
+phases of a tile body's loop are removed, and times each copy at the
+served shapes of chip_smoke.py's kernels phase.
 
 Body "mma" (qmm_mma.cuh, `mma_tile`): qmm_gathered over Mixtral's
 [gate | up] (28672 x 4096 x 8 experts, bf16 scales) at 2048 and 512 slots
@@ -39,10 +39,25 @@ packed 4 x 256 chunk) and qmm_gathered_t over Mixtral's down (4096 x
   nomin      without the min term's products
   mma_only   products only (no copies, unpacking, epilogue or min term)
   empty      the loop's barriers alone
+Body "attention" (flash_attention.cu, `fa_kernel`, bf16 tensor-core
+route): Llama-3-8B's packed 4 x 256 prefill chunk and the 1 x 256 chunk
+over a 4224-cell cache (chip_smoke.py's lanes), and flash_decode at B = 1
+and B = 4 (its achieved GB/s, the bytes of chip_smoke.py's bound over
+the median time; no variants). Variants:
+  full       the kernel as it is
+  nocopy     without the K/V tile copies (the mask rows still staged)
+  nomask     without the mask: no staged mask rows, no masking of scores
+  nosoftmax  without the online softmax and the rescaling of o
+  mma_only   products only (the up-front mask scan and the tile list stay)
+  empty      the loop's barriers, the scan and the list alone
+and flash_decode.cu (`fd_kernel`, timed at B = 1 and B = 4 only):
+  fd_nocopy    without the chunk's K/V copies
+  fd_nocombine without the merge of the block's four warps
+  fd_nomerge   without the last block's merge of the chunks (no output)
 A variant's outputs are wrong by construction; only its time means
 anything. Prints the card's name and power limit (nvidia-smi) and one
-line per (variant, shape) with three timed rounds (ms, CUDA events, L2
-flushed before each launch).
+line per (variant, shape) with three timed rounds and their median (ms,
+CUDA events, L2 flushed before each launch).
 """
 
 from __future__ import annotations
@@ -92,6 +107,25 @@ G_NOSMALL = [("      group_copy<KIND, XLO, ST, BN, TRANS>(st, w, xg, xg_rows, xr
               "xg_rows, xrow, K, sl * GM_CS, threadIdx.x,\n")]
 G_MIN = ("    if constexpr (GG::MIN) GroupWarp::template min_slice<ALL>(st, wb, cg, ja, jb, acc);\n",
          "")
+# attention (flash_attention.cu)
+A_COPY = ("    copy_kv<MMA, D, KVT>(kv_s + (2 * buf) * TILE, kv_s + (2 * buf + 1) * TILE, kh, vh,\n"
+          "                         CELLS * t, S);\n", "")
+A_STAGE = ("      cp_async4(mb + i, mask_p + (size_t)pr * S + (ok ? cell : 0), ok);\n", "")
+A_MASK = ("    mask_scores<NT>(s, mr, S - CELLS * t, rw, tig, scale, softcap, slopes != nullptr);\n",
+          "")
+A_SOFTMAX = ("    softmax_run<NT>(s, m, l, alpha);\n    rescale<D>(o, alpha);\n", "")
+A_QK = ("    if constexpr (MMA) qk_mma<D, NT>(s, qa, ks, 0, lane);\n",
+        "    if constexpr (MMA) { for (int j = 0; j < NT; ++j) for (int e = 0; e < 4; ++e)"
+        " s[j][e] = 0.f; }\n")
+A_PV = ("    if constexpr (MMA) pv_mma<D, NT>(o, s, vs, 0, lane);\n",
+        "    if constexpr (MMA) o[0][0] += s[0][0];\n")
+# flash_decode.cu, as (file, old, new)
+FD = "flash_decode.cu"
+D_COPY = (FD, "    copy_kv<MMA, D, KVT>(ks, vs, k + (size_t)bh * S * D, v + (size_t)bh * S * D, s0, S);\n",
+          "")
+D_COMBINE = (FD, "    for (int i = tid; i < nr * D; i += THREADS) {\n",
+             "    for (int i = tid; i < 0; i += THREADS) {\n")
+D_MERGE = (FD, "  for (int w0 = 0; w0 < NC; w0 += W) {\n", "  for (int w0 = 0; w0 < 0; w0 += W) {\n")
 # (header, patches) per variant of each body
 VARIANTS = {
     "mma": {
@@ -115,9 +149,23 @@ VARIANTS = {
         "mma_only": [*G_COPY, G_CONV, *G_FOLD, G_MIN],
         "empty": [*G_COPY, G_CONV, (G_MMA_CALL, ""), (G_FOLD_EXPR, "acc[mi][h0 + j][e];"), G_MIN],
     },
+    "attention": {
+        "full": [],
+        "nocopy": [A_COPY],
+        "nomask": [A_STAGE, A_MASK],
+        "nosoftmax": [A_SOFTMAX],
+        "mma_only": [A_COPY, A_STAGE, A_MASK, A_SOFTMAX],
+        "empty": [A_COPY, A_STAGE, A_MASK, A_SOFTMAX, A_QK, A_PV],
+        "fd_nocopy": [D_COPY],
+        "fd_nocombine": [D_COMBINE],
+        "fd_nomerge": [D_MERGE],
+    },
 }
-HEADER = {"mma": "qmm_mma.cuh", "group": "qmm_group_mma.cuh"}
-SOURCES = ("qmm.cu", "qmm_gathered.cu", "qmm_ktiled.cu")
+# the file each body's patches edit, and the sources each copy builds
+HEADER = {"mma": "qmm_mma.cuh", "group": "qmm_group_mma.cuh", "attention": "flash_attention.cu"}
+QMM_SOURCES = ("qmm.cu", "qmm_gathered.cu", "qmm_ktiled.cu")
+SOURCES = {"mma": QMM_SOURCES, "group": QMM_SOURCES,
+           "attention": ("flash_attention.cu", "flash_decode.cu", "qmm.cu")}
 
 
 def start_build(body: str, name: str, patches: list, root: str):
@@ -129,33 +177,40 @@ def start_build(body: str, name: str, patches: list, root: str):
     for f in os.listdir(build.CSRC):
         if f.endswith((".cu", ".cuh")):
             shutil.copy(build.CSRC / f, d)
-    path = os.path.join(d, HEADER[body])
-    with open(path) as f:
-        text = f.read()
-    for old, new in patches:
+    for patch in patches:  # (old, new) in the body's file, or (file, old, new)
+        fname, old, new = patch if len(patch) == 3 else (HEADER[body], *patch)
+        path = os.path.join(d, fname)
+        with open(path) as f:
+            text = f.read()
         if old not in text:
-            raise SystemExit(f"{body} {name}: {HEADER[body]} no longer holds {old!r}")
-        text = text.replace(old, new)
-    with open(path, "w") as f:
-        f.write(text)
+            raise SystemExit(f"{body} {name}: {fname} no longer holds {old!r}")
+        with open(path, "w") as f:
+            f.write(text.replace(old, new))
     flags = [a for a in build.NVCC_FLAGS if a not in ("-Xptxas", "-v")]
     return d, [[build._nvcc(), *flags, "-c", os.path.join(d, s), "-o", os.path.join(d, s + ".o")]
-               for s in SOURCES]
+               for s in SOURCES[body]]
 
 
-def load(d: str) -> ctypes.CDLL:
+def load(d: str, body: str) -> ctypes.CDLL:
     from tpullama_torch.ops.cuda import build
 
     so = os.path.join(d, "lib.so")
     subprocess.run([build._nvcc(), "-shared", "-o", so,
-                    *[os.path.join(d, s + ".o") for s in SOURCES]], check=True)
+                    *[os.path.join(d, s + ".o") for s in SOURCES[body]]], check=True)
     lib = ctypes.CDLL(so)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tpl_qmm_ktiled.argtypes = [i, i, i, p, p, p, p, p, p, i, i, i, i, p]
-    lib.tpl_qmm_gathered.argtypes = [i, i, p, p, p, p, p, p, p, i, i, i, i, i, p]
-    lib.tpl_qmm_tiled.argtypes = [i, i, i, p, p, p, p, p, p, p, i, i, i, p]
-    lib.tpl_qmm_gathered_t.argtypes = [i, i, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
-    lib.tpl_error_string.argtypes = [i]
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    argtypes = {
+        "tpl_flash_attention": [i, i, p, p, p, p, p, p, p, i, i, i, i, i, i, f, f, p],
+        "tpl_flash_decode": [i, i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, f, p],
+        "tpl_qmm_ktiled": [i, i, i, p, p, p, p, p, p, i, i, i, i, p],
+        "tpl_qmm_gathered": [i, i, p, p, p, p, p, p, p, i, i, i, i, i, p],
+        "tpl_qmm_tiled": [i, i, i, p, p, p, p, p, p, p, i, i, i, p],
+        "tpl_qmm_gathered_t": [i, i, p, p, p, p, p, p, p, i, i, i, i, i, i, p],
+        "tpl_error_string": [i],
+    }
+    for name, types in argtypes.items():
+        if hasattr(lib, name):  # the symbols of this body's sources
+            getattr(lib, name).argtypes = types
     lib.tpl_error_string.restype = ctypes.c_char_p
     return lib
 
@@ -189,6 +244,8 @@ def shapes(device, body: str):
         return torch.cat([xs, xs.new_zeros((1, K))])[perm], tiles
 
     out = []
+    if body == "attention":
+        return attention_shapes(device, gen)
     if body == "mma":
         K = 4096
         for N, S in ((2 * 14336, 2048), (2 * 14336, 512), (320, 512)):
@@ -218,6 +275,43 @@ def shapes(device, body: str):
     return out
 
 
+def attention_shapes(device, gen):
+    """chip_smoke.py's served attention shapes: (name, call, bytes of its
+    bound) for the packed 4 x 256 and the 1 x 256 prefill chunks and the
+    B = 1 and B = 4 decode steps over a 4224-cell cache, 32/8 heads, D 128."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from tpullama_torch.ops.cuda.flash_attention import flash_attention
+    from tpullama_torch.ops.cuda.flash_decode import flash_decode
+
+    Hq, Hkv, D, S, Tq = 32, 8, 128, 4224, 256
+    out = []
+    for lanes in ([(0, 256), (700, 216), (1800, 100), (3500, 0)], [(700, 216)]):
+        kv = np.full((len(lanes), S), -1, np.int32)
+        qp = np.full((len(lanes), Tq), -1, np.int32)
+        for b, (n_past, n_new) in enumerate(lanes):
+            kv[b, :n_past + n_new] = np.arange(n_past + n_new)
+            qp[b, :n_new] = np.arange(n_past, n_past + n_new)
+        q, k, v, mask = cs.attn_inputs(len(lanes), Tq, Hq, Hkv, D, S, torch.bfloat16, gen,
+                                       device, kv, qp)
+        out.append((f"flash_attention B={len(lanes)}",
+                    lambda q=q, k=k, v=v, m=mask: flash_attention(q, k, v, m, D ** -0.5), None))
+    for lengths in ([4000], [4000, 3000, 1000, 300]):
+        B = len(lengths)
+        kv = np.full((B, S), -1, np.int32)
+        for b, n in enumerate(lengths):
+            kv[b, :n] = np.arange(n)
+        qp = np.asarray(lengths, np.int32)[:, None] - 1
+        q, k, v, mask = cs.attn_inputs(B, 1, Hq, Hkv, D, S, torch.bfloat16, gen, device, kv, qp)
+        n_bytes = (2 * cs.nbytes(q) + cs.nbytes(mask)
+                   + 2 * sum(lengths) * Hkv * D * k.element_size())
+        out.append((f"flash_decode B={B}",
+                    lambda q=q, k=k, v=v, m=mask: flash_decode(q, k, v, m, D ** -0.5), n_bytes))
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -227,8 +321,9 @@ def main() -> int:
     from tpullama_torch.ops.cuda import build
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--body", choices=("all", "mma", "group"), default="all")
-    bodies = ("mma", "group") if ap.parse_args().body == "all" else (ap.parse_args().body,)
+    ap.add_argument("--body", choices=("all", "mma", "group", "attention"), default="all")
+    bodies = (("mma", "group", "attention") if ap.parse_args().body == "all"
+              else (ap.parse_args().body,))
     if not torch.cuda.is_available():
         print("torch_mma_probe: no CUDA device", file=sys.stderr)
         return 1
@@ -246,17 +341,24 @@ def main() -> int:
                     return 1
         timer = cs.Timer(device)
         cases = {b: shapes(device, b) for b in bodies}
-        libs = {k: load(d) for k, (d, _c) in built.items()}
+        libs = {k: load(d, k[0]) for k, (d, _c) in built.items()}
         times: dict = {}
         for _round in range(3):
             for (b, n), lib in libs.items():
                 build.library = lambda lib=lib: lib  # the wrappers launch this copy
-                for name, fn in cases[b]:
+                for name, fn, *_ in cases[b]:
+                    is_fd = name.startswith("flash_decode")
+                    if b == "attention" and n != "full" and is_fd != n.startswith("fd_"):
+                        continue  # each kernel under its own variants
                     times.setdefault((b, n, name), []).append(timer.ms(fn, 10))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
+    n_bytes = {name: nb[0] for b in bodies for name, _fn, *nb in cases[b] if nb and nb[0]}
     for (b, n, name), t in times.items():
-        print(f"{b:5s} {n:9s} {name:32s} " + " ".join(f"{v:.4f}" for v in t))
+        med = sorted(t)[1]
+        rate = f"  {n_bytes[name] / med / 1e6:.1f} GB/s" if name in n_bytes else ""
+        print(f"{b:9s} {n:9s} {name:32s} " + " ".join(f"{v:.4f}" for v in t)
+              + f"  median {med:.4f}{rate}")
     return 0
 
 

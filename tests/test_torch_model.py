@@ -403,6 +403,23 @@ def _check_server_script(path):
     assert eng_t.ctx.perf.n_reused == eng_j.ctx.perf.n_reused > 0
 
 
+# ------------------------------------------------------------ qwen2
+
+
+@pytest.fixture(scope="module")
+def qwen_g7(tmp_path_factory):
+    """qwen2 (q/k/v biases) with 7 query heads on one kv head, head dim 64:
+    GQA group 7, Qwen2-7B's group (28/4), which the card kernels take now."""
+    p = str(tmp_path_factory.mktemp("qwen7") / "m.gguf")
+    make_tiny_llama_gguf(p, arch="qwen2", n_embd=448, n_head=7, n_head_kv=1, n_ff=256,
+                         seed=17)
+    return p
+
+
+def test_qwen2_group7_prefill_logits_and_greedy_generate(qwen_g7):
+    _check_prefill_and_generate(qwen_g7)
+
+
 # ------------------------------------------------------------ chatglm
 
 

@@ -206,6 +206,33 @@ def test_moe_ffn_refuses_options_not_ported(option):
                       n_expert_used=2, **kw)
 
 
+@pytest.mark.parametrize("tile_t", [1, 8])
+@pytest.mark.parametrize("planes_t", [False, True], ids=["row_major", "planes_t"])
+def test_gathered_plain_is_batch_invariant(planes_t, tile_t):
+    """The plain gathered product multiplies fixed tiles of tile_t rows, as
+    the reference's grid does: a tile's rows come out bit for bit the same
+    alone, among other tiles of its expert, and in a call of another
+    height (so the CPU MoE serve's greedy rerun equals its first run)."""
+    qtype = GGMLType.Q4_K
+    fields, group = _experts(qtype, F, D, seed=7, planes_t=planes_t)
+    ft = {k: torch.from_numpy(v) for k, v in fields.items()}
+    rng = np.random.default_rng(7)
+    sel = torch.tensor([2, 0, 2, 2, 1, 0, 2], dtype=torch.int32)
+    x = torch.from_numpy(rng.standard_normal((len(sel) * tile_t, D)).astype(np.float32))
+
+    def run(tiles):
+        rows = torch.cat([x[t * tile_t:(t + 1) * tile_t] for t in tiles])
+        return gq.quantized_matmul_gathered(rows, ft, sel[list(tiles)], qtype, group, F, D,
+                                            tile_t=tile_t, planes_t=planes_t)
+
+    full = run(range(len(sel)))
+    for tiles in ([3], [3, 0], [6, 5, 4, 3, 2, 1, 0], [2, 3, 3, 3, 0]):
+        got = run(tiles)
+        for i, t in enumerate(tiles):
+            assert torch.equal(got[i * tile_t:(i + 1) * tile_t],
+                               full[t * tile_t:(t + 1) * tile_t])
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -309,3 +336,68 @@ def test_gathered_kernel_raises_without_fallback(cuda, planes_t):
         gq.quantized_matmul_gathered(x, ft, sel, GGMLType.MXFP4, group, 256, 1024,
                                      planes_t=planes_t)
     assert gq.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qtype,planes_t,n_in", [
+    (GGMLType.Q4_K, False, 768), (GGMLType.Q6_K, False, 768), (GGMLType.Q8_0, False, 512),
+    (GGMLType.Q8_0, False, 3584), (GGMLType.Q4_K, True, 768), (GGMLType.Q4_K, True, 8960),
+    (GGMLType.Q8_0, True, 3584)], ids=lambda v: getattr(v, "name", str(v)))
+def test_gathered_kernel_takes_every_loader_width(cuda, qtype, planes_t, n_in):
+    """Both gathered kernels at widths they refused before (row-major:
+    K % 512 / 1024; transposed tiles of more than one row: K % 512), one-row
+    and 8-row tiles, f32 and bf16 scales. 768 and 8960 give 24 and 280
+    scale columns: whole 4-column slices, a partial 16-column weight box;
+    3584 gives 112."""
+    fields, group = _experts(qtype, F, n_in, seed=n_in, planes_t=planes_t)
+    rng = np.random.default_rng(n_in)
+    sel = torch.tensor([3, 1, 1, 0, 3, 2, 2, 0], dtype=torch.int32, device=cuda)
+    name = "qmm_gathered_t" if planes_t else "qmm_gathered"
+    for tt in (1, 8):
+        x = torch.from_numpy(rng.standard_normal((len(sel) * tt, n_in)).astype(np.float32))
+        x = x.to(cuda)
+        for sdt in (torch.float32, torch.bfloat16):
+            ft = {k: torch.from_numpy(v).to(cuda, sdt if k in ("scale", "minv") else None)
+                  for k, v in fields.items()}
+            before = gq.LAUNCHES[name]
+            got = gq.quantized_matmul_gathered(x, ft, sel, qtype, group, F, n_in, tile_t=tt,
+                                               planes_t=planes_t)
+            assert gq.LAUNCHES[name] == before + 1
+            want = gq.quantized_matmul_gathered_plain(x, ft, sel, qtype, group, F, n_in,
+                                                      tile_t=tt, planes_t=planes_t)
+            torch.cuda.synchronize()
+            assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.fixture(scope="module")
+def moe_768(tmp_path_factory):
+    """One Mixtral-wide MoE layer (n_embd 4096, 4 experts) whose experts'
+    FFN is 768 wide, Q4_K: ffn_down's 24 scale columns are no multiple of
+    128, so the loader stores it transposed, with K = 768."""
+    from tpullama.models.testing import make_tiny_llama_gguf
+
+    p = str(tmp_path_factory.mktemp("moe768") / "m.gguf")
+    make_tiny_llama_gguf(p, n_embd=4096, n_head=32, n_head_kv=8, n_ff=768, n_layer=1,
+                         n_expert=4, n_expert_used=2, qtype=GGMLType.Q4_K, seed=5)
+    return p
+
+
+@pytest.mark.cuda
+def test_transposed_prefill_at_k768(cuda, moe_768):
+    """A 40-token prefill (80 slots, tiles of 8 through the dispatch) of
+    that layer: qmm_gathered_t runs its tensor-core route at K = 768 on the
+    card, and the logits match the CPU's plain versions."""
+    from tpullama_torch.models import load_model
+    from tpullama_torch.runtime import Context, ContextParams
+
+    gpu = load_model(moe_768, device="cuda", packed=True)
+    cpu = load_model(moe_768, device="cpu", packed=True)
+    assert gpu.quant_meta["layers"]["ffn_down_exps"].planes_t
+    toks = np.asarray(gpu.vocab.tokenize(
+        "The quick brown fox jumps over the lazy dog, twice.", add_special=True))
+    assert len(toks) * 2 >= 64
+    before = gq.LAUNCHES["qmm_gathered_t"]
+    lg = Context(gpu, ContextParams(n_ctx=96)).decode(toks, n_logits=len(toks))
+    assert gq.LAUNCHES["qmm_gathered_t"] > before
+    lc = Context(cpu, ContextParams(n_ctx=96)).decode(toks, n_logits=len(toks))
+    assert float(np.abs(lg - lc).max()) <= 1e-3 * float(np.abs(lc).max()) + 1e-4

@@ -333,6 +333,72 @@ def test_kernel_matches_plain(cuda, qtype, T):
             assert float((got - want).abs().max()) <= tol
 
 
+# every K the loader packs (K % 256), at widths that are not multiples of
+# the old 512 (Q4) and 1024 (Q8_0) rules: Qwen2-1.5B's ffn_down (8960,
+# Q4_K), Qwen2-7B at Q8_0 (3584), and 768 / 512
+_LOADER_WIDTHS = [(GGMLType.Q4_K, 768), (GGMLType.Q4_K, 8960), (GGMLType.Q6_K, 768),
+                  (GGMLType.Q8_0, 512), (GGMLType.Q8_0, 3584)]
+
+
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q4_K, GGMLType.Q6_K,
+                                   GGMLType.Q8_0], ids=lambda t: t.name)
+def test_every_loader_width_is_a_kernel_width(qtype):
+    """The loader packs a matrix iff K % 256 == 0 (models/loader.py
+    packable); every such K is a multiple of its kind's block and of the
+    tensor-core routes' multiple, so no route refuses it; the warp bodies
+    take the block's multiple alone."""
+    fields = set(repack(quantize(np.zeros((1, 256), np.float32), qtype), qtype,
+                        (1, 256)).fields)
+    _kind, block = qmm._KINDS[frozenset(fields)]
+    assert block in (32, 256) and 256 % block == 0 and qmm.MMA_K_MULTIPLE == 256
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 4, 64])
+@pytest.mark.parametrize("qtype,K", _LOADER_WIDTHS, ids=lambda v: getattr(v, "name", str(v)))
+def test_kernel_takes_every_loader_width(cuda, qtype, K, T):
+    """qmm_gemv (T <= 8: a scale run may wrap past the row's last column,
+    read one by one) and qmm_tiled (T > 8: a partial last weight box) at K
+    the kernels refused before, f32 and bf16 scales and x."""
+    rng = np.random.default_rng(K + T)
+    n_out = 136
+    raw = quantize(rng.standard_normal((n_out, K)).astype(np.float32), qtype)
+    pq = repack(raw, qtype, (n_out, K))
+    x = torch.from_numpy(rng.standard_normal((T, K)).astype(np.float32)).to(cuda)
+    for sdt in (torch.float32, torch.bfloat16):
+        fields = {k: torch.from_numpy(v).to(cuda, sdt if k in ("scale", "minv") else None)
+                  for k, v in pq.fields.items()}
+        for xx in (x, x.to(torch.bfloat16)):
+            got = qmm.quantized_matmul(xx, fields, qtype, pq.group, n_out, K)
+            want = qmm.quantized_matmul_plain(xx, fields, qtype, pq.group, n_out, K)
+            torch.cuda.synchronize()
+            assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 64])
+@pytest.mark.parametrize("K,nk", [(512, 2), (512, 4), (3584, 4)])
+def test_ktiled_kernel_takes_every_loader_width(cuda, K, nk, T):
+    """qmm_ktiled at Q8_0 widths whose chunks the reference's
+    _kchunks_valid admits (3584: 4 chunks of 896 = 8 scale columns x 112)."""
+    qtype = GGMLType.Q8_0
+    rng = np.random.default_rng(K + nk + T)
+    n_out = 136
+    pq = repack(quantize(rng.standard_normal((n_out, K)).astype(np.float32), qtype), qtype,
+                (n_out, K))
+    assert qmm.kchunks_valid(nk, K, pq.group, pq.fields)
+    x = torch.from_numpy(rng.standard_normal((T, K)).astype(np.float32)).to(cuda)
+    for sdt in (torch.float32, torch.bfloat16):
+        fields = {k: torch.from_numpy(v).to(cuda, sdt if k == "scale" else None)
+                  for k, v in pq.fields.items()}
+        before = qmm.LAUNCHES["qmm_ktiled"]
+        got = qmm.quantized_matmul(x, fields, qtype, pq.group, n_out, K, tile_k=nk)
+        assert qmm.LAUNCHES["qmm_ktiled"] == before + 1
+        want = qmm.quantized_matmul_ktiled_plain(x, fields, qtype, pq.group, n_out, K, nk)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
 # ------------------------------------------------ fourblock order, K-chunks
 
 

@@ -57,7 +57,8 @@ __global__ void __launch_bounds__(128) qmm_gemv_kernel(
 template <int KIND, bool XLO, typename ST, int BN>
 __global__ void __launch_bounds__(GM_THREADS, 1) qmm_tiled_group_kernel(
     const __grid_constant__ CUtensorMap tmx, const __grid_constant__ GroupMaps maps,
-    const __nv_bfloat16* __restrict__ xg, float* __restrict__ y, int T, int N, int K) {
+    const uint8_t* __restrict__ qa, const __nv_bfloat16* __restrict__ xg, float* __restrict__ y,
+    int T, int N, int K) {
   extern __shared__ __align__(16) char smem[];
   using GG = GroupGeo<KIND, XLO, ST, BN, false>;
   constexpr int NG = GG::NG;
@@ -75,7 +76,7 @@ __global__ void __launch_bounds__(GM_THREADS, 1) qmm_tiled_group_kernel(
     for (int j = 0; j < NG; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
-  const GroupW<ST> w{nullptr, nullptr, nullptr, 0, maps.m, n0};
+  const GroupW<ST> w{qa, nullptr, nullptr, KIND == KIND_Q8 ? K : K / 2, maps.m, n0, N};
   const GroupX gx{&tmx, t0, 0, BN, 1};
   unsigned phases = 0;
   group_tile<KIND, XLO, ST, BN, false>(smem, gx, xrow, xg, T, w, K, 0, 2 * NG,
@@ -131,7 +132,7 @@ int launch_tiled(void* x, void* xg, const void* qa, const void* qb, const void* 
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N + GM_BM - 1) / GM_BM, (T + BN - 1) / BN);
   kern<<<grid, GM_THREADS, smem, st>>>(
-      tmx, maps, xgp, y, T, N, K);
+      tmx, maps, static_cast<const uint8_t*>(qa), xgp, y, T, N, K);
   return (int)cudaGetLastError();
 }
 
@@ -158,12 +159,15 @@ TiledFn pick_tiled(int x_bf16, int s_bf16) {
 
 // x: (T, K) in stored (group-permuted) order, f32 or bf16; qa: q4 or q8
 // plane (N, K*bits/8); qb: q2 plane (Q6) or null; s, m: (N, K/g) f32 or
-// bf16 (m null for Q8); y: (T, N) f32. Returns cudaGetLastError().
+// bf16 (m null for Q8); y: (T, N) f32. K % 32 (K/g need not divide into the
+// 16-byte scale runs: decode_chunk then reads the scales one by one).
+// Returns cudaGetLastError().
 extern "C" int tpl_qmm_gemv(int kind, int x_bf16, int s_bf16, const void* x,
                             const void* qa, const void* qb, const void* s,
                             const void* m, float* y, int T, int N, int K,
                             void* stream) {
   GemvFn fn;
+  if (K % 32) return (int)cudaErrorInvalidValue;
   if (kind == KIND_Q4) fn = pick_gemv<KIND_Q4>(x_bf16, s_bf16);
   else if (kind == KIND_Q6) fn = pick_gemv<KIND_Q6>(x_bf16, s_bf16);
   else if (kind == KIND_Q8) fn = pick_gemv<KIND_Q8>(x_bf16, s_bf16);
@@ -175,13 +179,16 @@ extern "C" int tpl_qmm_gemv(int kind, int x_bf16, int s_bf16, const void* x,
 // x: (T, K) in column order (x_col[t, c*g + a] = x[t, nu(c)*g + a]), f32 or
 // bf16; f32 x is overwritten with its bf16 hi/lo split. xg: (2, T, K/g)
 // bf16 scratch for xgsum's hi and lo planes (unused for Q8). The other
-// arguments as tpl_qmm_gemv's. K/g must be a multiple of 16.
+// arguments as tpl_qmm_gemv's. K % 256, every K the loader packs: a row's
+// scales are whole 16-byte runs for the tensor copies, its Q4/Q8 byte runs
+// start on 8-byte boundaries (by tensor copies where they start on 16-byte
+// ones), and Q6's on 16-byte ones. The last 16-column weight buffer of a
+// row may be partial: its columns past K/g are never used.
 extern "C" int tpl_qmm_tiled(int kind, int x_bf16, int s_bf16, void* x, const void* qa,
                              const void* qb, const void* s, const void* m, void* xg, float* y,
                              int T, int N, int K, void* stream) {
   TiledFn fn;
-  const int g = kind == KIND_Q6 ? 16 : 32;
-  if (K % (16 * g)) return (int)cudaErrorInvalidValue;
+  if (K % 256) return (int)cudaErrorInvalidValue;
   if (kind == KIND_Q4) fn = pick_tiled<KIND_Q4>(x_bf16, s_bf16);
   else if (kind == KIND_Q6) fn = pick_tiled<KIND_Q6>(x_bf16, s_bf16);
   else if (kind == KIND_Q8) fn = pick_tiled<KIND_Q8>(x_bf16, s_bf16);

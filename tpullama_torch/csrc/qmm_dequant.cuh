@@ -81,22 +81,19 @@ struct Geo {
 };
 
 // Dequantize one chunk (32 stored positions) from its packed bytes and its
-// SEG scale (and min) values into w, in chunk-local order u = segment *
-// SEG + offset. q: Q4 the chunk's 16 q4 bytes; Q6 its 8 bytes of the low
+// SEG scale (and min) values s, m into w, in chunk-local order u = segment
+// * SEG + offset. q: Q4 the chunk's 16 q4 bytes; Q6 its 8 bytes of the low
 // q4 half (q), of the high half (qh) and of the q2 plane (q2); Q8 its 32
 // q8 bytes. Reads global or shared memory alike.
-template <int KIND, typename ST>
-__device__ __forceinline__ void decode_raw(const uint8_t* __restrict__ q,
-                                           const uint8_t* __restrict__ qh,
-                                           const uint8_t* __restrict__ q2,
-                                           const ST* __restrict__ sp,
-                                           const ST* __restrict__ mp, float (&w)[32]) {
+template <int KIND>
+__device__ __forceinline__ void decode_vals(const uint8_t* __restrict__ q,
+                                            const uint8_t* __restrict__ qh,
+                                            const uint8_t* __restrict__ q2,
+                                            const float (&s)[Geo<KIND>::SEG],
+                                            const float (&m)[Geo<KIND>::SEG], float (&w)[32]) {
   if constexpr (KIND == KIND_Q4) {
     uint4 qv = *reinterpret_cast<const uint4*>(q);
     const uint8_t* b = reinterpret_cast<const uint8_t*>(&qv);
-    float s[16], m[16];
-    load_f<ST, 16>(sp, s);
-    load_f<ST, 16>(mp, m);
 #pragma unroll
     for (int t = 0; t < 16; ++t) {
       w[t] = deq((float)(b[t] & 15), s[t], m[t]);
@@ -109,9 +106,6 @@ __device__ __forceinline__ void decode_raw(const uint8_t* __restrict__ q,
     const uint8_t* A = reinterpret_cast<const uint8_t*>(&av);
     const uint8_t* B = reinterpret_cast<const uint8_t*>(&bv);
     const uint8_t* H = reinterpret_cast<const uint8_t*>(&hv);
-    float s[8], m[8];
-    load_f<ST, 8>(sp, s);
-    load_f<ST, 8>(mp, m);
 #pragma unroll
     for (int t = 0; t < 8; ++t) {
       const int h = H[t];
@@ -125,8 +119,6 @@ __device__ __forceinline__ void decode_raw(const uint8_t* __restrict__ q,
     uint4 q0 = qv[0], q1 = qv[1];
     const int8_t* b0 = reinterpret_cast<const int8_t*>(&q0);
     const int8_t* b1 = reinterpret_cast<const int8_t*>(&q1);
-    float s[32];
-    load_f<ST, 32>(sp, s);
 #pragma unroll
     for (int t = 0; t < 16; ++t) {
       w[t] = __fmul_rn((float)b0[t], s[t]);
@@ -135,9 +127,27 @@ __device__ __forceinline__ void decode_raw(const uint8_t* __restrict__ q,
   }
 }
 
+// decode_vals with the chunk's SEG consecutive scale (and min) values read
+// from sp, mp (16-byte aligned; mp unused for Q8)
+template <int KIND, typename ST>
+__device__ __forceinline__ void decode_raw(const uint8_t* __restrict__ q,
+                                           const uint8_t* __restrict__ qh,
+                                           const uint8_t* __restrict__ q2,
+                                           const ST* __restrict__ sp,
+                                           const ST* __restrict__ mp, float (&w)[32]) {
+  constexpr int SEG = Geo<KIND>::SEG;
+  float s[SEG], m[SEG];
+  load_f<ST, SEG>(sp, s);
+  if constexpr (KIND != KIND_Q8) load_f<ST, SEG>(mp, m);
+  decode_vals<KIND>(q, qh, q2, s, m, w);
+}
+
 // Dequantize chunk c (32 stored positions) of row n into w, in chunk-local
 // order u = segment * SEG + offset. Its scale/min values sit at columns
-// (SEG * c) % G of the row's scale planes.
+// (SEG * c + t) % G of the row's scale planes, t < SEG: one aligned run
+// when G % SEG == 0 (then G * sizeof(ST) is a multiple of 16 as well),
+// else read one by one, wrapping at G. Either way every weight is the
+// plain version's q * scale - minv.
 template <int KIND, typename ST>
 __device__ __forceinline__ void decode_chunk(const uint8_t* __restrict__ qa,
                                              const uint8_t* __restrict__ qb,
@@ -145,7 +155,23 @@ __device__ __forceinline__ void decode_chunk(const uint8_t* __restrict__ qa,
                                              const ST* __restrict__ mrow, int n,
                                              int c, int K, float (&w)[32]) {
   using GE = Geo<KIND>;
-  const int s0 = (GE::SEG * c) % (K / GE::GROUP);
+  const int G = K / GE::GROUP;
+  const int s0 = (GE::SEG * c) % G;
+  if (G % GE::SEG) {
+    float s[GE::SEG], m[GE::SEG];
+#pragma unroll
+    for (int t = 0; t < GE::SEG; ++t) {
+      const int col = (s0 + t) % G;
+      s[t] = to_f(srow[col]);
+      m[t] = KIND == KIND_Q8 ? 0.f : to_f(mrow[col]);
+    }
+    const uint8_t* q = KIND == KIND_Q8 ? qa + (size_t)n * K + 32 * c
+                                       : qa + (size_t)n * (K / 2) + (KIND == KIND_Q4 ? 16 : 8) * c;
+    const uint8_t* qh = KIND == KIND_Q6 ? qa + (size_t)n * (K / 2) + K / 4 + 8 * c : nullptr;
+    const uint8_t* q2 = KIND == KIND_Q6 ? qb + (size_t)n * (K / 4) + 8 * c : nullptr;
+    decode_vals<KIND>(q, qh, q2, s, m, w);
+    return;
+  }
   if constexpr (KIND == KIND_Q4) {
     decode_raw<KIND, ST>(qa + (size_t)n * (K / 2) + 16 * c, nullptr, nullptr, srow + s0,
                          mrow + s0, w);

@@ -434,15 +434,16 @@ TFn pick_t(int tt) {
 // int32 expert per tile, on the card; qa: q4 or q8 planes (M, R, K*bits/8);
 // qb: q2 planes (Q6) or null; s, m: (M, R, K/g) f32 or bf16 (m null for
 // Q8); y: (n_tiles * tt, N) f32. tt <= 8: tt = 1 runs one warp per output
-// row, tt > 1 the tensor-core route (K a multiple of 64), which overwrites
-// x with its bf16 hi/lo split (the wrapper passes its own permuted copy).
+// row (K % 32), tt > 1 the tensor-core route (K % 256: whole 16-byte scale
+// runs), which overwrites x with its bf16 hi/lo split (the wrapper passes
+// its own permuted copy).
 // Returns a CUDA error code (cudaGetLastError() after the launches).
 extern "C" int tpl_qmm_gathered(int kind, int s_bf16, float* x, const int* sel,
                                 const void* qa, const void* qb, const void* s,
                                 const void* m, float* y, int n_tiles, int tt, int N,
                                 int R, int K, void* stream) {
   using bf = __nv_bfloat16;
-  if (tt < 1 || tt > 8 || K % MMA_BK) return (int)cudaErrorInvalidValue;
+  if (tt < 1 || tt > 8 || K % 32 || (tt > 1 && K % 256)) return (int)cudaErrorInvalidValue;
   RmFn fn;
   if (kind == KIND_Q4) fn = s_bf16 ? pick_rm<KIND_Q4, bf>(tt) : pick_rm<KIND_Q4, float>(tt);
   else if (kind == KIND_Q6) fn = s_bf16 ? pick_rm<KIND_Q6, bf>(tt) : pick_rm<KIND_Q6, float>(tt);
@@ -454,16 +455,17 @@ extern "C" int tpl_qmm_gathered(int kind, int s_bf16, float* x, const int* sel,
 // Transposed. x: (n_tiles * tt, K) f32 in natural order; sel as above; q:
 // q4 or q8 planes (M, K*bits/8, R); s, m: (M, Gp, R) f32 or bf16 (m null
 // for Q8); xg: (2, n_tiles * tt, K/32) bf16 scratch for xgsum's hi and lo
-// planes (tt > 1, Q4); y: (n_tiles * tt, N) f32. R % 128 == 0, tt <= 8.
-// tt = 1 runs the f32 FMA body; tt > 1 the tensor-core route (K/32 a
-// multiple of 16), which overwrites x with its bf16 hi/lo split (the
+// planes (tt > 1, Q4; K/32 rounded up to a multiple of 4 columns,
+// group_xg_cols); y: (n_tiles * tt, N) f32. R % 128 == 0, tt <= 8, K % 32,
+// Gp >= K/32 rounded up to 4. tt = 1 runs the f32 FMA body; tt > 1 the
+// tensor-core route, which overwrites x with its bf16 hi/lo split (the
 // wrapper passes its own copy).
 extern "C" int tpl_qmm_gathered_t(int kind, int s_bf16, float* x, void* xg, const int* sel,
                                   const void* q, const void* s, const void* m, float* y,
                                   int n_tiles, int tt, int N, int R, int K, int Gp,
                                   void* stream) {
   using bf = __nv_bfloat16;
-  if (tt < 1 || tt > 8 || R % T_BLOCK_N || (tt > 1 && (K / 32) % 16))
+  if (tt < 1 || tt > 8 || R % T_BLOCK_N || K % 32 || Gp < group_xg_cols(K / 32))
     return (int)cudaErrorInvalidValue;
   TFn fn;
   if (kind == KIND_Q4) fn = s_bf16 ? pick_t<KIND_Q4, bf>(tt) : pick_t<KIND_Q4, float>(tt);

@@ -267,34 +267,46 @@ struct GroupMaps {
 
 // One block's weights. Transposed planes: pointers at the expert's planes
 // and the block's first row (byte (kc, r) at kc * ld + r). Row-major
-// planes: group_w_maps' tensor maps and the block's first row n0.
+// planes: group_w_maps' tensor maps and the block's first row n0, and the
+// q4 or q8 plane itself (qa, rows of ld bytes, n_rows of them) for byte
+// runs the tensor copies cannot start (group_copy_wbytes).
 template <typename ST>
 struct GroupW {
-  const uint8_t* qa;  // transposed q4 or q8 plane
+  const uint8_t* qa;  // transposed q4 or q8 plane; row-major: the plane
   const ST* scale;
   const ST* minv;     // null for Q8
-  int ld;             // the transposed planes' row stride R
+  int ld;             // the planes' row stride: R (transposed), bytes (row-major)
   const CUtensorMap* maps;
   int n0;
+  int n_rows;         // row-major: the plane's rows
 };
+
+// Columns of group_prep's xgsum planes per row: G rounded up to a whole
+// slice, so that a slice's 4 values are one aligned 8-byte copy.
+__host__ __device__ __forceinline__ int group_xg_cols(int G) { return (G + GM_CS - 1) / GM_CS * GM_CS; }
 
 // cp.async copies of slice c0 (scale columns c0 .. c0 + 3) into stage st
 // by threads tid = 0 .. nthr - 1: the raw bytes, scales and mins of
-// transposed planes (row-major ones come by group_copy_wt), and xgsum (xg: group_prep's planes, hi then lo at
-// xg_rows * G) for the min term. x comes by group_copy_x.
+// transposed planes (row-major ones come by group_copy_wt), and xgsum (xg:
+// group_prep's planes, hi then lo, xg_rows rows of group_xg_cols(G)) for
+// the min term. x comes by group_copy_x. Columns at or past G (the last
+// slice when G % 4 != 0) come as zero bytes, and their scales, mins and
+// xgsum are zeros too (the transposed scale planes are zero-padded).
 template <int KIND, bool XLO, typename ST, int BN, bool TRANS>
 __device__ __forceinline__ void group_copy(char* st, const GroupW<ST>& w,
                                            const __nv_bfloat16* __restrict__ xg, int xg_rows,
                                            const int* xrow, int K, int c0, int tid, int nthr) {
   using GG = GroupGeo<KIND, XLO, ST, BN, TRANS>;
   const int G = K / GG::GROUP;
+  const int GX = group_xg_cols(G);
   char* wq = st + GG::WQ;
   if constexpr (TRANS) {
     // run j, column cc: 128 row bytes at plane row c0 + cc + jG
     for (int i = tid; i < GG::QJ * GM_CS * 8; i += nthr) {
       const int j = i / (GM_CS * 8), cc = i / 8 % GM_CS, p = i % 8;
-      const uint8_t* src = w.qa + (size_t)(c0 + cc + j * G) * w.ld + 16 * p;
-      gm_cp_async<16>(wq + (j * GM_JW + cc * 32) * 4 + 16 * p, src, true);
+      const bool ok = c0 + cc < G;
+      const uint8_t* src = w.qa + (size_t)(ok ? c0 + cc + j * G : 0) * w.ld + 16 * p;
+      gm_cp_async<16>(wq + (j * GM_JW + cc * 32) * 4 + 16 * p, src, ok);
     }
     constexpr int SPC = GM_BM * (int)sizeof(ST) / 16;  // 16-byte pieces per column
     for (int i = tid; i < (GG::MIN ? 2 : 1) * GM_CS * SPC; i += nthr) {
@@ -310,7 +322,7 @@ __device__ __forceinline__ void group_copy(char* st, const GroupW<ST>& w,
       const int lo = i / BN, col = i % BN;
       const int xr = xrow[col];
       gm_cp_async<8>(st + GG::WG + 8 * i,
-                     xg + (size_t)lo * xg_rows * G + (size_t)(xr < 0 ? 0 : xr) * G + c0, xr >= 0);
+                     xg + (size_t)lo * xg_rows * GX + (size_t)(xr < 0 ? 0 : xr) * GX + c0, xr >= 0);
     }
   }
 }
@@ -318,17 +330,20 @@ __device__ __forceinline__ void group_copy(char* st, const GroupW<ST>& w,
 // Warp 0, row-major planes: the tensor copies of columns c0 .. c0 + 15 of
 // the block's rows (every run's bytes, the scales and the mins) into the
 // weight buffer at wb, completing on barrier bar. Rows past the plane's
-// last come as zeros.
+// last come as zeros. A tensor copy must start on a 16-byte boundary, and
+// run j starts at byte c0 + jG of a row: without bytes (G % 16 != 0) only
+// the scales and mins come here, the runs by group_copy_wbytes.
 template <int KIND, bool XLO, typename ST, int BN, bool TRANS>
 __device__ __forceinline__ void group_copy_wt(unsigned wb, unsigned bar, const GroupW<ST>& w,
-                                              int K, int c0) {
+                                              int K, int c0, bool bytes) {
   using GG = GroupGeo<KIND, XLO, ST, BN, TRANS>;
   constexpr int NBOX = GG::QJ + (GG::MIN ? 2 : 1);
+  constexpr int QBYTES = GG::QJ * GM_BM * GG::WCOLS;
   const int G = K / GG::GROUP;
   const int lane = threadIdx.x & 31;
-  if (lane == 0) gm_bar_expect(bar, (unsigned)GG::WBUF);
+  if (lane == 0) gm_bar_expect(bar, (unsigned)(bytes ? GG::WBUF : GG::WBUF - QBYTES));
   __syncwarp();
-  for (int i = lane; i < NBOX; i += 32) {
+  for (int i = bytes ? lane : GG::QJ + lane; i < NBOX; i += 32) {
     const bool q2 = KIND == KIND_Q6 && i >= 8 && i < GG::QJ;
     const CUtensorMap* map = i < GG::QJ ? &w.maps[q2 ? 1 : 0] : &w.maps[i == GG::QJ ? 2 : 3];
     const int col = i < GG::QJ ? c0 + (q2 ? i - 8 : i) * G : c0;
@@ -339,6 +354,25 @@ __device__ __forceinline__ void group_copy_wt(unsigned wb, unsigned bar, const G
         " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
         "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(w.n0), "r"(bar)
         : "memory");
+  }
+}
+
+// Row-major q4 / q8 planes whose runs are not 16-byte aligned (G % 16 !=
+// 0; G % 8 == 0): the byte runs of columns c0 .. c0 + 15 by 8-byte
+// cp.async into the weight buffer at wb, by threads tid = 0 .. nthr - 1,
+// in the tensor copies' layout. Rows past n_rows and columns at or past G
+// (the last buffer of a row) come as zeros.
+template <int KIND, bool XLO, typename ST, int BN, bool TRANS>
+__device__ __forceinline__ void group_copy_wbytes(char* wb, const GroupW<ST>& w, int K, int c0,
+                                                  int tid, int nthr) {
+  using GG = GroupGeo<KIND, XLO, ST, BN, TRANS>;
+  static_assert(KIND != KIND_Q6, "Q6_K planes keep G % 16 == 0 (K % 256)");
+  const int G = K / GG::GROUP;
+  for (int i = tid; i < GG::QJ * GM_BM * 2; i += nthr) {
+    const int j = i / (2 * GM_BM), r = i / 2 % GM_BM, h = i % 2;
+    const bool ok = w.n0 + r < w.n_rows && c0 + 8 * h < G;
+    const uint8_t* src = w.qa + (ok ? (size_t)(w.n0 + r) * w.ld + c0 + j * G + 8 * h : 0);
+    gm_cp_async<8>(wb + GG::BQ + (j * GM_BM + r) * GG::WCOLS + 8 * h, src, ok);
   }
 }
 
@@ -599,7 +633,8 @@ __device__ __forceinline__ void group_tile(char* smem, const GroupX& gx, const i
   constexpr int NG = GG::NG;
   constexpr int S = GG::STAGES;
   static_assert(GG::BYTES <= 227 * 1024, "shared memory");
-  const int n = K / GG::GROUP / GM_CS;
+  const int n = (K / GG::GROUP + GM_CS - 1) / GM_CS;  // slices; the last may be partial
+  const bool wbytes = !TRANS && (K / GG::GROUP) % 16 == 0;  // byte runs by tensor copies
   const int wn = threadIdx.x >> 7;
   const int ja = max(j0 - NG * wn, 0), jb = min(j1 - NG * wn, NG);
   // the stages, 1024-byte aligned for the swizzled tensor copies; the
@@ -618,8 +653,14 @@ __device__ __forceinline__ void group_tile(char* smem, const GroupX& gx, const i
           const int b = sl / GG::WSL % 2;
           group_copy_wt<KIND, XLO, ST, BN, TRANS>(
               (unsigned)__cvta_generic_to_shared(wbuf + b * GG::WBUF),
-              bars + 8 * (GM_MAX_STAGES + b), w, K, sl * GM_CS);
+              bars + 8 * (GM_MAX_STAGES + b), w, K, sl * GM_CS, wbytes);
         }
+      }
+      if constexpr (!TRANS && KIND != KIND_Q6) {
+        // in this slice's cp.async group, which its step waits for
+        if (!wbytes && sl % GG::WSL == 0)
+          group_copy_wbytes<KIND, XLO, ST, BN, TRANS>(wbuf + sl / GG::WSL % 2 * GG::WBUF, w, K,
+                                                      sl * GM_CS, threadIdx.x, GM_THREADS);
       }
       group_copy<KIND, XLO, ST, BN, TRANS>(st, w, xg, xg_rows, xrow, K, sl * GM_CS, threadIdx.x,
                                            GM_THREADS);
@@ -656,16 +697,23 @@ __device__ __forceinline__ void group_bars_init(uint64_t* bars) {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
-// One thread per (row, scale column) of column-order x: xgsum (the f32 sum
-// of the column's g values, in order) as bf16 hi and lo into xg[i] and
-// xg[n + i] (MIN), and f32 x split in place into blocks of 8 hi then 8 lo
-// values (SPLIT).
+// One thread per (row, scale column) of column-order x, rows of G columns:
+// xgsum (the f32 sum of the column's g values, in order) as bf16 hi and lo
+// into xg's two planes of rows x GX columns (MIN; columns at or past G are
+// zeros), and f32 x split in place into blocks of 8 hi then 8 lo values
+// (SPLIT). n = rows * GX threads.
 template <typename XT, int GRP, bool MIN, bool SPLIT>
 __global__ void __launch_bounds__(256) group_prep(XT* __restrict__ x,
-                                                  __nv_bfloat16* __restrict__ xg, int n) {
+                                                  __nv_bfloat16* __restrict__ xg, int n, int G,
+                                                  int GX) {
   const int i = blockIdx.x * 256 + threadIdx.x;
   if (i >= n) return;
-  XT* p = x + (size_t)i * GRP;
+  const int row = i / GX, col = i % GX;
+  if (col >= G) {
+    if constexpr (MIN) xg[i] = xg[(size_t)n + i] = __float2bfloat16_rn(0.f);
+    return;
+  }
+  XT* p = x + ((size_t)row * G + col) * GRP;
   float v[GRP];
   load_f<XT, GRP>(p, v);
   if constexpr (MIN) {
@@ -699,8 +747,9 @@ inline cudaError_t group_prep_launch(XT* x, __nv_bfloat16* xg, int rows, int K, 
   constexpr int GRP = Geo<KIND>::GROUP;
   constexpr bool MIN = KIND != KIND_Q8, SPLIT = sizeof(XT) == 4;
   if constexpr (MIN || SPLIT) {
-    const int n = rows * (K / GRP);
-    group_prep<XT, GRP, MIN, SPLIT><<<(n + 255) / 256, 256, 0, st>>>(x, xg, n);
+    const int G = K / GRP, GX = group_xg_cols(G);
+    const int n = rows * GX;
+    group_prep<XT, GRP, MIN, SPLIT><<<(n + 255) / 256, 256, 0, st>>>(x, xg, n, G, GX);
   }
   return cudaGetLastError();
 }

@@ -199,7 +199,9 @@ extern "C" int tpl_qmm_ktiled(int kind, int x_bf16, int s_bf16, void* x,
   if (kind == KIND_Q4) fn = pick_dtypes<KIND_Q4>(x_bf16, s_bf16);
   else if (kind == KIND_Q8) fn = pick_dtypes<KIND_Q8>(x_bf16, s_bf16);
   else return (int)cudaErrorInvalidValue;
-  if (nk < 2 || (K / 32) % nk || (K / 32 / nk) % MMA_NCH) return (int)cudaErrorInvalidValue;
+  if (nk < 2 || K % 32 || (K / 32) % nk || (K / 32 / nk) % MMA_NCH)
+    return (int)cudaErrorInvalidValue;
+  if (T > 8 && K % 256) return (int)cudaErrorInvalidValue;  // whole 16-byte scale runs
   auto st = static_cast<cudaStream_t>(stream);
   const int err = fn(x, qa, s, m, ws, T, N, K, nk, st);
   if (err) return err;

@@ -183,15 +183,17 @@ __device__ __forceinline__ void mma_copy_w(char* st, const uint8_t* __restrict__
     cp_async<16>(rq + 16 * tid, src, ok);
     cp_async<16>(rq + 16 * (MMA_WT + tid), src + 16, ok);
   }
-  // the chunk's SEG scale (and min) values sit at column (SEG * c) % G
-  const size_t col = (size_t)r * (K / GE::GROUP) + (GE::SEG * c) % (K / GE::GROUP);
+  // the chunk's SEG scale (and min) values sit at columns (SEG * c + t) % G;
+  // G is a multiple of a piece's PV values (the callers check), so each
+  // 16-byte piece is one aligned run and the wrap falls between pieces
+  constexpr int PV = 16 / (int)sizeof(ST);
+  const int G = K / GE::GROUP;
 #pragma unroll
   for (int p = 0; p < MG::SP; ++p) {
-    cp_async<16>(st + MG::RS + 16 * (p * MMA_WT + tid),
-                 reinterpret_cast<const char*>(scale + col) + 16 * p, ok);
+    const size_t col = (size_t)r * G + (GE::SEG * c + PV * p) % G;
+    cp_async<16>(st + MG::RS + 16 * (p * MMA_WT + tid), scale + col, ok);
     if constexpr (MG::MIN)
-      cp_async<16>(st + MG::RM + 16 * (p * MMA_WT + tid),
-                   reinterpret_cast<const char*>(minv + col) + 16 * p, ok);
+      cp_async<16>(st + MG::RM + 16 * (p * MMA_WT + tid), minv + col, ok);
   }
 }
 

@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("qmm.cu", "qmm_ktiled.cu", "qmm_gathered.cu", "flash_attention.cu",
            "flash_decode.cu", "fused_layer.cu")
-HEADERS = ("qmm_dequant.cuh", "qmm_mma.cuh", "qmm_group_mma.cuh")
+HEADERS = ("qmm_dequant.cuh", "qmm_mma.cuh", "qmm_group_mma.cuh", "attn_tile.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -109,7 +109,7 @@ def library() -> ctypes.CDLL:
     lib.tpl_qmm_gathered.restype = i
     lib.tpl_qmm_gathered_t.argtypes = [i, i, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.tpl_qmm_gathered_t.restype = i
-    lib.tpl_flash_decode.argtypes = [i, i, p, p, p, p, p, p, p, p, p,
+    lib.tpl_flash_decode.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p,
                                      i, i, i, i, i, i, f, f, p]
     lib.tpl_flash_decode.restype = i
     lib.tpl_flash_attention.argtypes = [i, i, p, p, p, p, p, p, p,

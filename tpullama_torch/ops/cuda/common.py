@@ -7,6 +7,20 @@ import torch
 from ..attention import attention
 
 NEG_HALF = -5e29  # half the TPU kernels' NEG_INF: a mask value at or below it hides
+ROWS = 64   # query rows per flash_attention block (csrc/flash_attention.cu)
+CELLS = 64  # key cells per flash_attention tile and per flash_decode chunk
+
+
+def row_plan(Tq: int, G: int, rows: int):
+    """The kernels' query-row tiles: a kv head's Tq * G query rows in
+    (position, head) order, row r = position * G + head, cut into tiles of
+    `rows`. Returns (positions, heads), two (n_tiles, rows) int64 tensors,
+    -1 past the last row. flash_attention runs tiles of ROWS rows,
+    flash_decode tiles of 16."""
+    R = Tq * G
+    r = torch.arange(-(-R // rows) * rows).reshape(-1, rows)
+    valid = r < R
+    return torch.where(valid, r // G, -1), torch.where(valid, r % G, -1)
 
 
 def flash_plain(q, k, v, mask, scale, softcap=0.0, sinks=None, alibi_slopes=None):
@@ -20,6 +34,12 @@ def flash_plain(q, k, v, mask, scale, softcap=0.0, sinks=None, alibi_slopes=None
     m = mask.float().expand(B, 1, Tq, k.shape[2])
     hidden = ~(m > NEG_HALF).any(dim=-1)  # (B, 1, Tq)
     return out.masked_fill(hidden.permute(0, 2, 1)[..., None], 0.0)
+
+
+def route(q, k) -> str:
+    """The attention kernels' body for these operands: "mma" (bf16 q, k and
+    v: the tensor cores) or "fma" (any f32 operand: f32 FMAs)."""
+    return "mma" if q.dtype == k.dtype == torch.bfloat16 else "fma"
 
 
 def check_inputs(name, q, k, v, mask, sinks, alibi_slopes):

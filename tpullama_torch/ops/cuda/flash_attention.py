@@ -1,9 +1,12 @@
 """Prefill flash attention: the CUDA kernel's wrapper and its plain version.
 
 Port of tpullama/ops/pallas/flash_attention.py:flash_attention. On a CUDA
-tensor the wrapper launches csrc/flash_attention.cu; on a CPU tensor it
-computes the plain version (ops/cuda/common.flash_plain). Int8 K/V scales
-are not taken yet (they arrive with the int8 KV cache).
+tensor the wrapper launches csrc/flash_attention.cu (bf16 q, k and v on
+the tensor cores, any f32 operand as f32 FMAs); on a CPU tensor it
+computes the plain version (ops/cuda/common.flash_plain). Any GQA group
+Hq % Hkv == 0 is taken: the kernel cuts the (position, head) query rows of
+a kv head into tiles of 64 (common.row_plan). Int8 K/V scales are not
+taken yet (they arrive with the int8 KV cache).
 """
 
 from __future__ import annotations
@@ -13,7 +16,6 @@ import torch
 from .common import check_inputs, flash_plain
 
 LAUNCHES = {"flash_attention": 0}
-ROWS = 64  # G * BQ query rows per block in csrc/flash_attention.cu
 
 
 def flash_attention(q, k, v, mask, scale: float, softcap: float = 0.0,
@@ -30,8 +32,6 @@ def flash_attention(q, k, v, mask, scale: float, softcap: float = 0.0,
     m, sinks, slopes = check_inputs("flash_attention", q, k, v, mask, sinks, alibi_slopes)
     B, Tq, Hq, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
-    if ROWS % (Hq // Hkv):
-        raise ValueError(f"flash_attention: GQA group {Hq // Hkv} must divide {ROWS}")
     out = torch.empty_like(q)
     check(library().tpl_flash_attention(
         int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),

@@ -37,12 +37,21 @@ from ..qweights import PACKED_TYPES
 LAUNCHES = {"qmm_gemv": 0, "qmm_tiled": 0, "qmm_ktiled": 0}
 GEMV_MAX_T = 8
 
-# kernel field sets: (kind id in csrc/qmm.cu, required K multiple)
+# kernel field sets: (kind id in csrc/qmm.cu, the K multiple of its quant
+# blocks: Q4_0, Q4_1 and Q8_0 blocks hold 32 values, Q6_K blocks 256; a
+# Q4_K matrix has K % 256 by its own blocks). The warp bodies (qmm_gemv,
+# qmm_ktiled at T <= 8, one-row gathered tiles) take any such K.
 _KINDS = {
-    frozenset({"q4", "scale", "minv"}): (0, 512),
+    frozenset({"q4", "scale", "minv"}): (0, 32),
     frozenset({"q4", "q2", "scale", "minv"}): (1, 256),
-    frozenset({"q8", "scale"}): (2, 1024),
+    frozenset({"q8", "scale"}): (2, 32),
 }
+# The K multiple of the tensor-core routes (qmm_tiled, and qmm_ktiled and
+# row-major qmm_gathered above one row): a row's scales are whole 16-byte
+# runs and its byte runs start on 8-byte boundaries, which those bodies copy
+# by tensor copies and cp.async. It is every K the loader packs
+# (models/loader.py packs a matrix iff K % 256 == 0).
+MMA_K_MULTIPLE = 256
 
 
 def route(kernel: str, T: int) -> str:
@@ -236,11 +245,14 @@ def quantized_matmul(x: torch.Tensor, fields: dict, ggml_type: GGMLType,
             f"quantized_matmul kernel: {ggml_type.name} fields {sorted(fields)} "
             "are not covered yet (Q4_0/Q4_1/Q4_K, Q6_K and Q8_0 are)")
     kind, k_mult = kind_k
-    if K % k_mult:
-        raise ValueError(f"quantized_matmul kernel: K={K} must be a multiple of {k_mult}")
     sdt = fields["scale"].dtype
     if sdt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"quantized_matmul: scale dtype {sdt} (f32 or bf16)")
+    if T > GEMV_MAX_T:
+        k_mult = MMA_K_MULTIPLE
+    if K % k_mult:
+        raise ValueError(f"quantized_matmul kernel: K={K} must be a multiple of {k_mult}"
+                         f" at T={T}")
     bits = {"q4": 4, "q2": 2, "q8": 8}
     for name, a in fields.items():
         want = (N, K // group) if name in ("scale", "minv") else (N, K * bits[name] // 8)

@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from ...gguf.constants import GGMLType
-from .qmm import _KINDS, dequant_stored, permute_x
+from .qmm import _KINDS, MMA_K_MULTIPLE, dequant_stored, permute_x
 
 # launches per kernel since the last reset (chip_smoke.py reads them)
 LAUNCHES = {"qmm_gathered": 0, "qmm_gathered_t": 0}
@@ -65,31 +65,36 @@ def quantized_matmul_gathered_plain(x, fields, sel, ggml_type: GGMLType, group: 
                                     n_out: int, n_in: int, tile_t: int = 1,
                                     planes_t: bool = False) -> torch.Tensor:
     """Plain version: exact f32 dequantization of each selected expert
-    once, then an f32 product over the rows of its tiles. The transposed
-    layout hoists the min term as the JAX package does: x . (q * scale) -
-    xgsum . minv. Returns (rows, n_out) f32."""
+    once, then one f32 product per tile of `tile_t` rows, as the
+    reference's grid runs one tile per step (qmm.py:727): a row's output
+    depends on its own tile alone, never on how many other tiles or rows
+    the call holds. The transposed layout hoists the min term as the JAX
+    package does: x . (q * scale) - xgsum . minv. Returns (rows, n_out)
+    f32."""
     _check_shapes(x, sel, tile_t, n_in, fields, planes_t)
     rows, K = x.shape
     G = K // group
     xs = x.float()
-    xp = permute_x(xs, group)
-    row_expert = sel.long().repeat_interleave(tile_t)
-    y = torch.zeros((rows, n_out), dtype=torch.float32, device=x.device)
-    xgsum = xs.reshape(rows, G, group).sum(-1) if planes_t and "minv" in fields else None
-    for e in torch.unique(row_expert).tolist():
-        idx = torch.nonzero(row_expert == e)[:, 0]
+    xp = permute_x(xs, group).reshape(-1, tile_t, K)
+    y = torch.zeros((rows // tile_t, tile_t, n_out), dtype=torch.float32, device=x.device)
+    xgsum = (xs.reshape(-1, tile_t, G, group).sum(-1)
+             if planes_t and "minv" in fields else None)
+    sel_l = sel.long()
+    for e in torch.unique(sel_l).tolist():
         f = {k: v[e] for k, v in fields.items()}
         minv = None
         if planes_t:
             # (kcols, R) -> (R, kcols); scale/minv keep their G true group rows
             f = {k: (v[:G] if k in ("scale", "minv") else v).T for k, v in f.items()}
             minv = f.pop("minv", None)
-        w = dequant_stored(f, ggml_type, group)[:n_out]
-        ye = xp[idx] @ w.T
-        if minv is not None:
-            ye = ye - xgsum[idx] @ minv[:n_out].float().T
-        y[idx] = ye
-    return y
+        w = dequant_stored(f, ggml_type, group)[:n_out].T
+        m = None if minv is None else minv[:n_out].float().T
+        for t in torch.nonzero(sel_l == e)[:, 0].tolist():
+            yt = xp[t] @ w
+            if m is not None:
+                yt = yt - xgsum[t] @ m
+            y[t] = yt
+    return y.reshape(rows, n_out)
 
 
 def quantized_matmul_gathered(x, fields, sel, ggml_type: GGMLType, group: int,
@@ -120,14 +125,14 @@ def quantized_matmul_gathered(x, fields, sel, ggml_type: GGMLType, group: int,
         raise NotImplementedError(
             f"{name} kernel: {ggml_type.name} fields {sorted(fields)} are not covered yet "
             f"(Q4_0/Q4_1/Q4_K{'' if planes_t else ', Q6_K'} and Q8_0 are)")
-    if planes_t and tile_t > 1:
-        k_mult = 512  # the tensor-core route takes the min term 16 groups at a time
-    if K % k_mult:
-        raise ValueError(f"{name} kernel: K={K} must be a multiple of {k_mult}"
-                         f" at tile_t={tile_t}")
     sdt = fields["scale"].dtype
     if sdt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: scale dtype {sdt} (f32 or bf16)")
+    if not planes_t and tile_t > 1:
+        k_mult = MMA_K_MULTIPLE  # the tensor-core tile body
+    if K % k_mult:
+        raise ValueError(f"{name} kernel: K={K} must be a multiple of {k_mult}"
+                         f" at tile_t={tile_t}")
     G = K // group
     q0 = fields["q8" if "q8" in fields else "q4"]
     M, R = q0.shape[0], q0.shape[2 if planes_t else 1]
@@ -135,7 +140,7 @@ def quantized_matmul_gathered(x, fields, sel, ggml_type: GGMLType, group: int,
         kc = K * _BITS[k] // 8 if k in _BITS else G
         if planes_t:
             ok = (a.dim() == 3 and a.shape[0] == M and a.shape[2] == R
-                  and (a.shape[1] == kc if k in _BITS else a.shape[1] >= G))
+                  and (a.shape[1] == kc if k in _BITS else a.shape[1] >= -(-G // 4) * 4))
         else:
             ok = tuple(a.shape) == (M, R, kc)
         if not ok or a.device != x.device or not a.is_contiguous():
@@ -159,7 +164,8 @@ def quantized_matmul_gathered(x, fields, sel, ggml_type: GGMLType, group: int,
     s_bf16 = int(sdt == torch.bfloat16)
     if planes_t:
         # xgsum's bf16 hi and lo planes for the mma route's min term
-        xg = (torch.empty((2, rows, G), dtype=torch.bfloat16, device=x.device)
+        # (its columns rounded up to whole 4-column slices)
+        xg = (torch.empty((2, rows, -(-G // 4) * 4), dtype=torch.bfloat16, device=x.device)
               if tile_t > 1 and "minv" in fields else None)
         code = lib.tpl_qmm_gathered_t(
             kind, s_bf16, ptr(xp), ptr(xg), ptr(sel_d), ptr(q0), ptr(fields["scale"]),
