@@ -295,6 +295,9 @@ class Timer:
         self.torch = torch
         self.flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=device)
 
+    def flush_l2(self) -> None:
+        self.flush.zero_()
+
     def ms(self, fn, iters: int) -> float:
         torch = self.torch
         fn()
@@ -303,7 +306,7 @@ class Timer:
         ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
               for _ in range(iters)]
         for s, e in ev:
-            self.flush.zero_()
+            self.flush_l2()
             s.record()
             fn()
             e.record()
@@ -361,13 +364,13 @@ def qmm_cases(timer, gen, device, out: list) -> None:
     # (type, N, K, activation dtype, scale dtype, T values): the serving
     # path's shapes in bf16 (T = 1 for Context.decode, 4 for the server's
     # B = 4 decode step, 256 for one prompt chunk, 1024 for the server's
-    # packed 4 x 256 prefill chunk), then the f32 and Q8_0 variants the
-    # kernel covers
+    # packed 4 x 256 prefill chunk; T = 8, the decode body's widest x, at
+    # the FFN's shapes), then the f32 and Q8_0 variants the kernel covers
     served = (1, 4, 256, 1024)
     cases = [(Q4, 4096, 4096, bf16, bf16, served),
              (Q4, 1024, 4096, bf16, bf16, served),
-             (Q4, 14336, 4096, bf16, bf16, served),
-             (Q4, 4096, 14336, bf16, bf16, served),
+             (Q4, 14336, 4096, bf16, bf16, (1, 4, 8, 256, 1024)),
+             (Q4, 4096, 14336, bf16, bf16, (1, 4, 8, 256, 1024)),
              (Q6, 128256, 4096, bf16, bf16, served),
              (Q4, 4096, 4096, f32, f32, (1, 256)),
              (Q6, 4096, 4096, f32, f32, (1, 256)),

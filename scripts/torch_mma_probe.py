@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Where the time of the port's tensor-core qmm routes goes, on one CUDA card.
+"""Where the time of the port's qmm and attention bodies goes, on one CUDA card.
 
-    python3 scripts/torch_mma_probe.py [--body all|mma|group|attention]
+    python3 scripts/torch_mma_probe.py [--body all|mma|group|attention|gemv]
 
 Builds copies of qmm.cu, qmm_gathered.cu and qmm_ktiled.cu (or of
 flash_attention.cu and flash_decode.cu) from tpullama_torch/csrc in which
-phases of a tile body's loop are removed, and times each copy at the
-served shapes of chip_smoke.py's kernels phase.
+phases of a body's loop are removed, and times each copy at the served
+shapes of chip_smoke.py's kernels phase.
 
 Body "mma" (qmm_mma.cuh, `mma_tile`): qmm_gathered over Mixtral's
 [gate | up] (28672 x 4096 x 8 experts, bf16 scales) at 2048 and 512 slots
@@ -54,8 +54,26 @@ and flash_decode.cu (`fd_kernel`, timed at B = 1 and B = 4 only):
   fd_nocopy    without the chunk's K/V copies
   fd_nocombine without the merge of the block's four warps
   fd_nomerge   without the last block's merge of the chunks (no output)
+Body "gemv" (qmm_gemv.cuh, `qmm_gemv_kernel`, the decode route): qmm_gemv
+over Llama-3-8B's ffn_up (Q4_K 14336 x 4096, bf16 x and scales) at T = 4
+(the server's B = 4 step) and T = 1, and over its ffn_down (4096 x 14336)
+at T = 4, each with its achieved GB/s, timed twice: after chip_smoke.py's
+flush, which writes 512 MiB and so leaves L2 full of dirty lines (a call's
+misses then also write them back), and after a flush that reads the
+buffer ("readflush": clean lines, as a decode step leaves L2, its
+weights read and its outputs small). Variants:
+  full      the kernel as it is
+  nostage   without staging x (and its column sums) into shared memory
+  nounpack  without the byte permutes and the 2^23 bias: raw words as
+            values
+  nofma     without the FMAs and x reads of x rows past the first
+  noxread   without the x reads from shared memory (an FADD per value
+            and x row instead of the FMA)
+  loads     the weight and scale copies and the fold alone (nostage,
+            nounpack, nofma, noxread: one FADD per value)
 A variant's outputs are wrong by construction; only its time means
-anything. Prints the card's name and power limit (nvidia-smi) and one
+anything. Each copy's `-Xptxas -v` report (registers, spills) goes to
+chiprun_out/probe_ptxas_<body>.txt. Prints the card's name and power limit (nvidia-smi) and one
 line per (variant, shape) with three timed rounds and their median (ms,
 CUDA events, L2 flushed before each launch).
 """
@@ -126,6 +144,14 @@ D_COPY = (FD, "    copy_kv<MMA, D, KVT>(ks, vs, k + (size_t)bh * S * D, v + (siz
 D_COMBINE = (FD, "    for (int i = tid; i < nr * D; i += THREADS) {\n",
              "    for (int i = tid; i < 0; i += THREADS) {\n")
 D_MERGE = (FD, "  for (int w0 = 0; w0 < NC; w0 += W) {\n", "  for (int w0 = 0; w0 < 0; w0 += W) {\n")
+# decode body (qmm_gemv.cuh)
+V_STAGE = ("    gv_stage<KIND, TT>(x, x_bf16, xs, xsum, T, K, G, GV_CW * c0);\n", "")
+V_UNPACK = ("  for (int b = 0; b < 4; ++b) q[b] = gv_magic(v, b) - bias;\n",
+            "  for (int b = 0; b < 4; ++b) q[b] = __uint_as_float(v);\n")
+V_FMA = ("  for (int t = 0; t < TT; ++t) {\n    const float4 u",
+         "  for (int t = 0; t < 1; ++t) {\n    const float4 u")
+V_XREAD = ("      for (int c = 0; c < GV_CW; ++c) acc[r][c][t] = fmaf(q[r][c], xv[c], acc[r][c][t]);\n",
+           "      for (int c = 0; c < GV_CW; ++c) acc[r][c][t] += q[r][c];\n")
 # (header, patches) per variant of each body
 VARIANTS = {
     "mma": {
@@ -160,12 +186,21 @@ VARIANTS = {
         "fd_nocombine": [D_COMBINE],
         "fd_nomerge": [D_MERGE],
     },
+    "gemv": {
+        "full": [],
+        "nostage": [V_STAGE],
+        "nounpack": [V_UNPACK],
+        "nofma": [V_FMA],
+        "noxread": [V_XREAD],
+        "loads": [V_STAGE, V_UNPACK, V_FMA, V_XREAD],
+    },
 }
 # the file each body's patches edit, and the sources each copy builds
-HEADER = {"mma": "qmm_mma.cuh", "group": "qmm_group_mma.cuh", "attention": "flash_attention.cu"}
+HEADER = {"mma": "qmm_mma.cuh", "group": "qmm_group_mma.cuh", "attention": "flash_attention.cu",
+          "gemv": "qmm_gemv.cuh"}
 QMM_SOURCES = ("qmm.cu", "qmm_gathered.cu", "qmm_ktiled.cu")
 SOURCES = {"mma": QMM_SOURCES, "group": QMM_SOURCES,
-           "attention": ("flash_attention.cu", "flash_decode.cu", "qmm.cu")}
+           "attention": ("flash_attention.cu", "flash_decode.cu", "qmm.cu"), "gemv": ("qmm.cu",)}
 
 
 def start_build(body: str, name: str, patches: list, root: str):
@@ -186,9 +221,8 @@ def start_build(body: str, name: str, patches: list, root: str):
             raise SystemExit(f"{body} {name}: {fname} no longer holds {old!r}")
         with open(path, "w") as f:
             f.write(text.replace(old, new))
-    flags = [a for a in build.NVCC_FLAGS if a not in ("-Xptxas", "-v")]
-    return d, [[build._nvcc(), *flags, "-c", os.path.join(d, s), "-o", os.path.join(d, s + ".o")]
-               for s in SOURCES[body]]
+    return d, [[build._nvcc(), *build.NVCC_FLAGS, "-c", os.path.join(d, s), "-o",
+                os.path.join(d, s + ".o")] for s in SOURCES[body]]
 
 
 def load(d: str, body: str) -> ctypes.CDLL:
@@ -205,6 +239,7 @@ def load(d: str, body: str) -> ctypes.CDLL:
         "tpl_qmm_ktiled": [i, i, i, p, p, p, p, p, p, i, i, i, i, p],
         "tpl_qmm_gathered": [i, i, p, p, p, p, p, p, p, i, i, i, i, i, p],
         "tpl_qmm_tiled": [i, i, i, p, p, p, p, p, p, p, i, i, i, p],
+        "tpl_qmm_gemv": [i, i, i, p, p, p, p, p, p, i, i, i, p],
         "tpl_qmm_gathered_t": [i, i, p, p, p, p, p, p, p, i, i, i, i, i, i, p],
         "tpl_error_string": [i],
     }
@@ -213,6 +248,24 @@ def load(d: str, body: str) -> ctypes.CDLL:
             getattr(lib, name).argtypes = types
     lib.tpl_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def read_flush_timer(device):
+    """chip_smoke's Timer whose flush reads its buffer instead of writing
+    it, so L2 holds clean lines when the timed call starts."""
+    import torch
+
+    import chip_smoke as cs
+
+    class ReadFlushTimer(cs.Timer):
+        def __init__(self, dev):
+            super().__init__(dev)
+            self.sink = torch.empty((), device=dev)
+
+        def flush_l2(self) -> None:
+            torch.sum(self.flush, dim=0, out=self.sink)
+
+    return ReadFlushTimer(device)
 
 
 def shapes(device, body: str):
@@ -246,6 +299,15 @@ def shapes(device, body: str):
     out = []
     if body == "attention":
         return attention_shapes(device, gen)
+    if body == "gemv":
+        for N, K, T in ((14336, 4096, 4), (14336, 4096, 1), (4096, 14336, 4)):
+            f = cs.random_planes(Q4, N, K, bf16, gen, device)
+            x = torch.randn((T, K), generator=gen, device=device).to(bf16)
+            n_bytes = sum(cs.nbytes(a) for a in f.values()) + cs.nbytes(x) + T * N * 4
+            out.append((f"qmm_gemv N={N} K={K} T={T}",
+                        lambda x=x, f=f, N=N, K=K: qmm.quantized_matmul(x, f, Q4, 32, N, K),
+                        n_bytes))
+        return out
     if body == "mma":
         K = 4096
         for N, S in ((2 * 14336, 2048), (2 * 14336, 512), (320, 512)):
@@ -321,8 +383,9 @@ def main() -> int:
     from tpullama_torch.ops.cuda import build
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--body", choices=("all", "mma", "group", "attention"), default="all")
-    bodies = (("mma", "group", "attention") if ap.parse_args().body == "all"
+    ap.add_argument("--body", choices=("all", "mma", "group", "attention", "gemv"),
+                    default="all")
+    bodies = (("mma", "group", "attention", "gemv") if ap.parse_args().body == "all"
               else (ap.parse_args().body,))
     if not torch.cuda.is_available():
         print("torch_mma_probe: no CUDA device", file=sys.stderr)
@@ -331,6 +394,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         built = {(b, n): start_build(b, n, p, root) for b in bodies for n, p in VARIANTS[b].items()}
         cmds = [c for _d, cs_ in built.values() for c in cs_]
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        # each copy's -Xptxas -v report (registers, spills), one file per body
+        reports = {b: open(os.path.join(ROOT, "chiprun_out", f"probe_ptxas_{b}.txt"), "w")
+                   for b in bodies}
         for i in range(0, len(cmds), 12):  # at most 12 nvcc processes at a time
             procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                       text=True) for c in cmds[i:i + 12]]
@@ -339,7 +406,13 @@ def main() -> int:
                 if proc.returncode:
                     print(f"{c[-1]}: nvcc failed\n{log}", file=sys.stderr)
                     return 1
+                copy = os.path.basename(os.path.dirname(c[-1]))  # <body>-<variant>
+                src = os.path.basename(c[-3])
+                reports[copy.split("-")[0]].write(f"==== {copy} {src}\n{log}\n")
+        for f in reports.values():
+            f.close()
         timer = cs.Timer(device)
+        read_timer = read_flush_timer(device) if "gemv" in bodies else None
         cases = {b: shapes(device, b) for b in bodies}
         libs = {k: load(d, k[0]) for k, (d, _c) in built.items()}
         times: dict = {}
@@ -351,13 +424,17 @@ def main() -> int:
                     if b == "attention" and n != "full" and is_fd != n.startswith("fd_"):
                         continue  # each kernel under its own variants
                     times.setdefault((b, n, name), []).append(timer.ms(fn, 10))
+                    if b == "gemv":
+                        times.setdefault((b, n, name + " readflush"), []).append(
+                            read_timer.ms(fn, 10))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     n_bytes = {name: nb[0] for b in bodies for name, _fn, *nb in cases[b] if nb and nb[0]}
+    n_bytes.update({name + " readflush": nb for name, nb in list(n_bytes.items())})
     for (b, n, name), t in times.items():
         med = sorted(t)[1]
         rate = f"  {n_bytes[name] / med / 1e6:.1f} GB/s" if name in n_bytes else ""
-        print(f"{b:9s} {n:9s} {name:32s} " + " ".join(f"{v:.4f}" for v in t)
+        print(f"{b:9s} {n:9s} {name:42s} " + " ".join(f"{v:.4f}" for v in t)
               + f"  median {med:.4f}{rate}")
     return 0
 

@@ -282,6 +282,149 @@ def test_group_scaled_product_is_within_kernel_tolerance(qtype, layout, K, xdt):
         assert float((got.double() - exact).abs().max()) <= tol
 
 
+# ------------------------------------------------- the decode body (gemv)
+
+
+def _gemv_stage(xc, g, c0, width):
+    """The kernel's staging rule (gv_stage): columns [c0, c0 + width) of x
+    in column order (T, K) -> the slice xs[t, a, c - c0] = xc[t, c*g + a],
+    f32, zero past the row's K/g columns."""
+    T, K = xc.shape
+    G = K // g
+    cols = xc.float().reshape(T, G, g)[:, c0:c0 + width]
+    out = torch.zeros((T, g, width))
+    out[:, :, :cols.shape[1]] = cols.transpose(1, 2)
+    return out
+
+
+def _gemv_values(planes, qtype, K):
+    """The integers q[n, c, a] as the decode body makes them: the 4-byte
+    word of a class (columns 4k ..) at a-row j of each plane, bytes shifted
+    and masked as 4 lanes of a 32-bit word, each byte placed in the
+    mantissa of 2^23 (bytes 0x00 0x00 0x4B above it) and 2^23 (Q8_0: +
+    128) taken off. Ragged classes read 0 past the row's columns."""
+    g = 16 if qtype == GGMLType.Q6_K else 32
+    G = K // g
+    W = -(-G // 4) * 4
+
+    def rows(name, n):  # (N, n, W) uint32 byte lanes of a-rows j < n, zero padded
+        p = planes[name].numpy().view(np.uint8).astype(np.uint32)[:, :n * G].reshape(-1, n, G)
+        return np.pad(p, ((0, 0), (0, 0), (0, W - G)))
+
+    if qtype == GGMLType.Q4_K or qtype == GGMLType.Q4_0:
+        b = rows("q4", 16)
+        v = np.concatenate([b & 0x0F, (b >> 4) & 0x0F], axis=1)  # a < 16 low, else high
+        bias = 2.0 ** 23
+    elif qtype == GGMLType.Q6_K:
+        lo, cr = rows("q4", 8), rows("q2", 4)
+        v = []
+        for a in range(16):
+            i = a // 4
+            up = cr[:, a % 4] << (4 - 2 * i) if i < 2 else cr[:, a % 4] >> (2 * i - 4)
+            v.append(((lo[:, a % 8] >> (0 if a < 8 else 4)) & 0x0F) | (up & 0x30))
+        v = np.stack(v, axis=1)
+        bias = 2.0 ** 23
+    else:
+        v = rows("q8", 32) ^ 0x80  # b + 128
+        bias = 2.0 ** 23 + 128
+    f = (np.uint32(0x4B000000) | v.astype(np.uint32)).view(np.float32)
+    q = torch.from_numpy((f - np.float32(bias)).astype(np.float32))  # (N, g, W)
+    return q.transpose(1, 2)[:, :G]
+
+
+def _gemv_emulated(x, planes, qtype, K, order):
+    """y = x @ W^T as the decode body computes it, in f32: the integers of
+    each scale column (_gemv_values, the byte rule c + jG) times the staged
+    x, summed per (row, x row, column) in the body's step order (Q4: a = j
+    then j + 16 for j < 16; Q6_K: j then j + 8 for j < 8; Q8_0: a in
+    order); each
+    column folded once as part += scale * sum, part -= minv * sum_a x, a
+    lane's columns in class order (classes lane, lane + 16, ... of 4
+    columns); the 16 lanes' parts added by a butterfly."""
+    g = 16 if qtype == GGMLType.Q6_K else 32
+    G, T = K // g, x.shape[0]
+    NC = -(-G // 4)
+    L = 16
+    q = _gemv_values(planes, qtype, K)  # (N, G, g)
+    assert torch.equal(q, _column_ints(planes, qtype, K, False).float())
+    xs = _gemv_stage(qmm.column_x(x, g, order), g, 0, 4 * NC)  # (T, g, 4 NC)
+    acc = torch.zeros((q.shape[0], T, G))
+    xsum = torch.zeros((T, 4 * NC))
+    steps = {GGMLType.Q6_K: [(j, j + 8) for j in range(8)],
+             GGMLType.Q8_0: [(a,) for a in range(32)]}.get(qtype,
+                                                          [(j, j + 16) for j in range(16)])
+    for a in (a for step in steps for a in step):
+        acc = acc + q[:, None, :, a] * xs[None, :, a, :G]
+    for a in range(g):
+        xsum = xsum + xs[:, a]
+    s = planes["scale"].float()
+    m = planes["minv"].float() if "minv" in planes else None
+    part = torch.zeros((L, q.shape[0], T))
+    for k in range(NC):
+        for c in range(4 * k, min(4 * k + 4, G)):
+            part[k % L] = part[k % L] + s[:, c, None] * acc[:, :, c]
+            if m is not None:
+                part[k % L] = part[k % L] - m[:, c, None] * xsum[None, :, c]
+    o = L // 2
+    while o:
+        part = part + part[torch.arange(L) ^ o]
+        o //= 2
+    return part[0].T
+
+
+# every qtype at the loader's widths (K = 768: 6 classes of 4 columns for
+# Q4/Q8_0, 12 for Q6_K, fewer than the 16 lanes of a row), then rows whose last
+# class is ragged (K/g % 4 != 0: 17 and 25 columns)
+_GEMV_CASES = [(qt, K) for qt in (GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0)
+               for K in (768, 4096, 8960)] + [(GGMLType.Q4_0, 544), (GGMLType.Q8_0, 800)]
+
+
+@pytest.mark.parametrize("T", [1, 3, 8])
+@pytest.mark.parametrize("qtype,K", _GEMV_CASES, ids=lambda v: getattr(v, "name", str(v)))
+def test_gemv_column_arithmetic_is_within_kernel_tolerance(qtype, K, T):
+    """The decode body's arithmetic (integers summed per scale column, one
+    scale per column, the min term from staged column sums, the lanes'
+    order) against the plain version and the JAX package's exact path:
+    within the kernels' tolerance, 1e-4 of the output's max plus 1e-5, with
+    f32 and with bf16 x and scales."""
+    import jax.numpy as jnp
+
+    from tpullama.ops.pallas.qmm import quantized_matmul as jax_qmm
+
+    pq, x = _chunk_case(qtype, 16, K, T, seed=K + T + qtype.value)
+    for dt in (torch.float32, torch.bfloat16):
+        fields = {k: torch.from_numpy(v).to(dt if k in ("scale", "minv") else None)
+                  for k, v in pq.fields.items()}
+        xt = torch.from_numpy(x).to(dt)
+        got = _gemv_emulated(xt, fields, qtype, K, "stripe")
+        want = qmm.quantized_matmul_plain(xt, fields, qtype, pq.group, 16, K)
+        tol = 1e-4 * float(want.abs().max()) + 1e-5
+        assert float((got - want).abs().max()) <= tol
+        jf = {k: (jnp.asarray(v).astype(jnp.bfloat16) if dt == torch.bfloat16
+                  and k in ("scale", "minv") else jnp.asarray(v)) for k, v in pq.fields.items()}
+        jx = jnp.asarray(x).astype(jnp.bfloat16 if dt == torch.bfloat16 else jnp.float32)
+        want_jax = torch.from_numpy(np.array(
+            jax_qmm(jx, jf, qtype, pq.group, 16, K, tile_n=8, interpret=True)))
+        assert float((got - want_jax).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("order,g", [("stripe", 32), ("stripe", 16), ("fourblock", 32)])
+def test_gemv_stages_stored_order(order, g):
+    """The staging rule lays x out in stored order: from x in column order
+    (column_x: x itself for stripe planes), slice after slice of 4-column
+    classes, xs[t, a, c - c0] is stored position a*G + c of permute_x(x),
+    the order the planes' bytes meet."""
+    K = 4096
+    x = torch.from_numpy(np.random.default_rng(g).standard_normal((3, K)).astype(np.float32))
+    stored = qmm.permute_x(x, g, order).reshape(3, g, K // g)
+    xc = qmm.column_x(x, g, order)
+    if order == "stripe":
+        assert xc.data_ptr() == x.data_ptr()  # read in place
+    for width in (4, 128, K // g):
+        for c0 in range(0, K // g, width):
+            assert torch.equal(_gemv_stage(xc, g, c0, width), stored[:, :, c0:c0 + width])
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -310,7 +453,7 @@ def test_routes():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [1, 4, 9, 64, 256, 1024])
+@pytest.mark.parametrize("T", [1, 2, 3, 4, 5, 8, 9, 64, 256, 1024])
 @pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0],
                          ids=lambda t: t.name)
 def test_kernel_matches_plain(cuda, qtype, T):
@@ -611,7 +754,7 @@ def test_tiled_mma_rows_do_not_depend_on_the_batch(cuda, qtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [1, 4, 9, 64])
+@pytest.mark.parametrize("T", [1, 2, 3, 4, 5, 8, 9, 64])
 def test_fourblock_kernel_matches_plain(cuda, T):
     """Fourblock planes through qmm_gemv / qmm_tiled: only the wrapper's x
     permutation differs from the stripe order."""
@@ -626,3 +769,70 @@ def test_fourblock_kernel_matches_plain(cuda, T):
     want = qmm.quantized_matmul_plain(xx, fields, GGMLType.Q4_K, 32, n_out, n_in,
                                       order="fourblock")
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def _card_fields(pq, cuda, sdt):
+    return {k: torch.from_numpy(v).to(cuda, sdt if k in ("scale", "minv") else None)
+            for k, v in pq.fields.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qtype,n_in", [(GGMLType.Q4_K, 4096), (GGMLType.Q4_K, 14336),
+                                        (GGMLType.Q6_K, 4096), (GGMLType.Q8_0, 4096),
+                                        (GGMLType.Q8_0, 800)],
+                         ids=lambda v: getattr(v, "name", str(v)))
+def test_gemv_rows_do_not_depend_on_the_batch(cuda, qtype, n_in):
+    """Each x row alone (T = 1) and the first T rows of 8 (T = 2 .. 8) give
+    the rows of the T = 8 call bit for bit, with f32 and bf16 x and scales:
+    the decode body's lanes, classes and sum order do not depend on T (at
+    K = 14336 the slices do, not the order). N = 260 leaves a ragged block;
+    K = 800 (Q8_0) a ragged class."""
+    n_out = 260
+    pq, x = _chunk_case(qtype, n_out, n_in, 8, seed=90 + n_in)
+    for sdt in (torch.float32, torch.bfloat16):
+        fields = _card_fields(pq, cuda, sdt)
+        for xdt in (torch.float32, torch.bfloat16):
+            xx = torch.from_numpy(x).to(cuda, xdt)
+            full = qmm.quantized_matmul(xx, fields, qtype, pq.group, n_out, n_in)
+            for T in range(1, 8):
+                head = qmm.quantized_matmul(xx[:T].contiguous(), fields, qtype, pq.group,
+                                            n_out, n_in)
+                assert torch.equal(head, full[:T])
+            for t in range(8):
+                one = qmm.quantized_matmul(xx[t:t + 1].contiguous(), fields, qtype, pq.group,
+                                           n_out, n_in)
+                assert torch.equal(one[0], full[t])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_out,n_in", [(256, 14336), (128, 28672)])
+def test_gemv_takes_wide_k_at_t8(cuda, n_out, n_in):
+    """T = 8 at the widest K of the served models (Llama-3-8B's ffn_down,
+    14336) and twice that: x is staged in slices of the row (f32 x at T = 8
+    and K = 14336 is 459 KB, twice a block's shared memory)."""
+    pq, x = _chunk_case(GGMLType.Q4_K, n_out, n_in, 8, seed=n_in)
+    fields = _card_fields(pq, cuda, torch.bfloat16)
+    for xdt in (torch.float32, torch.bfloat16):
+        xx = torch.from_numpy(x).to(cuda, xdt)
+        before = qmm.LAUNCHES["qmm_gemv"]
+        got = qmm.quantized_matmul(xx, fields, GGMLType.Q4_K, 32, n_out, n_in)
+        assert qmm.LAUNCHES["qmm_gemv"] == before + 1
+        want = qmm.quantized_matmul_plain(xx, fields, GGMLType.Q4_K, 32, n_out, n_in)
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 5])
+@pytest.mark.parametrize("qtype,n_in", [(GGMLType.Q4_0, 544), (GGMLType.Q8_0, 800)],
+                         ids=lambda v: getattr(v, "name", str(v)))
+def test_gemv_takes_ragged_column_classes(cuda, qtype, n_in, T):
+    """K/g = 17 and 25 columns: a row's last class of 4 is ragged, its bytes
+    and scales read one by one and its missing columns zero."""
+    n_out = 100
+    pq, x = _chunk_case(qtype, n_out, n_in, T, seed=n_in + T)
+    for sdt in (torch.float32, torch.bfloat16):
+        fields = _card_fields(pq, cuda, sdt)
+        xx = torch.from_numpy(x).to(cuda)
+        got = qmm.quantized_matmul(xx, fields, qtype, pq.group, n_out, n_in)
+        want = qmm.quantized_matmul_plain(xx, fields, qtype, pq.group, n_out, n_in)
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())

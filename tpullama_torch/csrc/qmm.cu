@@ -11,10 +11,11 @@
 // What bounds it on an H100, and the two routes:
 //   - decode (T <= 8), qmm_gemv: bytes. One decode step reads every packed
 //     weight once (~0.6 B/weight for Q4_K with bf16 scales) and does 2*T
-//     flops per weight, far below the card's 295 flop/byte ridge. Each warp
-//     takes whole packed rows and streams them with 16-byte loads; every
-//     weight is dequantized in registers as q * scale - minv in f32 (the
-//     reference's exact mode). The wrapper permutes x into stored order.
+//     flops per weight, far below the card's 295 flop/byte ridge. It runs
+//     the decode body of qmm_gemv.cuh: a block stages x (column order, read
+//     in place) into shared memory, each thread walks classes of 4 scale
+//     columns down 2 rows with 4-byte loads, unpacks by byte permutes into
+//     exact f32, sums per column and scales each column once.
 //   - prefill (T > 8), qmm_tiled: operations (120 GFLOP at 14336 x 4096 and
 //     a packed 1024-token chunk, 0.12 ms at the bf16 peak). It runs the
 //     group-scaled tensor-core body of qmm_group_mma.cuh: the raw integers
@@ -31,23 +32,12 @@
 //   KIND_Q6: {q4, q2, scale, minv}  g=16  (Q6_K: value = q4 | q2 << 4)
 //   KIND_Q8: {q8, scale}            g=32  (Q8_0, signed bytes)
 
+#include "qmm_gemv.cuh"
 #include "qmm_group_mma.cuh"
 
 namespace {
 
 using namespace tpl;
-
-// Decode T <= 8: one warp per output row (warp_row_dot).
-template <int KIND, typename XT, typename ST, int TT>
-__global__ void __launch_bounds__(128) qmm_gemv_kernel(
-    const XT* __restrict__ x, const uint8_t* __restrict__ qa,
-    const uint8_t* __restrict__ qb, const ST* __restrict__ scale,
-    const ST* __restrict__ minv, float* __restrict__ y, int T, int N, int K) {
-  const int n = blockIdx.x * 4 + (threadIdx.x >> 5);
-  if (n >= N) return;
-  warp_row_dot<KIND, XT, ST, TT>(x, qa, qb, scale, minv, n, T, K, y + n, N,
-                                 threadIdx.x & 31);
-}
 
 // Prefill T > 8: the group-scaled tensor-core tile body (qmm_group_mma.cuh)
 // over 128 weight rows x BN tokens per block, grid (row blocks, token
@@ -96,19 +86,30 @@ __global__ void __launch_bounds__(GM_THREADS, 1) qmm_tiled_group_kernel(
       }
 }
 
-template <int KIND, typename XT, typename ST>
-void launch_gemv(const void* x, const void* qa, const void* qb, const void* s,
-                 const void* m, float* y, int T, int N, int K, cudaStream_t st) {
-  dim3 grid((N + 3) / 4), block(128);
-  auto xp = static_cast<const XT*>(x);
-  auto ap = static_cast<const uint8_t*>(qa);
-  auto bp = static_cast<const uint8_t*>(qb);
-  auto sp = static_cast<const ST*>(s);
-  auto mp = static_cast<const ST*>(m);
-  if (T <= 1) qmm_gemv_kernel<KIND, XT, ST, 1><<<grid, block, 0, st>>>(xp, ap, bp, sp, mp, y, T, N, K);
-  else if (T <= 2) qmm_gemv_kernel<KIND, XT, ST, 2><<<grid, block, 0, st>>>(xp, ap, bp, sp, mp, y, T, N, K);
-  else if (T <= 4) qmm_gemv_kernel<KIND, XT, ST, 4><<<grid, block, 0, st>>>(xp, ap, bp, sp, mp, y, T, N, K);
-  else qmm_gemv_kernel<KIND, XT, ST, 8><<<grid, block, 0, st>>>(xp, ap, bp, sp, mp, y, T, N, K);
+template <int KIND, int TT>
+int launch_gemv_tt(int x_bf16, int s_bf16, const void* x, const void* qa, const void* qb,
+                   const void* s, const void* m, float* y, int T, int N, int K, cudaStream_t st) {
+  auto kern = qmm_gemv_kernel<KIND, TT>;
+  // set once per instance: the attribute call is slow, a launch is not
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, gv_smem_bytes<KIND, TT>(256));
+  if (attr != cudaSuccess) return (int)attr;
+  const int threads = gemv_threads(N), rows = threads / GV_L * GV_RT;
+  kern<<<(N + rows - 1) / rows, threads, gv_smem_bytes<KIND, TT>(threads), st>>>(
+      x, static_cast<const uint8_t*>(qa), static_cast<const uint8_t*>(qb), s, m, y, x_bf16,
+      s_bf16, T, N, K);
+  return (int)cudaGetLastError();
+}
+
+// the x and scale types are flags of one instance per (KIND, TT): they
+// change only the staging and the once-per-class scale loads
+template <int KIND>
+int launch_gemv(int x_bf16, int s_bf16, const void* x, const void* qa, const void* qb,
+                const void* s, const void* m, float* y, int T, int N, int K, cudaStream_t st) {
+  if (T <= 1) return launch_gemv_tt<KIND, 1>(x_bf16, s_bf16, x, qa, qb, s, m, y, T, N, K, st);
+  if (T <= 2) return launch_gemv_tt<KIND, 2>(x_bf16, s_bf16, x, qa, qb, s, m, y, T, N, K, st);
+  if (T <= 4) return launch_gemv_tt<KIND, 4>(x_bf16, s_bf16, x, qa, qb, s, m, y, T, N, K, st);
+  return launch_gemv_tt<KIND, 8>(x_bf16, s_bf16, x, qa, qb, s, m, y, T, N, K, st);
 }
 
 template <int KIND, typename XT, typename ST>
@@ -136,17 +137,8 @@ int launch_tiled(void* x, void* xg, const void* qa, const void* qb, const void* 
   return (int)cudaGetLastError();
 }
 
-using GemvFn = void (*)(const void*, const void*, const void*, const void*, const void*,
-                        float*, int, int, int, cudaStream_t);
 using TiledFn = int (*)(void*, void*, const void*, const void*, const void*, const void*,
                         float*, int, int, int, cudaStream_t);
-
-template <int KIND>
-GemvFn pick_gemv(int x_bf16, int s_bf16) {
-  using bf = __nv_bfloat16;
-  if (x_bf16) return s_bf16 ? launch_gemv<KIND, bf, bf> : launch_gemv<KIND, bf, float>;
-  return s_bf16 ? launch_gemv<KIND, float, bf> : launch_gemv<KIND, float, float>;
-}
 
 template <int KIND>
 TiledFn pick_tiled(int x_bf16, int s_bf16) {
@@ -157,23 +149,22 @@ TiledFn pick_tiled(int x_bf16, int s_bf16) {
 
 }  // namespace
 
-// x: (T, K) in stored (group-permuted) order, f32 or bf16; qa: q4 or q8
+// x: (T, K) in column order (x_col[t, c*g + a] = x[t, nu(c)*g + a], natural
+// order for stripe planes), f32 or bf16, 16-byte aligned; qa: q4 or q8
 // plane (N, K*bits/8); qb: q2 plane (Q6) or null; s, m: (N, K/g) f32 or
-// bf16 (m null for Q8); y: (T, N) f32. K % 32 (K/g need not divide into the
-// 16-byte scale runs: decode_chunk then reads the scales one by one).
-// Returns cudaGetLastError().
+// bf16 (m null for Q8); y: (T, N) f32; T <= 8. K % 32 (K/g need not be a
+// multiple of 8: a row's last column class is then ragged). Returns
+// cudaGetLastError().
 extern "C" int tpl_qmm_gemv(int kind, int x_bf16, int s_bf16, const void* x,
                             const void* qa, const void* qb, const void* s,
                             const void* m, float* y, int T, int N, int K,
                             void* stream) {
-  GemvFn fn;
-  if (K % 32) return (int)cudaErrorInvalidValue;
-  if (kind == KIND_Q4) fn = pick_gemv<KIND_Q4>(x_bf16, s_bf16);
-  else if (kind == KIND_Q6) fn = pick_gemv<KIND_Q6>(x_bf16, s_bf16);
-  else if (kind == KIND_Q8) fn = pick_gemv<KIND_Q8>(x_bf16, s_bf16);
-  else return (int)cudaErrorInvalidValue;
-  fn(x, qa, qb, s, m, y, T, N, K, static_cast<cudaStream_t>(stream));
-  return (int)cudaGetLastError();
+  if (K % 32 || T > 8) return (int)cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  if (kind == KIND_Q4) return launch_gemv<KIND_Q4>(x_bf16, s_bf16, x, qa, qb, s, m, y, T, N, K, st);
+  if (kind == KIND_Q6) return launch_gemv<KIND_Q6>(x_bf16, s_bf16, x, qa, qb, s, m, y, T, N, K, st);
+  if (kind == KIND_Q8) return launch_gemv<KIND_Q8>(x_bf16, s_bf16, x, qa, qb, s, m, y, T, N, K, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // x: (T, K) in column order (x_col[t, c*g + a] = x[t, nu(c)*g + a]), f32 or

@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("qmm.cu", "qmm_ktiled.cu", "qmm_gathered.cu", "flash_attention.cu",
            "flash_decode.cu", "fused_layer.cu")
-HEADERS = ("qmm_dequant.cuh", "qmm_mma.cuh", "qmm_group_mma.cuh", "attn_tile.cuh")
+HEADERS = ("qmm_dequant.cuh", "qmm_gemv.cuh", "qmm_mma.cuh", "qmm_group_mma.cuh",
+           "attn_tile.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",

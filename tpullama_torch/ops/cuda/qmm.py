@@ -10,11 +10,12 @@ wrapper arranges x for each route, as one PyTorch copy at most.
 The route is the reference's own choice (choose_kchunks): nk > 1 valid
 K-chunks send the call to the K-chunked kernel (csrc/qmm_ktiled.cu,
 Pallas kernel _qmm_ktiled), otherwise it goes to csrc/qmm.cu: qmm_gemv for
-T <= 8 (x permuted into stored order), qmm_tiled above, which runs the
-group-scaled tensor-core body of csrc/qmm_group_mma.cuh on x in column
-order (`column_x`: natural order for stripe planes, so bf16 x is not
-copied). On a CUDA tensor the wrapper launches that kernel or raises; on a
-CPU tensor it computes that route's plain version.
+T <= 8 (the decode body of csrc/qmm_gemv.cuh), qmm_tiled above (the
+group-scaled tensor-core body of csrc/qmm_group_mma.cuh). Both read x in
+column order (`column_x`: natural order for stripe planes, so x is read in
+place; one copy for fourblock planes). On a CUDA tensor the wrapper
+launches that kernel or raises; on a CPU tensor it computes that route's
+plain version.
 
 Not ported: N padded to 128 rows and T padded to the tile (the kernels
 mask their edges), the layer-stacked `layer=` scalar prefetch (the port
@@ -57,8 +58,9 @@ MMA_K_MULTIPLE = 256
 def route(kernel: str, T: int) -> str:
     """The body a launch of `kernel` runs for T activation rows: "mma", a
     tensor-core tile body (qmm_tiled at T > 8: csrc/qmm_group_mma.cuh;
-    qmm_ktiled at T > 8: csrc/qmm_mma.cuh); else "gemv", one warp per
-    output row."""
+    qmm_ktiled at T > 8: csrc/qmm_mma.cuh); else "gemv", a CUDA-core
+    decode body (qmm_gemv and qmm_tiled's T <= 8: csrc/qmm_gemv.cuh;
+    qmm_ktiled: one warp per output row)."""
     return "mma" if kernel in ("qmm_tiled", "qmm_ktiled") and T > GEMV_MAX_T else "gemv"
 
 
@@ -280,8 +282,10 @@ def quantized_matmul(x: torch.Tensor, fields: dict, ggml_type: GGMLType,
         LAUNCHES["qmm_ktiled"] += 1
         return y
     if T <= GEMV_MAX_T:
-        xp = permute_x(x, group, order).contiguous()
-        check(lib.tpl_qmm_gemv(kind, x_bf16, s_bf16, ptr(xp), ptr(qa), ptr(qb),
+        xc = column_x(x, group, order).contiguous()
+        if xc.data_ptr() % 16:
+            xc = xc.clone()  # the kernel's 16-byte loads
+        check(lib.tpl_qmm_gemv(kind, x_bf16, s_bf16, ptr(xc), ptr(qa), ptr(qb),
                                ptr(fields["scale"]), ptr(fields.get("minv")), ptr(y), T, N, K,
                                stream()), "qmm_gemv")
         LAUNCHES["qmm_gemv"] += 1
