@@ -559,7 +559,8 @@ def fused_cases(timer, gen, device, out: list) -> None:
     n_bytes = (sum(nbytes(a) for a in o.values()) + sum(nbytes(a) for a in gu.values())
                + nbytes(att) + nbytes(x) + nbytes(w) + nbytes(act) + nbytes(r1))
     b_ms, b_by = bound_ms(n_bytes, 2.0 * (E * Dq + 2 * Fd * E), "bf16")
-    rec = {"phase": "kernels", "kernel": "fused_postattn", "type": "Q4_K", "E": E, "Dq": Dq,
+    rec = {"phase": "kernels", "kernel": "fused_postattn", "route": "gemv", "type": "Q4_K",
+           "E": E, "Dq": Dq,
            "Fd": Fd, "x": "bfloat16", "scales": "bfloat16", "max_abs_err": max(errs),
            "max_abs_err_act_r1": errs, "tol_act_r1": tols, "ms": ms, "plain_ms": plain_ms,
            "unfused_ms": unfused_ms, "library_ms": lib_ms,
@@ -571,13 +572,28 @@ def fused_cases(timer, gen, device, out: list) -> None:
     torch.cuda.empty_cache()
 
 
+def decode_sel(tokens: int, E: int, distinct: int, gen, device):
+    """Top-2 (token, k) slots of `tokens` tokens over `distinct` (even) of
+    E experts, each token's two distinct: token i picks experts pool[2i %
+    distinct] and pool[(2i + 1) % distinct] of a random pool, so the slots
+    come unsorted and an expert shared by several tokens recurs."""
+    import torch
+
+    pool = torch.randperm(E, generator=gen, device=device)[:distinct]
+    return pool[torch.arange(2 * tokens, device=device) % distinct].to(torch.int32)
+
+
 def gathered_cases(timer, gen, device, out: list) -> None:
     """Both gathered kernels against their plain versions over 8 experts,
     with the routing of the served MoE path: the B = 4 decode step (8
     (token, k) slots, one-row tiles) and the packed 4 x 256 prefill chunk
     (2048 slots, dispatched into 8-row tiles); [gate | up] and down also at
     512 slots (a 1 x 256 chunk), so each tensor-core route is timed at two
-    slot counts."""
+    slot counts. The row-major [gate | up] decode step runs at 8, 6 and 2
+    distinct experts (decode_sel): its kernel reads each expert once per
+    run of up to 4 tiles, so its bound counts the distinct experts' bytes;
+    at 62 one-row slots (a 31-token chunk, the most below the dispatch)
+    each expert is read about twice."""
     import torch
     import torch.nn.functional as F
 
@@ -592,7 +608,8 @@ def gathered_cases(timer, gen, device, out: list) -> None:
     # (transposed, type, n_out per expert, K, scale dtypes, (slots, tile_t)
     # routings): Mixtral's [gate | up] (row-major) and down (transposed)
     # stacks, then the other field sets and padded rows (320 of 384)
-    cases = [(False, Q4, 2 * 14336, 4096, (bf16,), ((8, 1), (512, 8), (2048, 8))),
+    cases = [(False, Q4, 2 * 14336, 4096, (bf16,),
+              ((8, 1, 8), (8, 1, 6), (8, 1, 2), (62, 1), (512, 8), (2048, 8))),
              (True, Q4, 4096, 14336, (bf16,), ((8, 1), (512, 8), (2048, 8))),
              (False, Q6, 4096, 4096, (f32, bf16), small),
              (True, Q8, 4096, 4096, (f32, bf16), small),
@@ -623,10 +640,12 @@ def gathered_cases(timer, gen, device, out: list) -> None:
                 fields = {k: (F.pad(v, (0, 0, 0, -v.shape[1] % 16))
                               if k in ("scale", "minv") else v) for k, v in fields.items()}
             per_expert = sum(nbytes(a) for a in fields.values()) / E
-            for S, tt in routings:
-                # top-2 of 8 distinct experts per token
-                sel = torch.rand((S // 2, E), generator=gen, device=device).argsort(-1)[:, :2]
-                sel = sel.reshape(S).to(torch.int32)
+            for S, tt, *spread in routings:
+                if spread:
+                    sel = decode_sel(S // 2, E, spread[0], gen, device)
+                else:  # top-2 of 8 distinct experts per token
+                    sel = torch.rand((S // 2, E), generator=gen, device=device).argsort(-1)[:, :2]
+                    sel = sel.reshape(S).to(torch.int32)
                 x_slots = torch.randn((S, K), generator=gen, device=device)
                 if tt == 1:
                     tiles, x = sel, x_slots
@@ -648,10 +667,16 @@ def gathered_cases(timer, gen, device, out: list) -> None:
                 tol = 1e-4 * float(want.abs().max()) + 1e-5
                 check(bool(torch.isfinite(got).all()) and err <= tol,
                       f"{name} {qt.name} N={N} K={K} slots={S}: err {err} > tol {tol}")
+                if tt == 1 and not planes_t:
+                    # a tile's row does not depend on who else picked its expert
+                    alone = qmm_gathered.quantized_matmul_gathered(
+                        x[:1], fields, tiles[:1], qt, g, N, K)
+                    check(torch.equal(alone[0], got[0]),
+                          f"{name} {qt.name} N={N}: tile 0 alone differs from its run")
                 ms = timer.ms(kern, 20)
                 plain_ms = timer.ms(plain, 3)
                 xb = x_slots.to(bf16)
-                if tt == 1:
+                if tt == 1 and S <= 8:
                     lib = "torch.bmm on the gathered bf16 expert weights"
                     w_sel = w_lib[sel.long()].transpose(1, 2)
                     lib_ms = timer.ms(lambda: torch.bmm(xb[:, None, :], w_sel), 20)

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Where the time of the port's qmm and attention bodies goes, on one CUDA card.
 
-    python3 scripts/torch_mma_probe.py [--body all|mma|group|attention|gemv]
+    python3 scripts/torch_mma_probe.py [--body all|mma|group|attention|gemv|fused]
 
 Builds copies of qmm.cu, qmm_gathered.cu and qmm_ktiled.cu (or of
-flash_attention.cu and flash_decode.cu) from tpullama_torch/csrc in which
-phases of a body's loop are removed, and times each copy at the served
-shapes of chip_smoke.py's kernels phase.
+flash_attention.cu and flash_decode.cu, or fused_layer.cu) from
+tpullama_torch/csrc in which phases of a body's loop are removed, and
+times each copy at the served shapes of chip_smoke.py's kernels phase.
 
 Body "mma" (qmm_mma.cuh, `mma_tile`): qmm_gathered over Mixtral's
 [gate | up] (28672 x 4096 x 8 experts, bf16 scales) at 2048 and 512 slots
@@ -71,6 +71,21 @@ weights read and its outputs small). Variants:
             and x row instead of the FMA)
   loads     the weight and scale copies and the fold alone (nostage,
             nounpack, nofma, noxread: one FADD per value)
+Body "fused" (fused_layer.cu, `fused_postattn_kernel` on the decode body
+of qmm_gemv.cuh): fused_postattn at ChatGLM3-6B's shape (E = Dq = 4096,
+2Fd = 27392, Q4_K fourblock planes, bf16 inputs and scales), with its
+achieved GB/s, after chip_smoke.py's flush and after a reading flush.
+Variants:
+  full      the kernel as it is
+  phase_a   the o-projection alone (no [gate | up] tiles)
+  phase_b   the norm and [gate | up] alone (no o-projection tiles)
+  nobarrier without the grid barrier between the two
+  loads     the weight and scale copies, the fold, the norm and the
+            barrier alone (no staging, unpacking, FMAs or x reads, as the
+            gemv body's `loads`)
+  threads288 blocks of 288 threads (36-row tiles: 761 [gate | up] tiles,
+            under 3 rounds of the 264 resident blocks, against 856 tiles
+            in 3.2 rounds at 256); the outputs stay right
 A variant's outputs are wrong by construction; only its time means
 anything. Each copy's `-Xptxas -v` report (registers, spills) goes to
 chiprun_out/probe_ptxas_<body>.txt. Prints the card's name and power limit (nvidia-smi) and one
@@ -145,13 +160,22 @@ D_COMBINE = (FD, "    for (int i = tid; i < nr * D; i += THREADS) {\n",
              "    for (int i = tid; i < 0; i += THREADS) {\n")
 D_MERGE = (FD, "  for (int w0 = 0; w0 < NC; w0 += W) {\n", "  for (int w0 = 0; w0 < 0; w0 += W) {\n")
 # decode body (qmm_gemv.cuh)
-V_STAGE = ("    gv_stage<KIND, TT>(x, x_bf16, xs, xsum, T, K, G, GV_CW * c0);\n", "")
+V_STAGE = ("        gv_stage<KIND, TT>(x, x_bf16, xs, xsum, T, K, G, cs);\n", "")
 V_UNPACK = ("  for (int b = 0; b < 4; ++b) q[b] = gv_magic(v, b) - bias;\n",
             "  for (int b = 0; b < 4; ++b) q[b] = __uint_as_float(v);\n")
 V_FMA = ("  for (int t = 0; t < TT; ++t) {\n    const float4 u",
          "  for (int t = 0; t < 1; ++t) {\n    const float4 u")
 V_XREAD = ("      for (int c = 0; c < GV_CW; ++c) acc[r][c][t] = fmaf(q[r][c], xv[c], acc[r][c][t]);\n",
            "      for (int c = 0; c < GV_CW; ++c) acc[r][c][t] += q[r][c];\n")
+# fused post-attention step (fused_layer.cu), as (file, old, new)
+FL = "fused_layer.cu"
+F_NOA = (FL, "for (int nb = blockIdx.x * ROWS; nb < E;", "for (int nb = blockIdx.x * ROWS; nb < 0;")
+F_NOB = (FL, "for (int j0 = blockIdx.x * (ROWS / 2); j0 < Fd;",
+         "for (int j0 = blockIdx.x * (ROWS / 2); j0 < 0;")
+F_SYNC = (FL, "  grid.sync();\n", "")
+F_NOSTAGE = (FL, "    if (cs == staged) return;\n", "    return;\n")
+F_T288 = (FL, "constexpr int THREADS = 256;", "constexpr int THREADS = 288;")
+GEMV_H = "qmm_gemv.cuh"
 # (header, patches) per variant of each body
 VARIANTS = {
     "mma": {
@@ -194,13 +218,22 @@ VARIANTS = {
         "noxread": [V_XREAD],
         "loads": [V_STAGE, V_UNPACK, V_FMA, V_XREAD],
     },
+    "fused": {
+        "full": [],
+        "phase_a": [F_NOB],
+        "phase_b": [F_NOA],
+        "nobarrier": [F_SYNC],
+        "loads": [F_NOSTAGE, *((GEMV_H, *v) for v in (V_UNPACK, V_FMA, V_XREAD))],
+        "threads288": [F_T288],
+    },
 }
 # the file each body's patches edit, and the sources each copy builds
 HEADER = {"mma": "qmm_mma.cuh", "group": "qmm_group_mma.cuh", "attention": "flash_attention.cu",
-          "gemv": "qmm_gemv.cuh"}
+          "gemv": "qmm_gemv.cuh", "fused": FL}
 QMM_SOURCES = ("qmm.cu", "qmm_gathered.cu", "qmm_ktiled.cu")
 SOURCES = {"mma": QMM_SOURCES, "group": QMM_SOURCES,
-           "attention": ("flash_attention.cu", "flash_decode.cu", "qmm.cu"), "gemv": ("qmm.cu",)}
+           "attention": ("flash_attention.cu", "flash_decode.cu", "qmm.cu"), "gemv": ("qmm.cu",),
+           "fused": ("fused_layer.cu", "qmm.cu")}
 
 
 def start_build(body: str, name: str, patches: list, root: str):
@@ -237,10 +270,11 @@ def load(d: str, body: str) -> ctypes.CDLL:
         "tpl_flash_attention": [i, i, p, p, p, p, p, p, p, i, i, i, i, i, i, f, f, p],
         "tpl_flash_decode": [i, i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, f, p],
         "tpl_qmm_ktiled": [i, i, i, p, p, p, p, p, p, i, i, i, i, p],
-        "tpl_qmm_gathered": [i, i, p, p, p, p, p, p, p, i, i, i, i, i, p],
+        "tpl_qmm_gathered": [i, i, i, i, p, p, p, p, p, p, p, i, i, i, i, i, p],
         "tpl_qmm_tiled": [i, i, i, p, p, p, p, p, p, p, i, i, i, p],
         "tpl_qmm_gemv": [i, i, i, p, p, p, p, p, p, i, i, i, p],
         "tpl_qmm_gathered_t": [i, i, p, p, p, p, p, p, p, i, i, i, i, i, i, p],
+        "tpl_fused_postattn": [i, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, f, p],
         "tpl_error_string": [i],
     }
     for name, types in argtypes.items():
@@ -299,6 +333,19 @@ def shapes(device, body: str):
     out = []
     if body == "attention":
         return attention_shapes(device, gen)
+    if body == "fused":
+        from tpullama_torch.ops.cuda import fused_layer
+
+        E, Fd = 4096, 13696
+        o = cs.random_planes(Q4, E, E, bf16, gen, device)
+        gu = cs.random_planes(Q4, 2 * Fd, E, bf16, gen, device)
+        att, x = (torch.randn((1, E), generator=gen, device=device).to(bf16) for _ in range(2))
+        w = (1.0 + 0.1 * torch.randn((E,), generator=gen, device=device)).to(bf16)
+        n_bytes = (sum(cs.nbytes(a) for a in (*o.values(), *gu.values(), att, x, w))
+                   + 4 * (Fd + E))
+        return [(f"fused_postattn E={E} Fd={Fd}",
+                 lambda: fused_layer.fused_postattn(att, x, o, w, gu, group=32, eps=1e-5),
+                 n_bytes)]
     if body == "gemv":
         for N, K, T in ((14336, 4096, 4), (14336, 4096, 1), (4096, 14336, 4)):
             f = cs.random_planes(Q4, N, K, bf16, gen, device)
@@ -383,9 +430,9 @@ def main() -> int:
     from tpullama_torch.ops.cuda import build
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--body", choices=("all", "mma", "group", "attention", "gemv"),
+    ap.add_argument("--body", choices=("all", "mma", "group", "attention", "gemv", "fused"),
                     default="all")
-    bodies = (("mma", "group", "attention", "gemv") if ap.parse_args().body == "all"
+    bodies = (("mma", "group", "attention", "gemv", "fused") if ap.parse_args().body == "all"
               else (ap.parse_args().body,))
     if not torch.cuda.is_available():
         print("torch_mma_probe: no CUDA device", file=sys.stderr)
@@ -412,7 +459,7 @@ def main() -> int:
         for f in reports.values():
             f.close()
         timer = cs.Timer(device)
-        read_timer = read_flush_timer(device) if "gemv" in bodies else None
+        read_timer = read_flush_timer(device) if {"gemv", "fused"} & set(bodies) else None
         cases = {b: shapes(device, b) for b in bodies}
         libs = {k: load(d, k[0]) for k, (d, _c) in built.items()}
         times: dict = {}
@@ -424,7 +471,7 @@ def main() -> int:
                     if b == "attention" and n != "full" and is_fd != n.startswith("fd_"):
                         continue  # each kernel under its own variants
                     times.setdefault((b, n, name), []).append(timer.ms(fn, 10))
-                    if b == "gemv":
+                    if b in ("gemv", "fused"):
                         times.setdefault((b, n, name + " readflush"), []).append(
                             read_timer.ms(fn, 10))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

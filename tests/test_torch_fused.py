@@ -122,6 +122,76 @@ def test_plain_reads_fourblock_order():
     np.testing.assert_allclose(r1.numpy()[0], x[0] + _dense(o, E, E)[:, e], rtol=1e-6, atol=1e-6)
 
 
+def _inputs_wide(E, Dq, Fd, seed):
+    """As _inputs, with an attention width Dq other than E."""
+    rng = np.random.default_rng(seed)
+    o = _planes(rng, E, Dq)
+    gu = _planes(rng, 2 * Fd, E)
+    att = rng.standard_normal((1, Dq)).astype(np.float32)
+    x = rng.standard_normal((1, E)).astype(np.float32)
+    w = (1.0 + 0.1 * rng.standard_normal(E)).astype(np.float32)
+    return att, x, o, w, gu
+
+
+def _body_emulated(att, x, o, w, gu, Fd):
+    """(act, r1) as the kernel computes them with the decode body of
+    csrc/qmm_gemv.cuh (tests/test_torch_qmm.py _gemv_emulated: integers
+    summed per scale column against x staged in column order, one scale
+    per column, the min term from the column sums, a lane's columns in
+    class order, a butterfly over 16 lanes): r1 = x_res + o(att); h = r1 *
+    inv * norm_w; g = [gate | up](h); act = silu(gate) * up, in f32."""
+    from .test_torch_qmm import _gemv_emulated
+
+    E, Dq = x.shape[-1], att.shape[-1]
+    r1 = x.float() + _gemv_emulated(att, o, GGMLType.Q4_K, Dq, "fourblock")
+    inv = 1.0 / torch.sqrt((r1 * r1).sum() / E + EPS)
+    g = _gemv_emulated(r1 * inv * w.float(), gu, GGMLType.Q4_K, E, "fourblock")
+    return torch.nn.functional.silu(g[:, :Fd]) * g[:, Fd:], r1
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("E,Dq,Fd", [(256, 256, 384), (512, 1024, 128), (4096, 4096, 128)])
+def test_body_arithmetic_is_within_kernel_tolerance(E, Dq, Fd, dt):
+    """The kernel's arithmetic on the decode body, emulated on the CPU over
+    fourblock planes, against the plain version and against the JAX
+    package's exact path for the same chain (quantized_matmul in interpret
+    mode on the fourblock planes, the norm, silu(gate) * up): within the
+    kernel's tolerance, 1e-4 of each output's max plus 1e-5, with f32 and
+    with bf16 inputs and scales."""
+    import jax.numpy as jnp
+
+    from tpullama.ops.pallas.qmm import quantized_matmul as jax_qmm
+
+    att, x, o, w, gu = _inputs_wide(E, Dq, Fd, seed=E + Dq + Fd)
+
+    def t(a):
+        return torch.from_numpy(a).to(dt)
+
+    tp = {n: {k: (torch.from_numpy(v) if k == "q4" else t(v)) for k, v in d.items()}
+          for n, d in (("o", o), ("gu", gu))}
+    args = (t(att), t(x), tp["o"], t(w), tp["gu"])
+    got = _body_emulated(args[0], args[1], args[2], args[3], args[4], Fd)
+    want = tf.fused_postattn_plain(*args, group=G, eps=EPS)
+
+    # the JAX exact path on the same (rounded) values, in f32
+    def j(a):
+        return jnp.asarray(a.float().numpy())
+
+    jo = {k: (jnp.asarray(v.numpy()) if k == "q4" else j(v)) for k, v in tp["o"].items()}
+    jgu = {k: (jnp.asarray(v.numpy()) if k == "q4" else j(v)) for k, v in tp["gu"].items()}
+    j_r1 = j(args[1]) + jax_qmm(j(args[0]), jo, GGMLType.Q4_K, G, E, Dq, tile_n=128,
+                                interpret=True, order="fourblock")
+    j_h = j_r1 * (1.0 / jnp.sqrt(jnp.sum(j_r1 * j_r1) / E + EPS)) * j(args[3])
+    j_g = jax_qmm(j_h, jgu, GGMLType.Q4_K, G, 2 * Fd, E, tile_n=128, interpret=True,
+                  order="fourblock")
+    j_act = j_g[:, :Fd] / (1.0 + jnp.exp(-j_g[:, :Fd])) * j_g[:, Fd:]
+    jax_out = (torch.from_numpy(np.array(j_act)), torch.from_numpy(np.array(j_r1)))
+    for g_, w_, jw in zip(got, want, jax_out):
+        tol = 1e-4 * float(w_.abs().max()) + 1e-5
+        assert float((g_ - w_).abs().max()) <= tol
+        assert float((g_ - jw).abs().max()) <= tol
+
+
 def _metas(variant):
     """(reference w, reference lmeta, port w, port lmeta) for one case."""
     from tpullama.models.loader import QuantMeta as JQM
@@ -226,3 +296,34 @@ def test_kernel_matches_plain(cuda, E, Fd):
             for got, want in ((act, want_act), (r1, want_r1)):
                 assert bool(torch.isfinite(got).all())
                 assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,Dq,Fd", [(512, 4096, 384), (4096, 512, 1536), (1024, 1024, 2712),
+                                     (4096, 12288, 13696), (12288, 4096, 13696),
+                                     (12288, 12288, 8200)])
+def test_kernel_takes_e_unlike_dq(cuda, E, Dq, Fd):
+    """An attention width Dq other than E (each matvec's K is its own), and
+    Fd not a multiple of the 16 row pairs of a tile (2712, 8200); up to the
+    wrapper's widest width, 12288, where a phase's x no longer fits one
+    staged slice (K > 8192) and a block restages it for each of its
+    several tiles (phase B at E = 12288, phase A at E = Dq = 12288):
+    against the plain version at 1e-4 of each output's scale, bf16 and f32
+    inputs with bf16 scale planes (the served types)."""
+    att, x, o, w, gu = _inputs_wide(E, Dq, Fd, seed=E + Dq)
+
+    def dev(d):
+        return {k: torch.from_numpy(v).to(cuda, torch.bfloat16 if k != "q4" else None)
+                for k, v in d.items()}
+
+    for xdt in (torch.bfloat16, torch.float32):
+        args = (torch.from_numpy(att).to(cuda, xdt), torch.from_numpy(x).to(cuda, xdt),
+                dev(o), torch.from_numpy(w).to(cuda, xdt), dev(gu))
+        before = tf.LAUNCHES["fused_postattn"]
+        act, r1 = tf.fused_postattn(*args, group=G, eps=EPS)
+        want_act, want_r1 = tf.fused_postattn_plain(*args, group=G, eps=EPS)
+        assert tf.LAUNCHES["fused_postattn"] == before + 1
+        assert act.shape == (1, Fd) and r1.shape == (1, E)
+        for got, want in ((act, want_act), (r1, want_r1)):
+            assert bool(torch.isfinite(got).all())
+            assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())

@@ -14,6 +14,8 @@ sum in f32 in another order: atol = 1e-4 + 1e-6 * max|y|, rtol = 1e-5 (as
 tests/test_torch_qmm.py). moe_ffn within rtol = atol = 2e-4 (the JAX
 package's own packed-vs-dense MoE tolerance). moe_dispatch exactly."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -233,6 +235,45 @@ def test_gathered_plain_is_batch_invariant(planes_t, tile_t):
                                full[t * tile_t:(t + 1) * tile_t])
 
 
+# (tiles, experts, sorted): 1-63 one-row tiles (the decode range, below
+# DISPATCH_MIN_SLOTS) over 2-8 experts
+_PLAN_CASES = [(n, e, srt) for n, e in ((1, 2), (4, 2), (5, 8), (8, 2), (8, 6), (8, 8), (9, 3),
+                                        (20, 3), (31, 4), (40, 2), (62, 8), (63, 8))
+               for srt in (False, True)]
+
+
+@pytest.mark.parametrize("n_tiles,n_expert,sort", _PLAN_CASES)
+def test_run_plan_covers_each_tile_once(n_tiles, n_expert, sort):
+    """The one-row kernel's run plan (each block finds its run on the card
+    by the same rule): every tile in exactly one run, a run's tiles share
+    one expert and come in tile order, at most RUN_CAP of them, and an
+    expert picked by c tiles is read ceil(c / RUN_CAP) times."""
+    rng = np.random.default_rng(n_tiles * 10 + n_expert)
+    sel = rng.integers(0, n_expert, n_tiles)
+    if sort:
+        sel = np.sort(sel)
+    plan = gq.run_plan(torch.from_numpy(sel))
+    cap = gq.RUN_CAP
+    assert sorted(t for run in plan for t in run) == list(range(n_tiles))
+    for run in plan:
+        assert 1 <= len(run) <= cap and run == sorted(run)
+        assert len({int(sel[t]) for t in run}) == 1
+    for e in set(sel.tolist()):
+        count = int((sel == e).sum())
+        assert sum(1 for run in plan if sel[run[0]] == e) == -(-count // cap)
+
+
+def test_run_cap():
+    """The wrapper's run cap is the kernel's (GATHER_RUN), 4: one expert
+    picked by 20 tiles is read in 5 runs of 4, interleaved tiles keep
+    their order."""
+    src = (Path(gq.__file__).parents[2] / "csrc" / "qmm_gathered.cu").read_text()
+    assert f"constexpr int GATHER_RUN = {gq.RUN_CAP};" in src
+    assert gq.RUN_CAP == 4
+    assert gq.run_plan([2] * 20) == [list(range(i, i + 4)) for i in range(0, 20, 4)]
+    assert gq.run_plan([0, 1, 0, 1, 0, 0, 0]) == [[0, 2, 4, 5], [1, 3], [6]]
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -242,7 +283,8 @@ def cuda():
 
 def test_routes():
     """Tiles of more than one row run a tensor-core route in both plane
-    layouts; one-row tiles the f32 warp bodies."""
+    layouts; one-row tiles a CUDA-core body (the decode body over runs of
+    tiles for row-major planes)."""
     assert [gq.route(tt, pt) for pt in (False, True) for tt in (2, 8)] == ["mma"] * 4
     assert [gq.route(1, pt) for pt in (False, True)] == ["gemv"] * 2
 
@@ -319,6 +361,63 @@ def test_gathered_mma_route_over_expert_runs(cuda, qtype, planes_t, tt):
                                                  group, n_rows, n_in, tile_t=tt,
                                                  planes_t=planes_t)
             assert torch.equal(alone, got[t * tt:(t + 1) * tt])
+
+
+# sel patterns of one-row tiles: shared experts, all distinct, one expert
+# for 20 tiles (5 runs of 4), and unsorted with repeats
+_ONE_ROW_SELS = {"repeats": [3, 1, 1, 0, 3, 2, 2, 0], "distinct": [2, 0, 3, 1],
+                 "one-expert-20": [2] * 20,
+                 "unsorted": [1, 3, 0, 1, 2, 3, 3, 0, 1, 2, 1, 0, 3]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", sorted(_ONE_ROW_SELS))
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0],
+                         ids=lambda t: t.name)
+def test_one_row_gathered_kernel_matches_plain(cuda, qtype, pattern):
+    """Row-major one-row tiles on the decode body over runs of tiles that
+    share an expert: against the plain version at 1e-4 of the output's
+    max, f32 and bf16 scales, f32 and bf16 x, K = 4096 and N = 320 of 384
+    stored rows."""
+    n_in = 4096
+    fields, group = _experts(qtype, F, n_in, seed=len(pattern))
+    sel = torch.tensor(_ONE_ROW_SELS[pattern], dtype=torch.int32, device=cuda)
+    rng = np.random.default_rng(len(sel))
+    x = torch.from_numpy(rng.standard_normal((len(sel), n_in)).astype(np.float32)).to(cuda)
+    for sdt in (torch.float32, torch.bfloat16):
+        ft = {k: torch.from_numpy(v).to(cuda, sdt if k in ("scale", "minv") else None)
+              for k, v in fields.items()}
+        for xx in (x, x.to(torch.bfloat16)):
+            want = gq.quantized_matmul_gathered_plain(xx, ft, sel, qtype, group, F, n_in)
+            before = gq.LAUNCHES["qmm_gathered"]
+            got = gq.quantized_matmul_gathered(xx, ft, sel, qtype, group, F, n_in)
+            assert gq.LAUNCHES["qmm_gathered"] == before + 1
+            torch.cuda.synchronize()
+            assert bool(torch.isfinite(got).all())
+            assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0],
+                         ids=lambda t: t.name)
+def test_one_row_gathered_rows_do_not_depend_on_sharing(cuda, qtype):
+    """A one-row tile's output is bit for bit the same computed alone and
+    inside runs of 2 to 4 tiles that share its expert (the body's rows do
+    not depend on T)."""
+    n_in = 1024
+    fields, group = _experts(qtype, F, n_in, seed=11)
+    ft = {k: torch.from_numpy(v).to(cuda, torch.bfloat16 if k in ("scale", "minv") else None)
+          for k, v in fields.items()}
+    sel = torch.tensor([1, 1, 2, 1, 1, 1, 0, 1, 1, 1, 3, 1], dtype=torch.int32, device=cuda)
+    x = torch.from_numpy(np.random.default_rng(12).standard_normal((len(sel), n_in))
+                         .astype(np.float32)).to(cuda)
+    full = gq.quantized_matmul_gathered(x, ft, sel, qtype, group, F, n_in)
+    for t in range(len(sel)):
+        alone = gq.quantized_matmul_gathered(x[t:t + 1], ft, sel[t:t + 1], qtype, group, F,
+                                             n_in)
+        assert torch.equal(alone[0], full[t])
+    pair = gq.quantized_matmul_gathered(x[:2], ft, sel[:2], qtype, group, F, n_in)
+    assert torch.equal(pair, full[:2])
 
 
 @pytest.mark.cuda

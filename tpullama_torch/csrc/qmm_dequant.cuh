@@ -1,13 +1,15 @@
-// Dequantization helpers shared by the planar qmm kernels (qmm.cu,
-// qmm_ktiled.cu), the gathered MoE kernels (qmm_gathered.cu), the
-// tensor-core tile body (qmm_mma.cuh) and the fused post-attention kernel
-// (fused_layer.cu).
+// Dequantization helpers of the planar qmm kernels: load_f and to_f (every
+// body), decode_raw (the tensor-core tile body qmm_mma.cuh, and through it
+// qmm_ktiled.cu and qmm_gathered.cu), and the warp body warp_row_sums with
+// its decode_chunk (qmm_ktiled.cu at T <= 8). The decode body of qmm_gemv,
+// fused_postattn and one-row qmm_gathered tiles (qmm_gemv.cuh) takes the
+// field sets below but unpacks its own way.
 //
 // The planes are tpullama/ops/qweights.py's: "global stripe" nibble/crumb
 // planes in group-transposed stored order plus per-group scale (and min)
 // planes, f32 or bf16. In stripe order a stored position p of a row holds
 // natural element (p % G) * g + p / G (G = K / g); in fourblock order
-// (fused_layer.cu) another element, but in both its scale/min sit at
+// (the ChatGLM path's attn_output and ffn_up) another element, but in both its scale/min sit at
 // column p % G, so these helpers serve both orders.
 // Every weight is q * scale - minv in f32 with two roundings and no
 // contraction, the plain versions' arithmetic, so a kernel's weights equal
@@ -224,22 +226,6 @@ __device__ __forceinline__ void warp_row_sums(const XT* __restrict__ x,
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], o);
   }
-}
-
-// One warp: y[r * ldy] = x[r] . W[n] for r < T <= TT over the whole row.
-template <int KIND, typename XT, typename ST, int TT>
-__device__ __forceinline__ void warp_row_dot(const XT* __restrict__ x,
-                                             const uint8_t* __restrict__ qa,
-                                             const uint8_t* __restrict__ qb,
-                                             const ST* __restrict__ scale,
-                                             const ST* __restrict__ minv, int n,
-                                             int T, int K, float* __restrict__ y,
-                                             int ldy, int lane) {
-  float acc[TT];
-  warp_row_sums<KIND, XT, ST, TT>(x, qa, qb, scale, minv, n, T, K, 0, K / 32, lane, acc);
-#pragma unroll
-  for (int r = 0; r < TT; ++r)
-    if (lane == 0 && r < T) y[(size_t)r * ldy] = acc[r];
 }
 
 }  // namespace tpl

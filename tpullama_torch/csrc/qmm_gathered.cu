@@ -14,19 +14,28 @@
 //     walks that group's stored positions, so every output row depends on
 //     its own x row alone, whatever the tile holds.
 // R is the stored rows per expert (rows padded to 128 by the loader), N <= R
-// the rows computed. x is f32: in stored (group-permuted) order for
-// qmm_gathered, as in qmm.cu; in natural order for qmm_gathered_t, whose
-// walk over one scale group's stored positions meets that group's 32
-// natural elements in order. The one-row bodies use qmm.cu's dequantization
-// helpers (qmm_dequant.cuh), so their weights equal the plain version's bit
-// for bit.
+// the rows computed. qmm_gathered's one-row tiles take x f32 or bf16 in
+// natural order, read in place (for stripe planes the decode body's column
+// order is natural order); its tiles of more than one row take f32 x in
+// stored (group-permuted) order, as in qmm.cu. qmm_gathered_t takes f32 x
+// in natural order, whose walk over one scale group's stored positions
+// meets that group's 32 natural elements in order; its one-row body uses
+// qmm.cu's dequantization helpers (qmm_dequant.cuh), so its weights equal
+// the plain version's bit for bit.
 //
 // What bounds it on an H100:
 //   - decode (tt = 1, one tile per (token, k) slot): bytes. A step reads
-//     only the selected experts' packed planes; qmm_gathered gives each warp
-//     one packed row and streams it with 16-byte loads, qmm_gathered_t gives
-//     each lane 4 neighbouring rows (4-byte loads, 128 bytes per warp) and
-//     splits the groups of K over 8 warps so that ~2000 warps are in flight.
+//     only the selected experts' packed planes. qmm_gathered runs the
+//     decode body of qmm_gemv.cuh (gv_tile) over runs of tiles that share
+//     an expert: a block of tile t goes on only if t starts a run (its rank
+//     among the tiles of its expert, in tile order, is a multiple of
+//     GATHER_RUN = 4), gathers the run's tiles from sel on the card, and
+//     reads its rows of the expert once for all of them, the run's x rows
+//     being the body's T. A row's output does not depend on T, so a tile's
+//     output is bit-identical whoever else picked its expert.
+//     qmm_gathered_t gives each lane 4 neighbouring rows (4-byte loads,
+//     128 bytes per warp) and splits the groups of K over 8 warps so that
+//     ~2000 warps are in flight.
 //   - prefill (tt = 8 rows per tile, slots sorted by expert): operations.
 //     qmm_gathered routes tiles of more than one row to
 //     qmm_gathered_mma_kernel, the tensor-core tile body of qmm_mma.cuh
@@ -41,26 +50,86 @@
 // routes; qmm_gathered_t covers KIND_Q4 and KIND_Q8 (the loader stores no
 // other field set transposed). The wrappers raise on the rest.
 
+#include <type_traits>
+
+#include "qmm_gemv.cuh"
 #include "qmm_group_mma.cuh"
 
 namespace {
 
 using namespace tpl;
 
-// Row-major: grid (tile, block of 4 rows), one warp per output row.
-template <int KIND, typename ST, int TT>
-__global__ void __launch_bounds__(128) qmm_gathered_kernel(
-    const float* __restrict__ x, const int* __restrict__ sel,
-    const uint8_t* __restrict__ qa, const uint8_t* __restrict__ qb,
-    const ST* __restrict__ scale, const ST* __restrict__ minv,
-    float* __restrict__ y, int tt, int N, int R, int K) {
-  const int n = blockIdx.y * 4 + (threadIdx.x >> 5);
-  if (n >= N) return;
-  const int tile = blockIdx.x;
+// Row-major, one-row tiles: grid (row blocks of the body, tiles). Block
+// (b, t) runs only if tile t starts a run: among the tiles whose expert is
+// e = sel[t], in tile order, t's rank is a multiple of GATHER_RUN. The run
+// is the next (at most GATHER_RUN) tiles of e from t on; the block reads
+// rows [b * rows_blk, (b + 1) * rows_blk) of expert e once for all of
+// them. Warp 0 finds the run with ballots over sel (32 tiles a step), so
+// any sel, sorted or not, is right. The body instance follows the run's length (1,
+// 2 or 4 x rows), so a lone tile costs what a T = 1 gemv does. Runs of 4
+// keep the body at 2 blocks per SM: an 8-row run measured slower at 62
+// slots, its x slice taking twice the shared memory.
+constexpr int GATHER_RUN = 4;
+
+template <int KIND>
+__global__ void __launch_bounds__(256, 2) qmm_gathered_gemv_kernel(
+    const void* __restrict__ x, const int* __restrict__ sel, const uint8_t* __restrict__ qa,
+    const uint8_t* __restrict__ qb, const void* __restrict__ scale,
+    const void* __restrict__ minv, float* __restrict__ y, int x_bf16, int s_bf16, int n_tiles,
+    int N, int R, int K) {
+  extern __shared__ __align__(16) float gv_smem[];
+  __shared__ int run[GATHER_RUN];
+  __shared__ int run_len;
+  const int tile = blockIdx.y;
   const int e = sel[tile];
-  warp_row_dot<KIND, float, ST, TT>(x + (size_t)tile * tt * K, qa, qb, scale, minv,
-                                    e * R + n, tt, K, y + (size_t)tile * tt * N + n,
-                                    N, threadIdx.x & 31);
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int rank = 0, len = 0;
+    for (int b = 0; b < tile; b += 32)
+      rank += __popc(__ballot_sync(0xffffffffu, b + lane < tile && sel[b + lane] == e));
+    if (rank % GATHER_RUN == 0) {
+      for (int b = tile; b < n_tiles && len < GATHER_RUN; b += 32) {
+        unsigned m = __ballot_sync(0xffffffffu, b + lane < n_tiles && sel[b + lane] == e);
+        for (; m && len < GATHER_RUN; m &= m - 1, ++len)
+          if (lane == 0) run[len] = b + __ffs(m) - 1;
+      }
+    }
+    if (lane == 0) run_len = len;
+  }
+  __syncthreads();
+  const int T = run_len;
+  if (T == 0) return;  // tile t is inside another tile's run
+  constexpr int g = GvGeo<KIND>::GROUP;
+  const int G = K / g;
+  const int nb = blockIdx.x * (blockDim.x / GV_L * GV_RT);
+  const int n0 = nb + threadIdx.x / GV_L * GV_RT;
+  const size_t row0 = (size_t)e * R;
+  auto row_of = [&](int rr) { return row0 + min(nb + rr, N - 1); };
+  auto body = [&](auto tt) {
+    constexpr int TT = decltype(tt)::value;
+    float part[GV_RT][TT];
+    gv_tile<KIND, TT>(
+        qa, qb, scale, minv, s_bf16, K, row_of,
+        [&](float* xs, float* xsum, int cs) {
+          gv_stage_with<KIND, TT>(
+              [&](int t, int c, float (&v)[g]) {
+                const size_t at = (size_t)run[t] * K + (size_t)c * g;
+                if (x_bf16) load_f<__nv_bfloat16, g>(static_cast<const __nv_bfloat16*>(x) + at, v);
+                else load_f<float, g>(static_cast<const float*>(x) + at, v);
+              },
+              xs, xsum, T, G, cs);
+        },
+        gv_smem, part);
+    if ((threadIdx.x & (GV_L - 1)) == 0)
+#pragma unroll
+      for (int t = 0; t < TT; ++t)
+#pragma unroll
+        for (int r = 0; r < GV_RT; ++r)
+          if (t < T && n0 + r < N) y[(size_t)run[t] * N + n0 + r] = part[r][t];
+  };
+  if (T == 1) body(std::integral_constant<int, 1>{});
+  else if (T == 2) body(std::integral_constant<int, 2>{});
+  else body(std::integral_constant<int, GATHER_RUN>{});
 }
 
 // Row-major, tiles of 2..8 rows: the tensor-core route. Replaces the warp
@@ -348,15 +417,22 @@ using RmFn = int (*)(float*, const int*, const void*, const void*, const void*,
 using TFn = int (*)(float*, void*, const int*, const void*, const void*, const void*,
                     float*, int, int, int, int, int, int, cudaStream_t);
 
-// one-row tiles (decode)
-template <int KIND, typename ST>
-int launch_rm(float* x, const int* sel, const void* qa, const void* qb, const void* s,
-              const void* m, float* y, int n_tiles, int tt, int N, int R, int K,
-              cudaStream_t st) {
-  dim3 grid(n_tiles, (N + 3) / 4), block(128);
-  qmm_gathered_kernel<KIND, ST, 1><<<grid, block, 0, st>>>(
-      x, sel, static_cast<const uint8_t*>(qa), static_cast<const uint8_t*>(qb),
-      static_cast<const ST*>(s), static_cast<const ST*>(m), y, tt, N, R, K);
+// one-row tiles (decode): the decode body over runs of at most GATHER_RUN
+// tiles
+template <int KIND>
+int launch_gemv(int x_bf16, int s_bf16, const void* x, const int* sel, const void* qa,
+                const void* qb, const void* s, const void* m, float* y, int n_tiles, int N,
+                int R, int K, cudaStream_t st) {
+  auto kern = qmm_gathered_gemv_kernel<KIND>;
+  // set once per instance: the attribute call is slow, a launch is not
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, gv_smem_bytes<KIND, GATHER_RUN>(256));
+  if (attr != cudaSuccess) return (int)attr;
+  const int threads = gemv_threads(N), rows = threads / GV_L * GV_RT;
+  dim3 grid((N + rows - 1) / rows, n_tiles);
+  kern<<<grid, threads, gv_smem_bytes<KIND, GATHER_RUN>(threads), st>>>(
+      x, sel, static_cast<const uint8_t*>(qa), static_cast<const uint8_t*>(qb), s, m, y, x_bf16,
+      s_bf16, n_tiles, N, R, K);
   return (int)cudaGetLastError();
 }
 
@@ -419,37 +495,42 @@ int launch_t_mma(float* x, void* xg, const int* sel, const void* q, const void* 
 }
 
 template <int KIND, typename ST>
-RmFn pick_rm(int tt) {
-  return tt == 1 ? &launch_rm<KIND, ST> : &launch_mma<KIND, ST>;
-}
-
-template <int KIND, typename ST>
 TFn pick_t(int tt) {
   return tt == 1 ? &launch_t<KIND, ST> : &launch_t_mma<KIND, ST>;
 }
 
 }  // namespace
 
-// Row-major. x: (n_tiles * tt, K) f32 in stored order; sel: (n_tiles,)
-// int32 expert per tile, on the card; qa: q4 or q8 planes (M, R, K*bits/8);
-// qb: q2 planes (Q6) or null; s, m: (M, R, K/g) f32 or bf16 (m null for
-// Q8); y: (n_tiles * tt, N) f32. tt <= 8: tt = 1 runs one warp per output
-// row (K % 32), tt > 1 the tensor-core route (K % 256: whole 16-byte scale
-// runs), which overwrites x with its bf16 hi/lo split (the wrapper passes
-// its own permuted copy).
+// Row-major. sel: (n_tiles,) int32 expert per tile, on the card; qa: q4
+// or q8 planes (M, R, K*bits/8); qb: q2 planes (Q6) or null; s, m: (M, R,
+// K/g) f32 or bf16 (s_bf16; m null for Q8); y: (n_tiles * tt, N) f32.
+// tt = 1 runs the decode body over runs of at most GATHER_RUN (4) tiles
+// of one expert: x (n_tiles, K) f32 or bf16 (x_bf16) in natural order,
+// 16-byte aligned, read in place; K % 32 (Q6_K % 256); n_tiles <= 65535.
+// tt in 2..8 runs the tensor-core route: x (n_tiles * tt, K) f32 in stored
+// order, which it overwrites with its bf16 hi/lo split (the wrapper passes
+// its own permuted copy); K % 256 (whole 16-byte scale runs).
 // Returns a CUDA error code (cudaGetLastError() after the launches).
-extern "C" int tpl_qmm_gathered(int kind, int s_bf16, float* x, const int* sel,
-                                const void* qa, const void* qb, const void* s,
-                                const void* m, float* y, int n_tiles, int tt, int N,
-                                int R, int K, void* stream) {
+extern "C" int tpl_qmm_gathered(int kind, int x_bf16, int s_bf16, void* x,
+                                const int* sel, const void* qa, const void* qb, const void* s,
+                                const void* m, float* y, int n_tiles, int tt, int N, int R,
+                                int K, void* stream) {
   using bf = __nv_bfloat16;
-  if (tt < 1 || tt > 8 || K % 32 || (tt > 1 && K % 256)) return (int)cudaErrorInvalidValue;
+  if (tt < 1 || tt > 8 || K % 32 || (tt > 1 && K % 256) || (tt == 1 && n_tiles > 65535))
+    return (int)cudaErrorInvalidValue;
+  if (kind != KIND_Q4 && kind != KIND_Q6 && kind != KIND_Q8) return (int)cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  if (tt == 1) {
+    auto fn = kind == KIND_Q4 ? &launch_gemv<KIND_Q4>
+              : kind == KIND_Q6 ? &launch_gemv<KIND_Q6>
+                                : &launch_gemv<KIND_Q8>;
+    return fn(x_bf16, s_bf16, x, sel, qa, qb, s, m, y, n_tiles, N, R, K, st);
+  }
   RmFn fn;
-  if (kind == KIND_Q4) fn = s_bf16 ? pick_rm<KIND_Q4, bf>(tt) : pick_rm<KIND_Q4, float>(tt);
-  else if (kind == KIND_Q6) fn = s_bf16 ? pick_rm<KIND_Q6, bf>(tt) : pick_rm<KIND_Q6, float>(tt);
-  else if (kind == KIND_Q8) fn = s_bf16 ? pick_rm<KIND_Q8, bf>(tt) : pick_rm<KIND_Q8, float>(tt);
-  else return (int)cudaErrorInvalidValue;
-  return fn(x, sel, qa, qb, s, m, y, n_tiles, tt, N, R, K, static_cast<cudaStream_t>(stream));
+  if (kind == KIND_Q4) fn = s_bf16 ? &launch_mma<KIND_Q4, bf> : &launch_mma<KIND_Q4, float>;
+  else if (kind == KIND_Q6) fn = s_bf16 ? &launch_mma<KIND_Q6, bf> : &launch_mma<KIND_Q6, float>;
+  else fn = s_bf16 ? &launch_mma<KIND_Q8, bf> : &launch_mma<KIND_Q8, float>;
+  return fn(static_cast<float*>(x), sel, qa, qb, s, m, y, n_tiles, tt, N, R, K, st);
 }
 
 // Transposed. x: (n_tiles * tt, K) f32 in natural order; sel as above; q:

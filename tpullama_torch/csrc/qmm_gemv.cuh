@@ -1,13 +1,18 @@
-// The decode body of qmm_gemv (T <= 8): y = x @ W^T over planar packed
-// weights, designed for the H100's memory.
-//
-// Replaces the T <= 8 use of the Pallas kernel `kernel` of quantized_matmul
-// (tpullama/ops/pallas/qmm.py:296). What bounds it: bytes. A decode step
-// reads every packed weight once (~0.6 B/weight for Q4_K with bf16 scales)
-// and does 2*T flops per weight. The warp body it replaced
-// (qmm_dequant.cuh:warp_row_dot) ran about 13 thread-instructions per
-// weight at T = 4 (a slow int->float conversion, q * scale - minv and a
-// bf16 -> f32 conversion of x per weight). This body:
+// The decode body (T <= 8 x rows): y = x @ W^T over planar packed
+// weights, designed for the H100's memory. gv_tile runs it over one
+// block's tile of rows; three kernels call it:
+//   - qmm_gemv (qmm.cu), the T <= 8 use of the Pallas kernel `kernel` of
+//     quantized_matmul (tpullama/ops/pallas/qmm.py:296);
+//   - fused_postattn (fused_layer.cu), both of its matvecs, x made in the
+//     kernel (gv_stage_with);
+//   - one-row qmm_gathered tiles (qmm_gathered.cu), x the rows of the
+//     tiles that share an expert, each expert's rows read once per run.
+// What bounds it: bytes. A decode step reads every packed weight once
+// (~0.6 B/weight for Q4_K with bf16 scales) and does 2*T flops per
+// weight. A warp per row, dequantizing each weight as q * scale - minv,
+// ran about 13 thread-instructions per weight at T = 4 (a slow
+// int->float conversion, the scale and min, a bf16 -> f32 conversion of
+// x per weight). This body:
 //
 //   - Scale columns held, not reloaded. Stored position p = a*G + c of a
 //     row (G = K/g) sits in scale column c. A thread owns classes of 4
@@ -153,20 +158,20 @@ __device__ __forceinline__ void gv_fma(const float (&q)[GV_RT][GV_CW], const flo
   }
 }
 
-// Stage columns [cs, cs + SW) of x (column order, rows t < T, zeros for
-// t >= T and columns >= G) into xs[t][a][c - cs] as f32, and each column's
-// sum over a (in order) into xsum[t][c - cs].
-template <int KIND, int TT>
-__device__ __forceinline__ void gv_stage(const void* x, bool x_bf16, float* xs, float* xsum,
-                                         int T, int K, int G, int cs) {
+// Stage columns [cs, cs + SW) of x (rows t < T, zeros for t >= T and
+// columns >= G) into xs[t][a][c - cs] as f32, and each column's sum over a
+// (in order) into xsum[t][c - cs]. load(t, c, v) fills v with the g values
+// of x row t in scale column c (x_col[t, c*g .. c*g + g)), so x may come
+// from global memory in column order or be made by the caller.
+template <int KIND, int TT, class Load>
+__device__ __forceinline__ void gv_stage_with(Load load, float* xs, float* xsum, int T, int G,
+                                              int cs) {
   constexpr int g = GvGeo<KIND>::GROUP, SW = GvSlice<TT>::COLS;
   for (int i = threadIdx.x; i < TT * SW; i += blockDim.x) {
     const int t = i / SW, cl = i - t * SW, c = cs + cl;
     float v[g];
-    const size_t at_x = (size_t)t * K + (size_t)c * g;
     if (t < T && c < G) {
-      if (x_bf16) load_f<__nv_bfloat16, g>(static_cast<const __nv_bfloat16*>(x) + at_x, v);
-      else load_f<float, g>(static_cast<const float*>(x) + at_x, v);
+      load(t, c, v);
     } else {
 #pragma unroll
       for (int a = 0; a < g; ++a) v[a] = 0.f;
@@ -181,10 +186,30 @@ __device__ __forceinline__ void gv_stage(const void* x, bool x_bf16, float* xs, 
   }
 }
 
-// y[t, n] = sum over K of x[t] . W[n] for t < T <= TT. Block: blockDim.x / 16
-// groups of 16 lanes, each group GV_RT rows; lane li takes classes li, li +
-// 16, ... of its rows, in that order whatever the slices (GvSlice columns
-// each) cut. Dynamic shared memory: gv_smem_bytes.
+// x rows in column order in global memory, (T, K) at x, f32 or bf16
+template <int KIND, int TT>
+__device__ __forceinline__ void gv_stage(const void* x, bool x_bf16, float* xs, float* xsum,
+                                         int T, int K, int G, int cs) {
+  constexpr int g = GvGeo<KIND>::GROUP;
+  gv_stage_with<KIND, TT>(
+      [&](int t, int c, float (&v)[g]) {
+        const size_t at = (size_t)t * K + (size_t)c * g;
+        if (x_bf16) load_f<__nv_bfloat16, g>(static_cast<const __nv_bfloat16*>(x) + at, v);
+        else load_f<float, g>(static_cast<const float*>(x) + at, v);
+      },
+      xs, xsum, T, G, cs);
+}
+
+// The body: part[r][t] = x[t] . W[row_of(rg * GV_RT + r)] over the whole
+// row (K), for the block's rows_blk = blockDim.x / 16 * GV_RT tile rows and
+// x rows t < TT, every lane of a 16-lane row group holding the totals.
+// Block: blockDim.x / 16 groups of 16 lanes, each group GV_RT rows; lane li
+// takes classes li, li + 16, ... of its rows, in that order whatever the
+// slices (GvSlice columns each) cut. row_of(rr) is the plane row of tile
+// row rr, always a row of the planes (callers clamp). stage(xs, xsum, cs)
+// fills the x slice of columns [cs, cs + SW) (gv_stage, gv_stage_with); it
+// is called after a barrier, once per slice. smem: gv_smem_bytes<KIND, TT>
+// bytes (dynamic shared memory).
 //
 // The block runs in steps: step s is class group s / ROUNDS (16 classes),
 // round s % ROUNDS. Its tile (every row of the block, the round's a-rows,
@@ -192,12 +217,13 @@ __device__ __forceinline__ void gv_stage(const void* x, bool x_bf16, float* xs, 
 // threads while the threads sum step s - 1 out of the other stage; each
 // thread then reads its own 4-byte words at immediate offsets. Steps of a
 // thread: Q4 16, a = j and j + 16; Q6_K 8, a = j and j + 8; Q8_0 2 x 16.
-template <int KIND, int TT>
-__global__ void __launch_bounds__(256, TT <= 4 ? 2 : 1) qmm_gemv_kernel(
-    const void* __restrict__ x, const uint8_t* __restrict__ qa, const uint8_t* __restrict__ qb,
-    const void* __restrict__ scale, const void* __restrict__ minv, float* __restrict__ y,
-    int x_bf16, int s_bf16, int T, int N, int K) {
-  extern __shared__ __align__(16) float gv_smem[];
+template <int KIND, int TT, class RowOf, class Stage>
+__device__ __forceinline__ void gv_tile(const uint8_t* __restrict__ qa,
+                                        const uint8_t* __restrict__ qb,
+                                        const void* __restrict__ scale,
+                                        const void* __restrict__ minv, bool s_bf16, int K,
+                                        RowOf row_of, Stage stage, float* smem,
+                                        float (&part)[GV_RT][TT]) {
   using GE = GvGeo<KIND>;
   constexpr int g = GE::GROUP, RT = GV_RT, L = GV_L, SW = GvSlice<TT>::COLS, SC = SW / GV_CW;
   constexpr int A = GE::AROWS, ROUNDS = GE::ROUNDS, PITCH = GE::PITCH;
@@ -207,13 +233,11 @@ __global__ void __launch_bounds__(256, TT <= 4 ? 2 : 1) qmm_gemv_kernel(
   const bool aligned = G % GV_CW == 0;
   const int cb = G % 16 == 0 ? 16 : (G % 8 == 0 ? 8 : 4);  // copy chunk bytes
   const int rows_blk = blockDim.x / L * RT;
-  float* xs = gv_smem;
-  float* xsum = gv_smem + TT * g * SW;
+  float* xs = smem;
+  float* xsum = smem + TT * g * SW;
   uint32_t* ring = reinterpret_cast<uint32_t*>(xsum + TT * SW);
   const int ring_stage = rows_blk * PITCH;  // words
   const int li = threadIdx.x & (L - 1), rg = threadIdx.x / L;
-  const int nb = blockIdx.x * rows_blk;  // the block's first row
-  const int n0 = nb + rg * RT;
   // this thread's words: row rg * RT + r, a-row j at + r * PITCH + j * L
   const uint32_t* mine = ring + rg * RT * PITCH + li;
   // step s's tile into stage s % 2, one cp.async group (empty past the rows)
@@ -225,7 +249,7 @@ __global__ void __launch_bounds__(256, TT <= 4 ? 2 : 1) qmm_gemv_kernel(
       for (int i = threadIdx.x; i < rows_blk * per_row; i += blockDim.x) {
         const int rr = i / per_row, e = i - rr * per_row, j = e / (64 / cb);
         const int at = (e - j * (64 / cb)) * cb;  // byte in the a-row's 64
-        const size_t n = min(nb + rr, N - 1);
+        const size_t n = row_of(rr);
         const uint8_t* src;
         if (KIND == KIND_Q6 && j >= 8)
           src = qb + n * (K / 4) + (size_t)(j - 8) * G;
@@ -238,17 +262,17 @@ __global__ void __launch_bounds__(256, TT <= 4 ? 2 : 1) qmm_gemv_kernel(
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
   };
-  float part[RT][TT];
 #pragma unroll
   for (int r = 0; r < RT; ++r)
 #pragma unroll
     for (int t = 0; t < TT; ++t) part[r][t] = 0.f;
   int s = 0;
-  copy(0);  // in flight while the block stages x
+  __syncthreads();  // a block that runs several tiles: the last one's ring readers are done
+  copy(0);          // in flight while the block stages x
   for (int c0 = 0; c0 < NC; c0 += SC) {
     const int nsc = min(SC, NC - c0);
     __syncthreads();  // the last slice's readers are done
-    gv_stage<KIND, TT>(x, x_bf16, xs, xsum, T, K, G, GV_CW * c0);
+    stage(xs, xsum, GV_CW * c0);
     for (int cg = c0; cg < c0 + nsc; cg += L) {
       const int k = cg + li;  // this thread's class
       const bool on = k < NC;
@@ -257,7 +281,7 @@ __global__ void __launch_bounds__(256, TT <= 4 ? 2 : 1) qmm_gemv_kernel(
       float sc[RT][GV_CW], mn[RT][GV_CW];
 #pragma unroll
       for (int r = 0; r < RT; ++r) {
-        const size_t at = (size_t)min(n0 + r, N - 1) * G + GV_CW * (on ? k : 0);
+        const size_t at = row_of(rg * RT + r) * G + GV_CW * (on ? k : 0);
         gv_scales(scale, at, s_bf16, aligned, cv, sc[r]);
         if constexpr (KIND != KIND_Q8) gv_scales(minv, at, s_bf16, aligned, cv, mn[r]);
       }
@@ -342,9 +366,29 @@ __global__ void __launch_bounds__(256, TT <= 4 ? 2 : 1) qmm_gemv_kernel(
     for (int r = 0; r < RT; ++r)
 #pragma unroll
       for (int t = 0; t < TT; ++t) part[r][t] += __shfl_xor_sync(0xffffffffu, part[r][t], o);
-  if (li == 0)
+}
+
+// y[t, n] = sum over K of x[t] . W[n] for t < T <= TT, x in column order:
+// block b computes rows [b * rows_blk, (b + 1) * rows_blk) through gv_tile.
+template <int KIND, int TT>
+__global__ void __launch_bounds__(256, TT <= 4 ? 2 : 1) qmm_gemv_kernel(
+    const void* __restrict__ x, const uint8_t* __restrict__ qa, const uint8_t* __restrict__ qb,
+    const void* __restrict__ scale, const void* __restrict__ minv, float* __restrict__ y,
+    int x_bf16, int s_bf16, int T, int N, int K) {
+  extern __shared__ __align__(16) float gv_smem[];
+  const int G = K / GvGeo<KIND>::GROUP;
+  const int nb = blockIdx.x * (blockDim.x / GV_L * GV_RT);  // the block's first row
+  const int n0 = nb + threadIdx.x / GV_L * GV_RT;
+  float part[GV_RT][TT];
+  gv_tile<KIND, TT>(
+      qa, qb, scale, minv, s_bf16, K, [&](int rr) { return (size_t)min(nb + rr, N - 1); },
+      [&](float* xs, float* xsum, int cs) {
+        gv_stage<KIND, TT>(x, x_bf16, xs, xsum, T, K, G, cs);
+      },
+      gv_smem, part);
+  if ((threadIdx.x & (GV_L - 1)) == 0)
 #pragma unroll
-    for (int r = 0; r < RT; ++r)
+    for (int r = 0; r < GV_RT; ++r)
 #pragma unroll
       for (int t = 0; t < TT; ++t)
         if (t < T && n0 + r < N) y[(size_t)t * N + n0 + r] = part[r][t];

@@ -106,7 +106,7 @@ def library() -> ctypes.CDLL:
     lib.tpl_qmm_ktiled.restype = i
     lib.tpl_fused_postattn.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, f, p]
     lib.tpl_fused_postattn.restype = i
-    lib.tpl_qmm_gathered.argtypes = [i, i, p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.tpl_qmm_gathered.argtypes = [i, i, i, p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.tpl_qmm_gathered.restype = i
     lib.tpl_qmm_gathered_t.argtypes = [i, i, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.tpl_qmm_gathered_t.restype = i

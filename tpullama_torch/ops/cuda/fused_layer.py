@@ -11,8 +11,9 @@ sequence (T == 1, B == 1) after attention:
 returning (act, r1); the caller finishes with y = r1 + ffn_down(act). The
 attn_output and fused [gate|up] weights are {q4, scale, minv} planes in
 fourblock stored order (ops/qweights.to_fourblock). On CUDA tensors the
-wrapper launches csrc/fused_layer.cu (one cooperative launch) or raises;
-on CPU tensors it computes the plain version.
+wrapper launches csrc/fused_layer.cu (one cooperative launch whose two
+matvecs run the decode body of csrc/qmm_gemv.cuh) or raises; on CPU
+tensors it computes the plain version.
 """
 
 from __future__ import annotations
@@ -28,7 +29,9 @@ from .qmm import dequant_stored, permute_x
 # launches since the last reset (chip_smoke.py reads it)
 LAUNCHES = {"fused_postattn": 0}
 _FIELDS = {"q4", "scale", "minv"}
-_MAX_SMEM_FLOATS = 12288  # the kernel stages max(Dq, E) f32 in 48 KB of shared memory
+# the widest Dq or E the wrapper admits (the kernel stages x in slices of
+# 8192 elements, so this bounds what is tested, not shared memory)
+_MAX_WIDTH = 12288
 
 
 def resolve_fused_layer(value: bool | None) -> bool:
@@ -105,9 +108,9 @@ def fused_postattn(att, x_res, o_fields, norm_w, gu_fields, *, group: int, eps: 
                          f"norm_w {tuple(norm_w.shape)}, [gate|up] rows {F2}")
     if group != 32:
         raise ValueError(f"fused_postattn kernel: group {group} (covers 32)")
-    if Dq % 512 or E % 512 or max(Dq, E) > _MAX_SMEM_FLOATS:
+    if Dq % 512 or E % 512 or max(Dq, E) > _MAX_WIDTH:
         raise ValueError(f"fused_postattn kernel: Dq={Dq}, E={E} must be multiples of 512 "
-                         f"and at most {_MAX_SMEM_FLOATS}")
+                         f"and at most {_MAX_WIDTH}")
     sdt = o_fields["scale"].dtype
     for fields, n, k in ((o_fields, E, Dq), (gu_fields, F2, E)):
         if set(fields) != _FIELDS:
@@ -124,7 +127,9 @@ def fused_postattn(att, x_res, o_fields, norm_w, gu_fields, *, group: int, eps: 
     xdt = att.dtype if all(v.dtype == att.dtype for v in vecs) else torch.float32
     if xdt not in (torch.float32, torch.bfloat16):
         xdt = torch.float32
+    # the body reads att and norm_w by 16-byte loads
     att, x_res, norm_w = (v.to(device=att.device, dtype=xdt).contiguous() for v in vecs)
+    att, norm_w = (v if v.data_ptr() % 16 == 0 else v.clone() for v in (att, norm_w))
     act = torch.empty((1, F2 // 2), dtype=torch.float32, device=att.device)
     r1 = torch.empty((1, E), dtype=torch.float32, device=att.device)
     check(library().tpl_fused_postattn(

@@ -9,14 +9,18 @@ planes_t=True, transposed (M, kcols, R) with the scale/minv group rows
 padded to 16 (qweights.transpose_planes); R >= n_out is the stored rows
 per expert. On a CUDA tensor the wrapper launches csrc/qmm_gathered.cu
 (qmm_gathered or qmm_gathered_t) and leaves sel on the card; on a CPU
-tensor it computes the plain version. The row-major kernel takes x in
-stored order (the group permutation runs here, as one PyTorch copy); the
-transposed kernel takes x in natural order and sums its groups for the
-hoisted min term itself. Both kernels run tiles of more than one row on
-the tensor cores (`route`): the row-major one through csrc/qmm_mma.cuh,
-the transposed one through the group-scaled body of
+tensor it computes the plain version.
+
+Routes (`route`): row-major one-row tiles run the decode body of
+csrc/qmm_gemv.cuh over runs of tiles that share an expert (`run_plan`),
+each expert's rows read once per run, x (f32 or bf16) read in place in
+natural order; row-major tiles of more than one row run the tensor-core
+body of csrc/qmm_mma.cuh on x in stored order (the group permutation runs
+here, as one PyTorch copy). The transposed kernel takes f32 x in natural
+order and sums its groups for the hoisted min term itself: one-row tiles
+on an f32 FMA body, larger ones on the group-scaled body of
 csrc/qmm_group_mma.cuh. Outputs are batch-invariant within a route, but
-the one-row route sums in another order.
+the one-row and tile routes sum in other orders.
 
 Not ported: the expert-parallel 4-D planes (L, E_local, R, kcols), the
 N tiling and padding, and the bf16 fast mode (the kernels compute the
@@ -33,6 +37,9 @@ from .qmm import _KINDS, MMA_K_MULTIPLE, dequant_stored, permute_x
 # launches per kernel since the last reset (chip_smoke.py reads them)
 LAUNCHES = {"qmm_gathered": 0, "qmm_gathered_t": 0}
 MAX_TILE_T = 8
+# one-row tiles of one expert that the row-major kernel gives one pass over
+# its rows (GATHER_RUN in csrc/qmm_gathered.cu)
+RUN_CAP = 4
 
 # field sets of the transposed kernel: kind id in csrc/qmm_gathered.cu
 _KINDS_T = {frozenset({"q4", "scale", "minv"}): 0, frozenset({"q8", "scale"}): 2}
@@ -44,9 +51,26 @@ PLANES_T_FIELDS = {"q4", "q4_lut", "q4a", "q1r", "q8", "scale", "minv"}
 def route(tile_t: int, planes_t: bool = False) -> str:
     """The body a launch runs: "mma", a tensor-core route for tiles of more
     than one row (row-major planes: csrc/qmm_mma.cuh; transposed planes:
-    csrc/qmm_group_mma.cuh), else "gemv", the f32 warp bodies of one-row
-    tiles."""
+    csrc/qmm_group_mma.cuh), else "gemv", a CUDA-core body for one-row
+    tiles (row-major planes: the decode body of csrc/qmm_gemv.cuh over
+    runs of tiles; transposed planes: an f32 FMA body per tile)."""
     return "mma" if tile_t > 1 else "gemv"
+
+
+def run_plan(sel) -> list[list[int]]:
+    """The runs the row-major one-row kernel computes, as its blocks find
+    them on the card: tile t starts a run iff its rank among the tiles of
+    its expert sel[t], in tile order, is a multiple of RUN_CAP; the run is
+    that tile and the next tiles of the same expert, at most RUN_CAP in
+    all. Every tile lies in exactly one run, any sel, sorted or not."""
+    sel = [int(e) for e in sel]
+    plan, seen = [], {}
+    for t, e in enumerate(sel):
+        rank = seen.get(e, 0)
+        seen[e] = rank + 1
+        if rank % RUN_CAP == 0:
+            plan.append([u for u in range(t, len(sel)) if sel[u] == e][:RUN_CAP])
+    return plan
 
 
 def _check_shapes(x, sel, tile_t, n_in, fields, planes_t):
@@ -148,16 +172,26 @@ def quantized_matmul_gathered(x, fields, sel, ggml_type: GGMLType, group: int,
                              f"(contiguous={a.is_contiguous()}) does not fit M={M} R={R} K={K}")
         if k in ("scale", "minv") and a.dtype != sdt:
             raise TypeError(f"{name}: scale and minv dtypes differ")
-    # the row-major kernel's second grid axis counts blocks of 4 rows
-    if n_out > R or (planes_t and R % 128) or (not planes_t and -(-n_out // 4) > 65535):
+    if n_out > R or (planes_t and R % 128):
         raise ValueError(f"{name}: n_out={n_out} rows of R={R} stored rows")
-    xs = x.float()
-    # the row-major permutation copies x (K/group > 1), and the transposed
-    # route gets its own copy: the mma routes split f32 x in place
-    if planes_t:
+    one_row = not planes_t and tile_t == 1
+    if one_row and rows > 65535:  # the one-row kernel's second grid axis
+        raise ValueError(f"{name}: {rows} one-row tiles (at most 65535)")
+    if one_row:
+        # the decode body reads x in place: natural order is its column
+        # order for stripe planes
+        xp = x if x.dtype in (torch.float32, torch.bfloat16) else x.float()
+        xp = xp.contiguous()
+        if xp.data_ptr() % 16:
+            xp = xp.clone()  # the body's 16-byte loads
+    elif planes_t:
+        # the transposed route gets its own copy: the mma route splits f32
+        # x in place
+        xs = x.float()
         xp = xs.clone(memory_format=torch.contiguous_format) if tile_t > 1 else xs.contiguous()
     else:
-        xp = permute_x(xs, group).contiguous()
+        # the permutation copies x (K/group > 1), which the mma route splits
+        xp = permute_x(x.float(), group).contiguous()
     sel_d = sel.to(device=x.device, dtype=torch.int32).contiguous()
     y = torch.empty((rows, n_out), dtype=torch.float32, device=x.device)
     lib = library()
@@ -173,9 +207,9 @@ def quantized_matmul_gathered(x, fields, sel, ggml_type: GGMLType, group: int,
             fields["scale"].shape[1], stream())
     else:
         code = lib.tpl_qmm_gathered(
-            kind, s_bf16, ptr(xp), ptr(sel_d), ptr(q0), ptr(fields.get("q2")),
-            ptr(fields["scale"]), ptr(fields.get("minv")), ptr(y), rows // tile_t, tile_t,
-            n_out, R, K, stream())
+            kind, int(xp.dtype == torch.bfloat16), s_bf16, ptr(xp), ptr(sel_d), ptr(q0),
+            ptr(fields.get("q2")), ptr(fields["scale"]), ptr(fields.get("minv")), ptr(y),
+            rows // tile_t, tile_t, n_out, R, K, stream())
     check(code, name)
     LAUNCHES[name] += 1
     return y
