@@ -445,16 +445,17 @@ def natural_bf16(fields, ggml_type, N: int, K: int, g: int, order: str = "stripe
 
 def ktiled_cases(timer, gen, device, out: list) -> None:
     """qmm_ktiled at ChatGLM3-6B's attn_qkv (4608 x 4096, Q4_K, bf16) for
-    the B = 1 decode step (T = 1) at nk = 2, 4, 8 and the 256-token prefill
-    chunk at nk = 4, and at the Llama-3-8B widths 4096 x 4096 and 14336 x
-    4096 (T = 1, nk = 4), each beside qmm_gemv on the same planes."""
+    the B = 1 decode step (T = 1) at nk = 2, 4, 8, at T = 4 (nk = 4) and the
+    256-token prefill chunk at nk = 4, and at the Llama-3-8B widths 4096 x
+    4096 and 14336 x 4096 (T = 1, nk = 4), each beside qmm_gemv on the same
+    planes."""
     import torch
 
     from tpullama_torch.gguf import GGMLType
     from tpullama_torch.ops.cuda import qmm
 
     Q4, bf16, K = GGMLType.Q4_K, torch.bfloat16, 4096
-    cases = [(4608, ((1, 2), (1, 4), (1, 8), (256, 4))), (4096, ((1, 4),)),
+    cases = [(4608, ((1, 2), (1, 4), (1, 8), (4, 4), (256, 4))), (4096, ((1, 4),)),
              (14336, ((1, 4),))]
     for N, runs in cases:
         fields = random_planes(Q4, N, K, bf16, gen, device)
@@ -589,11 +590,11 @@ def gathered_cases(timer, gen, device, out: list) -> None:
     (token, k) slots, one-row tiles) and the packed 4 x 256 prefill chunk
     (2048 slots, dispatched into 8-row tiles); [gate | up] and down also at
     512 slots (a 1 x 256 chunk), so each tensor-core route is timed at two
-    slot counts. The row-major [gate | up] decode step runs at 8, 6 and 2
-    distinct experts (decode_sel): its kernel reads each expert once per
-    run of up to 4 tiles, so its bound counts the distinct experts' bytes;
-    at 62 one-row slots (a 31-token chunk, the most below the dispatch)
-    each expert is read about twice."""
+    slot counts. The [gate | up] and down decode steps also run at 8, 6 and
+    2 distinct experts (decode_sel): both one-row kernels read each expert
+    once per run of up to 4 tiles, so their bounds count the distinct
+    experts' bytes; at 62 one-row slots (a 31-token chunk, the most below
+    the dispatch) each expert is read about twice."""
     import torch
     import torch.nn.functional as F
 
@@ -608,9 +609,9 @@ def gathered_cases(timer, gen, device, out: list) -> None:
     # (transposed, type, n_out per expert, K, scale dtypes, (slots, tile_t)
     # routings): Mixtral's [gate | up] (row-major) and down (transposed)
     # stacks, then the other field sets and padded rows (320 of 384)
-    cases = [(False, Q4, 2 * 14336, 4096, (bf16,),
-              ((8, 1, 8), (8, 1, 6), (8, 1, 2), (62, 1), (512, 8), (2048, 8))),
-             (True, Q4, 4096, 14336, (bf16,), ((8, 1), (512, 8), (2048, 8))),
+    decode = ((8, 1, 8), (8, 1, 6), (8, 1, 2), (62, 1))
+    cases = [(False, Q4, 2 * 14336, 4096, (bf16,), decode + ((512, 8), (2048, 8))),
+             (True, Q4, 4096, 14336, (bf16,), ((8, 1),) + decode + ((512, 8), (2048, 8))),
              (False, Q6, 4096, 4096, (f32, bf16), small),
              (True, Q8, 4096, 4096, (f32, bf16), small),
              (False, Q4, 320, 4096, (f32, bf16), small),
@@ -667,10 +668,10 @@ def gathered_cases(timer, gen, device, out: list) -> None:
                 tol = 1e-4 * float(want.abs().max()) + 1e-5
                 check(bool(torch.isfinite(got).all()) and err <= tol,
                       f"{name} {qt.name} N={N} K={K} slots={S}: err {err} > tol {tol}")
-                if tt == 1 and not planes_t:
+                if tt == 1:
                     # a tile's row does not depend on who else picked its expert
                     alone = qmm_gathered.quantized_matmul_gathered(
-                        x[:1], fields, tiles[:1], qt, g, N, K)
+                        x[:1], fields, tiles[:1], qt, g, N, K, planes_t=planes_t)
                     check(torch.equal(alone[0], got[0]),
                           f"{name} {qt.name} N={N}: tile 0 alone differs from its run")
                 ms = timer.ms(kern, 20)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's qmm and attention bodies goes, on one CUDA card.
 
-    python3 scripts/torch_mma_probe.py [--body all|mma|group|attention|gemv|fused]
+    python3 scripts/torch_mma_probe.py [--body all|mma|group|attention|gemv|fused|gathered_t|ktiled]
 
 Builds copies of qmm.cu, qmm_gathered.cu and qmm_ktiled.cu (or of
 flash_attention.cu and flash_decode.cu, or fused_layer.cu) from
@@ -71,6 +71,7 @@ weights read and its outputs small). Variants:
             and x row instead of the FMA)
   loads     the weight and scale copies and the fold alone (nostage,
             nounpack, nofma, noxread: one FADD per value)
+  bothstages both ring stages' copies started at the block's start
 Body "fused" (fused_layer.cu, `fused_postattn_kernel` on the decode body
 of qmm_gemv.cuh): fused_postattn at ChatGLM3-6B's shape (E = Dq = 4096,
 2Fd = 27392, Q4_K fourblock planes, bf16 inputs and scales), with its
@@ -86,6 +87,41 @@ Variants:
   threads288 blocks of 288 threads (36-row tiles: 761 [gate | up] tiles,
             under 3 rounds of the 264 resident blocks, against 856 tiles
             in 3.2 rounds at 256); the outputs stay right
+Body "gathered_t" (qmm_gathered.cu, `gt_body`, the transposed one-row
+decode route): qmm_gathered_t over Mixtral's down (4096 x 14336 x 8
+experts, Q4_K, bf16 scales, f32 x) at 8 one-row tiles over 8, 6 and 2
+experts (chip_smoke.decode_sel), with its achieved GB/s (the distinct
+experts' bytes), after the writing flush and after a reading flush.
+Variants:
+  full      the kernel as it is
+  loads     the weight copies, the scale loads, the fold and the parts'
+            sums alone (no x staging, no byte permutes, an FADD per value
+            instead of x reads and FMAs)
+  bothstages both ring stages' copies started at the block's start
+  cols16    column splits of 16 scale columns (twice the blocks; the
+            wrapper's workspace follows, T_SPLIT_COLS)
+Body "ktiled" (qmm_ktiled.cu, `qmm_ktiled_gemv_kernel` on the decode body):
+qmm_ktiled over ChatGLM3-6B's attn_qkv (4608 x 4096, Q4_K, bf16 x and
+scales) at T = 1 (nk = 2, 4, 8) and T = 4 (nk = 4), with GB/s, after both
+flushes. Variants:
+  full      the kernel as it is: chunk k is byte rows [kJ/nk, (k+1)J/nk) of
+            every scale column (the reference's chunk), min term in chunk 0
+  loads     as the gemv body's `loads` (no staging, unpacking, FMAs or x
+            reads)
+  classes   chunk k as classes [kC/nk, (k+1)C/nk) of 4 columns (C classes
+            a row) over all byte rows, each chunk with its own min terms:
+            the alternative split (its sum order differs from the plain
+            version's chunks; the outputs stay within tolerance)
+  bothstages both ring stages' copies started at the block's start
+  nosum     without the second launch that sums the chunks' parts (no
+            output)
+  widering  the ring at its whole-row pitch (16 byte rows a row) instead
+            of the chunk's rows alone
+  lb4       launch bounds of 4 blocks an SM at T <= 2 (at most 64
+            registers)
+  t128      blocks of 128 threads (16 rows) instead of gemv_threads(N)
+  stagefit  x staged only up to the row's last class (no zero columns
+            past it)
 A variant's outputs are wrong by construction; only its time means
 anything. Each copy's `-Xptxas -v` report (registers, spills) goes to
 chiprun_out/probe_ptxas_<body>.txt. Prints the card's name and power limit (nvidia-smi) and one
@@ -176,6 +212,42 @@ F_SYNC = (FL, "  grid.sync();\n", "")
 F_NOSTAGE = (FL, "    if (cs == staged) return;\n", "    return;\n")
 F_T288 = (FL, "constexpr int THREADS = 256;", "constexpr int THREADS = 288;")
 GEMV_H = "qmm_gemv.cuh"
+# transposed one-row body (qmm_gathered.cu)
+T_STAGE = ("  for (int i = tid; i < TT * GT_COLS * 8; i += GT_THREADS) {\n",
+           "  for (int i = tid; i < 0; i += GT_THREADS) {\n")
+T_FMA = ("            for (int r = 0; r < GT_TR; ++r) acc[r][t] = fmaf(q[r / 4][r % 4], xa, acc[r][t]);\n",
+         "            for (int r = 0; r < GT_TR; ++r) acc[r][t] += q[r / 4][r % 4];\n")
+T_PRE = [("  copy(0);  // in flight while the block stages x\n",
+          "  copy(0);  // in flight while the block stages x\n  copy(1);\n"),
+         ("    copy(s + 1);\n", "    if (s > 0) copy(s + 1);\n")]
+T_COLS16 = ("constexpr int GT_COLS = 32; ", "constexpr int GT_COLS = 16; ")
+# decode body: both ring stages' copies started at the block's start
+V_PRE = [(GEMV_H, "  copy(0);          // in flight while the block stages x\n",
+          "  copy(0);          // in flight while the block stages x\n  copy(1);\n"),
+         (GEMV_H, "        copy(s + 1);\n", "        if (s > 0) copy(s + 1);\n")]
+# qmm_ktiled.cu at T <= 8, as (file, old, new)
+KT = "qmm_ktiled.cu"
+K_LB4 = (KT, "__launch_bounds__(256, TT <= 4 ? 2 : 1) qmm_ktiled_gemv_kernel(",
+         "__launch_bounds__(256, TT <= 2 ? 4 : (TT <= 4 ? 2 : 1)) qmm_ktiled_gemv_kernel(")
+K_T128 = (KT, "const int threads = gemv_threads(N), rows = threads / GV_L * GV_RT;",
+          "const int threads = 128, rows = threads / GV_L * GV_RT;")
+V_FIT = (GEMV_H, "    const int t = i / SW, cl = i - t * SW, c = cs + cl;\n",
+         "    const int t = i / SW, cl = i - t * SW, c = cs + cl;\n"
+         "    if (c >= (G + GV_CW - 1) / GV_CW * GV_CW) continue;\n")
+K_CLASSES = [
+    (KT, "gv_smem, part, GvRows{J * k / nk, J * (k + 1) / nk, k == 0});",
+     "gv_smem, part, GvRows{0, J, true, (G + 3) / 4 * k / nk, (G + 3) / 4 * (k + 1) / nk});"),
+    (KT, "gv_smem_bytes<KIND, TT>(threads, GvGeo<KIND>::JROWS / nk);",
+     "gv_smem_bytes<KIND, TT>(threads);"),  # whole byte rows: the whole ring
+    (GEMV_H, "  int j0, j1;\n  bool mins;\n};", "  int j0, j1;\n  bool mins;\n  int k0 = 0, k1 = 1 << 30;\n};"),
+    (GEMV_H, "const int c0 = GV_L * (s / NR), h = h0 + s % NR;",
+     "const int c0 = rows.k0 + GV_L * (s / NR), h = h0 + s % NR;"),
+    (GEMV_H, "    if (c0 < NC) {\n", "    if (c0 < min(NC, rows.k1)) {\n"),
+    (GEMV_H, "  for (int c0 = 0; c0 < NC; c0 += SC) {\n    const int nsc = min(SC, NC - c0);",
+     "  for (int c0 = rows.k0; c0 < min(NC, rows.k1); c0 += SC) {\n"
+     "    const int nsc = min(SC, min(NC, rows.k1) - c0);"),
+    (GEMV_H, "      const bool on = k < NC;", "      const bool on = k < min(NC, rows.k1);"),
+]
 # (header, patches) per variant of each body
 VARIANTS = {
     "mma": {
@@ -217,6 +289,7 @@ VARIANTS = {
         "nofma": [V_FMA],
         "noxread": [V_XREAD],
         "loads": [V_STAGE, V_UNPACK, V_FMA, V_XREAD],
+        "bothstages": V_PRE,
     },
     "fused": {
         "full": [],
@@ -226,14 +299,39 @@ VARIANTS = {
         "loads": [F_NOSTAGE, *((GEMV_H, *v) for v in (V_UNPACK, V_FMA, V_XREAD))],
         "threads288": [F_T288],
     },
+    "gathered_t": {
+        "full": [],
+        "loads": [T_STAGE, T_FMA, (GEMV_H, *V_UNPACK)],
+        "bothstages": T_PRE,
+        "cols16": [T_COLS16],
+    },
+    "ktiled": {
+        "full": [],
+        "loads": [(KT, *V_STAGE), *((GEMV_H, *v) for v in (V_UNPACK, V_FMA, V_XREAD))],
+        "classes": K_CLASSES,
+        "bothstages": V_PRE,
+        "nosum": [(KT, "  return (int)gv_sum_parts(ws, y, T * N, nk, st);", "  return 0;")],
+        "lb4": [K_LB4],
+        "t128": [K_T128],
+        "stagefit": [V_FIT],
+        "widering": [(GEMV_H, "  const int pitch = gv_pitch<KIND>(rows.j1 - rows.j0);",
+                      "  const int pitch = gv_pitch<KIND>(16);"),
+                     (KT, "gv_smem_bytes<KIND, TT>(threads, GvGeo<KIND>::JROWS / nk);",
+                      "gv_smem_bytes<KIND, TT>(threads);")],
+    },
 }
 # the file each body's patches edit, and the sources each copy builds
 HEADER = {"mma": "qmm_mma.cuh", "group": "qmm_group_mma.cuh", "attention": "flash_attention.cu",
-          "gemv": "qmm_gemv.cuh", "fused": FL}
+          "gemv": "qmm_gemv.cuh", "fused": FL, "gathered_t": "qmm_gathered.cu", "ktiled": KT}
 QMM_SOURCES = ("qmm.cu", "qmm_gathered.cu", "qmm_ktiled.cu")
 SOURCES = {"mma": QMM_SOURCES, "group": QMM_SOURCES,
            "attention": ("flash_attention.cu", "flash_decode.cu", "qmm.cu"), "gemv": ("qmm.cu",),
-           "fused": ("fused_layer.cu", "qmm.cu")}
+           "fused": ("fused_layer.cu", "qmm.cu"), "gathered_t": ("qmm.cu", "qmm_gathered.cu"),
+           "ktiled": ("qmm.cu", "qmm_ktiled.cu")}
+# bodies timed after both flushes, with GB/s
+READ_FLUSH = ("gemv", "fused", "gathered_t", "ktiled")
+# wrapper constants a variant changes with its kernel: (module, name, value)
+VARIANT_PY = {("gathered_t", "cols16"): ("qmm_gathered", "T_SPLIT_COLS", 16)}
 
 
 def start_build(body: str, name: str, patches: list, root: str):
@@ -346,6 +444,29 @@ def shapes(device, body: str):
         return [(f"fused_postattn E={E} Fd={Fd}",
                  lambda: fused_layer.fused_postattn(att, x, o, w, gu, group=32, eps=1e-5),
                  n_bytes)]
+    if body == "gathered_t":
+        N, K = 4096, 14336
+        f = experts(N, K, True)
+        per_expert = sum(cs.nbytes(a) for a in f.values()) / E
+        for distinct in (8, 6, 2):
+            sel = cs.decode_sel(4, E, distinct, gen, device)
+            x = torch.randn((8, K), generator=gen, device=device)
+            n_bytes = distinct * per_expert + cs.nbytes(x) + 8 * N * 4
+            out.append((f"qmm_gathered_t N={N} 8 tiles / {distinct} experts",
+                        lambda x=x, f=f, sel=sel, N=N, K=K:
+                        qmm_gathered.quantized_matmul_gathered(x, f, sel, Q4, 32, N, K,
+                                                               planes_t=True), n_bytes))
+        return out
+    if body == "ktiled":
+        N, K = 4608, 4096
+        f = cs.random_planes(Q4, N, K, bf16, gen, device)
+        for T, nk in ((1, 2), (1, 4), (1, 8), (4, 4)):
+            x = torch.randn((T, K), generator=gen, device=device).to(bf16)
+            n_bytes = sum(cs.nbytes(a) for a in f.values()) + cs.nbytes(x) + T * N * 4
+            out.append((f"qmm_ktiled N={N} K={K} T={T} nk={nk}",
+                        lambda x=x, f=f, nk=nk: qmm.quantized_matmul(x, f, Q4, 32, N, K,
+                                                                     tile_k=nk), n_bytes))
+        return out
     if body == "gemv":
         for N, K, T in ((14336, 4096, 4), (14336, 4096, 1), (4096, 14336, 4)):
             f = cs.random_planes(Q4, N, K, bf16, gen, device)
@@ -427,13 +548,12 @@ def main() -> int:
     import torch
 
     import chip_smoke as cs
+    from tpullama_torch.ops import cuda as cuda_ops
     from tpullama_torch.ops.cuda import build
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--body", choices=("all", "mma", "group", "attention", "gemv", "fused"),
-                    default="all")
-    bodies = (("mma", "group", "attention", "gemv", "fused") if ap.parse_args().body == "all"
-              else (ap.parse_args().body,))
+    ap.add_argument("--body", choices=("all", *VARIANTS), default="all")
+    bodies = tuple(VARIANTS) if ap.parse_args().body == "all" else (ap.parse_args().body,)
     if not torch.cuda.is_available():
         print("torch_mma_probe: no CUDA device", file=sys.stderr)
         return 1
@@ -459,21 +579,28 @@ def main() -> int:
         for f in reports.values():
             f.close()
         timer = cs.Timer(device)
-        read_timer = read_flush_timer(device) if {"gemv", "fused"} & set(bodies) else None
+        read_timer = read_flush_timer(device) if set(READ_FLUSH) & set(bodies) else None
         cases = {b: shapes(device, b) for b in bodies}
         libs = {k: load(d, k[0]) for k, (d, _c) in built.items()}
         times: dict = {}
         for _round in range(3):
             for (b, n), lib in libs.items():
                 build.library = lambda lib=lib: lib  # the wrappers launch this copy
+                py = VARIANT_PY.get((b, n))
+                if py:
+                    mod = getattr(cuda_ops, py[0])
+                    kept = getattr(mod, py[1])
+                    setattr(mod, py[1], py[2])
                 for name, fn, *_ in cases[b]:
                     is_fd = name.startswith("flash_decode")
                     if b == "attention" and n != "full" and is_fd != n.startswith("fd_"):
                         continue  # each kernel under its own variants
                     times.setdefault((b, n, name), []).append(timer.ms(fn, 10))
-                    if b in ("gemv", "fused"):
+                    if b in READ_FLUSH:
                         times.setdefault((b, n, name + " readflush"), []).append(
                             read_timer.ms(fn, 10))
+                if py:
+                    setattr(mod, py[1], kept)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     n_bytes = {name: nb[0] for b in bodies for name, _fn, *nb in cases[b] if nb and nb[0]}

@@ -274,6 +274,112 @@ def test_run_cap():
     assert gq.run_plan([0, 1, 0, 1, 0, 0, 0]) == [[0, 2, 4, 5], [1, 3], [6]]
 
 
+def _fma(a, b, c):
+    """fmaf in f32: the exact product and sum in f64, rounded once (the
+    f32 operands' product is exact in f64)."""
+    f64 = [np.asarray(v, np.float64) for v in (a, b, c)]
+    return (f64[0] * f64[1] + f64[2]).astype(np.float32)
+
+
+def _t_values(fields, qtype, e, K):
+    """q[n, c, a] of expert e as the transposed one-row body makes them: the
+    4-byte words of byte row j*G + c hold rows 4i .. 4i + 3 (Q4: low nibble
+    a = j, high a = j + 16; Q8_0: a = j), each byte shifted out of its word,
+    placed in the mantissa of 2^23 (bytes 0x00 0x00 0x4B above it) and 2^23
+    taken off (Q8_0's signed bytes biased by 128 first, so 2^23 + 128)."""
+    G = K // 32
+    plane = fields["q8" if qtype == GGMLType.Q8_0 else "q4"][e]
+    words = np.ascontiguousarray(plane).view(np.uint32)  # (kcols, R / 4)
+    if qtype == GGMLType.Q8_0:
+        words = (words ^ np.uint32(0x80808080)).reshape(32, G, -1)  # (a, c, word)
+        bias = 2.0 ** 23 + 128
+    else:
+        w = words.reshape(16, G, -1)
+        words = np.concatenate([w & np.uint32(0x0F0F0F0F), (w >> 4) & np.uint32(0x0F0F0F0F)])
+        bias = 2.0 ** 23
+    lanes = [((words >> np.uint32(8 * i)) & np.uint32(0xFF)) | np.uint32(0x4B000000)
+             for i in range(4)]  # byte i of a word: row 4 * word + i
+    v = np.stack(lanes, axis=-1).reshape(32, G, -1).view(np.float32) - np.float32(bias)
+    return v.transpose(2, 1, 0)  # (R, G, 32)
+
+
+def _t_body_emulated(x, fields, sel, qtype, K, N):
+    """y of the transposed one-row kernel, computed as it computes it, in
+    f32: for each run (gq.run_plan) its tiles' x staged by scale column with
+    each column's sum over a in order; per (row, x row, column) the values
+    times x summed by fmaf in the body's order (Q4: a = j then j + 16 for j
+    < 16; Q8_0: a in order); each column folded once, part = fmaf(scale,
+    sum, part) then fmaf(-minv, xsum, part); a split's 8 streams take its
+    columns stream, stream + 8, ... and meet in stream order; the splits of
+    T_SPLIT_COLS columns meet in split order."""
+    G = K // 32
+    order = [a for j in range(16) for a in (j, j + 16)] if qtype != GGMLType.Q8_0 else range(32)
+    cols, streams = gq.T_SPLIT_COLS, 8
+    y = np.zeros((len(sel), N), np.float32)
+    for run in gq.run_plan(sel):
+        e = int(sel[run[0]])
+        q = _t_values(fields, qtype, e, K)[:N]  # (N, G, 32)
+        xr = x[run].reshape(len(run), G, 32)
+        xsum = np.zeros((len(run), G), np.float32)
+        for a in range(32):
+            xsum = xsum + xr[:, :, a]
+        acc = np.zeros((N, len(run), G), np.float32)
+        for a in order:
+            acc = _fma(q[:, None, :, a], xr[None, :, :, a], acc)
+        sc = np.asarray(fields["scale"][e][:G, :N], np.float32).T  # (N, G)
+        mn = np.asarray(fields["minv"][e][:G, :N], np.float32).T if "minv" in fields else None
+        total = None
+        for c0 in range(0, G, cols):
+            block = None
+            for m in range(streams):
+                part = np.zeros((N, len(run)), np.float32)
+                for c in range(c0 + m, min(c0 + cols, G), streams):
+                    part = _fma(sc[:, c, None], acc[:, :, c], part)
+                    if mn is not None:
+                        part = _fma(-mn[:, c, None], xsum[None, :, c], part)
+                block = part if block is None else block + part
+            total = block if total is None else total + block
+        y[run] = total.T
+    return y
+
+
+@pytest.mark.parametrize("run", [1, 2, 4])
+@pytest.mark.parametrize("n_in", [768, 4096])
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q8_0], ids=lambda t: t.name)
+def test_one_row_gathered_t_body_arithmetic_is_within_kernel_tolerance(qtype, n_in, run):
+    """The transposed one-row body's arithmetic (_t_body_emulated: the word
+    unpacking of 4 rows a word, the per-(row, column) sums in the kernel's
+    order, the fold with the hoisted min term, streams and splits) over two
+    runs of `run` tiles against the plain version and the JAX package's
+    _qmm_gathered_t (interpret), within the kernels' tolerance, 1e-4 of the
+    output's max. K = 768 is one split of 24 columns, 4096 four of 32."""
+    import jax.numpy as jnp
+
+    from tpullama.ops.pallas.qmm import quantized_matmul_gathered as j_gathered
+
+    fields, group = _experts(qtype, F, n_in, seed=run, planes_t=True)
+    sel = np.repeat(np.asarray([2, 0], np.int32), run)
+    assert [len(r) for r in gq.run_plan(sel)] == [run, run]
+    x = np.random.default_rng(60 + run).standard_normal((len(sel), n_in)).astype(np.float32)
+    got = _t_body_emulated(x, fields, sel, qtype, n_in, F)
+    want = gq.quantized_matmul_gathered_plain(
+        torch.from_numpy(x), {k: torch.from_numpy(v) for k, v in fields.items()},
+        torch.from_numpy(sel), qtype, group, F, n_in, planes_t=True).numpy()
+    assert float(np.abs(got - want).max()) <= 1e-4 * float(np.abs(want).max())
+    want_jax = np.asarray(j_gathered(jnp.asarray(x), {k: jnp.asarray(v) for k, v in fields.items()},
+                                     jnp.asarray(sel), qtype, group, F, n_in, tile_t=1,
+                                     interpret=True, planes_t=True))
+    assert float(np.abs(got - want_jax).max()) <= 1e-4 * float(np.abs(want_jax).max())
+
+
+def test_transposed_split_width():
+    """The wrapper's split width is the kernel's (GT_COLS): Mixtral's down
+    (K = 14336, 448 columns) runs in 14 splits, K = 768 in one."""
+    src = (Path(gq.__file__).parents[2] / "csrc" / "qmm_gathered.cu").read_text()
+    assert f"constexpr int GT_COLS = {gq.T_SPLIT_COLS};" in src
+    assert [gq.t_splits(K) for K in (768, 1024, 4096, 14336)] == [1, 1, 4, 14]
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -418,6 +524,57 @@ def test_one_row_gathered_rows_do_not_depend_on_sharing(cuda, qtype):
         assert torch.equal(alone[0], full[t])
     pair = gq.quantized_matmul_gathered(x[:2], ft, sel[:2], qtype, group, F, n_in)
     assert torch.equal(pair, full[:2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", sorted(_ONE_ROW_SELS))
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q8_0], ids=lambda t: t.name)
+def test_one_row_gathered_t_kernel_matches_plain(cuda, qtype, pattern):
+    """Transposed one-row tiles on the decode body's arithmetic over runs of
+    tiles that share an expert: against the plain version at 1e-4 of the
+    output's max, f32 and bf16 scales, K = 4096 (4 column splits) and N =
+    320 of 384 stored rows."""
+    n_in = 4096
+    fields, group = _experts(qtype, F, n_in, seed=len(pattern), planes_t=True)
+    sel = torch.tensor(_ONE_ROW_SELS[pattern], dtype=torch.int32, device=cuda)
+    rng = np.random.default_rng(len(sel))
+    x = torch.from_numpy(rng.standard_normal((len(sel), n_in)).astype(np.float32)).to(cuda)
+    for sdt in (torch.float32, torch.bfloat16):
+        ft = {k: torch.from_numpy(v).to(cuda, sdt if k in ("scale", "minv") else None)
+              for k, v in fields.items()}
+        want = gq.quantized_matmul_gathered_plain(x, ft, sel, qtype, group, F, n_in,
+                                                  planes_t=True)
+        before = gq.LAUNCHES["qmm_gathered_t"]
+        got = gq.quantized_matmul_gathered(x, ft, sel, qtype, group, F, n_in, planes_t=True)
+        assert gq.LAUNCHES["qmm_gathered_t"] == before + 1
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qtype,n_in", [(GGMLType.Q4_K, 1024), (GGMLType.Q8_0, 1024),
+                                        (GGMLType.Q4_K, 4096)],
+                         ids=lambda v: getattr(v, "name", str(v)))
+def test_one_row_gathered_t_rows_do_not_depend_on_sharing(cuda, qtype, n_in):
+    """A transposed one-row tile's output is bit for bit the same computed
+    alone and inside runs of 2 to 4 tiles that share its expert (no order
+    of the body depends on T), with f32 and bf16 scales."""
+    fields, group = _experts(qtype, F, n_in, seed=13, planes_t=True)
+    sel = torch.tensor([1, 1, 2, 1, 1, 1, 0, 1, 1, 1, 3, 1], dtype=torch.int32, device=cuda)
+    x = torch.from_numpy(np.random.default_rng(14).standard_normal((len(sel), n_in))
+                         .astype(np.float32)).to(cuda)
+    for sdt in (torch.float32, torch.bfloat16):
+        ft = {k: torch.from_numpy(v).to(cuda, sdt if k in ("scale", "minv") else None)
+              for k, v in fields.items()}
+        full = gq.quantized_matmul_gathered(x, ft, sel, qtype, group, F, n_in, planes_t=True)
+        for t in range(len(sel)):
+            alone = gq.quantized_matmul_gathered(x[t:t + 1], ft, sel[t:t + 1], qtype, group, F,
+                                                 n_in, planes_t=True)
+            assert torch.equal(alone[0], full[t])
+        pair = gq.quantized_matmul_gathered(x[:2], ft, sel[:2], qtype, group, F, n_in,
+                                            planes_t=True)
+        assert torch.equal(pair, full[:2])
 
 
 @pytest.mark.cuda

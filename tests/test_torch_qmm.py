@@ -332,7 +332,7 @@ def _gemv_values(planes, qtype, K):
     return q.transpose(1, 2)[:, :G]
 
 
-def _gemv_emulated(x, planes, qtype, K, order):
+def _gemv_emulated(x, planes, qtype, K, order, chunk=None):
     """y = x @ W^T as the decode body computes it, in f32: the integers of
     each scale column (_gemv_values, the byte rule c + jG) times the staged
     x, summed per (row, x row, column) in the body's step order (Q4: a = j
@@ -340,7 +340,10 @@ def _gemv_emulated(x, planes, qtype, K, order):
     order); each
     column folded once as part += scale * sum, part -= minv * sum_a x, a
     lane's columns in class order (classes lane, lane + 16, ... of 4
-    columns); the 16 lanes' parts added by a butterfly."""
+    columns); the 16 lanes' parts added by a butterfly. chunk = (k, nk):
+    qmm_ktiled's block of K-chunk k, the byte rows j in [k J / nk, (k + 1)
+    J / nk) of each column alone (J = 16 q4 rows, 32 q8 rows; GvRows), the
+    min term in chunk 0 alone."""
     g = 16 if qtype == GGMLType.Q6_K else 32
     G, T = K // g, x.shape[0]
     NC = -(-G // 4)
@@ -353,12 +356,15 @@ def _gemv_emulated(x, planes, qtype, K, order):
     steps = {GGMLType.Q6_K: [(j, j + 8) for j in range(8)],
              GGMLType.Q8_0: [(a,) for a in range(32)]}.get(qtype,
                                                           [(j, j + 16) for j in range(16)])
+    if chunk is not None:
+        k, nk = chunk
+        steps = steps[len(steps) * k // nk:len(steps) * (k + 1) // nk]
     for a in (a for step in steps for a in step):
         acc = acc + q[:, None, :, a] * xs[None, :, a, :G]
     for a in range(g):
         xsum = xsum + xs[:, a]
     s = planes["scale"].float()
-    m = planes["minv"].float() if "minv" in planes else None
+    m = planes["minv"].float() if "minv" in planes and (chunk is None or chunk[0] == 0) else None
     part = torch.zeros((L, q.shape[0], T))
     for k in range(NC):
         for c in range(4 * k, min(4 * k + 4, G)):
@@ -408,6 +414,42 @@ def test_gemv_column_arithmetic_is_within_kernel_tolerance(qtype, K, T):
         assert float((got - want_jax).abs().max()) <= tol
 
 
+@pytest.mark.parametrize("nk", [2, 4, 8])
+@pytest.mark.parametrize("T", [1, 4, 8])
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q8_0], ids=lambda t: t.name)
+def test_ktiled_chunk_arithmetic_is_within_kernel_tolerance(qtype, T, nk):
+    """qmm_ktiled at T <= 8: the decode body over each K-chunk's byte rows
+    (_gemv_emulated with chunk=(k, nk), the min term in chunk 0 alone), the
+    nk partials summed in chunk order. Against the plain K-chunked product
+    and the JAX package's exact path within the kernels' tolerance, 1e-4 of
+    the output's max plus 1e-5; against its _qmm_ktiled (interpret), which
+    rounds x and the weights to bf16 (qmm.py:489-498), within 1e-2 of the
+    output's max, as test_plain_ktiled_matches_jax_and_untiled holds it."""
+    import jax.numpy as jnp
+
+    from tpullama.ops.pallas.qmm import quantized_matmul as jax_qmm
+
+    n_out, K = 16, 4096
+    pq, x = _chunk_case(qtype, n_out, K, T, seed=200 + 10 * T + nk)
+    fields = {k: torch.from_numpy(v) for k, v in pq.fields.items()}
+    assert qmm.kchunks_valid(nk, K, pq.group, fields)
+    xt = torch.from_numpy(x)
+    got = None
+    for k in range(nk):
+        part = _gemv_emulated(xt, fields, qtype, K, "stripe", chunk=(k, nk))
+        got = part if got is None else got + part
+    want = qmm.quantized_matmul_ktiled_plain(xt, fields, qtype, pq.group, n_out, K, nk)
+    tol = 1e-4 * float(want.abs().max()) + 1e-5
+    assert float((got - want).abs().max()) <= tol
+    jf = {k: jnp.asarray(v) for k, v in pq.fields.items()}
+    exact = torch.from_numpy(np.array(jax_qmm(jnp.asarray(x), jf, qtype, pq.group, n_out, K,
+                                              tile_n=8, interpret=True)))
+    assert float((got - exact).abs().max()) <= tol
+    fast = torch.from_numpy(np.array(jax_qmm(jnp.asarray(x), jf, qtype, pq.group, n_out, K,
+                                             interpret=True, exact=False, tile_k_chunks=nk)))
+    assert float((got - fast).abs().max()) <= 1e-2 * float(fast.abs().max())
+
+
 @pytest.mark.parametrize("order,g", [("stripe", 32), ("stripe", 16), ("fourblock", 32)])
 def test_gemv_stages_stored_order(order, g):
     """The staging rule lays x out in stored order: from x in column order
@@ -443,8 +485,8 @@ def test_column_x_is_the_group_body_order(order):
 
 
 def test_routes():
-    """qmm_tiled and qmm_ktiled run a tensor-core body above 8 rows and a
-    warp per output row up to 8; qmm_gemv always the latter."""
+    """qmm_tiled and qmm_ktiled run a tensor-core body above 8 rows and the
+    decode body up to 8; qmm_gemv always the latter."""
     assert [qmm.route("qmm_tiled", T) for T in (9, 256, 1024)] == ["mma"] * 3
     assert [qmm.route("qmm_ktiled", T) for T in (9, 256)] == ["mma"] * 2
     assert [qmm.route(k, T) for k in ("qmm_tiled", "qmm_ktiled", "qmm_gemv")
@@ -692,9 +734,9 @@ def test_plain_ktiled_matches_jax_and_untiled(qtype, T, nk):
 def test_ktiled_kernel_matches_plain(cuda, qtype, T, nk):
     """The K-chunked kernel against its plain version: 1e-4 of the
     output's scale (f32 sums in another order within each chunk). T <= 8
-    runs the warp-per-row route, T > 8 the tensor-core route (64- or
-    128-token blocks: T = 70 leaves a ragged block, 256 is the served
-    chunk)."""
+    runs the decode body over each chunk's byte rows, T > 8 the
+    tensor-core route (64- or 128-token blocks: T = 70 leaves a ragged
+    block, 256 is the served chunk)."""
     n_out, n_in = 260, 4096
     pq, x = _chunk_case(qtype, n_out, n_in, T, seed=T * nk)
     xx = torch.from_numpy(x).to(cuda)
@@ -708,6 +750,33 @@ def test_ktiled_kernel_matches_plain(cuda, qtype, T, nk):
                                                      nk)
             assert qmm.LAUNCHES["qmm_ktiled"] == before + 1
             assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nk", [2, 4, 8])
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q8_0], ids=lambda t: t.name)
+def test_ktiled_rows_do_not_depend_on_the_batch(cuda, qtype, nk):
+    """qmm_ktiled at T <= 8 (the decode body over each K-chunk's byte rows):
+    each x row alone and the first T rows of 8 give the rows of the T = 8
+    call bit for bit, with f32 and bf16 x and scales. N = 260 leaves a
+    ragged row block."""
+    n_out, n_in = 260, 4096
+    pq, x = _chunk_case(qtype, n_out, n_in, 8, seed=95 + nk)
+    for sdt in (torch.float32, torch.bfloat16):
+        fields = _card_fields(pq, cuda, sdt)
+        for xdt in (torch.float32, torch.bfloat16):
+            xx = torch.from_numpy(x).to(cuda, xdt)
+            before = qmm.LAUNCHES["qmm_ktiled"]
+            full = qmm.quantized_matmul(xx, fields, qtype, pq.group, n_out, n_in, tile_k=nk)
+            assert qmm.LAUNCHES["qmm_ktiled"] == before + 1
+            for T in range(1, 8):
+                head = qmm.quantized_matmul(xx[:T].contiguous(), fields, qtype, pq.group,
+                                            n_out, n_in, tile_k=nk)
+                assert torch.equal(head, full[:T])
+            for t in range(8):
+                one = qmm.quantized_matmul(xx[t:t + 1].contiguous(), fields, qtype, pq.group,
+                                           n_out, n_in, tile_k=nk)
+                assert torch.equal(one[0], full[t])
 
 
 @pytest.mark.cuda

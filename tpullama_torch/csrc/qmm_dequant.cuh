@@ -1,9 +1,9 @@
 // Dequantization helpers of the planar qmm kernels: load_f and to_f (every
-// body), decode_raw (the tensor-core tile body qmm_mma.cuh, and through it
-// qmm_ktiled.cu and qmm_gathered.cu), and the warp body warp_row_sums with
-// its decode_chunk (qmm_ktiled.cu at T <= 8). The decode body of qmm_gemv,
-// fused_postattn and one-row qmm_gathered tiles (qmm_gemv.cuh) takes the
-// field sets below but unpacks its own way.
+// body), and decode_raw with decode_vals (the tensor-core tile body
+// qmm_mma.cuh, and through it qmm_ktiled.cu and qmm_gathered.cu). The
+// decode body (qmm_gemv.cuh: qmm_gemv, qmm_ktiled at T <= 8,
+// fused_postattn and one-row qmm_gathered tiles) and one-row
+// qmm_gathered_t tiles take the field sets below but unpack their own way.
 //
 // The planes are tpullama/ops/qweights.py's: "global stripe" nibble/crumb
 // planes in group-transposed stored order plus per-group scale (and min)
@@ -142,90 +142,6 @@ __device__ __forceinline__ void decode_raw(const uint8_t* __restrict__ q,
   load_f<ST, SEG>(sp, s);
   if constexpr (KIND != KIND_Q8) load_f<ST, SEG>(mp, m);
   decode_vals<KIND>(q, qh, q2, s, m, w);
-}
-
-// Dequantize chunk c (32 stored positions) of row n into w, in chunk-local
-// order u = segment * SEG + offset. Its scale/min values sit at columns
-// (SEG * c + t) % G of the row's scale planes, t < SEG: one aligned run
-// when G % SEG == 0 (then G * sizeof(ST) is a multiple of 16 as well),
-// else read one by one, wrapping at G. Either way every weight is the
-// plain version's q * scale - minv.
-template <int KIND, typename ST>
-__device__ __forceinline__ void decode_chunk(const uint8_t* __restrict__ qa,
-                                             const uint8_t* __restrict__ qb,
-                                             const ST* __restrict__ srow,
-                                             const ST* __restrict__ mrow, int n,
-                                             int c, int K, float (&w)[32]) {
-  using GE = Geo<KIND>;
-  const int G = K / GE::GROUP;
-  const int s0 = (GE::SEG * c) % G;
-  if (G % GE::SEG) {
-    float s[GE::SEG], m[GE::SEG];
-#pragma unroll
-    for (int t = 0; t < GE::SEG; ++t) {
-      const int col = (s0 + t) % G;
-      s[t] = to_f(srow[col]);
-      m[t] = KIND == KIND_Q8 ? 0.f : to_f(mrow[col]);
-    }
-    const uint8_t* q = KIND == KIND_Q8 ? qa + (size_t)n * K + 32 * c
-                                       : qa + (size_t)n * (K / 2) + (KIND == KIND_Q4 ? 16 : 8) * c;
-    const uint8_t* qh = KIND == KIND_Q6 ? qa + (size_t)n * (K / 2) + K / 4 + 8 * c : nullptr;
-    const uint8_t* q2 = KIND == KIND_Q6 ? qb + (size_t)n * (K / 4) + 8 * c : nullptr;
-    decode_vals<KIND>(q, qh, q2, s, m, w);
-    return;
-  }
-  if constexpr (KIND == KIND_Q4) {
-    decode_raw<KIND, ST>(qa + (size_t)n * (K / 2) + 16 * c, nullptr, nullptr, srow + s0,
-                         mrow + s0, w);
-  } else if constexpr (KIND == KIND_Q6) {
-    const uint8_t* row4 = qa + (size_t)n * (K / 2);
-    decode_raw<KIND, ST>(row4 + 8 * c, row4 + K / 4 + 8 * c, qb + (size_t)n * (K / 4) + 8 * c,
-                         srow + s0, mrow + s0, w);
-  } else {
-    decode_raw<KIND, ST>(qa + (size_t)n * K + 32 * c, nullptr, nullptr, srow + s0, nullptr, w);
-  }
-}
-
-// One warp: acc[r] = x[r] . W[n] over the 32-position chunks [c0, c1) of
-// row n, for r < T <= TT, x rows of K stored positions. Lanes stride over
-// the chunks, then a butterfly shuffle reduction leaves every lane with
-// the totals; x rows are read through L1 (or from shared memory).
-template <int KIND, typename XT, typename ST, int TT>
-__device__ __forceinline__ void warp_row_sums(const XT* __restrict__ x,
-                                              const uint8_t* __restrict__ qa,
-                                              const uint8_t* __restrict__ qb,
-                                              const ST* __restrict__ scale,
-                                              const ST* __restrict__ minv, int n,
-                                              int T, int K, int c0, int c1, int lane,
-                                              float (&acc)[TT]) {
-  using GE = Geo<KIND>;
-  const int G = K / GE::GROUP;
-  const ST* srow = scale + (size_t)n * G;
-  const ST* mrow = KIND == KIND_Q8 ? nullptr : minv + (size_t)n * G;
-#pragma unroll
-  for (int r = 0; r < TT; ++r) acc[r] = 0.f;
-  for (int c = c0 + lane; c < c1; c += 32) {
-    float w[32];
-    decode_chunk<KIND, ST>(qa, qb, srow, mrow, n, c, K, w);
-#pragma unroll
-    for (int r = 0; r < TT; ++r) {
-      if (r < T) {
-        const XT* xr = x + (size_t)r * K;
-#pragma unroll
-        for (int j = 0; j < GE::NSEG; ++j) {
-          float xv[GE::SEG];
-          load_f<XT, GE::SEG>(xr + GE::seg_start(c, j, K), xv);
-#pragma unroll
-          for (int t = 0; t < GE::SEG; ++t) acc[r] = fmaf(xv[t], w[j * GE::SEG + t], acc[r]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < TT; ++r) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], o);
-  }
 }
 
 }  // namespace tpl

@@ -1,12 +1,16 @@
 // The decode body (T <= 8 x rows): y = x @ W^T over planar packed
 // weights, designed for the H100's memory. gv_tile runs it over one
-// block's tile of rows; three kernels call it:
+// block's tile of rows; four kernels call it:
 //   - qmm_gemv (qmm.cu), the T <= 8 use of the Pallas kernel `kernel` of
 //     quantized_matmul (tpullama/ops/pallas/qmm.py:296);
+//   - qmm_ktiled at T <= 8 (qmm_ktiled.cu), one K-chunk per block: the
+//     chunk's a-rows of every scale column (GvRows);
 //   - fused_postattn (fused_layer.cu), both of its matvecs, x made in the
 //     kernel (gv_stage_with);
 //   - one-row qmm_gathered tiles (qmm_gathered.cu), x the rows of the
 //     tiles that share an expert, each expert's rows read once per run.
+// (One-row qmm_gathered_t tiles, on transposed planes, run their own
+// thread mapping in qmm_gathered.cu with this file's unpacking.)
 // What bounds it: bytes. A decode step reads every packed weight once
 // (~0.6 B/weight for Q4_K with bf16 scales) and does 2*T flops per
 // weight. A warp per row, dequantizing each weight as q * scale - minv,
@@ -80,7 +84,33 @@ struct GvGeo {
   static constexpr int AROWS = KIND == KIND_Q6 ? 12 : 16;
   static constexpr int ROUNDS = KIND == KIND_Q8 ? 2 : 1;
   static constexpr int PITCH = AROWS * GV_L + 8;
+  // byte rows per scale column of the q4 (Q4) or q8 (Q8_0) plane
+  static constexpr int JROWS = 16 * ROUNDS;
 };
+
+// The part of each row gv_tile sums: byte rows [j0, j1) of every scale
+// column of the q4 plane (a = j and j + 16) or the q8 plane (a = j), the
+// stored elements [j0 * G, j1 * G) of each stripe, which is one K-chunk of
+// the reference's _qmm_ktiled; and whether each column's min term is
+// folded (the reference folds it into chunk 0 alone). Q6_K takes whole
+// rows.
+struct GvRows {
+  int j0, j1;
+  bool mins;
+};
+
+template <int KIND>
+__device__ __forceinline__ constexpr GvRows gv_whole() {
+  return GvRows{0, GvGeo<KIND>::JROWS, true};
+}
+
+// A row's words in a ring stage for a range of jn byte rows: the rows of
+// one round (at most 16) and a pad of 8, which puts a warp's two row
+// groups on different banks; GvGeo::PITCH for whole rows (and Q6_K).
+template <int KIND>
+__host__ __device__ __forceinline__ constexpr int gv_pitch(int jn) {
+  return KIND == KIND_Q6 ? GvGeo<KIND>::PITCH : (jn < 16 ? jn : 16) * GV_L + 8;
+}
 
 // (2^23 + byte b of w) as f32, exact
 __device__ __forceinline__ float gv_magic(uint32_t w, int b) {
@@ -211,44 +241,58 @@ __device__ __forceinline__ void gv_stage(const void* x, bool x_bf16, float* xs, 
 // is called after a barrier, once per slice. smem: gv_smem_bytes<KIND, TT>
 // bytes (dynamic shared memory).
 //
-// The block runs in steps: step s is class group s / ROUNDS (16 classes),
-// round s % ROUNDS. Its tile (every row of the block, the round's a-rows,
-// 64 bytes of each) comes into a 2-stage ring by 16-byte cp.async from all
-// threads while the threads sum step s - 1 out of the other stage; each
-// thread then reads its own 4-byte words at immediate offsets. Steps of a
-// thread: Q4 16, a = j and j + 16; Q6_K 8, a = j and j + 8; Q8_0 2 x 16.
+// The block runs in steps: step s is class group s / NR (16 classes),
+// round h0 + s % NR of the rounds [h0, h0 + NR) that hold the byte rows of
+// `rows` (all ROUNDS for whole rows). Its tile (every row of the block,
+// the round's byte rows in `rows`, 64 bytes of each) comes into a 2-stage
+// ring by 16-byte cp.async from all threads while the threads sum step
+// s - 1 out of the other stage; each thread then reads its own 4-byte
+// words at immediate offsets. Steps of a thread over whole rows: Q4 16, a
+// = j and j + 16; Q6_K 8, a = j and j + 8; Q8_0 2 x 16. A byte row range
+// skips the other rows' copies and sums and keeps the order of the rest.
 template <int KIND, int TT, class RowOf, class Stage>
 __device__ __forceinline__ void gv_tile(const uint8_t* __restrict__ qa,
                                         const uint8_t* __restrict__ qb,
                                         const void* __restrict__ scale,
                                         const void* __restrict__ minv, bool s_bf16, int K,
                                         RowOf row_of, Stage stage, float* smem,
-                                        float (&part)[GV_RT][TT]) {
+                                        float (&part)[GV_RT][TT],
+                                        GvRows rows = gv_whole<KIND>()) {
   using GE = GvGeo<KIND>;
   constexpr int g = GE::GROUP, RT = GV_RT, L = GV_L, SW = GvSlice<TT>::COLS, SC = SW / GV_CW;
-  constexpr int A = GE::AROWS, ROUNDS = GE::ROUNDS, PITCH = GE::PITCH;
+  constexpr int A = GE::AROWS, ROUNDS = GE::ROUNDS;
   constexpr uint32_t NIB = 0x0F0F0F0Fu;
   constexpr float MAGIC = 8388608.f;  // 2^23
   const int G = K / g, NC = (G + GV_CW - 1) / GV_CW;
   const bool aligned = G % GV_CW == 0;
   const int cb = G % 16 == 0 ? 16 : (G % 8 == 0 ? 8 : 4);  // copy chunk bytes
   const int rows_blk = blockDim.x / L * RT;
+  // the rounds that hold byte rows [j0, j1), and the rows of round h
+  const int h0 = KIND == KIND_Q6 ? 0 : rows.j0 / 16;
+  const int NR = KIND == KIND_Q6 ? 1 : (rows.j1 + 15) / 16 - h0;
+  auto j_lo = [&](int h) { return KIND == KIND_Q6 ? 0 : max(rows.j0 - 16 * h, 0); };
+  auto j_hi = [&](int h) { return KIND == KIND_Q6 ? A : min(rows.j1 - 16 * h, 16); };
+  // a row's words in a stage: the range's byte rows of a round, packed
+  // (GvGeo::PITCH for whole rows)
+  const int pitch = gv_pitch<KIND>(rows.j1 - rows.j0);
   float* xs = smem;
   float* xsum = smem + TT * g * SW;
   uint32_t* ring = reinterpret_cast<uint32_t*>(xsum + TT * SW);
-  const int ring_stage = rows_blk * PITCH;  // words
+  const int ring_stage = rows_blk * pitch;  // words
   const int li = threadIdx.x & (L - 1), rg = threadIdx.x / L;
-  // this thread's words: row rg * RT + r, a-row j at + r * PITCH + j * L
-  const uint32_t* mine = ring + rg * RT * PITCH + li;
+  // this thread's words: row rg * RT + r, byte row j of round h at
+  // + r * pitch + (j - j_lo(h)) * L
+  const uint32_t* mine = ring + rg * RT * pitch + li;
   // step s's tile into stage s % 2, one cp.async group (empty past the rows)
   auto copy = [&](int s) {
-    const int c0 = GV_L * (s / ROUNDS), h = s % ROUNDS;
+    const int c0 = GV_L * (s / NR), h = h0 + s % NR;
     uint32_t* st = ring + (s & 1) * ring_stage;
     if (c0 < NC) {
-      const int per_row = A * (64 / cb);  // chunks of one row's tile
+      const int ja = j_lo(h);
+      const int per_row = (j_hi(h) - ja) * (64 / cb);  // chunks of one row's tile
       for (int i = threadIdx.x; i < rows_blk * per_row; i += blockDim.x) {
-        const int rr = i / per_row, e = i - rr * per_row, j = e / (64 / cb);
-        const int at = (e - j * (64 / cb)) * cb;  // byte in the a-row's 64
+        const int rr = i / per_row, e = i - rr * per_row, j = ja + e / (64 / cb);
+        const int at = (e - (j - ja) * (64 / cb)) * cb;  // byte in the a-row's 64
         const size_t n = row_of(rr);
         const uint8_t* src;
         if (KIND == KIND_Q6 && j >= 8)
@@ -256,8 +300,8 @@ __device__ __forceinline__ void gv_tile(const uint8_t* __restrict__ qa,
         else
           src = qa + n * (KIND == KIND_Q8 ? K : K / 2) + (size_t)(16 * h + j) * G;
         const int col = GV_CW * c0 + at;  // byte of the a-row
-        gv_copy(reinterpret_cast<char*>(st + rr * PITCH + j * L) + at, src + col, cb, aligned,
-                G - col);
+        gv_copy(reinterpret_cast<char*>(st + rr * pitch + (j - ja) * L) + at, src + col, cb,
+                aligned, G - col);
       }
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -283,7 +327,8 @@ __device__ __forceinline__ void gv_tile(const uint8_t* __restrict__ qa,
       for (int r = 0; r < RT; ++r) {
         const size_t at = row_of(rg * RT + r) * G + GV_CW * (on ? k : 0);
         gv_scales(scale, at, s_bf16, aligned, cv, sc[r]);
-        if constexpr (KIND != KIND_Q8) gv_scales(minv, at, s_bf16, aligned, cv, mn[r]);
+        if constexpr (KIND != KIND_Q8)
+          if (rows.mins) gv_scales(minv, at, s_bf16, aligned, cv, mn[r]);
       }
       const float* xk = xs + GV_CW * (k - c0);
       float acc[RT][GV_CW][TT];
@@ -295,20 +340,23 @@ __device__ __forceinline__ void gv_tile(const uint8_t* __restrict__ qa,
           for (int t = 0; t < TT; ++t) acc[r][c][t] = 0.f;
       float q[RT][GV_CW];
 #pragma unroll
-      for (int h = 0; h < ROUNDS; ++h, ++s) {
+      for (int hh = 0; hh < ROUNDS; ++hh) {
+        if (hh == NR) break;
+        const int h = h0 + hh, jl = j_lo(h), jh = j_hi(h);
         __syncthreads();  // step s - 1's stage is free; (first step) x is staged
         copy(s + 1);
         asm volatile("cp.async.wait_group 1;\n" ::: "memory");
         __syncthreads();  // step s's tile has landed for every thread
-        const uint32_t* wv = mine + (s & 1) * ring_stage;
+        const uint32_t* wv = mine + (s++ & 1) * ring_stage;
         if (!on) continue;
         if constexpr (KIND == KIND_Q4) {
 #pragma unroll
           for (int j = 0; j < 16; ++j) {
+            if (j < jl || j >= jh) continue;
             uint32_t wr[RT];
 #pragma unroll
             for (int r = 0; r < RT; ++r) {
-              wr[r] = wv[r * PITCH + j * L];
+              wr[r] = wv[r * pitch + (j - jl) * L];
               gv_vals(wr[r] & NIB, MAGIC, q[r]);
             }
             gv_fma<TT, g, SW>(q, xk, j, acc);
@@ -325,8 +373,8 @@ __device__ __forceinline__ void gv_tile(const uint8_t* __restrict__ qa,
             uint32_t lo[RT], cr[RT];
 #pragma unroll
             for (int r = 0; r < RT; ++r) {
-              lo[r] = wv[r * PITCH + j * L];
-              cr[r] = wv[r * PITCH + (8 + j % 4) * L];
+              lo[r] = wv[r * pitch + j * L];
+              cr[r] = wv[r * pitch + (8 + j % 4) * L];
               gv_vals((lo[r] & NIB) | ((cr[r] << (4 - 2 * c2)) & 0x30303030u), MAGIC, q[r]);
             }
             gv_fma<TT, g, SW>(q, xk, j, acc);
@@ -338,10 +386,11 @@ __device__ __forceinline__ void gv_tile(const uint8_t* __restrict__ qa,
         } else {
 #pragma unroll
           for (int j = 0; j < 16; ++j) {
+            if (j < jl || j >= jh) continue;
             // signed bytes b as b + 128, so the bias is 2^23 + 128
 #pragma unroll
             for (int r = 0; r < RT; ++r)
-              gv_vals(wv[r * PITCH + j * L] ^ 0x80808080u, MAGIC + 128.f, q[r]);
+              gv_vals(wv[r * pitch + (j - jl) * L] ^ 0x80808080u, MAGIC + 128.f, q[r]);
             gv_fma<TT, g, SW>(q, xk, 16 * h + j, acc);
           }
         }
@@ -357,7 +406,7 @@ __device__ __forceinline__ void gv_tile(const uint8_t* __restrict__ qa,
           for (int t = 0; t < TT; ++t) {
             part[r][t] = fmaf(sc[r][c], acc[r][c][t], part[r][t]);
             if constexpr (KIND != KIND_Q8)
-              part[r][t] = fmaf(-mn[r][c], xsk[t * SW + c], part[r][t]);
+              if (rows.mins) part[r][t] = fmaf(-mn[r][c], xsk[t * SW + c], part[r][t]);
           }
     }
   }
@@ -402,11 +451,32 @@ inline int gemv_threads(int N) {
   return threads;
 }
 
-// the x slice and its column sums, then the two stages of the ring
+// the x slice and its column sums, then the two stages of the ring (for
+// ranges of jn byte rows; whole rows by default)
 template <int KIND, int TT>
-constexpr int gv_smem_bytes(int threads) {
+constexpr int gv_smem_bytes(int threads, int jn = GvGeo<KIND>::JROWS) {
   return TT * (GvGeo<KIND>::GROUP + 1) * GvSlice<TT>::COLS * 4 +
-         2 * (threads / GV_L * GV_RT) * GvGeo<KIND>::PITCH * 4;
+         2 * (threads / GV_L * GV_RT) * gv_pitch<KIND>(jn) * 4;
+}
+
+// y[i] = ws[0][i] + ws[1][i] + ... + ws[nk - 1][i] in that order, i over
+// n outputs: the partials of calls split over K (qmm_ktiled's chunks,
+// qmm_gathered_t's column splits) meet in a fixed order, never by float
+// atomics, so an output does not depend on which block finished first.
+static __global__ void __launch_bounds__(256) gv_sum_parts_kernel(const float* __restrict__ ws,
+                                                                 float* __restrict__ y, int n,
+                                                                 int nk) {
+  const int i = blockIdx.x * 256 + threadIdx.x;
+  if (i >= n) return;
+  float acc = ws[i];
+  for (int k = 1; k < nk; ++k) acc += ws[(size_t)k * n + i];
+  y[i] = acc;
+}
+
+static inline cudaError_t gv_sum_parts(const float* ws, float* y, int n, int nk,
+                                       cudaStream_t st) {
+  gv_sum_parts_kernel<<<(n + 255) / 256, 256, 0, st>>>(ws, y, n, nk);
+  return cudaGetLastError();
 }
 
 }  // namespace tpl

@@ -10,9 +10,9 @@
 //       first 256 threads copies exactly the (row, chunk) pair of weights
 //       it dequantizes itself, so no barrier sits between that copy and its
 //       use; x goes straight to the planes the products read;
-//   (b) each of those threads dequantizes its pair with decode_raw,
-//       decode_chunk's arithmetic: every weight is q * scale - minv with the
-//       plain version's two roundings, so the weights are bit-equal to it;
+//   (b) each of those threads dequantizes its pair with decode_raw: every
+//       weight is q * scale - minv with the plain version's two roundings,
+//       so the weights are bit-equal to it;
 //   (c) each weight w is split into bf16 hi = bf16(w) and lo = bf16(w - hi).
 //       x is bf16 (its own hi, no lo) or f32 split the same way once per
 //       call by mma_split_x, into blocks of 8 hi then 8 lo values;

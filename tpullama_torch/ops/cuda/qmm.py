@@ -9,13 +9,15 @@ wrapper arranges x for each route, as one PyTorch copy at most.
 
 The route is the reference's own choice (choose_kchunks): nk > 1 valid
 K-chunks send the call to the K-chunked kernel (csrc/qmm_ktiled.cu,
-Pallas kernel _qmm_ktiled), otherwise it goes to csrc/qmm.cu: qmm_gemv for
-T <= 8 (the decode body of csrc/qmm_gemv.cuh), qmm_tiled above (the
-group-scaled tensor-core body of csrc/qmm_group_mma.cuh). Both read x in
-column order (`column_x`: natural order for stripe planes, so x is read in
-place; one copy for fourblock planes). On a CUDA tensor the wrapper
-launches that kernel or raises; on a CPU tensor it computes that route's
-plain version.
+Pallas kernel _qmm_ktiled: the decode body of csrc/qmm_gemv.cuh over each
+chunk's byte rows for T <= 8, the tensor-core body of csrc/qmm_mma.cuh on
+x in stored order above), otherwise it goes to csrc/qmm.cu: qmm_gemv for
+T <= 8 (the decode body), qmm_tiled above (the group-scaled tensor-core
+body of csrc/qmm_group_mma.cuh). The decode body and the group body read
+x in column order (`column_x`: natural order for stripe planes, so x is
+read in place; one copy for fourblock planes). On a CUDA tensor the
+wrapper launches that kernel or raises; on a CPU tensor it computes that
+route's plain version.
 
 Not ported: N padded to 128 rows and T padded to the tile (the kernels
 mask their edges), the layer-stacked `layer=` scalar prefetch (the port
@@ -40,7 +42,7 @@ GEMV_MAX_T = 8
 
 # kernel field sets: (kind id in csrc/qmm.cu, the K multiple of its quant
 # blocks: Q4_0, Q4_1 and Q8_0 blocks hold 32 values, Q6_K blocks 256; a
-# Q4_K matrix has K % 256 by its own blocks). The warp bodies (qmm_gemv,
+# Q4_K matrix has K % 256 by its own blocks). The decode bodies (qmm_gemv,
 # qmm_ktiled at T <= 8, one-row gathered tiles) take any such K.
 _KINDS = {
     frozenset({"q4", "scale", "minv"}): (0, 32),
@@ -58,9 +60,9 @@ MMA_K_MULTIPLE = 256
 def route(kernel: str, T: int) -> str:
     """The body a launch of `kernel` runs for T activation rows: "mma", a
     tensor-core tile body (qmm_tiled at T > 8: csrc/qmm_group_mma.cuh;
-    qmm_ktiled at T > 8: csrc/qmm_mma.cuh); else "gemv", a CUDA-core
-    decode body (qmm_gemv and qmm_tiled's T <= 8: csrc/qmm_gemv.cuh;
-    qmm_ktiled: one warp per output row)."""
+    qmm_ktiled at T > 8: csrc/qmm_mma.cuh); else "gemv", the CUDA-core
+    decode body of csrc/qmm_gemv.cuh (qmm_gemv and qmm_tiled's T <= 8;
+    qmm_ktiled's T <= 8 over each K-chunk's byte rows)."""
     return "mma" if kernel in ("qmm_tiled", "qmm_ktiled") and T > GEMV_MAX_T else "gemv"
 
 
@@ -270,11 +272,17 @@ def quantized_matmul(x: torch.Tensor, fields: dict, ggml_type: GGMLType,
     x_bf16, s_bf16 = int(x.dtype == torch.bfloat16), int(sdt == torch.bfloat16)
     lib = library()
     if nk > 1:
-        # the permutation copies x (K/group > 1), so the mma route may split
-        # f32 xp in place; per-chunk partial products, summed in chunk order
-        # by the kernel's second pass (no float atomics: the sum does not
-        # depend on timing)
-        xp = permute_x(x, group, order).contiguous()
+        # per-chunk partial products, summed in chunk order by the kernel's
+        # second pass (no float atomics: the sum does not depend on timing).
+        # T <= 8: the decode body reads x in place in column order (natural
+        # for the stripe planes K-chunks run on); above, the permutation
+        # copies x (K/group > 1), so the mma route may split f32 xp in place
+        if T <= GEMV_MAX_T:
+            xp = column_x(x, group, order).contiguous()
+            if xp.data_ptr() % 16:
+                xp = xp.clone()  # the body's 16-byte loads
+        else:
+            xp = permute_x(x, group, order).contiguous()
         ws = torch.empty((nk, T, N), dtype=torch.float32, device=x.device)
         check(lib.tpl_qmm_ktiled(kind, x_bf16, s_bf16, ptr(xp), ptr(qa), ptr(fields["scale"]),
                                  ptr(fields.get("minv")), ptr(ws), ptr(y), T, N, K, nk,

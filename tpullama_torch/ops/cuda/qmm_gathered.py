@@ -18,9 +18,11 @@ natural order; row-major tiles of more than one row run the tensor-core
 body of csrc/qmm_mma.cuh on x in stored order (the group permutation runs
 here, as one PyTorch copy). The transposed kernel takes f32 x in natural
 order and sums its groups for the hoisted min term itself: one-row tiles
-on an f32 FMA body, larger ones on the group-scaled body of
-csrc/qmm_group_mma.cuh. Outputs are batch-invariant within a route, but
-the one-row and tile routes sum in other orders.
+run the decode body's arithmetic on the transposed planes over the same
+runs, each expert's rows read once per run, its columns split over blocks
+whose parts meet in a workspace (`t_splits`), larger tiles the
+group-scaled body of csrc/qmm_group_mma.cuh. Outputs are batch-invariant
+within a route, but the one-row and tile routes sum in other orders.
 
 Not ported: the expert-parallel 4-D planes (L, E_local, R, kcols), the
 N tiling and padding, and the bf16 fast mode (the kernels compute the
@@ -37,9 +39,12 @@ from .qmm import _KINDS, MMA_K_MULTIPLE, dequant_stored, permute_x
 # launches per kernel since the last reset (chip_smoke.py reads them)
 LAUNCHES = {"qmm_gathered": 0, "qmm_gathered_t": 0}
 MAX_TILE_T = 8
-# one-row tiles of one expert that the row-major kernel gives one pass over
+# one-row tiles of one expert that both one-row kernels give one pass over
 # its rows (GATHER_RUN in csrc/qmm_gathered.cu)
 RUN_CAP = 4
+# scale columns of one block of the transposed one-row kernel (GT_COLS in
+# csrc/qmm_gathered.cu): its column splits, each a part of every output
+T_SPLIT_COLS = 32
 
 # field sets of the transposed kernel: kind id in csrc/qmm_gathered.cu
 _KINDS_T = {frozenset({"q4", "scale", "minv"}): 0, frozenset({"q8", "scale"}): 2}
@@ -51,15 +56,24 @@ PLANES_T_FIELDS = {"q4", "q4_lut", "q4a", "q1r", "q8", "scale", "minv"}
 def route(tile_t: int, planes_t: bool = False) -> str:
     """The body a launch runs: "mma", a tensor-core route for tiles of more
     than one row (row-major planes: csrc/qmm_mma.cuh; transposed planes:
-    csrc/qmm_group_mma.cuh), else "gemv", a CUDA-core body for one-row
-    tiles (row-major planes: the decode body of csrc/qmm_gemv.cuh over
-    runs of tiles; transposed planes: an f32 FMA body per tile)."""
+    csrc/qmm_group_mma.cuh), else "gemv", a CUDA-core decode body for
+    one-row tiles over runs of tiles that share an expert (`run_plan`),
+    each expert's rows read once per run (row-major planes: the decode body
+    of csrc/qmm_gemv.cuh; transposed planes: its unpacking and fold on a
+    thread mapping for R-contiguous planes, qmm_gathered_t_gemv_kernel)."""
     return "mma" if tile_t > 1 else "gemv"
 
 
+def t_splits(K: int) -> int:
+    """Column splits of the transposed one-row kernel at width K: blocks
+    of T_SPLIT_COLS scale columns each, whose parts the kernel's second pass
+    sums in split order."""
+    return -(-(K // 32) // T_SPLIT_COLS)
+
+
 def run_plan(sel) -> list[list[int]]:
-    """The runs the row-major one-row kernel computes, as its blocks find
-    them on the card: tile t starts a run iff its rank among the tiles of
+    """The runs both one-row kernels compute, as their blocks find them on
+    the card: tile t starts a run iff its rank among the tiles of
     its expert sel[t], in tile order, is a multiple of RUN_CAP; the run is
     that tile and the next tiles of the same expert, at most RUN_CAP in
     all. Every tile lies in exactly one run, any sel, sorted or not."""
@@ -175,8 +189,10 @@ def quantized_matmul_gathered(x, fields, sel, ggml_type: GGMLType, group: int,
     if n_out > R or (planes_t and R % 128):
         raise ValueError(f"{name}: n_out={n_out} rows of R={R} stored rows")
     one_row = not planes_t and tile_t == 1
-    if one_row and rows > 65535:  # the one-row kernel's second grid axis
+    if tile_t == 1 and rows > 65535:  # the one-row kernels' tile grid axis
         raise ValueError(f"{name}: {rows} one-row tiles (at most 65535)")
+    if planes_t and any(a.data_ptr() % 16 for a in fields.values()):
+        raise ValueError(f"{name}: the planes must start on 16-byte boundaries")
     if one_row:
         # the decode body reads x in place: natural order is its column
         # order for stripe planes
@@ -186,9 +202,11 @@ def quantized_matmul_gathered(x, fields, sel, ggml_type: GGMLType, group: int,
             xp = xp.clone()  # the body's 16-byte loads
     elif planes_t:
         # the transposed route gets its own copy: the mma route splits f32
-        # x in place
+        # x in place; the one-row body reads x by 16 bytes
         xs = x.float()
         xp = xs.clone(memory_format=torch.contiguous_format) if tile_t > 1 else xs.contiguous()
+        if xp.data_ptr() % 16:
+            xp = xp.clone()
     else:
         # the permutation copies x (K/group > 1), which the mma route splits
         xp = permute_x(x.float(), group).contiguous()
@@ -197,10 +215,14 @@ def quantized_matmul_gathered(x, fields, sel, ggml_type: GGMLType, group: int,
     lib = library()
     s_bf16 = int(sdt == torch.bfloat16)
     if planes_t:
-        # xgsum's bf16 hi and lo planes for the mma route's min term
-        # (its columns rounded up to whole 4-column slices)
-        xg = (torch.empty((2, rows, -(-G // 4) * 4), dtype=torch.bfloat16, device=x.device)
-              if tile_t > 1 and "minv" in fields else None)
+        # one-row tiles: the column splits' parts of every output; tiles of
+        # more rows: xgsum's bf16 hi and lo planes for the mma route's min
+        # term (its columns rounded up to whole 4-column slices)
+        if tile_t == 1:
+            xg = torch.empty((t_splits(K), rows, n_out), dtype=torch.float32, device=x.device)
+        else:
+            xg = (torch.empty((2, rows, -(-G // 4) * 4), dtype=torch.bfloat16, device=x.device)
+                  if "minv" in fields else None)
         code = lib.tpl_qmm_gathered_t(
             kind, s_bf16, ptr(xp), ptr(xg), ptr(sel_d), ptr(q0), ptr(fields["scale"]),
             ptr(fields.get("minv")), ptr(y), rows // tile_t, tile_t, n_out, R, K,
