@@ -38,7 +38,19 @@ Phases, each printing one JSON line with its seconds:
             the cross-check at Qwen2-1.5B's widths (2 of its 28 layers):
             GQA group 6 (12/2 heads) through both attention kernels, q/k/v
             biases, and ffn_down's K = 8960 through qmm_gemv and qmm_tiled
-The crosscheck and serve paths of the three models each run with every
+  openllama_crosscheck
+            the cross-check at OpenLLaMA-3B's widths (2 of its 26 layers,
+            every matrix Q8_0, as 3200 is no multiple of 256): head dim
+            100 through both attention kernels
+  http      the Llama model behind tpullama_torch.server.http.serve (4
+            slots of 4096 cells, the JAX package's f32 engine): 4
+            concurrent streamed greedy /v1/completions, a streamed and a
+            plain /v1/chat/completions, /health, /metrics, /slots; TTFT and
+            output tok/s as an HTTP client sees them
+  cli       tpullama_torch.tools.cli.main on a 2-layer Q8_0 file at
+            Llama-3-8B's widths (dense bf16 weights, the CLI's default), 16
+            greedy tokens on the card and with --device cpu: the same text
+The crosscheck, serve, http and cli paths each run with every
 launch count set to 0 just before and read just after, and fail unless
 each kernel that path must run was launched. Then one JSON line lists every
 kernel with its launches on each path and its numbers at the served shape
@@ -69,9 +81,9 @@ PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 FLUSH_BYTES = 512 << 20  # written between timed launches: evicts the 50 MB L2
 NEG_HIDDEN = -5e29  # additive mask values at or below this hide a cell
 
-ALL_PHASES = ("card", "build", "kernels", "model", "crosscheck", "serve", "moe_model",
-              "moe_crosscheck", "moe_serve", "glm_model", "glm_crosscheck", "glm_serve",
-              "qwen_crosscheck")
+ALL_PHASES = ("card", "build", "kernels", "model", "crosscheck", "serve", "http", "cli",
+              "moe_model", "moe_crosscheck", "moe_serve", "glm_model", "glm_crosscheck",
+              "glm_serve", "qwen_crosscheck", "openllama_crosscheck")
 
 
 def emit(obj) -> None:
@@ -101,7 +113,11 @@ class Widths:
     Qwen/Qwen2-1.5B (config.json: hidden 1536, 28 layers, 12 heads, 2 KV
     heads, intermediate 8960, vocab 151936, rope_theta 1e6, rms_norm_eps
     1e-6; q/k/v biases), written with an untied output matrix and used at
-    2 layers in the cross-check alone."""
+    2 layers in the cross-check alone; OPENLLAMA_3B those of
+    openlm-research/open_llama_3b (config.json: hidden 3200, 26 layers,
+    32 heads, head dim 100, intermediate 8640, vocab 32000, rms_norm_eps
+    1e-6), every matrix Q8_0 (`q8`: 3200 is no multiple of Q4_K's 256),
+    used at 2 layers in the cross-check alone."""
 
     n_embd: int = 4096
     n_layer: int = 32
@@ -116,6 +132,7 @@ class Widths:
     n_expert_used: int = 0
     arch: str = "llama"
     n_rot: int = 0  # 0: the whole head
+    q8: bool = False  # every matrix Q8_0 (token table and output included)
 
 
 LLAMA3_8B = Widths()
@@ -129,6 +146,9 @@ GLM_OPTS = dict(fused_layer=True, qmm_tile_k=4)
 QWEN2_1_5B = Widths(n_embd=1536, n_layer=28, n_head=12, n_head_kv=2, n_ff=8960,
                     n_vocab=151936, rope_theta=1e6, rms_eps=1e-6, n_ctx_train=32768,
                     arch="qwen2")
+OPENLLAMA_3B = Widths(n_embd=3200, n_layer=26, n_head=32, n_head_kv=32, n_ff=8640,
+                      n_vocab=32000, rope_theta=10000.0, rms_eps=1e-6, n_ctx_train=2048,
+                      q8=True)
 
 
 def _fp16_bytes(a: np.ndarray) -> np.ndarray:
@@ -191,7 +211,7 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
     the router F32 (as llama.cpp's quantizer leaves them), random block
     bytes from `seed`. chatglm's ffn_down rows hold n_ff = 13696 values,
     not a multiple of Q4_K's 256, so they are Q8_0, as llama.cpp's
-    quantizer falls back for such rows."""
+    quantizer falls back for such rows; with `w.q8` every matrix is."""
     from tpullama_torch.gguf import GGMLType, GGUFWriter
 
     rng = np.random.default_rng(seed)
@@ -200,6 +220,7 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
     g.add_str("general.architecture", a)
     g.add_str("general.name", "synthetic-chatglm3-6b-shape" if a == "chatglm" else
               "synthetic-qwen2-1.5b-shape" if a == "qwen2" else
+              "synthetic-openllama-3b-shape" if w.q8 else
               "synthetic-mixtral-8x7b-shape" if w.n_expert else "synthetic-llama3-8b-shape")
     g.add_u32(f"{a}.context_length", w.n_ctx_train)
     g.add_u32(f"{a}.embedding_length", w.n_embd)
@@ -226,6 +247,8 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
     g.add_bool("tokenizer.ggml.add_eos_token", False)
 
     def quant(name, shape, qtype):
+        if w.q8:
+            qtype = GGMLType.Q8_0
         if qtype == GGMLType.Q8_0:
             blocks = q8_0_blocks(rng, math.prod(shape) // 32)
         else:
@@ -503,10 +526,17 @@ def ktiled_cases(timer, gen, device, out: list) -> None:
 def fused_cases(timer, gen, device, out: list) -> None:
     """fused_postattn at ChatGLM3-6B's shape (E = Dq = 4096, [gate|up] 2 x
     13696 rows, Q4_K fourblock planes with bf16 scales, bf16 activations)
-    against its plain version; beside it the port's own unfused chain
-    (qmm_gemv o-projection, residual, rms_norm, qmm_gemv [gate|up],
-    silu * up) and that chain on pre-dequantized bf16 weights through
-    torch.matmul (the library time)."""
+    and at two widths fused_ok admits that the wrapper once refused (E =
+    16384: x staged in two slices; Dq = 4224 = 33 x 128), each against its
+    plain version; beside it the port's own unfused chain (qmm_gemv
+    o-projection, residual, rms_norm, qmm_gemv [gate|up], silu * up) and
+    that chain on pre-dequantized bf16 weights through torch.matmul (the
+    library time)."""
+    for E, Dq, Fd in ((4096, 4096, 13696), (16384, 4096, 13696), (4096, 4224, 13696)):
+        fused_case(timer, gen, device, out, E, Dq, Fd)
+
+
+def fused_case(timer, gen, device, out: list, E: int, Dq: int, Fd: int) -> None:
     import torch
     import torch.nn.functional as F
 
@@ -515,8 +545,7 @@ def fused_cases(timer, gen, device, out: list) -> None:
     from tpullama_torch.ops.norms import rms_norm
 
     Q4, bf16 = GGMLType.Q4_K, torch.bfloat16
-    E = Dq = 4096
-    Fd, eps = 13696, 1e-5
+    eps = 1e-5
     o = random_planes(Q4, E, Dq, bf16, gen, device)
     gu = random_planes(Q4, 2 * Fd, E, bf16, gen, device)
     att = torch.randn((1, Dq), generator=gen, device=device).to(bf16)
@@ -552,7 +581,7 @@ def fused_cases(timer, gen, device, out: list) -> None:
         # f32 sums in another order (both sides dequantize bit-equal weights)
         tols.append(1e-4 * float(want.abs().max()) + 1e-5)
         check(bool(torch.isfinite(got).all()) and errs[-1] <= tols[-1],
-              f"fused_postattn: err {errs[-1]} > tol {tols[-1]}")
+              f"fused_postattn E={E} Dq={Dq}: err {errs[-1]} > tol {tols[-1]}")
     ms = timer.ms(kern, 20)
     plain_ms = timer.ms(plain, 3)
     unfused_ms = timer.ms(unfused, 20)
@@ -824,6 +853,26 @@ def attention_cases(timer, gen, device, out: list) -> None:
         attn_case(timer, "flash_attention", flash_attention, q, k, v, mask, out)
         del q, k, v, mask
 
+    # head dims the kernels refused before, each padded inside the kernel
+    # to 64, 128 or 256: 16 (the tiny fixtures), 80, 96, 100 (OpenLLaMA-3B,
+    # rows of bf16 pairs) and 256, beside 128 at the same shapes; decode of
+    # 4 lanes and a 256-row prefill chunk of two lanes over 1024 cells, GQA
+    # group 4, bf16 and f32
+    for D_h in (16, 80, 96, 100, 128, 256):
+        for dt in (bf16, torch.float32):
+            lengths = np.asarray([900, 700, 500, 300], np.int32)
+            kv, qp = decode_pos(lengths, Sg)
+            q, k, v, mask = attn_inputs(4, 1, Hq, Hkv, D_h, Sg, dt, gen, device, kv, qp)
+            attn_case(timer, "flash_decode_batched", flash_decode, q, k, v, mask, out)
+            kv = np.full((2, Sg), -1, np.int32)
+            qp = np.full((2, Tq), -1, np.int32)
+            for b, (n_past, n_new) in enumerate([(0, 256), (500, 100)]):
+                kv[b, :n_past + n_new] = np.arange(n_past + n_new)
+                qp[b, :n_new] = np.arange(n_past, n_past + n_new)
+            q, k, v, mask = attn_inputs(2, Tq, Hq, Hkv, D_h, Sg, dt, gen, device, kv, qp)
+            attn_case(timer, "flash_attention", flash_attention, q, k, v, mask, out)
+            del q, k, v, mask
+
     # the options the kernels take beyond the llama path, in f32 and bf16
     extras = dict(softcap=30.0,
                   sinks=torch.randn((Hq,), generator=gen, device=device),
@@ -1031,6 +1080,169 @@ def phase_serve_profile(eng, prompt: str, card: str, phase: str = "serve_profile
               f"a decode step launched {name} {counts[name]} times, not once per layer")
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def http_call(base: str, path: str, body=None, stream: bool = False):
+    """One request to the server at `base`: (seconds to the first byte of
+    the body, seconds to its end, the parsed body). A streamed body comes
+    back as its list of SSE events' JSON (without the final [DONE])."""
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data, method="GET" if body is None else "POST",
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        ctype = r.headers.get("Content-Type", "")
+        if not stream:
+            raw = r.read()
+            t = time.perf_counter() - t0
+            return t, t, json.loads(raw) if ctype.startswith("application/json") else raw.decode()
+        events, t_first = [], None
+        for line in r:
+            line = line.decode().strip()
+            if not line.startswith("data: ") or line == "data: [DONE]":
+                continue
+            ev = json.loads(line[6:])
+            if t_first is None and ev["choices"][0].get("text", ev["choices"][0].get(
+                    "delta", {}).get("content")):
+                t_first = time.perf_counter() - t0
+            events.append(ev)
+        return t_first, time.perf_counter() - t0, events
+
+
+def phase_http(model, card: str, phase: str = "http") -> None:
+    """The Llama model served over HTTP by tpullama_torch.server.http.serve
+    with the JAX package's defaults (an f32 engine: f32 KV cache), 4 slots
+    of 4096 cells: 4 streamed greedy /v1/completions sent together
+    (302-1002 prompt tokens, 32 out each), then request 0 again, plain,
+    on erased slots (the same text), one chat request streamed and plain
+    (the deltas concatenate to the plain text), and /health, /metrics,
+    /slots. TTFT is the client's time to the first streamed text, output
+    tok/s the 4 requests' tokens (the server's tokens_predicted_total)
+    over their wall time."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tpullama_torch.server.http import serve
+
+    t0 = time.perf_counter()
+    httpd = serve(model, port=free_port(), n_slots=4, n_ctx=4096, block=False)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        check(http_call(base, "/health")[2] == {"status": "ok"}, "/health")
+        rng = np.random.default_rng(3)
+        prompts = [word_prompt(rng, n) for n in (300, 550, 780, 1000)]
+
+        def predicted() -> int:
+            text = http_call(base, "/metrics")[2]
+            return int(next(ln.split()[1] for ln in text.splitlines()
+                            if ln.startswith("llamacpp:tokens_predicted_total")))
+
+        def erase_all() -> None:
+            for sid in range(4):
+                http_call(base, f"/slots/{sid}?action=erase", {})
+
+        n0 = predicted()
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(4) as ex:
+            runs = list(ex.map(lambda p: http_call(
+                base, "/v1/completions",
+                {"prompt": p, "max_tokens": 32, "temperature": 0, "stream": True},
+                stream=True), prompts))
+        wall = time.perf_counter() - t1
+        n_out = predicted() - n0
+        texts = ["".join(ev["choices"][0]["text"] for ev in events) for _, _, events in runs]
+        finish = [events[-1]["choices"][0]["finish_reason"] for _, _, events in runs]
+        check(all(f in ("length", "stop") for f in finish) and n_out > 0,
+              f"finish reasons {finish}, {n_out} tokens")
+        check(n_out == 4 * 32 or "stop" in finish, "a greedy request ended early without a stop")
+        erase_all()
+        again = http_call(base, "/v1/completions",
+                          {"prompt": prompts[0], "max_tokens": 32, "temperature": 0})[2]
+        check(again["choices"][0]["text"] == texts[0],
+              "a greedy request run again over HTTP gave another text")
+        check(again["usage"]["completion_tokens"] == 32 or again["choices"][0][
+            "finish_reason"] == "stop", "a greedy request ended early without a stop")
+        chat = {"messages": [{"role": "user", "content": prompts[1][:400]}], "max_tokens": 24,
+                "temperature": 0}
+        erase_all()
+        _, _, plain = http_call(base, "/v1/chat/completions", chat)
+        erase_all()
+        _, _, events = http_call(base, "/v1/chat/completions", {**chat, "stream": True},
+                                 stream=True)
+        streamed = "".join(ev["choices"][0]["delta"].get("content", "") for ev in events)
+        check(streamed == plain["choices"][0]["message"]["content"],
+              "the streamed chat deltas differ from the plain chat text")
+        slots = http_call(base, "/slots")[2]
+        check(len(slots) == 4 and all(sl["state"] == "idle" for sl in slots), f"/slots {slots}")
+        metrics = http_call(base, "/metrics")[2]
+    finally:
+        httpd.shutdown()
+        httpd.engine.stop()
+        httpd.server_close()
+    emit({"phase": phase, "card": card, "engine": "serve's default: f32 KV cache; bf16 packed model",
+          "n_slots": 4, "n_ctx": 4096, "completion_tokens": n_out, "wall_s": wall,
+          "output_tok_s": n_out / wall,
+          "ttft_ms": [None if r[0] is None else r[0] * 1e3 for r in runs],
+          "request_s": [r[1] for r in runs], "chat_tokens": plain["usage"]["completion_tokens"],
+          "metrics": [ln for ln in metrics.splitlines() if not ln.startswith("#")],
+          "text0": texts[0][:60], "seconds": time.perf_counter() - t0})
+
+
+def phase_cli(tmp: str, card: str, phase: str = "cli", widths: Widths = LLAMA3_8B,
+              device: str = "cuda") -> dict:
+    """tpullama_torch.tools.cli.main on a 2-layer GGUF at Llama-3-8B's
+    widths with the CLI's defaults (dense weights, --dtype bfloat16), 16
+    greedy tokens, on `device` (the card; its launches are this path's)
+    and then with --device cpu (the plain versions): the same printed
+    text. Every matrix is Q8_0, which the loader dequantizes on the host
+    several times faster than Q4_K/Q6_K (the CLI loads dense: the
+    quantization type does not reach the card). Returns the first run's
+    launch counts."""
+    import io
+
+    from tpullama_torch.ops.cuda import launch_counts, reset_launch_counts
+    from tpullama_torch.tools.cli import main as cli_main
+
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, f"{phase}.gguf")
+    write_llama_gguf(path, replace(widths, n_layer=2, q8=True), seed=4)
+    prompt = word_prompt(np.random.default_rng(5), 120)
+    argv = ["-m", path, "-p", prompt, "-n", "16", "--temp", "0"]
+    outs, secs = [], []
+    for i, dev in enumerate((device, "cpu")):
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        if i == 0:
+            reset_launch_counts()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(argv + ([] if dev == "cuda" else ["--device", dev]))
+        if i == 0:
+            counts = launch_counts()
+            emit({"phase": f"{phase}_launches", "launches": counts})
+        secs.append(time.perf_counter() - t1)
+        check(rc == 0, f"the CLI exited {rc} on {dev}")
+        outs.append(buf.getvalue())
+    os.remove(path)
+    if device == "cuda":
+        for name in PATH_KERNELS[phase]:
+            check(counts[name] > 0, f"kernel {name} was not launched on the {phase} path")
+    check(outs[0].startswith(prompt) and len(outs[0]) > len(prompt) + 1,
+          "the CLI printed no generated text")
+    check(outs[0] == outs[1], f"{device} and CPU CLI text differ: {outs[0][len(prompt):]!r} "
+          f"vs {outs[1][len(prompt):]!r}")
+    emit({"phase": phase, "card": card, "layers": 2, "dtype": "bfloat16", "new_tokens": 16,
+          "text": outs[0][len(prompt):][:80], "first_s": secs[0], "cpu_s": secs[1],
+          "seconds": time.perf_counter() - t0})
+    return counts
+
+
 @contextlib.contextmanager
 def recorded_routing(log: list):
     """Append the (B, T, k) expert ids of every MoE router call made inside
@@ -1134,11 +1346,11 @@ KERNELS = (
     ("qmm_tiled", "tpullama_torch/csrc/qmm.cu", "tpullama/ops/pallas/qmm.py:296",
      dict(T=1024, N=14336, K=4096, x="bfloat16")),
     ("flash_attention", "tpullama_torch/csrc/flash_attention.cu",
-     "tpullama/ops/pallas/flash_attention.py:40", dict(B=4, Tq=256, extras=[])),
+     "tpullama/ops/pallas/flash_attention.py:40", dict(B=4, Tq=256, D=128, extras=[])),
     ("flash_decode", "tpullama_torch/csrc/flash_decode.cu",
-     "tpullama/ops/pallas/flash_decode.py:60", dict(B=1, extras=[])),
+     "tpullama/ops/pallas/flash_decode.py:60", dict(B=1, D=128, extras=[])),
     ("flash_decode_batched", "tpullama_torch/csrc/flash_decode.cu",
-     "tpullama/ops/pallas/flash_decode.py:141", dict(B=4, extras=[])),
+     "tpullama/ops/pallas/flash_decode.py:141", dict(B=4, S=4224, D=128, extras=[])),
     ("qmm_gathered", "tpullama_torch/csrc/qmm_gathered.cu", "tpullama/ops/pallas/qmm.py:655",
      dict(slots=2048, N=28672, K=4096, scales="bfloat16")),
     ("qmm_gathered_t", "tpullama_torch/csrc/qmm_gathered.cu", "tpullama/ops/pallas/qmm.py:771",
@@ -1146,7 +1358,7 @@ KERNELS = (
     ("qmm_ktiled", "tpullama_torch/csrc/qmm_ktiled.cu", "tpullama/ops/pallas/qmm.py:450",
      dict(T=1, N=4608, K=4096, nk=4)),
     ("fused_postattn", "tpullama_torch/csrc/fused_layer.cu",
-     "tpullama/ops/pallas/fused_layer.py:112", dict(E=4096, Fd=13696)),
+     "tpullama/ops/pallas/fused_layer.py:112", dict(E=4096, Dq=4096, Fd=13696)),
 )
 
 
@@ -1165,13 +1377,20 @@ PATH_KERNELS = {
     "glm_crosscheck": _GLM,
     "glm_serve": _GLM,
     "qwen_crosscheck": _DENSE_CROSS,
+    # dense Q8_0 at K = 3200 and 8640 (no Q4_K width): the loader keeps
+    # every matrix dense, so attention alone runs kernels
+    "openllama_crosscheck": ("flash_attention", "flash_decode"),
+    "http": _DENSE_SERVE,
+    # the CLI loads dense weights (the JAX package's default)
+    "cli": ("flash_attention", "flash_decode"),
 }
 # each path's model: (phase prefix, widths, cross-check layers, served
 # slots, the two opt-ins)
 PATHS = (("", LLAMA3_8B, 2, 4, {}),
          ("moe_", MIXTRAL_8X7B, 1, 4, {}),
          ("glm_", CHATGLM3_6B, 1, 1, GLM_OPTS),
-         ("qwen_", QWEN2_1_5B, 2, 0, {}))  # the cross-check alone
+         ("qwen_", QWEN2_1_5B, 2, 0, {}),  # the cross-check alone
+         ("openllama_", OPENLLAMA_3B, 2, 0, {}))
 
 
 def path_launches(path: str, run) -> tuple[dict, object]:
@@ -1265,15 +1484,16 @@ def main() -> int:
         emit({"phase": "kernels", "cases": len(records), "seconds": time.perf_counter() - t0})
 
     launches: dict = {}
-    # the Llama path, the Mixtral path, the ChatGLM path
+    # the Llama path (and its HTTP server), the Mixtral path, the ChatGLM
+    # path, then the cross-checks alone
     for pre, widths, cross_layers, n_slots, opts in PATHS:
-        run = [p for p in ("model", "crosscheck", "serve") if pre + p in phases]
+        run = [p for p in ("model", "crosscheck", "serve", "http") if pre + p in phases]
         if not run:
             continue
         fused = bool(opts.get("fused_layer"))
         with tempfile.TemporaryDirectory() as tmp:
             model = None
-            if "model" in run or "serve" in run:
+            if {"model", "serve", "http"} & set(run):
                 model = phase_model(tmp, widths, phase=pre + "model", fused_layer=fused)
             if "crosscheck" in run:
                 launches[pre + "crosscheck"], _ = path_launches(
@@ -1287,7 +1507,14 @@ def main() -> int:
                                     step_kernels=("qmm_ktiled", "fused_postattn") if fused
                                     else ())
                 del eng
+                torch.cuda.empty_cache()
+            if "http" in run:
+                launches["http"], _ = path_launches("http", lambda: phase_http(model, smi))
             del model
+        torch.cuda.empty_cache()
+    if "cli" in phases:
+        with tempfile.TemporaryDirectory() as tmp:
+            launches["cli"] = phase_cli(tmp, smi)
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
     emit({"phase": "done", "seconds": time.perf_counter() - t_all})

@@ -267,6 +267,44 @@ def test_plain_any_group_matches_reference(Hq, Hkv, D):
         _check_against_jnp(got.numpy(), arrs, {}, 0.1, visible)
 
 
+@pytest.mark.parametrize("D", [1, 16, 37, 80, 96, 100, 256, 257])
+def test_check_inputs_head_dims(D):
+    """The kernels' checks take every head dim from 1 to 256 (their
+    instances pad D to 64, 128 or 256) and refuse a wider one by name."""
+    from tpullama_torch.ops.cuda.common import MAX_HEAD_DIM, check_inputs
+
+    q = torch.zeros((1, 2, 8, D))
+    k = torch.zeros((1, 2, 16, D))
+    mask = torch.zeros((1, 1, 2, 16))
+    if D <= MAX_HEAD_DIM:
+        m, sinks, slopes = check_inputs("flash_decode", q, k, k, mask, None, None)
+        assert m.shape == (1, 2, 16) and sinks is None and slopes is None
+    else:
+        with pytest.raises(ValueError, match="head dim 257"):
+            check_inputs("flash_decode", q, k, k, mask, None, None)
+
+
+@pytest.mark.parametrize("kernel,Tq", [("flash_attention", 9), ("flash_decode", 1),
+                                       ("flash_decode", 4)], ids=["fa", "fd1", "fd4"])
+def test_plain_head_dim_100_matches_reference(kernel, Tq):
+    """Both wrappers' CPU route at head dim 100 (OpenLLaMA-3B's 3200 / 32
+    heads) against the Pallas kernels in interpret mode and the jnp
+    reference, with the tolerances above."""
+    from tpullama.ops.pallas.flash_attention import flash_attention as jax_fa
+    from tpullama.ops.pallas.flash_decode import flash_decode as jax_fd
+
+    fn, jfn = (flash_attention, jax_fa) if kernel == "flash_attention" else (flash_decode, jax_fd)
+    *arrs, visible = _case(2, Tq, 8, 2, 100, 128, n_filled=100, seed=100 + Tq,
+                           hidden_rows=[(1, Tq - 1)])
+    targs, _ = _torch_args(arrs, {})
+    got = fn(*targs, 0.1).numpy()
+    jargs, _ = _jax_args(arrs, {})
+    kw = dict(block_q=8, block_s=128) if jfn is jax_fa else {}
+    want = np.asarray(jfn(*jargs, 0.1, interpret=True, **kw))
+    np.testing.assert_allclose(got, want, **(F32_TOL if jfn is jax_fa else BF16_TOL))
+    _check_against_jnp(got, arrs, {}, 0.1, visible)
+
+
 def test_attention_auto_cpu_is_reference():
     """On CPU tensors attention_auto is the plain reference op for every
     Tq (the kernels' dispatch applies to CUDA tensors only)."""
@@ -368,5 +406,32 @@ def test_kernels_odd_cache_length(cuda, dtype):
         torch.cuda.synchronize()
         want = flash_plain(q, k, v, mask, 0.09).float()
         rel = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+        assert float((got - want).abs().max()) <= rel * float(want.abs().max()) + 1e-6, \
+            (fn.__name__, B, Tq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [16, 37, 80, 96, 100, 256])
+def test_kernels_any_head_dim(cuda, D, dtype):
+    """Head dims the kernels refused before: rows of whole 16-byte pieces
+    (16, 80, 96), of bf16 pairs (100: OpenLLaMA-3B), of single values (37)
+    and the widest instance (256), each padded inside the kernel; prefill
+    (Tq = 70) and decode at Tq = 1 and 4, GQA group 4, a padded query row
+    and a cache tail no query sees."""
+    from tpullama_torch.ops.cuda.common import flash_plain
+
+    for fn, B, Tq in ((flash_attention, 2, 70), (flash_decode, 1, 1), (flash_decode, 3, 1),
+                      (flash_decode, 2, 4)):
+        *arrs, _ = _case(B, Tq, 8, 2, D, 320, n_filled=250, seed=D + Tq,
+                         hidden_rows=[(0, Tq - 1)])
+        targs, _ = _torch_args(arrs, {})
+        q, k, v = (t.to(cuda, dtype) for t in targs[:3])
+        mask = targs[3].to(cuda)
+        got = fn(q, k, v, mask, 0.09).float()
+        torch.cuda.synchronize()
+        want = flash_plain(q, k, v, mask, 0.09).float()
+        rel = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+        assert got.shape == (B, Tq, 8, D)
         assert float((got - want).abs().max()) <= rel * float(want.abs().max()) + 1e-6, \
             (fn.__name__, B, Tq)

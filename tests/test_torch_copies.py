@@ -1,9 +1,12 @@
 """The modules tpullama_torch copies from the JAX package (the port imports
 nothing of it) behave like the originals on the tiny fixtures: HParams,
 GGUF reader tensors and writer bytes, block dequantization, repacked and
-transposed planes byte for byte, tokenize/detokenize, and the host
-sampler chain. All comparisons are exact: the copies run the same numpy
-code."""
+transposed planes byte for byte, tokenize/detokenize, the host sampler
+chain, and the CLI and server layers' copies: the argument registry, chat
+templates, tool-call parsing, the Anthropic conversion, the local -hf
+cache, the logger, the web UI and the router. All comparisons are exact:
+the copies run the same code (tool-call ids, random by design, are
+dropped)."""
 
 import numpy as np
 import pytest
@@ -217,3 +220,190 @@ def test_sampler_chain_equal(kw):
     cj = j_sampling.SamplerChain.from_params(**kw)
     ct = t_sampling.SamplerChain.from_params(**kw)
     assert [ct.sample(x) for x in logits] == [cj.sample(x) for x in logits]
+
+
+# ------------------------------------------------ the CLI and server layers
+
+
+@pytest.mark.parametrize("scope", ["cli", "server"])
+def test_args_parse_to_the_same_namespace(tmp_path, scope):
+    """The registry copy parses the same argv to the same namespace; its
+    one jax line, kv_dtype_from_arg, maps the cache types to torch dtypes,
+    and the sampler chain it builds samples the same tokens."""
+    import torch
+
+    from tpullama.tools import args as j_args
+    from tpullama_torch.tools import args as t_args
+
+    argv = ["-m", str(tmp_path / "m.gguf"), "--temp", "0.7", "--top-k", "20", "-l", "5+1.5",
+            "--seed", "9", "--rope-freq-base", "20000", "-ctk", "bf16", "-c", "512",
+            "--repeat-penalty", "1.1", "-t", "4"]
+    if scope == "cli":
+        argv += ["-p", "hello", "-n", "7"]
+    else:
+        argv += ["--port", "9", "-np", "3", "--api-key", "k"]
+    j = j_args.build_parser(scope, prog="x").parse_args(argv)
+    t = t_args.build_parser(scope, prog="x").parse_args(argv)
+    assert vars(t) == vars(j)
+    assert [t_args.kv_dtype_from_arg(n) for n in ("f16", "bf16", "f32", "q8_0")] == [
+        torch.float16, torch.bfloat16, torch.float32, torch.int8]
+    if scope == "cli":
+        sj = j_args.sampler_from_args(j, n_vocab=300)
+        st = t_args.sampler_from_args(t, n_vocab=300)
+        logits = np.random.default_rng(0).standard_normal(300).astype(np.float32)
+        assert [st.sample(logits) for _ in range(6)] == [sj.sample(logits) for _ in range(6)]
+
+
+def _templates():
+    from tpullama.server.templates import BUILTIN_TEMPLATES
+
+    return BUILTIN_TEMPLATES
+
+
+CHAT = [{"role": "system", "content": "Be brief."}, {"role": "user", "content": "Hi there"},
+        {"role": "assistant", "content": "Hello."}, {"role": "user", "content": "Again?"}]
+
+
+@pytest.mark.parametrize("name", _templates())
+def test_builtin_templates_render_alike(name):
+    from tpullama.server import templates as j_t
+    from tpullama_torch.server import templates as t_t
+
+    for add in (True, False):
+        assert (t_t.apply_builtin_template(name, CHAT, add)
+                == j_t.apply_builtin_template(name, CHAT, add))
+    assert t_t.BUILTIN_TEMPLATES == j_t.BUILTIN_TEMPLATES
+
+
+def _drop_ids(obj):
+    if isinstance(obj, dict):
+        return {k: _drop_ids(v) for k, v in obj.items() if k != "id"}
+    if isinstance(obj, (list, tuple)):
+        return [_drop_ids(v) for v in obj]
+    return obj
+
+
+TOOL_TEXTS = [
+    "just an answer",
+    '<think>plan</think>The answer is 4.',
+    '<tool_call>{"name": "add", "arguments": {"a": 1, "b": 2}}</tool_call>',
+    '[TOOL_CALLS][{"name": "get", "arguments": {"city": "Paris"}}]',
+    '{"name": "lookup", "parameters": {"q": "x"}}',
+]
+
+
+def _dialects():
+    from tpullama.server.chat import TOOL_DIALECTS
+
+    return TOOL_DIALECTS
+
+
+@pytest.mark.parametrize("dialect", _dialects())
+def test_tool_call_parsing_alike(dialect):
+    """parse_assistant_message and the streaming scanner give the same
+    content, reasoning and calls (ids dropped) in both packages."""
+    from tpullama.server import chat as j_c
+    from tpullama_torch.server import chat as t_c
+
+    for text in TOOL_TEXTS:
+        assert (_drop_ids(t_c.parse_assistant_message(text, dialect))
+                == _drop_ids(j_c.parse_assistant_message(text, dialect)))
+        outs = []
+        for mod in (j_c, t_c):
+            sc = mod.StreamScanner(dialect)
+            pieces = [sc.feed(text[i:i + 5]) for i in range(0, len(text), 5)]
+            outs.append(_drop_ids((pieces, sc.finish())))
+        assert outs[1] == outs[0]
+    tools = [{"type": "function", "function": {"name": "add", "parameters": {
+        "type": "object", "properties": {"a": {"type": "integer"}}}}}]
+    assert t_c.tools_to_template_ctx(tools) == j_c.tools_to_template_ctx(tools)
+
+
+def test_anthropic_conversion_alike():
+    from tpullama.server import anthropic as j_a
+    from tpullama_torch.server import anthropic as t_a
+
+    body = {"model": "m", "max_tokens": 20, "system": [{"type": "text", "text": "Be brief."}],
+            "stop_sequences": ["END"], "temperature": 0.2,
+            "tools": [{"name": "add", "description": "sum",
+                       "input_schema": {"type": "object"}}],
+            "messages": [
+                {"role": "user", "content": "Add 1 and 2"},
+                {"role": "assistant", "content": [
+                    {"type": "text", "text": "Calling."},
+                    {"type": "tool_use", "id": "tu1", "name": "add", "input": {"a": 1}}]},
+                {"role": "user", "content": [
+                    {"type": "tool_result", "tool_use_id": "tu1", "content": "3"}]}]}
+    assert t_a.convert_anthropic_to_oai(body) == j_a.convert_anthropic_to_oai(body)
+    calls = [{"id": "c1", "type": "function",
+              "function": {"name": "add", "arguments": '{"a": 1}'}}]
+    for tc, reason in ((calls, "stop"), ([], "length")):
+        args = ("msg_1", "m", "text", tc, reason, "", 5, 3)
+        assert t_a.anthropic_final(*args) == j_a.anthropic_final(*args)
+        assert (t_a.anthropic_stream_finish(tc, reason, "", 3)
+                == j_a.anthropic_stream_finish(tc, reason, "", 3))
+    assert t_a.anthropic_stream_start("r", "m", 4) == j_a.anthropic_stream_start("r", "m", 4)
+    assert t_a.anthropic_stream_delta("pié") == j_a.anthropic_stream_delta("pié")
+
+
+def test_download_resolves_alike(tmp_path, monkeypatch):
+    """The -hf cache lookup is local only and finds the same file in both
+    packages' shared cache directory."""
+    import argparse
+
+    from tpullama.models import download as j_d
+    from tpullama_torch.models import download as t_d
+
+    monkeypatch.delenv("LLAMA_CACHE", raising=False)
+    monkeypatch.setenv("TPULLAMA_MODEL_CACHE", str(tmp_path))
+    for name in ("org_TinyModel_tinymodel-q4_k_m.gguf", "other_Model-Q8_0.gguf"):
+        (tmp_path / name).write_bytes(b"GGUF")
+    assert t_d.cache_dir() == j_d.cache_dir()
+    assert t_d.list_cached_models() == j_d.list_cached_models()
+    for spec in ("org/TinyModel", "org/TinyModel:Q4_K_M", "x/Model:Q8_0"):
+        ns = argparse.Namespace(model="", hf_repo=spec, hf_file="")
+        assert t_d.model_path_from_args(ns) == j_d.model_path_from_args(ns)
+    for mod in (t_d, j_d):
+        with pytest.raises(FileNotFoundError, match="no network"):
+            mod.resolve("org/Missing")
+
+
+def test_logger_records_alike():
+    import io
+
+    from tpullama import logging as j_l
+    from tpullama_torch import logging as t_l
+
+    out = []
+    for mod in (j_l, t_l):
+        lg = mod.RingLogger(capacity=4, level="info", colors=False, stream=io.StringIO())
+        for i in range(6):
+            lg.info("line %d", i)
+        lg.debug("hidden")
+        lg.flush()
+        out.append([(e.level, e.msg) for e in lg.tail(10)])
+    assert out[1] == out[0] == [("info", f"line {i}") for i in range(2, 6)]
+
+
+def test_webui_page_alike():
+    from tpullama.server.webui import INDEX_HTML as j_page
+    from tpullama_torch.server.webui import INDEX_HTML as t_page
+
+    assert t_page == j_page
+
+
+def test_router_spawns_the_port_server(monkeypatch):
+    """The router copy starts child servers of the port's own HTTP module."""
+    from tpullama_torch.server import router
+
+    seen = []
+
+    class FakePopen:
+        def __init__(self, argv, **kw):
+            seen.append(argv)
+
+    monkeypatch.setattr(router.subprocess, "Popen", FakePopen)
+    inst = router.Instance("m", "/models/m.gguf", ["--ctx-size", "64"])
+    assert seen[0][1:3] == ["-m", "tpullama_torch.server.http"]
+    assert seen[0][3:5] == ["-m", "/models/m.gguf"] and seen[0][-2:] == ["--ctx-size", "64"]
+    assert inst.base.startswith("http://127.0.0.1:")

@@ -228,6 +228,37 @@ def _metas(variant):
     return j_w, j_m, t_w, t_m
 
 
+@pytest.mark.parametrize("E,Dq,Fd", [(4096, 4096, 13696), (4096, 4224, 11008),
+                                     (16384, 4096, 256), (4096, 128, 256),
+                                     (8192, 12416, 512), (16384, 16384, 384)])
+def test_wrapper_takes_every_fused_ok_shape(E, Dq, Fd):
+    """Shapes both packages' fused_ok admit (n_embd E % 4096, attention
+    width Dq % 128) pass the kernel wrapper's checks, on meta tensors of
+    the planes and vectors the fused path hands it: the gate and the
+    wrapper agree, so LlamaLayer never takes the fused path for a shape
+    the kernel refuses."""
+    from tpullama.ops.pallas.fused_layer import fused_ok as j_ok
+    from tpullama.models.loader import QuantMeta as JQM
+    from tpullama_torch.models.loader import QuantMeta as TQM
+
+    def planes(n_out, n_in):
+        return {"q4": torch.empty((n_out, n_in // 2), dtype=torch.uint8, device="meta"),
+                "scale": torch.empty((n_out, n_in // G), dtype=torch.bfloat16, device="meta"),
+                "minv": torch.empty((n_out, n_in // G), dtype=torch.bfloat16, device="meta")}
+
+    shapes = {"attn_output": (E, Dq), "ffn_up": (2 * Fd, E)}
+    t_w = {n: planes(*sh) for n, sh in shapes.items()}
+    t_m = {n: TQM(GGMLType.Q4_K, G, *sh, order="fourblock") for n, sh in shapes.items()}
+    j_w = {n: ({k: np.zeros((sh[0], 1), np.uint8) for k in v}, 0)
+           for (n, sh), v in zip(shapes.items(), t_w.values())}
+    j_m = {n: JQM(GGMLType.Q4_K, G, *sh, order="fourblock") for n, sh in shapes.items()}
+    assert j_ok(None, j_w, j_m) and tf.fused_ok(None, t_w, t_m)
+    vec = torch.empty((1, E), dtype=torch.bfloat16, device="meta")
+    att = torch.empty((1, Dq), dtype=torch.bfloat16, device="meta")
+    got = tf.check_inputs(att, vec, t_w["attn_output"], vec[0], t_w["ffn_up"], group=G)
+    assert got == (E, Dq, 2 * Fd, torch.bfloat16, torch.bfloat16)
+
+
 @pytest.mark.parametrize("variant", ["ok", "stripe", "narrow", "q6-fields", "group-mismatch",
                                      "padded-rows", "rows-not-128", "missing", "dense"])
 def test_fused_ok_matches_reference(variant):
@@ -301,15 +332,18 @@ def test_kernel_matches_plain(cuda, E, Fd):
 @pytest.mark.cuda
 @pytest.mark.parametrize("E,Dq,Fd", [(512, 4096, 384), (4096, 512, 1536), (1024, 1024, 2712),
                                      (4096, 12288, 13696), (12288, 4096, 13696),
-                                     (12288, 12288, 8200)])
+                                     (12288, 12288, 8200), (16384, 4096, 8192),
+                                     (4096, 4224, 13696)])
 def test_kernel_takes_e_unlike_dq(cuda, E, Dq, Fd):
     """An attention width Dq other than E (each matvec's K is its own), and
-    Fd not a multiple of the 16 row pairs of a tile (2712, 8200); up to the
-    wrapper's widest width, 12288, where a phase's x no longer fits one
-    staged slice (K > 8192) and a block restages it for each of its
-    several tiles (phase B at E = 12288, phase A at E = Dq = 12288):
-    against the plain version at 1e-4 of each output's scale, bf16 and f32
-    inputs with bf16 scale planes (the served types)."""
+    Fd not a multiple of the 16 row pairs of a tile (2712, 8200); widths
+    where a phase's x no longer fits one staged slice (K > 8192) and a
+    block restages it for each of its several tiles (phase B at E = 12288
+    and 16384, phase A at E = Dq = 12288), and Dq = 4224 (33 x 128: 33
+    fourblock rows, 132 scale columns), widths fused_ok admits that the
+    wrapper once refused: against the plain version at 1e-4 of each
+    output's scale, bf16 and f32 inputs with bf16 scale planes (the served
+    types)."""
     att, x, o, w, gu = _inputs_wide(E, Dq, Fd, seed=E + Dq)
 
     def dev(d):

@@ -420,6 +420,19 @@ def test_qwen2_group7_prefill_logits_and_greedy_generate(qwen_g7):
     _check_prefill_and_generate(qwen_g7)
 
 
+@pytest.fixture(scope="module")
+def head100(tmp_path_factory):
+    """Head dim 100 (n_embd 200 over 2 heads, one kv head), OpenLLaMA-3B's
+    3200 / 32: a width the card's attention kernels take padded to 128."""
+    p = str(tmp_path_factory.mktemp("head100") / "m.gguf")
+    make_tiny_llama_gguf(p, n_embd=200, n_head=2, n_head_kv=1, n_ff=256, seed=29)
+    return p
+
+
+def test_head_dim_100_prefill_logits_and_greedy_generate(head100):
+    _check_prefill_and_generate(head100)
+
+
 # ------------------------------------------------------------ chatglm
 
 
@@ -533,3 +546,21 @@ def test_model_options_read_env_once(glm_small, monkeypatch):
     # dense weights: the fused path does not apply
     assert not any(layer.fused for layer in
                    LlamaModel(t.params, t.hparams, t.quant_meta, fused_layer=True).layers)
+
+
+def test_make_context_and_its_refusals(ggufs):
+    """make_context (the JAX package's factory) gives an attention model the
+    KV-cache Context and refuses, by name, a multi-device mode and the
+    int8 KV cache, neither ported yet."""
+    import torch
+
+    from tpullama_torch.runtime import Context, ContextParams, make_context
+
+    m = _port_load(ggufs[GGMLType.F32])
+    ctx = make_context(m, ContextParams(n_ctx=64))
+    assert isinstance(ctx, Context) and ctx.kv_k.dtype == torch.float32
+    for mode in ("tp", "pp"):
+        with pytest.raises(NotImplementedError, match=rf"parallel='{mode}'.*Queue 1 item 10"):
+            make_context(m, ContextParams(n_ctx=64, parallel=mode))
+    with pytest.raises(NotImplementedError, match="int8 KV cache.*Queue 1 item 4"):
+        make_context(m, ContextParams(n_ctx=64, kv_dtype=torch.int8))

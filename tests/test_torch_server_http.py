@@ -1,0 +1,176 @@
+"""The port's HTTP server (tpullama_torch.server.http) held against the JAX
+package's (tpullama.server.http): both serve() one tiny llama GGUF on
+free local ports (block=False, 2 slots of 128 cells, f32 engines on the
+CPU), and one scripted session goes to each. Every JSON body, SSE event
+list and Prometheus counter must be equal once the request ids,
+`created` stamps, timings and rates are dropped. Features the port has
+not ported yet answer a 501 JSON error that names them; the slot erase
+action, which the port has, works.
+
+Tolerance: none. Bodies carry decoded tokens, which both sides pick from
+f32 logits that agree to ~1e-6 (tests/test_torch_model.py): greedy, and
+one request through the same seeded sampler chain."""
+
+import json
+import urllib.error
+import urllib.request
+
+import pytest
+
+from tpullama.models.testing import make_tiny_llama_gguf
+
+CHAT = [{"role": "system", "content": "You are terse."},
+        {"role": "user", "content": "Say hi"}]
+# (method, path, body); bodies greedy unless they set a seed
+SESSION = [
+    ("GET", "/health", None),
+    ("GET", "/v1/models", None),
+    ("POST", "/v1/completions", {"prompt": "Once upon a time", "max_tokens": 10,
+                                 "temperature": 0}),
+    ("POST", "/completion", {"prompt": "Once upon", "n_predict": 6, "temperature": 0.8,
+                             "seed": 42}),
+    ("POST", "/v1/chat/completions", {"messages": CHAT, "max_tokens": 8, "temperature": 0}),
+    ("POST", "/v1/chat/completions", {"messages": CHAT, "max_tokens": 8, "temperature": 0,
+                                      "stream": True}),
+    ("POST", "/v1/completions", {"prompt": "abc", "max_tokens": 5, "temperature": 0,
+                                 "stream": True}),
+    ("POST", "/tokenize", {"content": "hello world", "add_special": True}),
+    ("POST", "/detokenize", {"tokens": [104, 101, 108, 108, 111]}),
+    ("POST", "/apply-template", {"messages": CHAT}),
+    ("POST", "/infill", {"input_prefix": "def f(", "input_suffix": "):", "n_predict": 4,
+                         "temperature": 0}),
+    ("POST", "/v1/messages", {"model": "m", "max_tokens": 6, "temperature": 0,
+                              "messages": [{"role": "user", "content": "hi"}]}),
+    ("POST", "/v1/messages/count_tokens", {"model": "m",
+                                           "messages": [{"role": "user", "content": "hi"}]}),
+    ("GET", "/props", None),
+    ("GET", "/slots", None),
+    ("POST", "/slots/1?action=erase", {}),
+    ("GET", "/lora-adapters", None),
+    ("GET", "/metrics", None),
+    ("GET", "/no-such-route", None),
+    ("POST", "/no-such-route", {}),
+]
+# requests for features the port has not ported yet: (path, body, name in
+# the error)
+REFUSED = [
+    ("/v1/embeddings", {"input": "hi"}, "/embeddings"),
+    ("/rerank", {"query": "q", "documents": ["a"]}, "/rerank"),
+    ("/slots/0?action=save", {"filename": "s.bin"}, "slot save"),
+    ("/slots/0?action=restore", {"filename": "s.bin"}, "slot restore"),
+    ("/lora-adapters", [{"id": 0, "scale": 1.0}], "LoRA"),
+    ("/v1/chat/completions", {"messages": CHAT, "grammar": 'root ::= "a"'}, "grammar"),
+    ("/v1/completions", {"prompt": "a", "json_schema": {"type": "object"}}, "json_schema"),
+    ("/v1/chat/completions", {"messages": CHAT,
+                              "response_format": {"type": "json_object"}},
+     "response_format"),
+    ("/v1/chat/completions",
+     {"messages": [{"role": "user", "content": [
+         {"type": "text", "text": "what is this"},
+         {"type": "image_url", "image_url": {"url": "data:image/png;base64,AAAA"}}]}]},
+     "image_url"),
+]
+DROP = {"id", "created", "timings", "model_path"}
+
+
+@pytest.fixture(scope="module")
+def servers(tmp_path_factory):
+    from tpullama.models import load_model as j_load
+    from tpullama.server.http import serve as j_serve
+    from tpullama_torch.models import load_model as t_load
+    from tpullama_torch.server.http import serve as t_serve
+
+    p = str(tmp_path_factory.mktemp("http") / "m.gguf")
+    make_tiny_llama_gguf(p, n_layer=2, seed=7)
+    out = {}
+    for name, load, serve, kw in (("jax", j_load, j_serve, {}),
+                                  ("torch", t_load, t_serve, {"device": "cpu"})):
+        httpd = serve(load(p, **kw), port=0, n_slots=2, n_ctx=128, block=False)
+        out[name] = f"http://127.0.0.1:{httpd.server_address[1]}"
+        out[name + "_httpd"] = httpd
+    yield out
+    for name in ("jax", "torch"):
+        httpd = out[name + "_httpd"]
+        httpd.shutdown()
+        httpd.engine.stop()
+        httpd.server_close()
+
+
+def _request(base, method, path, body):
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            code, ctype, raw = r.status, r.headers.get("Content-Type", ""), r.read()
+    except urllib.error.HTTPError as e:
+        code, ctype, raw = e.code, e.headers.get("Content-Type", ""), e.read()
+    return code, ctype, raw.decode()
+
+
+def _clean(obj):
+    if isinstance(obj, dict):
+        return {k: _clean(v) for k, v in obj.items() if k not in DROP}
+    if isinstance(obj, list):
+        return [_clean(v) for v in obj]
+    return obj
+
+
+def _parsed(ctype, text):
+    """A response as comparable data: JSON without ids, stamps and timings;
+    SSE as its list of events; Prometheus text without its rates."""
+    if ctype.startswith("application/json"):
+        return _clean(json.loads(text))
+    if ctype.startswith("text/event-stream"):
+        events = []
+        for line in text.splitlines():
+            if line.startswith("data: "):
+                d = line[6:]
+                events.append(d if d == "[DONE]" else _clean(json.loads(d)))
+            elif line.startswith("event: "):
+                events.append(line)
+        return events
+    return [ln for ln in text.splitlines() if "_seconds" not in ln]
+
+
+def test_session_bodies_equal_the_reference(servers):
+    """Each request of the script goes to both servers in turn: same status
+    and content type, and equal bodies."""
+    for m, path, body in SESSION:
+        code_j, ctype_j, text_j = _request(servers["jax"], m, path, body)
+        code_t, ctype_t, text_t = _request(servers["torch"], m, path, body)
+        assert (code_t, ctype_t) == (code_j, ctype_j), (m, path)
+        assert _parsed(ctype_t, text_t) == _parsed(ctype_j, text_j), (m, path)
+
+
+def test_streamed_chat_concatenates_to_the_plain_text(servers):
+    body = {"messages": CHAT, "max_tokens": 8, "temperature": 0}
+    _, _, plain = _request(servers["torch"], "POST", "/v1/chat/completions", body)
+    _, _, stream = _request(servers["torch"], "POST", "/v1/chat/completions",
+                            {**body, "stream": True})
+    events = _parsed("text/event-stream", stream)
+    assert events[-1] == "[DONE]"
+    text = "".join(e["choices"][0]["delta"].get("content", "") for e in events[:-1])
+    assert text == json.loads(plain)["choices"][0]["message"]["content"]
+
+
+@pytest.mark.parametrize("path,body,name", REFUSED, ids=[r[2] for r in REFUSED])
+def test_unported_features_answer_an_error_naming_them(servers, path, body, name):
+    code, ctype, text = _request(servers["torch"], "POST", path, body)
+    err = json.loads(text)["error"]
+    assert code == 501 and ctype.startswith("application/json")
+    assert err["type"] == "not_supported_error"
+    assert name in err["message"] and "Queue 1 item" in err["message"]
+    # the handler lives on: the server still answers
+    assert _request(servers["torch"], "GET", "/health", None)[0] == 200
+
+
+@pytest.mark.parametrize("kw,name", [
+    (dict(mmproj="p.gguf"), "mmproj"), (dict(loras=[("a.gguf", 1.0)]), "loras"),
+    (dict(draft_model=object()), "draft_model"), (dict(kv_unified=True), "kv_unified"),
+    (dict(split_mode="row"), "split_mode")], ids=lambda v: v if isinstance(v, str) else "")
+def test_serve_refuses_unported_options_by_name(kw, name):
+    from tpullama_torch.server.http import serve
+
+    with pytest.raises(NotImplementedError, match=rf"{name}.*Queue 1 item"):
+        serve(None, port=0, block=False, **kw)

@@ -28,6 +28,12 @@
 // row sum, reduced once at the end). The softmax runs in base 2: logits are
 // scaled by log2(e) once, so each probability is one exp2f; row maxima
 // (m) are kept in that base.
+//
+// Head dims: an instance is built for a padded width D (64, 128 or 256, a
+// multiple of the m16n8k16 k-step) and takes any runtime head dim Dr <= D.
+// Global rows are Dr values apart; the tiles, q fragments and outputs keep
+// D columns, those at or past Dr loaded as zeros, so they add nothing to
+// q . k, and nothing past Dr is written.
 
 #pragma once
 
@@ -59,6 +65,21 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
+__device__ __forceinline__ void store1(float* p, float a) { *p = a; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float a) { *p = __float2bfloat16(a); }
+
+// outputs d and d + 1 (d even) of a row of Dr values: one paired store
+// where the row keeps pairs aligned (Dr even), else one by one; nothing at
+// or past Dr
+template <typename T>
+__device__ __forceinline__ void store2_row(T* row, int d, float a, float b, int Dr) {
+  if (d + 1 < Dr && (Dr & 1) == 0) {
+    store2(row + d, a, b);
+    return;
+  }
+  if (d < Dr) store1(row + d, a);
+  if (d + 1 < Dr) store1(row + d + 1, b);
+}
 
 // A (CELLS x D) K or V tile in shared memory: bf16 rows of D values with
 // swizzled 16-byte pieces (MMA, `piece`) or f32 rows of D + 4 (FMA); both
@@ -83,6 +104,14 @@ __device__ __forceinline__ void cp_async_cg(void* dst, const void* src, bool val
                "r"(valid ? 16 : 0) : "memory");
 }
 
+// 4 bytes, zeros where !valid (cp.async.ca: mask values and bf16 pairs of
+// rows that are no whole 16-byte pieces)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0) : "memory");
+}
+
 // Four transposed 8x8 bf16 matrices (ldmatrix .trans), one row address per lane
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const __nv_bfloat16* p) {
   const unsigned a = (unsigned)__cvta_generic_to_shared(p);
@@ -92,15 +121,73 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const __nv_bfloat16*
                : "memory");
 }
 
-// Cells [s0, s0 + CELLS) of one kv head's K and V rows (kh, vh: the head's
-// first row) into tiles ks, vs by the block's threads; cells at or past S
-// come as zeros. MMA: 16-byte cp.async (committed by the caller); FMA:
-// plain loads converted to f32.
+// 8 bytes, zeros where !valid (bf16 rows of whole 4-value runs)
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 8 : 0) : "memory");
+}
+
+// MMA: cells [s0, s0 + CELLS) of one kv head's bf16 K or V rows (src: the
+// head's first row, rows of Dr values) into tile dst by the block's
+// threads, V values a copy (8: 16-byte cp.async, 4: 8-byte, 2: 4-byte,
+// 1: through registers); cells at or past S and columns at or past Dr
+// come as zeros. Not inlined: only head dims that do not fill the
+// instance take it, and inlined it cost the served widths registers.
+template <int V, int D>
+__device__ __noinline__ void copy_rows_mma(__nv_bfloat16* dst, const __nv_bfloat16* src, int s0,
+                                           int S, int Dr) {
+  constexpr int PER = D / V;  // copies per tile row
+  for (int i = threadIdx.x; i < CELLS * PER; i += THREADS) {
+    const int cell = i / PER, d = V * (i % PER);
+    const bool ok = s0 + cell < S && d < Dr;
+    const __nv_bfloat16* from = src + (ok ? (size_t)(s0 + cell) * Dr + d : 0);
+    __nv_bfloat16* to = dst + piece<D>(cell, d / 8) + d % 8;
+    if constexpr (V == 8) cp_async_cg(to, from, ok);
+    else if constexpr (V == 4) cp_async8(to, from, ok);
+    else if constexpr (V == 2) cp_async4(to, from, ok);
+    else *to = ok ? *from : __float2bfloat16(0.f);
+  }
+}
+
+// Cells [s0, s0 + CELLS) of one kv head's K or V rows (src: the head's
+// first row, rows of Dr values) into tile dst by the block's threads;
+// cells at or past S and columns at or past Dr come as zeros. MMA:
+// cp.async (committed by the caller) of the widest run a row keeps
+// aligned (copy_rows_mma); FMA: plain loads converted to f32.
+template <bool MMA, int D, typename KVT>
+__device__ __forceinline__ void copy_rows(typename Tile<MMA, D>::E* dst,
+                                          const KVT* __restrict__ src, int s0, int S, int Dr) {
+  using TL = Tile<MMA, D>;
+  if constexpr (MMA) {
+    if (Dr % 8 == 0) copy_rows_mma<8, D>(dst, src, s0, S, Dr);
+    else if (Dr % 4 == 0) copy_rows_mma<4, D>(dst, src, s0, S, Dr);
+    else if (Dr % 2 == 0) copy_rows_mma<2, D>(dst, src, s0, S, Dr);
+    else copy_rows_mma<1, D>(dst, src, s0, S, Dr);
+  } else {
+    for (int i = threadIdx.x; i < CELLS * D; i += THREADS) {
+      const int cell = i / D, d = i % D;
+      const bool ok = s0 + cell < S && d < Dr;
+      dst[cell * TL::LD + d] = ok ? to_f(src[(size_t)(s0 + cell) * Dr + d]) : 0.f;
+    }
+  }
+}
+
+// Cells [s0, s0 + CELLS) of one kv head's K and V rows (kh, vh: the
+// head's first rows) into tiles ks, vs. A head dim that fills the
+// instance (Dr == D, the served widths) takes one loop over both tensors
+// with the row pitch known at compile time; any other goes through
+// copy_rows.
 template <bool MMA, int D, typename KVT>
 __device__ __forceinline__ void copy_kv(typename Tile<MMA, D>::E* ks, typename Tile<MMA, D>::E* vs,
                                         const KVT* __restrict__ kh, const KVT* __restrict__ vh,
-                                        int s0, int S) {
+                                        int s0, int S, int Dr) {
   using TL = Tile<MMA, D>;
+  if (Dr != D) {
+    copy_rows<MMA, D, KVT>(ks, kh, s0, S, Dr);
+    copy_rows<MMA, D, KVT>(vs, vh, s0, S, Dr);
+    return;
+  }
   if constexpr (MMA) {
     constexpr int PER = D / 8;  // 16-byte pieces per row
     for (int i = threadIdx.x; i < CELLS * PER; i += THREADS) {
@@ -218,25 +305,47 @@ __device__ __forceinline__ void rescale(float (&o)[D / 8][4], const float (&alph
     for (int e = 0; e < 4; ++e) o[dn][e] *= alpha[e >> 1];
 }
 
+// values d and d + 1 (d even) of a bf16 row of Dr values as one register
+// (low half d), zeros past Dr or for a null row; one 4-byte load where the
+// row keeps pairs aligned (Dr even)
+__device__ __forceinline__ uint32_t bf16_pair(const __nv_bfloat16* row, int d, int Dr) {
+  if (!row || d >= Dr) return 0u;
+  if ((Dr & 1) == 0) return *reinterpret_cast<const uint32_t*>(row + d);
+  const unsigned short* h = reinterpret_cast<const unsigned short*>(row);
+  return (uint32_t)h[d] | (d + 1 < Dr ? (uint32_t)h[d + 1] << 16 : 0u);
+}
+
 // bf16 A fragments of this thread's two rows of q (row pointers, null past
 // the last row), for the MMA route's S = Q K^T.
 template <int D>
 __device__ __forceinline__ void load_q_frags(uint32_t (&qa)[D / 16][4],
                                              const __nv_bfloat16* q0, const __nv_bfloat16* q1,
-                                             int tig) {
+                                             int tig, int Dr) {
 #pragma unroll
   for (int ks = 0; ks < D / 16; ++ks)
 #pragma unroll
     for (int kh = 0; kh < 2; ++kh) {
       const int d = 16 * ks + 8 * kh + 2 * tig;
-      qa[ks][2 * kh] = q0 ? *reinterpret_cast<const uint32_t*>(q0 + d) : 0u;
-      qa[ks][2 * kh + 1] = q1 ? *reinterpret_cast<const uint32_t*>(q1 + d) : 0u;
+      qa[ks][2 * kh] = bf16_pair(q0, d, Dr);
+      qa[ks][2 * kh + 1] = bf16_pair(q1, d, Dr);
     }
 }
 
-// MMA: s = Q K^T over cells c0 .. c0 + 8 NT - 1 (c0 % 16 == 0) of tile ks
-template <int D, int NT>
-__device__ __forceinline__ void qk_mma(float (&s)[NT][4], const uint32_t (&qa)[D / 16][4],
+// The A fragments of a warp's 16 rows of q at k-step kk from a bf16 tile
+// of rows of D values (piece-swizzled like K; qw: the warp's first row):
+// matrix i of the ldmatrix is rows 8 (i % 2) .. + 7, k half i / 2, the
+// register order of load_q_frags.
+template <int D>
+__device__ __forceinline__ void q_frag_smem(uint32_t (&a)[4], const __nv_bfloat16* qw, int kk,
+                                            int lane) {
+  ldsm_x4(a, qw + piece<D>((lane & 7) + 8 * ((lane >> 3) & 1), 2 * kk + (lane >> 4)));
+}
+
+// MMA: s = Q K^T over cells c0 .. c0 + 8 NT - 1 (c0 % 16 == 0) of tile ks;
+// afrag(kk, a) fills the A fragments of q at k-step kk (from registers,
+// load_q_frags, or shared memory, q_frag_smem)
+template <int D, int NT, class AFrag>
+__device__ __forceinline__ void qk_mma(float (&s)[NT][4], AFrag afrag,
                                        const __nv_bfloat16* ks, int c0, int lane) {
   const int i = lane >> 3;
 #pragma unroll
@@ -246,14 +355,17 @@ __device__ __forceinline__ void qk_mma(float (&s)[NT][4], const uint32_t (&qa)[D
   // matrix i of a pair: n8 tile 2 jp + i / 2, k half i % 2
   const int r = c0 + 8 * (i >> 1) + (lane & 7);
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    afrag(kk, a);
 #pragma unroll
     for (int jp = 0; jp < NT / 2; ++jp) {
       uint32_t b[4];
       ldsm_x4(b, ks + piece<D>(r + 16 * jp, 2 * kk + (i & 1)));
-      mma_bf16(s[2 * jp], qa[kk], b[0], b[1]);
-      mma_bf16(s[2 * jp + 1], qa[kk], b[2], b[3]);
+      mma_bf16(s[2 * jp], a, b[0], b[1]);
+      mma_bf16(s[2 * jp + 1], a, b[2], b[3]);
     }
+  }
 }
 
 // MMA: o += P V over cells c0 .. c0 + 8 NT - 1 of tile vs, P (the

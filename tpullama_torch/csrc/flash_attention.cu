@@ -33,6 +33,13 @@
 // an NVIDIA H100 80GB HBM3, 700.00 W). Any f32 operand runs the same layout
 // as f32 FMAs (the FMA route of attn_tile.cuh).
 //
+// Head dims: one instance per padded width D in {64, 128, 256} takes any
+// head dim Dr <= D (attn_tile.cuh). At D = 256 the MMA route reads q's
+// fragments from a bf16 tile in shared memory at each key tile instead of
+// holding them (64 registers more beside a 128-register accumulator), and
+// the FMA route runs K and then V through one f32 tile, since two
+// buffers of K and V tiles of 256 f32 columns would not fit shared memory.
+//
 // Semantics follow the TPU kernel: scale, logit softcap, ALiBi slopes
 // multiplying visible mask values, sink logits in the final normalisation,
 // f32 online softmax, and finite zeros for rows the mask hides entirely
@@ -51,25 +58,18 @@ constexpr int NT = CELLS / 8;  // n8 tiles of a key tile per warp
 // span, at most (ROWS - 1) / G + 2 of them.
 inline int fa_mask_rows(int G) { return G == 1 ? ROWS : (ROWS - 1) / G + 2; }
 
-// Dynamic shared memory: two buffers of the K/V tiles and of the key
-// tile's mask rows (mp rows of CELLS f32), the visible key tiles' flags
-// and list (n_tiles bytes and ints); FMA adds the block's f32 q rows and
-// each warp's P buffer.
+// Dynamic shared memory: two buffers of the K/V tiles (FMA at D = 256:
+// one tile, K then V), then two buffers of the key tile's mask rows (mp
+// rows of CELLS f32) and the visible key tiles' flags and list (n_tiles
+// bytes and ints); MMA at D = 256 adds the block's bf16 q rows, FMA its
+// f32 q rows and each warp's P buffer.
 template <bool MMA, int D>
 __host__ __device__ constexpr int fa_fixed_smem() {
-  return 4 * Tile<MMA, D>::BYTES +
+  return (!MMA && D > 128 ? 1 : 4) * Tile<MMA, D>::BYTES + (MMA && D > 128 ? ROWS * D * 2 : 0) +
          (MMA ? 0 : (ROWS * Tile<false, D>::LD + 4 * 16 * (8 * NT + 4)) * (int)sizeof(float));
 }
 inline size_t fa_smem(int fixed, int mp, int n_tiles) {
   return (size_t)fixed + 2 * (size_t)mp * CELLS * sizeof(float) + (size_t)n_tiles * 5 + 16;
-}
-
-// 4 bytes of the mask, zeros where !valid (cp.async.ca: 4-byte copies keep
-// any S; the staged rows are read by several warps)
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 4 : 0) : "memory");
 }
 
 template <bool MMA, typename QT, typename KVT, int D>
@@ -77,13 +77,17 @@ __global__ void __launch_bounds__(THREADS) fa_kernel(
     const QT* __restrict__ q, const KVT* __restrict__ k, const KVT* __restrict__ v,
     const float* __restrict__ mask, const float* __restrict__ slopes,
     const float* __restrict__ sinks, QT* __restrict__ out, int Tq, int Hq, int Hkv, int S,
-    float scale, float softcap, int mp) {
+    float scale, float softcap, int mp, int Dr) {
   using TL = Tile<MMA, D>;
   using E = typename TL::E;
   constexpr int TILE = TL::BYTES / (int)sizeof(E);
+  constexpr bool QS = MMA && D > 128;   // q fragments from shared memory
+  constexpr bool ONE = !MMA && D > 128;  // one K-then-V tile
   extern __shared__ __align__(16) char smem[];
-  E* kv_s = reinterpret_cast<E*>(smem);  // [buffer][K, V] tiles
-  float* qs = reinterpret_cast<float*>(smem + 4 * TL::BYTES);  // FMA: [ROWS][D + 4]
+  E* kv_s = reinterpret_cast<E*>(smem);  // [buffer][K, V] tiles; ONE: one tile
+  char* after = smem + (ONE ? 1 : 4) * TL::BYTES;
+  __nv_bfloat16* qb = reinterpret_cast<__nv_bfloat16*>(after);  // QS: [ROWS][D], swizzled
+  float* qs = reinterpret_cast<float*>(after);                  // FMA: [ROWS][D + 4]
   float* ps = qs + ROWS * Tile<false, D>::LD;                    // FMA: [warp][16][8 NT + 4]
   float* ms = reinterpret_cast<float*>(smem + fa_fixed_smem<MMA, D>());  // [buffer][mp][CELLS]
   const int n_tiles = (S + CELLS - 1) / CELLS;
@@ -101,22 +105,36 @@ __global__ void __launch_bounds__(THREADS) fa_kernel(
   const int p0 = ROWS * rt / G;
   const int np = min(Tq - 1, (ROWS * rt + ROWS - 1) / G) - p0 + 1;
   const float* mask_p = mask + ((size_t)b * Tq + p0) * S;
-  const KVT* kh = k + ((size_t)b * Hkv + h) * S * D;
-  const KVT* vh = v + ((size_t)b * Hkv + h) * S * D;
+  const KVT* kh = k + ((size_t)b * Hkv + h) * S * Dr;
+  const KVT* vh = v + ((size_t)b * Hkv + h) * S * Dr;
   auto q_row = [&](int i) {
-    return rw.pos[i] < 0 ? nullptr : q + (((size_t)b * Tq + rw.pos[i]) * Hq + rw.hq[i]) * D;
+    return rw.pos[i] < 0 ? nullptr : q + (((size_t)b * Tq + rw.pos[i]) * Hq + rw.hq[i]) * Dr;
+  };
+  // value d of the block's row i (zeros past the last row and past Dr)
+  auto q_val = [&](int i, int d) {
+    const int r = ROWS * rt + i;
+    return r < R && d < Dr ? q[(((size_t)b * Tq + r / G) * Hq + h * G + r % G) * Dr + d]
+                           : QT(0.f);
   };
 
-  uint32_t qa[MMA ? D / 16 : 1][4];
-  if constexpr (MMA) {
-    load_q_frags<D>(qa, q_row(0), q_row(1), tig);
+  uint32_t qa[MMA && !QS ? D / 16 : 1][4];
+  if constexpr (QS) {
+    for (int i = tid; i < ROWS * D; i += THREADS)
+      qb[piece<D>(i / D, i % D / 8) + i % 8] = q_val(i / D, i % D);
+  } else if constexpr (MMA) {
+    load_q_frags<D>(qa, q_row(0), q_row(1), tig, Dr);
   } else {
-    for (int i = tid; i < ROWS * D; i += THREADS) {
-      const int r = ROWS * rt + i / D, d = i % D;
-      qs[(i / D) * Tile<false, D>::LD + d] =
-          r < R ? to_f(q[(((size_t)b * Tq + r / G) * Hq + h * G + r % G) * D + d]) : 0.f;
-    }
+    for (int i = tid; i < ROWS * D; i += THREADS)
+      qs[(i / D) * Tile<false, D>::LD + i % D] = to_f(q_val(i / D, i % D));
   }
+  auto afrag = [&](int kk, uint32_t (&a)[4]) {
+    if constexpr (QS) {
+      q_frag_smem<D>(a, qb + 16 * warp * D, kk, lane);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[e] = qa[MMA ? kk : 0][e];
+    }
+  };
 
   // Which key tiles does any of the block's rows see? One pass over its
   // positions' mask rows by the whole block, then the visible tiles listed
@@ -168,10 +186,11 @@ __global__ void __launch_bounds__(THREADS) fa_kernel(
     for (int e = 0; e < 4; ++e) o[dn][e] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 
-  // key tile t's K, V and mask rows into buffer buf
+  // key tile t's mask rows and (but ONE) K and V into buffer buf
   auto copy = [&](int t, int buf) {
-    copy_kv<MMA, D, KVT>(kv_s + (2 * buf) * TILE, kv_s + (2 * buf + 1) * TILE, kh, vh,
-                         CELLS * t, S);
+    if constexpr (!ONE)
+      copy_kv<MMA, D, KVT>(kv_s + (2 * buf) * TILE, kv_s + (2 * buf + 1) * TILE, kh, vh,
+                           CELLS * t, S, Dr);
     float* mb = ms + buf * mp * CELLS;
     if (S % 4 == 0) {  // 16-byte runs
       for (int i = 4 * tid; i < np * CELLS; i += 4 * THREADS) {
@@ -196,20 +215,29 @@ __global__ void __launch_bounds__(THREADS) fa_kernel(
     cp_async_wait<1>();  // tile it's copies
     __syncthreads();
     const int t = list[it];
-    const E* ks = kv_s + (2 * buf) * TILE;
-    const E* vs = kv_s + (2 * buf + 1) * TILE;
+    const E* ks = kv_s + (ONE ? 0 : 2 * buf) * TILE;
+    const E* vs = kv_s + (ONE ? 0 : 2 * buf + 1) * TILE;
     const float* mb = ms + buf * mp * CELLS;
     const float* const mr[2] = {rw.pos[0] < 0 ? nullptr : mb + (rw.pos[0] - p0) * CELLS,
                                 rw.pos[1] < 0 ? nullptr : mb + (rw.pos[1] - p0) * CELLS};
     float s[NT][4], alpha[2];
-    if constexpr (MMA) qk_mma<D, NT>(s, qa, ks, 0, lane);
+    if constexpr (ONE) {
+      copy_rows<MMA, D, KVT>(kv_s, kh, CELLS * t, S, Dr);
+      __syncthreads();
+    }
+    if constexpr (MMA) qk_mma<D, NT>(s, afrag, ks, 0, lane);
     else qk_fma<D, NT>(s, qs + 16 * warp * Tile<false, D>::LD, ks, 0, g, tig);
     mask_scores<NT>(s, mr, S - CELLS * t, rw, tig, scale, softcap, slopes != nullptr);
     softmax_run<NT>(s, m, l, alpha);
     rescale<D>(o, alpha);
+    if constexpr (ONE) {
+      __syncthreads();  // every warp is done with K
+      copy_rows<MMA, D, KVT>(kv_s, vh, CELLS * t, S, Dr);
+      __syncthreads();
+    }
     if constexpr (MMA) pv_mma<D, NT>(o, s, vs, 0, lane);
     else pv_fma<D, NT>(o, s, ps + warp * 16 * (8 * NT + 4), vs, 0, g, tig);
-    __syncthreads();  // the buffer is free for the copy two tiles on
+    __syncthreads();  // the buffers are free for the copies two tiles on
   }
 
 #pragma unroll
@@ -218,17 +246,17 @@ __global__ void __launch_bounds__(THREADS) fa_kernel(
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     if (rw.pos[i] < 0) continue;
     const float f = finish_row(m[i], l[i], sinks, rw.hq[i]);
-    QT* orow = out + (((size_t)b * Tq + rw.pos[i]) * Hq + rw.hq[i]) * D + 2 * tig;
+    QT* orow = out + (((size_t)b * Tq + rw.pos[i]) * Hq + rw.hq[i]) * Dr;
 #pragma unroll
     for (int dn = 0; dn < D / 8; ++dn)
-      store2(orow + 8 * dn, o[dn][2 * i] * f, o[dn][2 * i + 1] * f);
+      store2_row(orow, 8 * dn + 2 * tig, o[dn][2 * i] * f, o[dn][2 * i + 1] * f, Dr);
   }
 }
 
 template <bool MMA, typename QT, typename KVT, int D>
 int launch(const void* q, const void* k, const void* v, const float* mask,
            const float* slopes, const float* sinks, void* out, int B, int Tq,
-           int Hq, int Hkv, int S, float scale, float softcap, cudaStream_t st) {
+           int Hq, int Hkv, int S, int Dr, float scale, float softcap, cudaStream_t st) {
   constexpr int fixed = fa_fixed_smem<MMA, D>();
   const int G = Hq / Hkv, mp = fa_mask_rows(G), n_tiles = (S + CELLS - 1) / CELLS;
   const size_t smem = fa_smem(fixed, mp, n_tiles);
@@ -246,18 +274,21 @@ int launch(const void* q, const void* k, const void* v, const float* mask,
   const int R = Tq * G;
   kern<<<dim3((R + ROWS - 1) / ROWS, Hkv, B), THREADS, smem, st>>>(
       static_cast<const QT*>(q), static_cast<const KVT*>(k), static_cast<const KVT*>(v), mask,
-      slopes, sinks, static_cast<QT*>(out), Tq, Hq, Hkv, S, scale, softcap, mp);
+      slopes, sinks, static_cast<QT*>(out), Tq, Hq, Hkv, S, scale, softcap, mp, Dr);
   return (int)cudaGetLastError();
 }
 
+// the instance of the padded width that holds head dim D
 template <bool MMA, typename QT, typename KVT>
 int pick_d(int D, const void* q, const void* k, const void* v, const float* mask,
            const float* slopes, const float* sinks, void* out, int B, int Tq,
            int Hq, int Hkv, int S, float scale, float softcap, cudaStream_t st) {
-  if (D == 64)
-    return launch<MMA, QT, KVT, 64>(q, k, v, mask, slopes, sinks, out, B, Tq, Hq, Hkv, S, scale, softcap, st);
-  if (D == 128)
-    return launch<MMA, QT, KVT, 128>(q, k, v, mask, slopes, sinks, out, B, Tq, Hq, Hkv, S, scale, softcap, st);
+  if (D >= 1 && D <= 64)
+    return launch<MMA, QT, KVT, 64>(q, k, v, mask, slopes, sinks, out, B, Tq, Hq, Hkv, S, D, scale, softcap, st);
+  if (D > 64 && D <= 128)
+    return launch<MMA, QT, KVT, 128>(q, k, v, mask, slopes, sinks, out, B, Tq, Hq, Hkv, S, D, scale, softcap, st);
+  if (D > 128 && D <= 256)
+    return launch<MMA, QT, KVT, 256>(q, k, v, mask, slopes, sinks, out, B, Tq, Hq, Hkv, S, D, scale, softcap, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -265,7 +296,7 @@ int pick_d(int D, const void* q, const void* k, const void* v, const float* mask
 
 // q: (B, Tq, Hq, D); k, v: (B, Hkv, S, D); mask: (B, Tq, S) f32 additive;
 // slopes, sinks: (Hq,) f32 or null; out: (B, Tq, Hq, D) in q's type.
-// Requires Hq % Hkv == 0 and D in {64, 128} (the wrapper checks). bf16 q, k
+// Requires Hq % Hkv == 0 and 1 <= D <= 256 (the wrapper checks). bf16 q, k
 // and v run the tensor-core route, any f32 operand the FMA route.
 extern "C" int tpl_flash_attention(int q_bf16, int kv_bf16, const void* q,
                                    const void* k, const void* v, const float* mask,

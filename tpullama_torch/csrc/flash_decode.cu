@@ -36,6 +36,11 @@
 // 128-long dot products) followed by a second combine launch: 0.0864 ms at
 // B = 1 and 0.0974 ms at B = 4 on an NVIDIA H100 80GB HBM3, 700.00 W.
 //
+// Head dims: one instance per padded width D in {64, 128, 256} takes any
+// head dim Dr <= D (attn_tile.cuh); the chunks' partial outputs are rows
+// of DP = Dr rounded up to 4 values, so the merge reads them 16 bytes at a
+// time.
+//
 // Semantics follow the TPU kernel: additive f32 mask (<= -1e30 hidden),
 // logit softcap, ALiBi slopes multiplying the visible mask values, sink
 // logits in the final normalisation, and finite zeros for rows whose mask
@@ -66,7 +71,7 @@ __global__ void __launch_bounds__(THREADS) fd_kernel(
     const float* __restrict__ mask, const float* __restrict__ slopes,
     const float* __restrict__ sinks, float* __restrict__ part_o, float* __restrict__ part_ml,
     int* __restrict__ tickets, QT* __restrict__ out, int Tq, int Hq, int Hkv, int S,
-    float scale, float softcap) {
+    float scale, float softcap, int Dr) {
   using TL = Tile<MMA, D>;
   using SM = FdSmem<MMA, D>;
   using E = typename TL::E;
@@ -92,23 +97,25 @@ __global__ void __launch_bounds__(THREADS) fd_kernel(
   const float* mask_b = mask + (size_t)b * Tq * S;
   const int s0 = c * CELLS, c0 = 16 * warp;  // the chunk's and the warp's first cell
   const size_t part = (size_t)bh * NC + c;    // partial rows at (part * R + row)
+  const int DP = (Dr + 3) & ~3;               // a partial row's values
   auto q_row = [&](int i) {
-    return rw.pos[i] < 0 ? nullptr : q + (((size_t)b * Tq + rw.pos[i]) * Hq + rw.hq[i]) * D;
+    return rw.pos[i] < 0 ? nullptr : q + (((size_t)b * Tq + rw.pos[i]) * Hq + rw.hq[i]) * Dr;
   };
 
   // q first, so that its loads overlap the vote's
   uint32_t qa[MMA ? D / 16 : 1][4];
   if constexpr (MMA) {
-    load_q_frags<D>(qa, q_row(0), q_row(1), tig);
+    load_q_frags<D>(qa, q_row(0), q_row(1), tig, Dr);
   } else {
     for (int i = tid; i < 16 * D; i += THREADS) {
       const int r = r0 + i / D, d = i % D;
       qs[(i / D) * Tile<false, D>::LD + d] =
-          r < R ? to_f(q[(((size_t)b * Tq + r / G) * Hq + h * G + r % G) * D + d]) : 0.f;
+          r < R && d < Dr ? to_f(q[(((size_t)b * Tq + r / G) * Hq + h * G + r % G) * Dr + d])
+                          : 0.f;
     }
   }
   if (__syncthreads_or(any_visible<NT>(mask_b, S, rw, s0 + c0, tig))) {
-    copy_kv<MMA, D, KVT>(ks, vs, k + (size_t)bh * S * D, v + (size_t)bh * S * D, s0, S);
+    copy_kv<MMA, D, KVT>(ks, vs, k + (size_t)bh * S * Dr, v + (size_t)bh * S * Dr, s0, S, Dr);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -118,8 +125,14 @@ __global__ void __launch_bounds__(THREADS) fd_kernel(
     for (int dn = 0; dn < D / 8; ++dn)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[dn][e] = 0.f;
-    if constexpr (MMA) qk_mma<D, NT>(s, qa, ks, c0, lane);
-    else qk_fma<D, NT>(s, qs, ks, c0, g, tig);
+    if constexpr (MMA) {
+      qk_mma<D, NT>(s, [&](int kk, uint32_t (&a)[4]) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qa[kk][e];
+      }, ks, c0, lane);
+    } else {
+      qk_fma<D, NT>(s, qs, ks, c0, g, tig);
+    }
     const float* const mr[2] = {
         rw.pos[0] < 0 ? nullptr : mask_b + (size_t)rw.pos[0] * S + s0 + c0,
         rw.pos[1] < 0 ? nullptr : mask_b + (size_t)rw.pos[1] * S + s0 + c0};
@@ -143,8 +156,11 @@ __global__ void __launch_bounds__(THREADS) fd_kernel(
     }
     __syncthreads();
     // the chunk's partials: the four warps' runs merged in warp order
+    // (indices over the instance's D, so the divisions are by a constant;
+    // columns at or past DP are skipped)
     for (int i = tid; i < nr * D; i += THREADS) {
       const int row = i / D, d = i % D;
+      if (d >= DP) continue;
       float M = NEG_INF;
 #pragma unroll
       for (int w = 0; w < 4; ++w)
@@ -159,7 +175,7 @@ __global__ void __launch_bounds__(THREADS) fd_kernel(
           O = fmaf(wo[(w * 16 + row) * D + d], f, O);
         }
       }
-      part_o[(part * R + r0 + row) * D + d] = O;
+      part_o[(part * R + r0 + row) * DP + d] = O;
       if (d == 0) {
         part_ml[2 * (part * R + r0 + row)] = M;
         part_ml[2 * (part * R + r0 + row) + 1] = L;
@@ -190,7 +206,7 @@ __global__ void __launch_bounds__(THREADS) fd_kernel(
   constexpr int IT = (16 * D / 4 + THREADS - 1) / THREADS;  // outputs (x4) per thread
   float2* mls = reinterpret_cast<float2*>(smem);            // [chunk][16 rows]
   const float2* pml = reinterpret_cast<const float2*>(part_ml) + (size_t)bh * NC * R + r0;
-  const float* po = part_o + ((size_t)bh * NC * R + r0) * D;
+  const float* po = part_o + ((size_t)bh * NC * R + r0) * DP;
   float M[IT], L[IT];
   float4 O[IT];
 #pragma unroll
@@ -209,6 +225,7 @@ __global__ void __launch_bounds__(THREADS) fd_kernel(
       const int i = tid + k * THREADS;
       if (i >= nr * (D / 4)) break;
       const int row = i / (D / 4), d = 4 * (i % (D / 4));
+      if (d >= DP) continue;
       float Mw = M[k];
       for (int c2 = 0; c2 < nw; ++c2) {
         const float2 ml = mls[c2 * 16 + row];
@@ -226,7 +243,7 @@ __global__ void __launch_bounds__(THREADS) fd_kernel(
 #pragma unroll
         for (int j = 0; j < MB; ++j)
           p[j] = __ldcg(reinterpret_cast<const float4*>(
-              po + ((size_t)(w0 + min(cb + j, nw - 1)) * R + row) * D + d));
+              po + ((size_t)(w0 + min(cb + j, nw - 1)) * R + row) * DP + d));
 #pragma unroll
         for (int j = 0; j < MB; ++j) {
           if (cb + j >= nw) break;
@@ -248,11 +265,12 @@ __global__ void __launch_bounds__(THREADS) fd_kernel(
     const int i = tid + k * THREADS;
     if (i >= nr * (D / 4)) break;
     const int row = r0 + i / (D / 4), d = 4 * (i % (D / 4));
+    if (d >= DP) continue;
     const int hq = h * G + row % G;
     const float fin = finish_row(M[k], L[k], sinks, hq);
-    QT* orow = out + (((size_t)b * Tq + row / G) * Hq + hq) * D + d;
-    store2(orow, O[k].x * fin, O[k].y * fin);
-    store2(orow + 2, O[k].z * fin, O[k].w * fin);
+    QT* orow = out + (((size_t)b * Tq + row / G) * Hq + hq) * Dr;
+    store2_row(orow, d, O[k].x * fin, O[k].y * fin, Dr);
+    store2_row(orow, d + 2, O[k].z * fin, O[k].w * fin, Dr);
   }
   if (tid == 0) *ticket = 0;
 }
@@ -260,7 +278,7 @@ __global__ void __launch_bounds__(THREADS) fd_kernel(
 template <bool MMA, typename QT, typename KVT, int D>
 int launch(const void* q, const void* k, const void* v, const float* mask,
            const float* slopes, const float* sinks, float* part_o, float* part_ml,
-           int* tickets, void* out, int B, int Tq, int Hq, int Hkv, int S, float scale,
+           int* tickets, void* out, int B, int Tq, int Hq, int Hkv, int S, int Dr, float scale,
            float softcap, cudaStream_t st) {
   constexpr int smem = FdSmem<MMA, D>::BYTES;
   auto kern = fd_kernel<MMA, QT, KVT, D>;
@@ -272,25 +290,29 @@ int launch(const void* q, const void* k, const void* v, const float* mask,
   kern<<<dim3((S + CELLS - 1) / CELLS, (R + 15) / 16, B * Hkv), THREADS, smem, st>>>(
       static_cast<const QT*>(q), static_cast<const KVT*>(k), static_cast<const KVT*>(v), mask,
       slopes, sinks, part_o, part_ml, tickets, static_cast<QT*>(out), Tq, Hq, Hkv, S, scale,
-      softcap);
+      softcap, Dr);
   return (int)cudaGetLastError();
 }
 
+// the instance of the padded width that holds head dim D
 template <bool MMA, typename QT, typename KVT>
 int pick_d(int D, const void* q, const void* k, const void* v, const float* mask,
            const float* slopes, const float* sinks, float* po, float* pml, int* tk, void* out,
            int B, int Tq, int Hq, int Hkv, int S, float scale, float softcap, cudaStream_t st) {
-  if (D == 64)
-    return launch<MMA, QT, KVT, 64>(q, k, v, mask, slopes, sinks, po, pml, tk, out, B, Tq, Hq, Hkv, S, scale, softcap, st);
-  if (D == 128)
-    return launch<MMA, QT, KVT, 128>(q, k, v, mask, slopes, sinks, po, pml, tk, out, B, Tq, Hq, Hkv, S, scale, softcap, st);
+  if (D >= 1 && D <= 64)
+    return launch<MMA, QT, KVT, 64>(q, k, v, mask, slopes, sinks, po, pml, tk, out, B, Tq, Hq, Hkv, S, D, scale, softcap, st);
+  if (D > 64 && D <= 128)
+    return launch<MMA, QT, KVT, 128>(q, k, v, mask, slopes, sinks, po, pml, tk, out, B, Tq, Hq, Hkv, S, D, scale, softcap, st);
+  if (D > 128 && D <= 256)
+    return launch<MMA, QT, KVT, 256>(q, k, v, mask, slopes, sinks, po, pml, tk, out, B, Tq, Hq, Hkv, S, D, scale, softcap, st);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q: (B, Tq, Hq, D); k, v: (B, Hkv, S, D); mask: (B, Tq, S) f32 additive;
-// slopes, sinks: (Hq,) f32 or null; part_o: (B, Hkv, ceil(S/64), R, D) f32
+// slopes, sinks: (Hq,) f32 or null; part_o: (B, Hkv, ceil(S/64), R, DP) f32
+// (DP = D rounded up to a multiple of 4, 1 <= D <= 256)
 // and part_ml: (B, Hkv, ceil(S/64), R, 2) f32 scratch (R = Tq * Hq / Hkv);
 // tickets: B * Hkv * ceil(R/16) int32, all 0 (each call leaves them 0);
 // out: (B, Tq, Hq, D) in q's type. q_bf16 / kv_bf16 select bf16 (1) or f32

@@ -9,6 +9,9 @@ from ..attention import attention
 NEG_HALF = -5e29  # half the TPU kernels' NEG_INF: a mask value at or below it hides
 ROWS = 64   # query rows per flash_attention block (csrc/flash_attention.cu)
 CELLS = 64  # key cells per flash_attention tile and per flash_decode chunk
+# the widest head dim the kernels take: their instances pad D to 64, 128
+# or 256 (csrc/attn_tile.cuh)
+MAX_HEAD_DIM = 256
 
 
 def row_plan(Tq: int, G: int, rows: int):
@@ -51,8 +54,8 @@ def check_inputs(name, q, k, v, mask, sinks, alibi_slopes):
     Bk, Hkv, S, Dk = k.shape
     if Bk != B or Dk != D or Hq % Hkv:
         raise ValueError(f"{name}: q {tuple(q.shape)} does not match k {tuple(k.shape)}")
-    if D not in (64, 128):
-        raise ValueError(f"{name}: head dim {D} (kernel covers 64 and 128)")
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {D} (the kernels take 1 to {MAX_HEAD_DIM})")
     for t, what in ((q, "q"), (k, "k"), (v, "v")):
         if t.device != q.device or t.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"{name}: {what} is {t.dtype} on {t.device}")

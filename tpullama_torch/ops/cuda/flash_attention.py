@@ -4,8 +4,9 @@ Port of tpullama/ops/pallas/flash_attention.py:flash_attention. On a CUDA
 tensor the wrapper launches csrc/flash_attention.cu (bf16 q, k and v on
 the tensor cores, any f32 operand as f32 FMAs); on a CPU tensor it
 computes the plain version (ops/cuda/common.flash_plain). Any GQA group
-Hq % Hkv == 0 is taken: the kernel cuts the (position, head) query rows of
-a kv head into tiles of 64 (common.row_plan). Int8 K/V scales are not
+Hq % Hkv == 0 and any head dim up to common.MAX_HEAD_DIM are taken: the
+kernel cuts the (position, head) query rows of a kv head into tiles of 64
+(common.row_plan). Int8 K/V scales are not
 taken yet (they arrive with the int8 KV cache).
 """
 

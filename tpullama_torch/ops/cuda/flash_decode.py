@@ -6,8 +6,9 @@ CUDA tensor it launches csrc/flash_decode.cu (one launch: chunks of 64
 cells, merged by the last block of each query-row tile) for any B, and
 counts B = 1 and B > 1 calls apart so a run shows which of the two TPU
 kernels' roles it exercised. Any GQA group Hq % Hkv == 0 and any Tq is
-taken: the kernel cuts the (position, head) query rows of a kv head into
-tiles of 16 (common.row_plan). On a CPU tensor it computes the plain
+taken, and any head dim up to common.MAX_HEAD_DIM: the kernel cuts the
+(position, head) query rows of a kv head into tiles of 16
+(common.row_plan). On a CPU tensor it computes the plain
 version (ops/cuda/common.flash_plain). Int8 K/V scales are not taken yet
 (they arrive with the int8 KV cache).
 """
@@ -50,7 +51,9 @@ def flash_decode(q, k, v, mask, scale: float, softcap: float = 0.0,
     Hkv, S = k.shape[1], k.shape[2]
     R = (Hq // Hkv) * Tq
     NC = -(-S // CELLS)
-    part_o = torch.empty((B, Hkv, NC, R, D), dtype=torch.float32, device=q.device)
+    # the chunks' partial rows: D rounded up to 4 values (16-byte reads)
+    part_o = torch.empty((B, Hkv, NC, R, -(-D // 4) * 4), dtype=torch.float32,
+                         device=q.device)
     part_ml = torch.empty((B, Hkv, NC, R, 2), dtype=torch.float32, device=q.device)
     tickets = _tickets(q.device, B * Hkv * -(-R // ROW_TILE))
     out = torch.empty_like(q)

@@ -29,9 +29,6 @@ from .qmm import dequant_stored, permute_x
 # launches since the last reset (chip_smoke.py reads it)
 LAUNCHES = {"fused_postattn": 0}
 _FIELDS = {"q4", "scale", "minv"}
-# the widest Dq or E the wrapper admits (the kernel stages x in slices of
-# 8192 elements, so this bounds what is tested, not shared memory)
-_MAX_WIDTH = 12288
 
 
 def resolve_fused_layer(value: bool | None) -> bool:
@@ -88,19 +85,10 @@ def fused_postattn_plain(att, x_res, o_fields, norm_w, gu_fields, *, group: int,
     return F.silu(g[:, :Fd]) * g[:, Fd:], r1
 
 
-def fused_postattn(att, x_res, o_fields, norm_w, gu_fields, *, group: int, eps: float):
-    """att: (1, Dq) attention output (before the o-projection); x_res:
-    (1, E) residual input; o_fields: attn_output planes (E rows);
-    gu_fields: [gate|up] planes (2 Fd rows), both {q4, scale, minv} in
-    fourblock order; norm_w: (E,) ffn_norm weight. Returns (act (1, Fd),
-    r1 (1, E)) f32, act in natural element order."""
-    if att.device.type == "cpu":
-        return fused_postattn_plain(att, x_res, o_fields, norm_w, gu_fields, group=group,
-                                    eps=eps)
-    if att.device.type != "cuda":
-        raise RuntimeError(f"fused_postattn: unsupported device {att.device}")
-    from .build import check, library, ptr, stream
-
+def check_inputs(att, x_res, o_fields, norm_w, gu_fields, *, group: int):
+    """The kernel's checks of shapes, field sets and dtypes, on tensors of
+    any one device (the wrapper runs them before each launch). Returns (E,
+    Dq, 2 Fd, x dtype, scale dtype)."""
     E, Dq = x_res.shape[-1], att.shape[-1]
     F2 = gu_fields["q4"].shape[0]
     if att.numel() != Dq or x_res.numel() != E or norm_w.numel() != E or F2 % 2:
@@ -108,9 +96,10 @@ def fused_postattn(att, x_res, o_fields, norm_w, gu_fields, *, group: int, eps: 
                          f"norm_w {tuple(norm_w.shape)}, [gate|up] rows {F2}")
     if group != 32:
         raise ValueError(f"fused_postattn kernel: group {group} (covers 32)")
-    if Dq % 512 or E % 512 or max(Dq, E) > _MAX_WIDTH:
-        raise ValueError(f"fused_postattn kernel: Dq={Dq}, E={E} must be multiples of 512 "
-                         f"and at most {_MAX_WIDTH}")
+    # the fourblock order's rows of 128 (fused_ok admits Dq % 128, E % 4096);
+    # the kernel stages x in slices of 8192 values, so any width fits
+    if Dq % 128 or E % 128:
+        raise ValueError(f"fused_postattn kernel: Dq={Dq}, E={E} must be multiples of 128")
     sdt = o_fields["scale"].dtype
     for fields, n, k in ((o_fields, E, Dq), (gu_fields, F2, E)):
         if set(fields) != _FIELDS:
@@ -127,8 +116,26 @@ def fused_postattn(att, x_res, o_fields, norm_w, gu_fields, *, group: int, eps: 
     xdt = att.dtype if all(v.dtype == att.dtype for v in vecs) else torch.float32
     if xdt not in (torch.float32, torch.bfloat16):
         xdt = torch.float32
+    return E, Dq, F2, xdt, sdt
+
+
+def fused_postattn(att, x_res, o_fields, norm_w, gu_fields, *, group: int, eps: float):
+    """att: (1, Dq) attention output (before the o-projection); x_res:
+    (1, E) residual input; o_fields: attn_output planes (E rows);
+    gu_fields: [gate|up] planes (2 Fd rows), both {q4, scale, minv} in
+    fourblock order; norm_w: (E,) ffn_norm weight. Returns (act (1, Fd),
+    r1 (1, E)) f32, act in natural element order."""
+    if att.device.type == "cpu":
+        return fused_postattn_plain(att, x_res, o_fields, norm_w, gu_fields, group=group,
+                                    eps=eps)
+    if att.device.type != "cuda":
+        raise RuntimeError(f"fused_postattn: unsupported device {att.device}")
+    from .build import check, library, ptr, stream
+
+    E, Dq, F2, xdt, sdt = check_inputs(att, x_res, o_fields, norm_w, gu_fields, group=group)
     # the body reads att and norm_w by 16-byte loads
-    att, x_res, norm_w = (v.to(device=att.device, dtype=xdt).contiguous() for v in vecs)
+    att, x_res, norm_w = (v.to(device=att.device, dtype=xdt).contiguous()
+                          for v in (att, x_res, norm_w))
     att, norm_w = (v if v.data_ptr() % 16 == 0 else v.clone() for v in (att, norm_w))
     act = torch.empty((1, F2 // 2), dtype=torch.float32, device=att.device)
     r1 = torch.empty((1, E), dtype=torch.float32, device=att.device)

@@ -1,5 +1,5 @@
 """Runtime layer: KV cache + decode engine, host sampler chain."""
 
-from .context import Context, ContextParams
+from .context import Context, ContextParams, make_context
 
-__all__ = ["Context", "ContextParams"]
+__all__ = ["Context", "ContextParams", "make_context"]

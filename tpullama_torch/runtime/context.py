@@ -41,6 +41,8 @@ class ContextParams:
     n_seqs: int = 1
     dtype: torch.dtype = torch.float32
     kv_dtype: torch.dtype | None = None  # default: same as dtype
+    # multi-device mode ("pp" / "tp"): not ported yet, refused by make_context
+    parallel: str | None = None
 
 
 def _bucket(n: int, lo: int = 16) -> int:
@@ -84,6 +86,10 @@ class Context:
         S = -(-(self.p.n_ctx + 1) // 128) * 128
         self._S = S
         kv_dt = self.p.kv_dtype or self.p.dtype
+        if not kv_dt.is_floating_point:
+            raise NotImplementedError(
+                f"kv_dtype {kv_dt}: the int8 KV cache is not ported yet "
+                "(ROADMAP.md Queue 1 item 4)")
         Hkv, Dk, Dv = hp.n_head_kv, hp.n_embd_head_k, hp.n_embd_head_v
         # HEAD-MAJOR cache (L, B, Hkv, S, D): attention streams each head's
         # rows contiguously; the writer scatters its few rows
@@ -340,3 +346,17 @@ class Context:
                 break
             logits = self.decode(np.asarray([tok], np.int32), n_logits=1)[-1]
         return out
+
+
+def make_context(model: LoadedModel, params: ContextParams | None = None, **kw) -> Context:
+    """Context factory (the JAX package's runtime make_context): an
+    attention model gets the KV-cache Context; `kw` goes to it. The
+    recurrent, hybrid, encoder and seq2seq contexts are not ported yet
+    (ROADMAP.md Queue 1 item 7): such an arch is refused by name
+    (check_supported), and so is a multi-device mode (item 10)."""
+    check_supported(model.hparams)
+    if params is not None and params.parallel:
+        raise NotImplementedError(
+            f"parallel={params.parallel!r}: the multi-device modes are not ported yet "
+            "(ROADMAP.md Queue 1 item 10)")
+    return Context(model, params, **kw)

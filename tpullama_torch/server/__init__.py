@@ -1,4 +1,5 @@
-"""Serving layer: the continuous-batching slot engine."""
+"""Serving layer: the continuous-batching slot engine (engine.py) and the
+HTTP server over it (http.py, router.py)."""
 
 from .engine import ServerEngine, Task
 

@@ -89,6 +89,11 @@ class ServerEngine:
         cp = ContextParams(n_ctx=n_ctx, n_seqs=n_slots, n_ubatch=n_ubatch,
                            dtype=dtype or torch.float32)
         self.ctx = Context(model, cp, fused_layer=fused_layer, qmm_tile_k=qmm_tile_k)
+        # the JAX package's encoder context (embeddings-only models) and
+        # speculative draft model, read by the HTTP layer: neither is
+        # ported yet, so always None here
+        self.encoder = None
+        self.draft_model = None
         self.n_ubatch = n_ubatch
         self.burst = int(burst)
         self.slots = [Slot(i) for i in range(n_slots)]
