@@ -21,11 +21,23 @@ Phases, each printing one JSON line with its seconds:
             greedy request run again returns the same text. Then, after
             the path's launch counts are read, torch.profiler splits a
             packed 4x256 prefill chunk and a B=4 decode step of its
-            Context into host wall time and the card's busy time by kernel
+            Context into host wall time and the card's busy time by kernel;
+            the decode step replays its CUDA graph, and the same step run
+            eagerly is profiled beside it
   moe_model, moe_crosscheck, moe_serve
             the same three on a Mixtral-8x7B-shaped MoE llama (8 experts,
             2 per token; 8 of its 32 layers, 1 in the cross-check), whose
             expert FFNs run through the gathered qmm kernels
+  graphs, moe_graphs, glm_graphs
+            each served model's one-token decode steps as CUDA graphs: two
+            Contexts over the loaded model with the same prefilled lanes,
+            one replaying its step programs' graphs, the other running the
+            private eager step they capture: 8 decode_batch steps with one
+            lane inactive (equal logits), a greedy decode_batch_burst of 8
+            and, on one lane, a greedy decode_burst of 16 (equal ids and
+            bookkeeping); a sampled decode_burst equal on a rerun from the
+            same seed, and at temperature 1e-4 with top-k 1 the greedy
+            ids; each capture's seconds and reserved bytes
   glm_model, glm_crosscheck, glm_serve
             the same three on a ChatGLM3-6B-shaped model (28 layers; 1 in
             the cross-check) with the fused post-attention layer and 4
@@ -49,7 +61,8 @@ Phases, each printing one JSON line with its seconds:
             output tok/s as an HTTP client sees them
   cli       tpullama_torch.tools.cli.main on a 2-layer Q8_0 file at
             Llama-3-8B's widths (dense bf16 weights, the CLI's default), 16
-            greedy tokens on the card and with --device cpu: the same text
+            greedy tokens on the card with --burst 16 and --burst 1, and
+            with --device cpu: the same text
 The crosscheck, serve, http and cli paths each run with every
 launch count set to 0 just before and read just after, and fail unless
 each kernel that path must run was launched. Then one JSON line lists every
@@ -81,9 +94,10 @@ PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 FLUSH_BYTES = 512 << 20  # written between timed launches: evicts the 50 MB L2
 NEG_HIDDEN = -5e29  # additive mask values at or below this hide a cell
 
-ALL_PHASES = ("card", "build", "kernels", "model", "crosscheck", "serve", "http", "cli",
-              "moe_model", "moe_crosscheck", "moe_serve", "glm_model", "glm_crosscheck",
-              "glm_serve", "qwen_crosscheck", "openllama_crosscheck")
+ALL_PHASES = ("card", "build", "kernels", "model", "crosscheck", "serve", "graphs", "http",
+              "cli", "moe_model", "moe_crosscheck", "moe_serve", "moe_graphs", "glm_model",
+              "glm_crosscheck", "glm_serve", "glm_graphs", "qwen_crosscheck",
+              "openllama_crosscheck")
 
 
 def emit(obj) -> None:
@@ -1070,14 +1084,148 @@ def phase_serve_profile(eng, prompt: str, card: str, phase: str = "serve_profile
            f"prefill_chunk_{B}x{len(chunk)}": profile_step(
                ctx, lambda: ctx.decode_multi([(s, chunk) for s in range(B)]), B * len(chunk), 2),
            f"decode_batch_b{B}": profile_step(ctx, decode, B, 8)}
+    # the same step run eagerly (the step its graph captures), for comparison
+    ctx._run = ctx._step
+    try:
+        eager = profile_step(ctx, decode, B, 8)
+    finally:
+        del ctx._run
+    rec[f"decode_batch_b{B}_eager"] = {k: eager[k] for k in (
+        "wall_ms", "profiled_wall_ms", "device_busy_ms", "idle_share", "device_launches",
+        "bound_ms")}
+    replayed = rec[f"decode_batch_b{B}"]
+    if replayed["bound_ms"] is None:
+        # an MoE step's bound counts the experts its routing picked: take
+        # the eager steps' (the next n_steps steps of the same lanes)
+        replayed.update(bound_ms=eager["bound_ms"], bound_by=eager["bound_by"],
+                        bound_from="the eager steps' routing")
+    rec["graphs"] = graph_records(ctx)
+    if ctx.device.type == "cuda":
+        check(all(p.graph is not None for p in ctx._programs.values()),
+              "a one-token step of the served Context did not run as a CUDA graph")
     reset_launch_counts()
     decode()
     rec["decode_step_launches"] = counts = launch_counts()
+    if ctx.device.type == "cuda":
+        rec["replay_event_ms"] = replay_ms(ctx._programs[(0, B, None)])
     emit(rec)
     n_layer = ctx.hp.n_layer
     for name in step_kernels:
         check(counts[name] == n_layer,
               f"a decode step launched {name} {counts[name]} times, not once per layer")
+
+
+def replay_ms(prog, n: int = 8) -> float:
+    """Card time of one replay of a step program's graph, from CUDA events
+    around n back-to-back replays on the inputs its last step left (the
+    active lanes move on by one cell a replay; the Context's host mirror
+    does not follow, so this runs last on a Context that is not used
+    again)."""
+    import torch
+
+    prog.graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        prog.graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def graph_records(ctx) -> list:
+    """Each step program of a Context: its lanes, greedy or sampled, and its
+    graph's capture seconds, reserved bytes and launches per replay."""
+    return [{"lanes": [lo, hi], "sampled": spec is not None, "capture_s": p.capture_s,
+             "pool_bytes": p.pool_bytes, "launches": p.launches}
+            for (lo, hi, spec), p in ctx._programs.items()]
+
+
+def eager_context(model, params, **opts):
+    """A Context whose one-token steps run the private eager step (the step
+    its graphs capture) instead of replaying a graph: the other side of the
+    graphs check."""
+    from tpullama_torch.runtime import Context
+
+    class EagerContext(Context):
+        def _run(self, prog):
+            return self._step(prog)
+
+    return EagerContext(model, params, **opts)
+
+
+def phase_graphs(model, card: str, phase: str = "graphs", n_slots: int = 4, **opts) -> None:
+    """Every one-token step of the served model replays a CUDA graph and
+    gives what the eager step gives. Two Contexts over `model` (bf16, 512
+    cells a lane; `opts`: the fused layer and K-chunks) prefill the same
+    n_slots prompts; one replays its step programs' graphs, the other runs
+    the eager step: 8 decode_batch steps with lane 1 inactive (n_slots >
+    1), fed their own argmax, give equal logits (0 expected: the same
+    kernels on the same inputs in the same order); a greedy
+    decode_batch_burst of 8 equal ids, n_past and _pos_host. Then on
+    one-lane Contexts: a greedy decode_burst of 16 equal ids; a sampled
+    decode_burst (temp 0.9, top-k 40, top-p 0.95, min-p 0.05, seed 7) the
+    same ids on a rerun from the seed; at temperature 1e-4 with top-k 1 the
+    greedy ids."""
+    import torch
+
+    from tpullama_torch.runtime import Context, ContextParams
+    from tpullama_torch.runtime.sampling import SamplerChain, as_device_spec
+
+    t0 = time.perf_counter()
+    vocab = model.vocab
+    rng = np.random.default_rng(6)
+    prompts = [vocab.tokenize(word_prompt(rng, 300), add_special=True)[:48 + 8 * i]
+               for i in range(n_slots)]
+    cp = ContextParams(n_ctx=512, n_seqs=n_slots, dtype=torch.bfloat16)
+    g, e = Context(model, cp, **opts), eager_context(model, cp, **opts)
+    lg = g.decode_multi(list(enumerate(prompts)))
+    e.decode_multi(list(enumerate(prompts)))
+    active = np.ones(n_slots, bool)
+    active[1:2] = False
+    tok = np.asarray([int(np.argmax(lg[s])) for s in range(n_slots)], np.int32)
+    batch_err = 0.0
+    for _ in range(8):
+        a, b = g.decode_batch(tok, active), e.decode_batch(tok, active)
+        check(np.isfinite(a[active]).all(), "replayed decode_batch logits are not finite")
+        batch_err = max(batch_err, float(np.abs(a[active] - b[active]).max()))
+        tok = np.argmax(a, axis=-1).astype(np.int32)
+    ids_g = g.decode_batch_burst(tok, active, 8)
+    ids_e = e.decode_batch_burst(tok, active, 8)
+    check(np.array_equal(ids_g, ids_e), f"decode_batch_burst ids differ: {ids_g} vs {ids_e}")
+    check(np.array_equal(g.n_past, e.n_past) and np.array_equal(g._pos_host, e._pos_host),
+          "decode_batch_burst bookkeeping differs")
+    check(batch_err == 0.0, f"replayed decode_batch logits differ from the eager step's by "
+          f"{batch_err}")
+    graphs = graph_records(g)
+    del g, e
+    cp1 = ContextParams(n_ctx=512, n_seqs=1, dtype=torch.bfloat16)
+    g1, e1 = Context(model, cp1, **opts), eager_context(model, cp1, **opts)
+    first = [int(np.argmax(c.decode(np.asarray(prompts[0], np.int32))[-1])) for c in (g1, e1)]
+    check(first[0] == first[1], "prefill argmax differs")
+    n0 = int(g1.n_past[0])
+    greedy = g1.decode_burst(first[0], 16).tolist()
+    check(greedy == e1.decode_burst(first[0], 16).tolist(), "greedy decode_burst ids differ")
+    check(np.array_equal(g1._pos_host, e1._pos_host), "decode_burst bookkeeping differs")
+
+    def burst(c, chain):
+        c.rollback_to(n0)
+        return c.decode_burst(first[0], 16, sampler_spec=as_device_spec(chain)).tolist()
+
+    hot = SamplerChain.std(temp=0.9, seed=7)
+    sampled = burst(g1, hot)
+    check(burst(g1, hot) == sampled, "a sampled decode_burst rerun from its seed differs")
+    sampled_eager = burst(e1, hot)
+    check(burst(g1, SamplerChain.std(temp=1e-4, top_k=1)) == greedy,
+          "decode_burst at temperature 1e-4, top-k 1 is not the greedy burst")
+    graphs += graph_records(g1)
+    if g1.device.type == "cuda":
+        check(all(r["capture_s"] > 0 for r in graphs), "a step program was not captured")
+    emit({"phase": phase, "card": card, "lanes": n_slots, **opts,
+          "decode_batch_max_abs_diff": batch_err, "batch_burst_ids": ids_g[:, 0].tolist(),
+          "greedy_burst": greedy, "sampled_burst": sampled,
+          "sampled_equals_eager": sampled == sampled_eager, "graphs": graphs,
+          "seconds": time.perf_counter() - t0})
 
 
 def free_port() -> int:
@@ -1216,13 +1364,15 @@ def phase_cli(tmp: str, card: str, phase: str = "cli", widths: Widths = LLAMA3_8
     prompt = word_prompt(np.random.default_rng(5), 120)
     argv = ["-m", path, "-p", prompt, "-n", "16", "--temp", "0"]
     outs, secs = [], []
-    for i, dev in enumerate((device, "cpu")):
+    runs = ((device, "16"), (device, "1"), ("cpu", "16"))
+    for i, (dev, burst) in enumerate(runs):
         buf = io.StringIO()
         t1 = time.perf_counter()
         if i == 0:
             reset_launch_counts()
         with contextlib.redirect_stdout(buf):
-            rc = cli_main(argv + ([] if dev == "cuda" else ["--device", dev]))
+            rc = cli_main(argv + ["--burst", burst] + ([] if dev == "cuda" else
+                                                       ["--device", dev]))
         if i == 0:
             counts = launch_counts()
             emit({"phase": f"{phase}_launches", "launches": counts})
@@ -1235,11 +1385,12 @@ def phase_cli(tmp: str, card: str, phase: str = "cli", widths: Widths = LLAMA3_8
             check(counts[name] > 0, f"kernel {name} was not launched on the {phase} path")
     check(outs[0].startswith(prompt) and len(outs[0]) > len(prompt) + 1,
           "the CLI printed no generated text")
-    check(outs[0] == outs[1], f"{device} and CPU CLI text differ: {outs[0][len(prompt):]!r} "
-          f"vs {outs[1][len(prompt):]!r}")
+    for (dev, burst), out in zip(runs[1:], outs[1:]):
+        check(outs[0] == out, f"{device} --burst 16 and {dev} --burst {burst} CLI text differ: "
+              f"{outs[0][len(prompt):]!r} vs {out[len(prompt):]!r}")
     emit({"phase": phase, "card": card, "layers": 2, "dtype": "bfloat16", "new_tokens": 16,
-          "text": outs[0][len(prompt):][:80], "first_s": secs[0], "cpu_s": secs[1],
-          "seconds": time.perf_counter() - t0})
+          "text": outs[0][len(prompt):][:80], "burst16_s": secs[0], "burst1_s": secs[1],
+          "cpu_s": secs[2], "seconds": time.perf_counter() - t0})
     return counts
 
 
@@ -1327,6 +1478,10 @@ def profile_step(ctx, step, rows: int, n_steps: int) -> dict:
         sync()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
     b_ms, b_by = step_bound(ctx, rows, kv_cells, routing, n_steps)
+    if ctx.hp.n_expert and not routing:
+        # a replayed graph runs no Python, so the router's picks went
+        # unrecorded: no bound from this window
+        b_ms = b_by = None
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3 / n_steps
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
@@ -1487,13 +1642,14 @@ def main() -> int:
     # the Llama path (and its HTTP server), the Mixtral path, the ChatGLM
     # path, then the cross-checks alone
     for pre, widths, cross_layers, n_slots, opts in PATHS:
-        run = [p for p in ("model", "crosscheck", "serve", "http") if pre + p in phases]
+        run = [p for p in ("model", "crosscheck", "serve", "graphs", "http")
+               if pre + p in phases]
         if not run:
             continue
         fused = bool(opts.get("fused_layer"))
         with tempfile.TemporaryDirectory() as tmp:
             model = None
-            if {"model", "serve", "http"} & set(run):
+            if {"model", "serve", "graphs", "http"} & set(run):
                 model = phase_model(tmp, widths, phase=pre + "model", fused_layer=fused)
             if "crosscheck" in run:
                 launches[pre + "crosscheck"], _ = path_launches(
@@ -1507,6 +1663,9 @@ def main() -> int:
                                     step_kernels=("qmm_ktiled", "fused_postattn") if fused
                                     else ())
                 del eng
+                torch.cuda.empty_cache()
+            if "graphs" in run:
+                phase_graphs(model, smi, phase=pre + "graphs", n_slots=n_slots, **opts)
                 torch.cuda.empty_cache()
             if "http" in run:
                 launches["http"], _ = path_launches("http", lambda: phase_http(model, smi))

@@ -45,6 +45,21 @@ def test_cli_prints_the_reference_text(tiny, capsys, sampling):
     assert out_t == out_j
 
 
+@pytest.mark.parametrize("burst", ["1", "4", "16"])
+def test_cli_burst_prints_the_reference_text(tiny, capsys, burst):
+    """Greedy decoding in on-device chunks of --burst tokens (the reference
+    CLI's generate(burst=)) prints the reference's text at each width."""
+    from tpullama.tools.cli import main as j_main
+    from tpullama_torch.tools.cli import main as t_main
+
+    argv = _argv(tiny, "--temp", "0", "--burst", burst)
+    rc_j, out_j = _run(j_main, argv, capsys)
+    rc_t, out_t = _run(t_main, argv + ["--device", "cpu"], capsys)
+    assert rc_j == rc_t == 0
+    assert out_t.startswith(PROMPT) and len(out_t) > len(PROMPT) + 1
+    assert out_t == out_j
+
+
 @pytest.mark.parametrize("flag", [
     ["--control-vector", "cv.gguf"], ["--control-vector-scaled", "cv.gguf", "0.5"],
     ["--control-vector-layer-range", "1", "2"], ["--lora", "a.gguf"],

@@ -7,6 +7,11 @@ flash_decode (csrc/flash_decode.cu), fused_layer (csrc/fused_layer.cu).
 A wrapper launches its kernel for CUDA tensors or raises; it computes the
 plain version only for CPU tensors.
 build.library() compiles the sources on first use.
+
+The counters are Python-side: a wrapper that runs while a CUDA graph is
+captured counts a launch the card has not made. The Context that captures
+a graph takes those counts out (add_launch_counts(counts, -1)) and adds
+them back at each replay.
 """
 
 
@@ -26,3 +31,10 @@ def reset_launch_counts() -> None:
     for d in _counters():
         for k in d:
             d[k] = 0
+
+
+def add_launch_counts(counts: dict, sign: int = 1) -> None:
+    """Add `sign` times `counts` (kernel name -> launches) to the counters."""
+    for d in _counters():
+        for k in d:
+            d[k] += sign * counts.get(k, 0)

@@ -51,8 +51,10 @@ def rope_cache(p: RopeParams, positions: torch.Tensor, freq_factors=None):
     positions' device."""
     half = p.n_dims // 2
     i = torch.arange(half, dtype=torch.float32, device=positions.device)
-    theta_scale = torch.pow(torch.tensor(p.freq_base, dtype=torch.float32,
-                                         device=positions.device),
+    # torch.full, not torch.tensor: no host-to-device copy, so a CUDA graph
+    # can capture the step
+    theta_scale = torch.pow(torch.full((), p.freq_base, dtype=torch.float32,
+                                       device=positions.device),
                             -2.0 * i / p.n_dims)
     pos = positions.float()[..., None]
     theta_extrap = pos * theta_scale

@@ -7,19 +7,32 @@ up to a multiple of 128. Sequence positions live twice: `kv_pos` (B, S) on
 the device (-1 = empty cell), from which each step builds its additive
 mask, and `_pos_host`, the host mirror the free-cell allocator reads.
 
+Every one-token decode step (decode at T == 1, decode_batch, and each
+step of decode_burst and decode_batch_burst) is one step program over a
+range of cache lanes (_StepProgram): it reads tokens, positions and the
+active flags from one static int32 buffer, picks each active lane's first
+free cell on the device, runs the model, and feeds its argmax (or a
+device_sample draw) back into that buffer and into a ring of ids. On a
+CUDA device each program is captured once as a CUDA graph, at its first
+use, and every step replays it: the counterpart of the JAX package's
+jax.jit step programs and its lax.scan bursts. On the CPU the same eager
+step (Context._step) runs. Prefill (T > 1, decode_multi) stays eager.
+
 Differences from the JAX package, by design:
   - the cache is written in place (models/llama.py scatter_rows) instead
     of being donated and returned by a jitted program;
   - a per-sequence step runs on views of that sequence's cache lane;
-  - the fused greedy burst (decode_batch_burst) is a loop of decode_batch
-    steps with an on-device argmax, returning the same (K, B) ids and
-    keeping the same host bookkeeping.
+  - a burst is K replays of the step's graph (one host read at the end)
+    instead of one scanned program; it returns the same ids and keeps the
+    same host bookkeeping;
+  - the sampled burst draws from a torch.Generator, not a threefry key
+    (runtime/sampling.device_sample).
 """
 
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -27,8 +40,11 @@ import torch
 from ..models.hparams import HParams
 from ..models.llama import LlamaModel
 from ..models.loader import LoadedModel, check_supported
+from ..ops.cuda import add_launch_counts, launch_counts
+from .sampling import as_device_spec, device_sample
 
 NEG_INF = -1e30  # avoids NaN rows for fully-masked (padded) queries
+RING = 64  # rows of a step program's id ring: a burst reads it every RING steps
 
 
 @dataclass
@@ -70,6 +86,53 @@ class PerfCounters:
         return self.n_decode / (self.t_decode_ms / 1000) if self.t_decode_ms else 0.0
 
 
+class _StepProgram:
+    """One one-token decode step over cache lanes [lo, hi) (n lanes): the
+    static buffers it reads and writes, and on a CUDA device its captured
+    graph. `inp` packs, as int32, each lane's input token, its next
+    position, its active flag and one step counter: a caller fills it with
+    one host-to-device copy. Each step writes the fed-back tokens into
+    `tok` and into row step % RING of `ring`, adds the active flags to
+    `npast` and one to the counter. `spec`: the device sampler of a
+    sampled step (its seed is not part of the program; `gen` carries the
+    draws), None for greedy."""
+
+    def __init__(self, lo: int, hi: int, spec, device):
+        n = hi - lo
+        self.lo, self.hi, self.spec = lo, hi, spec
+        self.inp = torch.zeros(3 * n + 1, dtype=torch.int32, device=device)
+        self.tok = self.inp[:n].view(n, 1)
+        self.npast = self.inp[n:2 * n]
+        self.active = self.inp[2 * n:3 * n]
+        self.step = self.inp[3 * n:]
+        self.ring = torch.zeros((RING, n), dtype=torch.int32, device=device)
+        self.gen = None if spec is None else torch.Generator(device=device)
+        # set at capture: the graph, its (n, V) logits output, the launch
+        # counts of one replay, the buffers it reads that the Python side
+        # could drop (flash_decode's tickets), the capture's seconds and
+        # the device memory it reserved
+        self.graph = None
+        self.logits = None
+        self.launches: dict = {}
+        self.keep: list = []
+        self.capture_s = 0.0
+        self.pool_bytes = 0
+
+    def fill(self, tokens, n_past, active) -> None:
+        """One host-to-device copy of the lanes' inputs; the counter at 0."""
+        packed = np.concatenate([np.asarray(tokens, np.int32).reshape(-1),
+                                 np.asarray(n_past, np.int32).reshape(-1),
+                                 np.asarray(active, np.int32).reshape(-1),
+                                 np.zeros(1, np.int32)])
+        self.inp.copy_(torch.from_numpy(packed))
+
+
+def _fold_in(seed: int, n: int) -> int:
+    """A seed for chunk n of a sampled generate, from the spec's seed (the
+    JAX package folds chunk n into its key)."""
+    return int(np.random.SeedSequence([int(seed), int(n)]).generate_state(1, np.uint64)[0])
+
+
 class Context:
     def __init__(self, model: LoadedModel, params: ContextParams | None = None,
                  fused_layer: bool | None = None, qmm_tile_k: int | None = None):
@@ -101,6 +164,12 @@ class Context:
         self.perf = PerfCounters()
         self.net = LlamaModel(model.params, hp, model.quant_meta, fused_layer=fused_layer,
                               qmm_tile_k=qmm_tile_k)
+        # one-token step programs by (lo, hi, spec), built at first use; on
+        # a CUDA device their graphs share one memory pool (they never run
+        # at once) and are captured on one side stream
+        self._programs: dict = {}
+        self._pool = None
+        self._side = None
 
     # ------------------------------------------------------------------
 
@@ -129,6 +198,110 @@ class Context:
             self.kv_pos[seq:seq + 1], tokens, positions, slots, logit_rows=rows)
         return logits[0]
 
+    # ------------------------------------------------- one-token steps
+
+    def _program(self, lo: int, hi: int, spec=None) -> _StepProgram:
+        key = (lo, hi, None if spec is None else replace(spec, seed=0))
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._programs[key] = _StepProgram(lo, hi, key[2], self.device)
+        return prog
+
+    def _step(self, prog: _StepProgram) -> torch.Tensor:
+        """The eager one-token step of `prog` (the CPU runs it; a CUDA graph
+        captures it): every active lane writes its token at its first free
+        cell (ascending, the host mirror's free-list order) and position
+        npast; inactive lanes park on the scratch cell S - 1 with position
+        -1 and echo their token. Returns the (n, V) f32 logits."""
+        lo, hi, S = prog.lo, prog.hi, self._S
+        kv_pos = self.kv_pos[lo:hi]
+        act = prog.active != 0
+        free = torch.argmax((kv_pos[:, : S - 1] < 0).to(torch.int32), dim=1).to(torch.int32)
+        slots = torch.where(act, free, torch.full_like(free, S - 1))[:, None]
+        pos = torch.where(act, prog.npast, torch.full_like(prog.npast, -1))[:, None]
+        logits = self._forward(self.kv_k[:, lo:hi], self.kv_v[:, lo:hi], kv_pos, prog.tok,
+                               pos, slots)[:, -1, :]
+        if prog.spec is None:
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        else:
+            nxt = device_sample(logits[0], prog.gen, prog.spec).reshape(1)
+        prog.tok.copy_(torch.where(act[:, None], nxt[:, None], prog.tok))
+        prog.npast.add_(act.to(torch.int32))
+        prog.ring.index_copy_(0, (prog.step % RING).long(), prog.tok.reshape(1, -1))
+        prog.step.add_(1)
+        return logits
+
+    def _run(self, prog: _StepProgram) -> torch.Tensor:
+        """One step of `prog` on its filled inputs: on a CUDA device a replay
+        of its graph (captured at first use), on the CPU the eager step.
+        Returns the (n, V) logits (on the card, the graph's output buffer)."""
+        if self.device.type != "cuda":
+            return self._step(prog)
+        if prog.graph is None:
+            self._capture(prog)
+        prog.graph.replay()
+        add_launch_counts(prog.launches)
+        return prog.logits
+
+    def _capture(self, prog: _StepProgram) -> None:
+        """Capture prog's step as a CUDA graph in the Context's pool. First
+        one eager step runs on the capture's side stream with every lane
+        inactive (position -1, the scratch cell: no cache cell changes), so
+        the kernel library, flash_decode's tickets and the kernels' static
+        initialisers exist before capture; capture itself runs nothing. The
+        inputs and the generator's state are put back as they were. The
+        wrappers count their launches during capture: those counts are
+        taken out here and added back at each replay. A failure raises."""
+        from ..ops.cuda import flash_decode
+
+        dev = self.device
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._side = torch.cuda.Stream(dev)
+        t0 = time.perf_counter()
+        saved = prog.inp.clone()
+        # the warm-up step draws from the generator: its state goes back after
+        rng = None if prog.gen is None else prog.gen.get_state()
+        prog.inp.zero_()
+        cur = torch.cuda.current_stream(dev)
+        self._side.wait_stream(cur)
+        with torch.cuda.stream(self._side):
+            self._step(prog)
+        cur.wait_stream(self._side)
+        graph = torch.cuda.CUDAGraph()
+        if prog.gen is not None:
+            graph.register_generator_state(prog.gen)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        before = launch_counts()
+        # thread_local: the HTTP server steps the engine on its own thread
+        with torch.cuda.graph(graph, pool=self._pool, stream=self._side,
+                              capture_error_mode="thread_local"):
+            logits = self._step(prog)
+        after = launch_counts()
+        prog.launches = {k: after[k] - v for k, v in before.items() if after[k] != v}
+        add_launch_counts(prog.launches, -1)
+        prog.keep = list(flash_decode._TICKETS.values())
+        prog.logits, prog.graph = logits, graph
+        prog.inp.copy_(saved)
+        if rng is not None:
+            prog.gen.set_state(rng)
+        torch.cuda.synchronize(dev)
+        prog.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        prog.capture_s = time.perf_counter() - t0
+
+    def _burst(self, prog: _StepProgram, n_steps: int) -> np.ndarray:
+        """n_steps steps of `prog` from its filled inputs, each feeding its
+        tokens back on the device. Returns the (n_steps, n) ids, read from
+        the ring once at the end (and every RING steps before it)."""
+        rows = [np.zeros((0, prog.hi - prog.lo), np.int32)]
+        for i in range(n_steps):
+            self._run(prog)
+            if i % RING == RING - 1 or i == n_steps - 1:
+                rows.append(prog.ring[: i % RING + 1].cpu().numpy().copy())
+        return np.concatenate(rows)
+
     # ------------------------------------------------------- decode APIs
 
     def decode(self, tokens: np.ndarray, n_logits: int = 1, seq_id: int = 0) -> np.ndarray:
@@ -155,10 +328,16 @@ class Context:
         slots = np.pad(srow, ((0, 0), (0, pad)), constant_values=S - 1)
         self._pos_host[seq_id, srow[0]] = rng[0]
         t0 = time.perf_counter()
-        # logits of the last n_logits real tokens (padding sits after them)
-        logits = self._step_seq(seq_id, self._t(toks), self._t(pos), self._t(slots),
-                                n_logits + pad)
-        out = logits.cpu().numpy()
+        if T == 1 and n_logits == 1:
+            # the lane's step program; its first free cell is srow's
+            prog = self._program(seq_id, seq_id + 1)
+            prog.fill(tokens[0], [n_past], [1])
+            out = self._run(prog).cpu().numpy()
+        else:
+            # logits of the last n_logits real tokens (padding sits after them)
+            logits = self._step_seq(seq_id, self._t(toks), self._t(pos), self._t(slots),
+                                    n_logits + pad)
+            out = logits.cpu().numpy()
         dt = (time.perf_counter() - t0) * 1000
         if T > 1:
             self.perf.t_prefill_ms += dt
@@ -172,30 +351,30 @@ class Context:
         return out
 
     def _batch_inputs(self, tokens, active):
+        """The host mirror's side of one batched step: each active lane's
+        first free cell takes its next position (the step program picks the
+        same cell on the device)."""
         B = self.p.n_seqs
         S = self._S
-        tokens = np.asarray(tokens, np.int32).reshape(B, 1)
+        tokens = np.asarray(tokens, np.int32).reshape(B)
         active = np.asarray(active, bool)
-        pos = np.where(active, self.n_past, -1).astype(np.int32).reshape(B, 1)
-        slots = np.full(B, S - 1, np.int32)
         for b in range(B):
             if active[b]:
                 free = np.nonzero(self._pos_host[b, : S - 1] < 0)[0]
                 if len(free) == 0:
                     raise ValueError(f"no free KV cells for seq {b}")
-                slots[b] = free[0]
                 self._pos_host[b, free[0]] = int(self.n_past[b])
-        return tokens, active, pos, slots.reshape(B, 1)
+        return tokens, active
 
     def decode_batch(self, tokens: np.ndarray, active: np.ndarray) -> np.ndarray:
         """One decode step for all sequences (continuous batching hot loop).
         tokens: (B,) int32, active: (B,) bool. Returns logits (B, n_vocab);
         inactive rows are garbage."""
-        tokens, active, pos, slots = self._batch_inputs(tokens, active)
+        tokens, active = self._batch_inputs(tokens, active)
+        prog = self._program(0, self.p.n_seqs)
+        prog.fill(tokens, self.n_past, active)
         t0 = time.perf_counter()
-        logits = self._forward(self.kv_k, self.kv_v, self.kv_pos, self._t(tokens),
-                               self._t(pos), self._t(slots))
-        out = logits[:, -1, :].cpu().numpy()
+        out = self._run(prog).cpu().numpy()
         self.perf.t_decode_ms += (time.perf_counter() - t0) * 1000
         self.perf.n_decode += int(active.sum())
         self.n_past[active] += 1
@@ -212,7 +391,6 @@ class Context:
         inactive lanes park on the scratch cell with position -1."""
         B = self.p.n_seqs
         S = self._S
-        toks = self._t(np.asarray(tokens, np.int32).reshape(B, 1))
         active = np.asarray(active, bool)
         act_idx = np.nonzero(active)[0]
         frees = {}
@@ -223,21 +401,10 @@ class Context:
             if len(free) < n_steps:
                 raise ValueError(f"no free KV cells for burst on seq {b}")
             frees[b] = free[:n_steps]
-        act = self._t(active)
-        npast = self._t(self.n_past.astype(np.int32))
-        scratch = torch.full((B,), S - 1, dtype=torch.int32, device=self.device)
-        outs = []
+        prog = self._program(0, B)
+        prog.fill(np.asarray(tokens, np.int32).reshape(B), self.n_past, active)
         t0 = time.perf_counter()
-        for _ in range(n_steps):
-            free = torch.argmax((self.kv_pos[:, : S - 1] < 0).to(torch.int32), dim=1)
-            slots = torch.where(act, free.to(torch.int32), scratch)[:, None]
-            pos = torch.where(act, npast, torch.full_like(npast, -1))[:, None]
-            logits = self._forward(self.kv_k, self.kv_v, self.kv_pos, toks, pos, slots)
-            nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
-            toks = torch.where(act[:, None], nxt, toks)
-            npast = npast + act.to(torch.int32)
-            outs.append(toks[:, 0])
-        out = torch.stack(outs).cpu().numpy()
+        out = self._burst(prog, n_steps)
         self.perf.t_decode_ms += (time.perf_counter() - t0) * 1000
         self.perf.n_decode += n_steps * len(act_idx)
         for b in act_idx:
@@ -245,6 +412,44 @@ class Context:
                 int(self.n_past[b]), int(self.n_past[b]) + n_steps
             )
             self.n_past[b] += n_steps
+        return out
+
+    def decode_burst(self, first_token: int, n_steps: int, sampler_spec=None,
+                     generator: torch.Generator | None = None) -> np.ndarray:
+        """Decode n_steps tokens after first_token (seq 0, B=1) on the device,
+        with one host read at the end: greedy, or with sampler_spec.temp > 0
+        the device sampler (runtime/sampling.device_sample) inside each
+        step. `generator` (on the Context's device) carries the draws and
+        advances as they are made; without one they come from
+        sampler_spec.seed. Returns the generated token ids; the cache
+        advances by n_steps (first_token + generated[:-1])."""
+        if self.p.n_seqs != 1:
+            raise ValueError("decode_burst is single-sequence (B=1)")
+        n_past = int(self.n_past[0])
+        if n_past + n_steps + 1 > self.p.n_ctx:
+            raise ValueError("context overflow for burst")
+        free = np.nonzero(self._pos_host[0, : self._S - 1] < 0)[0]
+        if len(free) < n_steps + 1:
+            raise ValueError("no free KV cells for burst")
+        sampled = sampler_spec is not None and sampler_spec.temp > 0
+        prog = self._program(0, 1, sampler_spec if sampled else None)
+        if sampled:
+            if generator is None:
+                prog.gen.manual_seed(int(sampler_spec.seed))
+            else:
+                prog.gen.set_state(generator.get_state())
+        prog.fill([first_token], [n_past], [1])
+        t0 = time.perf_counter()
+        out = self._burst(prog, n_steps)[:, 0]
+        self.perf.t_decode_ms += (time.perf_counter() - t0) * 1000
+        self.perf.n_decode += n_steps
+        if sampled and generator is not None:
+            generator.set_state(prog.gen.get_state())
+        # host mirrors: the burst consumed the first n_steps free cells with
+        # positions n_past..n_past+n_steps-1 (the device picks them in the
+        # host free list's order)
+        self._pos_host[0, free[:n_steps]] = np.arange(n_past, n_past + n_steps)
+        self.n_past[0] = n_past + n_steps
         return out
 
     def decode_multi(self, chunks: list) -> dict:
@@ -329,13 +534,52 @@ class Context:
 
     # ------------------------------------------------------- generate
 
-    def generate(self, prompt_tokens, n_predict: int = 32, sampler=None) -> list[int]:
-        """Greedy/sampled generation loop for sequence 0 (host sampler
-        chain; the fused on-device burst of the JAX package waits for
-        CUDA graphs)."""
+    def generate(self, prompt_tokens, n_predict: int = 32, sampler=None,
+                 burst: int = 0) -> list[int]:
+        """Greedy/sampled generation loop (tools/main/main.cpp:685-716
+        analog), sequence 0. With burst > 1, greedy sampling or a chain the
+        device sampler covers (as_device_spec), and one sequence, decodes
+        in on-device chunks of `burst` tokens (decode_burst: one host read
+        per chunk; an EOG truncates the chunk and rolls the cache back).
+        A sampled chunk n draws from a generator seeded from the spec's
+        seed and n. Any other chain runs the host loop."""
         out: list[int] = []
         logits = self.decode(np.asarray(prompt_tokens, np.int32), n_logits=1)[-1]
         vocab = self.model.vocab
+        spec = None
+        if sampler is not None and burst > 1:
+            spec = as_device_spec(sampler)  # None -> host chain fallback
+        if (sampler is None or spec is not None) and burst > 1 and self.p.n_seqs == 1:
+            sampled = spec is not None and spec.temp > 0
+            tok = int(sampler.sample(logits)) if sampled else int(np.argmax(logits))
+            out.append(tok)
+            n_chunk = 0
+            while len(out) < n_predict and not (vocab is not None and vocab.is_eog(tok)):
+                n = min(burst, n_predict - len(out),
+                        self.p.n_ctx - int(self.n_past[0]) - 1)
+                if n < 1:
+                    break
+                gen = None
+                if sampled:
+                    gen = torch.Generator(device=self.device).manual_seed(
+                        _fold_in(spec.seed, n_chunk))
+                n_chunk += 1
+                chunk = self.decode_burst(tok, n, sampler_spec=spec, generator=gen).tolist()
+                eog_at = None
+                if vocab is not None:
+                    for i, t in enumerate(chunk):
+                        if vocab.is_eog(t):
+                            eog_at = i
+                            break
+                if eog_at is not None:
+                    kept = chunk[: eog_at + 1]
+                    # drop cache rows written by tokens after the EOG
+                    self.rollback_to(int(self.n_past[0]) - (len(chunk) - len(kept)))
+                    out += kept
+                    return out[:n_predict]
+                out += chunk
+                tok = chunk[-1]
+            return out[:n_predict]
         for _ in range(n_predict):
             if sampler is None:
                 tok = int(np.argmax(logits))

@@ -10,6 +10,10 @@ token (penalties/DRY state).
 Determinism: `dist`/`xtc`/mirostat use a seeded np.random.Generator.
 (Exact RNG streams differ from std::mt19937 — the *distributions* and
 all filtering semantics are identical.)
+
+The device sampler (DeviceSamplerSpec, as_device_spec, device_sample) is
+the port of the JAX package's fused chain: plain torch ops on the
+logits' device that a captured decode step runs (runtime/context.py).
 """
 
 from __future__ import annotations
@@ -724,3 +728,109 @@ class SamplerChain:
     def reset(self):
         for s in self.samplers:
             s.reset()
+
+
+@dataclass(frozen=True)
+class DeviceSamplerSpec:
+    """Static description of a sampler chain that can run inside the
+    on-device decode step (runtime/context.py sampled burst): the common
+    temp/top-k/top-p/min-p/dist chain. Hashable: a Context keys its
+    captured step programs by it.
+
+    The RNG is a torch.Generator on the step's device (philox on CUDA,
+    mt19937 on the CPU), seeded from `seed`: neither the JAX package's
+    threefry stream nor the reference's mt19937 stream, the same documented
+    divergence the JAX package has (the distribution matches, not the
+    stream)."""
+
+    temp: float
+    top_k: int
+    top_p: float
+    min_p: float
+    seed: int
+
+
+def as_device_spec(chain: "SamplerChain") -> DeviceSamplerSpec | None:
+    """Map a SamplerChain onto a DeviceSamplerSpec when every member is
+    device-expressible (no-op members allowed); None -> host fallback.
+
+    Covered: Greedy (temp=0), TopK, TopP, MinP, Temp, Dist, no-op
+    Penalties / Typical(1) / LogitBias({}). Anything stateful
+    (penalties in effect, mirostat, dry, grammar) stays on host."""
+    temp, top_k, top_p, min_p, seed = 1.0, 0, 1.0, 0.0, DEFAULT_SEED
+    greedy = False
+    for s in chain.samplers:
+        if isinstance(s, Greedy):
+            greedy = True
+        elif isinstance(s, Penalties):
+            if s.repeat != 1.0 or s.freq != 0.0 or s.present != 0.0:
+                return None
+        elif isinstance(s, LogitBias):
+            if s.bias:
+                return None
+        elif isinstance(s, Typical):
+            if s.p < 1.0:
+                return None
+        elif isinstance(s, TopK):
+            top_k = s.k
+        elif isinstance(s, TopP):
+            top_p = s.p
+        elif isinstance(s, MinP):
+            min_p = s.p
+        elif isinstance(s, Temp):
+            temp = s.t
+        elif isinstance(s, Dist):
+            seed = s.seed
+        else:
+            return None
+    if greedy or temp <= 0:
+        return DeviceSamplerSpec(0.0, 0, 1.0, 0.0, seed)
+    return DeviceSamplerSpec(float(temp), int(top_k), float(top_p),
+                             float(min_p), int(seed))
+
+
+def device_candidates(logits, spec: DeviceSamplerSpec):
+    """The truncations of device_sample (spec.temp > 0): the top-k ids
+    (256 when top_k is unset), sorted by logit, and their tempered logits,
+    -inf where top-p or min-p drops them. logits: (V,) f32 tensor."""
+    import torch
+
+    V = logits.shape[-1]
+    k = spec.top_k if 0 < spec.top_k < V else min(V, 256)
+    vals, idx = torch.topk(logits, k)  # sorted descending
+    probs = torch.softmax(vals.float(), dim=-1)
+    keep = torch.ones(k, dtype=torch.bool, device=logits.device)
+    if spec.top_p < 1.0:
+        # keep until the cumulative probability first reaches top_p
+        # (inclusive), llama-sampling.cpp llama_sampler_top_p_apply
+        cum = torch.cumsum(probs, dim=-1)
+        keep &= (cum - probs) < spec.top_p
+    if spec.min_p > 0.0:
+        keep &= probs >= spec.min_p * probs[0]
+    keep[0].fill_(True)  # min_keep = 1 (a fill: no host copy inside a graph)
+    logt = torch.where(keep, vals / spec.temp, torch.full_like(vals, float("-inf")))
+    return idx, logt
+
+
+def device_sample(logits, generator, spec: DeviceSamplerSpec):
+    """One sampling step on the logits' device, with no host read (a CUDA
+    graph captures it). logits: (V,) f32 tensor; generator: a
+    torch.Generator on that device. Returns a 0-dim int32 tensor. The
+    common_sampler std chain order (common/sampling.cpp: top-k -> top-p ->
+    min-p -> temp -> dist), the truncations computed on the softmax of the
+    UNtempered logits, exactly like the host chain; the draw is Gumbel-max,
+    argmax(logt + Gumbel(u)), which is what jax.random.categorical
+    computes. A generator other than the device's default must be
+    registered with the graph that captures this
+    (CUDAGraph.register_generator_state), or each replay repeats the
+    capture's draw."""
+    import torch
+
+    if spec.temp <= 0:
+        return torch.argmax(logits).to(torch.int32)
+    idx, logt = device_candidates(logits, spec)
+    u = torch.rand(logt.shape, generator=generator, device=logt.device)
+    tiny = torch.finfo(torch.float32).tiny
+    gumbel = -torch.log(-torch.log(u.clamp(min=tiny)))
+    # gather, not idx[tensor]: a 0-dim index would be read on the host
+    return idx.gather(0, torch.argmax(logt + gumbel).reshape(1))[0].to(torch.int32)

@@ -9,8 +9,10 @@ every engine iteration
      burst of K steps when every generating slot is greedy and nothing
      waits), samples per slot, handles stop conditions and streaming.
 
-The port builds the attention Context directly; recurrent, hybrid and
-encoder models, speculative decoding, multimodal chunks, embeddings
+Each decode round's step (decode_batch) and each step of a greedy burst
+(decode_batch_burst) replays the Context's captured CUDA graph on the
+card. The port builds the attention Context directly; recurrent, hybrid
+and encoder models, speculative decoding, multimodal chunks, embeddings
 tasks, grammar-constrained sampling and slot save/restore are not ported
 yet.
 """

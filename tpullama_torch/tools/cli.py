@@ -45,8 +45,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap = common_parser("cli", prog="tpullama-cli", description=__doc__)
     ap.add_argument("-i", "--interactive", action="store_true")
     ap.add_argument("--burst", type=int, default=16,
-                    help="greedy decode chunk size (the port decodes one step at "
-                         "a time until its decode step is captured in CUDA graphs)")
+                    help="greedy decode chunk size for fused on-device steps")
     return ap
 
 
@@ -145,7 +144,8 @@ def main(argv=None) -> int:
             sys.stdout.flush()
         n = n_predict if n_predict >= 0 else args.ctx_size
         if sampler is None and not args.interactive:
-            out = ctx.generate(toks, n_predict=n)
+            # greedy: on-device bursts (one host read per chunk)
+            out = ctx.generate(toks, n_predict=n, burst=int(args.burst))
             for tok in out:
                 if vocab.is_eog(tok):
                     break
