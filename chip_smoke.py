@@ -26,7 +26,7 @@ Phases, each printing one JSON line with its seconds:
             eagerly is profiled beside it
   moe_model, moe_crosscheck, moe_serve
             the same three on a Mixtral-8x7B-shaped MoE llama (8 experts,
-            2 per token; 8 of its 32 layers, 1 in the cross-check), whose
+            2 per token; 4 of its 32 layers, 1 in the cross-check), whose
             expert FFNs run through the gathered qmm kernels
   graphs, moe_graphs, glm_graphs
             each served model's one-token decode steps as CUDA graphs: two
@@ -39,7 +39,8 @@ Phases, each printing one JSON line with its seconds:
             same seed, and at temperature 1e-4 with top-k 1 the greedy
             ids; each capture's seconds and reserved bytes
   glm_model, glm_crosscheck, glm_serve
-            the same three on a ChatGLM3-6B-shaped model (28 layers; 1 in
+            the same three on a ChatGLM3-6B-shaped model (14 of its 28
+            layers; 1 in
             the cross-check) with the fused post-attention layer and 4
             K-chunks on (fused_layer=True, qmm_tile_k=4), served with one
             slot: every decode step runs qmm_ktiled on attn_qkv and the
@@ -57,13 +58,30 @@ Phases, each printing one JSON line with its seconds:
   http      the Llama model behind tpullama_torch.server.http.serve (4
             slots of 4096 cells, the JAX package's f32 engine): 4
             concurrent streamed greedy /v1/completions, a streamed and a
-            plain /v1/chat/completions, /health, /metrics, /slots; TTFT and
-            output tok/s as an HTTP client sees them
+            plain /v1/chat/completions, the same with a JSON-schema
+            response_format (equal text, which the grammar accepts),
+            /v1/embeddings of 4 inputs (unit norm, equal on a rerun and to
+            Context.embeddings), /rerank (501), /health, /metrics, /slots;
+            TTFT and output tok/s as an HTTP client sees them
+  spec      speculative decoding on the Llama model: generate_speculative
+            with the model as its own draft (tokens of the greedy loop up
+            to the first near-tie; acceptance >= 0.5 with f32 activations,
+            printed with bf16); a draft at Llama-3.2-1B's widths (16
+            layers, tied output, llama3 rope_freqs) for ServerEngine's 4
+            slots on the serve phase's requests, bf16 and with f32
+            activations (the same tokens under that rule; tok/s,
+            acceptance, a round split into drafting and verifying), and
+            for serve(draft_model=) (the draft counters on /metrics)
   cli       tpullama_torch.tools.cli.main on a 2-layer Q8_0 file at
             Llama-3-8B's widths (dense bf16 weights, the CLI's default), 16
             greedy tokens on the card with --burst 16 and --burst 1, and
-            with --device cpu: the same text
-The crosscheck, serve, http and cli paths each run with every
+            with --device cpu: the same text; then --grammar and
+            --json-schema on the card and the CPU: the same text, which
+            the grammar accepts, and Grammar.apply's host ms per token
+The Llama cross-check also holds Context.embeddings (each pooling) and
+seq_add / seq_div on the card against the CPU, and a replayed step after
+seq_add against the eager step. The crosscheck, serve, http, spec and cli
+paths each run with every
 launch count set to 0 just before and read just after, and fail unless
 each kernel that path must run was launched. Then one JSON line lists every
 kernel with its launches on each path and its numbers at the served shape
@@ -95,7 +113,7 @@ FLUSH_BYTES = 512 << 20  # written between timed launches: evicts the 50 MB L2
 NEG_HIDDEN = -5e29  # additive mask values at or below this hide a cell
 
 ALL_PHASES = ("card", "build", "kernels", "model", "crosscheck", "serve", "graphs", "http",
-              "cli", "moe_model", "moe_crosscheck", "moe_serve", "moe_graphs", "glm_model",
+              "spec", "cli", "moe_model", "moe_crosscheck", "moe_serve", "moe_graphs", "glm_model",
               "glm_crosscheck", "glm_serve", "glm_graphs", "qwen_crosscheck",
               "openllama_crosscheck")
 
@@ -119,11 +137,12 @@ class Widths:
     fused [gate|up], n_rot rotated dims). LLAMA3_8B holds the published
     widths of meta-llama/Meta-Llama-3-8B (config.json); MIXTRAL_8X7B those
     of mistralai/Mixtral-8x7B-v0.1 (config.json; sliding window null), cut
-    to 8 of its 32 layers: every layer has the same shapes and launches;
+    to 4 of its 32 layers: every layer has the same shapes and launches;
     CHATGLM3_6B those of THUDM/chatglm3-6b (config.json: hidden 4096, 28
     layers, 32 heads, multi_query_group_num 2, ffn 13696,
     padded_vocab_size 65024, seq_length 8192; rope over half of each
-    head, chatglm.rope.dimension_count 64); QWEN2_1_5B those of
+    head, chatglm.rope.dimension_count 64), cut to 14 of its 28 layers
+    for the same reason (the whole run's time limit); QWEN2_1_5B those of
     Qwen/Qwen2-1.5B (config.json: hidden 1536, 28 layers, 12 heads, 2 KV
     heads, intermediate 8960, vocab 151936, rope_theta 1e6, rms_norm_eps
     1e-6; q/k/v biases), written with an untied output matrix and used at
@@ -131,7 +150,14 @@ class Widths:
     openlm-research/open_llama_3b (config.json: hidden 3200, 26 layers,
     32 heads, head dim 100, intermediate 8640, vocab 32000, rms_norm_eps
     1e-6), every matrix Q8_0 (`q8`: 3200 is no multiple of Q4_K's 256),
-    used at 2 layers in the cross-check alone."""
+    used at 2 layers in the cross-check alone; LLAMA32_1B those of
+    meta-llama/Llama-3.2-1B (config.json: hidden 2048, 16 layers, 32 heads,
+    8 KV heads, head dim 64, intermediate 8192, vocab 128256, rope_theta
+    500000 with llama3 scaling factor 32, low 1, high 4, original 8192,
+    tie_word_embeddings true, rms_norm_eps 1e-5), the speculative draft.
+    `llama3_rope`: the llama3 scaling written as rope_freqs.weight, as
+    llama.cpp's converter does; `tied`: no output.weight (the token table
+    is the lm_head)."""
 
     n_embd: int = 4096
     n_layer: int = 32
@@ -147,12 +173,14 @@ class Widths:
     arch: str = "llama"
     n_rot: int = 0  # 0: the whole head
     q8: bool = False  # every matrix Q8_0 (token table and output included)
+    tied: bool = False
+    llama3_rope: tuple = ()  # (factor, low_freq_factor, high_freq_factor, original ctx)
 
 
 LLAMA3_8B = Widths()
-MIXTRAL_8X7B = Widths(n_layer=8, n_vocab=32000, rope_theta=1e6, n_ctx_train=32768,
+MIXTRAL_8X7B = Widths(n_layer=4, n_vocab=32000, rope_theta=1e6, n_ctx_train=32768,
                       n_expert=8, n_expert_used=2)
-CHATGLM3_6B = Widths(n_layer=28, n_head_kv=2, n_ff=13696, n_vocab=65024, rope_theta=10000.0,
+CHATGLM3_6B = Widths(n_layer=14, n_head_kv=2, n_ff=13696, n_vocab=65024, rope_theta=10000.0,
                      arch="chatglm", n_rot=64)
 # the ChatGLM path's two opt-ins, the JAX package's TPULLAMA_FUSED_LAYER and
 # TPULLAMA_QMM_TILE_K
@@ -163,6 +191,27 @@ QWEN2_1_5B = Widths(n_embd=1536, n_layer=28, n_head=12, n_head_kv=2, n_ff=8960,
 OPENLLAMA_3B = Widths(n_embd=3200, n_layer=26, n_head=32, n_head_kv=32, n_ff=8640,
                       n_vocab=32000, rope_theta=10000.0, rms_eps=1e-6, n_ctx_train=2048,
                       q8=True)
+LLAMA32_1B = Widths(n_embd=2048, n_layer=16, n_head=32, n_head_kv=8, n_ff=8192,
+                    n_ctx_train=131072, tied=True, llama3_rope=(32.0, 1.0, 4.0, 8192))
+
+
+def llama3_rope_freqs(w: Widths) -> np.ndarray:
+    """The per-frequency divisors llama.cpp's converter writes as
+    rope_freqs.weight for rope_scaling type llama3: 1 for short
+    wavelengths, the factor for long ones, a smooth blend between."""
+    factor, low, high, old_ctx = w.llama3_rope
+    dim = w.n_embd // w.n_head
+    out = []
+    for f in 1.0 / w.rope_theta ** (np.arange(0, dim, 2) / dim):
+        wavelen = 2 * math.pi / f
+        if wavelen < old_ctx / high:
+            out.append(1.0)
+        elif wavelen > old_ctx / low:
+            out.append(factor)
+        else:
+            smooth = (old_ctx / wavelen - low) / (high - low)
+            out.append(1.0 / ((1 - smooth) / factor + smooth))
+    return np.asarray(out, np.float32)
 
 
 def _fp16_bytes(a: np.ndarray) -> np.ndarray:
@@ -223,7 +272,8 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
     """A llama-family GGUF at widths `w`: every layer matrix (expert
     stacks included) and token_embd Q4_K, output Q6_K, norms, biases and
     the router F32 (as llama.cpp's quantizer leaves them), random block
-    bytes from `seed`. chatglm's ffn_down rows hold n_ff = 13696 values,
+    bytes from `seed` (no output with `w.tied`; rope_freqs F32 with
+    `w.llama3_rope`). chatglm's ffn_down rows hold n_ff = 13696 values,
     not a multiple of Q4_K's 256, so they are Q8_0, as llama.cpp's
     quantizer falls back for such rows; with `w.q8` every matrix is."""
     from tpullama_torch.gguf import GGMLType, GGUFWriter
@@ -235,6 +285,7 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
     g.add_str("general.name", "synthetic-chatglm3-6b-shape" if a == "chatglm" else
               "synthetic-qwen2-1.5b-shape" if a == "qwen2" else
               "synthetic-openllama-3b-shape" if w.q8 else
+              "synthetic-llama3.2-1b-shape" if w.tied else
               "synthetic-mixtral-8x7b-shape" if w.n_expert else "synthetic-llama3-8b-shape")
     g.add_u32(f"{a}.context_length", w.n_ctx_train)
     g.add_u32(f"{a}.embedding_length", w.n_embd)
@@ -278,7 +329,10 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
     Q4 = GGMLType.Q4_K
     quant("token_embd.weight", (w.n_vocab, E), Q4)
     norm("output_norm.weight", E)
-    quant("output.weight", (w.n_vocab, E), GGMLType.Q6_K)
+    if not w.tied:
+        quant("output.weight", (w.n_vocab, E), GGMLType.Q6_K)
+    if w.llama3_rope:
+        g.add_tensor("rope_freqs.weight", llama3_rope_freqs(w), GGMLType.F32)
     # the router's logits have std ~1.3 on unit-scale inputs: varied routing
     n_x = w.n_expert
     for il in range(w.n_layer):
@@ -964,12 +1018,15 @@ def phase_model(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
 
 def phase_crosscheck(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
                      n_layer: int = 2, phase: str = "crosscheck", fused_layer: bool = False,
-                     qmm_tile_k: int | None = None) -> None:
+                     qmm_tile_k: int | None = None, runtime_ops: bool = False) -> None:
     """A model at the same widths cut to n_layer layers, f32 activations and
     cache on both sides: `device` (the card) runs the kernels, the CPU the
     plain versions, both with the fused layer and K-chunks as given. With
     the fused layer on, the card's greedy run with both off, on the same
-    fourblock planes, must give the same tokens too."""
+    fourblock planes, must give the same tokens too. With `runtime_ops`,
+    Context.embeddings of the prompt for each pooling (none, mean, cls,
+    last) within the logits' tolerance formula, and the seq ops
+    (seq_ops_case) on the same two models."""
     import torch
 
     from tpullama_torch.models import load_model
@@ -989,7 +1046,8 @@ def phase_crosscheck(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
     check(len(prompt) == 32, f"prompt has {len(prompt)} tokens")
     cp = ContextParams(n_ctx=256)
     lg = Context(gpu, cp, **opts).decode(prompt, n_logits=32)
-    lc = Context(cpu, cp, **opts).decode(prompt, n_logits=32)
+    # with its final-norm hidden states: the CPU side of the embeddings check
+    lc, hidden = Context(cpu, cp, **opts)._decode(prompt, 32, 0, embd=runtime_ops)
     err = float(np.abs(lg - lc).max())
     # f32 end to end; sums run in another order on the card
     tol = 1e-3 * float(np.abs(lc).max()) + 1e-4
@@ -1001,6 +1059,22 @@ def phase_crosscheck(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
     rec = {"phase": phase, "layers": n_layer, "prompt_tokens": len(prompt),
            "prefill_max_abs_err": err, "tol": tol, "argmax": int(lc[-1].argmax()),
            "greedy_tokens": out_g, **opts}
+    if runtime_ops:
+        rec["seq_ops"] = seq_ops_case(gpu, cpu, prompt)
+        # each pooling of the CPU prefill's hidden states by hand
+        cg = Context(gpu, cp, **opts)
+        hidden = hidden.numpy()
+        rec["embeddings_max_abs_err"] = {}
+        for pooling, ec in (("none", hidden), ("mean", hidden.mean(axis=0)), ("cls", hidden[0]),
+                            ("last", hidden[-1])):
+            if pooling != "none":
+                ec = ec / np.linalg.norm(ec)
+            eg = cg.embeddings(prompt, pooling=pooling)
+            err_e = float(np.abs(eg - ec).max())
+            tol_e = 1e-3 * float(np.abs(ec).max()) + 1e-4
+            check(np.isfinite(eg).all() and eg.shape == ec.shape and err_e <= tol_e,
+                  f"embeddings ({pooling}) err {err_e} > tol {tol_e}")
+            rec["embeddings_max_abs_err"][pooling] = err_e
     if fused_layer:
         # nk = 1: no valid K-chunks, the untiled qmm kernels
         out_u = Context(gpu, cp, fused_layer=False, qmm_tile_k=1).generate(prompt, n_predict=8)
@@ -1015,7 +1089,8 @@ def phase_serve(model, card: str, phase: str = "serve", n_slots: int = 4, **engi
     request again on erased slots. Rates come from the Context's counters
     over each window: host clock around work that ends in a device-to-host
     copy of logits or ids. `engine_kw` goes to ServerEngine. Returns the
-    engine and one prompt, for phase_serve_profile."""
+    engine and one prompt, for phase_serve_profile, and the 4 greedy
+    requests' tokens."""
     import torch
 
     from tpullama_torch.runtime.sampling import SamplerChain
@@ -1062,7 +1137,7 @@ def phase_serve(model, card: str, phase: str = "serve", n_slots: int = 4, **engi
                       "ttft_ms": [t.ttft_ms for t in tasks]},
           "sampled_alone": {**alone, "ttft_ms": sampled.ttft_ms},
           "sampled_text": sampled.out_text[:80], "seconds": time.perf_counter() - t0})
-    return eng, prompts[3]
+    return eng, prompts[3], [t.out_tokens for t in tasks]
 
 
 def phase_serve_profile(eng, prompt: str, card: str, phase: str = "serve_profile",
@@ -1265,19 +1340,50 @@ def http_call(base: str, path: str, body=None, stream: bool = False):
         return t_first, time.perf_counter() - t0, events
 
 
+def http_error(base: str, path: str, body) -> tuple[int, dict]:
+    """A request expected to fail: (HTTP status, the parsed JSON body)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=json.dumps(body).encode(), method="POST",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+# a JSON schema of one string and one integer: the grammar-constrained
+# requests of the cli and http phases
+SCHEMA = {"type": "object", "properties": {"name": {"type": "string"},
+                                           "count": {"type": "integer"}},
+          "required": ["name", "count"]}
+# a small GBNF grammar over words and a full stop
+WORDS_GBNF = ('root ::= word (" " word)* "."\n'
+              'word ::= "the" | "a" | "model" | "token" | "cache" | "card" | "stream"')
+
+
 def phase_http(model, card: str, phase: str = "http") -> None:
     """The Llama model served over HTTP by tpullama_torch.server.http.serve
     with the JAX package's defaults (an f32 engine: f32 KV cache), 4 slots
     of 4096 cells: 4 streamed greedy /v1/completions sent together
     (302-1002 prompt tokens, 32 out each), then request 0 again, plain,
     on erased slots (the same text), one chat request streamed and plain
-    (the deltas concatenate to the plain text), and /health, /metrics,
-    /slots. TTFT is the client's time to the first streamed text, output
-    tok/s the 4 requests' tokens (the server's tokens_predicted_total)
-    over their wall time."""
+    (the deltas concatenate to the plain text), the same chat with a
+    JSON-schema response_format streamed and plain (equal text, which the
+    schema's grammar accepts), /v1/embeddings of 4 inputs twice (unit
+    norm, equal, and equal to Context.embeddings called directly), /rerank
+    (501, naming its ROADMAP.md item), and /health, /metrics, /slots. TTFT
+    is the client's time to the first streamed text, output tok/s the 4
+    requests' tokens (the server's tokens_predicted_total) over their wall
+    time."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from tpullama_torch.server.http import serve
+    import torch
+
+    from tpullama_torch.runtime import Context, ContextParams
+    from tpullama_torch.server.http import _make_grammar, serve
 
     t0 = time.perf_counter()
     httpd = serve(model, port=free_port(), n_slots=4, n_ctx=4096, block=False)
@@ -1327,6 +1433,47 @@ def phase_http(model, card: str, phase: str = "http") -> None:
         streamed = "".join(ev["choices"][0]["delta"].get("content", "") for ev in events)
         check(streamed == plain["choices"][0]["message"]["content"],
               "the streamed chat deltas differ from the plain chat text")
+        rf_chat = {**chat, "max_tokens": 8, "response_format": {
+            "type": "json_schema", "json_schema": {"schema": SCHEMA}}}
+        erase_all()
+        t1 = time.perf_counter()
+        _, _, rf_plain = http_call(base, "/v1/chat/completions", rf_chat)
+        rf_s = time.perf_counter() - t1
+        erase_all()
+        _, _, rf_events = http_call(base, "/v1/chat/completions", {**rf_chat, "stream": True},
+                                    stream=True)
+        rf_text = rf_plain["choices"][0]["message"]["content"]
+        check(rf_text and rf_text == "".join(ev["choices"][0]["delta"].get("content", "")
+                                             for ev in rf_events),
+              f"the JSON-schema chat texts differ or are empty: {rf_text!r}")
+        try:
+            _make_grammar(rf_chat, None).accept_str(rf_text)
+        except ValueError as e:
+            raise RuntimeError(f"chip_smoke check failed: the schema's grammar refuses "
+                               f"{rf_text!r}: {e}") from e
+        inputs = [p[:200] for p in prompts]
+        t1 = time.perf_counter()
+        emb = http_call(base, "/v1/embeddings", {"input": inputs})[2]
+        emb_s = time.perf_counter() - t1
+        emb_again = http_call(base, "/v1/embeddings", {"input": inputs})[2]
+        vecs = np.asarray([d["embedding"] for d in emb["data"]], np.float32)
+        check(vecs.shape == (4, model.hparams.n_embd) and np.isfinite(vecs).all()
+              and np.abs(np.linalg.norm(vecs, axis=1) - 1).max() < 1e-4,
+              f"/v1/embeddings: shape {vecs.shape}, norms {np.linalg.norm(vecs, axis=1)}")
+        check(np.array_equal(vecs, np.asarray([d["embedding"] for d in emb_again["data"]],
+                                              np.float32)),
+              "/v1/embeddings differ on a rerun")
+        direct = Context(model, ContextParams(n_ctx=4096))
+        want = np.stack([direct.embeddings(model.vocab.tokenize(t, add_special=True))
+                         for t in inputs])
+        del direct
+        if model.device.type == "cuda":
+            torch.cuda.empty_cache()
+        emb_err = float(np.abs(vecs - want).max())
+        check(emb_err <= 1e-3, f"/v1/embeddings differ from Context.embeddings by {emb_err}")
+        code, err = http_error(base, "/rerank", {"query": "q", "documents": ["a"]})
+        check(code == 501 and "Queue 1 item 7" in err["error"]["message"],
+              f"/rerank answered {code} {err}")
         slots = http_call(base, "/slots")[2]
         check(len(slots) == 4 and all(sl["state"] == "idle" for sl in slots), f"/slots {slots}")
         metrics = http_call(base, "/metrics")[2]
@@ -1339,6 +1486,12 @@ def phase_http(model, card: str, phase: str = "http") -> None:
           "output_tok_s": n_out / wall,
           "ttft_ms": [None if r[0] is None else r[0] * 1e3 for r in runs],
           "request_s": [r[1] for r in runs], "chat_tokens": plain["usage"]["completion_tokens"],
+          "json_schema_chat": {"text": rf_text[:80],
+                               "tokens": rf_plain["usage"]["completion_tokens"],
+                               "plain_s": rf_s},
+          "embeddings": {"inputs": len(inputs), "ms_per_input": emb_s / len(inputs) * 1e3,
+                         "max_abs_err_vs_context": emb_err},
+          "rerank": code,
           "metrics": [ln for ln in metrics.splitlines() if not ln.startswith("#")],
           "text0": texts[0][:60], "seconds": time.perf_counter() - t0})
 
@@ -1351,8 +1504,12 @@ def phase_cli(tmp: str, card: str, phase: str = "cli", widths: Widths = LLAMA3_8
     and then with --device cpu (the plain versions): the same printed
     text. Every matrix is Q8_0, which the loader dequantizes on the host
     several times faster than Q4_K/Q6_K (the CLI loads dense: the
-    quantization type does not reach the card). Returns the first run's
-    launch counts."""
+    quantization type does not reach the card). Then --grammar (a GBNF
+    grammar over words and a full stop) and --json-schema (SCHEMA), 6
+    tokens each at --temp 0 --seed 7 (a grammar makes a seeded sampler
+    chain), on the card and with --device cpu: the same text, which the
+    grammar accepts, and the host's ms per token in Grammar.apply. Returns
+    the first run's launch counts."""
     import io
 
     from tpullama_torch.ops.cuda import launch_counts, reset_launch_counts
@@ -1379,7 +1536,6 @@ def phase_cli(tmp: str, card: str, phase: str = "cli", widths: Widths = LLAMA3_8
         secs.append(time.perf_counter() - t1)
         check(rc == 0, f"the CLI exited {rc} on {dev}")
         outs.append(buf.getvalue())
-    os.remove(path)
     if device == "cuda":
         for name in PATH_KERNELS[phase]:
             check(counts[name] > 0, f"kernel {name} was not launched on the {phase} path")
@@ -1388,10 +1544,337 @@ def phase_cli(tmp: str, card: str, phase: str = "cli", widths: Widths = LLAMA3_8
     for (dev, burst), out in zip(runs[1:], outs[1:]):
         check(outs[0] == out, f"{device} --burst 16 and {dev} --burst {burst} CLI text differ: "
               f"{outs[0][len(prompt):]!r} vs {out[len(prompt):]!r}")
+    from tpullama_torch.runtime.grammar import Grammar
+    from tpullama_torch.runtime.json_schema import json_schema_to_gbnf
+
+    constrained = {}
+    for name, flags, g_text in (
+            ("grammar", ["--grammar", WORDS_GBNF], WORDS_GBNF),
+            ("json_schema", ["--json-schema", json.dumps(SCHEMA)], json_schema_to_gbnf(SCHEMA))):
+        texts, apply_s = [], []
+        for dev in (device, "cpu"):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf), timed_method(Grammar, "apply", apply_s):
+                rc = cli_main(["-m", path, "-p", prompt, "-n", "6", "--temp", "0", "--seed", "7",
+                               *flags] + ([] if dev == "cuda" else ["--device", dev]))
+            check(rc == 0, f"the CLI exited {rc} on {dev} with --{name}")
+            texts.append(buf.getvalue()[len(prompt):].rstrip("\n"))
+        check(texts[0] == texts[1] and texts[0] != "",
+              f"--{name}: {device} and cpu CLI text differ: {texts[0]!r} vs {texts[1]!r}")
+        try:
+            Grammar.from_gbnf(g_text).accept_str(texts[0])
+        except ValueError as e:
+            raise RuntimeError(f"chip_smoke check failed: --{name} printed {texts[0]!r}, which "
+                               f"its grammar refuses: {e}") from e
+        constrained[name] = {"text": texts[0][:80],
+                             "grammar_host_ms_per_token": sum(apply_s) / len(apply_s) * 1e3,
+                             "tokens": len(apply_s) // 2}
+    os.remove(path)
     emit({"phase": phase, "card": card, "layers": 2, "dtype": "bfloat16", "new_tokens": 16,
           "text": outs[0][len(prompt):][:80], "burst16_s": secs[0], "burst1_s": secs[1],
-          "cpu_s": secs[2], "seconds": time.perf_counter() - t0})
+          "cpu_s": secs[2], "constrained": constrained, "seconds": time.perf_counter() - t0})
     return counts
+
+
+@contextlib.contextmanager
+def timed_method(cls, name: str, log: list, launches: bool = False):
+    """Append to `log` the host seconds of every call of cls.name made
+    inside the block; with `launches`, as (seconds, the kernel launches the
+    call added) pairs."""
+    from tpullama_torch.ops.cuda import launch_counts
+
+    orig = getattr(cls, name)
+
+    def timed(self, *args, **kw):
+        before = launch_counts() if launches else None
+        t0 = time.perf_counter()
+        out = orig(self, *args, **kw)
+        dt = time.perf_counter() - t0
+        if launches:
+            after = launch_counts()
+            log.append((dt, {k: after[k] - v for k, v in before.items() if after[k] != v}))
+        else:
+            log.append(dt)
+        return out
+
+    setattr(cls, name, timed)
+    try:
+        yield log
+    finally:
+        setattr(cls, name, orig)
+
+
+HUGE = (1 << 30) - 1  # Speculative.gen_draft's upper bound for seq_add
+
+
+def greedy_gaps(model, prompt_tokens, n: int, params) -> dict:
+    """Context.generate's greedy loop on one lane (one-token steps, each a
+    replayed graph on the card): its tokens, each step's top-2 logit gap,
+    and the near-tie tolerance. A verify step reads its logits off another
+    route (one prefill, qmm_tiled and flash_attention, against qmm_gemv and
+    flash_decode), so the tolerance is the larger of the cross-check's
+    formula (1e-3 of the prefill logits' largest |value| + 1e-4) and the
+    largest difference between this loop's logits and those of one
+    prefill over the same tokens (`route_diff`)."""
+    from tpullama_torch.runtime import Context
+
+    ctx = Context(model, params)
+    logits = ctx.decode(np.asarray(prompt_tokens, np.int32))[-1]
+    tol = 1e-3 * float(np.abs(logits).max()) + 1e-4
+    toks, gaps, rows = [], [], []
+    for _ in range(n):
+        tok = int(np.argmax(logits))
+        if model.vocab.is_eog(tok):  # the engine does not emit it
+            break
+        top2 = np.partition(logits, -2)[-2:]
+        gaps.append(float(top2[1] - top2[0]))
+        toks.append(tok)
+        rows.append(logits)
+        logits = ctx.decode(np.asarray([tok], np.int32))[-1]
+    del ctx
+    pf = Context(model, params).decode(np.asarray(list(prompt_tokens) + toks[:-1], np.int32),
+                                       n_logits=len(toks))
+    route_diff = float(np.abs(np.stack(rows) - pf).max())
+    return {"tokens": toks, "gaps": gaps, "formula_tol": tol, "route_diff": route_diff,
+            "tol": max(tol, route_diff)}
+
+
+def same_under_tie_rule(got: list, ref: dict, what: str, want: list | None = None) -> int:
+    """Check got's first tokens against the greedy loop's (`ref`, from
+    greedy_gaps; or `want` under ref's gaps), up to its first near-tie (a
+    step whose top-2 gap is below ref's tolerance, where the other route's
+    rounding may flip the argmax); return how many were compared."""
+    want = ref["tokens"] if want is None else want
+    k = next((i for i, g in enumerate(ref["gaps"]) if g < ref["tol"]), len(ref["gaps"]))
+    check(got[:k] == want[:k], f"{what}: tokens differ before the first near-tie ({k}): "
+          f"{got[:k]} vs {want[:k]}; gaps {ref['gaps'][:k + 1]}, tol {ref['tol']}")
+    return k
+
+
+def seq_ops_case(gpu, cpu, prompt) -> dict:
+    """seq_rm + seq_add (to 2**30 - 1) and seq_div on lane 0 of 2 (bf16
+    cache) on the card (`gpu`'s device) and on the CPU port, over the
+    cross-check's two models: K rows within bf16 rounding (2**-7 of the
+    largest |K|), positions and n_past exactly, lane 1 untouched. Then on
+    one lane a step that replays its graph, seq_add, and the next replayed
+    step: the logits an eager Context gives, bit for bit (the card
+    alone)."""
+    import torch
+
+    from tpullama_torch.runtime import Context, ContextParams
+
+    cp = ContextParams(n_ctx=256, n_seqs=2, dtype=torch.bfloat16)
+    g, c = Context(gpu, cp), Context(cpu, cp)
+    for ctx in (g, c):
+        ctx.decode(np.asarray(prompt, np.int32), seq_id=0)
+    g.decode(np.asarray(prompt[:16], np.int32), seq_id=1)
+    lane1 = [t[:, 1].clone() for t in (g.kv_k, g.kv_v)]
+    t0 = time.perf_counter()
+    g.seq_rm(0, 4)
+    g.seq_add(4, HUGE, -4)
+    g.seq_div(8, 24, 2)
+    g.kv_k.cpu()  # waits for the card
+    ops_ms = (time.perf_counter() - t0) * 1e3
+    c.seq_rm(0, 4)
+    c.seq_add(4, HUGE, -4)
+    c.seq_div(8, 24, 2)
+    kc = c.kv_k[:, 0].float()
+    k_err = float((g.kv_k[:, 0].float().cpu() - kc).abs().max())
+    k_tol = 2.0 ** -7 * float(kc.abs().max())
+    check(k_err <= k_tol, f"seq ops: K rows differ by {k_err} > {k_tol}")
+    check(torch.equal(g.kv_pos[0].cpu(), c.kv_pos[0])
+          and np.array_equal(g._pos_host[0], c._pos_host[0]) and g.n_past[0] == c.n_past[0],
+          "seq ops: positions differ")
+    check(all(torch.equal(a, t[:, 1]) for a, t in zip(lane1, (g.kv_k, g.kv_v))),
+          "seq ops changed the other lane")
+    del g, c
+    cp1 = ContextParams(n_ctx=256)
+    g, e = Context(gpu, cp1), eager_context(gpu, cp1)
+    for ctx in (g, e):
+        ctx.decode(np.asarray(prompt, np.int32))
+        ctx.decode(np.asarray([100], np.int32))
+    check(gpu.device.type != "cuda" or g._programs[(0, 1, None)].graph is not None,
+          "the lane's step was not captured")
+    replay_diff = 0.0
+    for i in range(3):
+        for ctx in (g, e):
+            ctx.seq_add(2 + i, HUGE, -1)
+        lg, le = (ctx.decode(np.asarray([101 + i], np.int32)) for ctx in (g, e))
+        check(np.isfinite(lg).all(), "logits after seq_add are not finite")
+        replay_diff = max(replay_diff, float(np.abs(lg - le).max()))
+    check(replay_diff == 0.0, f"a replay after seq_add differs from the eager step by "
+          f"{replay_diff}")
+    return {"k_max_abs_err": k_err, "k_tol": k_tol, "ops_ms": ops_ms,
+            "replay_vs_eager_max_abs_diff": replay_diff}
+
+
+def f32_activations(model):
+    """The same packed weights with an f32 token table, so the activations
+    run in f32 (the packed matmuls take f32 x)."""
+    return replace(model, params={**model.params, "tok_embd": model.params["tok_embd"].float()})
+
+
+def served_spec(model, draft, prompts: list, serve_tokens=None) -> dict:
+    """ServerEngine(n_slots=4, n_ctx=4096, bf16 cache, 16 drafts a round,
+    p_min 0) with `draft` answers the 4 greedy `prompts`: each lane's
+    tokens are its plain greedy loop's (and `serve_tokens`' if given)
+    under the near-tie rule; output tok/s, drafts and acceptance, and one
+    round's wall split into drafting and verifying with the kernels each
+    part launched."""
+    import torch
+
+    from tpullama_torch.runtime import ContextParams
+    from tpullama_torch.runtime.speculative import Speculative, SpeculativeParams
+    from tpullama_torch.server import ServerEngine, Task
+
+    refs = [greedy_gaps(model, p, 32, ContextParams(n_ctx=4096, dtype=torch.bfloat16))
+            for p in prompts]
+    eng = ServerEngine(model, n_slots=4, n_ctx=4096, dtype=torch.bfloat16, draft_model=draft,
+                       spec_params=SpeculativeParams(n_draft=16, p_min=0.0))
+    rounds, drafting = [], []
+    with timed_method(ServerEngine, "_spec_step", rounds, launches=True), \
+            timed_method(Speculative, "gen_draft", drafting, launches=True):
+        t1 = time.perf_counter()
+        tasks = [eng.submit(Task(prompt_tokens=p, n_predict=32)) for p in prompts]
+        while not all(t.done.is_set() for t in tasks):
+            eng.step()
+        wall = time.perf_counter() - t1
+    compared, common = [], []
+    for i, (t, ref) in enumerate(zip(tasks, refs)):
+        check(not t.error, f"spec request {i}: {t.error}")
+        compared.append(same_under_tie_rule(t.out_tokens, ref, f"served spec request {i}"))
+        common.append(common_prefix(t.out_tokens, ref["tokens"]))
+        if serve_tokens is not None:
+            same_under_tie_rule(t.out_tokens, ref, f"served spec request {i} against the "
+                                "serve phase", want=serve_tokens[i])
+
+    def launches(log):
+        out: dict = {}
+        for _, c in log:
+            for name, n in c.items():
+                out[name] = out.get(name, 0) + n
+        return out
+
+    draft_l = launches(drafting)
+    verify = {n: v - draft_l.get(n, 0) for n, v in launches(rounds).items()}
+    for part, names, counts in (("verify", ("qmm_tiled", "flash_attention"), verify),
+                                ("drafting", ("qmm_gemv", "flash_decode"), draft_l)):
+        for name in names:  # the wrappers count launches on a card only
+            check(model.device.type != "cuda" or counts.get(name, 0) > 0,
+                  f"{part} launched no {name}")
+    m = eng.metrics
+    n_out = sum(len(t.out_tokens) for t in tasks)
+    round_ms = sum(dt for dt, _ in rounds) / len(rounds) * 1e3
+    draft_ms = sum(dt for dt, _ in drafting) / len(drafting) * 1e3
+    return {
+        "activations": str(model.params["tok_embd"].dtype).split(".")[-1],
+        "n_slots": 4, "n_draft": 16, "p_min": 0.0, "wall_s": wall, "output_tok_s": n_out / wall,
+        "completion_tokens": [len(t.out_tokens) for t in tasks],
+        "compared": compared, "common_prefix": common,
+        "tie_tol": [r["tol"] for r in refs], "route_diff": [r["route_diff"] for r in refs],
+        "n_drafted": m["n_drafted"], "n_draft_accepted": m["n_draft_accepted"],
+        "acceptance": m["n_draft_accepted"] / m["n_drafted"] if m["n_drafted"] else 0.0,
+        "rounds": len(rounds), "round_ms": round_ms, "draft_ms": draft_ms,
+        "verify_ms": round_ms - draft_ms, "verify_launches": verify,
+        "draft_launches": draft_l}
+
+
+def common_prefix(a: list, b: list) -> int:
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+
+
+def phase_spec(model, tmp: str, card: str, serve_tokens=None, phase: str = "spec",
+               draft_widths: Widths = LLAMA32_1B) -> None:
+    """Speculative decoding on the Llama model (`model`).
+      - Self-draft: generate_speculative with the model as its own draft
+        (f32 caches, 16 drafts a round, no confidence gate), 32 tokens: the
+        tokens of Context.generate's greedy loop under the near-tie rule,
+        and the acceptance: at least 0.5 (about 1 expected) with f32
+        activations over the same packed weights; printed for the bf16
+        model, whose routes' rounding makes near-ties of random weights'
+        close logits.
+      - Served: a draft at Llama-3.2-1B's published widths (LLAMA32_1B,
+        full depth, Q4_K, written and loaded here) drafts for
+        ServerEngine(n_slots=4, n_ctx=4096, bf16, 16 drafts, p_min 0: random
+        weights never reach the 0.75 gate, and without drafts verify would
+        never run above T = 1) on the serve phase's 4 greedy requests
+        (served_spec), with the bf16 models (the numbers; the tokens
+        under the rule, whose measured route difference leaves few to
+        compare) and again with f32 activations (the tokens: verify
+        (qmm_tiled, flash_attention) and drafting (qmm_gemv,
+        flash_decode) must each launch their kernels).
+      - Over HTTP: serve(draft_model=) answers a greedy completion and
+        /metrics shows the draft counters.
+    A smaller `draft_widths` rehearses it on the CPU."""
+    import torch
+
+    from tpullama_torch.runtime import Context, ContextParams
+    from tpullama_torch.runtime.speculative import (Speculative, SpeculativeParams,
+                                                    generate_speculative)
+    from tpullama_torch.server.http import serve
+
+    t0 = time.perf_counter()
+    vocab = model.vocab
+    rec = {"phase": phase, "card": card}
+    # self-draft, with f32 activations over the same packed weights (an f32
+    # token table): the one-token route and verify's prefill route then
+    # agree to ~1e-5, so only true near-ties reject a draft. The bf16
+    # model's run follows, its acceptance bounded by the near-ties that
+    # bf16 rounding between the two routes makes among random weights'
+    # close logits: checked for its tokens, its acceptance printed.
+    prompt = vocab.tokenize(word_prompt(np.random.default_rng(8), 300), add_special=True)
+    cp = ContextParams(n_ctx=1024)
+    f32_model = f32_activations(model)
+    for name, m in (("self_draft", f32_model), ("self_draft_bf16", model)):
+        ref = greedy_gaps(m, prompt, 32, cp)
+        spec = Speculative(m, SpeculativeParams(n_draft=16, p_min=0.0), n_ctx=1024)
+        t1 = time.perf_counter()
+        got, stats = generate_speculative(Context(m, cp), spec, prompt, n_predict=32)
+        self_s = time.perf_counter() - t1
+        k = same_under_tie_rule(got, ref, name)
+        check(stats["n_drafted"] > 0, f"{name} drafted nothing")
+        if m is f32_model:
+            check(stats["accept_rate"] >= 0.5, f"{name} acceptance {stats}")
+        rec[name] = {**stats, "tokens": len(got), "compared": k,
+                     "common_prefix": common_prefix(got, ref["tokens"]),
+                     "tie_tol": ref["tol"], "formula_tol": ref["formula_tol"],
+                     "route_diff": ref["route_diff"], "min_gap": min(ref["gaps"]),
+                     "near_ties": sum(g < ref["tol"] for g in ref["gaps"]),
+                     "first_near_tie": k if k < len(ref["gaps"]) else None,
+                     "seconds": self_s}
+        del spec
+    del f32_model
+    free = torch.cuda.empty_cache if model.device.type == "cuda" else (lambda: None)
+    free()
+    # served, with the 1B draft
+    draft = phase_model(tmp, draft_widths, device=model.device.type, phase="spec_model")
+    rng = np.random.default_rng(3)
+    prompts = [vocab.tokenize(word_prompt(rng, n), add_special=True) for n in (300, 550, 780, 1000)]
+    rec["served"] = served_spec(model, draft, prompts, serve_tokens)
+    free()
+    rec["served_f32"] = served_spec(f32_activations(model), f32_activations(draft), prompts)
+    free()
+    # over HTTP
+    httpd = serve(model, port=free_port(), n_slots=1, n_ctx=4096, block=False, draft_model=draft,
+                  spec_params=SpeculativeParams(n_draft=16, p_min=0.0))
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        out = http_call(base, "/v1/completions", {"prompt": word_prompt(rng, 200),
+                                                  "max_tokens": 16, "temperature": 0})[2]
+        metrics = http_call(base, "/metrics")[2]
+    finally:
+        httpd.shutdown()
+        httpd.engine.stop()
+        httpd.server_close()
+    counters = {ln.split()[0]: float(ln.split()[1]) for ln in metrics.splitlines()
+                if ln.startswith("llamacpp:draft_tokens")}
+    check(out["choices"][0]["text"] and counters.get("llamacpp:draft_tokens_total", 0) > 0,
+          f"serve(draft_model=): text {out['choices'][0]['text']!r}, counters {counters}")
+    rec["http"] = {"completion_tokens": out["usage"]["completion_tokens"],
+                   "draft_counters": counters}
+    del draft
+    free()
+    emit({**rec, "seconds": time.perf_counter() - t0})
 
 
 @contextlib.contextmanager
@@ -1536,6 +2019,8 @@ PATH_KERNELS = {
     # every matrix dense, so attention alone runs kernels
     "openllama_crosscheck": ("flash_attention", "flash_decode"),
     "http": _DENSE_SERVE,
+    # drafts are one-lane steps (flash_decode), verify a one-lane prefill
+    "spec": _DENSE_CROSS,
     # the CLI loads dense weights (the JAX package's default)
     "cli": ("flash_attention", "flash_decode"),
 }
@@ -1642,21 +2127,23 @@ def main() -> int:
     # the Llama path (and its HTTP server), the Mixtral path, the ChatGLM
     # path, then the cross-checks alone
     for pre, widths, cross_layers, n_slots, opts in PATHS:
-        run = [p for p in ("model", "crosscheck", "serve", "graphs", "http")
+        run = [p for p in ("model", "crosscheck", "serve", "graphs", "http", "spec")
                if pre + p in phases]
         if not run:
             continue
         fused = bool(opts.get("fused_layer"))
         with tempfile.TemporaryDirectory() as tmp:
             model = None
-            if {"model", "serve", "graphs", "http"} & set(run):
+            if {"model", "serve", "graphs", "http", "spec"} & set(run):
                 model = phase_model(tmp, widths, phase=pre + "model", fused_layer=fused)
             if "crosscheck" in run:
                 launches[pre + "crosscheck"], _ = path_launches(
                     pre + "crosscheck", lambda: phase_crosscheck(
-                        tmp, widths, n_layer=cross_layers, phase=pre + "crosscheck", **opts))
+                        tmp, widths, n_layer=cross_layers, phase=pre + "crosscheck",
+                        runtime_ops=not pre, **opts))
+            serve_tokens = None
             if "serve" in run:
-                launches[pre + "serve"], (eng, prompt) = path_launches(
+                launches[pre + "serve"], (eng, prompt, serve_tokens) = path_launches(
                     pre + "serve", lambda: phase_serve(model, smi, phase=pre + "serve",
                                                        n_slots=n_slots, **opts))
                 phase_serve_profile(eng, prompt, smi, phase=pre + "serve_profile",
@@ -1669,6 +2156,9 @@ def main() -> int:
                 torch.cuda.empty_cache()
             if "http" in run:
                 launches["http"], _ = path_launches("http", lambda: phase_http(model, smi))
+            if "spec" in run:
+                launches["spec"], _ = path_launches("spec", lambda: phase_spec(
+                    model, tmp, smi, serve_tokens))
             del model
         torch.cuda.empty_cache()
     if "cli" in phases:

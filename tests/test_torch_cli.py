@@ -1,8 +1,8 @@
 """The port's CLI (tpullama_torch.tools.cli) held against the JAX package's
 (tpullama.tools.cli) on one tiny llama GGUF: the same argv (--dtype
 float32, the port with --device cpu) prints the same text, greedy and
-seeded sampled. Flags whose feature the port has not ported yet are
-refused by name.
+seeded sampled, and with the speculative, grammar and JSON-schema flags.
+Flags whose feature the port has not ported yet are refused by name.
 
 Tolerance: none. The text is the decoded tokens, and both sides pick
 them from f32 logits that agree to ~1e-6 (tests/test_torch_model.py), by
@@ -60,13 +60,47 @@ def test_cli_burst_prints_the_reference_text(tiny, capsys, burst):
     assert out_t == out_j
 
 
+GRAMMAR = 'root ::= [a-z]+ (" " [a-z]+)* "."'
+SCHEMA = '{"type": "object", "properties": {"name": {"type": "string"}, "n": {"type": "integer"}}}'
+
+
+@pytest.mark.parametrize("flag", [
+    ["--model-draft", "MODEL", "--temp", "0"], ["--model-draft", "MODEL", "--seed", "42"],
+    ["--grammar", GRAMMAR, "--seed", "42"],
+    ["--grammar-file", "DIR/g.gbnf", "--temp", "0", "--seed", "42"],
+    ["--json-schema", SCHEMA, "--seed", "42"],
+    ["--json-schema-file", "DIR/s.json", "--temp", "0", "--seed", "42"]],
+    ids=["model-draft", "model-draft-seeded", "grammar", "grammar-file", "json-schema",
+         "json-schema-file"])
+def test_cli_ported_flags_print_the_reference_text(tiny, tmp_path, capsys, flag):
+    """Speculative decoding (-md: the tiny file drafts for itself) and the
+    grammar and JSON-schema flags print the reference CLI's text; a
+    grammar's text is accepted by the grammar. A grammar makes a sampler
+    chain even at --temp 0, which draws from its seed, so every case but
+    greedy drafting gives one."""
+    from tpullama.tools.cli import main as j_main
+    from tpullama_torch.runtime.grammar import Grammar
+    from tpullama_torch.runtime.json_schema import json_schema_to_gbnf
+    from tpullama_torch.tools.cli import main as t_main
+
+    (tmp_path / "g.gbnf").write_text(GRAMMAR)
+    (tmp_path / "s.json").write_text(SCHEMA)
+    flag = [f.replace("MODEL", tiny).replace("DIR", str(tmp_path)) for f in flag]
+    rc_j, out_j = _run(j_main, _argv(tiny, *flag), capsys)
+    rc_t, out_t = _run(t_main, _argv(tiny, *flag, "--device", "cpu"), capsys)
+    assert rc_j == rc_t == 0
+    assert out_t.startswith(PROMPT) and len(out_t) > len(PROMPT) + 1
+    assert out_t == out_j
+    if "draft" not in flag[0]:
+        g_text = GRAMMAR if "grammar" in flag[0] else json_schema_to_gbnf(SCHEMA)
+        Grammar.from_gbnf(g_text).accept_str(out_t[len(PROMPT):].rstrip("\n"))
+
+
 @pytest.mark.parametrize("flag", [
     ["--control-vector", "cv.gguf"], ["--control-vector-scaled", "cv.gguf", "0.5"],
     ["--control-vector-layer-range", "1", "2"], ["--lora", "a.gguf"],
-    ["--model-draft", "d.gguf"], ["--lookup-cache-static", "s.bin"],
+    ["--lookup-cache-static", "s.bin"],
     ["--lookup-cache-dynamic", "d.bin"], ["--prompt-cache", "p.bin"],
-    ["--grammar", 'root ::= "a"'], ["--grammar-file", "g.gbnf"],
-    ["--json-schema", "{}"], ["--json-schema-file", "s.json"],
     ["--split-mode", "row"]], ids=lambda f: f[0].lstrip("-"))
 def test_cli_refuses_unported_flags_by_name(tiny, flag):
     """Each flag of a feature not ported yet raises before the model

@@ -3,13 +3,17 @@ package's (tpullama.server.http): both serve() one tiny llama GGUF on
 free local ports (block=False, 2 slots of 128 cells, f32 engines on the
 CPU), and one scripted session goes to each. Every JSON body, SSE event
 list and Prometheus counter must be equal once the request ids,
-`created` stamps, timings and rates are dropped. Features the port has
-not ported yet answer a 501 JSON error that names them; the slot erase
-action, which the port has, works.
+`created` stamps, timings and rates are dropped. Grammar-constrained
+bodies ("grammar", "json_schema", "response_format"), /v1/embeddings and
+a server with a draft model (serve(draft_model=)) answer as the JAX
+package's do. Features the port has not ported yet answer a 501 JSON
+error that names them; the slot erase action, which the port has, works.
 
-Tolerance: none. Bodies carry decoded tokens, which both sides pick from
-f32 logits that agree to ~1e-6 (tests/test_torch_model.py): greedy, and
-one request through the same seeded sampler chain."""
+Tolerance: none for text. Bodies carry decoded tokens, which both sides
+pick from f32 logits that agree to ~1e-6 (tests/test_torch_model.py):
+greedy, and one request through the same seeded sampler chain.
+Embedding values agree within 1e-5 (f32 hidden states, sums in another
+order; each vector has unit norm)."""
 
 import json
 import urllib.error
@@ -54,22 +58,30 @@ SESSION = [
 # requests for features the port has not ported yet: (path, body, name in
 # the error)
 REFUSED = [
-    ("/v1/embeddings", {"input": "hi"}, "/embeddings"),
     ("/rerank", {"query": "q", "documents": ["a"]}, "/rerank"),
     ("/slots/0?action=save", {"filename": "s.bin"}, "slot save"),
     ("/slots/0?action=restore", {"filename": "s.bin"}, "slot restore"),
     ("/lora-adapters", [{"id": 0, "scale": 1.0}], "LoRA"),
-    ("/v1/chat/completions", {"messages": CHAT, "grammar": 'root ::= "a"'}, "grammar"),
-    ("/v1/completions", {"prompt": "a", "json_schema": {"type": "object"}}, "json_schema"),
-    ("/v1/chat/completions", {"messages": CHAT,
-                              "response_format": {"type": "json_object"}},
-     "response_format"),
     ("/v1/chat/completions",
      {"messages": [{"role": "user", "content": [
          {"type": "text", "text": "what is this"},
          {"type": "image_url", "image_url": {"url": "data:image/png;base64,AAAA"}}]}]},
      "image_url"),
 ]
+# requests of the features this slice ported, once refused: (path, body)
+PORTED = {
+    "embeddings": ("/v1/embeddings", {"input": ["hi", "Once upon a time"]}),
+    "grammar": ("/v1/chat/completions",
+                {"messages": CHAT, "max_tokens": 8, "temperature": 0,
+                 "grammar": 'root ::= [a-z]+ (" " [a-z]+)* "."'}),
+    "json_schema": ("/v1/completions",
+                    {"prompt": "a", "max_tokens": 10, "temperature": 0, "stream": True,
+                     "json_schema": {"type": "object",
+                                     "properties": {"n": {"type": "integer"}}}}),
+    "response_format": ("/v1/chat/completions",
+                        {"messages": CHAT, "max_tokens": 8, "temperature": 0,
+                         "response_format": {"type": "json_object"}}),
+}
 DROP = {"id", "created", "timings", "model_path"}
 
 
@@ -154,6 +166,42 @@ def test_streamed_chat_concatenates_to_the_plain_text(servers):
     assert text == json.loads(plain)["choices"][0]["message"]["content"]
 
 
+def _close(a, b):
+    """Equal data, floats within 1e-5."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(_close(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return isinstance(b, list) and len(a) == len(b) and all(map(_close, a, b))
+    if isinstance(a, float) and isinstance(b, float):
+        return abs(a - b) <= 1e-5
+    return a == b
+
+
+@pytest.mark.parametrize("case", sorted(PORTED))
+def test_ported_bodies_equal_the_reference(servers, case):
+    """Grammar-constrained completions give the reference's text (which the
+    grammar accepts), and /v1/embeddings its vectors."""
+    path, body = PORTED[case]
+    code_j, ctype_j, text_j = _request(servers["jax"], "POST", path, body)
+    code_t, ctype_t, text_t = _request(servers["torch"], "POST", path, body)
+    assert (code_t, ctype_t) == (code_j, ctype_j) == (200, ctype_j)
+    assert _close(_parsed(ctype_t, text_t), _parsed(ctype_j, text_j))
+    parsed = _parsed(ctype_t, text_t)
+    if case == "embeddings":
+        data = parsed["data"]
+        assert len(data) == 2 and all(abs(sum(x * x for x in d["embedding"]) - 1) < 1e-5
+                                      for d in data)
+        return
+    from tpullama_torch.server.http import _make_grammar
+
+    if ctype_t.startswith("text/event-stream"):
+        text = "".join(e["choices"][0]["text"] for e in parsed if isinstance(e, dict))
+    else:
+        text = parsed["choices"][0]["message"]["content"]
+    assert text
+    _make_grammar(body, None).accept_str(text)  # raises on a refused character
+
+
 @pytest.mark.parametrize("path,body,name", REFUSED, ids=[r[2] for r in REFUSED])
 def test_unported_features_answer_an_error_naming_them(servers, path, body, name):
     code, ctype, text = _request(servers["torch"], "POST", path, body)
@@ -167,10 +215,52 @@ def test_unported_features_answer_an_error_naming_them(servers, path, body, name
 
 @pytest.mark.parametrize("kw,name", [
     (dict(mmproj="p.gguf"), "mmproj"), (dict(loras=[("a.gguf", 1.0)]), "loras"),
-    (dict(draft_model=object()), "draft_model"), (dict(kv_unified=True), "kv_unified"),
+    (dict(kv_unified=True), "kv_unified"),
     (dict(split_mode="row"), "split_mode")], ids=lambda v: v if isinstance(v, str) else "")
 def test_serve_refuses_unported_options_by_name(kw, name):
     from tpullama_torch.server.http import serve
 
     with pytest.raises(NotImplementedError, match=rf"{name}.*Queue 1 item"):
         serve(None, port=0, block=False, **kw)
+
+
+def test_served_spec_session_equals_the_reference(tmp_path):
+    """Both servers with a draft model (the target file drafting for itself,
+    4 drafts a round, no confidence gate): the same completions, and the
+    same draft counters on /metrics."""
+    from tpullama.models import load_model as j_load
+    from tpullama.runtime.speculative import SpeculativeParams as JSP
+    from tpullama.server.http import serve as j_serve
+    from tpullama_torch.models import load_model as t_load
+    from tpullama_torch.runtime.speculative import SpeculativeParams as TSP
+    from tpullama_torch.server.http import serve as t_serve
+
+    p = str(tmp_path / "m.gguf")
+    make_tiny_llama_gguf(p, n_layer=2, seed=7)
+    bases, httpds = {}, []
+    try:
+        for name, load, serve, sp, kw in (("jax", j_load, j_serve, JSP, {}),
+                                          ("torch", t_load, t_serve, TSP, {"device": "cpu"})):
+            httpd = serve(load(p, **kw), port=0, n_slots=2, n_ctx=128, block=False,
+                          draft_model=load(p, **kw), spec_params=sp(n_draft=4, p_min=0.0))
+            httpds.append(httpd)
+            bases[name] = f"http://127.0.0.1:{httpd.server_address[1]}"
+        script = [("POST", "/v1/completions", {"prompt": "Once upon a time", "max_tokens": 12,
+                                               "temperature": 0}),
+                  ("POST", "/completion", {"prompt": "abc", "n_predict": 6, "temperature": 0,
+                                           "stream": True}),
+                  ("GET", "/metrics", None)]
+        for m, path, body in script:
+            got = {k: _request(b, m, path, body) for k, b in bases.items()}
+            assert got["torch"][:2] == got["jax"][:2] and got["torch"][0] == 200
+            assert _parsed(*got["torch"][1:]) == _parsed(*got["jax"][1:]), path
+        metrics = got["torch"][2]
+        assert "llamacpp:draft_tokens_total" in metrics
+        drafted = int(next(ln.split()[1] for ln in metrics.splitlines()
+                           if ln.startswith("llamacpp:draft_tokens_total")))
+        assert drafted > 0
+    finally:
+        for httpd in httpds:
+            httpd.shutdown()
+            httpd.engine.stop()
+            httpd.server_close()

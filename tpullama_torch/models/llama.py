@@ -216,12 +216,13 @@ class LlamaModel(nn.Module):
         self.rp = rope_params(hp)
 
     def forward(self, tokens, positions, kv_k, kv_v, cache_slots, attn_mask,
-                logit_rows=None):
+                logit_rows=None, return_embd: bool = False):
         """tokens, positions, cache_slots: (B, T) int; kv_k/kv_v: (L, B, Hkv,
         S, D) caches written in place; attn_mask: (B, 1, T, S) additive f32.
         logit_rows: optional (B, R) row indices — the lm_head runs on those
         rows only (the rows a caller reads). Returns f32 logits (B, T or R,
-        n_vocab)."""
+        n_vocab); with return_embd, (logits, the final-norm hidden states of
+        every row as f32 (B, T, n_embd)), the JAX package's return_embd."""
         hp, p = self.hp, self.params
         x = p["tok_embd"][tokens.long()]
         cos = sin = None
@@ -231,10 +232,12 @@ class LlamaModel(nn.Module):
         for li, layer in enumerate(self.layers):
             x = layer(x, cos, sin, kv_k[li], kv_v[li], cache_slots, attn_mask)
         x = rms_norm(x, p.get("output_norm"), hp.f_norm_rms_eps)
+        embd = x.float() if return_embd else None
         if logit_rows is not None:
             x = torch.gather(x, 1, logit_rows.long()[:, :, None].expand(-1, -1, x.shape[-1]))
         out_w = p.get("output", p["tok_embd"])
-        return linear(x, out_w, self.quant_meta.get("output"), self.qmm_tile_k).float()
+        logits = linear(x, out_w, self.quant_meta.get("output"), self.qmm_tile_k).float()
+        return (logits, embd) if return_embd else logits
 
 
 def llama_forward(params: dict, hp: HParams, tokens, positions, kv_k, kv_v,

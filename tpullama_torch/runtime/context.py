@@ -26,7 +26,13 @@ Differences from the JAX package, by design:
     instead of one scanned program; it returns the same ids and keeps the
     same host bookkeeping;
   - the sampled burst draws from a torch.Generator, not a threefry key
-    (runtime/sampling.device_sample).
+    (runtime/sampling.device_sample);
+  - seq_add / seq_div / seq_cp write the lane and its positions in place
+    (the graphs read them at fixed addresses), and their K re-rotation
+    divides by the model's rope_freqs as the forward pass does, where the
+    JAX package's _rotate leaves them out (only a model that carries
+    rope_freqs, Llama-3.x, differs). The SWA two-stack and int8 caches
+    they also handle there are not ported.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from ..models.hparams import HParams
 from ..models.llama import LlamaModel
 from ..models.loader import LoadedModel, check_supported
 from ..ops.cuda import add_launch_counts, launch_counts
+from ..ops.rope import apply_rope, rope_cache
 from .sampling import as_device_spec, device_sample
 
 NEG_INF = -1e30  # avoids NaN rows for fully-masked (padded) queries
@@ -176,7 +183,8 @@ class Context:
     def _t(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device)
 
-    def _forward(self, kv_k, kv_v, kv_pos, tokens, positions, slots, logit_rows=None):
+    def _forward(self, kv_k, kv_v, kv_pos, tokens, positions, slots, logit_rows=None,
+                 return_embd: bool = False):
         """Shared core: record the new cells' positions, build the additive
         mask, run the model (which writes K/V in place)."""
         B, T = tokens.shape
@@ -187,16 +195,22 @@ class Context:
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
         neg = torch.full((), NEG_INF, dtype=torch.float32, device=self.device)
         mask = torch.where(vis, zero, neg)[:, None]
-        return self.net(tokens, positions, kv_k, kv_v, slots, mask, logit_rows=logit_rows)
+        return self.net(tokens, positions, kv_k, kv_v, slots, mask, logit_rows=logit_rows,
+                        return_embd=return_embd)
 
-    def _step_seq(self, seq: int, tokens, positions, slots, n_logits: int):
-        """Prefill/decode for ONE sequence on views of its cache lane."""
+    def _step_seq(self, seq: int, tokens, positions, slots, n_logits: int,
+                  embd: bool = False):
+        """Prefill/decode for ONE sequence on views of its cache lane.
+        Returns its (n_logits, V) logits and, with `embd`, its (T, n_embd)
+        final-norm hidden states (else None)."""
         T = tokens.shape[1]
         rows = torch.arange(T - n_logits, T, device=self.device)[None]
-        logits = self._forward(
+        out = self._forward(
             self.kv_k[:, seq:seq + 1], self.kv_v[:, seq:seq + 1],
-            self.kv_pos[seq:seq + 1], tokens, positions, slots, logit_rows=rows)
-        return logits[0]
+            self.kv_pos[seq:seq + 1], tokens, positions, slots, logit_rows=rows,
+            return_embd=embd)
+        logits, hidden = out if embd else (out, None)
+        return logits[0], None if hidden is None else hidden[0]
 
     # ------------------------------------------------- one-token steps
 
@@ -307,6 +321,13 @@ class Context:
     def decode(self, tokens: np.ndarray, n_logits: int = 1, seq_id: int = 0) -> np.ndarray:
         """Process tokens for one sequence. tokens: (T,) int.
         Returns logits (n_logits, n_vocab)."""
+        return self._decode(tokens, n_logits, seq_id)[0]
+
+    def _decode(self, tokens, n_logits: int, seq_id: int, embd: bool = False):
+        """decode, also returning the final-norm hidden states of its T
+        tokens ((T, n_embd) f32 on the device) when `embd` is set: then
+        even a one-token step runs eagerly, since the step program's graph
+        keeps no hidden states. Returns (logits, hidden states or None)."""
         tokens = np.asarray(tokens, np.int32).reshape(1, -1)
         _, T = tokens.shape
         n_past = int(self.n_past[seq_id])
@@ -328,16 +349,18 @@ class Context:
         slots = np.pad(srow, ((0, 0), (0, pad)), constant_values=S - 1)
         self._pos_host[seq_id, srow[0]] = rng[0]
         t0 = time.perf_counter()
-        if T == 1 and n_logits == 1:
+        hidden = None
+        if T == 1 and n_logits == 1 and not embd:
             # the lane's step program; its first free cell is srow's
             prog = self._program(seq_id, seq_id + 1)
             prog.fill(tokens[0], [n_past], [1])
             out = self._run(prog).cpu().numpy()
         else:
             # logits of the last n_logits real tokens (padding sits after them)
-            logits = self._step_seq(seq_id, self._t(toks), self._t(pos), self._t(slots),
-                                    n_logits + pad)
+            logits, hidden = self._step_seq(seq_id, self._t(toks), self._t(pos),
+                                            self._t(slots), n_logits + pad, embd)
             out = logits.cpu().numpy()
+            hidden = None if hidden is None else hidden[:T]
         dt = (time.perf_counter() - t0) * 1000
         if T > 1:
             self.perf.t_prefill_ms += dt
@@ -348,7 +371,7 @@ class Context:
         self.n_past[seq_id] = n_past + T
         if pad:
             out = out[:n_logits]
-        return out
+        return out, hidden
 
     def _batch_inputs(self, tokens, active):
         """The host mirror's side of one batched step: each active lane's
@@ -496,7 +519,34 @@ class Context:
         self.perf.n_prefill += n_new
         return {seq_id: out[seq_id] for seq_id, _ in chunks}
 
+    def embeddings(self, tokens, pooling: str = "mean", seq_id: int = 0,
+                   normalize: bool = True) -> np.ndarray:
+        """Embed a token sequence (llama_get_embeddings + pooling types
+        NONE/MEAN/CLS/LAST; common_embd_normalize): the lane is reset and
+        the tokens run eagerly (one token included) with the final-norm
+        hidden states. Returns (n_embd,) for pooled types or (T, n_embd)
+        for 'none'."""
+        self.reset(seq_id)
+        _, embd = self._decode(np.asarray(tokens, np.int32), 1, seq_id, embd=True)
+        e = embd.cpu().numpy()
+        if pooling == "none":
+            out = e
+        elif pooling == "mean":
+            out = e.mean(axis=0)
+        elif pooling == "cls":
+            out = e[0]
+        elif pooling == "last":
+            out = e[-1]
+        else:
+            raise ValueError(f"unknown pooling {pooling!r}")
+        if normalize and pooling != "none":
+            n = np.linalg.norm(out)
+            out = out / n if n > 0 else out
+        return out
+
     # ------------------------------------------------------- seq ops
+    # Each op writes the cache lane and its positions IN PLACE: the step
+    # programs' CUDA graphs read kv_k, kv_v and kv_pos at fixed addresses.
 
     def seq_rm(self, p0: int, p1: int, seq_id: int = 0):
         """Remove positions [p0, p1) from a sequence (llama_memory_seq_rm)."""
@@ -508,6 +558,53 @@ class Context:
         h[(h >= p0) & (h < p1)] = -1
         if p1 >= int(self.n_past[seq_id]):
             self.n_past[seq_id] = min(int(self.n_past[seq_id]), p0)
+
+    def _rotate(self, seq_id: int, deltas: torch.Tensor) -> None:
+        """Re-rotate every cached K row of lane seq_id by its cell's
+        position delta ((S,) int), in f32, cast back to the cache dtype:
+        R(pos + d) = R(d)·R(pos) per rope frequency. The rotation by d
+        comes from the same cos/sin tables as the forward pass (rope_freqs
+        and partial rotation included), so a YaRN model's mscale is applied
+        again to every row of the lane, as in the JAX package."""
+        rp = self.net.rp
+        cos, sin = rope_cache(rp, deltas, self.model.params.get("rope_freqs"))
+        k = self.kv_k[:, seq_id]  # (L, Hkv, S, D) view of the lane
+        k.copy_(apply_rope(k.float(), cos[None, None], sin[None, None], rp.mode, rp.n_dims))
+
+    def seq_add(self, p0: int, p1: int, delta: int, seq_id: int = 0):
+        """Shift positions in [p0, p1) by delta (llama_memory_seq_add),
+        re-rotating the cached K rows by the delta (the reference's lazy
+        rope-shift graph applied eagerly). Cells are picked by masks over
+        the lane, so p1 may be as large as 2**30."""
+        row = self.kv_pos[seq_id]
+        deltas = torch.where((row >= p0) & (row < p1), delta, 0).to(torch.int32)
+        self._rotate(seq_id, deltas)
+        row.add_(deltas)
+        h = self._pos_host[seq_id]
+        h[(h >= p0) & (h < p1)] += delta
+        if p1 >= int(self.n_past[seq_id]) >= p0:
+            self.n_past[seq_id] = int(self.n_past[seq_id]) + delta
+
+    def seq_div(self, p0: int, p1: int, d: int, seq_id: int = 0):
+        """Integer-divide positions in [p0, p1) by d (llama_memory_seq_div,
+        the self-extend primitive). Cached K is re-rotated by (new_pos -
+        old_pos) per cell. n_past stays, as in the JAX package."""
+        row = self.kv_pos[seq_id]
+        new_row = torch.where((row >= p0) & (row < p1),
+                              torch.div(row, d, rounding_mode="floor"), row)
+        self._rotate(seq_id, (new_row - row).to(torch.int32))
+        row.copy_(new_row)
+        h = self._pos_host[seq_id]
+        sel = (h >= p0) & (h < p1)
+        h[sel] = h[sel] // d
+
+    def seq_cp(self, src: int, dst: int):
+        """Copy a sequence's cache lane to another (llama_memory_seq_cp)."""
+        self.kv_k[:, dst].copy_(self.kv_k[:, src])
+        self.kv_v[:, dst].copy_(self.kv_v[:, src])
+        self.kv_pos[dst].copy_(self.kv_pos[src])
+        self._pos_host[dst] = self._pos_host[src]
+        self.n_past[dst] = self.n_past[src]
 
     def rollback_to(self, position: int, seq_id: int = 0):
         """Drop all cache entries at positions >= position."""

@@ -6,15 +6,19 @@ every engine iteration
   2. advances the prompt-processing slots by one n_ubatch chunk, packed
      into one step when several slots are prompting,
   3. runs ONE batched decode step for all generating slots (or a greedy
-     burst of K steps when every generating slot is greedy and nothing
-     waits), samples per slot, handles stop conditions and streaming.
+     burst of K steps when every generating slot is greedy without a
+     grammar and nothing waits), samples per slot, handles stop
+     conditions and streaming. With a draft model each generating slot
+     instead runs one speculative round (its own draft Context proposes,
+     one prefill on its lane verifies); a grammar slot takes one plain
+     decode step.
 
-Each decode round's step (decode_batch) and each step of a greedy burst
-(decode_batch_burst) replays the Context's captured CUDA graph on the
-card. The port builds the attention Context directly; recurrent, hybrid
-and encoder models, speculative decoding, multimodal chunks, embeddings
-tasks, grammar-constrained sampling and slot save/restore are not ported
-yet.
+Each decode round's step (decode_batch), each step of a greedy burst
+(decode_batch_burst) and each draft step replays a Context's captured
+CUDA graph on the card. Embedding tasks run in one shot on the slot's
+lane (Context.embeddings). The port builds the attention Context
+directly; recurrent, hybrid and encoder models, multimodal chunks and
+slot save/restore are not ported yet.
 """
 
 from __future__ import annotations
@@ -45,6 +49,10 @@ class Task:
     prompt_tokens: list
     n_predict: int = 128
     sampler: SamplerChain | None = None
+    grammar: object = None
+    embedding: bool = False  # embedding task: pooled hidden state, no gen
+    pooling: str = "mean"
+    embedding_out: object = None
     stop: list = field(default_factory=list)  # stop strings
     stream_queue: Optional[queue.Queue] = None
     id: int = 0
@@ -73,16 +81,19 @@ class Slot:
     cache_tokens: list = field(default_factory=list)  # tokens in this seq's KV
     pending_text: str = ""  # holdback buffer for stop-string matching
     last_token: int = 0
+    spec: object = None  # per-slot draft context (Speculative)
 
 
 class ServerEngine:
     def __init__(self, model, n_slots: int = 4, n_ctx: int = 1024, n_ubatch: int = 256,
                  dtype=None, burst: int = 8, fused_layer: bool | None = None,
-                 qmm_tile_k: int | None = None):
+                 qmm_tile_k: int | None = None, draft_model=None, spec_params=None):
         """`burst`: widest fused greedy decode round (0 or 1 disables; the
         JAX package's TPULLAMA_ENGINE_BURST default of 8). `fused_layer`
         and `qmm_tile_k` go to the Context's model (default: the
-        TPULLAMA_FUSED_LAYER and TPULLAMA_QMM_TILE_K variables)."""
+        TPULLAMA_FUSED_LAYER and TPULLAMA_QMM_TILE_K variables).
+        `draft_model` (a LoadedModel on the same device) turns on per-slot
+        speculative decoding with `spec_params` (a SpeculativeParams)."""
         # the port's HParams hold the llama family only, so this also refuses
         # the models that need the recurrent, hybrid or encoder contexts
         check_supported(model.hparams)
@@ -91,11 +102,17 @@ class ServerEngine:
         cp = ContextParams(n_ctx=n_ctx, n_seqs=n_slots, n_ubatch=n_ubatch,
                            dtype=dtype or torch.float32)
         self.ctx = Context(model, cp, fused_layer=fused_layer, qmm_tile_k=qmm_tile_k)
-        # the JAX package's encoder context (embeddings-only models) and
-        # speculative draft model, read by the HTTP layer: neither is
-        # ported yet, so always None here
+        # the JAX package's encoder context (embeddings-only models), read
+        # by the HTTP layer: not ported yet, so always None here
         self.encoder = None
-        self.draft_model = None
+        # per-slot speculative decoding (server-context.cpp:2414-2520)
+        self.draft_model = draft_model
+        self.spec_params = spec_params
+        if draft_model is not None and model.vocab is not None:
+            # vocab compatibility check (common_speculative_are_compatible)
+            dv = draft_model.vocab
+            if dv is None or dv.n_tokens != model.vocab.n_tokens:
+                raise ValueError("draft model vocab is not compatible with the target")
         self.n_ubatch = n_ubatch
         self.burst = int(burst)
         self.slots = [Slot(i) for i in range(n_slots)]
@@ -110,6 +127,8 @@ class ServerEngine:
             "n_tokens_predicted": 0,
             "n_requests": 0,
             "n_errors": 0,
+            "n_drafted": 0,
+            "n_draft_accepted": 0,
         }
 
     # ------------------------------------------------------------- API
@@ -213,6 +232,20 @@ class ServerEngine:
                 if task.stream_queue is not None:
                     task.stream_queue.put(None)
                 continue
+            if task.embedding:
+                # embedding tasks run in one shot on the slot's lane
+                try:
+                    self.ctx.reset(slot.id)
+                    task.embedding_out = self.ctx.embeddings(
+                        prompt, pooling=task.pooling, seq_id=slot.id)
+                    slot.cache_tokens = []
+                except Exception as e:  # noqa: BLE001
+                    task.error = f"{type(e).__name__}: {e}"
+                    self.metrics["n_errors"] += 1
+                task.t_done = time.perf_counter()
+                task.done.set()
+                worked = True
+                continue
             # prompt-cache reuse: keep the common prefix with the previous
             # request on this slot
             common = 0
@@ -286,6 +319,17 @@ class ServerEngine:
                 if int(self.ctx.n_past[s.id]) + 1 > self.ctx.p.n_ctx:
                     self._finish(s, "length")
             return True
+        if self.draft_model is not None:
+            # per-slot speculative decoding; grammar-constrained slots take
+            # the plain decode (chain/grammar interplay)
+            for s in gen:
+                if s.task is not None and s.task.grammar is None:
+                    self._spec_step(s)
+                else:
+                    row = self.ctx.decode(np.asarray([s.last_token], np.int32), n_logits=1,
+                                          seq_id=s.id)[-1]
+                    self._emit(s, self._sample(s, row))
+            return True
         K = self._burst_len(gen)
         if K > 1:
             return self._burst_decode(gen, tokens, active, K)
@@ -296,12 +340,13 @@ class ServerEngine:
 
     def _burst_len(self, gen) -> int:
         """Burst width for this decode round, or 1 for the one-step path.
-        Bursting is legal when every generating slot samples pure-greedy,
-        has already emitted its first token, and no prompt
-        work is waiting. Width: largest power of two <= every slot's
+        Bursting is legal when every generating slot samples pure-greedy
+        with no grammar (the on-device argmax is the sampler), has already
+        emitted its first token, and no prompt work is waiting; never with
+        a draft model. Width: largest power of two <= every slot's
         remaining budget, capped by `burst`."""
         cap = self.burst
-        if cap <= 1 or not self.queue.empty():
+        if cap <= 1 or self.draft_model is not None or not self.queue.empty():
             return 1
         for s in self.slots:
             if s.state == SlotState.PROMPT:
@@ -309,7 +354,7 @@ class ServerEngine:
         room = cap
         for s in gen:
             t = s.task
-            if t.sampler is not None:
+            if t.sampler is not None or t.grammar is not None:
                 return 1
             if not t.t_first_token:
                 return 1
@@ -341,10 +386,53 @@ class ServerEngine:
                 self.ctx.rollback_to(past0[s.id] + done_at + 1, seq_id=s.id)
         return True
 
+    def _spec_step(self, slot: Slot):
+        """One speculative iteration for a generating slot: draft with the
+        slot's draft Context, verify [last + drafts] in one target decode on
+        this slot's lane, roll back the rejected KV tail."""
+        from ..runtime.speculative import Speculative, SpeculativeParams, sample_and_accept_n
+
+        task = slot.task
+        if slot.spec is None:
+            slot.spec = Speculative(self.draft_model, self.spec_params or SpeculativeParams(),
+                                    n_ctx=self.ctx.p.n_ctx)
+        history = slot.cache_tokens[:-1]  # last_token not yet decoded
+        drafts = slot.spec.gen_draft(list(history), slot.last_token)
+        # budget: never run past the context
+        room = self.ctx.p.n_ctx - int(self.ctx.n_past[slot.id]) - 1
+        drafts = drafts[: max(0, room)]
+        self.metrics["n_drafted"] += len(drafts)
+        batch = [slot.last_token] + drafts
+        logits_rows = self.ctx.decode(np.asarray(batch, np.int32), n_logits=len(batch),
+                                      seq_id=slot.id)
+        accepted = sample_and_accept_n(task.sampler, logits_rows, drafts)
+        self.metrics["n_draft_accepted"] += len(accepted) - 1
+        if len(accepted) < len(batch):
+            n_keep = int(self.ctx.n_past[slot.id]) - (len(batch) - len(accepted))
+            self.ctx.seq_rm(n_keep, -1, seq_id=slot.id)
+            self.ctx.n_past[slot.id] = n_keep
+        for tok in accepted:
+            if not self._emit(slot, tok):
+                return
+
     # ------------------------------------------------------- helpers
 
     def _sample(self, slot: Slot, logits: np.ndarray) -> int:
         task = slot.task
+        if task.grammar is not None:
+            from ..runtime.sampling import Candidates
+
+            cur = Candidates.from_logits(logits)
+            task.grammar.apply(cur)
+            if task.sampler is None:
+                tok = int(cur.ids[int(np.argmax(cur.logits))])
+            else:
+                # sample from the grammar-masked logits through the chain
+                full = np.full_like(logits, -np.inf)
+                full[cur.ids] = cur.logits
+                tok = task.sampler.sample(full)
+            task.grammar.accept(tok)
+            return tok
         if task.sampler is None:
             return int(np.argmax(logits))
         return task.sampler.sample(logits)
@@ -411,10 +499,10 @@ class ServerEngine:
     # ------------------------------------------------------- sync API
 
     def complete(self, prompt: str, n_predict: int = 64, sampler=None, stop=None,
-                 timeout: float = 600.0) -> Task:
+                 grammar=None, timeout: float = 600.0) -> Task:
         toks = self.vocab.tokenize(prompt, add_special=True)
         task = Task(prompt_tokens=toks, n_predict=n_predict, sampler=sampler,
-                    stop=stop or [])
+                    stop=stop or [], grammar=grammar)
         self.submit(task)
         if self._thread is None:
             while not task.done.is_set():

@@ -10,11 +10,13 @@ Streaming uses SSE (data: {...}\n\n, terminated by data: [DONE]).
 Chat templating: the GGUF's tokenizer.chat_template rendered with jinja2
 (the role minja plays in the reference), with a ChatML fallback.
 
-Features not ported yet answer a JSON error (501, not_supported_error)
-that names them and their ROADMAP.md Queue 1 item, and serve() / main()
-refuse their options by name: embeddings and rerank, grammar and
-json_schema bodies, speculative decoding (item 3); slot save/restore,
-LoRA adapters, the unified KV pool (item 6); media in chat and --mmproj
+Grammar-constrained bodies ("grammar", "json_schema", a JSON
+"response_format"), /embedding(s) and serve(draft_model=) / --model-draft
+run as in the JAX package. Features not ported yet answer a JSON error
+(501, not_supported_error) that names them and their ROADMAP.md Queue 1
+item, and serve() / main() refuse their options by name: slot
+save/restore, LoRA adapters, the unified KV pool (item 6); /rerank, which
+needs the rank-pooled encoder path (item 7); media in chat and --mmproj
 (item 8); --split-mode other than none (item 10).
 """
 
@@ -177,17 +179,22 @@ def _make_sampler(body: dict, vocab=None, n_vocab: int = 0) -> SamplerChain | No
     )
 
 
-def refuse_grammar(body: dict) -> None:
-    """Grammar-constrained sampling (a "grammar", "json_schema" or a JSON
-    response_format in the body) is not ported yet: refuse it by name."""
-    rf = body.get("response_format") or {}
-    for key, on in (("grammar", body.get("grammar")),
-                    ("json_schema", body.get("json_schema") is not None),
-                    ("response_format", rf.get("type") in ("json_schema", "json_object"))):
-        if on:
-            raise NotImplementedError(
-                f'"{key}": grammar-constrained sampling is not ported yet '
-                "(ROADMAP.md Queue 1 item 3)")
+def _make_grammar(body: dict, vocab):
+    from ..runtime.grammar import Grammar
+    from ..runtime.json_schema import json_schema_to_gbnf
+
+    g_text = body.get("grammar")
+    schema = body.get("json_schema")
+    rf = body.get("response_format")
+    if rf and rf.get("type") == "json_schema":
+        schema = rf.get("json_schema", {}).get("schema", rf.get("schema", {}))
+    elif rf and rf.get("type") == "json_object":
+        schema = {"type": "object"}
+    if schema is not None and g_text is None:
+        g_text = json_schema_to_gbnf(schema)
+    if g_text:
+        return Grammar.from_gbnf(g_text, vocab=vocab)
+    return None
 
 
 def extract_media(messages: list):
@@ -507,7 +514,35 @@ def make_handler(state: ServerState):
                 self._error(f"{type(e).__name__}: {e}", 500, "server_error")
 
         def _handle_embeddings(self, body):
-            raise _not_ported("/embeddings: the embeddings path", 3)
+            inputs = body.get("input", body.get("content", ""))
+            if isinstance(inputs, str):
+                inputs = [inputs]
+            # embedding tasks on the decoder's lanes (the JAX package's
+            # encoder-model branch waits for the encoder context, Queue 1
+            # item 7)
+            data = []
+            n_prompt = 0
+            for i, text in enumerate(inputs):
+                toks = vocab.tokenize(text, add_special=True)
+                n_prompt += len(toks)
+                task = Task(prompt_tokens=toks, embedding=True,
+                            pooling=body.get("pooling", "mean"))
+                engine.submit(task)
+                if engine._thread is None:
+                    while not task.done.is_set():
+                        engine.step()
+                else:
+                    task.done.wait(600)
+                if task.error:
+                    return self._error(task.error)
+                data.append({
+                    "object": "embedding", "index": i,
+                    "embedding": [float(x) for x in task.embedding_out],
+                })
+            self._json({
+                "object": "list", "data": data, "model": state.model_name,
+                "usage": {"prompt_tokens": n_prompt, "total_tokens": n_prompt},
+            })
 
         def _submit(self, prompt_text, body) -> tuple[Task, queue.Queue | None]:
             stream = bool(body.get("stream", False))
@@ -515,7 +550,6 @@ def make_handler(state: ServerState):
             stop = body.get("stop") or []
             if isinstance(stop, str):
                 stop = [stop]
-            refuse_grammar(body)
             task = Task(
                 prompt_tokens=toks,
                 n_predict=int(body.get("n_predict", body.get("max_tokens", 128))),
@@ -523,11 +557,12 @@ def make_handler(state: ServerState):
                 stop=stop,
                 stream_queue=queue.Queue() if stream else None,
             )
+            task.grammar = _make_grammar(body, vocab)
             engine.submit(task)
             return task, task.stream_queue
 
         def _handle_rerank(self, body):
-            raise _not_ported("/rerank: the rank-pooled encoder path", 3)
+            raise _not_ported("/rerank: the rank-pooled encoder path", 7)
 
         def _handle_infill(self, body):
             """Fill-in-middle completion (server.cpp handle_infill)."""
@@ -853,19 +888,20 @@ def serve(model, host: str = "127.0.0.1", port: int = 8080, n_slots: int = 4,
           no_webui: bool = False, spm_infill: bool = False):
     """Serve `model` (a LoadedModel on the card, or on the CPU) through a
     ServerEngine of n_slots slots of n_ctx cells, f32 activations and KV
-    cache as in the JAX package. The options of features not ported yet
-    are refused by name; slot_save_path alone is accepted, since only the
-    save and restore actions (refused per request) would use it."""
+    cache as in the JAX package; `draft_model` (on the same device) and
+    `spec_params` turn on per-slot speculative decoding. The options of
+    features not ported yet are refused by name; slot_save_path alone is
+    accepted, since only the save and restore actions (refused per
+    request) would use it."""
     for on, what, item in ((mmproj, "mmproj: the multimodal path", 8),
                            (loras, "loras: LoRA adapters", 6),
-                           (draft_model is not None or spec_params is not None,
-                            "draft_model: speculative decoding", 3),
                            (kv_unified, "kv_unified: the unified KV pool", 6),
                            (split_mode != "none" or n_shards > 1,
                             f"split_mode={split_mode!r}: the multi-card split modes", 10)):
         if on:
             raise _not_ported(what, item)
-    engine = ServerEngine(model, n_slots=n_slots, n_ctx=n_ctx)
+    engine = ServerEngine(model, n_slots=n_slots, n_ctx=n_ctx,
+                          draft_model=draft_model, spec_params=spec_params)
     engine.start()
     state = ServerState(engine, model_name,
                         chat_template=chat_template,
@@ -928,7 +964,6 @@ def main(argv=None):
         ap.error("the following arguments are required: -m/--model")
     for on, what, item in ((args.lora or args.lora_scaled, "--lora: LoRA adapters", 6),
                            (args.mmproj, "--mmproj: the multimodal path", 8),
-                           (args.model_draft, "--model-draft: speculative decoding", 3),
                            (args.kv_unified, "--kv-unified: the unified KV pool", 6),
                            (args.split_mode != "none",
                             f"--split-mode {args.split_mode}: the multi-card split modes",
@@ -940,6 +975,12 @@ def main(argv=None):
 
     model = load_model(args.model, device=args.device)
     apply_model_arg_overrides(model, args)
+    draft_model = spec_params = None
+    if args.model_draft:
+        from ..runtime.speculative import SpeculativeParams
+
+        draft_model = load_model(args.model_draft, device=args.device)
+        spec_params = SpeculativeParams(n_draft=args.draft_max, p_min=args.draft_p_min)
     api_key = args.api_key or None
     if args.api_key_file:
         api_key = open(args.api_key_file).read().strip()
@@ -956,6 +997,7 @@ def main(argv=None):
           n_ctx=args.ctx_size,
           model_name=args.alias or args.model,
           slot_save_path=args.slot_save_path or None,
+          draft_model=draft_model, spec_params=spec_params,
           chat_template=chat_template,
           api_key=api_key, api_prefix=args.api_prefix,
           no_slots_ep=args.no_slots, props_rw=args.props,

@@ -769,14 +769,20 @@ def sampler_from_args(args, vocab=None, n_vocab: int = 0):
     breakers = getattr(args, "dry_sequence_breakers", None)
     if breakers == ["none"]:
         breakers = []
-    given = [f for f in ("grammar", "grammar_file", "json_schema", "json_schema_file")
-             if getattr(args, f, "")]
-    if given:
-        raise NotImplementedError(
-            f"--{given[0].replace('_', '-')}: grammar-constrained sampling is not "
-            "ported yet (ROADMAP.md Queue 1 item 3)")
+    schema = getattr(args, "json_schema", "") or ""
+    jf = getattr(args, "json_schema_file", "") or ""
+    if jf:
+        schema = open(jf, encoding="utf-8").read()
+    g_text = getattr(args, "grammar", "") or ""
+    gf = getattr(args, "grammar_file", "") or ""
+    if gf:
+        g_text = open(gf, encoding="utf-8").read()
+    if schema and not g_text:
+        from ..runtime.json_schema import json_schema_to_gbnf
+
+        g_text = json_schema_to_gbnf(schema)
     if args.temp <= 0 and not getattr(args, "mirostat", 0):
-        # greedy selection still applies logit bias / penalties
+        # greedy selection still applies logit bias / penalties / grammar
         # first (common_sampler keeps the full chain and only the final
         # selection becomes argmax); the bare-argmax fast path is taken
         # only when no modifier is active
@@ -787,7 +793,7 @@ def sampler_from_args(args, vocab=None, n_vocab: int = 0):
             or getattr(args, "presence_penalty", 0.0) != 0.0
         )
         dry_active = getattr(args, "dry_multiplier", 0.0) > 0
-        if not (lb or penalties_active or dry_active):
+        if not (lb or penalties_active or dry_active or g_text):
             return None  # pure argmax
     chain = SamplerChain.from_params(
         vocab=vocab,
@@ -815,6 +821,20 @@ def sampler_from_args(args, vocab=None, n_vocab: int = 0):
         logit_bias=parse_logit_bias(getattr(args, "logit_bias", None)),
         n_vocab=n_vocab,
     )
+    if g_text:
+        # --grammar / --grammar-file / --json-schema(-file): constrain
+        # after the logit-shaping samplers (bias/penalties/dry) but
+        # before truncation/selection, so top-k/top-p can never discard
+        # every grammar-valid token (common_sampler grammar slot)
+        from ..runtime.grammar import Grammar, GrammarSampler
+
+        shaping = {"logit-bias", "logit_bias", "penalties", "dry"}
+        pos = 0
+        for i, sm in enumerate(chain.samplers):
+            if getattr(sm, "name", "") in shaping:
+                pos = i + 1
+        chain.samplers.insert(
+            pos, GrammarSampler(Grammar.from_gbnf(g_text, vocab=vocab)))
     order = sampler_order_from_args(args)
     if order is not None:
         keep = set(order)

@@ -6,10 +6,12 @@ subset implemented; env-var mirrors use the same LLAMA_ARG_* names. The
 model runs on the CUDA card unless --device cpu asks for the plain
 PyTorch path.
 
-Not ported yet, and refused by name when set: control vectors, LoRA
-adapters, the prompt cache (ROADMAP.md Queue 1 item 6), speculative
-decoding, grammar-constrained sampling (item 3), n-gram lookup decoding
-(item 6) and the multi-card split modes (item 10).
+--grammar / --grammar-file / --json-schema / --json-schema-file constrain
+sampling (runtime/grammar.py, runtime/json_schema.py), and --model-draft
+decodes speculatively with a draft model (runtime/speculative.py), as in
+the JAX package. Not ported yet, and refused by name when set: control
+vectors, LoRA adapters, the prompt cache, n-gram lookup decoding
+(ROADMAP.md Queue 1 item 6) and the multi-card split modes (item 10).
 
 Usage:
   python -m tpullama_torch.tools.cli -m model.gguf -p "prompt" -n 64 --temp 0
@@ -28,14 +30,9 @@ _UNPORTED = (
     ("control_vector_scaled", "--control-vector-scaled", "control vectors", 6),
     ("control_vector_layer_range", "--control-vector-layer-range", "control vectors", 6),
     ("lora", "--lora", "LoRA adapters", 6),
-    ("model_draft", "--model-draft", "speculative decoding", 3),
     ("lookup_cache_static", "--lookup-cache-static", "n-gram lookup decoding", 6),
     ("lookup_cache_dynamic", "--lookup-cache-dynamic", "n-gram lookup decoding", 6),
     ("prompt_cache", "--prompt-cache", "the prompt cache (state save/restore)", 6),
-    ("grammar", "--grammar", "grammar-constrained sampling", 3),
-    ("grammar_file", "--grammar-file", "grammar-constrained sampling", 3),
-    ("json_schema", "--json-schema", "grammar-constrained sampling", 3),
-    ("json_schema_file", "--json-schema-file", "grammar-constrained sampling", 3),
 )
 
 
@@ -126,6 +123,25 @@ def main(argv=None) -> int:
     sampler = sampler_from_args(args, vocab=model.vocab,
                                 n_vocab=model.hparams.n_vocab)
 
+    spec = None
+    if args.model_draft:
+        from ..runtime.speculative import Speculative, SpeculativeParams
+
+        # common_speculative_are_compatible analog: the draft must be an
+        # attention model (the port loads the llama family alone and
+        # refuses any other arch by name) with a near-identical vocab
+        draft = load_model(args.model_draft, dtype=dtype, device=args.device)
+        if abs(draft.hparams.n_vocab - model.hparams.n_vocab) > 100:
+            print(f"error: draft vocab size {draft.hparams.n_vocab} is "
+                  f"incompatible with target {model.hparams.n_vocab}",
+                  file=sys.stderr)
+            return 1
+        spec = Speculative(
+            draft, SpeculativeParams(n_draft=args.draft_max, p_min=args.draft_p_min),
+            n_ctx=args.ctx_size)
+        if args.verbose:
+            print(f"[draft] {args.model_draft} arch={draft.arch}", file=sys.stderr)
+
     render_special = bool(getattr(args, "special", False))
     rev_prompts = list(getattr(args, "reverse_prompt", None) or [])
 
@@ -143,6 +159,20 @@ def main(argv=None) -> int:
             sys.stdout.write(text)
             sys.stdout.flush()
         n = n_predict if n_predict >= 0 else args.ctx_size
+        if spec is not None:
+            from ..runtime.speculative import generate_speculative
+
+            out, stats = generate_speculative(ctx, spec, toks, n_predict=n,
+                                              sampler=sampler)
+            for tok in out:
+                if vocab.is_eog(tok):
+                    break
+                sys.stdout.write(_c0 + vocab.token_to_piece(tok, special=False) + _c1)
+            sys.stdout.write("\n")
+            if args.verbose:
+                print(f"[spec] drafted={stats.get('n_drafted')} "
+                      f"accepted={stats.get('n_accepted')}", file=sys.stderr)
+            return
         if sampler is None and not args.interactive:
             # greedy: on-device bursts (one host read per chunk)
             out = ctx.generate(toks, n_predict=n, burst=int(args.burst))
