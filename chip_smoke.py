@@ -72,16 +72,34 @@ Phases, each printing one JSON line with its seconds:
             activations (the same tokens under that rule; tok/s,
             acceptance, a round split into drafting and verifying), and
             for serve(draft_model=) (the draft counters on /metrics)
+  q5km_model, q5km_crosscheck, q5km_serve
+            the model, cross-check and serve phases on Llama-3-8B at full
+            depth in llama.cpp's Q5_K_M layout (LAYOUTS: attn_v/ffn_down
+            Q6_K in the use_more_bits layers and Q5_K in the others, so
+            loaded dense; every other matrix Q5_K through the q1 set of
+            qmm_gemv/qmm_tiled); the cross-check's CPU model is loaded with
+            and without the native host library (timed, the same bits),
+            and the 4 requests are run twice together (dense projections
+            are not batch-invariant); the profile checks the qmm launches
+            of a decode step and of a prefill chunk
+  quant_crosscheck
+            2-layer cross-checks at Llama-3.2-1B's widths in the Q3_K_M-like,
+            Q2_K-like, Q5_0/Q5_1, Q4_0 and IQ4_XS layouts; the Q5_0/Q5_1
+            model also split into shards and loaded from split futures,
+            from its first shard and whole (the same parameters), and run
+            through the CLI from the first shard (the whole file's text)
   cli       tpullama_torch.tools.cli.main on a 2-layer Q8_0 file at
             Llama-3-8B's widths (dense bf16 weights, the CLI's default), 16
             greedy tokens on the card with --burst 16 and --burst 1, and
             with --device cpu: the same text; then --grammar and
             --json-schema on the card and the CPU: the same text, which
             the grammar accepts, and Grammar.apply's host ms per token
-The Llama cross-check also holds Context.embeddings (each pooling) and
+Every model phase loads through the native host library, which must have
+built on the card's machine. The Llama cross-check also holds
+Context.embeddings (each pooling) and
 seq_add / seq_div on the card against the CPU, and a replayed step after
-seq_add against the eager step. The crosscheck, serve, http, spec and cli
-paths each run with every
+seq_add against the eager step. The crosscheck, serve, http, spec, cli and
+quant_crosscheck paths each run with every
 launch count set to 0 just before and read just after, and fail unless
 each kernel that path must run was launched. Then one JSON line lists every
 kernel with its launches on each path and its numbers at the served shape
@@ -115,7 +133,8 @@ NEG_HIDDEN = -5e29  # additive mask values at or below this hide a cell
 ALL_PHASES = ("card", "build", "kernels", "model", "crosscheck", "serve", "graphs", "http",
               "spec", "cli", "moe_model", "moe_crosscheck", "moe_serve", "moe_graphs", "glm_model",
               "glm_crosscheck", "glm_serve", "glm_graphs", "qwen_crosscheck",
-              "openllama_crosscheck")
+              "openllama_crosscheck", "q5km_model", "q5km_crosscheck", "q5km_serve",
+              "quant_crosscheck")
 
 
 def emit(obj) -> None:
@@ -157,7 +176,8 @@ class Widths:
     tie_word_embeddings true, rms_norm_eps 1e-5), the speculative draft.
     `llama3_rope`: the llama3 scaling written as rope_freqs.weight, as
     llama.cpp's converter does; `tied`: no output.weight (the token table
-    is the lm_head)."""
+    is the lm_head); `quant`: the tensor types of a llama.cpp file type
+    (LAYOUTS) instead of Q4_K."""
 
     n_embd: int = 4096
     n_layer: int = 32
@@ -175,6 +195,7 @@ class Widths:
     q8: bool = False  # every matrix Q8_0 (token table and output included)
     tied: bool = False
     llama3_rope: tuple = ()  # (factor, low_freq_factor, high_freq_factor, original ctx)
+    quant: str = ""  # a layout of LAYOUTS ("": Q4_K matrices, Q6_K output)
 
 
 LLAMA3_8B = Widths()
@@ -193,6 +214,65 @@ OPENLLAMA_3B = Widths(n_embd=3200, n_layer=26, n_head=32, n_head_kv=32, n_ff=864
                       q8=True)
 LLAMA32_1B = Widths(n_embd=2048, n_layer=16, n_head=32, n_head_kv=8, n_ff=8192,
                     n_ctx_train=131072, tied=True, llama3_rope=(32.0, 1.0, 4.0, 8192))
+# Llama-3-8B at full width and depth in llama.cpp's Q5_K_M layout
+LLAMA3_8B_Q5KM = replace(LLAMA3_8B, quant="Q5_K_M")
+
+
+def use_more_bits(il: int, n: int) -> bool:
+    """llama.cpp's use_more_bits (src/llama-quant.cpp): the layers of a
+    K-quant mix whose attn_v and ffn_down get more bits."""
+    return il < n // 8 or il >= 7 * n // 8 or (il - n // 8) % 3 == 2
+
+
+def _layout(*, embd, attn_q, attn_v, attn_o, ffn, ffn_down, attn_k=None):
+    """A layout's type per tensor role: (role, layer, n_layer) -> GGML type
+    name; attn_v / ffn_down may be functions of (layer, n_layer)."""
+    roles = {"token_embd": embd, "output": "Q6_K", "attn_q": attn_q, "attn_k": attn_k or attn_q,
+             "attn_v": attn_v, "attn_output": attn_o, "ffn_gate": ffn, "ffn_up": ffn,
+             "ffn_down": ffn_down}
+
+    def type_of(role, il, n):
+        t = roles[role]
+        return t(il, n) if callable(t) else t
+
+    return type_of
+
+
+# llama.cpp file types (llama_tensor_get_type, src/llama-quant.cpp) as this
+# script writes them: Q5_K_M (attn_v and ffn_down Q6_K in the use_more_bits
+# layers, Q5_K elsewhere; every other matrix and token_embd Q5_K), and the
+# cross-check's layouts: Q3_K_M-like, Q2_K-like, Q5_0/Q5_1 (attention
+# Q5_0, FFN Q5_1), pure Q4_0 and IQ4_XS; every one with a Q6_K output.
+LAYOUTS = {
+    "Q5_K_M": _layout(embd="Q5_K", attn_q="Q5_K", attn_o="Q5_K", ffn="Q5_K",
+                      attn_v=lambda il, n: "Q6_K" if use_more_bits(il, n) else "Q5_K",
+                      ffn_down=lambda il, n: "Q6_K" if use_more_bits(il, n) else "Q5_K"),
+    "Q3_K_M": _layout(embd="Q3_K", attn_q="Q3_K", attn_v="Q5_K", attn_o="Q4_K", ffn="Q3_K",
+                      ffn_down="Q4_K"),
+    "Q2_K": _layout(embd="Q2_K", attn_q="Q2_K", attn_v="Q3_K", attn_o="Q2_K", ffn="Q2_K",
+                    ffn_down="Q3_K"),
+    "Q5_0_Q5_1": _layout(embd="Q5_0", attn_q="Q5_0", attn_v="Q5_0", attn_o="Q5_0", ffn="Q5_1",
+                         ffn_down="Q5_1"),
+    "Q4_0": _layout(embd="Q4_0", attn_q="Q4_0", attn_v="Q4_0", attn_o="Q4_0", ffn="Q4_0",
+                    ffn_down="Q4_0"),
+    "IQ4_XS": _layout(embd="IQ4_XS", attn_q="IQ4_XS", attn_v="IQ4_XS", attn_o="IQ4_XS",
+                      ffn="IQ4_XS", ffn_down="IQ4_XS"),
+}
+_LAYER_ROLES = ("attn_q", "attn_k", "attn_v", "attn_output", "ffn_gate", "ffn_up", "ffn_down")
+
+
+def packed_roles(w: Widths) -> set:
+    """The layer matrices the loader packs for a layout: one packable type
+    in every layer (a type that changes between layers is loaded dense)."""
+    from tpullama_torch.gguf import GGMLType
+    from tpullama_torch.ops.qweights import PACKED_TYPES
+
+    out = set()
+    for role in _LAYER_ROLES:
+        types = {LAYOUTS[w.quant](role, il, w.n_layer) for il in range(w.n_layer)}
+        if len(types) == 1 and GGMLType[types.pop()] in PACKED_TYPES:
+            out.add(role)
+    return out
 
 
 def llama3_rope_freqs(w: Widths) -> np.ndarray:
@@ -255,6 +335,46 @@ def q8_0_blocks(rng: np.random.Generator, n_blocks: int) -> np.ndarray:
     return b
 
 
+def quant_blocks(rng: np.random.Generator, qtype, n_blocks: int) -> np.ndarray:
+    """Random blocks of any type the layouts write, values of std near 0.02
+    and finite fp16 scales: random quants (and 6-bit or nibble scales),
+    fp16 d (and min) set for that std."""
+    from tpullama_torch.gguf import GGML_TYPE_TRAITS, GGMLType
+
+    if qtype in (GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0):
+        return {GGMLType.Q4_K: q4k_blocks, GGMLType.Q6_K: q6k_blocks,
+                GGMLType.Q8_0: q8_0_blocks}[qtype](rng, n_blocks)
+    ts = GGML_TYPE_TRAITS[qtype].type_size
+    b = np.frombuffer(rng.bytes(n_blocks * ts), np.uint8).reshape(n_blocks, ts).copy()
+    u = rng.uniform(0.8, 1.2, n_blocks).astype(np.float32)
+    if qtype == GGMLType.Q4_0:  # d (q - 8)
+        b[:, 0:2] = _fp16_bytes(4.3e-3 * u)
+    elif qtype == GGMLType.Q5_0:  # d (q - 16)
+        b[:, 0:2] = _fp16_bytes(2.2e-3 * u)
+    elif qtype == GGMLType.Q5_1:  # d q + m, m = -15.5 d
+        b[:, 0:2] = _fp16_bytes(2.2e-3 * u)
+        b[:, 2:4] = _fp16_bytes(-15.5 * 2.2e-3 * u)
+    elif qtype == GGMLType.Q5_K:  # d sc q - dmin m, m = sc in [24, 40], dmin = 15.5 d
+        b[:, 0:2] = _fp16_bytes(6.8e-5 * u)
+        b[:, 2:4] = _fp16_bytes(15.5 * 6.8e-5 * u)
+        sc = rng.integers(24, 41, (n_blocks, 8), dtype=np.uint8)
+        b[:, 4:8] = sc[:, :4] | ((sc[:, 4:] >> 4) << 6)
+        b[:, 8:12] = sc[:, :4] | ((sc[:, 4:] >> 4) << 6)
+        b[:, 12:16] = (sc[:, 4:] & 0xF) | ((sc[:, 4:] & 0xF) << 4)
+    elif qtype == GGMLType.Q3_K:  # d (sc - 32) (q - 4), random 6-bit sc
+        b[:, 108:110] = _fp16_bytes(4.7e-4 * u)
+    elif qtype == GGMLType.Q2_K:  # d s q - dmin m, m = s in [8, 15], dmin = 1.5 d
+        s_ = rng.integers(8, 16, (n_blocks, 16), dtype=np.uint8)
+        b[:, 0:16] = s_ | (s_ << 4)
+        b[:, 80:82] = _fp16_bytes(1.55e-3 * u)
+        b[:, 82:84] = _fp16_bytes(1.5 * 1.55e-3 * u)
+    elif qtype == GGMLType.IQ4_XS:  # d (ls - 32) kvalues_iq4nl[q]
+        b[:, 0:2] = _fp16_bytes(1.55e-5 * u)
+    else:
+        raise ValueError(f"quant_blocks: {qtype.name}")
+    return b
+
+
 def spm_byte_vocab(n_vocab: int):
     """The byte-level SPM vocab (<unk>, <s>, </s>, 256 byte tokens, the
     escaped space) padded with filler pieces to n_vocab tokens."""
@@ -275,8 +395,9 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
     bytes from `seed` (no output with `w.tied`; rope_freqs F32 with
     `w.llama3_rope`). chatglm's ffn_down rows hold n_ff = 13696 values,
     not a multiple of Q4_K's 256, so they are Q8_0, as llama.cpp's
-    quantizer falls back for such rows; with `w.q8` every matrix is."""
-    from tpullama_torch.gguf import GGMLType, GGUFWriter
+    quantizer falls back for such rows; with `w.q8` every matrix is; with
+    `w.quant` each tensor takes its LAYOUTS type."""
+    from tpullama_torch.gguf import GGML_TYPE_TRAITS, GGMLType, GGUFWriter
 
     rng = np.random.default_rng(seed)
     g = GGUFWriter()
@@ -314,12 +435,12 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
     def quant(name, shape, qtype):
         if w.q8:
             qtype = GGMLType.Q8_0
-        if qtype == GGMLType.Q8_0:
-            blocks = q8_0_blocks(rng, math.prod(shape) // 32)
-        else:
-            blocks = (q4k_blocks if qtype == GGMLType.Q4_K else q6k_blocks)(
-                rng, math.prod(shape) // 256)
-        g.add_tensor(name, shape, qtype, raw=blocks)
+        if w.quant:
+            role = name.removesuffix(".weight").split(".")[-1]
+            il = int(name.split(".")[1]) if name.startswith("blk.") else 0
+            qtype = GGMLType[LAYOUTS[w.quant](role, il, w.n_layer)]
+        bs = GGML_TYPE_TRAITS[qtype].block_size
+        g.add_tensor(name, shape, qtype, raw=quant_blocks(rng, qtype, math.prod(shape) // bs))
 
     def norm(name, n):
         g.add_tensor(name, (1.0 + 0.1 * rng.standard_normal(n)).astype(np.float32),
@@ -439,6 +560,20 @@ def random_planes(ggml_type, N: int, K: int, scale_dtype, gen, device) -> dict:
                 "minv": (32.0 * s).to(scale_dtype)}
     if ggml_type == GGMLType.Q8_0:
         return {"q8": u8(N, K), "scale": scales(K // 32, 2.7e-4).to(scale_dtype)}
+    if ggml_type in (GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.Q5_K):
+        # values 0..31 (std ~9.2) about 15.5
+        s = scales(K // 32, 2.2e-3)
+        return {"q4": u8(N, K // 2), "q1": u8(N, K // 8), "scale": s.to(scale_dtype),
+                "minv": (15.5 * s).to(scale_dtype)}
+    if ggml_type == GGMLType.Q3_K:
+        # values 0..7 about 4 (repack's minv = 4 * scale)
+        s = scales(K // 16, 8.7e-3)
+        return {"q2": u8(N, K // 4), "q1": u8(N, K // 8), "scale": s.to(scale_dtype),
+                "minv": (4.0 * s).to(scale_dtype)}
+    if ggml_type == GGMLType.Q2_K:
+        s = scales(K // 16, 1.8e-2)
+        return {"q2": u8(N, K // 4), "scale": s.to(scale_dtype),
+                "minv": (1.5 * s).to(scale_dtype)}
     s = scales(K // 32, 4.4e-3)
     return {"q4": u8(N, K // 2), "scale": s.to(scale_dtype),
             "minv": (7.5 * s).to(scale_dtype)}
@@ -451,6 +586,8 @@ def qmm_cases(timer, gen, device, out: list) -> None:
     from tpullama_torch.ops.cuda import qmm
 
     Q4, Q6, Q8 = GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0
+    Q5K, Q5_0, Q5_1, Q3, Q2 = (GGMLType.Q5_K, GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.Q3_K,
+                               GGMLType.Q2_K)
     bf16, f32 = torch.bfloat16, torch.float32
     # (type, N, K, activation dtype, scale dtype, T values): the serving
     # path's shapes in bf16 (T = 1 for Context.decode, 4 for the server's
@@ -474,7 +611,13 @@ def qmm_cases(timer, gen, device, out: list) -> None:
              (Q6, 1024, 768, bf16, bf16, (1, 256)),
              (Q8, 3584, 3584, bf16, bf16, (1, 256)),
              (Q8, 1024, 512, f32, bf16, (1, 256))]
-    group = {Q4: 32, Q6: 16, Q8: 32}
+    # the q1 / q2 sets (csrc/qmm_lowbit.cu) at the Llama FFN's shapes, the
+    # decode step's T = 4 and the packed prefill chunk's T = 1024, then one
+    # f32-x and one f32-scale case
+    cases += [(qt, N, K, bf16, bf16, (4, 1024)) for qt in (Q5K, Q5_0, Q5_1, Q3, Q2)
+              for N, K in ((14336, 4096), (4096, 14336))]
+    cases += [(Q5K, 4096, 4096, f32, bf16, (1, 256)), (Q3, 4096, 4096, bf16, f32, (1, 256))]
+    group = {Q4: 32, Q6: 16, Q8: 32, Q5K: 32, Q5_0: 32, Q5_1: 32, Q3: 16, Q2: 16}
     for qt, N, K, xdt, sdt, Ts in cases:
         fields = random_planes(qt, N, K, sdt, gen, device)
         g = group[qt]
@@ -972,6 +1115,7 @@ def phase_model(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
                 phase: str = "model", fused_layer: bool = False):
     import torch
 
+    from tpullama_torch import native
     from tpullama_torch.models import load_model
 
     t0 = time.perf_counter()
@@ -994,6 +1138,14 @@ def phase_model(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
         # down (K = 14336: 448 scale groups) transposed
         check(not lm["ffn_gateup_exps"].planes_t and lm["ffn_down_exps"].planes_t,
               "ffn_gateup_exps row-major and ffn_down_exps transposed")
+    elif widths.quant:
+        want = packed_roles(widths)
+        check(set(lm) == want, f"packed {sorted(lm)}, want {sorted(want)}")
+        for role in _LAYER_ROLES:
+            t = model.params["layers"][role]
+            check(isinstance(t, dict) == (role in want)
+                  and (isinstance(t, dict) or t.dtype == torch.bfloat16),
+                  f"{role}: packed planes iff its type is one across layers, else dense bf16")
     elif widths.arch == "chatglm":
         check(set(lm) == {"attn_qkv", "attn_output", "ffn_up"},
               f"attn_qkv, attn_output and ffn_up are packed: {sorted(lm)}")
@@ -1007,8 +1159,15 @@ def phase_model(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
     else:
         check(set(lm) == attn | {"ffn_gate", "ffn_up", "ffn_down"},
               "every layer matrix is packed")
+    # the loader decodes and repacks through the native host library (it
+    # builds on first use); on the card's machine it must have built
+    used_native = native.resolve_native(None) and native.get_lib() is not None
+    if device == "cuda":
+        check(used_native, "the native host library was not used (no g++ or -fopenmp?)")
     emit({"phase": phase, "layers": model.hparams.n_layer, "n_embd": model.hparams.n_embd,
           "n_vocab": model.hparams.n_vocab, "experts": model.hparams.n_expert,
+          "quant": widths.quant or None, "native": used_native,
+          "types": {k: m.ggml_type.name for k, m in lm.items()},
           "planes_t": {k: m.planes_t for k, m in lm.items() if k.endswith("_exps")},
           "orders": {k: m.order for k, m in lm.items()},
           "write_s": t_write, "load_s": t_load, "device_bytes": model.nbytes(),
@@ -1018,7 +1177,8 @@ def phase_model(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
 
 def phase_crosscheck(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
                      n_layer: int = 2, phase: str = "crosscheck", fused_layer: bool = False,
-                     qmm_tile_k: int | None = None, runtime_ops: bool = False) -> None:
+                     qmm_tile_k: int | None = None, runtime_ops: bool = False,
+                     compare_native: bool = False) -> None:
     """A model at the same widths cut to n_layer layers, f32 activations and
     cache on both sides: `device` (the card) runs the kernels, the CPU the
     plain versions, both with the fused layer and K-chunks as given. With
@@ -1026,7 +1186,9 @@ def phase_crosscheck(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
     fourblock planes, must give the same tokens too. With `runtime_ops`,
     Context.embeddings of the prompt for each pooling (none, mean, cls,
     last) within the logits' tolerance formula, and the seq ops
-    (seq_ops_case) on the same two models."""
+    (seq_ops_case) on the same two models. With `compare_native`, the CPU
+    model is loaded through the native host library and through the numpy
+    codecs, timed, and the two must hold the same bits."""
     import torch
 
     from tpullama_torch.models import load_model
@@ -1037,8 +1199,19 @@ def phase_crosscheck(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
     write_llama_gguf(path, replace(widths, n_layer=n_layer), seed=1)
     gpu = load_model(path, dtype=torch.float32, device=device, packed=True,
                      fused_layer=fused_layer)
+    load_s = {}
+    t1 = time.perf_counter()
     cpu = load_model(path, dtype=torch.float32, device="cpu", packed=True,
                      fused_layer=fused_layer)
+    load_s["native"] = time.perf_counter() - t1
+    if compare_native:
+        t1 = time.perf_counter()
+        plain = load_model(path, dtype=torch.float32, device="cpu", packed=True,
+                           fused_layer=fused_layer, native=False)
+        load_s["numpy"] = time.perf_counter() - t1
+        check(same_params(cpu.params, plain.params),
+              "the native and the numpy loads hold different parameters")
+        del plain
     os.remove(path)
     opts = dict(fused_layer=fused_layer, qmm_tile_k=qmm_tile_k)
     prompt = gpu.vocab.tokenize(word_prompt(np.random.default_rng(2), 40), add_special=True)
@@ -1057,6 +1230,7 @@ def phase_crosscheck(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
     out_c = Context(cpu, cp, **opts).generate(prompt, n_predict=8)
     check(out_g == out_c, f"greedy tokens differ: card {out_g} cpu {out_c}")
     rec = {"phase": phase, "layers": n_layer, "prompt_tokens": len(prompt),
+           "quant": widths.quant or None, "cpu_load_s": load_s,
            "prefill_max_abs_err": err, "tol": tol, "argmax": int(lc[-1].argmax()),
            "greedy_tokens": out_g, **opts}
     if runtime_ops:
@@ -1083,10 +1257,106 @@ def phase_crosscheck(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
     emit({**rec, "seconds": time.perf_counter() - t0})
 
 
-def phase_serve(model, card: str, phase: str = "serve", n_slots: int = 4, **engine_kw):
+def same_params(a: dict, b: dict) -> bool:
+    """Two parameter trees hold the same tensors, bit for bit."""
+    import torch
+
+    if isinstance(a, dict) or isinstance(b, dict):
+        return (isinstance(a, dict) and isinstance(b, dict) and a.keys() == b.keys()
+                and all(same_params(a[k], b[k]) for k in a))
+    return a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(a, b))
+
+
+# the cross-check's layouts, at Llama-3.2-1B's widths with an untied Q6_K
+# output (LAYOUTS)
+QUANT_CROSS = ("Q3_K_M", "Q2_K", "Q5_0_Q5_1", "Q4_0", "IQ4_XS")
+
+
+def phase_quant_crosscheck(tmp: str, card: str, device: str = "cuda",
+                           widths: Widths = replace(LLAMA32_1B, tied=False),
+                           layouts: tuple = QUANT_CROSS, phase: str = "quant_crosscheck") -> None:
+    """The cross-check (2 layers, card against CPU: prefill logits and
+    greedy tokens) on a model of each layout; then the split loads and the
+    CLI on the Q5_0/Q5_1 model (split_case)."""
+    t0 = time.perf_counter()
+    for layout in layouts:
+        phase_crosscheck(tmp, replace(widths, quant=layout), device=device, n_layer=2,
+                         phase=f"{phase}_{layout}")
+    split_case(tmp, replace(widths, quant="Q5_0_Q5_1", n_layer=2), card, device=device,
+               phase=f"{phase}_split")
+    emit({"phase": phase, "layouts": list(layouts), "seconds": time.perf_counter() - t0})
+
+
+def split_case(tmp: str, widths: Widths, card: str, device: str = "cuda",
+               phase: str = "quant_crosscheck_split") -> None:
+    """The model split into shards by the copied gguf-split tool, loaded
+    three ways onto `device` (load_model_from_split_futures with the
+    shards' bytes fulfilled from a second thread, the first shard's path,
+    the whole file): the same parameters, bit for bit. Then the CLI on the
+    first shard's path and on the whole file: the same text."""
+    import io
+    import threading
+
+    import torch
+
+    from tpullama_torch.gguf import fulfill_split_future
+    from tpullama_torch.models import load_model
+    from tpullama_torch.models.loader import load_model_from_split_futures
+    from tpullama_torch.tools.cli import main as cli_main
+    from tpullama_torch.tools.gguf_split import split_gguf
+
+    t0 = time.perf_counter()
+    whole = os.path.join(tmp, f"{phase}.gguf")
+    write_llama_gguf(whole, widths, seed=6)
+    shards = split_gguf(whole, os.path.join(tmp, phase), max_tensors=8)
+    check(len(shards) > 1, f"{len(shards)} shard")
+    kw = dict(dtype=torch.float32, device=device, packed=True)
+
+    def feed():
+        for q in shards:
+            with open(q, "rb") as f:
+                fulfill_split_future(q, phase, f.read())
+
+    th = threading.Thread(target=feed)
+    th.start()
+    t1 = time.perf_counter()
+    from_futures = load_model_from_split_futures(shards, phase, timeout=300, **kw)
+    futures_s = time.perf_counter() - t1
+    th.join()
+    from_first = load_model(shards[0], **kw)
+    from_whole = load_model(whole, **kw)
+    check(same_params(from_futures.params, from_whole.params),
+          "the split-future load differs from the whole file's")
+    check(same_params(from_first.params, from_whole.params),
+          "the first-shard load differs from the whole file's")
+    check(from_futures.quant_meta == from_whole.quant_meta == from_first.quant_meta,
+          "the three loads' packed metadata differ")
+    del from_futures, from_first, from_whole
+    prompt = word_prompt(np.random.default_rng(8), 60)
+    texts = []
+    for src in (shards[0], whole):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(["-m", src, "-p", prompt, "-n", "8", "--temp", "0"]
+                          + ([] if device == "cuda" else ["--device", device]))
+        check(rc == 0, f"the CLI exited {rc} on {src}")
+        texts.append(buf.getvalue())
+    check(texts[0] == texts[1] and len(texts[0]) > len(prompt),
+          f"the CLI's text from the first shard {texts[0][len(prompt):]!r} differs from the "
+          f"whole file's {texts[1][len(prompt):]!r}")
+    for q in shards + [whole]:
+        os.remove(q)
+    emit({"phase": phase, "card": card, "shards": len(shards), "futures_load_s": futures_s,
+          "cli_text": texts[0][len(prompt):][:80], "seconds": time.perf_counter() - t0})
+
+
+def phase_serve(model, card: str, phase: str = "serve", n_slots: int = 4,
+                rerun_all: bool = False, **engine_kw):
     """4 greedy requests submitted together (concurrent on 4 slots, in turn
     on 1), then one seeded sampled request alone, then the first greedy
-    request again on erased slots. Rates come from the Context's counters
+    request again on erased slots (with `rerun_all`, the 4 together again:
+    for a model with dense projections, whose cuBLAS products are not
+    batch-invariant, as the packed kernels are). Rates come from the Context's counters
     over each window: host clock around work that ends in a device-to-host
     copy of logits or ids. `engine_kw` goes to ServerEngine. Returns the
     engine and one prompt, for phase_serve_profile, and the 4 greedy
@@ -1126,9 +1396,20 @@ def phase_serve(model, card: str, phase: str = "serve", n_slots: int = 4, **engi
           "a greedy request ended early without a stop")
     for s in range(n_slots):
         eng.slot_erase(s)
-    again = eng.complete(prompts[0], n_predict=32)
-    check(again.out_tokens == tasks[0].out_tokens,
-          "a greedy request run again gave other tokens")
+    if rerun_all:
+        # dense projections run cuBLAS, whose sums depend on the rows a call
+        # holds: the same 4 requests in the same batches give the same tokens
+        again_all = [eng.submit(Task(prompt_tokens=t.prompt_tokens, n_predict=32))
+                     for t in tasks]
+        while not all(t.done.is_set() for t in again_all):
+            eng.step()
+        check([t.out_tokens for t in again_all] == [t.out_tokens for t in tasks],
+              "the greedy requests run again gave other tokens")
+        again = again_all[0]
+    else:
+        again = eng.complete(prompts[0], n_predict=32)
+        check(again.out_tokens == tasks[0].out_tokens,
+              "a greedy request run again gave other tokens")
     n_out = sum(len(t.out_tokens) for t in tasks)
     emit({"phase": phase, "card": card, "requests": len(tasks) + 2, "n_slots": n_slots,
           **engine_kw, "prompt_tokens": [len(t.prompt_tokens) for t in tasks],
@@ -1141,11 +1422,14 @@ def phase_serve(model, card: str, phase: str = "serve", n_slots: int = 4, **engi
 
 
 def phase_serve_profile(eng, prompt: str, card: str, phase: str = "serve_profile",
-                        step_kernels: tuple = ()) -> None:
+                        step_kernels: tuple = (), qmm_counts: tuple | None = None) -> None:
     """torch.profiler over the served engine's Context, whose lanes still
     hold the requests: one packed B x 256 prefill chunk and one decode
     step of all B lanes. Then one more decode step with every launch count
-    at 0: each kernel of `step_kernels` must have launched once per layer."""
+    at 0: each kernel of `step_kernels` must have launched once per layer.
+    With `qmm_counts` = (gemv, tiled), that step must launch qmm_gemv gemv
+    times and one more packed chunk qmm_tiled tiled times: every packed
+    matrix of the model went through the kernels."""
     from tpullama_torch.ops.cuda import launch_counts, reset_launch_counts
 
     ctx = eng.ctx
@@ -1181,6 +1465,10 @@ def phase_serve_profile(eng, prompt: str, card: str, phase: str = "serve_profile
     reset_launch_counts()
     decode()
     rec["decode_step_launches"] = counts = launch_counts()
+    if qmm_counts is not None:
+        reset_launch_counts()
+        ctx.decode_multi([(s, chunk) for s in range(B)])
+        rec["prefill_chunk_launches"] = chunk_counts = launch_counts()
     if ctx.device.type == "cuda":
         rec["replay_event_ms"] = replay_ms(ctx._programs[(0, B, None)])
     emit(rec)
@@ -1188,6 +1476,12 @@ def phase_serve_profile(eng, prompt: str, card: str, phase: str = "serve_profile
     for name in step_kernels:
         check(counts[name] == n_layer,
               f"a decode step launched {name} {counts[name]} times, not once per layer")
+    if qmm_counts is not None and ctx.device.type == "cuda":
+        check(counts["qmm_gemv"] == qmm_counts[0],
+              f"a decode step launched qmm_gemv {counts['qmm_gemv']} times, not {qmm_counts[0]}")
+        check(chunk_counts["qmm_tiled"] == qmm_counts[1],
+              f"a prefill chunk launched qmm_tiled {chunk_counts['qmm_tiled']} times, "
+              f"not {qmm_counts[1]}")
 
 
 def replay_ms(prog, n: int = 8) -> float:
@@ -1980,9 +2274,9 @@ def profile_step(ctx, step, rows: int, n_steps: int) -> dict:
 # numbers the kernels line carries: the served path's shape)
 KERNELS = (
     ("qmm_gemv", "tpullama_torch/csrc/qmm.cu", "tpullama/ops/pallas/qmm.py:296",
-     dict(T=4, N=14336, K=4096, x="bfloat16")),
+     dict(T=4, N=14336, K=4096, x="bfloat16", type="Q4_K")),
     ("qmm_tiled", "tpullama_torch/csrc/qmm.cu", "tpullama/ops/pallas/qmm.py:296",
-     dict(T=1024, N=14336, K=4096, x="bfloat16")),
+     dict(T=1024, N=14336, K=4096, x="bfloat16", type="Q4_K")),
     ("flash_attention", "tpullama_torch/csrc/flash_attention.cu",
      "tpullama/ops/pallas/flash_attention.py:40", dict(B=4, Tq=256, D=128, extras=[])),
     ("flash_decode", "tpullama_torch/csrc/flash_decode.cu",
@@ -2023,6 +2317,13 @@ PATH_KERNELS = {
     "spec": _DENSE_CROSS,
     # the CLI loads dense weights (the JAX package's default)
     "cli": ("flash_attention", "flash_decode"),
+    # the Q5_K matrices through qmm_gemv and qmm_tiled (q5km_serve_profile
+    # counts them per step and chunk)
+    "q5km_crosscheck": _DENSE_CROSS,
+    "q5km_serve": _DENSE_SERVE,
+    # Q3_K / Q4_K / Q5_K, Q2_K / Q3_K, Q5_0 / Q5_1 and Q4_0 packed; IQ4_XS
+    # dense
+    "quant_crosscheck": _DENSE_CROSS,
 }
 # each path's model: (phase prefix, widths, cross-check layers, served
 # slots, the two opt-ins)
@@ -2030,7 +2331,8 @@ PATHS = (("", LLAMA3_8B, 2, 4, {}),
          ("moe_", MIXTRAL_8X7B, 1, 4, {}),
          ("glm_", CHATGLM3_6B, 1, 1, GLM_OPTS),
          ("qwen_", QWEN2_1_5B, 2, 0, {}),  # the cross-check alone
-         ("openllama_", OPENLLAMA_3B, 2, 0, {}))
+         ("openllama_", OPENLLAMA_3B, 2, 0, {}),
+         ("q5km_", LLAMA3_8B_Q5KM, 2, 4, {}))
 
 
 def path_launches(path: str, run) -> tuple[dict, object]:
@@ -2050,19 +2352,23 @@ def path_launches(path: str, run) -> tuple[dict, object]:
 
 def kernels_line(records: list, launches: dict) -> dict:
     """Every kernel with its launches on each path that ran (and their sum)
-    and its numbers at the served shape from the kernels phase."""
+    and its numbers at the served shape from the kernels phase; qmm_gemv
+    and qmm_tiled also at that shape for every other field set
+    (`by_type`: Q6_K, and the q1/q2 sets of csrc/qmm_lowbit.cu)."""
     rows = []
+    nums = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, src, replaces, key in KERNELS:
         rec = next((r for r in records if r["kernel"] == name
                     and all(r.get(k) == v for k, v in key.items())), {})
         by_path = {p: c[name] for p, c in launches.items()}
-        rows.append({"name": name, "route": "cuda", "body": rec.get("route"), "source": src,
-                     "replaces": replaces,
-                     "launches": sum(by_path.values()) if by_path else None,
-                     "launches_by_path": by_path, "max_abs_err": rec.get("max_abs_err"),
-                     "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),
-                     "bound_ms": rec.get("bound_ms"), "bound_by": rec.get("bound_by"),
-                     "library_ms": rec.get("library_ms")})
+        row = {"name": name, "route": "cuda", "body": rec.get("route"), "source": src,
+               "replaces": replaces, "launches": sum(by_path.values()) if by_path else None,
+               "launches_by_path": by_path, **{k: rec.get(k) for k in nums}}
+        if "type" in key:
+            row["by_type"] = {r["type"]: {k: r[k] for k in nums} for r in records
+                              if r["kernel"] == name and r["type"] != key["type"]
+                              and all(r.get(k) == v for k, v in key.items() if k != "type")}
+        rows.append(row)
     return {"kernels": rows}
 
 
@@ -2140,15 +2446,25 @@ def main() -> int:
                 launches[pre + "crosscheck"], _ = path_launches(
                     pre + "crosscheck", lambda: phase_crosscheck(
                         tmp, widths, n_layer=cross_layers, phase=pre + "crosscheck",
-                        runtime_ops=not pre, **opts))
+                        runtime_ops=not pre, compare_native=bool(widths.quant), **opts))
             serve_tokens = None
             if "serve" in run:
+                layers = model.params["layers"]
+                dense = [k for k in _LAYER_ROLES
+                         if k in layers and not isinstance(layers[k], dict)]
                 launches[pre + "serve"], (eng, prompt, serve_tokens) = path_launches(
                     pre + "serve", lambda: phase_serve(model, smi, phase=pre + "serve",
-                                                       n_slots=n_slots, **opts))
+                                                       n_slots=n_slots, rerun_all=bool(dense),
+                                                       **opts))
+                # a packed model without experts: every packed matrix once
+                # per step / chunk, the output by qmm_gemv in both
+                lm = model.quant_meta["layers"]
+                qmm_counts = (None if widths.n_expert or fused else
+                              (len(lm) * widths.n_layer + ("output" in model.quant_meta),
+                               len(lm) * widths.n_layer))
                 phase_serve_profile(eng, prompt, smi, phase=pre + "serve_profile",
                                     step_kernels=("qmm_ktiled", "fused_postattn") if fused
-                                    else ())
+                                    else (), qmm_counts=qmm_counts)
                 del eng
                 torch.cuda.empty_cache()
             if "graphs" in run:
@@ -2164,6 +2480,11 @@ def main() -> int:
     if "cli" in phases:
         with tempfile.TemporaryDirectory() as tmp:
             launches["cli"] = phase_cli(tmp, smi)
+        torch.cuda.empty_cache()
+    if "quant_crosscheck" in phases:
+        with tempfile.TemporaryDirectory() as tmp:
+            launches["quant_crosscheck"], _ = path_launches(
+                "quant_crosscheck", lambda: phase_quant_crosscheck(tmp, smi))
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
     emit({"phase": "done", "seconds": time.perf_counter() - t_all})

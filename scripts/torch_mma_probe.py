@@ -323,11 +323,13 @@ VARIANTS = {
 # the file each body's patches edit, and the sources each copy builds
 HEADER = {"mma": "qmm_mma.cuh", "group": "qmm_group_mma.cuh", "attention": "flash_attention.cu",
           "gemv": "qmm_gemv.cuh", "fused": FL, "gathered_t": "qmm_gathered.cu", "ktiled": KT}
-QMM_SOURCES = ("qmm.cu", "qmm_gathered.cu", "qmm_ktiled.cu")
+# qmm.cu links with qmm_lowbit.cu (its entry points dispatch the q1/q2 sets there)
+QMM = ("qmm.cu", "qmm_lowbit.cu")
+QMM_SOURCES = (*QMM, "qmm_gathered.cu", "qmm_ktiled.cu")
 SOURCES = {"mma": QMM_SOURCES, "group": QMM_SOURCES,
-           "attention": ("flash_attention.cu", "flash_decode.cu", "qmm.cu"), "gemv": ("qmm.cu",),
-           "fused": ("fused_layer.cu", "qmm.cu"), "gathered_t": ("qmm.cu", "qmm_gathered.cu"),
-           "ktiled": ("qmm.cu", "qmm_ktiled.cu")}
+           "attention": ("flash_attention.cu", "flash_decode.cu", *QMM), "gemv": QMM,
+           "fused": ("fused_layer.cu", *QMM), "gathered_t": (*QMM, "qmm_gathered.cu"),
+           "ktiled": (*QMM, "qmm_ktiled.cu")}
 # bodies timed after both flushes, with GB/s
 READ_FLUSH = ("gemv", "fused", "gathered_t", "ktiled")
 # wrapper constants a variant changes with its kernel: (module, name, value)

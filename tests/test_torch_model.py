@@ -564,3 +564,102 @@ def test_make_context_and_its_refusals(ggufs):
             make_context(m, ContextParams(n_ctx=64, parallel=mode))
     with pytest.raises(NotImplementedError, match="int8 KV cache.*Queue 1 item 4"):
         make_context(m, ContextParams(n_ctx=64, kv_dtype=torch.int8))
+
+
+# ----------------------------------------- every GGUF type the loaders read
+
+# packed where the type packs (the q1/q2 sets of the card's kernel 1 among
+# them), dense for the IQ and TQ types, which both loaders decode at load
+TYPE_CASES = [GGMLType.Q4_0, GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.Q5_K, GGMLType.Q3_K,
+              GGMLType.Q2_K, GGMLType.IQ4_XS, GGMLType.IQ3_S, GGMLType.TQ2_0]
+
+
+def _random_blocks(qtype, shape, rng):
+    """Q2_K / Q3_K block bytes (no quantizer in the JAX package) whose
+    values have a std near 0.02: random quants and scales, fp16 d (and
+    dmin) drawn small."""
+    from tpullama.gguf.constants import GGML_TYPE_TRAITS
+
+    tr = GGML_TYPE_TRAITS[qtype]
+    nb = int(np.prod(shape)) // tr.block_size
+    b = rng.integers(0, 256, (nb, tr.type_size), dtype=np.uint8)
+    if qtype == GGMLType.Q2_K:
+        d = rng.uniform(1.5e-3, 3e-3, (nb, 2)).astype("<f2")
+        b[:, 80:84] = d.view(np.uint8).reshape(nb, 4)
+    else:
+        b[:, 108:110] = rng.uniform(3e-4, 6e-4, nb).astype("<f2").view(np.uint8).reshape(nb, 2)
+    return b.reshape(-1)
+
+
+def _retype_gguf(src, dst, type_of, seed=0):
+    """Rewrite an F32 GGUF with every 2-D tensor in type_of(name) (None:
+    keep F32): quantized from its values, or random blocks for Q2_K and
+    Q3_K."""
+    from tpullama.gguf import GGUFReader, GGUFWriter, quantize
+
+    rng = np.random.default_rng(seed)
+    r = GGUFReader(src)
+    w = GGUFWriter(alignment=r.alignment)
+    for k, v in r.kv.items():
+        w.add_kv(k, v)
+    for name, info in r.tensors.items():
+        qt = type_of(name) if len(info.shape) == 2 else None
+        if qt is None:
+            w.add_tensor(name, r.tensor_f32(name), GGMLType.F32)
+            continue
+        vals = r.tensor_f32(name)
+        raw = (_random_blocks(qt, info.shape, rng) if qt in (GGMLType.Q2_K, GGMLType.Q3_K)
+               else quantize(vals, qt))
+        w.add_tensor(name, np.empty(info.shape, np.float32), ggml_type=qt, raw=raw)
+    w.write(dst)
+
+
+@pytest.fixture(scope="module")
+def type_ggufs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("types")
+    base = str(d / "f32.gguf")
+    make_tiny_llama_gguf(base, n_embd=256, n_ff=256, n_layer=2, seed=33)
+    out = {}
+    for qt in TYPE_CASES:
+        out[qt] = str(d / f"{qt.name}.gguf")
+        _retype_gguf(base, out[qt], lambda name, qt=qt: qt, seed=qt.value)
+    # llama.cpp's K-quant mixes give a tensor other types in some layers
+    # (Q5_K_M: attn_v and ffn_down Q6_K where use_more_bits): ffn_down Q6_K
+    # in layer 0 and Q5_K in layer 1, everything else Q5_K
+    out["mixed"] = str(d / "mixed.gguf")
+    _retype_gguf(base, out["mixed"], lambda name: GGMLType.Q6_K if name == "blk.0.ffn_down.weight"
+                 else GGMLType.Q5_K)
+    return out
+
+
+@pytest.mark.parametrize("qtype", TYPE_CASES, ids=lambda t: t.name)
+def test_every_type_prefill_logits_and_greedy_generate(type_ggufs, qtype):
+    """Each type loads in both packages (packed where it packs, the token
+    table dense) to the same parameters, and the prefill logits and greedy
+    tokens match the JAX package's."""
+    from tpullama.ops.qweights import PACKED_TYPES
+
+    packed = qtype in PACKED_TYPES
+    load_kw = dict(packed=True, packed_scale_dtype=np.float32) if packed else {}
+    j = _jax_load(type_ggufs[qtype], **load_kw)
+    t = _port_load(type_ggufs[qtype], **dict(load_kw, packed_scale_dtype=torch.float32)
+                   if packed else {})
+    lm = (t.quant_meta or {}).get("layers", {})
+    assert set(lm) == ({"attn_q", "attn_k", "attn_v", "attn_output", "ffn_gate", "ffn_up",
+                        "ffn_down"} if packed else set())
+    _assert_same_tree(_to_numpy(t.params), _jax_numpy({k: j.params[k] for k in t.params}))
+    _check_prefill_and_generate(type_ggufs[qtype], **load_kw)
+
+
+def test_mixed_layer_types_load_dense(type_ggufs):
+    """A tensor whose type differs between layers is loaded dense in both
+    packages (the layer-uniform packing rule); the rest stays packed."""
+    path = type_ggufs["mixed"]
+    j = _jax_load(path, packed=True, packed_scale_dtype=np.float32)
+    t = _port_load(path, packed=True, packed_scale_dtype=torch.float32)
+    lm = t.quant_meta["layers"]
+    assert "ffn_down" not in lm and set(lm) == set(j.quant_meta["layers"])
+    assert not isinstance(t.params["layers"]["ffn_down"], dict)
+    _assert_same_tree(_to_numpy(t.params["layers"]["ffn_down"]),
+                      _jax_numpy(j.params["layers"]["ffn_down"]))
+    _check_prefill_and_generate(path, packed=True, packed_scale_dtype=np.float32)

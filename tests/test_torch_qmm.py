@@ -20,21 +20,38 @@ from tpullama_torch.ops.cuda import qmm
 
 TYPES = sorted(PACKED_TYPES, key=lambda t: t.value)
 N_OUT, N_IN = 8, 512
+Q5 = (GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.Q5_K)
+# the field sets with a q1 plane or a q2 low plane (csrc/qmm_lowbit.cu)
+LOWBIT = (*Q5, GGMLType.Q3_K, GGMLType.Q2_K)
+# each packed set's planes (csrc/qmm_dequant.cuh Planes): low plane, its
+# bits, high plane, its bits; value = low | high << low bits
+_PLANES = {GGMLType.Q6_K: ("q4", 4, "q2", 2), GGMLType.Q3_K: ("q2", 2, "q1", 1),
+           GGMLType.Q2_K: ("q2", 2, None, 0), **{t: ("q4", 4, "q1", 1) for t in Q5}}
+
+
+def _group(qtype):
+    return 16 if qtype in (GGMLType.Q6_K, GGMLType.Q3_K, GGMLType.Q2_K) else 32
+
+
+def _quant_raw(qtype, n_out, K, rng):
+    """Block bytes of an (n_out, K) matrix: quantized from normal values, or
+    for Q2_K / Q3_K (no quantizer in the JAX package) random blocks with
+    fp16 scales of a quantized matrix's size."""
+    if qtype not in (GGMLType.Q2_K, GGMLType.Q3_K):
+        return quantize(rng.standard_normal((n_out, K)).astype(np.float32), qtype)
+    traits = GGML_TYPE_TRAITS[qtype]
+    nb = n_out * K // traits.block_size
+    b = rng.integers(0, 256, (nb, traits.type_size), dtype=np.uint8)
+    d = (0.02 * rng.uniform(0.5, 1.0, (nb, 2))).astype("<f2").view(np.uint8)
+    if qtype == GGMLType.Q2_K:
+        b[:, 80:84] = d.reshape(nb, 4)  # d, dmin
+    else:
+        b[:, 108:110] = d[:, :2]
+    return b.reshape(-1)
 
 
 def _planes(qtype, seed=0):
-    rng = np.random.default_rng(seed)
-    if qtype in (GGMLType.Q2_K, GGMLType.Q3_K):
-        # no quantizer in the JAX package: random blocks with finite fp16 scales
-        traits = GGML_TYPE_TRAITS[qtype]
-        raw = rng.integers(0, 256, N_OUT * N_IN // traits.block_size * traits.type_size,
-                           dtype=np.uint8)
-        blocks = raw.reshape(-1, traits.type_size)
-        blocks[:, -1] &= 0x3F
-        if qtype == GGMLType.Q2_K:
-            blocks[:, -3] &= 0x3F
-    else:
-        raw = quantize(rng.standard_normal((N_OUT, N_IN)).astype(np.float32), qtype)
+    raw = _quant_raw(qtype, N_OUT, N_IN, np.random.default_rng(seed))
     ref = dequantize(raw, qtype, (N_OUT, N_IN)).reshape(N_OUT, N_IN)
     return repack(raw, qtype, (N_OUT, N_IN)), ref
 
@@ -158,7 +175,7 @@ def _group_case(qtype, K, layout, seed):
     from tpullama_torch.ops.qweights import transpose_planes
 
     rng = np.random.default_rng(seed)
-    raw = quantize(rng.standard_normal((16, K)).astype(np.float32), qtype)
+    raw = _quant_raw(qtype, 16, K, rng)
     pq = repack(raw, qtype, (16, K))
     if layout == "fourblock":
         pq = to_fourblock(pq)
@@ -174,8 +191,11 @@ def _column_ints(planes, qtype, K, transposed):
     (csrc/qmm_group_mma.cuh): with G = K/g, column c's bytes sit at c + jG
     of each plane. Q4: a < 16 the low nibble of byte c + aG, a >= 16 the
     high nibble of byte c + (a-16)G; Q6: nib(q4[c + (a%8)G], a//8) |
-    crumb(q2[c + (a%4)G], a//4) << 4; Q8: the signed byte c + aG."""
-    g = 16 if qtype == GGMLType.Q6_K else 32
+    crumb(q2[c + (a%4)G], a//4) << 4; Q5: nib(q4[c + (a%16)G], a//16) |
+    bit(q1[c + (a%4)G], a//4) << 4; Q3_K: crumb(q2[c + (a%4)G], a//4) |
+    bit(q1[c + (a%2)G], a//2) << 2; Q2_K: crumb(q2[c + (a%4)G], a//4); Q8:
+    the signed byte c + aG."""
+    g = _group(qtype)
     G = K // g
 
     def run(name, n):  # (N, G, n): plane byte c + jG, j < n
@@ -190,6 +210,17 @@ def _column_ints(planes, qtype, K, transposed):
         a = torch.arange(16)
         return (((q4[..., a % 8] >> (4 * (a // 8))) & 15)
                 | (((q2[..., a % 4] >> (2 * (a // 4))) & 3) << 4))
+    if qtype in Q5:
+        q4, q1 = run("q4", 16), run("q1", 4)
+        a = torch.arange(32)
+        return (((q4[..., a % 16] >> (4 * (a // 16))) & 15)
+                | (((q1[..., a % 4] >> (a // 4)) & 1) << 4))
+    if qtype in (GGMLType.Q3_K, GGMLType.Q2_K):
+        a = torch.arange(16)
+        v = (run("q2", 4)[..., a % 4] >> (2 * (a // 4))) & 3
+        if qtype == GGMLType.Q3_K:
+            v = v | (((run("q1", 2)[..., a % 2] >> (a // 2)) & 1) << 2)
+        return v
     b = run("q4", 16)
     return torch.cat([b & 15, b >> 4], dim=-1)
 
@@ -215,7 +246,7 @@ def _group_scaled_product(x, planes, qtype, K, layout, sdt):
     scale column in f32, scaled once per column, and the min term
     minv . xgsum (xgsum: f32 sums of x's natural groups) as the body's
     tensor-core epilogue takes it, both split into bf16 hi/lo."""
-    g = 16 if qtype == GGMLType.Q6_K else 32
+    g = _group(qtype)
     G, T = K // g, x.shape[0]
     tr = layout == "transposed"
     q = _column_ints(planes, qtype, K, tr).float()
@@ -236,7 +267,7 @@ def _group_scaled_product(x, planes, qtype, K, layout, sdt):
 
 _GROUP_LAYOUTS = [(qt, "stripe") for qt in (GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0)] + [
     (GGMLType.Q4_K, "fourblock"), (GGMLType.Q4_K, "transposed"),
-    (GGMLType.Q8_0, "transposed")]
+    (GGMLType.Q8_0, "transposed")] + [(qt, "stripe") for qt in LOWBIT]
 
 
 @pytest.mark.parametrize("qtype,layout", _GROUP_LAYOUTS,
@@ -302,8 +333,12 @@ def _gemv_values(planes, qtype, K):
     word of a class (columns 4k ..) at a-row j of each plane, bytes shifted
     and masked as 4 lanes of a 32-bit word, each byte placed in the
     mantissa of 2^23 (bytes 0x00 0x00 0x4B above it) and 2^23 (Q8_0: +
-    128) taken off. Ragged classes read 0 past the row's columns."""
-    g = 16 if qtype == GGMLType.Q6_K else 32
+    128) taken off. Ragged classes read 0 past the row's columns. Every set
+    but Q8_0 runs gv_low_high on whole 32-bit words of 4 columns: field i
+    of low word j | the high word j % JH's field (j + i JL) / JH, shifted
+    into bits BL.. of each byte with the word's shifts (bits a shift
+    carries across bytes must fall outside the mask)."""
+    g = _group(qtype)
     G = K // g
     W = -(-G // 4) * 4
 
@@ -311,18 +346,29 @@ def _gemv_values(planes, qtype, K):
         p = planes[name].numpy().view(np.uint8).astype(np.uint32)[:, :n * G].reshape(-1, n, G)
         return np.pad(p, ((0, 0), (0, 0), (0, W - G)))
 
-    if qtype == GGMLType.Q4_K or qtype == GGMLType.Q4_0:
-        b = rows("q4", 16)
-        v = np.concatenate([b & 0x0F, (b >> 4) & 0x0F], axis=1)  # a < 16 low, else high
-        bias = 2.0 ** 23
-    elif qtype == GGMLType.Q6_K:
-        lo, cr = rows("q4", 8), rows("q2", 4)
-        v = []
-        for a in range(16):
-            i = a // 4
-            up = cr[:, a % 4] << (4 - 2 * i) if i < 2 else cr[:, a % 4] >> (2 * i - 4)
-            v.append(((lo[:, a % 8] >> (0 if a < 8 else 4)) & 0x0F) | (up & 0x30))
-        v = np.stack(v, axis=1)
+    def words(name, n):  # (N, n, W / 4) uint32 words of 4 columns' bytes
+        b = rows(name, n).reshape(-1, n, W // 4, 4)
+        return b[..., 0] | b[..., 1] << 8 | b[..., 2] << 16 | b[..., 3] << 24
+
+    if qtype != GGMLType.Q8_0:
+        lo, bl, hi, bh = _PLANES.get(qtype, ("q4", 4, None, 0))
+        jl, jh = g * bl // 8, g * bh // 8
+        ml = np.uint32(0x0F0F0F0F if bl == 4 else 0x03030303)
+        mh = np.uint32((0x03030303 if bh == 2 else 0x01010101) << bl)
+        lw = words(lo, jl)
+        hw = words(hi, jh) if bh else None
+        v = [None] * g
+        for j in range(jl):
+            for i in range(8 // bl):
+                w = (lw[:, j] >> np.uint32(bl * i)) & ml
+                if bh:
+                    sh = bl - bh * ((j + i * jl) // jh)
+                    h = hw[:, j % jh]
+                    w = w | (((h << np.uint32(sh)) if sh >= 0 else (h >> np.uint32(-sh))) & mh)
+                v[j + i * jl] = w
+        v = np.stack(v, axis=1)  # (N, g, W / 4) words
+        v = np.stack([(v >> np.uint32(8 * b)) & np.uint32(0xFF) for b in range(4)],
+                     axis=-1).reshape(v.shape[0], g, W)
         bias = 2.0 ** 23
     else:
         v = rows("q8", 32) ^ 0x80  # b + 128
@@ -343,8 +389,10 @@ def _gemv_emulated(x, planes, qtype, K, order, chunk=None):
     columns); the 16 lanes' parts added by a butterfly. chunk = (k, nk):
     qmm_ktiled's block of K-chunk k, the byte rows j in [k J / nk, (k + 1)
     J / nk) of each column alone (J = 16 q4 rows, 32 q8 rows; GvRows), the
-    min term in chunk 0 alone."""
-    g = 16 if qtype == GGMLType.Q6_K else 32
+    min term in chunk 0 alone. The other sets take a = j + i*JL for each
+    low-plane row j < JL (Q5: j, j + 16; Q3_K and Q2_K: j, j + 4, j + 8,
+    j + 12)."""
+    g = _group(qtype)
     G, T = K // g, x.shape[0]
     NC = -(-G // 4)
     L = 16
@@ -353,9 +401,12 @@ def _gemv_emulated(x, planes, qtype, K, order, chunk=None):
     xs = _gemv_stage(qmm.column_x(x, g, order), g, 0, 4 * NC)  # (T, g, 4 NC)
     acc = torch.zeros((q.shape[0], T, G))
     xsum = torch.zeros((T, 4 * NC))
-    steps = {GGMLType.Q6_K: [(j, j + 8) for j in range(8)],
-             GGMLType.Q8_0: [(a,) for a in range(32)]}.get(qtype,
-                                                          [(j, j + 16) for j in range(16)])
+    if qtype == GGMLType.Q8_0:
+        steps = [(a,) for a in range(32)]
+    else:
+        _lo, bl, _hi, _bh = _PLANES.get(qtype, ("q4", 4, None, 0))
+        jl = g * bl // 8
+        steps = [tuple(j + i * jl for i in range(8 // bl)) for j in range(jl)]
     if chunk is not None:
         k, nk = chunk
         steps = steps[len(steps) * k // nk:len(steps) * (k + 1) // nk]
@@ -382,7 +433,8 @@ def _gemv_emulated(x, planes, qtype, K, order, chunk=None):
 # Q4/Q8_0, 12 for Q6_K, fewer than the 16 lanes of a row), then rows whose last
 # class is ragged (K/g % 4 != 0: 17 and 25 columns)
 _GEMV_CASES = [(qt, K) for qt in (GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0)
-               for K in (768, 4096, 8960)] + [(GGMLType.Q4_0, 544), (GGMLType.Q8_0, 800)]
+               for K in (768, 4096, 8960)] + [(GGMLType.Q4_0, 544), (GGMLType.Q8_0, 800)] + [
+    (qt, K) for qt in LOWBIT for K in (256, 4096)]
 
 
 @pytest.mark.parametrize("T", [1, 3, 8])
@@ -526,15 +578,15 @@ _LOADER_WIDTHS = [(GGMLType.Q4_K, 768), (GGMLType.Q4_K, 8960), (GGMLType.Q6_K, 7
 
 
 @pytest.mark.parametrize("qtype", [GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q4_K, GGMLType.Q6_K,
-                                   GGMLType.Q8_0], ids=lambda t: t.name)
+                                   GGMLType.Q8_0, *LOWBIT], ids=lambda t: t.name)
 def test_every_loader_width_is_a_kernel_width(qtype):
     """The loader packs a matrix iff K % 256 == 0 (models/loader.py
     packable); every such K is a multiple of its kind's block and of the
     tensor-core routes' multiple, so no route refuses it; the warp bodies
     take the block's multiple alone."""
-    fields = set(repack(quantize(np.zeros((1, 256), np.float32), qtype), qtype,
+    fields = set(repack(_quant_raw(qtype, 1, 256, np.random.default_rng(0)), qtype,
                         (1, 256)).fields)
-    _kind, block = qmm._KINDS[frozenset(fields)]
+    _kind, block, _lo, _hi = qmm._KINDS[frozenset(fields)]
     assert block in (32, 256) and 256 % block == 0 and qmm.MMA_K_MULTIPLE == 256
 
 
@@ -690,7 +742,7 @@ def test_kchunks_choice_matches_reference(source, fset, monkeypatch):
 
 def _chunk_case(qtype, n_out, n_in, T, seed):
     rng = np.random.default_rng(seed)
-    raw = quantize(rng.standard_normal((n_out, n_in)).astype(np.float32), qtype)
+    raw = _quant_raw(qtype, n_out, n_in, rng)
     pq = repack(raw, qtype, (n_out, n_in))
     x = rng.standard_normal((T, n_in)).astype(np.float32)
     return pq, x
@@ -905,3 +957,167 @@ def test_gemv_takes_ragged_column_classes(cuda, qtype, n_in, T):
         got = qmm.quantized_matmul(xx, fields, qtype, pq.group, n_out, n_in)
         want = qmm.quantized_matmul_plain(xx, fields, qtype, pq.group, n_out, n_in)
         assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+# ------------------------------- the q1 and q2 field sets (Q5, Q3_K, Q2_K)
+
+
+def _lane_ints(planes, qtype, K):
+    """The integers q[n, c, a] as the group body's frag_a makes them
+    (csrc/qmm_group_mma.cuh): lane (g, tig) holds k positions a = 16 ks +
+    8 kh + 2 tig + e (g = 32) or 8 kh + 2 tig + e (g = 16) of byte runs
+    GroupGeo::run(q, tig), q = 2 kh + e for the low plane's runs and 4 + e
+    (Q5) or 2 + e (Q6_K, Q3_K) for the high plane's, unpacked with the
+    kernel's shifts."""
+    g = _group(qtype)
+    G = K // g
+    lo, bl, hi, bh = _PLANES.get(qtype, ("q4", 4, None, 0))
+    jl = g * bl // 8
+
+    def run(j):  # (N, G) bytes of buffer run j: the low plane's runs, then the high's
+        name, jj = (lo, j) if j < jl else (hi, j - jl)
+        return planes[name].to(torch.int32)[:, jj * G:(jj + 1) * G]
+
+    def runs(q, tig):
+        if qtype == GGMLType.Q6_K:
+            return 2 * tig + q if q < 2 else 8 + 2 * (tig & 1) + (q & 1)
+        if qtype in Q5:
+            return 2 * tig + (q & 1) + 8 * (q >> 1) if q < 4 else 16 + 2 * (tig & 1) + (q & 1)
+        if qtype == GGMLType.Q3_K:
+            return 2 * (tig & 1) + q if q < 2 else 4 + (q & 1)
+        if qtype == GGMLType.Q2_K:
+            return 2 * (tig & 1) + q
+        return 2 * tig + (q & 1) + 8 * (q >> 1)  # Q4
+
+    out = torch.zeros((planes["scale"].shape[0], G, g), dtype=torch.int32)
+    for tig in range(4):
+        for ks in range(g // 16):
+            for kh in range(2):
+                for e in range(2):
+                    a = 16 * ks + 8 * kh + 2 * tig + e
+                    if qtype == GGMLType.Q6_K:
+                        v = ((run(runs(e, tig)) >> (4 * kh)) & 15) | (
+                            ((run(runs(2 + e, tig)) >> (2 * (2 * kh + (tig >> 1)))) & 3) << 4)
+                    elif qtype in Q5:
+                        v = ((run(runs(2 * kh + e, tig)) >> (4 * ks)) & 15) | (
+                            ((run(runs(4 + e, tig)) >> (4 * ks + 2 * kh + (tig >> 1))) & 1) << 4)
+                    elif qtype in (GGMLType.Q3_K, GGMLType.Q2_K):
+                        v = (run(runs(e, tig)) >> (2 * (2 * kh + (tig >> 1)))) & 3
+                        if qtype == GGMLType.Q3_K:
+                            v = v | (((run(runs(2 + e, tig)) >> (4 * kh + tig)) & 1) << 2)
+                    else:
+                        v = (run(runs(2 * kh + e, tig)) >> (4 * ks)) & 15
+                    out[:, :, a] = v
+    return out
+
+
+@pytest.mark.parametrize("K", [256, 512, 4096])
+@pytest.mark.parametrize("qtype", LOWBIT, ids=lambda t: t.name)
+def test_lowbit_address_table_matches_dequant_stored(qtype, K):
+    """For the sets with a q1 plane or a q2 low plane, element a of scale
+    column c (stored position a*G + c) lives at Q5: q4 byte (a % 16) G + c
+    nibble a // 16, q1 byte (a % 4) G + c bit a // 4; Q3_K: q2 byte
+    (a % 4) G + c bits 2 (a // 4), q1 byte (a % 2) G + c bit a // 2; Q2_K:
+    q2 as Q3_K. That table (_column_ints), the decode body's word rule
+    (_gemv_values: gv_low_high on 4-column words) and the group body's lane
+    rule (_lane_ints: frag_a's runs and shifts) each give dequant_stored's
+    weight at every stored position, bit for bit."""
+    rng = np.random.default_rng(K + qtype.value)
+    pq = repack(_quant_raw(qtype, 8, K, rng), qtype, (8, K))
+    fields = {k: torch.from_numpy(v) for k, v in pq.fields.items()}
+    g, G = pq.group, K // pq.group
+    assert g == _group(qtype)
+    w = qmm.dequant_stored(fields, qtype, g)
+    c, a = torch.meshgrid(torch.arange(G), torch.arange(g), indexing="ij")
+    want = w[:, c + a * G]  # (N, c, a)
+    s, m = fields["scale"].float()[..., None], fields["minv"].float()[..., None]
+    table = _column_ints(fields, qtype, K, False)
+    for q in (table, _gemv_values(fields, qtype, K), _lane_ints(fields, qtype, K)):
+        assert torch.equal(q.float() * s - m, want)
+    assert torch.equal(_lane_ints(fields, qtype, K), table)
+
+
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K], ids=lambda t: t.name)
+def test_group_lane_rule_matches_byte_table(qtype):
+    """The group body's lane rule (_lane_ints) for the sets before the q1
+    planes gives the byte table's integers too."""
+    pq, fields, _planes, _ = _group_case(qtype, 1024, "stripe", seed=3)
+    assert torch.equal(_lane_ints(fields, qtype, 1024), _column_ints(fields, qtype, 1024, False))
+
+
+def _meta_fields(qtype, n_out, K, sdt):
+    fields = set(repack(_quant_raw(qtype, 1, 256, np.random.default_rng(0)), qtype,
+                        (1, 256)).fields)
+    g = _group(qtype)
+    bits = {"q4": 4, "q2": 2, "q1": 1, "q8": 8, "q4_lut": 4}
+    return {k: torch.empty((n_out, K // g) if k in ("scale", "minv") else (n_out, K * bits[k] // 8),
+                           dtype=sdt if k in ("scale", "minv") else torch.uint8, device="meta")
+            for k in fields}
+
+
+@pytest.mark.parametrize("T", [1, 4, 1024])
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0, *LOWBIT],
+                         ids=lambda t: t.name)
+def test_wrapper_takes_the_six_sets(qtype, T):
+    """qmm's kernel checks (check_inputs, on meta tensors) take every set the
+    loader packs for the dense path at the served shapes, with the kind of
+    csrc/qmm_dequant.cuh and the planes the kernel reads as low and high."""
+    want = {GGMLType.Q4_K: (0, "q4", None), GGMLType.Q6_K: (1, "q4", "q2"),
+            GGMLType.Q8_0: (2, "q8", None), GGMLType.Q3_K: (4, "q2", "q1"),
+            GGMLType.Q2_K: (5, "q2", None), **{t: (3, "q4", "q1") for t in Q5}}[qtype]
+    for N, K in ((14336, 4096), (4096, 14336), (1024, 256)):
+        for xdt, sdt in ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32)):
+            x = torch.empty((T, K), dtype=xdt, device="meta")
+            assert qmm.check_inputs(x, _meta_fields(qtype, N, K, sdt), qtype, _group(qtype),
+                                    N, K) == want
+
+
+def test_wrapper_names_what_it_covers():
+    """A set no kernel covers (MXFP4's q4_lut) raises, naming the covered
+    types; a K-quant set at a K the kernels do not take raises."""
+    x = torch.empty((4, 4096), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(NotImplementedError, match="Q5_0/Q5_1/Q5_K, Q6_K, Q3_K, Q2_K"):
+        qmm.check_inputs(x, _meta_fields(GGMLType.MXFP4, 64, 4096, torch.bfloat16),
+                         GGMLType.MXFP4, 32, 64, 4096)
+    x = torch.empty((4, 544), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="multiple of 256"):
+        qmm.check_inputs(x, _meta_fields(GGMLType.Q5_K, 64, 544, torch.bfloat16),
+                         GGMLType.Q5_K, 32, 64, 544)
+
+
+@pytest.mark.parametrize("planes_t", [False, True])
+@pytest.mark.parametrize("qtype", LOWBIT, ids=lambda t: t.name)
+def test_gathered_kernels_refuse_the_lowbit_sets(qtype, planes_t):
+    """Neither gathered kernel takes the q1/q2 sets (their kinds have no
+    branch in csrc/qmm_gathered.cu): both wrappers refuse them by name,
+    pointing to the ROADMAP item that ports them."""
+    from tpullama_torch.ops.cuda import qmm_gathered
+
+    fields = _meta_fields(qtype, 64, 4096, torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="q1/q2 field sets.*Queue 1 item 5"):
+        qmm_gathered.kernel_kind(fields, qtype, planes_t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [256, 4096, 14336])
+@pytest.mark.parametrize("T", [1, 4, 8, 9, 64, 1024])
+@pytest.mark.parametrize("qtype", LOWBIT, ids=lambda t: t.name)
+def test_lowbit_kernel_matches_plain(cuda, qtype, T, K):
+    """qmm_gemv (T <= 8) and qmm_tiled (T > 8) on the q1/q2 sets, f32 and
+    bf16 x and scales, against the plain version: 1e-4 of the output's max
+    (f32 sums in another order)."""
+    rng = np.random.default_rng(T + K + qtype.value)
+    n_out = 264  # a partial last row block on both routes
+    pq = repack(_quant_raw(qtype, n_out, K, rng), qtype, (n_out, K))
+    x = torch.from_numpy(rng.standard_normal((T, K)).astype(np.float32)).to(cuda)
+    for sdt in (torch.float32, torch.bfloat16):
+        fields = {k: torch.from_numpy(v).to(cuda, sdt if k in ("scale", "minv") else None)
+                  for k, v in pq.fields.items()}
+        for xx in (x, x.to(torch.bfloat16)):
+            before = dict(qmm.LAUNCHES)
+            got = qmm.quantized_matmul(xx, fields, qtype, pq.group, n_out, K)
+            want = qmm.quantized_matmul_plain(xx, fields, qtype, pq.group, n_out, K)
+            name = "qmm_gemv" if T <= qmm.GEMV_MAX_T else "qmm_tiled"
+            assert qmm.LAUNCHES[name] == before[name] + 1
+            torch.cuda.synchronize()
+            assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())

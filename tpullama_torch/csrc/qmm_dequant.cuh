@@ -15,10 +15,16 @@
 // contraction, the plain versions' arithmetic, so a kernel's weights equal
 // its plain version's bit for bit.
 //
-// Field sets:
+// Field sets (Planes below: a low plane, an optional high plane; value =
+// low | high << bits of the low plane):
 //   KIND_Q4: {q4, scale, minv}      g=32  (Q4_0, Q4_1, Q4_K)
 //   KIND_Q6: {q4, q2, scale, minv}  g=16  (Q6_K: value = q4 | q2 << 4)
 //   KIND_Q8: {q8, scale}            g=32  (Q8_0, signed bytes)
+//   KIND_Q5: {q4, q1, scale, minv}  g=32  (Q5_0, Q5_1, Q5_K: q4 | q1 << 4)
+//   KIND_Q3: {q2, q1, scale, minv}  g=16  (Q3_K: q2 | q1 << 2)
+//   KIND_Q2: {q2, scale, minv}      g=16  (Q2_K)
+// The tile bodies of qmm_mma.cuh (decode_vals) take KIND_Q4, KIND_Q6 and
+// KIND_Q8; the decode body and the group body every set.
 
 #pragma once
 
@@ -31,6 +37,25 @@ namespace tpl {
 constexpr int KIND_Q4 = 0;
 constexpr int KIND_Q6 = 1;
 constexpr int KIND_Q8 = 2;
+constexpr int KIND_Q5 = 3;
+constexpr int KIND_Q3 = 4;
+constexpr int KIND_Q2 = 5;
+
+// A set's planes. Stored position p = a*G + c of a row (element a of
+// scale column c, G = K/g) sits in byte (a % JL)*G + c of the low plane,
+// field a / JL (BL bits each), and in byte (a % JH)*G + c of the high
+// plane, field a / JH (BH bits each): qweights._stripe_pack's global
+// stripes. A plane's rows are K * bits / 8 bytes.
+template <int KIND>
+struct Planes {
+  static constexpr int GROUP =
+      KIND == KIND_Q6 || KIND == KIND_Q3 || KIND == KIND_Q2 ? 16 : 32;
+  static constexpr int BL = KIND == KIND_Q8 ? 8 : KIND == KIND_Q3 || KIND == KIND_Q2 ? 2 : 4;
+  static constexpr int BH = KIND == KIND_Q6 ? 2 : KIND == KIND_Q5 || KIND == KIND_Q3 ? 1 : 0;
+  static constexpr int JL = GROUP * BL / 8;  // low-plane byte runs per scale column
+  static constexpr int JH = GROUP * BH / 8;  // high-plane byte runs
+  static_assert(JL % (JH ? JH : 1) == 0, "a high byte run serves whole low runs");
+};
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -71,7 +96,7 @@ __device__ __forceinline__ float deq(float q, float s, float m) {
 template <int KIND>
 struct Geo {
   // quant group size, x segments per 32-position chunk, segment length
-  static constexpr int GROUP = KIND == KIND_Q6 ? 16 : 32;
+  static constexpr int GROUP = Planes<KIND>::GROUP;
   static constexpr int NSEG = KIND == KIND_Q4 ? 2 : (KIND == KIND_Q6 ? 4 : 1);
   static constexpr int SEG = 32 / NSEG;
   // stored position of segment j of chunk c

@@ -49,12 +49,16 @@
 //     still gives 132 blocks, so a narrow N (1024, K/V projections) fills
 //     the card.
 //
-// Field sets: KIND_Q4 {q4, scale, minv} g=32 (byte jG + c: a = j low
-// nibble, a = j + 16 high); KIND_Q6 {q4, q2, scale, minv} g=16 (q4 byte
-// jG + c, j < 8: a = j, j + 8; q2 byte jG + c, j < 4: crumb i is a = j +
-// 4i; value q4 | q2 << 4); KIND_Q8 {q8, scale} g=32 (signed byte aG + c).
-// Any K % 32 (Q6_K: % 256): where G % 4 != 0 a row's last class is ragged
-// and its bytes and scales are read one by one, past-the-row columns zero.
+// Field sets (qmm_dequant.cuh Planes): a low plane of BL-bit fields, JL
+// byte rows jG + c a column (field i of row j is a = j + i*JL), and for
+// KIND_Q6/Q5/Q3 a high plane of BH-bit fields, JH byte rows (field f of
+// row j is a = j + f*JH), value low | high << BL: KIND_Q4 {q4} g=32 (a = j
+// low nibble, j + 16 high); KIND_Q6 {q4, q2} g=16; KIND_Q5 {q4, q1} g=32;
+// KIND_Q3 {q2, q1} g=16; KIND_Q2 {q2} g=16; KIND_Q8 {q8, scale} g=32
+// (signed byte aG + c). One unpacking step (gv_low_high) serves every set
+// but Q8_0. Any K % 32 for Q4 and Q8 (where G % 4 != 0 a row's last class
+// is ragged and its bytes and scales are read one by one, past-the-row
+// columns zero); K % 256 for the K-quant sets with a high or q2 plane.
 
 #pragma once
 
@@ -77,23 +81,27 @@ struct GvSlice {
 
 template <int KIND>
 struct GvGeo {
-  static constexpr int GROUP = KIND == KIND_Q6 ? 16 : 32;
-  // a-rows of a step's tile (Q4 16; Q6_K 8 of q4 and 4 of q2; Q8_0 16 of
-  // its 32, two rounds a class) and the tile's row pitch in words (a pad
-  // of 8 puts a warp's two row groups on different banks)
-  static constexpr int AROWS = KIND == KIND_Q6 ? 12 : 16;
+  using P = Planes<KIND>;
+  static constexpr int GROUP = P::GROUP;
+  // a-rows of a step's tile (the low plane's JL then the high plane's JH:
+  // Q4 16, Q6_K 8 + 4, Q5 16 + 4, Q3_K 4 + 2, Q2_K 4; Q8_0 16 of its 32,
+  // two rounds a class) and the tile's row pitch in words (a pad of 8
+  // puts a warp's two row groups on different banks)
+  static constexpr int AROWS = KIND == KIND_Q8 ? 16 : P::JL + P::JH;
   static constexpr int ROUNDS = KIND == KIND_Q8 ? 2 : 1;
   static constexpr int PITCH = AROWS * GV_L + 8;
   // byte rows per scale column of the q4 (Q4) or q8 (Q8_0) plane
   static constexpr int JROWS = 16 * ROUNDS;
+  // the sets that take whole rows only (GvRows ranges are Q4's and Q8_0's)
+  static constexpr bool WHOLE = KIND != KIND_Q4 && KIND != KIND_Q8;
 };
 
 // The part of each row gv_tile sums: byte rows [j0, j1) of every scale
 // column of the q4 plane (a = j and j + 16) or the q8 plane (a = j), the
 // stored elements [j0 * G, j1 * G) of each stripe, which is one K-chunk of
 // the reference's _qmm_ktiled; and whether each column's min term is
-// folded (the reference folds it into chunk 0 alone). Q6_K takes whole
-// rows.
+// folded (the reference folds it into chunk 0 alone). The other sets take
+// whole rows.
 struct GvRows {
   int j0, j1;
   bool mins;
@@ -106,10 +114,10 @@ __device__ __forceinline__ constexpr GvRows gv_whole() {
 
 // A row's words in a ring stage for a range of jn byte rows: the rows of
 // one round (at most 16) and a pad of 8, which puts a warp's two row
-// groups on different banks; GvGeo::PITCH for whole rows (and Q6_K).
+// groups on different banks; GvGeo::PITCH for the sets of whole rows.
 template <int KIND>
 __host__ __device__ __forceinline__ constexpr int gv_pitch(int jn) {
-  return KIND == KIND_Q6 ? GvGeo<KIND>::PITCH : (jn < 16 ? jn : 16) * GV_L + 8;
+  return GvGeo<KIND>::WHOLE ? GvGeo<KIND>::PITCH : (jn < 16 ? jn : 16) * GV_L + 8;
 }
 
 // (2^23 + byte b of w) as f32, exact
@@ -168,6 +176,23 @@ __device__ __forceinline__ void gv_scales(const void* plane, size_t i, bool bf16
 __device__ __forceinline__ void gv_vals(uint32_t v, float bias, float (&q)[GV_CW]) {
 #pragma unroll
   for (int b = 0; b < 4; ++b) q[b] = gv_magic(v, b) - bias;
+}
+
+// Per byte of a 4-column word: field i of the low plane's word lw (BL
+// bits) | field f of the high plane's word hw (BH bits) << BL, for
+// position a = j + i*JL with f = a / JH (Planes). The compile-time shifts
+// keep each byte's bits within the byte.
+template <int KIND>
+__device__ __forceinline__ uint32_t gv_low_high(uint32_t lw, uint32_t hw, int i, int j) {
+  using P = Planes<KIND>;
+  constexpr uint32_t ML = P::BL == 4 ? 0x0F0F0F0Fu : 0x03030303u;
+  uint32_t v = (lw >> (P::BL * i)) & ML;
+  if constexpr (P::BH > 0) {
+    constexpr uint32_t MH = (P::BH == 2 ? 0x03030303u : 0x01010101u) << P::BL;
+    const int sh = P::BL - P::BH * ((j + i * P::JL) / P::JH);
+    v |= (sh >= 0 ? hw << sh : hw >> -sh) & MH;
+  }
+  return v;
 }
 
 // acc[r][c][t] += q[r][c] * x[t][a][c] for the class whose staged x starts
@@ -247,9 +272,12 @@ __device__ __forceinline__ void gv_stage(const void* x, bool x_bf16, float* xs, 
 // the round's byte rows in `rows`, 64 bytes of each) comes into a 2-stage
 // ring by 16-byte cp.async from all threads while the threads sum step
 // s - 1 out of the other stage; each thread then reads its own 4-byte
-// words at immediate offsets. Steps of a thread over whole rows: Q4 16, a
-// = j and j + 16; Q6_K 8, a = j and j + 8; Q8_0 2 x 16. A byte row range
-// skips the other rows' copies and sums and keeps the order of the rest.
+// words at immediate offsets. Steps of a thread over whole rows: one a
+// step per low-plane word j, a = j + i*JL in the order of j then i (Q4 and
+// Q5: a = j and j + 16; Q6_K: j and j + 8; Q3_K and Q2_K: j, j + 4, j + 8,
+// j + 12), each value low | high << BL (gv_low_high); Q8_0 2 x 16. A byte
+// row range skips the other rows' copies and sums and keeps the order of
+// the rest.
 template <int KIND, int TT, class RowOf, class Stage>
 __device__ __forceinline__ void gv_tile(const uint8_t* __restrict__ qa,
                                         const uint8_t* __restrict__ qb,
@@ -261,17 +289,18 @@ __device__ __forceinline__ void gv_tile(const uint8_t* __restrict__ qa,
   using GE = GvGeo<KIND>;
   constexpr int g = GE::GROUP, RT = GV_RT, L = GV_L, SW = GvSlice<TT>::COLS, SC = SW / GV_CW;
   constexpr int A = GE::AROWS, ROUNDS = GE::ROUNDS;
-  constexpr uint32_t NIB = 0x0F0F0F0Fu;
   constexpr float MAGIC = 8388608.f;  // 2^23
   const int G = K / g, NC = (G + GV_CW - 1) / GV_CW;
   const bool aligned = G % GV_CW == 0;
   const int cb = G % 16 == 0 ? 16 : (G % 8 == 0 ? 8 : 4);  // copy chunk bytes
   const int rows_blk = blockDim.x / L * RT;
+  using P = Planes<KIND>;
+  constexpr bool WHOLE = GE::WHOLE;
   // the rounds that hold byte rows [j0, j1), and the rows of round h
-  const int h0 = KIND == KIND_Q6 ? 0 : rows.j0 / 16;
-  const int NR = KIND == KIND_Q6 ? 1 : (rows.j1 + 15) / 16 - h0;
-  auto j_lo = [&](int h) { return KIND == KIND_Q6 ? 0 : max(rows.j0 - 16 * h, 0); };
-  auto j_hi = [&](int h) { return KIND == KIND_Q6 ? A : min(rows.j1 - 16 * h, 16); };
+  const int h0 = WHOLE ? 0 : rows.j0 / 16;
+  const int NR = WHOLE ? 1 : (rows.j1 + 15) / 16 - h0;
+  auto j_lo = [&](int h) { return WHOLE ? 0 : max(rows.j0 - 16 * h, 0); };
+  auto j_hi = [&](int h) { return WHOLE ? A : min(rows.j1 - 16 * h, 16); };
   // a row's words in a stage: the range's byte rows of a round, packed
   // (GvGeo::PITCH for whole rows)
   const int pitch = gv_pitch<KIND>(rows.j1 - rows.j0);
@@ -295,10 +324,10 @@ __device__ __forceinline__ void gv_tile(const uint8_t* __restrict__ qa,
         const int at = (e - (j - ja) * (64 / cb)) * cb;  // byte in the a-row's 64
         const size_t n = row_of(rr);
         const uint8_t* src;
-        if (KIND == KIND_Q6 && j >= 8)
-          src = qb + n * (K / 4) + (size_t)(j - 8) * G;
+        if (KIND != KIND_Q8 && j >= P::JL)  // the high plane's rows follow the low plane's
+          src = qb + n * (K / 8 * P::BH) + (size_t)(j - P::JL) * G;
         else
-          src = qa + n * (KIND == KIND_Q8 ? K : K / 2) + (size_t)(16 * h + j) * G;
+          src = qa + n * (K / 8 * P::BL) + (size_t)(16 * h + j) * G;
         const int col = GV_CW * c0 + at;  // byte of the a-row
         gv_copy(reinterpret_cast<char*>(st + rr * pitch + (j - ja) * L) + at, src + col, cb,
                 aligned, G - col);
@@ -349,39 +378,25 @@ __device__ __forceinline__ void gv_tile(const uint8_t* __restrict__ qa,
         __syncthreads();  // step s's tile has landed for every thread
         const uint32_t* wv = mine + (s++ & 1) * ring_stage;
         if (!on) continue;
-        if constexpr (KIND == KIND_Q4) {
+        if constexpr (KIND != KIND_Q8) {
+          // low word j holds a = j + i*JL (field i), high word j % JH the
+          // high fields of the same a (gv_low_high); a in the order j, i
 #pragma unroll
-          for (int j = 0; j < 16; ++j) {
+          for (int j = 0; j < P::JL; ++j) {
             if (j < jl || j >= jh) continue;
-            uint32_t wr[RT];
+            uint32_t lw[RT], hw[RT];
 #pragma unroll
             for (int r = 0; r < RT; ++r) {
-              wr[r] = wv[r * pitch + (j - jl) * L];
-              gv_vals(wr[r] & NIB, MAGIC, q[r]);
+              lw[r] = wv[r * pitch + (j - jl) * L];
+              hw[r] = 0u;
+              if constexpr (P::BH > 0) hw[r] = wv[r * pitch + (P::JL + j % P::JH) * L];
             }
-            gv_fma<TT, g, SW>(q, xk, j, acc);
 #pragma unroll
-            for (int r = 0; r < RT; ++r) gv_vals((wr[r] >> 4) & NIB, MAGIC, q[r]);
-            gv_fma<TT, g, SW>(q, xk, j + 16, acc);
-          }
-        } else if constexpr (KIND == KIND_Q6) {
-          // value = nibble | crumb << 4: q4 word j holds a = j (low) and
-          // j + 8 (high), q2 word j % 4 crumbs j / 4 and j / 4 + 2 for them
+            for (int i = 0; i < 8 / P::BL; ++i) {
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int c2 = j / 4;
-            uint32_t lo[RT], cr[RT];
-#pragma unroll
-            for (int r = 0; r < RT; ++r) {
-              lo[r] = wv[r * pitch + j * L];
-              cr[r] = wv[r * pitch + (8 + j % 4) * L];
-              gv_vals((lo[r] & NIB) | ((cr[r] << (4 - 2 * c2)) & 0x30303030u), MAGIC, q[r]);
+              for (int r = 0; r < RT; ++r) gv_vals(gv_low_high<KIND>(lw[r], hw[r], i, j), MAGIC, q[r]);
+              gv_fma<TT, g, SW>(q, xk, j + i * P::JL, acc);
             }
-            gv_fma<TT, g, SW>(q, xk, j, acc);
-#pragma unroll
-            for (int r = 0; r < RT; ++r)
-              gv_vals(((lo[r] >> 4) & NIB) | ((cr[r] >> (2 * c2)) & 0x30303030u), MAGIC, q[r]);
-            gv_fma<TT, g, SW>(q, xk, j + 8, acc);
           }
         } else {
 #pragma unroll

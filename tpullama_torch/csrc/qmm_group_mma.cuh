@@ -21,7 +21,14 @@
 //                nibble of q4[c + (a-16)G]                       (j < 16)
 //   Q6 {q4, q2}: nib(q4[c + (a%8)G], a/8) | crumb(q2[c + (a%4)G], a/4) << 4
 //                                                     (j < 8 and j < 4)
+//   Q5 {q4, q1}: nib(q4[c + (a%16)G], a/16) | bit(q1[c + (a%4)G], a/4) << 4
+//                                                    (j < 16 and j < 4)
+//   Q3 {q2, q1}: crumb(q2[c + (a%4)G], a/4) | bit(q1[c + (a%2)G], a/2) << 2
+//                                                     (j < 4 and j < 2)
+//   Q2 {q2}:     crumb(q2[c + (a%4)G], a/4)                       (j < 4)
 //   Q8 {q8}:     the signed byte q8[c + aG]                      (j < 32)
+// (qmm_dequant.cuh Planes). A weight buffer holds the low plane's runs,
+// then the high plane's.
 // Column c holds natural group nu(c): c in stripe order, (c % R)*(128/g) +
 // c / R in fourblock order (R = K/128). The callers pass x in column order
 // (x_col[t, c*g + a] = x[t, nu(c)*g + a]), so the body never permutes.
@@ -83,8 +90,12 @@ struct GroupGeo {
   static constexpr int GROUP = Geo<KIND>::GROUP;
   static constexpr bool MIN = KIND != KIND_Q8;
   static constexpr int KS = GROUP / 16;                    // k16 steps per column
-  static constexpr int QJ = KIND == KIND_Q4 ? 16 : KIND == KIND_Q6 ? 12 : 32;  // byte runs
-  static constexpr int QL = KIND == KIND_Q8 ? 8 : 4;       // runs one lane reads
+  using P = Planes<KIND>;
+  static constexpr int QJ = KIND == KIND_Q8 ? 32 : P::JL + P::JH;  // byte runs
+  // runs one lane reads: 2 of each plane a k-half (4 of the q4 plane
+  // over Q4/Q5's two k16 steps), 8 for Q8_0
+  static constexpr int QL = KIND == KIND_Q8 ? 8
+                            : (KIND == KIND_Q4 || KIND == KIND_Q5 ? 4 : 2) + (P::BH ? 2 : 0);
   static constexpr int SP = GM_CS * GROUP;                 // x positions per slice
   static constexpr int XPLANES = XLO ? 2 : 1;
   static constexpr int NB = SP * 2 * XPLANES / 128;        // 128-byte x boxes per row
@@ -123,10 +134,17 @@ struct GroupGeo {
     const int kc = XLO ? 2 * (kpos >> 3) + lo : kpos >> 3;
     return st + WX + (kc >> 3) * BN * 128 + n * 128 + (((kc & 7) ^ (n & 7)) << 4);
   }
-  // byte run of lane-local run index q (see the header note)
+  // byte run of lane-local run index q (see the header note): a lane's
+  // k positions are a = 16 ks + 8 kh + 2 tig + e (g = 32) or 8 kh + 2 tig
+  // + e (g = 16), e = q & 1
   __device__ static int run(int q, int tig) {
     if constexpr (KIND == KIND_Q8) return 16 * (q >> 2) + 2 * tig + (q & 1) + 8 * ((q >> 1) & 1);
     else if constexpr (KIND == KIND_Q6) return q < 2 ? 2 * tig + q : 8 + 2 * (tig & 1) + (q & 1);
+    else if constexpr (KIND == KIND_Q5)  // a % 16, then the q1 runs a % 4
+      return q < 4 ? 2 * tig + (q & 1) + 8 * (q >> 1) : 16 + 2 * (tig & 1) + (q & 1);
+    else if constexpr (KIND == KIND_Q3)  // a % 4 of q2, then a % 2 of q1
+      return q < 2 ? 2 * (tig & 1) + q : 4 + (q & 1);
+    else if constexpr (KIND == KIND_Q2) return 2 * (tig & 1) + q;
     else return 2 * tig + (q & 1) + 8 * (q >> 1);
   }
   // warp-local weight row of accumulator row (mi, h) of lane group g
@@ -186,20 +204,22 @@ inline int group_x_map(CUtensorMap* m, const void* x, int row_elems, int rows, i
                    (long long)row_elems * 2, 64, box_rows, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-// The row-major planes of one matrix for the weight buffers: the q4/q8
-// plane, the q2 plane (Q6) and the scale and min planes, in boxes of 16
-// columns x 128 rows. Returns a CUDA error code.
+// The row-major planes of one matrix for the weight buffers: the low
+// plane (q4, q8, or q2 for Q3_K/Q2_K), the high plane (q2 of Q6_K, q1 of
+// Q5/Q3_K) and the scale and min planes, in boxes of 16 columns x 128 rows.
+// Returns a CUDA error code.
 template <int KIND, typename ST>
 inline int group_w_maps(CUtensorMap (&m)[4], const void* qa, const void* qb, const void* s,
                         const void* mn, int N, int K) {
-  const int G = K / Geo<KIND>::GROUP;
-  const long long qcols = KIND == KIND_Q8 ? K : K / 2;
+  using P = Planes<KIND>;
+  const int G = K / P::GROUP;
+  const long long qcols = (long long)K / 8 * P::BL, hcols = (long long)K / 8 * P::BH;
   const CUtensorMapDataType sdt =
       sizeof(ST) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const CUtensorMapSwizzle none = CU_TENSOR_MAP_SWIZZLE_NONE;
   int err = group_map(&m[0], CU_TENSOR_MAP_DATA_TYPE_UINT8, qa, qcols, N, qcols, 16, GM_BM, none);
-  if (!err && KIND == KIND_Q6)
-    err = group_map(&m[1], CU_TENSOR_MAP_DATA_TYPE_UINT8, qb, K / 4, N, K / 4, 16, GM_BM, none);
+  if (!err && P::BH)
+    err = group_map(&m[1], CU_TENSOR_MAP_DATA_TYPE_UINT8, qb, hcols, N, hcols, 16, GM_BM, none);
   if (!err)
     err = group_map(&m[2], sdt, s, G, N, (long long)G * sizeof(ST), 16, GM_BM, none);
   if (!err && KIND != KIND_Q8)
@@ -268,17 +288,20 @@ struct GroupMaps {
 // One block's weights. Transposed planes: pointers at the expert's planes
 // and the block's first row (byte (kc, r) at kc * ld + r). Row-major
 // planes: group_w_maps' tensor maps and the block's first row n0, and the
-// q4 or q8 plane itself (qa, rows of ld bytes, n_rows of them) for byte
-// runs the tensor copies cannot start (group_copy_wbytes).
+// low and high planes themselves (qa, rows of ld bytes, n_rows of them;
+// qb, rows of ldb bytes) for byte runs the tensor copies cannot start
+// (group_copy_wbytes).
 template <typename ST>
 struct GroupW {
-  const uint8_t* qa;  // transposed q4 or q8 plane; row-major: the plane
+  const uint8_t* qa;  // transposed q4 or q8 plane; row-major: the low plane
   const ST* scale;
   const ST* minv;     // null for Q8
   int ld;             // the planes' row stride: R (transposed), bytes (row-major)
   const CUtensorMap* maps;
   int n0;
   int n_rows;         // row-major: the plane's rows
+  const uint8_t* qb = nullptr;  // row-major: the high plane (Q5's q1), or null
+  int ldb = 0;
 };
 
 // Columns of group_prep's xgsum planes per row: G rounded up to a whole
@@ -343,10 +366,11 @@ __device__ __forceinline__ void group_copy_wt(unsigned wb, unsigned bar, const G
   const int lane = threadIdx.x & 31;
   if (lane == 0) gm_bar_expect(bar, (unsigned)(bytes ? GG::WBUF : GG::WBUF - QBYTES));
   __syncwarp();
+  constexpr int JL = KIND == KIND_Q8 ? GG::QJ : Planes<KIND>::JL;
   for (int i = bytes ? lane : GG::QJ + lane; i < NBOX; i += 32) {
-    const bool q2 = KIND == KIND_Q6 && i >= 8 && i < GG::QJ;
-    const CUtensorMap* map = i < GG::QJ ? &w.maps[q2 ? 1 : 0] : &w.maps[i == GG::QJ ? 2 : 3];
-    const int col = i < GG::QJ ? c0 + (q2 ? i - 8 : i) * G : c0;
+    const bool high = i >= JL && i < GG::QJ;  // a run of the high plane
+    const CUtensorMap* map = i < GG::QJ ? &w.maps[high ? 1 : 0] : &w.maps[i == GG::QJ ? 2 : 3];
+    const int col = i < GG::QJ ? c0 + (high ? i - JL : i) * G : c0;
     const unsigned dst = wb + (i < GG::QJ ? GG::BQ + i * GM_BM * GG::WCOLS
                                           : i == GG::QJ ? GG::BS : GG::BM);
     asm volatile(
@@ -357,21 +381,26 @@ __device__ __forceinline__ void group_copy_wt(unsigned wb, unsigned bar, const G
   }
 }
 
-// Row-major q4 / q8 planes whose runs are not 16-byte aligned (G % 16 !=
-// 0; G % 8 == 0): the byte runs of columns c0 .. c0 + 15 by 8-byte
-// cp.async into the weight buffer at wb, by threads tid = 0 .. nthr - 1,
-// in the tensor copies' layout. Rows past n_rows and columns at or past G
-// (the last buffer of a row) come as zeros.
+// Row-major planes of g = 32 whose runs are not 16-byte aligned (G % 16 !=
+// 0; G % 8 == 0): the byte runs of columns c0 .. c0 + 15 (the low plane's,
+// then Q5's q1 runs) by 8-byte cp.async into the weight buffer at wb, by
+// threads tid = 0 .. nthr - 1, in the tensor copies' layout. Rows past
+// n_rows and columns at or past G (the last buffer of a row) come as zeros.
 template <int KIND, bool XLO, typename ST, int BN, bool TRANS>
 __device__ __forceinline__ void group_copy_wbytes(char* wb, const GroupW<ST>& w, int K, int c0,
                                                   int tid, int nthr) {
   using GG = GroupGeo<KIND, XLO, ST, BN, TRANS>;
-  static_assert(KIND != KIND_Q6, "Q6_K planes keep G % 16 == 0 (K % 256)");
+  static_assert(GG::GROUP == 32, "g = 16 planes keep G % 16 == 0 (K % 256)");
+  constexpr int JL = KIND == KIND_Q8 ? GG::QJ : Planes<KIND>::JL;
   const int G = K / GG::GROUP;
   for (int i = tid; i < GG::QJ * GM_BM * 2; i += nthr) {
     const int j = i / (2 * GM_BM), r = i / 2 % GM_BM, h = i % 2;
     const bool ok = w.n0 + r < w.n_rows && c0 + 8 * h < G;
-    const uint8_t* src = w.qa + (ok ? (size_t)(w.n0 + r) * w.ld + c0 + j * G + 8 * h : 0);
+    const bool high = j >= JL;
+    const uint8_t* src =
+        (high ? w.qb : w.qa) +
+        (ok ? (size_t)(w.n0 + r) * (high ? w.ldb : w.ld) + c0 + (high ? j - JL : j) * G + 8 * h
+            : 0);
     gm_cp_async<8>(wb + GG::BQ + (j * GM_BM + r) * GG::WCOLS + 8 * h, src, ok);
   }
 }
@@ -444,6 +473,22 @@ struct GroupWarp {
             const int cs = 2 * (2 * kh + (tig >> 1));  // crumb shift
             v = gm_bf16_ints(((t4 >> (4 * kh)) & 0x000F000Fu) |
                              (((t2 >> cs) & 0x00030003u) << 4) | 0x43004300u);
+          } else if constexpr (KIND == KIND_Q5) {
+            // nibble ks of runs a % 16, bit a / 4 = 4 ks + 2 kh + tig / 2
+            // of runs a % 4
+            const uint32_t t = gm_pair(wd(2 * kh, rs), wd(2 * kh + 1, rs), bi);
+            const uint32_t t1 = gm_pair(wd(4, rs), wd(5, rs), bi);
+            const int bs = 4 * ks + 2 * kh + (tig >> 1);
+            v = gm_bf16_ints(((ks ? t >> 4 : t) & 0x000F000Fu) |
+                             (((t1 >> bs) & 0x00010001u) << 4) | 0x43004300u);
+          } else if constexpr (KIND == KIND_Q3 || KIND == KIND_Q2) {
+            // crumb a / 4 = 2 kh + tig / 2 of runs a % 4; Q3_K's bit
+            // a / 2 = 4 kh + tig of runs a % 2
+            const uint32_t t2 = gm_pair(wd(0, rs), wd(1, rs), bi);
+            uint32_t u = (t2 >> (2 * (2 * kh + (tig >> 1)))) & 0x00030003u;
+            if constexpr (KIND == KIND_Q3)
+              u |= ((gm_pair(wd(2, rs), wd(3, rs), bi) >> (4 * kh + tig)) & 0x00010001u) << 2;
+            v = gm_bf16_ints(u | 0x43004300u);
           } else {
             const uint32_t t = gm_pair(wd(4 * ks + 2 * kh, rs), wd(4 * ks + 2 * kh + 1, rs), bi);
             v = bf16x2_bits(__floats2bfloat162_rn((float)(int8_t)(t & 0xff),
@@ -656,7 +701,7 @@ __device__ __forceinline__ void group_tile(char* smem, const GroupX& gx, const i
               bars + 8 * (GM_MAX_STAGES + b), w, K, sl * GM_CS, wbytes);
         }
       }
-      if constexpr (!TRANS && KIND != KIND_Q6) {
+      if constexpr (!TRANS && GG::GROUP == 32) {
         // in this slice's cp.async group, which its step waits for
         if (!wbytes && sl % GG::WSL == 0)
           group_copy_wbytes<KIND, XLO, ST, BN, TRANS>(wbuf + sl / GG::WSL % 2 * GG::WBUF, w, K,

@@ -1,9 +1,15 @@
-"""GGUF format layer: parser, writer and the block codecs the port needs
-(a copy of tpullama/gguf; the port imports nothing of the JAX package)."""
+"""GGUF format layer: parser, writer, the block codecs and the memory and
+split-future sources (a copy of tpullama/gguf; the port imports nothing of
+the JAX package)."""
 
 from .constants import GGML_TYPE_TRAITS, GGMLType, GGUFValueType, Keys, row_nbytes
 from .quants import dequantize, quantize
 from .reader import GGUFReader, TensorInfo
+from .stream import (
+    BufferSource,
+    SplitFutureRegistry,
+    fulfill_split_future,
+)
 from .writer import GGUFWriter
 
 __all__ = [
@@ -17,4 +23,7 @@ __all__ = [
     "GGUFReader",
     "TensorInfo",
     "GGUFWriter",
+    "BufferSource",
+    "SplitFutureRegistry",
+    "fulfill_split_future",
 ]

@@ -20,6 +20,15 @@ Two weight modes:
     re-encoded to the fourblock stored order the fused post-attention
     kernel reads (ops/qweights.to_fourblock), as the JAX loader does.
 
+Sources: a path or bytes (`load_model`), a list of split shards
+(`load_model_from_splits`, and a first shard's path with split.count > 1
+opens its siblings), or split futures whose bytes another thread fulfills
+(`load_model_from_split_futures`, gguf/stream.py). Tensors are decoded and
+repacked by the native host library (native.py) where it covers the type,
+else by the numpy codecs, which give the same bytes. `progress_callback`
+is called once per tensor with the fraction loaded; returning False
+cancels the load (InterruptedError), as in the JAX package.
+
 `params_from_numpy` carries a JAX-loaded model's parameters across (as
 numpy arrays), so both packages can be held against each other on the
 same bytes.
@@ -29,6 +38,7 @@ from __future__ import annotations
 
 import concurrent.futures as _fut
 import dataclasses
+import math
 import os
 import re
 from dataclasses import dataclass
@@ -39,9 +49,10 @@ import torch
 from ..device import resolve_device
 from ..gguf import GGMLType, GGUFReader
 from ..gguf.quants import dequantize
+from ..native import native_dequantize, native_repack, resolve_native
 from ..ops.cuda.fused_layer import resolve_fused_layer
 from ..ops.cuda.qmm_gathered import PLANES_T_FIELDS
-from ..ops.qweights import PACKED_TYPES, repack, to_fourblock, transpose_planes
+from ..ops.qweights import PACKED_TYPES, PlanarQuant, repack, to_fourblock, transpose_planes
 from .hparams import LLAMA_FAMILY, HParams
 
 # per-layer tensor suffixes of the llama family -> param names
@@ -163,11 +174,61 @@ def _torch_dtype(d) -> torch.dtype:
     return torch.from_numpy(np.zeros(0, np.dtype(d))).dtype
 
 
+def _progress_noop(frac: float) -> bool:
+    return True
+
+
+class _MultiReader:
+    """Union view over split GGUF shards (tools/gguf-split layout): kv
+    from shard 0, tensors from all shards."""
+
+    def __init__(self, readers):
+        self.readers = readers
+        self.kv = readers[0].kv
+        self.tensors = {}
+        self._where = {}
+        for r in readers:
+            for name, info in r.tensors.items():
+                self.tensors[name] = info
+                self._where[name] = r
+        self.alignment = readers[0].alignment
+
+    def tensor_raw(self, name):
+        return self._where[name].tensor_raw(name)
+
+    def tensor_f32(self, name):
+        return self._where[name].tensor_f32(name)
+
+
+def load_model_from_splits(sources: list, **kw) -> LoadedModel:
+    """Load from an explicit list of shard paths or buffers
+    (llama_model_load_from_splits); `kw` as load_model's."""
+    return load_model(_MultiReader([GGUFReader(s) for s in sources]), **kw)
+
+
+def load_model_from_split_futures(keys: list[str], context: str, registry=None,
+                                  timeout: float | None = None, **kw) -> LoadedModel:
+    """Async split-future loading (the fork's
+    llama_model_load_from_split_futures): blocks on each split's future
+    until another thread fulfills its bytes through
+    tpullama_torch.gguf.fulfill_split_future(key, context, data), then
+    drops the context's futures; `kw` as load_model's."""
+    from ..gguf.stream import GLOBAL_REGISTRY
+
+    reg = registry or GLOBAL_REGISTRY
+    readers = [GGUFReader(reg.register(key, context).extract(timeout=timeout)) for key in keys]
+    reg.release_context(context)
+    return load_model(_MultiReader(readers), **kw)
+
+
 def load_model(source, dtype=torch.float32, device=None, packed: bool = False,
                packed_scale_dtype=torch.bfloat16, load_vocab: bool = True,
-               fused_layer: bool | None = None) -> LoadedModel:
-    """Load a llama-family GGUF (path or bytes) onto `device` (default
-    cuda; raises without a GPU unless device="cpu" is passed).
+               fused_layer: bool | None = None,
+               progress_callback=_progress_noop, native: bool | None = None) -> LoadedModel:
+    """Load a llama-family GGUF (path, bytes, or the union of split shards
+    from load_model_from_splits) onto `device` (default cuda; raises
+    without a GPU unless device="cpu" is passed). A path to the first
+    shard of a split model (split.count > 1) loads every shard.
 
     `packed=True` keeps supported quantized 2-D weights in planar packed
     form for the fused dequant-matmul kernel; their scale/min planes are
@@ -176,12 +237,28 @@ def load_model(source, dtype=torch.float32, device=None, packed: bool = False,
     (default: the TPULLAMA_FUSED_LAYER environment variable, as the JAX
     loader reads it) stores the packed {q4, scale, minv} attn_output,
     ffn_up and ffn_down in fourblock order for the fused post-attention
-    kernel."""
+    kernel. `progress_callback(frac)` is called once per tensor; returning
+    False cancels the load (InterruptedError). `native` (default: on
+    unless TPULLAMA_NO_NATIVE is set, read once here) decodes and repacks
+    through the native host library where it covers the type."""
+    kw = dict(dtype=dtype, device=device, packed=packed, packed_scale_dtype=packed_scale_dtype,
+              load_vocab=load_vocab, fused_layer=fused_layer,
+              progress_callback=progress_callback, native=native)
+    if isinstance(source, _MultiReader):
+        reader = source
+    else:
+        reader = GGUFReader(source)
+        if (int(reader.kv.get("split.count", 0) or 0) > 1
+                and isinstance(source, (str, os.PathLike))):
+            # the first shard of a split model: open its siblings
+            from ..tools.gguf_split import shard_paths_from_first
+
+            return load_model_from_splits(shard_paths_from_first(os.fspath(source)), **kw)
     device = resolve_device(device)
     fused_layer = resolve_fused_layer(fused_layer)
+    native = resolve_native(native)
     dtype = _torch_dtype(dtype)
     sdt = _torch_dtype(packed_scale_dtype) if packed_scale_dtype is not None else torch.float32
-    reader = GGUFReader(source)
     hp = HParams.from_gguf(reader)
     check_supported(hp)
 
@@ -198,6 +275,18 @@ def load_model(source, dtype=torch.float32, device=None, packed: bool = False,
         elif name in _TOP_TENSORS:
             top[_TOP_TENSORS[name]] = name
     n_layer = hp.n_layer or (max(layer_names) + 1 if layer_names else 0)
+    total = len(reader.tensors)
+    done = 0
+
+    def tick() -> None:
+        nonlocal done
+        done += 1
+        if not progress_callback(done / max(total, 1)):
+            raise InterruptedError("model load cancelled by progress callback")
+
+    def decode(raw: np.ndarray, ggml_type: GGMLType, shape: tuple) -> np.ndarray:
+        arr = native_dequantize(raw, ggml_type, math.prod(shape)) if native else None
+        return arr.reshape(shape) if arr is not None else dequantize(raw, ggml_type, shape)
 
     def packable(tname: str, allow_3d: bool = False) -> bool:
         info = reader.tensors[tname]
@@ -209,16 +298,17 @@ def load_model(source, dtype=torch.float32, device=None, packed: bool = False,
         info = reader.tensors[tname]
         raw = reader.tensor_raw(tname)
         if len(info.shape) < 2:
-            out.copy_(torch.from_numpy(dequantize(raw, info.ggml_type, info.shape)))
-            return
-        rows = int(np.prod(info.shape[:-1]))
-        per_row = raw.size // rows
-        flat = out.view(rows, info.shape[-1])
-        for r0 in range(0, rows, _DENSE_ROWS):
-            r1 = min(rows, r0 + _DENSE_ROWS)
-            part = dequantize(raw[r0 * per_row:r1 * per_row], info.ggml_type,
+            out.copy_(torch.from_numpy(decode(raw, info.ggml_type, info.shape)))
+        else:
+            rows = int(np.prod(info.shape[:-1]))
+            per_row = raw.size // rows
+            flat = out.view(rows, info.shape[-1])
+            for r0 in range(0, rows, _DENSE_ROWS):
+                r1 = min(rows, r0 + _DENSE_ROWS)
+                part = decode(raw[r0 * per_row:r1 * per_row], info.ggml_type,
                               (r1 - r0, info.shape[-1]))
-            flat[r0:r1].copy_(torch.from_numpy(part))
+                flat[r0:r1].copy_(torch.from_numpy(part))
+        tick()
 
     def fetch_packed(tname: str, key: str | None = None) -> tuple[dict, QuantMeta]:
         """A tensor's planes and meta. Expert tensors come back as
@@ -226,8 +316,11 @@ def load_model(source, dtype=torch.float32, device=None, packed: bool = False,
         fourblock order where the fused layer reads layer matrix `key`
         (the JAX loader's condition, loader.py:629-642)."""
         info = reader.tensors[tname]
-        n_rows = int(np.prod(info.shape[:-1]))
-        pq = repack(reader.tensor_raw(tname), info.ggml_type, (n_rows, info.shape[-1]))
+        n_rows, K = int(np.prod(info.shape[:-1])), info.shape[-1]
+        raw = reader.tensor_raw(tname)
+        res = native_repack(raw, info.ggml_type, n_rows, K) if native else None
+        pq = (PlanarQuant(info.ggml_type, (n_rows, K), *res) if res is not None
+              else repack(raw, info.ggml_type, (n_rows, K)))
         if len(info.shape) == 3:
             fields, planes_t = _expert_planes(pq.fields, info.shape[0])
             return fields, QuantMeta(pq.ggml_type, pq.group, *pq.shape, planes_t=planes_t)
@@ -252,6 +345,7 @@ def load_model(source, dtype=torch.float32, device=None, packed: bool = False,
             fields, quant_meta[pname] = fetch_packed(tname)
             params[pname] = {k: to_device(v[0], k in ("scale", "minv"))
                              for k, v in fields.items()}
+            tick()
         else:
             t = torch.empty(info.shape, dtype=dtype if pname != "rope_freqs" else torch.float32,
                             device=device)
@@ -285,10 +379,12 @@ def load_model(source, dtype=torch.float32, device=None, packed: bool = False,
                 for il, tn in enumerate(tnames):
                     fetch_dense(tn, t[il])
                 stacked[key] = t
-        # repack on host threads (numpy releases the GIL in the bulk ops),
-        # copy each layer's planes into the device stack as it completes
+        # repack on host threads (numpy and the native library release the
+        # GIL; the native library runs its own threads, so two workers
+        # suffice there), copy each layer's planes into the device stack as
+        # it completes
         work = [(key, il, tn) for key, tnames in jobs for il, tn in enumerate(tnames)]
-        n_workers = max(1, min(8, os.cpu_count() or 1))
+        n_workers = max(1, min(2 if native else 8, os.cpu_count() or 1))
         with _fut.ThreadPoolExecutor(n_workers) as pool:
             futs = {pool.submit(fetch_packed, tn, key): (key, il) for key, il, tn in work}
             for f in _fut.as_completed(futs):
@@ -308,6 +404,7 @@ def load_model(source, dtype=torch.float32, device=None, packed: bool = False,
                     c = v.shape[0]
                     stacked[key][k][il * c:(il + 1) * c].copy_(
                         to_device(v, k in ("scale", "minv")))
+                tick()
         mg, mu = layer_meta.get("ffn_gate_exps"), layer_meta.get("ffn_up_exps")
         if mg and mu and ((mg.ggml_type, mg.group, mg.n_in, mg.planes_t)
                           == (mu.ggml_type, mu.group, mu.n_in, mu.planes_t)):

@@ -40,15 +40,23 @@ from ..qweights import PACKED_TYPES
 LAUNCHES = {"qmm_gemv": 0, "qmm_tiled": 0, "qmm_ktiled": 0}
 GEMV_MAX_T = 8
 
-# kernel field sets: (kind id in csrc/qmm.cu, the K multiple of its quant
-# blocks: Q4_0, Q4_1 and Q8_0 blocks hold 32 values, Q6_K blocks 256; a
-# Q4_K matrix has K % 256 by its own blocks). The decode bodies (qmm_gemv,
-# qmm_ktiled at T <= 8, one-row gathered tiles) take any such K.
+# kernel field sets: (kind id in csrc/qmm_dequant.cuh, the K multiple of
+# their quant blocks, the low plane, the high plane or None). Q4_0, Q4_1 and
+# Q8_0 blocks hold 32 values and a Q4_K matrix has K % 256 by its own
+# blocks; the decode bodies (qmm_gemv, qmm_ktiled at T <= 8, one-row
+# gathered tiles) take any such K. The K-quant sets take K % 256 on both
+# routes, every K the loader packs. A weight's value is low | high << bits
+# of the low plane.
 _KINDS = {
-    frozenset({"q4", "scale", "minv"}): (0, 32),
-    frozenset({"q4", "q2", "scale", "minv"}): (1, 256),
-    frozenset({"q8", "scale"}): (2, 32),
+    frozenset({"q4", "scale", "minv"}): (0, 32, "q4", None),          # Q4_0, Q4_1, Q4_K
+    frozenset({"q4", "q2", "scale", "minv"}): (1, 256, "q4", "q2"),   # Q6_K
+    frozenset({"q8", "scale"}): (2, 32, "q8", None),                  # Q8_0
+    frozenset({"q4", "q1", "scale", "minv"}): (3, 256, "q4", "q1"),   # Q5_0, Q5_1, Q5_K
+    frozenset({"q2", "q1", "scale", "minv"}): (4, 256, "q2", "q1"),   # Q3_K
+    frozenset({"q2", "scale", "minv"}): (5, 256, "q2", None),         # Q2_K
 }
+COVERED = "Q4_0/Q4_1/Q4_K, Q5_0/Q5_1/Q5_K, Q6_K, Q3_K, Q2_K and Q8_0"
+_BITS = {"q4": 4, "q2": 2, "q1": 1, "q8": 8}
 # The K multiple of the tensor-core routes (qmm_tiled, and qmm_ktiled and
 # row-major qmm_gathered above one row): a row's scales are whole 16-byte
 # runs and its byte runs start on 8-byte boundaries, which those bodies copy
@@ -151,27 +159,32 @@ def column_x(x: torch.Tensor, group: int, order: str = "stripe") -> torch.Tensor
 
 
 def _unpack(plane: torch.Tensor, bits: int) -> torch.Tensor:
-    """Inverse of qweights._stripe_pack: (N, K*bits/8) uint8 -> (N, K) int32
+    """Inverse of qweights._stripe_pack: (N, K*bits/8) uint8 -> (N, K) uint8
     in stored order."""
-    p = plane.to(torch.int32)
     mask = (1 << bits) - 1
-    return torch.cat([(p >> (bits * j)) & mask for j in range(8 // bits)], dim=-1)
+    return torch.cat([(plane >> (bits * j)) & mask for j in range(8 // bits)], dim=-1)
 
 
 def dequant_stored(fields: dict, ggml_type: GGMLType, group: int) -> torch.Tensor:
     """Exact f32 dequantization of planar fields, in STORED element order
     (N, K): value * tile(scale) - tile(minv), the arithmetic of
-    qweights.dequant_planar_np before its unpermute."""
+    qweights.dequant_planar_np before its unpermute. Stored position p sits
+    in scale column p % (K/g), so the scale and min planes broadcast over
+    the (N, g, K/g) view; the values are unpacked as bytes."""
     f = fields
+    N, G = f["scale"].shape
 
-    def tile(plane):
-        return plane.float().repeat(1, group)
+    def scaled(val: torch.Tensor) -> torch.Tensor:
+        out = val.view(N, group, G) * f["scale"].float().view(N, 1, G)
+        if "minv" in f:
+            out = out - f["minv"].float().view(N, 1, G)
+        return out.view(N, group * G)
 
     if "q8" in f:
-        return f["q8"].view(torch.int8).float() * tile(f["scale"])
+        return scaled(f["q8"].view(torch.int8).float())
     if "q4_lut" in f:
         lut = torch.from_numpy(KVALUES_MXFP4).to(f["q4_lut"].device, torch.float32)
-        return lut[_unpack(f["q4_lut"], 4)] * tile(f["scale"])
+        return scaled(lut[_unpack(f["q4_lut"], 4).long()])
     val = None
     if "q4" in f:
         val = _unpack(f["q4"], 4)
@@ -181,10 +194,7 @@ def dequant_stored(fields: dict, ggml_type: GGMLType, group: int) -> torch.Tenso
     if "q1" in f:
         shift = 4 if ggml_type in (GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.Q5_K) else 2
         val = val | (_unpack(f["q1"], 1) << shift)
-    out = val.float() * tile(f["scale"])
-    if "minv" in f:
-        out = out - tile(f["minv"])
-    return out
+    return scaled(val.float())
 
 
 def quantized_matmul_plain(x: torch.Tensor, fields: dict, ggml_type: GGMLType,
@@ -221,6 +231,43 @@ def quantized_matmul_ktiled_plain(x: torch.Tensor, fields: dict, ggml_type: GGML
     return y
 
 
+def check_inputs(x: torch.Tensor, fields: dict, ggml_type: GGMLType, group: int, n_out: int,
+                 n_in: int) -> tuple:
+    """The kernels' checks of a call (device, types, shapes, contiguity, the
+    field set and its K multiple on the route T picks); raises on what no
+    kernel takes. Returns the set's (kind, low plane, high plane or None).
+    Runs on tensors of any device, meta ones included."""
+    T, K = x.shape
+    N = n_out
+    if K != n_in:
+        raise ValueError(f"quantized_matmul: x has {K} columns, weight has {n_in}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"quantized_matmul: x dtype {x.dtype} (f32 or bf16)")
+    kind_k = _KINDS.get(frozenset(fields))
+    if kind_k is None:
+        raise NotImplementedError(
+            f"quantized_matmul kernel: {ggml_type.name} fields {sorted(fields)} "
+            f"are not covered yet ({COVERED} are)")
+    kind, k_mult, lo, hi = kind_k
+    sdt = fields["scale"].dtype
+    if sdt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"quantized_matmul: scale dtype {sdt} (f32 or bf16)")
+    if T > GEMV_MAX_T:
+        k_mult = MMA_K_MULTIPLE
+    if K % k_mult:
+        raise ValueError(f"quantized_matmul kernel: K={K} must be a multiple of {k_mult}"
+                         f" at T={T}")
+    for name, a in fields.items():
+        want = (N, K // group) if name in ("scale", "minv") else (N, K * _BITS[name] // 8)
+        if a.device != x.device or tuple(a.shape) != want or not a.is_contiguous():
+            raise ValueError(
+                f"quantized_matmul: field {name} {tuple(a.shape)} on {a.device} "
+                f"(contiguous={a.is_contiguous()}); want {want} on {x.device}")
+        if name in ("scale", "minv") and a.dtype != sdt:
+            raise TypeError("quantized_matmul: scale and minv dtypes differ")
+    return kind, lo, hi
+
+
 def quantized_matmul(x: torch.Tensor, fields: dict, ggml_type: GGMLType,
                      group: int, n_out: int, n_in: int, order: str = "stripe",
                      tile_k: int | None = None) -> torch.Tensor:
@@ -238,37 +285,11 @@ def quantized_matmul(x: torch.Tensor, fields: dict, ggml_type: GGMLType,
         raise RuntimeError(f"quantized_matmul: unsupported device {x.device}")
     from .build import check, library, ptr, stream
 
+    kind, lo, hi = check_inputs(x, fields, ggml_type, group, n_out, n_in)
     N = n_out
-    if K != n_in:
-        raise ValueError(f"quantized_matmul: x has {K} columns, weight has {n_in}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"quantized_matmul: x dtype {x.dtype} (f32 or bf16)")
-    kind_k = _KINDS.get(frozenset(fields))
-    if kind_k is None:
-        raise NotImplementedError(
-            f"quantized_matmul kernel: {ggml_type.name} fields {sorted(fields)} "
-            "are not covered yet (Q4_0/Q4_1/Q4_K, Q6_K and Q8_0 are)")
-    kind, k_mult = kind_k
     sdt = fields["scale"].dtype
-    if sdt not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"quantized_matmul: scale dtype {sdt} (f32 or bf16)")
-    if T > GEMV_MAX_T:
-        k_mult = MMA_K_MULTIPLE
-    if K % k_mult:
-        raise ValueError(f"quantized_matmul kernel: K={K} must be a multiple of {k_mult}"
-                         f" at T={T}")
-    bits = {"q4": 4, "q2": 2, "q8": 8}
-    for name, a in fields.items():
-        want = (N, K // group) if name in ("scale", "minv") else (N, K * bits[name] // 8)
-        if a.device != x.device or tuple(a.shape) != want or not a.is_contiguous():
-            raise ValueError(
-                f"quantized_matmul: field {name} {tuple(a.shape)} on {a.device} "
-                f"(contiguous={a.is_contiguous()}); want {want} on {x.device}")
-        if name in ("scale", "minv") and a.dtype != sdt:
-            raise TypeError("quantized_matmul: scale and minv dtypes differ")
     y = torch.empty((T, N), dtype=torch.float32, device=x.device)
-    qa = fields["q8"] if kind == 2 else fields["q4"]
-    qb = fields.get("q2")
+    qa, qb = fields[lo], fields.get(hi)
     x_bf16, s_bf16 = int(x.dtype == torch.bfloat16), int(sdt == torch.bfloat16)
     lib = library()
     if nk > 1:

@@ -34,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from ...gguf.constants import GGMLType
-from .qmm import _KINDS, MMA_K_MULTIPLE, dequant_stored, permute_x
+from .qmm import MMA_K_MULTIPLE, dequant_stored, permute_x
 
 # launches per kernel since the last reset (chip_smoke.py reads them)
 LAUNCHES = {"qmm_gathered": 0, "qmm_gathered_t": 0}
@@ -46,9 +46,18 @@ RUN_CAP = 4
 # csrc/qmm_gathered.cu): its column splits, each a part of every output
 T_SPLIT_COLS = 32
 
-# field sets of the transposed kernel: kind id in csrc/qmm_gathered.cu
+# field sets of the row-major kernel: (kind id in csrc/qmm_gathered.cu,
+# the K multiple of one-row tiles), and of the transposed kernel: kind id
+_KINDS = {frozenset({"q4", "scale", "minv"}): (0, 32),
+          frozenset({"q4", "q2", "scale", "minv"}): (1, 256),
+          frozenset({"q8", "scale"}): (2, 32)}
 _KINDS_T = {frozenset({"q4", "scale", "minv"}): 0, frozenset({"q8", "scale"}): 2}
 _BITS = {"q4": 4, "q2": 2, "q8": 8}
+# the K-quant sets with a q1 plane or a q2 low plane (Q5_0/Q5_1/Q5_K, Q3_K,
+# Q2_K) that qmm_tiled and qmm_gemv take and neither gathered kernel does
+_LOWBIT_SETS = {frozenset({"q4", "q1", "scale", "minv"}),
+                frozenset({"q2", "q1", "scale", "minv"}),
+                frozenset({"q2", "scale", "minv"})}
 # field sets the JAX package may store transposed (one stripe width)
 PLANES_T_FIELDS = {"q4", "q4_lut", "q4a", "q1r", "q8", "scale", "minv"}
 
@@ -135,6 +144,27 @@ def quantized_matmul_gathered_plain(x, fields, sel, ggml_type: GGMLType, group: 
     return y.reshape(rows, n_out)
 
 
+def kernel_kind(fields, ggml_type: GGMLType, planes_t: bool = False) -> tuple[int, int]:
+    """The gathered kernel's kind id of a field set (csrc/qmm_gathered.cu)
+    and the K multiple of its one-row tiles; raises for the sets neither
+    kernel covers, the q1/q2 sets by name."""
+    name = "qmm_gathered_t" if planes_t else "qmm_gathered"
+    if frozenset(fields) in _LOWBIT_SETS:
+        raise NotImplementedError(
+            f"{name} kernel: the q1/q2 field sets ({ggml_type.name} fields "
+            f"{sorted(fields)}) are not ported to the gathered kernels yet "
+            "(ROADMAP.md Queue 1 item 5)")
+    if planes_t:
+        kind, k_mult = _KINDS_T.get(frozenset(fields)), 32
+    else:
+        kind, k_mult = _KINDS.get(frozenset(fields), (None, 0))
+    if kind is None:
+        raise NotImplementedError(
+            f"{name} kernel: {ggml_type.name} fields {sorted(fields)} are not covered yet "
+            f"(Q4_0/Q4_1/Q4_K{'' if planes_t else ', Q6_K'} and Q8_0 are)")
+    return kind, k_mult
+
+
 def quantized_matmul_gathered(x, fields, sel, ggml_type: GGMLType, group: int,
                               n_out: int, n_in: int, tile_t: int = 1,
                               planes_t: bool = False) -> torch.Tensor:
@@ -154,15 +184,7 @@ def quantized_matmul_gathered(x, fields, sel, ggml_type: GGMLType, group: int,
     name = "qmm_gathered_t" if planes_t else "qmm_gathered"
     if tile_t > MAX_TILE_T:
         raise ValueError(f"{name} kernel: tile_t={tile_t} (at most {MAX_TILE_T})")
-    if planes_t:
-        kind = _KINDS_T.get(frozenset(fields))
-        k_mult = 32
-    else:
-        kind, k_mult = _KINDS.get(frozenset(fields), (None, 0))
-    if kind is None:
-        raise NotImplementedError(
-            f"{name} kernel: {ggml_type.name} fields {sorted(fields)} are not covered yet "
-            f"(Q4_0/Q4_1/Q4_K{'' if planes_t else ', Q6_K'} and Q8_0 are)")
+    kind, k_mult = kernel_kind(fields, ggml_type, planes_t)
     sdt = fields["scale"].dtype
     if sdt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: scale dtype {sdt} (f32 or bf16)")
