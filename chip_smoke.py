@@ -88,6 +88,24 @@ Phases, each printing one JSON line with its seconds:
             model also split into shards and loaded from split futures,
             from its first shard and whole (the same parameters), and run
             through the CLI from the first shard (the whole file's text)
+  int8kv    the served Llama model with an int8 KV cache against a bf16
+            one: Contexts of 4 lanes of 8192 cells, bf16 activations,
+            4 prompts of 6100-7000 tokens prefilled, a greedy burst of 32;
+            each cache's bytes (memory_breakdown), prefill and burst rates,
+            the replayed step profiled (flash_decode's ms a launch) and its
+            launches (the cache's attention kernel once per layer); the
+            greedy ids' agreement is reported (random weights)
+  int8kv_crosscheck
+            the 2-layer cut (Llama-3-8B's widths, f32 activations) with an
+            int8 cache, card against the CPU port: prefill logits, int8
+            rows within a quantization step, greedy tokens up to the first
+            near-tie, seq_rm + seq_add + seq_div and decoding on, seq_cp,
+            embeddings, a sampled burst rerun from its seed
+  state     the state path on the same cut: seq_save / seq_load of a lane
+            (f32 and int8 caches; the CPU port restores the card's file),
+            slot save / erase / restore over HTTP (serve(slot_save_path=)),
+            and the CLI twice with --prompt-cache (the second restores and
+            prints what the CPU prints from the card's file)
   cli       tpullama_torch.tools.cli.main on a 2-layer Q8_0 file at
             Llama-3-8B's widths (dense bf16 weights, the CLI's default), 16
             greedy tokens on the card with --burst 16 and --burst 1, and
@@ -98,9 +116,9 @@ Every model phase loads through the native host library, which must have
 built on the card's machine. The Llama cross-check also holds
 Context.embeddings (each pooling) and
 seq_add / seq_div on the card against the CPU, and a replayed step after
-seq_add against the eager step. The crosscheck, serve, http, spec, cli and
-quant_crosscheck paths each run with every
-launch count set to 0 just before and read just after, and fail unless
+seq_add against the eager step. The crosscheck, serve, http, spec, cli,
+quant_crosscheck, int8kv, int8kv_crosscheck and state paths each run with
+every launch count set to 0 just before and read just after, and fail unless
 each kernel that path must run was launched. Then one JSON line lists every
 kernel with its launches on each path and its numbers at the served shape
 from the kernels phase, and the last line is the run's result. Any failed
@@ -134,7 +152,7 @@ ALL_PHASES = ("card", "build", "kernels", "model", "crosscheck", "serve", "graph
               "spec", "cli", "moe_model", "moe_crosscheck", "moe_serve", "moe_graphs", "glm_model",
               "glm_crosscheck", "glm_serve", "glm_graphs", "qwen_crosscheck",
               "openllama_crosscheck", "q5km_model", "q5km_crosscheck", "q5km_serve",
-              "quant_crosscheck")
+              "quant_crosscheck", "int8kv", "int8kv_crosscheck", "state")
 
 
 def emit(obj) -> None:
@@ -961,7 +979,20 @@ def attn_inputs(B, Tq, Hq, Hkv, D, S, dtype, gen, device, kv_pos, q_pos):
     return q, k, v, mask
 
 
-def attn_case(timer, name, fn, q, k, v, mask, out, **kw):
+def int8_cache(k, v):
+    """k and v quantized per row as the model writes an int8 cache
+    (models/llama.quantize_q8): (k int8, v int8, (k scales, v scales))."""
+    from tpullama_torch.models.llama import quantize_q8
+
+    (kq, ks), (vq, vs) = quantize_q8(k), quantize_q8(v)
+    return kq, vq, (ks, vs)
+
+
+def attn_case(timer, name, fn, q, k, v, mask, out, scales=None, **kw):
+    """One attention kernel case against its plain version. `scales`: an
+    int8 cache's (k_scale, v_scale); its library yardstick is SDPA over the
+    cache dequantized to q's dtype (no PyTorch call takes int8 K/V with
+    scales), and its bound counts the int8 rows and the f32 scales."""
     import torch
     import torch.nn.functional as F
 
@@ -970,6 +1001,8 @@ def attn_case(timer, name, fn, q, k, v, mask, out, **kw):
     B, Tq, Hq, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     scale = 1.0 / math.sqrt(D)
+    if scales is not None:
+        kw = dict(kw, k_scale=scales[0], v_scale=scales[1])
     got = fn(q, k, v, mask, scale, **kw)
     want = flash_plain(q, k, v, mask, scale, **kw)
     torch.cuda.synchronize()
@@ -980,26 +1013,35 @@ def attn_case(timer, name, fn, q, k, v, mask, out, **kw):
           f"{name} B={B} Tq={Tq} S={S}: err {err} > tol {tol}")
     ms = timer.ms(lambda: fn(q, k, v, mask, scale, **kw), 20)
     plain_ms = timer.ms(lambda: flash_plain(q, k, v, mask, scale, **kw), 3)
-    lib_ms = None
-    if not kw:
+    lib_ms = lib_call = None
+    options = sorted(a for a in kw if a not in ("k_scale", "v_scale"))
+    if not options:
         m_lib = mask.to(q.dtype)
         qt = q.transpose(1, 2)
+        k_lib, v_lib = k, v
+        lib_call = "scaled_dot_product_attention"
+        if scales is not None:
+            k_lib = (k.float() * scales[0][..., None]).to(q.dtype)
+            v_lib = (v.float() * scales[1][..., None]).to(q.dtype)
+            lib_call += f" over the cache dequantized to {str(q.dtype).split('.')[-1]}"
         lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(
-            qt, k, v, attn_mask=m_lib, scale=scale, enable_gqa=True), 20)
+            qt, k_lib, v_lib, attn_mask=m_lib, scale=scale, enable_gqa=True), 20)
+        del k_lib, v_lib
     vis = mask[:, 0] > NEG_HIDDEN  # (B, Tq, S)
     n_pairs = int(vis.sum())
     n_cells = int(vis.any(dim=1).sum())  # cache rows some query needs
-    elt = k.element_size()
-    n_bytes = (nbytes(q) + 2 * n_cells * Hkv * D * elt + nbytes(mask) + nbytes(q))
+    # each visible cache row once, and an int8 cache's f32 scale with it
+    elt = k.element_size() * D + (4 if scales is not None else 0)
+    n_bytes = (nbytes(q) + 2 * n_cells * Hkv * elt + nbytes(mask) + nbytes(q))
     flops = 4.0 * n_pairs * Hq * D
     b_ms, b_by = bound_ms(n_bytes, flops, "bf16" if q.dtype == torch.bfloat16 else "f32")
     rec = {"phase": "kernels", "kernel": name, "route": route(q, k), "B": B, "Tq": Tq,
            "Hq": Hq, "Hkv": Hkv, "D": D, "S": S, "dtype": str(q.dtype).split(".")[-1],
-           "extras": sorted(kw), "visible_pairs": n_pairs,
+           "kv": str(k.dtype).split(".")[-1], "extras": options, "visible_pairs": n_pairs,
            "tflop_s": flops / ms / 1e9, "gb_s": n_bytes / ms / 1e6,
            "max_abs_err": err, "tol": tol,
            "max_rel_err": err / max(float(want.float().abs().max()), 1e-30),
-           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "library_call": lib_call,
            "bound_ms": b_ms, "bound_by": b_by}
     emit(rec)
     out.append(rec)
@@ -1096,6 +1138,45 @@ def attention_cases(timer, gen, device, out: list) -> None:
         qp = np.tile(np.arange(448, 512, dtype=np.int32), (2, 1))
         q, k, v, mask = attn_inputs(2, 64, Hq, Hkv, D, 512, dt, gen, device, kv, qp)
         attn_case(timer, "flash_attention", flash_attention, q, k, v, mask, out, **extras)
+
+    # the int8 cache (ContextParams(kv_dtype=torch.int8)), each row quantized
+    # as the model writes it: the served shapes above (decode at B = 1 and
+    # B = 4, the packed 4 x 256 prefill chunk), then head dims 64, 100 and
+    # 256 and f32 q (the FMA route) at the head-dim loop's shapes
+    for lengths, name in (([4000], "flash_decode_int8"),
+                          ([4000, 3000, 1000, 300], "flash_decode_batched_int8")):
+        kv, qp = decode_pos(lengths)
+        q, k, v, mask = attn_inputs(len(lengths), 1, Hq, Hkv, D, S, bf16, gen, device, kv, qp)
+        kq, vq, sc = int8_cache(k, v)
+        attn_case(timer, name, flash_decode, q, kq, vq, mask, out, scales=sc)
+    lanes = [(0, 256), (700, 216), (1800, 100), (3500, 0)]
+    kv = np.full((4, S), -1, np.int32)
+    qp = np.full((4, Tq), -1, np.int32)
+    for b, (n_past, n_new) in enumerate(lanes):
+        kv[b, :n_past + n_new] = np.arange(n_past + n_new)
+        qp[b, :n_new] = np.arange(n_past, n_past + n_new)
+    q, k, v, mask = attn_inputs(4, Tq, Hq, Hkv, D, S, bf16, gen, device, kv, qp)
+    kq, vq, sc = int8_cache(k, v)
+    del k, v
+    attn_case(timer, "flash_attention_int8", flash_attention, q, kq, vq, mask, out, scales=sc)
+    del q, kq, vq, mask
+    for D_h, dt in ((64, bf16), (100, bf16), (256, bf16), (128, torch.float32)):
+        lengths = np.asarray([900, 700, 500, 300], np.int32)
+        kv, qp = decode_pos(lengths, Sg)
+        q, k, v, mask = attn_inputs(4, 1, Hq, Hkv, D_h, Sg, dt, gen, device, kv, qp)
+        kq, vq, sc = int8_cache(k, v)
+        attn_case(timer, "flash_decode_batched_int8", flash_decode, q, kq, vq, mask, out,
+                  scales=sc)
+        kv = np.full((2, Sg), -1, np.int32)
+        qp = np.full((2, Tq), -1, np.int32)
+        for b, (n_past, n_new) in enumerate([(0, 256), (500, 100)]):
+            kv[b, :n_past + n_new] = np.arange(n_past + n_new)
+            qp[b, :n_new] = np.arange(n_past, n_past + n_new)
+        q, k, v, mask = attn_inputs(2, Tq, Hq, Hkv, D_h, Sg, dt, gen, device, kv, qp)
+        kq, vq, sc = int8_cache(k, v)
+        attn_case(timer, "flash_attention_int8", flash_attention, q, kq, vq, mask, out,
+                  scales=sc)
+        del q, k, v, kq, vq, mask
 
 
 # ---------------------------------------------------------------- phases
@@ -2205,7 +2286,10 @@ def step_bound(ctx, rows: int, kv_cells: int, routing: list, n_steps: int) -> tu
     hp = model.hparams
     p, lm = model.params, model.quant_meta["layers"]
     n_bytes = sum(nbytes(a) for a in p["output"].values())
-    n_bytes += kv_cells * 2 * nbytes(ctx.kv_k[:, 0, :, 0])
+    # each cached cell's K and V rows of every layer (an int8 cache: its
+    # int8 rows and f32 scales)
+    kv = ctx.kv_k if isinstance(ctx.kv_k, tuple) else (ctx.kv_k,)
+    n_bytes += kv_cells * 2 * sum(nbytes(t[:, 0, :, 0]) for t in kv)
     flops = 2.0 * ctx.p.n_seqs * model.quant_meta["output"].n_out * model.quant_meta["output"].n_in
     for key, w in p["layers"].items():
         if not isinstance(w, dict):
@@ -2226,14 +2310,16 @@ def step_bound(ctx, rows: int, kv_cells: int, routing: list, n_steps: int) -> tu
     return bound_ms(n_bytes, flops, "bf16")
 
 
-def profile_step(ctx, step, rows: int, n_steps: int) -> dict:
+def profile_step(ctx, step, rows: int, n_steps: int, kernels: tuple = ()) -> dict:
     """Where one kind of Context step spends its time: host wall per step
     (synchronised, without the profiler), then a second run of n_steps
     under torch.profiler: its wall, the card's busy time (the sum of the
     kernels the profiler saw) and idle share in that same window, the
     kernels that take the most, and the step's bound. The idle share
     comes from the profiled window alone because each step grows the
-    cache, so the two windows do not do the same work."""
+    cache, so the two windows do not do the same work. `kernels`: names
+    (substrings of the profiler's kernel names) whose card ms per launch
+    and launches per step are reported apart."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2262,12 +2348,424 @@ def profile_step(ctx, step, rows: int, n_steps: int) -> dict:
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3 / n_steps
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
-    return {"rows": rows, "steps": n_steps, "wall_ms": wall_ms,
+    per_kernel = {}
+    for name in kernels:
+        hits = [e for e in dev if name in e.key]
+        n = sum(e.count for e in hits)
+        per_kernel[name] = {"ms_per_launch": sum(e.self_device_time_total for e in hits) / 1e3
+                            / n if n else None, "launches_per_step": n / n_steps}
+    return {"rows": rows, "steps": n_steps, "wall_ms": wall_ms, "kernels": per_kernel,
             "profiled_wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / prof_wall_ms, "bound_ms": b_ms, "bound_by": b_by,
             "device_launches": sum(e.count for e in dev) / n_steps,
             "top": [{"kernel": e.key[:90], "ms": e.self_device_time_total / 1e3 / n_steps,
                      "launches": e.count / n_steps} for e in top]}
+
+
+def phase_int8kv(model, card: str, phase: str = "int8kv", n_ctx: int = 8192,
+                 lengths: tuple = (6100, 6500, 6800, 7000), n_steps: int = 32,
+                 chunk: int = 512) -> dict:
+    """The served model with an int8 cache against a bf16 one: two Contexts
+    of 4 lanes of n_ctx cells, bf16 activations, kv_dtype int8 and bf16,
+    prefill the same 4 prompts of `lengths` tokens (decode_multi, `chunk`
+    tokens a lane per step), then a greedy decode_batch_burst of n_steps.
+    Each: memory_breakdown, prefill and burst rates, the replayed B = 4
+    step profiled (wall, card busy, flash_decode's ms a launch), one step's
+    launches (the attention kernel of its cache once per layer). The
+    int8 and bf16 greedy ids' agreement is reported, not gated (random
+    weights)."""
+    import torch
+
+    from tpullama_torch.ops.cuda import launch_counts
+    from tpullama_torch.runtime import Context, ContextParams
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(8)
+    vocab = model.vocab
+    prompts = [vocab.tokenize(word_prompt(rng, n + 8), add_special=True)[:n] for n in lengths]
+    rec = {"phase": phase, "card": card, "n_ctx": n_ctx, "lanes": 4,
+           "prompt_tokens": [len(p) for p in prompts], "new_tokens": n_steps}
+    ids = {}
+    n_layer = model.hparams.n_layer
+    active = np.ones(4, bool)
+    for kv in ("int8", "bfloat16"):
+        ctx = Context(model, ContextParams(n_ctx=n_ctx, n_seqs=4, dtype=torch.bfloat16,
+                                           kv_dtype=getattr(torch, kv)))
+        mem = ctx.memory_breakdown()
+        sync = torch.cuda.synchronize if ctx.device.type == "cuda" else (lambda: None)
+        t1 = time.perf_counter()
+        last = {}
+        for i in range(0, max(len(p) for p in prompts), chunk):
+            last.update(ctx.decode_multi([(s, p[i:i + chunk]) for s, p in enumerate(prompts)
+                                          if i < len(p)]))
+        sync()
+        prefill_s = time.perf_counter() - t1
+        check(all(np.isfinite(last[s]).all() for s in range(4)),
+              f"{kv} cache: prefill logits are not finite")
+        first = np.asarray([int(np.argmax(last[s])) for s in range(4)], np.int32)
+        t1 = time.perf_counter()
+        out = ctx.decode_batch_burst(first, active, n_steps)
+        burst_s = time.perf_counter() - t1
+        check(out.shape == (n_steps, 4) and int(out.min()) >= 0
+              and int(out.max()) < model.hparams.n_vocab, f"{kv} cache: burst ids {out.shape}")
+        ids[kv] = np.concatenate([first[None], out])
+
+        def step():
+            return ctx.decode_batch(np.full(4, 100, np.int32), active)
+
+        prof = profile_step(ctx, step, 4, 8, kernels=("fd_kernel",))
+        # one step's launches, read as a difference: the path's own counts
+        # (path_launches) keep running
+        before = launch_counts()
+        check(np.isfinite(step()).all(), f"{kv} cache: decode_batch logits are not finite")
+        counts = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+        if ctx.device.type == "cuda":
+            check(ctx._programs[(0, 4, None)].graph is not None,
+                  f"{kv} cache: the B = 4 step did not run as a CUDA graph")
+            name = "flash_decode_batched" + ("_int8" if kv == "int8" else "")
+            check(counts.get(name) == n_layer,
+                  f"{kv} cache: a decode step launched {name} {counts.get(name)} times")
+        rec[kv] = {"memory_breakdown": mem, "kv_cache_gb": mem["kv_cache"] / 1e9,
+                   "prefill_s": prefill_s, "prefill_tok_s": sum(map(len, prompts)) / prefill_s,
+                   "burst_s": burst_s, "burst_lane_tok_s": 4 * n_steps / burst_s,
+                   "step": prof, "decode_step_launches": counts}
+        del ctx
+        torch.cuda.empty_cache()
+    same = ids["int8"] == ids["bfloat16"]
+    lead = [int(np.argmin(np.append(same[:, b], False))) for b in range(4)]
+    rec["greedy_agreement"] = {"equal_share": float(same.mean()), "equal_prefix": lead}
+    # per cell and head: D int8 values and an f32 scale against D bf16 values
+    D = model.hparams.n_embd_head_k
+    check(rec["int8"]["memory_breakdown"]["kv_cache"] * 2 * D
+          == rec["bfloat16"]["memory_breakdown"]["kv_cache"] * (D + 4),
+          "the int8 cache's bytes are not (D + 4) / 2D of the bf16 cache's")
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    return rec
+
+
+def load_cut(tmp: str, widths: Widths, n_layer: int, device: str = "cuda"):
+    """The cut of `widths` (n_layer layers, seed 1) for the int8 cross-check
+    and the state path, written once: on `device` packed with f32 scale
+    planes (bit-exact), on the CPU dense, the same f32 weights dequantized
+    once at load, so the CPU's steps are plain matmuls instead of a
+    dequantization of every matrix per call (the other cross-checks hold
+    the qmm kernels to their plain versions); f32 activations on both.
+    Returns (path, card model, CPU model, a 32-token prompt); the file
+    stays for the CLI, the caller removes it."""
+    import torch
+
+    from tpullama_torch.models import load_model
+
+    path = os.path.join(tmp, "cut.gguf")
+    write_llama_gguf(path, replace(widths, n_layer=n_layer), seed=1)
+    gpu = load_model(path, dtype=torch.float32, device=device, packed=True,
+                     packed_scale_dtype=torch.float32)
+    cpu = load_model(path, dtype=torch.float32, device="cpu")
+    prompt = gpu.vocab.tokenize(word_prompt(np.random.default_rng(2), 40), add_special=True)
+    return path, gpu, cpu, np.asarray(prompt[:32], np.int32)
+
+
+def int8_rows_close(g, c, steps: int = 1) -> tuple[float, float, int]:
+    """The largest difference between two int8 caches' dequantized rows
+    (g on the card, c on the CPU; every cell but the scratch cell S - 1,
+    which only the card's graph warm-ups write), its bound and the count of
+    int8 values that differ. Where a row's input differs in its last bits
+    (the card's K and V projections sum in another order) its scale (amax
+    / 127) moves with it and a value may round to the neighbouring step; a
+    re-rotation mixes two such values and rounds again. The bound: `steps`
+    steps of the largest scale (1, or 3 after a re-rotation) plus 127 times
+    the largest difference of two scales."""
+    S = c[0].shape[3]
+    gq, gs = (t.cpu()[:, :, :, : S - 1] for t in g)
+    cq, cs = (t[:, :, :, : S - 1] for t in c)
+    err = float((gq.float() * gs[..., None] - cq.float() * cs[..., None]).abs().max())
+    n_diff = int((gq != cq).sum())
+    ds = float((gs - cs).abs().max())
+    return err, 1.001 * (steps * max(float(gs.max()), float(cs.max())) + 127 * ds), n_diff
+
+
+def free_cells(ctx, lane: int, n: int) -> list:
+    """The cells the next step of n tokens on `lane` writes (the host
+    mirror's first free cells, the order the step picks them in)."""
+    return np.nonzero(ctx._pos_host[lane, : ctx._S - 1] < 0)[0][:n].tolist()
+
+
+@contextlib.contextmanager
+def card_rows(g, lane: int, cells: list):
+    """Inside the block, the model's quantizer (models/llama.quantize_q8)
+    returns the card Context g's int8 rows and scales of `lane` at `cells`,
+    K then V, layer after layer, instead of quantizing its input: a CPU
+    step then attends over the rows the card wrote. An int8 value rounds to
+    the other step where the two devices' K or V differ in the last bits,
+    and that moves the logits by more than the f32 cross-check's tolerance
+    (0.0091 against 0.0074 on Llama-3-8B's 2-layer cut on an H100); over
+    the card's rows the card and the CPU differ by f32 arithmetic alone."""
+    import tpullama_torch.models.llama as llama
+
+    rows = [tuple(t[:, lane][:, :, cells].cpu() for t in c) for c in (g.kv_k, g.kv_v)]
+    n_layer = rows[0][0].shape[0]
+    calls = iter([rows[kind][0][li], rows[kind][1][li]]
+                 for li in range(n_layer) for kind in (0, 1))
+    orig = llama.quantize_q8
+
+    def from_card(a):
+        q, sc = next(calls)  # (Hkv, T, D), (Hkv, T)
+        B, T, H, _ = a.shape
+        check(B == 1 and T == len(cells), f"card_rows: rows of {tuple(a.shape)}")
+        return q.transpose(0, 1)[None].contiguous(), sc.transpose(0, 1)[None].contiguous()
+
+    llama.quantize_q8 = from_card
+    try:
+        yield
+    finally:
+        llama.quantize_q8 = orig
+
+
+def cpu_step(c, g, toks, lane: int = 0, n_logits: int = 1):
+    """c.decode(toks) on `lane` over the card Context g's rows of the same
+    cells (card_rows); g must have run the same step."""
+    with card_rows(g, lane, free_cells(c, lane, len(toks))):
+        return c.decode(np.asarray(toks, np.int32), n_logits=n_logits, seq_id=lane)
+
+
+def greedy_pair(g, c, tok: int, n: int, lane: int = 0):
+    """n greedy one-token steps from tok on the card Context g and on the CPU
+    Context c over the card's rows, each side fed its own argmax: (card
+    tokens, {"tokens": the CPU's, "gaps": their top-2 gaps, "tol": the
+    cross-check's formula}) for same_under_tie_rule."""
+    toks_g, ref = [], {"tokens": [], "gaps": []}
+    tg = tc = tok
+    for _ in range(n):
+        lg = g.decode(np.asarray([tg], np.int32), seq_id=lane)[-1]
+        lc = cpu_step(c, g, [tc], lane)[-1]
+        top2 = np.partition(lc, -2)[-2:]
+        ref["gaps"].append(float(top2[1] - top2[0]))
+        tg, tc = int(np.argmax(lg)), int(np.argmax(lc))
+        toks_g.append(tg)
+        ref["tokens"].append(tc)
+        ref["tol"] = max(ref.get("tol", 0.0), 1e-3 * float(np.abs(lc).max()) + 1e-4)
+    return toks_g, ref
+
+
+def phase_int8kv_crosscheck(gpu, cpu, prompt, card: str, phase: str = "int8kv_crosscheck"):
+    """The 2-layer cut with an int8 cache, the card (kernels) against the
+    port on the CPU (plain versions), f32 activations, 2 lanes. The int8
+    rows each device writes are within one quantization step of the
+    other's (the count of values that differ is printed); the CPU then
+    steps over the card's rows (card_rows), so prefill logits must be
+    within the cross-check's tolerance (the CPU's own rows' error is
+    printed beside it) and 8 greedy one-token steps (replayed graphs on
+    the card) give the same tokens up to the first near-tie. seq_rm +
+    seq_add (a context shift: dequantize, rotate, quantize) and seq_div on
+    lane 0 of both: rows within 3 steps and the same positions; the card's
+    lane then goes to the CPU (seq_save / seq_load, runtime/state.py) and
+    4 greedy steps go on under the same rule. seq_cp, after which both
+    card lanes give the same logits bit for bit; embeddings (mean) over
+    the card's rows within the logits' formula; a sampled decode_burst
+    equal on a rerun from its seed."""
+    import io
+
+    import torch
+
+    from tpullama_torch.runtime import Context, ContextParams
+    from tpullama_torch.runtime.sampling import SamplerChain, as_device_spec
+    from tpullama_torch.runtime.state import seq_load, seq_save
+
+    t0 = time.perf_counter()
+    rec = {"phase": phase, "card": card, "layers": gpu.hparams.n_layer,
+           "prompt_tokens": len(prompt)}
+    cp = ContextParams(n_ctx=256, n_seqs=2, kv_dtype=torch.int8)
+    g, c, own = Context(gpu, cp), Context(cpu, cp), Context(cpu, cp)
+    cells = free_cells(c, 0, len(prompt))
+    lg = g.decode(prompt, n_logits=len(prompt))
+    lo = own.decode(prompt, n_logits=len(prompt))
+    rows = {}
+    for what in ("kv_k", "kv_v"):
+        rows[what] = int8_rows_close(getattr(g, what), getattr(own, what))
+        check(rows[what][0] <= rows[what][1], f"int8 {what} rows differ by {rows[what]}")
+    with card_rows(g, 0, cells):
+        lc = c.decode(prompt, n_logits=len(prompt))
+    err = float(np.abs(lg - lc).max())
+    tol = 1e-3 * float(np.abs(lc).max()) + 1e-4
+    check(np.isfinite(lg).all() and err <= tol, f"int8 prefill logits err {err} > tol {tol}")
+    check(int(lg[-1].argmax()) == int(lc[-1].argmax()), "int8 prefill argmax differs")
+    rec.update(prefill_max_abs_err=err, tol=tol, own_rows_max_abs_err=float(
+        np.abs(lg - lo).max()), rows=rows)
+    del own
+    out_g, ref = greedy_pair(g, c, int(np.argmax(lg[-1])), 8)
+    rec["greedy_tokens"] = out_g
+    rec["greedy_compared"] = same_under_tie_rule(out_g, ref, "int8 greedy")
+    # the context shift and self-extend on lane 0 of both
+    for ctx in (g, c):
+        ctx.seq_rm(1, 5)
+        ctx.seq_add(5, HUGE, -4)
+        ctx.seq_div(8, 20, 2)
+    for what in ("kv_k", "kv_v"):
+        e = int8_rows_close(getattr(g, what), getattr(c, what), steps=3)
+        check(e[0] <= e[1], f"int8 {what} rows after the seq ops differ by {e}")
+        rows[what + "_after_seq_ops"] = e
+    check(torch.equal(g.kv_pos.cpu(), c.kv_pos) and np.array_equal(g.n_past, c.n_past)
+          and np.array_equal(g._pos_host, c._pos_host), "positions after the seq ops differ")
+    buf = io.BytesIO()
+    seq_save(g, 0, buf)
+    buf.seek(0)
+    seq_load(c, 0, buf)
+    toks_g, ref = greedy_pair(g, c, out_g[-1], 4)
+    rec["after_shift_tokens"] = toks_g
+    rec["after_shift_compared"] = same_under_tie_rule(toks_g, ref, "int8 tokens after the shift")
+    g.seq_cp(0, 1)
+    a = g.decode(np.asarray([toks_g[-1]], np.int32), seq_id=0)
+    b = g.decode(np.asarray([toks_g[-1]], np.int32), seq_id=1)
+    check(np.array_equal(a, b), "after seq_cp the two int8 lanes give other logits")
+    eg = g.embeddings(prompt, pooling="mean")
+    with card_rows(g, 0, list(range(len(prompt)))):
+        ec = c.embeddings(prompt, pooling="mean")
+    e_err = float(np.abs(eg - ec).max())
+    check(np.isfinite(eg).all() and e_err <= 1e-3 * float(np.abs(ec).max()) + 1e-4,
+          f"int8 embeddings err {e_err}")
+    rec["embeddings_max_abs_err"] = e_err
+    del g, c
+    cp1 = ContextParams(n_ctx=256, kv_dtype=torch.int8)
+    s1 = Context(gpu, cp1)
+    first = int(np.argmax(s1.decode(prompt)[-1]))
+    n0 = int(s1.n_past[0])
+    spec = as_device_spec(SamplerChain.std(temp=0.9, seed=7))
+    runs = []
+    for _ in range(2):
+        s1.rollback_to(n0)
+        runs.append(s1.decode_burst(first, 8, sampler_spec=spec).tolist())
+    check(runs[0] == runs[1], f"a sampled int8 burst rerun from its seed differs: {runs}")
+    rec["sampled_burst"] = runs[0]
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+
+
+def phase_state(path: str, gpu, cpu, prompt, card: str, tmp: str, phase: str = "state",
+                device: str = "cuda") -> None:
+    """The state path on the 2-layer cut (runtime/state.py, the JAX
+    package's file format). (1) For an f32 and an int8 cache: lane 0 of a
+    2-lane Context prefilled and 4 tokens on, seq_save on the card,
+    seq_load into lane 1 (the rows equal bit for bit); 8 greedy tokens on
+    each lane are the same; the CPU port loads the card's file into its own
+    lane 1 and gives the same tokens up to the first near-tie. (2) Over
+    HTTP (serve(slot_save_path=...)): a completion, save slot 0, erase it,
+    restore it (n_restored equal to n_saved), and the same completion
+    again gives the same text. (3) The CLI (dense f32 weights, --dtype
+    float32) twice on the card with --prompt-cache: the first saves, the second restores (the
+    file is not written again) and prints what the CPU prints restoring
+    the card's file with --prompt-cache-ro."""
+    import io
+
+    import torch
+
+    from tpullama_torch.runtime import Context, ContextParams
+    from tpullama_torch.runtime.state import seq_load, seq_save
+    from tpullama_torch.server.http import serve
+    from tpullama_torch.tools.cli import main as cli_main
+
+    t0 = time.perf_counter()
+    rec = {"phase": phase, "card": card, "layers": gpu.hparams.n_layer}
+
+    def greedy(ctx, tok, n, lane):
+        out = []
+        for _ in range(n):
+            tok = int(np.argmax(ctx.decode(np.asarray([tok], np.int32), seq_id=lane)[-1]))
+            out.append(tok)
+        return out
+
+    for kv in (torch.float32, torch.int8):
+        name = str(kv).split(".")[-1]
+        cp = ContextParams(n_ctx=256, n_seqs=2, kv_dtype=kv)
+        g = Context(gpu, cp)
+        g.decode(prompt, seq_id=0)
+        part = greedy(g, int(prompt[-1]), 4, 0)
+        f = os.path.join(tmp, f"lane_{name}.bin")
+        t1 = time.perf_counter()
+        seq_save(g, 0, f, tokens=list(map(int, prompt)) + part)
+        save_ms = (time.perf_counter() - t1) * 1e3
+        t1 = time.perf_counter()
+        toks = seq_load(g, 1, f)
+        load_ms = (time.perf_counter() - t1) * 1e3
+        check(toks == list(map(int, prompt)) + part, f"{name}: the file's tokens differ")
+        cache = [t for c in (g.kv_k, g.kv_v) for t in (c if isinstance(c, tuple) else (c,))]
+        check(all(torch.equal(t[:, 0], t[:, 1]) for t in cache) and g.n_past[0] == g.n_past[1],
+              f"{name}: the loaded lane differs from the saved one")
+        a, b = greedy(g, part[-1], 8, 0), greedy(g, part[-1], 8, 1)
+        check(a == b, f"{name}: the loaded lane continues with {b}, the saved one with {a}")
+        # the CPU port restores the card's file into its lane 1 and goes on
+        # beside a card lane restored the same way (an int8 cache: over the
+        # card's new rows, card_rows)
+        c = Context(cpu, cp)
+        seq_load(c, 1, f)
+        seq_load(g, 1, f)
+        if kv == torch.int8:
+            got, ref = greedy_pair(g, c, part[-1], 8, lane=1)
+        else:
+            got = a
+            logits = c.decode(np.asarray([part[-1]], np.int32), seq_id=1)[-1]
+            ref = {"tokens": [], "gaps": [], "tol": 1e-3 * float(np.abs(logits).max()) + 1e-4}
+            for _ in range(8):
+                top2 = np.partition(logits, -2)[-2:]
+                ref["gaps"].append(float(top2[1] - top2[0]))
+                ref["tokens"].append(int(np.argmax(logits)))
+                logits = c.decode(np.asarray(ref["tokens"][-1:], np.int32), seq_id=1)[-1]
+        check(got == a, f"{name}: a lane restored twice continues with {got}, not {a}")
+        n_cmp = same_under_tie_rule(a, ref, f"{name}: the CPU restoring the card's file")
+        rec[name] = {"file_bytes": os.path.getsize(f), "save_ms": save_ms, "load_ms": load_ms,
+                     "tokens": a, "cpu_compared": n_cmp}
+        del g, c
+    # (2) slot save / erase / restore over HTTP
+    slots = os.path.join(tmp, "slots")
+    os.makedirs(slots, exist_ok=True)
+    httpd = serve(gpu, port=free_port(), n_slots=2, n_ctx=512, block=False,
+                  slot_save_path=slots)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        text = word_prompt(np.random.default_rng(9), 200)
+        body = {"prompt": text, "n_predict": 16, "temperature": 0}
+        first = http_call(base, "/completion", body)[2]
+        saved = http_call(base, "/slots/0?action=save", {"filename": "slot0.bin"})[2]
+        erased = http_call(base, "/slots/0?action=erase", {})[2]
+        restored = http_call(base, "/slots/0?action=restore", {"filename": "slot0.bin"})[2]
+        again = http_call(base, "/completion", body)[2]
+    finally:
+        httpd.shutdown()
+        httpd.engine.stop()
+        httpd.server_close()
+    check(saved["n_saved"] > 0 and erased["n_erased"] == saved["n_saved"]
+          and restored["n_restored"] == saved["n_saved"],
+          f"slot save {saved}, erase {erased}, restore {restored}")
+    check(again["content"] == first["content"] and first["content"],
+          f"the completion after a restore differs: {first['content']!r} vs {again['content']!r}")
+    rec["http"] = {"n_saved": saved["n_saved"], "n_restored": restored["n_restored"],
+                   "save_ms": saved["timings"]["save_ms"],
+                   "restore_ms": restored["timings"]["restore_ms"],
+                   "file_bytes": os.path.getsize(os.path.join(slots, "slot0.bin")),
+                   "text": first["content"][:60]}
+    # (3) the CLI's --prompt-cache
+    cache = os.path.join(tmp, "prompt.cache")
+    text = word_prompt(np.random.default_rng(5), 120)
+    argv = ["-m", path, "-p", text, "-n", "16", "--temp", "0", "--dtype", "float32",
+            "--prompt-cache", cache]
+    outs, stamps = [], []
+    for extra in ([], [], ["--device", "cpu", "--prompt-cache-ro"]):
+        if extra[:2] != ["--device", "cpu"]:
+            extra = extra + ([] if device == "cuda" else ["--device", device])
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(argv + extra)
+        check(rc == 0, f"the CLI exited {rc} with {extra}")
+        outs.append(buf.getvalue())
+        stamps.append(os.stat(cache).st_mtime_ns)
+    check(stamps[0] == stamps[1] == stamps[2], "a restoring CLI run wrote the prompt cache again")
+    check(outs[1] == outs[2] and outs[1].startswith(text),
+          f"the restoring CLI runs differ: card {outs[1][len(text):]!r}, "
+          f"cpu {outs[2][len(text):]!r}")
+    rec["cli"] = {"first": outs[0][len(text):][:60], "restored": outs[1][len(text):][:60],
+                  "cache_bytes": os.path.getsize(cache)}
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
 
 
 # (name, source, TPU kernel it replaces, the kernels-phase case whose
@@ -2291,6 +2789,13 @@ KERNELS = (
      dict(T=1, N=4608, K=4096, nk=4)),
     ("fused_postattn", "tpullama_torch/csrc/fused_layer.cu",
      "tpullama/ops/pallas/fused_layer.py:112", dict(E=4096, Dq=4096, Fd=13696)),
+    # the int8 cache's routes of kernels 5-7 (their has_kv_scale branches)
+    ("flash_attention_int8", "tpullama_torch/csrc/flash_attention.cu",
+     "tpullama/ops/pallas/flash_attention.py:40", dict(B=4, Tq=256, D=128, dtype="bfloat16")),
+    ("flash_decode_int8", "tpullama_torch/csrc/flash_decode.cu",
+     "tpullama/ops/pallas/flash_decode.py:60", dict(B=1, D=128, dtype="bfloat16")),
+    ("flash_decode_batched_int8", "tpullama_torch/csrc/flash_decode.cu",
+     "tpullama/ops/pallas/flash_decode.py:141", dict(B=4, S=4224, D=128, dtype="bfloat16")),
 )
 
 
@@ -2324,6 +2829,13 @@ PATH_KERNELS = {
     # Q3_K / Q4_K / Q5_K, Q2_K / Q3_K, Q5_0 / Q5_1 and Q4_0 packed; IQ4_XS
     # dense
     "quant_crosscheck": _DENSE_CROSS,
+    # an int8 and a bf16 cache served at 8192 cells (4 lanes)
+    "int8kv": ("qmm_gemv", "qmm_tiled", "flash_attention_int8", "flash_decode_batched_int8",
+               "flash_attention", "flash_decode_batched"),
+    "int8kv_crosscheck": ("qmm_gemv", "qmm_tiled", "flash_attention_int8", "flash_decode_int8"),
+    # lanes saved and loaded (f32 and int8 caches), the HTTP engine, the CLI
+    "state": ("qmm_gemv", "qmm_tiled", "flash_attention", "flash_decode", "flash_decode_batched",
+              "flash_attention_int8", "flash_decode_int8"),
 }
 # each path's model: (phase prefix, widths, cross-check layers, served
 # slots, the two opt-ins)
@@ -2364,6 +2876,8 @@ def kernels_line(records: list, launches: dict) -> dict:
         row = {"name": name, "route": "cuda", "body": rec.get("route"), "source": src,
                "replaces": replaces, "launches": sum(by_path.values()) if by_path else None,
                "launches_by_path": by_path, **{k: rec.get(k) for k in nums}}
+        if name.endswith("_int8"):
+            row["library_call"] = rec.get("library_call")
         if "type" in key:
             row["by_type"] = {r["type"]: {k: r[k] for k in nums} for r in records
                               if r["kernel"] == name and r["type"] != key["type"]
@@ -2410,6 +2924,7 @@ def main() -> int:
             for src, log in build.ptxas_report.items():
                 f.write(f"==== {src}\n{log}\n")
         emit({"phase": "build", "nvcc_s": build.build_seconds,
+              "nvcc_s_by_source": build.source_seconds,
               "seconds": time.perf_counter() - t0,
               "spills": sorted({ln.strip() for log in build.ptxas_report.values()
                                 for ln in log.splitlines()
@@ -2433,14 +2948,14 @@ def main() -> int:
     # the Llama path (and its HTTP server), the Mixtral path, the ChatGLM
     # path, then the cross-checks alone
     for pre, widths, cross_layers, n_slots, opts in PATHS:
-        run = [p for p in ("model", "crosscheck", "serve", "graphs", "http", "spec")
-               if pre + p in phases]
+        run = [p for p in ("model", "crosscheck", "serve", "graphs", "http", "spec", "int8kv",
+                           "int8kv_crosscheck", "state") if pre + p in phases]
         if not run:
             continue
         fused = bool(opts.get("fused_layer"))
         with tempfile.TemporaryDirectory() as tmp:
             model = None
-            if {"model", "serve", "graphs", "http", "spec"} & set(run):
+            if {"model", "serve", "graphs", "http", "spec", "int8kv"} & set(run):
                 model = phase_model(tmp, widths, phase=pre + "model", fused_layer=fused)
             if "crosscheck" in run:
                 launches[pre + "crosscheck"], _ = path_launches(
@@ -2475,7 +2990,22 @@ def main() -> int:
             if "spec" in run:
                 launches["spec"], _ = path_launches("spec", lambda: phase_spec(
                     model, tmp, smi, serve_tokens))
+            if "int8kv" in run:
+                launches["int8kv"], _ = path_launches("int8kv", lambda: phase_int8kv(model, smi))
             del model
+            torch.cuda.empty_cache()
+            if {"int8kv_crosscheck", "state"} & set(run):
+                # one 2-layer cut for both: written and loaded once
+                cut_path, gpu, cpu, prompt = load_cut(tmp, widths, cross_layers)
+                if "int8kv_crosscheck" in run:
+                    launches["int8kv_crosscheck"], _ = path_launches(
+                        "int8kv_crosscheck",
+                        lambda: phase_int8kv_crosscheck(gpu, cpu, prompt, smi))
+                if "state" in run:
+                    launches["state"], _ = path_launches("state", lambda: phase_state(
+                        cut_path, gpu, cpu, prompt, smi, tmp))
+                del gpu, cpu
+                os.remove(cut_path)
         torch.cuda.empty_cache()
     if "cli" in phases:
         with tempfile.TemporaryDirectory() as tmp:

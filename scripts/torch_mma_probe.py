@@ -39,19 +39,24 @@ packed 4 x 256 chunk) and qmm_gathered_t over Mixtral's down (4096 x
   nomin      without the min term's products
   mma_only   products only (no copies, unpacking, epilogue or min term)
   empty      the loop's barriers alone
-Body "attention" (flash_attention.cu, `fa_kernel`, bf16 tensor-core
-route): Llama-3-8B's packed 4 x 256 prefill chunk and the 1 x 256 chunk
-over a 4224-cell cache (chip_smoke.py's lanes), and flash_decode at B = 1
-and B = 4 (its achieved GB/s, the bytes of chip_smoke.py's bound over
-the median time; no variants). Variants:
+Body "attention" (flash_attention.cu, `fa_kernel`, the tensor-core
+route over a bf16 cache and over an int8 one, "int8" in the case's name):
+Llama-3-8B's packed 4 x 256 prefill chunk and the 1 x 256 chunk over a
+4224-cell cache (chip_smoke.py's lanes), and flash_decode at B = 1 and
+B = 4 (its achieved GB/s, the bytes of chip_smoke.py's bound over the
+median time). Variants:
   full       the kernel as it is
-  nocopy     without the K/V tile copies (the mask rows still staged)
+  nocopy     without the K/V tile copies (int8: the raw bytes' staging;
+             the mask rows still staged)
+  noconvert  int8 only: without converting the staged bytes to bf16 tiles
   nomask     without the mask: no staged mask rows, no masking of scores
-  nosoftmax  without the online softmax and the rescaling of o
+  nosoftmax  without the online softmax, V's int8 scales and the
+             rescaling of o
   mma_only   products only (the up-front mask scan and the tile list stay)
   empty      the loop's barriers, the scan and the list alone
 and flash_decode.cu (`fd_kernel`, timed at B = 1 and B = 4 only):
-  fd_nocopy    without the chunk's K/V copies
+  fd_nocopy    without the chunk's K/V copies (int8: their staging)
+  fd_noconvert int8 only: without converting the staged bytes
   fd_nocombine without the merge of the block's four warps
   fd_nomerge   without the last block's merge of the chunks (no output)
 Body "gemv" (qmm_gemv.cuh, `qmm_gemv_kernel`, the decode route): qmm_gemv
@@ -177,21 +182,34 @@ G_NOSMALL = [("      group_copy<KIND, XLO, ST, BN, TRANS>(st, w, xg, xg_rows, xr
 G_MIN = ("    if constexpr (GG::MIN) GroupWarp::template min_slice<ALL>(st, wb, cg, ja, jb, acc);\n",
          "")
 # attention (flash_attention.cu)
-A_COPY = ("    copy_kv<MMA, D, KVT>(kv_s + (2 * buf) * TILE, kv_s + (2 * buf + 1) * TILE, kh, vh,\n"
-          "                         CELLS * t, S);\n", "")
-A_STAGE = ("      cp_async4(mb + i, mask_p + (size_t)pr * S + (ok ? cell : 0), ok);\n", "")
-A_MASK = ("    mask_scores<NT>(s, mr, S - CELLS * t, rw, tig, scale, softcap, slopes != nullptr);\n",
+A_COPY = ("      copy_kv<MMA, D, KVT>(kv_s + (2 * buf) * TILE, kv_s + (2 * buf + 1) * TILE, kh, vh,\n"
+          "                           CELLS * t, S, Dr);\n", "      ;\n")
+A_COPY8 = ("      stage_kv_i8<D>(raw + (2 * buf) * CELLS * D, raw + (2 * buf + 1) * CELLS * D,\n"
+           "                     reinterpret_cast<const int8_t*>(kh), "
+           "reinterpret_cast<const int8_t*>(vh),\n"
+           "                     CELLS * t, S, Dr);\n", "      ;\n")
+A_CONV = ("      convert_i8<D>(kv_s, raw + (2 * buf) * CELLS * D);\n"
+          "      convert_i8<D>(kv_s + TILE, raw + (2 * buf + 1) * CELLS * D);\n", "")
+A_STAGE = ("        cp_async_cg(mb + i, mask_p + (size_t)pr * S + (ok ? cell : 0), ok);\n", "")
+A_MASK = ("    mask_scores<NT>(s, mr, sb, S - CELLS * t, rw, tig, scale, softcap, slopes != nullptr);\n",
           "")
-A_SOFTMAX = ("    softmax_run<NT>(s, m, l, alpha);\n    rescale<D>(o, alpha);\n", "")
-A_QK = ("    if constexpr (MMA) qk_mma<D, NT>(s, qa, ks, 0, lane);\n",
+A_SOFTMAX = ("    softmax_run<NT>(s, m, l, alpha);\n"
+             "    if constexpr (SC) scale_probs<NT>(s, sb + CELLS, S - CELLS * t, tig);\n"
+             "    rescale<D>(o, alpha);\n", "")
+A_QK = ("    if constexpr (MMA) qk_mma<D, NT>(s, afrag, ks, 0, lane);\n",
         "    if constexpr (MMA) { for (int j = 0; j < NT; ++j) for (int e = 0; e < 4; ++e)"
         " s[j][e] = 0.f; }\n")
 A_PV = ("    if constexpr (MMA) pv_mma<D, NT>(o, s, vs, 0, lane);\n",
         "    if constexpr (MMA) o[0][0] += s[0][0];\n")
 # flash_decode.cu, as (file, old, new)
 FD = "flash_decode.cu"
-D_COPY = (FD, "    copy_kv<MMA, D, KVT>(ks, vs, k + (size_t)bh * S * D, v + (size_t)bh * S * D, s0, S);\n",
-          "")
+D_COPY = (FD, "      copy_kv<MMA, D, KVT>(ks, vs, k + (size_t)bh * S * Dr, v + (size_t)bh * S * Dr, "
+          "s0, S, Dr);\n", "")
+D_COPY8 = (FD, "      stage_kv_i8<D>(raw, raw + CELLS * D, reinterpret_cast<const int8_t*>(k) + "
+           "(size_t)bh * S * Dr,\n                     reinterpret_cast<const int8_t*>(v) + "
+           "(size_t)bh * S * Dr, s0, S, Dr);\n", "")
+D_CONV = (FD, "      convert_i8<D>(reinterpret_cast<__nv_bfloat16*>(ks), raw);\n"
+          "      convert_i8<D>(reinterpret_cast<__nv_bfloat16*>(vs), raw + CELLS * D);\n", "")
 D_COMBINE = (FD, "    for (int i = tid; i < nr * D; i += THREADS) {\n",
              "    for (int i = tid; i < 0; i += THREADS) {\n")
 D_MERGE = (FD, "  for (int w0 = 0; w0 < NC; w0 += W) {\n", "  for (int w0 = 0; w0 < 0; w0 += W) {\n")
@@ -273,12 +291,14 @@ VARIANTS = {
     },
     "attention": {
         "full": [],
-        "nocopy": [A_COPY],
+        "nocopy": [A_COPY, A_COPY8],
+        "noconvert": [A_CONV],
         "nomask": [A_STAGE, A_MASK],
         "nosoftmax": [A_SOFTMAX],
-        "mma_only": [A_COPY, A_STAGE, A_MASK, A_SOFTMAX],
-        "empty": [A_COPY, A_STAGE, A_MASK, A_SOFTMAX, A_QK, A_PV],
-        "fd_nocopy": [D_COPY],
+        "mma_only": [A_COPY, A_COPY8, A_CONV, A_STAGE, A_MASK, A_SOFTMAX],
+        "empty": [A_COPY, A_COPY8, A_CONV, A_STAGE, A_MASK, A_SOFTMAX, A_QK, A_PV],
+        "fd_nocopy": [D_COPY, D_COPY8],
+        "fd_noconvert": [D_CONV],
         "fd_nocombine": [D_COMBINE],
         "fd_nomerge": [D_MERGE],
     },
@@ -327,7 +347,8 @@ HEADER = {"mma": "qmm_mma.cuh", "group": "qmm_group_mma.cuh", "attention": "flas
 QMM = ("qmm.cu", "qmm_lowbit.cu")
 QMM_SOURCES = (*QMM, "qmm_gathered.cu", "qmm_ktiled.cu")
 SOURCES = {"mma": QMM_SOURCES, "group": QMM_SOURCES,
-           "attention": ("flash_attention.cu", "flash_decode.cu", *QMM), "gemv": QMM,
+           "attention": ("flash_attention.cu", "flash_attention_int8.cu", "flash_decode.cu",
+                         "flash_decode_int8.cu", *QMM), "gemv": QMM,
            "fused": ("fused_layer.cu", *QMM), "gathered_t": (*QMM, "qmm_gathered.cu"),
            "ktiled": (*QMM, "qmm_ktiled.cu")}
 # bodies timed after both flushes, with GB/s
@@ -367,8 +388,9 @@ def load(d: str, body: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(so)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     argtypes = {
-        "tpl_flash_attention": [i, i, p, p, p, p, p, p, p, i, i, i, i, i, i, f, f, p],
-        "tpl_flash_decode": [i, i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, f, p],
+        "tpl_flash_attention": [i, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, f, p],
+        "tpl_flash_decode": [i, i, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, f,
+                             p],
         "tpl_qmm_ktiled": [i, i, i, p, p, p, p, p, p, i, i, i, i, p],
         "tpl_qmm_gathered": [i, i, i, i, p, p, p, p, p, p, p, i, i, i, i, i, p],
         "tpl_qmm_tiled": [i, i, i, p, p, p, p, p, p, p, i, i, i, p],
@@ -510,7 +532,10 @@ def shapes(device, body: str):
 def attention_shapes(device, gen):
     """chip_smoke.py's served attention shapes: (name, call, bytes of its
     bound) for the packed 4 x 256 and the 1 x 256 prefill chunks and the
-    B = 1 and B = 4 decode steps over a 4224-cell cache, 32/8 heads, D 128."""
+    B = 1 and B = 4 decode steps over a 4224-cell cache, 32/8 heads, D 128,
+    each over a bf16 cache and an int8 one (rows quantized as the model
+    writes them, chip_smoke.int8_cache; its bound counts the int8 rows and
+    their f32 scales)."""
     import numpy as np
     import torch
 
@@ -520,6 +545,18 @@ def attention_shapes(device, gen):
 
     Hq, Hkv, D, S, Tq = 32, 8, 128, 4224, 256
     out = []
+
+    def both(name, fn, q, k, v, mask, n_rows):
+        """The bf16 case, then the int8 one; n_rows: the K/V rows a call reads
+        (None: no bound)."""
+        kq, vq, (ks, vs) = cs.int8_cache(k, v)
+        for kv, args, kw, elt in (("", (k, v), {}, D * k.element_size()),
+                                  (" int8", (kq, vq), dict(k_scale=ks, v_scale=vs), D + 4)):
+            n_bytes = None if n_rows is None else (
+                2 * cs.nbytes(q) + cs.nbytes(mask) + 2 * n_rows * Hkv * elt)
+            out.append((name + kv, lambda q=q, a=args, m=mask, kw=kw: fn(
+                q, *a, m, D ** -0.5, **kw), n_bytes))
+
     for lanes in ([(0, 256), (700, 216), (1800, 100), (3500, 0)], [(700, 216)]):
         kv = np.full((len(lanes), S), -1, np.int32)
         qp = np.full((len(lanes), Tq), -1, np.int32)
@@ -528,8 +565,7 @@ def attention_shapes(device, gen):
             qp[b, :n_new] = np.arange(n_past, n_past + n_new)
         q, k, v, mask = cs.attn_inputs(len(lanes), Tq, Hq, Hkv, D, S, torch.bfloat16, gen,
                                        device, kv, qp)
-        out.append((f"flash_attention B={len(lanes)}",
-                    lambda q=q, k=k, v=v, m=mask: flash_attention(q, k, v, m, D ** -0.5), None))
+        both(f"flash_attention B={len(lanes)}", flash_attention, q, k, v, mask, None)
     for lengths in ([4000], [4000, 3000, 1000, 300]):
         B = len(lengths)
         kv = np.full((B, S), -1, np.int32)
@@ -537,10 +573,7 @@ def attention_shapes(device, gen):
             kv[b, :n] = np.arange(n)
         qp = np.asarray(lengths, np.int32)[:, None] - 1
         q, k, v, mask = cs.attn_inputs(B, 1, Hq, Hkv, D, S, torch.bfloat16, gen, device, kv, qp)
-        n_bytes = (2 * cs.nbytes(q) + cs.nbytes(mask)
-                   + 2 * sum(lengths) * Hkv * D * k.element_size())
-        out.append((f"flash_decode B={B}",
-                    lambda q=q, k=k, v=v, m=mask: flash_decode(q, k, v, m, D ** -0.5), n_bytes))
+        both(f"flash_decode B={B}", flash_decode, q, k, v, mask, sum(lengths))
     return out
 
 
@@ -595,7 +628,9 @@ def main() -> int:
                     setattr(mod, py[1], py[2])
                 for name, fn, *_ in cases[b]:
                     is_fd = name.startswith("flash_decode")
-                    if b == "attention" and n != "full" and is_fd != n.startswith("fd_"):
+                    if b == "attention" and n != "full" and (
+                            is_fd != n.startswith("fd_")
+                            or "convert" in n and "int8" not in name):
                         continue  # each kernel under its own variants
                     times.setdefault((b, n, name), []).append(timer.ms(fn, 10))
                     if b in READ_FLUSH:

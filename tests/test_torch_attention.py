@@ -435,3 +435,79 @@ def test_kernels_any_head_dim(cuda, D, dtype):
         assert got.shape == (B, Tq, 8, D)
         assert float((got - want).abs().max()) <= rel * float(want.abs().max()) + 1e-6, \
             (fn.__name__, B, Tq)
+
+
+def _int8_cache(k, v, dev, k_off=0, s_off=0):
+    """An int8 cache of k and v (models/llama.quantize_q8 per row) on dev,
+    optionally from storage offsets of k_off bytes (values) and s_off
+    floats (scales), so their rows start off 16-byte alignment."""
+    from tpullama_torch.models.llama import quantize_q8
+
+    out = []
+    for t in (k, v):
+        qv, sv = quantize_q8(t.float())
+        q_buf = torch.empty(qv.numel() + k_off, dtype=torch.int8, device=dev)
+        s_buf = torch.empty(sv.numel() + s_off, dtype=torch.float32, device=dev)
+        q_buf[k_off:].copy_(qv.reshape(-1))
+        s_buf[s_off:].copy_(sv.reshape(-1))
+        out += [q_buf[k_off:].view(qv.shape), s_buf[s_off:].view(sv.shape)]
+    return out  # k, k_scale, v, v_scale
+
+
+def _int8_check(cuda, dtype, D, S, cases, features=0, k_off=0, s_off=0):
+    """Each (kernel, B, Tq) of `cases` over an int8 cache against its plain
+    version with the same scales: both compute in f32 from the same int8
+    values, so 2^-7 of the output's max for a bf16 output, 1e-5 for f32."""
+    from tpullama_torch.ops.cuda.common import flash_plain
+
+    softcap, sinks, alibi = FEATURES[features]
+    for fn, B, Tq in cases:
+        *arrs, _ = _case(B, Tq, 8, 2, D, S, n_filled=S - 30, seed=D + Tq + B,
+                         hidden_rows=[(0, Tq - 1)], alibi=alibi)
+        targs, tkw = _torch_args(arrs, _extras(8, B, softcap, sinks, alibi))
+        q = targs[0].to(cuda, dtype)
+        k, ks, v, vs = _int8_cache(targs[1], targs[2] * 3, cuda, k_off, s_off)
+        mask = targs[3].to(cuda)
+        tkw = {kk: (vv.to(cuda) if torch.is_tensor(vv) else vv) for kk, vv in tkw.items()}
+        got = fn(q, k, v, mask, 0.09, k_scale=ks, v_scale=vs, **tkw).float()
+        torch.cuda.synchronize()
+        want = flash_plain(q, k, v, mask, 0.09, k_scale=ks, v_scale=vs, **tkw).float()
+        rel = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+        assert got.shape == (B, Tq, 8, D)
+        assert float((got - want).abs().max()) <= rel * float(want.abs().max()) + 1e-6, \
+            (fn.__name__, B, Tq)
+
+
+INT8_SHAPES = [(flash_attention, 1, 256), (flash_attention, 4, 256), (flash_decode, 1, 1),
+               (flash_decode, 4, 1), (flash_decode, 1, 4), (flash_decode, 4, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [16, 37, 64, 100, 128, 256])
+def test_int8_kernels_match_plain(cuda, D, dtype):
+    """The int8 K/V route of both kernels (bf16 q: tensor cores over the
+    converted rows; f32 q: FMAs) at head dims whose rows take 16-byte (16,
+    64, 128, 256), 4-byte (100) and byte (37) copies; prefill Tq = 256 and
+    decode Tq = 1 and 4, B = 1 and 4, GQA group 4, a padded query row."""
+    _int8_check(cuda, dtype, D, 320, INT8_SHAPES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("features", range(5), ids=FEATURE_IDS)
+def test_int8_kernels_take_every_option(cuda, dtype, features):
+    """Softcap, sinks and ALiBi over an int8 cache, K's scale applied
+    before softcap and the mask: a cache of 301 cells (scale rows no whole
+    16-byte runs: the 4-byte scale copies; a last key tile of 45 cells)."""
+    _int8_check(cuda, dtype, 128, 301, [(flash_attention, 2, 33), (flash_decode, 2, 1),
+                                        (flash_decode, 1, 4)], features)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_int8_kernels_take_unaligned_rows(cuda, dtype):
+    """Values 4 bytes and scales 1 float past a 16-byte boundary: the rows
+    take the 4-byte copies and the scales the 4-byte path, the same
+    results."""
+    _int8_check(cuda, dtype, 128, 320, INT8_SHAPES, k_off=4, s_off=1)

@@ -230,7 +230,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _card_pair(path, kind, n_seqs, n_ctx=128):
+def _card_pair(path, kind, n_seqs, n_ctx=128, kv_dtype=None):
     """Two port Contexts over one model on the card: one replays its step
     programs' graphs, the other runs the private eager step."""
     from tpullama_torch.models import load_model
@@ -241,7 +241,7 @@ def _card_pair(path, kind, n_seqs, n_ctx=128):
             return self._step(prog)
 
     m = load_model(path, device="cuda", **_load_kw(kind))
-    cp = ContextParams(n_ctx=n_ctx, n_seqs=n_seqs)
+    cp = ContextParams(n_ctx=n_ctx, n_seqs=n_seqs, kv_dtype=kv_dtype)
     return Context(m, cp), Eager(m, cp), m.vocab.tokenize(PROMPT, add_special=True)
 
 
@@ -271,6 +271,37 @@ def test_replayed_steps_equal_the_eager_step(cuda, ggufs, kind):
     assert first[0] == first[1]
     np.testing.assert_array_equal(g.decode_burst(first[0], 16), e.decode_burst(first[0], 16))
     np.testing.assert_array_equal(g._pos_host, e._pos_host)
+
+
+@pytest.mark.cuda
+def test_int8_cache_replays_equal_the_eager_step(cuda, ggufs):
+    """An int8 cache on the card: decode_batch steps, a greedy burst and a
+    seq_add between two replays give the eager step's logits and ids bit
+    for bit (the scales are allocated with the cache, so the graphs read
+    them in place), and one step launches the int8 flash_decode_batched
+    once per layer."""
+    g, e, toks = _card_pair(ggufs["q4k"], "q4k", n_seqs=2, kv_dtype=torch.int8)
+    chunks = [(0, toks), (1, toks[:3] + [70, 71])]
+    mg, me = g.decode_multi(chunks), e.decode_multi(chunks)
+    np.testing.assert_array_equal(mg[0], me[0])
+    tok = np.asarray([int(np.argmax(mg[s])) for s in (0, 1)], np.int32)
+    active = np.ones(2, bool)
+    for i in range(4):
+        if i == 2:
+            for c in (g, e):
+                c.seq_add(1, 1 << 20, 2, seq_id=0)
+        lg, le = g.decode_batch(tok, active), e.decode_batch(tok, active)
+        np.testing.assert_array_equal(lg, le)
+        tok = np.argmax(lg, axis=-1).astype(np.int32)
+    np.testing.assert_array_equal(g.decode_batch_burst(tok, active, 6),
+                                  e.decode_batch_burst(tok, active, 6))
+    # every cell but the scratch cell S - 1, which the graph's warm-up step
+    # (every lane inactive) writes and the eager Context never does
+    S = g._S
+    for a, b in zip(g.kv_k + g.kv_v, e.kv_k + e.kv_v):
+        cells = (slice(None),) * 3 + (slice(0, S - 1),)
+        assert torch.equal(a[cells], b[cells])
+    assert g._programs[(0, 2, None)].launches["flash_decode_batched_int8"] == g.hp.n_layer
 
 
 @pytest.mark.cuda

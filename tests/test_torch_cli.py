@@ -100,7 +100,7 @@ def test_cli_ported_flags_print_the_reference_text(tiny, tmp_path, capsys, flag)
     ["--control-vector", "cv.gguf"], ["--control-vector-scaled", "cv.gguf", "0.5"],
     ["--control-vector-layer-range", "1", "2"], ["--lora", "a.gguf"],
     ["--lookup-cache-static", "s.bin"],
-    ["--lookup-cache-dynamic", "d.bin"], ["--prompt-cache", "p.bin"],
+    ["--lookup-cache-dynamic", "d.bin"],
     ["--split-mode", "row"]], ids=lambda f: f[0].lstrip("-"))
 def test_cli_refuses_unported_flags_by_name(tiny, flag):
     """Each flag of a feature not ported yet raises before the model
@@ -109,6 +109,36 @@ def test_cli_refuses_unported_flags_by_name(tiny, flag):
 
     with pytest.raises(NotImplementedError, match=rf"{flag[0]}.*Queue 1 item"):
         t_main(_argv(tiny, *flag, "--device", "cpu"))
+
+
+@pytest.mark.parametrize("cache_kind", ["rw", "ro"])
+def test_cli_prompt_cache_prints_the_reference_text(tiny, tmp_path, capsys, cache_kind):
+    """--prompt-cache FILE twice, the reference CLI with its own file and the
+    port with another: the first run saves the context state, the second
+    restores it before generating and does not save again; both runs of
+    the port print the reference's text. With --prompt-cache-ro nothing is
+    written. A corrupt file warns and the run goes on as without one."""
+    from tpullama.tools.cli import main as j_main
+    from tpullama_torch.tools.cli import main as t_main
+
+    ro = ["--prompt-cache-ro"] if cache_kind == "ro" else []
+    files = {"jax": tmp_path / "j.bin", "torch": tmp_path / "t.bin"}
+    outs = {}
+    for name, main, extra in (("jax", j_main, []), ("torch", t_main, ["--device", "cpu"])):
+        argv = _argv(tiny, "--temp", "0", "--prompt-cache", str(files[name]), *ro, *extra)
+        outs[name] = [_run(main, argv, capsys) for _ in range(2)]
+        if ro:
+            assert not files[name].exists()
+    assert outs["torch"] == outs["jax"]
+    assert all(rc == 0 for rc, _out in outs["torch"])
+    if not ro:
+        assert files["torch"].read_bytes()[:4] == b"TPSN"
+        # the second run restored: it saw a longer context, so other text
+        assert outs["torch"][0][1] != outs["torch"][1][1]
+        files["torch"].write_bytes(b"NOPE")
+        rc, out = _run(t_main, _argv(tiny, "--temp", "0", "--prompt-cache",
+                                     str(files["torch"]), "--device", "cpu"), capsys)
+        assert rc == 0 and out == outs["torch"][0][1]
 
 
 def test_cli_list_devices(capsys):

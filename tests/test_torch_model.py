@@ -550,8 +550,9 @@ def test_model_options_read_env_once(glm_small, monkeypatch):
 
 def test_make_context_and_its_refusals(ggufs):
     """make_context (the JAX package's factory) gives an attention model the
-    KV-cache Context and refuses, by name, a multi-device mode and the
-    int8 KV cache, neither ported yet."""
+    KV-cache Context (with kv_dtype=torch.int8 the int8 cache's values and
+    scales) and refuses, by name, a multi-device mode, not ported yet, and
+    a cache type that is neither a float nor int8."""
     import torch
 
     from tpullama_torch.runtime import Context, ContextParams, make_context
@@ -562,8 +563,10 @@ def test_make_context_and_its_refusals(ggufs):
     for mode in ("tp", "pp"):
         with pytest.raises(NotImplementedError, match=rf"parallel='{mode}'.*Queue 1 item 10"):
             make_context(m, ContextParams(n_ctx=64, parallel=mode))
-    with pytest.raises(NotImplementedError, match="int8 KV cache.*Queue 1 item 4"):
-        make_context(m, ContextParams(n_ctx=64, kv_dtype=torch.int8))
+    c8 = make_context(m, ContextParams(n_ctx=64, kv_dtype=torch.int8))
+    assert [t.dtype for t in c8.kv_k + c8.kv_v] == [torch.int8, torch.float32] * 2
+    with pytest.raises(ValueError, match="kv_dtype torch.int16"):
+        make_context(m, ContextParams(n_ctx=64, kv_dtype=torch.int16))
 
 
 # ----------------------------------------- every GGUF type the loaders read

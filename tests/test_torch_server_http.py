@@ -6,8 +6,10 @@ list and Prometheus counter must be equal once the request ids,
 `created` stamps, timings and rates are dropped. Grammar-constrained
 bodies ("grammar", "json_schema", "response_format"), /v1/embeddings and
 a server with a draft model (serve(draft_model=)) answer as the JAX
-package's do. Features the port has not ported yet answer a 501 JSON
-error that names them; the slot erase action, which the port has, works.
+package's do, and so does a slot save / erase / restore session on
+servers started with a slot save path (without one, save and restore
+answer the JAX package's 501). Features the port has not ported yet answer
+a 501 JSON error that names them.
 
 Tolerance: none for text. Bodies carry decoded tokens, which both sides
 pick from f32 logits that agree to ~1e-6 (tests/test_torch_model.py):
@@ -59,8 +61,6 @@ SESSION = [
 # the error)
 REFUSED = [
     ("/rerank", {"query": "q", "documents": ["a"]}, "/rerank"),
-    ("/slots/0?action=save", {"filename": "s.bin"}, "slot save"),
-    ("/slots/0?action=restore", {"filename": "s.bin"}, "slot restore"),
     ("/lora-adapters", [{"id": 0, "scale": 1.0}], "LoRA"),
     ("/v1/chat/completions",
      {"messages": [{"role": "user", "content": [
@@ -200,6 +200,75 @@ def test_ported_bodies_equal_the_reference(servers, case):
         text = parsed["choices"][0]["message"]["content"]
     assert text
     _make_grammar(body, None).accept_str(text)  # raises on a refused character
+
+
+@pytest.mark.parametrize("action", ["save", "restore"])
+def test_slot_action_without_save_path_answers_the_reference(servers, action):
+    """Without a slot save path both servers refuse save and restore with
+    the same 501 body."""
+    path, body = f"/slots/0?action={action}", {"filename": "s.bin"}
+    got = {k: _request(servers[k], "POST", path, body) for k in ("jax", "torch")}
+    assert got["torch"] == got["jax"] and got["torch"][0] == 501
+
+
+SLOT_SESSION = [
+    ("POST", "/completion", {"prompt": "Once upon a time", "n_predict": 8, "temperature": 0}),
+    ("POST", "/slots/0?action=save", {"filename": "slot0.bin"}),
+    ("POST", "/slots/0?action=erase", {}),
+    ("GET", "/slots", None),
+    ("POST", "/slots/0?action=restore", {"filename": "slot0.bin"}),
+    ("GET", "/slots", None),
+    ("POST", "/completion", {"prompt": "Once upon a time", "n_predict": 8, "temperature": 0}),
+    ("POST", "/slots/1?action=restore", {"filename": "slot0.bin"}),
+    ("POST", "/completion", {"prompt": "Once upon a time, far", "n_predict": 6,
+                             "temperature": 0}),
+    ("POST", "/slots/0?action=save", {"filename": "../escape.bin"}),
+    ("POST", "/slots/0?action=save", {}),
+    ("POST", "/slots/9?action=save", {"filename": "x.bin"}),
+]
+
+
+def test_slot_save_restore_session_equals_the_reference(tmp_path):
+    """Both servers with a slot save path of their own: a completion, save
+    slot 0, erase it, restore it (n_restored equal to n_saved), and the
+    same completion again gives the same text; a restore into another
+    slot; refused file names and slot ids. Equal statuses and bodies
+    (timings dropped); a missing file fails on both with a 400."""
+    from tpullama.models import load_model as j_load
+    from tpullama.server.http import serve as j_serve
+    from tpullama_torch.models import load_model as t_load
+    from tpullama_torch.server.http import serve as t_serve
+
+    p = str(tmp_path / "m.gguf")
+    make_tiny_llama_gguf(p, n_layer=2, seed=7)
+    bases, httpds = {}, []
+    try:
+        for name, load, serve, kw in (("jax", j_load, j_serve, {}),
+                                      ("torch", t_load, t_serve, {"device": "cpu"})):
+            d = tmp_path / name
+            d.mkdir()
+            httpd = serve(load(p, **kw), port=0, n_slots=2, n_ctx=128, block=False,
+                          slot_save_path=str(d))
+            httpds.append(httpd)
+            bases[name] = f"http://127.0.0.1:{httpd.server_address[1]}"
+        bodies = []
+        for m, path, body in SLOT_SESSION:
+            got = {k: _request(b, m, path, body) for k, b in bases.items()}
+            assert got["torch"][:2] == got["jax"][:2], path
+            assert _parsed(*got["torch"][1:]) == _parsed(*got["jax"][1:]), path
+            bodies.append(json.loads(got["torch"][2]))
+        assert (tmp_path / "torch" / "slot0.bin").read_bytes()[:4] == b"TPSQ"
+        assert bodies[1]["n_saved"] == bodies[4]["n_restored"] > 0
+        assert bodies[1]["filename"] == "slot0.bin" and "save_ms" in bodies[1]["timings"]
+        assert bodies[6]["content"] == bodies[0]["content"]
+        codes = {k: _request(b, "POST", "/slots/0?action=restore",
+                             {"filename": "missing.bin"})[0] for k, b in bases.items()}
+        assert codes == {"jax": 400, "torch": 400}
+    finally:
+        for httpd in httpds:
+            httpd.shutdown()
+            httpd.engine.stop()
+            httpd.server_close()
 
 
 @pytest.mark.parametrize("path,body,name", REFUSED, ids=[r[2] for r in REFUSED])

@@ -23,6 +23,14 @@
 //     would keep 8).
 //   FMA (any f32 operand): the same layout computed by f32 FMAs from f32
 //     tiles in shared memory, P through a per-warp shared buffer.
+// An int8 cache (the JAX package's kv_dtype=int8) runs either route: bf16
+// q takes MMA, its K/V bytes staged raw by cp.async and converted once per
+// tile into the bf16 tile (stage_kv_i8, convert_i8; int8 values are exact
+// in bf16), f32 q takes FMA, whose plain loads convert them to f32. Its
+// per-(head, token) f32 scales apply as the TPU kernels apply them: K's
+// multiplies a score after the scale and before softcap, mask and ALiBi
+// (mask_scores), V's multiplies a probability after the row sum took it
+// (scale_probs), before P V.
 // Scale, logit softcap, mask, ALiBi and the online softmax stay in
 // registers (quad shuffles for the row max; each thread keeps a partial
 // row sum, reduced once at the end). The softmax runs in base 2: logits are
@@ -37,6 +45,7 @@
 
 #pragma once
 
+#include <cstdint>
 #include <type_traits>
 
 #include "qmm_mma.cuh"
@@ -57,6 +66,7 @@ constexpr int CELLS = 64;           // key cells per tile (prefill) or chunk (de
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(int8_t v) { return (float)v; }
 
 // two neighbouring outputs
 __device__ __forceinline__ void store2(float* p, float a, float b) {
@@ -207,6 +217,82 @@ __device__ __forceinline__ void copy_kv(typename Tile<MMA, D>::E* ks, typename T
   }
 }
 
+// MMA route over an int8 cache: cells [s0, s0 + CELLS) of one kv head's
+// int8 rows (src: the head's first row, rows of Dr bytes) into raw rows of
+// D bytes (dst) by the block's threads, V bytes a copy: 16 (16-byte
+// cp.async: rows of whole 16-byte pieces from a 16-byte aligned head), 4
+// (4-byte cp.async) or 1 (plain loads, for a head dim no multiple of 4);
+// cells at or past S and columns at or past Dr come as zeros. Committed
+// by the caller.
+template <int V, int D>
+__device__ __noinline__ void stage_i8_rows(int8_t* dst, const int8_t* src, int s0, int S,
+                                           int Dr) {
+  constexpr int PER = D / V;  // copies per raw row
+  for (int i = threadIdx.x; i < CELLS * PER; i += THREADS) {
+    const int cell = i / PER, d = V * (i % PER);
+    const bool ok = s0 + cell < S && d < Dr;
+    const int8_t* from = src + (ok ? (size_t)(s0 + cell) * Dr + d : 0);
+    int8_t* to = dst + cell * D + d;
+    if constexpr (V == 16) cp_async_cg(to, from, ok);
+    else if constexpr (V == 4) cp_async4(to, from, ok);
+    else *to = ok ? *from : (int8_t)0;
+  }
+}
+
+// The int8 K and V rows of cells [s0, s0 + CELLS) (kh, vh: the head's
+// first rows) into raw rows rk, rv: a head dim that fills the instance
+// from 16-byte aligned heads (the served widths) in one loop of 16-byte
+// copies over both tensors, any other through stage_i8_rows at the widest
+// copy its rows and heads keep aligned.
+template <int D>
+__device__ __forceinline__ void stage_kv_i8(int8_t* rk, int8_t* rv, const int8_t* kh,
+                                            const int8_t* vh, int s0, int S, int Dr) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(kh) | reinterpret_cast<uintptr_t>(vh);
+  if (Dr == D && a % 16 == 0) {
+    constexpr int PER = D / 16;
+    for (int i = threadIdx.x; i < CELLS * PER; i += THREADS) {
+      const int cell = i / PER, d = 16 * (i % PER);
+      const bool ok = s0 + cell < S;
+      const size_t src = (size_t)(ok ? s0 + cell : 0) * D + d;
+      cp_async_cg(rk + cell * D + d, kh + src, ok);
+      cp_async_cg(rv + cell * D + d, vh + src, ok);
+    }
+    return;
+  }
+  if (Dr % 16 == 0 && a % 16 == 0) {
+    stage_i8_rows<16, D>(rk, kh, s0, S, Dr);
+    stage_i8_rows<16, D>(rv, vh, s0, S, Dr);
+  } else if (Dr % 4 == 0 && a % 4 == 0) {
+    stage_i8_rows<4, D>(rk, kh, s0, S, Dr);
+    stage_i8_rows<4, D>(rv, vh, s0, S, Dr);
+  } else {
+    stage_i8_rows<1, D>(rk, kh, s0, S, Dr);
+    stage_i8_rows<1, D>(rv, vh, s0, S, Dr);
+  }
+}
+
+// two neighbouring int8 values (bytes sh / 8 and sh / 8 + 1 of w) as a bf16
+// pair, low half the first: exact
+__device__ __forceinline__ uint32_t i8_pair(uint32_t w, int sh) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn((float)(int8_t)(w >> sh),
+                                                 (float)(int8_t)(w >> (sh + 8)));
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The raw int8 rows of a tile (rows of D bytes) into the MMA route's bf16
+// tile (swizzled 16-byte pieces) by the block's threads: 8 values a piece.
+template <int D>
+__device__ __forceinline__ void convert_i8(__nv_bfloat16* dst, const int8_t* raw) {
+  constexpr int PER = D / 8;
+  for (int i = threadIdx.x; i < CELLS * PER; i += THREADS) {
+    const int cell = i / PER, c = i % PER;
+    const uint2 w = *reinterpret_cast<const uint2*>(raw + cell * D + 8 * c);
+    const uint4 o = make_uint4(i8_pair(w.x, 0), i8_pair(w.x, 16), i8_pair(w.y, 0),
+                               i8_pair(w.y, 16));
+    *reinterpret_cast<uint4*>(dst + piece<D>(cell, c)) = o;
+  }
+}
+
 // This thread's two query rows (h = 0: g, h = 1: g + 8 of the m16 tile).
 struct Rows {
   int pos[2];  // query position, -1 past the last row
@@ -247,15 +333,16 @@ __device__ __forceinline__ bool any_visible(const float* __restrict__ mask_b, in
   return vis;
 }
 
-// Raw scores -> logits in base 2: scale, softcap, then the mask value
+// Raw scores -> logits in base 2: scale, K's int8 scale (ksc: the run's
+// first cell's, null for a float cache), softcap, then the mask value
 // (times the row's ALiBi slope) where visible, all times log2(e); NEG_INF
 // where hidden. mr[i]: row i's
 // mask values from this run's first cell (shared or global memory), null
 // past the last row; n: the run's cells before the cache ends.
 template <int NT>
 __device__ __forceinline__ void mask_scores(float (&s)[NT][4], const float* const (&mr)[2],
-                                            int n, const Rows& rw, int tig, float scale,
-                                            float softcap, bool alibi) {
+                                            const float* ksc, int n, const Rows& rw, int tig,
+                                            float scale, float softcap, bool alibi) {
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -263,6 +350,7 @@ __device__ __forceinline__ void mask_scores(float (&s)[NT][4], const float* cons
       const int i = e >> 1, cell = 8 * j + 2 * tig + (e & 1);
       const float mk = mr[i] && cell < n ? mr[i][cell] : NEG_INF;
       float v = s[j][e] * scale;
+      if (ksc && cell < n) v *= ksc[cell];
       if (softcap > 0.f) v = softcap * tanhf(v / softcap);
       s[j][e] = mk > NEG_HALF ? (v + (alibi ? mk * rw.slope[i] : mk)) * LOG2E : NEG_INF;
     }
@@ -295,6 +383,21 @@ __device__ __forceinline__ void softmax_run(float (&s)[NT][4], float (&m)[2], fl
       }
     l[i] = l[i] * alpha[i] + sum;
   }
+}
+
+// int8 cache: V's scales into the probabilities of this run (vsc: the
+// run's first cell's scale, n: its cells before the cache ends), after
+// softmax_run's row sums took them unscaled
+template <int NT>
+__device__ __forceinline__ void scale_probs(float (&p)[NT][4], const float* vsc, int n,
+                                            int tig) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int cell = 8 * j + 2 * tig + (e & 1);
+      if (cell < n) p[j][e] *= vsc[cell];
+    }
 }
 
 template <int D>

@@ -40,6 +40,14 @@
 // the FMA route runs K and then V through one f32 tile, since two
 // buffers of K and V tiles of 256 f32 columns would not fit shared memory.
 //
+// An int8 cache (the TPU kernel's has_kv_scale branches, :85-86 and
+// :106-108) takes the same two routes. MMA stages each visible tile's raw
+// K/V bytes by cp.async, double-buffered like the bf16 tiles, and converts
+// them into one pair of bf16 tiles when the tile is due (exact); FMA loads
+// and converts them as it does f32 or bf16 rows. Each tile's 64 K and 64
+// V scales ride with its mask rows (16-byte copies where the scale rows
+// start 16-byte aligned, else 4-byte ones).
+//
 // Semantics follow the TPU kernel: scale, logit softcap, ALiBi slopes
 // multiplying visible mask values, sink logits in the final normalisation,
 // f32 online softmax, and finite zeros for rows the mask hides entirely
@@ -59,39 +67,48 @@ constexpr int NT = CELLS / 8;  // n8 tiles of a key tile per warp
 inline int fa_mask_rows(int G) { return G == 1 ? ROWS : (ROWS - 1) / G + 2; }
 
 // Dynamic shared memory: two buffers of the K/V tiles (FMA at D = 256:
-// one tile, K then V), then two buffers of the key tile's mask rows (mp
-// rows of CELLS f32) and the visible key tiles' flags and list (n_tiles
-// bytes and ints); MMA at D = 256 adds the block's bf16 q rows, FMA its
-// f32 q rows and each warp's P buffer.
-template <bool MMA, int D>
+// one tile, K then V; MMA over int8: one pair of tiles, then two buffers
+// of the raw K and V bytes), then two buffers of the key tile's mask rows
+// (mp rows of CELLS f32), an int8 cache's two buffers of its K and V
+// scales (CELLS f32 each) and the visible key tiles' flags and list
+// (n_tiles bytes and ints); MMA at D = 256 adds the block's bf16 q rows,
+// FMA its f32 q rows and each warp's P buffer.
+template <bool MMA, int D, bool RAW>
 __host__ __device__ constexpr int fa_fixed_smem() {
-  return (!MMA && D > 128 ? 1 : 4) * Tile<MMA, D>::BYTES + (MMA && D > 128 ? ROWS * D * 2 : 0) +
+  return (!MMA && D > 128 ? 1 : RAW ? 2 : 4) * Tile<MMA, D>::BYTES + (RAW ? 4 * CELLS * D : 0) +
+         (MMA && D > 128 ? ROWS * D * 2 : 0) +
          (MMA ? 0 : (ROWS * Tile<false, D>::LD + 4 * 16 * (8 * NT + 4)) * (int)sizeof(float));
 }
-inline size_t fa_smem(int fixed, int mp, int n_tiles) {
-  return (size_t)fixed + 2 * (size_t)mp * CELLS * sizeof(float) + (size_t)n_tiles * 5 + 16;
+inline size_t fa_smem(int fixed, int mp, int n_tiles, bool scaled) {
+  return (size_t)fixed + 2 * (size_t)mp * CELLS * sizeof(float) +
+         (scaled ? 4 * CELLS * sizeof(float) : 0) + (size_t)n_tiles * 5 + 16;
 }
 
 template <bool MMA, typename QT, typename KVT, int D>
 __global__ void __launch_bounds__(THREADS) fa_kernel(
     const QT* __restrict__ q, const KVT* __restrict__ k, const KVT* __restrict__ v,
     const float* __restrict__ mask, const float* __restrict__ slopes,
-    const float* __restrict__ sinks, QT* __restrict__ out, int Tq, int Hq, int Hkv, int S,
+    const float* __restrict__ sinks, const float* __restrict__ ksc,
+    const float* __restrict__ vsc, QT* __restrict__ out, int Tq, int Hq, int Hkv, int S,
     float scale, float softcap, int mp, int Dr) {
   using TL = Tile<MMA, D>;
   using E = typename TL::E;
   constexpr int TILE = TL::BYTES / (int)sizeof(E);
   constexpr bool QS = MMA && D > 128;   // q fragments from shared memory
   constexpr bool ONE = !MMA && D > 128;  // one K-then-V tile
+  constexpr bool SC = std::is_same<KVT, int8_t>::value;  // int8 cache: scales
+  constexpr bool RAW = MMA && SC;  // its raw bytes staged, converted per tile
   extern __shared__ __align__(16) char smem[];
-  E* kv_s = reinterpret_cast<E*>(smem);  // [buffer][K, V] tiles; ONE: one tile
-  char* after = smem + (ONE ? 1 : 4) * TL::BYTES;
+  E* kv_s = reinterpret_cast<E*>(smem);  // [buffer][K, V] tiles; ONE: one tile; RAW: [K, V]
+  int8_t* raw = reinterpret_cast<int8_t*>(smem + (RAW ? 2 : 0) * TL::BYTES);  // [buffer][K, V]
+  char* after = smem + (ONE ? 1 : RAW ? 2 : 4) * TL::BYTES + (RAW ? 4 * CELLS * D : 0);
   __nv_bfloat16* qb = reinterpret_cast<__nv_bfloat16*>(after);  // QS: [ROWS][D], swizzled
   float* qs = reinterpret_cast<float*>(after);                  // FMA: [ROWS][D + 4]
   float* ps = qs + ROWS * Tile<false, D>::LD;                    // FMA: [warp][16][8 NT + 4]
-  float* ms = reinterpret_cast<float*>(smem + fa_fixed_smem<MMA, D>());  // [buffer][mp][CELLS]
+  float* ms = reinterpret_cast<float*>(smem + fa_fixed_smem<MMA, D, RAW>());  // [buffer][mp][CELLS]
+  float* scs = ms + 2 * mp * CELLS;  // SC: [buffer][K, V][CELLS]
   const int n_tiles = (S + CELLS - 1) / CELLS;
-  int* list = reinterpret_cast<int*>(ms + 2 * mp * CELLS);  // visible key tiles, in order
+  int* list = reinterpret_cast<int*>(scs + (SC ? 4 * CELLS : 0));  // visible key tiles, in order
   unsigned char* flag = reinterpret_cast<unsigned char*>(list + n_tiles);
   __shared__ int n_vis, warp_n[4];
 
@@ -107,6 +124,12 @@ __global__ void __launch_bounds__(THREADS) fa_kernel(
   const float* mask_p = mask + ((size_t)b * Tq + p0) * S;
   const KVT* kh = k + ((size_t)b * Hkv + h) * S * Dr;
   const KVT* vh = v + ((size_t)b * Hkv + h) * S * Dr;
+  // SC: the head's K and V scale rows, copied 16 bytes at a time when both
+  // start 16-byte aligned (S % 4 == 0 in the Context's caches)
+  const float* ksh = SC ? ksc + ((size_t)b * Hkv + h) * S : nullptr;
+  const float* vsh = SC ? vsc + ((size_t)b * Hkv + h) * S : nullptr;
+  const bool sc16 = SC && S % 4 == 0 &&
+      ((reinterpret_cast<uintptr_t>(ksh) | reinterpret_cast<uintptr_t>(vsh)) & 15) == 0;
   auto q_row = [&](int i) {
     return rw.pos[i] < 0 ? nullptr : q + (((size_t)b * Tq + rw.pos[i]) * Hq + rw.hq[i]) * Dr;
   };
@@ -186,11 +209,32 @@ __global__ void __launch_bounds__(THREADS) fa_kernel(
     for (int e = 0; e < 4; ++e) o[dn][e] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 
-  // key tile t's mask rows and (but ONE) K and V into buffer buf
+  // key tile t's mask rows, scales (SC) and (but ONE) K and V (RAW: their
+  // raw bytes) into buffer buf
   auto copy = [&](int t, int buf) {
-    if constexpr (!ONE)
+    if constexpr (RAW)
+      stage_kv_i8<D>(raw + (2 * buf) * CELLS * D, raw + (2 * buf + 1) * CELLS * D,
+                     reinterpret_cast<const int8_t*>(kh), reinterpret_cast<const int8_t*>(vh),
+                     CELLS * t, S, Dr);
+    else if constexpr (!ONE)
       copy_kv<MMA, D, KVT>(kv_s + (2 * buf) * TILE, kv_s + (2 * buf + 1) * TILE, kh, vh,
                            CELLS * t, S, Dr);
+    if constexpr (SC) {
+      float* sb = scs + buf * 2 * CELLS;
+      if (sc16) {
+        for (int i = 4 * tid; i < 2 * CELLS; i += 4 * THREADS) {
+          const int cell = CELLS * t + i % CELLS;
+          const bool ok = cell < S;
+          cp_async_cg(sb + i, (i < CELLS ? ksh : vsh) + (ok ? cell : 0), ok);
+        }
+      } else {
+        for (int i = tid; i < 2 * CELLS; i += THREADS) {
+          const int cell = CELLS * t + i % CELLS;
+          const bool ok = cell < S;
+          cp_async4(sb + i, (i < CELLS ? ksh : vsh) + (ok ? cell : 0), ok);
+        }
+      }
+    }
     float* mb = ms + buf * mp * CELLS;
     if (S % 4 == 0) {  // 16-byte runs
       for (int i = 4 * tid; i < np * CELLS; i += 4 * THREADS) {
@@ -214,10 +258,16 @@ __global__ void __launch_bounds__(THREADS) fa_kernel(
     else cp_async_commit();
     cp_async_wait<1>();  // tile it's copies
     __syncthreads();
+    if constexpr (RAW) {
+      convert_i8<D>(kv_s, raw + (2 * buf) * CELLS * D);
+      convert_i8<D>(kv_s + TILE, raw + (2 * buf + 1) * CELLS * D);
+      __syncthreads();
+    }
     const int t = list[it];
-    const E* ks = kv_s + (ONE ? 0 : 2 * buf) * TILE;
-    const E* vs = kv_s + (ONE ? 0 : 2 * buf + 1) * TILE;
+    const E* ks = kv_s + (ONE || RAW ? 0 : 2 * buf) * TILE;
+    const E* vs = kv_s + (ONE ? 0 : RAW ? 1 : 2 * buf + 1) * TILE;
     const float* mb = ms + buf * mp * CELLS;
+    const float* sb = SC ? scs + buf * 2 * CELLS : nullptr;  // K, then V scales
     const float* const mr[2] = {rw.pos[0] < 0 ? nullptr : mb + (rw.pos[0] - p0) * CELLS,
                                 rw.pos[1] < 0 ? nullptr : mb + (rw.pos[1] - p0) * CELLS};
     float s[NT][4], alpha[2];
@@ -227,8 +277,9 @@ __global__ void __launch_bounds__(THREADS) fa_kernel(
     }
     if constexpr (MMA) qk_mma<D, NT>(s, afrag, ks, 0, lane);
     else qk_fma<D, NT>(s, qs + 16 * warp * Tile<false, D>::LD, ks, 0, g, tig);
-    mask_scores<NT>(s, mr, S - CELLS * t, rw, tig, scale, softcap, slopes != nullptr);
+    mask_scores<NT>(s, mr, sb, S - CELLS * t, rw, tig, scale, softcap, slopes != nullptr);
     softmax_run<NT>(s, m, l, alpha);
+    if constexpr (SC) scale_probs<NT>(s, sb + CELLS, S - CELLS * t, tig);
     rescale<D>(o, alpha);
     if constexpr (ONE) {
       __syncthreads();  // every warp is done with K
@@ -255,11 +306,13 @@ __global__ void __launch_bounds__(THREADS) fa_kernel(
 
 template <bool MMA, typename QT, typename KVT, int D>
 int launch(const void* q, const void* k, const void* v, const float* mask,
-           const float* slopes, const float* sinks, void* out, int B, int Tq,
-           int Hq, int Hkv, int S, int Dr, float scale, float softcap, cudaStream_t st) {
-  constexpr int fixed = fa_fixed_smem<MMA, D>();
+           const float* slopes, const float* sinks, const float* ksc, const float* vsc,
+           void* out, int B, int Tq, int Hq, int Hkv, int S, int Dr, float scale,
+           float softcap, cudaStream_t st) {
+  constexpr bool SC = std::is_same<KVT, int8_t>::value;
+  constexpr int fixed = fa_fixed_smem<MMA, D, MMA && SC>();
   const int G = Hq / Hkv, mp = fa_mask_rows(G), n_tiles = (S + CELLS - 1) / CELLS;
-  const size_t smem = fa_smem(fixed, mp, n_tiles);
+  const size_t smem = fa_smem(fixed, mp, n_tiles, SC);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;  // S too long for the tile list
   auto kern = fa_kernel<MMA, QT, KVT, D>;
   // the instance's largest request, raised (a driver call) only when a
@@ -274,42 +327,68 @@ int launch(const void* q, const void* k, const void* v, const float* mask,
   const int R = Tq * G;
   kern<<<dim3((R + ROWS - 1) / ROWS, Hkv, B), THREADS, smem, st>>>(
       static_cast<const QT*>(q), static_cast<const KVT*>(k), static_cast<const KVT*>(v), mask,
-      slopes, sinks, static_cast<QT*>(out), Tq, Hq, Hkv, S, scale, softcap, mp, Dr);
+      slopes, sinks, ksc, vsc, static_cast<QT*>(out), Tq, Hq, Hkv, S, scale, softcap, mp, Dr);
   return (int)cudaGetLastError();
 }
 
 // the instance of the padded width that holds head dim D
 template <bool MMA, typename QT, typename KVT>
 int pick_d(int D, const void* q, const void* k, const void* v, const float* mask,
-           const float* slopes, const float* sinks, void* out, int B, int Tq,
-           int Hq, int Hkv, int S, float scale, float softcap, cudaStream_t st) {
+           const float* slopes, const float* sinks, const float* ksc, const float* vsc,
+           void* out, int B, int Tq, int Hq, int Hkv, int S, float scale, float softcap,
+           cudaStream_t st) {
   if (D >= 1 && D <= 64)
-    return launch<MMA, QT, KVT, 64>(q, k, v, mask, slopes, sinks, out, B, Tq, Hq, Hkv, S, D, scale, softcap, st);
+    return launch<MMA, QT, KVT, 64>(q, k, v, mask, slopes, sinks, ksc, vsc, out, B, Tq, Hq, Hkv, S, D, scale, softcap, st);
   if (D > 64 && D <= 128)
-    return launch<MMA, QT, KVT, 128>(q, k, v, mask, slopes, sinks, out, B, Tq, Hq, Hkv, S, D, scale, softcap, st);
+    return launch<MMA, QT, KVT, 128>(q, k, v, mask, slopes, sinks, ksc, vsc, out, B, Tq, Hq, Hkv, S, D, scale, softcap, st);
   if (D > 128 && D <= 256)
-    return launch<MMA, QT, KVT, 256>(q, k, v, mask, slopes, sinks, out, B, Tq, Hq, Hkv, S, D, scale, softcap, st);
+    return launch<MMA, QT, KVT, 256>(q, k, v, mask, slopes, sinks, ksc, vsc, out, B, Tq, Hq, Hkv, S, D, scale, softcap, st);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// The int8 cache's instances (kv_type 2) build in their own translation unit,
+// flash_attention_int8.cu, which includes this file with TPL_ATTN_INT8 set,
+// so that the two halves compile in parallel (build.py)
+int fa_int8(int q_bf16, int D, const void* q, const void* k, const void* v, const float* mask,
+            const float* slopes, const float* sinks, const float* ksc, const float* vsc,
+            void* out, int B, int Tq, int Hq, int Hkv, int S, float scale, float softcap,
+            cudaStream_t st);
+
+#ifdef TPL_ATTN_INT8
+int fa_int8(int q_bf16, int D, const void* q, const void* k, const void* v, const float* mask,
+            const float* slopes, const float* sinks, const float* ksc, const float* vsc,
+            void* out, int B, int Tq, int Hq, int Hkv, int S, float scale, float softcap,
+            cudaStream_t st) {
+  if (q_bf16)
+    return pick_d<true, __nv_bfloat16, int8_t>(D, q, k, v, mask, slopes, sinks, ksc, vsc, out, B, Tq, Hq, Hkv, S, scale, softcap, st);
+  return pick_d<false, float, int8_t>(D, q, k, v, mask, slopes, sinks, ksc, vsc, out, B, Tq, Hq, Hkv, S, scale, softcap, st);
+}
+#else
 // q: (B, Tq, Hq, D); k, v: (B, Hkv, S, D); mask: (B, Tq, S) f32 additive;
-// slopes, sinks: (Hq,) f32 or null; out: (B, Tq, Hq, D) in q's type.
-// Requires Hq % Hkv == 0 and 1 <= D <= 256 (the wrapper checks). bf16 q, k
-// and v run the tensor-core route, any f32 operand the FMA route.
-extern "C" int tpl_flash_attention(int q_bf16, int kv_bf16, const void* q,
+// slopes, sinks: (Hq,) f32 or null; ksc, vsc: an int8 cache's (B, Hkv, S)
+// f32 scales (null for a float cache); out: (B, Tq, Hq, D) in q's type.
+// Requires Hq % Hkv == 0 and 1 <= D <= 256 (the wrapper checks). kv_type:
+// 0 f32, 1 bf16, 2 int8. bf16 q over bf16 or int8 K/V runs the tensor-core
+// route, any f32 operand the FMA route.
+extern "C" int tpl_flash_attention(int q_bf16, int kv_type, const void* q,
                                    const void* k, const void* v, const float* mask,
                                    const float* slopes, const float* sinks,
+                                   const float* ksc, const float* vsc,
                                    void* out, int B, int Tq, int Hq, int Hkv, int S,
                                    int D, float scale, float softcap, void* stream) {
   using bf = __nv_bfloat16;
   auto st = static_cast<cudaStream_t>(stream);
-  if (Hkv <= 0 || Hq % Hkv) return (int)cudaErrorInvalidValue;
+  if (Hkv <= 0 || Hq % Hkv || kv_type < 0 || kv_type > 2) return (int)cudaErrorInvalidValue;
+  if ((kv_type == 2) != (ksc != nullptr && vsc != nullptr)) return (int)cudaErrorInvalidValue;
+  if (kv_type == 2)
+    return fa_int8(q_bf16, D, q, k, v, mask, slopes, sinks, ksc, vsc, out, B, Tq, Hq, Hkv, S, scale, softcap, st);
   if (q_bf16) {
-    if (kv_bf16) return pick_d<true, bf, bf>(D, q, k, v, mask, slopes, sinks, out, B, Tq, Hq, Hkv, S, scale, softcap, st);
-    return pick_d<false, bf, float>(D, q, k, v, mask, slopes, sinks, out, B, Tq, Hq, Hkv, S, scale, softcap, st);
+    if (kv_type == 1) return pick_d<true, bf, bf>(D, q, k, v, mask, slopes, sinks, ksc, vsc, out, B, Tq, Hq, Hkv, S, scale, softcap, st);
+    return pick_d<false, bf, float>(D, q, k, v, mask, slopes, sinks, ksc, vsc, out, B, Tq, Hq, Hkv, S, scale, softcap, st);
   }
-  if (kv_bf16) return pick_d<false, float, bf>(D, q, k, v, mask, slopes, sinks, out, B, Tq, Hq, Hkv, S, scale, softcap, st);
-  return pick_d<false, float, float>(D, q, k, v, mask, slopes, sinks, out, B, Tq, Hq, Hkv, S, scale, softcap, st);
+  if (kv_type == 1) return pick_d<false, float, bf>(D, q, k, v, mask, slopes, sinks, ksc, vsc, out, B, Tq, Hq, Hkv, S, scale, softcap, st);
+  return pick_d<false, float, float>(D, q, k, v, mask, slopes, sinks, ksc, vsc, out, B, Tq, Hq, Hkv, S, scale, softcap, st);
 }
+#endif

@@ -41,6 +41,13 @@
 // of DP = Dr rounded up to 4 values, so the merge reads them 16 bytes at a
 // time.
 //
+// An int8 cache (the TPU kernels' has_kv_scale branches, flash_decode.py
+// :98, :116, :179, :198) takes the same two routes: MMA stages the chunk's
+// raw K/V bytes by cp.async beside the tiles and converts them into the
+// bf16 tiles (exact); FMA loads and converts them as it does f32 or bf16
+// rows. Each warp reads its 16 cells' K and V scales from device memory
+// beside their mask values. Partials, merge and tickets are unchanged.
+//
 // Semantics follow the TPU kernel: additive f32 mask (<= -1e30 hidden),
 // logit softcap, ALiBi slopes multiplying the visible mask values, sink
 // logits in the final normalisation, and finite zeros for rows whose mask
@@ -55,25 +62,30 @@ using namespace tpl_attn;
 constexpr int NT = 2;  // n8 tiles of cells per warp: 16 of the chunk's 64
 
 // dynamic shared memory: the chunk's K and V tiles (reused for the warps'
-// partials, WO floats); FMA adds the 16 f32 q rows and each warp's P buffer
-template <bool MMA, int D>
+// partials, WO floats); FMA adds the 16 f32 q rows and each warp's P
+// buffer, MMA over int8 the chunk's raw K and V bytes (RAW)
+template <bool MMA, int D, bool RAW = false>
 struct FdSmem {
   static constexpr int WO = 4 * 16 * D + 2 * 4 * 16;  // [warp][row][D] o, then m and l
   static constexpr int KV = 2 * Tile<MMA, D>::BYTES;
   static constexpr int BASE = KV > WO * 4 ? KV : WO * 4;
   static constexpr int BYTES =
-      BASE + (MMA ? 0 : (16 * Tile<false, D>::LD + 4 * 16 * (8 * NT + 4)) * (int)sizeof(float));
+      BASE + (MMA ? 0 : (16 * Tile<false, D>::LD + 4 * 16 * (8 * NT + 4)) * (int)sizeof(float)) +
+      (RAW ? 2 * CELLS * D : 0);
 };
 
 template <bool MMA, typename QT, typename KVT, int D>
 __global__ void __launch_bounds__(THREADS) fd_kernel(
     const QT* __restrict__ q, const KVT* __restrict__ k, const KVT* __restrict__ v,
     const float* __restrict__ mask, const float* __restrict__ slopes,
-    const float* __restrict__ sinks, float* __restrict__ part_o, float* __restrict__ part_ml,
+    const float* __restrict__ sinks, const float* __restrict__ ksc,
+    const float* __restrict__ vsc, float* __restrict__ part_o, float* __restrict__ part_ml,
     int* __restrict__ tickets, QT* __restrict__ out, int Tq, int Hq, int Hkv, int S,
     float scale, float softcap, int Dr) {
+  constexpr bool SC = std::is_same<KVT, int8_t>::value;  // int8 cache: scales
+  constexpr bool RAW = MMA && SC;  // its raw bytes staged, then converted
   using TL = Tile<MMA, D>;
-  using SM = FdSmem<MMA, D>;
+  using SM = FdSmem<MMA, D, RAW>;
   using E = typename TL::E;
   extern __shared__ __align__(16) char smem[];
   E* ks = reinterpret_cast<E*>(smem);
@@ -82,6 +94,7 @@ __global__ void __launch_bounds__(THREADS) fd_kernel(
   float* wm = wo + 4 * 16 * D;                 // [warp][16] row max, then [warp][16] sums
   float* qs = reinterpret_cast<float*>(smem + SM::BASE);  // FMA: [16][D + 4]
   float* ps = qs + 16 * Tile<false, D>::LD;               // FMA: [warp][16][8 NT + 4]
+  int8_t* raw = reinterpret_cast<int8_t*>(smem + SM::BASE);  // RAW: [K, V][CELLS][D]
   __shared__ int last;
 
   const int c = blockIdx.x, rt = blockIdx.y, bh = blockIdx.z;
@@ -115,9 +128,19 @@ __global__ void __launch_bounds__(THREADS) fd_kernel(
     }
   }
   if (__syncthreads_or(any_visible<NT>(mask_b, S, rw, s0 + c0, tig))) {
-    copy_kv<MMA, D, KVT>(ks, vs, k + (size_t)bh * S * Dr, v + (size_t)bh * S * Dr, s0, S, Dr);
-    cp_async_commit();
-    cp_async_wait<0>();
+    if constexpr (RAW) {
+      stage_kv_i8<D>(raw, raw + CELLS * D, reinterpret_cast<const int8_t*>(k) + (size_t)bh * S * Dr,
+                     reinterpret_cast<const int8_t*>(v) + (size_t)bh * S * Dr, s0, S, Dr);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      convert_i8<D>(reinterpret_cast<__nv_bfloat16*>(ks), raw);
+      convert_i8<D>(reinterpret_cast<__nv_bfloat16*>(vs), raw + CELLS * D);
+    } else {
+      copy_kv<MMA, D, KVT>(ks, vs, k + (size_t)bh * S * Dr, v + (size_t)bh * S * Dr, s0, S, Dr);
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
     __syncthreads();
     float s[NT][4], o[D / 8][4], alpha[2];
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
@@ -136,8 +159,12 @@ __global__ void __launch_bounds__(THREADS) fd_kernel(
     const float* const mr[2] = {
         rw.pos[0] < 0 ? nullptr : mask_b + (size_t)rw.pos[0] * S + s0 + c0,
         rw.pos[1] < 0 ? nullptr : mask_b + (size_t)rw.pos[1] * S + s0 + c0};
-    mask_scores<NT>(s, mr, S - s0 - c0, rw, tig, scale, softcap, slopes != nullptr);
+    // SC: this warp's cells' K and V scales, read beside their mask values
+    const size_t sc0 = (size_t)bh * S + s0 + c0;
+    mask_scores<NT>(s, mr, SC ? ksc + sc0 : nullptr, S - s0 - c0, rw, tig, scale, softcap,
+                    slopes != nullptr);
     softmax_run<NT>(s, m, l, alpha);
+    if constexpr (SC) scale_probs<NT>(s, vsc + sc0, S - s0 - c0, tig);
     if constexpr (MMA) pv_mma<D, NT>(o, s, vs, c0, lane);
     else pv_fma<D, NT>(o, s, ps + warp * 16 * (8 * NT + 4), vs, c0, g, tig);
     __syncthreads();  // every warp is done with the K/V tiles
@@ -277,10 +304,10 @@ __global__ void __launch_bounds__(THREADS) fd_kernel(
 
 template <bool MMA, typename QT, typename KVT, int D>
 int launch(const void* q, const void* k, const void* v, const float* mask,
-           const float* slopes, const float* sinks, float* part_o, float* part_ml,
-           int* tickets, void* out, int B, int Tq, int Hq, int Hkv, int S, int Dr, float scale,
-           float softcap, cudaStream_t st) {
-  constexpr int smem = FdSmem<MMA, D>::BYTES;
+           const float* slopes, const float* sinks, const float* ksc, const float* vsc,
+           float* part_o, float* part_ml, int* tickets, void* out, int B, int Tq, int Hq,
+           int Hkv, int S, int Dr, float scale, float softcap, cudaStream_t st) {
+  constexpr int smem = FdSmem<MMA, D, MMA && std::is_same<KVT, int8_t>::value>::BYTES;
   auto kern = fd_kernel<MMA, QT, KVT, D>;
   // allowed once per process, not once per launch (a driver call)
   static const cudaError_t attr =
@@ -289,50 +316,75 @@ int launch(const void* q, const void* k, const void* v, const float* mask,
   const int R = Tq * (Hq / Hkv);
   kern<<<dim3((S + CELLS - 1) / CELLS, (R + 15) / 16, B * Hkv), THREADS, smem, st>>>(
       static_cast<const QT*>(q), static_cast<const KVT*>(k), static_cast<const KVT*>(v), mask,
-      slopes, sinks, part_o, part_ml, tickets, static_cast<QT*>(out), Tq, Hq, Hkv, S, scale,
-      softcap, Dr);
+      slopes, sinks, ksc, vsc, part_o, part_ml, tickets, static_cast<QT*>(out), Tq, Hq, Hkv, S,
+      scale, softcap, Dr);
   return (int)cudaGetLastError();
 }
 
 // the instance of the padded width that holds head dim D
 template <bool MMA, typename QT, typename KVT>
 int pick_d(int D, const void* q, const void* k, const void* v, const float* mask,
-           const float* slopes, const float* sinks, float* po, float* pml, int* tk, void* out,
-           int B, int Tq, int Hq, int Hkv, int S, float scale, float softcap, cudaStream_t st) {
+           const float* slopes, const float* sinks, const float* ksc, const float* vsc,
+           float* po, float* pml, int* tk, void* out, int B, int Tq, int Hq, int Hkv, int S,
+           float scale, float softcap, cudaStream_t st) {
   if (D >= 1 && D <= 64)
-    return launch<MMA, QT, KVT, 64>(q, k, v, mask, slopes, sinks, po, pml, tk, out, B, Tq, Hq, Hkv, S, D, scale, softcap, st);
+    return launch<MMA, QT, KVT, 64>(q, k, v, mask, slopes, sinks, ksc, vsc, po, pml, tk, out, B, Tq, Hq, Hkv, S, D, scale, softcap, st);
   if (D > 64 && D <= 128)
-    return launch<MMA, QT, KVT, 128>(q, k, v, mask, slopes, sinks, po, pml, tk, out, B, Tq, Hq, Hkv, S, D, scale, softcap, st);
+    return launch<MMA, QT, KVT, 128>(q, k, v, mask, slopes, sinks, ksc, vsc, po, pml, tk, out, B, Tq, Hq, Hkv, S, D, scale, softcap, st);
   if (D > 128 && D <= 256)
-    return launch<MMA, QT, KVT, 256>(q, k, v, mask, slopes, sinks, po, pml, tk, out, B, Tq, Hq, Hkv, S, D, scale, softcap, st);
+    return launch<MMA, QT, KVT, 256>(q, k, v, mask, slopes, sinks, ksc, vsc, po, pml, tk, out, B, Tq, Hq, Hkv, S, D, scale, softcap, st);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// The int8 cache's instances (kv_type 2) build in their own translation unit,
+// flash_decode_int8.cu, which includes this file with TPL_ATTN_INT8 set, so
+// that the two halves compile in parallel (build.py)
+int fd_int8(int q_bf16, int D, const void* q, const void* k, const void* v, const float* mask,
+            const float* slopes, const float* sinks, const float* ksc, const float* vsc,
+            float* po, float* pml, int* tk, void* out, int B, int Tq, int Hq, int Hkv, int S,
+            float scale, float softcap, cudaStream_t st);
+
+#ifdef TPL_ATTN_INT8
+int fd_int8(int q_bf16, int D, const void* q, const void* k, const void* v, const float* mask,
+            const float* slopes, const float* sinks, const float* ksc, const float* vsc,
+            float* po, float* pml, int* tk, void* out, int B, int Tq, int Hq, int Hkv, int S,
+            float scale, float softcap, cudaStream_t st) {
+  if (q_bf16)
+    return pick_d<true, __nv_bfloat16, int8_t>(D, q, k, v, mask, slopes, sinks, ksc, vsc, po, pml, tk, out, B, Tq, Hq, Hkv, S, scale, softcap, st);
+  return pick_d<false, float, int8_t>(D, q, k, v, mask, slopes, sinks, ksc, vsc, po, pml, tk, out, B, Tq, Hq, Hkv, S, scale, softcap, st);
+}
+#else
 // q: (B, Tq, Hq, D); k, v: (B, Hkv, S, D); mask: (B, Tq, S) f32 additive;
 // slopes, sinks: (Hq,) f32 or null; part_o: (B, Hkv, ceil(S/64), R, DP) f32
 // (DP = D rounded up to a multiple of 4, 1 <= D <= 256)
 // and part_ml: (B, Hkv, ceil(S/64), R, 2) f32 scratch (R = Tq * Hq / Hkv);
 // tickets: B * Hkv * ceil(R/16) int32, all 0 (each call leaves them 0);
-// out: (B, Tq, Hq, D) in q's type. q_bf16 / kv_bf16 select bf16 (1) or f32
-// (0): bf16 q, k and v run the tensor-core route, any f32 operand the FMA
-// route.
-extern "C" int tpl_flash_decode(int q_bf16, int kv_bf16, const void* q,
+// ksc, vsc: an int8 cache's (B, Hkv, S) f32 scales (null for a float
+// cache); out: (B, Tq, Hq, D) in q's type. q_bf16 selects bf16 (1) or f32
+// (0) q, kv_type 0 f32, 1 bf16 or 2 int8 K/V: bf16 q over bf16 or int8 K/V
+// runs the tensor-core route, any f32 operand the FMA route.
+extern "C" int tpl_flash_decode(int q_bf16, int kv_type, const void* q,
                                 const void* k, const void* v, const float* mask,
                                 const float* slopes, const float* sinks,
+                                const float* ksc, const float* vsc,
                                 float* part_o, float* part_ml, int* tickets, void* out, int B,
                                 int Tq, int Hq, int Hkv, int S, int D,
                                 float scale, float softcap, void* stream) {
   using bf = __nv_bfloat16;
   auto st = static_cast<cudaStream_t>(stream);
-  if (Hkv <= 0 || Hq % Hkv) return (int)cudaErrorInvalidValue;
+  if (Hkv <= 0 || Hq % Hkv || kv_type < 0 || kv_type > 2) return (int)cudaErrorInvalidValue;
+  if ((kv_type == 2) != (ksc != nullptr && vsc != nullptr)) return (int)cudaErrorInvalidValue;
+  if (kv_type == 2)
+    return fd_int8(q_bf16, D, q, k, v, mask, slopes, sinks, ksc, vsc, part_o, part_ml, tickets, out, B, Tq, Hq, Hkv, S, scale, softcap, st);
   if (q_bf16) {
-    if (kv_bf16)
-      return pick_d<true, bf, bf>(D, q, k, v, mask, slopes, sinks, part_o, part_ml, tickets, out, B, Tq, Hq, Hkv, S, scale, softcap, st);
-    return pick_d<false, bf, float>(D, q, k, v, mask, slopes, sinks, part_o, part_ml, tickets, out, B, Tq, Hq, Hkv, S, scale, softcap, st);
+    if (kv_type == 1)
+      return pick_d<true, bf, bf>(D, q, k, v, mask, slopes, sinks, ksc, vsc, part_o, part_ml, tickets, out, B, Tq, Hq, Hkv, S, scale, softcap, st);
+    return pick_d<false, bf, float>(D, q, k, v, mask, slopes, sinks, ksc, vsc, part_o, part_ml, tickets, out, B, Tq, Hq, Hkv, S, scale, softcap, st);
   }
-  if (kv_bf16)
-    return pick_d<false, float, bf>(D, q, k, v, mask, slopes, sinks, part_o, part_ml, tickets, out, B, Tq, Hq, Hkv, S, scale, softcap, st);
-  return pick_d<false, float, float>(D, q, k, v, mask, slopes, sinks, part_o, part_ml, tickets, out, B, Tq, Hq, Hkv, S, scale, softcap, st);
+  if (kv_type == 1)
+    return pick_d<false, float, bf>(D, q, k, v, mask, slopes, sinks, ksc, vsc, part_o, part_ml, tickets, out, B, Tq, Hq, Hkv, S, scale, softcap, st);
+  return pick_d<false, float, float>(D, q, k, v, mask, slopes, sinks, ksc, vsc, part_o, part_ml, tickets, out, B, Tq, Hq, Hkv, S, scale, softcap, st);
 }
+#endif

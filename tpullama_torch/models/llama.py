@@ -14,7 +14,11 @@ The JAX package scans a stacked layer axis and gets a new cache back from
 each step (the cache argument is donated). Here the layers are nn.Modules
 called in a Python loop, each holding views of the stacked weights, and
 each writes its new K/V rows IN PLACE into its view of one preallocated
-(L, B, Hkv, S, D) cache tensor (index_put_), so no cache copy is made.
+(L, B, Hkv, S, D) cache tensor (index_put_), so no cache copy is made. An
+int8 cache is a (values, scales) pair per K and V: int8 (L, B, Hkv, S, D)
+rows and f32 (L, B, Hkv, S) scales; each new row is quantized on write
+(quantize_q8, the JAX package's symmetric per-(token, head) q8) and the
+scales go to attention with the rows.
 Packed weights go through the fused dequant-matmul (ops/cuda/qmm.py),
 packed experts through the gathered one (ops/moe.py); attention through
 attention_auto (the flash kernels on CUDA tensors).
@@ -84,12 +88,31 @@ def rope_params(hp: HParams) -> RopeParams:
 
 def scatter_rows(cache: torch.Tensor, slots: torch.Tensor, vals: torch.Tensor) -> None:
     """Write per-token rows into a HEAD-MAJOR cache in place.
-    cache: (B, H, S, D); vals: (B, T, H, D); slots: (B, T) cell indices."""
+    cache: (B, H, S, D); vals: (B, T, H, D); slots: (B, T) cell indices.
+    The same writes an int8 cache's scales: cache (B, H, S), vals (B, T,
+    H)."""
     B, H = cache.shape[0], cache.shape[1]
     b_ix = torch.arange(B, device=cache.device)[:, None, None]
     h_ix = torch.arange(H, device=cache.device)[None, :, None]
     cache.index_put_((b_ix, h_ix, slots[:, None, :].long()),
                      vals.transpose(1, 2).to(cache.dtype))
+
+
+def quantize_q8(a: torch.Tensor):
+    """Symmetric int8 over the last axis (the JAX package's llama.py:566-575):
+    s = amax / 127, q = clip(round(a / max(s, 1e-12)), -127, 127), round
+    half to even as jnp.round. Returns (int8 q, f32 s without the last
+    axis)."""
+    af = a.float()
+    s = af.abs().amax(dim=-1, keepdim=True) / 127.0
+    q = torch.round(af / torch.clamp(s, min=1e-12)).clamp_(-127, 127).to(torch.int8)
+    return q, s[..., 0]
+
+
+def layer_cache(c, li: int):
+    """Layer li's view of a stacked cache: a tensor, or an int8 cache's
+    (values, scales) pair."""
+    return tuple(t[li] for t in c) if isinstance(c, tuple) else c[li]
 
 
 class LlamaLayer(nn.Module):
@@ -137,11 +160,21 @@ class LlamaLayer(nn.Module):
         if hp.rope_type >= 0:
             q = apply_rope(q, cos, sin, hp.rope_type, hp.n_rot)
             k = apply_rope(k, cos, sin, hp.rope_type, hp.n_rot)
-        scatter_rows(k_cache, slots, k)
-        scatter_rows(v_cache, slots, v)
         kq_scale = hp.f_attention_scale if hp.f_attention_scale != 0.0 else 1.0 / (Dk**0.5)
-        att = attention_auto(q, k_cache, v_cache, mask=mask, scale=kq_scale,
-                             softcap=hp.attn_logit_softcap)
+        if isinstance(k_cache, tuple):
+            # int8 cache: quantize the new rows, write values and scales
+            for cache, rows in ((k_cache, k), (v_cache, v)):
+                qv, sv = quantize_q8(rows)
+                scatter_rows(cache[0], slots, qv)
+                scatter_rows(cache[1], slots, sv)
+            att = attention_auto(q, k_cache[0], v_cache[0], mask=mask, scale=kq_scale,
+                                 softcap=hp.attn_logit_softcap, k_scale=k_cache[1],
+                                 v_scale=v_cache[1])
+        else:
+            scatter_rows(k_cache, slots, k)
+            scatter_rows(v_cache, slots, v)
+            att = attention_auto(q, k_cache, v_cache, mask=mask, scale=kq_scale,
+                                 softcap=hp.attn_logit_softcap)
         att = att.reshape(B, T, Hq * Dv)
         if self.fused and B == 1 and T == 1:
             # the JAX package's fused branch (llama.py:683-700); it never
@@ -218,7 +251,8 @@ class LlamaModel(nn.Module):
     def forward(self, tokens, positions, kv_k, kv_v, cache_slots, attn_mask,
                 logit_rows=None, return_embd: bool = False):
         """tokens, positions, cache_slots: (B, T) int; kv_k/kv_v: (L, B, Hkv,
-        S, D) caches written in place; attn_mask: (B, 1, T, S) additive f32.
+        S, D) caches written in place, or an int8 cache's (values, (L, B,
+        Hkv, S) f32 scales) pairs; attn_mask: (B, 1, T, S) additive f32.
         logit_rows: optional (B, R) row indices — the lm_head runs on those
         rows only (the rows a caller reads). Returns f32 logits (B, T or R,
         n_vocab); with return_embd, (logits, the final-norm hidden states of
@@ -230,7 +264,8 @@ class LlamaModel(nn.Module):
             cos, sin = rope_cache(self.rp, positions, p.get("rope_freqs"))
             cos, sin = cos[:, :, None, :], sin[:, :, None, :]
         for li, layer in enumerate(self.layers):
-            x = layer(x, cos, sin, kv_k[li], kv_v[li], cache_slots, attn_mask)
+            x = layer(x, cos, sin, layer_cache(kv_k, li), layer_cache(kv_v, li), cache_slots,
+                      attn_mask)
         x = rms_norm(x, p.get("output_norm"), hp.f_norm_rms_eps)
         embd = x.float() if return_embd else None
         if logit_rows is not None:

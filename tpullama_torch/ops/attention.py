@@ -4,7 +4,8 @@ dispatch to the CUDA kernels (port of tpullama/ops/attention.py).
 Semantics of the reference's build_attn_mha fallback path: fp32 KQ,
 scale, optional logit softcap (tanh), additive mask, optional attention
 sinks as an extra softmax logit per head, GQA via kv-head broadcast. K/V
-are HEAD-MAJOR (B, Hkv, S, D), the KV cache's layout.
+are HEAD-MAJOR (B, Hkv, S, D), the KV cache's layout; an int8 cache comes
+with per-(head, token) f32 scales (B, Hkv, S).
 """
 
 from __future__ import annotations
@@ -13,11 +14,14 @@ import torch
 
 
 def attention(q, k, v, mask=None, scale: float | None = None, softcap: float = 0.0,
-              sinks=None, alibi_slopes=None):
+              sinks=None, alibi_slopes=None, k_scale=None, v_scale=None):
     """q: (B, Tq, Hq, D); k, v: (B, Hkv, Tk, D); mask: additive f32,
     broadcastable to (B, Hq, Tq, Tk) and 4-D. alibi_slopes: (Hq,) slopes
-    multiplied into the mask (which then carries -|p_q - p_k|). Returns
-    (B, Tq, Hq, Dv) in q's dtype."""
+    multiplied into the mask (which then carries -|p_q - p_k|).
+    k_scale/v_scale: (B, Hkv, Tk) dequant scales of an int8 cache: K's
+    multiplies the scaled logits per key (before softcap, mask and ALiBi),
+    V's the probabilities after normalisation. Returns (B, Tq, Hq, Dv) in
+    q's dtype."""
     B, Tq, Hq, D = q.shape
     _, Hkv, Tk, _ = k.shape
     if scale is None:
@@ -25,6 +29,8 @@ def attention(q, k, v, mask=None, scale: float | None = None, softcap: float = 0
     group = Hq // Hkv
     qf = q.float().permute(0, 2, 1, 3).reshape(B, Hkv, group, Tq, D)
     logits = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) * scale
+    if k_scale is not None:
+        logits = logits * k_scale.float()[:, :, None, None, :]
     logits = logits.reshape(B, Hq, Tq, Tk)
     if softcap:
         logits = softcap * torch.tanh(logits / softcap)
@@ -44,32 +50,36 @@ def attention(q, k, v, mask=None, scale: float | None = None, softcap: float = 0
         probs = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
         probs = probs / probs.sum(dim=-1, keepdim=True)
     probs_g = probs.reshape(B, Hkv, group, Tq, Tk)
+    if v_scale is not None:
+        probs_g = probs_g * v_scale.float()[:, :, None, None, :]
     Dv = v.shape[-1]
     out = torch.einsum("bhgqk,bhkd->bhgqd", probs_g, v.float()).reshape(B, Hq, Tq, Dv)
     return out.permute(0, 2, 1, 3).to(q.dtype)
 
 
 def attention_auto(q, k, v, mask=None, scale: float | None = None, softcap: float = 0.0,
-                   sinks=None, alibi_slopes=None):
+                   sinks=None, alibi_slopes=None, k_scale=None, v_scale=None):
     """attention() with the port's kernel dispatch: on CUDA tensors a
     decode-sized query (Tq <= 4) goes to the flash-decode kernel and every
-    other Tq to the flash-attention kernel; CPU tensors take the plain op."""
+    other Tq to the flash-attention kernel (an int8 cache with its scales
+    included); CPU tensors take the plain op."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
+    kv_scales = dict(k_scale=k_scale, v_scale=v_scale)
     if q.device.type == "cpu":
         return attention(q, k, v, mask=mask, scale=scale, softcap=softcap,
-                         sinks=sinks, alibi_slopes=alibi_slopes)
+                         sinks=sinks, alibi_slopes=alibi_slopes, **kv_scales)
     if mask is None:
         raise ValueError("attention_auto: the CUDA kernels are driven by the additive mask")
     if q.shape[1] <= 4:
         from .cuda.flash_decode import flash_decode
 
         return flash_decode(q, k, v, mask, scale, softcap=softcap, sinks=sinks,
-                            alibi_slopes=alibi_slopes)
+                            alibi_slopes=alibi_slopes, **kv_scales)
     from .cuda.flash_attention import flash_attention
 
     return flash_attention(q, k, v, mask, scale, softcap=softcap, sinks=sinks,
-                           alibi_slopes=alibi_slopes)
+                           alibi_slopes=alibi_slopes, **kv_scales)
 
 
 def make_causal_mask(q_pos, kv_pos, kv_valid=None, window: int = 0):

@@ -25,7 +25,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("qmm.cu", "qmm_lowbit.cu", "qmm_ktiled.cu", "qmm_gathered.cu",
-           "flash_attention.cu", "flash_decode.cu", "fused_layer.cu")
+           "flash_attention.cu", "flash_attention_int8.cu", "flash_decode.cu",
+           "flash_decode_int8.cu", "fused_layer.cu")
 HEADERS = ("qmm_dequant.cuh", "qmm_gemv.cuh", "qmm_mma.cuh", "qmm_group_mma.cuh",
            "qmm_launch.cuh", "attn_tile.cuh")
 NVCC_FLAGS = (
@@ -34,8 +35,9 @@ NVCC_FLAGS = (
 )
 
 # wall seconds the last build took in this process (0.0 when the library
-# was already built)
+# was already built), and each source's nvcc seconds (all start together)
 build_seconds = 0.0
+source_seconds: dict = {}
 # nvcc's -Xptxas -v report per source (registers, shared memory, spills)
 ptxas_report: dict = {}
 
@@ -62,20 +64,28 @@ def _build(out: Path) -> None:
         procs = []
         for src in SOURCES:
             obj = Path(tmp) / (Path(src).stem + ".o")
+            log = Path(tmp) / (Path(src).stem + ".log")
             cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)]
-            procs.append((src, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+            with open(log, "w") as f:  # a file, not a pipe: the reports are long
+                procs.append((src, obj, log, subprocess.Popen(
+                    cmd, stdout=f, stderr=subprocess.STDOUT)))
+        running = {src for src, *_ in procs}
+        while running:
+            for src, _obj, _log, p in procs:
+                if src in running and p.poll() is not None:
+                    source_seconds[src] = time.perf_counter() - t0
+                    running.discard(src)
+            time.sleep(0.05)
         failed = []
-        for src, _obj, p in procs:
-            log, _ = p.communicate()
-            ptxas_report[src] = log
+        for src, _obj, log, p in procs:
+            ptxas_report[src] = log.read_text()
             if p.returncode != 0:
-                failed.append(f"nvcc {src} (exit {p.returncode}):\n{log}")
+                failed.append(f"nvcc {src} (exit {p.returncode}):\n{ptxas_report[src]}")
         if failed:
             raise RuntimeError("kernel build failed\n" + "\n".join(failed))
         so_tmp = Path(tmp) / out.name
         link = subprocess.run(
-            [nvcc, "-shared", "-o", str(so_tmp), *[str(o) for _s, o, _p in procs]],
+            [nvcc, "-shared", "-o", str(so_tmp), *[str(o) for _s, o, _l, _p in procs]],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"kernel link failed:\n{link.stdout}")
@@ -110,10 +120,10 @@ def library() -> ctypes.CDLL:
     lib.tpl_qmm_gathered.restype = i
     lib.tpl_qmm_gathered_t.argtypes = [i, i, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.tpl_qmm_gathered_t.restype = i
-    lib.tpl_flash_decode.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p,
+    lib.tpl_flash_decode.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p, p, p,
                                      i, i, i, i, i, i, f, f, p]
     lib.tpl_flash_decode.restype = i
-    lib.tpl_flash_attention.argtypes = [i, i, p, p, p, p, p, p, p,
+    lib.tpl_flash_attention.argtypes = [i, i, p, p, p, p, p, p, p, p, p,
                                         i, i, i, i, i, i, f, f, p]
     lib.tpl_flash_attention.restype = i
     lib.tpl_error_string.argtypes = [i]

@@ -26,28 +26,39 @@ def row_plan(Tq: int, G: int, rows: int):
     return torch.where(valid, r // G, -1), torch.where(valid, r % G, -1)
 
 
-def flash_plain(q, k, v, mask, scale, softcap=0.0, sinks=None, alibi_slopes=None):
+def flash_plain(q, k, v, mask, scale, softcap=0.0, sinks=None, alibi_slopes=None,
+                k_scale=None, v_scale=None):
     """The function both attention kernels compute, in plain f32 PyTorch:
-    reference attention, except that a query row whose mask hides every
-    key returns zeros (the kernels' guarded online softmax) instead of the
-    mean of V."""
+    reference attention (an int8 cache dequantized by its scales, as
+    attention() applies them), except that a query row whose mask hides
+    every key returns zeros (the kernels' guarded online softmax) instead
+    of the mean of V."""
     B, Tq, Hq, D = q.shape
     out = attention(q, k, v, mask=mask, scale=scale, softcap=softcap,
-                    sinks=sinks, alibi_slopes=alibi_slopes)
+                    sinks=sinks, alibi_slopes=alibi_slopes, k_scale=k_scale,
+                    v_scale=v_scale)
     m = mask.float().expand(B, 1, Tq, k.shape[2])
     hidden = ~(m > NEG_HALF).any(dim=-1)  # (B, 1, Tq)
     return out.masked_fill(hidden.permute(0, 2, 1)[..., None], 0.0)
 
 
 def route(q, k) -> str:
-    """The attention kernels' body for these operands: "mma" (bf16 q, k and
-    v: the tensor cores) or "fma" (any f32 operand: f32 FMAs)."""
-    return "mma" if q.dtype == k.dtype == torch.bfloat16 else "fma"
+    """The attention kernels' body for these operands: "mma" (bf16 q over
+    bf16 or int8 K/V: the tensor cores) or "fma" (any f32 operand: f32
+    FMAs)."""
+    mma = q.dtype == torch.bfloat16 and k.dtype in (torch.bfloat16, torch.int8)
+    return "mma" if mma else "fma"
+
+
+def kv_code(k) -> int:
+    """The kernels' K/V type flag: 0 f32, 1 bf16, 2 int8."""
+    return {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}[k.dtype]
 
 
 def check_inputs(name, q, k, v, mask, sinks, alibi_slopes):
     """Validate the kernels' inputs; returns (mask (B, Tq, S) f32 contiguous,
-    sinks, slopes as f32 contiguous or None)."""
+    sinks, slopes as f32 contiguous or None). K and V are f32, bf16 or int8
+    (whose scales check_scales takes)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     B, Tq, Hq, D = q.shape
@@ -56,8 +67,10 @@ def check_inputs(name, q, k, v, mask, sinks, alibi_slopes):
         raise ValueError(f"{name}: q {tuple(q.shape)} does not match k {tuple(k.shape)}")
     if not 1 <= D <= MAX_HEAD_DIM:
         raise ValueError(f"{name}: head dim {D} (the kernels take 1 to {MAX_HEAD_DIM})")
-    for t, what in ((q, "q"), (k, "k"), (v, "v")):
-        if t.device != q.device or t.dtype not in (torch.float32, torch.bfloat16):
+    floats = (torch.float32, torch.bfloat16)
+    for t, what, types in ((q, "q", floats), (k, "k", floats + (torch.int8,)),
+                           (v, "v", floats + (torch.int8,))):
+        if t.device != q.device or t.dtype not in types:
             raise TypeError(f"{name}: {what} is {t.dtype} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {what} must be contiguous")
@@ -77,3 +90,23 @@ def check_inputs(name, q, k, v, mask, sinks, alibi_slopes):
         return a
 
     return m, vec(sinks, "sinks"), vec(alibi_slopes, "alibi_slopes")
+
+
+def check_scales(name, k, k_scale, v_scale) -> bool:
+    """Validate an int8 cache's scales: both given, f32 contiguous
+    (B, Hkv, S) on k's device; a float cache takes none. Returns whether
+    the cache is int8."""
+    B, Hkv, S = k.shape[:3]
+    for a, what in ((k_scale, "k_scale"), (v_scale, "v_scale")):
+        if k.dtype != torch.int8:
+            if a is not None:
+                raise ValueError(f"{name}: {what} given with a {k.dtype} cache (scales go "
+                                 "with an int8 cache only)")
+            continue
+        if a is None:
+            raise ValueError(f"{name}: an int8 cache needs {what}")
+        if a.device != k.device or a.dtype != torch.float32 or a.shape != (B, Hkv, S) \
+                or not a.is_contiguous():
+            raise ValueError(f"{name}: {what} is {a.dtype} {tuple(a.shape)} on {a.device}; "
+                             f"want f32 contiguous ({B}, {Hkv}, {S})")
+    return k.dtype == torch.int8

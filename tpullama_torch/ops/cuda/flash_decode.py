@@ -9,17 +9,21 @@ kernels' roles it exercised. Any GQA group Hq % Hkv == 0 and any Tq is
 taken, and any head dim up to common.MAX_HEAD_DIM: the kernel cuts the
 (position, head) query rows of a kv head into tiles of 16
 (common.row_plan). On a CPU tensor it computes the plain
-version (ops/cuda/common.flash_plain). Int8 K/V scales are not taken yet
-(they arrive with the int8 KV cache).
+version (ops/cuda/common.flash_plain). An int8 cache comes with its
+per-(head, token) f32 scales (k_scale, v_scale): bf16 q runs it on the
+tensor cores (the chunk's int8 rows converted to bf16 in shared memory),
+f32 q as f32 FMAs; its launches count apart (flash_decode_int8,
+flash_decode_batched_int8).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .common import CELLS, check_inputs, flash_plain
+from .common import CELLS, check_inputs, check_scales, flash_plain, kv_code
 
-LAUNCHES = {"flash_decode": 0, "flash_decode_batched": 0}
+LAUNCHES = {"flash_decode": 0, "flash_decode_batched": 0, "flash_decode_int8": 0,
+            "flash_decode_batched_int8": 0}
 ROW_TILE = 16  # query rows per block in csrc/flash_decode.cu
 
 # per device: the kernel's int32 tickets, one per (row tile, kv head, batch
@@ -36,17 +40,20 @@ def _tickets(device, n: int) -> torch.Tensor:
 
 
 def flash_decode(q, k, v, mask, scale: float, softcap: float = 0.0,
-                 sinks=None, alibi_slopes=None):
+                 sinks=None, alibi_slopes=None, k_scale=None, v_scale=None):
     """q: (B, Tq, Hq, D), Tq <= 4 on the decode path; k, v: (B, Hkv, S, D)
-    head-major cache, read in place; mask: additive f32 broadcastable to
-    (B, 1, Tq, S). Returns (B, Tq, Hq, D) in q's dtype."""
+    head-major cache, read in place (int8 with k_scale, v_scale (B, Hkv,
+    S) f32); mask: additive f32 broadcastable to (B, 1, Tq, S). Returns
+    (B, Tq, Hq, D) in q's dtype."""
     if q.device.type == "cpu":
-        return flash_plain(q, k, v, mask, scale, softcap, sinks, alibi_slopes)
+        return flash_plain(q, k, v, mask, scale, softcap, sinks, alibi_slopes,
+                           k_scale, v_scale)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_decode: unsupported device {q.device}")
     from .build import check, library, ptr, stream
 
     m, sinks, slopes = check_inputs("flash_decode", q, k, v, mask, sinks, alibi_slopes)
+    int8 = check_scales("flash_decode", k, k_scale, v_scale)
     B, Tq, Hq, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     R = (Hq // Hkv) * Tq
@@ -58,9 +65,10 @@ def flash_decode(q, k, v, mask, scale: float, softcap: float = 0.0,
     tickets = _tickets(q.device, B * Hkv * -(-R // ROW_TILE))
     out = torch.empty_like(q)
     check(library().tpl_flash_decode(
-        int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
-        ptr(q), ptr(k), ptr(v), ptr(m), ptr(slopes), ptr(sinks), ptr(part_o),
-        ptr(part_ml), ptr(tickets), ptr(out), B, Tq, Hq, Hkv, S, D, float(scale),
-        float(softcap), stream()), "flash_decode")
-    LAUNCHES["flash_decode" if B == 1 else "flash_decode_batched"] += 1
+        int(q.dtype == torch.bfloat16), kv_code(k),
+        ptr(q), ptr(k), ptr(v), ptr(m), ptr(slopes), ptr(sinks), ptr(k_scale), ptr(v_scale),
+        ptr(part_o), ptr(part_ml), ptr(tickets), ptr(out), B, Tq, Hq, Hkv, S, D,
+        float(scale), float(softcap), stream()), "flash_decode")
+    name = "flash_decode" if B == 1 else "flash_decode_batched"
+    LAUNCHES[name + ("_int8" if int8 else "")] += 1
     return out

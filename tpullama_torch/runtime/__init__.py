@@ -1,4 +1,5 @@
-"""Runtime layer: KV cache + decode engine, host sampler chain."""
+"""Runtime layer: KV cache + decode engine, host sampler chain, state I/O
+(runtime/state.py)."""
 
 from .context import Context, ContextParams, make_context
 

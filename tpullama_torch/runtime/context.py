@@ -3,9 +3,13 @@ tpullama/runtime/context.py:Context for the plain llama family).
 
 The cache is HEAD-MAJOR (L, B, Hkv, S, D), one lane per sequence (the
 reference's per-stream layout), with S = n_ctx + 1 scratch cell rounded
-up to a multiple of 128. Sequence positions live twice: `kv_pos` (B, S) on
-the device (-1 = empty cell), from which each step builds its additive
-mask, and `_pos_host`, the host mirror the free-cell allocator reads.
+up to a multiple of 128. With kv_dtype=torch.int8 each of kv_k and kv_v
+is a (values, scales) pair, int8 (L, B, Hkv, S, D) rows and f32 (L, B,
+Hkv, S) per-(head, token) scales, as the JAX package's {"q", "s"} cache:
+the model quantizes each row on write and attention reads both. Sequence
+positions live twice: `kv_pos` (B, S) on the device (-1 = empty cell),
+from which each step builds its additive mask, and `_pos_host`, the host
+mirror the free-cell allocator reads.
 
 Every one-token decode step (decode at T == 1, decode_batch, and each
 step of decode_burst and decode_batch_burst) is one step program over a
@@ -31,8 +35,8 @@ Differences from the JAX package, by design:
     (the graphs read them at fixed addresses), and their K re-rotation
     divides by the model's rope_freqs as the forward pass does, where the
     JAX package's _rotate leaves them out (only a model that carries
-    rope_freqs, Llama-3.x, differs). The SWA two-stack and int8 caches
-    they also handle there are not ported.
+    rope_freqs, Llama-3.x, differs). The SWA two-stack cache they also
+    handle there is not ported.
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ import numpy as np
 import torch
 
 from ..models.hparams import HParams
-from ..models.llama import LlamaModel
+from ..models.llama import LlamaModel, quantize_q8
 from ..models.loader import LoadedModel, check_supported
 from ..ops.cuda import add_launch_counts, launch_counts
 from ..ops.rope import apply_rope, rope_cache
@@ -63,9 +67,24 @@ class ContextParams:
     n_ubatch: int = 512
     n_seqs: int = 1
     dtype: torch.dtype = torch.float32
-    kv_dtype: torch.dtype | None = None  # default: same as dtype
+    # default: same as dtype; torch.int8: the quantized cache (values +
+    # per-(head, token) f32 scales)
+    kv_dtype: torch.dtype | None = None
     # multi-device mode ("pp" / "tp"): not ported yet, refused by make_context
     parallel: str | None = None
+
+
+def _parts(cache) -> tuple:
+    """A cache's tensors: the tensor, or an int8 cache's values and scales."""
+    return cache if isinstance(cache, tuple) else (cache,)
+
+
+def _lanes(cache, lanes: slice):
+    """Lanes `lanes` of a stacked cache (axis 1): a view of the tensor, or
+    of both tensors of an int8 cache's (values, scales) pair."""
+    if isinstance(cache, tuple):
+        return tuple(t[:, lanes] for t in cache)
+    return cache[:, lanes]
 
 
 def _bucket(n: int, lo: int = 16) -> int:
@@ -156,15 +175,22 @@ class Context:
         S = -(-(self.p.n_ctx + 1) // 128) * 128
         self._S = S
         kv_dt = self.p.kv_dtype or self.p.dtype
-        if not kv_dt.is_floating_point:
-            raise NotImplementedError(
-                f"kv_dtype {kv_dt}: the int8 KV cache is not ported yet "
-                "(ROADMAP.md Queue 1 item 4)")
+        if not (kv_dt.is_floating_point or kv_dt == torch.int8):
+            raise ValueError(f"kv_dtype {kv_dt}: the cache is a float type or torch.int8")
         Hkv, Dk, Dv = hp.n_head_kv, hp.n_embd_head_k, hp.n_embd_head_v
-        # HEAD-MAJOR cache (L, B, Hkv, S, D): attention streams each head's
-        # rows contiguously; the writer scatters its few rows
-        self.kv_k = torch.zeros((hp.n_layer, B, Hkv, S, Dk), dtype=kv_dt, device=self.device)
-        self.kv_v = torch.zeros((hp.n_layer, B, Hkv, S, Dv), dtype=kv_dt, device=self.device)
+
+        def alloc(D):
+            # HEAD-MAJOR cache (L, B, Hkv, S, D): attention streams each
+            # head's rows contiguously; the writer scatters its few rows.
+            # int8: the rows and their f32 scales (L, B, Hkv, S), allocated
+            # once, so the step graphs read them at fixed addresses
+            rows = torch.zeros((hp.n_layer, B, Hkv, S, D), dtype=kv_dt, device=self.device)
+            if kv_dt != torch.int8:
+                return rows
+            return rows, torch.zeros(rows.shape[:-1], dtype=torch.float32, device=self.device)
+
+        self.kv_k = alloc(Dk)
+        self.kv_v = alloc(Dv)
         self.kv_pos = torch.full((B, S), -1, dtype=torch.int32, device=self.device)
         self._pos_host = np.full((B, S), -1, np.int32)
         self.n_past = np.zeros(B, np.int32)
@@ -205,9 +231,10 @@ class Context:
         final-norm hidden states (else None)."""
         T = tokens.shape[1]
         rows = torch.arange(T - n_logits, T, device=self.device)[None]
+        lane = slice(seq, seq + 1)
         out = self._forward(
-            self.kv_k[:, seq:seq + 1], self.kv_v[:, seq:seq + 1],
-            self.kv_pos[seq:seq + 1], tokens, positions, slots, logit_rows=rows,
+            _lanes(self.kv_k, lane), _lanes(self.kv_v, lane),
+            self.kv_pos[lane], tokens, positions, slots, logit_rows=rows,
             return_embd=embd)
         logits, hidden = out if embd else (out, None)
         return logits[0], None if hidden is None else hidden[0]
@@ -233,8 +260,8 @@ class Context:
         free = torch.argmax((kv_pos[:, : S - 1] < 0).to(torch.int32), dim=1).to(torch.int32)
         slots = torch.where(act, free, torch.full_like(free, S - 1))[:, None]
         pos = torch.where(act, prog.npast, torch.full_like(prog.npast, -1))[:, None]
-        logits = self._forward(self.kv_k[:, lo:hi], self.kv_v[:, lo:hi], kv_pos, prog.tok,
-                               pos, slots)[:, -1, :]
+        logits = self._forward(_lanes(self.kv_k, slice(lo, hi)), _lanes(self.kv_v, slice(lo, hi)),
+                               kv_pos, prog.tok, pos, slots)[:, -1, :]
         if prog.spec is None:
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         else:
@@ -565,9 +592,19 @@ class Context:
         R(pos + d) = R(d)·R(pos) per rope frequency. The rotation by d
         comes from the same cos/sin tables as the forward pass (rope_freqs
         and partial rotation included), so a YaRN model's mscale is applied
-        again to every row of the lane, as in the JAX package."""
+        again to every row of the lane, as in the JAX package. An int8
+        lane is dequantized, rotated and quantized again with fresh
+        scales (rotation changes each row's amax), as there."""
         rp = self.net.rp
         cos, sin = rope_cache(rp, deltas, self.model.params.get("rope_freqs"))
+        if isinstance(self.kv_k, tuple):
+            kq, ks = (t[:, seq_id] for t in self.kv_k)  # (L, Hkv, S, D), (L, Hkv, S)
+            k = kq.float() * ks[..., None]
+            nq, ns = quantize_q8(apply_rope(k, cos[None, None], sin[None, None], rp.mode,
+                                            rp.n_dims))
+            kq.copy_(nq)
+            ks.copy_(ns)
+            return
         k = self.kv_k[:, seq_id]  # (L, Hkv, S, D) view of the lane
         k.copy_(apply_rope(k.float(), cos[None, None], sin[None, None], rp.mode, rp.n_dims))
 
@@ -600,8 +637,8 @@ class Context:
 
     def seq_cp(self, src: int, dst: int):
         """Copy a sequence's cache lane to another (llama_memory_seq_cp)."""
-        self.kv_k[:, dst].copy_(self.kv_k[:, src])
-        self.kv_v[:, dst].copy_(self.kv_v[:, src])
+        for t in _parts(self.kv_k) + _parts(self.kv_v):
+            t[:, dst].copy_(t[:, src])
         self.kv_pos[dst].copy_(self.kv_pos[src])
         self._pos_host[dst] = self._pos_host[src]
         self.n_past[dst] = self.n_past[src]
@@ -622,11 +659,12 @@ class Context:
             self.n_past[seq_id] = 0
 
     def memory_breakdown(self) -> dict:
-        """Device bytes of the weights and the KV cache."""
+        """Device bytes of the weights and the KV cache (an int8 cache's
+        values and scales)."""
         return {
             "weights": self.model.nbytes(),
-            "kv_cache": self.kv_k.numel() * self.kv_k.element_size()
-            + self.kv_v.numel() * self.kv_v.element_size(),
+            "kv_cache": sum(t.numel() * t.element_size()
+                            for t in _parts(self.kv_k) + _parts(self.kv_v)),
         }
 
     # ------------------------------------------------------- generate

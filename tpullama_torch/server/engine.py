@@ -16,9 +16,12 @@ every engine iteration
 Each decode round's step (decode_batch), each step of a greedy burst
 (decode_batch_burst) and each draft step replays a Context's captured
 CUDA graph on the card. Embedding tasks run in one shot on the slot's
-lane (Context.embeddings). The port builds the attention Context
-directly; recurrent, hybrid and encoder models, multimodal chunks and
-slot save/restore are not ported yet.
+lane (Context.embeddings). Slot save/restore write and read a slot's
+lane as a state file (runtime/state.py seq_save / seq_load, the JAX
+package's format); a restored slot's cache_tokens let the next request
+reuse the prefix. The port builds the attention Context directly;
+recurrent, hybrid and encoder models and multimodal chunks are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import torch
 from ..models.loader import check_supported
 from ..runtime.context import Context, ContextParams
 from ..runtime.sampling import SamplerChain
+from ..runtime.state import seq_load, seq_save
 
 
 class SlotState(Enum):
@@ -178,11 +182,48 @@ class ServerEngine:
             raise box["error"]
         return box.get("result")
 
+    def _slot(self, slot_id: int) -> Slot:
+        if not 0 <= slot_id < len(self.slots):
+            raise IndexError(f"invalid slot id {slot_id}")
+        return self.slots[slot_id]
+
+    def slot_save(self, slot_id: int, path: str) -> dict:
+        """Write slot slot_id's lane and its cached tokens to `path`
+        (runtime/state.seq_save), on the engine thread."""
+        def op():
+            slot = self._slot(slot_id)
+            t0 = time.perf_counter()
+            seq_save(self.ctx, slot_id, path, tokens=slot.cache_tokens)
+            return {
+                "id_slot": slot_id,
+                "n_saved": len(slot.cache_tokens),
+                "timings": {"save_ms": (time.perf_counter() - t0) * 1e3},
+            }
+
+        return self.control(op)
+
+    def slot_restore(self, slot_id: int, path: str) -> dict:
+        """Read a state file into slot slot_id's lane (runtime/state.seq_load)
+        and take its tokens as the slot's cache_tokens; a busy slot
+        raises."""
+        def op():
+            slot = self._slot(slot_id)
+            if slot.state != SlotState.IDLE:
+                raise RuntimeError("slot is busy; cannot restore")
+            t0 = time.perf_counter()
+            tokens = seq_load(self.ctx, slot_id, path)
+            slot.cache_tokens = list(tokens or [])
+            return {
+                "id_slot": slot_id,
+                "n_restored": len(slot.cache_tokens),
+                "timings": {"restore_ms": (time.perf_counter() - t0) * 1e3},
+            }
+
+        return self.control(op)
+
     def slot_erase(self, slot_id: int) -> dict:
         def op():
-            if not 0 <= slot_id < len(self.slots):
-                raise IndexError(f"invalid slot id {slot_id}")
-            slot = self.slots[slot_id]
+            slot = self._slot(slot_id)
             if slot.state != SlotState.IDLE:
                 raise RuntimeError("slot is busy; cannot erase")
             n = len(slot.cache_tokens)

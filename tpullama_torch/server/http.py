@@ -11,11 +11,12 @@ Chat templating: the GGUF's tokenizer.chat_template rendered with jinja2
 (the role minja plays in the reference), with a ChatML fallback.
 
 Grammar-constrained bodies ("grammar", "json_schema", a JSON
-"response_format"), /embedding(s) and serve(draft_model=) / --model-draft
-run as in the JAX package. Features not ported yet answer a JSON error
-(501, not_supported_error) that names them and their ROADMAP.md Queue 1
-item, and serve() / main() refuse their options by name: slot
-save/restore, LoRA adapters, the unified KV pool (item 6); /rerank, which
+"response_format"), /embedding(s), serve(draft_model=) / --model-draft and
+POST /slots/{id}?action=save|restore|erase (save and restore under
+--slot-save-path) run as in the JAX package. Features not ported yet
+answer a JSON error (501, not_supported_error) that names them and their
+ROADMAP.md Queue 1 item, and serve() / main() refuse their options by
+name: LoRA adapters, the unified KV pool (item 6); /rerank, which
 needs the rank-pooled encoder path (item 7); media in chat and --mmproj
 (item 8); --split-mode other than none (item 10).
 """
@@ -230,8 +231,11 @@ class ServerState:
                  api_key: str | None = None, api_prefix: str = "",
                  no_slots_ep: bool = False, props_rw: bool = False,
                  chat_template_kwargs: dict | None = None,
-                 no_webui: bool = False, spm_infill: bool = False):
+                 no_webui: bool = False, spm_infill: bool = False,
+                 slot_save_path: str | None = None):
         self.engine = engine
+        # slot save/restore (requires --slot-save-path like the reference)
+        self.slot_save_path = slot_save_path
         self.model_name = model_name
         # --chat-template NAME: force a builtin dialect (templates.py)
         self.chat_template = chat_template
@@ -609,8 +613,9 @@ def make_handler(state: ServerState):
             })
 
         def _handle_slot_action(self, path: str, body):
-            """POST /slots/{id}?action=erase (server-context.cpp:1542-1650);
-            save and restore need the state path, not ported yet."""
+            """POST /slots/{id}?action=save|restore|erase
+            (server-context.cpp:1542-1650; save and restore require
+            --slot-save-path)."""
             from urllib.parse import parse_qs, urlparse
 
             try:
@@ -620,8 +625,25 @@ def make_handler(state: ServerState):
             q = parse_qs(urlparse(self.path).query)
             action = (q.get("action") or [""])[0]
             if action in ("save", "restore"):
-                raise _not_ported(f"slot {action}: the state save/restore path", 6)
-            if action == "erase":
+                if not state.slot_save_path:
+                    return self._error(
+                        "This server does not support slots action. Start "
+                        "it with `--slot-save-path`", 501)
+                filename = body.get("filename", "")
+                if not filename or "/" in filename or ".." in filename:
+                    return self._error("invalid filename")
+                filepath = os.path.join(state.slot_save_path, filename)
+                try:
+                    if action == "save":
+                        out = engine.slot_save(slot_id, filepath)
+                    else:
+                        out = engine.slot_restore(slot_id, filepath)
+                except (IndexError, RuntimeError, FileNotFoundError,
+                        ValueError) as e:
+                    return self._error(str(e))
+                out["filename"] = filename
+                self._json(out)
+            elif action == "erase":
                 try:
                     self._json(engine.slot_erase(slot_id))
                 except (IndexError, RuntimeError) as e:
@@ -890,9 +912,9 @@ def serve(model, host: str = "127.0.0.1", port: int = 8080, n_slots: int = 4,
     ServerEngine of n_slots slots of n_ctx cells, f32 activations and KV
     cache as in the JAX package; `draft_model` (on the same device) and
     `spec_params` turn on per-slot speculative decoding. The options of
-    features not ported yet are refused by name; slot_save_path alone is
-    accepted, since only the save and restore actions (refused per
-    request) would use it."""
+    features not ported yet are refused by name. `slot_save_path`: the
+    directory the slot save and restore actions write and read (None:
+    they answer 501, as in the JAX package)."""
     for on, what, item in ((mmproj, "mmproj: the multimodal path", 8),
                            (loras, "loras: LoRA adapters", 6),
                            (kv_unified, "kv_unified: the unified KV pool", 6),
@@ -908,7 +930,8 @@ def serve(model, host: str = "127.0.0.1", port: int = 8080, n_slots: int = 4,
                         api_key=api_key, api_prefix=api_prefix,
                         no_slots_ep=no_slots_ep, props_rw=props_rw,
                         no_webui=no_webui, spm_infill=spm_infill,
-                        chat_template_kwargs=chat_template_kwargs)
+                        chat_template_kwargs=chat_template_kwargs,
+                        slot_save_path=slot_save_path)
     httpd = ThreadingHTTPServer((host, port), make_handler(state))
     if ssl_cert and ssl_key:
         import ssl as _ssl

@@ -714,8 +714,8 @@ def build_parser(scope: str, prog: str, description: str = "",
 
 
 def kv_dtype_from_arg(name: str):
-    """--cache-type-k/-v as a torch dtype (q8_0: int8, which the KV cache
-    refuses until its int8 path is ported)."""
+    """--cache-type-k/-v as a torch dtype (q8_0: int8, the quantized KV
+    cache of ContextParams(kv_dtype=torch.int8))."""
     import torch
 
     return {"f16": torch.float16, "bf16": torch.bfloat16, "f32": torch.float32,

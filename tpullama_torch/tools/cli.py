@@ -7,11 +7,13 @@ model runs on the CUDA card unless --device cpu asks for the plain
 PyTorch path.
 
 --grammar / --grammar-file / --json-schema / --json-schema-file constrain
-sampling (runtime/grammar.py, runtime/json_schema.py), and --model-draft
-decodes speculatively with a draft model (runtime/speculative.py), as in
-the JAX package. Not ported yet, and refused by name when set: control
-vectors, LoRA adapters, the prompt cache, n-gram lookup decoding
-(ROADMAP.md Queue 1 item 6) and the multi-card split modes (item 10).
+sampling (runtime/grammar.py, runtime/json_schema.py), --model-draft
+decodes speculatively with a draft model (runtime/speculative.py), and
+--prompt-cache FILE restores the context state before generating and
+saves it after (unless restored or --prompt-cache-ro; runtime/state.py),
+as in the JAX package. Not ported yet, and refused by name when set:
+control vectors, LoRA adapters, n-gram lookup decoding (ROADMAP.md Queue 1
+item 6) and the multi-card split modes (item 10).
 
 Usage:
   python -m tpullama_torch.tools.cli -m model.gguf -p "prompt" -n 64 --temp 0
@@ -20,6 +22,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -32,7 +35,6 @@ _UNPORTED = (
     ("lora", "--lora", "LoRA adapters", 6),
     ("lookup_cache_static", "--lookup-cache-static", "n-gram lookup decoding", 6),
     ("lookup_cache_dynamic", "--lookup-cache-dynamic", "n-gram lookup decoding", 6),
-    ("prompt_cache", "--prompt-cache", "the prompt cache (state save/restore)", 6),
 )
 
 
@@ -208,6 +210,18 @@ def main(argv=None) -> int:
                    or (args.conversation and not args.no_conversation))
     if args.interactive_first and not prompt:
         prompt = ""
+    restored = False
+    if args.prompt_cache and os.path.exists(args.prompt_cache):
+        from ..runtime.state import state_load
+
+        try:
+            state_load(ctx, args.prompt_cache)
+            restored = True
+            if args.verbose:
+                print(f"[cache] restored {args.prompt_cache}", file=sys.stderr)
+        except Exception as e:
+            print(f"warning: prompt cache restore failed: {e}",
+                  file=sys.stderr)
 
     with maybe_profile():  # TPULLAMA_PROFILE=<dir> writes a torch.profiler trace
         if interactive:
@@ -229,6 +243,13 @@ def main(argv=None) -> int:
                     break
         else:
             generate_round(prompt, args.n_predict)
+
+    if args.prompt_cache and not args.prompt_cache_ro and not restored:
+        from ..runtime.state import state_save
+
+        state_save(ctx, args.prompt_cache)
+        if args.verbose:
+            print(f"[cache] saved {args.prompt_cache}", file=sys.stderr)
 
     if args.verbose:
         p = ctx.perf
