@@ -77,17 +77,34 @@ Phases, each printing one JSON line with its seconds:
             depth in llama.cpp's Q5_K_M layout (LAYOUTS: attn_v/ffn_down
             Q6_K in the use_more_bits layers and Q5_K in the others, so
             loaded dense; every other matrix Q5_K through the q1 set of
-            qmm_gemv/qmm_tiled); the cross-check's CPU model is loaded with
+            qmm_gemv/qmm_tiled); the 1-layer cross-check's CPU model is loaded with
             and without the native host library (timed, the same bits),
             and the 4 requests are run twice together (dense projections
             are not batch-invariant); the profile checks the qmm launches
             of a decode step and of a prefill chunk
   quant_crosscheck
-            2-layer cross-checks at Llama-3.2-1B's widths in the Q3_K_M-like,
+            1-layer cross-checks at Llama-3.2-1B's widths in the Q3_K_M-like,
             Q2_K-like, Q5_0/Q5_1, Q4_0 and IQ4_XS layouts; the Q5_0/Q5_1
             model also split into shards and loaded from split futures,
             from its first shard and whole (the same parameters), and run
             through the CLI from the first shard (the whole file's text)
+  qwen3moe_model, qwen3moe_crosscheck, qwen3moe_serve
+            the model, cross-check and serve phases on a Qwen3-30B-A3B-shaped
+            qwen3moe model (8 of its 48 layers; 1 in the cross-check) in the
+            Q2_K layout: 128 experts of FFN 768, 8 a token, Q2_K [gate | up]
+            and Q3_K down experts through the q1/q2 sets of qmm_gathered,
+            per-head q/k norms, 32 x 128 query columns on a 2048 hidden;
+            the cross-check's CPU side keeps the experts packed
+  qwen2moe_crosscheck
+            the cross-check (1 layer, a 16-token prompt) at Qwen2-57B-A14B's
+            widths in the Q5_0/Q5_1 layout: 64 Q5_1 experts of FFN 2560, 8 a
+            token, not renormalized, and a 20480-wide Q5_1 shared expert
+            behind its sigmoid gate
+  granitemoe_crosscheck
+            the cross-check (2 layers) at granite-3.0-3b-a800m's widths, Q4_K:
+            the scale stack (embedding, residual, final logit scale), 40
+            experts of FFN 512 through qmm_gathered_t, a tied 49155-row
+            lm_head
   int8kv    the served Llama model with an int8 KV cache against a bf16
             one: Contexts of 4 lanes of 8192 cells, bf16 activations,
             4 prompts of 6100-7000 tokens prefilled, a greedy burst of 32;
@@ -113,13 +130,15 @@ Phases, each printing one JSON line with its seconds:
             --json-schema on the card and the CPU: the same text, which
             the grammar accepts, and Grammar.apply's host ms per token
 Every model phase loads through the native host library, which must have
-built on the card's machine. The Llama cross-check also holds
-Context.embeddings (each pooling) and
+built on the card's machine. Each cross-check's CPU side (but ChatGLM's,
+whose fused layer and K-chunks read the packed planes) dequantizes its
+matrices once at load and keeps the experts packed (dense_reference). The
+Llama cross-check also holds Context.embeddings (each pooling) and
 seq_add / seq_div on the card against the CPU, and a replayed step after
 seq_add against the eager step. The crosscheck, serve, http, spec, cli,
-quant_crosscheck, int8kv, int8kv_crosscheck and state paths each run with
-every launch count set to 0 just before and read just after, and fail unless
-each kernel that path must run was launched. Then one JSON line lists every
+quant_crosscheck, int8kv, int8kv_crosscheck, state and the MoE archs'
+paths each run with every launch count set to 0 just before and read just
+after, and fail unless each kernel that path must run was launched. Then one JSON line lists every
 kernel with its launches on each path and its numbers at the served shape
 from the kernels phase, and the last line is the run's result. Any failed
 check raises, so the script exits non-zero and prints no result line.
@@ -152,7 +171,9 @@ ALL_PHASES = ("card", "build", "kernels", "model", "crosscheck", "serve", "graph
               "spec", "cli", "moe_model", "moe_crosscheck", "moe_serve", "moe_graphs", "glm_model",
               "glm_crosscheck", "glm_serve", "glm_graphs", "qwen_crosscheck",
               "openllama_crosscheck", "q5km_model", "q5km_crosscheck", "q5km_serve",
-              "quant_crosscheck", "int8kv", "int8kv_crosscheck", "state")
+              "quant_crosscheck", "int8kv", "int8kv_crosscheck", "state", "qwen3moe_model",
+              "qwen3moe_crosscheck", "qwen3moe_serve", "qwen2moe_crosscheck",
+              "granitemoe_crosscheck")
 
 
 def emit(obj) -> None:
@@ -192,10 +213,35 @@ class Widths:
     8 KV heads, head dim 64, intermediate 8192, vocab 128256, rope_theta
     500000 with llama3 scaling factor 32, low 1, high 4, original 8192,
     tie_word_embeddings true, rms_norm_eps 1e-5), the speculative draft.
+    The MoE archs (n_ff each routed expert's FFN): QWEN3_30B_A3B those of
+    Qwen/Qwen3-30B-A3B (config.json: hidden 2048, 48 layers, 32 heads, 4
+    KV heads, head_dim 128, so 32 x 128 = 4096 query columns on a 2048
+    hidden; 128 experts, 8 per token, moe_intermediate_size 768,
+    norm_topk_prob true; vocab 151936, rope_theta 1e6, rms_norm_eps 1e-6,
+    max_position_embeddings 40960, untied; per-head q/k RMS norms), cut to
+    8 of its 48 layers (every layer has the same shapes and launches), in
+    the Q2_K layout; QWEN2_57B_A14B those of Qwen/Qwen2-57B-A14B
+    (config.json: hidden 3584, 28 layers, 28 heads, 4 KV heads, 64
+    experts, 8 per token, moe_intermediate_size 2560,
+    shared_expert_intermediate_size 20480 with its sigmoid gate,
+    norm_topk_prob false; vocab 151936, rope_theta 1e6, rms_norm_eps 1e-6;
+    q/k/v biases), in the Q5_0/Q5_1 layout, used at 1 layer in the
+    cross-check alone; GRANITE_3B_A800M those of
+    ibm-granite/granite-3.0-3b-a800m (config.json: hidden 1536, 32 layers,
+    24 heads, 8 KV heads, 40 experts, 8 per token, intermediate_size 512;
+    vocab 49155, tie_word_embeddings true, rope_theta 10000, rms_norm_eps
+    1e-6; embedding_multiplier 12.0, residual_multiplier 0.22,
+    logits_scaling 6.0, attention_multiplier 0.015625, written as
+    llama.cpp's converter writes them: embedding_scale, residual_scale,
+    logit_scale, attention.scale), Q4_K, used at 2 layers in the
+    cross-check alone.
     `llama3_rope`: the llama3 scaling written as rope_freqs.weight, as
     llama.cpp's converter does; `tied`: no output.weight (the token table
     is the lm_head); `quant`: the tensor types of a llama.cpp file type
-    (LAYOUTS) instead of Q4_K."""
+    (LAYOUTS) instead of Q4_K; `head_dim`: attention.key_length and
+    value_length when not n_embd / n_head; `n_ff_shexp`: a shared expert
+    of that width; `scales`: granite's (embedding_scale, residual_scale,
+    logit_scale, attention.scale)."""
 
     n_embd: int = 4096
     n_layer: int = 32
@@ -214,6 +260,13 @@ class Widths:
     tied: bool = False
     llama3_rope: tuple = ()  # (factor, low_freq_factor, high_freq_factor, original ctx)
     quant: str = ""  # a layout of LAYOUTS ("": Q4_K matrices, Q6_K output)
+    head_dim: int = 0  # 0: n_embd / n_head
+    n_ff_shexp: int = 0
+    scales: tuple = ()
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.n_embd // self.n_head
 
 
 LLAMA3_8B = Widths()
@@ -234,6 +287,17 @@ LLAMA32_1B = Widths(n_embd=2048, n_layer=16, n_head=32, n_head_kv=8, n_ff=8192,
                     n_ctx_train=131072, tied=True, llama3_rope=(32.0, 1.0, 4.0, 8192))
 # Llama-3-8B at full width and depth in llama.cpp's Q5_K_M layout
 LLAMA3_8B_Q5KM = replace(LLAMA3_8B, quant="Q5_K_M")
+QWEN3_30B_A3B = Widths(n_embd=2048, n_layer=8, n_head=32, n_head_kv=4, head_dim=128, n_ff=768,
+                       n_vocab=151936, rope_theta=1e6, rms_eps=1e-6, n_ctx_train=40960,
+                       n_expert=128, n_expert_used=8, arch="qwen3moe", quant="Q2_K")
+QWEN2_57B_A14B = Widths(n_embd=3584, n_layer=28, n_head=28, n_head_kv=4, n_ff=2560,
+                        n_ff_shexp=20480, n_vocab=151936, rope_theta=1e6, rms_eps=1e-6,
+                        n_ctx_train=32768, n_expert=64, n_expert_used=8, arch="qwen2moe",
+                        quant="Q5_0_Q5_1")
+GRANITE_3B_A800M = Widths(n_embd=1536, n_layer=32, n_head=24, n_head_kv=8, n_ff=512,
+                          n_vocab=49155, rope_theta=10000.0, rms_eps=1e-6, n_ctx_train=4096,
+                          n_expert=40, n_expert_used=8, arch="granitemoe", tied=True,
+                          scales=(12.0, 0.22, 6.0, 0.015625))
 
 
 def use_more_bits(il: int, n: int) -> bool:
@@ -244,10 +308,14 @@ def use_more_bits(il: int, n: int) -> bool:
 
 def _layout(*, embd, attn_q, attn_v, attn_o, ffn, ffn_down, attn_k=None):
     """A layout's type per tensor role: (role, layer, n_layer) -> GGML type
-    name; attn_v / ffn_down may be functions of (layer, n_layer)."""
+    name; attn_v / ffn_down may be functions of (layer, n_layer). Expert
+    stacks and the shared expert take the FFN roles' types, as llama.cpp's
+    quantizer gives them."""
     roles = {"token_embd": embd, "output": "Q6_K", "attn_q": attn_q, "attn_k": attn_k or attn_q,
              "attn_v": attn_v, "attn_output": attn_o, "ffn_gate": ffn, "ffn_up": ffn,
              "ffn_down": ffn_down}
+    for sfx in ("_exps", "_shexp"):
+        roles.update({"ffn_gate" + sfx: ffn, "ffn_up" + sfx: ffn, "ffn_down" + sfx: ffn_down})
 
     def type_of(role, il, n):
         t = roles[role]
@@ -298,7 +366,7 @@ def llama3_rope_freqs(w: Widths) -> np.ndarray:
     rope_freqs.weight for rope_scaling type llama3: 1 for short
     wavelengths, the factor for long ones, a smooth blend between."""
     factor, low, high, old_ctx = w.llama3_rope
-    dim = w.n_embd // w.n_head
+    dim = w.hd
     out = []
     for f in 1.0 / w.rope_theta ** (np.arange(0, dim, 2) / dim):
         wavelen = 2 * math.pi / f
@@ -316,29 +384,37 @@ def _fp16_bytes(a: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(a.astype(np.float16)).view(np.uint8).reshape(*a.shape, 2)
 
 
+def rand_bytes(rng: np.random.Generator, n: int) -> np.ndarray:
+    """n random bytes, a writable array: the bit generator's raw 64-bit
+    words, ~5x faster than Generator.bytes (the models' writes are GBs)."""
+    return rng.bit_generator.random_raw(-(-n // 8)).view(np.uint8)[:n]
+
+
 def q4k_blocks(rng: np.random.Generator, n_blocks: int) -> np.ndarray:
     """Random Q4_K blocks (ggml block_q4_K: fp16 d, fp16 dmin, 12 bytes of
     6-bit scales and mins, 128 bytes of nibbles) whose dequantized values
     d*sc*q - dmin*m have mean near 0 and std near 0.02: sc = m in [24, 40],
     dmin = 7.5 d, so each 32-value sub-block is d*sc*(q - 7.5)."""
-    b = np.frombuffer(rng.bytes(n_blocks * 144), np.uint8).reshape(n_blocks, 144).copy()
+    b = rand_bytes(rng, n_blocks * 144).reshape(n_blocks, 144)
     d = (1.4e-4 * rng.uniform(0.8, 1.2, n_blocks)).astype(np.float32)
-    b[:, 0:2] = _fp16_bytes(d)
-    b[:, 2:4] = _fp16_bytes(7.5 * d)
-    sc = rng.integers(24, 41, (n_blocks, 8), dtype=np.uint8)
-    m = sc
-    # ggml get_scale_min_k4 packing
-    b[:, 4:8] = sc[:, :4] | ((sc[:, 4:] >> 4) << 6)
-    b[:, 8:12] = m[:, :4] | ((m[:, 4:] >> 4) << 6)
-    b[:, 12:16] = (sc[:, 4:] & 0xF) | ((m[:, 4:] & 0xF) << 4)
+    b[:, 0:4] = np.concatenate([_fp16_bytes(d), _fp16_bytes(7.5 * d)], axis=1)
+    b[:, 4:16] = k4_scale_bytes(rng.integers(24, 41, (n_blocks, 8), dtype=np.uint8))
     return b
+
+
+def k4_scale_bytes(sc: np.ndarray) -> np.ndarray:
+    """The 12 bytes of ggml's get_scale_min_k4 packing of 6-bit scales and
+    mins, both sc (n_blocks, 8), built apart and written to the blocks at
+    once (strided column writes into the block rows cost more)."""
+    lo = sc[:, :4] | ((sc[:, 4:] >> 4) << 6)
+    return np.concatenate([lo, lo, (sc[:, 4:] & 0xF) * np.uint8(0x11)], axis=1)
 
 
 def q6k_blocks(rng: np.random.Generator, n_blocks: int) -> np.ndarray:
     """Random Q6_K blocks (ql[128], qh[64], int8 scales[16], fp16 d):
     value d*sc*(q - 32), q uniform in 0..63, sc in [4, 12], so the std is
     near 0.02."""
-    b = np.frombuffer(rng.bytes(n_blocks * 210), np.uint8).reshape(n_blocks, 210).copy()
+    b = rand_bytes(rng, n_blocks * 210).reshape(n_blocks, 210)
     b[:, 192:208] = rng.integers(4, 13, (n_blocks, 16), dtype=np.uint8)
     d = (1.35e-4 * rng.uniform(0.8, 1.2, n_blocks)).astype(np.float32)
     b[:, 208:210] = _fp16_bytes(d)
@@ -348,7 +424,7 @@ def q6k_blocks(rng: np.random.Generator, n_blocks: int) -> np.ndarray:
 def q8_0_blocks(rng: np.random.Generator, n_blocks: int) -> np.ndarray:
     """Random Q8_0 blocks (fp16 d, 32 int8 quants): value d*q, q uniform
     in -128..127, d near 2.7e-4, so the std is near 0.02."""
-    b = np.frombuffer(rng.bytes(n_blocks * 34), np.uint8).reshape(n_blocks, 34).copy()
+    b = rand_bytes(rng, n_blocks * 34).reshape(n_blocks, 34)
     b[:, 0:2] = _fp16_bytes((2.7e-4 * rng.uniform(0.8, 1.2, n_blocks)).astype(np.float32))
     return b
 
@@ -363,7 +439,7 @@ def quant_blocks(rng: np.random.Generator, qtype, n_blocks: int) -> np.ndarray:
         return {GGMLType.Q4_K: q4k_blocks, GGMLType.Q6_K: q6k_blocks,
                 GGMLType.Q8_0: q8_0_blocks}[qtype](rng, n_blocks)
     ts = GGML_TYPE_TRAITS[qtype].type_size
-    b = np.frombuffer(rng.bytes(n_blocks * ts), np.uint8).reshape(n_blocks, ts).copy()
+    b = rand_bytes(rng, n_blocks * ts).reshape(n_blocks, ts)
     u = rng.uniform(0.8, 1.2, n_blocks).astype(np.float32)
     if qtype == GGMLType.Q4_0:  # d (q - 8)
         b[:, 0:2] = _fp16_bytes(4.3e-3 * u)
@@ -373,12 +449,9 @@ def quant_blocks(rng: np.random.Generator, qtype, n_blocks: int) -> np.ndarray:
         b[:, 0:2] = _fp16_bytes(2.2e-3 * u)
         b[:, 2:4] = _fp16_bytes(-15.5 * 2.2e-3 * u)
     elif qtype == GGMLType.Q5_K:  # d sc q - dmin m, m = sc in [24, 40], dmin = 15.5 d
-        b[:, 0:2] = _fp16_bytes(6.8e-5 * u)
-        b[:, 2:4] = _fp16_bytes(15.5 * 6.8e-5 * u)
-        sc = rng.integers(24, 41, (n_blocks, 8), dtype=np.uint8)
-        b[:, 4:8] = sc[:, :4] | ((sc[:, 4:] >> 4) << 6)
-        b[:, 8:12] = sc[:, :4] | ((sc[:, 4:] >> 4) << 6)
-        b[:, 12:16] = (sc[:, 4:] & 0xF) | ((sc[:, 4:] & 0xF) << 4)
+        b[:, 0:4] = np.concatenate([_fp16_bytes(6.8e-5 * u), _fp16_bytes(15.5 * 6.8e-5 * u)],
+                                   axis=1)
+        b[:, 4:16] = k4_scale_bytes(rng.integers(24, 41, (n_blocks, 8), dtype=np.uint8))
     elif qtype == GGMLType.Q3_K:  # d (sc - 32) (q - 4), random 6-bit sc
         b[:, 108:110] = _fp16_bytes(4.7e-4 * u)
     elif qtype == GGMLType.Q2_K:  # d s q - dmin m, m = s in [8, 15], dmin = 1.5 d
@@ -408,13 +481,16 @@ def spm_byte_vocab(n_vocab: int):
 
 def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
     """A llama-family GGUF at widths `w`: every layer matrix (expert
-    stacks included) and token_embd Q4_K, output Q6_K, norms, biases and
-    the router F32 (as llama.cpp's quantizer leaves them), random block
-    bytes from `seed` (no output with `w.tied`; rope_freqs F32 with
-    `w.llama3_rope`). chatglm's ffn_down rows hold n_ff = 13696 values,
-    not a multiple of Q4_K's 256, so they are Q8_0, as llama.cpp's
-    quantizer falls back for such rows; with `w.q8` every matrix is; with
-    `w.quant` each tensor takes its LAYOUTS type."""
+    stacks and the shared expert included) and token_embd Q4_K, output
+    Q6_K, norms, biases, the routers and the per-head q/k norms F32 (as
+    llama.cpp's quantizer leaves them), random block bytes from `seed` (no
+    output with `w.tied`; rope_freqs F32 with `w.llama3_rope`). chatglm's
+    ffn_down rows hold n_ff = 13696 values, not a multiple of Q4_K's 256,
+    so they are Q8_0, as llama.cpp's quantizer falls back for such rows;
+    with `w.q8` every matrix is; with `w.quant` each tensor takes its
+    LAYOUTS type. The MoE archs' keys are llama.cpp's converter's:
+    expert_feed_forward_length (qwen), expert_shared_feed_forward_length,
+    attention.key_length / value_length, granite's scales."""
     from tpullama_torch.gguf import GGML_TYPE_TRAITS, GGMLType, GGUFWriter
 
     rng = np.random.default_rng(seed)
@@ -423,6 +499,9 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
     g.add_str("general.architecture", a)
     g.add_str("general.name", "synthetic-chatglm3-6b-shape" if a == "chatglm" else
               "synthetic-qwen2-1.5b-shape" if a == "qwen2" else
+              "synthetic-qwen3-30b-a3b-shape" if a == "qwen3moe" else
+              "synthetic-qwen2-57b-a14b-shape" if a == "qwen2moe" else
+              "synthetic-granite-3.0-3b-a800m-shape" if a == "granitemoe" else
               "synthetic-openllama-3b-shape" if w.q8 else
               "synthetic-llama3.2-1b-shape" if w.tied else
               "synthetic-mixtral-8x7b-shape" if w.n_expert else "synthetic-llama3-8b-shape")
@@ -432,13 +511,24 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
     g.add_u32(f"{a}.feed_forward_length", w.n_ff)
     g.add_u32(f"{a}.attention.head_count", w.n_head)
     g.add_u32(f"{a}.attention.head_count_kv", w.n_head_kv)
-    g.add_u32(f"{a}.rope.dimension_count", w.n_rot or w.n_embd // w.n_head)
+    g.add_u32(f"{a}.rope.dimension_count", w.n_rot or w.hd)
+    if w.head_dim:
+        g.add_u32(f"{a}.attention.key_length", w.head_dim)
+        g.add_u32(f"{a}.attention.value_length", w.head_dim)
     g.add_f32(f"{a}.attention.layer_norm_rms_epsilon", w.rms_eps)
     g.add_f32(f"{a}.rope.freq_base", w.rope_theta)
     g.add_u32(f"{a}.vocab_size", w.n_vocab)
     if w.n_expert:
         g.add_u32(f"{a}.expert_count", w.n_expert)
         g.add_u32(f"{a}.expert_used_count", w.n_expert_used)
+    if a in ("qwen2moe", "qwen3moe"):
+        g.add_u32(f"{a}.expert_feed_forward_length", w.n_ff)
+    if w.n_ff_shexp:
+        g.add_u32(f"{a}.expert_shared_feed_forward_length", w.n_ff_shexp)
+    if w.scales:
+        for key, v in zip(("embedding_scale", "residual_scale", "logit_scale",
+                           "attention.scale"), w.scales):
+            g.add_f32(f"{a}.{key}", v)
     tokens, scores, types = spm_byte_vocab(w.n_vocab)
     g.add_str("tokenizer.ggml.model", "llama")
     g.add_array("tokenizer.ggml.tokens", tokens)
@@ -464,7 +554,7 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
         g.add_tensor(name, (1.0 + 0.1 * rng.standard_normal(n)).astype(np.float32),
                      GGMLType.F32)
 
-    E, F, kv = w.n_embd, w.n_ff, (w.n_embd // w.n_head) * w.n_head_kv
+    E, F, kv, hq = w.n_embd, w.n_ff, w.hd * w.n_head_kv, w.hd * w.n_head
     Q4 = GGMLType.Q4_K
     quant("token_embd.weight", (w.n_vocab, E), Q4)
     norm("output_norm.weight", E)
@@ -483,15 +573,18 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
                          (0.1 * rng.standard_normal(E + 2 * kv)).astype(np.float32),
                          GGMLType.F32)
         else:
-            quant(p + "attn_q.weight", (E, E), Q4)
+            quant(p + "attn_q.weight", (hq, E), Q4)
             quant(p + "attn_k.weight", (kv, E), Q4)
             quant(p + "attn_v.weight", (kv, E), Q4)
-            if a == "qwen2":
-                for nm, n in (("attn_q", E), ("attn_k", kv), ("attn_v", kv)):
+            if a in ("qwen2", "qwen2moe"):
+                for nm, n in (("attn_q", hq), ("attn_k", kv), ("attn_v", kv)):
                     g.add_tensor(p + nm + ".bias",
                                  (0.1 * rng.standard_normal(n)).astype(np.float32),
                                  GGMLType.F32)
-        quant(p + "attn_output.weight", (E, E), Q4)
+            if a == "qwen3moe":
+                norm(p + "attn_q_norm.weight", w.hd)
+                norm(p + "attn_k_norm.weight", w.hd)
+        quant(p + "attn_output.weight", (E, hq), Q4)
         norm(p + "ffn_norm.weight", E)
         if a == "chatglm":
             quant(p + "ffn_up.weight", (2 * F, E), Q4)
@@ -503,6 +596,14 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
             quant(p + "ffn_gate_exps.weight", (n_x, F, E), Q4)
             quant(p + "ffn_up_exps.weight", (n_x, F, E), Q4)
             quant(p + "ffn_down_exps.weight", (n_x, E, F), Q4)
+            if w.n_ff_shexp:
+                Fs = w.n_ff_shexp
+                g.add_tensor(p + "ffn_gate_inp_shexp.weight",
+                             (0.02 * rng.standard_normal((1, E))).astype(np.float32),
+                             GGMLType.F32)
+                quant(p + "ffn_gate_shexp.weight", (Fs, E), Q4)
+                quant(p + "ffn_up_shexp.weight", (Fs, E), Q4)
+                quant(p + "ffn_down_shexp.weight", (E, Fs), Q4)
         else:
             quant(p + "ffn_gate.weight", (F, E), Q4)
             quant(p + "ffn_up.weight", (F, E), Q4)
@@ -852,7 +953,12 @@ def gathered_cases(timer, gen, device, out: list) -> None:
     2 distinct experts (decode_sel): both one-row kernels read each expert
     once per run of up to 4 tiles, so their bounds count the distinct
     experts' bytes; at 62 one-row slots (a 31-token chunk, the most below
-    the dispatch) each expert is read about twice."""
+    the dispatch) each expert is read about twice. The q1/q2 sets of the
+    row-major kernel (csrc/qmm_gathered_lowbit.cu) at Mixtral's [gate | up]
+    (8 one-row tiles over 8 experts, 2048 slots in 8-row tiles), and at
+    Qwen3-30B-A3B's served shapes: [gate | up] 1536 x 2048 in Q2_K and down
+    2048 x 768 in Q3_K over 128 experts, the B = 4 decode step's 32
+    one-row tiles (8 experts a token)."""
     import torch
     import torch.nn.functional as F
 
@@ -861,12 +967,14 @@ def gathered_cases(timer, gen, device, out: list) -> None:
     from tpullama_torch.ops.moe import moe_dispatch
 
     Q4, Q6, Q8 = GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0
+    Q5K, Q5_0, Q5_1, Q3, Q2 = (GGMLType.Q5_K, GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.Q3_K,
+                               GGMLType.Q2_K)
     bf16, f32 = torch.bfloat16, torch.float32
-    E = 8
     served, small = ((8, 1), (2048, 8)), ((8, 1), (512, 8))
     # (transposed, type, n_out per expert, K, scale dtypes, (slots, tile_t)
-    # routings): Mixtral's [gate | up] (row-major) and down (transposed)
-    # stacks, then the other field sets and padded rows (320 of 384)
+    # routings[, experts, experts a token]): Mixtral's [gate | up]
+    # (row-major) and down (transposed) stacks, then the other field sets
+    # and padded rows (320 of 384), then the q1/q2 sets
     decode = ((8, 1, 8), (8, 1, 6), (8, 1, 2), (62, 1))
     cases = [(False, Q4, 2 * 14336, 4096, (bf16,), decode + ((512, 8), (2048, 8))),
              (True, Q4, 4096, 14336, (bf16,), ((8, 1),) + decode + ((512, 8), (2048, 8))),
@@ -878,8 +986,13 @@ def gathered_cases(timer, gen, device, out: list) -> None:
              # down stack of a 768-wide expert FFN at Mixtral's width
              (False, Q4, 1536, 768, (bf16,), small),
              (True, Q4, 4096, 768, (bf16,), small)]
-    group = {Q4: 32, Q6: 16, Q8: 32}
-    for planes_t, qt, N, K, sdts, routings in cases:
+    cases += [(False, qt, 2 * 14336, 4096, (bf16,), ((8, 1, 8), (2048, 8)))
+              for qt in (Q5K, Q5_0, Q5_1, Q3, Q2)]
+    cases += [(False, Q2, 2 * 768, 2048, (bf16,), ((32, 1),), 128, 8),
+              (False, Q3, 2048, 768, (bf16,), ((32, 1),), 128, 8)]
+    group = {Q4: 32, Q6: 16, Q8: 32, Q5K: 32, Q5_0: 32, Q5_1: 32, Q3: 16, Q2: 16}
+    for planes_t, qt, N, K, sdts, routings, *moe in cases:
+        E, k_used = moe or (8, 2)
         g = group[qt]
         R = -(-N // 128) * 128
         name = "qmm_gathered_t" if planes_t else "qmm_gathered"
@@ -902,8 +1015,9 @@ def gathered_cases(timer, gen, device, out: list) -> None:
             for S, tt, *spread in routings:
                 if spread:
                     sel = decode_sel(S // 2, E, spread[0], gen, device)
-                else:  # top-2 of 8 distinct experts per token
-                    sel = torch.rand((S // 2, E), generator=gen, device=device).argsort(-1)[:, :2]
+                else:  # top-k of E distinct experts per token
+                    sel = torch.rand((S // k_used, E), generator=gen,
+                                     device=device).argsort(-1)[:, :k_used]
                     sel = sel.reshape(S).to(torch.int32)
                 x_slots = torch.randn((S, K), generator=gen, device=device)
                 if tt == 1:
@@ -935,7 +1049,7 @@ def gathered_cases(timer, gen, device, out: list) -> None:
                 ms = timer.ms(kern, 20)
                 plain_ms = timer.ms(plain, 3)
                 xb = x_slots.to(bf16)
-                if tt == 1 and S <= 8:
+                if tt == 1 and S <= 32:
                     lib = "torch.bmm on the gathered bf16 expert weights"
                     w_sel = w_lib[sel.long()].transpose(1, 2)
                     lib_ms = timer.ms(lambda: torch.bmm(xb[:, None, :], w_sel), 20)
@@ -1213,12 +1327,18 @@ def phase_model(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
     lm = (model.quant_meta or {}).get("layers", {})
     attn = {"attn_q", "attn_k", "attn_v", "attn_output"}
     if widths.n_expert:
-        check(set(lm) == attn | {"ffn_gateup_exps", "ffn_down_exps"},
+        shexp = {"ffn_gate_shexp", "ffn_up_shexp", "ffn_down_shexp"} if widths.n_ff_shexp else set()
+        want = (packed_roles(widths) & attn if widths.quant else attn) | shexp
+        check(set(lm) == want | {"ffn_gateup_exps", "ffn_down_exps"},
               f"every layer matrix and expert stack is packed: {sorted(lm)}")
-        # gate|up (K = 4096: every plane width a multiple of 128) row-major,
-        # down (K = 14336: 448 scale groups) transposed
-        check(not lm["ffn_gateup_exps"].planes_t and lm["ffn_down_exps"].planes_t,
-              "ffn_gateup_exps row-major and ffn_down_exps transposed")
+        # the loader's planes_t rule: a one-stripe set (Q4_0/Q4_1/Q4_K,
+        # Q8_0) whose scale plane (K / 32 columns) is no multiple of 128 is
+        # stored transposed (Mixtral's down, K = 14336: 448 columns); the
+        # q1/q2 sets never are
+        for key, K in (("ffn_gateup_exps", widths.n_embd), ("ffn_down_exps", widths.n_ff)):
+            one_stripe = lm[key].ggml_type.name in ("Q4_0", "Q4_1", "Q4_K", "Q8_0")
+            check(lm[key].planes_t == (one_stripe and K % 4096 != 0),
+                  f"{key} ({lm[key].ggml_type.name}, K={K}) planes_t={lm[key].planes_t}")
     elif widths.quant:
         want = packed_roles(widths)
         check(set(lm) == want, f"packed {sorted(lm)}, want {sorted(want)}")
@@ -1256,20 +1376,58 @@ def phase_model(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
     return model
 
 
+def dense_reference(model):
+    """A CPU reference model's packed matrices dequantized once, to dense
+    f32 in natural order: the same exact weights its plain versions would
+    dequantize at every call, so its steps run plain matmuls. The expert
+    stacks stay packed (their plain gathered product dequantizes each
+    selected expert once a call, and the dense expert branch would gather a
+    (B, T, k, F, D) tensor). Returns the model."""
+    import torch
+
+    from tpullama_torch.ops.cuda import qmm
+
+    def dense(fields, m):
+        w = qmm.dequant_stored(fields, m.ggml_type, m.group)
+        # stored column p holds natural element idx[p]
+        idx = qmm.permute_x(torch.arange(m.n_in, dtype=torch.float32)[None], m.group,
+                            m.order)[0].long()
+        out = torch.empty_like(w)
+        out[:, idx] = w
+        return out[:m.n_out]
+
+    qm = model.quant_meta or {}
+    if "output" in qm:
+        model.params["output"] = dense(model.params["output"], qm.pop("output"))
+    lm = qm.get("layers", {})
+    layers = model.params.get("layers", {})
+    for key in [k for k in lm if not k.endswith("_exps")]:
+        m, st = lm.pop(key), layers[key]
+        layers[key] = torch.stack([dense({k: v[il] for k, v in st.items()}, m)
+                                   for il in range(next(iter(st.values())).shape[0])])
+    if not lm:
+        qm.pop("layers", None)
+    model.quant_meta = qm or None
+    return model
+
+
 def phase_crosscheck(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
                      n_layer: int = 2, phase: str = "crosscheck", fused_layer: bool = False,
                      qmm_tile_k: int | None = None, runtime_ops: bool = False,
-                     compare_native: bool = False) -> None:
+                     compare_native: bool = False, n_prompt: int = 32) -> None:
     """A model at the same widths cut to n_layer layers, f32 activations and
     cache on both sides: `device` (the card) runs the kernels, the CPU the
-    plain versions, both with the fused layer and K-chunks as given. With
+    plain versions, both with the fused layer and K-chunks as given;
+    without them the CPU's matrices are dequantized once at load
+    (dense_reference; the experts stay packed). With
     the fused layer on, the card's greedy run with both off, on the same
     fourblock planes, must give the same tokens too. With `runtime_ops`,
     Context.embeddings of the prompt for each pooling (none, mean, cls,
     last) within the logits' tolerance formula, and the seq ops
     (seq_ops_case) on the same two models. With `compare_native`, the CPU
     model is loaded through the native host library and through the numpy
-    codecs, timed, and the two must hold the same bits."""
+    codecs, timed, and the two must hold the same bits. The prompt is
+    n_prompt tokens (a shorter one where the CPU's steps are slow)."""
     import torch
 
     from tpullama_torch.models import load_model
@@ -1293,25 +1451,33 @@ def phase_crosscheck(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
         check(same_params(cpu.params, plain.params),
               "the native and the numpy loads hold different parameters")
         del plain
+    if not fused_layer and qmm_tile_k is None:
+        dense_reference(cpu)
     os.remove(path)
     opts = dict(fused_layer=fused_layer, qmm_tile_k=qmm_tile_k)
     prompt = gpu.vocab.tokenize(word_prompt(np.random.default_rng(2), 40), add_special=True)
-    prompt = np.asarray(prompt[:32], np.int32)
-    check(len(prompt) == 32, f"prompt has {len(prompt)} tokens")
+    prompt = np.asarray(prompt[:n_prompt], np.int32)
+    check(len(prompt) == n_prompt, f"prompt has {len(prompt)} tokens")
     cp = ContextParams(n_ctx=256)
-    lg = Context(gpu, cp, **opts).decode(prompt, n_logits=32)
+    lg = Context(gpu, cp, **opts).decode(prompt, n_logits=n_prompt)
     # with its final-norm hidden states: the CPU side of the embeddings check
-    lc, hidden = Context(cpu, cp, **opts)._decode(prompt, 32, 0, embd=runtime_ops)
+    cc = Context(cpu, cp, **opts)
+    lc, hidden = cc._decode(prompt, n_prompt, 0, embd=runtime_ops)
     err = float(np.abs(lg - lc).max())
     # f32 end to end; sums run in another order on the card
     tol = 1e-3 * float(np.abs(lc).max()) + 1e-4
     check(np.isfinite(lg).all() and err <= tol, f"prefill logits err {err} > tol {tol}")
     check(int(lg[-1].argmax()) == int(lc[-1].argmax()), "prefill argmax differs")
     out_g = Context(gpu, cp, **opts).generate(prompt, n_predict=8)
-    out_c = Context(cpu, cp, **opts).generate(prompt, n_predict=8)
+    # the CPU's greedy tokens continue its prefilled Context (generate's
+    # host loop) rather than prefill again
+    out_c = greedy_continue(cc, lc[-1], 8)
     check(out_g == out_c, f"greedy tokens differ: card {out_g} cpu {out_c}")
+    lm = (gpu.quant_meta or {}).get("layers", {})
     rec = {"phase": phase, "layers": n_layer, "prompt_tokens": len(prompt),
            "quant": widths.quant or None, "cpu_load_s": load_s,
+           "expert_types": {k: (m.ggml_type.name, "transposed" if m.planes_t else "row-major")
+                            for k, m in lm.items() if k.endswith("_exps")},
            "prefill_max_abs_err": err, "tol": tol, "argmax": int(lc[-1].argmax()),
            "greedy_tokens": out_g, **opts}
     if runtime_ops:
@@ -1338,6 +1504,20 @@ def phase_crosscheck(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
     emit({**rec, "seconds": time.perf_counter() - t0})
 
 
+def greedy_continue(ctx, logits, n: int) -> list:
+    """Context.generate's greedy host loop from a Context that holds the
+    prompt and its last logits: n tokens, stopping after an end-of-
+    generation token."""
+    out = []
+    for _ in range(n):
+        tok = int(np.argmax(logits))
+        out.append(tok)
+        if ctx.model.vocab.is_eog(tok):
+            break
+        logits = ctx.decode(np.asarray([tok], np.int32))[-1]
+    return out
+
+
 def same_params(a: dict, b: dict) -> bool:
     """Two parameter trees hold the same tensors, bit for bit."""
     import torch
@@ -1356,14 +1536,14 @@ QUANT_CROSS = ("Q3_K_M", "Q2_K", "Q5_0_Q5_1", "Q4_0", "IQ4_XS")
 def phase_quant_crosscheck(tmp: str, card: str, device: str = "cuda",
                            widths: Widths = replace(LLAMA32_1B, tied=False),
                            layouts: tuple = QUANT_CROSS, phase: str = "quant_crosscheck") -> None:
-    """The cross-check (2 layers, card against CPU: prefill logits and
+    """The cross-check (1 layer, card against CPU: prefill logits and
     greedy tokens) on a model of each layout; then the split loads and the
-    CLI on the Q5_0/Q5_1 model (split_case)."""
+    CLI on the Q5_0/Q5_1 model (split_case, 1 layer)."""
     t0 = time.perf_counter()
     for layout in layouts:
-        phase_crosscheck(tmp, replace(widths, quant=layout), device=device, n_layer=2,
+        phase_crosscheck(tmp, replace(widths, quant=layout), device=device, n_layer=1,
                          phase=f"{phase}_{layout}")
-    split_case(tmp, replace(widths, quant="Q5_0_Q5_1", n_layer=2), card, device=device,
+    split_case(tmp, replace(widths, quant="Q5_0_Q5_1", n_layer=1), card, device=device,
                phase=f"{phase}_split")
     emit({"phase": phase, "layouts": list(layouts), "seconds": time.perf_counter() - t0})
 
@@ -2782,7 +2962,7 @@ KERNELS = (
     ("flash_decode_batched", "tpullama_torch/csrc/flash_decode.cu",
      "tpullama/ops/pallas/flash_decode.py:141", dict(B=4, S=4224, D=128, extras=[])),
     ("qmm_gathered", "tpullama_torch/csrc/qmm_gathered.cu", "tpullama/ops/pallas/qmm.py:655",
-     dict(slots=2048, N=28672, K=4096, scales="bfloat16")),
+     dict(slots=2048, N=28672, K=4096, scales="bfloat16", type="Q4_K")),
     ("qmm_gathered_t", "tpullama_torch/csrc/qmm_gathered.cu", "tpullama/ops/pallas/qmm.py:771",
      dict(slots=2048, N=4096, K=14336, scales="bfloat16")),
     ("qmm_ktiled", "tpullama_torch/csrc/qmm_ktiled.cu", "tpullama/ops/pallas/qmm.py:450",
@@ -2833,6 +3013,14 @@ PATH_KERNELS = {
     "int8kv": ("qmm_gemv", "qmm_tiled", "flash_attention_int8", "flash_decode_batched_int8",
                "flash_attention", "flash_decode_batched"),
     "int8kv_crosscheck": ("qmm_gemv", "qmm_tiled", "flash_attention_int8", "flash_decode_int8"),
+    # Q2_K [gate | up] and Q3_K down experts, row-major (the q1/q2 sets of
+    # qmm_gathered); Qwen2-57B-A14B's Q5_1 experts; granite's Q4_K experts
+    # at K = 1536 and 512, whose scale planes are no multiple of 128, so
+    # stored transposed
+    "qwen3moe_crosscheck": _DENSE_CROSS + ("qmm_gathered",),
+    "qwen3moe_serve": _DENSE_SERVE + ("qmm_gathered",),
+    "qwen2moe_crosscheck": _DENSE_CROSS + ("qmm_gathered",),
+    "granitemoe_crosscheck": _DENSE_CROSS + ("qmm_gathered_t",),
     # lanes saved and loaded (f32 and int8 caches), the HTTP engine, the CLI
     "state": ("qmm_gemv", "qmm_tiled", "flash_attention", "flash_decode", "flash_decode_batched",
               "flash_attention_int8", "flash_decode_int8"),
@@ -2844,7 +3032,13 @@ PATHS = (("", LLAMA3_8B, 2, 4, {}),
          ("glm_", CHATGLM3_6B, 1, 1, GLM_OPTS),
          ("qwen_", QWEN2_1_5B, 2, 0, {}),  # the cross-check alone
          ("openllama_", OPENLLAMA_3B, 2, 0, {}),
-         ("q5km_", LLAMA3_8B_Q5KM, 2, 4, {}))
+         ("q5km_", LLAMA3_8B_Q5KM, 1, 4, {}),
+         ("qwen3moe_", QWEN3_30B_A3B, 1, 4, {}),
+         ("qwen2moe_", QWEN2_57B_A14B, 1, 0, {}),
+         ("granitemoe_", GRANITE_3B_A800M, 2, 0, {}))
+# the cross-checks' prompt tokens where not 32: Qwen2-57B-A14B's CPU steps
+# dequantize its 20480-wide shared expert and 151936-row output per call
+CROSS_PROMPT = {"qwen2moe_": 16}
 
 
 def path_launches(path: str, run) -> tuple[dict, object]:
@@ -2864,9 +3058,10 @@ def path_launches(path: str, run) -> tuple[dict, object]:
 
 def kernels_line(records: list, launches: dict) -> dict:
     """Every kernel with its launches on each path that ran (and their sum)
-    and its numbers at the served shape from the kernels phase; qmm_gemv
-    and qmm_tiled also at that shape for every other field set
-    (`by_type`: Q6_K, and the q1/q2 sets of csrc/qmm_lowbit.cu)."""
+    and its numbers at the served shape from the kernels phase; qmm_gemv,
+    qmm_tiled and qmm_gathered also at that shape for every other field set
+    (`by_type`: Q6_K, and the q1/q2 sets of csrc/qmm_lowbit.cu and
+    csrc/qmm_gathered_lowbit.cu)."""
     rows = []
     nums = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, src, replaces, key in KERNELS:
@@ -2946,7 +3141,8 @@ def main() -> int:
 
     launches: dict = {}
     # the Llama path (and its HTTP server), the Mixtral path, the ChatGLM
-    # path, then the cross-checks alone
+    # path, then the cross-checks alone, the Q5_K_M Llama path, the Qwen3
+    # MoE path and the other MoE archs' cross-checks
     for pre, widths, cross_layers, n_slots, opts in PATHS:
         run = [p for p in ("model", "crosscheck", "serve", "graphs", "http", "spec", "int8kv",
                            "int8kv_crosscheck", "state") if pre + p in phases]
@@ -2961,7 +3157,8 @@ def main() -> int:
                 launches[pre + "crosscheck"], _ = path_launches(
                     pre + "crosscheck", lambda: phase_crosscheck(
                         tmp, widths, n_layer=cross_layers, phase=pre + "crosscheck",
-                        runtime_ops=not pre, compare_native=bool(widths.quant), **opts))
+                        runtime_ops=not pre, compare_native=pre == "q5km_",
+                        n_prompt=CROSS_PROMPT.get(pre, 32), **opts))
             serve_tokens = None
             if "serve" in run:
                 layers = model.params["layers"]

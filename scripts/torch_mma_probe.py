@@ -343,13 +343,15 @@ VARIANTS = {
 # the file each body's patches edit, and the sources each copy builds
 HEADER = {"mma": "qmm_mma.cuh", "group": "qmm_group_mma.cuh", "attention": "flash_attention.cu",
           "gemv": "qmm_gemv.cuh", "fused": FL, "gathered_t": "qmm_gathered.cu", "ktiled": KT}
-# qmm.cu links with qmm_lowbit.cu (its entry points dispatch the q1/q2 sets there)
+# qmm.cu links with qmm_lowbit.cu and qmm_gathered.cu with
+# qmm_gathered_lowbit.cu (their entry points dispatch the q1/q2 sets there)
 QMM = ("qmm.cu", "qmm_lowbit.cu")
-QMM_SOURCES = (*QMM, "qmm_gathered.cu", "qmm_ktiled.cu")
+GATHERED = ("qmm_gathered.cu", "qmm_gathered_lowbit.cu")
+QMM_SOURCES = (*QMM, *GATHERED, "qmm_ktiled.cu")
 SOURCES = {"mma": QMM_SOURCES, "group": QMM_SOURCES,
            "attention": ("flash_attention.cu", "flash_attention_int8.cu", "flash_decode.cu",
                          "flash_decode_int8.cu", *QMM), "gemv": QMM,
-           "fused": ("fused_layer.cu", *QMM), "gathered_t": (*QMM, "qmm_gathered.cu"),
+           "fused": ("fused_layer.cu", *QMM), "gathered_t": (*QMM, *GATHERED),
            "ktiled": (*QMM, "qmm_ktiled.cu")}
 # bodies timed after both flushes, with GB/s
 READ_FLUSH = ("gemv", "fused", "gathered_t", "ktiled")

@@ -29,12 +29,34 @@ from tpullama_torch.ops.cuda import qmm_gathered as gq
 E, D, F = 4, 256, 320  # F = 320: expert rows padded to 384 (not a multiple of 128)
 
 
+# the q1/q2 field sets (Q5_0/Q5_1/Q5_K {q4, q1}, Q3_K {q2, q1}, Q2_K {q2}),
+# which the row-major gathered kernel takes (csrc/qmm_gathered_lowbit.cu)
+LOWBIT = (GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.Q5_K, GGMLType.Q3_K, GGMLType.Q2_K)
+
+
+def _raw(qtype, n_rows, n_in, rng):
+    """Block bytes of an (n_rows, n_in) matrix: quantized from normal values
+    (std 0.1), or for Q2_K / Q3_K (no quantizer in the JAX package) random
+    blocks with small fp16 scales."""
+    if qtype not in (GGMLType.Q2_K, GGMLType.Q3_K):
+        return quantize((rng.standard_normal((n_rows, n_in)) * 0.1).astype(np.float32), qtype)
+    from tpullama.gguf.constants import GGML_TYPE_TRAITS
+
+    tr = GGML_TYPE_TRAITS[qtype]
+    nb = n_rows * n_in // tr.block_size
+    b = rng.integers(0, 256, (nb, tr.type_size), dtype=np.uint8)
+    if qtype == GGMLType.Q2_K:
+        b[:, 80:84] = rng.uniform(1e-3, 2e-3, (nb, 2)).astype("<f2").view(np.uint8)
+    else:
+        b[:, 108:110] = rng.uniform(3e-4, 6e-4, (nb, 1)).astype("<f2").view(np.uint8)
+    return b.reshape(-1)
+
+
 def _experts(qtype, n_rows, n_in, seed, planes_t=False, pad=True):
     """E random experts (n_rows, n_in) repacked: planes (E, rows_p, kcols),
     rows zero-padded to 128 when `pad`, transposed when `planes_t`."""
     rng = np.random.default_rng(seed)
-    pqs = [repack(quantize((rng.standard_normal((n_rows, n_in)) * 0.1).astype(np.float32),
-                           qtype), qtype, (n_rows, n_in)) for _ in range(E)]
+    pqs = [repack(_raw(qtype, n_rows, n_in, rng), qtype, (n_rows, n_in)) for _ in range(E)]
     rows_p = -(-n_rows // 128) * 128 if pad else n_rows
     fields = {k: np.pad(np.stack([pq.fields[k] for pq in pqs]),
                         ((0, 0), (0, rows_p - n_rows), (0, 0)))
@@ -48,9 +70,10 @@ def _tol(want):
     return dict(rtol=1e-5, atol=1e-4 + 1e-6 * float(np.abs(want).max()))
 
 
-GATHERED_CASES = [(qt, tt, pt) for qt in (GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0)
+GATHERED_CASES = [(qt, tt, pt) for qt in (GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0, *LOWBIT)
                   for tt in (1, 8) for pt in (False, True)
-                  if not (pt and qt == GGMLType.Q6_K)]  # Q6_K is never stored transposed
+                  # Q6_K and the q1/q2 sets are never stored transposed
+                  if not (pt and qt in (GGMLType.Q6_K, *LOWBIT))]
 
 
 @pytest.mark.parametrize("qtype,tile_t,planes_t", GATHERED_CASES,
@@ -191,6 +214,100 @@ def test_moe_ffn_packed_matches_jax(T, layout):
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("T", [1, 40])
+@pytest.mark.parametrize("qtype", [GGMLType.Q5_K, GGMLType.Q3_K, GGMLType.Q2_K],
+                         ids=lambda t: t.name)
+def test_moe_ffn_lowbit_experts_match_jax(qtype, T):
+    """moe_ffn over fused [gate | up] and down stacks in a q1/q2 set (K =
+    256 both ways: D and an FFN of 256; row-major, as the loader keeps
+    them) against the JAX package's moe_ffn, whose gathered kernel runs in
+    interpret mode: one-row tiles (T = 1) and the dispatch's 8-row tiles
+    (T = 40)."""
+    import jax.numpy as jnp
+
+    from tpullama.models.loader import QuantMeta as JQuantMeta
+    from tpullama.ops import moe as j_moe
+
+    Fl = 256
+    x, gate_inp = _router_inputs(T, seed=12)
+    g, group = _experts(qtype, Fl, D, 1)
+    u, _ = _experts(qtype, Fl, D, 2)
+    dn, _ = _experts(qtype, D, Fl, 3)
+    gu = {k: np.concatenate([g[k], u[k]], axis=-2) for k in g}
+    shapes = {"gateup": (E * 2 * Fl, D), "down": (E * D, Fl)}
+    jm = {k: JQuantMeta(qtype, group, *v) for k, v in shapes.items()}
+    tm = {k: TQuantMeta(qtype, group, *v) for k, v in shapes.items()}
+    want = np.asarray(j_moe.moe_ffn(
+        jnp.asarray(x), jnp.asarray(gate_inp), None, {k: jnp.asarray(v) for k, v in gu.items()},
+        {k: jnp.asarray(v) for k, v in dn.items()}, n_expert_used=2, quant_meta_exps=jm))
+    got = t_moe.moe_ffn(
+        torch.from_numpy(x), torch.from_numpy(gate_inp), None,
+        {k: torch.from_numpy(v) for k, v in gu.items()},
+        {k: torch.from_numpy(v) for k, v in dn.items()}, n_expert_used=2, quant_meta_exps=tm)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+def _tile_body_values(fields, qtype, K):
+    """The integers the tensor-core tile body (csrc/qmm_mma.cuh) assembles
+    for every row, emulated: for each 32-position chunk c, the byte runs a
+    weight thread copies (mma_copy_w: the low plane's run; Q5 and Q3 the
+    q1 plane's run at Geo::high_byte) and how decode_vals unpacks them
+    (Q5's bits 4 j + hs, Q3's bits 2 j + hs, hs = Geo::high_shift), placed
+    at the stored positions Geo::seg_start gives. Returns (rows, K) int."""
+    nseg = 1 if qtype == GGMLType.Q8_0 else 2 if qtype in (GGMLType.Q4_K, *LOWBIT[:3]) else 4
+    seg = 32 // nseg
+    f = {k: v.astype(np.int64) for k, v in fields.items()}
+    rows = next(iter(f.values())).shape[0]
+    out = np.full((rows, K), -1, np.int64)
+    for c in range(K // 32):
+        hb, hs = seg * c % (K // 8), (128 * c // K if nseg == 2 else 64 * c // K)
+        if qtype in (GGMLType.Q4_K, *LOWBIT[:3]):
+            q = f["q4"][:, 16 * c:16 * c + 16]
+            w = [q & 15, q >> 4]
+            if "q1" in f:
+                h = f["q1"][:, hb:hb + 16] >> hs
+                w = [w[0] | (h & 1) << 4, w[1] | ((h >> 4) & 1) << 4]
+        elif qtype == GGMLType.Q6_K:
+            a = f["q4"][:, 8 * c:8 * c + 8]
+            b = f["q4"][:, K // 4 + 8 * c:K // 4 + 8 * c + 8]
+            h = f["q2"][:, 8 * c:8 * c + 8]
+            w = [(a & 15) | (h & 3) << 4, (b & 15) | ((h >> 2) & 3) << 4,
+                 (a >> 4) | ((h >> 4) & 3) << 4, (b >> 4) | ((h >> 6) & 3) << 4]
+        elif qtype in (GGMLType.Q3_K, GGMLType.Q2_K):
+            a = f["q2"][:, 8 * c:8 * c + 8]
+            w = [(a >> (2 * j)) & 3 for j in range(4)]
+            if "q1" in f:
+                h = f["q1"][:, hb:hb + 8] >> hs
+                w = [w[j] | ((h >> (2 * j)) & 1) << 2 for j in range(4)]
+        else:
+            w = [f["q8"][:, 32 * c:32 * c + 32]]
+        for j in range(nseg):
+            p0 = j * (K // nseg) + seg * c
+            out[:, p0:p0 + seg] = w[j]
+    return out
+
+
+@pytest.mark.parametrize("K", [256, 768, 2560])
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K, *LOWBIT], ids=lambda t: t.name)
+def test_tile_body_unpacks_every_set(qtype, K):
+    """The tile body's chunk layout and unpacking, emulated on the CPU
+    (_tile_body_values), give every stored position exactly the integer
+    the plain version dequantizes (dequant_stored with unit scales and no
+    mins): for the q1/q2 sets the tile routes of the row-major gathered
+    kernel now take, and the Q4_K and Q6_K sets they took before."""
+    from tpullama_torch.ops.cuda.qmm import dequant_stored
+
+    pq = repack(_raw(qtype, 8, K, np.random.default_rng(K)), qtype, (8, K))
+    G = K // pq.group
+    unit = {k: (np.ones((8, G), np.float32) if k == "scale" else
+                np.zeros((8, G), np.float32) if k == "minv" else v)
+            for k, v in pq.fields.items()}
+    want = dequant_stored({k: torch.from_numpy(v) for k, v in unit.items()}, qtype,
+                          pq.group).numpy()
+    got = _tile_body_values(pq.fields, qtype, K)
+    np.testing.assert_array_equal(got, want.astype(np.int64))
+
+
 @pytest.mark.parametrize("option", [
     dict(up_exps_b=np.zeros((E, F), np.float32)), dict(gate_exps_b=np.zeros((E, F), np.float32)),
     dict(down_exps_b=np.zeros((E, D), np.float32)), dict(weight_before_ffn=True),
@@ -264,10 +381,10 @@ def test_run_plan_covers_each_tile_once(n_tiles, n_expert, sort):
 
 
 def test_run_cap():
-    """The wrapper's run cap is the kernel's (GATHER_RUN), 4: one expert
-    picked by 20 tiles is read in 5 runs of 4, interleaved tiles keep
-    their order."""
-    src = (Path(gq.__file__).parents[2] / "csrc" / "qmm_gathered.cu").read_text()
+    """The wrapper's run cap is the kernels' (GATHER_RUN, in the header both
+    gathered sources include), 4: one expert picked by 20 tiles is read in
+    5 runs of 4, interleaved tiles keep their order."""
+    src = (Path(gq.__file__).parents[2] / "csrc" / "qmm_gathered.cuh").read_text()
     assert f"constexpr int GATHER_RUN = {gq.RUN_CAP};" in src
     assert gq.RUN_CAP == 4
     assert gq.run_plan([2] * 20) == [list(range(i, i + 4)) for i in range(0, 20, 4)]
@@ -428,7 +545,8 @@ def test_gathered_kernel_matches_plain(cuda, qtype, planes_t, tile_t):
 @pytest.mark.parametrize("qtype,planes_t,tt", [
     (GGMLType.Q4_K, False, 8), (GGMLType.Q6_K, False, 8), (GGMLType.Q8_0, False, 8),
     (GGMLType.Q4_K, True, 2), (GGMLType.Q4_K, True, 8), (GGMLType.Q8_0, True, 2),
-    (GGMLType.Q8_0, True, 8)], ids=lambda v: getattr(v, "name", str(v)))
+    (GGMLType.Q8_0, True, 8), *[(qt, False, 8) for qt in LOWBIT]],
+    ids=lambda v: getattr(v, "name", str(v)))
 def test_gathered_mma_route_over_expert_runs(cuda, qtype, planes_t, tt):
     """Both kernels' tensor-core routes (row-major planes: qmm_mma.cuh,
     16 tiles per block; transposed: qmm_group_mma.cuh, 8): 24 tiles whose
@@ -478,7 +596,7 @@ _ONE_ROW_SELS = {"repeats": [3, 1, 1, 0, 3, 2, 2, 0], "distinct": [2, 0, 3, 1],
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("pattern", sorted(_ONE_ROW_SELS))
-@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0],
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0, *LOWBIT],
                          ids=lambda t: t.name)
 def test_one_row_gathered_kernel_matches_plain(cuda, qtype, pattern):
     """Row-major one-row tiles on the decode body over runs of tiles that
@@ -504,7 +622,7 @@ def test_one_row_gathered_kernel_matches_plain(cuda, qtype, pattern):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0],
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0, *LOWBIT],
                          ids=lambda t: t.name)
 def test_one_row_gathered_rows_do_not_depend_on_sharing(cuda, qtype):
     """A one-row tile's output is bit for bit the same computed alone and
@@ -575,6 +693,36 @@ def test_one_row_gathered_t_rows_do_not_depend_on_sharing(cuda, qtype, n_in):
         pair = gq.quantized_matmul_gathered(x[:2], ft, sel[:2], qtype, group, F, n_in,
                                             planes_t=True)
         assert torch.equal(pair, full[:2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [256, 768, 2560, 4096])
+@pytest.mark.parametrize("tile_t", [1, 2, 8])
+@pytest.mark.parametrize("qtype", LOWBIT, ids=lambda t: t.name)
+def test_lowbit_gathered_kernel_matches_plain(cuda, qtype, tile_t, K):
+    """The row-major kernel on the q1/q2 sets (csrc/qmm_gathered_lowbit.cu)
+    against its plain version at every K the loader packs that the served
+    archs have (256; 768, Qwen3-30B-A3B's down; 2560, Qwen2-57B-A14B's
+    down; 4096), one-row tiles (the decode body) and tiles of 2 and 8 rows
+    (the tensor-core body), f32 and bf16 x and scales, N = 320 of 384
+    stored rows, runs over repeated experts: 1e-4 of the output's max."""
+    fields, group = _experts(qtype, F, K, seed=K + tile_t)
+    rng = np.random.default_rng(K + tile_t)
+    sel = torch.tensor([3, 1, 1, 0, 3, 3, 2, 1, 1, 1, 1, 1], dtype=torch.int32, device=cuda)
+    x = torch.from_numpy(rng.standard_normal((len(sel) * tile_t, K)).astype(np.float32))
+    x = x.to(cuda)
+    for sdt in (torch.float32, torch.bfloat16):
+        ft = {k: torch.from_numpy(v).to(cuda, sdt if k in ("scale", "minv") else None)
+              for k, v in fields.items()}
+        for xx in (x, x.to(torch.bfloat16)):
+            before = gq.LAUNCHES["qmm_gathered"]
+            got = gq.quantized_matmul_gathered(xx, ft, sel, qtype, group, F, K, tile_t=tile_t)
+            assert gq.LAUNCHES["qmm_gathered"] == before + 1
+            want = gq.quantized_matmul_gathered_plain(xx, ft, sel, qtype, group, F, K,
+                                                      tile_t=tile_t)
+            torch.cuda.synchronize()
+            assert bool(torch.isfinite(got).all())
+            assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
 @pytest.mark.cuda

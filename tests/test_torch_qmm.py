@@ -1088,14 +1088,27 @@ def test_wrapper_names_what_it_covers():
 @pytest.mark.parametrize("planes_t", [False, True])
 @pytest.mark.parametrize("qtype", LOWBIT, ids=lambda t: t.name)
 def test_gathered_kernels_refuse_the_lowbit_sets(qtype, planes_t):
-    """Neither gathered kernel takes the q1/q2 sets (their kinds have no
-    branch in csrc/qmm_gathered.cu): both wrappers refuse them by name,
-    pointing to the ROADMAP item that ports them."""
+    """Only the transposed gathered kernel refuses the q1/q2 sets, which the
+    loader never stores transposed: the row-major kernel takes them
+    (csrc/qmm_gathered_lowbit.cu) with qmm's kind and planes at K % 256,
+    and a transposed call raises ValueError, from kernel_kind and from the
+    wrapper's shape check alike."""
     from tpullama_torch.ops.cuda import qmm_gathered
 
     fields = _meta_fields(qtype, 64, 4096, torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="q1/q2 field sets.*Queue 1 item 5"):
+    if not planes_t:
+        kind, lo, hi = qmm.check_inputs(torch.empty((1, 4096), device="meta"), fields, qtype,
+                                        _group(qtype), 64, 4096)
+        assert qmm_gathered.kernel_kind(fields, qtype, planes_t) == (kind, 256, lo, hi)
+        return
+    with pytest.raises(ValueError, match="never stored transposed"):
         qmm_gathered.kernel_kind(fields, qtype, planes_t)
+    tfields = {k: torch.zeros((1, v.shape[1], v.shape[0]), dtype=v.dtype)
+               for k, v in fields.items()}
+    with pytest.raises(ValueError, match="never stored transposed"):
+        qmm_gathered.quantized_matmul_gathered(torch.zeros((1, 4096)), tfields,
+                                               torch.zeros(1, dtype=torch.int32), qtype,
+                                               _group(qtype), 64, 4096, planes_t=True)
 
 
 @pytest.mark.cuda

@@ -23,8 +23,8 @@
 //   KIND_Q5: {q4, q1, scale, minv}  g=32  (Q5_0, Q5_1, Q5_K: q4 | q1 << 4)
 //   KIND_Q3: {q2, q1, scale, minv}  g=16  (Q3_K: q2 | q1 << 2)
 //   KIND_Q2: {q2, scale, minv}      g=16  (Q2_K)
-// The tile bodies of qmm_mma.cuh (decode_vals) take KIND_Q4, KIND_Q6 and
-// KIND_Q8; the decode body and the group body every set.
+// Every body takes every set: the tile body of qmm_mma.cuh through
+// decode_vals, the decode body and the group body their own way.
 
 #pragma once
 
@@ -93,32 +93,77 @@ __device__ __forceinline__ float deq(float q, float s, float m) {
   return __fsub_rn(__fmul_rn(q, s), m);
 }
 
+// A chunk is 32 stored positions of a row: NSEG segments of SEG positions
+// each, segment j of chunk c starting at seg_start(c, j). The g = 32 sets
+// with a q4 low plane (Q4, Q5) take 2 segments, byte t of the chunk's q4
+// run holding segment 0's offset t (low nibble) and segment 1's (high);
+// the g = 16 sets (Q6, Q3, Q2) take 4, the field or crumb j of a byte
+// holding segment j's. Each segment's scale (and min) columns are the same
+// SEG consecutive columns (mod G).
 template <int KIND>
 struct Geo {
   // quant group size, x segments per 32-position chunk, segment length
   static constexpr int GROUP = Planes<KIND>::GROUP;
-  static constexpr int NSEG = KIND == KIND_Q4 ? 2 : (KIND == KIND_Q6 ? 4 : 1);
+  static constexpr int NSEG = KIND == KIND_Q8 ? 1 : GROUP == 32 ? 2 : 4;
   static constexpr int SEG = 32 / NSEG;
   // stored position of segment j of chunk c
   __device__ __forceinline__ static int seg_start(int c, int j, int K) {
-    if constexpr (KIND == KIND_Q4) return j * (K / 2) + 16 * c;
-    else if constexpr (KIND == KIND_Q6) return j * (K / 4) + 8 * c;
-    else return 32 * c;
+    return j * (K / NSEG) + SEG * c;
   }
+  // the shift of chunk c's fields in the q1 plane (Q5: chunk c's
+  // segment j sits in bit 4 j + hs of its bytes; Q3: segment j in bit 2 j
+  // + hs), for K % 256; 0 for the other sets
+  __device__ __forceinline__ static int high_shift(int c, int K) {
+    if constexpr (KIND == KIND_Q5) return 128 * c / K;
+    else if constexpr (KIND == KIND_Q3) return 64 * c / K;
+    else return 0;
+  }
+  // byte offset in a q1 row of chunk c's run of SEG bytes (K % 256)
+  __device__ __forceinline__ static int high_byte(int c, int K) { return SEG * c % (K / 8); }
 };
 
 // Dequantize one chunk (32 stored positions) from its packed bytes and its
 // SEG scale (and min) values s, m into w, in chunk-local order u = segment
-// * SEG + offset. q: Q4 the chunk's 16 q4 bytes; Q6 its 8 bytes of the low
-// q4 half (q), of the high half (qh) and of the q2 plane (q2); Q8 its 32
-// q8 bytes. Reads global or shared memory alike.
+// * SEG + offset. q: Q4 and Q5 the chunk's 16 q4 bytes; Q6 its 8 bytes of
+// the low q4 half (q), of the high half (qh) and of the q2 plane (q2); Q3
+// and Q2 its 8 q2 bytes; Q8 its 32 q8 bytes. Q5 and Q3 also take the
+// chunk's SEG q1 bytes (qh) and their shift hs (Geo::high_shift). Reads
+// global or shared memory alike.
 template <int KIND>
 __device__ __forceinline__ void decode_vals(const uint8_t* __restrict__ q,
                                             const uint8_t* __restrict__ qh,
                                             const uint8_t* __restrict__ q2,
                                             const float (&s)[Geo<KIND>::SEG],
-                                            const float (&m)[Geo<KIND>::SEG], float (&w)[32]) {
-  if constexpr (KIND == KIND_Q4) {
+                                            const float (&m)[Geo<KIND>::SEG], float (&w)[32],
+                                            int hs = 0) {
+  if constexpr (KIND == KIND_Q5) {
+    uint4 qv = *reinterpret_cast<const uint4*>(q);
+    uint4 hv = *reinterpret_cast<const uint4*>(qh);
+    const uint8_t* b = reinterpret_cast<const uint8_t*>(&qv);
+    const uint8_t* h = reinterpret_cast<const uint8_t*>(&hv);
+#pragma unroll
+    for (int t = 0; t < 16; ++t) {
+      const int hb = h[t] >> hs;
+      w[t] = deq((float)((b[t] & 15) | ((hb & 1) << 4)), s[t], m[t]);
+      w[16 + t] = deq((float)((b[t] >> 4) | (((hb >> 4) & 1) << 4)), s[t], m[t]);
+    }
+  } else if constexpr (KIND == KIND_Q3 || KIND == KIND_Q2) {
+    uint2 av = *reinterpret_cast<const uint2*>(q);
+    const uint8_t* A = reinterpret_cast<const uint8_t*>(&av);
+    uint2 hv = make_uint2(0u, 0u);
+    if constexpr (KIND == KIND_Q3) hv = *reinterpret_cast<const uint2*>(qh);
+    const uint8_t* H = reinterpret_cast<const uint8_t*>(&hv);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const int hb = H[t] >> hs;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        int v = (A[t] >> (2 * j)) & 3;
+        if constexpr (KIND == KIND_Q3) v |= ((hb >> (2 * j)) & 1) << 2;
+        w[8 * j + t] = deq((float)v, s[t], m[t]);
+      }
+    }
+  } else if constexpr (KIND == KIND_Q4) {
     uint4 qv = *reinterpret_cast<const uint4*>(q);
     const uint8_t* b = reinterpret_cast<const uint8_t*>(&qv);
 #pragma unroll
@@ -161,12 +206,13 @@ __device__ __forceinline__ void decode_raw(const uint8_t* __restrict__ q,
                                            const uint8_t* __restrict__ qh,
                                            const uint8_t* __restrict__ q2,
                                            const ST* __restrict__ sp,
-                                           const ST* __restrict__ mp, float (&w)[32]) {
+                                           const ST* __restrict__ mp, float (&w)[32],
+                                           int hs = 0) {
   constexpr int SEG = Geo<KIND>::SEG;
   float s[SEG], m[SEG];
   load_f<ST, SEG>(sp, s);
   if constexpr (KIND != KIND_Q8) load_f<ST, SEG>(mp, m);
-  decode_vals<KIND>(q, qh, q2, s, m, w);
+  decode_vals<KIND>(q, qh, q2, s, m, w, hs);
 }
 
 }  // namespace tpl

@@ -55,14 +55,17 @@ static_assert(MMA_WT <= MMA_THREADS, "every (row, chunk) pair has a thread");
 
 // Shared-memory layout of one instance (byte offsets, all 16-aligned). The
 // raw areas are private to each weight thread and laid out piece-major
-// ([piece][thread] of 16 bytes, Q6's 8-byte runs [run][thread]), so that a
-// warp's accesses are contiguous. XLO: x comes split into hi/lo blocks.
+// ([piece][thread] of 16 bytes, the 8-byte runs of Q6, Q3 and Q2
+// [run][thread]), so that a warp's accesses are contiguous. XLO: x comes
+// split into hi/lo blocks.
 template <int KIND, bool XLO, typename ST, int BN>
 struct MmaGeo {
   using GE = Geo<KIND>;
   static constexpr bool MIN = KIND != KIND_Q8;
   static constexpr int SV = GE::SEG * MMA_NCH;                      // x values per segment
-  static constexpr int QCH = KIND == KIND_Q4 ? 16 : KIND == KIND_Q6 ? 24 : 32;  // q bytes per chunk
+  // q bytes per chunk: the low run, the high run of a q1 plane (Q5, Q3)
+  static constexpr int QCH = KIND == KIND_Q4 ? 16 : KIND == KIND_Q6 ? 24 : KIND == KIND_Q5 ? 32
+                             : KIND == KIND_Q3 ? 16 : KIND == KIND_Q2 ? 8 : 32;
   static constexpr int SP = GE::SEG * (int)sizeof(ST) / 16;          // 16-byte scale pieces
   static constexpr int RQ = 0;
   static constexpr int RS = RQ + MMA_WT * QCH;
@@ -178,6 +181,13 @@ __device__ __forceinline__ void mma_copy_w(char* st, const uint8_t* __restrict__
     cp_async<8>(rq + 8 * tid, row4 + 8 * c, ok);
     cp_async<8>(rq + 8 * (MMA_WT + tid), row4 + K / 4 + 8 * c, ok);
     cp_async<8>(rq + 8 * (2 * MMA_WT + tid), qb + (size_t)r * (K / 4) + 8 * c, ok);
+  } else if constexpr (KIND == KIND_Q5) {
+    cp_async<16>(rq + 16 * tid, qa + (size_t)r * (K / 2) + 16 * c, ok);
+    cp_async<16>(rq + 16 * (MMA_WT + tid), qb + (size_t)r * (K / 8) + GE::high_byte(c, K), ok);
+  } else if constexpr (KIND == KIND_Q3 || KIND == KIND_Q2) {
+    cp_async<8>(rq + 8 * tid, qa + (size_t)r * (K / 4) + 8 * c, ok);
+    if constexpr (KIND == KIND_Q3)
+      cp_async<8>(rq + 8 * (MMA_WT + tid), qb + (size_t)r * (K / 8) + GE::high_byte(c, K), ok);
   } else {
     const uint8_t* src = qa + (size_t)r * K + 32 * c;
     cp_async<16>(rq + 16 * tid, src, ok);
@@ -218,10 +228,11 @@ __device__ __forceinline__ void mma_copy_x(char* smem, int buf,
   }
 }
 
-// Weight thread `tid`: dequantize and split its raw copies in stage `st`
-// into weight planes `buf`.
+// Weight thread `tid`: dequantize and split its raw copies of slice c0 in
+// stage `st` into weight planes `buf`.
 template <int KIND, bool XLO, typename ST, int BN>
-__device__ __forceinline__ void mma_split_w(char* smem, const char* st, int buf) {
+__device__ __forceinline__ void mma_split_w(char* smem, const char* st, int buf, int c0,
+                                            int K) {
   using MG = MmaGeo<KIND, XLO, ST, BN>;
   using GE = Geo<KIND>;
   const int tid = threadIdx.x;
@@ -246,6 +257,19 @@ __device__ __forceinline__ void mma_split_w(char* smem, const char* st, int buf)
     decode_raw<KIND, ST>(reinterpret_cast<const uint8_t*>(&a),
                          reinterpret_cast<const uint8_t*>(&h),
                          reinterpret_cast<const uint8_t*>(&q2), s, m, w);
+  } else if constexpr (KIND == KIND_Q5) {
+    const uint4 q = reinterpret_cast<const uint4*>(rq)[tid];
+    const uint4 h = reinterpret_cast<const uint4*>(rq)[MMA_WT + tid];
+    decode_raw<KIND, ST>(reinterpret_cast<const uint8_t*>(&q),
+                         reinterpret_cast<const uint8_t*>(&h), nullptr, s, m, w,
+                         GE::high_shift(c0 + ci, K));
+  } else if constexpr (KIND == KIND_Q3 || KIND == KIND_Q2) {
+    const uint2 a = reinterpret_cast<const uint2*>(rq)[tid];
+    uint2 h = make_uint2(0u, 0u);
+    if constexpr (KIND == KIND_Q3) h = reinterpret_cast<const uint2*>(rq)[MMA_WT + tid];
+    decode_raw<KIND, ST>(reinterpret_cast<const uint8_t*>(&a),
+                         reinterpret_cast<const uint8_t*>(&h), nullptr, s, m, w,
+                         GE::high_shift(c0 + ci, K));
   } else {
     uint4 q[2];
     q[0] = reinterpret_cast<const uint4*>(rq)[tid];
@@ -273,10 +297,11 @@ __device__ __forceinline__ void mma_split_w(char* smem, const char* st, int buf)
 
 // The widest BN (128 or 64) whose layout fits in a block's shared memory
 // (227 KB, less 1 KB for the kernels' static arrays) and whose registers
-// do not spill: Q6 with f32 scales spills at 128 (ptxas -v, sm_90a).
+// do not spill: the g = 16 sets (Q6, Q3, Q2) with f32 scales spill at 128
+// (ptxas -v, sm_90a).
 template <int KIND, bool XLO, typename ST>
 constexpr int mma_bn() {
-  if (KIND == KIND_Q6 && sizeof(ST) == 4) return 64;
+  if (Geo<KIND>::GROUP == 16 && sizeof(ST) == 4) return 64;
   return MmaGeo<KIND, XLO, ST, 128>::BYTES <= 226 * 1024 ? 128 : 64;
 }
 
@@ -396,7 +421,8 @@ __device__ __forceinline__ void mma_tile(char* smem, const __nv_bfloat16* __rest
     cp_async_commit();
   };
   auto split_w = [&](int sl) {
-    mma_split_w<KIND, XLO, ST, BN>(smem, smem + (sl % MMA_WRAW) * MG::RAW, sl & 1);
+    mma_split_w<KIND, XLO, ST, BN>(smem, smem + (sl % MMA_WRAW) * MG::RAW, sl & 1,
+                                   c0 + sl * MMA_NCH, K);
   };
   __syncthreads();  // xrow written; the last run's readers are done
   copy_x(0);

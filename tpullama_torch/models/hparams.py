@@ -1,12 +1,14 @@
-"""Model hyperparameters loaded from GGUF metadata: the llama family and
-chatglm.
+"""Model hyperparameters loaded from GGUF metadata: the llama family,
+chatglm and the MoE archs that run through the llama forward (qwen2moe,
+qwen3moe, granitemoe).
 
 The part of tpullama/models/hparams.py that the port reads. Key strings
 follow the reference's key-name table exactly (src/llama-arch.cpp:119-268);
-the fields are those of src/llama-hparams.h that a llama-family model,
-Mixtral-style MoE included, or a chatglm model sets. Other architectures'
-fields and per-arch branches come across with the slice that ports them;
-until then from_gguf refuses them.
+the fields are those of src/llama-hparams.h that these archs set, with the
+JAX package's per-arch branches for them (qwen2moe's unnormalized top-k
+weights, granite's scale stack). Other architectures' fields and branches
+come across with the slice that ports them; until then from_gguf refuses
+them, the MoE archs by name with their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -17,11 +19,28 @@ ROPE_SCALING_NONE = "none"
 ROPE_SCALING_YARN = "yarn"
 
 # the architectures whose forward is the plain llama block (chatglm's with
-# a fused biased [Q|K|V] and a fused [gate|up] FFN)
-LLAMA_FAMILY = ("llama", "mistral", "qwen2", "chatglm")
+# a fused biased [Q|K|V] and a fused [gate|up] FFN; qwen3moe's per-head q/k
+# norms; the MoE archs' shared experts and granite's scale stack)
+LLAMA_FAMILY = ("llama", "mistral", "qwen2", "chatglm", "qwen2moe", "qwen3moe", "granitemoe")
+# the other MoE archs the JAX package runs through its llama forward, each
+# refused by name until its slice (ROADMAP.md Queue 1 item 5)
+MOE_NOT_PORTED = ("glm4moe", "dots1", "ernie4_5-moe", "hunyuan-moe", "bailingmoe",
+                  "bailingmoe2", "llama4", "afmoe", "minimax-m2", "grovemoe", "olmoe",
+                  "phimoe", "dbrx", "grok", "arctic", "gpt-oss", "qwen3vlmoe", "llada-moe",
+                  "smallthinker")
 # rope type per arch (llama_model_rope_type, src/llama-model.cpp:7777+):
 # NORM (0, adjacent pairs) for these, NEOX (2, split halves) for the rest
-_NORM_ROPE = ("llama", "chatglm")
+_NORM_ROPE = ("llama", "chatglm", "granitemoe")
+
+
+def check_arch(arch: str) -> None:
+    """Raise for an arch the port does not load, an MoE arch of the JAX
+    package's llama forward by name with its ROADMAP item."""
+    if arch in MOE_NOT_PORTED:
+        raise NotImplementedError(
+            f"tpullama_torch: arch {arch!r} is not ported yet (ROADMAP.md Queue 1 item 5)")
+    if arch not in LLAMA_FAMILY:
+        raise NotImplementedError(f"tpullama_torch: arch {arch!r} is not ported yet")
 
 
 @dataclass
@@ -52,8 +71,16 @@ class HParams:
 
     # attention extras
     f_attention_scale: float = 0.0
+    f_logit_scale: float = 0.0  # {arch}.logit_scale as written
     attn_logit_softcap: float = 0.0
+    final_logit_softcap: float = 0.0  # cap * tanh(logits / cap) after the lm_head
     n_swa: int = 0  # sliding window size (0 = none); not ported yet
+
+    # granite's scale stack (0 = off): token rows, each residual branch,
+    # the final logits (granite: 1 / logit_scale)
+    embd_scale: float = 0.0
+    f_residual_scale: float = 0.0
+    final_logit_scale: float = 0.0
 
     # FFN
     ffn_fused_up: bool = False  # chatglm: [gate|up] fused in ffn_up
@@ -61,19 +88,21 @@ class HParams:
     # MoE (Mixtral-style llama GGUFs carry it; build_moe_ffn's options)
     n_expert: int = 0
     n_expert_used: int = 0
+    n_expert_shared: int = 0
     n_expert_groups: int = 0  # group-limited routing: not ported, refused
     expert_weights_scale: float = 0.0
     expert_weights_norm: bool = False
     expert_gating_func: int = 1  # 1=softmax, 2=sigmoid, 3=post-top-k softmax
     moe_norm_topk: bool = True  # renormalize the top-k weights (norm_w)
     moe_act: str = "silu"
+    n_ff_exp: int = 0  # each routed expert's FFN width (qwen2moe, qwen3moe)
+    n_ff_shexp: int = 0  # the shared expert's FFN width
 
     @classmethod
     def from_gguf(cls, reader) -> "HParams":
         kv = reader.kv
         arch = kv.get("general.architecture", "llama")
-        if arch not in LLAMA_FAMILY:
-            raise NotImplementedError(f"tpullama_torch: arch {arch!r} is not ported yet")
+        check_arch(arch)
 
         def g(key, default=None):
             return kv.get(f"{arch}.{key}", default)
@@ -95,7 +124,7 @@ class HParams:
         if rope_scaling == ROPE_SCALING_YARN:
             ext_factor = float(g("rope.scaling.yarn_ext_factor", 1.0) or 1.0)
 
-        return cls(
+        hp = cls(
             arch=arch,
             n_vocab=n_vocab,
             n_ctx_train=int(g("context_length", 0)),
@@ -118,14 +147,29 @@ class HParams:
             rope_beta_slow=float(g("rope.scaling.yarn_beta_slow", 1.0)),
             n_ctx_orig_yarn=int(g("rope.scaling.original_context_length", 0) or g("context_length", 0)),
             f_attention_scale=float(g("attention.scale", 0.0)),
+            f_logit_scale=float(g("logit_scale", 0.0)),
             attn_logit_softcap=float(g("attn_logit_softcapping", 0.0)),
+            final_logit_softcap=float(g("final_logit_softcapping", 0.0)),
             n_swa=int(g("attention.sliding_window", 0) or 0),
             n_expert=int(g("expert_count", 0) or 0),
             n_expert_used=int(g("expert_used_count", 0) or 0),
+            n_expert_shared=int(g("expert_shared_count", 0) or 0),
             n_expert_groups=int(g("expert_group_count", 0) or 0),
             expert_weights_scale=float(g("expert_weights_scale", 0.0) or 0.0),
             expert_weights_norm=bool(g("expert_weights_norm", False)),
             expert_gating_func=int(g("expert_gating_func", 1) or 1),
+            n_ff_exp=int(g("expert_feed_forward_length", 0) or 0),
+            n_ff_shexp=int(g("expert_shared_feed_forward_length", 0) or 0),
             # fused-swiglu FFN (LLM_FFN_SWIGLU on a 2*n_ff up projection)
             ffn_fused_up=arch == "chatglm",
         )
+        if arch == "qwen2moe":
+            # top-k weights not renormalized; the shared expert has its own
+            # sigmoid gate (llm_build_qwen2moe)
+            hp.moe_norm_topk = False
+        if arch == "granitemoe":
+            hp.embd_scale = float(g("embedding_scale", 0.0) or 0.0)
+            hp.f_residual_scale = float(g("residual_scale", 0.0) or 0.0)
+            if hp.f_logit_scale:
+                hp.final_logit_scale = 1.0 / hp.f_logit_scale
+        return hp

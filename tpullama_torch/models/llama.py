@@ -2,13 +2,17 @@
 
 Port of tpullama/models/llama.py:llama_forward for the llama family
 (llama, llama-2/3, mistral, qwen2 biases, chatglm's fused biased [Q|K|V]
-and fused [gate|up], Mixtral-style MoE; no SWA or parallel modes): per
-layer [rms_norm -> q/k/v (+bias) -> rope -> write K/V into the cache ->
-attention -> o-proj -> residual -> rms_norm -> SwiGLU FFN or MoE FFN ->
-residual], final norm, lm_head. With the fused layer on, a one-token step
-of one sequence runs o-proj, residual, rms_norm and the fused [gate|up]
-SwiGLU as one kernel (ops/cuda/fused_layer.py), as the JAX package does
-under TPULLAMA_FUSED_LAYER.
+and fused [gate|up], Mixtral-style MoE, and the MoE archs qwen2moe,
+qwen3moe and granitemoe; no SWA or parallel modes): token rows (times
+embd_scale) -> per layer [rms_norm -> q/k/v (+bias) -> per-head q/k
+rms_norm -> rope -> write K/V into the cache -> attention -> o-proj (times
+f_residual_scale) -> residual -> rms_norm -> SwiGLU FFN, or MoE FFN plus
+the shared expert (qwen2moe: gated by its own sigmoid) (times
+f_residual_scale) -> residual], final norm, lm_head, then output_bias,
+final_logit_scale and the final softcap in f32. With the fused layer on,
+a one-token step of one sequence runs o-proj, residual, rms_norm and the
+fused [gate|up] SwiGLU as one kernel (ops/cuda/fused_layer.py), as the
+JAX package does under TPULLAMA_FUSED_LAYER.
 
 The JAX package scans a stacked layer axis and gets a new cache back from
 each step (the cache argument is donated). Here the layers are nn.Modules
@@ -130,8 +134,8 @@ class LlamaLayer(nn.Module):
         self.hp = hp
         self.tile_k = tile_k
         self.fused = (fused_layer and hp.ffn_fused_up and "ffn_gate_inp" not in w
-                      and "ffn_norm" in w and not any(k in w for k in _FUSED_EXCLUDE)
-                      and fused_ok(hp, w, meta))
+                      and not hp.f_residual_scale and "ffn_norm" in w
+                      and not any(k in w for k in _FUSED_EXCLUDE) and fused_ok(hp, w, meta))
 
     def forward(self, x, cos, sin, k_cache, v_cache, slots, mask):
         hp, w, m, tk = self.hp, self.w, self.meta, self.tile_k
@@ -157,6 +161,11 @@ class LlamaLayer(nn.Module):
         q = q.reshape(B, T, Hq, Dk)
         k = k.reshape(B, T, Hkv, Dk)
         v = v.reshape(B, T, Hkv, Dv)
+        if "attn_q_norm" in w:
+            # per-head q/k RMS norm before rope (qwen3moe; the JAX package's
+            # llama.py:343-345, its only variant these archs take)
+            q = rms_norm(q, w["attn_q_norm"], hp.f_norm_rms_eps)
+            k = rms_norm(k, w["attn_k_norm"], hp.f_norm_rms_eps)
         if hp.rope_type >= 0:
             q = apply_rope(q, cos, sin, hp.rope_type, hp.n_rot)
             k = apply_rope(k, cos, sin, hp.rope_type, hp.n_rot)
@@ -186,11 +195,14 @@ class LlamaLayer(nn.Module):
             dn = linear(act.reshape(1, 1, -1), w["ffn_down"], m.get("ffn_down"), tk)
             y = r1.reshape(1, 1, -1) + dn.float()
             return y.reshape(B, T, -1).to(x.dtype)
-        x = x + linear(att, w["attn_output"], m.get("attn_output"), tk)
+        att = linear(att, w["attn_output"], m.get("attn_output"), tk)
+        if hp.f_residual_scale:
+            att = att * hp.f_residual_scale
+        x = x + att
         h = rms_norm(x, w["ffn_norm"], hp.f_norm_rms_eps)
         if "ffn_gate_inp" in w:
-            # MoE branch (the JAX package's llama.py:734-777: softmax gating,
-            # norm_w, SiLU for the llama arch)
+            # MoE branch (the JAX package's llama.py:734-817: the arch's
+            # gating and norm_w, SiLU experts, then the shared expert)
             if "ffn_gateup_exps" in m:
                 metas = {"gateup": m["ffn_gateup_exps"], "down": m["ffn_down_exps"]}
             elif "ffn_up_exps" in m:
@@ -198,22 +210,42 @@ class LlamaLayer(nn.Module):
                          "down": m["ffn_down_exps"]}
             else:
                 metas = None
-            return x + moe_ffn(
+            down = moe_ffn(
                 h, w["ffn_gate_inp"], w.get("ffn_gate_exps"),
                 w.get("ffn_gateup_exps", w.get("ffn_up_exps")), w["ffn_down_exps"],
                 n_expert_used=hp.n_expert_used, gating=hp.expert_gating_func,
                 norm_w=hp.moe_norm_topk, w_scale=hp.expert_weights_scale, act=hp.moe_act,
                 quant_meta_exps=metas)
-        if hp.ffn_fused_up:
-            # fused gate+up (ggml_swiglu: first half activated, second linear)
-            up2 = linear(h, w["ffn_up"], m.get("ffn_up"), tk)
-            n_ff = up2.shape[-1] // 2
-            gate, up = up2[..., :n_ff], up2[..., n_ff:]
+            if "ffn_gate_shexp" in w:
+                down = down + self.shared_expert(h)
         else:
-            gate = linear(h, w["ffn_gate"], m.get("ffn_gate"), tk)
-            up = linear(h, w["ffn_up"], m.get("ffn_up"), tk)
+            if hp.ffn_fused_up:
+                # fused gate+up (ggml_swiglu: first half activated, second linear)
+                up2 = linear(h, w["ffn_up"], m.get("ffn_up"), tk)
+                n_ff = up2.shape[-1] // 2
+                gate, up = up2[..., :n_ff], up2[..., n_ff:]
+            else:
+                gate = linear(h, w["ffn_gate"], m.get("ffn_gate"), tk)
+                up = linear(h, w["ffn_up"], m.get("ffn_up"), tk)
+            act = silu(gate.float()).to(gate.dtype) * up
+            down = linear(act, w["ffn_down"], m.get("ffn_down"), tk)
+        if hp.f_residual_scale:
+            down = down * hp.f_residual_scale
+        return x + down
+
+    def shared_expert(self, h):
+        """The shared expert (the JAX package's llama.py:807-817): SiLU of
+        gate times up, then down; qwen2moe scales it by sigmoid(h .
+        ffn_gate_inp_shexp) in f32."""
+        w, m, tk = self.w, self.meta, self.tile_k
+        gate = linear(h, w["ffn_gate_shexp"], m.get("ffn_gate_shexp"), tk)
+        up = linear(h, w["ffn_up_shexp"], m.get("ffn_up_shexp"), tk)
         act = silu(gate.float()).to(gate.dtype) * up
-        return x + linear(act, w["ffn_down"], m.get("ffn_down"), tk)
+        out = linear(act, w["ffn_down_shexp"], m.get("ffn_down_shexp"), tk)
+        if "ffn_gate_inp_shexp" in w:
+            g = linear(h, w["ffn_gate_inp_shexp"].reshape(1, -1)).float()
+            out = out * torch.sigmoid(g).to(out.dtype)
+        return out
 
 
 class LlamaModel(nn.Module):
@@ -259,6 +291,8 @@ class LlamaModel(nn.Module):
         every row as f32 (B, T, n_embd)), the JAX package's return_embd."""
         hp, p = self.hp, self.params
         x = p["tok_embd"][tokens.long()]
+        if hp.embd_scale:
+            x = (x.float() * hp.embd_scale).to(x.dtype)
         cos = sin = None
         if hp.rope_type >= 0:
             cos, sin = rope_cache(self.rp, positions, p.get("rope_freqs"))
@@ -272,6 +306,13 @@ class LlamaModel(nn.Module):
             x = torch.gather(x, 1, logit_rows.long()[:, :, None].expand(-1, -1, x.shape[-1]))
         out_w = p.get("output", p["tok_embd"])
         logits = linear(x, out_w, self.quant_meta.get("output"), self.qmm_tile_k).float()
+        # the JAX package's order (llama.py:1009-1016), in f32
+        if "output_bias" in p:
+            logits = logits + p["output_bias"].float()
+        if hp.final_logit_scale:
+            logits = logits * hp.final_logit_scale
+        if hp.final_logit_softcap:
+            logits = hp.final_logit_softcap * torch.tanh(logits / hp.final_logit_softcap)
         return (logits, embd) if return_embd else logits
 
 

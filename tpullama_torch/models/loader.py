@@ -1,10 +1,12 @@
 """Model loader: GGUF -> PyTorch parameters on a device.
 
 Port of tpullama/models/loader.py for the llama family (llama, mistral,
-qwen2, chatglm, and Mixtral-style MoE llama). Per-layer tensors of equal shape are
-stacked along a leading layer axis, as in the JAX package, so the two
-packages hold the same arrays under the same names; the forward pass
-walks per-layer views of the stacks.
+qwen2, chatglm, Mixtral-style MoE llama, and the MoE archs qwen2moe,
+qwen3moe and granitemoe with per-head q/k norms and shared experts). Every
+tensor the file holds is mapped or refused by name. Per-layer tensors of
+equal shape are stacked along a leading layer axis, as in the JAX
+package, so the two packages hold the same arrays under the same names;
+the forward pass walks per-layer views of the stacks.
 
 Two weight modes:
   - dense (default): blocks decoded to `dtype` at load.
@@ -49,11 +51,11 @@ import torch
 from ..device import resolve_device
 from ..gguf import GGMLType, GGUFReader
 from ..gguf.quants import dequantize
-from ..native import native_dequantize, native_repack, resolve_native
+from ..native import _NATIVE_REPACK_TYPES, native_dequantize, native_repack, resolve_native
 from ..ops.cuda.fused_layer import resolve_fused_layer
 from ..ops.cuda.qmm_gathered import PLANES_T_FIELDS
 from ..ops.qweights import PACKED_TYPES, PlanarQuant, repack, to_fourblock, transpose_planes
-from .hparams import LLAMA_FAMILY, HParams
+from .hparams import HParams, check_arch
 
 # per-layer tensor suffixes of the llama family -> param names
 _LAYER_TENSORS = {
@@ -67,6 +69,8 @@ _LAYER_TENSORS = {
     "attn_q.bias": "attn_q_bias",
     "attn_k.bias": "attn_k_bias",
     "attn_v.bias": "attn_v_bias",
+    "attn_q_norm.weight": "attn_q_norm",
+    "attn_k_norm.weight": "attn_k_norm",
     "ffn_norm.weight": "ffn_norm",
     "ffn_gate.weight": "ffn_gate",
     "ffn_up.weight": "ffn_up",
@@ -75,6 +79,10 @@ _LAYER_TENSORS = {
     "ffn_gate_exps.weight": "ffn_gate_exps",
     "ffn_up_exps.weight": "ffn_up_exps",
     "ffn_down_exps.weight": "ffn_down_exps",
+    "ffn_gate_inp_shexp.weight": "ffn_gate_inp_shexp",
+    "ffn_gate_shexp.weight": "ffn_gate_shexp",
+    "ffn_up_shexp.weight": "ffn_up_shexp",
+    "ffn_down_shexp.weight": "ffn_down_shexp",
 }
 _EXPERT_TRIO = ("ffn_gate_exps", "ffn_up_exps", "ffn_down_exps")
 # the layer matrices the fused post-attention path reads in fourblock order
@@ -84,8 +92,11 @@ _TOP_TENSORS = {
     "token_embd.weight": "tok_embd",
     "output_norm.weight": "output_norm",
     "output.weight": "output",
+    "output.bias": "output_bias",
     "rope_freqs.weight": "rope_freqs",
 }
+# the archs whose MoE layers the port runs (ops/moe.py)
+_MOE_ARCHS = ("llama", "qwen2moe", "qwen3moe", "granitemoe")
 
 # rows dequantized per host batch when a large dense tensor is decoded
 _DENSE_ROWS = 8192
@@ -132,14 +143,13 @@ class LoadedModel:
 
 def check_supported(hp: HParams) -> None:
     """Raise for anything outside the slices ported: the llama family
-    (chatglm included), and MoE on the llama arch (Mixtral) without
-    group-limited routing."""
-    if hp.arch not in LLAMA_FAMILY:
-        raise NotImplementedError(f"tpullama_torch: arch {hp.arch!r} is not ported yet")
+    (chatglm included), and MoE on the llama arch (Mixtral), qwen2moe,
+    qwen3moe and granitemoe without group-limited routing."""
+    check_arch(hp.arch)
     if hp.n_swa:
         raise NotImplementedError(
             f"tpullama_torch: {hp.arch!r} with sliding-window attention is not ported yet")
-    if hp.n_expert and hp.arch != "llama":
+    if hp.n_expert and hp.arch not in _MOE_ARCHS:
         raise NotImplementedError(f"tpullama_torch: {hp.arch!r} with MoE is not ported yet")
     if hp.n_expert_groups > 1:
         raise NotImplementedError(
@@ -274,6 +284,8 @@ def load_model(source, dtype=torch.float32, device=None, packed: bool = False,
             layer_names.setdefault(int(m.group(1)), {})[pname] = name
         elif name in _TOP_TENSORS:
             top[_TOP_TENSORS[name]] = name
+        else:
+            raise NotImplementedError(f"tpullama_torch: tensor {name!r} is not ported yet")
     n_layer = hp.n_layer or (max(layer_names) + 1 if layer_names else 0)
     total = len(reader.tensors)
     done = 0
@@ -381,10 +393,14 @@ def load_model(source, dtype=torch.float32, device=None, packed: bool = False,
                 stacked[key] = t
         # repack on host threads (numpy and the native library release the
         # GIL; the native library runs its own threads, so two workers
-        # suffice there), copy each layer's planes into the device stack as
-        # it completes
+        # suffice where it repacks every job; the numpy codecs, for the
+        # types it does not repack, scale with the host's threads), copy
+        # each layer's planes into the device stack as it completes
         work = [(key, il, tn) for key, tnames in jobs for il, tn in enumerate(tnames)]
-        n_workers = max(1, min(2 if native else 8, os.cpu_count() or 1))
+        all_native = native and all(
+            reader.tensors[tn].ggml_type in _NATIVE_REPACK_TYPES
+            and reader.tensors[tn].shape[-1] <= 16384 for _k, _il, tn in work)
+        n_workers = max(1, min(2 if all_native else 8, os.cpu_count() or 1))
         with _fut.ThreadPoolExecutor(n_workers) as pool:
             futs = {pool.submit(fetch_packed, tn, key): (key, il) for key, il, tn in work}
             for f in _fut.as_completed(futs):

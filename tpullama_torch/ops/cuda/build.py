@@ -25,10 +25,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("qmm.cu", "qmm_lowbit.cu", "qmm_ktiled.cu", "qmm_gathered.cu",
-           "flash_attention.cu", "flash_attention_int8.cu", "flash_decode.cu",
-           "flash_decode_int8.cu", "fused_layer.cu")
+           "qmm_gathered_lowbit.cu", "flash_attention.cu", "flash_attention_int8.cu",
+           "flash_decode.cu", "flash_decode_int8.cu", "fused_layer.cu")
 HEADERS = ("qmm_dequant.cuh", "qmm_gemv.cuh", "qmm_mma.cuh", "qmm_group_mma.cuh",
-           "qmm_launch.cuh", "attn_tile.cuh")
+           "qmm_launch.cuh", "qmm_gathered.cuh", "attn_tile.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",

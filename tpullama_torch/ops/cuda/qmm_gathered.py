@@ -24,6 +24,12 @@ whose parts meet in a workspace (`t_splits`), larger tiles the
 group-scaled body of csrc/qmm_group_mma.cuh. Outputs are batch-invariant
 within a route, but the one-row and tile routes sum in other orders.
 
+Field sets (`kernel_kind`): the row-major kernel takes every set the
+loader packs, Q4_0/Q4_1/Q4_K, Q6_K and Q8_0, and the q1/q2 sets Q5_0/Q5_1/
+Q5_K, Q3_K and Q2_K (their instances build in csrc/qmm_gathered_lowbit.cu);
+the transposed kernel Q4_0/Q4_1/Q4_K and Q8_0, and a set the loader never
+stores transposed raises ValueError.
+
 Not ported: the expert-parallel 4-D planes (L, E_local, R, kcols), the
 N tiling and padding, and the bf16 fast mode (the kernels compute the
 exact f32 mode).
@@ -46,18 +52,19 @@ RUN_CAP = 4
 # csrc/qmm_gathered.cu): its column splits, each a part of every output
 T_SPLIT_COLS = 32
 
-# field sets of the row-major kernel: (kind id in csrc/qmm_gathered.cu,
-# the K multiple of one-row tiles), and of the transposed kernel: kind id
-_KINDS = {frozenset({"q4", "scale", "minv"}): (0, 32),
-          frozenset({"q4", "q2", "scale", "minv"}): (1, 256),
-          frozenset({"q8", "scale"}): (2, 32)}
+# field sets of the row-major kernel: (kind id in csrc/qmm_dequant.cuh,
+# the K multiple of one-row tiles, the low plane, the high plane or None;
+# a weight's value is low | high << bits of the low plane; the q1/q2 sets
+# build in csrc/qmm_gathered_lowbit.cu), and of the transposed kernel:
+# kind id
+_KINDS = {frozenset({"q4", "scale", "minv"}): (0, 32, "q4", None),          # Q4_0/Q4_1/Q4_K
+          frozenset({"q4", "q2", "scale", "minv"}): (1, 256, "q4", "q2"),   # Q6_K
+          frozenset({"q8", "scale"}): (2, 32, "q8", None),                  # Q8_0
+          frozenset({"q4", "q1", "scale", "minv"}): (3, 256, "q4", "q1"),   # Q5_0/Q5_1/Q5_K
+          frozenset({"q2", "q1", "scale", "minv"}): (4, 256, "q2", "q1"),   # Q3_K
+          frozenset({"q2", "scale", "minv"}): (5, 256, "q2", None)}         # Q2_K
 _KINDS_T = {frozenset({"q4", "scale", "minv"}): 0, frozenset({"q8", "scale"}): 2}
-_BITS = {"q4": 4, "q2": 2, "q8": 8}
-# the K-quant sets with a q1 plane or a q2 low plane (Q5_0/Q5_1/Q5_K, Q3_K,
-# Q2_K) that qmm_tiled and qmm_gemv take and neither gathered kernel does
-_LOWBIT_SETS = {frozenset({"q4", "q1", "scale", "minv"}),
-                frozenset({"q2", "q1", "scale", "minv"}),
-                frozenset({"q2", "scale", "minv"})}
+_BITS = {"q4": 4, "q2": 2, "q1": 1, "q8": 8}
 # field sets the JAX package may store transposed (one stripe width)
 PLANES_T_FIELDS = {"q4", "q4_lut", "q4a", "q1r", "q8", "scale", "minv"}
 
@@ -144,25 +151,27 @@ def quantized_matmul_gathered_plain(x, fields, sel, ggml_type: GGMLType, group: 
     return y.reshape(rows, n_out)
 
 
-def kernel_kind(fields, ggml_type: GGMLType, planes_t: bool = False) -> tuple[int, int]:
-    """The gathered kernel's kind id of a field set (csrc/qmm_gathered.cu)
-    and the K multiple of its one-row tiles; raises for the sets neither
-    kernel covers, the q1/q2 sets by name."""
-    name = "qmm_gathered_t" if planes_t else "qmm_gathered"
-    if frozenset(fields) in _LOWBIT_SETS:
-        raise NotImplementedError(
-            f"{name} kernel: the q1/q2 field sets ({ggml_type.name} fields "
-            f"{sorted(fields)}) are not ported to the gathered kernels yet "
-            "(ROADMAP.md Queue 1 item 5)")
+def kernel_kind(fields, ggml_type: GGMLType, planes_t: bool = False) -> tuple:
+    """The gathered kernel's kind id of a field set (csrc/qmm_dequant.cuh),
+    the K multiple of its one-row tiles, and the names of its low and high
+    planes (None: no high plane); raises for the sets the kernel does not
+    cover, and (ValueError) for a set the loader never stores transposed."""
     if planes_t:
-        kind, k_mult = _KINDS_T.get(frozenset(fields)), 32
-    else:
-        kind, k_mult = _KINDS.get(frozenset(fields), (None, 0))
-    if kind is None:
+        if not set(fields) <= PLANES_T_FIELDS:
+            raise ValueError(f"qmm_gathered_t kernel: field set {sorted(fields)} "
+                             "is never stored transposed")
+        kind = _KINDS_T.get(frozenset(fields))
+        if kind is None:
+            raise NotImplementedError(
+                f"qmm_gathered_t kernel: {ggml_type.name} fields {sorted(fields)} are not "
+                "covered yet (Q4_0/Q4_1/Q4_K and Q8_0 are)")
+        return (kind, 32) + (("q8", None) if "q8" in fields else ("q4", None))
+    kind_k = _KINDS.get(frozenset(fields))
+    if kind_k is None:
         raise NotImplementedError(
-            f"{name} kernel: {ggml_type.name} fields {sorted(fields)} are not covered yet "
-            f"(Q4_0/Q4_1/Q4_K{'' if planes_t else ', Q6_K'} and Q8_0 are)")
-    return kind, k_mult
+            f"qmm_gathered kernel: {ggml_type.name} fields {sorted(fields)} are not covered "
+            "yet (Q4_0/Q4_1/Q4_K, Q5_0/Q5_1/Q5_K, Q6_K, Q3_K, Q2_K and Q8_0 are)")
+    return kind_k
 
 
 def quantized_matmul_gathered(x, fields, sel, ggml_type: GGMLType, group: int,
@@ -184,7 +193,7 @@ def quantized_matmul_gathered(x, fields, sel, ggml_type: GGMLType, group: int,
     name = "qmm_gathered_t" if planes_t else "qmm_gathered"
     if tile_t > MAX_TILE_T:
         raise ValueError(f"{name} kernel: tile_t={tile_t} (at most {MAX_TILE_T})")
-    kind, k_mult = kernel_kind(fields, ggml_type, planes_t)
+    kind, k_mult, lo, hi = kernel_kind(fields, ggml_type, planes_t)
     sdt = fields["scale"].dtype
     if sdt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: scale dtype {sdt} (f32 or bf16)")
@@ -194,7 +203,7 @@ def quantized_matmul_gathered(x, fields, sel, ggml_type: GGMLType, group: int,
         raise ValueError(f"{name} kernel: K={K} must be a multiple of {k_mult}"
                          f" at tile_t={tile_t}")
     G = K // group
-    q0 = fields["q8" if "q8" in fields else "q4"]
+    q0 = fields[lo]
     M, R = q0.shape[0], q0.shape[2 if planes_t else 1]
     for k, a in fields.items():
         kc = K * _BITS[k] // 8 if k in _BITS else G
@@ -252,7 +261,7 @@ def quantized_matmul_gathered(x, fields, sel, ggml_type: GGMLType, group: int,
     else:
         code = lib.tpl_qmm_gathered(
             kind, int(xp.dtype == torch.bfloat16), s_bf16, ptr(xp), ptr(sel_d), ptr(q0),
-            ptr(fields.get("q2")), ptr(fields["scale"]), ptr(fields.get("minv")), ptr(y),
+            ptr(fields.get(hi)), ptr(fields["scale"]), ptr(fields.get("minv")), ptr(y),
             rows // tile_t, tile_t, n_out, R, K, stream())
     check(code, name)
     LAUNCHES[name] += 1

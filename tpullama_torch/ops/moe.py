@@ -1,7 +1,9 @@
 """Mixture-of-experts FFN in PyTorch.
 
 Port of tpullama/ops/moe.py (build_moe_ffn, src/llama-graph.cpp:880-1120)
-for what a llama-family MoE such as Mixtral runs: f32 router logits ->
+for what the MoE archs of the llama forward run (Mixtral-style llama,
+qwen2moe, qwen3moe, granitemoe; their shared experts run in
+models/llama.py): f32 router logits ->
 softmax / sigmoid / post-top-k softmax gating -> optional selection bias
 -> top-k by the selection probabilities, weights gathered from the
 unbiased ones -> optional renormalisation (clamped at the fp16 min normal)
@@ -15,7 +17,8 @@ slots by expert into PREFILL_TILE_T-row tiles. Both constants are the JAX
 package's defaults; its TPULLAMA_MOE_* switches are not ported. Dense
 stacks gather the selected experts' weights per token.
 
-Not ported, each refused with its name: expert parallelism (ep_axis),
+Not ported, each refused with its name and needed by MoE archs not
+loaded yet (ROADMAP.md Queue 1 item 5): expert parallelism (ep_axis),
 group-limited routing (n_expert_groups > 1), select_logits,
 select_sigmoid, weight_before_ffn, x_router, expert_div, per-expert
 biases, activations other than silu (swiglu_oai, gelu, relu) and experts

@@ -279,19 +279,16 @@ def repack(raw: np.ndarray, ggml_type: GGMLType, shape: tuple[int, int]) -> Plan
         qs = b[:, 16:80].reshape(-1, 2, 32)
         d = _fp16(b[:, 80:82]).astype(np.float32)
         dmin = _fp16(b[:, 82:84]).astype(np.float32)
-        l = np.arange(32)
-        j = np.arange(4)
-        q = ((qs[:, :, None, :] >> (2 * j)[None, None, :, None]) & 3).astype(np.uint8)
-        vals = group_permute(q.reshape(-1, 256).reshape(N, K), 16)
-        sidx = (np.arange(2)[:, None, None] * 8 + 2 * j[None, :, None] + (l >= 16)[None, None, :])
-        sc = scales[:, sidx]  # (nb, 2, 4, 32) in element order
-        dl = (d[:, None, None, None] * (sc & 0xF)).reshape(-1, 256)
-        ml = (dmin[:, None, None, None] * (sc >> 4)).reshape(-1, 256)
-        # per-16 groups are uniform within element order? No — q2_K scales
-        # change per 16 elements in element order, so K//16 planes hold
+        # crumb j of byte l of half h is element h*128 + j*32 + l (uint8
+        # shifts: no wider temporaries)
+        shifts = np.arange(0, 8, 2, dtype=np.uint8)
+        q = (qs[:, :, None, :] >> shifts[None, None, :, None]) & 3
+        vals = group_permute(q.reshape(N, K), 16)
+        # element e of a block sits in scale group e // 16, which is byte
+        # e // 16 of its 16 scale bytes: one scale and min per group
         q2p = _stripe_pack(vals, 2)
-        scale = dl.reshape(N, K)[:, ::16].copy()
-        minv = ml.reshape(N, K)[:, ::16].copy()
+        scale = (d.reshape(-1, 1) * (scales & 0xF)).reshape(N, K // 16)
+        minv = (dmin.reshape(-1, 1) * (scales >> 4)).reshape(N, K // 16)
         return PlanarQuant(t, (N, K), {"q2": q2p, "scale": scale, "minv": minv}, 16)
 
     if t == GGMLType.Q3_K:
@@ -300,16 +297,15 @@ def repack(raw: np.ndarray, ggml_type: GGMLType, shape: tuple[int, int]) -> Plan
         qs = b[:, 32:96].reshape(-1, 2, 32)
         scales = _unpack_q3_k_scales(b[:, 96:108])
         d = _fp16(b[:, 108:110]).astype(np.float32)
-        l = np.arange(32)
-        j = np.arange(4)
-        half = np.arange(2)
-        q = ((qs[:, :, None, :] >> (2 * j)[None, None, :, None]) & 3).astype(np.int32)
-        mbit = half[:, None, None] * 4 + j[None, :, None]
-        hi = ((hmask[:, None, None, :] >> mbit[None]) & 1).astype(np.int32)
-        vals = group_permute((q + hi * 4).reshape(-1, 256).reshape(N, K), 16)  # value+4 in 0..7
-        sidx = half[:, None, None] * 8 + 2 * j[None, :, None] + (l >= 16)[None, None, :]
-        sc = (scales[:, sidx].astype(np.float32) - 32) * d[:, None, None, None]
-        scf = sc.reshape(-1, 256).reshape(N, K)[:, ::16].copy()
+        # crumb j of byte l of half h, and bit 4h + j of hmask byte l, are
+        # element h*128 + j*32 + l (uint8 shifts: no wider temporaries)
+        shifts = np.arange(0, 8, 2, dtype=np.uint8)
+        q = (qs[:, :, None, :] >> shifts[None, None, :, None]) & 3
+        mbit = np.arange(8, dtype=np.uint8).reshape(2, 4)
+        hi = (hmask[:, None, None, :] >> mbit[None, :, :, None]) & 1
+        vals = group_permute((q | (hi << 2)).reshape(N, K), 16)  # value+4 in 0..7
+        # element e of a block sits in scale group e // 16 (its scale e // 16)
+        scf = ((scales.astype(np.float32) - 32) * d.reshape(-1, 1)).reshape(N, K // 16)
         q2p = _stripe_pack(vals & 3, 2)
         q1p = _stripe_pack(vals >> 2, 1)
         # y = scale * ((q | hi<<2) - 4) = scale*q3 - 4*scale
