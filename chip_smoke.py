@@ -105,6 +105,21 @@ Phases, each printing one JSON line with its seconds:
             the scale stack (embedding, residual, final logit scale), 40
             experts of FFN 512 through qmm_gathered_t, a tied 49155-row
             lm_head
+  qwen3mxfp4_model, qwen3mxfp4_crosscheck, qwen3mxfp4_serve
+            the Qwen3-30B-A3B path again (8 of 48 layers, 1 in the
+            cross-check) in llama.cpp's MXFP4_MOE layout: MXFP4 expert stacks,
+            stored transposed (64 and 24 scale columns), through both
+            routes of qmm_gathered_t (the profile checks one eager decode
+            step's one-row tiles and one packed chunk's 8-row tiles), and
+            every other matrix Q8_0
+  mxfp4_crosscheck
+            one Mixtral-8x7B layer with every matrix MXFP4 (the MXFP4 file
+            type of tools/quantize.py), written once, card against CPU in
+            three card runs: the LUT planes, the A/r planes
+            (load_model(mxfp4_ar=True)) and the LUT planes with
+            qmm_tile_k=4: kernels 1-4 on MXFP4 sets (attention and lm_head
+            at K = 4096, [gate | up] row-major, down transposed), the same
+            greedy tokens in all three
   int8kv    the served Llama model with an int8 KV cache against a bf16
             one: Contexts of 4 lanes of 8192 cells, bf16 activations,
             4 prompts of 6100-7000 tokens prefilled, a greedy burst of 32;
@@ -173,7 +188,8 @@ ALL_PHASES = ("card", "build", "kernels", "model", "crosscheck", "serve", "graph
               "openllama_crosscheck", "q5km_model", "q5km_crosscheck", "q5km_serve",
               "quant_crosscheck", "int8kv", "int8kv_crosscheck", "state", "qwen3moe_model",
               "qwen3moe_crosscheck", "qwen3moe_serve", "qwen2moe_crosscheck",
-              "granitemoe_crosscheck")
+              "granitemoe_crosscheck", "qwen3mxfp4_model", "qwen3mxfp4_crosscheck",
+              "qwen3mxfp4_serve", "mxfp4_crosscheck")
 
 
 def emit(obj) -> None:
@@ -298,6 +314,14 @@ GRANITE_3B_A800M = Widths(n_embd=1536, n_layer=32, n_head=24, n_head_kv=8, n_ff=
                           n_vocab=49155, rope_theta=10000.0, rms_eps=1e-6, n_ctx_train=4096,
                           n_expert=40, n_expert_used=8, arch="granitemoe", tied=True,
                           scales=(12.0, 0.22, 6.0, 0.015625))
+# MXFP4: Qwen3-30B-A3B (8 of 48 layers) in llama.cpp's MXFP4_MOE layout,
+# its experts' scale planes (64 and 24 columns) no multiple of 128, so
+# stored transposed; one layer of Mixtral-8x7B with every matrix MXFP4
+# (tools/quantize.py's MXFP4 file type): attention and lm_head at K = 4096
+# through qmm_gemv / qmm_tiled (and qmm_ktiled with qmm_tile_k=4),
+# [gate | up] row-major (128 scale columns), down transposed (448)
+QWEN3_30B_A3B_MXFP4 = replace(QWEN3_30B_A3B, quant="MXFP4_MOE")
+MIXTRAL_8X7B_MXFP4 = replace(MIXTRAL_8X7B, n_layer=1, quant="MXFP4")
 
 
 def use_more_bits(il: int, n: int) -> bool:
@@ -306,16 +330,20 @@ def use_more_bits(il: int, n: int) -> bool:
     return il < n // 8 or il >= 7 * n // 8 or (il - n // 8) % 3 == 2
 
 
-def _layout(*, embd, attn_q, attn_v, attn_o, ffn, ffn_down, attn_k=None):
+def _layout(*, embd, attn_q, attn_v, attn_o, ffn, ffn_down, attn_k=None, output="Q6_K",
+            exps=None):
     """A layout's type per tensor role: (role, layer, n_layer) -> GGML type
     name; attn_v / ffn_down may be functions of (layer, n_layer). Expert
     stacks and the shared expert take the FFN roles' types, as llama.cpp's
-    quantizer gives them."""
-    roles = {"token_embd": embd, "output": "Q6_K", "attn_q": attn_q, "attn_k": attn_k or attn_q,
-             "attn_v": attn_v, "attn_output": attn_o, "ffn_gate": ffn, "ffn_up": ffn,
-             "ffn_down": ffn_down}
+    quantizer gives them, unless `exps` names the expert stacks' own type
+    (llama.cpp's MXFP4_MOE)."""
+    roles = {"token_embd": embd, "output": output, "attn_q": attn_q,
+             "attn_k": attn_k or attn_q, "attn_v": attn_v, "attn_output": attn_o,
+             "ffn_gate": ffn, "ffn_up": ffn, "ffn_down": ffn_down}
     for sfx in ("_exps", "_shexp"):
         roles.update({"ffn_gate" + sfx: ffn, "ffn_up" + sfx: ffn, "ffn_down" + sfx: ffn_down})
+    if exps:
+        roles.update({r + "_exps": exps for r in ("ffn_gate", "ffn_up", "ffn_down")})
 
     def type_of(role, il, n):
         t = roles[role]
@@ -329,6 +357,10 @@ def _layout(*, embd, attn_q, attn_v, attn_o, ffn, ffn_down, attn_k=None):
 # layers, Q5_K elsewhere; every other matrix and token_embd Q5_K), and the
 # cross-check's layouts: Q3_K_M-like, Q2_K-like, Q5_0/Q5_1 (attention
 # Q5_0, FFN Q5_1), pure Q4_0 and IQ4_XS; every one with a Q6_K output.
+# MXFP4 layouts: MXFP4_MOE (llama.cpp's: the expert stacks MXFP4, every
+# other matrix, token_embd and output Q8_0, its default type) and MXFP4
+# (tpullama/tools/quantize.py's MXFP4 file type: every matrix, token_embd
+# and output MXFP4).
 LAYOUTS = {
     "Q5_K_M": _layout(embd="Q5_K", attn_q="Q5_K", attn_o="Q5_K", ffn="Q5_K",
                       attn_v=lambda il, n: "Q6_K" if use_more_bits(il, n) else "Q5_K",
@@ -343,6 +375,10 @@ LAYOUTS = {
                     ffn_down="Q4_0"),
     "IQ4_XS": _layout(embd="IQ4_XS", attn_q="IQ4_XS", attn_v="IQ4_XS", attn_o="IQ4_XS",
                       ffn="IQ4_XS", ffn_down="IQ4_XS"),
+    "MXFP4_MOE": _layout(embd="Q8_0", attn_q="Q8_0", attn_v="Q8_0", attn_o="Q8_0", ffn="Q8_0",
+                         ffn_down="Q8_0", output="Q8_0", exps="MXFP4"),
+    "MXFP4": _layout(embd="MXFP4", attn_q="MXFP4", attn_v="MXFP4", attn_o="MXFP4", ffn="MXFP4",
+                     ffn_down="MXFP4", output="MXFP4"),
 }
 _LAYER_ROLES = ("attn_q", "attn_k", "attn_v", "attn_output", "ffn_gate", "ffn_up", "ffn_down")
 
@@ -461,6 +497,8 @@ def quant_blocks(rng: np.random.Generator, qtype, n_blocks: int) -> np.ndarray:
         b[:, 82:84] = _fp16_bytes(1.5 * 1.55e-3 * u)
     elif qtype == GGMLType.IQ4_XS:  # d (ls - 32) kvalues_iq4nl[q]
         b[:, 0:2] = _fp16_bytes(1.55e-5 * u)
+    elif qtype == GGMLType.MXFP4:  # 2^(e - 128) kvalues_mxfp4[q]: e in 119..121, rms ~5.9
+        b[:, 0] = rng.integers(119, 122, n_blocks, dtype=np.uint8)
     else:
         raise ValueError(f"quant_blocks: {qtype.name}")
     return b
@@ -660,9 +698,11 @@ def nbytes(t) -> int:
 # ---------------------------------------------------------------- kernels
 
 
-def random_planes(ggml_type, N: int, K: int, scale_dtype, gen, device) -> dict:
+def random_planes(ggml_type, N: int, K: int, scale_dtype, gen, device, ar: bool = False) -> dict:
     """Random planar fields of one packed matrix, made on the card:
-    uniform stripe bytes and per-group scales so values have std ~0.02."""
+    uniform stripe bytes and per-group scales so values have std ~0.02.
+    MXFP4: the LUT planes {q4_lut, scale}, or with `ar` the A/r planes
+    {q4a, q1r, scale}, scales powers of two (E8M0's)."""
     import torch
 
     from tpullama_torch.gguf import GGMLType
@@ -672,6 +712,14 @@ def random_planes(ggml_type, N: int, K: int, scale_dtype, gen, device) -> dict:
 
     def scales(G, base):
         return base * (0.8 + 0.4 * torch.rand((N, G), generator=gen, device=device))
+
+    if ggml_type == GGMLType.MXFP4:
+        # LUT values have rms ~5.9, random A/r ones (2 (a - 8) + r) ~9.2
+        e = torch.randint(-1, 2, (N, K // 32), generator=gen, device=device).float()
+        s = (torch.exp2(e) * (2.0 ** -9 if ar else 2.0 ** -8)).to(scale_dtype)
+        if ar:
+            return {"q4a": u8(N, K // 2), "q1r": u8(N, K // 8), "scale": s}
+        return {"q4_lut": u8(N, K // 2), "scale": s}
 
     if ggml_type == GGMLType.Q6_K:
         s = scales(K // 16, 1.1e-3)
@@ -736,9 +784,13 @@ def qmm_cases(timer, gen, device, out: list) -> None:
     cases += [(qt, N, K, bf16, bf16, (4, 1024)) for qt in (Q5K, Q5_0, Q5_1, Q3, Q2)
               for N, K in ((14336, 4096), (4096, 14336))]
     cases += [(Q5K, 4096, 4096, f32, bf16, (1, 256)), (Q3, 4096, 4096, bf16, f32, (1, 256))]
-    group = {Q4: 32, Q6: 16, Q8: 32, Q5K: 32, Q5_0: 32, Q5_1: 32, Q3: 16, Q2: 16}
-    for qt, N, K, xdt, sdt, Ts in cases:
-        fields = random_planes(qt, N, K, sdt, gen, device)
+    # MXFP4's LUT and A/r planes (csrc/qmm_mxfp4.cu) at the FFN's shape
+    MX = GGMLType.MXFP4
+    cases += [(MX, 14336, 4096, bf16, bf16, (4, 1024), ar) for ar in (False, True)]
+    group = {Q4: 32, Q6: 16, Q8: 32, Q5K: 32, Q5_0: 32, Q5_1: 32, Q3: 16, Q2: 16, MX: 32}
+    for qt, N, K, xdt, sdt, Ts, *ar in cases:
+        ar = bool(ar and ar[0])
+        fields = random_planes(qt, N, K, sdt, gen, device, ar=ar)
         g = group[qt]
         w_lib = None
         for T in Ts:
@@ -767,7 +819,7 @@ def qmm_cases(timer, gen, device, out: list) -> None:
             b_ms, b_by = bound_ms(n_bytes, 2.0 * T * N * K, "bf16" if xdt == bf16 else "f32")
             name = "qmm_gemv" if T <= qmm.GEMV_MAX_T else "qmm_tiled"
             rec = {"phase": "kernels", "kernel": name, "route": qmm.route(name, T),
-                   "type": qt.name, "N": N, "K": K,
+                   "type": type_label(qt, ar), "N": N, "K": K,
                    "T": T, "x": str(xdt).split(".")[-1], "scales": str(sdt).split(".")[-1],
                    "max_abs_err": err, "tol": tol,
                    "max_rel_err": err / max(float(want.abs().max()), 1e-30),
@@ -777,6 +829,12 @@ def qmm_cases(timer, gen, device, out: list) -> None:
             out.append(rec)
         del w_lib, fields
         torch.cuda.empty_cache()
+
+
+def type_label(ggml_type, ar: bool = False) -> str:
+    """A kernels-phase record's type: the GGML type, MXFP4's A/r planes as
+    MXFP4_AR."""
+    return "MXFP4_AR" if ar else ggml_type.name
 
 
 def natural_bf16(fields, ggml_type, N: int, K: int, g: int, order: str = "stripe"):
@@ -801,33 +859,34 @@ def ktiled_cases(timer, gen, device, out: list) -> None:
     the B = 1 decode step (T = 1) at nk = 2, 4, 8, at T = 4 (nk = 4) and the
     256-token prefill chunk at nk = 4, and at the Llama-3-8B widths 4096 x
     4096 and 14336 x 4096 (T = 1, nk = 4), each beside qmm_gemv on the same
-    planes."""
+    planes; then MXFP4's LUT planes at the attn_qkv shape (T = 1 and 256,
+    nk = 4)."""
     import torch
 
     from tpullama_torch.gguf import GGMLType
     from tpullama_torch.ops.cuda import qmm
 
     Q4, bf16, K = GGMLType.Q4_K, torch.bfloat16, 4096
-    cases = [(4608, ((1, 2), (1, 4), (1, 8), (4, 4), (256, 4))), (4096, ((1, 4),)),
-             (14336, ((1, 4),))]
-    for N, runs in cases:
-        fields = random_planes(Q4, N, K, bf16, gen, device)
-        w_lib = natural_bf16(fields, Q4, N, K, 32)
+    cases = [(Q4, 4608, ((1, 2), (1, 4), (1, 8), (4, 4), (256, 4))), (Q4, 4096, ((1, 4),)),
+             (Q4, 14336, ((1, 4),)), (GGMLType.MXFP4, 4608, ((1, 4), (256, 4)))]
+    for qt, N, runs in cases:
+        fields = random_planes(qt, N, K, bf16, gen, device)
+        w_lib = natural_bf16(fields, qt, N, K, 32)
         gemv_done = False
         for T, nk in runs:
             x = torch.randn((T, K), generator=gen, device=device).to(bf16)
             todo = [("qmm_ktiled", nk)]
-            if T == 1 and not gemv_done:
+            if T == 1 and not gemv_done and qt == Q4:
                 todo.append(("qmm_gemv", None))
                 gemv_done = True
             for name, tile_k in todo:
                 def kern():
-                    return qmm.quantized_matmul(x, fields, Q4, 32, N, K, tile_k=tile_k)
+                    return qmm.quantized_matmul(x, fields, qt, 32, N, K, tile_k=tile_k)
 
                 def plain():
                     if tile_k is None:
-                        return qmm.quantized_matmul_plain(x, fields, Q4, 32, N, K)
-                    return qmm.quantized_matmul_ktiled_plain(x, fields, Q4, 32, N, K, tile_k)
+                        return qmm.quantized_matmul_plain(x, fields, qt, 32, N, K)
+                    return qmm.quantized_matmul_ktiled_plain(x, fields, qt, 32, N, K, tile_k)
 
                 before = dict(qmm.LAUNCHES)
                 got, want = kern(), plain()
@@ -843,7 +902,8 @@ def ktiled_cases(timer, gen, device, out: list) -> None:
                 n_bytes = sum(nbytes(a) for a in fields.values()) + nbytes(x) + T * N * 4
                 b_ms, b_by = bound_ms(n_bytes, 2.0 * T * N * K, "bf16")
                 rec = {"phase": "kernels", "kernel": name, "route": qmm.route(name, T),
-                       "type": "Q4_K", "N": N, "K": K, "T": T, "nk": tile_k, "x": "bfloat16", "scales": "bfloat16", "max_abs_err": err,
+                       "type": qt.name, "N": N, "K": K, "T": T, "nk": tile_k, "x": "bfloat16",
+                       "scales": "bfloat16", "max_abs_err": err,
                        "tol": tol, "max_rel_err": err / max(float(want.abs().max()), 1e-30),
                        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                        "bound_ms": b_ms, "bound_by": b_by}
@@ -958,7 +1018,12 @@ def gathered_cases(timer, gen, device, out: list) -> None:
     (8 one-row tiles over 8 experts, 2048 slots in 8-row tiles), and at
     Qwen3-30B-A3B's served shapes: [gate | up] 1536 x 2048 in Q2_K and down
     2048 x 768 in Q3_K over 128 experts, the B = 4 decode step's 32
-    one-row tiles (8 experts a token)."""
+    one-row tiles (8 experts a token). MXFP4's LUT and A/r planes
+    (csrc/qmm_gathered_mxfp4.cu): row-major at Mixtral's [gate | up] (8
+    one-row tiles over 8 experts, 2048 slots in 8-row tiles), transposed at
+    Qwen3-30B-A3B's [gate | up] and down (32 one-row tiles, 2048 slots in
+    8-row tiles over 128 experts) and at Mixtral's down (8 one-row tiles
+    over 8 experts, 2048 slots)."""
     import torch
     import torch.nn.functional as F
 
@@ -990,14 +1055,21 @@ def gathered_cases(timer, gen, device, out: list) -> None:
               for qt in (Q5K, Q5_0, Q5_1, Q3, Q2)]
     cases += [(False, Q2, 2 * 768, 2048, (bf16,), ((32, 1),), 128, 8),
               (False, Q3, 2048, 768, (bf16,), ((32, 1),), 128, 8)]
-    group = {Q4: 32, Q6: 16, Q8: 32, Q5K: 32, Q5_0: 32, Q5_1: 32, Q3: 16, Q2: 16}
-    for planes_t, qt, N, K, sdts, routings, *moe in cases:
-        E, k_used = moe or (8, 2)
+    MX = GGMLType.MXFP4
+    for ar in (False, True):
+        cases += [(False, MX, 2 * 14336, 4096, (bf16,), ((8, 1, 8), (2048, 8)), 8, 2, ar),
+                  (True, MX, 2 * 768, 2048, (bf16,), ((32, 1), (2048, 8)), 128, 8, ar),
+                  (True, MX, 2048, 768, (bf16,), ((32, 1), (2048, 8)), 128, 8, ar),
+                  (True, MX, 4096, 14336, (bf16,), ((8, 1, 8), (2048, 8)), 8, 2, ar)]
+    group = {Q4: 32, Q6: 16, Q8: 32, Q5K: 32, Q5_0: 32, Q5_1: 32, Q3: 16, Q2: 16, MX: 32}
+    for planes_t, qt, N, K, sdts, routings, *rest in cases:
+        # experts, experts a token, MXFP4's A/r planes
+        E, k_used, ar = (*rest, *(8, 2, False)[len(rest):])
         g = group[qt]
         R = -(-N // 128) * 128
         name = "qmm_gathered_t" if planes_t else "qmm_gathered"
         # the library's weights: every expert dequantized to bf16 in natural order
-        rows = random_planes(qt, E * R, K, f32, gen, device)
+        rows = random_planes(qt, E * R, K, f32, gen, device, ar=ar)
         rows = {k: v.reshape(E, R, -1) for k, v in rows.items()}
         for v in rows.values():
             v[:, N:] = 0  # the loader zero-pads each expert's rows
@@ -1064,7 +1136,8 @@ def gathered_cases(timer, gen, device, out: list) -> None:
                 n_bytes = distinct * per_expert + nbytes(x_slots) + S * N * 4
                 b_ms, b_by = bound_ms(n_bytes, 2.0 * S * N * K, "bf16")
                 rec = {"phase": "kernels", "kernel": name,
-                       "route": qmm_gathered.route(tt, planes_t), "type": qt.name, "N": N, "K": K,
+                       "route": qmm_gathered.route(tt, planes_t), "type": type_label(qt, ar),
+                       "N": N, "K": K,
                        "experts": E, "slots": S, "tile_t": tt, "rows": int(x.shape[0]),
                        "distinct_experts": distinct, "x": "float32",
                        "scales": str(sdt).split(".")[-1], "max_abs_err": err, "tol": tol,
@@ -1332,11 +1405,12 @@ def phase_model(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
         check(set(lm) == want | {"ffn_gateup_exps", "ffn_down_exps"},
               f"every layer matrix and expert stack is packed: {sorted(lm)}")
         # the loader's planes_t rule: a one-stripe set (Q4_0/Q4_1/Q4_K,
-        # Q8_0) whose scale plane (K / 32 columns) is no multiple of 128 is
-        # stored transposed (Mixtral's down, K = 14336: 448 columns); the
-        # q1/q2 sets never are
+        # Q8_0, MXFP4) whose scale plane (K / 32 columns) is no multiple of
+        # 128 is stored transposed (Mixtral's down, K = 14336: 448 columns;
+        # Qwen3-30B-A3B's [gate | up] and down, 64 and 24); the q1/q2 sets
+        # never are
         for key, K in (("ffn_gateup_exps", widths.n_embd), ("ffn_down_exps", widths.n_ff)):
-            one_stripe = lm[key].ggml_type.name in ("Q4_0", "Q4_1", "Q4_K", "Q8_0")
+            one_stripe = lm[key].ggml_type.name in ("Q4_0", "Q4_1", "Q4_K", "Q8_0", "MXFP4")
             check(lm[key].planes_t == (one_stripe and K % 4096 != 0),
                   f"{key} ({lm[key].ggml_type.name}, K={K}) planes_t={lm[key].planes_t}")
     elif widths.quant:
@@ -1501,6 +1575,75 @@ def phase_crosscheck(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
         out_u = Context(gpu, cp, fused_layer=False, qmm_tile_k=1).generate(prompt, n_predict=8)
         check(out_u == out_g, f"fused/K-chunked {out_g} and unfused {out_u} card runs differ")
         rec["unfused_greedy_tokens"] = out_u
+    emit({**rec, "seconds": time.perf_counter() - t0})
+
+
+def phase_mxfp4_crosscheck(tmp: str, card: str, device: str = "cuda",
+                           widths: Widths = MIXTRAL_8X7B_MXFP4, n_prompt: int = 32,
+                           phase: str = "mxfp4_crosscheck") -> None:
+    """One file with every matrix in MXFP4 (MIXTRAL_8X7B_MXFP4, 1 layer),
+    written once, card against CPU in three card runs: the LUT planes as
+    loaded, the A/r planes (load_model(mxfp4_ar=True)), and the LUT planes
+    with 4 K-chunks (Context(qmm_tile_k=4): attention and the lm_head
+    through qmm_ktiled). The CPU side loads the LUT planes once and
+    dequantizes its matrices once (dense_reference; the experts stay
+    packed). Each run's prefill logits within 1e-3 of their max + 1e-4 of
+    the CPU's and its 8 greedy tokens equal to the CPU's (f32 activations
+    and cache), so the A/r and LUT card runs give the same tokens too: the
+    re-code loses nothing. Every packed matrix is MXFP4, so each kernel the
+    path launches ran an MXFP4 set: kernels 1-4 (qmm_gemv / qmm_tiled,
+    qmm_ktiled, row-major qmm_gathered for [gate | up], transposed
+    qmm_gathered_t for down)."""
+    import torch
+
+    from tpullama_torch.gguf import GGMLType
+    from tpullama_torch.models import load_model
+    from tpullama_torch.runtime import Context, ContextParams
+
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, f"{phase}.gguf")
+    write_llama_gguf(path, widths, seed=1)
+    t1 = time.perf_counter()
+    cpu = dense_reference(load_model(path, dtype=torch.float32, device="cpu", packed=True))
+    cpu_load_s = time.perf_counter() - t1
+    prompt = cpu.vocab.tokenize(word_prompt(np.random.default_rng(2), 40), add_special=True)
+    prompt = np.asarray(prompt[:n_prompt], np.int32)
+    check(len(prompt) == n_prompt, f"prompt has {len(prompt)} tokens")
+    cp = ContextParams(n_ctx=256)
+    cc = Context(cpu, cp)
+    lc = cc.decode(prompt, n_logits=n_prompt)
+    out_c = greedy_continue(cc, lc[-1], 8)
+    tol = 1e-3 * float(np.abs(lc).max()) + 1e-4
+    rec = {"phase": phase, "card": card, "layers": widths.n_layer, "prompt_tokens": n_prompt,
+           "quant": widths.quant, "cpu_load_s": cpu_load_s, "tol": tol, "greedy_tokens": out_c,
+           "load_s": {}, "runs": {}}
+    gpu, loaded = None, None
+    for run, ar, tile_k in (("lut", False, None), ("lut_tile_k4", False, 4), ("ar", True, None)):
+        if loaded != ar:  # each set's planes loaded once
+            gpu = None
+            if device == "cuda":
+                torch.cuda.empty_cache()
+            t1 = time.perf_counter()
+            gpu = load_model(path, dtype=torch.float32, device=device, packed=True, mxfp4_ar=ar)
+            rec["load_s"]["ar" if ar else "lut"], loaded = time.perf_counter() - t1, ar
+        lm = gpu.quant_meta["layers"]
+        want = {"q4a", "q1r", "scale"} if ar else {"q4_lut", "scale"}
+        check(all(m.ggml_type == GGMLType.MXFP4 for m in lm.values())
+              and gpu.quant_meta["output"].ggml_type == GGMLType.MXFP4
+              and all(set(gpu.params["layers"][k]) == want for k in lm)
+              and set(gpu.params["output"]) == {"q4_lut", "scale"},
+              f"{run}: every packed layer matrix MXFP4 in {sorted(want)}, the output's LUT")
+        check(not lm["ffn_gateup_exps"].planes_t and lm["ffn_down_exps"].planes_t,
+              f"{run}: [gate | up] row-major (128 scale columns), down transposed (448)")
+        lg = Context(gpu, cp, qmm_tile_k=tile_k).decode(prompt, n_logits=n_prompt)
+        err = float(np.abs(lg - lc).max())
+        check(np.isfinite(lg).all() and err <= tol, f"{run}: prefill logits err {err} > {tol}")
+        out_g = Context(gpu, cp, qmm_tile_k=tile_k).generate(prompt, n_predict=8)
+        check(out_g == out_c, f"{run}: greedy tokens differ: card {out_g} cpu {out_c}")
+        rec["runs"][run] = {"mxfp4_ar": ar, "qmm_tile_k": tile_k, "prefill_max_abs_err": err,
+                            "greedy_tokens": out_g}
+    del gpu
+    os.remove(path)
     emit({**rec, "seconds": time.perf_counter() - t0})
 
 
@@ -1683,14 +1826,19 @@ def phase_serve(model, card: str, phase: str = "serve", n_slots: int = 4,
 
 
 def phase_serve_profile(eng, prompt: str, card: str, phase: str = "serve_profile",
-                        step_kernels: tuple = (), qmm_counts: tuple | None = None) -> None:
+                        step_kernels: tuple = (), qmm_counts: tuple | None = None,
+                        gathered_routes: str | None = None) -> None:
     """torch.profiler over the served engine's Context, whose lanes still
     hold the requests: one packed B x 256 prefill chunk and one decode
     step of all B lanes. Then one more decode step with every launch count
     at 0: each kernel of `step_kernels` must have launched once per layer.
     With `qmm_counts` = (gemv, tiled), that step must launch qmm_gemv gemv
     times and one more packed chunk qmm_tiled tiled times: every packed
-    matrix of the model went through the kernels."""
+    matrix of the model went through the kernels. With `gathered_routes`
+    (a gathered kernel's name), one eager decode step and one more packed
+    chunk, each with the launch counts at 0 and the MoE layers' gathered
+    calls recorded: the step must launch that kernel on one-row tiles and
+    the chunk on 8-row tiles, twice a layer each ([gate | up] and down)."""
     from tpullama_torch.ops.cuda import launch_counts, reset_launch_counts
 
     ctx = eng.ctx
@@ -1732,8 +1880,31 @@ def phase_serve_profile(eng, prompt: str, card: str, phase: str = "serve_profile
         rec["prefill_chunk_launches"] = chunk_counts = launch_counts()
     if ctx.device.type == "cuda":
         rec["replay_event_ms"] = replay_ms(ctx._programs[(0, B, None)])
+    routes = {}
+    if gathered_routes:
+        # the eager step: a replayed graph runs no Python to record
+        for what, run in (("decode_step", decode),
+                          ("prefill_chunk", lambda: ctx.decode_multi([(s, chunk)
+                                                                      for s in range(B)]))):
+            ctx._run = ctx._step
+            try:
+                with recorded_tiles([]) as calls:
+                    reset_launch_counts()
+                    run()
+                    n = launch_counts()[gathered_routes]
+            finally:
+                del ctx._run
+            routes[what] = {"launches": n, "calls": [list(c[0]) + [c[1], c[2]]
+                                                     for c in sorted(set(calls))]}
+            routes[what]["tile_t"] = sorted({c[1] for c in calls})
+        rec["gathered_routes"] = {gathered_routes: routes}
     emit(rec)
     n_layer = ctx.hp.n_layer
+    if gathered_routes and ctx.device.type == "cuda":
+        for what, tile_t in (("decode_step", 1), ("prefill_chunk", 8)):
+            check(routes[what]["launches"] == 2 * n_layer and routes[what]["tile_t"] == [tile_t],
+                  f"{what}: {gathered_routes} launched {routes[what]['launches']} times on "
+                  f"tiles of {routes[what]['tile_t']} rows, not {2 * n_layer} on {tile_t}")
     for name in step_kernels:
         check(counts[name] == n_layer,
               f"a decode step launched {name} {counts[name]} times, not once per layer")
@@ -2060,7 +2231,7 @@ def phase_cli(tmp: str, card: str, phase: str = "cli", widths: Widths = LLAMA3_8
     text. Every matrix is Q8_0, which the loader dequantizes on the host
     several times faster than Q4_K/Q6_K (the CLI loads dense: the
     quantization type does not reach the card). Then --grammar (a GBNF
-    grammar over words and a full stop) and --json-schema (SCHEMA), 6
+    grammar over words and a full stop) and --json-schema (SCHEMA), 3
     tokens each at --temp 0 --seed 7 (a grammar makes a seeded sampler
     chain), on the card and with --device cpu: the same text, which the
     grammar accepts, and the host's ms per token in Grammar.apply. Returns
@@ -2110,7 +2281,7 @@ def phase_cli(tmp: str, card: str, phase: str = "cli", widths: Widths = LLAMA3_8
         for dev in (device, "cpu"):
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf), timed_method(Grammar, "apply", apply_s):
-                rc = cli_main(["-m", path, "-p", prompt, "-n", "6", "--temp", "0", "--seed", "7",
+                rc = cli_main(["-m", path, "-p", prompt, "-n", "3", "--temp", "0", "--seed", "7",
                                *flags] + ([] if dev == "cuda" else ["--device", dev]))
             check(rc == 0, f"the CLI exited {rc} on {dev} with --{name}")
             texts.append(buf.getvalue()[len(prompt):].rstrip("\n"))
@@ -2269,10 +2440,12 @@ def f32_activations(model):
     return replace(model, params={**model.params, "tok_embd": model.params["tok_embd"].float()})
 
 
-def served_spec(model, draft, prompts: list, serve_tokens=None) -> dict:
+def served_spec(model, draft, prompts: list, serve_tokens=None, n_tokens: int = 16) -> dict:
     """ServerEngine(n_slots=4, n_ctx=4096, bf16 cache, 16 drafts a round,
-    p_min 0) with `draft` answers the 4 greedy `prompts`: each lane's
-    tokens are its plain greedy loop's (and `serve_tokens`' if given)
+    p_min 0) with `draft` answers the 4 greedy `prompts` with n_tokens each
+    (16: the random draft's rounds accept no token, so each round yields
+    one, and the whole run's time limit is shared): each lane's tokens are
+    its plain greedy loop's (and `serve_tokens`' first ones, if given)
     under the near-tie rule; output tok/s, drafts and acceptance, and one
     round's wall split into drafting and verifying with the kernels each
     part launched."""
@@ -2282,7 +2455,7 @@ def served_spec(model, draft, prompts: list, serve_tokens=None) -> dict:
     from tpullama_torch.runtime.speculative import Speculative, SpeculativeParams
     from tpullama_torch.server import ServerEngine, Task
 
-    refs = [greedy_gaps(model, p, 32, ContextParams(n_ctx=4096, dtype=torch.bfloat16))
+    refs = [greedy_gaps(model, p, n_tokens, ContextParams(n_ctx=4096, dtype=torch.bfloat16))
             for p in prompts]
     eng = ServerEngine(model, n_slots=4, n_ctx=4096, dtype=torch.bfloat16, draft_model=draft,
                        spec_params=SpeculativeParams(n_draft=16, p_min=0.0))
@@ -2290,7 +2463,7 @@ def served_spec(model, draft, prompts: list, serve_tokens=None) -> dict:
     with timed_method(ServerEngine, "_spec_step", rounds, launches=True), \
             timed_method(Speculative, "gen_draft", drafting, launches=True):
         t1 = time.perf_counter()
-        tasks = [eng.submit(Task(prompt_tokens=p, n_predict=32)) for p in prompts]
+        tasks = [eng.submit(Task(prompt_tokens=p, n_predict=n_tokens)) for p in prompts]
         while not all(t.done.is_set() for t in tasks):
             eng.step()
         wall = time.perf_counter() - t1
@@ -2352,8 +2525,8 @@ def phase_spec(model, tmp: str, card: str, serve_tokens=None, phase: str = "spec
         full depth, Q4_K, written and loaded here) drafts for
         ServerEngine(n_slots=4, n_ctx=4096, bf16, 16 drafts, p_min 0: random
         weights never reach the 0.75 gate, and without drafts verify would
-        never run above T = 1) on the serve phase's 4 greedy requests
-        (served_spec), with the bf16 models (the numbers; the tokens
+        never run above T = 1) on the serve phase's 4 greedy requests, 16
+        tokens each (served_spec), with the bf16 models (the numbers; the tokens
         under the rule, whose measured route difference leaves few to
         compare) and again with f32 activations (the tokens: verify
         (qmm_tiled, flash_attention) and drafting (qmm_gemv,
@@ -2430,6 +2603,25 @@ def phase_spec(model, tmp: str, card: str, serve_tokens=None, phase: str = "spec
     del draft
     free()
     emit({**rec, "seconds": time.perf_counter() - t0})
+
+
+@contextlib.contextmanager
+def recorded_tiles(log: list):
+    """Append the (field set, tile_t, planes_t) of every gathered product
+    the MoE layers call inside the block to `log`."""
+    from tpullama_torch.ops import moe
+
+    gathered = moe.quantized_matmul_gathered
+
+    def recording(x, fields, sel, *args, tile_t=1, planes_t=False, **kw):
+        log.append((tuple(sorted(fields)), tile_t, planes_t))
+        return gathered(x, fields, sel, *args, tile_t=tile_t, planes_t=planes_t, **kw)
+
+    moe.quantized_matmul_gathered = recording
+    try:
+        yield log
+    finally:
+        moe.quantized_matmul_gathered = gathered
 
 
 @contextlib.contextmanager
@@ -2964,9 +3156,9 @@ KERNELS = (
     ("qmm_gathered", "tpullama_torch/csrc/qmm_gathered.cu", "tpullama/ops/pallas/qmm.py:655",
      dict(slots=2048, N=28672, K=4096, scales="bfloat16", type="Q4_K")),
     ("qmm_gathered_t", "tpullama_torch/csrc/qmm_gathered.cu", "tpullama/ops/pallas/qmm.py:771",
-     dict(slots=2048, N=4096, K=14336, scales="bfloat16")),
+     dict(slots=2048, N=4096, K=14336, scales="bfloat16", type="Q4_K")),
     ("qmm_ktiled", "tpullama_torch/csrc/qmm_ktiled.cu", "tpullama/ops/pallas/qmm.py:450",
-     dict(T=1, N=4608, K=4096, nk=4)),
+     dict(T=1, N=4608, K=4096, nk=4, type="Q4_K")),
     ("fused_postattn", "tpullama_torch/csrc/fused_layer.cu",
      "tpullama/ops/pallas/fused_layer.py:112", dict(E=4096, Dq=4096, Fd=13696)),
     # the int8 cache's routes of kernels 5-7 (their has_kv_scale branches)
@@ -3021,6 +3213,13 @@ PATH_KERNELS = {
     "qwen3moe_serve": _DENSE_SERVE + ("qmm_gathered",),
     "qwen2moe_crosscheck": _DENSE_CROSS + ("qmm_gathered",),
     "granitemoe_crosscheck": _DENSE_CROSS + ("qmm_gathered_t",),
+    # MXFP4 experts of Qwen3-30B-A3B, transposed (64 and 24 scale columns),
+    # beside Q8_0 attention and lm_head; one Mixtral-8x7B layer all MXFP4:
+    # attention and lm_head (LUT or A/r planes; with qmm_tile_k=4 through
+    # qmm_ktiled), [gate | up] row-major, down transposed
+    "qwen3mxfp4_crosscheck": _DENSE_CROSS + ("qmm_gathered_t",),
+    "qwen3mxfp4_serve": _DENSE_SERVE + ("qmm_gathered_t",),
+    "mxfp4_crosscheck": _DENSE_CROSS + _GATHERED + ("qmm_ktiled",),
     # lanes saved and loaded (f32 and int8 caches), the HTTP engine, the CLI
     "state": ("qmm_gemv", "qmm_tiled", "flash_attention", "flash_decode", "flash_decode_batched",
               "flash_attention_int8", "flash_decode_int8"),
@@ -3035,7 +3234,8 @@ PATHS = (("", LLAMA3_8B, 2, 4, {}),
          ("q5km_", LLAMA3_8B_Q5KM, 1, 4, {}),
          ("qwen3moe_", QWEN3_30B_A3B, 1, 4, {}),
          ("qwen2moe_", QWEN2_57B_A14B, 1, 0, {}),
-         ("granitemoe_", GRANITE_3B_A800M, 2, 0, {}))
+         ("granitemoe_", GRANITE_3B_A800M, 2, 0, {}),
+         ("qwen3mxfp4_", QWEN3_30B_A3B_MXFP4, 1, 4, {}))
 # the cross-checks' prompt tokens where not 32: Qwen2-57B-A14B's CPU steps
 # dequantize its 20480-wide shared expert and 151936-row output per call
 CROSS_PROMPT = {"qwen2moe_": 16}
@@ -3142,7 +3342,7 @@ def main() -> int:
     launches: dict = {}
     # the Llama path (and its HTTP server), the Mixtral path, the ChatGLM
     # path, then the cross-checks alone, the Q5_K_M Llama path, the Qwen3
-    # MoE path and the other MoE archs' cross-checks
+    # MoE path, the other MoE archs' cross-checks and the MXFP4 Qwen3 path
     for pre, widths, cross_layers, n_slots, opts in PATHS:
         run = [p for p in ("model", "crosscheck", "serve", "graphs", "http", "spec", "int8kv",
                            "int8kv_crosscheck", "state") if pre + p in phases]
@@ -3176,7 +3376,9 @@ def main() -> int:
                                len(lm) * widths.n_layer))
                 phase_serve_profile(eng, prompt, smi, phase=pre + "serve_profile",
                                     step_kernels=("qmm_ktiled", "fused_postattn") if fused
-                                    else (), qmm_counts=qmm_counts)
+                                    else (), qmm_counts=qmm_counts,
+                                    gathered_routes="qmm_gathered_t" if pre == "qwen3mxfp4_"
+                                    else None)
                 del eng
                 torch.cuda.empty_cache()
             if "graphs" in run:
@@ -3203,6 +3405,11 @@ def main() -> int:
                         cut_path, gpu, cpu, prompt, smi, tmp))
                 del gpu, cpu
                 os.remove(cut_path)
+        torch.cuda.empty_cache()
+    if "mxfp4_crosscheck" in phases:
+        with tempfile.TemporaryDirectory() as tmp:
+            launches["mxfp4_crosscheck"], _ = path_launches(
+                "mxfp4_crosscheck", lambda: phase_mxfp4_crosscheck(tmp, smi))
         torch.cuda.empty_cache()
     if "cli" in phases:
         with tempfile.TemporaryDirectory() as tmp:

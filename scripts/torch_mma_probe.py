@@ -2,11 +2,17 @@
 """Where the time of the port's qmm and attention bodies goes, on one CUDA card.
 
     python3 scripts/torch_mma_probe.py [--body all|mma|group|attention|gemv|fused|gathered_t|ktiled]
+                                       [--qtype Q4_K|MXFP4|MXFP4_AR]
 
 Builds copies of qmm.cu, qmm_gathered.cu and qmm_ktiled.cu (or of
 flash_attention.cu and flash_decode.cu, or fused_layer.cu) from
 tpullama_torch/csrc in which phases of a body's loop are removed, and
 times each copy at the served shapes of chip_smoke.py's kernels phase.
+`--qtype` picks the planes the qmm bodies (mma, group, gemv, gathered_t,
+ktiled) read at those shapes: Q4_K (the default), MXFP4's LUT planes
+{q4_lut, scale} or its A/r re-code {q4a, q1r, scale} (MXFP4_AR; not for
+ktiled, whose reference never chunks the A/r planes), all with bf16
+scales.
 
 Body "mma" (qmm_mma.cuh, `mma_tile`): qmm_gathered over Mixtral's
 [gate | up] (28672 x 4096 x 8 experts, bf16 scales) at 2048 and 512 slots
@@ -92,7 +98,7 @@ Variants:
   threads288 blocks of 288 threads (36-row tiles: 761 [gate | up] tiles,
             under 3 rounds of the 264 resident blocks, against 856 tiles
             in 3.2 rounds at 256); the outputs stay right
-Body "gathered_t" (qmm_gathered.cu, `gt_body`, the transposed one-row
+Body "gathered_t" (qmm_gathered_t.cuh, `gt_body`, the transposed one-row
 decode route): qmm_gathered_t over Mixtral's down (4096 x 14336 x 8
 experts, Q4_K, bf16 scales, f32 x) at 8 one-row tiles over 8, 6 and 2
 experts (chip_smoke.decode_sel), with its achieved GB/s (the distinct
@@ -230,7 +236,7 @@ F_SYNC = (FL, "  grid.sync();\n", "")
 F_NOSTAGE = (FL, "    if (cs == staged) return;\n", "    return;\n")
 F_T288 = (FL, "constexpr int THREADS = 256;", "constexpr int THREADS = 288;")
 GEMV_H = "qmm_gemv.cuh"
-# transposed one-row body (qmm_gathered.cu)
+# transposed one-row body (qmm_gathered_t.cuh)
 T_STAGE = ("  for (int i = tid; i < TT * GT_COLS * 8; i += GT_THREADS) {\n",
            "  for (int i = tid; i < 0; i += GT_THREADS) {\n")
 T_FMA = ("            for (int r = 0; r < GT_TR; ++r) acc[r][t] = fmaf(q[r / 4][r % 4], xa, acc[r][t]);\n",
@@ -342,11 +348,12 @@ VARIANTS = {
 }
 # the file each body's patches edit, and the sources each copy builds
 HEADER = {"mma": "qmm_mma.cuh", "group": "qmm_group_mma.cuh", "attention": "flash_attention.cu",
-          "gemv": "qmm_gemv.cuh", "fused": FL, "gathered_t": "qmm_gathered.cu", "ktiled": KT}
-# qmm.cu links with qmm_lowbit.cu and qmm_gathered.cu with
-# qmm_gathered_lowbit.cu (their entry points dispatch the q1/q2 sets there)
-QMM = ("qmm.cu", "qmm_lowbit.cu")
-GATHERED = ("qmm_gathered.cu", "qmm_gathered_lowbit.cu")
+          "gemv": "qmm_gemv.cuh", "fused": FL, "gathered_t": "qmm_gathered_t.cuh", "ktiled": KT}
+# qmm.cu links with qmm_lowbit.cu and qmm_mxfp4.cu, qmm_gathered.cu with
+# qmm_gathered_lowbit.cu and qmm_gathered_mxfp4.cu (their entry points
+# dispatch the q1/q2 and MXFP4 sets there)
+QMM = ("qmm.cu", "qmm_lowbit.cu", "qmm_mxfp4.cu")
+GATHERED = ("qmm_gathered.cu", "qmm_gathered_lowbit.cu", "qmm_gathered_mxfp4.cu")
 QMM_SOURCES = (*QMM, *GATHERED, "qmm_ktiled.cu")
 SOURCES = {"mma": QMM_SOURCES, "group": QMM_SOURCES,
            "attention": ("flash_attention.cu", "flash_attention_int8.cu", "flash_decode.cu",
@@ -397,7 +404,7 @@ def load(d: str, body: str) -> ctypes.CDLL:
         "tpl_qmm_gathered": [i, i, i, i, p, p, p, p, p, p, p, i, i, i, i, i, p],
         "tpl_qmm_tiled": [i, i, i, p, p, p, p, p, p, p, i, i, i, p],
         "tpl_qmm_gemv": [i, i, i, p, p, p, p, p, p, i, i, i, p],
-        "tpl_qmm_gathered_t": [i, i, p, p, p, p, p, p, p, i, i, i, i, i, i, p],
+        "tpl_qmm_gathered_t": [i, i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p],
         "tpl_fused_postattn": [i, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, f, p],
         "tpl_error_string": [i],
     }
@@ -426,7 +433,11 @@ def read_flush_timer(device):
     return ReadFlushTimer(device)
 
 
-def shapes(device, body: str):
+# --qtype: (the GGML type the qmm bodies' planes are, the A/r re-code)
+QTYPES = {"Q4_K": ("Q4_K", False), "MXFP4": ("MXFP4", False), "MXFP4_AR": ("MXFP4", True)}
+
+
+def shapes(device, body: str, qtype: str = "Q4_K"):
     import torch
     import torch.nn.functional as F
 
@@ -436,11 +447,16 @@ def shapes(device, body: str):
     from tpullama_torch.ops.moe import moe_dispatch
 
     gen = torch.Generator(device=device).manual_seed(0)
-    Q4, bf16, E = GGMLType.Q4_K, torch.bfloat16, 8
+    bf16, E = torch.bfloat16, 8
+    Q4 = GGMLType[QTYPES[qtype][0]]  # the qmm bodies' type (fused: always Q4_K)
+    ar = QTYPES[qtype][1]
+
+    def planes(N, K):
+        return cs.random_planes(Q4, N, K, bf16, gen, device, ar=ar)
 
     def experts(N, K, planes_t):
         R = -(-N // 128) * 128
-        f = cs.random_planes(Q4, E * R, K, bf16, gen, device)
+        f = cs.random_planes(Q4, E * R, K, bf16, gen, device, ar=ar)
         f = {k: v.reshape(E, R, -1) for k, v in f.items()}
         if planes_t:  # (E, kcols, R); group rows padded to 16
             f = {k: v.transpose(1, 2).contiguous() for k, v in f.items()}
@@ -460,7 +476,7 @@ def shapes(device, body: str):
     if body == "fused":
         from tpullama_torch.ops.cuda import fused_layer
 
-        E, Fd = 4096, 13696
+        E, Fd, Q4 = 4096, 13696, GGMLType.Q4_K
         o = cs.random_planes(Q4, E, E, bf16, gen, device)
         gu = cs.random_planes(Q4, 2 * Fd, E, bf16, gen, device)
         att, x = (torch.randn((1, E), generator=gen, device=device).to(bf16) for _ in range(2))
@@ -485,7 +501,7 @@ def shapes(device, body: str):
         return out
     if body == "ktiled":
         N, K = 4608, 4096
-        f = cs.random_planes(Q4, N, K, bf16, gen, device)
+        f = planes(N, K)
         for T, nk in ((1, 2), (1, 4), (1, 8), (4, 4)):
             x = torch.randn((T, K), generator=gen, device=device).to(bf16)
             n_bytes = sum(cs.nbytes(a) for a in f.values()) + cs.nbytes(x) + T * N * 4
@@ -495,7 +511,7 @@ def shapes(device, body: str):
         return out
     if body == "gemv":
         for N, K, T in ((14336, 4096, 4), (14336, 4096, 1), (4096, 14336, 4)):
-            f = cs.random_planes(Q4, N, K, bf16, gen, device)
+            f = planes(N, K)
             x = torch.randn((T, K), generator=gen, device=device).to(bf16)
             n_bytes = sum(cs.nbytes(a) for a in f.values()) + cs.nbytes(x) + T * N * 4
             out.append((f"qmm_gemv N={N} K={K} T={T}",
@@ -510,13 +526,15 @@ def shapes(device, body: str):
             out.append((f"qmm_gathered N={N} slots={S}",
                         lambda x=x, f=f, t=tiles, N=N, K=K:
                         qmm_gathered.quantized_matmul_gathered(x, f, t, Q4, 32, N, K, tile_t=8)))
-        f = cs.random_planes(Q4, 4608, K, bf16, gen, device)
-        x = torch.randn((256, K), generator=gen, device=device).to(bf16)
-        out.append(("qmm_ktiled N=4608 T=256 nk=4",
-                    lambda x=x, f=f, K=K: qmm.quantized_matmul(x, f, Q4, 32, 4608, K, tile_k=4)))
+        if not ar:  # the A/r planes are never K-chunked
+            f = planes(4608, K)
+            x = torch.randn((256, K), generator=gen, device=device).to(bf16)
+            out.append(("qmm_ktiled N=4608 T=256 nk=4",
+                        lambda x=x, f=f, K=K: qmm.quantized_matmul(x, f, Q4, 32, 4608, K,
+                                                                   tile_k=4)))
     else:
         N, K = 14336, 4096
-        f = cs.random_planes(Q4, N, K, bf16, gen, device)
+        f = planes(N, K)
         x = torch.randn((1024, K), generator=gen, device=device).to(bf16)
         out.append((f"qmm_tiled N={N} T=1024",
                     lambda x=x, f=f, N=N, K=K: qmm.quantized_matmul(x, f, Q4, 32, N, K)))
@@ -590,7 +608,14 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--body", choices=("all", *VARIANTS), default="all")
-    bodies = tuple(VARIANTS) if ap.parse_args().body == "all" else (ap.parse_args().body,)
+    ap.add_argument("--qtype", choices=tuple(QTYPES), default="Q4_K",
+                    help="the planes of the qmm bodies' shapes (fused and attention ignore it)")
+    args = ap.parse_args()
+    bodies = tuple(VARIANTS) if args.body == "all" else (args.body,)
+    if args.qtype == "MXFP4_AR" and "ktiled" in bodies:
+        print("torch_mma_probe: the A/r planes are never K-chunked (--body ktiled)",
+              file=sys.stderr)
+        return 1
     if not torch.cuda.is_available():
         print("torch_mma_probe: no CUDA device", file=sys.stderr)
         return 1
@@ -617,7 +642,7 @@ def main() -> int:
             f.close()
         timer = cs.Timer(device)
         read_timer = read_flush_timer(device) if set(READ_FLUSH) & set(bodies) else None
-        cases = {b: shapes(device, b) for b in bodies}
+        cases = {b: shapes(device, b, args.qtype) for b in bodies}
         libs = {k: load(d, k[0]) for k, (d, _c) in built.items()}
         times: dict = {}
         for _round in range(3):

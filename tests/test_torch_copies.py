@@ -194,6 +194,22 @@ def test_transpose_planes_equal(qtype, n_in):
     assert tt["scale"].shape[1] == -(-(n_in // 32) // 16) * 16
 
 
+@pytest.mark.parametrize("n_in", [256, 4096])
+def test_mxfp4_to_ar_equal(n_in):
+    """MXFP4's A/r re-code gives the JAX function's planes byte for byte
+    (q4a, q1r and the scale plane carried over) and dequantizes to the LUT
+    planes' values."""
+    raw = _raw(GGMLType.MXFP4, 64, n_in)
+    pq = j_qw.repack(raw, GGMLType.MXFP4, (64, n_in))
+    tj, tt = j_qw.mxfp4_to_ar(pq.fields), t_qw.mxfp4_to_ar(pq.fields)
+    assert list(tt) == list(tj) == ["q4a", "q1r", "scale"]
+    for k in tj:
+        assert tt[k].dtype == tj[k].dtype and tt[k].shape == tj[k].shape
+        np.testing.assert_array_equal(tt[k], tj[k])
+    ar = t_qw.PlanarQuant(GGMLType.MXFP4, (64, n_in), t_qw.mxfp4_to_ar(pq.fields), 32)
+    np.testing.assert_array_equal(t_qw.dequant_planar_np(ar), t_qw.dequant_planar_np(pq))
+
+
 @pytest.mark.parametrize("text", TEXTS)
 def test_tokenize_detokenize_equal(tiny, text):
     vj = JVocab.from_gguf(j_gguf.GGUFReader(tiny["llama"]))

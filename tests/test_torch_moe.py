@@ -492,7 +492,7 @@ def test_one_row_gathered_t_body_arithmetic_is_within_kernel_tolerance(qtype, n_
 def test_transposed_split_width():
     """The wrapper's split width is the kernel's (GT_COLS): Mixtral's down
     (K = 14336, 448 columns) runs in 14 splits, K = 768 in one."""
-    src = (Path(gq.__file__).parents[2] / "csrc" / "qmm_gathered.cu").read_text()
+    src = (Path(gq.__file__).parents[2] / "csrc" / "qmm_gathered_t.cuh").read_text()
     assert f"constexpr int GT_COLS = {gq.T_SPLIT_COLS};" in src
     assert [gq.t_splits(K) for K in (768, 1024, 4096, 14336)] == [1, 1, 4, 14]
 
@@ -728,16 +728,16 @@ def test_lowbit_gathered_kernel_matches_plain(cuda, qtype, tile_t, K):
 @pytest.mark.cuda
 @pytest.mark.parametrize("planes_t", [False, True])
 def test_gathered_kernel_raises_without_fallback(cuda, planes_t):
-    """A field set the kernels do not cover (MXFP4's LUT planes, which
-    come with the gpt-oss slice) raises on a CUDA tensor in either layout;
-    it does not run the plain version."""
-    fields, group = _experts(GGMLType.MXFP4, 256, 1024, seed=0, planes_t=planes_t)
-    ft = {k: torch.from_numpy(v).to(cuda) for k, v in fields.items()}
+    """A field set the kernels do not cover (Q4_K's planes without their
+    min plane) raises on a CUDA tensor in either layout, naming what they
+    take; it does not run the plain version."""
+    fields, group = _experts(GGMLType.Q4_K, 256, 1024, seed=0, planes_t=planes_t)
+    ft = {k: torch.from_numpy(v).to(cuda) for k, v in fields.items() if k != "minv"}
     x = torch.zeros((2, 1024), device=cuda)
     sel = torch.zeros(2, dtype=torch.int32, device=cuda)
     before = dict(gq.LAUNCHES)
     with pytest.raises(NotImplementedError, match="MXFP4"):
-        gq.quantized_matmul_gathered(x, ft, sel, GGMLType.MXFP4, group, 256, 1024,
+        gq.quantized_matmul_gathered(x, ft, sel, GGMLType.Q4_K, group, 256, 1024,
                                      planes_t=planes_t)
     assert gq.LAUNCHES == before
 

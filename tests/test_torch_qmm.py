@@ -1073,12 +1073,15 @@ def test_wrapper_takes_the_six_sets(qtype, T):
 
 
 def test_wrapper_names_what_it_covers():
-    """A set no kernel covers (MXFP4's q4_lut) raises, naming the covered
-    types; a K-quant set at a K the kernels do not take raises."""
+    """A set no kernel covers (a q4 plane without its min plane) raises,
+    naming the covered types, MXFP4's two sets among them; a K-quant set
+    at a K the kernels do not take raises."""
     x = torch.empty((4, 4096), dtype=torch.bfloat16, device="meta")
-    with pytest.raises(NotImplementedError, match="Q5_0/Q5_1/Q5_K, Q6_K, Q3_K, Q2_K"):
-        qmm.check_inputs(x, _meta_fields(GGMLType.MXFP4, 64, 4096, torch.bfloat16),
-                         GGMLType.MXFP4, 32, 64, 4096)
+    fields = _meta_fields(GGMLType.Q4_K, 64, 4096, torch.bfloat16)
+    del fields["minv"]
+    with pytest.raises(NotImplementedError,
+                       match="Q5_0/Q5_1/Q5_K, Q6_K, Q3_K, Q2_K, Q8_0 and MXFP4"):
+        qmm.check_inputs(x, fields, GGMLType.Q4_K, 32, 64, 4096)
     x = torch.empty((4, 544), dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="multiple of 256"):
         qmm.check_inputs(x, _meta_fields(GGMLType.Q5_K, 64, 544, torch.bfloat16),

@@ -34,8 +34,11 @@
 //   KIND_Q5: {q4, q1, scale, minv}  g=32  (Q5_0, Q5_1, Q5_K: q4 | q1 << 4)
 //   KIND_Q3: {q2, q1, scale, minv}  g=16  (Q3_K: q2 | q1 << 2)
 //   KIND_Q2: {q2, scale, minv}      g=16  (Q2_K)
+//   KIND_MXFP4: {q4_lut, scale}     g=32  (MXFP4: value LUT[idx])
+//   KIND_MXFP4_AR: {q4a, q1r, scale} g=32 (MXFP4 re-coded: 2 (a - 8) + r)
 // The kernels live in qmm_launch.cuh; this file instantiates the first
-// three sets and qmm_lowbit.cu the last three, which build side by side.
+// three sets, qmm_lowbit.cu the q1/q2 sets and qmm_mxfp4.cu MXFP4's, which
+// build side by side.
 
 #include "qmm_launch.cuh"
 
@@ -43,11 +46,12 @@ using namespace tpl;
 
 // x: (T, K) in column order (x_col[t, c*g + a] = x[t, nu(c)*g + a], natural
 // order for stripe planes), f32 or bf16, 16-byte aligned; qa: the low
-// plane (q4, q8, or q2 for Q3_K/Q2_K), (N, K*bits/8); qb: the high plane
-// (q2 of Q6_K, q1 of Q5/Q3_K) or null; s, m: (N, K/g) f32 or bf16 (m null
-// for Q8); y: (T, N) f32; T <= 8. K % 32 for Q4 and Q8 (K/g need not be a
-// multiple of 8: a row's last column class is then ragged), K % 256 for
-// the other sets. Returns cudaGetLastError().
+// plane (q4, q8, q2 for Q3_K/Q2_K, q4_lut or q4a for MXFP4), (N,
+// K*bits/8); qb: the high plane (q2 of Q6_K, q1 of Q5/Q3_K, q1r of MXFP4's
+// A/r) or null; s, m: (N, K/g) f32 or bf16 (m null for Q8 and MXFP4); y:
+// (T, N) f32; T <= 8. K % 32 for Q4, Q8 and MXFP4's LUT set (K/g need not
+// be a multiple of 8: a row's last column class is then ragged), K % 256
+// for the other sets. Returns cudaGetLastError().
 extern "C" int tpl_qmm_gemv(int kind, int x_bf16, int s_bf16, const void* x,
                             const void* qa, const void* qb, const void* s,
                             const void* m, float* y, int T, int N, int K,
@@ -57,13 +61,15 @@ extern "C" int tpl_qmm_gemv(int kind, int x_bf16, int s_bf16, const void* x,
   if (kind == KIND_Q4) return launch_gemv<KIND_Q4>(x_bf16, s_bf16, x, qa, qb, s, m, y, T, N, K, st);
   if (kind == KIND_Q6) return launch_gemv<KIND_Q6>(x_bf16, s_bf16, x, qa, qb, s, m, y, T, N, K, st);
   if (kind == KIND_Q8) return launch_gemv<KIND_Q8>(x_bf16, s_bf16, x, qa, qb, s, m, y, T, N, K, st);
+  if (kind == KIND_MXFP4 || kind == KIND_MXFP4_AR)
+    return qmm_gemv_mxfp4(kind, x_bf16, s_bf16, x, qa, qb, s, m, y, T, N, K, st);
   if (K % 256) return (int)cudaErrorInvalidValue;
   return qmm_gemv_lowbit(kind, x_bf16, s_bf16, x, qa, qb, s, m, y, T, N, K, st);
 }
 
 // x: (T, K) in column order (x_col[t, c*g + a] = x[t, nu(c)*g + a]), f32 or
 // bf16; f32 x is overwritten with its bf16 hi/lo split. xg: (2, T, K/g)
-// bf16 scratch for xgsum's hi and lo planes (unused for Q8). The other
+// bf16 scratch for xgsum's hi and lo planes (unused for Q8 and MXFP4). The other
 // arguments as tpl_qmm_gemv's. K % 256, every K the loader packs: a row's
 // scales are whole 16-byte runs for the tensor copies, its byte runs at
 // g = 32 (Q4, Q5 and Q8) start on 8-byte boundaries (by tensor copies
@@ -78,6 +84,9 @@ extern "C" int tpl_qmm_tiled(int kind, int x_bf16, int s_bf16, void* x, const vo
   if (kind == KIND_Q4) fn = pick_tiled<KIND_Q4>(x_bf16, s_bf16);
   else if (kind == KIND_Q6) fn = pick_tiled<KIND_Q6>(x_bf16, s_bf16);
   else if (kind == KIND_Q8) fn = pick_tiled<KIND_Q8>(x_bf16, s_bf16);
+  else if (kind == KIND_MXFP4 || kind == KIND_MXFP4_AR)
+    return qmm_tiled_mxfp4(kind, x_bf16, s_bf16, x, qa, qb, s, m, xg, y, T, N, K,
+                           static_cast<cudaStream_t>(stream));
   else
     return qmm_tiled_lowbit(kind, x_bf16, s_bf16, x, qa, qb, s, m, xg, y, T, N, K,
                             static_cast<cudaStream_t>(stream));

@@ -2,8 +2,9 @@
 // of quantized_matmul_gathered, tpullama/ops/pallas/qmm.py:655) as
 // templates over the field set (KIND), and the runs of one-row tiles that
 // both gathered kernels compute (find_run). qmm_gathered.cu instantiates
-// KIND_Q4, KIND_Q6 and KIND_Q8 and qmm_gathered_lowbit.cu the q1/q2 sets
-// KIND_Q5, KIND_Q3 and KIND_Q2, so the two sources build side by side
+// KIND_Q4, KIND_Q6 and KIND_Q8, qmm_gathered_lowbit.cu the q1/q2 sets
+// KIND_Q5, KIND_Q3 and KIND_Q2 and qmm_gathered_mxfp4.cu MXFP4's
+// KIND_MXFP4 and KIND_MXFP4_AR, so the sources build side by side
 // (ops/cuda/build.py starts one nvcc per source). See qmm_gathered.cu for
 // what bounds the kernel, its design and its arguments.
 
@@ -169,7 +170,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1) qmm_gathered_mma_kernel(
     const size_t row0 = (size_t)e * R + n0;
     mma_tile<KIND, true, ST, BN>(smem, x, xrow, qa + row0 * q_row,
                                  P::BH ? qb + row0 * h_row : nullptr,
-                                 scale + row0 * G, KIND == KIND_Q8 ? nullptr : minv + row0 * G,
+                                 scale + row0 * G, has_min<KIND>() ? minv + row0 * G : nullptr,
                                  rows, K, 0, K / 32, j0, j1, acc);
     j0 = j1;
   }
@@ -251,5 +252,15 @@ int launch_gathered(int x_bf16, int s_bf16, void* x, const int* sel, const void*
 int qmm_gathered_lowbit(int kind, int x_bf16, int s_bf16, void* x, const int* sel,
                         const void* qa, const void* qb, const void* s, const void* m, float* y,
                         int n_tiles, int tt, int N, int R, int K, cudaStream_t st);
+
+// qmm_gathered_mxfp4.cu: launch_gathered (row-major) and launch_gathered_t
+// (transposed, qmm_gathered_t.cuh) for KIND_MXFP4 and KIND_MXFP4_AR
+// (cudaErrorInvalidValue for another kind)
+int qmm_gathered_mxfp4(int kind, int x_bf16, int s_bf16, void* x, const int* sel,
+                       const void* qa, const void* qb, const void* s, const void* m, float* y,
+                       int n_tiles, int tt, int N, int R, int K, cudaStream_t st);
+int qmm_gathered_t_mxfp4(int kind, int s_bf16, float* x, void* xg, const int* sel,
+                         const void* q, const void* qh, const void* s, const void* m, float* y,
+                         int n_tiles, int tt, int N, int R, int K, int Gp, cudaStream_t st);
 
 }  // namespace tpl

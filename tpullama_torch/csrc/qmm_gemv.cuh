@@ -10,7 +10,7 @@
 //   - one-row qmm_gathered tiles (qmm_gathered.cu), x the rows of the
 //     tiles that share an expert, each expert's rows read once per run.
 // (One-row qmm_gathered_t tiles, on transposed planes, run their own
-// thread mapping in qmm_gathered.cu with this file's unpacking.)
+// thread mapping in qmm_gathered_t.cuh with this file's unpacking.)
 // What bounds it: bytes. A decode step reads every packed weight once
 // (~0.6 B/weight for Q4_K with bf16 scales) and does 2*T flops per
 // weight. A warp per row, dequantizing each weight as q * scale - minv,
@@ -55,10 +55,13 @@
 // row j is a = j + f*JH), value low | high << BL: KIND_Q4 {q4} g=32 (a = j
 // low nibble, j + 16 high); KIND_Q6 {q4, q2} g=16; KIND_Q5 {q4, q1} g=32;
 // KIND_Q3 {q2, q1} g=16; KIND_Q2 {q2} g=16; KIND_Q8 {q8, scale} g=32
-// (signed byte aG + c). One unpacking step (gv_low_high) serves every set
-// but Q8_0. Any K % 32 for Q4 and Q8 (where G % 4 != 0 a row's last class
-// is ragged and its bytes and scales are read one by one, past-the-row
-// columns zero); K % 256 for the K-quant sets with a high or q2 plane.
+// (signed byte aG + c); MXFP4's KIND_MXFP4 {q4_lut} and KIND_MXFP4_AR
+// {q4a, q1r} laid out as Q4 and Q5, with no min term. One unpacking step
+// (gv_low_high) serves every set but Q8_0, and gv_value turns MXFP4's
+// fields into their values (plus a bias, GvGeo::BIAS). Any K % 32 for Q4,
+// MXFP4's LUT set and Q8 (where G % 4 != 0 a row's last class is ragged
+// and its bytes and scales are read one by one, past-the-row columns
+// zero); K % 256 for the sets with a high or q2 plane.
 
 #pragma once
 
@@ -90,10 +93,14 @@ struct GvGeo {
   static constexpr int AROWS = KIND == KIND_Q8 ? 16 : P::JL + P::JH;
   static constexpr int ROUNDS = KIND == KIND_Q8 ? 2 : 1;
   static constexpr int PITCH = AROWS * GV_L + 8;
-  // byte rows per scale column of the q4 (Q4) or q8 (Q8_0) plane
+  // byte rows per scale column of the q4 (Q4, MXFP4's LUT set) or q8
+  // (Q8_0) plane
   static constexpr int JROWS = 16 * ROUNDS;
-  // the sets that take whole rows only (GvRows ranges are Q4's and Q8_0's)
-  static constexpr bool WHOLE = KIND != KIND_Q4 && KIND != KIND_Q8;
+  // the sets that take whole rows only (GvRows ranges are those of Q4's
+  // layout and Q8_0's)
+  static constexpr bool WHOLE = P::L != KIND_Q4 && KIND != KIND_Q8;
+  // what gv_value adds to a value (MXFP4's sets are signed)
+  static constexpr float BIAS = KIND == KIND_MXFP4 ? 12.f : KIND == KIND_MXFP4_AR ? 16.f : 0.f;
 };
 
 // The part of each row gv_tile sums: byte rows [j0, j1) of every scale
@@ -193,6 +200,18 @@ __device__ __forceinline__ uint32_t gv_low_high(uint32_t lw, uint32_t hw, int i,
     v |= (sh >= 0 ? hw << sh : hw >> -sh) & MH;
   }
   return v;
+}
+
+// A word of 4 assembled fields (gv_low_high) -> their values plus
+// GvGeo::BIAS, one per byte: MXFP4's e2m1 indices through its table
+// (mxfp4_biased), its A/r fields a | r << 4 as 2 a + r; the other sets'
+// fields are their values.
+template <int KIND>
+__device__ __forceinline__ uint32_t gv_value(uint32_t v) {
+  if constexpr (KIND == KIND_MXFP4) return mxfp4_biased(v);
+  else if constexpr (KIND == KIND_MXFP4_AR)
+    return ((v & 0x0F0F0F0Fu) << 1) | ((v >> 4) & 0x01010101u);
+  else return v;
 }
 
 // acc[r][c][t] += q[r][c] * x[t][a][c] for the class whose staged x starts
@@ -356,7 +375,7 @@ __device__ __forceinline__ void gv_tile(const uint8_t* __restrict__ qa,
       for (int r = 0; r < RT; ++r) {
         const size_t at = row_of(rg * RT + r) * G + GV_CW * (on ? k : 0);
         gv_scales(scale, at, s_bf16, aligned, cv, sc[r]);
-        if constexpr (KIND != KIND_Q8)
+        if constexpr (has_min<KIND>())
           if (rows.mins) gv_scales(minv, at, s_bf16, aligned, cv, mn[r]);
       }
       const float* xk = xs + GV_CW * (k - c0);
@@ -394,7 +413,9 @@ __device__ __forceinline__ void gv_tile(const uint8_t* __restrict__ qa,
 #pragma unroll
             for (int i = 0; i < 8 / P::BL; ++i) {
 #pragma unroll
-              for (int r = 0; r < RT; ++r) gv_vals(gv_low_high<KIND>(lw[r], hw[r], i, j), MAGIC, q[r]);
+              for (int r = 0; r < RT; ++r)
+                gv_vals(gv_value<KIND>(gv_low_high<KIND>(lw[r], hw[r], i, j)), MAGIC + GE::BIAS,
+                        q[r]);
               gv_fma<TT, g, SW>(q, xk, j + i * P::JL, acc);
             }
           }
@@ -420,7 +441,7 @@ __device__ __forceinline__ void gv_tile(const uint8_t* __restrict__ qa,
 #pragma unroll
           for (int t = 0; t < TT; ++t) {
             part[r][t] = fmaf(sc[r][c], acc[r][c][t], part[r][t]);
-            if constexpr (KIND != KIND_Q8)
+            if constexpr (has_min<KIND>())
               if (rows.mins) part[r][t] = fmaf(-mn[r][c], xsk[t * SW + c], part[r][t]);
           }
     }

@@ -1,6 +1,6 @@
 // Group-scaled tensor-core tile body: the prefill routes of qmm_tiled
 // (qmm.cu, T > 8; Pallas kernel `kernel` of quantized_matmul,
-// tpullama/ops/pallas/qmm.py:296) and qmm_gathered_t (qmm_gathered.cu,
+// tpullama/ops/pallas/qmm.py:296) and qmm_gathered_t (qmm_gathered_t.cuh,
 // tiles of more than one row; Pallas kernel `kernel` of _qmm_gathered_t,
 // qmm.py:771).
 //
@@ -27,8 +27,11 @@
 //                                                     (j < 4 and j < 2)
 //   Q2 {q2}:     crumb(q2[c + (a%4)G], a/4)                       (j < 4)
 //   Q8 {q8}:     the signed byte q8[c + aG]                      (j < 32)
-// (qmm_dequant.cuh Planes). A weight buffer holds the low plane's runs,
-// then the high plane's.
+//   MXFP4 {q4_lut}: Q4's nibble idx, the integer LUT[idx] (-12..12)
+//   MXFP4 A/r {q4a, q1r}: Q5's nibble a and bit r, the integer 2 (a - 8) + r
+// (qmm_dequant.cuh Planes; MXFP4's sets have no min term). A weight buffer
+// holds the low plane's runs, then the high plane's (transposed stages
+// likewise).
 // Column c holds natural group nu(c): c in stripe order, (c % R)*(128/g) +
 // c / R in fourblock order (R = K/128). The callers pass x in column order
 // (x_col[t, c*g + a] = x[t, nu(c)*g + a]), so the body never permutes.
@@ -88,14 +91,15 @@ constexpr int GM_JW = 132;      // words per byte run of a transposed stage (128
 template <int KIND, bool XLO, typename ST, int BN, bool TRANS>
 struct GroupGeo {
   static constexpr int GROUP = Geo<KIND>::GROUP;
-  static constexpr bool MIN = KIND != KIND_Q8;
+  static constexpr bool MIN = has_min<KIND>();
   static constexpr int KS = GROUP / 16;                    // k16 steps per column
   using P = Planes<KIND>;
+  static constexpr int L = P::L;                           // the byte layout's set
   static constexpr int QJ = KIND == KIND_Q8 ? 32 : P::JL + P::JH;  // byte runs
   // runs one lane reads: 2 of each plane a k-half (4 of the q4 plane
   // over Q4/Q5's two k16 steps), 8 for Q8_0
   static constexpr int QL = KIND == KIND_Q8 ? 8
-                            : (KIND == KIND_Q4 || KIND == KIND_Q5 ? 4 : 2) + (P::BH ? 2 : 0);
+                            : (L == KIND_Q4 || L == KIND_Q5 ? 4 : 2) + (P::BH ? 2 : 0);
   static constexpr int SP = GM_CS * GROUP;                 // x positions per slice
   static constexpr int XPLANES = XLO ? 2 : 1;
   static constexpr int NB = SP * 2 * XPLANES / 128;        // 128-byte x boxes per row
@@ -138,13 +142,13 @@ struct GroupGeo {
   // k positions are a = 16 ks + 8 kh + 2 tig + e (g = 32) or 8 kh + 2 tig
   // + e (g = 16), e = q & 1
   __device__ static int run(int q, int tig) {
-    if constexpr (KIND == KIND_Q8) return 16 * (q >> 2) + 2 * tig + (q & 1) + 8 * ((q >> 1) & 1);
-    else if constexpr (KIND == KIND_Q6) return q < 2 ? 2 * tig + q : 8 + 2 * (tig & 1) + (q & 1);
-    else if constexpr (KIND == KIND_Q5)  // a % 16, then the q1 runs a % 4
+    if constexpr (L == KIND_Q8) return 16 * (q >> 2) + 2 * tig + (q & 1) + 8 * ((q >> 1) & 1);
+    else if constexpr (L == KIND_Q6) return q < 2 ? 2 * tig + q : 8 + 2 * (tig & 1) + (q & 1);
+    else if constexpr (L == KIND_Q5)  // a % 16, then the q1 runs a % 4
       return q < 4 ? 2 * tig + (q & 1) + 8 * (q >> 1) : 16 + 2 * (tig & 1) + (q & 1);
-    else if constexpr (KIND == KIND_Q3)  // a % 4 of q2, then a % 2 of q1
+    else if constexpr (L == KIND_Q3)  // a % 4 of q2, then a % 2 of q1
       return q < 2 ? 2 * (tig & 1) + q : 4 + (q & 1);
-    else if constexpr (KIND == KIND_Q2) return 2 * (tig & 1) + q;
+    else if constexpr (L == KIND_Q2) return 2 * (tig & 1) + q;
     else return 2 * tig + (q & 1) + 8 * (q >> 1);
   }
   // warp-local weight row of accumulator row (mi, h) of lane group g
@@ -156,10 +160,14 @@ struct GroupGeo {
 // The widest BN (128 or 64) for which three slice stages (and the
 // row-major weight buffers) fit in a block's shared memory (227 KB, less
 // 1 KB for the kernels' static arrays); a fourth stage is added where it
-// fits too.
+// fits too. MXFP4's LUT set on transposed planes takes 64: at 128 its
+// table lookups spilled 156-356 bytes (ptxas -v, sm_90a) and it ran 4.49 ms
+// at Mixtral's down over 2048 slots, against 3.35 for the A/r set at 64
+// (NVIDIA H100 80GB HBM3, 700.00 W).
 template <int KIND, bool XLO, typename ST, bool TRANS>
 constexpr int group_bn() {
   using G128 = GroupGeo<KIND, XLO, ST, 128, TRANS>;
+  if (KIND == KIND_MXFP4 && TRANS) return 64;
   return 2 * G128::WBUF + 3 * G128::STAGE + 1024 <= 226 * 1024 ? 128 : 64;
 }
 
@@ -222,7 +230,7 @@ inline int group_w_maps(CUtensorMap (&m)[4], const void* qa, const void* qb, con
     err = group_map(&m[1], CU_TENSOR_MAP_DATA_TYPE_UINT8, qb, hcols, N, hcols, 16, GM_BM, none);
   if (!err)
     err = group_map(&m[2], sdt, s, G, N, (long long)G * sizeof(ST), 16, GM_BM, none);
-  if (!err && KIND != KIND_Q8)
+  if (!err && has_min<KIND>())
     err = group_map(&m[3], sdt, mn, G, N, (long long)G * sizeof(ST), 16, GM_BM, none);
   return err;
 }
@@ -286,21 +294,22 @@ struct GroupMaps {
 };
 
 // One block's weights. Transposed planes: pointers at the expert's planes
-// and the block's first row (byte (kc, r) at kc * ld + r). Row-major
+// and the block's first row (byte (kc, r) at kc * ld + r; the high plane's
+// at qb, likewise). Row-major
 // planes: group_w_maps' tensor maps and the block's first row n0, and the
 // low and high planes themselves (qa, rows of ld bytes, n_rows of them;
 // qb, rows of ldb bytes) for byte runs the tensor copies cannot start
 // (group_copy_wbytes).
 template <typename ST>
 struct GroupW {
-  const uint8_t* qa;  // transposed q4 or q8 plane; row-major: the low plane
+  const uint8_t* qa;  // the low plane (transposed: q4, q4_lut, q4a or q8)
   const ST* scale;
-  const ST* minv;     // null for Q8
+  const ST* minv;     // null for the sets without a min plane
   int ld;             // the planes' row stride: R (transposed), bytes (row-major)
   const CUtensorMap* maps;
   int n0;
   int n_rows;         // row-major: the plane's rows
-  const uint8_t* qb = nullptr;  // row-major: the high plane (Q5's q1), or null
+  const uint8_t* qb = nullptr;  // the high plane (Q5's q1, the A/r set's q1r), or null
   int ldb = 0;
 };
 
@@ -324,11 +333,15 @@ __device__ __forceinline__ void group_copy(char* st, const GroupW<ST>& w,
   const int GX = group_xg_cols(G);
   char* wq = st + GG::WQ;
   if constexpr (TRANS) {
-    // run j, column cc: 128 row bytes at plane row c0 + cc + jG
+    // run j, column cc: 128 row bytes at plane row c0 + cc + jG (the high
+    // plane's runs, j >= JL, at its row c0 + cc + (j - JL)G)
+    constexpr int JL = KIND == KIND_Q8 ? GG::QJ : Planes<KIND>::JL;
     for (int i = tid; i < GG::QJ * GM_CS * 8; i += nthr) {
       const int j = i / (GM_CS * 8), cc = i / 8 % GM_CS, p = i % 8;
       const bool ok = c0 + cc < G;
-      const uint8_t* src = w.qa + (size_t)(ok ? c0 + cc + j * G : 0) * w.ld + 16 * p;
+      const bool high = j >= JL;
+      const uint8_t* src = (high ? w.qb : w.qa) +
+                           (size_t)(ok ? c0 + cc + (high ? j - JL : j) * G : 0) * w.ld + 16 * p;
       gm_cp_async<16>(wq + (j * GM_JW + cc * 32) * 4 + 16 * p, src, ok);
     }
     constexpr int SPC = GM_BM * (int)sizeof(ST) / 16;  // 16-byte pieces per column
@@ -411,10 +424,11 @@ __device__ __forceinline__ uint32_t gm_pair(uint32_t u, uint32_t v, int bi) {
   return __byte_perm(u, v, (unsigned)(bi | bi << 4 | (4 + bi) << 8 | (4 + bi) << 12));
 }
 
-// 0x4300 | v is bf16 128 + v for v < 128; subtracting 128 leaves v exactly.
-__device__ __forceinline__ uint32_t gm_bf16_ints(uint32_t biased) {
+// 0x4300 | v is bf16 128 + v for v < 128; subtracting 128 leaves v exactly
+// (subtracting `bias` >= 128, v - (bias - 128): MXFP4's biased values).
+__device__ __forceinline__ uint32_t gm_bf16_ints(uint32_t biased, float bias = 128.f) {
   const __nv_bfloat162 r =
-      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&biased), __floats2bfloat162_rn(128.f, 128.f));
+      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&biased), __floats2bfloat162_rn(bias, bias));
   return bf16x2_bits(r);
 }
 
@@ -467,6 +481,18 @@ struct GroupWarp {
           if constexpr (KIND == KIND_Q4) {
             const uint32_t t = gm_pair(wd(2 * kh, rs), wd(2 * kh + 1, rs), bi);
             v = gm_bf16_ints(((ks ? t >> 4 : t) & 0x000F000Fu) | 0x43004300u);
+          } else if constexpr (KIND == KIND_MXFP4) {
+            // Q4's nibbles, through the table: 12 + LUT[idx] per half
+            const uint32_t t = gm_pair(wd(2 * kh, rs), wd(2 * kh + 1, rs), bi);
+            const uint32_t u = mxfp4_biased((ks ? t >> 4 : t) & 0x000F000Fu) & 0x00FF00FFu;
+            v = gm_bf16_ints(u | 0x43004300u, 140.f);
+          } else if constexpr (KIND == KIND_MXFP4_AR) {
+            // Q5's nibble a and bit r as 16 + 2 (a - 8) + r = 2 a + r
+            const uint32_t t = gm_pair(wd(2 * kh, rs), wd(2 * kh + 1, rs), bi);
+            const uint32_t t1 = gm_pair(wd(4, rs), wd(5, rs), bi);
+            const int bs = 4 * ks + 2 * kh + (tig >> 1);
+            v = gm_bf16_ints((((ks ? t >> 4 : t) & 0x000F000Fu) << 1) |
+                             ((t1 >> bs) & 0x00010001u) | 0x43004300u, 144.f);
           } else if constexpr (KIND == KIND_Q6) {
             const uint32_t t4 = gm_pair(wd(0, rs), wd(1, rs), bi);
             const uint32_t t2 = gm_pair(wd(2, rs), wd(3, rs), bi);
@@ -786,11 +812,12 @@ __global__ void __launch_bounds__(256) group_prep(XT* __restrict__ x,
 }
 
 // group_prep over `rows` column-order rows of K values, where the kind
-// and the type of x need it (Q8 has no min term; bf16 x is not split).
+// and the type of x need it (Q8 and MXFP4 have no min term; bf16 x is not
+// split).
 template <int KIND, typename XT>
 inline cudaError_t group_prep_launch(XT* x, __nv_bfloat16* xg, int rows, int K, cudaStream_t st) {
   constexpr int GRP = Geo<KIND>::GROUP;
-  constexpr bool MIN = KIND != KIND_Q8, SPLIT = sizeof(XT) == 4;
+  constexpr bool MIN = has_min<KIND>(), SPLIT = sizeof(XT) == 4;
   if constexpr (MIN || SPLIT) {
     const int G = K / GRP, GX = group_xg_cols(G);
     const int n = rows * GX;

@@ -47,8 +47,11 @@
 //
 // Field sets covered (the wrapper raises on the rest; the reference's
 // _kchunks_valid admits only single-stripe-width sets):
-//   KIND_Q4: {q4, scale, minv}  g=32  (Q4_0, Q4_1, Q4_K)
-//   KIND_Q8: {q8, scale}        g=32  (Q8_0, signed bytes)
+//   KIND_Q4: {q4, scale, minv}     g=32  (Q4_0, Q4_1, Q4_K)
+//   KIND_Q8: {q8, scale}           g=32  (Q8_0, signed bytes)
+//   KIND_MXFP4: {q4_lut, scale}    g=32  (MXFP4: Q4's layout, value LUT[idx],
+//                                         no min term; the TPU kernel's
+//                                         q4_lut branch, qmm.py:476-485)
 
 #include "qmm_gemv.cuh"
 #include "qmm_mma.cuh"
@@ -113,7 +116,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1) qmm_ktiled_mma_kernel(
   const int G = K / Geo<KIND>::GROUP;
   const size_t q_row = KIND == KIND_Q8 ? K : K / 2;
   mma_tile<KIND, XLO, ST, K_BN>(smem, x, xrow, qa + n0 * q_row, nullptr, scale + (size_t)n0 * G,
-                                KIND == KIND_Q8 ? nullptr : minv + (size_t)n0 * G,
+                                has_min<KIND>() ? minv + (size_t)n0 * G : nullptr,
                                 min(MMA_BM, N - n0), K, k * per, (k + 1) * per, 0, K_BN / 8,
                                 acc);
   const int warp = tid >> 5, lane = tid & 31;
@@ -195,16 +198,17 @@ MmaFn pick_mma(int x_bf16, int s_bf16) {
 // x: (T, K) f32 or bf16: T <= 8 in column order (natural order for stripe
 // planes), 16-byte aligned, read in place; T > 8 in stored (group-permuted)
 // order, f32 x overwritten with its bf16 hi/lo split (the wrapper passes
-// its own permuted copy). qa: q4 or q8 plane (N, K*bits/8); s, m: (N, K/g)
-// f32 or bf16 (m null for Q8); ws: (nk, T, N) f32 scratch; y: (T, N) f32.
-// nk must divide the plane's byte rows per column (16 for q4, 32 for q8)
+// its own permuted copy). qa: q4, q4_lut or q8 plane (N, K*bits/8); s, m:
+// (N, K/g) f32 or bf16 (m null for Q8 and MXFP4); ws: (nk, T, N) f32
+// scratch; y: (T, N) f32. nk must divide the plane's byte rows per column
+// (16 for q4 and q4_lut, 32 for q8)
 // and K/32 into chunk ranges of an even length (the wrapper checks the
 // reference's _kchunks_valid, which implies both). Returns a CUDA error
 // code.
 extern "C" int tpl_qmm_ktiled(int kind, int x_bf16, int s_bf16, void* x,
                               const void* qa, const void* s, const void* m, float* ws,
                               float* y, int T, int N, int K, int nk, void* stream) {
-  if (kind != KIND_Q4 && kind != KIND_Q8) return (int)cudaErrorInvalidValue;
+  if (kind != KIND_Q4 && kind != KIND_Q8 && kind != KIND_MXFP4) return (int)cudaErrorInvalidValue;
   if (nk < 2 || K % 32 || (K / 32) % nk || (K / 32 / nk) % MMA_NCH ||
       (kind == KIND_Q8 ? 32 : 16) % nk)
     return (int)cudaErrorInvalidValue;
@@ -212,11 +216,15 @@ extern "C" int tpl_qmm_ktiled(int kind, int x_bf16, int s_bf16, void* x,
   auto st = static_cast<cudaStream_t>(stream);
   int err;
   if (T <= 8)
-    err = kind == KIND_Q4 ? launch_gemv<KIND_Q4>(x_bf16, s_bf16, x, qa, s, m, ws, T, N, K, nk, st)
-                          : launch_gemv<KIND_Q8>(x_bf16, s_bf16, x, qa, s, m, ws, T, N, K, nk, st);
+    err = (kind == KIND_Q4 ? &launch_gemv<KIND_Q4>
+           : kind == KIND_Q8 ? &launch_gemv<KIND_Q8>
+                             : &launch_gemv<KIND_MXFP4>)(x_bf16, s_bf16, x, qa, s, m, ws, T, N,
+                                                         K, nk, st);
   else
     err = (kind == KIND_Q4 ? pick_mma<KIND_Q4>(x_bf16, s_bf16)
-                           : pick_mma<KIND_Q8>(x_bf16, s_bf16))(x, qa, s, m, ws, T, N, K, nk, st);
+           : kind == KIND_Q8 ? pick_mma<KIND_Q8>(x_bf16, s_bf16)
+                             : pick_mma<KIND_MXFP4>(x_bf16, s_bf16))(x, qa, s, m, ws, T, N, K,
+                                                                     nk, st);
   if (err) return err;
   return (int)gv_sum_parts(ws, y, T * N, nk, st);  // the chunks' partials in chunk order
 }

@@ -1,8 +1,9 @@
 // The launches of qmm.cu's two kernels, qmm_gemv (T <= 8, the decode body
 // of qmm_gemv.cuh) and qmm_tiled (T > 8, the group body of
 // qmm_group_mma.cuh), as templates over the field set (KIND). qmm.cu
-// instantiates KIND_Q4, KIND_Q6 and KIND_Q8 and qmm_lowbit.cu KIND_Q5,
-// KIND_Q3 and KIND_Q2, so the two sources build side by side
+// instantiates KIND_Q4, KIND_Q6 and KIND_Q8, qmm_lowbit.cu KIND_Q5,
+// KIND_Q3 and KIND_Q2 and qmm_mxfp4.cu KIND_MXFP4 and KIND_MXFP4_AR, so
+// the sources build side by side
 // (ops/cuda/build.py starts one nvcc per source). qmm.cu's entry points
 // dispatch on the kind; see qmm.cu for what each kernel replaces, what
 // bounds it and the arguments.
@@ -134,5 +135,14 @@ int qmm_gemv_lowbit(int kind, int x_bf16, int s_bf16, const void* x, const void*
 int qmm_tiled_lowbit(int kind, int x_bf16, int s_bf16, void* x, const void* qa, const void* qb,
                      const void* s, const void* m, void* xg, float* y, int T, int N, int K,
                      cudaStream_t st);
+
+// qmm_mxfp4.cu: the same launches for KIND_MXFP4 and KIND_MXFP4_AR
+// (cudaErrorInvalidValue for another kind)
+int qmm_gemv_mxfp4(int kind, int x_bf16, int s_bf16, const void* x, const void* qa,
+                   const void* qb, const void* s, const void* m, float* y, int T, int N, int K,
+                   cudaStream_t st);
+int qmm_tiled_mxfp4(int kind, int x_bf16, int s_bf16, void* x, const void* qa, const void* qb,
+                    const void* s, const void* m, void* xg, float* y, int T, int N, int K,
+                    cudaStream_t st);
 
 }  // namespace tpl

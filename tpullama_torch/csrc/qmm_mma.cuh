@@ -61,11 +61,12 @@ static_assert(MMA_WT <= MMA_THREADS, "every (row, chunk) pair has a thread");
 template <int KIND, bool XLO, typename ST, int BN>
 struct MmaGeo {
   using GE = Geo<KIND>;
-  static constexpr bool MIN = KIND != KIND_Q8;
+  static constexpr int L = GE::L;                                    // the byte layout's set
+  static constexpr bool MIN = has_min<KIND>();
   static constexpr int SV = GE::SEG * MMA_NCH;                      // x values per segment
   // q bytes per chunk: the low run, the high run of a q1 plane (Q5, Q3)
-  static constexpr int QCH = KIND == KIND_Q4 ? 16 : KIND == KIND_Q6 ? 24 : KIND == KIND_Q5 ? 32
-                             : KIND == KIND_Q3 ? 16 : KIND == KIND_Q2 ? 8 : 32;
+  static constexpr int QCH = L == KIND_Q4 ? 16 : L == KIND_Q6 ? 24 : L == KIND_Q5 ? 32
+                             : L == KIND_Q3 ? 16 : L == KIND_Q2 ? 8 : 32;
   static constexpr int SP = GE::SEG * (int)sizeof(ST) / 16;          // 16-byte scale pieces
   static constexpr int RQ = 0;
   static constexpr int RS = RQ + MMA_WT * QCH;
@@ -174,19 +175,20 @@ __device__ __forceinline__ void mma_copy_w(char* st, const uint8_t* __restrict__
   const int r = ok ? tid / MMA_NCH : 0;  // rows past `rows` copy zeros from row 0's address
   const int c = c0 + tid % MMA_NCH;
   char* rq = st + MG::RQ;
-  if constexpr (KIND == KIND_Q4) {
+  constexpr int L = MG::L;  // MXFP4's sets copy as Q4's and Q5's
+  if constexpr (L == KIND_Q4) {
     cp_async<16>(rq + 16 * tid, qa + (size_t)r * (K / 2) + 16 * c, ok);
-  } else if constexpr (KIND == KIND_Q6) {
+  } else if constexpr (L == KIND_Q6) {
     const uint8_t* row4 = qa + (size_t)r * (K / 2);
     cp_async<8>(rq + 8 * tid, row4 + 8 * c, ok);
     cp_async<8>(rq + 8 * (MMA_WT + tid), row4 + K / 4 + 8 * c, ok);
     cp_async<8>(rq + 8 * (2 * MMA_WT + tid), qb + (size_t)r * (K / 4) + 8 * c, ok);
-  } else if constexpr (KIND == KIND_Q5) {
+  } else if constexpr (L == KIND_Q5) {
     cp_async<16>(rq + 16 * tid, qa + (size_t)r * (K / 2) + 16 * c, ok);
     cp_async<16>(rq + 16 * (MMA_WT + tid), qb + (size_t)r * (K / 8) + GE::high_byte(c, K), ok);
-  } else if constexpr (KIND == KIND_Q3 || KIND == KIND_Q2) {
+  } else if constexpr (L == KIND_Q3 || L == KIND_Q2) {
     cp_async<8>(rq + 8 * tid, qa + (size_t)r * (K / 4) + 8 * c, ok);
-    if constexpr (KIND == KIND_Q3)
+    if constexpr (L == KIND_Q3)
       cp_async<8>(rq + 8 * (MMA_WT + tid), qb + (size_t)r * (K / 8) + GE::high_byte(c, K), ok);
   } else {
     const uint8_t* src = qa + (size_t)r * K + 32 * c;
@@ -247,26 +249,27 @@ __device__ __forceinline__ void mma_split_w(char* smem, const char* st, int buf,
   const ST* s = reinterpret_cast<const ST*>(sv);
   const ST* m = MG::MIN ? reinterpret_cast<const ST*>(mv) : nullptr;
   float w[32];
-  if constexpr (KIND == KIND_Q4) {
+  constexpr int L = MG::L;  // MXFP4's sets read as Q4's and Q5's
+  if constexpr (L == KIND_Q4) {
     const uint4 q = reinterpret_cast<const uint4*>(rq)[tid];
     decode_raw<KIND, ST>(reinterpret_cast<const uint8_t*>(&q), nullptr, nullptr, s, m, w);
-  } else if constexpr (KIND == KIND_Q6) {
+  } else if constexpr (L == KIND_Q6) {
     const uint2 a = reinterpret_cast<const uint2*>(rq)[tid];
     const uint2 h = reinterpret_cast<const uint2*>(rq)[MMA_WT + tid];
     const uint2 q2 = reinterpret_cast<const uint2*>(rq)[2 * MMA_WT + tid];
     decode_raw<KIND, ST>(reinterpret_cast<const uint8_t*>(&a),
                          reinterpret_cast<const uint8_t*>(&h),
                          reinterpret_cast<const uint8_t*>(&q2), s, m, w);
-  } else if constexpr (KIND == KIND_Q5) {
+  } else if constexpr (L == KIND_Q5) {
     const uint4 q = reinterpret_cast<const uint4*>(rq)[tid];
     const uint4 h = reinterpret_cast<const uint4*>(rq)[MMA_WT + tid];
     decode_raw<KIND, ST>(reinterpret_cast<const uint8_t*>(&q),
                          reinterpret_cast<const uint8_t*>(&h), nullptr, s, m, w,
                          GE::high_shift(c0 + ci, K));
-  } else if constexpr (KIND == KIND_Q3 || KIND == KIND_Q2) {
+  } else if constexpr (L == KIND_Q3 || L == KIND_Q2) {
     const uint2 a = reinterpret_cast<const uint2*>(rq)[tid];
     uint2 h = make_uint2(0u, 0u);
-    if constexpr (KIND == KIND_Q3) h = reinterpret_cast<const uint2*>(rq)[MMA_WT + tid];
+    if constexpr (L == KIND_Q3) h = reinterpret_cast<const uint2*>(rq)[MMA_WT + tid];
     decode_raw<KIND, ST>(reinterpret_cast<const uint8_t*>(&a),
                          reinterpret_cast<const uint8_t*>(&h), nullptr, s, m, w,
                          GE::high_shift(c0 + ci, K));

@@ -54,7 +54,8 @@ from ..gguf.quants import dequantize
 from ..native import _NATIVE_REPACK_TYPES, native_dequantize, native_repack, resolve_native
 from ..ops.cuda.fused_layer import resolve_fused_layer
 from ..ops.cuda.qmm_gathered import PLANES_T_FIELDS
-from ..ops.qweights import PACKED_TYPES, PlanarQuant, repack, to_fourblock, transpose_planes
+from ..ops.qweights import (PACKED_TYPES, PlanarQuant, mxfp4_to_ar, repack, to_fourblock,
+                            transpose_planes)
 from .hparams import HParams, check_arch
 
 # per-layer tensor suffixes of the llama family -> param names
@@ -176,6 +177,15 @@ def _expert_planes(fields: dict, n_expert: int) -> tuple[dict, bool]:
     return (transpose_planes(out) if planes_t else out), planes_t
 
 
+def resolve_mxfp4_ar(value: bool | None) -> bool:
+    """Whether packed MXFP4 layer matrices are re-coded to the A/r planes
+    (ops/qweights.mxfp4_to_ar): `value`, else the TPULLAMA_MXFP4_AR
+    environment variable set to "1", the JAX loader's switch."""
+    if value is not None:
+        return bool(value)
+    return os.environ.get("TPULLAMA_MXFP4_AR", "0") == "1"
+
+
 def _torch_dtype(d) -> torch.dtype:
     if isinstance(d, torch.dtype):
         return d
@@ -234,7 +244,8 @@ def load_model_from_split_futures(keys: list[str], context: str, registry=None,
 def load_model(source, dtype=torch.float32, device=None, packed: bool = False,
                packed_scale_dtype=torch.bfloat16, load_vocab: bool = True,
                fused_layer: bool | None = None,
-               progress_callback=_progress_noop, native: bool | None = None) -> LoadedModel:
+               progress_callback=_progress_noop, native: bool | None = None,
+               mxfp4_ar: bool | None = None) -> LoadedModel:
     """Load a llama-family GGUF (path, bytes, or the union of split shards
     from load_model_from_splits) onto `device` (default cuda; raises
     without a GPU unless device="cpu" is passed). A path to the first
@@ -250,10 +261,15 @@ def load_model(source, dtype=torch.float32, device=None, packed: bool = False,
     kernel. `progress_callback(frac)` is called once per tensor; returning
     False cancels the load (InterruptedError). `native` (default: on
     unless TPULLAMA_NO_NATIVE is set, read once here) decodes and repacks
-    through the native host library where it covers the type."""
+    through the native host library where it covers the type. `mxfp4_ar`
+    (default: TPULLAMA_MXFP4_AR set to "1", read once here) re-codes every
+    packed MXFP4 layer matrix, dense and expert stacks alike, to the A/r
+    planes {q4a, q1r, scale} (ops/qweights.mxfp4_to_ar), where the JAX
+    loader does (tpullama/models/loader.py:556-565); the output matrix keeps
+    its LUT planes, as there."""
     kw = dict(dtype=dtype, device=device, packed=packed, packed_scale_dtype=packed_scale_dtype,
               load_vocab=load_vocab, fused_layer=fused_layer,
-              progress_callback=progress_callback, native=native)
+              progress_callback=progress_callback, native=native, mxfp4_ar=mxfp4_ar)
     if isinstance(source, _MultiReader):
         reader = source
     else:
@@ -267,6 +283,7 @@ def load_model(source, dtype=torch.float32, device=None, packed: bool = False,
     device = resolve_device(device)
     fused_layer = resolve_fused_layer(fused_layer)
     native = resolve_native(native)
+    mxfp4_ar = resolve_mxfp4_ar(mxfp4_ar)
     dtype = _torch_dtype(dtype)
     sdt = _torch_dtype(packed_scale_dtype) if packed_scale_dtype is not None else torch.float32
     hp = HParams.from_gguf(reader)
@@ -326,13 +343,18 @@ def load_model(source, dtype=torch.float32, device=None, packed: bool = False,
         """A tensor's planes and meta. Expert tensors come back as
         (n_expert, ...) planes; every other one as (1, n_out, kcols), in
         fourblock order where the fused layer reads layer matrix `key`
-        (the JAX loader's condition, loader.py:629-642)."""
+        (the JAX loader's condition, loader.py:629-642). A layer matrix
+        (`key` given) in MXFP4 is re-coded to the A/r planes with
+        `mxfp4_ar`, before the expert planes' layout is chosen, as in the
+        JAX loader."""
         info = reader.tensors[tname]
         n_rows, K = int(np.prod(info.shape[:-1])), info.shape[-1]
         raw = reader.tensor_raw(tname)
         res = native_repack(raw, info.ggml_type, n_rows, K) if native else None
         pq = (PlanarQuant(info.ggml_type, (n_rows, K), *res) if res is not None
               else repack(raw, info.ggml_type, (n_rows, K)))
+        if mxfp4_ar and key is not None and pq.ggml_type == GGMLType.MXFP4:
+            pq = PlanarQuant(pq.ggml_type, pq.shape, mxfp4_to_ar(pq.fields), pq.group)
         if len(info.shape) == 3:
             fields, planes_t = _expert_planes(pq.fields, info.shape[0])
             return fields, QuantMeta(pq.ggml_type, pq.group, *pq.shape, planes_t=planes_t)

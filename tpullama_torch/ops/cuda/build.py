@@ -24,11 +24,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("qmm.cu", "qmm_lowbit.cu", "qmm_ktiled.cu", "qmm_gathered.cu",
-           "qmm_gathered_lowbit.cu", "flash_attention.cu", "flash_attention_int8.cu",
-           "flash_decode.cu", "flash_decode_int8.cu", "fused_layer.cu")
+SOURCES = ("qmm.cu", "qmm_lowbit.cu", "qmm_mxfp4.cu", "qmm_ktiled.cu", "qmm_gathered.cu",
+           "qmm_gathered_lowbit.cu", "qmm_gathered_mxfp4.cu", "flash_attention.cu",
+           "flash_attention_int8.cu", "flash_decode.cu", "flash_decode_int8.cu",
+           "fused_layer.cu")
 HEADERS = ("qmm_dequant.cuh", "qmm_gemv.cuh", "qmm_mma.cuh", "qmm_group_mma.cuh",
-           "qmm_launch.cuh", "qmm_gathered.cuh", "attn_tile.cuh")
+           "qmm_launch.cuh", "qmm_gathered.cuh", "qmm_gathered_t.cuh", "attn_tile.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -118,7 +119,7 @@ def library() -> ctypes.CDLL:
     lib.tpl_fused_postattn.restype = i
     lib.tpl_qmm_gathered.argtypes = [i, i, i, p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.tpl_qmm_gathered.restype = i
-    lib.tpl_qmm_gathered_t.argtypes = [i, i, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.tpl_qmm_gathered_t.argtypes = [i, i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.tpl_qmm_gathered_t.restype = i
     lib.tpl_flash_decode.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p, p, p,
                                      i, i, i, i, i, i, f, f, p]

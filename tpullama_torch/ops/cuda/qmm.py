@@ -46,7 +46,10 @@ GEMV_MAX_T = 8
 # blocks; the decode bodies (qmm_gemv, qmm_ktiled at T <= 8, one-row
 # gathered tiles) take any such K. The K-quant sets take K % 256 on both
 # routes, every K the loader packs. A weight's value is low | high << bits
-# of the low plane.
+# of the low plane, but for MXFP4's sets: the e2m1 table's value of the
+# q4_lut index (the LUT set, laid out as Q4), or 2 (a - 8) + r of the A/r
+# re-code's q4a and q1r (ops/qweights.mxfp4_to_ar, laid out as Q5); both
+# without a min plane.
 _KINDS = {
     frozenset({"q4", "scale", "minv"}): (0, 32, "q4", None),          # Q4_0, Q4_1, Q4_K
     frozenset({"q4", "q2", "scale", "minv"}): (1, 256, "q4", "q2"),   # Q6_K
@@ -54,9 +57,12 @@ _KINDS = {
     frozenset({"q4", "q1", "scale", "minv"}): (3, 256, "q4", "q1"),   # Q5_0, Q5_1, Q5_K
     frozenset({"q2", "q1", "scale", "minv"}): (4, 256, "q2", "q1"),   # Q3_K
     frozenset({"q2", "scale", "minv"}): (5, 256, "q2", None),         # Q2_K
+    frozenset({"q4_lut", "scale"}): (6, 32, "q4_lut", None),          # MXFP4
+    frozenset({"q4a", "q1r", "scale"}): (7, 256, "q4a", "q1r"),       # MXFP4, A/r re-coded
 }
-COVERED = "Q4_0/Q4_1/Q4_K, Q5_0/Q5_1/Q5_K, Q6_K, Q3_K, Q2_K and Q8_0"
-_BITS = {"q4": 4, "q2": 2, "q1": 1, "q8": 8}
+COVERED = ("Q4_0/Q4_1/Q4_K, Q5_0/Q5_1/Q5_K, Q6_K, Q3_K, Q2_K, Q8_0 and MXFP4 "
+           "(its LUT and A/r planes)")
+_BITS = {"q4": 4, "q2": 2, "q1": 1, "q8": 8, "q4_lut": 4, "q4a": 4, "q1r": 1}
 # The K multiple of the tensor-core routes (qmm_tiled, and qmm_ktiled and
 # row-major qmm_gathered above one row): a row's scales are whole 16-byte
 # runs and its byte runs start on 8-byte boundaries, which those bodies copy
@@ -170,7 +176,9 @@ def dequant_stored(fields: dict, ggml_type: GGMLType, group: int) -> torch.Tenso
     (N, K): value * tile(scale) - tile(minv), the arithmetic of
     qweights.dequant_planar_np before its unpermute. Stored position p sits
     in scale column p % (K/g), so the scale and min planes broadcast over
-    the (N, g, K/g) view; the values are unpacked as bytes."""
+    the (N, g, K/g) view; the values are unpacked as bytes (MXFP4's: the
+    e2m1 table's value of each q4_lut index, or 2 (a - 8) + r of its A/r
+    re-code's q4a and q1r)."""
     f = fields
     N, G = f["scale"].shape
 
@@ -182,9 +190,20 @@ def dequant_stored(fields: dict, ggml_type: GGMLType, group: int) -> torch.Tenso
 
     if "q8" in f:
         return scaled(f["q8"].view(torch.int8).float())
-    if "q4_lut" in f:
-        lut = torch.from_numpy(KVALUES_MXFP4).to(f["q4_lut"].device, torch.float32)
-        return scaled(lut[_unpack(f["q4_lut"], 4).long()])
+    if "q4_lut" in f or "q4a" in f:
+        # each byte's two values at once, from a table of 256 value pairs:
+        # the low nibble's at stored position c, the high one's at K/2 + c
+        q = f.get("q4_lut", f.get("q4a"))
+        b = torch.arange(256, device=q.device)
+        if "q4_lut" in f:
+            lut = torch.from_numpy(KVALUES_MXFP4).to(q.device, torch.float32)
+            pairs = torch.stack([lut[b & 15], lut[b >> 4]], dim=-1)
+        else:  # 2 (a - 8), and the odd bit r below
+            pairs = torch.stack([2 * ((b & 15) - 8), 2 * ((b >> 4) - 8)], dim=-1).float()
+        val = torch.nn.functional.embedding(q.int(), pairs).transpose(-1, -2).reshape(N, -1)
+        if "q1r" in f:
+            val = val + _unpack(f["q1r"], 1).float()
+        return scaled(val)
     val = None
     if "q4" in f:
         val = _unpack(f["q4"], 4)
@@ -247,7 +266,7 @@ def check_inputs(x: torch.Tensor, fields: dict, ggml_type: GGMLType, group: int,
     if kind_k is None:
         raise NotImplementedError(
             f"quantized_matmul kernel: {ggml_type.name} fields {sorted(fields)} "
-            f"are not covered yet ({COVERED} are)")
+            f"are no field set the kernels take ({COVERED} are)")
     kind, k_mult, lo, hi = kind_k
     sdt = fields["scale"].dtype
     if sdt not in (torch.float32, torch.bfloat16):

@@ -25,10 +25,12 @@ group-scaled body of csrc/qmm_group_mma.cuh. Outputs are batch-invariant
 within a route, but the one-row and tile routes sum in other orders.
 
 Field sets (`kernel_kind`): the row-major kernel takes every set the
-loader packs, Q4_0/Q4_1/Q4_K, Q6_K and Q8_0, and the q1/q2 sets Q5_0/Q5_1/
-Q5_K, Q3_K and Q2_K (their instances build in csrc/qmm_gathered_lowbit.cu);
-the transposed kernel Q4_0/Q4_1/Q4_K and Q8_0, and a set the loader never
-stores transposed raises ValueError.
+loader packs, Q4_0/Q4_1/Q4_K, Q6_K and Q8_0, the q1/q2 sets Q5_0/Q5_1/
+Q5_K, Q3_K and Q2_K (their instances build in csrc/qmm_gathered_lowbit.cu)
+and MXFP4's LUT and A/r planes (csrc/qmm_gathered_mxfp4.cu); the
+transposed kernel every set the loader stores transposed, Q4_0/Q4_1/Q4_K,
+Q8_0 and MXFP4's two (csrc/qmm_gathered_mxfp4.cu), and a set the loader
+never stores transposed raises ValueError.
 
 Not ported: the expert-parallel 4-D planes (L, E_local, R, kcols), the
 N tiling and padding, and the bf16 fast mode (the kernels compute the
@@ -40,31 +42,36 @@ from __future__ import annotations
 import torch
 
 from ...gguf.constants import GGMLType
-from .qmm import MMA_K_MULTIPLE, dequant_stored, permute_x
+from .qmm import COVERED, MMA_K_MULTIPLE, dequant_stored, permute_x
 
 # launches per kernel since the last reset (chip_smoke.py reads them)
 LAUNCHES = {"qmm_gathered": 0, "qmm_gathered_t": 0}
 MAX_TILE_T = 8
 # one-row tiles of one expert that both one-row kernels give one pass over
-# its rows (GATHER_RUN in csrc/qmm_gathered.cu)
+# its rows (GATHER_RUN in csrc/qmm_gathered.cuh)
 RUN_CAP = 4
 # scale columns of one block of the transposed one-row kernel (GT_COLS in
-# csrc/qmm_gathered.cu): its column splits, each a part of every output
+# csrc/qmm_gathered_t.cuh): its column splits, each a part of every output
 T_SPLIT_COLS = 32
 
 # field sets of the row-major kernel: (kind id in csrc/qmm_dequant.cuh,
 # the K multiple of one-row tiles, the low plane, the high plane or None;
-# a weight's value is low | high << bits of the low plane; the q1/q2 sets
-# build in csrc/qmm_gathered_lowbit.cu), and of the transposed kernel:
-# kind id
+# a weight's value is low | high << bits of the low plane, MXFP4's as in
+# qmm._KINDS; the q1/q2 sets build in csrc/qmm_gathered_lowbit.cu, MXFP4's
+# in csrc/qmm_gathered_mxfp4.cu), and of the transposed kernel: the same
+# for the sets the loader stores transposed
 _KINDS = {frozenset({"q4", "scale", "minv"}): (0, 32, "q4", None),          # Q4_0/Q4_1/Q4_K
           frozenset({"q4", "q2", "scale", "minv"}): (1, 256, "q4", "q2"),   # Q6_K
           frozenset({"q8", "scale"}): (2, 32, "q8", None),                  # Q8_0
           frozenset({"q4", "q1", "scale", "minv"}): (3, 256, "q4", "q1"),   # Q5_0/Q5_1/Q5_K
           frozenset({"q2", "q1", "scale", "minv"}): (4, 256, "q2", "q1"),   # Q3_K
-          frozenset({"q2", "scale", "minv"}): (5, 256, "q2", None)}         # Q2_K
-_KINDS_T = {frozenset({"q4", "scale", "minv"}): 0, frozenset({"q8", "scale"}): 2}
-_BITS = {"q4": 4, "q2": 2, "q1": 1, "q8": 8}
+          frozenset({"q2", "scale", "minv"}): (5, 256, "q2", None),         # Q2_K
+          frozenset({"q4_lut", "scale"}): (6, 32, "q4_lut", None),          # MXFP4
+          frozenset({"q4a", "q1r", "scale"}): (7, 256, "q4a", "q1r")}       # MXFP4, A/r
+_T_SETS = ({"q4", "scale", "minv"}, {"q8", "scale"}, {"q4_lut", "scale"},
+           {"q4a", "q1r", "scale"})
+_KINDS_T = {frozenset(f): _KINDS[frozenset(f)] for f in _T_SETS}
+_BITS = {"q4": 4, "q2": 2, "q1": 1, "q8": 8, "q4_lut": 4, "q4a": 4, "q1r": 1}
 # field sets the JAX package may store transposed (one stripe width)
 PLANES_T_FIELDS = {"q4", "q4_lut", "q4a", "q1r", "q8", "scale", "minv"}
 
@@ -111,8 +118,6 @@ def _check_shapes(x, sel, tile_t, n_in, fields, planes_t):
         raise ValueError(f"gathered qmm: {rows} rows, tile_t={tile_t}, sel {tuple(sel.shape)}")
     if planes_t and not set(fields) <= PLANES_T_FIELDS:
         raise ValueError(f"gathered qmm: field set {sorted(fields)} is never stored transposed")
-    if "q4a" in fields:
-        raise NotImplementedError("gathered qmm: the A/r re-coded MXFP4 planes are not ported")
 
 
 def quantized_matmul_gathered_plain(x, fields, sel, ggml_type: GGMLType, group: int,
@@ -160,17 +165,17 @@ def kernel_kind(fields, ggml_type: GGMLType, planes_t: bool = False) -> tuple:
         if not set(fields) <= PLANES_T_FIELDS:
             raise ValueError(f"qmm_gathered_t kernel: field set {sorted(fields)} "
                              "is never stored transposed")
-        kind = _KINDS_T.get(frozenset(fields))
-        if kind is None:
+        kind_k = _KINDS_T.get(frozenset(fields))
+        if kind_k is None:
             raise NotImplementedError(
-                f"qmm_gathered_t kernel: {ggml_type.name} fields {sorted(fields)} are not "
-                "covered yet (Q4_0/Q4_1/Q4_K and Q8_0 are)")
-        return (kind, 32) + (("q8", None) if "q8" in fields else ("q4", None))
+                f"qmm_gathered_t kernel: {ggml_type.name} fields {sorted(fields)} are no field "
+                "set the kernel takes (Q4_0/Q4_1/Q4_K, Q8_0 and MXFP4's LUT and A/r planes are)")
+        return kind_k
     kind_k = _KINDS.get(frozenset(fields))
     if kind_k is None:
         raise NotImplementedError(
-            f"qmm_gathered kernel: {ggml_type.name} fields {sorted(fields)} are not covered "
-            "yet (Q4_0/Q4_1/Q4_K, Q5_0/Q5_1/Q5_K, Q6_K, Q3_K, Q2_K and Q8_0 are)")
+            f"qmm_gathered kernel: {ggml_type.name} fields {sorted(fields)} are no field set "
+            f"the kernel takes ({COVERED} are)")
     return kind_k
 
 
@@ -255,9 +260,9 @@ def quantized_matmul_gathered(x, fields, sel, ggml_type: GGMLType, group: int,
             xg = (torch.empty((2, rows, -(-G // 4) * 4), dtype=torch.bfloat16, device=x.device)
                   if "minv" in fields else None)
         code = lib.tpl_qmm_gathered_t(
-            kind, s_bf16, ptr(xp), ptr(xg), ptr(sel_d), ptr(q0), ptr(fields["scale"]),
-            ptr(fields.get("minv")), ptr(y), rows // tile_t, tile_t, n_out, R, K,
-            fields["scale"].shape[1], stream())
+            kind, s_bf16, ptr(xp), ptr(xg), ptr(sel_d), ptr(q0), ptr(fields.get(hi)),
+            ptr(fields["scale"]), ptr(fields.get("minv")), ptr(y), rows // tile_t, tile_t,
+            n_out, R, K, fields["scale"].shape[1], stream())
     else:
         code = lib.tpl_qmm_gathered(
             kind, int(xp.dtype == torch.bfloat16), s_bf16, ptr(xp), ptr(sel_d), ptr(q0),
