@@ -120,6 +120,17 @@ Phases, each printing one JSON line with its seconds:
             qmm_tile_k=4: kernels 1-4 on MXFP4 sets (attention and lm_head
             at K = 4096, [gate | up] row-major, down transposed), the same
             greedy tokens in all three
+  glm4moe_model, glm4moe_crosscheck, glm4moe_serve
+            the model, cross-check and serve phases on a GLM-4.5-Air-shaped
+            glm4moe model, a heterogeneous dense/MoE stack (4 of its 46
+            layers: the dense lead and 3 MoE layers of 128 experts, 8 a
+            token, sigmoid routing with the selection bias, one shared
+            expert; 96 x 128 query columns over 8 KV heads, partial rope,
+            q/k/v biases) plus its NextN layer, which the loader skips:
+            every layer dense bf16 (~16.4 GB), as both packages keep such
+            a stack, the Q6_K lm_head packed; the cross-check runs the
+            dense lead and 1 MoE layer; the profile reports the dense
+            expert branch's share of an eager step and of a prefill chunk
   int8kv    the served Llama model with an int8 KV cache against a bf16
             one: Contexts of 4 lanes of 8192 cells, bf16 activations,
             4 prompts of 6100-7000 tokens prefilled, a greedy burst of 32;
@@ -151,9 +162,9 @@ matrices once at load and keeps the experts packed (dense_reference). The
 Llama cross-check also holds Context.embeddings (each pooling) and
 seq_add / seq_div on the card against the CPU, and a replayed step after
 seq_add against the eager step. The crosscheck, serve, http, spec, cli,
-quant_crosscheck, int8kv, int8kv_crosscheck, state and the MoE archs'
-paths each run with every launch count set to 0 just before and read just
-after, and fail unless each kernel that path must run was launched. Then one JSON line lists every
+quant_crosscheck, int8kv, int8kv_crosscheck, state, the MoE archs' and
+GLM-4.5-Air's paths each run with every launch count set to 0 just before
+and read just after, and fail unless each kernel that path must run was launched. Then one JSON line lists every
 kernel with its launches on each path and its numbers at the served shape
 from the kernels phase, and the last line is the run's result. Any failed
 check raises, so the script exits non-zero and prints no result line.
@@ -171,6 +182,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -189,7 +201,8 @@ ALL_PHASES = ("card", "build", "kernels", "model", "crosscheck", "serve", "graph
               "quant_crosscheck", "int8kv", "int8kv_crosscheck", "state", "qwen3moe_model",
               "qwen3moe_crosscheck", "qwen3moe_serve", "qwen2moe_crosscheck",
               "granitemoe_crosscheck", "qwen3mxfp4_model", "qwen3mxfp4_crosscheck",
-              "qwen3mxfp4_serve", "mxfp4_crosscheck")
+              "qwen3mxfp4_serve", "mxfp4_crosscheck", "glm4moe_model", "glm4moe_crosscheck",
+              "glm4moe_serve")
 
 
 def emit(obj) -> None:
@@ -250,14 +263,30 @@ class Widths:
     logits_scaling 6.0, attention_multiplier 0.015625, written as
     llama.cpp's converter writes them: embedding_scale, residual_scale,
     logit_scale, attention.scale), Q4_K, used at 2 layers in the
-    cross-check alone.
+    cross-check alone. The heterogeneous dense/MoE stack (glm4moe):
+    GLM_4_5_AIR holds those of zai-org/GLM-4.5-Air (config.json: hidden
+    4096, 46 layers plus num_nextn_predict_layers 1, 96 heads, 8 KV heads,
+    head_dim 128, partial_rotary_factor 0.5 (64 rope dims), rope_theta 1e6,
+    intermediate_size 10944 (the dense lead, first_k_dense_replace 1),
+    moe_intermediate_size 1408, 128 routed experts, 8 per token,
+    n_shared_experts 1, norm_topk_prob true, routed_scaling_factor 1.0,
+    sigmoid routing with the e_score_correction_bias, attention_bias true,
+    use_qk_norm false, vocab 151552, rms_norm_eps 1e-5,
+    max_position_embeddings 131072, untied), written as llama.cpp's
+    converter writes them (post_attention_norm as the FFN norm,
+    exp_probs_b.bias, expert_gating_func 2, nextn_predict_layers and the
+    NextN layer's nextn.* tensors) and cut to 4 of its 46 layers (the
+    dense lead and 3 MoE layers; every MoE layer has the same shapes and
+    launches) plus the NextN layer, which the loaders skip.
     `llama3_rope`: the llama3 scaling written as rope_freqs.weight, as
     llama.cpp's converter does; `tied`: no output.weight (the token table
     is the lm_head); `quant`: the tensor types of a llama.cpp file type
     (LAYOUTS) instead of Q4_K; `head_dim`: attention.key_length and
     value_length when not n_embd / n_head; `n_ff_shexp`: a shared expert
     of that width; `scales`: granite's (embedding_scale, residual_scale,
-    logit_scale, attention.scale)."""
+    logit_scale, attention.scale); `n_ff_exp`: each routed expert's FFN
+    width where `n_ff` is the dense lead's; `dense_lead`: leading dense
+    layers; `nextn`: trailing NextN layers written past `n_layer`."""
 
     n_embd: int = 4096
     n_layer: int = 32
@@ -279,6 +308,9 @@ class Widths:
     head_dim: int = 0  # 0: n_embd / n_head
     n_ff_shexp: int = 0
     scales: tuple = ()
+    n_ff_exp: int = 0
+    dense_lead: int = 0
+    nextn: int = 0
 
     @property
     def hd(self) -> int:
@@ -322,6 +354,10 @@ GRANITE_3B_A800M = Widths(n_embd=1536, n_layer=32, n_head=24, n_head_kv=8, n_ff=
 # [gate | up] row-major (128 scale columns), down transposed (448)
 QWEN3_30B_A3B_MXFP4 = replace(QWEN3_30B_A3B, quant="MXFP4_MOE")
 MIXTRAL_8X7B_MXFP4 = replace(MIXTRAL_8X7B, n_layer=1, quant="MXFP4")
+GLM_4_5_AIR = Widths(n_embd=4096, n_layer=4, n_head=96, n_head_kv=8, head_dim=128, n_ff=10944,
+                     n_ff_exp=1408, n_ff_shexp=1408, n_vocab=151552, rope_theta=1e6,
+                     rms_eps=1e-5, n_ctx_train=131072, n_expert=128, n_expert_used=8,
+                     arch="glm4moe", n_rot=64, dense_lead=1, nextn=1)
 
 
 def use_more_bits(il: int, n: int) -> bool:
@@ -420,10 +456,36 @@ def _fp16_bytes(a: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(a.astype(np.float16)).view(np.uint8).reshape(*a.shape, 2)
 
 
+RAW_CHUNK = 1 << 22  # 64-bit words a host thread draws at once
+
+
 def rand_bytes(rng: np.random.Generator, n: int) -> np.ndarray:
     """n random bytes, a writable array: the bit generator's raw 64-bit
-    words, ~5x faster than Generator.bytes (the models' writes are GBs)."""
-    return rng.bit_generator.random_raw(-(-n // 8)).view(np.uint8)[:n]
+    words, ~5x faster than Generator.bytes (the models' writes are GBs).
+    Past RAW_CHUNK words they are drawn on the host's threads (numpy's bit
+    generators release the GIL), each from a copy of the generator
+    advanced to its chunk, so the bytes and the generator's state after
+    are those of one sequential draw."""
+    words = -(-n // 8)
+    bg = rng.bit_generator
+    if words <= RAW_CHUNK:
+        return bg.random_raw(words).view(np.uint8)[:n]
+    out = np.empty(words, np.uint64)
+    state = bg.state
+    starts = range(0, words, RAW_CHUNK)
+
+    def chunk(start: int) -> None:
+        g = type(bg)()
+        g.state = state
+        g.advance(start)
+        out[start:start + RAW_CHUNK] = g.random_raw(min(RAW_CHUNK, words - start))
+
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        list(pool.map(chunk, starts))
+    bg.advance(words)
+    # advance() drops a buffered 32-bit half, which random_raw leaves alone
+    bg.state = {**bg.state, "has_uint32": state["has_uint32"], "uinteger": state["uinteger"]}
+    return out.view(np.uint8)[:n]
 
 
 def q4k_blocks(rng: np.random.Generator, n_blocks: int) -> np.ndarray:
@@ -528,7 +590,14 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
     with `w.q8` every matrix is; with `w.quant` each tensor takes its
     LAYOUTS type. The MoE archs' keys are llama.cpp's converter's:
     expert_feed_forward_length (qwen), expert_shared_feed_forward_length,
-    attention.key_length / value_length, granite's scales."""
+    attention.key_length / value_length, granite's scales. glm4moe
+    writes llama.cpp's GLM-4.5 layout: q/k/v biases, post_attention_norm
+    as the FFN norm, `dense_lead` dense SwiGLU layers, then MoE layers with
+    the router, exp_probs_b.bias and one shared expert of `n_ff_shexp`,
+    and `nextn` NextN layers past `n_layer` (an MoE layer plus
+    nextn.eh_proj and its norms); matrices whose rows are no multiple of
+    256 (the dense lead's ffn_down, K = 10944, and the down experts and
+    shared down, K = 1408) are Q8_0."""
     from tpullama_torch.gguf import GGML_TYPE_TRAITS, GGMLType, GGUFWriter
 
     rng = np.random.default_rng(seed)
@@ -540,12 +609,13 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
               "synthetic-qwen3-30b-a3b-shape" if a == "qwen3moe" else
               "synthetic-qwen2-57b-a14b-shape" if a == "qwen2moe" else
               "synthetic-granite-3.0-3b-a800m-shape" if a == "granitemoe" else
+              "synthetic-glm-4.5-air-shape" if a == "glm4moe" else
               "synthetic-openllama-3b-shape" if w.q8 else
               "synthetic-llama3.2-1b-shape" if w.tied else
               "synthetic-mixtral-8x7b-shape" if w.n_expert else "synthetic-llama3-8b-shape")
     g.add_u32(f"{a}.context_length", w.n_ctx_train)
     g.add_u32(f"{a}.embedding_length", w.n_embd)
-    g.add_u32(f"{a}.block_count", w.n_layer)
+    g.add_u32(f"{a}.block_count", w.n_layer + w.nextn)
     g.add_u32(f"{a}.feed_forward_length", w.n_ff)
     g.add_u32(f"{a}.attention.head_count", w.n_head)
     g.add_u32(f"{a}.attention.head_count_kv", w.n_head_kv)
@@ -561,7 +631,15 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
         g.add_u32(f"{a}.expert_used_count", w.n_expert_used)
     if a in ("qwen2moe", "qwen3moe"):
         g.add_u32(f"{a}.expert_feed_forward_length", w.n_ff)
-    if w.n_ff_shexp:
+    if a == "glm4moe":
+        g.add_u32(f"{a}.leading_dense_block_count", w.dense_lead)
+        g.add_u32(f"{a}.expert_feed_forward_length", w.n_ff_exp)
+        g.add_u32(f"{a}.expert_shared_count", 1)
+        g.add_f32(f"{a}.expert_weights_scale", 1.0)
+        g.add_bool(f"{a}.expert_weights_norm", True)
+        g.add_u32(f"{a}.expert_gating_func", 2)
+        g.add_u32(f"{a}.nextn_predict_layers", w.nextn)
+    elif w.n_ff_shexp:
         g.add_u32(f"{a}.expert_shared_feed_forward_length", w.n_ff_shexp)
     if w.scales:
         for key, v in zip(("embedding_scale", "residual_scale", "logit_scale",
@@ -602,7 +680,11 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
         g.add_tensor("rope_freqs.weight", llama3_rope_freqs(w), GGMLType.F32)
     # the router's logits have std ~1.3 on unit-scale inputs: varied routing
     n_x = w.n_expert
-    for il in range(w.n_layer):
+    def q4_or_q8(n_in):
+        # rows of whole Q4_K blocks, else Q8_0
+        return Q4 if n_in % 256 == 0 else GGMLType.Q8_0
+
+    for il in range(w.n_layer + w.nextn):
         p = f"blk.{il}."
         norm(p + "attn_norm.weight", E)
         if a == "chatglm":
@@ -614,7 +696,7 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
             quant(p + "attn_q.weight", (hq, E), Q4)
             quant(p + "attn_k.weight", (kv, E), Q4)
             quant(p + "attn_v.weight", (kv, E), Q4)
-            if a in ("qwen2", "qwen2moe"):
+            if a in ("qwen2", "qwen2moe", "glm4moe"):
                 for nm, n in (("attn_q", hq), ("attn_k", kv), ("attn_v", kv)):
                     g.add_tensor(p + nm + ".bias",
                                  (0.1 * rng.standard_normal(n)).astype(np.float32),
@@ -623,29 +705,38 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
                 norm(p + "attn_q_norm.weight", w.hd)
                 norm(p + "attn_k_norm.weight", w.hd)
         quant(p + "attn_output.weight", (E, hq), Q4)
-        norm(p + "ffn_norm.weight", E)
+        norm(p + ("post_attention_norm.weight" if a == "glm4moe" else "ffn_norm.weight"), E)
         if a == "chatglm":
             quant(p + "ffn_up.weight", (2 * F, E), Q4)
             quant(p + "ffn_down.weight", (E, F), GGMLType.Q8_0)
-        elif n_x:
+        elif n_x and il >= w.dense_lead:
+            Fx = w.n_ff_exp or F
             g.add_tensor(p + "ffn_gate_inp.weight",
                          (0.02 * rng.standard_normal((n_x, E))).astype(np.float32),
                          GGMLType.F32)
-            quant(p + "ffn_gate_exps.weight", (n_x, F, E), Q4)
-            quant(p + "ffn_up_exps.weight", (n_x, F, E), Q4)
-            quant(p + "ffn_down_exps.weight", (n_x, E, F), Q4)
+            if a == "glm4moe":
+                g.add_tensor(p + "exp_probs_b.bias",
+                             (0.1 * rng.standard_normal(n_x)).astype(np.float32), GGMLType.F32)
+            quant(p + "ffn_gate_exps.weight", (n_x, Fx, E), Q4)
+            quant(p + "ffn_up_exps.weight", (n_x, Fx, E), Q4)
+            quant(p + "ffn_down_exps.weight", (n_x, E, Fx), q4_or_q8(Fx))
             if w.n_ff_shexp:
                 Fs = w.n_ff_shexp
-                g.add_tensor(p + "ffn_gate_inp_shexp.weight",
-                             (0.02 * rng.standard_normal((1, E))).astype(np.float32),
-                             GGMLType.F32)
+                if a != "glm4moe":  # qwen2moe's sigmoid gate of the shared expert
+                    g.add_tensor(p + "ffn_gate_inp_shexp.weight",
+                                 (0.02 * rng.standard_normal((1, E))).astype(np.float32),
+                                 GGMLType.F32)
                 quant(p + "ffn_gate_shexp.weight", (Fs, E), Q4)
                 quant(p + "ffn_up_shexp.weight", (Fs, E), Q4)
-                quant(p + "ffn_down_shexp.weight", (E, Fs), Q4)
+                quant(p + "ffn_down_shexp.weight", (E, Fs), q4_or_q8(Fs))
         else:
             quant(p + "ffn_gate.weight", (F, E), Q4)
             quant(p + "ffn_up.weight", (F, E), Q4)
-            quant(p + "ffn_down.weight", (E, F), Q4)
+            quant(p + "ffn_down.weight", (E, F), q4_or_q8(F))
+        if il >= w.n_layer:  # a NextN layer's multi-token-prediction head
+            quant(p + "nextn.eh_proj.weight", (E, 2 * E), Q4)
+            for nm in ("enorm", "hnorm", "shared_head_norm"):
+                norm(p + f"nextn.{nm}.weight", E)
     g.write(path)
 
 
@@ -1272,6 +1363,21 @@ def attention_cases(timer, gen, device, out: list) -> None:
         attn_case(timer, "flash_attention", flash_attention, q, k, v, mask, out)
         del q, k, v, mask
 
+    # GLM-4.5-Air's served shapes: 96 query heads over 8 KV heads (G = 12),
+    # D = 128; the B = 4 decode step and the packed 4 x 256 prefill chunk
+    kv, qp = decode_pos([4000, 3000, 1000, 300])
+    q, k, v, mask = attn_inputs(4, 1, 96, Hkv, D, S, bf16, gen, device, kv, qp)
+    attn_case(timer, "flash_decode_batched", flash_decode, q, k, v, mask, out)
+    lanes = [(0, 256), (700, 216), (1800, 100), (3500, 0)]
+    kv = np.full((4, S), -1, np.int32)
+    qp = np.full((4, Tq), -1, np.int32)
+    for b, (n_past, n_new) in enumerate(lanes):
+        kv[b, :n_past + n_new] = np.arange(n_past + n_new)
+        qp[b, :n_new] = np.arange(n_past, n_past + n_new)
+    q, k, v, mask = attn_inputs(4, Tq, 96, Hkv, D, S, bf16, gen, device, kv, qp)
+    attn_case(timer, "flash_attention", flash_attention, q, k, v, mask, out)
+    del q, k, v, mask
+
     # GQA groups beyond powers of two, which the kernels refused before:
     # Qwen2-1.5B's 12/2 (G = 6), Qwen2-7B's 28/4 (G = 7), 12/1 (G = 12) and
     # Falcon-7B's 71/1 MQA (head dim 64); decode at Tq = 1 and 4 (G * Tq up
@@ -1399,7 +1505,24 @@ def phase_model(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
     os.remove(path)
     lm = (model.quant_meta or {}).get("layers", {})
     attn = {"attn_q", "attn_k", "attn_v", "attn_output"}
-    if widths.n_expert:
+    if widths.dense_lead:
+        # a heterogeneous stack: both loaders keep every layer tensor dense
+        # (bf16 here), packed or not; the output alone packs; the NextN
+        # layers past n_layer are skipped
+        check(set(model.quant_meta or {}) == {"output"} and not lm,
+              f"only the output is packed: {sorted(model.quant_meta or {})}")
+        layers = model.params["layer_list"]
+        check(len(layers) == widths.n_layer == model.hparams.n_layer
+              and model.hparams.nextn_layers == widths.nextn,
+              f"{len(layers)} layers loaded of {widths.n_layer} (+{widths.nextn} NextN)")
+        check(all(t.dtype == torch.bfloat16 for w in layers for t in w.values()),
+              "every layer tensor is dense bf16")
+        for il, w in enumerate(layers):
+            want = ({"ffn_gate", "ffn_up", "ffn_down"} if il < widths.dense_lead else
+                    {"ffn_gate_inp", "exp_probs_b", "ffn_gate_exps", "ffn_up_exps",
+                     "ffn_down_exps", "ffn_gate_shexp", "ffn_up_shexp", "ffn_down_shexp"})
+            check(want <= set(w), f"layer {il}: {sorted(w)}")
+    elif widths.n_expert:
         shexp = {"ffn_gate_shexp", "ffn_up_shexp", "ffn_down_shexp"} if widths.n_ff_shexp else set()
         want = (packed_roles(widths) & attn if widths.quant else attn) | shexp
         check(set(lm) == want | {"ffn_gateup_exps", "ffn_down_exps"},
@@ -1509,7 +1632,8 @@ def phase_crosscheck(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
 
     t0 = time.perf_counter()
     path = os.path.join(tmp, f"{phase}.gguf")
-    write_llama_gguf(path, replace(widths, n_layer=n_layer), seed=1)
+    # a cut without NextN layers (the model phase writes and skips them)
+    write_llama_gguf(path, replace(widths, n_layer=n_layer, nextn=0), seed=1)
     gpu = load_model(path, dtype=torch.float32, device=device, packed=True,
                      fused_layer=fused_layer)
     load_s = {}
@@ -1841,6 +1965,7 @@ def phase_serve_profile(eng, prompt: str, card: str, phase: str = "serve_profile
     the chunk on 8-row tiles, twice a layer each ([gate | up] and down)."""
     from tpullama_torch.ops.cuda import launch_counts, reset_launch_counts
 
+    t0 = time.perf_counter()
     ctx = eng.ctx
     B = ctx.p.n_seqs
     chunk = eng.vocab.tokenize(prompt, add_special=False)[:256]
@@ -1860,7 +1985,8 @@ def phase_serve_profile(eng, prompt: str, card: str, phase: str = "serve_profile
         del ctx._run
     rec[f"decode_batch_b{B}_eager"] = {k: eager[k] for k in (
         "wall_ms", "profiled_wall_ms", "device_busy_ms", "idle_share", "device_launches",
-        "bound_ms")}
+        "bound_ms", "dense_expert_ms", "dense_expert_share", "dense_expert_span_ms")
+        if k in eager}
     replayed = rec[f"decode_batch_b{B}"]
     if replayed["bound_ms"] is None:
         # an MoE step's bound counts the experts its routing picked: take
@@ -1898,7 +2024,7 @@ def phase_serve_profile(eng, prompt: str, card: str, phase: str = "serve_profile
                                                      for c in sorted(set(calls))]}
             routes[what]["tile_t"] = sorted({c[1] for c in calls})
         rec["gathered_routes"] = {gathered_routes: routes}
-    emit(rec)
+    emit({**rec, "seconds": time.perf_counter() - t0})
     n_layer = ctx.hp.n_layer
     if gathered_routes and ctx.device.type == "cuda":
         for what, tile_t in (("decode_step", 1), ("prefill_chunk", 8)):
@@ -2644,6 +2770,31 @@ def recorded_routing(log: list):
         moe.route = route
 
 
+DENSE_EXPERTS = "dense_expert_branch"
+
+
+@contextlib.contextmanager
+def labelled_dense_experts():
+    """Label every call of the dense expert branch (ops/moe._ffn_dense)
+    inside the block as DENSE_EXPERTS for torch.profiler, which sums the
+    card time of the kernels launched under it."""
+    from torch.profiler import record_function
+
+    from tpullama_torch.ops import moe
+
+    dense = moe._ffn_dense
+
+    def labelled(*args, **kw):
+        with record_function(DENSE_EXPERTS):
+            return dense(*args, **kw)
+
+    moe._ffn_dense = labelled
+    try:
+        yield
+    finally:
+        moe._ffn_dense = dense
+
+
 def step_bound(ctx, rows: int, kv_cells: int, routing: list, n_steps: int) -> tuple[float, str]:
     """Least card time of one forward step over `rows` new tokens of a
     Context on a packed model: every packed weight plane, every dense layer
@@ -2651,18 +2802,35 @@ def step_bound(ctx, rows: int, kv_cells: int, routing: list, n_steps: int) -> tu
     2 * rows * N * K operations over the layer matrices plus 2 * N * K per
     lane for the lm_head, at the bf16 peak. An MoE layer counts only the experts its
     routing selected (`routing`: the (B, T, k) expert ids the router chose
-    over n_steps steps, layer after layer), each expert's planes once, and
-    its experts' operations over rows * k. Norms, rope, the router and
+    over n_steps steps, layer after layer), each expert's planes once (a
+    heterogeneous stack's layer_list: its dense matrices), and its
+    experts' operations over rows * k. Norms, rope, the router and
     attention's own operations are left out, so this is a lower bound."""
     model = ctx.model
     hp = model.hparams
-    p, lm = model.params, model.quant_meta["layers"]
+    p = model.params
     n_bytes = sum(nbytes(a) for a in p["output"].values())
     # each cached cell's K and V rows of every layer (an int8 cache: its
     # int8 rows and f32 scales)
     kv = ctx.kv_k if isinstance(ctx.kv_k, tuple) else (ctx.kv_k,)
     n_bytes += kv_cells * 2 * sum(nbytes(t[:, 0, :, 0]) for t in kv)
     flops = 2.0 * ctx.p.n_seqs * model.quant_meta["output"].n_out * model.quant_meta["output"].n_in
+    if "layer_list" in p:
+        # a heterogeneous stack: dense tensors per layer; an MoE layer reads
+        # the experts its routing picked (on average over its layers), each
+        # expert's three dense matrices once
+        n_moe = sum("ffn_gate_inp" in w for w in p["layer_list"])
+        picked = sum(int(r.unique().numel()) for r in routing) / n_steps / max(n_moe, 1)
+        for w in p["layer_list"]:
+            for key, t in w.items():
+                if key.endswith("_exps"):
+                    n_bytes += picked * nbytes(t) / hp.n_expert
+                    flops += 2.0 * rows * hp.n_expert_used * t[0].numel()
+                elif t.dim() == 2:
+                    n_bytes += nbytes(t)
+                    flops += 2.0 * rows * t.numel()
+        return bound_ms(n_bytes, flops, "bf16")
+    lm = model.quant_meta["layers"]
     for key, w in p["layers"].items():
         if not isinstance(w, dict):
             if w.dim() == 3:  # a dense (L, n_out, n_in) matrix stack
@@ -2705,7 +2873,7 @@ def profile_step(ctx, step, rows: int, n_steps: int, kernels: tuple = ()) -> dic
     sync()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
     kv_cells = int((ctx._pos_host >= 0).sum())
-    with recorded_routing([]) as routing, \
+    with recorded_routing([]) as routing, labelled_dense_experts(), \
             profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
@@ -2717,7 +2885,9 @@ def profile_step(ctx, step, rows: int, n_steps: int, kernels: tuple = ()) -> dic
         # a replayed graph runs no Python, so the router's picks went
         # unrecorded: no bound from this window
         b_ms = b_by = None
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # the card's kernels (a labelled range's span on the card is no kernel)
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.key != DENSE_EXPERTS]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3 / n_steps
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
     per_kernel = {}
@@ -2726,7 +2896,23 @@ def profile_step(ctx, step, rows: int, n_steps: int, kernels: tuple = ()) -> dic
         n = sum(e.count for e in hits)
         per_kernel[name] = {"ms_per_launch": sum(e.self_device_time_total for e in hits) / 1e3
                             / n if n else None, "launches_per_step": n / n_steps}
-    return {"rows": rows, "steps": n_steps, "wall_ms": wall_ms, "kernels": per_kernel,
+    rec = {}
+    label = [e for e in prof.events()
+             if e.name == DENSE_EXPERTS and e.device_type == DeviceType.CPU]
+    if label:
+        # the dense expert branch: the card time of the kernels launched
+        # under its label, and its span on the card (an eager step: a
+        # replayed graph runs no Python to label)
+        def kernel_us(e):
+            return (sum(k.duration for k in getattr(e, "kernels", ()) if k.name != DENSE_EXPERTS)
+                    + sum(kernel_us(c) for c in e.cpu_children))
+
+        ms = sum(kernel_us(e) for e in label) / 1e3 / n_steps
+        span = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.key == DENSE_EXPERTS)
+        rec = {"dense_expert_ms": ms, "dense_expert_share": ms / busy_ms if busy_ms else None,
+               "dense_expert_span_ms": span / 1e3 / n_steps}
+    return {**rec, "rows": rows, "steps": n_steps, "wall_ms": wall_ms, "kernels": per_kernel,
             "profiled_wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / prof_wall_ms, "bound_ms": b_ms, "bound_by": b_by,
             "device_launches": sum(e.count for e in dev) / n_steps,
@@ -3220,6 +3406,12 @@ PATH_KERNELS = {
     "qwen3mxfp4_crosscheck": _DENSE_CROSS + ("qmm_gathered_t",),
     "qwen3mxfp4_serve": _DENSE_SERVE + ("qmm_gathered_t",),
     "mxfp4_crosscheck": _DENSE_CROSS + _GATHERED + ("qmm_ktiled",),
+    # GLM-4.5-Air's heterogeneous stack: every layer dense in both loaders,
+    # so the packed Q6_K lm_head (qmm_gemv; qmm_tiled on the cross-check's
+    # 32 prompt logits) and attention at G = 12 run kernels; the served
+    # chunks read one logit row a lane
+    "glm4moe_crosscheck": _DENSE_CROSS,
+    "glm4moe_serve": ("qmm_gemv", "flash_attention", "flash_decode_batched"),
     # lanes saved and loaded (f32 and int8 caches), the HTTP engine, the CLI
     "state": ("qmm_gemv", "qmm_tiled", "flash_attention", "flash_decode", "flash_decode_batched",
               "flash_attention_int8", "flash_decode_int8"),
@@ -3235,7 +3427,8 @@ PATHS = (("", LLAMA3_8B, 2, 4, {}),
          ("qwen3moe_", QWEN3_30B_A3B, 1, 4, {}),
          ("qwen2moe_", QWEN2_57B_A14B, 1, 0, {}),
          ("granitemoe_", GRANITE_3B_A800M, 2, 0, {}),
-         ("qwen3mxfp4_", QWEN3_30B_A3B_MXFP4, 1, 4, {}))
+         ("qwen3mxfp4_", QWEN3_30B_A3B_MXFP4, 1, 4, {}),
+         ("glm4moe_", GLM_4_5_AIR, 2, 4, {}))
 # the cross-checks' prompt tokens where not 32: Qwen2-57B-A14B's CPU steps
 # dequantize its 20480-wide shared expert and 151936-row output per call
 CROSS_PROMPT = {"qwen2moe_": 16}
@@ -3361,19 +3554,21 @@ def main() -> int:
                         n_prompt=CROSS_PROMPT.get(pre, 32), **opts))
             serve_tokens = None
             if "serve" in run:
-                layers = model.params["layers"]
-                dense = [k for k in _LAYER_ROLES
-                         if k in layers and not isinstance(layers[k], dict)]
+                # dense projections (a heterogeneous stack's are all dense)
+                layers = model.params.get("layers", {})
+                dense = "layer_list" in model.params or [
+                    k for k in _LAYER_ROLES if k in layers and not isinstance(layers[k], dict)]
                 launches[pre + "serve"], (eng, prompt, serve_tokens) = path_launches(
                     pre + "serve", lambda: phase_serve(model, smi, phase=pre + "serve",
                                                        n_slots=n_slots, rerun_all=bool(dense),
                                                        **opts))
                 # a packed model without experts: every packed matrix once
                 # per step / chunk, the output by qmm_gemv in both
-                lm = model.quant_meta["layers"]
-                qmm_counts = (None if widths.n_expert or fused else
-                              (len(lm) * widths.n_layer + ("output" in model.quant_meta),
-                               len(lm) * widths.n_layer))
+                qmm_counts = None
+                if not (widths.n_expert or fused):
+                    lm = model.quant_meta["layers"]
+                    qmm_counts = (len(lm) * widths.n_layer + ("output" in model.quant_meta),
+                                  len(lm) * widths.n_layer)
                 phase_serve_profile(eng, prompt, smi, phase=pre + "serve_profile",
                                     step_kernels=("qmm_ktiled", "fused_postattn") if fused
                                     else (), qmm_counts=qmm_counts,

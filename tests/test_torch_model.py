@@ -79,6 +79,8 @@ def _port_load(path, **kw):
 def _to_numpy(t):
     if isinstance(t, dict):
         return {k: _to_numpy(v) for k, v in t.items()}
+    if isinstance(t, list):  # a heterogeneous stack's layer_list
+        return [_to_numpy(v) for v in t]
     if t.dtype == torch.bfloat16:
         return t.view(torch.uint16).numpy()
     return t.numpy()
@@ -101,6 +103,12 @@ def _assert_same_tree(a, b, path=""):
         for k in a:
             _assert_same_tree(a[k], b[k], f"{path}/{k}")
         return
+    assert isinstance(a, list) == isinstance(b, list), path
+    if isinstance(a, list):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_same_tree(x, y, f"{path}/{i}")
+        return
     assert a.dtype == b.dtype and a.shape == b.shape, (path, a.dtype, b.dtype, a.shape, b.shape)
     np.testing.assert_array_equal(a, b, err_msg=path)
 
@@ -114,19 +122,20 @@ def test_load_dense_matches(ggufs, qtype):
     assert vars(t.hparams) == {k: getattr(j.hparams, k) for k in vars(t.hparams)}
 
 
-@pytest.mark.parametrize("case", ["glm4moe", "group-limited"])
+@pytest.mark.parametrize("case", ["bailingmoe2", "group-limited"])
 def test_load_refuses_moe(tmp_path, case):
-    # MoE GGUFs the JAX package loads and the port does not yet: a glm4moe
-    # file (an MoE arch not ported, refused by name with its ROADMAP item)
+    # MoE GGUFs the JAX package loads and the port does not yet: a
+    # bailingmoe2 file (an MoE arch not ported, a heterogeneous stack with a
+    # NextN layer, refused by name with its ROADMAP item)
     # and a Mixtral-style llama file with group-limited routing (an MoE
     # option not ported); the port refuses each, with the loaded hparams
     # carried across too
     from tpullama_torch.models import params_from_numpy
 
     p = str(tmp_path / "moe.gguf")
-    if case == "glm4moe":
-        make_tiny_llama_gguf(p, arch="glm4moe", n_embd=64, n_ff=128, n_expert=4, seed=3)
-        match = "arch 'glm4moe' is not ported yet .ROADMAP.md Queue 1 item 5"
+    if case == "bailingmoe2":
+        make_tiny_llama_gguf(p, arch="bailingmoe2", n_embd=64, n_ff=128, n_expert=4, seed=3)
+        match = "arch 'bailingmoe2' is not ported yet .ROADMAP.md Queue 1 item 5"
     else:
         make_tiny_llama_gguf(p, n_embd=64, n_ff=128, n_expert=4, seed=3,
                              extra_kv={"llama.expert_group_count": 2,

@@ -1,12 +1,14 @@
 """Model hyperparameters loaded from GGUF metadata: the llama family,
 chatglm and the MoE archs that run through the llama forward (qwen2moe,
-qwen3moe, granitemoe).
+qwen3moe, granitemoe, and the heterogeneous dense/MoE stacks of glm4moe,
+dots1 and ernie4_5-moe).
 
 The part of tpullama/models/hparams.py that the port reads. Key strings
 follow the reference's key-name table exactly (src/llama-arch.cpp:119-268);
 the fields are those of src/llama-hparams.h that these archs set, with the
 JAX package's per-arch branches for them (qwen2moe's unnormalized top-k
-weights, granite's scale stack). Other architectures' fields and branches
+weights, granite's scale stack, glm4moe's sigmoid gating and trailing
+NextN layers). Other architectures' fields and branches
 come across with the slice that ports them; until then from_gguf refuses
 them, the MoE archs by name with their ROADMAP item.
 """
@@ -20,17 +22,18 @@ ROPE_SCALING_YARN = "yarn"
 
 # the architectures whose forward is the plain llama block (chatglm's with
 # a fused biased [Q|K|V] and a fused [gate|up] FFN; qwen3moe's per-head q/k
-# norms; the MoE archs' shared experts and granite's scale stack)
-LLAMA_FAMILY = ("llama", "mistral", "qwen2", "chatglm", "qwen2moe", "qwen3moe", "granitemoe")
+# norms; the MoE archs' shared experts and granite's scale stack; the
+# heterogeneous dense/MoE stacks, loaded as a per-layer list)
+LLAMA_FAMILY = ("llama", "mistral", "qwen2", "chatglm", "qwen2moe", "qwen3moe", "granitemoe",
+                "glm4moe", "dots1", "ernie4_5-moe")
 # the other MoE archs the JAX package runs through its llama forward, each
 # refused by name until its slice (ROADMAP.md Queue 1 item 5)
-MOE_NOT_PORTED = ("glm4moe", "dots1", "ernie4_5-moe", "hunyuan-moe", "bailingmoe",
-                  "bailingmoe2", "llama4", "afmoe", "minimax-m2", "grovemoe", "olmoe",
-                  "phimoe", "dbrx", "grok", "arctic", "gpt-oss", "qwen3vlmoe", "llada-moe",
-                  "smallthinker")
+MOE_NOT_PORTED = ("hunyuan-moe", "bailingmoe", "bailingmoe2", "llama4", "afmoe", "minimax-m2",
+                  "grovemoe", "olmoe", "phimoe", "dbrx", "grok", "arctic", "gpt-oss",
+                  "qwen3vlmoe", "llada-moe", "smallthinker")
 # rope type per arch (llama_model_rope_type, src/llama-model.cpp:7777+):
 # NORM (0, adjacent pairs) for these, NEOX (2, split halves) for the rest
-_NORM_ROPE = ("llama", "chatglm", "granitemoe")
+_NORM_ROPE = ("llama", "chatglm", "granitemoe", "ernie4_5-moe")
 
 
 def check_arch(arch: str) -> None:
@@ -97,6 +100,18 @@ class HParams:
     moe_act: str = "silu"
     n_ff_exp: int = 0  # each routed expert's FFN width (qwen2moe, qwen3moe)
     n_ff_shexp: int = 0  # the shared expert's FFN width
+    n_moe_layer_step: int = 0  # every Nth layer is MoE past the dense lead (ernie4_5-moe)
+    nextn_layers: int = 0  # trailing MTP layers excluded from the forward (glm4moe)
+    n_layer_dense_lead: int = 0  # leading dense-FFN layers (dots1, glm4moe, ernie4_5-moe)
+
+    @property
+    def has_heterogeneous_layers(self) -> bool:
+        """Mixed dense/MoE layer stacks: loaded as a per-layer list and run
+        layer by layer (the tensor sets differ per layer, so they cannot
+        be stacked). The JAX package's property also names archs the port
+        refuses (openelm, deci, bailingmoe2, afmoe, nomic-bert-moe, llama4
+        with interleaved MoE)."""
+        return self.arch in ("dots1", "glm4moe", "ernie4_5-moe")
 
     @classmethod
     def from_gguf(cls, reader) -> "HParams":
@@ -160,6 +175,7 @@ class HParams:
             expert_gating_func=int(g("expert_gating_func", 1) or 1),
             n_ff_exp=int(g("expert_feed_forward_length", 0) or 0),
             n_ff_shexp=int(g("expert_shared_feed_forward_length", 0) or 0),
+            n_layer_dense_lead=int(g("leading_dense_block_count", 0) or 0),
             # fused-swiglu FFN (LLM_FFN_SWIGLU on a 2*n_ff up projection)
             ffn_fused_up=arch == "chatglm",
         )
@@ -172,4 +188,16 @@ class HParams:
             hp.f_residual_scale = float(g("residual_scale", 0.0) or 0.0)
             if hp.f_logit_scale:
                 hp.final_logit_scale = 1.0 / hp.f_logit_scale
+        if arch in ("dots1", "glm4moe"):
+            # deepseek-style MoE: norm_topk from expert_weights_norm,
+            # selection bias (exp_probs_b), dense lead layers, shared
+            # experts (models/dots1.cpp, models/glm4-moe.cpp)
+            hp.moe_norm_topk = hp.expert_weights_norm
+        if arch == "glm4moe":
+            if g("expert_gating_func") is None:
+                hp.expert_gating_func = 2  # sigmoid default (GLM-4.5)
+            hp.nextn_layers = int(g("nextn_predict_layers", 0) or 0)
+            hp.n_layer -= hp.nextn_layers  # MTP layers are in the file but skipped
+        if arch == "ernie4_5-moe":
+            hp.n_moe_layer_step = int(g("interleave_moe_layer_step", 1) or 1)
         return hp

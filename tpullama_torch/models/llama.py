@@ -2,8 +2,9 @@
 
 Port of tpullama/models/llama.py:llama_forward for the llama family
 (llama, llama-2/3, mistral, qwen2 biases, chatglm's fused biased [Q|K|V]
-and fused [gate|up], Mixtral-style MoE, and the MoE archs qwen2moe,
-qwen3moe and granitemoe; no SWA or parallel modes): token rows (times
+and fused [gate|up], Mixtral-style MoE, the MoE archs qwen2moe,
+qwen3moe and granitemoe, and the heterogeneous dense/MoE stacks of
+glm4moe, dots1 and ernie4_5-moe; no SWA or parallel modes): token rows (times
 embd_scale) -> per layer [rms_norm -> q/k/v (+bias) -> per-head q/k
 rms_norm -> rope -> write K/V into the cache -> attention -> o-proj (times
 f_residual_scale) -> residual -> rms_norm -> SwiGLU FFN, or MoE FFN plus
@@ -15,8 +16,12 @@ fused [gate|up] SwiGLU as one kernel (ops/cuda/fused_layer.py), as the
 JAX package does under TPULLAMA_FUSED_LAYER.
 
 The JAX package scans a stacked layer axis and gets a new cache back from
-each step (the cache argument is donated). Here the layers are nn.Modules
-called in a Python loop, each holding views of the stacked weights, and
+each step (the cache argument is donated); a heterogeneous stack
+(params["layer_list"], one dict of dense tensors per layer: dense lead
+layers with a SwiGLU FFN, MoE layers with the router, its selection bias
+exp_probs_b and a shared expert) it runs in an unrolled loop. Here the
+layers are nn.Modules called in a Python loop, each holding views of the
+stacked weights (or its own dict of the list), and
 each writes its new K/V rows IN PLACE into its view of one preallocated
 (L, B, Hkv, S, D) cache tensor (index_put_), so no cache copy is made. An
 int8 cache is a (values, scales) pair per K and V: int8 (L, B, Hkv, S, D)
@@ -215,7 +220,7 @@ class LlamaLayer(nn.Module):
                 w.get("ffn_gateup_exps", w.get("ffn_up_exps")), w["ffn_down_exps"],
                 n_expert_used=hp.n_expert_used, gating=hp.expert_gating_func,
                 norm_w=hp.moe_norm_topk, w_scale=hp.expert_weights_scale, act=hp.moe_act,
-                quant_meta_exps=metas)
+                exp_probs_b=w.get("exp_probs_b"), quant_meta_exps=metas)
             if "ffn_gate_shexp" in w:
                 down = down + self.shared_expert(h)
         else:
@@ -263,7 +268,6 @@ class LlamaModel(nn.Module):
         self.fused_layer = resolve_fused_layer(fused_layer)
         self.qmm_tile_k = resolve_tile_k(qmm_tile_k)
         lmeta = self.quant_meta.get("layers", {})
-        stacks = params["layers"]
 
         def view(key, t, li):
             if not isinstance(t, dict):
@@ -273,11 +277,15 @@ class LlamaModel(nn.Module):
                 return {k: a[li * E:(li + 1) * E] for k, a in t.items()}
             return {k: a[li] for k, a in t.items()}
 
+        if "layer_list" in params:
+            # a heterogeneous stack: each layer's own dense tensors
+            weights = params["layer_list"]
+        else:
+            stacks = params["layers"]
+            weights = [{k: view(k, t, li) for k, t in stacks.items()}
+                       for li in range(hp.n_layer)]
         self.layers = nn.ModuleList(
-            LlamaLayer({k: view(k, t, li) for k, t in stacks.items()}, lmeta, hp,
-                       self.fused_layer, self.qmm_tile_k)
-            for li in range(hp.n_layer)
-        )
+            LlamaLayer(w, lmeta, hp, self.fused_layer, self.qmm_tile_k) for w in weights)
         self.rp = rope_params(hp)
 
     def forward(self, tokens, positions, kv_k, kv_v, cache_slots, attn_mask,

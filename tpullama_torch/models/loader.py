@@ -1,12 +1,19 @@
 """Model loader: GGUF -> PyTorch parameters on a device.
 
 Port of tpullama/models/loader.py for the llama family (llama, mistral,
-qwen2, chatglm, Mixtral-style MoE llama, and the MoE archs qwen2moe,
-qwen3moe and granitemoe with per-head q/k norms and shared experts). Every
-tensor the file holds is mapped or refused by name. Per-layer tensors of
-equal shape are stacked along a leading layer axis, as in the JAX
-package, so the two packages hold the same arrays under the same names;
-the forward pass walks per-layer views of the stacks.
+qwen2, chatglm, Mixtral-style MoE llama, the MoE archs qwen2moe, qwen3moe
+and granitemoe with per-head q/k norms and shared experts, and the
+heterogeneous dense/MoE stacks of glm4moe, dots1 and ernie4_5-moe). Every
+tensor the file holds is mapped or refused by name, but the trailing
+NextN layers past hp.n_layer and every blk.*.nextn.* tensor, which are
+skipped unread (glm4moe's multi-token-prediction head, which the forward
+never runs). Per-layer tensors of equal shape are stacked along a leading
+layer axis, as in the JAX package, so the two packages hold the same
+arrays under the same names; the forward pass walks per-layer views of
+the stacks. A heterogeneous stack (HParams.has_heterogeneous_layers) is a
+per-layer list instead, params["layer_list"], one dict per layer with
+every tensor dense in `dtype`, packed or not, as the JAX loader keeps it
+(tpullama/models/loader.py:507-513); only `output` packs there.
 
 Two weight modes:
   - dense (default): blocks decoded to `dtype` at load.
@@ -84,7 +91,12 @@ _LAYER_TENSORS = {
     "ffn_gate_shexp.weight": "ffn_gate_shexp",
     "ffn_up_shexp.weight": "ffn_up_shexp",
     "ffn_down_shexp.weight": "ffn_down_shexp",
+    "exp_probs_b.bias": "exp_probs_b",
 }
+# per-arch remaps of tensor suffixes onto forward roles: glm4moe normalizes
+# ffn_inp with post_attention_norm, the ffn_norm slot (the JAX loader's
+# _ARCH_TENSOR_OVERRIDES, models/glm4-moe.cpp:93-96)
+_ARCH_TENSOR_OVERRIDES = {"glm4moe": {"post_attention_norm.weight": "ffn_norm"}}
 _EXPERT_TRIO = ("ffn_gate_exps", "ffn_up_exps", "ffn_down_exps")
 # the layer matrices the fused post-attention path reads in fourblock order
 _FOURBLOCK_KEYS = ("attn_output", "ffn_up", "ffn_down")
@@ -97,10 +109,10 @@ _TOP_TENSORS = {
     "rope_freqs.weight": "rope_freqs",
 }
 # the archs whose MoE layers the port runs (ops/moe.py)
-_MOE_ARCHS = ("llama", "qwen2moe", "qwen3moe", "granitemoe")
+_MOE_ARCHS = ("llama", "qwen2moe", "qwen3moe", "granitemoe", "glm4moe", "dots1", "ernie4_5-moe")
 
-# rows dequantized per host batch when a large dense tensor is decoded
-_DENSE_ROWS = 8192
+# values dequantized per host batch when a large dense tensor is decoded
+_DENSE_ELEMS = 8192 * 4096
 
 
 @dataclass(frozen=True)
@@ -137,6 +149,8 @@ class LoadedModel:
         def walk(t):
             if isinstance(t, dict):
                 return sum(walk(v) for v in t.values())
+            if isinstance(t, list):
+                return sum(walk(v) for v in t)
             return t.numel() * t.element_size()
 
         return walk(self.params)
@@ -291,20 +305,27 @@ def load_model(source, dtype=torch.float32, device=None, packed: bool = False,
 
     layer_names: dict[int, dict[str, str]] = {}
     top: dict[str, str] = {}
+    overrides = _ARCH_TENSOR_OVERRIDES.get(hp.arch, {})
+    skipped = 0
     pat = re.compile(r"^blk\.(\d+)\.(.+)$")
     for name in reader.tensors:
         m = pat.match(name)
         if m:
-            pname = _LAYER_TENSORS.get(m.group(2))
+            il, suffix = int(m.group(1)), m.group(2)
+            if (hp.nextn_layers and il >= hp.n_layer) or suffix.startswith("nextn."):
+                # a NextN layer (or its extras): never read
+                skipped += 1
+                continue
+            pname = overrides.get(suffix, _LAYER_TENSORS.get(suffix))
             if pname is None:
                 raise NotImplementedError(f"tpullama_torch: tensor {name!r} is not ported yet")
-            layer_names.setdefault(int(m.group(1)), {})[pname] = name
+            layer_names.setdefault(il, {})[pname] = name
         elif name in _TOP_TENSORS:
             top[_TOP_TENSORS[name]] = name
         else:
             raise NotImplementedError(f"tpullama_torch: tensor {name!r} is not ported yet")
     n_layer = hp.n_layer or (max(layer_names) + 1 if layer_names else 0)
-    total = len(reader.tensors)
+    total = len(reader.tensors) - skipped
     done = 0
 
     def tick() -> None:
@@ -316,6 +337,26 @@ def load_model(source, dtype=torch.float32, device=None, packed: bool = False,
     def decode(raw: np.ndarray, ggml_type: GGMLType, shape: tuple) -> np.ndarray:
         arr = native_dequantize(raw, ggml_type, math.prod(shape)) if native else None
         return arr.reshape(shape) if arr is not None else dequantize(raw, ggml_type, shape)
+
+    def decode_into(raw: np.ndarray, ggml_type: GGMLType, shape: tuple, out: np.ndarray):
+        """Dequantize into `out`, a contiguous f32 array of prod(shape)."""
+        if native and native_dequantize(raw, ggml_type, out.size, out=out) is not None:
+            return
+        out[:] = dequantize(raw, ggml_type, shape).reshape(-1)
+
+    staging: list = []  # (pinned host, device) f32 buffers, reused
+
+    def stage(n: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """f32 buffers through which rows reach the card: decoded into
+        page-locked host memory, copied as f32, converted there (a copy
+        that changes dtype on its way to the card converts on one host
+        thread)."""
+        if not staging or staging[0][0].numel() < n:
+            n_alloc = max(n, _DENSE_ELEMS)
+            staging[:] = [(torch.empty(n_alloc, pin_memory=True),
+                           torch.empty(n_alloc, device=device))]
+        host, dev = staging[0]
+        return host[:n], dev[:n]
 
     def packable(tname: str, allow_3d: bool = False) -> bool:
         info = reader.tensors[tname]
@@ -329,14 +370,22 @@ def load_model(source, dtype=torch.float32, device=None, packed: bool = False,
         if len(info.shape) < 2:
             out.copy_(torch.from_numpy(decode(raw, info.ggml_type, info.shape)))
         else:
-            rows = int(np.prod(info.shape[:-1]))
+            rows, K = int(np.prod(info.shape[:-1])), info.shape[-1]
             per_row = raw.size // rows
-            flat = out.view(rows, info.shape[-1])
-            for r0 in range(0, rows, _DENSE_ROWS):
-                r1 = min(rows, r0 + _DENSE_ROWS)
-                part = decode(raw[r0 * per_row:r1 * per_row], info.ggml_type,
-                              (r1 - r0, info.shape[-1]))
-                flat[r0:r1].copy_(torch.from_numpy(part))
+            flat = out.view(rows, K)
+            step = max(1, _DENSE_ELEMS // K)
+            for r0 in range(0, rows, step):
+                r1 = min(rows, r0 + step)
+                part, shape = raw[r0 * per_row:r1 * per_row], (r1 - r0, K)
+                if out.device.type != "cpu":
+                    host, dev = stage((r1 - r0) * K)
+                    decode_into(part, info.ggml_type, shape, host.numpy())
+                    dev.copy_(host)
+                    flat[r0:r1].copy_(dev.view(shape))
+                elif out.dtype == torch.float32:
+                    decode_into(part, info.ggml_type, shape, flat[r0:r1].numpy().reshape(-1))
+                else:
+                    flat[r0:r1].copy_(torch.from_numpy(decode(part, info.ggml_type, shape)))
         tick()
 
     def fetch_packed(tname: str, key: str | None = None) -> tuple[dict, QuantMeta]:
@@ -386,7 +435,18 @@ def load_model(source, dtype=torch.float32, device=None, packed: bool = False,
             fetch_dense(tname, t)
             params[pname] = t
 
-    if n_layer:
+    if n_layer and hp.has_heterogeneous_layers:
+        # each layer its own dict, every tensor dense in `dtype`
+        layer_list = []
+        for il in range(n_layer):
+            layer = {}
+            for pname, tname in sorted(layer_names.get(il, {}).items()):
+                layer[pname] = torch.empty(reader.tensors[tname].shape, dtype=dtype,
+                                           device=device)
+                fetch_dense(tname, layer[pname])
+            layer_list.append(layer)
+        params["layer_list"] = layer_list
+    elif n_layer:
         keys = sorted(layer_names.get(0, {}))
         stacked: dict = {}
         layer_meta: dict = {}
@@ -494,6 +554,8 @@ def params_from_numpy(params: dict, quant_meta: dict | None, hparams, device=Non
     def conv(t):
         if isinstance(t, dict):
             return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, list):  # a heterogeneous stack's layer_list
+            return [conv(v) for v in t]
         return _tensor_from_numpy(t, device)
 
     def meta(m):

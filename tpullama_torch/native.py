@@ -97,13 +97,19 @@ _NATIVE_REPACK_TYPES = {
 }
 
 
-def native_dequantize(raw: np.ndarray, ggml_type: GGMLType, n_elems: int):
-    """Threaded dequantize; returns None if unavailable for this type."""
+def native_dequantize(raw: np.ndarray, ggml_type: GGMLType, n_elems: int,
+                      out: np.ndarray | None = None):
+    """Threaded dequantize; returns None if unavailable for this type.
+    `out`: a contiguous f32 array of n_elems to write into (default: a new
+    one)."""
     lib = get_lib()
     if lib is None or ggml_type not in _NATIVE_DEQ_TYPES:
         return None
     raw = np.ascontiguousarray(raw, dtype=np.uint8)
-    out = np.empty(n_elems, np.float32)
+    if out is None:
+        out = np.empty(n_elems, np.float32)
+    elif out.dtype != np.float32 or out.size != n_elems or not out.flags.c_contiguous:
+        raise ValueError("native_dequantize: out must be a contiguous f32 array of n_elems")
     rc = lib.tpn_dequant(
         ctypes.c_int(int(ggml_type)),
         raw.ctypes.data_as(ctypes.c_void_p),

@@ -2,8 +2,8 @@
 
 Port of tpullama/ops/moe.py (build_moe_ffn, src/llama-graph.cpp:880-1120)
 for what the MoE archs of the llama forward run (Mixtral-style llama,
-qwen2moe, qwen3moe, granitemoe; their shared experts run in
-models/llama.py): f32 router logits ->
+qwen2moe, qwen3moe, granitemoe, glm4moe, dots1, ernie4_5-moe; their shared
+experts run in models/llama.py): f32 router logits ->
 softmax / sigmoid / post-top-k softmax gating -> optional selection bias
 -> top-k by the selection probabilities, weights gathered from the
 unbiased ones -> optional renormalisation (clamped at the fp16 min normal)
@@ -14,8 +14,16 @@ Packed expert stacks go through the gathered quantized matmul
 (ops/cuda/qmm_gathered.py): at decode every (token, k) slot is its own
 one-row tile; from DISPATCH_MIN_SLOTS slots on, moe_dispatch sorts the
 slots by expert into PREFILL_TILE_T-row tiles. Both constants are the JAX
-package's defaults; its TPULLAMA_MOE_* switches are not ported. Dense
-stacks gather the selected experts' weights per token.
+package's defaults; its TPULLAMA_MOE_* switches are not ported.
+
+Dense stacks compute the JAX package's dense branch (f32 products per
+(token, k) pair, SwiGLU, times the pair's weight, summed over k;
+tpullama/ops/moe.py:323-388) without its gathered (B, T, k, F, D) weight
+tensor, which at GLM-4.5-Air's widths would take ~189 GB for a 4 x 256
+chunk: a one-token step (T == 1) gathers each of its B * k pairs'
+experts (fixed shapes and no host read, so a CUDA graph captures it);
+T > 1 sorts the pairs by expert and multiplies each selected expert's
+rows at once (one host read of the counts; prefill runs eagerly).
 
 Not ported, each refused with its name and needed by MoE archs not
 loaded yet (ROADMAP.md Queue 1 item 5): expert parallelism (ep_axis),
@@ -113,6 +121,50 @@ def _ffn_packed(xf, sel, weights, gate_exps, up_exps, down_exps, metas, E):
     return down.sum(dim=2)
 
 
+def _pair_products(x_pairs, sel_flat, gate_exps, up_exps, down_exps):
+    """The expert FFN of each (token, k) pair by its own expert's weights,
+    gathered one expert per pair: x_pairs (N, D) f32, sel_flat (N,) ->
+    (N, D) f32."""
+    x = x_pairs[:, :, None]
+    gate = torch.bmm(gate_exps[sel_flat].float(), x)[..., 0]
+    up = torch.bmm(up_exps[sel_flat].float(), x)[..., 0]
+    return torch.bmm(down_exps[sel_flat].float(), swiglu(gate, up)[:, :, None])[..., 0]
+
+
+def _sorted_products(x_pairs, sel_flat, gate_exps, up_exps, down_exps):
+    """The same as _pair_products with the pairs sorted by expert: each
+    selected expert's weights turn f32 once and multiply all its rows in
+    one product, and the rows go back to pair order."""
+    E = gate_exps.shape[0]
+    order = torch.argsort(sel_flat, stable=True)
+    counts = torch.bincount(sel_flat, minlength=E).tolist()
+    xs = x_pairs[order]
+    out = torch.empty_like(xs)
+    start = 0
+    for e, n in enumerate(counts):
+        if not n:
+            continue
+        rows = xs[start:start + n]
+        gate = rows @ gate_exps[e].float().T
+        up = rows @ up_exps[e].float().T
+        out[start:start + n] = swiglu(gate, up) @ down_exps[e].float().T
+        start += n
+    return torch.empty_like(out).index_copy_(0, order, out)
+
+
+def _ffn_dense(xf, sel, weights, gate_exps, up_exps, down_exps):
+    """Expert FFN over dense (E, F, D) / (E, D, F) stacks: per pair at
+    T == 1 (_pair_products), sorted by expert at T > 1
+    (_sorted_products)."""
+    B, T, D = xf.shape
+    K = sel.shape[-1]
+    x_pairs = xf[:, :, None, :].expand(B, T, K, D).reshape(B * T * K, D)
+    sel_flat = sel.reshape(-1)
+    products = _pair_products if T == 1 else _sorted_products
+    out = products(x_pairs, sel_flat, gate_exps, up_exps, down_exps)
+    return (out.reshape(B, T, K, D) * weights[..., None]).sum(dim=2)
+
+
 def route(xf, gate_inp, n_expert_used: int, gating: int = GATING_SOFTMAX,
           norm_w: bool = True, w_scale: float = 0.0, exp_probs_b=None, gate_inp_b=None):
     """The router: f32 tokens (B, T, D) -> the selected experts (B, T, k)
@@ -168,18 +220,10 @@ def moe_ffn(x, gate_inp, gate_exps, up_exps, down_exps, *, n_expert_used: int,
     if gate_exps is None and not fused:
         raise NotImplementedError("moe_ffn: experts without a gate are not ported yet")
 
-    B, T, D = x.shape
-    E = gate_inp.shape[0]
     xf = x.float()
     sel, weights = route(xf, gate_inp, n_expert_used, gating, norm_w, w_scale,
                          exp_probs_b, gate_inp_b)
     if quant_meta_exps is not None and isinstance(up_exps, dict):
         return _ffn_packed(xf, sel, weights, gate_exps, up_exps, down_exps,
-                           quant_meta_exps, E).to(x.dtype)
-
-    # dense experts: gather the selected experts' weights per (token, k)
-    xk = xf[:, :, None, :].expand(B, T, n_expert_used, D)
-    up = torch.einsum("btkd,btkfd->btkf", xk, up_exps[sel].float())
-    gate = torch.einsum("btkd,btkfd->btkf", xk, gate_exps[sel].float())
-    out = torch.einsum("btkf,btkdf->btkd", swiglu(gate, up), down_exps[sel].float())
-    return (out * weights[..., None]).sum(dim=2).to(x.dtype)
+                           quant_meta_exps, gate_inp.shape[0]).to(x.dtype)
+    return _ffn_dense(xf, sel, weights, gate_exps, up_exps, down_exps).to(x.dtype)
