@@ -9,7 +9,9 @@ Phases, each printing one JSON line with its seconds:
   build     nvcc builds the kernels from tpullama_torch/csrc
   kernels   every kernel against its plain PyTorch version on the card, at
             the serving path's shapes, with kernel, plain and library
-            times and the bound from the card's data-sheet rates
+            times and the bound from the card's data-sheet rates; gpt-oss's
+            attention (64/8 heads, D = 64, sinks) over both stacks (4224
+            and 385 cells) and its attn_output among them
   model     a synthetic Llama-3-8B-shaped GGUF (Q4_K layers, Q6_K output,
             Q4_K token table, random block bytes from a seed) is written
             to a temp dir and loaded packed onto the card
@@ -131,6 +133,24 @@ Phases, each printing one JSON line with its seconds:
             a stack, the Q6_K lm_head packed; the cross-check runs the
             dense lead and 1 MoE layer; the profile reports the dense
             expert branch's share of an eager step and of a prefill chunk
+  gptoss_model, gptoss_crosscheck, gptoss_serve
+            the model, cross-check and serve phases on a gpt-oss-20b-shaped
+            model (4 of its 24 layers: two sliding-window layers and two
+            full; 64 x 64 query columns over 8 KV heads on a 2880 hidden,
+            q/k/v/o biases and per-head sinks, 32 experts of FFN 2880, 4 a
+            token, with the router's and the experts' biases and
+            swiglu_oai, YaRN rope, vocab 201088) in the layout of
+            llama.cpp's gpt-oss GGUFs (MXFP4 experts, Q8_0 elsewhere):
+            every matrix but attn_output (K = 4096) dense bf16, as both
+            packages load K = 2880 (~8.9 GB). Its Contexts keep the iswa
+            two-stack cache: the full layers' cells and the SWA layers'
+            ring of n_swa + n_ubatch + 1 = 385 cells. The cross-check (one
+            SWA and one full layer, f32) prefills a 600-token prompt in
+            256-token chunks so the ring wraps, card against CPU, with both
+            stacks' positions cell for cell, and the ring's greedy tokens
+            against swa_full's one stack; the serve phase prints the two
+            stacks' bytes against swa_full's, and its profile the dense
+            expert branch's share
   int8kv    the served Llama model with an int8 KV cache against a bf16
             one: Contexts of 4 lanes of 8192 cells, bf16 activations,
             4 prompts of 6100-7000 tokens prefilled, a greedy burst of 32;
@@ -162,8 +182,8 @@ matrices once at load and keeps the experts packed (dense_reference). The
 Llama cross-check also holds Context.embeddings (each pooling) and
 seq_add / seq_div on the card against the CPU, and a replayed step after
 seq_add against the eager step. The crosscheck, serve, http, spec, cli,
-quant_crosscheck, int8kv, int8kv_crosscheck, state, the MoE archs' and
-GLM-4.5-Air's paths each run with every launch count set to 0 just before
+quant_crosscheck, int8kv, int8kv_crosscheck, state, the MoE archs',
+GLM-4.5-Air's and gpt-oss's paths each run with every launch count set to 0 just before
 and read just after, and fail unless each kernel that path must run was launched. Then one JSON line lists every
 kernel with its launches on each path and its numbers at the served shape
 from the kernels phase, and the last line is the run's result. Any failed
@@ -202,7 +222,7 @@ ALL_PHASES = ("card", "build", "kernels", "model", "crosscheck", "serve", "graph
               "qwen3moe_crosscheck", "qwen3moe_serve", "qwen2moe_crosscheck",
               "granitemoe_crosscheck", "qwen3mxfp4_model", "qwen3mxfp4_crosscheck",
               "qwen3mxfp4_serve", "mxfp4_crosscheck", "glm4moe_model", "glm4moe_crosscheck",
-              "glm4moe_serve")
+              "glm4moe_serve", "gptoss_model", "gptoss_crosscheck", "gptoss_serve")
 
 
 def emit(obj) -> None:
@@ -277,7 +297,20 @@ class Widths:
     exp_probs_b.bias, expert_gating_func 2, nextn_predict_layers and the
     NextN layer's nextn.* tensors) and cut to 4 of its 46 layers (the
     dense lead and 3 MoE layers; every MoE layer has the same shapes and
-    launches) plus the NextN layer, which the loaders skip.
+    launches) plus the NextN layer, which the loaders skip. gpt-oss:
+    GPT_OSS_20B holds those of openai/gpt-oss-20b (config.json: hidden
+    2880, 24 layers, 64 heads of head_dim 64 over 8 KV heads, attention
+    bias true and per-head sinks, 32 local experts of intermediate_size
+    2880, 4 a token, with the router's and each expert's biases and
+    swiglu_limit 7.0, sliding_window 128 on the even layers (layer_types
+    alternating sliding / full), vocab 201088, rope_theta 150000 with YaRN
+    factor 32 over original_max_position_embeddings 4096, rms_norm_eps
+    1e-5, max_position_embeddings 131072, untied), written as llama.cpp's
+    converter writes them (post_attention_norm as the FFN norm, attn_sinks,
+    the biases as *.bias, attention.sliding_window, rope.scaling.*) in the
+    layout of llama.cpp's gpt-oss GGUFs (MXFP4 experts, every other matrix,
+    token_embd and output Q8_0) and cut to 4 of its 24 layers: two SWA and
+    two full, every layer of a kind with the same shapes and launches.
     `llama3_rope`: the llama3 scaling written as rope_freqs.weight, as
     llama.cpp's converter does; `tied`: no output.weight (the token table
     is the lm_head); `quant`: the tensor types of a llama.cpp file type
@@ -286,7 +319,9 @@ class Widths:
     of that width; `scales`: granite's (embedding_scale, residual_scale,
     logit_scale, attention.scale); `n_ff_exp`: each routed expert's FFN
     width where `n_ff` is the dense lead's; `dense_lead`: leading dense
-    layers; `nextn`: trailing NextN layers written past `n_layer`."""
+    layers; `nextn`: trailing NextN layers written past `n_layer`;
+    `n_swa`: the sliding window of gpt-oss's even layers; `yarn`: YaRN
+    rope scaling (factor, original context)."""
 
     n_embd: int = 4096
     n_layer: int = 32
@@ -311,6 +346,8 @@ class Widths:
     n_ff_exp: int = 0
     dense_lead: int = 0
     nextn: int = 0
+    n_swa: int = 0
+    yarn: tuple = ()
 
     @property
     def hd(self) -> int:
@@ -358,6 +395,10 @@ GLM_4_5_AIR = Widths(n_embd=4096, n_layer=4, n_head=96, n_head_kv=8, head_dim=12
                      n_ff_exp=1408, n_ff_shexp=1408, n_vocab=151552, rope_theta=1e6,
                      rms_eps=1e-5, n_ctx_train=131072, n_expert=128, n_expert_used=8,
                      arch="glm4moe", n_rot=64, dense_lead=1, nextn=1)
+GPT_OSS_20B = Widths(n_embd=2880, n_layer=4, n_head=64, n_head_kv=8, head_dim=64, n_ff=2880,
+                     n_vocab=201088, rope_theta=150000.0, rms_eps=1e-5, n_ctx_train=131072,
+                     n_expert=32, n_expert_used=4, arch="gpt-oss", quant="MXFP4_MOE", n_swa=128,
+                     yarn=(32.0, 4096))
 
 
 def use_more_bits(il: int, n: int) -> bool:
@@ -597,7 +638,10 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
     and `nextn` NextN layers past `n_layer` (an MoE layer plus
     nextn.eh_proj and its norms); matrices whose rows are no multiple of
     256 (the dense lead's ffn_down, K = 10944, and the down experts and
-    shared down, K = 1408) are Q8_0."""
+    shared down, K = 1408) are Q8_0. gpt-oss writes llama.cpp's layout:
+    q/k/v/o biases, attn_sinks, post_attention_norm as the FFN norm, the
+    router with its bias, the expert stacks with their biases (all F32 but
+    the matrices), the sliding window and the YaRN keys."""
     from tpullama_torch.gguf import GGML_TYPE_TRAITS, GGMLType, GGUFWriter
 
     rng = np.random.default_rng(seed)
@@ -610,6 +654,7 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
               "synthetic-qwen2-57b-a14b-shape" if a == "qwen2moe" else
               "synthetic-granite-3.0-3b-a800m-shape" if a == "granitemoe" else
               "synthetic-glm-4.5-air-shape" if a == "glm4moe" else
+              "synthetic-gpt-oss-20b-shape" if a == "gpt-oss" else
               "synthetic-openllama-3b-shape" if w.q8 else
               "synthetic-llama3.2-1b-shape" if w.tied else
               "synthetic-mixtral-8x7b-shape" if w.n_expert else "synthetic-llama3-8b-shape")
@@ -629,8 +674,14 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
     if w.n_expert:
         g.add_u32(f"{a}.expert_count", w.n_expert)
         g.add_u32(f"{a}.expert_used_count", w.n_expert_used)
-    if a in ("qwen2moe", "qwen3moe"):
+    if a in ("qwen2moe", "qwen3moe", "gpt-oss"):
         g.add_u32(f"{a}.expert_feed_forward_length", w.n_ff)
+    if w.n_swa:
+        g.add_u32(f"{a}.attention.sliding_window", w.n_swa)
+    if w.yarn:
+        g.add_str(f"{a}.rope.scaling.type", "yarn")
+        g.add_f32(f"{a}.rope.scaling.factor", w.yarn[0])
+        g.add_u32(f"{a}.rope.scaling.original_context_length", w.yarn[1])
     if a == "glm4moe":
         g.add_u32(f"{a}.leading_dense_block_count", w.dense_lead)
         g.add_u32(f"{a}.expert_feed_forward_length", w.n_ff_exp)
@@ -670,6 +721,9 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
         g.add_tensor(name, (1.0 + 0.1 * rng.standard_normal(n)).astype(np.float32),
                      GGMLType.F32)
 
+    def bias(name, *shape):
+        g.add_tensor(name, (0.1 * rng.standard_normal(shape)).astype(np.float32), GGMLType.F32)
+
     E, F, kv, hq = w.n_embd, w.n_ff, w.hd * w.n_head_kv, w.hd * w.n_head
     Q4 = GGMLType.Q4_K
     quant("token_embd.weight", (w.n_vocab, E), Q4)
@@ -696,16 +750,18 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
             quant(p + "attn_q.weight", (hq, E), Q4)
             quant(p + "attn_k.weight", (kv, E), Q4)
             quant(p + "attn_v.weight", (kv, E), Q4)
-            if a in ("qwen2", "qwen2moe", "glm4moe"):
+            if a in ("qwen2", "qwen2moe", "glm4moe", "gpt-oss"):
                 for nm, n in (("attn_q", hq), ("attn_k", kv), ("attn_v", kv)):
-                    g.add_tensor(p + nm + ".bias",
-                                 (0.1 * rng.standard_normal(n)).astype(np.float32),
-                                 GGMLType.F32)
+                    bias(p + nm + ".bias", n)
             if a == "qwen3moe":
                 norm(p + "attn_q_norm.weight", w.hd)
                 norm(p + "attn_k_norm.weight", w.hd)
         quant(p + "attn_output.weight", (E, hq), Q4)
-        norm(p + ("post_attention_norm.weight" if a == "glm4moe" else "ffn_norm.weight"), E)
+        if a == "gpt-oss":
+            bias(p + "attn_output.bias", E)
+            bias(p + "attn_sinks.weight", w.n_head)
+        norm(p + ("post_attention_norm.weight" if a in ("glm4moe", "gpt-oss")
+                  else "ffn_norm.weight"), E)
         if a == "chatglm":
             quant(p + "ffn_up.weight", (2 * F, E), Q4)
             quant(p + "ffn_down.weight", (E, F), GGMLType.Q8_0)
@@ -720,6 +776,10 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
             quant(p + "ffn_gate_exps.weight", (n_x, Fx, E), Q4)
             quant(p + "ffn_up_exps.weight", (n_x, Fx, E), Q4)
             quant(p + "ffn_down_exps.weight", (n_x, E, Fx), q4_or_q8(Fx))
+            if a == "gpt-oss":
+                bias(p + "ffn_gate_inp.bias", n_x)
+                for nm, n in (("gate", Fx), ("up", Fx), ("down", E)):
+                    bias(p + f"ffn_{nm}_exps.bias", n_x, n)
             if w.n_ff_shexp:
                 Fs = w.n_ff_shexp
                 if a != "glm4moe":  # qwen2moe's sigmoid gate of the shared expert
@@ -868,7 +928,11 @@ def qmm_cases(timer, gen, device, out: list) -> None:
              (Q4, 1024, 768, bf16, bf16, (1, 256)),
              (Q6, 1024, 768, bf16, bf16, (1, 256)),
              (Q8, 3584, 3584, bf16, bf16, (1, 256)),
-             (Q8, 1024, 512, f32, bf16, (1, 256))]
+             (Q8, 1024, 512, f32, bf16, (1, 256)),
+             # gpt-oss-20b's attn_output (K = 64 x 64 = 4096 onto a 2880
+             # hidden; the only packed layer matrix there): the decode step
+             # and the packed prefill chunk of 4 lanes, Context.decode's
+             (Q8, 2880, 4096, bf16, bf16, (1, 4, 256, 1024))]
     # the q1 / q2 sets (csrc/qmm_lowbit.cu) at the Llama FFN's shapes, the
     # decode step's T = 4 and the packed prefill chunk's T = 1024, then one
     # f32-x and one f32-scale case
@@ -916,6 +980,8 @@ def qmm_cases(timer, gen, device, out: list) -> None:
                    "max_rel_err": err / max(float(want.abs().max()), 1e-30),
                    "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                    "bound_ms": b_ms, "bound_by": b_by}
+            if (qt, N, K) == (Q8, 2880, 4096):
+                rec["case"] = f"gptoss attn_output T={T}"
             emit(rec)
             out.append(rec)
         del w_lib, fields
@@ -1242,9 +1308,11 @@ def gathered_cases(timer, gen, device, out: list) -> None:
         torch.cuda.empty_cache()
 
 
-def attn_inputs(B, Tq, Hq, Hkv, D, S, dtype, gen, device, kv_pos, q_pos):
+def attn_inputs(B, Tq, Hq, Hkv, D, S, dtype, gen, device, kv_pos, q_pos, window: int = 0):
     """Random q/k/v at head-major cache layout and the Context's additive
-    mask: visible iff the cell holds a position at or before the query's."""
+    mask: visible iff the cell holds a position at or before the query's
+    (and with `window`, after the query's position less the window: the
+    mask of a sliding-window layer)."""
     import torch
 
     q = torch.randn((B, Tq, Hq, D), generator=gen, device=device).to(dtype)
@@ -1253,6 +1321,8 @@ def attn_inputs(B, Tq, Hq, Hkv, D, S, dtype, gen, device, kv_pos, q_pos):
     kp = torch.as_tensor(kv_pos, device=device)[:, None, :]
     qp = torch.as_tensor(q_pos, device=device)[:, :, None]
     vis = (kp >= 0) & (kp <= qp)
+    if window:
+        vis &= kp > qp - window
     mask = torch.where(vis, 0.0, -1e30).to(torch.float32)[:, None]
     return q, k, v, mask
 
@@ -1266,11 +1336,16 @@ def int8_cache(k, v):
     return kq, vq, (ks, vs)
 
 
-def attn_case(timer, name, fn, q, k, v, mask, out, scales=None, **kw):
+def attn_case(timer, name, fn, q, k, v, mask, out, scales=None, case=None, **kw):
     """One attention kernel case against its plain version. `scales`: an
     int8 cache's (k_scale, v_scale); its library yardstick is SDPA over the
     cache dequantized to q's dtype (no PyTorch call takes int8 K/V with
-    scales), and its bound counts the int8 rows and the f32 scales."""
+    scales), and its bound counts the int8 rows and the f32 scales. With
+    `sinks` alone among the options the yardstick is SDPA over one more key
+    column whose K and V rows are zero and whose mask value is each head's
+    sink: the same function (that column's logit is the sink, its value
+    row adds nothing). `case` labels the record (the kernels line lists
+    labelled records beside each kernel's served shape)."""
     import torch
     import torch.nn.functional as F
 
@@ -1293,7 +1368,7 @@ def attn_case(timer, name, fn, q, k, v, mask, out, scales=None, **kw):
     plain_ms = timer.ms(lambda: flash_plain(q, k, v, mask, scale, **kw), 3)
     lib_ms = lib_call = None
     options = sorted(a for a in kw if a not in ("k_scale", "v_scale"))
-    if not options:
+    if options in ([], ["sinks"]):
         m_lib = mask.to(q.dtype)
         qt = q.transpose(1, 2)
         k_lib, v_lib = k, v
@@ -1302,9 +1377,15 @@ def attn_case(timer, name, fn, q, k, v, mask, out, scales=None, **kw):
             k_lib = (k.float() * scales[0][..., None]).to(q.dtype)
             v_lib = (v.float() * scales[1][..., None]).to(q.dtype)
             lib_call += f" over the cache dequantized to {str(q.dtype).split('.')[-1]}"
+        if options:
+            zero = k_lib.new_zeros((B, Hkv, 1, D))
+            k_lib, v_lib = torch.cat([k_lib, zero], dim=2), torch.cat([v_lib, zero], dim=2)
+            sink = kw["sinks"].to(q.dtype).reshape(1, Hq, 1, 1).expand(B, Hq, Tq, 1)
+            m_lib = torch.cat([m_lib.expand(B, Hq, Tq, S), sink], dim=-1)
+            lib_call += " with a zero key column masked by the sinks"
         lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(
             qt, k_lib, v_lib, attn_mask=m_lib, scale=scale, enable_gqa=True), 20)
-        del k_lib, v_lib
+        del k_lib, v_lib, m_lib
     vis = mask[:, 0] > NEG_HIDDEN  # (B, Tq, S)
     n_pairs = int(vis.sum())
     n_cells = int(vis.any(dim=1).sum())  # cache rows some query needs
@@ -1321,8 +1402,74 @@ def attn_case(timer, name, fn, q, k, v, mask, out, scales=None, **kw):
            "max_rel_err": err / max(float(want.float().abs().max()), 1e-30),
            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "library_call": lib_call,
            "bound_ms": b_ms, "bound_by": b_by}
+    if case:
+        rec["case"] = case
     emit(rec)
     out.append(rec)
+
+
+def ring_positions(lengths, n_swa: int, n_ubatch: int) -> np.ndarray:
+    """The (B, S_swa) positions of the two-stack cache's ring after each
+    lane wrote positions 0 .. n - 1 (lengths): cell c holds the newest
+    position congruent to c modulo S_swa - 1, the scratch cell S_swa - 1
+    none (runtime/context.py)."""
+    R = n_swa + n_ubatch + 1
+    kv = np.full((len(lengths), R), -1, np.int32)
+    for b, n in enumerate(lengths):
+        p = np.arange(max(0, n - (R - 1)), n)
+        kv[b, p % (R - 1)] = p
+    return kv
+
+
+def gptoss_attention_cases(timer, gen, device, out: list) -> None:
+    """gpt-oss-20b's served attention (GPT_OSS_20B: 64 query heads over 8
+    KV heads, G = 8, D = 64, per-head sinks) over both stacks of the
+    two-stack cache: the full layers' 4224 cells (n_ctx 4096) and the SWA
+    layers' ring of 128 + 256 + 1 = 385 cells (n_ubatch 256; S % 4 != 0)
+    under the windowed mask: decode at B = 1 and B = 4, the packed 4 x 256
+    prefill chunk; bf16 and the int8 cache."""
+    import torch
+
+    from tpullama_torch.ops.cuda.flash_attention import flash_attention
+    from tpullama_torch.ops.cuda.flash_decode import flash_decode
+
+    W = GPT_OSS_20B
+    Hq, Hkv, D, S, n_ub, Tq = W.n_head, W.n_head_kv, W.hd, 4224, 256, 256
+    sinks = torch.randn((Hq,), generator=gen, device=device)
+    lengths4, lanes = [4000, 3000, 1000, 300], [(0, 256), (700, 216), (1800, 100), (3500, 0)]
+    for stack, window, n_cells in (("full", 0, S), ("ring", W.n_swa, W.n_swa + n_ub + 1)):
+        label = f"gptoss {stack} S={n_cells}"
+
+        def cache_pos(ns):
+            if stack == "ring":
+                return ring_positions(ns, W.n_swa, n_ub)
+            kv = np.full((len(ns), S), -1, np.int32)
+            for b, n in enumerate(ns):
+                kv[b, :n] = np.arange(n)
+            return kv
+
+        for int8 in (False, True):
+            suffix = "_int8" if int8 else ""
+            for lengths, name in (([4000], "flash_decode"), (lengths4, "flash_decode_batched")):
+                q, k, v, mask = attn_inputs(len(lengths), 1, Hq, Hkv, D, n_cells, torch.bfloat16,
+                                            gen, device, cache_pos(lengths),
+                                            np.asarray(lengths, np.int32)[:, None] - 1, window)
+                sc = None
+                if int8:
+                    k, v, sc = int8_cache(k, v)
+                attn_case(timer, name + suffix, flash_decode, q, k, v, mask, out, scales=sc,
+                          case=label, sinks=sinks)
+            qp = np.full((4, Tq), -1, np.int32)
+            for b, (n_past, n_new) in enumerate(lanes):
+                qp[b, :n_new] = np.arange(n_past, n_past + n_new)
+            q, k, v, mask = attn_inputs(4, Tq, Hq, Hkv, D, n_cells, torch.bfloat16, gen, device,
+                                        cache_pos([a + n for a, n in lanes]), qp, window)
+            sc = None
+            if int8:
+                k, v, sc = int8_cache(k, v)
+            attn_case(timer, "flash_attention" + suffix, flash_attention, q, k, v, mask, out,
+                      scales=sc, case=label, sinks=sinks)
+            del q, k, v, mask
 
 
 def attention_cases(timer, gen, device, out: list) -> None:
@@ -1502,6 +1649,7 @@ def phase_model(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
     if device == "cuda":
         torch.cuda.synchronize()
     t_load = time.perf_counter() - t1
+    file_bytes = os.path.getsize(path)
     os.remove(path)
     lm = (model.quant_meta or {}).get("layers", {})
     attn = {"attn_q", "attn_k", "attn_v", "attn_output"}
@@ -1522,6 +1670,23 @@ def phase_model(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
                     {"ffn_gate_inp", "exp_probs_b", "ffn_gate_exps", "ffn_up_exps",
                      "ffn_down_exps", "ffn_gate_shexp", "ffn_up_shexp", "ffn_down_shexp"})
             check(want <= set(w), f"layer {il}: {sorted(w)}")
+    elif widths.arch == "gpt-oss":
+        # K = 2880 is no multiple of 256: both loaders keep q, k, v, the
+        # expert stacks, the token table and the lm_head dense (bf16); the
+        # attention output (K = 64 x 64 = 4096) alone packs
+        check(set(model.quant_meta or {}) == {"layers"} and set(lm) == {"attn_output"},
+              f"only attn_output is packed: {sorted(model.quant_meta or {})} {sorted(lm)}")
+        layers = model.params["layers"]
+        for key in ("attn_q", "attn_k", "attn_v", "ffn_gate_exps", "ffn_up_exps",
+                    "ffn_down_exps"):
+            check(layers[key].dtype == torch.bfloat16 and layers[key].shape[0] == widths.n_layer,
+                  f"{key} is a dense bf16 stack")
+        check({"attn_sinks", "attn_output_bias", "ffn_gate_inp_b", "ffn_gate_exps_b",
+               "ffn_up_exps_b", "ffn_down_exps_b"} <= set(layers),
+              f"gpt-oss tensors {sorted(layers)}")
+        check(model.params["output"].dtype == torch.bfloat16, "the lm_head is dense bf16")
+        check(model.hparams.swa_layers == tuple(il % 2 == 0 for il in range(widths.n_layer))
+              and model.hparams.n_swa == widths.n_swa, "SWA on the even layers")
     elif widths.n_expert:
         shexp = {"ffn_gate_shexp", "ffn_up_shexp", "ffn_down_shexp"} if widths.n_ff_shexp else set()
         want = (packed_roles(widths) & attn if widths.quant else attn) | shexp
@@ -1568,8 +1733,8 @@ def phase_model(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
           "types": {k: m.ggml_type.name for k, m in lm.items()},
           "planes_t": {k: m.planes_t for k, m in lm.items() if k.endswith("_exps")},
           "orders": {k: m.order for k, m in lm.items()},
-          "write_s": t_write, "load_s": t_load, "device_bytes": model.nbytes(),
-          "seconds": time.perf_counter() - t0})
+          "write_s": t_write, "file_bytes": file_bytes, "load_s": t_load,
+          "device_bytes": model.nbytes(), "seconds": time.perf_counter() - t0})
     return model
 
 
@@ -1700,6 +1865,83 @@ def phase_crosscheck(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
         check(out_u == out_g, f"fused/K-chunked {out_g} and unfused {out_u} card runs differ")
         rec["unfused_greedy_tokens"] = out_u
     emit({**rec, "seconds": time.perf_counter() - t0})
+
+
+def phase_gptoss_crosscheck(tmp: str, card: str, device: str = "cuda",
+                            widths: Widths = GPT_OSS_20B, n_layer: int = 2, n_prompt: int = 600,
+                            n_ubatch: int = 256, n_ctx: int = 1024, n_greedy: int = 16,
+                            phase: str = "gptoss_crosscheck") -> None:
+    """gpt-oss at its widths cut to n_layer layers (one SWA layer and one
+    full), f32 activations and cache, on the two-stack cache: a prompt of
+    n_prompt tokens, longer than the ring (n_swa + n_ubatch + 1 cells),
+    prefilled in n_ubatch chunks so that the ring wraps, on `device` (the
+    kernels) against the CPU port (plain versions, its attn_output
+    dequantized once; dense_reference): the last 32 prompt logits within
+    1e-3 of their largest magnitude plus 1e-4, n_greedy greedy tokens
+    identical, both stacks' positions and the host mirror equal cell for
+    cell after them; then on the card the same prompt on swa_full's one
+    stack gives the same greedy tokens."""
+    import torch
+
+    from tpullama_torch.models import load_model
+    from tpullama_torch.runtime import Context, ContextParams
+
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, f"{phase}.gguf")
+    write_llama_gguf(path, replace(widths, n_layer=n_layer), seed=1)
+    gpu = load_model(path, dtype=torch.float32, device=device, packed=True)
+    cpu = dense_reference(load_model(path, dtype=torch.float32, device="cpu", packed=True))
+    os.remove(path)
+    prompt = gpu.vocab.tokenize(word_prompt(np.random.default_rng(2), n_prompt + 40),
+                                add_special=True)
+    prompt = np.asarray(prompt[:n_prompt], np.int32)
+    check(len(prompt) == n_prompt, f"prompt has {len(prompt)} tokens")
+    cp = ContextParams(n_ctx=n_ctx, n_ubatch=n_ubatch)
+    cg, cc = Context(gpu, cp), Context(cpu, cp)
+    ring = widths.n_swa + n_ubatch + 1
+    check(cg._S_swa == cc._S_swa == ring < n_prompt and isinstance(cg.kv_k, dict),
+          f"a ring of {cg._S_swa} cells, not {ring}")
+    t1 = time.perf_counter()
+    lg = cg.decode(prompt, n_logits=32)
+    t_card = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    lc = cc.decode(prompt, n_logits=32)
+    t_cpu = time.perf_counter() - t1
+    err = float(np.abs(lg - lc).max())
+    tol = 1e-3 * float(np.abs(lc).max()) + 1e-4
+    check(np.isfinite(lg).all() and err <= tol, f"prefill logits err {err} > tol {tol}")
+    out_g = greedy_continue(cg, lg[-1], n_greedy)
+    out_c = greedy_continue(cc, lc[-1], n_greedy)
+    check(out_g == out_c, f"greedy tokens differ: card {out_g} cpu {out_c}")
+    for stack in ("full", "swa"):
+        check(torch.equal(cg.kv_pos[stack].cpu(), cc.kv_pos[stack]),
+              f"the {stack} stack's positions differ")
+    check(np.array_equal(cg._pos_host, cc._pos_host) and np.array_equal(cg.n_past, cc.n_past),
+          "the host mirrors differ")
+    full = Context(gpu, replace(cp, swa_full=True))
+    check(not isinstance(full.kv_k, dict), "swa_full keeps one stack")
+    lf = full.decode(prompt, n_logits=1)
+    out_f = greedy_continue(full, lf[-1], n_greedy)
+    check(out_f == out_g, f"the ring's tokens {out_g} differ from swa_full's {out_f}")
+    emit({"phase": phase, "card": card, "layers": n_layer, "swa_layers": gpu.hparams.swa_layers,
+          "prompt_tokens": n_prompt, "n_ubatch": n_ubatch, "ring_cells": ring,
+          "full_cells": cg._S, "prefill_max_abs_err": err, "tol": tol,
+          "prefill_s": {"card": t_card, "cpu": t_cpu}, "greedy_tokens": out_g,
+          "swa_full_greedy_tokens": out_f, "seconds": time.perf_counter() - t0})
+
+
+def swa_memory(model, eng, card: str, phase: str) -> None:
+    """The served Context's two stacks (memory_breakdown) beside a swa_full
+    Context's one, at the same lanes, cells and dtype."""
+    from tpullama_torch.runtime import Context
+
+    two = eng.ctx.memory_breakdown()
+    one = Context(model, replace(eng.ctx.p, swa_full=True)).memory_breakdown()
+    check(two["kv_cache"] < one["kv_cache"]
+          and two["kv_cache"] == two["kv_cache_full_layers"] + two["kv_cache_swa_layers"],
+          f"the two stacks {two} are no smaller than swa_full's {one}")
+    emit({"phase": phase, "card": card, "ring_cells": eng.ctx._S_swa, "full_cells": eng.ctx._S,
+          "two_stacks": two, "swa_full": one, "kv_saved_bytes": one["kv_cache"] - two["kv_cache"]})
 
 
 def phase_mxfp4_crosscheck(tmp: str, card: str, device: str = "cuda",
@@ -2804,17 +3046,37 @@ def step_bound(ctx, rows: int, kv_cells: int, routing: list, n_steps: int) -> tu
     routing selected (`routing`: the (B, T, k) expert ids the router chose
     over n_steps steps, layer after layer), each expert's planes once (a
     heterogeneous stack's layer_list: its dense matrices), and its
-    experts' operations over rows * k. Norms, rope, the router and
-    attention's own operations are left out, so this is a lower bound."""
+    experts' operations over rows * k (dense (L, E, rows, cols) expert
+    stacks, gpt-oss's: the picked experts' bf16 rows). A two-stack cache's
+    SWA layers read the ring's cells inside each lane's window. Norms,
+    rope, biases, the router and attention's own operations are left out,
+    so this is a lower bound."""
     model = ctx.model
     hp = model.hparams
     p = model.params
-    n_bytes = sum(nbytes(a) for a in p["output"].values())
-    # each cached cell's K and V rows of every layer (an int8 cache: its
-    # int8 rows and f32 scales)
-    kv = ctx.kv_k if isinstance(ctx.kv_k, tuple) else (ctx.kv_k,)
-    n_bytes += kv_cells * 2 * sum(nbytes(t[:, 0, :, 0]) for t in kv)
-    flops = 2.0 * ctx.p.n_seqs * model.quant_meta["output"].n_out * model.quant_meta["output"].n_in
+    out = p["output"]
+    if isinstance(out, dict):
+        m = model.quant_meta["output"]
+        n_bytes = sum(nbytes(a) for a in out.values())
+        flops = 2.0 * ctx.p.n_seqs * m.n_out * m.n_in
+    else:  # a dense lm_head
+        n_bytes = nbytes(out)
+        flops = 2.0 * ctx.p.n_seqs * out.numel()
+
+    def cell_bytes(cache):
+        # one cell's K or V rows of every layer of a stack (an int8 cache:
+        # its int8 rows and f32 scales)
+        return sum(nbytes(t[:, 0, :, 0]) for t in (cache if isinstance(cache, tuple)
+                                                    else (cache,)))
+
+    if isinstance(ctx.kv_k, dict):
+        ring = ctx.kv_pos["swa"].cpu().numpy()
+        lo = (ctx.n_past - hp.n_swa)[:, None]
+        ring_cells = int(((ring >= 0) & (ring >= lo)).sum())
+        n_bytes += 2 * (kv_cells * cell_bytes(ctx.kv_k["full"])
+                        + ring_cells * cell_bytes(ctx.kv_k["swa"]))
+    else:
+        n_bytes += kv_cells * 2 * cell_bytes(ctx.kv_k)
     if "layer_list" in p:
         # a heterogeneous stack: dense tensors per layer; an MoE layer reads
         # the experts its routing picked (on average over its layers), each
@@ -2833,7 +3095,12 @@ def step_bound(ctx, rows: int, kv_cells: int, routing: list, n_steps: int) -> tu
     lm = model.quant_meta["layers"]
     for key, w in p["layers"].items():
         if not isinstance(w, dict):
-            if w.dim() == 3:  # a dense (L, n_out, n_in) matrix stack
+            if key.endswith("_exps"):  # a dense (L, E, rows, cols) expert stack
+                picked = sum(int(r.unique().numel()) for r in routing) / n_steps
+                n_bytes += picked * nbytes(w) / (hp.n_layer * hp.n_expert)
+                flops += 2.0 * rows * hp.n_expert_used * hp.n_layer * w[0, 0].numel()
+            elif w.dim() == 3 and not key.endswith(("_b", "_bias")):
+                # a dense (L, n_out, n_in) matrix stack
                 n_bytes += nbytes(w)
                 flops += 2.0 * rows * w.numel()
             continue
@@ -2844,7 +3111,7 @@ def step_bound(ctx, rows: int, kv_cells: int, routing: list, n_steps: int) -> tu
         else:
             n_bytes += sum(nbytes(a) for a in w.values())
             flops += 2.0 * rows * hp.n_layer * lm[key].n_out * lm[key].n_in
-    if hp.n_expert:  # gate, up (F x D) and down (D x F) per selected expert
+    if "ffn_down_exps" in lm:  # gate, up (F x D) and down (D x F) per selected expert
         F, D = lm["ffn_down_exps"].n_in, hp.n_embd
         flops += 2.0 * rows * hp.n_expert_used * hp.n_layer * 3 * F * D
     return bound_ms(n_bytes, flops, "bf16")
@@ -3412,6 +3679,11 @@ PATH_KERNELS = {
     # chunks read one logit row a lane
     "glm4moe_crosscheck": _DENSE_CROSS,
     "glm4moe_serve": ("qmm_gemv", "flash_attention", "flash_decode_batched"),
+    # gpt-oss-20b: attn_output (K = 4096) alone packs (qmm_gemv at decode,
+    # qmm_tiled on the prompt chunks); attention with sinks over both
+    # stacks of the two-stack cache; the experts and the lm_head are dense
+    "gptoss_crosscheck": _DENSE_CROSS,
+    "gptoss_serve": _DENSE_SERVE,
     # lanes saved and loaded (f32 and int8 caches), the HTTP engine, the CLI
     "state": ("qmm_gemv", "qmm_tiled", "flash_attention", "flash_decode", "flash_decode_batched",
               "flash_attention_int8", "flash_decode_int8"),
@@ -3428,7 +3700,8 @@ PATHS = (("", LLAMA3_8B, 2, 4, {}),
          ("qwen2moe_", QWEN2_57B_A14B, 1, 0, {}),
          ("granitemoe_", GRANITE_3B_A800M, 2, 0, {}),
          ("qwen3mxfp4_", QWEN3_30B_A3B_MXFP4, 1, 4, {}),
-         ("glm4moe_", GLM_4_5_AIR, 2, 4, {}))
+         ("glm4moe_", GLM_4_5_AIR, 2, 4, {}),
+         ("gptoss_", GPT_OSS_20B, 2, 4, {}))
 # the cross-checks' prompt tokens where not 32: Qwen2-57B-A14B's CPU steps
 # dequantize its 20480-wide shared expert and 151936-row output per call
 CROSS_PROMPT = {"qwen2moe_": 16}
@@ -3454,7 +3727,9 @@ def kernels_line(records: list, launches: dict) -> dict:
     and its numbers at the served shape from the kernels phase; qmm_gemv,
     qmm_tiled and qmm_gathered also at that shape for every other field set
     (`by_type`: Q6_K, and the q1/q2 sets of csrc/qmm_lowbit.cu and
-    csrc/qmm_gathered_lowbit.cu)."""
+    csrc/qmm_gathered_lowbit.cu); every labelled record of a kernel
+    (`cases`: gpt-oss's attention over both stacks and its attn_output)
+    with its shape and numbers."""
     rows = []
     nums = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, src, replaces, key in KERNELS:
@@ -3469,7 +3744,12 @@ def kernels_line(records: list, launches: dict) -> dict:
         if "type" in key:
             row["by_type"] = {r["type"]: {k: r[k] for k in nums} for r in records
                               if r["kernel"] == name and r["type"] != key["type"]
+                              and r.get("case") is None
                               and all(r.get(k) == v for k, v in key.items() if k != "type")}
+        shape = ("B", "Tq", "S", "Hq", "Hkv", "D", "kv", "T", "N", "K", "type")
+        row["cases"] = {r["case"]: {**{k: r[k] for k in shape if k in r},
+                                    **{k: r[k] for k in nums}}
+                        for r in records if r["kernel"] == name and r.get("case")}
         rows.append(row)
     return {"kernels": rows}
 
@@ -3528,6 +3808,7 @@ def main() -> int:
         fused_cases(timer, gen, device, records)
         gathered_cases(timer, gen, device, records)
         attention_cases(timer, gen, device, records)
+        gptoss_attention_cases(timer, gen, device, records)
         del timer
         torch.cuda.empty_cache()
         emit({"phase": "kernels", "cases": len(records), "seconds": time.perf_counter() - t0})
@@ -3546,7 +3827,11 @@ def main() -> int:
             model = None
             if {"model", "serve", "graphs", "http", "spec", "int8kv"} & set(run):
                 model = phase_model(tmp, widths, phase=pre + "model", fused_layer=fused)
-            if "crosscheck" in run:
+            if "crosscheck" in run and pre == "gptoss_":
+                launches[pre + "crosscheck"], _ = path_launches(
+                    pre + "crosscheck", lambda: phase_gptoss_crosscheck(
+                        tmp, smi, widths=widths, n_layer=cross_layers))
+            elif "crosscheck" in run:
                 launches[pre + "crosscheck"], _ = path_launches(
                     pre + "crosscheck", lambda: phase_crosscheck(
                         tmp, widths, n_layer=cross_layers, phase=pre + "crosscheck",
@@ -3569,6 +3854,8 @@ def main() -> int:
                     lm = model.quant_meta["layers"]
                     qmm_counts = (len(lm) * widths.n_layer + ("output" in model.quant_meta),
                                   len(lm) * widths.n_layer)
+                if isinstance(eng.ctx.kv_k, dict):
+                    swa_memory(model, eng, smi, pre + "serve_memory")
                 phase_serve_profile(eng, prompt, smi, phase=pre + "serve_profile",
                                     step_kernels=("qmm_ktiled", "fused_postattn") if fused
                                     else (), qmm_counts=qmm_counts,

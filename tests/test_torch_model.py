@@ -122,25 +122,25 @@ def test_load_dense_matches(ggufs, qtype):
     assert vars(t.hparams) == {k: getattr(j.hparams, k) for k in vars(t.hparams)}
 
 
-@pytest.mark.parametrize("case", ["bailingmoe2", "group-limited"])
+@pytest.mark.parametrize("case", ["afmoe", "mistral-swa"])
 def test_load_refuses_moe(tmp_path, case):
-    # MoE GGUFs the JAX package loads and the port does not yet: a
-    # bailingmoe2 file (an MoE arch not ported, a heterogeneous stack with a
-    # NextN layer, refused by name with its ROADMAP item)
-    # and a Mixtral-style llama file with group-limited routing (an MoE
-    # option not ported); the port refuses each, with the loaded hparams
-    # carried across too
+    # GGUFs the JAX package loads and the port does not yet: an afmoe file
+    # (an MoE arch not ported, a heterogeneous stack with SWA layers,
+    # refused by name with its ROADMAP item) and a Mixtral-style MoE file
+    # with a sliding window on every layer (an SWA model whose layers no
+    # ported arch lays out, refused with its ROADMAP item); the port
+    # refuses each, with the loaded hparams carried across too
     from tpullama_torch.models import params_from_numpy
 
     p = str(tmp_path / "moe.gguf")
-    if case == "bailingmoe2":
-        make_tiny_llama_gguf(p, arch="bailingmoe2", n_embd=64, n_ff=128, n_expert=4, seed=3)
-        match = "arch 'bailingmoe2' is not ported yet .ROADMAP.md Queue 1 item 5"
+    if case == "afmoe":
+        make_tiny_llama_gguf(p, arch="afmoe", n_embd=64, n_ff=128, n_expert=4, n_layer=4,
+                             seed=3)
+        match = "arch 'afmoe' is not ported yet .ROADMAP.md Queue 1 item 5"
     else:
         make_tiny_llama_gguf(p, n_embd=64, n_ff=128, n_expert=4, seed=3,
-                             extra_kv={"llama.expert_group_count": 2,
-                                       "llama.expert_group_used_count": 1})
-        match = "MoE with group-limited routing"
+                             extra_kv={"llama.attention.sliding_window": 32})
+        match = "sliding-window attention is not ported yet .ROADMAP.md Queue 1 item 7"
     j = _jax_load(p)
     assert j.hparams.n_expert == 4
     with pytest.raises(NotImplementedError, match=match):

@@ -152,3 +152,21 @@ def test_load_without_native_equals_native(tmp_path, lib, qtype, packed):
     assert a.keys() == b.keys()
     for k in a:
         assert a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["dense", "packed"])
+def test_numpy_load_in_row_batches_equals_native(tmp_path, lib, monkeypatch, packed):
+    """The numpy path decodes and repacks large matrices in row batches on
+    the host's threads (loader._DENSE_ELEMS values a batch): with batches
+    of a few rows, so that every matrix splits (one of them unevenly), the
+    parameters equal the native library's bit for bit."""
+    from tpullama_torch.models import loader
+
+    p = str(tmp_path / "m.gguf")
+    make_tiny_llama_gguf(p, qtype=GGMLType.Q5_K, n_embd=256, n_ff=512, seed=4)
+    a = _flat(load_model(p, device="cpu", packed=packed, native=True).params)
+    monkeypatch.setattr(loader, "_DENSE_ELEMS", 256 * 48)
+    b = _flat(load_model(p, device="cpu", packed=packed, native=False).params)
+    assert a.keys() == b.keys()
+    for k in a:
+        assert a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]), k

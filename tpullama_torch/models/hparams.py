@@ -1,20 +1,23 @@
 """Model hyperparameters loaded from GGUF metadata: the llama family,
 chatglm and the MoE archs that run through the llama forward (qwen2moe,
-qwen3moe, granitemoe, and the heterogeneous dense/MoE stacks of glm4moe,
-dots1 and ernie4_5-moe).
+qwen3moe, granitemoe, gpt-oss with its alternating sliding-window layers,
+and the heterogeneous dense/MoE stacks of glm4moe, dots1, ernie4_5-moe and
+bailingmoe2).
 
 The part of tpullama/models/hparams.py that the port reads. Key strings
 follow the reference's key-name table exactly (src/llama-arch.cpp:119-268);
 the fields are those of src/llama-hparams.h that these archs set, with the
 JAX package's per-arch branches for them (qwen2moe's unnormalized top-k
-weights, granite's scale stack, glm4moe's sigmoid gating and trailing
-NextN layers). Other architectures' fields and branches
-come across with the slice that ports them; until then from_gguf refuses
-them, the MoE archs by name with their ROADMAP item.
+weights, granite's scale stack, glm4moe's and bailingmoe2's trailing NextN
+layers, gpt-oss's SWA pattern, post-top-k softmax and swiglu_oai). Other
+architectures' fields and branches come across with the slice that ports
+them; until then from_gguf refuses them, the MoE archs by name with their
+ROADMAP item.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 ROPE_SCALING_NONE = "none"
@@ -23,13 +26,14 @@ ROPE_SCALING_YARN = "yarn"
 # the architectures whose forward is the plain llama block (chatglm's with
 # a fused biased [Q|K|V] and a fused [gate|up] FFN; qwen3moe's per-head q/k
 # norms; the MoE archs' shared experts and granite's scale stack; the
-# heterogeneous dense/MoE stacks, loaded as a per-layer list)
+# heterogeneous dense/MoE stacks, loaded as a per-layer list; gpt-oss's
+# sinks, biases and SWA layers)
 LLAMA_FAMILY = ("llama", "mistral", "qwen2", "chatglm", "qwen2moe", "qwen3moe", "granitemoe",
-                "glm4moe", "dots1", "ernie4_5-moe")
+                "glm4moe", "dots1", "ernie4_5-moe", "bailingmoe2", "gpt-oss")
 # the other MoE archs the JAX package runs through its llama forward, each
 # refused by name until its slice (ROADMAP.md Queue 1 item 5)
-MOE_NOT_PORTED = ("hunyuan-moe", "bailingmoe", "bailingmoe2", "llama4", "afmoe", "minimax-m2",
-                  "grovemoe", "olmoe", "phimoe", "dbrx", "grok", "arctic", "gpt-oss",
+MOE_NOT_PORTED = ("hunyuan-moe", "bailingmoe", "llama4", "afmoe", "minimax-m2",
+                  "grovemoe", "olmoe", "phimoe", "dbrx", "grok", "arctic",
                   "qwen3vlmoe", "llada-moe", "smallthinker")
 # rope type per arch (llama_model_rope_type, src/llama-model.cpp:7777+):
 # NORM (0, adjacent pairs) for these, NEOX (2, split halves) for the rest
@@ -77,7 +81,10 @@ class HParams:
     f_logit_scale: float = 0.0  # {arch}.logit_scale as written
     attn_logit_softcap: float = 0.0
     final_logit_softcap: float = 0.0  # cap * tanh(logits / cap) after the lm_head
-    n_swa: int = 0  # sliding window size (0 = none); not ported yet
+    n_swa: int = 0  # sliding window size (0 = none)
+    swa_type: str = "standard"  # "standard" | "chunked" (llama4, not ported)
+    swa_layers: tuple = ()  # per-layer bool: uses the sliding window
+    rope_freq_base_swa: float = 10000.0  # rope base of the SWA layers
 
     # granite's scale stack (0 = off): token rows, each residual branch,
     # the final logits (granite: 1 / logit_scale)
@@ -92,7 +99,8 @@ class HParams:
     n_expert: int = 0
     n_expert_used: int = 0
     n_expert_shared: int = 0
-    n_expert_groups: int = 0  # group-limited routing: not ported, refused
+    n_expert_groups: int = 0  # group-limited routing: expert groups
+    n_group_used: int = 0  # ... of which the top n_group_used are kept
     expert_weights_scale: float = 0.0
     expert_weights_norm: bool = False
     expert_gating_func: int = 1  # 1=softmax, 2=sigmoid, 3=post-top-k softmax
@@ -109,9 +117,9 @@ class HParams:
         """Mixed dense/MoE layer stacks: loaded as a per-layer list and run
         layer by layer (the tensor sets differ per layer, so they cannot
         be stacked). The JAX package's property also names archs the port
-        refuses (openelm, deci, bailingmoe2, afmoe, nomic-bert-moe, llama4
-        with interleaved MoE)."""
-        return self.arch in ("dots1", "glm4moe", "ernie4_5-moe")
+        refuses (openelm, deci, afmoe, nomic-bert-moe, llama4 with
+        interleaved MoE)."""
+        return self.arch in ("dots1", "glm4moe", "ernie4_5-moe", "bailingmoe2")
 
     @classmethod
     def from_gguf(cls, reader) -> "HParams":
@@ -170,6 +178,7 @@ class HParams:
             n_expert_used=int(g("expert_used_count", 0) or 0),
             n_expert_shared=int(g("expert_shared_count", 0) or 0),
             n_expert_groups=int(g("expert_group_count", 0) or 0),
+            n_group_used=int(g("expert_group_used_count", 0) or 0),
             expert_weights_scale=float(g("expert_weights_scale", 0.0) or 0.0),
             expert_weights_norm=bool(g("expert_weights_norm", False)),
             expert_gating_func=int(g("expert_gating_func", 1) or 1),
@@ -200,4 +209,21 @@ class HParams:
             hp.n_layer -= hp.nextn_layers  # MTP layers are in the file but skipped
         if arch == "ernie4_5-moe":
             hp.n_moe_layer_step = int(g("interleave_moe_layer_step", 1) or 1)
+        if arch == "bailingmoe2":
+            # glm4moe-shaped: dense lead, trailing NextN layers skipped,
+            # per-head q/k norms, the weights scale applied, a shared expert
+            hp.moe_norm_topk = hp.expert_weights_norm
+            hp.nextn_layers = int(g("nextn_predict_layers", 0) or 0)
+            hp.n_layer -= hp.nextn_layers
+        if arch == "gpt-oss":
+            # alternating SWA (the even layers), one rope base for both
+            # kinds; post-top-k softmax gating, weights not renormalized,
+            # swiglu_oai experts, 1/sqrt(n_rot) attention scale
+            hp.swa_layers = tuple(il % 2 < 1 for il in range(hp.n_layer))
+            hp.rope_freq_base_swa = hp.rope_freq_base
+            hp.moe_norm_topk = False
+            hp.expert_gating_func = 3
+            hp.moe_act = "swiglu_oai"
+            if hp.f_attention_scale == 0.0 and n_rot:
+                hp.f_attention_scale = 1.0 / math.sqrt(n_rot)
         return hp

@@ -3,14 +3,22 @@
 Port of tpullama/models/llama.py:llama_forward for the llama family
 (llama, llama-2/3, mistral, qwen2 biases, chatglm's fused biased [Q|K|V]
 and fused [gate|up], Mixtral-style MoE, the MoE archs qwen2moe,
-qwen3moe and granitemoe, and the heterogeneous dense/MoE stacks of
-glm4moe, dots1 and ernie4_5-moe; no SWA or parallel modes): token rows (times
-embd_scale) -> per layer [rms_norm -> q/k/v (+bias) -> per-head q/k
-rms_norm -> rope -> write K/V into the cache -> attention -> o-proj (times
+qwen3moe, granitemoe and gpt-oss, and the heterogeneous dense/MoE stacks
+of glm4moe, dots1, ernie4_5-moe and bailingmoe2; no parallel modes):
+token rows (times embd_scale) -> per layer [rms_norm -> q/k/v (+bias) ->
+per-head q/k rms_norm -> rope -> write K/V into the cache -> attention
+(with gpt-oss's per-head sinks) -> o-proj (+bias; times
 f_residual_scale) -> residual -> rms_norm -> SwiGLU FFN, or MoE FFN plus
 the shared expert (qwen2moe: gated by its own sigmoid) (times
 f_residual_scale) -> residual], final norm, lm_head, then output_bias,
-final_logit_scale and the final softcap in f32. With the fused layer on,
+final_logit_scale and the final softcap in f32.
+
+Sliding-window layers (hp.swa_layers, gpt-oss's even layers) take the
+second of the Context's mask pair (full, windowed) and a rope table with
+rope_freq_base_swa and without rope_freqs, as the JAX package's. With the
+two-stack cache (runtime/context.py: kv_k, kv_v {"full": ..., "swa": ...})
+each layer writes and reads its own stack at its index there, an SWA layer
+at its ring cells cache_slots_swa. With the fused layer on,
 a one-token step of one sequence runs o-proj, residual, rms_norm and the
 fused [gate|up] SwiGLU as one kernel (ops/cuda/fused_layer.py), as the
 JAX package does under TPULLAMA_FUSED_LAYER.
@@ -35,6 +43,7 @@ attention_auto (the flash kernels on CUDA tensors).
 
 from __future__ import annotations
 
+from dataclasses import replace
 
 import torch
 from torch import nn
@@ -144,6 +153,7 @@ class LlamaLayer(nn.Module):
 
     def forward(self, x, cos, sin, k_cache, v_cache, slots, mask):
         hp, w, m, tk = self.hp, self.w, self.meta, self.tile_k
+        sinks = w.get("attn_sinks")
         B, T, _ = x.shape
         Hq, Hkv = hp.n_head, hp.n_head_kv
         Dk, Dv = hp.n_embd_head_k, hp.n_embd_head_v
@@ -182,13 +192,13 @@ class LlamaLayer(nn.Module):
                 scatter_rows(cache[0], slots, qv)
                 scatter_rows(cache[1], slots, sv)
             att = attention_auto(q, k_cache[0], v_cache[0], mask=mask, scale=kq_scale,
-                                 softcap=hp.attn_logit_softcap, k_scale=k_cache[1],
-                                 v_scale=v_cache[1])
+                                 softcap=hp.attn_logit_softcap, sinks=sinks,
+                                 k_scale=k_cache[1], v_scale=v_cache[1])
         else:
             scatter_rows(k_cache, slots, k)
             scatter_rows(v_cache, slots, v)
             att = attention_auto(q, k_cache, v_cache, mask=mask, scale=kq_scale,
-                                 softcap=hp.attn_logit_softcap)
+                                 softcap=hp.attn_logit_softcap, sinks=sinks)
         att = att.reshape(B, T, Hq * Dv)
         if self.fused and B == 1 and T == 1:
             # the JAX package's fused branch (llama.py:683-700); it never
@@ -201,6 +211,8 @@ class LlamaLayer(nn.Module):
             y = r1.reshape(1, 1, -1) + dn.float()
             return y.reshape(B, T, -1).to(x.dtype)
         att = linear(att, w["attn_output"], m.get("attn_output"), tk)
+        if "attn_output_bias" in w:
+            att = att + w["attn_output_bias"]
         if hp.f_residual_scale:
             att = att * hp.f_residual_scale
         x = x + att
@@ -220,7 +232,10 @@ class LlamaLayer(nn.Module):
                 w.get("ffn_gateup_exps", w.get("ffn_up_exps")), w["ffn_down_exps"],
                 n_expert_used=hp.n_expert_used, gating=hp.expert_gating_func,
                 norm_w=hp.moe_norm_topk, w_scale=hp.expert_weights_scale, act=hp.moe_act,
-                exp_probs_b=w.get("exp_probs_b"), quant_meta_exps=metas)
+                exp_probs_b=w.get("exp_probs_b"), gate_inp_b=w.get("ffn_gate_inp_b"),
+                gate_exps_b=w.get("ffn_gate_exps_b"), up_exps_b=w.get("ffn_up_exps_b"),
+                down_exps_b=w.get("ffn_down_exps_b"), n_expert_groups=hp.n_expert_groups,
+                n_group_used=hp.n_group_used, quant_meta_exps=metas)
             if "ffn_gate_shexp" in w:
                 down = down + self.shared_expert(h)
         else:
@@ -287,27 +302,53 @@ class LlamaModel(nn.Module):
         self.layers = nn.ModuleList(
             LlamaLayer(w, lmeta, hp, self.fused_layer, self.qmm_tile_k) for w in weights)
         self.rp = rope_params(hp)
+        # the SWA layers, and each layer's index in its stack of a two-stack
+        # cache (the JAX package's _stack_idx)
+        self.swa = tuple(bool(s) for s in hp.swa_layers) if any(hp.swa_layers) else ()
+        count = {False: 0, True: 0}
+        self.stack_idx = []
+        for is_swa in self.swa:
+            self.stack_idx.append(count[is_swa])
+            count[is_swa] += 1
+        self.rp_swa = replace(self.rp, freq_base=hp.rope_freq_base_swa) if self.swa else None
 
     def forward(self, tokens, positions, kv_k, kv_v, cache_slots, attn_mask,
-                logit_rows=None, return_embd: bool = False):
+                logit_rows=None, return_embd: bool = False, cache_slots_swa=None):
         """tokens, positions, cache_slots: (B, T) int; kv_k/kv_v: (L, B, Hkv,
         S, D) caches written in place, or an int8 cache's (values, (L, B,
-        Hkv, S) f32 scales) pairs; attn_mask: (B, 1, T, S) additive f32.
-        logit_rows: optional (B, R) row indices — the lm_head runs on those
-        rows only (the rows a caller reads). Returns f32 logits (B, T or R,
-        n_vocab); with return_embd, (logits, the final-norm hidden states of
-        every row as f32 (B, T, n_embd)), the JAX package's return_embd."""
+        Hkv, S) f32 scales) pairs, or the two-stack cache's {"full": ...,
+        "swa": ...} of such (then cache_slots_swa (B, T) holds the ring's
+        cells); attn_mask: (B, 1, T, S) additive f32, for a model with SWA
+        layers the pair (full, windowed) (two stacks: over S and the ring's
+        cells). logit_rows: optional (B, R) row indices — the lm_head runs on
+        those rows only (the rows a caller reads). Returns f32 logits (B, T
+        or R, n_vocab); with return_embd, (logits, the final-norm hidden
+        states of every row as f32 (B, T, n_embd)), the JAX package's
+        return_embd."""
         hp, p = self.hp, self.params
         x = p["tok_embd"][tokens.long()]
         if hp.embd_scale:
             x = (x.float() * hp.embd_scale).to(x.dtype)
-        cos = sin = None
+        cos = sin = cos_swa = sin_swa = None
         if hp.rope_type >= 0:
             cos, sin = rope_cache(self.rp, positions, p.get("rope_freqs"))
             cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+            if self.swa:
+                cos_swa, sin_swa = rope_cache(self.rp_swa, positions, None)
+                cos_swa, sin_swa = cos_swa[:, :, None, :], sin_swa[:, :, None, :]
+        two_stack = isinstance(kv_k, dict)
+        mask_full, mask_swa = attn_mask if isinstance(attn_mask, tuple) else (attn_mask,) * 2
         for li, layer in enumerate(self.layers):
-            x = layer(x, cos, sin, layer_cache(kv_k, li), layer_cache(kv_v, li), cache_slots,
-                      attn_mask)
+            is_swa = bool(self.swa) and self.swa[li]
+            kc, vc, slots = kv_k, kv_v, cache_slots
+            idx = li
+            if two_stack:
+                stack = "swa" if is_swa else "full"
+                kc, vc, idx = kv_k[stack], kv_v[stack], self.stack_idx[li]
+                slots = cache_slots_swa if is_swa else cache_slots
+            x = layer(x, cos_swa if is_swa else cos, sin_swa if is_swa else sin,
+                      layer_cache(kc, idx), layer_cache(vc, idx), slots,
+                      mask_swa if is_swa else mask_full)
         x = rms_norm(x, p.get("output_norm"), hp.f_norm_rms_eps)
         embd = x.float() if return_embd else None
         if logit_rows is not None:
@@ -325,9 +366,11 @@ class LlamaModel(nn.Module):
 
 
 def llama_forward(params: dict, hp: HParams, tokens, positions, kv_k, kv_v,
-                  cache_slots, attn_mask, quant_meta: dict | None = None):
+                  cache_slots, attn_mask, quant_meta: dict | None = None,
+                  cache_slots_swa=None):
     """Functional form of LlamaModel (the JAX package's signature): one
     decode/prefill step; the new tokens' K/V are written into kv_k/kv_v in
     place. Returns (logits, (kv_k, kv_v))."""
     net = LlamaModel(params, hp, quant_meta)
-    return net(tokens, positions, kv_k, kv_v, cache_slots, attn_mask), (kv_k, kv_v)
+    return net(tokens, positions, kv_k, kv_v, cache_slots, attn_mask,
+               cache_slots_swa=cache_slots_swa), (kv_k, kv_v)

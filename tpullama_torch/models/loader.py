@@ -2,12 +2,14 @@
 
 Port of tpullama/models/loader.py for the llama family (llama, mistral,
 qwen2, chatglm, Mixtral-style MoE llama, the MoE archs qwen2moe, qwen3moe
-and granitemoe with per-head q/k norms and shared experts, and the
-heterogeneous dense/MoE stacks of glm4moe, dots1 and ernie4_5-moe). Every
-tensor the file holds is mapped or refused by name, but the trailing
-NextN layers past hp.n_layer and every blk.*.nextn.* tensor, which are
-skipped unread (glm4moe's multi-token-prediction head, which the forward
-never runs). Per-layer tensors of equal shape are stacked along a leading
+and granitemoe with per-head q/k norms and shared experts, gpt-oss with
+its attention sinks, attention output and router biases and per-expert
+biases, and the heterogeneous dense/MoE stacks of glm4moe, dots1,
+ernie4_5-moe and bailingmoe2). Every tensor the file holds is mapped or
+refused by name, but the trailing NextN layers past hp.n_layer and every
+blk.*.nextn.* tensor, which are skipped unread (glm4moe's and
+bailingmoe2's multi-token-prediction head, which the forward never
+runs). Per-layer tensors of equal shape are stacked along a leading
 layer axis, as in the JAX package, so the two packages hold the same
 arrays under the same names; the forward pass walks per-layer views of
 the stacks. A heterogeneous stack (HParams.has_heterogeneous_layers) is a
@@ -58,7 +60,8 @@ import torch
 from ..device import resolve_device
 from ..gguf import GGMLType, GGUFReader
 from ..gguf.quants import dequantize
-from ..native import _NATIVE_REPACK_TYPES, native_dequantize, native_repack, resolve_native
+from ..native import (_NATIVE_DEQ_TYPES, _NATIVE_REPACK_TYPES, native_dequantize,
+                      native_repack, resolve_native)
 from ..ops.cuda.fused_layer import resolve_fused_layer
 from ..ops.cuda.qmm_gathered import PLANES_T_FIELDS
 from ..ops.qweights import (PACKED_TYPES, PlanarQuant, mxfp4_to_ar, repack, to_fourblock,
@@ -92,11 +95,20 @@ _LAYER_TENSORS = {
     "ffn_up_shexp.weight": "ffn_up_shexp",
     "ffn_down_shexp.weight": "ffn_down_shexp",
     "exp_probs_b.bias": "exp_probs_b",
+    "attn_output.bias": "attn_output_bias",
+    "ffn_gate_inp.bias": "ffn_gate_inp_b",
+    "attn_sinks.weight": "attn_sinks",
+    # per-expert biases (gpt-oss)
+    "ffn_gate_exps.bias": "ffn_gate_exps_b",
+    "ffn_up_exps.bias": "ffn_up_exps_b",
+    "ffn_down_exps.bias": "ffn_down_exps_b",
 }
-# per-arch remaps of tensor suffixes onto forward roles: glm4moe normalizes
-# ffn_inp with post_attention_norm, the ffn_norm slot (the JAX loader's
-# _ARCH_TENSOR_OVERRIDES, models/glm4-moe.cpp:93-96)
-_ARCH_TENSOR_OVERRIDES = {"glm4moe": {"post_attention_norm.weight": "ffn_norm"}}
+# per-arch remaps of tensor suffixes onto forward roles: glm4moe and gpt-oss
+# normalize ffn_inp with post_attention_norm, the ffn_norm slot (the JAX
+# loader's _ARCH_TENSOR_OVERRIDES; models/glm4-moe.cpp:93-96,
+# models/openai-moe-iswa.cpp:80-86)
+_ARCH_TENSOR_OVERRIDES = {"glm4moe": {"post_attention_norm.weight": "ffn_norm"},
+                          "gpt-oss": {"post_attention_norm.weight": "ffn_norm"}}
 _EXPERT_TRIO = ("ffn_gate_exps", "ffn_up_exps", "ffn_down_exps")
 # the layer matrices the fused post-attention path reads in fourblock order
 _FOURBLOCK_KEYS = ("attn_output", "ffn_up", "ffn_down")
@@ -109,7 +121,8 @@ _TOP_TENSORS = {
     "rope_freqs.weight": "rope_freqs",
 }
 # the archs whose MoE layers the port runs (ops/moe.py)
-_MOE_ARCHS = ("llama", "qwen2moe", "qwen3moe", "granitemoe", "glm4moe", "dots1", "ernie4_5-moe")
+_MOE_ARCHS = ("llama", "qwen2moe", "qwen3moe", "granitemoe", "glm4moe", "dots1", "ernie4_5-moe",
+              "bailingmoe2", "gpt-oss")
 
 # values dequantized per host batch when a large dense tensor is decoded
 _DENSE_ELEMS = 8192 * 4096
@@ -158,17 +171,18 @@ class LoadedModel:
 
 def check_supported(hp: HParams) -> None:
     """Raise for anything outside the slices ported: the llama family
-    (chatglm included), and MoE on the llama arch (Mixtral), qwen2moe,
-    qwen3moe and granitemoe without group-limited routing."""
+    (chatglm included), MoE on the llama arch (Mixtral) and the MoE archs
+    of _MOE_ARCHS, and sliding-window attention where a ported arch lays
+    out its SWA layers (gpt-oss); any other SWA model, and llama4's
+    chunked window, by name with their ROADMAP item."""
     check_arch(hp.arch)
-    if hp.n_swa:
+    if hp.n_swa and (not hp.swa_layers or hp.swa_type != "standard"):
+        what = "chunked attention" if hp.swa_type == "chunked" else "sliding-window attention"
         raise NotImplementedError(
-            f"tpullama_torch: {hp.arch!r} with sliding-window attention is not ported yet")
+            f"tpullama_torch: {hp.arch!r} with {what} is not ported yet "
+            "(ROADMAP.md Queue 1 item 7)")
     if hp.n_expert and hp.arch not in _MOE_ARCHS:
         raise NotImplementedError(f"tpullama_torch: {hp.arch!r} with MoE is not ported yet")
-    if hp.n_expert_groups > 1:
-        raise NotImplementedError(
-            "tpullama_torch: MoE with group-limited routing is not ported yet")
 
 
 def _expert_planes(fields: dict, n_expert: int) -> tuple[dict, bool]:
@@ -189,6 +203,28 @@ def _expert_planes(fields: dict, n_expert: int) -> tuple[dict, bool]:
                 and all(v.shape[-1] % (32 if v.dtype.itemsize == 1 else 16) == 0
                         for k, v in out.items() if k not in ("scale", "minv")))
     return (transpose_planes(out) if planes_t else out), planes_t
+
+
+def repack_rows(raw: np.ndarray, ggml_type: GGMLType, n_rows: int, K: int) -> PlanarQuant:
+    """The numpy codecs' repack of an (n_rows, K) matrix, in row batches of
+    about _DENSE_ELEMS values on the host's threads (numpy releases the
+    GIL): every plane is per row, so the batches' planes stacked are one
+    call's."""
+    step = max(1, _DENSE_ELEMS // K)
+    if n_rows <= step:
+        return repack(raw, ggml_type, (n_rows, K))
+    per_row = raw.size // n_rows
+
+    def rows(r0: int) -> PlanarQuant:
+        r1 = min(n_rows, r0 + step)
+        return repack(raw[r0 * per_row:r1 * per_row], ggml_type, (r1 - r0, K))
+
+    starts = range(0, n_rows, step)
+    with _fut.ThreadPoolExecutor(min(len(starts), os.cpu_count() or 1)) as pool:
+        parts = list(pool.map(rows, starts))
+    return PlanarQuant(ggml_type, (n_rows, K),
+                       {k: np.concatenate([p.fields[k] for p in parts]) for k in parts[0].fields},
+                       parts[0].group)
 
 
 def resolve_mxfp4_ar(value: bool | None) -> bool:
@@ -364,28 +400,42 @@ def load_model(source, dtype=torch.float32, device=None, packed: bool = False,
                 and info.ggml_type in PACKED_TYPES and info.shape[-1] % 256 == 0)
 
     def fetch_dense(tname: str, out: torch.Tensor) -> None:
-        """Dequantize a tensor into `out` (any device), in row batches."""
+        """Dequantize a tensor into `out` (any device), in row batches; into
+        host memory by the numpy codecs (no native library, or a type it
+        does not decode), the batches run on the host's threads (numpy
+        releases the GIL), each writing its own rows."""
         info = reader.tensors[tname]
         raw = reader.tensor_raw(tname)
         if len(info.shape) < 2:
             out.copy_(torch.from_numpy(decode(raw, info.ggml_type, info.shape)))
+            tick()
+            return
+        rows, K = int(np.prod(info.shape[:-1])), info.shape[-1]
+        per_row = raw.size // rows
+        flat = out.view(rows, K)
+        step = max(1, _DENSE_ELEMS // K)
+
+        def batch(r0: int) -> None:
+            r1 = min(rows, r0 + step)
+            part, shape = raw[r0 * per_row:r1 * per_row], (r1 - r0, K)
+            if out.device.type != "cpu":
+                host, dev = stage((r1 - r0) * K)
+                decode_into(part, info.ggml_type, shape, host.numpy())
+                dev.copy_(host)
+                flat[r0:r1].copy_(dev.view(shape))
+            elif out.dtype == torch.float32:
+                decode_into(part, info.ggml_type, shape, flat[r0:r1].numpy().reshape(-1))
+            else:
+                flat[r0:r1].copy_(torch.from_numpy(decode(part, info.ggml_type, shape)))
+
+        starts = range(0, rows, step)
+        by_numpy = not (native and info.ggml_type in _NATIVE_DEQ_TYPES)
+        if out.device.type == "cpu" and by_numpy and len(starts) > 1:
+            with _fut.ThreadPoolExecutor(min(len(starts), os.cpu_count() or 1)) as pool:
+                list(pool.map(batch, starts))
         else:
-            rows, K = int(np.prod(info.shape[:-1])), info.shape[-1]
-            per_row = raw.size // rows
-            flat = out.view(rows, K)
-            step = max(1, _DENSE_ELEMS // K)
-            for r0 in range(0, rows, step):
-                r1 = min(rows, r0 + step)
-                part, shape = raw[r0 * per_row:r1 * per_row], (r1 - r0, K)
-                if out.device.type != "cpu":
-                    host, dev = stage((r1 - r0) * K)
-                    decode_into(part, info.ggml_type, shape, host.numpy())
-                    dev.copy_(host)
-                    flat[r0:r1].copy_(dev.view(shape))
-                elif out.dtype == torch.float32:
-                    decode_into(part, info.ggml_type, shape, flat[r0:r1].numpy().reshape(-1))
-                else:
-                    flat[r0:r1].copy_(torch.from_numpy(decode(part, info.ggml_type, shape)))
+            for r0 in starts:
+                batch(r0)
         tick()
 
     def fetch_packed(tname: str, key: str | None = None) -> tuple[dict, QuantMeta]:
@@ -401,7 +451,7 @@ def load_model(source, dtype=torch.float32, device=None, packed: bool = False,
         raw = reader.tensor_raw(tname)
         res = native_repack(raw, info.ggml_type, n_rows, K) if native else None
         pq = (PlanarQuant(info.ggml_type, (n_rows, K), *res) if res is not None
-              else repack(raw, info.ggml_type, (n_rows, K)))
+              else repack_rows(raw, info.ggml_type, n_rows, K))
         if mxfp4_ar and key is not None and pq.ggml_type == GGMLType.MXFP4:
             pq = PlanarQuant(pq.ggml_type, pq.shape, mxfp4_to_ar(pq.fields), pq.group)
         if len(info.shape) == 3:

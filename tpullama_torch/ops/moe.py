@@ -2,13 +2,16 @@
 
 Port of tpullama/ops/moe.py (build_moe_ffn, src/llama-graph.cpp:880-1120)
 for what the MoE archs of the llama forward run (Mixtral-style llama,
-qwen2moe, qwen3moe, granitemoe, glm4moe, dots1, ernie4_5-moe; their shared
-experts run in models/llama.py): f32 router logits ->
-softmax / sigmoid / post-top-k softmax gating -> optional selection bias
--> top-k by the selection probabilities, weights gathered from the
-unbiased ones -> optional renormalisation (clamped at the fp16 min normal)
--> optional w_scale -> expert SwiGLU FFN -> weighted sum over the k
-experts.
+qwen2moe, qwen3moe, granitemoe, glm4moe, dots1, ernie4_5-moe, bailingmoe2,
+gpt-oss; their shared experts run in models/llama.py): f32 router logits
+(plus the router bias) -> softmax / sigmoid / post-top-k softmax gating ->
+optional selection bias -> optional group-limited routing (the top
+n_group_used of n_expert_groups groups, each scored by the sum of its top
+2, the rest masked to -inf) -> top-k by the selection probabilities,
+weights gathered from the unbiased ones -> optional renormalisation
+(clamped at the fp16 min normal) -> optional w_scale -> expert FFN (SwiGLU,
+or gpt-oss's swiglu_oai, with the per-expert gate/up/down biases where
+given) -> weighted sum over the k experts.
 
 Packed expert stacks go through the gathered quantized matmul
 (ops/cuda/qmm_gathered.py): at decode every (token, k) slot is its own
@@ -27,9 +30,8 @@ rows at once (one host read of the counts; prefill runs eagerly).
 
 Not ported, each refused with its name and needed by MoE archs not
 loaded yet (ROADMAP.md Queue 1 item 5): expert parallelism (ep_axis),
-group-limited routing (n_expert_groups > 1), select_logits,
-select_sigmoid, weight_before_ffn, x_router, expert_div, per-expert
-biases, activations other than silu (swiglu_oai, gelu, relu) and experts
+select_logits, select_sigmoid, weight_before_ffn, x_router, expert_div,
+activations other than silu and swiglu_oai (gelu, relu) and experts
 without a gate.
 """
 
@@ -37,7 +39,7 @@ from __future__ import annotations
 
 import torch
 
-from .activations import swiglu
+from .activations import swiglu, swiglu_oai
 from .cuda.qmm_gathered import quantized_matmul_gathered
 
 GATING_SOFTMAX = 1
@@ -47,6 +49,13 @@ GATING_SOFTMAX_WEIGHT = 3
 _F16_MIN_NORMAL = 6.103515625e-5
 DISPATCH_MIN_SLOTS = 64  # slots from which prefill sorts them by expert
 PREFILL_TILE_T = 8  # rows per tile of the dispatched slots
+ACTS = {"silu": swiglu, "swiglu_oai": swiglu_oai}  # the expert activations ported
+
+
+def _add(t, bias, rows):
+    """t plus each row's expert bias (bias (E, n)[rows]), or t without one."""
+    return t if bias is None else t + bias[rows].float()
+
 
 def moe_dispatch(sel_flat: torch.Tensor, n_expert: int, tile_t: int):
     """Sort (token, k) slots by expert and pad each expert's group to a
@@ -78,10 +87,13 @@ def moe_dispatch(sel_flat: torch.Tensor, n_expert: int, tile_t: int):
     return (perm.int(), tile_expert.clamp(0, E - 1).int(), row_of_slot.int(), P)
 
 
-def _ffn_packed(xf, sel, weights, gate_exps, up_exps, down_exps, metas, E):
+def _ffn_packed(xf, sel, weights, gate_exps, up_exps, down_exps, metas, E, act="silu",
+                biases=(None, None, None)):
     """Expert FFN over packed expert planes through the gathered kernels:
     the fused [gate | up] stack (per expert [gate rows_p | up rows_p], each
-    half padded on its own) or split gate and up stacks, then down."""
+    half padded on its own) or split gate and up stacks, then down. The
+    per-expert (gate, up, down) `biases` are added to the kernels' outputs
+    by each row's expert, as the JAX package's packed path adds them."""
     B, T, D = xf.shape
     K = sel.shape[-1]
     S = B * T * K
@@ -114,28 +126,36 @@ def _ffn_packed(xf, sel, weights, gate_exps, up_exps, down_exps, metas, E):
     else:
         up = gmm(x_rows, up_exps, "up")
         gate = gmm(x_rows, gate_exps, "gate")
-    down = gmm(swiglu(gate, up), down_exps, "down")
+    gate_b, up_b, down_b = biases
+    row_expert = torch.repeat_interleave(tile_expert.long(), tile_t)
+    h = ACTS[act](_add(gate, gate_b, row_expert), _add(up, up_b, row_expert))
+    down = _add(gmm(h, down_exps, "down"), down_b, row_expert)
     if row_of_slot is not None:
         down = down[row_of_slot]
     down = down.reshape(B, T, K, D) * weights.reshape(B, T, K, 1).float()
     return down.sum(dim=2)
 
 
-def _pair_products(x_pairs, sel_flat, gate_exps, up_exps, down_exps):
-    """The expert FFN of each (token, k) pair by its own expert's weights,
-    gathered one expert per pair: x_pairs (N, D) f32, sel_flat (N,) ->
-    (N, D) f32."""
+def _pair_products(x_pairs, sel_flat, gate_exps, up_exps, down_exps, act="silu",
+                   biases=(None, None, None)):
+    """The expert FFN of each (token, k) pair by its own expert's weights
+    and (gate, up, down) `biases`, gathered one expert per pair: x_pairs
+    (N, D) f32, sel_flat (N,) -> (N, D) f32."""
     x = x_pairs[:, :, None]
-    gate = torch.bmm(gate_exps[sel_flat].float(), x)[..., 0]
-    up = torch.bmm(up_exps[sel_flat].float(), x)[..., 0]
-    return torch.bmm(down_exps[sel_flat].float(), swiglu(gate, up)[:, :, None])[..., 0]
+    gate_b, up_b, down_b = biases
+    gate = _add(torch.bmm(gate_exps[sel_flat].float(), x)[..., 0], gate_b, sel_flat)
+    up = _add(torch.bmm(up_exps[sel_flat].float(), x)[..., 0], up_b, sel_flat)
+    h = ACTS[act](gate, up)
+    return _add(torch.bmm(down_exps[sel_flat].float(), h[:, :, None])[..., 0], down_b, sel_flat)
 
 
-def _sorted_products(x_pairs, sel_flat, gate_exps, up_exps, down_exps):
+def _sorted_products(x_pairs, sel_flat, gate_exps, up_exps, down_exps, act="silu",
+                     biases=(None, None, None)):
     """The same as _pair_products with the pairs sorted by expert: each
     selected expert's weights turn f32 once and multiply all its rows in
     one product, and the rows go back to pair order."""
     E = gate_exps.shape[0]
+    gate_b, up_b, down_b = biases
     order = torch.argsort(sel_flat, stable=True)
     counts = torch.bincount(sel_flat, minlength=E).tolist()
     xs = x_pairs[order]
@@ -145,14 +165,15 @@ def _sorted_products(x_pairs, sel_flat, gate_exps, up_exps, down_exps):
         if not n:
             continue
         rows = xs[start:start + n]
-        gate = rows @ gate_exps[e].float().T
-        up = rows @ up_exps[e].float().T
-        out[start:start + n] = swiglu(gate, up) @ down_exps[e].float().T
+        gate = _add(rows @ gate_exps[e].float().T, gate_b, e)
+        up = _add(rows @ up_exps[e].float().T, up_b, e)
+        out[start:start + n] = _add(ACTS[act](gate, up) @ down_exps[e].float().T, down_b, e)
         start += n
     return torch.empty_like(out).index_copy_(0, order, out)
 
 
-def _ffn_dense(xf, sel, weights, gate_exps, up_exps, down_exps):
+def _ffn_dense(xf, sel, weights, gate_exps, up_exps, down_exps, act="silu",
+               biases=(None, None, None)):
     """Expert FFN over dense (E, F, D) / (E, D, F) stacks: per pair at
     T == 1 (_pair_products), sorted by expert at T > 1
     (_sorted_products)."""
@@ -161,14 +182,17 @@ def _ffn_dense(xf, sel, weights, gate_exps, up_exps, down_exps):
     x_pairs = xf[:, :, None, :].expand(B, T, K, D).reshape(B * T * K, D)
     sel_flat = sel.reshape(-1)
     products = _pair_products if T == 1 else _sorted_products
-    out = products(x_pairs, sel_flat, gate_exps, up_exps, down_exps)
+    out = products(x_pairs, sel_flat, gate_exps, up_exps, down_exps, act, biases)
     return (out.reshape(B, T, K, D) * weights[..., None]).sum(dim=2)
 
 
 def route(xf, gate_inp, n_expert_used: int, gating: int = GATING_SOFTMAX,
-          norm_w: bool = True, w_scale: float = 0.0, exp_probs_b=None, gate_inp_b=None):
+          norm_w: bool = True, w_scale: float = 0.0, exp_probs_b=None, gate_inp_b=None,
+          n_expert_groups: int = 0, n_group_used: int = 0):
     """The router: f32 tokens (B, T, D) -> the selected experts (B, T, k)
-    and their f32 weights (B, T, k)."""
+    and their f32 weights (B, T, k). With n_expert_groups > 1 the top-k
+    picks from the n_group_used groups whose top 2 selection scores sum
+    highest (the JAX package's group-limited routing)."""
     # f32 logits, summed in f64: cuBLAS picks its f32 summation order by the
     # product's shape, and a token's routing must not depend on how many
     # rows share its step (the server batches requests together)
@@ -184,6 +208,13 @@ def route(xf, gate_inp, n_expert_used: int, gating: int = GATING_SOFTMAX,
     else:
         raise ValueError(f"moe_ffn: gating {gating}")
     selection = probs if exp_probs_b is None else probs + exp_probs_b.float()
+    if n_expert_groups > 1:
+        E = selection.shape[-1]
+        sg = selection.reshape(*selection.shape[:-1], n_expert_groups, E // n_expert_groups)
+        group_scores = torch.topk(sg, 2, dim=-1).values.sum(dim=-1)
+        gsel = torch.topk(group_scores, n_group_used, dim=-1).indices
+        keep = torch.zeros_like(group_scores, dtype=torch.bool).scatter_(-1, gsel, True)
+        selection = torch.where(keep[..., None], sg, float("-inf")).reshape(selection.shape)
     sel = torch.topk(selection, n_expert_used, dim=-1).indices
     weights = torch.gather(probs, -1, sel)
     if gating == GATING_SOFTMAX_WEIGHT:
@@ -200,19 +231,18 @@ def moe_ffn(x, gate_inp, gate_exps, up_exps, down_exps, *, n_expert_used: int,
             act: str = "silu", exp_probs_b=None, gate_inp_b=None, up_exps_b=None,
             gate_exps_b=None, down_exps_b=None, weight_before_ffn: bool = False,
             select_logits: bool = False, x_router=None, select_sigmoid: bool = False,
-            expert_div: int = 0, n_expert_groups: int = 0, ep_axis=None,
-            quant_meta_exps: dict | None = None):
+            expert_div: int = 0, n_expert_groups: int = 0, n_group_used: int = 0,
+            ep_axis=None, quant_meta_exps: dict | None = None):
     """x: (B, T, D); gate_inp: (E, D) router; gate/up_exps: (E, F, D) and
     down_exps (E, D, F) dense, or dicts of packed planes with
     quant_meta_exps {"gate", "up", "down"} or {"gateup", "down"} (then
-    gate_exps is None and up_exps the fused stack). Returns (B, T, D) in
+    gate_exps is None and up_exps the fused stack); gate_exps_b, up_exps_b
+    (E, F) and down_exps_b (E, D): per-expert biases. Returns (B, T, D) in
     x's dtype."""
-    refused = {"up_exps_b": up_exps_b is not None, "gate_exps_b": gate_exps_b is not None,
-               "down_exps_b": down_exps_b is not None, "weight_before_ffn": weight_before_ffn,
+    refused = {"weight_before_ffn": weight_before_ffn,
                "select_logits": select_logits, "x_router": x_router is not None,
                "select_sigmoid": select_sigmoid, "expert_div": bool(expert_div),
-               "n_expert_groups": n_expert_groups > 1, "ep_axis": ep_axis is not None,
-               f"act={act!r}": act != "silu"}
+               "ep_axis": ep_axis is not None, f"act={act!r}": act not in ACTS}
     for name, on in refused.items():
         if on:
             raise NotImplementedError(f"moe_ffn: {name} is not ported yet")
@@ -222,8 +252,10 @@ def moe_ffn(x, gate_inp, gate_exps, up_exps, down_exps, *, n_expert_used: int,
 
     xf = x.float()
     sel, weights = route(xf, gate_inp, n_expert_used, gating, norm_w, w_scale,
-                         exp_probs_b, gate_inp_b)
+                         exp_probs_b, gate_inp_b, n_expert_groups, n_group_used)
+    biases = (gate_exps_b, up_exps_b, down_exps_b)
     if quant_meta_exps is not None and isinstance(up_exps, dict):
         return _ffn_packed(xf, sel, weights, gate_exps, up_exps, down_exps,
-                           quant_meta_exps, gate_inp.shape[0]).to(x.dtype)
-    return _ffn_dense(xf, sel, weights, gate_exps, up_exps, down_exps).to(x.dtype)
+                           quant_meta_exps, gate_inp.shape[0], act, biases).to(x.dtype)
+    return _ffn_dense(xf, sel, weights, gate_exps, up_exps, down_exps, act,
+                      biases).to(x.dtype)

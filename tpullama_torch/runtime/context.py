@@ -11,6 +11,22 @@ positions live twice: `kv_pos` (B, S) on the device (-1 = empty cell),
 from which each step builds its additive mask, and `_pos_host`, the host
 mirror the free-cell allocator reads.
 
+The iswa two-stack cache (the JAX package's, src/llama-kv-cache-iswa.h):
+a model with both sliding-window and full layers (hp.swa_layers, gpt-oss)
+keeps its SWA layers in a ring of S_swa = n_swa + min(n_ubatch, n_ctx) + 1
+cells instead of S, when that is smaller and swa_full is off. kv_k, kv_v
+and kv_pos are then {"full": ..., "swa": ...}: the full layers' (L_full,
+B, Hkv, S, D) stack with its (B, S) positions, and the ring's (L_swa, B,
+Hkv, S_swa, D) with its (B, S_swa) positions (int8: pairs on both). A
+token at position p takes ring cell p % (S_swa - 1), padding (p < 0) the
+scratch cell S_swa - 1, so the ring needs no allocator: `_pos_host`
+mirrors the full stack alone, as in the JAX package. Each forward writes
+at most n_ubatch new rows (longer prompts go in n_ubatch chunks), so no
+cell a query's window needs is overwritten. The full layers attend with
+the causal mask over the full stack, the SWA layers with the windowed one
+(kp > p - n_swa) over the ring; a single-stack model with SWA layers
+takes the same mask pair over its one stack.
+
 Every one-token decode step (decode at T == 1, decode_batch, and each
 step of decode_burst and decode_batch_burst) is one step program over a
 range of cache lanes (_StepProgram): it reads tokens, positions and the
@@ -35,8 +51,12 @@ Differences from the JAX package, by design:
     (the graphs read them at fixed addresses), and their K re-rotation
     divides by the model's rope_freqs as the forward pass does, where the
     JAX package's _rotate leaves them out (only a model that carries
-    rope_freqs, Llama-3.x, differs). The SWA two-stack cache they also
-    handle there is not ported.
+    rope_freqs, Llama-3.x, differs); the ring's K rows re-rotate with the
+    SWA layers' own rope table (rope_freq_base_swa), where the JAX
+    package's take the full layers' base (equal for gpt-oss);
+  - a prompt longer than n_ubatch on a two-stack cache goes in chunks that
+    also return the hidden states of every chunk (embeddings), where the
+    JAX package keeps the last chunk's.
 """
 
 from __future__ import annotations
@@ -70,21 +90,37 @@ class ContextParams:
     # default: same as dtype; torch.int8: the quantized cache (values +
     # per-(head, token) f32 scales)
     kv_dtype: torch.dtype | None = None
+    # True: SWA layers keep full n_ctx lanes (the reference's swa_full);
+    # False: a ring of n_swa + n_ubatch + 1 cells where it is smaller
+    swa_full: bool = False
     # multi-device mode ("pp" / "tp"): not ported yet, refused by make_context
     parallel: str | None = None
 
 
 def _parts(cache) -> tuple:
-    """A cache's tensors: the tensor, or an int8 cache's values and scales."""
+    """A cache's tensors: the tensor, an int8 cache's values and scales, or
+    those of both stacks of a two-stack cache."""
+    if isinstance(cache, dict):
+        return tuple(t for k in sorted(cache) for t in _parts(cache[k]))
     return cache if isinstance(cache, tuple) else (cache,)
 
 
 def _lanes(cache, lanes: slice):
-    """Lanes `lanes` of a stacked cache (axis 1): a view of the tensor, or
-    of both tensors of an int8 cache's (values, scales) pair."""
+    """Lanes `lanes` of a stacked cache (axis 1): a view of the tensor, of
+    both tensors of an int8 cache's (values, scales) pair, or of each
+    stack of a two-stack cache."""
+    if isinstance(cache, dict):
+        return {k: _lanes(v, lanes) for k, v in cache.items()}
     if isinstance(cache, tuple):
         return tuple(t[:, lanes] for t in cache)
     return cache[:, lanes]
+
+
+def _rows(kv_pos, lanes: slice):
+    """Lanes `lanes` of the positions: a (B, S) view, or one per stack."""
+    if isinstance(kv_pos, dict):
+        return {k: v[lanes] for k, v in kv_pos.items()}
+    return kv_pos[lanes]
 
 
 def _bucket(n: int, lo: int = 16) -> int:
@@ -179,19 +215,35 @@ class Context:
             raise ValueError(f"kv_dtype {kv_dt}: the cache is a float type or torch.int8")
         Hkv, Dk, Dv = hp.n_head_kv, hp.n_embd_head_k, hp.n_embd_head_v
 
-        def alloc(D):
+        def alloc(L, n_cells, D):
             # HEAD-MAJOR cache (L, B, Hkv, S, D): attention streams each
             # head's rows contiguously; the writer scatters its few rows.
             # int8: the rows and their f32 scales (L, B, Hkv, S), allocated
             # once, so the step graphs read them at fixed addresses
-            rows = torch.zeros((hp.n_layer, B, Hkv, S, D), dtype=kv_dt, device=self.device)
+            rows = torch.zeros((L, B, Hkv, n_cells, D), dtype=kv_dt, device=self.device)
             if kv_dt != torch.int8:
                 return rows
             return rows, torch.zeros(rows.shape[:-1], dtype=torch.float32, device=self.device)
 
-        self.kv_k = alloc(Dk)
-        self.kv_v = alloc(Dv)
-        self.kv_pos = torch.full((B, S), -1, dtype=torch.int32, device=self.device)
+        def positions(n_cells):
+            return torch.full((B, n_cells), -1, dtype=torch.int32, device=self.device)
+
+        # the iswa two-stack cache: both kinds of layer, swa_full off, and a
+        # ring smaller than the full lanes (the JAX package's condition)
+        n_swa_layers = sum(map(bool, hp.swa_layers))
+        S_swa = hp.n_swa + min(self.p.n_ubatch, self.p.n_ctx) + 1
+        self._S_swa = 0
+        if (0 < n_swa_layers < hp.n_layer and not self.p.swa_full and hp.n_swa
+                and S_swa < S):
+            self._S_swa = S_swa
+            L_full = hp.n_layer - n_swa_layers
+            self.kv_k = {"full": alloc(L_full, S, Dk), "swa": alloc(n_swa_layers, S_swa, Dk)}
+            self.kv_v = {"full": alloc(L_full, S, Dv), "swa": alloc(n_swa_layers, S_swa, Dv)}
+            self.kv_pos = {"full": positions(S), "swa": positions(S_swa)}
+        else:
+            self.kv_k = alloc(hp.n_layer, S, Dk)
+            self.kv_v = alloc(hp.n_layer, S, Dv)
+            self.kv_pos = positions(S)
         self._pos_host = np.full((B, S), -1, np.int32)
         self.n_past = np.zeros(B, np.int32)
         self.perf = PerfCounters()
@@ -211,18 +263,37 @@ class Context:
 
     def _forward(self, kv_k, kv_v, kv_pos, tokens, positions, slots, logit_rows=None,
                  return_embd: bool = False):
-        """Shared core: record the new cells' positions, build the additive
-        mask, run the model (which writes K/V in place)."""
+        """Shared core: record the new cells' positions (on a two-stack
+        cache also the ring's, at each position's ring cell), build the
+        additive mask (with SWA layers the pair of the causal mask and the
+        windowed one), run the model (which writes K/V in place)."""
         B, T = tokens.shape
         b_ix = torch.arange(B, device=self.device)[:, None]
-        kv_pos[b_ix, slots.long()] = positions
-        kp = kv_pos[:, None, :]
-        vis = (kp >= 0) & (kp <= positions[:, :, None])
+        slots_swa = None
+        if isinstance(kv_pos, dict):
+            Ss = self._S_swa
+            slots_swa = torch.where(positions >= 0, positions % (Ss - 1), Ss - 1)
+            kv_pos["swa"][b_ix, slots_swa.long()] = positions
+            kp_full, kp_win = kv_pos["full"], kv_pos["swa"]
+        else:
+            kp_full = kp_win = kv_pos
+        kp_full[b_ix, slots.long()] = positions
+        q = positions[:, :, None]
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
         neg = torch.full((), NEG_INF, dtype=torch.float32, device=self.device)
+
+        def visible(kp):
+            kp = kp[:, None, :]
+            return (kp >= 0) & (kp <= q)
+
+        vis = visible(kp_full)
         mask = torch.where(vis, zero, neg)[:, None]
+        if self.net.swa and self.hp.n_swa:
+            vis_w = vis if kp_win is kp_full else visible(kp_win)
+            vis_w = vis_w & (kp_win[:, None, :] > q - self.hp.n_swa)
+            mask = (mask, torch.where(vis_w, zero, neg)[:, None])
         return self.net(tokens, positions, kv_k, kv_v, slots, mask, logit_rows=logit_rows,
-                        return_embd=return_embd)
+                        return_embd=return_embd, cache_slots_swa=slots_swa)
 
     def _step_seq(self, seq: int, tokens, positions, slots, n_logits: int,
                   embd: bool = False):
@@ -234,7 +305,7 @@ class Context:
         lane = slice(seq, seq + 1)
         out = self._forward(
             _lanes(self.kv_k, lane), _lanes(self.kv_v, lane),
-            self.kv_pos[lane], tokens, positions, slots, logit_rows=rows,
+            _rows(self.kv_pos, lane), tokens, positions, slots, logit_rows=rows,
             return_embd=embd)
         logits, hidden = out if embd else (out, None)
         return logits[0], None if hidden is None else hidden[0]
@@ -253,11 +324,14 @@ class Context:
         captures it): every active lane writes its token at its first free
         cell (ascending, the host mirror's free-list order) and position
         npast; inactive lanes park on the scratch cell S - 1 with position
-        -1 and echo their token. Returns the (n, V) f32 logits."""
+        -1 and echo their token (on a two-stack cache the ring's cells
+        follow from the positions, the scratch cell S_swa - 1 for -1).
+        Returns the (n, V) f32 logits."""
         lo, hi, S = prog.lo, prog.hi, self._S
-        kv_pos = self.kv_pos[lo:hi]
+        kv_pos = _rows(self.kv_pos, slice(lo, hi))
+        kp_full = kv_pos["full"] if isinstance(kv_pos, dict) else kv_pos
         act = prog.active != 0
-        free = torch.argmax((kv_pos[:, : S - 1] < 0).to(torch.int32), dim=1).to(torch.int32)
+        free = torch.argmax((kp_full[:, : S - 1] < 0).to(torch.int32), dim=1).to(torch.int32)
         slots = torch.where(act, free, torch.full_like(free, S - 1))[:, None]
         pos = torch.where(act, prog.npast, torch.full_like(prog.npast, -1))[:, None]
         logits = self._forward(_lanes(self.kv_k, slice(lo, hi)), _lanes(self.kv_v, slice(lo, hi)),
@@ -363,6 +437,21 @@ class Context:
                 f"context overflow: {n_past}+{T} > n_ctx={self.p.n_ctx} "
                 f"(use seq_rm / context shift)"
             )
+        if self._S_swa and T > self.p.n_ubatch:
+            # the ring holds n_swa + n_ubatch cells: a forward writes at most
+            # n_ubatch new rows, so the prompt goes in n_ubatch chunks (the
+            # way llama_decode splits a batch into ubatches)
+            ub = self.p.n_ubatch
+            pieces, hidden = [], []
+            for st in range(0, T, ub):
+                chunk = tokens[0, st:st + ub]
+                need = min(max(0, n_logits - (T - st - len(chunk))), len(chunk))
+                out, h = self._decode(chunk, max(1, need), seq_id, embd)
+                if need:
+                    pieces.append(out[-need:])
+                hidden.append(h)
+            return (np.concatenate(pieces, axis=0)[-n_logits:],
+                    torch.cat(hidden) if embd else None)
         Tb = _bucket(T) if T > 1 else 1
         pad = Tb - T
         S = self._S
@@ -521,6 +610,11 @@ class Context:
             toks = np.asarray(toks, np.int32)
             T = len(toks)
             n_past = int(self.n_past[seq_id])
+            if self._S_swa and T > self.p.n_ubatch:
+                raise ValueError(
+                    f"chunk of {T} tokens on seq {seq_id} exceeds n_ubatch={self.p.n_ubatch} "
+                    "(small-SWA ring cache writes at most n_ubatch rows per step; "
+                    "raise n_ubatch or use swa_full=True)")
             if n_past + T > self.p.n_ctx:
                 raise ValueError(
                     f"context overflow on seq {seq_id}: {n_past}+{T} > "
@@ -575,48 +669,78 @@ class Context:
     # Each op writes the cache lane and its positions IN PLACE: the step
     # programs' CUDA graphs read kv_k, kv_v and kv_pos at fixed addresses.
 
+    def _pos_stacks(self) -> list:
+        """The (B, cells) positions of each stack, the full stack's first."""
+        return list(self.kv_pos.values()) if isinstance(self.kv_pos, dict) else [self.kv_pos]
+
     def seq_rm(self, p0: int, p1: int, seq_id: int = 0):
         """Remove positions [p0, p1) from a sequence (llama_memory_seq_rm)."""
         if p1 < 0:
             p1 = 1 << 30
-        row = self.kv_pos[seq_id]
-        row.masked_fill_((row >= p0) & (row < p1), -1)
+        for kp in self._pos_stacks():
+            row = kp[seq_id]
+            row.masked_fill_((row >= p0) & (row < p1), -1)
         h = self._pos_host[seq_id]
         h[(h >= p0) & (h < p1)] = -1
         if p1 >= int(self.n_past[seq_id]):
             self.n_past[seq_id] = min(int(self.n_past[seq_id]), p0)
 
-    def _rotate(self, seq_id: int, deltas: torch.Tensor) -> None:
-        """Re-rotate every cached K row of lane seq_id by its cell's
-        position delta ((S,) int), in f32, cast back to the cache dtype:
-        R(pos + d) = R(d)·R(pos) per rope frequency. The rotation by d
-        comes from the same cos/sin tables as the forward pass (rope_freqs
-        and partial rotation included), so a YaRN model's mscale is applied
-        again to every row of the lane, as in the JAX package. An int8
-        lane is dequantized, rotated and quantized again with fresh
-        scales (rotation changes each row's amax), as there."""
-        rp = self.net.rp
-        cos, sin = rope_cache(rp, deltas, self.model.params.get("rope_freqs"))
-        if isinstance(self.kv_k, tuple):
-            kq, ks = (t[:, seq_id] for t in self.kv_k)  # (L, Hkv, S, D), (L, Hkv, S)
+    def _rotate(self, kv_k, seq_id: int, deltas: torch.Tensor, swa: bool = False) -> None:
+        """Re-rotate every cached K row of lane seq_id of the stack kv_k by
+        its cell's position delta ((cells,) int), in f32, cast back to the
+        cache dtype: R(pos + d) = R(d)·R(pos) per rope frequency. The
+        rotation by d comes from the same cos/sin tables as the forward
+        pass (rope_freqs and partial rotation included; the ring's from the
+        SWA layers' table), so a YaRN model's mscale is applied again to
+        every row of the lane, as in the JAX package. An int8 lane is
+        dequantized, rotated and quantized again with fresh scales
+        (rotation changes each row's amax), as there."""
+        rp = self.net.rp_swa if swa else self.net.rp
+        cos, sin = rope_cache(rp, deltas, None if swa else self.model.params.get("rope_freqs"))
+        if isinstance(kv_k, tuple):
+            kq, ks = (t[:, seq_id] for t in kv_k)  # (L, Hkv, S, D), (L, Hkv, S)
             k = kq.float() * ks[..., None]
             nq, ns = quantize_q8(apply_rope(k, cos[None, None], sin[None, None], rp.mode,
                                             rp.n_dims))
             kq.copy_(nq)
             ks.copy_(ns)
             return
-        k = self.kv_k[:, seq_id]  # (L, Hkv, S, D) view of the lane
+        k = kv_k[:, seq_id]  # (L, Hkv, S, D) view of the lane
         k.copy_(apply_rope(k.float(), cos[None, None], sin[None, None], rp.mode, rp.n_dims))
 
     def seq_add(self, p0: int, p1: int, delta: int, seq_id: int = 0):
         """Shift positions in [p0, p1) by delta (llama_memory_seq_add),
         re-rotating the cached K rows by the delta (the reference's lazy
         rope-shift graph applied eagerly). Cells are picked by masks over
-        the lane, so p1 may be as large as 2**30."""
-        row = self.kv_pos[seq_id]
+        the lane, so p1 may be as large as 2**30. On a two-stack cache the
+        ring's shifted rows also move to their new positions' cells, the
+        newest position winning a cell (the losers are a ring's length
+        older, outside any later window): the JAX package's host loop."""
+        row = self._pos_stacks()[0][seq_id]  # the full stack's
         deltas = torch.where((row >= p0) & (row < p1), delta, 0).to(torch.int32)
-        self._rotate(seq_id, deltas)
+        two = isinstance(self.kv_k, dict)
+        self._rotate(self.kv_k["full"] if two else self.kv_k, seq_id, deltas)
         row.add_(deltas)
+        if two:
+            R = self._S_swa
+            srow = self.kv_pos["swa"][seq_id]
+            old = srow.cpu().numpy()
+            srng = (old >= p0) & (old < p1)
+            self._rotate(self.kv_k["swa"], seq_id,
+                         self._t(np.where(srng, delta, 0).astype(np.int32)), swa=True)
+            new_pos = np.where(srng, old + delta, old)
+            src = np.full(R, -1, np.int64)
+            posf = np.full(R, -1, np.int32)
+            for i in np.argsort(new_pos, kind="stable"):  # newest wins
+                if new_pos[i] >= 0:
+                    cell = int(new_pos[i]) % (R - 1)
+                    src[cell] = i
+                    posf[cell] = new_pos[i]
+            gather = self._t(np.maximum(src, 0))
+            for t in _parts(self.kv_k["swa"]) + _parts(self.kv_v["swa"]):
+                lane = t[:, seq_id]  # (L, Hkv, S_swa[, D])
+                lane.copy_(lane.index_select(2, gather))
+            srow.copy_(self._t(posf))
         h = self._pos_host[seq_id]
         h[(h >= p0) & (h < p1)] += delta
         if p1 >= int(self.n_past[seq_id]) >= p0:
@@ -625,11 +749,16 @@ class Context:
     def seq_div(self, p0: int, p1: int, d: int, seq_id: int = 0):
         """Integer-divide positions in [p0, p1) by d (llama_memory_seq_div,
         the self-extend primitive). Cached K is re-rotated by (new_pos -
-        old_pos) per cell. n_past stays, as in the JAX package."""
+        old_pos) per cell. n_past stays, as in the JAX package. A ring's
+        cells are its positions' residues, which a division would remap:
+        refused there, as in the JAX package."""
+        if isinstance(self.kv_pos, dict):
+            raise RuntimeError(
+                "seq_div (self-extend) requires swa_full=True with an iswa small cache")
         row = self.kv_pos[seq_id]
         new_row = torch.where((row >= p0) & (row < p1),
                               torch.div(row, d, rounding_mode="floor"), row)
-        self._rotate(seq_id, (new_row - row).to(torch.int32))
+        self._rotate(self.kv_k, seq_id, (new_row - row).to(torch.int32))
         row.copy_(new_row)
         h = self._pos_host[seq_id]
         sel = (h >= p0) & (h < p1)
@@ -639,7 +768,8 @@ class Context:
         """Copy a sequence's cache lane to another (llama_memory_seq_cp)."""
         for t in _parts(self.kv_k) + _parts(self.kv_v):
             t[:, dst].copy_(t[:, src])
-        self.kv_pos[dst].copy_(self.kv_pos[src])
+        for kp in self._pos_stacks():
+            kp[dst].copy_(kp[src])
         self._pos_host[dst] = self._pos_host[src]
         self.n_past[dst] = self.n_past[src]
 
@@ -649,23 +779,27 @@ class Context:
         self.n_past[seq_id] = min(int(self.n_past[seq_id]), position)
 
     def reset(self, seq_id: int | None = None):
+        for kp in self._pos_stacks():
+            (kp if seq_id is None else kp[seq_id]).fill_(-1)
         if seq_id is None:
-            self.kv_pos.fill_(-1)
             self._pos_host[:] = -1
             self.n_past[:] = 0
         else:
-            self.kv_pos[seq_id].fill_(-1)
             self._pos_host[seq_id] = -1
             self.n_past[seq_id] = 0
 
     def memory_breakdown(self) -> dict:
         """Device bytes of the weights and the KV cache (an int8 cache's
-        values and scales)."""
-        return {
-            "weights": self.model.nbytes(),
-            "kv_cache": sum(t.numel() * t.element_size()
-                            for t in _parts(self.kv_k) + _parts(self.kv_v)),
-        }
+        values and scales); a two-stack cache's full and SWA layers also
+        apart."""
+        def nbytes(*caches):
+            return sum(t.numel() * t.element_size() for c in caches for t in _parts(c))
+
+        out = {"weights": self.model.nbytes(), "kv_cache": nbytes(self.kv_k, self.kv_v)}
+        if isinstance(self.kv_k, dict):
+            out["kv_cache_full_layers"] = nbytes(self.kv_k["full"], self.kv_v["full"])
+            out["kv_cache_swa_layers"] = nbytes(self.kv_k["swa"], self.kv_v["swa"])
+        return out
 
     # ------------------------------------------------------- generate
 

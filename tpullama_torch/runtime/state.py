@@ -13,7 +13,10 @@ version (1), a uint64 header length, a JSON header ({"fingerprint":
 kv_dtype}, "arrays": {name: {"shape", "dtype"}}}), then each array's raw
 little-endian bytes in the header's order: kv_k (an int8 cache: kv_k/q,
 kv_k/s), kv_v (kv_v/q, kv_v/s), kv_pos, pos_host, n_past and, if given,
-tokens. dtype names are numpy's ("float32", "int8", "int32", ...); a bf16
+tokens. A two-stack cache's leaves nest under its stacks, as the JAX
+package flattens its {"full", "swa"} dicts: kv_k/full, kv_k/swa (int8:
+kv_k/full/q, kv_k/full/s, ...), kv_v/..., kv_pos/full and kv_pos/swa;
+pos_host is the full stack's. dtype names are numpy's ("float32", "int8", "int32", ...); a bf16
 array is "bfloat16", its raw 2-byte patterns, as the JAX package writes
 it through ml_dtypes. So a file written by either package restores in the
 other. Restore validates the fingerprint the way the reference validates
@@ -40,8 +43,13 @@ _NAMES = {v: k for k, v in _DTYPES.items()}
 
 
 def _leaves(tag: str, cache) -> dict:
-    """A cache as 'tag' -> tensor, or an int8 cache's (values, scales) pair
-    as 'tag/q' and 'tag/s' (the JAX package's flattened {"q", "s"} dict)."""
+    """A cache as 'tag' -> tensor, an int8 cache's (values, scales) pair as
+    'tag/q' and 'tag/s' (the JAX package's flattened {"q", "s"} dict), a
+    two-stack cache's stacks as 'tag/full/...' and 'tag/swa/...' (sorted
+    keys, as the JAX package flattens its dicts)."""
+    if isinstance(cache, dict):
+        return {k: v for name in sorted(cache) for k, v in _leaves(f"{tag}/{name}",
+                                                                    cache[name]).items()}
     if isinstance(cache, tuple):
         return {f"{tag}/q": cache[0], f"{tag}/s": cache[1]}
     return {tag: cache}
@@ -49,7 +57,7 @@ def _leaves(tag: str, cache) -> dict:
 
 def _fingerprint(ctx) -> dict:
     hp = ctx.hp
-    kv = ctx.kv_k[0] if isinstance(ctx.kv_k, tuple) else ctx.kv_k
+    kv = next(iter(_leaves("kv_k", ctx.kv_k).values()))
     return {
         "arch": hp.arch,
         "n_layer": hp.n_layer,
@@ -139,6 +147,20 @@ def _copy_in(dst: torch.Tensor, src: torch.Tensor, name: str) -> None:
     dst.copy_(src)
 
 
+def _array(arrays: dict, name: str) -> torch.Tensor:
+    """The file's array `name`; a cache of another layout (one stack
+    against two) fails by name."""
+    if name not in arrays:
+        raise ValueError(f"state file: no array {name} (the file holds "
+                         f"{sorted(k for k in arrays if k.startswith(name.split('/')[0]))})")
+    return arrays[name]
+
+
+def _main_pos(arrays: dict) -> torch.Tensor:
+    """The positions the host mirror follows: the full stack's."""
+    return arrays.get("kv_pos", arrays.get("kv_pos/full"))
+
+
 def _tokens(arrays: dict):
     toks = arrays.get("tokens")
     return None if toks is None else [int(t) for t in toks.tolist()]
@@ -146,8 +168,9 @@ def _tokens(arrays: dict):
 
 def state_save(ctx, dest, tokens: list[int] | None = None) -> None:
     """Save the whole context state (+ optional session token prefix)."""
-    arrays = {**_leaves("kv_k", ctx.kv_k), **_leaves("kv_v", ctx.kv_v), "kv_pos": ctx.kv_pos,
-              "pos_host": np.asarray(ctx._pos_host), "n_past": np.asarray(ctx.n_past)}
+    arrays = {**_leaves("kv_k", ctx.kv_k), **_leaves("kv_v", ctx.kv_v),
+              **_leaves("kv_pos", ctx.kv_pos), "pos_host": np.asarray(ctx._pos_host),
+              "n_past": np.asarray(ctx.n_past)}
     if tokens is not None:
         arrays["tokens"] = np.asarray(tokens, np.int32)
     _save(dest, MAGIC_CTX, {"fingerprint": _fingerprint(ctx)}, arrays)
@@ -159,9 +182,9 @@ def state_load(ctx, src) -> list[int] | None:
     hdr, arrays = _open_read(src, MAGIC_CTX)
     _check(ctx, hdr)
     for name, dst in {**_leaves("kv_k", ctx.kv_k), **_leaves("kv_v", ctx.kv_v),
-                      "kv_pos": ctx.kv_pos}.items():
-        _copy_in(dst, arrays[name].to(dst.device), name)
-    ctx._pos_host[:] = arrays.get("pos_host", arrays["kv_pos"]).numpy()
+                      **_leaves("kv_pos", ctx.kv_pos)}.items():
+        _copy_in(dst, _array(arrays, name).to(dst.device), name)
+    ctx._pos_host[:] = arrays.get("pos_host", _main_pos(arrays)).numpy()
     ctx.n_past[:] = arrays["n_past"].numpy()
     return _tokens(arrays)
 
@@ -170,7 +193,7 @@ def seq_save(ctx, seq_id: int, dest, tokens: list[int] | None = None) -> None:
     """Save one sequence lane (server slot save)."""
     arrays = {k: v[:, seq_id] for k, v in
               {**_leaves("kv_k", ctx.kv_k), **_leaves("kv_v", ctx.kv_v)}.items()}
-    arrays["kv_pos"] = ctx.kv_pos[seq_id]
+    arrays.update({k: v[seq_id] for k, v in _leaves("kv_pos", ctx.kv_pos).items()})
     arrays["pos_host"] = np.asarray(ctx._pos_host[seq_id])
     arrays["n_past"] = np.asarray([ctx.n_past[seq_id]])
     if tokens is not None:
@@ -183,8 +206,9 @@ def seq_load(ctx, seq_id: int, src) -> list[int] | None:
     hdr, arrays = _open_read(src, MAGIC_SEQ)
     _check(ctx, hdr)
     for name, dst in {**_leaves("kv_k", ctx.kv_k), **_leaves("kv_v", ctx.kv_v)}.items():
-        _copy_in(dst[:, seq_id], arrays[name].to(dst.device), name)
-    _copy_in(ctx.kv_pos[seq_id], arrays["kv_pos"].to(ctx.kv_pos.device), "kv_pos")
-    ctx._pos_host[seq_id] = arrays.get("pos_host", arrays["kv_pos"]).numpy()
+        _copy_in(dst[:, seq_id], _array(arrays, name).to(dst.device), name)
+    for name, dst in _leaves("kv_pos", ctx.kv_pos).items():
+        _copy_in(dst[seq_id], _array(arrays, name).to(dst.device), name)
+    ctx._pos_host[seq_id] = arrays.get("pos_host", _main_pos(arrays)).numpy()
     ctx.n_past[seq_id] = int(arrays["n_past"][0])
     return _tokens(arrays)
