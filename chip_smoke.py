@@ -11,7 +11,9 @@ Phases, each printing one JSON line with its seconds:
             the serving path's shapes, with kernel, plain and library
             times and the bound from the card's data-sheet rates; gpt-oss's
             attention (64/8 heads, D = 64, sinks) over both stacks (4224
-            and 385 cells) and its attn_output among them
+            and 385 cells) and its attn_output among them, and
+            gemma-3-12b's (16/8 heads, D = 256, over 4224 cells and the
+            1281-cell ring) with its Q4_K [gate] and down at T = 4 and 1024
   model     a synthetic Llama-3-8B-shaped GGUF (Q4_K layers, Q6_K output,
             Q4_K token table, random block bytes from a seed) is written
             to a temp dir and loaded packed onto the card
@@ -76,9 +78,10 @@ Phases, each printing one JSON line with its seconds:
             for serve(draft_model=) (the draft counters on /metrics)
   q5km_model, q5km_crosscheck, q5km_serve
             the model, cross-check and serve phases on Llama-3-8B at full
-            depth in llama.cpp's Q5_K_M layout (LAYOUTS: attn_v/ffn_down
-            Q6_K in the use_more_bits layers and Q5_K in the others, so
-            loaded dense; every other matrix Q5_K through the q1 set of
+            width, 8 of its 32 layers, in llama.cpp's Q5_K_M layout
+            (LAYOUTS: attn_v/ffn_down Q6_K in the use_more_bits layers of
+            8 (0, 3, 6, 7) and Q5_K in the others, so loaded dense; every
+            other matrix Q5_K through the q1 set of
             qmm_gemv/qmm_tiled); the 1-layer cross-check's CPU model is loaded with
             and without the native host library (timed, the same bits),
             and the 4 requests are run twice together (dense projections
@@ -151,6 +154,25 @@ Phases, each printing one JSON line with its seconds:
             against swa_full's one stack; the serve phase prints the two
             stacks' bytes against swa_full's, and its profile the dense
             expert branch's share
+  gemma3_model, gemma3_crosscheck, gemma3_serve
+            the model, cross-check and serve phases on a gemma-3-12b-shaped
+            model (6 of its 48 layers: one SWA pattern, 5 sliding-window
+            layers of window 1024 and 1 full; 16 x 256 query columns over
+            8 KV heads on a 3840 hidden, per-head q/k norms, sandwich
+            norms, GELU, linear rope scaling on the full layers, vocab
+            262208 tied) with every layer matrix Q4_K and a Q6_K token
+            table, dense bf16 on the card as the lm_head. The model phase's
+            file serves the cross-check too: all 6 layers in f32, card
+            against CPU, a 1400-token prompt in 256-token chunks wrapping
+            the ring of 1024 + 256 + 1 = 1281 cells, then the first 2
+            layers (SWA layers only) on one windowed stack. Served with 4
+            slots at n_ctx 4096 on the two-stack cache
+  cohere2_crosscheck
+            the cross-check at command-r7b's widths (4 of its 32 layers: 3
+            SWA layers of window 4096 and 1 full layer without rope;
+            LayerNorm, the parallel residual, logit_scale 0.25, vocab
+            256000 tied) at n_ctx 8192, where the ring of 4096 + 256 + 1
+            cells is smaller than the full stack, so two stacks stand
   int8kv    the served Llama model with an int8 KV cache against a bf16
             one: Contexts of 4 lanes of 8192 cells, bf16 activations,
             4 prompts of 6100-7000 tokens prefilled, a greedy burst of 32;
@@ -183,7 +205,8 @@ Llama cross-check also holds Context.embeddings (each pooling) and
 seq_add / seq_div on the card against the CPU, and a replayed step after
 seq_add against the eager step. The crosscheck, serve, http, spec, cli,
 quant_crosscheck, int8kv, int8kv_crosscheck, state, the MoE archs',
-GLM-4.5-Air's and gpt-oss's paths each run with every launch count set to 0 just before
+GLM-4.5-Air's, gpt-oss's, gemma-3-12b's and command-r7b's paths each run
+with every launch count set to 0 just before
 and read just after, and fail unless each kernel that path must run was launched. Then one JSON line lists every
 kernel with its launches on each path and its numbers at the served shape
 from the kernels phase, and the last line is the run's result. Any failed
@@ -222,7 +245,8 @@ ALL_PHASES = ("card", "build", "kernels", "model", "crosscheck", "serve", "graph
               "qwen3moe_crosscheck", "qwen3moe_serve", "qwen2moe_crosscheck",
               "granitemoe_crosscheck", "qwen3mxfp4_model", "qwen3mxfp4_crosscheck",
               "qwen3mxfp4_serve", "mxfp4_crosscheck", "glm4moe_model", "glm4moe_crosscheck",
-              "glm4moe_serve", "gptoss_model", "gptoss_crosscheck", "gptoss_serve")
+              "glm4moe_serve", "gptoss_model", "gptoss_crosscheck", "gptoss_serve",
+              "gemma3_model", "gemma3_crosscheck", "gemma3_serve", "cohere2_crosscheck")
 
 
 def emit(obj) -> None:
@@ -320,8 +344,34 @@ class Widths:
     logit_scale, attention.scale); `n_ff_exp`: each routed expert's FFN
     width where `n_ff` is the dense lead's; `dense_lead`: leading dense
     layers; `nextn`: trailing NextN layers written past `n_layer`;
-    `n_swa`: the sliding window of gpt-oss's even layers; `yarn`: YaRN
-    rope scaling (factor, original context)."""
+    `n_swa`: the sliding window of the SWA layers; `yarn`: YaRN rope
+    scaling (factor, original context); `rope_linear`: linear rope scaling's
+    factor; `logit_scale`: command-r's final logit scale; `embd_type`: the
+    token table's type (a tied table takes the output's, Q6_K, as
+    llama.cpp's quantizer gives it). The gemma and cohere families:
+    GEMMA3_12B holds those of google/gemma-3-12b-pt (config.json,
+    text_config: hidden 3840, 48 layers, 16 heads over 8 KV heads,
+    head_dim 256, so 16 x 256 = 4096 query columns on a 3840 hidden;
+    intermediate 15360, gelu_pytorch_tanh, vocab 262208, tied;
+    sliding_window 1024 with sliding_window_pattern 6 (5 SWA layers : 1
+    full), rope_theta 1e6 with rope_scaling linear factor 8 on the full
+    layers, rope_local_base_freq 1e4, query_pre_attn_scalar 256,
+    rms_norm_eps 1e-6, max_position_embeddings 131072), written as
+    llama.cpp's converter writes them (per-head q/k norms,
+    post_attention_norm and post_ffw_norm, attention.sliding_window,
+    rope.scaling.type linear and factor 8), every layer matrix Q4_K (the
+    Q4_K_M type of all but its use_more_bits layers, whose Q6_K attn_v and
+    ffn_down both loaders would keep dense across the stack) and the tied
+    token table Q6_K, cut to 6 of its 48 layers: one whole SWA pattern,
+    every later one with the same shapes and launches. COHERE2_7B holds
+    those of CohereForAI/c4ai-command-r7b-12-2024 (config.json: hidden
+    4096, 32 layers, 32 heads over 8 KV heads, intermediate 14336, vocab
+    256000, sliding_window 4096 with sliding_window_pattern 4 (3 SWA
+    layers : 1 full, the full ones without rope), rope_theta 50000,
+    logit_scale 0.25, layer_norm_eps 1e-5, tied, max_position_embeddings
+    132096), written as llama.cpp's converter writes them (LayerNorm
+    weights, no FFN norm, logit_scale), cut to 4 of its 32 layers (3 SWA +
+    1 full) and used in the cross-check alone."""
 
     n_embd: int = 4096
     n_layer: int = 32
@@ -348,6 +398,9 @@ class Widths:
     nextn: int = 0
     n_swa: int = 0
     yarn: tuple = ()
+    rope_linear: float = 0.0
+    logit_scale: float = 0.0
+    embd_type: str = "Q4_K"
 
     @property
     def hd(self) -> int:
@@ -370,8 +423,10 @@ OPENLLAMA_3B = Widths(n_embd=3200, n_layer=26, n_head=32, n_head_kv=32, n_ff=864
                       q8=True)
 LLAMA32_1B = Widths(n_embd=2048, n_layer=16, n_head=32, n_head_kv=8, n_ff=8192,
                     n_ctx_train=131072, tied=True, llama3_rope=(32.0, 1.0, 4.0, 8192))
-# Llama-3-8B at full width and depth in llama.cpp's Q5_K_M layout
-LLAMA3_8B_Q5KM = replace(LLAMA3_8B, quant="Q5_K_M")
+# Llama-3-8B at full width in llama.cpp's Q5_K_M layout, cut to 8 of its 32
+# layers (the use_more_bits rule still mixes Q6_K and Q5_K in attn_v and
+# ffn_down, so both stay dense)
+LLAMA3_8B_Q5KM = replace(LLAMA3_8B, n_layer=8, quant="Q5_K_M")
 QWEN3_30B_A3B = Widths(n_embd=2048, n_layer=8, n_head=32, n_head_kv=4, head_dim=128, n_ff=768,
                        n_vocab=151936, rope_theta=1e6, rms_eps=1e-6, n_ctx_train=40960,
                        n_expert=128, n_expert_used=8, arch="qwen3moe", quant="Q2_K")
@@ -399,6 +454,12 @@ GPT_OSS_20B = Widths(n_embd=2880, n_layer=4, n_head=64, n_head_kv=8, head_dim=64
                      n_vocab=201088, rope_theta=150000.0, rms_eps=1e-5, n_ctx_train=131072,
                      n_expert=32, n_expert_used=4, arch="gpt-oss", quant="MXFP4_MOE", n_swa=128,
                      yarn=(32.0, 4096))
+GEMMA3_12B = Widths(n_embd=3840, n_layer=6, n_head=16, n_head_kv=8, head_dim=256, n_ff=15360,
+                    n_vocab=262208, rope_theta=1e6, rms_eps=1e-6, n_ctx_train=131072,
+                    arch="gemma3", tied=True, n_swa=1024, rope_linear=8.0, embd_type="Q6_K")
+COHERE2_7B = Widths(n_embd=4096, n_layer=4, n_head=32, n_head_kv=8, n_ff=14336, n_vocab=256000,
+                    rope_theta=50000.0, n_ctx_train=132096, arch="cohere2", tied=True,
+                    n_swa=4096, logit_scale=0.25, embd_type="Q6_K")
 
 
 def use_more_bits(il: int, n: int) -> bool:
@@ -641,7 +702,11 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
     shared down, K = 1408) are Q8_0. gpt-oss writes llama.cpp's layout:
     q/k/v/o biases, attn_sinks, post_attention_norm as the FFN norm, the
     router with its bias, the expert stacks with their biases (all F32 but
-    the matrices), the sliding window and the YaRN keys."""
+    the matrices), the sliding window and the YaRN keys. gemma3 writes
+    llama.cpp's layout: per-head q/k norms, post_attention_norm and
+    post_ffw_norm beside the FFN norm, linear rope scaling; cohere2 its
+    LayerNorm weights and epsilon, no FFN norm (the FFN reads the attention
+    norm's output) and logit_scale."""
     from tpullama_torch.gguf import GGML_TYPE_TRAITS, GGMLType, GGUFWriter
 
     rng = np.random.default_rng(seed)
@@ -655,6 +720,8 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
               "synthetic-granite-3.0-3b-a800m-shape" if a == "granitemoe" else
               "synthetic-glm-4.5-air-shape" if a == "glm4moe" else
               "synthetic-gpt-oss-20b-shape" if a == "gpt-oss" else
+              "synthetic-gemma-3-12b-shape" if a == "gemma3" else
+              "synthetic-c4ai-command-r7b-shape" if a == "cohere2" else
               "synthetic-openllama-3b-shape" if w.q8 else
               "synthetic-llama3.2-1b-shape" if w.tied else
               "synthetic-mixtral-8x7b-shape" if w.n_expert else "synthetic-llama3-8b-shape")
@@ -668,7 +735,8 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
     if w.head_dim:
         g.add_u32(f"{a}.attention.key_length", w.head_dim)
         g.add_u32(f"{a}.attention.value_length", w.head_dim)
-    g.add_f32(f"{a}.attention.layer_norm_rms_epsilon", w.rms_eps)
+    layer_norm = a in ("command-r", "cohere2")
+    g.add_f32(f"{a}.attention.layer_norm_{'' if layer_norm else 'rms_'}epsilon", w.rms_eps)
     g.add_f32(f"{a}.rope.freq_base", w.rope_theta)
     g.add_u32(f"{a}.vocab_size", w.n_vocab)
     if w.n_expert:
@@ -678,6 +746,11 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
         g.add_u32(f"{a}.expert_feed_forward_length", w.n_ff)
     if w.n_swa:
         g.add_u32(f"{a}.attention.sliding_window", w.n_swa)
+    if w.rope_linear:
+        g.add_str(f"{a}.rope.scaling.type", "linear")
+        g.add_f32(f"{a}.rope.scaling.factor", w.rope_linear)
+    if w.logit_scale:
+        g.add_f32(f"{a}.logit_scale", w.logit_scale)
     if w.yarn:
         g.add_str(f"{a}.rope.scaling.type", "yarn")
         g.add_f32(f"{a}.rope.scaling.factor", w.yarn[0])
@@ -726,7 +799,7 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
 
     E, F, kv, hq = w.n_embd, w.n_ff, w.hd * w.n_head_kv, w.hd * w.n_head
     Q4 = GGMLType.Q4_K
-    quant("token_embd.weight", (w.n_vocab, E), Q4)
+    quant("token_embd.weight", (w.n_vocab, E), GGMLType[w.embd_type])
     norm("output_norm.weight", E)
     if not w.tied:
         quant("output.weight", (w.n_vocab, E), GGMLType.Q6_K)
@@ -753,15 +826,19 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
             if a in ("qwen2", "qwen2moe", "glm4moe", "gpt-oss"):
                 for nm, n in (("attn_q", hq), ("attn_k", kv), ("attn_v", kv)):
                     bias(p + nm + ".bias", n)
-            if a == "qwen3moe":
+            if a in ("qwen3moe", "gemma3"):
                 norm(p + "attn_q_norm.weight", w.hd)
                 norm(p + "attn_k_norm.weight", w.hd)
         quant(p + "attn_output.weight", (E, hq), Q4)
         if a == "gpt-oss":
             bias(p + "attn_output.bias", E)
             bias(p + "attn_sinks.weight", w.n_head)
-        norm(p + ("post_attention_norm.weight" if a in ("glm4moe", "gpt-oss")
-                  else "ffn_norm.weight"), E)
+        if a == "gemma3":
+            norm(p + "post_attention_norm.weight", E)
+            norm(p + "post_ffw_norm.weight", E)
+        if a != "cohere2":
+            norm(p + ("post_attention_norm.weight" if a in ("glm4moe", "gpt-oss")
+                      else "ffn_norm.weight"), E)
         if a == "chatglm":
             quant(p + "ffn_up.weight", (2 * F, E), Q4)
             quant(p + "ffn_down.weight", (E, F), GGMLType.Q8_0)
@@ -932,7 +1009,11 @@ def qmm_cases(timer, gen, device, out: list) -> None:
              # gpt-oss-20b's attn_output (K = 64 x 64 = 4096 onto a 2880
              # hidden; the only packed layer matrix there): the decode step
              # and the packed prefill chunk of 4 lanes, Context.decode's
-             (Q8, 2880, 4096, bf16, bf16, (1, 4, 256, 1024))]
+             (Q8, 2880, 4096, bf16, bf16, (1, 4, 256, 1024)),
+             # gemma-3-12b's [gate] and down (K = 3840 = 15 x 256 and
+             # 15360): the B = 4 decode step and the packed prefill chunk
+             (Q4, 15360, 3840, bf16, bf16, (4, 1024)),
+             (Q4, 3840, 15360, bf16, bf16, (4, 1024))]
     # the q1 / q2 sets (csrc/qmm_lowbit.cu) at the Llama FFN's shapes, the
     # decode step's T = 4 and the packed prefill chunk's T = 1024, then one
     # f32-x and one f32-scale case
@@ -982,6 +1063,8 @@ def qmm_cases(timer, gen, device, out: list) -> None:
                    "bound_ms": b_ms, "bound_by": b_by}
             if (qt, N, K) == (Q8, 2880, 4096):
                 rec["case"] = f"gptoss attn_output T={T}"
+            elif (qt, K) in ((Q4, 3840), (Q4, 15360)):
+                rec["case"] = f"gemma3 {'ffn_gate' if K == 3840 else 'ffn_down'} T={T}"
             emit(rec)
             out.append(rec)
         del w_lib, fields
@@ -1421,24 +1504,25 @@ def ring_positions(lengths, n_swa: int, n_ubatch: int) -> np.ndarray:
     return kv
 
 
-def gptoss_attention_cases(timer, gen, device, out: list) -> None:
-    """gpt-oss-20b's served attention (GPT_OSS_20B: 64 query heads over 8
-    KV heads, G = 8, D = 64, per-head sinks) over both stacks of the
-    two-stack cache: the full layers' 4224 cells (n_ctx 4096) and the SWA
-    layers' ring of 128 + 256 + 1 = 385 cells (n_ubatch 256; S % 4 != 0)
-    under the windowed mask: decode at B = 1 and B = 4, the packed 4 x 256
-    prefill chunk; bf16 and the int8 cache."""
+def iswa_attention_cases(timer, gen, device, out: list, W: Widths, label: str,
+                         sinks: bool = False, int8: tuple = (False,)) -> None:
+    """A served model's attention on the two-stack cache (n_ctx 4096,
+    n_ubatch 256): over the full layers' 4224 cells and over the SWA
+    layers' ring of n_swa + 256 + 1 cells under the windowed mask; decode at
+    B = 1 (flash_decode) and B = 4 (flash_decode_batched), the packed 4 x
+    256 prefill chunk (flash_attention); bf16, with each of `int8` the int8
+    cache too, with `sinks` per-head sinks. Each record is labelled
+    `label` and its stack."""
     import torch
 
     from tpullama_torch.ops.cuda.flash_attention import flash_attention
     from tpullama_torch.ops.cuda.flash_decode import flash_decode
 
-    W = GPT_OSS_20B
     Hq, Hkv, D, S, n_ub, Tq = W.n_head, W.n_head_kv, W.hd, 4224, 256, 256
-    sinks = torch.randn((Hq,), generator=gen, device=device)
+    kw = {"sinks": torch.randn((Hq,), generator=gen, device=device)} if sinks else {}
     lengths4, lanes = [4000, 3000, 1000, 300], [(0, 256), (700, 216), (1800, 100), (3500, 0)]
     for stack, window, n_cells in (("full", 0, S), ("ring", W.n_swa, W.n_swa + n_ub + 1)):
-        label = f"gptoss {stack} S={n_cells}"
+        case = f"{label} {stack} S={n_cells}"
 
         def cache_pos(ns):
             if stack == "ring":
@@ -1448,27 +1532,27 @@ def gptoss_attention_cases(timer, gen, device, out: list) -> None:
                 kv[b, :n] = np.arange(n)
             return kv
 
-        for int8 in (False, True):
-            suffix = "_int8" if int8 else ""
+        for i8 in int8:
+            suffix = "_int8" if i8 else ""
             for lengths, name in (([4000], "flash_decode"), (lengths4, "flash_decode_batched")):
                 q, k, v, mask = attn_inputs(len(lengths), 1, Hq, Hkv, D, n_cells, torch.bfloat16,
                                             gen, device, cache_pos(lengths),
                                             np.asarray(lengths, np.int32)[:, None] - 1, window)
                 sc = None
-                if int8:
+                if i8:
                     k, v, sc = int8_cache(k, v)
                 attn_case(timer, name + suffix, flash_decode, q, k, v, mask, out, scales=sc,
-                          case=label, sinks=sinks)
+                          case=case, **kw)
             qp = np.full((4, Tq), -1, np.int32)
             for b, (n_past, n_new) in enumerate(lanes):
                 qp[b, :n_new] = np.arange(n_past, n_past + n_new)
             q, k, v, mask = attn_inputs(4, Tq, Hq, Hkv, D, n_cells, torch.bfloat16, gen, device,
                                         cache_pos([a + n for a, n in lanes]), qp, window)
             sc = None
-            if int8:
+            if i8:
                 k, v, sc = int8_cache(k, v)
             attn_case(timer, "flash_attention" + suffix, flash_attention, q, k, v, mask, out,
-                      scales=sc, case=label, sinks=sinks)
+                      scales=sc, case=case, **kw)
             del q, k, v, mask
 
 
@@ -1633,7 +1717,10 @@ def word_prompt(rng: np.random.Generator, n_bytes: int) -> str:
 
 
 def phase_model(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
-                phase: str = "model", fused_layer: bool = False):
+                phase: str = "model", fused_layer: bool = False, keep_file: bool = False):
+    """Write the model at `widths` (seed 0) and load it packed in bf16 onto
+    `device`, with checks of what packed. With `keep_file` the file stays
+    at tmp/<phase>.gguf for a cross-check that reads the whole model."""
     import torch
 
     from tpullama_torch import native
@@ -1650,7 +1737,8 @@ def phase_model(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
         torch.cuda.synchronize()
     t_load = time.perf_counter() - t1
     file_bytes = os.path.getsize(path)
-    os.remove(path)
+    if not keep_file:
+        os.remove(path)
     lm = (model.quant_meta or {}).get("layers", {})
     attn = {"attn_q", "attn_k", "attn_v", "attn_output"}
     if widths.dense_lead:
@@ -1722,6 +1810,13 @@ def phase_model(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
     else:
         check(set(lm) == attn | {"ffn_gate", "ffn_up", "ffn_down"},
               "every layer matrix is packed")
+    if widths.tied:
+        check("output" not in model.params and model.params["tok_embd"].dtype == torch.bfloat16,
+              "the dense bf16 token table is the lm_head")
+    if widths.n_swa:
+        swa = model.hparams.swa_layers
+        check(len(swa) == widths.n_layer and any(swa) and not all(swa)
+              and model.hparams.n_swa == widths.n_swa, f"SWA and full layers: {swa}")
     # the loader decodes and repacks through the native host library (it
     # builds on first use); on the card's machine it must have built
     used_native = native.resolve_native(None) and native.get_lib() is not None
@@ -1867,67 +1962,107 @@ def phase_crosscheck(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
     emit({**rec, "seconds": time.perf_counter() - t0})
 
 
-def phase_gptoss_crosscheck(tmp: str, card: str, device: str = "cuda",
-                            widths: Widths = GPT_OSS_20B, n_layer: int = 2, n_prompt: int = 600,
-                            n_ubatch: int = 256, n_ctx: int = 1024, n_greedy: int = 16,
-                            phase: str = "gptoss_crosscheck") -> None:
-    """gpt-oss at its widths cut to n_layer layers (one SWA layer and one
-    full), f32 activations and cache, on the two-stack cache: a prompt of
-    n_prompt tokens, longer than the ring (n_swa + n_ubatch + 1 cells),
-    prefilled in n_ubatch chunks so that the ring wraps, on `device` (the
-    kernels) against the CPU port (plain versions, its attn_output
-    dequantized once; dense_reference): the last 32 prompt logits within
-    1e-3 of their largest magnitude plus 1e-4, n_greedy greedy tokens
-    identical, both stacks' positions and the host mirror equal cell for
-    cell after them; then on the card the same prompt on swa_full's one
-    stack gives the same greedy tokens."""
+def phase_swa_crosscheck(tmp: str, card: str, device: str = "cuda",
+                         widths: Widths = GPT_OSS_20B, n_layer: int = 2, n_prompt: int = 600,
+                         n_ubatch: int = 256, n_ctx: int = 1024, n_greedy: int = 16,
+                         phase: str = "gptoss_crosscheck", path: str | None = None,
+                         single_stack_layers: int = 0) -> None:
+    """A model with sliding-window layers (gpt-oss, gemma3, cohere2) at its
+    widths cut to n_layer layers (both kinds among them), f32 activations
+    and cache, on the two-stack cache: a prompt of n_prompt tokens,
+    prefilled in n_ubatch chunks (longer than the ring of n_swa + n_ubatch
+    + 1 cells, the ring wraps), on `device` (the kernels) against the CPU
+    port (plain versions, its packed matrices dequantized once;
+    dense_reference): the last 32 prompt logits within 1e-3 of their
+    largest magnitude plus 1e-4, n_greedy greedy tokens identical, both
+    stacks' positions and the host mirror equal cell for cell after them;
+    then on the card the same prompt on swa_full's one stack gives the same
+    greedy tokens. `path`: a file of n_layer layers already written (the
+    model phase's), read instead of writing the cut. With
+    `single_stack_layers`, the first that many layers of both models (all
+    of them SWA layers) run the same prompt again on one windowed stack,
+    card against CPU."""
     import torch
 
-    from tpullama_torch.models import load_model
+    from tpullama_torch.models import LoadedModel, load_model
     from tpullama_torch.runtime import Context, ContextParams
 
     t0 = time.perf_counter()
-    path = os.path.join(tmp, f"{phase}.gguf")
-    write_llama_gguf(path, replace(widths, n_layer=n_layer), seed=1)
+    if path is None:
+        path = os.path.join(tmp, f"{phase}.gguf")
+        write_llama_gguf(path, replace(widths, n_layer=n_layer), seed=1)
     gpu = load_model(path, dtype=torch.float32, device=device, packed=True)
     cpu = dense_reference(load_model(path, dtype=torch.float32, device="cpu", packed=True))
+    check(gpu.hparams.n_layer == n_layer, f"{gpu.hparams.n_layer} layers, not {n_layer}")
     os.remove(path)
     prompt = gpu.vocab.tokenize(word_prompt(np.random.default_rng(2), n_prompt + 40),
                                 add_special=True)
     prompt = np.asarray(prompt[:n_prompt], np.int32)
     check(len(prompt) == n_prompt, f"prompt has {len(prompt)} tokens")
     cp = ContextParams(n_ctx=n_ctx, n_ubatch=n_ubatch)
-    cg, cc = Context(gpu, cp), Context(cpu, cp)
+
+    def pair_run(g_model, c_model, params):
+        """Prefill and greedy tokens, card against CPU; returns the card's
+        Context, its last logits' error and tolerance, its tokens and the
+        two prefill seconds."""
+        cg, cc = Context(g_model, params), Context(c_model, params)
+        t1 = time.perf_counter()
+        lg = cg.decode(prompt, n_logits=32)
+        t_card = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        lc = cc.decode(prompt, n_logits=32)
+        t_cpu = time.perf_counter() - t1
+        err = float(np.abs(lg - lc).max())
+        tol = 1e-3 * float(np.abs(lc).max()) + 1e-4
+        check(np.isfinite(lg).all() and err <= tol, f"prefill logits err {err} > tol {tol}")
+        out_g = greedy_continue(cg, lg[-1], n_greedy)
+        out_c = greedy_continue(cc, lc[-1], n_greedy)
+        check(out_g == out_c, f"greedy tokens differ: card {out_g} cpu {out_c}")
+        if isinstance(cg.kv_pos, dict):
+            for stack in ("full", "swa"):
+                check(torch.equal(cg.kv_pos[stack].cpu(), cc.kv_pos[stack]),
+                      f"the {stack} stack's positions differ")
+        else:
+            check(torch.equal(cg.kv_pos.cpu(), cc.kv_pos), "the positions differ")
+        check(np.array_equal(cg._pos_host, cc._pos_host)
+              and np.array_equal(cg.n_past, cc.n_past), "the host mirrors differ")
+        return cg, err, tol, out_g, {"card": t_card, "cpu": t_cpu}
+
     ring = widths.n_swa + n_ubatch + 1
-    check(cg._S_swa == cc._S_swa == ring < n_prompt and isinstance(cg.kv_k, dict),
+    cg, err, tol, out_g, prefill_s = pair_run(gpu, cpu, cp)
+    check(cg._S_swa == ring and isinstance(cg.kv_k, dict),
           f"a ring of {cg._S_swa} cells, not {ring}")
-    t1 = time.perf_counter()
-    lg = cg.decode(prompt, n_logits=32)
-    t_card = time.perf_counter() - t1
-    t1 = time.perf_counter()
-    lc = cc.decode(prompt, n_logits=32)
-    t_cpu = time.perf_counter() - t1
-    err = float(np.abs(lg - lc).max())
-    tol = 1e-3 * float(np.abs(lc).max()) + 1e-4
-    check(np.isfinite(lg).all() and err <= tol, f"prefill logits err {err} > tol {tol}")
-    out_g = greedy_continue(cg, lg[-1], n_greedy)
-    out_c = greedy_continue(cc, lc[-1], n_greedy)
-    check(out_g == out_c, f"greedy tokens differ: card {out_g} cpu {out_c}")
-    for stack in ("full", "swa"):
-        check(torch.equal(cg.kv_pos[stack].cpu(), cc.kv_pos[stack]),
-              f"the {stack} stack's positions differ")
-    check(np.array_equal(cg._pos_host, cc._pos_host) and np.array_equal(cg.n_past, cc.n_past),
-          "the host mirrors differ")
     full = Context(gpu, replace(cp, swa_full=True))
     check(not isinstance(full.kv_k, dict), "swa_full keeps one stack")
     lf = full.decode(prompt, n_logits=1)
     out_f = greedy_continue(full, lf[-1], n_greedy)
     check(out_f == out_g, f"the ring's tokens {out_g} differ from swa_full's {out_f}")
-    emit({"phase": phase, "card": card, "layers": n_layer, "swa_layers": gpu.hparams.swa_layers,
-          "prompt_tokens": n_prompt, "n_ubatch": n_ubatch, "ring_cells": ring,
-          "full_cells": cg._S, "prefill_max_abs_err": err, "tol": tol,
-          "prefill_s": {"card": t_card, "cpu": t_cpu}, "greedy_tokens": out_g,
-          "swa_full_greedy_tokens": out_f, "seconds": time.perf_counter() - t0})
+    rec = {"phase": phase, "card": card, "layers": n_layer, "swa_layers": gpu.hparams.swa_layers,
+           "prompt_tokens": n_prompt, "n_ctx": n_ctx, "n_ubatch": n_ubatch, "ring_cells": ring,
+           "ring_wrapped": n_prompt > ring, "full_cells": cg._S, "prefill_max_abs_err": err,
+           "tol": tol, "prefill_s": prefill_s, "greedy_tokens": out_g,
+           "swa_full_greedy_tokens": out_f}
+    del cg, full
+    if single_stack_layers:
+        # the first layers alone: SWA layers only, so one stack of n_ctx
+        # cells under the windowed mask, as the JAX Context keeps them
+        def first_layers(m):
+            n = single_stack_layers
+            hp = replace(m.hparams, n_layer=n, swa_layers=m.hparams.swa_layers[:n])
+            layers = {k: ({f: a[:n] for f, a in v.items()} if isinstance(v, dict) else v[:n])
+                      for k, v in m.params["layers"].items()}
+            return LoadedModel(hparams=hp, params={**m.params, "layers": layers}, reader=None,
+                               vocab=m.vocab, quant_meta=m.quant_meta, device=m.device)
+
+        g1, c1 = first_layers(gpu), first_layers(cpu)
+        check(all(g1.hparams.swa_layers), "the first layers are SWA layers")
+        cg1, err1, tol1, out1, s1 = pair_run(g1, c1, cp)
+        check(cg1._S_swa == 0 and not isinstance(cg1.kv_k, dict),
+              "the SWA layers alone keep one stack")
+        rec["single_stack"] = {"layers": single_stack_layers, "cells": cg1._S,
+                               "prefill_max_abs_err": err1, "tol": tol1, "prefill_s": s1,
+                               "greedy_tokens": out1}
+    emit({**rec, "seconds": time.perf_counter() - t0})
 
 
 def swa_memory(model, eng, card: str, phase: str) -> None:
@@ -3054,7 +3189,7 @@ def step_bound(ctx, rows: int, kv_cells: int, routing: list, n_steps: int) -> tu
     model = ctx.model
     hp = model.hparams
     p = model.params
-    out = p["output"]
+    out = p.get("output", p["tok_embd"])  # a tied model's lm_head: the token table
     if isinstance(out, dict):
         m = model.quant_meta["output"]
         n_bytes = sum(nbytes(a) for a in out.values())
@@ -3684,6 +3819,12 @@ PATH_KERNELS = {
     # stacks of the two-stack cache; the experts and the lm_head are dense
     "gptoss_crosscheck": _DENSE_CROSS,
     "gptoss_serve": _DENSE_SERVE,
+    # gemma-3-12b: every layer matrix Q4_K (K = 3840, 4096, 15360); D = 256
+    # attention over both stacks; the tied lm_head is the dense token
+    # table. command-r7b: every layer matrix Q4_K, NoPE full layers
+    "gemma3_crosscheck": _DENSE_CROSS,
+    "gemma3_serve": _DENSE_SERVE,
+    "cohere2_crosscheck": _DENSE_CROSS,
     # lanes saved and loaded (f32 and int8 caches), the HTTP engine, the CLI
     "state": ("qmm_gemv", "qmm_tiled", "flash_attention", "flash_decode", "flash_decode_batched",
               "flash_attention_int8", "flash_decode_int8"),
@@ -3701,7 +3842,17 @@ PATHS = (("", LLAMA3_8B, 2, 4, {}),
          ("granitemoe_", GRANITE_3B_A800M, 2, 0, {}),
          ("qwen3mxfp4_", QWEN3_30B_A3B_MXFP4, 1, 4, {}),
          ("glm4moe_", GLM_4_5_AIR, 2, 4, {}),
-         ("gptoss_", GPT_OSS_20B, 2, 4, {}))
+         ("gptoss_", GPT_OSS_20B, 2, 4, {}),
+         ("gemma3_", GEMMA3_12B, 6, 4, {}),  # the cross-check reads the model's file
+         ("cohere2_", COHERE2_7B, 4, 0, {}))  # the cross-check alone
+# the cross-checks on the two-stack cache, with their options: gpt-oss's
+# 600-token prompt wraps its 385-cell ring; gemma-3-12b's 1400 tokens its
+# 1281-cell ring, then its first 2 layers (SWA layers only) run on one
+# windowed stack; command-r7b's ring of 4096 + 256 + 1 cells stands beside
+# the full stack only from n_ctx 8192 (its prompt does not wrap it)
+SWA_CROSS = {"gptoss_": {},
+             "gemma3_": dict(n_prompt=1400, n_ctx=2048, single_stack_layers=2),
+             "cohere2_": dict(n_prompt=64, n_ctx=8192)}
 # the cross-checks' prompt tokens where not 32: Qwen2-57B-A14B's CPU steps
 # dequantize its 20480-wide shared expert and 151936-row output per call
 CROSS_PROMPT = {"qwen2moe_": 16}
@@ -3808,7 +3959,11 @@ def main() -> int:
         fused_cases(timer, gen, device, records)
         gathered_cases(timer, gen, device, records)
         attention_cases(timer, gen, device, records)
-        gptoss_attention_cases(timer, gen, device, records)
+        # gpt-oss-20b's (64/8 heads, D = 64, sinks; ring 385 cells) and
+        # gemma-3-12b's (16/8 heads, D = 256; ring 1281 cells, window 1024)
+        iswa_attention_cases(timer, gen, device, records, GPT_OSS_20B, "gptoss", sinks=True,
+                             int8=(False, True))
+        iswa_attention_cases(timer, gen, device, records, GEMMA3_12B, "gemma3")
         del timer
         torch.cuda.empty_cache()
         emit({"phase": "kernels", "cases": len(records), "seconds": time.perf_counter() - t0})
@@ -3824,13 +3979,19 @@ def main() -> int:
             continue
         fused = bool(opts.get("fused_layer"))
         with tempfile.TemporaryDirectory() as tmp:
-            model = None
+            model = model_path = None
             if {"model", "serve", "graphs", "http", "spec", "int8kv"} & set(run):
-                model = phase_model(tmp, widths, phase=pre + "model", fused_layer=fused)
-            if "crosscheck" in run and pre == "gptoss_":
+                # one file for the model and a cross-check of all its layers
+                keep = "crosscheck" in run and cross_layers == widths.n_layer
+                model = phase_model(tmp, widths, phase=pre + "model", fused_layer=fused,
+                                    keep_file=keep)
+                if keep:
+                    model_path = os.path.join(tmp, f"{pre}model.gguf")
+            if "crosscheck" in run and pre in SWA_CROSS:
                 launches[pre + "crosscheck"], _ = path_launches(
-                    pre + "crosscheck", lambda: phase_gptoss_crosscheck(
-                        tmp, smi, widths=widths, n_layer=cross_layers))
+                    pre + "crosscheck", lambda: phase_swa_crosscheck(
+                        tmp, smi, widths=widths, n_layer=cross_layers, phase=pre + "crosscheck",
+                        path=model_path, **SWA_CROSS[pre]))
             elif "crosscheck" in run:
                 launches[pre + "crosscheck"], _ = path_launches(
                     pre + "crosscheck", lambda: phase_crosscheck(
@@ -3839,9 +4000,10 @@ def main() -> int:
                         n_prompt=CROSS_PROMPT.get(pre, 32), **opts))
             serve_tokens = None
             if "serve" in run:
-                # dense projections (a heterogeneous stack's are all dense)
+                # dense projections (a heterogeneous stack's are all dense; a
+                # tied lm_head, the dense token table)
                 layers = model.params.get("layers", {})
-                dense = "layer_list" in model.params or [
+                dense = "layer_list" in model.params or "output" not in model.params or [
                     k for k in _LAYER_ROLES if k in layers and not isinstance(layers[k], dict)]
                 launches[pre + "serve"], (eng, prompt, serve_tokens) = path_launches(
                     pre + "serve", lambda: phase_serve(model, smi, phase=pre + "serve",

@@ -24,7 +24,8 @@ from tpullama_torch.ops import qweights as t_qw
 from tpullama_torch.runtime import sampling as t_sampling
 from tpullama_torch.tokenizer import Vocab as TVocab
 
-ARCHS = ["llama", "qwen2", "mistral", "chatglm"]
+ARCHS = ["llama", "qwen2", "mistral", "chatglm", "gemma", "gemma2", "gemma3", "command-r",
+         "cohere2"]
 PACKED = sorted(j_qw.PACKED_TYPES, key=lambda t: t.value)
 TEXTS = ["Once upon a time", "  two  spaces\tand a tab\n", "bytes: é中\U0001F600",
          "<s> literal special", ""]
@@ -49,13 +50,17 @@ def test_hparams_equal(tiny, arch):
     assert vars(t) == {k: getattr(j, k) for k in vars(t)}
 
 
-@pytest.mark.parametrize("arch", ["gemma", "mamba", "bert"])
+@pytest.mark.parametrize("arch", ["phi2", "mamba", "bert"])
 def test_hparams_refuse_other_archs(tmp_path, arch):
     p = str(tmp_path / "m.gguf")
     make_tiny_llama_gguf(p, arch=arch, n_embd=64, n_ff=128, seed=5)
     JHParams.from_gguf(j_gguf.GGUFReader(p))  # the original reads it
     with pytest.raises(NotImplementedError, match=arch):
         THParams.from_gguf(t_gguf.GGUFReader(p))
+    if arch == "phi2":
+        # a flag-only arch of the JAX package's llama forward, by its item
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
+            THParams.from_gguf(t_gguf.GGUFReader(p))
 
 
 @pytest.mark.parametrize("arch", ARCHS)

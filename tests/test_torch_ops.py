@@ -38,6 +38,39 @@ def test_rms_norm_bf16_keeps_dtype():
     assert rms_norm(x, torch.ones(64)).dtype == torch.bfloat16
 
 
+@pytest.mark.parametrize("with_weight,with_bias", [(False, False), (True, False), (True, True)])
+def test_layer_norm(with_weight, with_bias):
+    import jax.numpy as jnp
+
+    from tpullama.ops.norms import layer_norm as j_ln
+    from tpullama_torch.ops.norms import layer_norm as t_ln
+
+    x = _x(3, 5, 64, seed=11, scale=3.0) + 2.0  # a mean away from 0
+    w = _x(64, seed=12) if with_weight else None
+    b = _x(64, seed=13) if with_bias else None
+    got = t_ln(torch.from_numpy(x), None if w is None else torch.from_numpy(w),
+               None if b is None else torch.from_numpy(b), 1e-5).numpy()
+    want = np.asarray(j_ln(jnp.asarray(x), None if w is None else jnp.asarray(w),
+                           None if b is None else jnp.asarray(b), 1e-5))
+    np.testing.assert_allclose(got, want, **TOL)
+    assert t_ln(torch.from_numpy(x).to(torch.bfloat16), None).dtype == torch.bfloat16
+
+
+def test_gelu():
+    """The tanh form (ggml's GELU), over values where it differs from the
+    erf form."""
+    import jax.numpy as jnp
+
+    from tpullama.ops.activations import gelu as j_gelu
+    from tpullama.ops.activations import gelu_erf as j_gelu_erf
+    from tpullama_torch.ops.activations import gelu
+
+    x = _x(4, 96, seed=14, scale=4.0)
+    got = gelu(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, np.asarray(j_gelu(jnp.asarray(x))), **TOL)
+    assert np.abs(got - np.asarray(j_gelu_erf(jnp.asarray(x)))).max() > 1e-5
+
+
 def test_silu_swiglu():
     import jax.numpy as jnp
 

@@ -1,17 +1,21 @@
 """Model hyperparameters loaded from GGUF metadata: the llama family,
-chatglm and the MoE archs that run through the llama forward (qwen2moe,
+chatglm, the MoE archs that run through the llama forward (qwen2moe,
 qwen3moe, granitemoe, gpt-oss with its alternating sliding-window layers,
 and the heterogeneous dense/MoE stacks of glm4moe, dots1, ernie4_5-moe and
-bailingmoe2).
+bailingmoe2), and the gemma and cohere families (gemma, gemma2, gemma3,
+command-r, cohere2).
 
 The part of tpullama/models/hparams.py that the port reads. Key strings
 follow the reference's key-name table exactly (src/llama-arch.cpp:119-268);
 the fields are those of src/llama-hparams.h that these archs set, with the
 JAX package's per-arch branches for them (qwen2moe's unnormalized top-k
 weights, granite's scale stack, glm4moe's and bailingmoe2's trailing NextN
-layers, gpt-oss's SWA pattern, post-top-k softmax and swiglu_oai). Other
-architectures' fields and branches come across with the slice that ports
-them; until then from_gguf refuses them, the MoE archs by name with their
+layers, gpt-oss's SWA pattern, post-top-k softmax and swiglu_oai, gemma's
+embedding scale and GELU, gemma2's and gemma3's SWA patterns, softcaps and
+attention scales, command-r's LayerNorm, parallel residual and logit
+scale, cohere2's NoPE full layers). Other architectures' fields and
+branches come across with the slice that ports them; until then from_gguf
+refuses them, the MoE archs and the flag-only archs by name with their
 ROADMAP item.
 """
 
@@ -27,25 +31,41 @@ ROPE_SCALING_YARN = "yarn"
 # a fused biased [Q|K|V] and a fused [gate|up] FFN; qwen3moe's per-head q/k
 # norms; the MoE archs' shared experts and granite's scale stack; the
 # heterogeneous dense/MoE stacks, loaded as a per-layer list; gpt-oss's
-# sinks, biases and SWA layers)
+# sinks, biases and SWA layers; gemma's embedding scale and GELU, gemma2's
+# and gemma3's sandwich norms, softcaps and SWA layers; command-r's
+# LayerNorm and parallel residual, cohere2's NoPE full layers)
 LLAMA_FAMILY = ("llama", "mistral", "qwen2", "chatglm", "qwen2moe", "qwen3moe", "granitemoe",
-                "glm4moe", "dots1", "ernie4_5-moe", "bailingmoe2", "gpt-oss")
+                "glm4moe", "dots1", "ernie4_5-moe", "bailingmoe2", "gpt-oss", "gemma",
+                "gemma2", "gemma3", "command-r", "cohere2")
 # the other MoE archs the JAX package runs through its llama forward, each
 # refused by name until its slice (ROADMAP.md Queue 1 item 5)
 MOE_NOT_PORTED = ("hunyuan-moe", "bailingmoe", "llama4", "afmoe", "minimax-m2",
                   "grovemoe", "olmoe", "phimoe", "dbrx", "grok", "arctic",
                   "qwen3vlmoe", "llada-moe", "smallthinker")
-# rope type per arch (llama_model_rope_type, src/llama-model.cpp:7777+):
-# NORM (0, adjacent pairs) for these, NEOX (2, split halves) for the rest
-_NORM_ROPE = ("llama", "chatglm", "granitemoe", "ernie4_5-moe")
+# the dense archs the JAX package's tests run through its llama forward
+# from per-arch flags (its hparams branches), each refused by name until
+# its slice (ROADMAP.md Queue 1 item 7)
+FLAG_NOT_PORTED = ("phi2", "falcon", "gptneox", "gpt2", "starcoder", "starcoder2", "mpt",
+                   "bloom", "orion", "stablelm", "olmo", "olmo2", "chameleon", "bitnet",
+                   "granite", "minicpm", "baichuan", "xverse", "refact", "codeshell", "jais",
+                   "nemotron", "exaone", "exaone4", "glm4", "smollm3", "arcee", "ernie4_5",
+                   "hunyuan-dense", "seed_oss", "apertus", "plamo", "pangu-embedded", "qwen",
+                   "qwen2vl", "qwen3vl", "cogvlm")
+# rope type per arch (llama_model_rope_type, src/llama-model.cpp:7777+; the
+# JAX package's NORM_ARCHES): NORM (0, adjacent pairs) for these, NEOX (2,
+# split halves) for the rest (the gemmas)
+_NORM_ROPE = ("llama", "chatglm", "granitemoe", "ernie4_5-moe", "command-r", "cohere2")
 
 
 def check_arch(arch: str) -> None:
-    """Raise for an arch the port does not load, an MoE arch of the JAX
-    package's llama forward by name with its ROADMAP item."""
+    """Raise for an arch the port does not load, an MoE or flag-only arch
+    of the JAX package's llama forward by name with its ROADMAP item."""
     if arch in MOE_NOT_PORTED:
         raise NotImplementedError(
             f"tpullama_torch: arch {arch!r} is not ported yet (ROADMAP.md Queue 1 item 5)")
+    if arch in FLAG_NOT_PORTED:
+        raise NotImplementedError(
+            f"tpullama_torch: arch {arch!r} is not ported yet (ROADMAP.md Queue 1 item 7)")
     if arch not in LLAMA_FAMILY:
         raise NotImplementedError(f"tpullama_torch: arch {arch!r} is not ported yet")
 
@@ -64,6 +84,7 @@ class HParams:
     n_embd_head_v: int = 0
     n_rot: int = 0
     f_norm_rms_eps: float = 1e-5
+    f_norm_eps: float = 1e-5  # LayerNorm's (norm_type "layer")
 
     # rope
     rope_type: int = 2  # NEOX default; set per arch
@@ -85,12 +106,23 @@ class HParams:
     swa_type: str = "standard"  # "standard" | "chunked" (llama4, not ported)
     swa_layers: tuple = ()  # per-layer bool: uses the sliding window
     rope_freq_base_swa: float = 10000.0  # rope base of the SWA layers
+    rope_swa_only: bool = False  # rope on the SWA layers alone; the full ones NoPE (cohere2)
 
-    # granite's scale stack (0 = off): token rows, each residual branch,
-    # the final logits (granite: 1 / logit_scale)
+    # the scale stack (0 = off): token rows (granite; gemma sqrt(n_embd)),
+    # each residual branch, the final logits (granite: 1 / logit_scale,
+    # command-r: logit_scale)
     embd_scale: float = 0.0
+    embd_scale_tokens_only: bool = False  # gemma3: raw embedding inputs unscaled
     f_residual_scale: float = 0.0
     final_logit_scale: float = 0.0
+
+    # block layout
+    act: str = "silu"  # the gated FFN's activation: "silu" | "gelu" (gemma)
+    norm_type: str = "rms"  # "rms" | "layer" (command-r, cohere2: LayerNorm)
+    pre_norm: bool = True
+    qk_norm_ln: bool = False  # per-head q/k norms as LayerNorm under RMS block norms
+    swin_norm: bool = False
+    parallel_residual: bool = False  # attention and FFN from one norm, summed (command-r)
 
     # FFN
     ffn_fused_up: bool = False  # chatglm: [gate|up] fused in ffn_up
@@ -160,6 +192,7 @@ class HParams:
             n_embd_head_v=n_embd_head_v,
             n_rot=n_rot,
             f_norm_rms_eps=float(g("attention.layer_norm_rms_epsilon", 1e-5)),
+            f_norm_eps=float(g("attention.layer_norm_epsilon", 1e-5)),
             rope_type=0 if arch in _NORM_ROPE else 2,
             rope_freq_base=float(g("rope.freq_base", 10000.0)),
             rope_freq_scale=rope_freq_scale,
@@ -226,4 +259,40 @@ class HParams:
             hp.moe_act = "swiglu_oai"
             if hp.f_attention_scale == 0.0 and n_rot:
                 hp.f_attention_scale = 1.0 / math.sqrt(n_rot)
+        if arch in ("command-r", "cohere2"):
+            # LayerNorm (no biases), attention and FFN from the attention
+            # norm summed onto the residual, logits times logit_scale
+            hp.norm_type = "layer"
+            hp.parallel_residual = True
+            hp.final_logit_scale = hp.f_logit_scale
+        if arch == "cohere2":
+            # SWA pattern 4 (3 SWA : 1 full); rope on the SWA layers alone,
+            # the full ones NoPE (models/cohere2-iswa.cpp:61)
+            hp.swa_layers = tuple(il % 4 < 3 for il in range(hp.n_layer))
+            hp.rope_freq_base_swa = hp.rope_freq_base
+            hp.rope_swa_only = True
+        if arch in ("gemma", "gemma2", "gemma3"):
+            hp.embd_scale = math.sqrt(n_embd) if n_embd else 0.0
+            hp.act = "gelu"
+        if arch == "gemma3":
+            # SWA pattern 6: every 6th layer full (llama-model.cpp:1261-1286)
+            hp.embd_scale_tokens_only = True
+            hp.swa_layers = tuple(il % 6 < 5 for il in range(hp.n_layer))
+            hp.rope_freq_base_swa = 10000.0
+            if hp.n_swa == 0:
+                hp.n_swa = 1024
+            if hp.f_attention_scale == 0.0:
+                if hp.n_layer == 62:  # 27B
+                    hp.f_attention_scale = 1.0 / math.sqrt(n_embd / max(n_head, 1))
+                else:
+                    hp.f_attention_scale = 1.0 / math.sqrt(n_embd_head_k)
+        elif arch == "gemma2":
+            hp.swa_layers = tuple(il % 2 < 1 for il in range(hp.n_layer))
+            hp.rope_freq_base_swa = hp.rope_freq_base
+            if hp.attn_logit_softcap == 0.0:
+                hp.attn_logit_softcap = 50.0
+            if hp.final_logit_softcap == 0.0:
+                hp.final_logit_softcap = 30.0
+            if hp.n_layer == 46 and hp.f_attention_scale == 0.0:  # 27B
+                hp.f_attention_scale = 1.0 / math.sqrt(n_embd / max(n_head, 1))
         return hp

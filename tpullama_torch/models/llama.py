@@ -3,19 +3,32 @@
 Port of tpullama/models/llama.py:llama_forward for the llama family
 (llama, llama-2/3, mistral, qwen2 biases, chatglm's fused biased [Q|K|V]
 and fused [gate|up], Mixtral-style MoE, the MoE archs qwen2moe,
-qwen3moe, granitemoe and gpt-oss, and the heterogeneous dense/MoE stacks
-of glm4moe, dots1, ernie4_5-moe and bailingmoe2; no parallel modes):
-token rows (times embd_scale) -> per layer [rms_norm -> q/k/v (+bias) ->
-per-head q/k rms_norm -> rope -> write K/V into the cache -> attention
-(with gpt-oss's per-head sinks) -> o-proj (+bias; times
-f_residual_scale) -> residual -> rms_norm -> SwiGLU FFN, or MoE FFN plus
-the shared expert (qwen2moe: gated by its own sigmoid) (times
+qwen3moe, granitemoe and gpt-oss, the heterogeneous dense/MoE stacks
+of glm4moe, dots1, ernie4_5-moe and bailingmoe2, and the gemma and cohere
+families; no parallel modes): token rows (times embd_scale) -> per layer
+[norm -> q/k/v (+bias) -> per-head q/k norm -> rope -> write K/V into the
+cache -> attention (with gpt-oss's per-head sinks, gemma2's softcap) ->
+o-proj (+bias; post_attn_norm; times f_residual_scale) -> residual ->
+norm -> gated FFN (SiLU, or GELU for the gemmas), or MoE FFN plus the
+shared expert (qwen2moe: gated by its own sigmoid) (post_ffn_norm; times
 f_residual_scale) -> residual], final norm, lm_head, then output_bias,
-final_logit_scale and the final softcap in f32.
+final_logit_scale and the final softcap in f32. The norms are RMS norms,
+or LayerNorms where hp.norm_type is "layer" (command-r, cohere2), whose
+FFN reads the attention norm's output and whose layer adds both branches
+to its input at once (hp.parallel_residual). gemma2's and gemma3's
+sandwich norms (post_attn_norm, post_ffn_norm) are RMS norms, as in the
+JAX package.
 
-Sliding-window layers (hp.swa_layers, gpt-oss's even layers) take the
-second of the Context's mask pair (full, windowed) and a rope table with
-rope_freq_base_swa and without rope_freqs, as the JAX package's. With the
+Sliding-window layers (hp.swa_layers: gpt-oss's even layers, gemma2's,
+gemma3's five of six, cohere2's three of four) take the second of the
+Context's mask pair (full, windowed) and a rope table with
+rope_freq_base_swa and without rope_freqs, as the JAX package's; with
+hp.rope_swa_only (cohere2) the full layers take no rope. One difference
+by design: gemma3's SWA layers rotate at freq_scale 1, as the published
+model does (llama.cpp's rope_freq_scale_train_swa, HF's local rotary
+embedding), where the JAX package keeps the model's linear scale there
+(ROADMAP.md Queue 3 item 11); the two agree on files without rope
+scaling. With the
 two-stack cache (runtime/context.py: kv_k, kv_v {"full": ..., "swa": ...})
 each layer writes and reads its own stack at its index there, an SWA layer
 at its ring cells cache_slots_swa. With the fused layer on,
@@ -48,12 +61,12 @@ from dataclasses import replace
 import torch
 from torch import nn
 
-from ..ops.activations import silu
+from ..ops.activations import gelu, silu
 from ..ops.attention import attention_auto
 from ..ops.cuda.fused_layer import fused_ok, fused_postattn, resolve_fused_layer
 from ..ops.cuda.qmm import quantized_matmul, resolve_tile_k
 from ..ops.moe import moe_ffn
-from ..ops.norms import rms_norm
+from ..ops.norms import layer_norm, rms_norm
 from ..ops.rope import RopeParams, apply_rope, rope_cache
 from .hparams import HParams
 
@@ -133,6 +146,15 @@ def layer_cache(c, li: int):
     return tuple(t[li] for t in c) if isinstance(c, tuple) else c[li]
 
 
+def norm_fn(hp: HParams, x: torch.Tensor, weight) -> torch.Tensor:
+    """A block norm: LayerNorm with f_norm_eps where hp.norm_type is
+    "layer", else RMS norm with f_norm_rms_eps (the JAX package's
+    llama.py:284-288; the ported archs' norms have no bias)."""
+    if hp.norm_type == "layer":
+        return layer_norm(x, weight, eps=hp.f_norm_eps)
+    return rms_norm(x, weight, hp.f_norm_rms_eps)
+
+
 class LlamaLayer(nn.Module):
     """One transformer block over views of the stacked layer weights.
     `fused_layer`: take the fused post-attention path where the JAX
@@ -147,17 +169,22 @@ class LlamaLayer(nn.Module):
         self.meta = meta
         self.hp = hp
         self.tile_k = tile_k
-        self.fused = (fused_layer and hp.ffn_fused_up and "ffn_gate_inp" not in w
-                      and not hp.f_residual_scale and "ffn_norm" in w
-                      and not any(k in w for k in _FUSED_EXCLUDE) and fused_ok(hp, w, meta))
+        self.fused = (fused_layer and hp.pre_norm and not hp.parallel_residual
+                      and hp.ffn_fused_up and hp.norm_type != "layer" and not hp.swin_norm
+                      and "ffn_gate_inp" not in w and not hp.f_residual_scale
+                      and "ffn_norm" in w and not any(k in w for k in _FUSED_EXCLUDE)
+                      and fused_ok(hp, w, meta))
 
     def forward(self, x, cos, sin, k_cache, v_cache, slots, mask):
+        """cos, sin: the layer's rope table, None for a layer without rope
+        (a cohere2 full layer, or an arch without rope)."""
         hp, w, m, tk = self.hp, self.w, self.meta, self.tile_k
         sinks = w.get("attn_sinks")
         B, T, _ = x.shape
         Hq, Hkv = hp.n_head, hp.n_head_kv
         Dk, Dv = hp.n_embd_head_k, hp.n_embd_head_v
-        h = rms_norm(x, w["attn_norm"], hp.f_norm_rms_eps)
+        h = norm_fn(hp, x, w["attn_norm"])
+        h_attn = h
         if "attn_qkv" in w:
             # fused QKV (chatglm): rows [Q | K | V]
             qkv = linear(h, w["attn_qkv"], m.get("attn_qkv"), tk)
@@ -177,11 +204,15 @@ class LlamaLayer(nn.Module):
         k = k.reshape(B, T, Hkv, Dk)
         v = v.reshape(B, T, Hkv, Dv)
         if "attn_q_norm" in w:
-            # per-head q/k RMS norm before rope (qwen3moe; the JAX package's
-            # llama.py:343-345, its only variant these archs take)
-            q = rms_norm(q, w["attn_q_norm"], hp.f_norm_rms_eps)
-            k = rms_norm(k, w["attn_k_norm"], hp.f_norm_rms_eps)
-        if hp.rope_type >= 0:
+            # per-head q/k norm before rope (qwen3moe, gemma3: RMS; a
+            # command-r file's: LayerNorm; the JAX package's llama.py:329-345)
+            if hp.norm_type == "layer" or hp.qk_norm_ln:
+                q = layer_norm(q, w["attn_q_norm"], eps=hp.f_norm_eps)
+                k = layer_norm(k, w["attn_k_norm"], eps=hp.f_norm_eps)
+            else:
+                q = rms_norm(q, w["attn_q_norm"], hp.f_norm_rms_eps)
+                k = rms_norm(k, w["attn_k_norm"], hp.f_norm_rms_eps)
+        if cos is not None:
             q = apply_rope(q, cos, sin, hp.rope_type, hp.n_rot)
             k = apply_rope(k, cos, sin, hp.rope_type, hp.n_rot)
         kq_scale = hp.f_attention_scale if hp.f_attention_scale != 0.0 else 1.0 / (Dk**0.5)
@@ -213,10 +244,17 @@ class LlamaLayer(nn.Module):
         att = linear(att, w["attn_output"], m.get("attn_output"), tk)
         if "attn_output_bias" in w:
             att = att + w["attn_output_bias"]
+        if "post_attn_norm" in w:
+            att = rms_norm(att, w["post_attn_norm"], hp.f_norm_rms_eps)
         if hp.f_residual_scale:
             att = att * hp.f_residual_scale
-        x = x + att
-        h = rms_norm(x, w["ffn_norm"], hp.f_norm_rms_eps)
+        if hp.parallel_residual:
+            # the FFN reads the attention norm's output (command-r), or its
+            # own norm of the layer input where the file has one
+            h = norm_fn(hp, x, w["ffn_norm"]) if "ffn_norm" in w else h_attn
+        else:
+            x = x + att
+            h = norm_fn(hp, x, w["ffn_norm"])
         if "ffn_gate_inp" in w:
             # MoE branch (the JAX package's llama.py:734-817: the arch's
             # gating and norm_w, SiLU experts, then the shared expert)
@@ -247,10 +285,15 @@ class LlamaLayer(nn.Module):
             else:
                 gate = linear(h, w["ffn_gate"], m.get("ffn_gate"), tk)
                 up = linear(h, w["ffn_up"], m.get("ffn_up"), tk)
-            act = silu(gate.float()).to(gate.dtype) * up
+            act_fn = gelu if hp.act == "gelu" else silu
+            act = act_fn(gate.float()).to(gate.dtype) * up
             down = linear(act, w["ffn_down"], m.get("ffn_down"), tk)
+        if "post_ffn_norm" in w:
+            down = rms_norm(down, w["post_ffn_norm"], hp.f_norm_rms_eps)
         if hp.f_residual_scale:
             down = down * hp.f_residual_scale
+        if hp.parallel_residual:
+            return x + att + down
         return x + down
 
     def shared_expert(self, h):
@@ -310,7 +353,10 @@ class LlamaModel(nn.Module):
         for is_swa in self.swa:
             self.stack_idx.append(count[is_swa])
             count[is_swa] += 1
-        self.rp_swa = replace(self.rp, freq_base=hp.rope_freq_base_swa) if self.swa else None
+        # gemma3's SWA layers rotate unscaled (ROADMAP.md Queue 3 item 11)
+        self.rp_swa = replace(self.rp, freq_base=hp.rope_freq_base_swa,
+                              freq_scale=1.0 if hp.arch == "gemma3" else self.rp.freq_scale
+                              ) if self.swa else None
 
     def forward(self, tokens, positions, kv_k, kv_v, cache_slots, attn_mask,
                 logit_rows=None, return_embd: bool = False, cache_slots_swa=None):
@@ -338,6 +384,10 @@ class LlamaModel(nn.Module):
                 cos_swa, sin_swa = cos_swa[:, :, None, :], sin_swa[:, :, None, :]
         two_stack = isinstance(kv_k, dict)
         mask_full, mask_swa = attn_mask if isinstance(attn_mask, tuple) else (attn_mask,) * 2
+        if hp.rope_swa_only:
+            # cohere2: the full layers are NoPE (the JAX package's identity
+            # rotation, models/cohere2-iswa.cpp:61-77)
+            cos = sin = None
         for li, layer in enumerate(self.layers):
             is_swa = bool(self.swa) and self.swa[li]
             kc, vc, slots = kv_k, kv_v, cache_slots
@@ -349,7 +399,7 @@ class LlamaModel(nn.Module):
             x = layer(x, cos_swa if is_swa else cos, sin_swa if is_swa else sin,
                       layer_cache(kc, idx), layer_cache(vc, idx), slots,
                       mask_swa if is_swa else mask_full)
-        x = rms_norm(x, p.get("output_norm"), hp.f_norm_rms_eps)
+        x = norm_fn(hp, x, p.get("output_norm"))
         embd = x.float() if return_embd else None
         if logit_rows is not None:
             x = torch.gather(x, 1, logit_rows.long()[:, :, None].expand(-1, -1, x.shape[-1]))

@@ -4,8 +4,11 @@ Port of tpullama/models/loader.py for the llama family (llama, mistral,
 qwen2, chatglm, Mixtral-style MoE llama, the MoE archs qwen2moe, qwen3moe
 and granitemoe with per-head q/k norms and shared experts, gpt-oss with
 its attention sinks, attention output and router biases and per-expert
-biases, and the heterogeneous dense/MoE stacks of glm4moe, dots1,
-ernie4_5-moe and bailingmoe2). Every tensor the file holds is mapped or
+biases, the heterogeneous dense/MoE stacks of glm4moe, dots1,
+ernie4_5-moe and bailingmoe2, and the gemma and cohere families with
+gemma2's and gemma3's post-attention and post-FFN norms; a file without
+output.weight, as gemma's and cohere's are, takes the token table as its
+lm_head). Every tensor the file holds is mapped or
 refused by name, but the trailing NextN layers past hp.n_layer and every
 blk.*.nextn.* tensor, which are skipped unread (glm4moe's and
 bailingmoe2's multi-token-prediction head, which the forward never
@@ -98,6 +101,9 @@ _LAYER_TENSORS = {
     "attn_output.bias": "attn_output_bias",
     "ffn_gate_inp.bias": "ffn_gate_inp_b",
     "attn_sinks.weight": "attn_sinks",
+    # gemma2's and gemma3's sandwich norms: after o-proj and after ffn_down
+    "post_attention_norm.weight": "post_attn_norm",
+    "post_ffw_norm.weight": "post_ffn_norm",
     # per-expert biases (gpt-oss)
     "ffn_gate_exps.bias": "ffn_gate_exps_b",
     "ffn_up_exps.bias": "ffn_up_exps_b",
@@ -106,7 +112,8 @@ _LAYER_TENSORS = {
 # per-arch remaps of tensor suffixes onto forward roles: glm4moe and gpt-oss
 # normalize ffn_inp with post_attention_norm, the ffn_norm slot (the JAX
 # loader's _ARCH_TENSOR_OVERRIDES; models/glm4-moe.cpp:93-96,
-# models/openai-moe-iswa.cpp:80-86)
+# models/openai-moe-iswa.cpp:80-86), where gemma's post-scales the
+# attention output
 _ARCH_TENSOR_OVERRIDES = {"glm4moe": {"post_attention_norm.weight": "ffn_norm"},
                           "gpt-oss": {"post_attention_norm.weight": "ffn_norm"}}
 _EXPERT_TRIO = ("ffn_gate_exps", "ffn_up_exps", "ffn_down_exps")
@@ -171,10 +178,11 @@ class LoadedModel:
 
 def check_supported(hp: HParams) -> None:
     """Raise for anything outside the slices ported: the llama family
-    (chatglm included), MoE on the llama arch (Mixtral) and the MoE archs
-    of _MOE_ARCHS, and sliding-window attention where a ported arch lays
-    out its SWA layers (gpt-oss); any other SWA model, and llama4's
-    chunked window, by name with their ROADMAP item."""
+    (chatglm, gemma and cohere included), MoE on the llama arch (Mixtral)
+    and the MoE archs of _MOE_ARCHS, and sliding-window attention where a
+    ported arch lays out its SWA layers (gpt-oss, gemma2, gemma3, cohere2);
+    any other SWA model, and llama4's chunked window, by name with their
+    ROADMAP item."""
     check_arch(hp.arch)
     if hp.n_swa and (not hp.swa_layers or hp.swa_type != "standard"):
         what = "chunked attention" if hp.swa_type == "chunked" else "sliding-window attention"

@@ -10,6 +10,11 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """GELU in its tanh form (GGML_OP_GELU; jax.nn.gelu(approximate=True))."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     """SwiGLU: silu(gate) * up (ggml_swiglu split form)."""
     return silu(gate) * up

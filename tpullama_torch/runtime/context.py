@@ -51,9 +51,12 @@ Differences from the JAX package, by design:
     (the graphs read them at fixed addresses), and their K re-rotation
     divides by the model's rope_freqs as the forward pass does, where the
     JAX package's _rotate leaves them out (only a model that carries
-    rope_freqs, Llama-3.x, differs); the ring's K rows re-rotate with the
-    SWA layers' own rope table (rope_freq_base_swa), where the JAX
-    package's take the full layers' base (equal for gpt-oss);
+    rope_freqs, Llama-3.x, differs); each layer's K rows re-rotate with the
+    rope table its forward takes: an SWA layer's with the SWA layers' own
+    (rope_freq_base_swa; gemma3's unscaled), in the ring or in one stack,
+    and a layer without rope (cohere2's full layers) not at all, where the
+    JAX package rotates every layer with the full layers' table (equal for
+    gpt-oss and gemma2; ROADMAP.md Queue 3 item 12);
   - a prompt longer than n_ubatch on a two-stack cache goes in chunks that
     also return the hidden states of every chunk (embeddings), where the
     JAX package keeps the last chunk's.
@@ -685,28 +688,52 @@ class Context:
         if p1 >= int(self.n_past[seq_id]):
             self.n_past[seq_id] = min(int(self.n_past[seq_id]), p0)
 
-    def _rotate(self, kv_k, seq_id: int, deltas: torch.Tensor, swa: bool = False) -> None:
-        """Re-rotate every cached K row of lane seq_id of the stack kv_k by
-        its cell's position delta ((cells,) int), in f32, cast back to the
-        cache dtype: R(pos + d) = R(d)·R(pos) per rope frequency. The
-        rotation by d comes from the same cos/sin tables as the forward
-        pass (rope_freqs and partial rotation included; the ring's from the
-        SWA layers' table), so a YaRN model's mscale is applied again to
-        every row of the lane, as in the JAX package. An int8 lane is
-        dequantized, rotated and quantized again with fresh scales
-        (rotation changes each row's amax), as there."""
-        rp = self.net.rp_swa if swa else self.net.rp
-        cos, sin = rope_cache(rp, deltas, None if swa else self.model.params.get("rope_freqs"))
-        if isinstance(kv_k, tuple):
-            kq, ks = (t[:, seq_id] for t in kv_k)  # (L, Hkv, S, D), (L, Hkv, S)
-            k = kq.float() * ks[..., None]
-            nq, ns = quantize_q8(apply_rope(k, cos[None, None], sin[None, None], rp.mode,
-                                            rp.n_dims))
-            kq.copy_(nq)
-            ks.copy_(ns)
-            return
-        k = kv_k[:, seq_id]  # (L, Hkv, S, D) view of the lane
-        k.copy_(apply_rope(k.float(), cos[None, None], sin[None, None], rp.mode, rp.n_dims))
+    def _rope_kinds(self, stack: str | None) -> list:
+        """Each layer of a cache stack ("full", "swa", or None for the one
+        stack) by the rope its forward takes: "full" (the model's table,
+        rope_freqs included), "swa" (the SWA layers' table) or None (no
+        rope: cohere2's full layers, an arch without rope)."""
+        hp = self.hp
+        swa = self.net.swa or (False,) * hp.n_layer
+        kinds = [None if hp.rope_type < 0 or (hp.rope_swa_only and not s)
+                 else ("swa" if s else "full") for s in swa]
+        if stack is None:
+            return kinds
+        return [k for k, s in zip(kinds, swa) if s == (stack == "swa")]
+
+    def _rotate(self, stack: str | None, seq_id: int, deltas: torch.Tensor) -> None:
+        """Re-rotate every cached K row of lane seq_id of a cache stack
+        ("full", "swa", or None for the one stack) by its cell's position
+        delta ((cells,) int), in f32, cast back to the cache dtype: R(pos +
+        d) = R(d)·R(pos) per rope frequency. Each layer's rotation by d
+        comes from the table its forward takes (rope_freqs and partial
+        rotation included; an SWA layer's from the SWA layers' table; a
+        layer without rope keeps its rows), so a YaRN model's mscale is
+        applied again to every row of the lane, as in the JAX package. An
+        int8 lane is dequantized, rotated and quantized again with fresh
+        scales (rotation changes each row's amax), as there."""
+        kv_k = self.kv_k if stack is None else self.kv_k[stack]
+        kinds = self._rope_kinds(stack)
+        for kind in ("full", "swa"):
+            idx = [i for i, k in enumerate(kinds) if k == kind]
+            if not idx:
+                continue
+            rp = self.net.rp_swa if kind == "swa" else self.net.rp
+            freqs = self.model.params.get("rope_freqs") if kind == "full" else None
+            cos, sin = rope_cache(rp, deltas, freqs)
+            ix = torch.as_tensor(idx, device=self.device)
+            if isinstance(kv_k, tuple):
+                kq, ks = (t[:, seq_id] for t in kv_k)  # (L, Hkv, S, D), (L, Hkv, S)
+                k = kq.index_select(0, ix).float() * ks.index_select(0, ix)[..., None]
+                nq, ns = quantize_q8(apply_rope(k, cos[None, None], sin[None, None], rp.mode,
+                                                rp.n_dims))
+                kq.index_copy_(0, ix, nq)
+                ks.index_copy_(0, ix, ns)
+                continue
+            k = kv_k[:, seq_id]  # (L, Hkv, S, D) view of the lane
+            rotated = apply_rope(k.index_select(0, ix).float(), cos[None, None], sin[None, None],
+                                 rp.mode, rp.n_dims)
+            k.index_copy_(0, ix, rotated.to(k.dtype))
 
     def seq_add(self, p0: int, p1: int, delta: int, seq_id: int = 0):
         """Shift positions in [p0, p1) by delta (llama_memory_seq_add),
@@ -719,15 +746,14 @@ class Context:
         row = self._pos_stacks()[0][seq_id]  # the full stack's
         deltas = torch.where((row >= p0) & (row < p1), delta, 0).to(torch.int32)
         two = isinstance(self.kv_k, dict)
-        self._rotate(self.kv_k["full"] if two else self.kv_k, seq_id, deltas)
+        self._rotate("full" if two else None, seq_id, deltas)
         row.add_(deltas)
         if two:
             R = self._S_swa
             srow = self.kv_pos["swa"][seq_id]
             old = srow.cpu().numpy()
             srng = (old >= p0) & (old < p1)
-            self._rotate(self.kv_k["swa"], seq_id,
-                         self._t(np.where(srng, delta, 0).astype(np.int32)), swa=True)
+            self._rotate("swa", seq_id, self._t(np.where(srng, delta, 0).astype(np.int32)))
             new_pos = np.where(srng, old + delta, old)
             src = np.full(R, -1, np.int64)
             posf = np.full(R, -1, np.int32)
@@ -758,7 +784,7 @@ class Context:
         row = self.kv_pos[seq_id]
         new_row = torch.where((row >= p0) & (row < p1),
                               torch.div(row, d, rounding_mode="floor"), row)
-        self._rotate(self.kv_k, seq_id, (new_row - row).to(torch.int32))
+        self._rotate(None, seq_id, (new_row - row).to(torch.int32))
         row.copy_(new_row)
         h = self._pos_host[seq_id]
         sel = (h >= p0) & (h < p1)
