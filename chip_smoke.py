@@ -30,7 +30,7 @@ Phases, each printing one JSON line with its seconds:
             eagerly is profiled beside it
   moe_model, moe_crosscheck, moe_serve
             the same three on a Mixtral-8x7B-shaped MoE llama (8 experts,
-            2 per token; 4 of its 32 layers, 1 in the cross-check), whose
+            2 per token; 2 of its 32 layers, 1 in the cross-check), whose
             expert FFNs run through the gathered qmm kernels
   graphs, moe_graphs, glm_graphs
             each served model's one-token decode steps as CUDA graphs: two
@@ -43,7 +43,7 @@ Phases, each printing one JSON line with its seconds:
             same seed, and at temperature 1e-4 with top-k 1 the greedy
             ids; each capture's seconds and reserved bytes
   glm_model, glm_crosscheck, glm_serve
-            the same three on a ChatGLM3-6B-shaped model (14 of its 28
+            the same three on a ChatGLM3-6B-shaped model (7 of its 28
             layers; 1 in
             the cross-check) with the fused post-attention layer and 4
             K-chunks on (fused_layer=True, qmm_tile_k=4), served with one
@@ -95,7 +95,7 @@ Phases, each printing one JSON line with its seconds:
             through the CLI from the first shard (the whole file's text)
   qwen3moe_model, qwen3moe_crosscheck, qwen3moe_serve
             the model, cross-check and serve phases on a Qwen3-30B-A3B-shaped
-            qwen3moe model (8 of its 48 layers; 1 in the cross-check) in the
+            qwen3moe model (4 of its 48 layers; 1 in the cross-check) in the
             Q2_K layout: 128 experts of FFN 768, 8 a token, Q2_K [gate | up]
             and Q3_K down experts through the q1/q2 sets of qmm_gathered,
             per-head q/k norms, 32 x 128 query columns on a 2048 hidden;
@@ -111,7 +111,7 @@ Phases, each printing one JSON line with its seconds:
             experts of FFN 512 through qmm_gathered_t, a tied 49155-row
             lm_head
   qwen3mxfp4_model, qwen3mxfp4_crosscheck, qwen3mxfp4_serve
-            the Qwen3-30B-A3B path again (8 of 48 layers, 1 in the
+            the Qwen3-30B-A3B path again (4 of 48 layers, 1 in the
             cross-check) in llama.cpp's MXFP4_MOE layout: MXFP4 expert stacks,
             stored transposed (64 and 24 scale columns), through both
             routes of qmm_gathered_t (the profile checks one eager decode
@@ -173,6 +173,13 @@ Phases, each printing one JSON line with its seconds:
             LayerNorm, the parallel residual, logit_scale 0.25, vocab
             256000 tied) at n_ctx 8192, where the ring of 4096 + 256 + 1
             cells is smaller than the full stack, so two stacks stand
+  qwen3_model, qwen3_crosscheck, qwen3_serve
+            the model, cross-check and serve phases on a Qwen3-8B-shaped
+            qwen3 model (8 of its 36 layers; 2 in the cross-check): per-head
+            q/k norms on a dense FFN of 12288, 32 / 8 heads of 128, every
+            layer matrix and the token table Q4_K, the 151936-row lm_head
+            Q6_K, served with 4 slots at n_ctx 4096; the profile checks
+            that a step and a chunk run every packed matrix through qmm
   int8kv    the served Llama model with an int8 KV cache against a bf16
             one: Contexts of 4 lanes of 8192 cells, bf16 activations,
             4 prompts of 6100-7000 tokens prefilled, a greedy burst of 32;
@@ -246,7 +253,8 @@ ALL_PHASES = ("card", "build", "kernels", "model", "crosscheck", "serve", "graph
               "granitemoe_crosscheck", "qwen3mxfp4_model", "qwen3mxfp4_crosscheck",
               "qwen3mxfp4_serve", "mxfp4_crosscheck", "glm4moe_model", "glm4moe_crosscheck",
               "glm4moe_serve", "gptoss_model", "gptoss_crosscheck", "gptoss_serve",
-              "gemma3_model", "gemma3_crosscheck", "gemma3_serve", "cohere2_crosscheck")
+              "gemma3_model", "gemma3_crosscheck", "gemma3_serve", "cohere2_crosscheck",
+              "qwen3_model", "qwen3_crosscheck", "qwen3_serve")
 
 
 def emit(obj) -> None:
@@ -268,11 +276,11 @@ class Widths:
     fused [gate|up], n_rot rotated dims). LLAMA3_8B holds the published
     widths of meta-llama/Meta-Llama-3-8B (config.json); MIXTRAL_8X7B those
     of mistralai/Mixtral-8x7B-v0.1 (config.json; sliding window null), cut
-    to 4 of its 32 layers: every layer has the same shapes and launches;
+    to 2 of its 32 layers: every layer has the same shapes and launches;
     CHATGLM3_6B those of THUDM/chatglm3-6b (config.json: hidden 4096, 28
     layers, 32 heads, multi_query_group_num 2, ffn 13696,
     padded_vocab_size 65024, seq_length 8192; rope over half of each
-    head, chatglm.rope.dimension_count 64), cut to 14 of its 28 layers
+    head, chatglm.rope.dimension_count 64), cut to 7 of its 28 layers
     for the same reason (the whole run's time limit); QWEN2_1_5B those of
     Qwen/Qwen2-1.5B (config.json: hidden 1536, 28 layers, 12 heads, 2 KV
     heads, intermediate 8960, vocab 151936, rope_theta 1e6, rms_norm_eps
@@ -292,7 +300,7 @@ class Widths:
     hidden; 128 experts, 8 per token, moe_intermediate_size 768,
     norm_topk_prob true; vocab 151936, rope_theta 1e6, rms_norm_eps 1e-6,
     max_position_embeddings 40960, untied; per-head q/k RMS norms), cut to
-    8 of its 48 layers (every layer has the same shapes and launches), in
+    4 of its 48 layers (every layer has the same shapes and launches), in
     the Q2_K layout; QWEN2_57B_A14B those of Qwen/Qwen2-57B-A14B
     (config.json: hidden 3584, 28 layers, 28 heads, 4 KV heads, 64
     experts, 8 per token, moe_intermediate_size 2560,
@@ -371,7 +379,15 @@ class Widths:
     logit_scale 0.25, layer_norm_eps 1e-5, tied, max_position_embeddings
     132096), written as llama.cpp's converter writes them (LayerNorm
     weights, no FFN norm, logit_scale), cut to 4 of its 32 layers (3 SWA +
-    1 full) and used in the cross-check alone."""
+    1 full) and used in the cross-check alone. The dense flag archs:
+    QWEN3_8B holds those of Qwen/Qwen3-8B (config.json: hidden 4096, 36
+    layers, 32 heads over 8 KV heads, head_dim 128, intermediate 12288,
+    vocab 151936, rope_theta 1e6, rms_norm_eps 1e-6,
+    max_position_embeddings 40960, tie_word_embeddings false; per-head q/k
+    RMS norms, no biases), written as llama.cpp's converter writes them
+    (attn_q_norm and attn_k_norm), every layer matrix and the token table
+    Q4_K, the output Q6_K, cut to 8 of its 36 layers (every layer has the
+    same shapes and launches), as the Q5_K_M Llama path is."""
 
     n_embd: int = 4096
     n_layer: int = 32
@@ -408,9 +424,9 @@ class Widths:
 
 
 LLAMA3_8B = Widths()
-MIXTRAL_8X7B = Widths(n_layer=4, n_vocab=32000, rope_theta=1e6, n_ctx_train=32768,
+MIXTRAL_8X7B = Widths(n_layer=2, n_vocab=32000, rope_theta=1e6, n_ctx_train=32768,
                       n_expert=8, n_expert_used=2)
-CHATGLM3_6B = Widths(n_layer=14, n_head_kv=2, n_ff=13696, n_vocab=65024, rope_theta=10000.0,
+CHATGLM3_6B = Widths(n_layer=7, n_head_kv=2, n_ff=13696, n_vocab=65024, rope_theta=10000.0,
                      arch="chatglm", n_rot=64)
 # the ChatGLM path's two opt-ins, the JAX package's TPULLAMA_FUSED_LAYER and
 # TPULLAMA_QMM_TILE_K
@@ -427,7 +443,7 @@ LLAMA32_1B = Widths(n_embd=2048, n_layer=16, n_head=32, n_head_kv=8, n_ff=8192,
 # layers (the use_more_bits rule still mixes Q6_K and Q5_K in attn_v and
 # ffn_down, so both stay dense)
 LLAMA3_8B_Q5KM = replace(LLAMA3_8B, n_layer=8, quant="Q5_K_M")
-QWEN3_30B_A3B = Widths(n_embd=2048, n_layer=8, n_head=32, n_head_kv=4, head_dim=128, n_ff=768,
+QWEN3_30B_A3B = Widths(n_embd=2048, n_layer=4, n_head=32, n_head_kv=4, head_dim=128, n_ff=768,
                        n_vocab=151936, rope_theta=1e6, rms_eps=1e-6, n_ctx_train=40960,
                        n_expert=128, n_expert_used=8, arch="qwen3moe", quant="Q2_K")
 QWEN2_57B_A14B = Widths(n_embd=3584, n_layer=28, n_head=28, n_head_kv=4, n_ff=2560,
@@ -438,7 +454,7 @@ GRANITE_3B_A800M = Widths(n_embd=1536, n_layer=32, n_head=24, n_head_kv=8, n_ff=
                           n_vocab=49155, rope_theta=10000.0, rms_eps=1e-6, n_ctx_train=4096,
                           n_expert=40, n_expert_used=8, arch="granitemoe", tied=True,
                           scales=(12.0, 0.22, 6.0, 0.015625))
-# MXFP4: Qwen3-30B-A3B (8 of 48 layers) in llama.cpp's MXFP4_MOE layout,
+# MXFP4: Qwen3-30B-A3B (4 of 48 layers) in llama.cpp's MXFP4_MOE layout,
 # its experts' scale planes (64 and 24 columns) no multiple of 128, so
 # stored transposed; one layer of Mixtral-8x7B with every matrix MXFP4
 # (tools/quantize.py's MXFP4 file type): attention and lm_head at K = 4096
@@ -460,6 +476,8 @@ GEMMA3_12B = Widths(n_embd=3840, n_layer=6, n_head=16, n_head_kv=8, head_dim=256
 COHERE2_7B = Widths(n_embd=4096, n_layer=4, n_head=32, n_head_kv=8, n_ff=14336, n_vocab=256000,
                     rope_theta=50000.0, n_ctx_train=132096, arch="cohere2", tied=True,
                     n_swa=4096, logit_scale=0.25, embd_type="Q6_K")
+QWEN3_8B = Widths(n_embd=4096, n_layer=8, n_head=32, n_head_kv=8, head_dim=128, n_ff=12288,
+                  n_vocab=151936, rope_theta=1e6, rms_eps=1e-6, n_ctx_train=40960, arch="qwen3")
 
 
 def use_more_bits(il: int, n: int) -> bool:
@@ -706,7 +724,7 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
     llama.cpp's layout: per-head q/k norms, post_attention_norm and
     post_ffw_norm beside the FFN norm, linear rope scaling; cohere2 its
     LayerNorm weights and epsilon, no FFN norm (the FFN reads the attention
-    norm's output) and logit_scale."""
+    norm's output) and logit_scale; qwen3 its per-head q/k norms."""
     from tpullama_torch.gguf import GGML_TYPE_TRAITS, GGMLType, GGUFWriter
 
     rng = np.random.default_rng(seed)
@@ -722,6 +740,7 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
               "synthetic-gpt-oss-20b-shape" if a == "gpt-oss" else
               "synthetic-gemma-3-12b-shape" if a == "gemma3" else
               "synthetic-c4ai-command-r7b-shape" if a == "cohere2" else
+              "synthetic-qwen3-8b-shape" if a == "qwen3" else
               "synthetic-openllama-3b-shape" if w.q8 else
               "synthetic-llama3.2-1b-shape" if w.tied else
               "synthetic-mixtral-8x7b-shape" if w.n_expert else "synthetic-llama3-8b-shape")
@@ -826,7 +845,7 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
             if a in ("qwen2", "qwen2moe", "glm4moe", "gpt-oss"):
                 for nm, n in (("attn_q", hq), ("attn_k", kv), ("attn_v", kv)):
                     bias(p + nm + ".bias", n)
-            if a in ("qwen3moe", "gemma3"):
+            if a in ("qwen3", "qwen3moe", "gemma3"):
                 norm(p + "attn_q_norm.weight", w.hd)
                 norm(p + "attn_k_norm.weight", w.hd)
         quant(p + "attn_output.weight", (E, hq), Q4)
@@ -1013,7 +1032,12 @@ def qmm_cases(timer, gen, device, out: list) -> None:
              # gemma-3-12b's [gate] and down (K = 3840 = 15 x 256 and
              # 15360): the B = 4 decode step and the packed prefill chunk
              (Q4, 15360, 3840, bf16, bf16, (4, 1024)),
-             (Q4, 3840, 15360, bf16, bf16, (4, 1024))]
+             (Q4, 3840, 15360, bf16, bf16, (4, 1024)),
+             # Qwen3-8B's [gate] and down (12288 = 48 x 256) and its Q6_K
+             # lm_head (151936 rows): the B = 4 decode step and the chunk
+             (Q4, 12288, 4096, bf16, bf16, (4, 1024)),
+             (Q4, 4096, 12288, bf16, bf16, (4, 1024)),
+             (Q6, 151936, 4096, bf16, bf16, (4,))]
     # the q1 / q2 sets (csrc/qmm_lowbit.cu) at the Llama FFN's shapes, the
     # decode step's T = 4 and the packed prefill chunk's T = 1024, then one
     # f32-x and one f32-scale case
@@ -1065,6 +1089,9 @@ def qmm_cases(timer, gen, device, out: list) -> None:
                 rec["case"] = f"gptoss attn_output T={T}"
             elif (qt, K) in ((Q4, 3840), (Q4, 15360)):
                 rec["case"] = f"gemma3 {'ffn_gate' if K == 3840 else 'ffn_down'} T={T}"
+            elif (N, K) in ((12288, 4096), (4096, 12288), (151936, 4096)):
+                role = {12288: "ffn_gate", 4096: "ffn_down", 151936: "output"}[N]
+                rec["case"] = f"qwen3 {role} T={T}"
             emit(rec)
             out.append(rec)
         del w_lib, fields
@@ -1810,6 +1837,10 @@ def phase_model(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
     else:
         check(set(lm) == attn | {"ffn_gate", "ffn_up", "ffn_down"},
               "every layer matrix is packed")
+        if widths.arch == "qwen3":
+            qk = [model.params["layers"].get(k) for k in ("attn_q_norm", "attn_k_norm")]
+            check(all(t is not None and tuple(t.shape) == (widths.n_layer, widths.hd)
+                      for t in qk), "per-head q/k norms of head_dim per layer")
     if widths.tied:
         check("output" not in model.params and model.params["tok_embd"].dtype == torch.bfloat16,
               "the dense bf16 token table is the lm_head")
@@ -3825,6 +3856,10 @@ PATH_KERNELS = {
     "gemma3_crosscheck": _DENSE_CROSS,
     "gemma3_serve": _DENSE_SERVE,
     "cohere2_crosscheck": _DENSE_CROSS,
+    # Qwen3-8B: every layer matrix Q4_K (K = 4096 and 12288), the Q6_K
+    # lm_head (N = 151936), per-head q/k norms; attention at G = 4, D = 128
+    "qwen3_crosscheck": _DENSE_CROSS,
+    "qwen3_serve": _DENSE_SERVE,
     # lanes saved and loaded (f32 and int8 caches), the HTTP engine, the CLI
     "state": ("qmm_gemv", "qmm_tiled", "flash_attention", "flash_decode", "flash_decode_batched",
               "flash_attention_int8", "flash_decode_int8"),
@@ -3844,7 +3879,8 @@ PATHS = (("", LLAMA3_8B, 2, 4, {}),
          ("glm4moe_", GLM_4_5_AIR, 2, 4, {}),
          ("gptoss_", GPT_OSS_20B, 2, 4, {}),
          ("gemma3_", GEMMA3_12B, 6, 4, {}),  # the cross-check reads the model's file
-         ("cohere2_", COHERE2_7B, 4, 0, {}))  # the cross-check alone
+         ("cohere2_", COHERE2_7B, 4, 0, {}),  # the cross-check alone
+         ("qwen3_", QWEN3_8B, 2, 4, {}))
 # the cross-checks on the two-stack cache, with their options: gpt-oss's
 # 600-token prompt wraps its 385-cell ring; gemma-3-12b's 1400 tokens its
 # 1281-cell ring, then its first 2 layers (SWA layers only) run on one

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import _torch_fixtures  # noqa: F401  (one PyTorch thread a process)
 from tpullama_torch.ops.cuda.common import CELLS, NEG_HALF, ROWS, row_plan
 from tpullama_torch.ops.cuda.flash_attention import flash_attention
 from tpullama_torch.ops.cuda.flash_decode import flash_decode

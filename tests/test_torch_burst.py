@@ -25,8 +25,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests._torch_fixtures import tiny_gguf
 from tpullama.gguf import GGMLType
-from tpullama.models.testing import make_tiny_llama_gguf
 
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 PROMPT = "Once upon a time"
@@ -39,12 +39,9 @@ KINDS = {
 
 @pytest.fixture(scope="module")
 def ggufs(tmp_path_factory):
-    out = {}
-    for kind, kw in KINDS.items():
-        p = str(tmp_path_factory.mktemp(kind) / "m.gguf")
-        make_tiny_llama_gguf(p, n_embd=256, n_ff=256, n_layer=2, seed=21, **kw)
-        out[kind] = p
-    return out
+    # the files of tests/test_torch_model.py's ggufs and moe_gguf
+    return {kind: tiny_gguf(tmp_path_factory, n_embd=256, n_ff=256, n_layer=2, seed=21, **kw)
+            for kind, kw in KINDS.items()}
 
 
 def _load_kw(kind):

@@ -10,6 +10,7 @@ argmax or by the same seeded sampler chain."""
 
 import pytest
 
+from tests import _torch_fixtures  # noqa: F401  (one PyTorch thread a process)
 from tpullama.models.testing import make_tiny_llama_gguf
 
 PROMPT = "Once upon a time"

@@ -27,6 +27,7 @@ rows exactly."""
 import numpy as np
 import pytest
 
+from tests import _torch_fixtures  # noqa: F401  (one PyTorch thread a process)
 from tests.test_torch_gemma import (RING, assert_logits_close, check_decode_batch, check_load,
                                     check_prefill_and_greedy, check_state_crosses, contexts,
                                     load_pair, prompt, same_cells)

@@ -11,6 +11,7 @@ dropped)."""
 import numpy as np
 import pytest
 
+from tests import _torch_fixtures  # noqa: F401  (one PyTorch thread a process)
 from tpullama import gguf as j_gguf
 from tpullama.gguf import GGMLType
 from tpullama.models.hparams import HParams as JHParams

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import _torch_fixtures  # noqa: F401  (one PyTorch thread a process)
 from tpullama.runtime import sampling as js
 from tpullama_torch.runtime import sampling as ts
 

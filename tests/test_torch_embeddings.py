@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import _torch_fixtures  # noqa: F401  (one PyTorch thread a process)
 from tpullama.gguf import GGMLType
 from tpullama.models.testing import make_tiny_llama_gguf
 

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import _torch_fixtures  # noqa: F401  (one PyTorch thread a process)
 from tpullama.gguf import GGMLType
 from tpullama.ops.qweights import PlanarQuant, dequant_planar_np
 from tpullama_torch.ops.cuda import fused_layer as tf

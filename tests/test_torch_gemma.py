@@ -28,6 +28,7 @@ positions and trees exactly."""
 import numpy as np
 import pytest
 
+from tests import _torch_fixtures  # noqa: F401  (one PyTorch thread a process)
 from tests.test_torch_model import _assert_same_tree, _jax_load, _jax_numpy, _port_load, _to_numpy
 from tpullama.models.testing import make_tiny_llama_gguf
 

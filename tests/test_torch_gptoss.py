@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import _torch_fixtures  # noqa: F401  (one PyTorch thread a process)
 from tests.test_torch_model import (LOGIT_TOL, LONG_PROMPT, PROMPT, _assert_same_tree,
                                     _jax_load, _jax_numpy, _port_load, _serve, _to_numpy)
 from tpullama.gguf import GGMLType

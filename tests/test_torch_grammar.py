@@ -15,6 +15,7 @@ argmax of f32 logits that agree to ~1e-6, tests/test_torch_model.py)."""
 import numpy as np
 import pytest
 
+from tests import _torch_fixtures  # noqa: F401  (one PyTorch thread a process)
 from tpullama.models.testing import make_tiny_llama_gguf
 from tpullama.runtime import grammar as j_grammar
 from tpullama.runtime import json_schema as j_schema

@@ -21,12 +21,12 @@ import numpy as np
 import pytest
 import torch
 
+from tests._torch_fixtures import tiny_gguf
 from tests.test_torch_model import (LOGIT_TOL, LONG_PROMPT, PROMPT, _assert_same_tree,
                                     _check_decode_batch_and_burst,
-                                    _check_prefill_and_generate, _check_server_script,
+                                    _check_prefill_and_generate,
                                     _jax_load, _jax_numpy, _port_load, _to_numpy)
 from tpullama.gguf import GGMLType
-from tpullama.models.testing import make_tiny_llama_gguf
 
 # batch g's archs and their fixture options (tests/test_e2e_oracle.py)
 HETERO = {"dots1": dict(n_head_kv=4, n_layer=3), "glm4moe": dict(n_head_kv=2, n_layer=3),
@@ -41,14 +41,10 @@ def _load_kw(qtype, scale=np.float32):
 
 @pytest.fixture(scope="module")
 def hetero_ggufs(tmp_path_factory):
-    out = {}
-    for arch, kw in HETERO.items():
-        for qt in QTYPES:
-            p = str(tmp_path_factory.mktemp(f"{arch}-{qt.name}") / "m.gguf")
-            make_tiny_llama_gguf(p, arch=arch, n_expert=4, n_embd=256, n_ff=256, qtype=qt,
-                                 seed=47, **kw)
-            out[arch, qt] = p
-    return out
+    # the run's cached files (tests/test_torch_moe_server.py reads them too)
+    return {(arch, qt): tiny_gguf(tmp_path_factory, arch=arch, n_expert=4, n_embd=256,
+                                  n_ff=256, qtype=qt, seed=47, **kw)
+            for arch, kw in HETERO.items() for qt in QTYPES}
 
 
 @pytest.mark.parametrize("qtype", QTYPES, ids=lambda t: t.name)
@@ -112,13 +108,6 @@ def test_hetero_prefill_logits_and_greedy_generate(hetero_ggufs, arch, qtype, pr
 @pytest.mark.parametrize("arch", ARCHS)
 def test_hetero_decode_batch_and_burst(hetero_ggufs, arch):
     _check_decode_batch_and_burst(hetero_ggufs[arch, GGMLType.Q4_K])
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_hetero_server_engine_script(hetero_ggufs, arch):
-    """tests/test_torch_model.py's ServerEngine script on the packed model:
-    the same completions, stop reasons and metrics as the JAX engine."""
-    _check_server_script(hetero_ggufs[arch, GGMLType.Q4_K])
 
 
 @pytest.mark.parametrize("qtype", QTYPES, ids=lambda t: t.name)

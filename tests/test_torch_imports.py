@@ -12,6 +12,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from tests import _torch_fixtures  # noqa: F401  (one PyTorch thread a process)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "tpullama_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]

@@ -1,12 +1,14 @@
 """The port's model path held against the JAX package on the tiny fixtures
 (make_tiny_llama_gguf at n_embd=256, n_ff=256, 2 layers, and the same
-with 4 experts, 2 per token: a Mixtral-style MoE; chatglm at n_embd=64,
-and one chatglm layer at n_embd=4096 with the fused post-attention path
-and 4 K-chunks on): load_model dense and packed, params_from_numpy both
-ways, prefill logits, greedy Context.generate, decode_batch and its greedy
-burst, and a ServerEngine request script. Everything runs on the CPU, where the port takes its
-kernels' plain versions and the JAX package runs its Pallas kernels in
-interpret mode, whose qmm defaults to the exact f32 mode.
+with 4 experts, 2 per token: a Mixtral-style MoE): load_model dense and
+packed, params_from_numpy both ways, prefill logits, greedy
+Context.generate, decode_batch and its greedy burst. Everything runs on
+the CPU, where the port takes its kernels' plain versions and the JAX
+package runs its Pallas kernels in interpret mode, whose qmm defaults to
+the exact f32 mode. The helpers here serve the other model files too: the
+chatglm cases are in tests/test_torch_model_glm.py, every GGUF type in
+tests/test_torch_model_types.py, the ServerEngine scripts in
+tests/test_torch_model_server.py and tests/test_torch_moe_server.py.
 
 Tolerances: weights and planes are compared exactly (both packages decode
 the same bytes with the same numpy code); logits within rtol = atol = 1e-4
@@ -17,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests._torch_fixtures import tiny_gguf
 from tpullama.gguf import GGMLType
 from tpullama.models.testing import make_tiny_llama_gguf
 
@@ -30,38 +33,13 @@ MOE = dict(n_embd=256, n_ff=256, n_layer=2, n_expert=4, n_expert_used=2)
 
 @pytest.fixture(scope="module")
 def ggufs(tmp_path_factory):
-    out = {}
-    for qt in QTYPES + [GGMLType.F32]:
-        p = str(tmp_path_factory.mktemp(qt.name) / "m.gguf")
-        make_tiny_llama_gguf(p, n_embd=256, n_ff=256, n_layer=2, qtype=qt, seed=21)
-        out[qt] = p
-    return out
-
-
-@pytest.fixture(scope="module")
-def glm_small(tmp_path_factory):
-    p = str(tmp_path_factory.mktemp("glm64") / "m.gguf")
-    make_tiny_llama_gguf(p, arch="chatglm", n_embd=64, n_head=4, n_head_kv=2, n_ff=128,
-                         seed=41)
-    return p
-
-
-@pytest.fixture(scope="module")
-def glm_4096(tmp_path_factory):
-    """One ChatGLM3-6B-wide layer (n_embd 4096, 32 heads, 2 KV heads:
-    attn_qkv 4608 x 4096) with a narrow FFN (n_ff 256), Q4_K: the widths
-    at which the fused post-attention path and 4 K-chunks apply."""
-    p = str(tmp_path_factory.mktemp("glm4096") / "m.gguf")
-    make_tiny_llama_gguf(p, arch="chatglm", n_embd=4096, n_head=32, n_head_kv=2, n_ff=256,
-                         n_layer=1, qtype=GGMLType.Q4_K, seed=41)
-    return p
+    return {qt: tiny_gguf(tmp_path_factory, n_embd=256, n_ff=256, n_layer=2, qtype=qt, seed=21)
+            for qt in QTYPES + [GGMLType.F32]}
 
 
 @pytest.fixture(scope="module")
 def moe_gguf(tmp_path_factory):
-    p = str(tmp_path_factory.mktemp("moe") / "m.gguf")
-    make_tiny_llama_gguf(p, qtype=GGMLType.Q4_K, seed=21, **MOE)
-    return p
+    return tiny_gguf(tmp_path_factory, qtype=GGMLType.Q4_K, seed=21, **MOE)
 
 
 def _jax_load(path, **kw):
@@ -388,24 +366,14 @@ def _serve(pkg, model, script, n_slots=2, **engine_kw):
     return outcomes, eng
 
 
-def test_server_engine_script(ggufs):
-    """Concurrent greedy and sampled requests with prompt chunks, a stop
-    string, a prompt-cache reuse, a too-long prompt and a burst-decoded
-    tail: the same completions and stop reasons as the JAX engine."""
-    _check_server_script(ggufs[GGMLType.Q4_K])
-
-
-def test_moe_server_engine_script(moe_gguf):
-    """test_server_engine_script on the MoE model."""
-    _check_server_script(moe_gguf)
-
-
 def _check_server_script(path):
     jm = _jax_load(path, packed=True, packed_scale_dtype=np.float32)
     tm = _port_load(path, packed=True, packed_scale_dtype=torch.float32)
     long_prompt = "The quick brown fox jumps over the lazy dog. " * 2
-    first, _ = _serve("jax", jm, [[dict(prompt=long_prompt, n_predict=12)]])
-    stop = first[0][1][4:6]  # a piece of the greedy text: ends a request early
+    # a piece of the greedy text ends a request early; the port's engine
+    # gives it (whose every outcome is held to the JAX engine's below)
+    first, _ = _serve("torch", tm, [[dict(prompt=long_prompt, n_predict=12)]])
+    stop = first[0][1][4:6]
     script = [
         [dict(prompt=long_prompt, n_predict=12), dict(prompt=PROMPT, n_predict=9, seed=5),
          dict(prompt="x" * 200, n_predict=4)],
@@ -450,121 +418,6 @@ def test_head_dim_100_prefill_logits_and_greedy_generate(head100):
     _check_prefill_and_generate(head100)
 
 
-# ------------------------------------------------------------ chatglm
-
-
-def test_glm_prefill_logits_and_greedy_generate(glm_small):
-    """chatglm F32: fused biased [Q|K|V], fused [gate|up] SwiGLU and NORM
-    rope over half the head dim."""
-    _check_prefill_and_generate(glm_small)
-
-
-def _glm_pair(path, monkeypatch, scale=np.float32):
-    """The JAX model loaded under TPULLAMA_FUSED_LAYER=1 (fourblock planes;
-    on the CPU its forward keeps the unfused exact qmm path) and the port's
-    with fused_layer=True."""
-    monkeypatch.setenv("TPULLAMA_FUSED_LAYER", "1")
-    j = _jax_load(path, packed=True, packed_scale_dtype=scale)
-    t = _port_load(path, packed=True, fused_layer=True,
-                   packed_scale_dtype=torch.float32 if scale == np.float32 else torch.bfloat16)
-    return j, t
-
-
-def test_glm_fourblock_load_and_params_from_numpy(glm_4096, monkeypatch):
-    """Under the fused layer both loaders store attn_output, ffn_up and
-    ffn_down in fourblock order and attn_qkv in stripe order; the JAX
-    fourblock params carried across equal the port's load byte for byte."""
-    import jax
-
-    from tpullama_torch.models import params_from_numpy
-
-    j, t = _glm_pair(glm_4096, monkeypatch, scale="bfloat16")
-    _assert_same_tree(_to_numpy(t.params), _jax_numpy(j.params))
-    orders = {k: m.order for k, m in t.quant_meta["layers"].items()}
-    assert orders == {k: m.order for k, m in j.quant_meta["layers"].items()} == {
-        "attn_qkv": "stripe", "attn_output": "fourblock", "ffn_up": "fourblock",
-        "ffn_down": "fourblock"}
-    assert t.hparams.ffn_fused_up and t.hparams.rope_type == 0 and t.hparams.n_rot == 64
-    carried = params_from_numpy(jax.tree.map(np.asarray, j.params), j.quant_meta, j.hparams,
-                                device="cpu")
-    _assert_same_tree(_to_numpy(carried.params), _to_numpy(t.params))
-    assert carried.quant_meta == t.quant_meta
-
-
-def test_glm_fused_ktiled_greedy_matches_jax(glm_4096, monkeypatch):
-    """The port's CPU path with the fused layer and 4 K-chunks (the plain
-    versions of both kernels) against the JAX exact path: prefill logits
-    within LOGIT_TOL, 8 greedy tokens identical; every decode step took the
-    fused path and attn_qkv the K-chunked product."""
-    from tpullama.runtime import Context as JC
-    from tpullama.runtime import ContextParams as JCP
-    from tpullama_torch.ops.cuda import fused_layer, qmm
-    from tpullama_torch.runtime import Context as TC
-    from tpullama_torch.runtime import ContextParams as TCP
-
-    j, t = _glm_pair(glm_4096, monkeypatch)
-    toks = np.asarray(t.vocab.tokenize(PROMPT, add_special=True))
-    tc = TC(t, TCP(n_ctx=64), fused_layer=True, qmm_tile_k=4)
-    assert [layer.fused for layer in tc.net.layers] == [True]
-    lj = JC(j, JCP(n_ctx=64)).decode(toks, n_logits=len(toks))
-    lt = tc.decode(toks, n_logits=len(toks))
-    np.testing.assert_allclose(lt, lj, **LOGIT_TOL)
-
-    calls = {"fused": 0, "ktiled": 0}
-    plain_fused, plain_kt = fused_layer.fused_postattn_plain, qmm.quantized_matmul_ktiled_plain
-
-    def count(key, fn):
-        def wrapped(*a, **kw):
-            calls[key] += 1
-            return fn(*a, **kw)
-        return wrapped
-
-    monkeypatch.setattr(fused_layer, "fused_postattn_plain", count("fused", plain_fused))
-    monkeypatch.setattr(qmm, "quantized_matmul_ktiled_plain", count("ktiled", plain_kt))
-    out_t = TC(t, TCP(n_ctx=64), fused_layer=True, qmm_tile_k=4).generate(toks, n_predict=8)
-    out_j = JC(j, JCP(n_ctx=64)).generate(toks, n_predict=8)
-    assert out_t == out_j
-    # the prefill, then one one-token step per generated token; attn_qkv and
-    # the Q4_K lm_head (K = 4096) take the K-chunks at every step
-    assert calls == {"fused": len(out_t), "ktiled": 2 * (len(out_t) + 1)}
-
-
-def test_glm_server_script(glm_4096, monkeypatch):
-    """ServerEngine with one slot (every decode step B = 1: the fused path
-    and the K-chunked attn_qkv) against the JAX engine: the same greedy and
-    sampled completions and stop reasons."""
-    j, t = _glm_pair(glm_4096, monkeypatch)
-    script = [[dict(prompt=PROMPT, n_predict=10)],
-              [dict(prompt="The quick brown fox", n_predict=6, seed=3)]]
-    out_j, _ = _serve("jax", j, script, n_slots=1)
-    out_t, eng = _serve("torch", t, script, n_slots=1, fused_layer=True, qmm_tile_k=4)
-    assert out_t == out_j
-    assert [layer.fused for layer in eng.ctx.net.layers] == [True]
-    assert eng.ctx.net.qmm_tile_k == 4
-
-
-def test_model_options_read_env_once(glm_small, monkeypatch):
-    """LlamaModel reads TPULLAMA_FUSED_LAYER and TPULLAMA_QMM_TILE_K when it
-    is built and not afterwards; explicit arguments win."""
-    from tpullama_torch.models.llama import LlamaModel
-
-    t = _port_load(glm_small)
-    monkeypatch.setenv("TPULLAMA_FUSED_LAYER", "1")
-    monkeypatch.setenv("TPULLAMA_QMM_TILE_K", "4")
-    net = LlamaModel(t.params, t.hparams, t.quant_meta)
-    assert (net.fused_layer, net.qmm_tile_k) == (True, 4)
-    monkeypatch.setenv("TPULLAMA_FUSED_LAYER", "0")
-    monkeypatch.delenv("TPULLAMA_QMM_TILE_K")
-    assert (net.fused_layer, net.qmm_tile_k) == (True, 4)
-    net = LlamaModel(t.params, t.hparams, t.quant_meta, fused_layer=True, qmm_tile_k=2)
-    assert (net.fused_layer, net.qmm_tile_k) == (True, 2)
-    net = LlamaModel(t.params, t.hparams, t.quant_meta)
-    assert (net.fused_layer, net.qmm_tile_k) == (False, None)
-    # dense weights: the fused path does not apply
-    assert not any(layer.fused for layer in
-                   LlamaModel(t.params, t.hparams, t.quant_meta, fused_layer=True).layers)
-
-
 def test_make_context_and_its_refusals(ggufs):
     """make_context (the JAX package's factory) gives an attention model the
     KV-cache Context (with kv_dtype=torch.int8 the int8 cache's values and
@@ -587,6 +440,7 @@ def test_make_context_and_its_refusals(ggufs):
 
 
 # ----------------------------------------- every GGUF type the loaders read
+# (the cases: tests/test_torch_model_types.py)
 
 # packed where the type packs (the q1/q2 sets of the card's kernel 1 among
 # them), dense for the IQ and TQ types, which both loaders decode at load
@@ -632,57 +486,6 @@ def _retype_gguf(src, dst, type_of, seed=0):
                else quantize(vals, qt))
         w.add_tensor(name, np.empty(info.shape, np.float32), ggml_type=qt, raw=raw)
     w.write(dst)
-
-
-@pytest.fixture(scope="module")
-def type_ggufs(tmp_path_factory):
-    d = tmp_path_factory.mktemp("types")
-    base = str(d / "f32.gguf")
-    make_tiny_llama_gguf(base, n_embd=256, n_ff=256, n_layer=2, seed=33)
-    out = {}
-    for qt in TYPE_CASES:
-        out[qt] = str(d / f"{qt.name}.gguf")
-        _retype_gguf(base, out[qt], lambda name, qt=qt: qt, seed=qt.value)
-    # llama.cpp's K-quant mixes give a tensor other types in some layers
-    # (Q5_K_M: attn_v and ffn_down Q6_K where use_more_bits): ffn_down Q6_K
-    # in layer 0 and Q5_K in layer 1, everything else Q5_K
-    out["mixed"] = str(d / "mixed.gguf")
-    _retype_gguf(base, out["mixed"], lambda name: GGMLType.Q6_K if name == "blk.0.ffn_down.weight"
-                 else GGMLType.Q5_K)
-    return out
-
-
-@pytest.mark.parametrize("qtype", TYPE_CASES, ids=lambda t: t.name)
-def test_every_type_prefill_logits_and_greedy_generate(type_ggufs, qtype):
-    """Each type loads in both packages (packed where it packs, the token
-    table dense) to the same parameters, and the prefill logits and greedy
-    tokens match the JAX package's."""
-    from tpullama.ops.qweights import PACKED_TYPES
-
-    packed = qtype in PACKED_TYPES
-    load_kw = dict(packed=True, packed_scale_dtype=np.float32) if packed else {}
-    j = _jax_load(type_ggufs[qtype], **load_kw)
-    t = _port_load(type_ggufs[qtype], **dict(load_kw, packed_scale_dtype=torch.float32)
-                   if packed else {})
-    lm = (t.quant_meta or {}).get("layers", {})
-    assert set(lm) == ({"attn_q", "attn_k", "attn_v", "attn_output", "ffn_gate", "ffn_up",
-                        "ffn_down"} if packed else set())
-    _assert_same_tree(_to_numpy(t.params), _jax_numpy({k: j.params[k] for k in t.params}))
-    _check_prefill_and_generate(type_ggufs[qtype], **load_kw)
-
-
-def test_mixed_layer_types_load_dense(type_ggufs):
-    """A tensor whose type differs between layers is loaded dense in both
-    packages (the layer-uniform packing rule); the rest stays packed."""
-    path = type_ggufs["mixed"]
-    j = _jax_load(path, packed=True, packed_scale_dtype=np.float32)
-    t = _port_load(path, packed=True, packed_scale_dtype=torch.float32)
-    lm = t.quant_meta["layers"]
-    assert "ffn_down" not in lm and set(lm) == set(j.quant_meta["layers"])
-    assert not isinstance(t.params["layers"]["ffn_down"], dict)
-    _assert_same_tree(_to_numpy(t.params["layers"]["ffn_down"]),
-                      _jax_numpy(j.params["layers"]["ffn_down"]))
-    _check_prefill_and_generate(path, packed=True, packed_scale_dtype=np.float32)
 
 
 # ------------------------------------ the final-logit transforms (any arch)

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import _torch_fixtures  # noqa: F401  (one PyTorch thread a process)
 from tpullama.gguf import GGMLType, quantize
 from tpullama_torch.ops.qweights import repack, transpose_planes
 from tpullama_torch.models.loader import QuantMeta as TQuantMeta
@@ -772,11 +773,14 @@ def test_gathered_kernel_takes_every_loader_width(cuda, qtype, planes_t, n_in):
             assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
-@pytest.fixture(scope="module")
+@pytest.fixture
 def moe_768(tmp_path_factory):
     """One Mixtral-wide MoE layer (n_embd 4096, 4 experts) whose experts'
     FFN is 768 wide, Q4_K: ffn_down's 24 scale columns are no multiple of
-    128, so the loader stores it transposed, with K = 768."""
+    128, so the loader stores it transposed, with K = 768. Its one user is
+    a card test, so it is written per test, after the `cuda` fixture has
+    skipped where there is no card (a module fixture would be written
+    before it)."""
     from tpullama.models.testing import make_tiny_llama_gguf
 
     p = str(tmp_path_factory.mktemp("moe768") / "m.gguf")

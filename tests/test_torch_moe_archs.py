@@ -14,9 +14,10 @@ import numpy as np
 import pytest
 import torch
 
+from tests._torch_fixtures import tiny_gguf
 from tests.test_torch_model import (LONG_PROMPT, MOE, PROMPT, _assert_same_tree,
                                     _check_decode_batch_and_burst,
-                                    _check_prefill_and_generate, _check_server_script,
+                                    _check_prefill_and_generate,
                                     _edit_gguf, _jax_load, _jax_numpy, _port_load,
                                     _retype_gguf, _to_numpy)
 from tpullama.gguf import GGMLType
@@ -31,13 +32,8 @@ def moe_arch_ggufs(tmp_path_factory):
     experts, 2 per token), dense F32 and Q4_K: qwen2moe with a shared
     expert and its sigmoid gate, qwen3moe with per-head q/k norms,
     granitemoe with the scale stack and a shared expert."""
-    out = {}
-    for arch in MOE_ARCHS:
-        for qt in (GGMLType.F32, GGMLType.Q4_K):
-            p = str(tmp_path_factory.mktemp(f"{arch}-{qt.name}") / "m.gguf")
-            make_tiny_llama_gguf(p, arch=arch, qtype=qt, seed=21, **MOE)
-            out[arch, qt] = p
-    return out
+    return {(arch, qt): tiny_gguf(tmp_path_factory, arch=arch, qtype=qt, seed=21, **MOE)
+            for arch in MOE_ARCHS for qt in (GGMLType.F32, GGMLType.Q4_K)}
 
 
 @pytest.mark.parametrize("qtype", [GGMLType.F32, GGMLType.Q4_K], ids=lambda t: t.name)
@@ -82,11 +78,6 @@ def test_moe_arch_prefill_logits_and_greedy_generate(moe_arch_ggufs, arch, qtype
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_moe_arch_decode_batch_and_burst(moe_arch_ggufs, arch):
     _check_decode_batch_and_burst(moe_arch_ggufs[arch, GGMLType.Q4_K])
-
-
-def test_qwen3moe_server_engine_script(moe_arch_ggufs):
-    """test_server_engine_script on the packed qwen3moe model."""
-    _check_server_script(moe_arch_ggufs["qwen3moe", GGMLType.Q4_K])
 
 
 def test_qwen3moe_wide_heads(tmp_path):

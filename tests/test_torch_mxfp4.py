@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import _torch_fixtures  # noqa: F401  (one PyTorch thread a process)
 from tests.test_torch_model import (LONG_PROMPT, MOE, PROMPT, _assert_same_tree,
                                     _check_prefill_and_generate, _jax_load, _jax_numpy,
                                     _port_load, _retype_gguf, _to_numpy)

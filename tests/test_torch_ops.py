@@ -7,6 +7,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests import _torch_fixtures  # noqa: F401  (one PyTorch thread a process)
+
 TOL = dict(rtol=1e-6, atol=1e-6)
 
 

@@ -8,6 +8,7 @@ import importlib.util
 from pathlib import Path
 
 import pytest
+from tests import _torch_fixtures  # noqa: F401  (one PyTorch thread a process)
 
 ROOT = Path(__file__).resolve().parents[1]
 

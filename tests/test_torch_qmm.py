@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import _torch_fixtures  # noqa: F401  (one PyTorch thread a process)
 from tpullama.gguf import GGMLType, dequantize, quantize
 from tpullama.gguf.constants import GGML_TYPE_TRAITS
 from tpullama.ops.qweights import PACKED_TYPES, dequant_planar_np, group_permute, repack

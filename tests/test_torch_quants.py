@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import _torch_fixtures  # noqa: F401  (one PyTorch thread a process)
 from tpullama.gguf import quants as j_quants
 from tpullama.gguf.constants import GGML_TYPE_TRAITS, GGMLType
 from tpullama.models.testing import make_tiny_llama_gguf

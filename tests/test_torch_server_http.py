@@ -23,6 +23,7 @@ import urllib.request
 
 import pytest
 
+from tests import _torch_fixtures  # noqa: F401  (one PyTorch thread a process)
 from tpullama.models.testing import make_tiny_llama_gguf
 
 CHAT = [{"role": "system", "content": "You are terse."},

@@ -12,6 +12,7 @@ chain) over f32 logits that agree to ~1e-6 (tests/test_torch_model.py)."""
 import numpy as np
 import pytest
 
+from tests import _torch_fixtures  # noqa: F401  (one PyTorch thread a process)
 from tpullama.models.testing import make_tiny_llama_gguf
 
 # (prompt, n_draft, p_min, n_predict, sampled)

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import _torch_fixtures  # noqa: F401  (one PyTorch thread a process)
 from tpullama.gguf import GGMLType
 from tpullama.gguf import stream as j_stream
 from tpullama.models.loader import load_model as j_load_model

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import _torch_fixtures  # noqa: F401  (one PyTorch thread a process)
 from tests.test_torch_model import LOGIT_TOL, _jax_load, _port_load
 from tpullama.models.testing import make_tiny_llama_gguf
 

@@ -2,21 +2,25 @@
 chatglm, the MoE archs that run through the llama forward (qwen2moe,
 qwen3moe, granitemoe, gpt-oss with its alternating sliding-window layers,
 and the heterogeneous dense/MoE stacks of glm4moe, dots1, ernie4_5-moe and
-bailingmoe2), and the gemma and cohere families (gemma, gemma2, gemma3,
-command-r, cohere2).
+bailingmoe2), the gemma and cohere families (gemma, gemma2, gemma3,
+command-r, cohere2), and the dense archs that run on those flags alone
+(FLAG_ARCHS: qwen3, mistral3, internlm2, xverse, ernie4_5, exaone, phi3,
+glm4, granite, minicpm, orion, stablelm, plamo, seed_oss, pangu-embedded,
+qwen).
 
 The part of tpullama/models/hparams.py that the port reads. Key strings
 follow the reference's key-name table exactly (src/llama-arch.cpp:119-268);
 the fields are those of src/llama-hparams.h that these archs set, with the
 JAX package's per-arch branches for them (qwen2moe's unnormalized top-k
-weights, granite's scale stack, glm4moe's and bailingmoe2's trailing NextN
-layers, gpt-oss's SWA pattern, post-top-k softmax and swiglu_oai, gemma's
-embedding scale and GELU, gemma2's and gemma3's SWA patterns, softcaps and
-attention scales, command-r's LayerNorm, parallel residual and logit
+weights, granite's scale stack and minicpm's legacy defaults for it,
+phi3's and glm4's fused [gate|up], glm4moe's and bailingmoe2's trailing
+NextN layers, gpt-oss's SWA pattern, post-top-k softmax and swiglu_oai,
+gemma's embedding scale and GELU, gemma2's and gemma3's SWA patterns,
+softcaps and attention scales, command-r's, orion's and stablelm's
+LayerNorm, command-r's and plamo's parallel residual, command-r's logit
 scale, cohere2's NoPE full layers). Other architectures' fields and
 branches come across with the slice that ports them; until then from_gguf
-refuses them, the MoE archs and the flag-only archs by name with their
-ROADMAP item.
+refuses them by name with their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -33,37 +37,51 @@ ROPE_SCALING_YARN = "yarn"
 # heterogeneous dense/MoE stacks, loaded as a per-layer list; gpt-oss's
 # sinks, biases and SWA layers; gemma's embedding scale and GELU, gemma2's
 # and gemma3's sandwich norms, softcaps and SWA layers; command-r's
-# LayerNorm and parallel residual, cohere2's NoPE full layers)
+# LayerNorm and parallel residual, cohere2's NoPE full layers), and the
+# dense archs that run on those flags alone (FLAG_ARCHS)
+FLAG_ARCHS = ("qwen3", "mistral3", "internlm2", "xverse", "ernie4_5", "exaone", "phi3",
+              "glm4", "granite", "minicpm", "orion", "stablelm", "plamo", "seed_oss",
+              "pangu-embedded", "qwen")
 LLAMA_FAMILY = ("llama", "mistral", "qwen2", "chatglm", "qwen2moe", "qwen3moe", "granitemoe",
                 "glm4moe", "dots1", "ernie4_5-moe", "bailingmoe2", "gpt-oss", "gemma",
-                "gemma2", "gemma3", "command-r", "cohere2")
+                "gemma2", "gemma3", "command-r", "cohere2") + FLAG_ARCHS
 # the other MoE archs the JAX package runs through its llama forward, each
 # refused by name until its slice (ROADMAP.md Queue 1 item 5)
 MOE_NOT_PORTED = ("hunyuan-moe", "bailingmoe", "llama4", "afmoe", "minimax-m2",
                   "grovemoe", "olmoe", "phimoe", "dbrx", "grok", "arctic",
                   "qwen3vlmoe", "llada-moe", "smallthinker")
 # the dense archs the JAX package's tests run through its llama forward
-# from per-arch flags (its hparams branches), each refused by name until
-# its slice (ROADMAP.md Queue 1 item 7)
+# from per-arch flags the port does not have yet, and the archs with a
+# forward, cache or runtime of their own (deci's and openelm's per-layer
+# heads, MLA, gemma3n, the encoders, the recurrent and hybrid stacks,
+# diffusion, the audio decoder), each refused by name until its slice
+# (ROADMAP.md Queue 1 item 7)
 FLAG_NOT_PORTED = ("phi2", "falcon", "gptneox", "gpt2", "starcoder", "starcoder2", "mpt",
-                   "bloom", "orion", "stablelm", "olmo", "olmo2", "chameleon", "bitnet",
-                   "granite", "minicpm", "baichuan", "xverse", "refact", "codeshell", "jais",
-                   "nemotron", "exaone", "exaone4", "glm4", "smollm3", "arcee", "ernie4_5",
-                   "hunyuan-dense", "seed_oss", "apertus", "plamo", "pangu-embedded", "qwen",
-                   "qwen2vl", "qwen3vl", "cogvlm")
+                   "bloom", "olmo", "olmo2", "chameleon", "bitnet", "baichuan", "refact",
+                   "codeshell", "jais", "nemotron", "exaone4", "smollm3", "arcee",
+                   "hunyuan-dense", "apertus", "qwen2vl", "qwen3vl", "cogvlm")
+OWN_FORWARD_NOT_PORTED = ("deci", "openelm", "deepseek2", "plm", "minicpm3", "gemma3n",
+                          "bert", "nomic-bert", "nomic-bert-moe", "jina-bert-v2",
+                          "jina-bert-v3", "neo-bert", "gemma-embedding", "t5", "t5encoder",
+                          "mamba", "mamba2", "falcon-mamba", "rwkv6", "rwkv7", "arwkv7",
+                          "rwkv6qwen2", "jamba", "granite-hybrid", "granitehybrid",
+                          "falcon-h1", "lfm2", "lfm2moe", "nemotron_h", "plamo2",
+                          "qwen3next", "llada", "dream", "rnd1", "wavtokenizer-dec")
 # rope type per arch (llama_model_rope_type, src/llama-model.cpp:7777+; the
 # JAX package's NORM_ARCHES): NORM (0, adjacent pairs) for these, NEOX (2,
-# split halves) for the rest (the gemmas)
-_NORM_ROPE = ("llama", "chatglm", "granitemoe", "ernie4_5-moe", "command-r", "cohere2")
+# split halves) for the rest
+_NORM_ROPE = ("llama", "chatglm", "granitemoe", "ernie4_5-moe", "command-r", "cohere2",
+              "internlm2", "minicpm", "xverse", "granite", "ernie4_5", "mistral3", "glm4")
 
 
 def check_arch(arch: str) -> None:
-    """Raise for an arch the port does not load, an MoE or flag-only arch
-    of the JAX package's llama forward by name with its ROADMAP item."""
+    """Raise for an arch the port does not load, by name with its ROADMAP
+    item: the MoE archs of the JAX package's llama forward (item 5), its
+    other flag archs and the archs with a forward of their own (item 7)."""
     if arch in MOE_NOT_PORTED:
         raise NotImplementedError(
             f"tpullama_torch: arch {arch!r} is not ported yet (ROADMAP.md Queue 1 item 5)")
-    if arch in FLAG_NOT_PORTED:
+    if arch in FLAG_NOT_PORTED or arch in OWN_FORWARD_NOT_PORTED:
         raise NotImplementedError(
             f"tpullama_torch: arch {arch!r} is not ported yet (ROADMAP.md Queue 1 item 7)")
     if arch not in LLAMA_FAMILY:
@@ -218,18 +236,35 @@ class HParams:
             n_ff_exp=int(g("expert_feed_forward_length", 0) or 0),
             n_ff_shexp=int(g("expert_shared_feed_forward_length", 0) or 0),
             n_layer_dense_lead=int(g("leading_dense_block_count", 0) or 0),
-            # fused-swiglu FFN (LLM_FFN_SWIGLU on a 2*n_ff up projection)
-            ffn_fused_up=arch == "chatglm",
+            # fused-swiglu FFN (LLM_FFN_SWIGLU on a 2*n_ff up projection;
+            # glm4 adds gemma2's post norms, by their tensors)
+            ffn_fused_up=arch in ("chatglm", "glm4", "phi3"),
         )
         if arch == "qwen2moe":
             # top-k weights not renormalized; the shared expert has its own
             # sigmoid gate (llm_build_qwen2moe)
             hp.moe_norm_topk = False
-        if arch == "granitemoe":
+        if arch in ("granite", "granitemoe"):
             hp.embd_scale = float(g("embedding_scale", 0.0) or 0.0)
             hp.f_residual_scale = float(g("residual_scale", 0.0) or 0.0)
             if hp.f_logit_scale:
                 hp.final_logit_scale = 1.0 / hp.f_logit_scale
+        if arch == "minicpm":
+            # granite's scale stack with fixed legacy defaults
+            # (llama-model.cpp:741-755)
+            hp.embd_scale = float(g("embedding_scale", 12.0) or 12.0)
+            hp.f_residual_scale = float(
+                g("residual_scale", 1.4 / math.sqrt(hp.n_layer) if hp.n_layer else 0.0) or 0.0)
+            ls = float(g("logit_scale", 256.0 / n_embd if n_embd else 1.0) or 1.0)
+            if ls:
+                hp.final_logit_scale = 1.0 / ls
+        if arch in ("orion", "stablelm"):
+            # LayerNorm (with biases) pre-norms over a gated SiLU FFN
+            hp.norm_type = "layer"
+        if arch == "plamo":
+            # parallel residual, the FFN reading the attention norm's
+            # output (models/plamo.cpp:75-89)
+            hp.parallel_residual = True
         if arch in ("dots1", "glm4moe"):
             # deepseek-style MoE: norm_topk from expert_weights_norm,
             # selection bias (exp_probs_b), dense lead layers, shared

@@ -4,8 +4,10 @@ Port of tpullama/models/llama.py:llama_forward for the llama family
 (llama, llama-2/3, mistral, qwen2 biases, chatglm's fused biased [Q|K|V]
 and fused [gate|up], Mixtral-style MoE, the MoE archs qwen2moe,
 qwen3moe, granitemoe and gpt-oss, the heterogeneous dense/MoE stacks
-of glm4moe, dots1, ernie4_5-moe and bailingmoe2, and the gemma and cohere
-families; no parallel modes): token rows (times embd_scale) -> per layer
+of glm4moe, dots1, ernie4_5-moe and bailingmoe2, the gemma and cohere
+families, and the dense flag archs, qwen3, phi3, glm4, granite, minicpm,
+orion, stablelm, plamo and the rest of hparams.FLAG_ARCHS; no parallel
+modes): token rows (times embd_scale) -> per layer
 [norm -> q/k/v (+bias) -> per-head q/k norm -> rope -> write K/V into the
 cache -> attention (with gpt-oss's per-head sinks, gemma2's softcap) ->
 o-proj (+bias; post_attn_norm; times f_residual_scale) -> residual ->
@@ -13,9 +15,12 @@ norm -> gated FFN (SiLU, or GELU for the gemmas), or MoE FFN plus the
 shared expert (qwen2moe: gated by its own sigmoid) (post_ffn_norm; times
 f_residual_scale) -> residual], final norm, lm_head, then output_bias,
 final_logit_scale and the final softcap in f32. The norms are RMS norms,
-or LayerNorms where hp.norm_type is "layer" (command-r, cohere2), whose
-FFN reads the attention norm's output and whose layer adds both branches
-to its input at once (hp.parallel_residual). gemma2's and gemma3's
+or LayerNorms where hp.norm_type is "layer" (command-r, cohere2, orion,
+stablelm), each plus its bias where the file has one (orion's and
+stablelm's attn_norm, ffn_norm and output_norm). With
+hp.parallel_residual (command-r, cohere2, plamo) the FFN reads the
+attention norm's output and the layer adds both branches to its input at
+once. gemma2's, gemma3's and glm4's
 sandwich norms (post_attn_norm, post_ffn_norm) are RMS norms, as in the
 JAX package.
 
@@ -146,13 +151,14 @@ def layer_cache(c, li: int):
     return tuple(t[li] for t in c) if isinstance(c, tuple) else c[li]
 
 
-def norm_fn(hp: HParams, x: torch.Tensor, weight) -> torch.Tensor:
+def norm_fn(hp: HParams, x: torch.Tensor, weight, bias=None) -> torch.Tensor:
     """A block norm: LayerNorm with f_norm_eps where hp.norm_type is
-    "layer", else RMS norm with f_norm_rms_eps (the JAX package's
-    llama.py:284-288; the ported archs' norms have no bias)."""
+    "layer", else RMS norm with f_norm_rms_eps, either plus `bias` where
+    the file has one (orion's and stablelm's LayerNorms; the JAX
+    package's llama.py:284-288)."""
     if hp.norm_type == "layer":
-        return layer_norm(x, weight, eps=hp.f_norm_eps)
-    return rms_norm(x, weight, hp.f_norm_rms_eps)
+        return layer_norm(x, weight, bias, eps=hp.f_norm_eps)
+    return rms_norm(x, weight, hp.f_norm_rms_eps, bias)
 
 
 class LlamaLayer(nn.Module):
@@ -183,7 +189,7 @@ class LlamaLayer(nn.Module):
         B, T, _ = x.shape
         Hq, Hkv = hp.n_head, hp.n_head_kv
         Dk, Dv = hp.n_embd_head_k, hp.n_embd_head_v
-        h = norm_fn(hp, x, w["attn_norm"])
+        h = norm_fn(hp, x, w["attn_norm"], w.get("attn_norm_bias"))
         h_attn = h
         if "attn_qkv" in w:
             # fused QKV (chatglm): rows [Q | K | V]
@@ -251,10 +257,11 @@ class LlamaLayer(nn.Module):
         if hp.parallel_residual:
             # the FFN reads the attention norm's output (command-r), or its
             # own norm of the layer input where the file has one
-            h = norm_fn(hp, x, w["ffn_norm"]) if "ffn_norm" in w else h_attn
+            h = (norm_fn(hp, x, w["ffn_norm"], w.get("ffn_norm_bias")) if "ffn_norm" in w
+                 else h_attn)
         else:
             x = x + att
-            h = norm_fn(hp, x, w["ffn_norm"])
+            h = norm_fn(hp, x, w["ffn_norm"], w.get("ffn_norm_bias"))
         if "ffn_gate_inp" in w:
             # MoE branch (the JAX package's llama.py:734-817: the arch's
             # gating and norm_w, SiLU experts, then the shared expert)
@@ -399,7 +406,7 @@ class LlamaModel(nn.Module):
             x = layer(x, cos_swa if is_swa else cos, sin_swa if is_swa else sin,
                       layer_cache(kc, idx), layer_cache(vc, idx), slots,
                       mask_swa if is_swa else mask_full)
-        x = norm_fn(hp, x, p.get("output_norm"))
+        x = norm_fn(hp, x, p.get("output_norm"), p.get("output_norm_bias"))
         embd = x.float() if return_embd else None
         if logit_rows is not None:
             x = torch.gather(x, 1, logit_rows.long()[:, :, None].expand(-1, -1, x.shape[-1]))

@@ -5,9 +5,12 @@ qwen2, chatglm, Mixtral-style MoE llama, the MoE archs qwen2moe, qwen3moe
 and granitemoe with per-head q/k norms and shared experts, gpt-oss with
 its attention sinks, attention output and router biases and per-expert
 biases, the heterogeneous dense/MoE stacks of glm4moe, dots1,
-ernie4_5-moe and bailingmoe2, and the gemma and cohere families with
-gemma2's and gemma3's post-attention and post-FFN norms; a file without
-output.weight, as gemma's and cohere's are, takes the token table as its
+ernie4_5-moe and bailingmoe2, the gemma and cohere families with
+gemma2's and gemma3's post-attention and post-FFN norms, and the flag archs
+of hparams.FLAG_ARCHS: orion's and stablelm's LayerNorm biases
+(attn_norm, ffn_norm and output_norm), seed_oss's FFN norm stored as
+post_attention_norm; a file without output.weight, as gemma's, cohere's,
+glm4's and minicpm's tied ones are, takes the token table as its
 lm_head). Every tensor the file holds is mapped or
 refused by name, but the trailing NextN layers past hp.n_layer and every
 blk.*.nextn.* tensor, which are skipped unread (glm4moe's and
@@ -74,6 +77,9 @@ from .hparams import HParams, check_arch
 # per-layer tensor suffixes of the llama family -> param names
 _LAYER_TENSORS = {
     "attn_norm.weight": "attn_norm",
+    # LayerNorm biases (orion, stablelm)
+    "attn_norm.bias": "attn_norm_bias",
+    "ffn_norm.bias": "ffn_norm_bias",
     "attn_q.weight": "attn_q",
     "attn_k.weight": "attn_k",
     "attn_v.weight": "attn_v",
@@ -109,13 +115,14 @@ _LAYER_TENSORS = {
     "ffn_up_exps.bias": "ffn_up_exps_b",
     "ffn_down_exps.bias": "ffn_down_exps_b",
 }
-# per-arch remaps of tensor suffixes onto forward roles: glm4moe and gpt-oss
-# normalize ffn_inp with post_attention_norm, the ffn_norm slot (the JAX
-# loader's _ARCH_TENSOR_OVERRIDES; models/glm4-moe.cpp:93-96,
-# models/openai-moe-iswa.cpp:80-86), where gemma's post-scales the
-# attention output
+# per-arch remaps of tensor suffixes onto forward roles: glm4moe, gpt-oss
+# and seed_oss normalize ffn_inp with post_attention_norm, the ffn_norm
+# slot (the JAX loader's _ARCH_TENSOR_OVERRIDES; models/glm4-moe.cpp:93-96,
+# models/openai-moe-iswa.cpp:80-86, models/seed-oss.cpp:86), where gemma's
+# and glm4's post-scale the attention output
 _ARCH_TENSOR_OVERRIDES = {"glm4moe": {"post_attention_norm.weight": "ffn_norm"},
-                          "gpt-oss": {"post_attention_norm.weight": "ffn_norm"}}
+                          "gpt-oss": {"post_attention_norm.weight": "ffn_norm"},
+                          "seed_oss": {"post_attention_norm.weight": "ffn_norm"}}
 _EXPERT_TRIO = ("ffn_gate_exps", "ffn_up_exps", "ffn_down_exps")
 # the layer matrices the fused post-attention path reads in fourblock order
 _FOURBLOCK_KEYS = ("attn_output", "ffn_up", "ffn_down")
@@ -123,6 +130,7 @@ _FOURBLOCK_KEYS = ("attn_output", "ffn_up", "ffn_down")
 _TOP_TENSORS = {
     "token_embd.weight": "tok_embd",
     "output_norm.weight": "output_norm",
+    "output_norm.bias": "output_norm_bias",
     "output.weight": "output",
     "output.bias": "output_bias",
     "rope_freqs.weight": "rope_freqs",
