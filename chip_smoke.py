@@ -13,8 +13,13 @@ Phases, each printing one JSON line with its seconds:
             attention (64/8 heads, D = 64, sinks) over both stacks (4224
             and 385 cells) and its attn_output among them, and
             gemma-3-12b's (16/8 heads, D = 256, over 4224 cells and the
-            1281-cell ring) with its Q4_K [gate] and down at T = 4 and 1024
-  model     a synthetic Llama-3-8B-shaped GGUF (Q4_K layers, Q6_K output,
+            1281-cell ring) with its Q4_K [gate] and down at T = 4 and 1024;
+            Llama-4-Scout's (40/8 heads over its 16512-cell full stack and
+            its 8449-cell chunked ring), its attention, shared-expert and
+            lm_head matrices at T = 4 and 1024 and its experts in one-row
+            (B = 4) and 8-row tiles (1024 slots over 16 experts)
+  model     a synthetic Llama-3-8B-shaped GGUF (16 of its 32 layers; Q4_K
+            layers, Q6_K output,
             Q4_K token table, random block bytes from a seed) is written
             to a temp dir and loaded packed onto the card
   crosscheck the same widths at 2 layers: prefill logits and an 8-token
@@ -98,8 +103,7 @@ Phases, each printing one JSON line with its seconds:
             qwen3moe model (4 of its 48 layers; 1 in the cross-check) in the
             Q2_K layout: 128 experts of FFN 768, 8 a token, Q2_K [gate | up]
             and Q3_K down experts through the q1/q2 sets of qmm_gathered,
-            per-head q/k norms, 32 x 128 query columns on a 2048 hidden;
-            the cross-check's CPU side keeps the experts packed
+            per-head q/k norms, 32 x 128 query columns on a 2048 hidden
   qwen2moe_crosscheck
             the cross-check (1 layer, a 16-token prompt) at Qwen2-57B-A14B's
             widths in the Q5_0/Q5_1 layout: 64 Q5_1 experts of FFN 2560, 8 a
@@ -127,8 +131,8 @@ Phases, each printing one JSON line with its seconds:
             greedy tokens in all three
   glm4moe_model, glm4moe_crosscheck, glm4moe_serve
             the model, cross-check and serve phases on a GLM-4.5-Air-shaped
-            glm4moe model, a heterogeneous dense/MoE stack (4 of its 46
-            layers: the dense lead and 3 MoE layers of 128 experts, 8 a
+            glm4moe model, a heterogeneous dense/MoE stack (3 of its 46
+            layers: the dense lead and 2 MoE layers of 128 experts, 8 a
             token, sigmoid routing with the selection bias, one shared
             expert; 96 x 128 query columns over 8 KV heads, partial rope,
             q/k/v biases) plus its NextN layer, which the loader skips:
@@ -175,11 +179,30 @@ Phases, each printing one JSON line with its seconds:
             cells is smaller than the full stack, so two stacks stand
   qwen3_model, qwen3_crosscheck, qwen3_serve
             the model, cross-check and serve phases on a Qwen3-8B-shaped
-            qwen3 model (8 of its 36 layers; 2 in the cross-check): per-head
+            qwen3 model (4 of its 36 layers; 2 in the cross-check): per-head
             q/k norms on a dense FFN of 12288, 32 / 8 heads of 128, every
             layer matrix and the token table Q4_K, the 151936-row lm_head
             Q6_K, served with 4 slots at n_ctx 4096; the profile checks
             that a step and a chunk run every packed matrix through qmm
+  llama4_model, llama4_crosscheck, llama4_ring, llama4_serve
+            the model, cross-check and serve phases on a
+            Llama-4-Scout-17B-16E-shaped llama4 model (4 of its 48 layers:
+            three chunked layers of 8192 and one NoPE full layer with the Q
+            temperature; 40 x 128 query columns over 8 KV heads on a 5120
+            hidden, the weightless q/k norm after rope, 16 experts of FFN
+            8192, 1 a token, sigmoid routing over the raw logits with the
+            weights scaling the experts' inputs, an ungated shared expert,
+            llama3 rope_freqs, vocab 202048): every layer matrix, expert
+            stack and the token table Q4_K, the lm_head Q6_K; [gate | up]
+            experts stored transposed (qmm_gathered_t), down row-major
+            (qmm_gathered). The cross-check runs all 4 layers in f32 at
+            n_ctx 8704 (two stacks), a 200-token prompt and 8 greedy
+            tokens; llama4_ring, on the card
+            alone, an 8600-token prompt at the true chunk, past position
+            8192 and around the ring of 8449 cells, against a swa_full
+            Context; served with 4 slots at n_ctx 16384, one request's
+            prompt 8600 tokens, each request's tokens against its own
+            greedy loop
   int8kv    the served Llama model with an int8 KV cache against a bf16
             one: Contexts of 4 lanes of 8192 cells, bf16 activations,
             4 prompts of 6100-7000 tokens prefilled, a greedy burst of 32;
@@ -207,12 +230,13 @@ Phases, each printing one JSON line with its seconds:
 Every model phase loads through the native host library, which must have
 built on the card's machine. Each cross-check's CPU side (but ChatGLM's,
 whose fused layer and K-chunks read the packed planes) dequantizes its
-matrices once at load and keeps the experts packed (dense_reference). The
+matrices once at load, on the card, its experts too (dense_reference). The
 Llama cross-check also holds Context.embeddings (each pooling) and
 seq_add / seq_div on the card against the CPU, and a replayed step after
 seq_add against the eager step. The crosscheck, serve, http, spec, cli,
 quant_crosscheck, int8kv, int8kv_crosscheck, state, the MoE archs',
-GLM-4.5-Air's, gpt-oss's, gemma-3-12b's and command-r7b's paths each run
+GLM-4.5-Air's, gpt-oss's, gemma-3-12b's, command-r7b's, Qwen3-8B's and
+Llama-4-Scout's paths each run
 with every launch count set to 0 just before
 and read just after, and fail unless each kernel that path must run was launched. Then one JSON line lists every
 kernel with its launches on each path and its numbers at the served shape
@@ -254,11 +278,25 @@ ALL_PHASES = ("card", "build", "kernels", "model", "crosscheck", "serve", "graph
               "qwen3mxfp4_serve", "mxfp4_crosscheck", "glm4moe_model", "glm4moe_crosscheck",
               "glm4moe_serve", "gptoss_model", "gptoss_crosscheck", "gptoss_serve",
               "gemma3_model", "gemma3_crosscheck", "gemma3_serve", "cohere2_crosscheck",
-              "qwen3_model", "qwen3_crosscheck", "qwen3_serve")
+              "qwen3_model", "qwen3_crosscheck", "qwen3_serve", "llama4_model",
+              "llama4_crosscheck", "llama4_ring", "llama4_serve")
+
+
+# every line the run prints, whole, also goes to this file (the kernels
+# line alone can outgrow what a terminal or a log tail keeps)
+LOG_PATH = os.path.join("chiprun_out", "chip_smoke.jsonl")
+_log: list = []
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    say(json.dumps(obj))
+
+
+def say(line: str) -> None:
+    print(line, flush=True)
+    for f in _log:
+        f.write(line + "\n")
+        f.flush()
 
 
 def check(cond: bool, msg: str) -> None:
@@ -274,7 +312,9 @@ class Widths:
     """A llama-family configuration (n_expert > 0: a Mixtral-style MoE,
     whose n_ff is each expert's; arch "chatglm": fused biased [Q|K|V],
     fused [gate|up], n_rot rotated dims). LLAMA3_8B holds the published
-    widths of meta-llama/Meta-Llama-3-8B (config.json); MIXTRAL_8X7B those
+    widths of meta-llama/Meta-Llama-3-8B (config.json), cut to 16 of its
+    32 layers (every layer has the same shapes and launches);
+    MIXTRAL_8X7B those
     of mistralai/Mixtral-8x7B-v0.1 (config.json; sliding window null), cut
     to 2 of its 32 layers: every layer has the same shapes and launches;
     CHATGLM3_6B those of THUDM/chatglm3-6b (config.json: hidden 4096, 28
@@ -293,7 +333,8 @@ class Widths:
     meta-llama/Llama-3.2-1B (config.json: hidden 2048, 16 layers, 32 heads,
     8 KV heads, head dim 64, intermediate 8192, vocab 128256, rope_theta
     500000 with llama3 scaling factor 32, low 1, high 4, original 8192,
-    tie_word_embeddings true, rms_norm_eps 1e-5), the speculative draft.
+    tie_word_embeddings true, rms_norm_eps 1e-5), the speculative draft,
+    cut to 8 of its 16 layers for the same reason.
     The MoE archs (n_ff each routed expert's FFN): QWEN3_30B_A3B those of
     Qwen/Qwen3-30B-A3B (config.json: hidden 2048, 48 layers, 32 heads, 4
     KV heads, head_dim 128, so 32 x 128 = 4096 query columns on a 2048
@@ -327,8 +368,8 @@ class Widths:
     max_position_embeddings 131072, untied), written as llama.cpp's
     converter writes them (post_attention_norm as the FFN norm,
     exp_probs_b.bias, expert_gating_func 2, nextn_predict_layers and the
-    NextN layer's nextn.* tensors) and cut to 4 of its 46 layers (the
-    dense lead and 3 MoE layers; every MoE layer has the same shapes and
+    NextN layer's nextn.* tensors) and cut to 3 of its 46 layers (the
+    dense lead and 2 MoE layers; every MoE layer has the same shapes and
     launches) plus the NextN layer, which the loaders skip. gpt-oss:
     GPT_OSS_20B holds those of openai/gpt-oss-20b (config.json: hidden
     2880, 24 layers, 64 heads of head_dim 64 over 8 KV heads, attention
@@ -386,8 +427,22 @@ class Widths:
     max_position_embeddings 40960, tie_word_embeddings false; per-head q/k
     RMS norms, no biases), written as llama.cpp's converter writes them
     (attn_q_norm and attn_k_norm), every layer matrix and the token table
-    Q4_K, the output Q6_K, cut to 8 of its 36 layers (every layer has the
-    same shapes and launches), as the Q5_K_M Llama path is."""
+    Q4_K, the output Q6_K, cut to 4 of its 36 layers (every layer has the
+    same shapes and launches), as the Q5_K_M Llama path is. llama4:
+    LLAMA4_SCOUT holds those of meta-llama/Llama-4-Scout-17B-16E
+    (config.json, text_config: hidden 5120, 48 layers, 40 heads of 128
+    over 8 KV heads, 16 experts of intermediate_size 8192, 1 a token,
+    one shared expert of the same width, interleave_moe_layer_step 1,
+    vocab 202048, rope_theta 5e5 with llama3 scaling factor 16, low 1,
+    high 1, original 8192, attention_chunk_size 8192 with every 4th layer
+    NoPE, use_qk_norm true, floor_scale 8192, attn_scale 0.1, rms_norm_eps
+    1e-5, max_position_embeddings 10485760, untied), written as llama.cpp's
+    converter writes them (interleave_moe_layer_step, expert and shared
+    expert widths, rope_freqs from the llama3 factors; no window key, so
+    both packages take the chunk of 8192 and the temperature's constants
+    from the arch), cut to 4 of its 48 layers: one whole period of the
+    pattern, three chunked layers and one NoPE full layer, every later
+    period with the same shapes and launches."""
 
     n_embd: int = 4096
     n_layer: int = 32
@@ -423,7 +478,7 @@ class Widths:
         return self.head_dim or self.n_embd // self.n_head
 
 
-LLAMA3_8B = Widths()
+LLAMA3_8B = Widths(n_layer=16)
 MIXTRAL_8X7B = Widths(n_layer=2, n_vocab=32000, rope_theta=1e6, n_ctx_train=32768,
                       n_expert=8, n_expert_used=2)
 CHATGLM3_6B = Widths(n_layer=7, n_head_kv=2, n_ff=13696, n_vocab=65024, rope_theta=10000.0,
@@ -437,7 +492,7 @@ QWEN2_1_5B = Widths(n_embd=1536, n_layer=28, n_head=12, n_head_kv=2, n_ff=8960,
 OPENLLAMA_3B = Widths(n_embd=3200, n_layer=26, n_head=32, n_head_kv=32, n_ff=8640,
                       n_vocab=32000, rope_theta=10000.0, rms_eps=1e-6, n_ctx_train=2048,
                       q8=True)
-LLAMA32_1B = Widths(n_embd=2048, n_layer=16, n_head=32, n_head_kv=8, n_ff=8192,
+LLAMA32_1B = Widths(n_embd=2048, n_layer=8, n_head=32, n_head_kv=8, n_ff=8192,
                     n_ctx_train=131072, tied=True, llama3_rope=(32.0, 1.0, 4.0, 8192))
 # Llama-3-8B at full width in llama.cpp's Q5_K_M layout, cut to 8 of its 32
 # layers (the use_more_bits rule still mixes Q6_K and Q5_K in attn_v and
@@ -462,7 +517,7 @@ GRANITE_3B_A800M = Widths(n_embd=1536, n_layer=32, n_head=24, n_head_kv=8, n_ff=
 # [gate | up] row-major (128 scale columns), down transposed (448)
 QWEN3_30B_A3B_MXFP4 = replace(QWEN3_30B_A3B, quant="MXFP4_MOE")
 MIXTRAL_8X7B_MXFP4 = replace(MIXTRAL_8X7B, n_layer=1, quant="MXFP4")
-GLM_4_5_AIR = Widths(n_embd=4096, n_layer=4, n_head=96, n_head_kv=8, head_dim=128, n_ff=10944,
+GLM_4_5_AIR = Widths(n_embd=4096, n_layer=3, n_head=96, n_head_kv=8, head_dim=128, n_ff=10944,
                      n_ff_exp=1408, n_ff_shexp=1408, n_vocab=151552, rope_theta=1e6,
                      rms_eps=1e-5, n_ctx_train=131072, n_expert=128, n_expert_used=8,
                      arch="glm4moe", n_rot=64, dense_lead=1, nextn=1)
@@ -476,8 +531,12 @@ GEMMA3_12B = Widths(n_embd=3840, n_layer=6, n_head=16, n_head_kv=8, head_dim=256
 COHERE2_7B = Widths(n_embd=4096, n_layer=4, n_head=32, n_head_kv=8, n_ff=14336, n_vocab=256000,
                     rope_theta=50000.0, n_ctx_train=132096, arch="cohere2", tied=True,
                     n_swa=4096, logit_scale=0.25, embd_type="Q6_K")
-QWEN3_8B = Widths(n_embd=4096, n_layer=8, n_head=32, n_head_kv=8, head_dim=128, n_ff=12288,
+QWEN3_8B = Widths(n_embd=4096, n_layer=4, n_head=32, n_head_kv=8, head_dim=128, n_ff=12288,
                   n_vocab=151936, rope_theta=1e6, rms_eps=1e-6, n_ctx_train=40960, arch="qwen3")
+LLAMA4_SCOUT = Widths(n_embd=5120, n_layer=4, n_head=40, n_head_kv=8, n_ff=8192, n_ff_shexp=8192,
+                      n_vocab=202048, rope_theta=5e5, rms_eps=1e-5, n_ctx_train=10485760,
+                      n_expert=16, n_expert_used=1, arch="llama4",
+                      llama3_rope=(16.0, 1.0, 1.0, 8192))
 
 
 def use_more_bits(il: int, n: int) -> bool:
@@ -724,7 +783,10 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
     llama.cpp's layout: per-head q/k norms, post_attention_norm and
     post_ffw_norm beside the FFN norm, linear rope scaling; cohere2 its
     LayerNorm weights and epsilon, no FFN norm (the FFN reads the attention
-    norm's output) and logit_scale; qwen3 its per-head q/k norms."""
+    norm's output) and logit_scale; qwen3 its per-head q/k norms; llama4
+    its interleave step of 1 (every layer MoE, the router F32, the experts
+    Q4_K) with an ungated shared expert, and no q/k norm tensors (its
+    q/k norm is weightless)."""
     from tpullama_torch.gguf import GGML_TYPE_TRAITS, GGMLType, GGUFWriter
 
     rng = np.random.default_rng(seed)
@@ -741,6 +803,7 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
               "synthetic-gemma-3-12b-shape" if a == "gemma3" else
               "synthetic-c4ai-command-r7b-shape" if a == "cohere2" else
               "synthetic-qwen3-8b-shape" if a == "qwen3" else
+              "synthetic-llama-4-scout-17b-16e-shape" if a == "llama4" else
               "synthetic-openllama-3b-shape" if w.q8 else
               "synthetic-llama3.2-1b-shape" if w.tied else
               "synthetic-mixtral-8x7b-shape" if w.n_expert else "synthetic-llama3-8b-shape")
@@ -761,8 +824,10 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
     if w.n_expert:
         g.add_u32(f"{a}.expert_count", w.n_expert)
         g.add_u32(f"{a}.expert_used_count", w.n_expert_used)
-    if a in ("qwen2moe", "qwen3moe", "gpt-oss"):
+    if a in ("qwen2moe", "qwen3moe", "gpt-oss", "llama4"):
         g.add_u32(f"{a}.expert_feed_forward_length", w.n_ff)
+    if a == "llama4":
+        g.add_u32(f"{a}.interleave_moe_layer_step", 1)
     if w.n_swa:
         g.add_u32(f"{a}.attention.sliding_window", w.n_swa)
     if w.rope_linear:
@@ -878,7 +943,7 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
                     bias(p + f"ffn_{nm}_exps.bias", n_x, n)
             if w.n_ff_shexp:
                 Fs = w.n_ff_shexp
-                if a != "glm4moe":  # qwen2moe's sigmoid gate of the shared expert
+                if a not in ("glm4moe", "llama4"):  # qwen2moe's sigmoid gate of the shared expert
                     g.add_tensor(p + "ffn_gate_inp_shexp.weight",
                                  (0.02 * rng.standard_normal((1, E))).astype(np.float32),
                                  GGMLType.F32)
@@ -1037,7 +1102,15 @@ def qmm_cases(timer, gen, device, out: list) -> None:
              # lm_head (151936 rows): the B = 4 decode step and the chunk
              (Q4, 12288, 4096, bf16, bf16, (4, 1024)),
              (Q4, 4096, 12288, bf16, bf16, (4, 1024)),
-             (Q6, 151936, 4096, bf16, bf16, (4,))]
+             (Q6, 151936, 4096, bf16, bf16, (4,)),
+             # Llama-4-Scout's attn_q / attn_output (5120 x 5120), its
+             # shared expert's [gate] (8192 x 5120) and down (5120 x 8192)
+             # and its Q6_K lm_head (202048 rows): the B = 4 decode step and
+             # the packed chunk
+             (Q4, 5120, 5120, bf16, bf16, (4, 1024)),
+             (Q4, 8192, 5120, bf16, bf16, (4, 1024)),
+             (Q4, 5120, 8192, bf16, bf16, (4, 1024)),
+             (Q6, 202048, 5120, bf16, bf16, (4,))]
     # the q1 / q2 sets (csrc/qmm_lowbit.cu) at the Llama FFN's shapes, the
     # decode step's T = 4 and the packed prefill chunk's T = 1024, then one
     # f32-x and one f32-scale case
@@ -1092,6 +1165,10 @@ def qmm_cases(timer, gen, device, out: list) -> None:
             elif (N, K) in ((12288, 4096), (4096, 12288), (151936, 4096)):
                 role = {12288: "ffn_gate", 4096: "ffn_down", 151936: "output"}[N]
                 rec["case"] = f"qwen3 {role} T={T}"
+            elif (N, K) in ((5120, 5120), (8192, 5120), (5120, 8192), (202048, 5120)):
+                role = {(5120, 5120): "attn_q", (8192, 5120): "ffn_gate_shexp",
+                        (5120, 8192): "ffn_down_shexp", (202048, 5120): "output"}[N, K]
+                rec["case"] = f"llama4 {role} T={T}"
             emit(rec)
             out.append(rec)
         del w_lib, fields
@@ -1322,6 +1399,13 @@ def gathered_cases(timer, gen, device, out: list) -> None:
               for qt in (Q5K, Q5_0, Q5_1, Q3, Q2)]
     cases += [(False, Q2, 2 * 768, 2048, (bf16,), ((32, 1),), 128, 8),
               (False, Q3, 2048, 768, (bf16,), ((32, 1),), 128, 8)]
+    # Llama-4-Scout's experts (16 of FFN 8192, 1 a token): [gate | up]
+    # transposed (K = 5120: 160 scale columns) and down row-major (K =
+    # 8192: 256), the B = 4 decode step's 4 one-row tiles and the packed
+    # 4 x 256 chunk's 1024 slots in 8-row tiles
+    scout = ((4, 1), (1024, 8))
+    cases += [(True, Q4, 2 * 8192, 5120, (bf16,), scout, 16, 1),
+              (False, Q4, 5120, 8192, (bf16,), scout, 16, 1)]
     MX = GGMLType.MXFP4
     for ar in (False, True):
         cases += [(False, MX, 2 * 14336, 4096, (bf16,), ((8, 1, 8), (2048, 8)), 8, 2, ar),
@@ -1411,6 +1495,9 @@ def gathered_cases(timer, gen, device, out: list) -> None:
                        "max_rel_err": err / max(float(want.abs().max()), 1e-30),
                        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "library": lib,
                        "bound_ms": b_ms, "bound_by": b_by}
+                if (E, k_used) == (16, 1):
+                    role = "ffn_gateup_exps" if planes_t else "ffn_down_exps"
+                    rec["case"] = f"llama4 {role} slots={S}"
                 emit(rec)
                 out.append(rec)
             del fields
@@ -1418,11 +1505,13 @@ def gathered_cases(timer, gen, device, out: list) -> None:
         torch.cuda.empty_cache()
 
 
-def attn_inputs(B, Tq, Hq, Hkv, D, S, dtype, gen, device, kv_pos, q_pos, window: int = 0):
+def attn_inputs(B, Tq, Hq, Hkv, D, S, dtype, gen, device, kv_pos, q_pos, window: int = 0,
+                chunk: int = 0):
     """Random q/k/v at head-major cache layout and the Context's additive
     mask: visible iff the cell holds a position at or before the query's
     (and with `window`, after the query's position less the window: the
-    mask of a sliding-window layer)."""
+    mask of a sliding-window layer; with `chunk`, at or after the start of
+    the query's chunk: llama4's chunked layers)."""
     import torch
 
     q = torch.randn((B, Tq, Hq, D), generator=gen, device=device).to(dtype)
@@ -1433,6 +1522,8 @@ def attn_inputs(B, Tq, Hq, Hkv, D, S, dtype, gen, device, kv_pos, q_pos, window:
     vis = (kp >= 0) & (kp <= qp)
     if window:
         vis &= kp > qp - window
+    if chunk:
+        vis &= kp >= qp // chunk * chunk
     mask = torch.where(vis, 0.0, -1e30).to(torch.float32)[:, None]
     return q, k, v, mask
 
@@ -1581,6 +1672,51 @@ def iswa_attention_cases(timer, gen, device, out: list, W: Widths, label: str,
             attn_case(timer, "flash_attention" + suffix, flash_attention, q, k, v, mask, out,
                       scales=sc, case=case, **kw)
             del q, k, v, mask
+
+
+def chunked_attention_cases(timer, gen, device, out: list) -> None:
+    """Llama-4-Scout's attention as served at n_ctx 16384 on the two-stack
+    cache (n_ubatch 256): its NoPE full layer over the full stack's 16512
+    cells under the causal mask, its chunked layers over the ring of
+    8192 + 256 + 1 cells under the chunked mask; 40 / 8 heads of 128 (G =
+    5). Decode at B = 1 (flash_decode) and B = 4 (flash_decode_batched)
+    with lanes past the chunk start at 8192, and the packed 4 x 256 prefill
+    chunk (flash_attention) with a lane crossing it; bf16. Each record is
+    labelled "llama4" and its stack."""
+    import torch
+
+    from tpullama_torch.ops.cuda.flash_attention import flash_attention
+    from tpullama_torch.ops.cuda.flash_decode import flash_decode
+
+    W, n_ctx, chunk = LLAMA4_SCOUT, 16384, 8192
+    Hq, Hkv, D, n_ub, Tq = W.n_head, W.n_head_kv, W.hd, 256, 256
+    S = -(-(n_ctx + 1) // 128) * 128
+    lengths4 = [16000, 12000, 8300, 300]
+    lanes = [(15000, 256), (8100, 216), (4000, 100), (0, 256)]
+    for stack, n_cells in (("full", S), ("chunked ring", chunk + n_ub + 1)):
+        ck = chunk if stack != "full" else 0
+
+        def cache_pos(ns):
+            if ck:
+                return ring_positions(ns, chunk, n_ub)
+            kv = np.full((len(ns), S), -1, np.int32)
+            for b, n in enumerate(ns):
+                kv[b, :n] = np.arange(n)
+            return kv
+
+        case = f"llama4 {stack} S={n_cells}"
+        for lengths, name in (([12000], "flash_decode"), (lengths4, "flash_decode_batched")):
+            q, k, v, mask = attn_inputs(len(lengths), 1, Hq, Hkv, D, n_cells, torch.bfloat16,
+                                        gen, device, cache_pos(lengths),
+                                        np.asarray(lengths, np.int32)[:, None] - 1, chunk=ck)
+            attn_case(timer, name, flash_decode, q, k, v, mask, out, case=case)
+        qp = np.full((4, Tq), -1, np.int32)
+        for b, (n_past, n_new) in enumerate(lanes):
+            qp[b, :n_new] = np.arange(n_past, n_past + n_new)
+        q, k, v, mask = attn_inputs(4, Tq, Hq, Hkv, D, n_cells, torch.bfloat16, gen, device,
+                                    cache_pos([a + n for a, n in lanes]), qp, chunk=ck)
+        attn_case(timer, "flash_attention", flash_attention, q, k, v, mask, out, case=case)
+        del q, k, v, mask
 
 
 def attention_cases(timer, gen, device, out: list) -> None:
@@ -1848,6 +1984,16 @@ def phase_model(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
         swa = model.hparams.swa_layers
         check(len(swa) == widths.n_layer and any(swa) and not all(swa)
               and model.hparams.n_swa == widths.n_swa, f"SWA and full layers: {swa}")
+    if widths.arch == "llama4":
+        # the arch's chunked pattern: 3 chunked layers of 8192 and a NoPE
+        # full layer a period; the llama3 scaling as rope_freqs
+        hp = model.hparams
+        period = tuple(il % 4 < 3 for il in range(widths.n_layer))
+        check(hp.swa_type == "chunked" and hp.n_swa == 8192 and hp.swa_layers == period
+              and hp.nope_layers == tuple(not c for c in period) and hp.qk_norm_weightless,
+              f"llama4's chunked and NoPE layers: {hp.swa_layers} {hp.nope_layers}")
+        check(tuple(model.params["rope_freqs"].shape) == (widths.hd // 2,),
+              "the llama3 scaling's rope_freqs")
     # the loader decodes and repacks through the native host library (it
     # builds on first use); on the card's machine it must have built
     used_native = native.resolve_native(None) and native.get_lib() is not None
@@ -1864,25 +2010,68 @@ def phase_model(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
     return model
 
 
+def card_reference(gpu):
+    """A CPU reference model from a card model's own weights: every tensor
+    and plane copied to the host as it is on the card, then
+    dense_reference. The card's and the host's runs then hold the same
+    bits of every weight, whatever the load did."""
+    import copy
+
+    from tpullama_torch.models import LoadedModel
+
+    def host(t):
+        if isinstance(t, dict):
+            return {k: host(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [host(v) for v in t]
+        return t.cpu()
+
+    return dense_reference(LoadedModel(hparams=gpu.hparams, params=host(gpu.params), reader=None,
+                                       vocab=gpu.vocab, quant_meta=copy.deepcopy(gpu.quant_meta)))
+
+
 def dense_reference(model):
     """A CPU reference model's packed matrices dequantized once, to dense
     f32 in natural order: the same exact weights its plain versions would
-    dequantize at every call, so its steps run plain matmuls. The expert
-    stacks stay packed (their plain gathered product dequantizes each
-    selected expert once a call, and the dense expert branch would gather a
-    (B, T, k, F, D) tensor). Returns the model."""
+    dequantize at every call, so its steps run plain matmuls. The
+    dequantization (dequant_stored: integer unpacking, then one rounded
+    product and one rounded difference per value, each its own elementwise
+    op) runs on the card where there is one, ~100x the host's rate, and
+    gives the host's bits: the first matrix's first rows are held equal to
+    the host's own dequantization. The expert stacks become dense (L, E,
+    rows, K) f32 stacks (gate and up apart, the padded rows dropped), so
+    the reference's experts run the dense expert branch (per pair at one
+    token, sorted by expert at more) on those exact weights, where the
+    plain gathered product would dequantize each selected expert again at
+    every call (~2 s for one of Llama-4-Scout's on the host). Returns the
+    model."""
     import torch
 
     from tpullama_torch.ops.cuda import qmm
 
-    def dense(fields, m):
-        w = qmm.dequant_stored(fields, m.ggml_type, m.group)
+    via = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    checked = []
+
+    def stored(fields, m):
+        """One matrix's planes dequantized on `via`, (rows, K) in natural
+        column order."""
+        on = {k: v.to(via) for k, v in fields.items()}
+        w = qmm.dequant_stored(on, m.ggml_type, m.group)
         # stored column p holds natural element idx[p]
-        idx = qmm.permute_x(torch.arange(m.n_in, dtype=torch.float32)[None], m.group,
-                            m.order)[0].long()
+        idx = qmm.permute_x(torch.arange(m.n_in, dtype=torch.float32, device=via)[None],
+                            m.group, m.order)[0].long()
         out = torch.empty_like(w)
         out[:, idx] = w
-        return out[:m.n_out]
+        if via.type == "cuda" and not checked:
+            host = qmm.dequant_stored({k: v[:8].cpu() for k, v in fields.items()},
+                                      m.ggml_type, m.group)
+            check(torch.equal(w[:8].cpu(), host), "the card's dequantization differs from "
+                  "the host's")
+            checked.append(True)
+        return out
+
+    def dense(fields, m):
+        return stored(fields, m)[:m.n_out].cpu()
 
     qm = model.quant_meta or {}
     if "output" in qm:
@@ -1893,6 +2082,26 @@ def dense_reference(model):
         m, st = lm.pop(key), layers[key]
         layers[key] = torch.stack([dense({k: v[il] for k, v in st.items()}, m)
                                    for il in range(next(iter(st.values())).shape[0])])
+    hp = model.hparams
+    E, L = hp.n_expert, hp.n_layer
+    F = lm["ffn_down_exps"].n_in if "ffn_down_exps" in lm else 0  # each expert's FFN
+    for key in [k for k in lm if k.endswith("_exps")]:
+        m, st = lm.pop(key), layers.pop(key)
+        rows, G = m.n_out // E, m.n_in // m.group
+        # the [gate | up] stack's halves are padded apart; down's rows true
+        parts = ({"ffn_gate_exps": 0, "ffn_up_exps": rows // 2}
+                 if key == "ffn_gateup_exps" else {key: 0})
+        n = F if key == "ffn_gateup_exps" else rows
+        for part in parts:
+            layers[part] = torch.empty((L, E, n, m.n_in), dtype=torch.float32)
+        for i in range(L * E):
+            f = {k: v[i] for k, v in st.items()}
+            if m.planes_t:  # (kcols, rows_p), the group rows padded to 16
+                f = {k: (v[:G] if k in ("scale", "minv") else v).T.contiguous()
+                     for k, v in f.items()}
+            w = stored(f, m)
+            for part, r0 in parts.items():
+                layers[part][i // E, i % E].copy_(w[r0:r0 + n])
     if not lm:
         qm.pop("layers", None)
     model.quant_meta = qm or None
@@ -1907,7 +2116,7 @@ def phase_crosscheck(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
     cache on both sides: `device` (the card) runs the kernels, the CPU the
     plain versions, both with the fused layer and K-chunks as given;
     without them the CPU's matrices are dequantized once at load
-    (dense_reference; the experts stay packed). With
+    (dense_reference, the experts too). With
     the fused layer on, the card's greedy run with both off, on the same
     fourblock planes, must give the same tokens too. With `runtime_ops`,
     Context.embeddings of the prompt for each pooling (none, mean, cls,
@@ -1997,7 +2206,7 @@ def phase_swa_crosscheck(tmp: str, card: str, device: str = "cuda",
                          widths: Widths = GPT_OSS_20B, n_layer: int = 2, n_prompt: int = 600,
                          n_ubatch: int = 256, n_ctx: int = 1024, n_greedy: int = 16,
                          phase: str = "gptoss_crosscheck", path: str | None = None,
-                         single_stack_layers: int = 0) -> None:
+                         single_stack_layers: int = 0, served=None):
     """A model with sliding-window layers (gpt-oss, gemma3, cohere2) at its
     widths cut to n_layer layers (both kinds among them), f32 activations
     and cache, on the two-stack cache: a prompt of n_prompt tokens,
@@ -2012,20 +2221,30 @@ def phase_swa_crosscheck(tmp: str, card: str, device: str = "cuda",
     model phase's), read instead of writing the cut. With
     `single_stack_layers`, the first that many layers of both models (all
     of them SWA layers) run the same prompt again on one windowed stack,
-    card against CPU."""
+    card against CPU. With `served` (a loaded model of n_layer layers, the
+    served one), the card runs its weights with f32 activations
+    (f32_activations) and the CPU reference is built from the card's own
+    planes and tensors (card_reference): no file is written or read, where
+    Llama-4-Scout's would be read twice (6.4 GB) and its experts densified
+    from the host's load (32 GB of f32). Returns the card's f32 model."""
     import torch
 
     from tpullama_torch.models import LoadedModel, load_model
     from tpullama_torch.runtime import Context, ContextParams
 
     t0 = time.perf_counter()
-    if path is None:
-        path = os.path.join(tmp, f"{phase}.gguf")
-        write_llama_gguf(path, replace(widths, n_layer=n_layer), seed=1)
-    gpu = load_model(path, dtype=torch.float32, device=device, packed=True)
-    cpu = dense_reference(load_model(path, dtype=torch.float32, device="cpu", packed=True))
+    if served is not None:
+        gpu = f32_activations(served)
+        cpu = card_reference(gpu)
+    else:
+        if path is None:
+            path = os.path.join(tmp, f"{phase}.gguf")
+            write_llama_gguf(path, replace(widths, n_layer=n_layer), seed=1)
+        gpu = load_model(path, dtype=torch.float32, device=device, packed=True)
+        cpu = dense_reference(load_model(path, dtype=torch.float32, device="cpu", packed=True))
+        os.remove(path)
     check(gpu.hparams.n_layer == n_layer, f"{gpu.hparams.n_layer} layers, not {n_layer}")
-    os.remove(path)
+    t_models = time.perf_counter() - t0
     prompt = gpu.vocab.tokenize(word_prompt(np.random.default_rng(2), n_prompt + 40),
                                 add_special=True)
     prompt = np.asarray(prompt[:n_prompt], np.int32)
@@ -2059,7 +2278,7 @@ def phase_swa_crosscheck(tmp: str, card: str, device: str = "cuda",
               and np.array_equal(cg.n_past, cc.n_past), "the host mirrors differ")
         return cg, err, tol, out_g, {"card": t_card, "cpu": t_cpu}
 
-    ring = widths.n_swa + n_ubatch + 1
+    ring = gpu.hparams.n_swa + n_ubatch + 1
     cg, err, tol, out_g, prefill_s = pair_run(gpu, cpu, cp)
     check(cg._S_swa == ring and isinstance(cg.kv_k, dict),
           f"a ring of {cg._S_swa} cells, not {ring}")
@@ -2069,6 +2288,7 @@ def phase_swa_crosscheck(tmp: str, card: str, device: str = "cuda",
     out_f = greedy_continue(full, lf[-1], n_greedy)
     check(out_f == out_g, f"the ring's tokens {out_g} differ from swa_full's {out_f}")
     rec = {"phase": phase, "card": card, "layers": n_layer, "swa_layers": gpu.hparams.swa_layers,
+           "models_s": t_models, "served_weights": served is not None,
            "prompt_tokens": n_prompt, "n_ctx": n_ctx, "n_ubatch": n_ubatch, "ring_cells": ring,
            "ring_wrapped": n_prompt > ring, "full_cells": cg._S, "prefill_max_abs_err": err,
            "tol": tol, "prefill_s": prefill_s, "greedy_tokens": out_g,
@@ -2094,6 +2314,79 @@ def phase_swa_crosscheck(tmp: str, card: str, device: str = "cuda",
                                "prefill_max_abs_err": err1, "tol": tol1, "prefill_s": s1,
                                "greedy_tokens": out1}
     emit({**rec, "seconds": time.perf_counter() - t0})
+    del cpu
+    return gpu
+
+
+def top2_greedy(ctx, logits, n: int) -> tuple[list, list]:
+    """greedy_continue's tokens with each step's top-2 logit gap."""
+    toks, gaps = [], []
+    for _ in range(n):
+        top2 = np.partition(logits, -2)[-2:]
+        gaps.append(float(top2[1] - top2[0]))
+        toks.append(int(np.argmax(logits)))
+        if ctx.model.vocab.is_eog(toks[-1]):
+            break
+        logits = ctx.decode(np.asarray([toks[-1]], np.int32))[-1]
+    return toks, gaps
+
+
+def phase_chunk_ring(gpu, card: str, phase: str = "llama4_ring", n_prompt: int = 8600,
+                     n_ctx: int = 8704, n_ubatch: int = 256, n_greedy: int = 8) -> None:
+    """llama4's chunked layers at the true chunk of n_swa = 8192 on the
+    card, f32 activations and cache: one lane at n_ctx 8704, where the ring
+    of 8192 + 256 + 1 cells stands beside the full stack; a prompt of
+    n_prompt tokens in n_ubatch chunks passes position 8192 (a chunk start
+    and the NoPE layers' first temperature step) and wraps the ring. Held
+    against a swa_full Context (one stack of n_ctx cells under the chunked
+    mask) on the same model and prompt: the last row's logits within 1e-3
+    of their largest magnitude plus 1e-4, and n_greedy greedy tokens equal
+    up to the first near-tie of the swa_full run (a top-2 gap below that
+    tolerance); the ring's cells hold each position at its residue."""
+    import torch
+
+    from tpullama_torch.runtime import Context, ContextParams
+
+    t0 = time.perf_counter()
+    hp = gpu.hparams
+    chunk = hp.n_swa
+    check(hp.swa_type == "chunked", f"{hp.arch} has no chunked layers")
+    sync = torch.cuda.synchronize if gpu.device.type == "cuda" else (lambda: None)
+    prompt = gpu.vocab.tokenize(word_prompt(np.random.default_rng(4), n_prompt + 100),
+                                add_special=True)
+    prompt = np.asarray(prompt[:n_prompt], np.int32)
+    ring = chunk + n_ubatch + 1
+    check(len(prompt) == n_prompt and n_prompt > chunk and n_prompt > ring - 1,
+          f"a prompt of {len(prompt)} tokens crosses {chunk} and wraps {ring - 1} cells")
+    cp = ContextParams(n_ctx=n_ctx, n_ubatch=n_ubatch)
+    cr = Context(gpu, cp)
+    check(cr._S_swa == ring and isinstance(cr.kv_k, dict), f"a ring of {cr._S_swa} cells")
+    t1 = time.perf_counter()
+    lr = cr.decode(prompt, n_logits=1)
+    sync()
+    t_ring = time.perf_counter() - t1
+    cells = cr.kv_pos["swa"][0].cpu().numpy()
+    want = ring_positions([n_prompt], chunk, n_ubatch)[0]
+    check(np.array_equal(cells, want), "the ring's cells do not hold each position at p % "
+          f"{ring - 1}")
+    full = Context(gpu, replace(cp, swa_full=True))
+    check(not isinstance(full.kv_k, dict), "swa_full keeps one stack")
+    t1 = time.perf_counter()
+    lf = full.decode(prompt, n_logits=1)
+    sync()
+    t_full = time.perf_counter() - t1
+    err = float(np.abs(lr - lf).max())
+    tol = 1e-3 * float(np.abs(lf).max()) + 1e-4
+    check(np.isfinite(lr).all() and err <= tol, f"ring against swa_full: err {err} > tol {tol}")
+    out_r = greedy_continue(cr, lr[-1], n_greedy)
+    out_f, gaps = top2_greedy(full, lf[-1], n_greedy)
+    k = same_under_tie_rule(out_r, {"tokens": out_f, "gaps": gaps, "tol": tol},
+                            "the ring's greedy tokens against swa_full's")
+    emit({"phase": phase, "card": card, "prompt_tokens": n_prompt, "n_ctx": n_ctx,
+          "chunk": chunk, "ring_cells": ring, "full_cells": cr._S,
+          "prefill_s": {"ring": t_ring, "swa_full": t_full}, "last_logits_max_abs_err": err,
+          "tol": tol, "greedy_tokens": out_r, "swa_full_greedy_tokens": out_f,
+          "greedy_compared": k, "seconds": time.perf_counter() - t0})
 
 
 def swa_memory(model, eng, card: str, phase: str) -> None:
@@ -2118,8 +2411,8 @@ def phase_mxfp4_crosscheck(tmp: str, card: str, device: str = "cuda",
     loaded, the A/r planes (load_model(mxfp4_ar=True)), and the LUT planes
     with 4 K-chunks (Context(qmm_tile_k=4): attention and the lm_head
     through qmm_ktiled). The CPU side loads the LUT planes once and
-    dequantizes its matrices once (dense_reference; the experts stay
-    packed). Each run's prefill logits within 1e-3 of their max + 1e-4 of
+    dequantizes its matrices once (dense_reference, the experts
+    too). Each run's prefill logits within 1e-3 of their max + 1e-4 of
     the CPU's and its 8 greedy tokens equal to the CPU's (f32 activations
     and cache), so the A/r and LUT card runs give the same tokens too: the
     re-code loses nothing. Every packed matrix is MXFP4, so each kernel the
@@ -2287,12 +2580,18 @@ def split_case(tmp: str, widths: Widths, card: str, device: str = "cuda",
 
 
 def phase_serve(model, card: str, phase: str = "serve", n_slots: int = 4,
-                rerun_all: bool = False, **engine_kw):
-    """4 greedy requests submitted together (concurrent on 4 slots, in turn
+                rerun_all: bool = False, n_ctx: int = 4096,
+                lengths: tuple = (300, 550, 780, 1000), plain_greedy: bool = False,
+                **engine_kw):
+    """4 greedy requests (prompts of about `lengths` tokens) submitted
+    together (concurrent on 4 slots, in turn
     on 1), then one seeded sampled request alone, then the first greedy
     request again on erased slots (with `rerun_all`, the 4 together again:
     for a model with dense projections, whose cuBLAS products are not
-    batch-invariant, as the packed kernels are). Rates come from the Context's counters
+    batch-invariant, as the packed kernels are). With `plain_greedy`, each
+    greedy request's tokens equal its own greedy loop on a one-lane Context
+    up to that loop's first near-tie (greedy_gaps, same_under_tie_rule).
+    Rates come from the Context's counters
     over each window: host clock around work that ends in a device-to-host
     copy of logits or ids. `engine_kw` goes to ServerEngine. Returns the
     engine and one prompt, for phase_serve_profile, and the 4 greedy
@@ -2309,11 +2608,11 @@ def phase_serve(model, card: str, phase: str = "serve", n_slots: int = 4,
                      "decode_tokens": d[2], "decode_tok_s": d[2] / d[3] * 1e3 if d[3] else None}
 
     t0 = time.perf_counter()
-    eng = ServerEngine(model, n_slots=n_slots, n_ctx=4096, dtype=torch.bfloat16, **engine_kw)
+    eng = ServerEngine(model, n_slots=n_slots, n_ctx=n_ctx, dtype=torch.bfloat16, **engine_kw)
     perf = eng.ctx.perf
     mark = (0, 0.0, 0, 0.0)
     rng = np.random.default_rng(3)
-    prompts = [word_prompt(rng, n) for n in (300, 550, 780, 1000)]
+    prompts = [word_prompt(rng, n) for n in lengths]
     vocab = model.vocab
     t1 = time.perf_counter()
     tasks = [eng.submit(Task(prompt_tokens=vocab.tokenize(p, add_special=True), n_predict=32))
@@ -2346,8 +2645,17 @@ def phase_serve(model, card: str, phase: str = "serve", n_slots: int = 4,
         again = eng.complete(prompts[0], n_predict=32)
         check(again.out_tokens == tasks[0].out_tokens,
               "a greedy request run again gave other tokens")
+    compared = None
+    if plain_greedy:
+        from tpullama_torch.runtime import ContextParams
+
+        cp = ContextParams(n_ctx=n_ctx, n_ubatch=eng.n_ubatch, dtype=torch.bfloat16)
+        compared = [same_under_tie_rule(t.out_tokens, greedy_gaps(model, t.prompt_tokens, 32, cp),
+                                        f"served request {i} against its greedy loop")
+                    for i, t in enumerate(tasks)]
     n_out = sum(len(t.out_tokens) for t in tasks)
     emit({"phase": phase, "card": card, "requests": len(tasks) + 2, "n_slots": n_slots,
+          "n_ctx": n_ctx, "plain_greedy_compared": compared,
           **engine_kw, "prompt_tokens": [len(t.prompt_tokens) for t in tasks],
           "completion_tokens": [len(t.out_tokens) for t in tasks + [sampled, again]],
           "greedy4": {**concurrent, "wall_s": wall, "output_tok_s": n_out / wall,
@@ -2359,7 +2667,7 @@ def phase_serve(model, card: str, phase: str = "serve", n_slots: int = 4,
 
 def phase_serve_profile(eng, prompt: str, card: str, phase: str = "serve_profile",
                         step_kernels: tuple = (), qmm_counts: tuple | None = None,
-                        gathered_routes: str | None = None) -> None:
+                        gathered_routes: tuple = ()) -> None:
     """torch.profiler over the served engine's Context, whose lanes still
     hold the requests: one packed B x 256 prefill chunk and one decode
     step of all B lanes. Then one more decode step with every launch count
@@ -2367,10 +2675,11 @@ def phase_serve_profile(eng, prompt: str, card: str, phase: str = "serve_profile
     With `qmm_counts` = (gemv, tiled), that step must launch qmm_gemv gemv
     times and one more packed chunk qmm_tiled tiled times: every packed
     matrix of the model went through the kernels. With `gathered_routes`
-    (a gathered kernel's name), one eager decode step and one more packed
-    chunk, each with the launch counts at 0 and the MoE layers' gathered
-    calls recorded: the step must launch that kernel on one-row tiles and
-    the chunk on 8-row tiles, twice a layer each ([gate | up] and down)."""
+    (the gathered kernels' names), one eager decode step and one more
+    packed chunk, each with the launch counts at 0 and the MoE layers'
+    gathered calls recorded: the step must launch those kernels on one-row
+    tiles and the chunk on 8-row tiles, each of them, and twice a layer in
+    all ([gate | up] and down)."""
     from tpullama_torch.ops.cuda import launch_counts, reset_launch_counts
 
     t0 = time.perf_counter()
@@ -2425,20 +2734,22 @@ def phase_serve_profile(eng, prompt: str, card: str, phase: str = "serve_profile
                 with recorded_tiles([]) as calls:
                     reset_launch_counts()
                     run()
-                    n = launch_counts()[gathered_routes]
+                    n = {k: launch_counts()[k] for k in gathered_routes}
             finally:
                 del ctx._run
             routes[what] = {"launches": n, "calls": [list(c[0]) + [c[1], c[2]]
                                                      for c in sorted(set(calls))]}
             routes[what]["tile_t"] = sorted({c[1] for c in calls})
-        rec["gathered_routes"] = {gathered_routes: routes}
+        rec["gathered_routes"] = routes
     emit({**rec, "seconds": time.perf_counter() - t0})
     n_layer = ctx.hp.n_layer
     if gathered_routes and ctx.device.type == "cuda":
         for what, tile_t in (("decode_step", 1), ("prefill_chunk", 8)):
-            check(routes[what]["launches"] == 2 * n_layer and routes[what]["tile_t"] == [tile_t],
-                  f"{what}: {gathered_routes} launched {routes[what]['launches']} times on "
-                  f"tiles of {routes[what]['tile_t']} rows, not {2 * n_layer} on {tile_t}")
+            n = routes[what]["launches"]
+            check(sum(n.values()) == 2 * n_layer and all(n.values())
+                  and routes[what]["tile_t"] == [tile_t],
+                  f"{what}: {gathered_routes} launched {n} times on tiles of "
+                  f"{routes[what]['tile_t']} rows, not {2 * n_layer} in all on {tile_t}")
     for name in step_kernels:
         check(counts[name] == n_layer,
               f"a decode step launched {name} {counts[name]} times, not once per layer")
@@ -2974,10 +3285,10 @@ def f32_activations(model):
     return replace(model, params={**model.params, "tok_embd": model.params["tok_embd"].float()})
 
 
-def served_spec(model, draft, prompts: list, serve_tokens=None, n_tokens: int = 16) -> dict:
+def served_spec(model, draft, prompts: list, serve_tokens=None, n_tokens: int = 8) -> dict:
     """ServerEngine(n_slots=4, n_ctx=4096, bf16 cache, 16 drafts a round,
     p_min 0) with `draft` answers the 4 greedy `prompts` with n_tokens each
-    (16: the random draft's rounds accept no token, so each round yields
+    (8: the random draft's rounds accept no token, so each round yields
     one, and the whole run's time limit is shared): each lane's tokens are
     its plain greedy loop's (and `serve_tokens`' first ones, if given)
     under the near-tie rule; output tok/s, drafts and acceptance, and one
@@ -3056,10 +3367,10 @@ def phase_spec(model, tmp: str, card: str, serve_tokens=None, phase: str = "spec
         model, whose routes' rounding makes near-ties of random weights'
         close logits.
       - Served: a draft at Llama-3.2-1B's published widths (LLAMA32_1B,
-        full depth, Q4_K, written and loaded here) drafts for
+        8 of 16 layers, Q4_K, written and loaded here) drafts for
         ServerEngine(n_slots=4, n_ctx=4096, bf16, 16 drafts, p_min 0: random
         weights never reach the 0.75 gate, and without drafts verify would
-        never run above T = 1) on the serve phase's 4 greedy requests, 16
+        never run above T = 1) on the serve phase's 4 greedy requests, 8
         tokens each (served_spec), with the bf16 models (the numbers; the tokens
         under the rule, whose measured route difference leaves few to
         compare) and again with f32 activations (the tokens: verify
@@ -3237,7 +3548,9 @@ def step_bound(ctx, rows: int, kv_cells: int, routing: list, n_steps: int) -> tu
 
     if isinstance(ctx.kv_k, dict):
         ring = ctx.kv_pos["swa"].cpu().numpy()
-        lo = (ctx.n_past - hp.n_swa)[:, None]
+        # the cells a lane's window (or llama4's chunk) shows its next token
+        lo = ((ctx.n_past // hp.n_swa * hp.n_swa if hp.swa_type == "chunked"
+               else ctx.n_past - hp.n_swa)[:, None])
         ring_cells = int(((ring >= 0) & (ring >= lo)).sum())
         n_bytes += 2 * (kv_cells * cell_bytes(ctx.kv_k["full"])
                         + ring_cells * cell_bytes(ctx.kv_k["swa"]))
@@ -3350,7 +3663,8 @@ def profile_step(ctx, step, rows: int, n_steps: int, kernels: tuple = ()) -> dic
             "idle_share": 1.0 - busy_ms / prof_wall_ms, "bound_ms": b_ms, "bound_by": b_by,
             "device_launches": sum(e.count for e in dev) / n_steps,
             "top": [{"kernel": e.key[:90], "ms": e.self_device_time_total / 1e3 / n_steps,
-                     "launches": e.count / n_steps} for e in top]}
+                     "share": e.self_device_time_total / 1e3 / n_steps / busy_ms
+                     if busy_ms else None, "launches": e.count / n_steps} for e in top]}
 
 
 def phase_int8kv(model, card: str, phase: str = "int8kv", n_ctx: int = 8192,
@@ -3860,6 +4174,12 @@ PATH_KERNELS = {
     # lm_head (N = 151936), per-head q/k norms; attention at G = 4, D = 128
     "qwen3_crosscheck": _DENSE_CROSS,
     "qwen3_serve": _DENSE_SERVE,
+    # Llama-4-Scout: Q4_K attention and shared expert, the Q6_K lm_head;
+    # [gate | up] experts transposed (K = 5120), down row-major (K = 8192);
+    # attention at G = 5 over the full stack and the chunked ring
+    "llama4_crosscheck": _DENSE_CROSS + _GATHERED,
+    "llama4_ring": _DENSE_CROSS + _GATHERED,
+    "llama4_serve": _DENSE_SERVE + _GATHERED,
     # lanes saved and loaded (f32 and int8 caches), the HTTP engine, the CLI
     "state": ("qmm_gemv", "qmm_tiled", "flash_attention", "flash_decode", "flash_decode_batched",
               "flash_attention_int8", "flash_decode_int8"),
@@ -3880,7 +4200,8 @@ PATHS = (("", LLAMA3_8B, 2, 4, {}),
          ("gptoss_", GPT_OSS_20B, 2, 4, {}),
          ("gemma3_", GEMMA3_12B, 6, 4, {}),  # the cross-check reads the model's file
          ("cohere2_", COHERE2_7B, 4, 0, {}),  # the cross-check alone
-         ("qwen3_", QWEN3_8B, 2, 4, {}))
+         ("qwen3_", QWEN3_8B, 2, 4, {}),
+         ("llama4_", LLAMA4_SCOUT, 4, 4, {}))  # the cross-check and ring read the model's file
 # the cross-checks on the two-stack cache, with their options: gpt-oss's
 # 600-token prompt wraps its 385-cell ring; gemma-3-12b's 1400 tokens its
 # 1281-cell ring, then its first 2 layers (SWA layers only) run on one
@@ -3888,7 +4209,17 @@ PATHS = (("", LLAMA3_8B, 2, 4, {}),
 # the full stack only from n_ctx 8192 (its prompt does not wrap it)
 SWA_CROSS = {"gptoss_": {},
              "gemma3_": dict(n_prompt=1400, n_ctx=2048, single_stack_layers=2),
-             "cohere2_": dict(n_prompt=64, n_ctx=8192)}
+             "cohere2_": dict(n_prompt=64, n_ctx=8192),
+             # Llama-4-Scout's ring stands from n_ctx 8450; the chunk of 8192
+             # is crossed by llama4_ring on the card alone (a CPU prefill of
+             # 8600 tokens through 4 layers of 16 experts would take minutes)
+             "llama4_": dict(n_prompt=200, n_ctx=8704, n_greedy=8, served=True)}
+# the served engines' options where not phase_serve's defaults: Scout at
+# n_ctx 16384, one request past its ring of 8449 cells and its chunk start
+SERVE_OPTS = {"llama4_": dict(n_ctx=16384, lengths=(300, 550, 780, 8600), plain_greedy=True)}
+# the gathered kernels whose one-row and 8-row routes a served MoE step and
+# chunk must launch (phase_serve_profile's gathered_routes)
+GATHERED_ROUTES = {"qwen3mxfp4_": ("qmm_gathered_t",), "llama4_": _GATHERED}
 # the cross-checks' prompt tokens where not 32: Qwen2-57B-A14B's CPU steps
 # dequantize its 20480-wide shared expert and 151936-row output per call
 CROSS_PROMPT = {"qwen2moe_": 16}
@@ -3967,7 +4298,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     card = torch.cuda.get_device_name(0)
-    print(smi, flush=True)
+    os.makedirs(os.path.dirname(LOG_PATH), exist_ok=True)
+    _log.append(open(LOG_PATH, "w"))
+    say(smi)
     emit({"phase": "card", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device_count": torch.cuda.device_count()})
 
@@ -4000,6 +4333,9 @@ def main() -> int:
         iswa_attention_cases(timer, gen, device, records, GPT_OSS_20B, "gptoss", sinks=True,
                              int8=(False, True))
         iswa_attention_cases(timer, gen, device, records, GEMMA3_12B, "gemma3")
+        # Llama-4-Scout's (40/8 heads, D = 128; full stack 16512 cells, the
+        # chunked ring 8449)
+        chunked_attention_cases(timer, gen, device, records)
         del timer
         torch.cuda.empty_cache()
         emit({"phase": "kernels", "cases": len(records), "seconds": time.perf_counter() - t0})
@@ -4009,31 +4345,45 @@ def main() -> int:
     # path, then the cross-checks alone, the Q5_K_M Llama path, the Qwen3
     # MoE path, the other MoE archs' cross-checks and the MXFP4 Qwen3 path
     for pre, widths, cross_layers, n_slots, opts in PATHS:
-        run = [p for p in ("model", "crosscheck", "serve", "graphs", "http", "spec", "int8kv",
-                           "int8kv_crosscheck", "state") if pre + p in phases]
+        run = [p for p in ("model", "crosscheck", "ring", "serve", "graphs", "http", "spec",
+                           "int8kv", "int8kv_crosscheck", "state") if pre + p in phases]
         if not run:
             continue
         fused = bool(opts.get("fused_layer"))
         with tempfile.TemporaryDirectory() as tmp:
             model = model_path = None
-            if {"model", "serve", "graphs", "http", "spec", "int8kv"} & set(run):
+            # a cross-check on the served model's weights (no file of its own)
+            swa_cross = dict(SWA_CROSS.get(pre, {}))
+            served = swa_cross.pop("served", False) and "crosscheck" in run
+            if {"model", "serve", "graphs", "http", "spec", "int8kv"} & set(run) or served:
                 # one file for the model and a cross-check of all its layers
-                keep = "crosscheck" in run and cross_layers == widths.n_layer
+                keep = "crosscheck" in run and cross_layers == widths.n_layer and not served
                 model = phase_model(tmp, widths, phase=pre + "model", fused_layer=fused,
                                     keep_file=keep)
                 if keep:
                     model_path = os.path.join(tmp, f"{pre}model.gguf")
+                if served:
+                    swa_cross["served"] = model
+            gpu32 = None
             if "crosscheck" in run and pre in SWA_CROSS:
-                launches[pre + "crosscheck"], _ = path_launches(
+                launches[pre + "crosscheck"], gpu32 = path_launches(
                     pre + "crosscheck", lambda: phase_swa_crosscheck(
                         tmp, smi, widths=widths, n_layer=cross_layers, phase=pre + "crosscheck",
-                        path=model_path, **SWA_CROSS[pre]))
+                        path=model_path, **swa_cross))
             elif "crosscheck" in run:
                 launches[pre + "crosscheck"], _ = path_launches(
                     pre + "crosscheck", lambda: phase_crosscheck(
                         tmp, widths, n_layer=cross_layers, phase=pre + "crosscheck",
                         runtime_ops=not pre, compare_native=pre == "q5km_",
                         n_prompt=CROSS_PROMPT.get(pre, 32), **opts))
+            if "ring" in run:
+                # the cross-check's f32 card model (all of the model's layers)
+                check(gpu32 is not None and gpu32.hparams.n_layer == widths.n_layer,
+                      f"{pre}ring runs after {pre}crosscheck on all {widths.n_layer} layers")
+                launches[pre + "ring"], _ = path_launches(
+                    pre + "ring", lambda: phase_chunk_ring(gpu32, smi, phase=pre + "ring"))
+            del gpu32
+            torch.cuda.empty_cache()
             serve_tokens = None
             if "serve" in run:
                 # dense projections (a heterogeneous stack's are all dense; a
@@ -4044,7 +4394,7 @@ def main() -> int:
                 launches[pre + "serve"], (eng, prompt, serve_tokens) = path_launches(
                     pre + "serve", lambda: phase_serve(model, smi, phase=pre + "serve",
                                                        n_slots=n_slots, rerun_all=bool(dense),
-                                                       **opts))
+                                                       **SERVE_OPTS.get(pre, {}), **opts))
                 # a packed model without experts: every packed matrix once
                 # per step / chunk, the output by qmm_gemv in both
                 qmm_counts = None
@@ -4057,8 +4407,7 @@ def main() -> int:
                 phase_serve_profile(eng, prompt, smi, phase=pre + "serve_profile",
                                     step_kernels=("qmm_ktiled", "fused_postattn") if fused
                                     else (), qmm_counts=qmm_counts,
-                                    gathered_routes="qmm_gathered_t" if pre == "qwen3mxfp4_"
-                                    else None)
+                                    gathered_routes=GATHERED_ROUTES.get(pre, ()))
                 del eng
                 torch.cuda.empty_cache()
             if "graphs" in run:
@@ -4102,8 +4451,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
     emit({"phase": "done", "seconds": time.perf_counter() - t_all})
-    print(smi, flush=True)
-    print(json.dumps(kernels_line(records, launches)), flush=True)
+    say(smi)
+    say(json.dumps(kernels_line(records, launches)))
+    _log.pop().close()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -310,8 +310,7 @@ def test_tile_body_unpacks_every_set(qtype, K):
 
 
 @pytest.mark.parametrize("option", [
-    dict(weight_before_ffn=True),
-    dict(select_logits=True), dict(x_router=np.zeros((1, 1, D), np.float32)),
+    dict(x_router=np.zeros((1, 1, D), np.float32)),
     dict(select_sigmoid=True), dict(expert_div=2),
     dict(ep_axis="ep"), dict(act="gelu"), dict(act="relu"),
 ], ids=lambda o: next(iter(o)) + ("=" + o["act"] if "act" in o else ""))

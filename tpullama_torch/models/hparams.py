@@ -3,10 +3,12 @@ chatglm, the MoE archs that run through the llama forward (qwen2moe,
 qwen3moe, granitemoe, gpt-oss with its alternating sliding-window layers,
 and the heterogeneous dense/MoE stacks of glm4moe, dots1, ernie4_5-moe and
 bailingmoe2), the gemma and cohere families (gemma, gemma2, gemma3,
-command-r, cohere2), and the dense archs that run on those flags alone
+command-r, cohere2), llama4 (chunked windows, NoPE layers with a Q
+temperature, raw-logit sigmoid routing with input-side weights) and
+hunyuan-moe, and the dense archs that run on those flags alone
 (FLAG_ARCHS: qwen3, mistral3, internlm2, xverse, ernie4_5, exaone, phi3,
 glm4, granite, minicpm, orion, stablelm, plamo, seed_oss, pangu-embedded,
-qwen).
+qwen, smollm3, hunyuan-dense).
 
 The part of tpullama/models/hparams.py that the port reads. Key strings
 follow the reference's key-name table exactly (src/llama-arch.cpp:119-268);
@@ -18,7 +20,9 @@ NextN layers, gpt-oss's SWA pattern, post-top-k softmax and swiglu_oai,
 gemma's embedding scale and GELU, gemma2's and gemma3's SWA patterns,
 softcaps and attention scales, command-r's, orion's and stablelm's
 LayerNorm, command-r's and plamo's parallel residual, command-r's logit
-scale, cohere2's NoPE full layers). Other architectures' fields and
+scale, cohere2's NoPE full layers, llama4's chunked pattern, NoPE
+layers, Q temperature, weightless q/k norm and routing flags, smollm3's
+NoPE layers, hunyuan's q/k norms after rope). Other architectures' fields and
 branches come across with the slice that ports them; until then from_gguf
 refuses them by name with their ROADMAP item.
 """
@@ -37,17 +41,19 @@ ROPE_SCALING_YARN = "yarn"
 # heterogeneous dense/MoE stacks, loaded as a per-layer list; gpt-oss's
 # sinks, biases and SWA layers; gemma's embedding scale and GELU, gemma2's
 # and gemma3's sandwich norms, softcaps and SWA layers; command-r's
-# LayerNorm and parallel residual, cohere2's NoPE full layers), and the
-# dense archs that run on those flags alone (FLAG_ARCHS)
+# LayerNorm and parallel residual, cohere2's NoPE full layers; llama4's
+# chunked and NoPE layers, hunyuan's q/k norms after rope), and the dense
+# archs that run on those flags alone (FLAG_ARCHS)
 FLAG_ARCHS = ("qwen3", "mistral3", "internlm2", "xverse", "ernie4_5", "exaone", "phi3",
               "glm4", "granite", "minicpm", "orion", "stablelm", "plamo", "seed_oss",
-              "pangu-embedded", "qwen")
+              "pangu-embedded", "qwen", "smollm3", "hunyuan-dense")
 LLAMA_FAMILY = ("llama", "mistral", "qwen2", "chatglm", "qwen2moe", "qwen3moe", "granitemoe",
                 "glm4moe", "dots1", "ernie4_5-moe", "bailingmoe2", "gpt-oss", "gemma",
-                "gemma2", "gemma3", "command-r", "cohere2") + FLAG_ARCHS
+                "gemma2", "gemma3", "command-r", "cohere2", "llama4",
+                "hunyuan-moe") + FLAG_ARCHS
 # the other MoE archs the JAX package runs through its llama forward, each
 # refused by name until its slice (ROADMAP.md Queue 1 item 5)
-MOE_NOT_PORTED = ("hunyuan-moe", "bailingmoe", "llama4", "afmoe", "minimax-m2",
+MOE_NOT_PORTED = ("bailingmoe", "afmoe", "minimax-m2",
                   "grovemoe", "olmoe", "phimoe", "dbrx", "grok", "arctic",
                   "qwen3vlmoe", "llada-moe", "smallthinker")
 # the dense archs the JAX package's tests run through its llama forward
@@ -58,8 +64,8 @@ MOE_NOT_PORTED = ("hunyuan-moe", "bailingmoe", "llama4", "afmoe", "minimax-m2",
 # (ROADMAP.md Queue 1 item 7)
 FLAG_NOT_PORTED = ("phi2", "falcon", "gptneox", "gpt2", "starcoder", "starcoder2", "mpt",
                    "bloom", "olmo", "olmo2", "chameleon", "bitnet", "baichuan", "refact",
-                   "codeshell", "jais", "nemotron", "exaone4", "smollm3", "arcee",
-                   "hunyuan-dense", "apertus", "qwen2vl", "qwen3vl", "cogvlm")
+                   "codeshell", "jais", "nemotron", "exaone4", "arcee", "apertus",
+                   "qwen2vl", "qwen3vl", "cogvlm")
 OWN_FORWARD_NOT_PORTED = ("deci", "openelm", "deepseek2", "plm", "minicpm3", "gemma3n",
                           "bert", "nomic-bert", "nomic-bert-moe", "jina-bert-v2",
                           "jina-bert-v3", "neo-bert", "gemma-embedding", "t5", "t5encoder",
@@ -70,8 +76,9 @@ OWN_FORWARD_NOT_PORTED = ("deci", "openelm", "deepseek2", "plm", "minicpm3", "ge
 # rope type per arch (llama_model_rope_type, src/llama-model.cpp:7777+; the
 # JAX package's NORM_ARCHES): NORM (0, adjacent pairs) for these, NEOX (2,
 # split halves) for the rest
-_NORM_ROPE = ("llama", "chatglm", "granitemoe", "ernie4_5-moe", "command-r", "cohere2",
-              "internlm2", "minicpm", "xverse", "granite", "ernie4_5", "mistral3", "glm4")
+_NORM_ROPE = ("llama", "llama4", "chatglm", "granitemoe", "ernie4_5-moe", "command-r",
+              "cohere2", "internlm2", "minicpm", "xverse", "granite", "ernie4_5", "mistral3",
+              "glm4", "smollm3")
 
 
 def check_arch(arch: str) -> None:
@@ -121,8 +128,11 @@ class HParams:
     attn_logit_softcap: float = 0.0
     final_logit_softcap: float = 0.0  # cap * tanh(logits / cap) after the lm_head
     n_swa: int = 0  # sliding window size (0 = none)
-    swa_type: str = "standard"  # "standard" | "chunked" (llama4, not ported)
+    swa_type: str = "standard"  # "standard" | "chunked" (llama4)
     swa_layers: tuple = ()  # per-layer bool: uses the sliding window
+    attn_temp_scale: float = 0.0  # llama4: the NoPE layers' Q temperature
+    attn_temp_floor_scale: int = 8192
+    qk_norm_weightless: bool = False  # llama4: weightless RMS q/k norm after rope
     rope_freq_base_swa: float = 10000.0  # rope base of the SWA layers
     rope_swa_only: bool = False  # rope on the SWA layers alone; the full ones NoPE (cohere2)
 
@@ -138,6 +148,8 @@ class HParams:
     act: str = "silu"  # the gated FFN's activation: "silu" | "gelu" (gemma)
     norm_type: str = "rms"  # "rms" | "layer" (command-r, cohere2: LayerNorm)
     pre_norm: bool = True
+    no_rope_layer_step: int = 0  # every Nth layer is NoPE (smollm3, llama4)
+    qk_norm_after_rope: bool = False  # hunyuan: the per-head q/k norms after rope
     qk_norm_ln: bool = False  # per-head q/k norms as LayerNorm under RMS block norms
     swin_norm: bool = False
     parallel_residual: bool = False  # attention and FFN from one norm, summed (command-r)
@@ -156,9 +168,12 @@ class HParams:
     expert_gating_func: int = 1  # 1=softmax, 2=sigmoid, 3=post-top-k softmax
     moe_norm_topk: bool = True  # renormalize the top-k weights (norm_w)
     moe_act: str = "silu"
+    moe_select_logits: bool = False  # llama4: top-k over the raw router logits
+    moe_weight_before_ffn: bool = False  # llama4: the weights scale the expert inputs
+    no_rope_mod0: bool = False  # NoPE at il % step == 0 instead of (il + 1) % step == 0
     n_ff_exp: int = 0  # each routed expert's FFN width (qwen2moe, qwen3moe)
     n_ff_shexp: int = 0  # the shared expert's FFN width
-    n_moe_layer_step: int = 0  # every Nth layer is MoE past the dense lead (ernie4_5-moe)
+    n_moe_layer_step: int = 0  # every Nth layer is MoE (ernie4_5-moe past its dense lead, llama4)
     nextn_layers: int = 0  # trailing MTP layers excluded from the forward (glm4moe)
     n_layer_dense_lead: int = 0  # leading dense-FFN layers (dots1, glm4moe, ernie4_5-moe)
 
@@ -166,10 +181,22 @@ class HParams:
     def has_heterogeneous_layers(self) -> bool:
         """Mixed dense/MoE layer stacks: loaded as a per-layer list and run
         layer by layer (the tensor sets differ per layer, so they cannot
-        be stacked). The JAX package's property also names archs the port
-        refuses (openelm, deci, afmoe, nomic-bert-moe, llama4 with
-        interleaved MoE)."""
-        return self.arch in ("dots1", "glm4moe", "ernie4_5-moe", "bailingmoe2")
+        be stacked): llama4 with interleaved MoE among them. The JAX
+        package's property also names archs the port refuses (openelm,
+        deci, afmoe, nomic-bert-moe)."""
+        return (self.arch in ("dots1", "glm4moe", "ernie4_5-moe", "bailingmoe2")
+                or (self.arch == "llama4" and self.n_expert > 0 and self.n_moe_layer_step > 1))
+
+    @property
+    def nope_layers(self) -> tuple:
+        """Per layer: a NoPE layer of no_rope_layer_step (smollm3's and
+        llama4's every 4th, (il + 1) % step == 0; il % step == 0 under
+        no_rope_mod0), the JAX package's _is_nope."""
+        step = self.no_rope_layer_step
+        if not step:
+            return (False,) * self.n_layer
+        return tuple((il if self.no_rope_mod0 else il + 1) % step == 0
+                     for il in range(self.n_layer))
 
     @classmethod
     def from_gguf(cls, reader) -> "HParams":
@@ -306,6 +333,35 @@ class HParams:
             hp.swa_layers = tuple(il % 4 < 3 for il in range(hp.n_layer))
             hp.rope_freq_base_swa = hp.rope_freq_base
             hp.rope_swa_only = True
+        if arch in ("hunyuan-dense", "hunyuan-moe"):
+            # per-head q/k RMS norms after rope
+            hp.qk_norm_after_rope = True
+        if arch == "smollm3":
+            hp.no_rope_layer_step = 4  # every 4th layer NoPE
+        if arch == "llama4":
+            # llama-model.cpp:655-689: chunked SWA 8192 of pattern 4 (3
+            # chunked + 1 full NoPE layer) with the NoPE layers' Q
+            # temperature, unless the file writes a window of 0; the
+            # weightless q/k norm after rope (but on 128 experts); sigmoid
+            # routing over raw-logit selection with input-side weights;
+            # dense layers interleaved by n_moe_layer_step
+            hp.n_moe_layer_step = int(g("interleave_moe_layer_step", 1) or 1)
+            swa = g("attention.sliding_window")
+            if swa is not None and int(swa) == 0:
+                hp.no_rope_layer_step = 0
+            else:
+                hp.swa_type = "chunked"
+                hp.n_swa = 8192
+                hp.swa_layers = tuple(il % 4 < 3 for il in range(hp.n_layer))
+                hp.rope_freq_base_swa = hp.rope_freq_base
+                hp.attn_temp_scale = 0.1
+                hp.attn_temp_floor_scale = 8192
+                hp.no_rope_layer_step = 4
+            hp.qk_norm_weightless = hp.n_expert != 128
+            hp.moe_norm_topk = False
+            hp.expert_gating_func = 2
+            hp.moe_select_logits = True
+            hp.moe_weight_before_ffn = True
         if arch in ("gemma", "gemma2", "gemma3"):
             hp.embd_scale = math.sqrt(n_embd) if n_embd else 0.0
             hp.act = "gelu"

@@ -5,10 +5,13 @@ Port of tpullama/models/llama.py:llama_forward for the llama family
 and fused [gate|up], Mixtral-style MoE, the MoE archs qwen2moe,
 qwen3moe, granitemoe and gpt-oss, the heterogeneous dense/MoE stacks
 of glm4moe, dots1, ernie4_5-moe and bailingmoe2, the gemma and cohere
-families, and the dense flag archs, qwen3, phi3, glm4, granite, minicpm,
-orion, stablelm, plamo and the rest of hparams.FLAG_ARCHS; no parallel
-modes): token rows (times embd_scale) -> per layer
-[norm -> q/k/v (+bias) -> per-head q/k norm -> rope -> write K/V into the
+families, llama4, hunyuan-moe, and the dense flag archs, qwen3, phi3,
+glm4, granite, minicpm, orion, stablelm, plamo, smollm3, hunyuan-dense and
+the rest of hparams.FLAG_ARCHS; no parallel modes): token rows (times
+embd_scale) -> per layer [norm -> q/k/v (+bias) -> per-head q/k norm ->
+rope (none on a NoPE layer) -> hunyuan's per-head q/k norm, llama4's
+weightless one on its rope layers, llama4's Q temperature on its NoPE
+layers -> write K/V into the
 cache -> attention (with gpt-oss's per-head sinks, gemma2's softcap) ->
 o-proj (+bias; post_attn_norm; times f_residual_scale) -> residual ->
 norm -> gated FFN (SiLU, or GELU for the gemmas), or MoE FFN plus the
@@ -25,15 +28,19 @@ sandwich norms (post_attn_norm, post_ffn_norm) are RMS norms, as in the
 JAX package.
 
 Sliding-window layers (hp.swa_layers: gpt-oss's even layers, gemma2's,
-gemma3's five of six, cohere2's three of four) take the second of the
-Context's mask pair (full, windowed) and a rope table with
-rope_freq_base_swa and without rope_freqs, as the JAX package's; with
-hp.rope_swa_only (cohere2) the full layers take no rope. One difference
-by design: gemma3's SWA layers rotate at freq_scale 1, as the published
-model does (llama.cpp's rope_freq_scale_train_swa, HF's local rotary
-embedding), where the JAX package keeps the model's linear scale there
-(ROADMAP.md Queue 3 item 11); the two agree on files without rope
-scaling. With the
+gemma3's five of six, cohere2's three of four, llama4's chunked three of
+four) take the second of the Context's mask pair (full, windowed or
+chunked) and a rope table with rope_freq_base_swa; with hp.rope_swa_only
+(cohere2) the full layers take no rope, and no NoPE layer of
+hp.no_rope_layer_step (smollm3's and llama4's every 4th) does. Two
+differences by design: gemma3's SWA layers rotate at freq_scale 1, as the
+published model does (llama.cpp's rope_freq_scale_train_swa, HF's local
+rotary embedding), where the JAX package keeps the model's linear scale
+there (ROADMAP.md Queue 3 item 11); and the SWA layers' table divides by
+the file's rope_freqs as the full layers' does (llama4's llama3 scaling,
+llama.cpp's get_rope_factors on every layer), where the JAX package
+builds it without them (Queue 3 item 13). Both agree with the JAX package
+on files without rope scaling or rope_freqs. With the
 two-stack cache (runtime/context.py: kv_k, kv_v {"full": ..., "swa": ...})
 each layer writes and reads its own stack at its index there, an SWA layer
 at its ring cells cache_slots_swa. With the fused layer on,
@@ -169,21 +176,24 @@ class LlamaLayer(nn.Module):
     K-chunks."""
 
     def __init__(self, w: dict, meta: dict, hp: HParams, fused_layer: bool = False,
-                 tile_k: int | None = None):
+                 tile_k: int | None = None, nope: bool = False):
         super().__init__()
         self.w = w
         self.meta = meta
         self.hp = hp
         self.tile_k = tile_k
+        self.nope = nope  # a NoPE layer of hp.no_rope_layer_step
         self.fused = (fused_layer and hp.pre_norm and not hp.parallel_residual
                       and hp.ffn_fused_up and hp.norm_type != "layer" and not hp.swin_norm
                       and "ffn_gate_inp" not in w and not hp.f_residual_scale
                       and "ffn_norm" in w and not any(k in w for k in _FUSED_EXCLUDE)
                       and fused_ok(hp, w, meta))
 
-    def forward(self, x, cos, sin, k_cache, v_cache, slots, mask):
+    def forward(self, x, cos, sin, k_cache, v_cache, slots, mask, q_temp=None):
         """cos, sin: the layer's rope table, None for a layer without rope
-        (a cohere2 full layer, or an arch without rope)."""
+        (a cohere2 full layer, a NoPE layer, or an arch without rope).
+        q_temp: llama4's (B, T) f32 Q temperature, which a NoPE layer
+        multiplies into q."""
         hp, w, m, tk = self.hp, self.w, self.meta, self.tile_k
         sinks = w.get("attn_sinks")
         B, T, _ = x.shape
@@ -209,18 +219,23 @@ class LlamaLayer(nn.Module):
         q = q.reshape(B, T, Hq, Dk)
         k = k.reshape(B, T, Hkv, Dk)
         v = v.reshape(B, T, Hkv, Dv)
-        if "attn_q_norm" in w:
+        if "attn_q_norm" in w and not hp.qk_norm_after_rope:
             # per-head q/k norm before rope (qwen3moe, gemma3: RMS; a
             # command-r file's: LayerNorm; the JAX package's llama.py:329-345)
-            if hp.norm_type == "layer" or hp.qk_norm_ln:
-                q = layer_norm(q, w["attn_q_norm"], eps=hp.f_norm_eps)
-                k = layer_norm(k, w["attn_k_norm"], eps=hp.f_norm_eps)
-            else:
-                q = rms_norm(q, w["attn_q_norm"], hp.f_norm_rms_eps)
-                k = rms_norm(k, w["attn_k_norm"], hp.f_norm_rms_eps)
+            q, k = self.qk_norm(q, k)
         if cos is not None:
             q = apply_rope(q, cos, sin, hp.rope_type, hp.n_rot)
             k = apply_rope(k, cos, sin, hp.rope_type, hp.n_rot)
+        if "attn_q_norm" in w and hp.qk_norm_after_rope:
+            # hunyuan: the per-head q/k norm after rope (llama.py:364-367)
+            q, k = self.qk_norm(q, k)
+        if hp.qk_norm_weightless and not self.nope:
+            # llama4's weightless RMS norm after rope, on its rope layers
+            # (models/llama-iswa.cpp:88-93)
+            q = rms_norm(q, None, hp.f_norm_rms_eps)
+            k = rms_norm(k, None, hp.f_norm_rms_eps)
+        if q_temp is not None and self.nope:
+            q = q * q_temp.to(q.dtype)[..., None, None]
         kq_scale = hp.f_attention_scale if hp.f_attention_scale != 0.0 else 1.0 / (Dk**0.5)
         if isinstance(k_cache, tuple):
             # int8 cache: quantize the new rows, write values and scales
@@ -280,7 +295,8 @@ class LlamaLayer(nn.Module):
                 exp_probs_b=w.get("exp_probs_b"), gate_inp_b=w.get("ffn_gate_inp_b"),
                 gate_exps_b=w.get("ffn_gate_exps_b"), up_exps_b=w.get("ffn_up_exps_b"),
                 down_exps_b=w.get("ffn_down_exps_b"), n_expert_groups=hp.n_expert_groups,
-                n_group_used=hp.n_group_used, quant_meta_exps=metas)
+                n_group_used=hp.n_group_used, select_logits=hp.moe_select_logits,
+                weight_before_ffn=hp.moe_weight_before_ffn, quant_meta_exps=metas)
             if "ffn_gate_shexp" in w:
                 down = down + self.shared_expert(h)
         else:
@@ -302,6 +318,16 @@ class LlamaLayer(nn.Module):
         if hp.parallel_residual:
             return x + att + down
         return x + down
+
+    def qk_norm(self, q, k):
+        """The per-head q/k norms: LayerNorms under norm_type "layer" or
+        qk_norm_ln, else RMS norms."""
+        hp, w = self.hp, self.w
+        if hp.norm_type == "layer" or hp.qk_norm_ln:
+            return (layer_norm(q, w["attn_q_norm"], eps=hp.f_norm_eps),
+                    layer_norm(k, w["attn_k_norm"], eps=hp.f_norm_eps))
+        return (rms_norm(q, w["attn_q_norm"], hp.f_norm_rms_eps),
+                rms_norm(k, w["attn_k_norm"], hp.f_norm_rms_eps))
 
     def shared_expert(self, h):
         """The shared expert (the JAX package's llama.py:807-817): SiLU of
@@ -349,8 +375,10 @@ class LlamaModel(nn.Module):
             stacks = params["layers"]
             weights = [{k: view(k, t, li) for k, t in stacks.items()}
                        for li in range(hp.n_layer)]
+        nope = hp.nope_layers
         self.layers = nn.ModuleList(
-            LlamaLayer(w, lmeta, hp, self.fused_layer, self.qmm_tile_k) for w in weights)
+            LlamaLayer(w, lmeta, hp, self.fused_layer, self.qmm_tile_k, nope[li])
+            for li, w in enumerate(weights))
         self.rp = rope_params(hp)
         # the SWA layers, and each layer's index in its stack of a two-stack
         # cache (the JAX package's _stack_idx)
@@ -360,6 +388,12 @@ class LlamaModel(nn.Module):
         for is_swa in self.swa:
             self.stack_idx.append(count[is_swa])
             count[is_swa] += 1
+        # each layer's rope table: "full", "swa", or None (an arch without
+        # rope, cohere2's full layers, a NoPE layer)
+        swa = self.swa or (False,) * hp.n_layer
+        self.rope_kinds = tuple(
+            None if hp.rope_type < 0 or nope[li] or (hp.rope_swa_only and not swa[li])
+            else "swa" if swa[li] else "full" for li in range(hp.n_layer))
         # gemma3's SWA layers rotate unscaled (ROADMAP.md Queue 3 item 11)
         self.rp_swa = replace(self.rp, freq_base=hp.rope_freq_base_swa,
                               freq_scale=1.0 if hp.arch == "gemma3" else self.rp.freq_scale
@@ -382,19 +416,22 @@ class LlamaModel(nn.Module):
         x = p["tok_embd"][tokens.long()]
         if hp.embd_scale:
             x = (x.float() * hp.embd_scale).to(x.dtype)
-        cos = sin = cos_swa = sin_swa = None
-        if hp.rope_type >= 0:
-            cos, sin = rope_cache(self.rp, positions, p.get("rope_freqs"))
-            cos, sin = cos[:, :, None, :], sin[:, :, None, :]
-            if self.swa:
-                cos_swa, sin_swa = rope_cache(self.rp_swa, positions, None)
-                cos_swa, sin_swa = cos_swa[:, :, None, :], sin_swa[:, :, None, :]
+        # each rope table the layers take, rope_freqs in both (Queue 3 item
+        # 13); the JAX package's identity rotation of a layer without rope
+        # (cohere2's full layers, NoPE layers) is no rotation here
+        tables = {None: (None, None)}
+        for kind in set(self.rope_kinds) - {None}:
+            cos, sin = rope_cache(self.rp_swa if kind == "swa" else self.rp, positions,
+                                  p.get("rope_freqs"))
+            tables[kind] = (cos[:, :, None, :], sin[:, :, None, :])
+        q_temp = None
+        if hp.attn_temp_scale and hp.no_rope_layer_step:
+            # llama4's Q temperature of its NoPE layers, from the positions
+            # on the device (llm_graph_input_attn_temp, llama-graph.cpp:70-85)
+            q_temp = torch.log(torch.floor((positions.float() + 1.0) / hp.attn_temp_floor_scale)
+                               + 1.0) * hp.attn_temp_scale + 1.0
         two_stack = isinstance(kv_k, dict)
         mask_full, mask_swa = attn_mask if isinstance(attn_mask, tuple) else (attn_mask,) * 2
-        if hp.rope_swa_only:
-            # cohere2: the full layers are NoPE (the JAX package's identity
-            # rotation, models/cohere2-iswa.cpp:61-77)
-            cos = sin = None
         for li, layer in enumerate(self.layers):
             is_swa = bool(self.swa) and self.swa[li]
             kc, vc, slots = kv_k, kv_v, cache_slots
@@ -403,9 +440,8 @@ class LlamaModel(nn.Module):
                 stack = "swa" if is_swa else "full"
                 kc, vc, idx = kv_k[stack], kv_v[stack], self.stack_idx[li]
                 slots = cache_slots_swa if is_swa else cache_slots
-            x = layer(x, cos_swa if is_swa else cos, sin_swa if is_swa else sin,
-                      layer_cache(kc, idx), layer_cache(vc, idx), slots,
-                      mask_swa if is_swa else mask_full)
+            x = layer(x, *tables[self.rope_kinds[li]], layer_cache(kc, idx),
+                      layer_cache(vc, idx), slots, mask_swa if is_swa else mask_full, q_temp)
         x = norm_fn(hp, x, p.get("output_norm"), p.get("output_norm_bias"))
         embd = x.float() if return_embd else None
         if logit_rows is not None:

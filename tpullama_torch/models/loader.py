@@ -5,7 +5,8 @@ qwen2, chatglm, Mixtral-style MoE llama, the MoE archs qwen2moe, qwen3moe
 and granitemoe with per-head q/k norms and shared experts, gpt-oss with
 its attention sinks, attention output and router biases and per-expert
 biases, the heterogeneous dense/MoE stacks of glm4moe, dots1,
-ernie4_5-moe and bailingmoe2, the gemma and cohere families with
+ernie4_5-moe, bailingmoe2 and llama4 with interleaved MoE layers, the
+MoE layers of llama4 and hunyuan-moe, the gemma and cohere families with
 gemma2's and gemma3's post-attention and post-FFN norms, and the flag archs
 of hparams.FLAG_ARCHS: orion's and stablelm's LayerNorm biases
 (attn_norm, ffn_norm and output_norm), seed_oss's FFN norm stored as
@@ -137,7 +138,7 @@ _TOP_TENSORS = {
 }
 # the archs whose MoE layers the port runs (ops/moe.py)
 _MOE_ARCHS = ("llama", "qwen2moe", "qwen3moe", "granitemoe", "glm4moe", "dots1", "ernie4_5-moe",
-              "bailingmoe2", "gpt-oss")
+              "bailingmoe2", "gpt-oss", "llama4", "hunyuan-moe")
 
 # values dequantized per host batch when a large dense tensor is decoded
 _DENSE_ELEMS = 8192 * 4096
@@ -188,11 +189,12 @@ def check_supported(hp: HParams) -> None:
     """Raise for anything outside the slices ported: the llama family
     (chatglm, gemma and cohere included), MoE on the llama arch (Mixtral)
     and the MoE archs of _MOE_ARCHS, and sliding-window attention where a
-    ported arch lays out its SWA layers (gpt-oss, gemma2, gemma3, cohere2);
-    any other SWA model, and llama4's chunked window, by name with their
-    ROADMAP item."""
+    ported arch lays out its SWA layers (gpt-oss, gemma2, gemma3, cohere2;
+    llama4's chunked windows); any other SWA model, and a chunked window
+    on another arch, by name with their ROADMAP item."""
     check_arch(hp.arch)
-    if hp.n_swa and (not hp.swa_layers or hp.swa_type != "standard"):
+    chunked_ok = hp.swa_type == "chunked" and hp.arch == "llama4"
+    if hp.n_swa and (not hp.swa_layers or (hp.swa_type != "standard" and not chunked_ok)):
         what = "chunked attention" if hp.swa_type == "chunked" else "sliding-window attention"
         raise NotImplementedError(
             f"tpullama_torch: {hp.arch!r} with {what} is not ported yet "

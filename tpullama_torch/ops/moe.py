@@ -3,15 +3,18 @@
 Port of tpullama/ops/moe.py (build_moe_ffn, src/llama-graph.cpp:880-1120)
 for what the MoE archs of the llama forward run (Mixtral-style llama,
 qwen2moe, qwen3moe, granitemoe, glm4moe, dots1, ernie4_5-moe, bailingmoe2,
-gpt-oss; their shared experts run in models/llama.py): f32 router logits
-(plus the router bias) -> softmax / sigmoid / post-top-k softmax gating ->
-optional selection bias -> optional group-limited routing (the top
-n_group_used of n_expert_groups groups, each scored by the sum of its top
-2, the rest masked to -inf) -> top-k by the selection probabilities,
+gpt-oss, llama4, hunyuan-moe; their shared experts run in
+models/llama.py): f32 router logits (plus the router bias) -> softmax /
+sigmoid / post-top-k softmax gating -> optional selection bias -> optional
+group-limited routing (the top n_group_used of n_expert_groups groups,
+each scored by the sum of its top 2, the rest masked to -inf) -> top-k by
+the selection probabilities (llama4's select_logits: by the raw logits),
 weights gathered from the unbiased ones -> optional renormalisation
 (clamped at the fp16 min normal) -> optional w_scale -> expert FFN (SwiGLU,
 or gpt-oss's swiglu_oai, with the per-expert gate/up/down biases where
-given) -> weighted sum over the k experts.
+given) -> weighted sum over the k experts. With weight_before_ffn
+(llama4) each (token, k) slot's input is scaled by its weight instead and
+the expert outputs are summed unweighted, on all three routes.
 
 Packed expert stacks go through the gathered quantized matmul
 (ops/cuda/qmm_gathered.py): at decode every (token, k) slot is its own
@@ -30,9 +33,8 @@ rows at once (one host read of the counts; prefill runs eagerly).
 
 Not ported, each refused with its name and needed by MoE archs not
 loaded yet (ROADMAP.md Queue 1 item 5): expert parallelism (ep_axis),
-select_logits, select_sigmoid, weight_before_ffn, x_router, expert_div,
-activations other than silu and swiglu_oai (gelu, relu) and experts
-without a gate.
+select_sigmoid, x_router, expert_div, activations other than silu and
+swiglu_oai (gelu, relu) and experts without a gate.
 """
 
 from __future__ import annotations
@@ -87,8 +89,26 @@ def moe_dispatch(sel_flat: torch.Tensor, n_expert: int, tile_t: int):
     return (perm.int(), tile_expert.clamp(0, E - 1).int(), row_of_slot.int(), P)
 
 
+def _slots(xf, weights, weight_before_ffn: bool):
+    """Each (token, k) slot's f32 input, (B, T, K, D): the token's row, or
+    with weight_before_ffn that row times the slot's weight."""
+    B, T, D = xf.shape
+    x = xf[:, :, None, :]
+    if weight_before_ffn:
+        return x * weights[..., None].float()
+    return x.expand(B, T, weights.shape[-1], D)
+
+
+def _combine(out, weights, weight_before_ffn: bool):
+    """The slots' outputs (B, T, K, D) summed over k, each times its weight
+    unless the weights scaled the inputs."""
+    if not weight_before_ffn:
+        out = out * weights[..., None].float()
+    return out.sum(dim=2)
+
+
 def _ffn_packed(xf, sel, weights, gate_exps, up_exps, down_exps, metas, E, act="silu",
-                biases=(None, None, None)):
+                biases=(None, None, None), weight_before_ffn: bool = False):
     """Expert FFN over packed expert planes through the gathered kernels:
     the fused [gate | up] stack (per expert [gate rows_p | up rows_p], each
     half padded on its own) or split gate and up stacks, then down. The
@@ -98,7 +118,7 @@ def _ffn_packed(xf, sel, weights, gate_exps, up_exps, down_exps, metas, E, act="
     K = sel.shape[-1]
     S = B * T * K
     sel_flat = sel.reshape(S)
-    x_slots = xf[:, :, None, :].expand(B, T, K, D).reshape(S, D)
+    x_slots = _slots(xf, weights, weight_before_ffn).reshape(S, D)
     row_of_slot = None
     if S >= DISPATCH_MIN_SLOTS:
         tile_t = PREFILL_TILE_T
@@ -132,8 +152,7 @@ def _ffn_packed(xf, sel, weights, gate_exps, up_exps, down_exps, metas, E, act="
     down = _add(gmm(h, down_exps, "down"), down_b, row_expert)
     if row_of_slot is not None:
         down = down[row_of_slot]
-    down = down.reshape(B, T, K, D) * weights.reshape(B, T, K, 1).float()
-    return down.sum(dim=2)
+    return _combine(down.reshape(B, T, K, D), weights, weight_before_ffn)
 
 
 def _pair_products(x_pairs, sel_flat, gate_exps, up_exps, down_exps, act="silu",
@@ -173,26 +192,28 @@ def _sorted_products(x_pairs, sel_flat, gate_exps, up_exps, down_exps, act="silu
 
 
 def _ffn_dense(xf, sel, weights, gate_exps, up_exps, down_exps, act="silu",
-               biases=(None, None, None)):
+               biases=(None, None, None), weight_before_ffn: bool = False):
     """Expert FFN over dense (E, F, D) / (E, D, F) stacks: per pair at
     T == 1 (_pair_products), sorted by expert at T > 1
     (_sorted_products)."""
     B, T, D = xf.shape
     K = sel.shape[-1]
-    x_pairs = xf[:, :, None, :].expand(B, T, K, D).reshape(B * T * K, D)
+    x_pairs = _slots(xf, weights, weight_before_ffn).reshape(B * T * K, D)
     sel_flat = sel.reshape(-1)
     products = _pair_products if T == 1 else _sorted_products
     out = products(x_pairs, sel_flat, gate_exps, up_exps, down_exps, act, biases)
-    return (out.reshape(B, T, K, D) * weights[..., None]).sum(dim=2)
+    return _combine(out.reshape(B, T, K, D), weights, weight_before_ffn)
 
 
 def route(xf, gate_inp, n_expert_used: int, gating: int = GATING_SOFTMAX,
           norm_w: bool = True, w_scale: float = 0.0, exp_probs_b=None, gate_inp_b=None,
-          n_expert_groups: int = 0, n_group_used: int = 0):
+          n_expert_groups: int = 0, n_group_used: int = 0, select_logits: bool = False):
     """The router: f32 tokens (B, T, D) -> the selected experts (B, T, k)
     and their f32 weights (B, T, k). With n_expert_groups > 1 the top-k
     picks from the n_group_used groups whose top 2 selection scores sum
-    highest (the JAX package's group-limited routing)."""
+    highest (the JAX package's group-limited routing); with select_logits
+    it ranks the raw logits (llama4, llama-graph.cpp:947-949), the weights
+    still the gated probabilities."""
     # f32 logits, summed in f64: cuBLAS picks its f32 summation order by the
     # product's shape, and a token's routing must not depend on how many
     # rows share its step (the server batches requests together)
@@ -208,6 +229,8 @@ def route(xf, gate_inp, n_expert_used: int, gating: int = GATING_SOFTMAX,
     else:
         raise ValueError(f"moe_ffn: gating {gating}")
     selection = probs if exp_probs_b is None else probs + exp_probs_b.float()
+    if select_logits:
+        selection = logits
     if n_expert_groups > 1:
         E = selection.shape[-1]
         sg = selection.reshape(*selection.shape[:-1], n_expert_groups, E // n_expert_groups)
@@ -239,8 +262,7 @@ def moe_ffn(x, gate_inp, gate_exps, up_exps, down_exps, *, n_expert_used: int,
     gate_exps is None and up_exps the fused stack); gate_exps_b, up_exps_b
     (E, F) and down_exps_b (E, D): per-expert biases. Returns (B, T, D) in
     x's dtype."""
-    refused = {"weight_before_ffn": weight_before_ffn,
-               "select_logits": select_logits, "x_router": x_router is not None,
+    refused = {"x_router": x_router is not None,
                "select_sigmoid": select_sigmoid, "expert_div": bool(expert_div),
                "ep_axis": ep_axis is not None, f"act={act!r}": act not in ACTS}
     for name, on in refused.items():
@@ -252,10 +274,11 @@ def moe_ffn(x, gate_inp, gate_exps, up_exps, down_exps, *, n_expert_used: int,
 
     xf = x.float()
     sel, weights = route(xf, gate_inp, n_expert_used, gating, norm_w, w_scale,
-                         exp_probs_b, gate_inp_b, n_expert_groups, n_group_used)
+                         exp_probs_b, gate_inp_b, n_expert_groups, n_group_used, select_logits)
     biases = (gate_exps_b, up_exps_b, down_exps_b)
     if quant_meta_exps is not None and isinstance(up_exps, dict):
         return _ffn_packed(xf, sel, weights, gate_exps, up_exps, down_exps,
-                           quant_meta_exps, gate_inp.shape[0], act, biases).to(x.dtype)
+                           quant_meta_exps, gate_inp.shape[0], act, biases,
+                           weight_before_ffn).to(x.dtype)
     return _ffn_dense(xf, sel, weights, gate_exps, up_exps, down_exps, act,
-                      biases).to(x.dtype)
+                      biases, weight_before_ffn).to(x.dtype)

@@ -24,8 +24,10 @@ mirrors the full stack alone, as in the JAX package. Each forward writes
 at most n_ubatch new rows (longer prompts go in n_ubatch chunks), so no
 cell a query's window needs is overwritten. The full layers attend with
 the causal mask over the full stack, the SWA layers with the windowed one
-(kp > p - n_swa) over the ring; a single-stack model with SWA layers
-takes the same mask pair over its one stack.
+(kp > p - n_swa) over the ring, or for llama4's chunked layers the
+chunked one (kp >= (p // n_swa) * n_swa: a key is visible from its own
+chunk of n_swa positions on); a single-stack model with SWA layers takes
+the same mask pair over its one stack.
 
 Every one-token decode step (decode at T == 1, decode_batch, and each
 step of decode_burst and decode_batch_burst) is one step program over a
@@ -51,12 +53,13 @@ Differences from the JAX package, by design:
     (the graphs read them at fixed addresses), and their K re-rotation
     divides by the model's rope_freqs as the forward pass does, where the
     JAX package's _rotate leaves them out (only a model that carries
-    rope_freqs, Llama-3.x, differs); each layer's K rows re-rotate with the
-    rope table its forward takes: an SWA layer's with the SWA layers' own
-    (rope_freq_base_swa; gemma3's unscaled), in the ring or in one stack,
-    and a layer without rope (cohere2's full layers) not at all, where the
-    JAX package rotates every layer with the full layers' table (equal for
-    gpt-oss and gemma2; ROADMAP.md Queue 3 item 12);
+    rope_freqs, Llama-3.x and llama4, differs); each layer's K rows
+    re-rotate with the rope table its forward takes: an SWA layer's with
+    the SWA layers' own (rope_freq_base_swa; gemma3's unscaled), in the
+    ring or in one stack, and a layer without rope (cohere2's full layers,
+    smollm3's and llama4's NoPE layers) not at all, where the JAX package
+    rotates every layer with the full layers' table (equal for gpt-oss and
+    gemma2; ROADMAP.md Queue 3 item 12);
   - a prompt longer than n_ubatch on a two-stack cache goes in chunks that
     also return the hidden states of every chunk (embeddings), where the
     JAX package keeps the last chunk's.
@@ -292,8 +295,15 @@ class Context:
         vis = visible(kp_full)
         mask = torch.where(vis, zero, neg)[:, None]
         if self.net.swa and self.hp.n_swa:
+            n_swa = self.hp.n_swa
             vis_w = vis if kp_win is kp_full else visible(kp_win)
-            vis_w = vis_w & (kp_win[:, None, :] > q - self.hp.n_swa)
+            if self.hp.swa_type == "chunked":
+                # llama4: visible from the query's chunk start on
+                # (tpullama/runtime/context.py:380-397)
+                start = torch.div(q, n_swa, rounding_mode="floor") * n_swa
+                vis_w = vis_w & (kp_win[:, None, :] >= start)
+            else:
+                vis_w = vis_w & (kp_win[:, None, :] > q - n_swa)
             mask = (mask, torch.where(vis_w, zero, neg)[:, None])
         return self.net(tokens, positions, kv_k, kv_v, slots, mask, logit_rows=logit_rows,
                         return_embd=return_embd, cache_slots_swa=slots_swa)
@@ -690,15 +700,13 @@ class Context:
 
     def _rope_kinds(self, stack: str | None) -> list:
         """Each layer of a cache stack ("full", "swa", or None for the one
-        stack) by the rope its forward takes: "full" (the model's table,
-        rope_freqs included), "swa" (the SWA layers' table) or None (no
-        rope: cohere2's full layers, an arch without rope)."""
-        hp = self.hp
-        swa = self.net.swa or (False,) * hp.n_layer
-        kinds = [None if hp.rope_type < 0 or (hp.rope_swa_only and not s)
-                 else ("swa" if s else "full") for s in swa]
+        stack) by the rope its forward takes: "full" (the model's table),
+        "swa" (the SWA layers' table), both with rope_freqs, or None (no
+        rope: cohere2's full layers, a NoPE layer, an arch without rope)."""
+        kinds = list(self.net.rope_kinds)
         if stack is None:
             return kinds
+        swa = self.net.swa or (False,) * self.hp.n_layer
         return [k for k, s in zip(kinds, swa) if s == (stack == "swa")]
 
     def _rotate(self, stack: str | None, seq_id: int, deltas: torch.Tensor) -> None:
@@ -719,8 +727,7 @@ class Context:
             if not idx:
                 continue
             rp = self.net.rp_swa if kind == "swa" else self.net.rp
-            freqs = self.model.params.get("rope_freqs") if kind == "full" else None
-            cos, sin = rope_cache(rp, deltas, freqs)
+            cos, sin = rope_cache(rp, deltas, self.model.params.get("rope_freqs"))
             ix = torch.as_tensor(idx, device=self.device)
             if isinstance(kv_k, tuple):
                 kq, ks = (t[:, seq_id] for t in kv_k)  # (L, Hkv, S, D), (L, Hkv, S)
