@@ -17,8 +17,12 @@ Phases, each printing one JSON line with its seconds:
             Llama-4-Scout's (40/8 heads over its 16512-cell full stack and
             its 8449-cell chunked ring), its attention, shared-expert and
             lm_head matrices at T = 4 and 1024 and its experts in one-row
-            (B = 4) and 8-row tiles (1024 slots over 16 experts)
-  model     a synthetic Llama-3-8B-shaped GGUF (16 of its 32 layers; Q4_K
+            (B = 4) and 8-row tiles (1024 slots over 16 experts); phi-2's
+            (32 heads of 80, G = 1, over 2176 cells, beside the same shapes
+            at D = 128) with its Q4_K attn_qkv, ffn_up and ffn_down at T = 4
+            and 1024 and its Q6_K lm_head at T = 4; bigcode/starcoder's (48
+            heads of 128 over one KV head, G = 48, over 8320 cells)
+  model     a synthetic Llama-3-8B-shaped GGUF (8 of its 32 layers; Q4_K
             layers, Q6_K output,
             Q4_K token table, random block bytes from a seed) is written
             to a temp dir and loaded packed onto the card
@@ -203,6 +207,22 @@ Phases, each printing one JSON line with its seconds:
             Context; served with 4 slots at n_ctx 16384, one request's
             prompt 8600 tokens, each request's tokens against its own
             greedy loop
+  phi2_model, phi2_crosscheck, phi2_serve
+            the model, cross-check and serve phases on a microsoft/phi-2-
+            shaped phi2 model at all 32 layers: 32 heads of 80 (MHA), rope
+            over 32 of the 80 dims (NEOX), LayerNorm with biases, the
+            parallel residual (the FFN reads the attention norm), a
+            non-gated GELU FFN of 10240 with biases, the biased fused
+            attn_qkv and a biased Q6_K lm_head (vocab 51200), every layer
+            matrix and the token table Q4_K; the cross-check runs 2 layers
+            in f32; served with 4 slots at n_ctx 2048; the profile checks
+            that a step and a chunk run every packed matrix through qmm
+  starcoder_crosscheck
+            the cross-check at bigcode/starcoder's widths (2 of its 40
+            layers): learned positions (8192 rows), 48 heads of 128 over one
+            KV head (G = 48), no rope, a GELU FFN of 24576 with biases, the
+            tied lm_head; a 4160-token prompt in 1024-token chunks reads
+            position rows past 4096; n_ctx 8193 is refused by name
   int8kv    the served Llama model with an int8 KV cache against a bf16
             one: Contexts of 4 lanes of 8192 cells, bf16 activations,
             4 prompts of 6100-7000 tokens prefilled, a greedy burst of 32;
@@ -235,8 +255,8 @@ Llama cross-check also holds Context.embeddings (each pooling) and
 seq_add / seq_div on the card against the CPU, and a replayed step after
 seq_add against the eager step. The crosscheck, serve, http, spec, cli,
 quant_crosscheck, int8kv, int8kv_crosscheck, state, the MoE archs',
-GLM-4.5-Air's, gpt-oss's, gemma-3-12b's, command-r7b's, Qwen3-8B's and
-Llama-4-Scout's paths each run
+GLM-4.5-Air's, gpt-oss's, gemma-3-12b's, command-r7b's, Qwen3-8B's,
+Llama-4-Scout's, phi-2's and bigcode/starcoder's paths each run
 with every launch count set to 0 just before
 and read just after, and fail unless each kernel that path must run was launched. Then one JSON line lists every
 kernel with its launches on each path and its numbers at the served shape
@@ -279,7 +299,8 @@ ALL_PHASES = ("card", "build", "kernels", "model", "crosscheck", "serve", "graph
               "glm4moe_serve", "gptoss_model", "gptoss_crosscheck", "gptoss_serve",
               "gemma3_model", "gemma3_crosscheck", "gemma3_serve", "cohere2_crosscheck",
               "qwen3_model", "qwen3_crosscheck", "qwen3_serve", "llama4_model",
-              "llama4_crosscheck", "llama4_ring", "llama4_serve")
+              "llama4_crosscheck", "llama4_ring", "llama4_serve", "phi2_model", "phi2_crosscheck",
+              "phi2_serve", "starcoder_crosscheck")
 
 
 # every line the run prints, whole, also goes to this file (the kernels
@@ -312,7 +333,7 @@ class Widths:
     """A llama-family configuration (n_expert > 0: a Mixtral-style MoE,
     whose n_ff is each expert's; arch "chatglm": fused biased [Q|K|V],
     fused [gate|up], n_rot rotated dims). LLAMA3_8B holds the published
-    widths of meta-llama/Meta-Llama-3-8B (config.json), cut to 16 of its
+    widths of meta-llama/Meta-Llama-3-8B (config.json), cut to 8 of its
     32 layers (every layer has the same shapes and launches);
     MIXTRAL_8X7B those
     of mistralai/Mixtral-8x7B-v0.1 (config.json; sliding window null), cut
@@ -442,7 +463,25 @@ class Widths:
     both packages take the chunk of 8192 and the temperature's constants
     from the arch), cut to 4 of its 48 layers: one whole period of the
     pattern, three chunked layers and one NoPE full layer, every later
-    period with the same shapes and launches."""
+    period with the same shapes and launches. The non-gated FFN archs:
+    PHI_2 holds those of microsoft/phi-2 (config.json: hidden 2560, 32
+    layers, 32 heads of 80 (MHA), partial_rotary_factor 0.4 (32 rope
+    dims, NEOX), intermediate 10240 with gelu_new (the tanh form),
+    layer_norm_eps 1e-5, rope_theta 10000, vocab 51200 with the lm_head's
+    bias, max_position_embeddings 2048, untied), written as llama.cpp's
+    converter writes them (LayerNorm weights and biases, no FFN norm: the
+    FFN reads the attention norm, the biased fused attn_qkv of 7680 rows,
+    output.bias), every layer matrix and the token table Q4_K, the
+    lm_head Q6_K, at all 32 layers. STARCODER holds those of
+    bigcode/starcoder (config.json: n_embd 6144, 40 layers, 48 heads of
+    128 over one KV head (multi_query), so attn_qkv has 6400 rows;
+    n_inner 24576 with GELU (tanh), 8192 learned positions
+    (n_positions), layer_norm_epsilon 1e-5, vocab 49152, tied), written
+    as llama.cpp's converter writes them (position_embd, LayerNorm
+    weights and biases, every projection's bias, no rope keys), the
+    position table F16 as llama.cpp's quantizer leaves it, the tied
+    token table Q6_K, cut to 2 of its 40 layers and used in the
+    cross-check alone."""
 
     n_embd: int = 4096
     n_layer: int = 32
@@ -478,7 +517,7 @@ class Widths:
         return self.head_dim or self.n_embd // self.n_head
 
 
-LLAMA3_8B = Widths(n_layer=16)
+LLAMA3_8B = Widths(n_layer=8)
 MIXTRAL_8X7B = Widths(n_layer=2, n_vocab=32000, rope_theta=1e6, n_ctx_train=32768,
                       n_expert=8, n_expert_used=2)
 CHATGLM3_6B = Widths(n_layer=7, n_head_kv=2, n_ff=13696, n_vocab=65024, rope_theta=10000.0,
@@ -537,6 +576,11 @@ LLAMA4_SCOUT = Widths(n_embd=5120, n_layer=4, n_head=40, n_head_kv=8, n_ff=8192,
                       n_vocab=202048, rope_theta=5e5, rms_eps=1e-5, n_ctx_train=10485760,
                       n_expert=16, n_expert_used=1, arch="llama4",
                       llama3_rope=(16.0, 1.0, 1.0, 8192))
+PHI_2 = Widths(n_embd=2560, n_layer=32, n_head=32, n_head_kv=32, n_ff=10240, n_vocab=51200,
+               rope_theta=10000.0, rms_eps=1e-5, n_ctx_train=2048, arch="phi2", n_rot=32)
+STARCODER = Widths(n_embd=6144, n_layer=2, n_head=48, n_head_kv=1, n_ff=24576, n_vocab=49152,
+                   rms_eps=1e-5, n_ctx_train=8192, arch="starcoder", tied=True,
+                   embd_type="Q6_K")
 
 
 def use_more_bits(il: int, n: int) -> bool:
@@ -786,7 +830,10 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
     norm's output) and logit_scale; qwen3 its per-head q/k norms; llama4
     its interleave step of 1 (every layer MoE, the router F32, the experts
     Q4_K) with an ungated shared expert, and no q/k norm tensors (its
-    q/k norm is weightless)."""
+    q/k norm is weightless); phi2 and starcoder their LayerNorm weights and
+    biases, the biased fused attn_qkv and attn_output, ffn_up and ffn_down
+    with biases and no gate, phi2 no FFN norm and output.bias, starcoder
+    the F16 position_embd and no rope keys."""
     from tpullama_torch.gguf import GGML_TYPE_TRAITS, GGMLType, GGUFWriter
 
     rng = np.random.default_rng(seed)
@@ -804,6 +851,8 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
               "synthetic-c4ai-command-r7b-shape" if a == "cohere2" else
               "synthetic-qwen3-8b-shape" if a == "qwen3" else
               "synthetic-llama-4-scout-17b-16e-shape" if a == "llama4" else
+              "synthetic-phi-2-shape" if a == "phi2" else
+              "synthetic-starcoder-shape" if a == "starcoder" else
               "synthetic-openllama-3b-shape" if w.q8 else
               "synthetic-llama3.2-1b-shape" if w.tied else
               "synthetic-mixtral-8x7b-shape" if w.n_expert else "synthetic-llama3-8b-shape")
@@ -813,13 +862,18 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
     g.add_u32(f"{a}.feed_forward_length", w.n_ff)
     g.add_u32(f"{a}.attention.head_count", w.n_head)
     g.add_u32(f"{a}.attention.head_count_kv", w.n_head_kv)
-    g.add_u32(f"{a}.rope.dimension_count", w.n_rot or w.hd)
+    if a != "starcoder":  # learned positions, no rope keys
+        g.add_u32(f"{a}.rope.dimension_count", w.n_rot or w.hd)
     if w.head_dim:
         g.add_u32(f"{a}.attention.key_length", w.head_dim)
         g.add_u32(f"{a}.attention.value_length", w.head_dim)
-    layer_norm = a in ("command-r", "cohere2")
+    # the non-gated archs: LayerNorm blocks with biases, up (+bias) -> GELU
+    # -> down (+bias), the fused biased [Q|K|V]
+    nongated = a in ("phi2", "starcoder")
+    layer_norm = a in ("command-r", "cohere2") or nongated
     g.add_f32(f"{a}.attention.layer_norm_{'' if layer_norm else 'rms_'}epsilon", w.rms_eps)
-    g.add_f32(f"{a}.rope.freq_base", w.rope_theta)
+    if a != "starcoder":
+        g.add_f32(f"{a}.rope.freq_base", w.rope_theta)
     g.add_u32(f"{a}.vocab_size", w.n_vocab)
     if w.n_expert:
         g.add_u32(f"{a}.expert_count", w.n_expert)
@@ -885,8 +939,17 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
     Q4 = GGMLType.Q4_K
     quant("token_embd.weight", (w.n_vocab, E), GGMLType[w.embd_type])
     norm("output_norm.weight", E)
+    if nongated:
+        bias("output_norm.bias", E)
     if not w.tied:
         quant("output.weight", (w.n_vocab, E), GGMLType.Q6_K)
+    if a == "phi2":
+        bias("output.bias", w.n_vocab)
+    if a == "starcoder":
+        # llama.cpp's quantizer leaves the position table as converted (F16)
+        g.add_tensor("position_embd.weight",
+                     (0.02 * rng.standard_normal((w.n_ctx_train, E))).astype(np.float32),
+                     GGMLType.F16)
     if w.llama3_rope:
         g.add_tensor("rope_freqs.weight", llama3_rope_freqs(w), GGMLType.F32)
     # the router's logits have std ~1.3 on unit-scale inputs: varied routing
@@ -898,7 +961,11 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
     for il in range(w.n_layer + w.nextn):
         p = f"blk.{il}."
         norm(p + "attn_norm.weight", E)
-        if a == "chatglm":
+        if nongated:
+            bias(p + "attn_norm.bias", E)
+            quant(p + "attn_qkv.weight", (hq + 2 * kv, E), Q4)
+            bias(p + "attn_qkv.bias", hq + 2 * kv)
+        elif a == "chatglm":
             quant(p + "attn_qkv.weight", (E + 2 * kv, E), Q4)
             g.add_tensor(p + "attn_qkv.bias",
                          (0.1 * rng.standard_normal(E + 2 * kv)).astype(np.float32),
@@ -914,16 +981,25 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
                 norm(p + "attn_q_norm.weight", w.hd)
                 norm(p + "attn_k_norm.weight", w.hd)
         quant(p + "attn_output.weight", (E, hq), Q4)
+        if nongated:
+            bias(p + "attn_output.bias", E)
         if a == "gpt-oss":
             bias(p + "attn_output.bias", E)
             bias(p + "attn_sinks.weight", w.n_head)
         if a == "gemma3":
             norm(p + "post_attention_norm.weight", E)
             norm(p + "post_ffw_norm.weight", E)
-        if a != "cohere2":
+        if a not in ("cohere2", "phi2"):
             norm(p + ("post_attention_norm.weight" if a in ("glm4moe", "gpt-oss")
                       else "ffn_norm.weight"), E)
-        if a == "chatglm":
+        if a == "starcoder":
+            bias(p + "ffn_norm.bias", E)
+        if nongated:
+            quant(p + "ffn_up.weight", (F, E), Q4)
+            bias(p + "ffn_up.bias", F)
+            quant(p + "ffn_down.weight", (E, F), q4_or_q8(F))
+            bias(p + "ffn_down.bias", E)
+        elif a == "chatglm":
             quant(p + "ffn_up.weight", (2 * F, E), Q4)
             quant(p + "ffn_down.weight", (E, F), GGMLType.Q8_0)
         elif n_x and il >= w.dense_lead:
@@ -1110,7 +1186,14 @@ def qmm_cases(timer, gen, device, out: list) -> None:
              (Q4, 5120, 5120, bf16, bf16, (4, 1024)),
              (Q4, 8192, 5120, bf16, bf16, (4, 1024)),
              (Q4, 5120, 8192, bf16, bf16, (4, 1024)),
-             (Q6, 202048, 5120, bf16, bf16, (4,))]
+             (Q6, 202048, 5120, bf16, bf16, (4,)),
+             # phi-2's attn_qkv (7680 x 2560), ffn_up (10240 x 2560),
+             # ffn_down (2560 x 10240) and its Q6_K lm_head (51200 rows): the
+             # B = 4 decode step and the packed chunk
+             (Q4, 7680, 2560, bf16, bf16, (4, 1024)),
+             (Q4, 10240, 2560, bf16, bf16, (4, 1024)),
+             (Q4, 2560, 10240, bf16, bf16, (4, 1024)),
+             (Q6, 51200, 2560, bf16, bf16, (4,))]
     # the q1 / q2 sets (csrc/qmm_lowbit.cu) at the Llama FFN's shapes, the
     # decode step's T = 4 and the packed prefill chunk's T = 1024, then one
     # f32-x and one f32-scale case
@@ -1169,6 +1252,9 @@ def qmm_cases(timer, gen, device, out: list) -> None:
                 role = {(5120, 5120): "attn_q", (8192, 5120): "ffn_gate_shexp",
                         (5120, 8192): "ffn_down_shexp", (202048, 5120): "output"}[N, K]
                 rec["case"] = f"llama4 {role} T={T}"
+            elif (N, K) in ((7680, 2560), (10240, 2560), (2560, 10240), (51200, 2560)):
+                role = {7680: "attn_qkv", 10240: "ffn_up", 2560: "ffn_down", 51200: "output"}[N]
+                rec["case"] = f"phi2 {role} T={T}"
             emit(rec)
             out.append(rec)
         del w_lib, fields
@@ -1719,6 +1805,46 @@ def chunked_attention_cases(timer, gen, device, out: list) -> None:
         del q, k, v, mask
 
 
+def nongated_attention_cases(timer, gen, device, out: list) -> None:
+    """phi-2's attention as served at n_ctx 2048 (32 heads of 80, G = 1,
+    over 2176 cells), the same shapes at D = 128 (the instance D = 80 runs
+    in, every column of it used), and bigcode/starcoder's at n_ctx 8192
+    (48 heads of 128 over one KV head: G = 48, three 16-row tiles a KV
+    head, over 8320 cells): decode at B = 1 (flash_decode) and B = 4
+    (flash_decode_batched), and the packed 4 x 256 prefill chunk
+    (flash_attention), bf16. Each record labelled by its model and cells."""
+    import torch
+
+    from tpullama_torch.ops.cuda.flash_attention import flash_attention
+    from tpullama_torch.ops.cuda.flash_decode import flash_decode
+
+    Tq = 256
+    for label, Hq, Hkv, D, n_ctx in (("phi2", 32, 32, 80, 2048),
+                                     ("phi2 at D=128", 32, 32, 128, 2048),
+                                     ("starcoder", 48, 1, 128, 8192)):
+        S = -(-(n_ctx + 1) // 128) * 128
+        case = f"{label} S={S}"
+        for lengths, name in (([n_ctx - 48], "flash_decode"),
+                              ([n_ctx - 48, n_ctx * 3 // 4, n_ctx * 3 // 8, 300],
+                               "flash_decode_batched")):
+            kv = np.full((len(lengths), S), -1, np.int32)
+            for b, n in enumerate(lengths):
+                kv[b, :n] = np.arange(n)
+            qp = np.asarray(lengths, np.int32)[:, None] - 1
+            q, k, v, mask = attn_inputs(len(lengths), 1, Hq, Hkv, D, S, torch.bfloat16, gen,
+                                        device, kv, qp)
+            attn_case(timer, name, flash_decode, q, k, v, mask, out, case=case)
+        lanes = [(0, 256), (n_ctx // 3, 216), (n_ctx * 3 // 4, 100), (n_ctx - 300, 0)]
+        kv = np.full((4, S), -1, np.int32)
+        qp = np.full((4, Tq), -1, np.int32)
+        for b, (n_past, n_new) in enumerate(lanes):
+            kv[b, :n_past + n_new] = np.arange(n_past + n_new)
+            qp[b, :n_new] = np.arange(n_past, n_past + n_new)
+        q, k, v, mask = attn_inputs(4, Tq, Hq, Hkv, D, S, torch.bfloat16, gen, device, kv, qp)
+        attn_case(timer, "flash_attention", flash_attention, q, k, v, mask, out, case=case)
+        del q, k, v, mask
+
+
 def attention_cases(timer, gen, device, out: list) -> None:
     import torch
 
@@ -1960,6 +2086,14 @@ def phase_model(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
             check(isinstance(t, dict) == (role in want)
                   and (isinstance(t, dict) or t.dtype == torch.bfloat16),
                   f"{role}: packed planes iff its type is one across layers, else dense bf16")
+    elif widths.arch == "phi2":
+        hp = model.hparams
+        check(set(lm) == {"attn_qkv", "attn_output", "ffn_up", "ffn_down"}
+              and "output" in model.quant_meta, f"every layer matrix is packed: {sorted(lm)}")
+        check(not hp.ffn_gated and hp.parallel_residual and hp.norm_type == "layer"
+              and (hp.n_rot, hp.rope_type) == (widths.n_rot, 2)
+              and "ffn_norm" not in model.params["layers"] and "output_bias" in model.params,
+              f"phi2's block: gated {hp.ffn_gated}, n_rot {hp.n_rot}, rope {hp.rope_type}")
     elif widths.arch == "chatglm":
         check(set(lm) == {"attn_qkv", "attn_output", "ffn_up"},
               f"attn_qkv, attn_output and ffn_up are packed: {sorted(lm)}")
@@ -2200,6 +2334,74 @@ def phase_crosscheck(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
         check(out_u == out_g, f"fused/K-chunked {out_g} and unfused {out_u} card runs differ")
         rec["unfused_greedy_tokens"] = out_u
     emit({**rec, "seconds": time.perf_counter() - t0})
+
+
+def phase_positions_crosscheck(tmp: str, card: str, device: str = "cuda",
+                               widths: Widths = STARCODER, n_layer: int = 2,
+                               n_prompt: int = 4160, chunk: int = 1024,
+                               phase: str = "starcoder_crosscheck") -> None:
+    """A model with a learned position table (bigcode/starcoder) cut to
+    n_layer layers, f32 activations and cache on both sides, the CPU's
+    matrices dequantized once (dense_reference): an n_prompt-token prompt,
+    past position 4096 so that rows deep in the table are read, prefilled
+    in `chunk`-token pieces on the card and on the CPU; the last piece's
+    logits within the cross-checks' tolerance and the same argmax, then 8
+    greedy tokens (the card's replayed one-token steps against the CPU
+    continuing its Context). Context and make_context refuse an n_ctx of
+    one more than the table's rows, by the table's name and size, and
+    take the table's own."""
+    import torch
+
+    from tpullama_torch.models import load_model
+    from tpullama_torch.runtime import Context, ContextParams, make_context
+
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, f"{phase}.gguf")
+    write_llama_gguf(path, replace(widths, n_layer=n_layer), seed=1)
+    gpu = load_model(path, dtype=torch.float32, device=device, packed=True)
+    cpu = dense_reference(load_model(path, dtype=torch.float32, device="cpu", packed=True))
+    os.remove(path)
+    rows = int(gpu.params["position_embd"].shape[0])
+    check(rows == widths.n_ctx_train and gpu.hparams.rope_type == -1,
+          f"{rows} position rows, rope type {gpu.hparams.rope_type}")
+    for make in (lambda n: Context(gpu, ContextParams(n_ctx=n)),
+                 lambda n: make_context(gpu, ContextParams(n_ctx=n))):
+        try:
+            make(rows + 1)
+            refused = ""
+        except ValueError as e:
+            refused = str(e)
+        check(f"n_ctx={rows + 1}" in refused and f"(position_embd) of {rows} rows" in refused,
+              f"n_ctx {rows + 1} was not refused by the table's name and size: {refused!r}")
+        check(make(rows).p.n_ctx == rows, f"n_ctx {rows} was refused")
+    text = word_prompt(np.random.default_rng(2), 2 * n_prompt)
+    prompt = gpu.vocab.tokenize(text, add_special=True)[:n_prompt]
+    check(len(prompt) == n_prompt > 4096, f"prompt has {len(prompt)} tokens")
+    cp = ContextParams(n_ctx=n_prompt + 64)
+    secs = {}
+    last = {}
+    ctxs = {"card": Context(gpu, cp), "cpu": Context(cpu, cp)}
+    for side, ctx in ctxs.items():
+        t1 = time.perf_counter()
+        for st in range(0, n_prompt, chunk):
+            piece = np.asarray(prompt[st:st + chunk], np.int32)
+            # the lm_head on every row of the last piece, one row before it
+            last[side] = ctx.decode(piece, n_logits=len(piece) if st + chunk >= n_prompt else 1)
+        secs[side] = time.perf_counter() - t1
+    lg, lc = last["card"], last["cpu"]
+    err = float(np.abs(lg - lc).max())
+    tol = 1e-3 * float(np.abs(lc).max()) + 1e-4
+    check(np.isfinite(lg).all() and err <= tol, f"prefill logits err {err} > tol {tol}")
+    check(int(lg[-1].argmax()) == int(lc[-1].argmax()), "prefill argmax differs")
+    out_g = greedy_continue(ctxs["card"], lg[-1], 8)
+    out_c = greedy_continue(ctxs["cpu"], lc[-1], 8)
+    check(out_g == out_c, f"greedy tokens differ: card {out_g} cpu {out_c}")
+    emit({"phase": phase, "card": card, "layers": n_layer, "prompt_tokens": n_prompt,
+          "chunk": chunk, "positions_read": [0, n_prompt + len(out_g) - 2],
+          "position_rows": rows, "refused_n_ctx": rows + 1, "prefill_s": secs,
+          "last_chunk_logits": int(lg.shape[0]), "prefill_max_abs_err": err, "tol": tol,
+          "argmax": int(lc[-1].argmax()), "greedy_tokens": out_g,
+          "seconds": time.perf_counter() - t0})
 
 
 def phase_swa_crosscheck(tmp: str, card: str, device: str = "cuda",
@@ -2694,10 +2896,12 @@ def phase_serve_profile(eng, prompt: str, card: str, phase: str = "serve_profile
            f"prefill_chunk_{B}x{len(chunk)}": profile_step(
                ctx, lambda: ctx.decode_multi([(s, chunk) for s in range(B)]), B * len(chunk), 2),
            f"decode_batch_b{B}": profile_step(ctx, decode, B, 8)}
-    # the same step run eagerly (the step its graph captures), for comparison
+    # the same step run eagerly (the step its graph captures), for
+    # comparison: 2 steps, as the profiler's parse of an eager window's
+    # host events takes seconds a step at thousands of launches
     ctx._run = ctx._step
     try:
-        eager = profile_step(ctx, decode, B, 8)
+        eager = profile_step(ctx, decode, B, 2)
     finally:
         del ctx._run
     rec[f"decode_batch_b{B}_eager"] = {k: eager[k] for k in (
@@ -3076,7 +3280,7 @@ def phase_cli(tmp: str, card: str, phase: str = "cli", widths: Widths = LLAMA3_8
     text. Every matrix is Q8_0, which the loader dequantizes on the host
     several times faster than Q4_K/Q6_K (the CLI loads dense: the
     quantization type does not reach the card). Then --grammar (a GBNF
-    grammar over words and a full stop) and --json-schema (SCHEMA), 3
+    grammar over words and a full stop) and --json-schema (SCHEMA), 2
     tokens each at --temp 0 --seed 7 (a grammar makes a seeded sampler
     chain), on the card and with --device cpu: the same text, which the
     grammar accepts, and the host's ms per token in Grammar.apply. Returns
@@ -3126,7 +3330,7 @@ def phase_cli(tmp: str, card: str, phase: str = "cli", widths: Widths = LLAMA3_8
         for dev in (device, "cpu"):
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf), timed_method(Grammar, "apply", apply_s):
-                rc = cli_main(["-m", path, "-p", prompt, "-n", "3", "--temp", "0", "--seed", "7",
+                rc = cli_main(["-m", path, "-p", prompt, "-n", "2", "--temp", "0", "--seed", "7",
                                *flags] + ([] if dev == "cuda" else ["--device", dev]))
             check(rc == 0, f"the CLI exited {rc} on {dev} with --{name}")
             texts.append(buf.getvalue()[len(prompt):].rstrip("\n"))
@@ -4180,6 +4384,13 @@ PATH_KERNELS = {
     "llama4_crosscheck": _DENSE_CROSS + _GATHERED,
     "llama4_ring": _DENSE_CROSS + _GATHERED,
     "llama4_serve": _DENSE_SERVE + _GATHERED,
+    # phi-2 at all 32 layers: every layer matrix Q4_K (attn_qkv 7680 rows,
+    # K = 2560 and 10240), the biased Q6_K lm_head; attention at D = 80, G
+    # = 1. bigcode/starcoder: Q4_K layers (K = 6144 and 24576), the dense
+    # tied lm_head; attention at G = 48 over one KV head
+    "phi2_crosscheck": _DENSE_CROSS,
+    "phi2_serve": _DENSE_SERVE,
+    "starcoder_crosscheck": _DENSE_CROSS,
     # lanes saved and loaded (f32 and int8 caches), the HTTP engine, the CLI
     "state": ("qmm_gemv", "qmm_tiled", "flash_attention", "flash_decode", "flash_decode_batched",
               "flash_attention_int8", "flash_decode_int8"),
@@ -4201,7 +4412,9 @@ PATHS = (("", LLAMA3_8B, 2, 4, {}),
          ("gemma3_", GEMMA3_12B, 6, 4, {}),  # the cross-check reads the model's file
          ("cohere2_", COHERE2_7B, 4, 0, {}),  # the cross-check alone
          ("qwen3_", QWEN3_8B, 2, 4, {}),
-         ("llama4_", LLAMA4_SCOUT, 4, 4, {}))  # the cross-check and ring read the model's file
+         ("llama4_", LLAMA4_SCOUT, 4, 4, {}),  # the cross-check and ring read the model's file
+         ("phi2_", PHI_2, 2, 4, {}),
+         ("starcoder_", STARCODER, 2, 0, {}))  # the cross-check alone
 # the cross-checks on the two-stack cache, with their options: gpt-oss's
 # 600-token prompt wraps its 385-cell ring; gemma-3-12b's 1400 tokens its
 # 1281-cell ring, then its first 2 layers (SWA layers only) run on one
@@ -4216,7 +4429,12 @@ SWA_CROSS = {"gptoss_": {},
              "llama4_": dict(n_prompt=200, n_ctx=8704, n_greedy=8, served=True)}
 # the served engines' options where not phase_serve's defaults: Scout at
 # n_ctx 16384, one request past its ring of 8449 cells and its chunk start
-SERVE_OPTS = {"llama4_": dict(n_ctx=16384, lengths=(300, 550, 780, 8600), plain_greedy=True)}
+SERVE_OPTS = {"llama4_": dict(n_ctx=16384, lengths=(300, 550, 780, 8600), plain_greedy=True),
+              # phi-2's 2048 positions
+              "phi2_": dict(n_ctx=2048, plain_greedy=True)}
+# the cross-checks of a model with a learned position table: a prompt past
+# position 4096 (phase_positions_crosscheck)
+POSITIONS_CROSS = ("starcoder_",)
 # the gathered kernels whose one-row and 8-row routes a served MoE step and
 # chunk must launch (phase_serve_profile's gathered_routes)
 GATHERED_ROUTES = {"qwen3mxfp4_": ("qmm_gathered_t",), "llama4_": _GATHERED}
@@ -4302,7 +4520,8 @@ def main() -> int:
     _log.append(open(LOG_PATH, "w"))
     say(smi)
     emit({"phase": "card", "nvidia_smi": smi, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "device_count": torch.cuda.device_count()})
+          "cuda": torch.version.cuda, "device_count": torch.cuda.device_count(),
+          "host_cpus": os.cpu_count(), "torch_threads": torch.get_num_threads()})
 
     if "build" in phases or "kernels" in phases:
         t0 = time.perf_counter()
@@ -4336,6 +4555,9 @@ def main() -> int:
         # Llama-4-Scout's (40/8 heads, D = 128; full stack 16512 cells, the
         # chunked ring 8449)
         chunked_attention_cases(timer, gen, device, records)
+        # phi-2's (32 heads of 80, G = 1) and bigcode/starcoder's (48 heads
+        # of 128 over one KV head)
+        nongated_attention_cases(timer, gen, device, records)
         del timer
         torch.cuda.empty_cache()
         emit({"phase": "kernels", "cases": len(records), "seconds": time.perf_counter() - t0})
@@ -4370,6 +4592,10 @@ def main() -> int:
                     pre + "crosscheck", lambda: phase_swa_crosscheck(
                         tmp, smi, widths=widths, n_layer=cross_layers, phase=pre + "crosscheck",
                         path=model_path, **swa_cross))
+            elif "crosscheck" in run and pre in POSITIONS_CROSS:
+                launches[pre + "crosscheck"], _ = path_launches(
+                    pre + "crosscheck", lambda: phase_positions_crosscheck(
+                        tmp, smi, widths=widths, n_layer=cross_layers, phase=pre + "crosscheck"))
             elif "crosscheck" in run:
                 launches[pre + "crosscheck"], _ = path_launches(
                     pre + "crosscheck", lambda: phase_crosscheck(

@@ -8,7 +8,8 @@ temperature, raw-logit sigmoid routing with input-side weights) and
 hunyuan-moe, and the dense archs that run on those flags alone
 (FLAG_ARCHS: qwen3, mistral3, internlm2, xverse, ernie4_5, exaone, phi3,
 glm4, granite, minicpm, orion, stablelm, plamo, seed_oss, pangu-embedded,
-qwen, smollm3, hunyuan-dense).
+qwen, smollm3, hunyuan-dense, and the non-gated FFN archs phi2, falcon,
+gptneox, starcoder2, codeshell, gpt2 and starcoder).
 
 The part of tpullama/models/hparams.py that the port reads. Key strings
 follow the reference's key-name table exactly (src/llama-arch.cpp:119-268);
@@ -22,7 +23,10 @@ softcaps and attention scales, command-r's, orion's and stablelm's
 LayerNorm, command-r's and plamo's parallel residual, command-r's logit
 scale, cohere2's NoPE full layers, llama4's chunked pattern, NoPE
 layers, Q temperature, weightless q/k norm and routing flags, smollm3's
-NoPE layers, hunyuan's q/k norms after rope). Other architectures' fields and
+NoPE layers, hunyuan's q/k norms after rope, the non-gated GELU FFN of
+phi2, falcon, gptneox, starcoder2, codeshell, gpt2 and starcoder with
+their LayerNorms, phi2's, falcon's and gptneox's parallel residual, and
+the rope-less gpt2 and starcoder). Other architectures' fields and
 branches come across with the slice that ports them; until then from_gguf
 refuses them by name with their ROADMAP item.
 """
@@ -46,7 +50,8 @@ ROPE_SCALING_YARN = "yarn"
 # archs that run on those flags alone (FLAG_ARCHS)
 FLAG_ARCHS = ("qwen3", "mistral3", "internlm2", "xverse", "ernie4_5", "exaone", "phi3",
               "glm4", "granite", "minicpm", "orion", "stablelm", "plamo", "seed_oss",
-              "pangu-embedded", "qwen", "smollm3", "hunyuan-dense")
+              "pangu-embedded", "qwen", "smollm3", "hunyuan-dense", "phi2", "falcon",
+              "gptneox", "starcoder2", "codeshell", "gpt2", "starcoder")
 LLAMA_FAMILY = ("llama", "mistral", "qwen2", "chatglm", "qwen2moe", "qwen3moe", "granitemoe",
                 "glm4moe", "dots1", "ernie4_5-moe", "bailingmoe2", "gpt-oss", "gemma",
                 "gemma2", "gemma3", "command-r", "cohere2", "llama4",
@@ -62,10 +67,9 @@ MOE_NOT_PORTED = ("bailingmoe", "afmoe", "minimax-m2",
 # heads, MLA, gemma3n, the encoders, the recurrent and hybrid stacks,
 # diffusion, the audio decoder), each refused by name until its slice
 # (ROADMAP.md Queue 1 item 7)
-FLAG_NOT_PORTED = ("phi2", "falcon", "gptneox", "gpt2", "starcoder", "starcoder2", "mpt",
-                   "bloom", "olmo", "olmo2", "chameleon", "bitnet", "baichuan", "refact",
-                   "codeshell", "jais", "nemotron", "exaone4", "arcee", "apertus",
-                   "qwen2vl", "qwen3vl", "cogvlm")
+FLAG_NOT_PORTED = ("mpt", "bloom", "olmo", "olmo2", "chameleon", "bitnet", "baichuan",
+                   "refact", "jais", "nemotron", "exaone4", "arcee", "apertus", "qwen2vl",
+                   "qwen3vl", "cogvlm")
 OWN_FORWARD_NOT_PORTED = ("deci", "openelm", "deepseek2", "plm", "minicpm3", "gemma3n",
                           "bert", "nomic-bert", "nomic-bert-moe", "jina-bert-v2",
                           "jina-bert-v3", "neo-bert", "gemma-embedding", "t5", "t5encoder",
@@ -79,6 +83,14 @@ OWN_FORWARD_NOT_PORTED = ("deci", "openelm", "deepseek2", "plm", "minicpm3", "ge
 _NORM_ROPE = ("llama", "llama4", "chatglm", "granitemoe", "ernie4_5-moe", "command-r",
               "cohere2", "internlm2", "minicpm", "xverse", "granite", "ernie4_5", "mistral3",
               "glm4", "smollm3")
+# LLAMA_ROPE_TYPE_NONE (-1): no rotation (the JAX package's NONE_ARCHES,
+# which wins over NORM_ARCHES for starcoder); the others of that set have
+# a forward of their own or come with their slice
+_NONE_ROPE = ("gpt2", "gptj", "mpt", "bloom", "starcoder", "refact", "bert", "jina-bert-v2",
+              "t5", "jamba", "mamba", "mamba2", "jais", "nemotron_h", "wavtokenizer-dec")
+# the non-gated FFN archs: LayerNorm (with biases) block norms, up (+bias)
+# -> GELU -> down (+bias) (LLM_FFN_GELU + LLM_FFN_SEQ)
+_NON_GATED = ("phi2", "falcon", "gptneox", "starcoder2", "codeshell", "gpt2", "starcoder")
 
 
 def check_arch(arch: str) -> None:
@@ -145,7 +157,7 @@ class HParams:
     final_logit_scale: float = 0.0
 
     # block layout
-    act: str = "silu"  # the gated FFN's activation: "silu" | "gelu" (gemma)
+    act: str = "silu"  # the FFN's activation: "silu" | "gelu" (gemma, the non-gated archs)
     norm_type: str = "rms"  # "rms" | "layer" (command-r, cohere2: LayerNorm)
     pre_norm: bool = True
     no_rope_layer_step: int = 0  # every Nth layer is NoPE (smollm3, llama4)
@@ -155,6 +167,7 @@ class HParams:
     parallel_residual: bool = False  # attention and FFN from one norm, summed (command-r)
 
     # FFN
+    ffn_gated: bool = True  # gated GLU, else up (+bias) -> act -> down (+bias)
     ffn_fused_up: bool = False  # chatglm: [gate|up] fused in ffn_up
 
     # MoE (Mixtral-style llama GGUFs carry it; build_moe_ffn's options)
@@ -238,7 +251,7 @@ class HParams:
             n_rot=n_rot,
             f_norm_rms_eps=float(g("attention.layer_norm_rms_epsilon", 1e-5)),
             f_norm_eps=float(g("attention.layer_norm_epsilon", 1e-5)),
-            rope_type=0 if arch in _NORM_ROPE else 2,
+            rope_type=-1 if arch in _NONE_ROPE else 0 if arch in _NORM_ROPE else 2,
             rope_freq_base=float(g("rope.freq_base", 10000.0)),
             rope_freq_scale=rope_freq_scale,
             rope_scaling=rope_scaling,
@@ -292,6 +305,21 @@ class HParams:
             # parallel residual, the FFN reading the attention norm's
             # output (models/plamo.cpp:75-89)
             hp.parallel_residual = True
+        if arch in _NON_GATED:
+            # LayerNorm (+bias) norms, a plain GELU FFN with biases
+            # (llm_build_phi2, _falcon, _gptneox, _starcoder2, _codeshell,
+            # _gpt2, _starcoder)
+            hp.norm_type = "layer"
+            hp.ffn_gated = False
+            hp.act = "gelu"
+        if arch in ("phi2", "falcon"):
+            # attention and FFN from the attention norm, summed onto the
+            # input (falcon-40b's FFN reads its attn_norm_2 instead)
+            hp.parallel_residual = True
+        if arch == "gptneox":
+            # the parallel residual by default, the FFN with its own
+            # ffn_norm of the layer input (models/gptneox.cpp:68-110)
+            hp.parallel_residual = bool(g("use_parallel_residual", True))
         if arch in ("dots1", "glm4moe"):
             # deepseek-style MoE: norm_topk from expert_weights_norm,
             # selection bias (exp_probs_b), dense lead layers, shared

@@ -6,24 +6,29 @@ and fused [gate|up], Mixtral-style MoE, the MoE archs qwen2moe,
 qwen3moe, granitemoe and gpt-oss, the heterogeneous dense/MoE stacks
 of glm4moe, dots1, ernie4_5-moe and bailingmoe2, the gemma and cohere
 families, llama4, hunyuan-moe, and the dense flag archs, qwen3, phi3,
-glm4, granite, minicpm, orion, stablelm, plamo, smollm3, hunyuan-dense and
-the rest of hparams.FLAG_ARCHS; no parallel modes): token rows (times
-embd_scale) -> per layer [norm -> q/k/v (+bias) -> per-head q/k norm ->
+glm4, granite, minicpm, orion, stablelm, plamo, smollm3, hunyuan-dense,
+the non-gated phi2, falcon, gptneox, starcoder2, codeshell, gpt2 and
+starcoder, and the rest of hparams.FLAG_ARCHS; no parallel modes): token
+rows (times embd_scale; plus the learned position rows of gpt2 and
+starcoder) -> per layer [norm -> q/k/v (+bias) -> per-head q/k norm ->
 rope (none on a NoPE layer) -> hunyuan's per-head q/k norm, llama4's
 weightless one on its rope layers, llama4's Q temperature on its NoPE
 layers -> write K/V into the
 cache -> attention (with gpt-oss's per-head sinks, gemma2's softcap) ->
 o-proj (+bias; post_attn_norm; times f_residual_scale) -> residual ->
-norm -> gated FFN (SiLU, or GELU for the gemmas), or MoE FFN plus the
+norm -> gated FFN (SiLU, or GELU for the gemmas; each projection +bias
+where the file has one), or the non-gated up (+bias) -> GELU -> down
+(+bias) of hp.ffn_gated False, or MoE FFN plus the
 shared expert (qwen2moe: gated by its own sigmoid) (post_ffn_norm; times
 f_residual_scale) -> residual], final norm, lm_head, then output_bias,
 final_logit_scale and the final softcap in f32. The norms are RMS norms,
 or LayerNorms where hp.norm_type is "layer" (command-r, cohere2, orion,
 stablelm), each plus its bias where the file has one (orion's and
 stablelm's attn_norm, ffn_norm and output_norm). With
-hp.parallel_residual (command-r, cohere2, plamo) the FFN reads the
-attention norm's output and the layer adds both branches to its input at
-once. gemma2's, gemma3's and glm4's
+hp.parallel_residual (command-r, cohere2, plamo, phi2, falcon, gptneox)
+the FFN reads the attention norm's output (or its own ffn_norm, or
+falcon-40b's attn_norm_2, of the layer input) and the layer adds both
+branches to its input at once. gemma2's, gemma3's and glm4's
 sandwich norms (post_attn_norm, post_ffn_norm) are RMS norms, as in the
 JAX package.
 
@@ -236,6 +241,9 @@ class LlamaLayer(nn.Module):
             k = rms_norm(k, None, hp.f_norm_rms_eps)
         if q_temp is not None and self.nope:
             q = q * q_temp.to(q.dtype)[..., None, None]
+        # the kernels read q whole: a view of the fused [Q|K|V] rows that no
+        # rotation copied (gpt2, starcoder) is copied here
+        q = q.contiguous()
         kq_scale = hp.f_attention_scale if hp.f_attention_scale != 0.0 else 1.0 / (Dk**0.5)
         if isinstance(k_cache, tuple):
             # int8 cache: quantize the new rows, write values and scales
@@ -270,10 +278,15 @@ class LlamaLayer(nn.Module):
         if hp.f_residual_scale:
             att = att * hp.f_residual_scale
         if hp.parallel_residual:
-            # the FFN reads the attention norm's output (command-r), or its
-            # own norm of the layer input where the file has one
-            h = (norm_fn(hp, x, w["ffn_norm"], w.get("ffn_norm_bias")) if "ffn_norm" in w
-                 else h_attn)
+            # the FFN reads the attention norm's output (command-r, phi2,
+            # falcon), or its own norm of the layer input where the file
+            # has one (gptneox's ffn_norm, falcon-40b's attn_norm_2)
+            if "ffn_norm" in w:
+                h = norm_fn(hp, x, w["ffn_norm"], w.get("ffn_norm_bias"))
+            elif "attn_norm_2" in w:
+                h = norm_fn(hp, x, w["attn_norm_2"], w.get("attn_norm_2_bias"))
+            else:
+                h = h_attn
         else:
             x = x + att
             h = norm_fn(hp, x, w["ffn_norm"], w.get("ffn_norm_bias"))
@@ -300,17 +313,33 @@ class LlamaLayer(nn.Module):
             if "ffn_gate_shexp" in w:
                 down = down + self.shared_expert(h)
         else:
+            act_fn = gelu if hp.act == "gelu" else silu
             if hp.ffn_fused_up:
                 # fused gate+up (ggml_swiglu: first half activated, second linear)
                 up2 = linear(h, w["ffn_up"], m.get("ffn_up"), tk)
                 n_ff = up2.shape[-1] // 2
                 gate, up = up2[..., :n_ff], up2[..., n_ff:]
-            else:
-                gate = linear(h, w["ffn_gate"], m.get("ffn_gate"), tk)
+                act = act_fn(gate.float()).to(gate.dtype) * up
+            elif not hp.ffn_gated:
+                # up (+bias) -> act in f32 -> down (+bias), no gate (the JAX
+                # package's llama.py:842-868)
                 up = linear(h, w["ffn_up"], m.get("ffn_up"), tk)
-            act_fn = gelu if hp.act == "gelu" else silu
-            act = act_fn(gate.float()).to(gate.dtype) * up
+                if "ffn_up_bias" in w:
+                    up = up + w["ffn_up_bias"]
+                act = act_fn(up.float()).to(up.dtype)
+            else:
+                # the gated FFN, with each projection's bias where the file
+                # has one (llama.py:873-893)
+                gate = linear(h, w["ffn_gate"], m.get("ffn_gate"), tk)
+                if "ffn_gate_bias" in w:
+                    gate = gate + w["ffn_gate_bias"]
+                up = linear(h, w["ffn_up"], m.get("ffn_up"), tk)
+                if "ffn_up_bias" in w:
+                    up = up + w["ffn_up_bias"]
+                act = act_fn(gate.float()).to(gate.dtype) * up
             down = linear(act, w["ffn_down"], m.get("ffn_down"), tk)
+            if "ffn_down_bias" in w:
+                down = down + w["ffn_down_bias"]
         if "post_ffn_norm" in w:
             down = rms_norm(down, w["post_ffn_norm"], hp.f_norm_rms_eps)
         if hp.f_residual_scale:
@@ -416,6 +445,12 @@ class LlamaModel(nn.Module):
         x = p["tok_embd"][tokens.long()]
         if hp.embd_scale:
             x = (x.float() * hp.embd_scale).to(x.dtype)
+        if "position_embd" in p:
+            # learned absolute positions (gpt2, starcoder) at the step's
+            # positions on the device; a parked row's -1 reads the last
+            # row, as jnp.take wraps it (Context refuses an n_ctx past the
+            # table's rows)
+            x = x + p["position_embd"][positions.long()].to(x.dtype)
         # each rope table the layers take, rope_freqs in both (Queue 3 item
         # 13); the JAX package's identity rotation of a layer without rope
         # (cohere2's full layers, NoPE layers) is no rotation here

@@ -10,9 +10,11 @@ MoE layers of llama4 and hunyuan-moe, the gemma and cohere families with
 gemma2's and gemma3's post-attention and post-FFN norms, and the flag archs
 of hparams.FLAG_ARCHS: orion's and stablelm's LayerNorm biases
 (attn_norm, ffn_norm and output_norm), seed_oss's FFN norm stored as
-post_attention_norm; a file without output.weight, as gemma's, cohere's,
-glm4's and minicpm's tied ones are, takes the token table as its
-lm_head). Every tensor the file holds is mapped or
+post_attention_norm, the FFN biases of the non-gated archs (and of a
+gated FFN that has them), falcon-40b's attn_norm_2, gpt2's and
+starcoder's learned position table; a file without output.weight, as
+gemma's, cohere's, glm4's, minicpm's and starcoder's tied ones are, takes
+the token table as its lm_head). Every tensor the file holds is mapped or
 refused by name, but the trailing NextN layers past hp.n_layer and every
 blk.*.nextn.* tensor, which are skipped unread (glm4moe's and
 bailingmoe2's multi-token-prediction head, which the forward never
@@ -115,6 +117,13 @@ _LAYER_TENSORS = {
     "ffn_gate_exps.bias": "ffn_gate_exps_b",
     "ffn_up_exps.bias": "ffn_up_exps_b",
     "ffn_down_exps.bias": "ffn_down_exps_b",
+    # FFN biases (the non-gated archs' up and down; a gated FFN's gate, up
+    # and down) and falcon-40b's second attention norm, which its FFN reads
+    "ffn_up.bias": "ffn_up_bias",
+    "ffn_down.bias": "ffn_down_bias",
+    "ffn_gate.bias": "ffn_gate_bias",
+    "attn_norm_2.weight": "attn_norm_2",
+    "attn_norm_2.bias": "attn_norm_2_bias",
 }
 # per-arch remaps of tensor suffixes onto forward roles: glm4moe, gpt-oss
 # and seed_oss normalize ffn_inp with post_attention_norm, the ffn_norm
@@ -135,6 +144,8 @@ _TOP_TENSORS = {
     "output.weight": "output",
     "output.bias": "output_bias",
     "rope_freqs.weight": "rope_freqs",
+    # learned absolute positions (gpt2, starcoder), dense in `dtype`
+    "position_embd.weight": "position_embd",
 }
 # the archs whose MoE layers the port runs (ops/moe.py)
 _MOE_ARCHS = ("llama", "qwen2moe", "qwen3moe", "granitemoe", "glm4moe", "dots1", "ernie4_5-moe",

@@ -62,7 +62,10 @@ Differences from the JAX package, by design:
     gemma2; ROADMAP.md Queue 3 item 12);
   - a prompt longer than n_ubatch on a two-stack cache goes in chunks that
     also return the hidden states of every chunk (embeddings), where the
-    JAX package keeps the last chunk's.
+    JAX package keeps the last chunk's;
+  - a model with a learned position table (gpt2, starcoder) refuses an
+    n_ctx above its rows, where the JAX package runs on and its positions
+    past the table give NaN logits (ROADMAP.md Queue 3 item 14).
 """
 
 from __future__ import annotations
@@ -213,6 +216,14 @@ class Context:
         self.p = params or ContextParams()
         self.device = model.device
         hp = self.hp
+        pe = model.params.get("position_embd")
+        if pe is not None and self.p.n_ctx > pe.shape[0]:
+            # a learned position table (gpt2, starcoder) has a row for each
+            # position: past it the JAX package's jnp.take gives NaN rows
+            # (ROADMAP.md Queue 3 item 14), a CUDA gather a device assert
+            raise ValueError(
+                f"n_ctx={self.p.n_ctx} exceeds the model's learned position table "
+                f"(position_embd) of {pe.shape[0]} rows")
         B = self.p.n_seqs
         S = -(-(self.p.n_ctx + 1) // 128) * 128
         self._S = S
