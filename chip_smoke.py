@@ -21,7 +21,12 @@ Phases, each printing one JSON line with its seconds:
             (32 heads of 80, G = 1, over 2176 cells, beside the same shapes
             at D = 128) with its Q4_K attn_qkv, ffn_up and ffn_down at T = 4
             and 1024 and its Q6_K lm_head at T = 4; bigcode/starcoder's (48
-            heads of 128 over one KV head, G = 48, over 8320 cells)
+            heads of 128 over one KV head, G = 48, over 8320 cells);
+            BLOOM-7b1's (32 heads of 128, G = 1, over 4736 cells) through
+            the kernels' ALiBi branch with BLOOM's slopes under the
+            Context's distance mask (-|dpos| on visible cells), against
+            SDPA with the additive mask slope * -|dpos| (the same
+            function); every case with ALiBi slopes runs under that mask
   model     a synthetic Llama-3-8B-shaped GGUF (8 of its 32 layers; Q4_K
             layers, Q6_K output,
             Q4_K token table, random block bytes from a seed) is written
@@ -209,7 +214,7 @@ Phases, each printing one JSON line with its seconds:
             greedy loop
   phi2_model, phi2_crosscheck, phi2_serve
             the model, cross-check and serve phases on a microsoft/phi-2-
-            shaped phi2 model at all 32 layers: 32 heads of 80 (MHA), rope
+            shaped phi2 model at 8 of its 32 layers: 32 heads of 80 (MHA), rope
             over 32 of the 80 dims (NEOX), LayerNorm with biases, the
             parallel residual (the FFN reads the attention norm), a
             non-gated GELU FFN of 10240 with biases, the biased fused
@@ -218,11 +223,23 @@ Phases, each printing one JSON line with its seconds:
             in f32; served with 4 slots at n_ctx 2048; the profile checks
             that a step and a chunk run every packed matrix through qmm
   starcoder_crosscheck
-            the cross-check at bigcode/starcoder's widths (2 of its 40
+            the cross-check at bigcode/starcoder's widths (1 of its 40
             layers): learned positions (8192 rows), 48 heads of 128 over one
             KV head (G = 48), no rope, a GELU FFN of 24576 with biases, the
             tied lm_head; a 4160-token prompt in 1024-token chunks reads
             position rows past 4096; n_ctx 8193 is refused by name
+  bloom_model, bloom_crosscheck, bloom_serve
+            the model, cross-check and serve phases on a bigscience/bloom-
+            7b1-shaped bloom model at 8 of its 30 layers: 32 heads of 128
+            (MHA), ALiBi (max bias 8) and no rope, the embedding LayerNorm,
+            LayerNorms with biases, the biased fused attn_qkv, a non-gated
+            GELU FFN of 16384 with biases, every layer matrix Q4_K, the
+            tied Q6_K token table as the dense bf16 lm_head (vocab
+            250880); the cross-check runs 2 layers in f32; served with 4
+            slots at n_ctx 4608, one prompt of ~3000 tokens, each request
+            against its own greedy loop; the profile checks that a step
+            launches flash_decode_batched with slopes and a chunk
+            flash_attention with slopes once per layer
   int8kv    the served Llama model with an int8 KV cache against a bf16
             one: Contexts of 4 lanes of 8192 cells, bf16 activations,
             4 prompts of 6100-7000 tokens prefilled, a greedy burst of 32;
@@ -256,7 +273,7 @@ seq_add / seq_div on the card against the CPU, and a replayed step after
 seq_add against the eager step. The crosscheck, serve, http, spec, cli,
 quant_crosscheck, int8kv, int8kv_crosscheck, state, the MoE archs',
 GLM-4.5-Air's, gpt-oss's, gemma-3-12b's, command-r7b's, Qwen3-8B's,
-Llama-4-Scout's, phi-2's and bigcode/starcoder's paths each run
+Llama-4-Scout's, phi-2's, bigcode/starcoder's and BLOOM-7b1's paths each run
 with every launch count set to 0 just before
 and read just after, and fail unless each kernel that path must run was launched. Then one JSON line lists every
 kernel with its launches on each path and its numbers at the served shape
@@ -300,7 +317,8 @@ ALL_PHASES = ("card", "build", "kernels", "model", "crosscheck", "serve", "graph
               "gemma3_model", "gemma3_crosscheck", "gemma3_serve", "cohere2_crosscheck",
               "qwen3_model", "qwen3_crosscheck", "qwen3_serve", "llama4_model",
               "llama4_crosscheck", "llama4_ring", "llama4_serve", "phi2_model", "phi2_crosscheck",
-              "phi2_serve", "starcoder_crosscheck")
+              "phi2_serve", "starcoder_crosscheck", "bloom_model", "bloom_crosscheck",
+              "bloom_serve")
 
 
 # every line the run prints, whole, also goes to this file (the kernels
@@ -472,7 +490,8 @@ class Widths:
     converter writes them (LayerNorm weights and biases, no FFN norm: the
     FFN reads the attention norm, the biased fused attn_qkv of 7680 rows,
     output.bias), every layer matrix and the token table Q4_K, the
-    lm_head Q6_K, at all 32 layers. STARCODER holds those of
+    lm_head Q6_K, cut to 8 of its 32 layers (every layer has the same
+    shapes and launches). STARCODER holds those of
     bigcode/starcoder (config.json: n_embd 6144, 40 layers, 48 heads of
     128 over one KV head (multi_query), so attn_qkv has 6400 rows;
     n_inner 24576 with GELU (tanh), 8192 learned positions
@@ -480,8 +499,18 @@ class Widths:
     as llama.cpp's converter writes them (position_embd, LayerNorm
     weights and biases, every projection's bias, no rope keys), the
     position table F16 as llama.cpp's quantizer leaves it, the tied
-    token table Q6_K, cut to 2 of its 40 layers and used in the
-    cross-check alone."""
+    token table Q6_K, cut to 1 of its 40 layers and used in the
+    cross-check alone. The ALiBi archs: BLOOM_7B1 holds those of
+    bigscience/bloom-7b1 (config.json: hidden_size 4096, 30 layers, 32
+    heads of 128 (MHA), the 4 x 4096 = 16384-wide GELU (tanh) MLP,
+    layer_norm_epsilon 1e-5, vocab 250880, tied word embeddings; ALiBi
+    positions, no rope, trained at 2048 tokens; llama.cpp takes BLOOM's
+    max_alibi_bias as 8), written as llama.cpp's converter writes them
+    (token_embd_norm with its bias, LayerNorm weights and biases, the
+    biased fused attn_qkv, attn_output, ffn_up and ffn_down with biases,
+    no rope keys and no max_alibi_bias key), every layer matrix Q4_K and
+    the tied token table Q6_K, cut to 8 of its 30 layers (every layer has
+    the same shapes and launches)."""
 
     n_embd: int = 4096
     n_layer: int = 32
@@ -576,11 +605,13 @@ LLAMA4_SCOUT = Widths(n_embd=5120, n_layer=4, n_head=40, n_head_kv=8, n_ff=8192,
                       n_vocab=202048, rope_theta=5e5, rms_eps=1e-5, n_ctx_train=10485760,
                       n_expert=16, n_expert_used=1, arch="llama4",
                       llama3_rope=(16.0, 1.0, 1.0, 8192))
-PHI_2 = Widths(n_embd=2560, n_layer=32, n_head=32, n_head_kv=32, n_ff=10240, n_vocab=51200,
+PHI_2 = Widths(n_embd=2560, n_layer=8, n_head=32, n_head_kv=32, n_ff=10240, n_vocab=51200,
                rope_theta=10000.0, rms_eps=1e-5, n_ctx_train=2048, arch="phi2", n_rot=32)
-STARCODER = Widths(n_embd=6144, n_layer=2, n_head=48, n_head_kv=1, n_ff=24576, n_vocab=49152,
+STARCODER = Widths(n_embd=6144, n_layer=1, n_head=48, n_head_kv=1, n_ff=24576, n_vocab=49152,
                    rms_eps=1e-5, n_ctx_train=8192, arch="starcoder", tied=True,
                    embd_type="Q6_K")
+BLOOM_7B1 = Widths(n_embd=4096, n_layer=8, n_head=32, n_head_kv=32, n_ff=16384, n_vocab=250880,
+                   rms_eps=1e-5, n_ctx_train=2048, arch="bloom", tied=True, embd_type="Q6_K")
 
 
 def use_more_bits(il: int, n: int) -> bool:
@@ -830,10 +861,11 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
     norm's output) and logit_scale; qwen3 its per-head q/k norms; llama4
     its interleave step of 1 (every layer MoE, the router F32, the experts
     Q4_K) with an ungated shared expert, and no q/k norm tensors (its
-    q/k norm is weightless); phi2 and starcoder their LayerNorm weights and
-    biases, the biased fused attn_qkv and attn_output, ffn_up and ffn_down
-    with biases and no gate, phi2 no FFN norm and output.bias, starcoder
-    the F16 position_embd and no rope keys."""
+    q/k norm is weightless); phi2, starcoder and bloom their LayerNorm
+    weights and biases, the biased fused attn_qkv and attn_output, ffn_up
+    and ffn_down with biases and no gate, phi2 no FFN norm and output.bias,
+    starcoder the F16 position_embd, bloom token_embd_norm with its bias,
+    starcoder and bloom no rope keys."""
     from tpullama_torch.gguf import GGML_TYPE_TRAITS, GGMLType, GGUFWriter
 
     rng = np.random.default_rng(seed)
@@ -853,6 +885,7 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
               "synthetic-llama-4-scout-17b-16e-shape" if a == "llama4" else
               "synthetic-phi-2-shape" if a == "phi2" else
               "synthetic-starcoder-shape" if a == "starcoder" else
+              "synthetic-bloom-7b1-shape" if a == "bloom" else
               "synthetic-openllama-3b-shape" if w.q8 else
               "synthetic-llama3.2-1b-shape" if w.tied else
               "synthetic-mixtral-8x7b-shape" if w.n_expert else "synthetic-llama3-8b-shape")
@@ -862,17 +895,18 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
     g.add_u32(f"{a}.feed_forward_length", w.n_ff)
     g.add_u32(f"{a}.attention.head_count", w.n_head)
     g.add_u32(f"{a}.attention.head_count_kv", w.n_head_kv)
-    if a != "starcoder":  # learned positions, no rope keys
+    rope = a not in ("starcoder", "bloom")  # learned positions or ALiBi: no rope keys
+    if rope:
         g.add_u32(f"{a}.rope.dimension_count", w.n_rot or w.hd)
     if w.head_dim:
         g.add_u32(f"{a}.attention.key_length", w.head_dim)
         g.add_u32(f"{a}.attention.value_length", w.head_dim)
     # the non-gated archs: LayerNorm blocks with biases, up (+bias) -> GELU
     # -> down (+bias), the fused biased [Q|K|V]
-    nongated = a in ("phi2", "starcoder")
+    nongated = a in ("phi2", "starcoder", "bloom")
     layer_norm = a in ("command-r", "cohere2") or nongated
     g.add_f32(f"{a}.attention.layer_norm_{'' if layer_norm else 'rms_'}epsilon", w.rms_eps)
-    if a != "starcoder":
+    if rope:
         g.add_f32(f"{a}.rope.freq_base", w.rope_theta)
     g.add_u32(f"{a}.vocab_size", w.n_vocab)
     if w.n_expert:
@@ -941,6 +975,9 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
     norm("output_norm.weight", E)
     if nongated:
         bias("output_norm.bias", E)
+    if a == "bloom":
+        norm("token_embd_norm.weight", E)
+        bias("token_embd_norm.bias", E)
     if not w.tied:
         quant("output.weight", (w.n_vocab, E), GGMLType.Q6_K)
     if a == "phi2":
@@ -992,7 +1029,7 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
         if a not in ("cohere2", "phi2"):
             norm(p + ("post_attention_norm.weight" if a in ("glm4moe", "gpt-oss")
                       else "ffn_norm.weight"), E)
-        if a == "starcoder":
+        if a in ("starcoder", "bloom"):
             bias(p + "ffn_norm.bias", E)
         if nongated:
             quant(p + "ffn_up.weight", (F, E), Q4)
@@ -1592,12 +1629,14 @@ def gathered_cases(timer, gen, device, out: list) -> None:
 
 
 def attn_inputs(B, Tq, Hq, Hkv, D, S, dtype, gen, device, kv_pos, q_pos, window: int = 0,
-                chunk: int = 0):
+                chunk: int = 0, alibi: bool = False):
     """Random q/k/v at head-major cache layout and the Context's additive
     mask: visible iff the cell holds a position at or before the query's
     (and with `window`, after the query's position less the window: the
     mask of a sliding-window layer; with `chunk`, at or after the start of
-    the query's chunk: llama4's chunked layers)."""
+    the query's chunk: llama4's chunked layers). A visible cell carries 0,
+    or with `alibi` the ALiBi model's -|kv_pos - q_pos|, which the kernels
+    multiply by each head's slope; a hidden one -1e30."""
     import torch
 
     q = torch.randn((B, Tq, Hq, D), generator=gen, device=device).to(dtype)
@@ -1610,7 +1649,8 @@ def attn_inputs(B, Tq, Hq, Hkv, D, S, dtype, gen, device, kv_pos, q_pos, window:
         vis &= kp > qp - window
     if chunk:
         vis &= kp >= qp // chunk * chunk
-    mask = torch.where(vis, 0.0, -1e30).to(torch.float32)[:, None]
+    shown = -(kp - qp).abs().to(torch.float32) if alibi else torch.zeros((), device=device)
+    mask = torch.where(vis, shown, -1e30).to(torch.float32)[:, None]
     return q, k, v, mask
 
 
@@ -1631,8 +1671,11 @@ def attn_case(timer, name, fn, q, k, v, mask, out, scales=None, case=None, **kw)
     `sinks` alone among the options the yardstick is SDPA over one more key
     column whose K and V rows are zero and whose mask value is each head's
     sink: the same function (that column's logit is the sink, its value
-    row adds nothing). `case` labels the record (the kernels line lists
-    labelled records beside each kernel's served shape)."""
+    row adds nothing); with `alibi_slopes` alone, SDPA with a per-head
+    additive mask of each visible cell's slope times its -|dpos| (the same
+    function, the mask rounded to q's dtype). `case` labels the record
+    (the kernels line lists labelled records beside each kernel's served
+    shape)."""
     import torch
     import torch.nn.functional as F
 
@@ -1655,7 +1698,7 @@ def attn_case(timer, name, fn, q, k, v, mask, out, scales=None, case=None, **kw)
     plain_ms = timer.ms(lambda: flash_plain(q, k, v, mask, scale, **kw), 3)
     lib_ms = lib_call = None
     options = sorted(a for a in kw if a not in ("k_scale", "v_scale"))
-    if options in ([], ["sinks"]):
+    if options in ([], ["sinks"], ["alibi_slopes"]):
         m_lib = mask.to(q.dtype)
         qt = q.transpose(1, 2)
         k_lib, v_lib = k, v
@@ -1664,7 +1707,11 @@ def attn_case(timer, name, fn, q, k, v, mask, out, scales=None, case=None, **kw)
             k_lib = (k.float() * scales[0][..., None]).to(q.dtype)
             v_lib = (v.float() * scales[1][..., None]).to(q.dtype)
             lib_call += f" over the cache dequantized to {str(q.dtype).split('.')[-1]}"
-        if options:
+        if options == ["alibi_slopes"]:
+            slopes = kw["alibi_slopes"].float().reshape(1, Hq, 1, 1)
+            m_lib = torch.where(mask > NEG_HIDDEN, mask * slopes, mask).to(q.dtype)
+            lib_call += " with the additive mask slope * -|dpos| of each head"
+        elif options:
             zero = k_lib.new_zeros((B, Hkv, 1, D))
             k_lib, v_lib = torch.cat([k_lib, zero], dim=2), torch.cat([v_lib, zero], dim=2)
             sink = kw["sinks"].to(q.dtype).reshape(1, Hq, 1, 1).expand(B, Hq, Tq, 1)
@@ -1845,6 +1892,44 @@ def nongated_attention_cases(timer, gen, device, out: list) -> None:
         del q, k, v, mask
 
 
+def alibi_attention_cases(timer, gen, device, out: list) -> None:
+    """BLOOM-7b1's attention as served at n_ctx 4608 (32 heads of 128, G =
+    1, over 4736 cells) through the kernels' ALiBi branch, BLOOM's slopes
+    (max bias 8, models/llama.alibi_slopes) under the Context's distance
+    mask: decode at B = 1 over the ~3000-token request (flash_decode), at
+    B = 4 (flash_decode_batched), and the packed 4 x 256 prefill chunk
+    (flash_attention), bf16; each named by its launch counter."""
+    import torch
+
+    from tpullama_torch.models.llama import alibi_slopes
+    from tpullama_torch.ops.cuda.flash_attention import flash_attention
+    from tpullama_torch.ops.cuda.flash_decode import flash_decode
+
+    W, Tq = BLOOM_7B1, 256
+    Hq, D, S = W.n_head, W.hd, -(-(SERVE_OPTS["bloom_"]["n_ctx"] + 1) // 128) * 128
+    slopes = alibi_slopes(Hq, 8.0, device)
+    for lengths, name in (([3040], "flash_decode_alibi"),
+                          ([3040, 812, 582, 332], "flash_decode_batched_alibi")):
+        kv = np.full((len(lengths), S), -1, np.int32)
+        for b, n in enumerate(lengths):
+            kv[b, :n] = np.arange(n)
+        qp = np.asarray(lengths, np.int32)[:, None] - 1
+        q, k, v, mask = attn_inputs(len(lengths), 1, Hq, Hq, D, S, torch.bfloat16, gen, device,
+                                    kv, qp, alibi=True)
+        attn_case(timer, name, flash_decode, q, k, v, mask, out, alibi_slopes=slopes)
+    lanes = [(0, 256), (700, 216), (1800, 100), (2900, 0)]
+    kv = np.full((4, S), -1, np.int32)
+    qp = np.full((4, Tq), -1, np.int32)
+    for b, (n_past, n_new) in enumerate(lanes):
+        kv[b, :n_past + n_new] = np.arange(n_past + n_new)
+        qp[b, :n_new] = np.arange(n_past, n_past + n_new)
+    q, k, v, mask = attn_inputs(4, Tq, Hq, Hq, D, S, torch.bfloat16, gen, device, kv, qp,
+                                alibi=True)
+    attn_case(timer, "flash_attention_alibi", flash_attention, q, k, v, mask, out,
+              alibi_slopes=slopes)
+    del q, k, v, mask
+
+
 def attention_cases(timer, gen, device, out: list) -> None:
     import torch
 
@@ -1943,13 +2028,15 @@ def attention_cases(timer, gen, device, out: list) -> None:
     extras = dict(softcap=30.0,
                   sinks=torch.randn((Hq,), generator=gen, device=device),
                   alibi_slopes=torch.rand((Hq,), generator=gen, device=device))
+    # under the ALiBi model's distance mask, so that the slopes reach the
+    # scores (a 0 / -1e30 mask would give every visible cell 0 x slope)
     for dt in (torch.float32, bf16):
         kv, qp = decode_pos([500, 77], 512)
-        q, k, v, mask = attn_inputs(2, 1, Hq, Hkv, D, 512, dt, gen, device, kv, qp)
+        q, k, v, mask = attn_inputs(2, 1, Hq, Hkv, D, 512, dt, gen, device, kv, qp, alibi=True)
         attn_case(timer, "flash_decode_batched", flash_decode, q, k, v, mask, out, **extras)
         kv = np.tile(np.arange(512, dtype=np.int32), (2, 1))
         qp = np.tile(np.arange(448, 512, dtype=np.int32), (2, 1))
-        q, k, v, mask = attn_inputs(2, 64, Hq, Hkv, D, 512, dt, gen, device, kv, qp)
+        q, k, v, mask = attn_inputs(2, 64, Hq, Hkv, D, 512, dt, gen, device, kv, qp, alibi=True)
         attn_case(timer, "flash_attention", flash_attention, q, k, v, mask, out, **extras)
 
     # the int8 cache (ContextParams(kv_dtype=torch.int8)), each row quantized
@@ -2094,6 +2181,15 @@ def phase_model(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
               and (hp.n_rot, hp.rope_type) == (widths.n_rot, 2)
               and "ffn_norm" not in model.params["layers"] and "output_bias" in model.params,
               f"phi2's block: gated {hp.ffn_gated}, n_rot {hp.n_rot}, rope {hp.rope_type}")
+    elif widths.arch == "bloom":
+        hp = model.hparams
+        check(set(lm) == {"attn_qkv", "attn_output", "ffn_up", "ffn_down"},
+              f"every layer matrix is packed: {sorted(lm)}")
+        check(not hp.ffn_gated and not hp.parallel_residual and hp.norm_type == "layer"
+              and hp.rope_type == -1 and hp.f_max_alibi_bias == 8.0
+              and {"token_embd_norm", "token_embd_norm_bias"} <= set(model.params),
+              f"bloom's block: gated {hp.ffn_gated}, rope {hp.rope_type}, "
+              f"ALiBi {hp.f_max_alibi_bias}")
     elif widths.arch == "chatglm":
         check(set(lm) == {"attn_qkv", "attn_output", "ffn_up"},
               f"attn_qkv, attn_output and ffn_up are packed: {sorted(lm)}")
@@ -2337,7 +2433,7 @@ def phase_crosscheck(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
 
 
 def phase_positions_crosscheck(tmp: str, card: str, device: str = "cuda",
-                               widths: Widths = STARCODER, n_layer: int = 2,
+                               widths: Widths = STARCODER, n_layer: int = 1,
                                n_prompt: int = 4160, chunk: int = 1024,
                                phase: str = "starcoder_crosscheck") -> None:
     """A model with a learned position table (bigcode/starcoder) cut to
@@ -2869,14 +2965,16 @@ def phase_serve(model, card: str, phase: str = "serve", n_slots: int = 4,
 
 def phase_serve_profile(eng, prompt: str, card: str, phase: str = "serve_profile",
                         step_kernels: tuple = (), qmm_counts: tuple | None = None,
-                        gathered_routes: tuple = ()) -> None:
+                        gathered_routes: tuple = (), chunk_kernels: tuple = ()) -> None:
     """torch.profiler over the served engine's Context, whose lanes still
     hold the requests: one packed B x 256 prefill chunk and one decode
     step of all B lanes. Then one more decode step with every launch count
     at 0: each kernel of `step_kernels` must have launched once per layer.
     With `qmm_counts` = (gemv, tiled), that step must launch qmm_gemv gemv
     times and one more packed chunk qmm_tiled tiled times: every packed
-    matrix of the model went through the kernels. With `gathered_routes`
+    matrix of the model went through the kernels; each kernel of
+    `chunk_kernels` must have launched once per layer in that chunk (it
+    needs `qmm_counts`). With `gathered_routes`
     (the gathered kernels' names), one eager decode step and one more
     packed chunk, each with the launch counts at 0 and the MoE layers'
     gathered calls recorded: the step must launch those kernels on one-row
@@ -2957,6 +3055,9 @@ def phase_serve_profile(eng, prompt: str, card: str, phase: str = "serve_profile
     for name in step_kernels:
         check(counts[name] == n_layer,
               f"a decode step launched {name} {counts[name]} times, not once per layer")
+    for name in chunk_kernels:
+        check(chunk_counts[name] == n_layer,
+              f"a prefill chunk launched {name} {chunk_counts[name]} times, not once per layer")
     if qmm_counts is not None and ctx.device.type == "cuda":
         check(counts["qmm_gemv"] == qmm_counts[0],
               f"a decode step launched qmm_gemv {counts['qmm_gemv']} times, not {qmm_counts[0]}")
@@ -3146,8 +3247,8 @@ def phase_http(model, card: str, phase: str = "http") -> None:
     (302-1002 prompt tokens, 32 out each), then request 0 again, plain,
     on erased slots (the same text), one chat request streamed and plain
     (the deltas concatenate to the plain text), the same chat with a
-    JSON-schema response_format streamed and plain (equal text, which the
-    schema's grammar accepts), /v1/embeddings of 4 inputs twice (unit
+    JSON-schema response_format, 4 tokens, streamed and plain (equal
+    text, which the schema's grammar accepts), /v1/embeddings of 4 inputs twice (unit
     norm, equal, and equal to Context.embeddings called directly), /rerank
     (501, naming its ROADMAP.md item), and /health, /metrics, /slots. TTFT
     is the client's time to the first streamed text, output tok/s the 4
@@ -3208,7 +3309,7 @@ def phase_http(model, card: str, phase: str = "http") -> None:
         streamed = "".join(ev["choices"][0]["delta"].get("content", "") for ev in events)
         check(streamed == plain["choices"][0]["message"]["content"],
               "the streamed chat deltas differ from the plain chat text")
-        rf_chat = {**chat, "max_tokens": 8, "response_format": {
+        rf_chat = {**chat, "max_tokens": 4, "response_format": {
             "type": "json_schema", "json_schema": {"schema": SCHEMA}}}
         erase_all()
         t1 = time.perf_counter()
@@ -3280,8 +3381,8 @@ def phase_cli(tmp: str, card: str, phase: str = "cli", widths: Widths = LLAMA3_8
     text. Every matrix is Q8_0, which the loader dequantizes on the host
     several times faster than Q4_K/Q6_K (the CLI loads dense: the
     quantization type does not reach the card). Then --grammar (a GBNF
-    grammar over words and a full stop) and --json-schema (SCHEMA), 2
-    tokens each at --temp 0 --seed 7 (a grammar makes a seeded sampler
+    grammar over words and a full stop) and --json-schema (SCHEMA), 1
+    token each at --temp 0 --seed 7 (a grammar makes a seeded sampler
     chain), on the card and with --device cpu: the same text, which the
     grammar accepts, and the host's ms per token in Grammar.apply. Returns
     the first run's launch counts."""
@@ -3330,7 +3431,7 @@ def phase_cli(tmp: str, card: str, phase: str = "cli", widths: Widths = LLAMA3_8
         for dev in (device, "cpu"):
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf), timed_method(Grammar, "apply", apply_s):
-                rc = cli_main(["-m", path, "-p", prompt, "-n", "2", "--temp", "0", "--seed", "7",
+                rc = cli_main(["-m", path, "-p", prompt, "-n", "1", "--temp", "0", "--seed", "7",
                                *flags] + ([] if dev == "cuda" else ["--device", dev]))
             check(rc == 0, f"the CLI exited {rc} on {dev} with --{name}")
             texts.append(buf.getvalue()[len(prompt):].rstrip("\n"))
@@ -4305,6 +4406,13 @@ KERNELS = (
      "tpullama/ops/pallas/flash_decode.py:60", dict(B=1, D=128, dtype="bfloat16")),
     ("flash_decode_batched_int8", "tpullama_torch/csrc/flash_decode.cu",
      "tpullama/ops/pallas/flash_decode.py:141", dict(B=4, S=4224, D=128, dtype="bfloat16")),
+    # the ALiBi branches of kernels 5-7 at BLOOM-7b1's shapes
+    ("flash_attention_alibi", "tpullama_torch/csrc/flash_attention.cu",
+     "tpullama/ops/pallas/flash_attention.py:92", dict(B=4, Tq=256, Hq=32, D=128)),
+    ("flash_decode_alibi", "tpullama_torch/csrc/flash_decode.cu",
+     "tpullama/ops/pallas/flash_decode.py:104", dict(B=1, Hq=32, D=128)),
+    ("flash_decode_batched_alibi", "tpullama_torch/csrc/flash_decode.cu",
+     "tpullama/ops/pallas/flash_decode.py:186", dict(B=4, Hq=32, D=128)),
 )
 
 
@@ -4384,13 +4492,19 @@ PATH_KERNELS = {
     "llama4_crosscheck": _DENSE_CROSS + _GATHERED,
     "llama4_ring": _DENSE_CROSS + _GATHERED,
     "llama4_serve": _DENSE_SERVE + _GATHERED,
-    # phi-2 at all 32 layers: every layer matrix Q4_K (attn_qkv 7680 rows,
+    # phi-2 at 8 of 32 layers: every layer matrix Q4_K (attn_qkv 7680 rows,
     # K = 2560 and 10240), the biased Q6_K lm_head; attention at D = 80, G
     # = 1. bigcode/starcoder: Q4_K layers (K = 6144 and 24576), the dense
     # tied lm_head; attention at G = 48 over one KV head
     "phi2_crosscheck": _DENSE_CROSS,
     "phi2_serve": _DENSE_SERVE,
     "starcoder_crosscheck": _DENSE_CROSS,
+    # BLOOM-7b1: every layer matrix Q4_K (attn_qkv 12288 rows, K = 4096 and
+    # 16384), the dense tied lm_head; attention at G = 1, D = 128 through
+    # the kernels' ALiBi branch (each launch with slopes counts apart)
+    "bloom_crosscheck": ("qmm_gemv", "qmm_tiled", "flash_attention_alibi", "flash_decode_alibi"),
+    "bloom_serve": ("qmm_gemv", "qmm_tiled", "flash_attention_alibi",
+                    "flash_decode_batched_alibi"),
     # lanes saved and loaded (f32 and int8 caches), the HTTP engine, the CLI
     "state": ("qmm_gemv", "qmm_tiled", "flash_attention", "flash_decode", "flash_decode_batched",
               "flash_attention_int8", "flash_decode_int8"),
@@ -4414,7 +4528,8 @@ PATHS = (("", LLAMA3_8B, 2, 4, {}),
          ("qwen3_", QWEN3_8B, 2, 4, {}),
          ("llama4_", LLAMA4_SCOUT, 4, 4, {}),  # the cross-check and ring read the model's file
          ("phi2_", PHI_2, 2, 4, {}),
-         ("starcoder_", STARCODER, 2, 0, {}))  # the cross-check alone
+         ("starcoder_", STARCODER, 1, 0, {}),  # the cross-check alone
+         ("bloom_", BLOOM_7B1, 2, 4, {}))
 # the cross-checks on the two-stack cache, with their options: gpt-oss's
 # 600-token prompt wraps its 385-cell ring; gemma-3-12b's 1400 tokens its
 # 1281-cell ring, then its first 2 layers (SWA layers only) run on one
@@ -4431,7 +4546,15 @@ SWA_CROSS = {"gptoss_": {},
 # n_ctx 16384, one request past its ring of 8449 cells and its chunk start
 SERVE_OPTS = {"llama4_": dict(n_ctx=16384, lengths=(300, 550, 780, 8600), plain_greedy=True),
               # phi-2's 2048 positions
-              "phi2_": dict(n_ctx=2048, plain_greedy=True)}
+              "phi2_": dict(n_ctx=2048, plain_greedy=True),
+              # BLOOM-7b1 at n_ctx 4096, one request of ~3000 tokens: head
+              # 0's slope (2^-0.25) shuts its far cells out, head 31's
+              # (2^-8) leaves them a bias of about -11.7
+              # the profile's chunks and steps after them (~1300 tokens)
+              "bloom_": dict(n_ctx=4608, lengths=(300, 550, 780, 3000), plain_greedy=True)}
+# the attention launches a served step and a prefill chunk must make once
+# per layer: BLOOM's through the kernels' ALiBi branch
+PROFILE_ATTENTION = {"bloom_": (("flash_decode_batched_alibi",), ("flash_attention_alibi",))}
 # the cross-checks of a model with a learned position table: a prompt past
 # position 4096 (phase_positions_crosscheck)
 POSITIONS_CROSS = ("starcoder_",)
@@ -4475,7 +4598,7 @@ def kernels_line(records: list, launches: dict) -> dict:
         row = {"name": name, "route": "cuda", "body": rec.get("route"), "source": src,
                "replaces": replaces, "launches": sum(by_path.values()) if by_path else None,
                "launches_by_path": by_path, **{k: rec.get(k) for k in nums}}
-        if name.endswith("_int8"):
+        if name.endswith(("_int8", "_alibi")):
             row["library_call"] = rec.get("library_call")
         if "type" in key:
             row["by_type"] = {r["type"]: {k: r[k] for k in nums} for r in records
@@ -4558,6 +4681,8 @@ def main() -> int:
         # phi-2's (32 heads of 80, G = 1) and bigcode/starcoder's (48 heads
         # of 128 over one KV head)
         nongated_attention_cases(timer, gen, device, records)
+        # BLOOM-7b1's (32 heads of 128) through the ALiBi branch
+        alibi_attention_cases(timer, gen, device, records)
         del timer
         torch.cuda.empty_cache()
         emit({"phase": "kernels", "cases": len(records), "seconds": time.perf_counter() - t0})
@@ -4630,10 +4755,12 @@ def main() -> int:
                                   len(lm) * widths.n_layer)
                 if isinstance(eng.ctx.kv_k, dict):
                     swa_memory(model, eng, smi, pre + "serve_memory")
+                step_attn, chunk_attn = PROFILE_ATTENTION.get(pre, ((), ()))
                 phase_serve_profile(eng, prompt, smi, phase=pre + "serve_profile",
                                     step_kernels=("qmm_ktiled", "fused_postattn") if fused
-                                    else (), qmm_counts=qmm_counts,
-                                    gathered_routes=GATHERED_ROUTES.get(pre, ()))
+                                    else step_attn, qmm_counts=qmm_counts,
+                                    gathered_routes=GATHERED_ROUTES.get(pre, ()),
+                                    chunk_kernels=chunk_attn)
                 del eng
                 torch.cuda.empty_cache()
             if "graphs" in run:

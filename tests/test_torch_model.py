@@ -563,12 +563,12 @@ def test_final_logit_transforms_match_jax(tmp_path, transform):
 
 
 def test_unmapped_top_level_tensor_is_refused(tmp_path):
-    """A top-level tensor the port does not map (here token_embd_norm.weight,
-    which the JAX package loads for bloom's embedding LayerNorm) is refused
-    by name, as an unknown layer tensor is."""
+    """A top-level tensor the port does not map (here enc.output_norm.weight,
+    which the JAX package loads for T5's encoder) is refused by name, as an
+    unknown layer tensor is."""
     base = str(tmp_path / "base.gguf")
     make_tiny_llama_gguf(base, n_embd=64, n_layer=2, seed=3)
     p = str(tmp_path / "m.gguf")
-    _edit_gguf(base, p, tensors={"token_embd_norm.weight": np.ones(64, np.float32)})
-    with pytest.raises(NotImplementedError, match="tensor 'token_embd_norm.weight' is not ported"):
+    _edit_gguf(base, p, tensors={"enc.output_norm.weight": np.ones(64, np.float32)})
+    with pytest.raises(NotImplementedError, match="tensor 'enc.output_norm.weight' is not ported"):
         _port_load(p)

@@ -8,8 +8,10 @@ temperature, raw-logit sigmoid routing with input-side weights) and
 hunyuan-moe, and the dense archs that run on those flags alone
 (FLAG_ARCHS: qwen3, mistral3, internlm2, xverse, ernie4_5, exaone, phi3,
 glm4, granite, minicpm, orion, stablelm, plamo, seed_oss, pangu-embedded,
-qwen, smollm3, hunyuan-dense, and the non-gated FFN archs phi2, falcon,
-gptneox, starcoder2, codeshell, gpt2 and starcoder).
+qwen, smollm3, hunyuan-dense, the non-gated FFN archs phi2, falcon,
+gptneox, starcoder2, codeshell, gpt2 and starcoder, the squared-relu and
+xIELU archs nemotron, arcee and apertus, and the ALiBi archs mpt, bloom,
+jais, refact and baichuan).
 
 The part of tpullama/models/hparams.py that the port reads. Key strings
 follow the reference's key-name table exactly (src/llama-arch.cpp:119-268);
@@ -25,8 +27,11 @@ scale, cohere2's NoPE full layers, llama4's chunked pattern, NoPE
 layers, Q temperature, weightless q/k norm and routing flags, smollm3's
 NoPE layers, hunyuan's q/k norms after rope, the non-gated GELU FFN of
 phi2, falcon, gptneox, starcoder2, codeshell, gpt2 and starcoder with
-their LayerNorms, phi2's, falcon's and gptneox's parallel residual, and
-the rope-less gpt2 and starcoder). Other architectures' fields and
+their LayerNorms, phi2's, falcon's and gptneox's parallel residual, the
+rope-less gpt2 and starcoder, nemotron's and arcee's squared relu,
+apertus's per-layer xIELU coefficients, and the ALiBi slope ceiling of
+mpt, bloom, jais, refact and baichuan-13B with mpt's qkv clamp and
+full-width q/k norms and jais's 1/D attention scale). Other architectures' fields and
 branches come across with the slice that ports them; until then from_gguf
 refuses them by name with their ROADMAP item.
 """
@@ -35,6 +40,8 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+
+import numpy as np
 
 ROPE_SCALING_NONE = "none"
 ROPE_SCALING_YARN = "yarn"
@@ -51,7 +58,8 @@ ROPE_SCALING_YARN = "yarn"
 FLAG_ARCHS = ("qwen3", "mistral3", "internlm2", "xverse", "ernie4_5", "exaone", "phi3",
               "glm4", "granite", "minicpm", "orion", "stablelm", "plamo", "seed_oss",
               "pangu-embedded", "qwen", "smollm3", "hunyuan-dense", "phi2", "falcon",
-              "gptneox", "starcoder2", "codeshell", "gpt2", "starcoder")
+              "gptneox", "starcoder2", "codeshell", "gpt2", "starcoder", "nemotron", "arcee",
+              "apertus", "mpt", "bloom", "jais", "refact", "baichuan")
 LLAMA_FAMILY = ("llama", "mistral", "qwen2", "chatglm", "qwen2moe", "qwen3moe", "granitemoe",
                 "glm4moe", "dots1", "ernie4_5-moe", "bailingmoe2", "gpt-oss", "gemma",
                 "gemma2", "gemma3", "command-r", "cohere2", "llama4",
@@ -67,9 +75,8 @@ MOE_NOT_PORTED = ("bailingmoe", "afmoe", "minimax-m2",
 # heads, MLA, gemma3n, the encoders, the recurrent and hybrid stacks,
 # diffusion, the audio decoder), each refused by name until its slice
 # (ROADMAP.md Queue 1 item 7)
-FLAG_NOT_PORTED = ("mpt", "bloom", "olmo", "olmo2", "chameleon", "bitnet", "baichuan",
-                   "refact", "jais", "nemotron", "exaone4", "arcee", "apertus", "qwen2vl",
-                   "qwen3vl", "cogvlm")
+FLAG_NOT_PORTED = ("olmo", "olmo2", "exaone4", "chameleon", "bitnet", "qwen2vl", "qwen3vl",
+                   "cogvlm")
 OWN_FORWARD_NOT_PORTED = ("deci", "openelm", "deepseek2", "plm", "minicpm3", "gemma3n",
                           "bert", "nomic-bert", "nomic-bert-moe", "jina-bert-v2",
                           "jina-bert-v3", "neo-bert", "gemma-embedding", "t5", "t5encoder",
@@ -82,15 +89,17 @@ OWN_FORWARD_NOT_PORTED = ("deci", "openelm", "deepseek2", "plm", "minicpm3", "ge
 # split halves) for the rest
 _NORM_ROPE = ("llama", "llama4", "chatglm", "granitemoe", "ernie4_5-moe", "command-r",
               "cohere2", "internlm2", "minicpm", "xverse", "granite", "ernie4_5", "mistral3",
-              "glm4", "smollm3")
+              "glm4", "smollm3", "baichuan", "arcee")
 # LLAMA_ROPE_TYPE_NONE (-1): no rotation (the JAX package's NONE_ARCHES,
 # which wins over NORM_ARCHES for starcoder); the others of that set have
 # a forward of their own or come with their slice
 _NONE_ROPE = ("gpt2", "gptj", "mpt", "bloom", "starcoder", "refact", "bert", "jina-bert-v2",
               "t5", "jamba", "mamba", "mamba2", "jais", "nemotron_h", "wavtokenizer-dec")
 # the non-gated FFN archs: LayerNorm (with biases) block norms, up (+bias)
-# -> GELU -> down (+bias) (LLM_FFN_GELU + LLM_FFN_SEQ)
-_NON_GATED = ("phi2", "falcon", "gptneox", "starcoder2", "codeshell", "gpt2", "starcoder")
+# -> GELU -> down (+bias) (LLM_FFN_GELU + LLM_FFN_SEQ); mpt and bloom add
+# ALiBi
+_NON_GATED = ("phi2", "falcon", "gptneox", "starcoder2", "codeshell", "gpt2", "starcoder",
+              "mpt", "bloom")
 
 
 def check_arch(arch: str) -> None:
@@ -136,6 +145,8 @@ class HParams:
 
     # attention extras
     f_attention_scale: float = 0.0
+    f_max_alibi_bias: float = 0.0  # ALiBi slope ceiling (0 = no ALiBi)
+    f_clamp_kqv: float = 0.0  # q, k and v clamped to +-value after their biases (mpt)
     f_logit_scale: float = 0.0  # {arch}.logit_scale as written
     attn_logit_softcap: float = 0.0
     final_logit_softcap: float = 0.0  # cap * tanh(logits / cap) after the lm_head
@@ -157,11 +168,14 @@ class HParams:
     final_logit_scale: float = 0.0
 
     # block layout
-    act: str = "silu"  # the FFN's activation: "silu" | "gelu" (gemma, the non-gated archs)
+    # the FFN's activation: "silu" | "gelu" (gemma, the non-gated archs) |
+    # "relu_sqr" (nemotron, arcee) | "xielu" (apertus)
+    act: str = "silu"
     norm_type: str = "rms"  # "rms" | "layer" (command-r, cohere2: LayerNorm)
     pre_norm: bool = True
     no_rope_layer_step: int = 0  # every Nth layer is NoPE (smollm3, llama4)
     qk_norm_after_rope: bool = False  # hunyuan: the per-head q/k norms after rope
+    qk_norm_full: bool = False  # the q/k norms over the full projection width (mpt)
     qk_norm_ln: bool = False  # per-head q/k norms as LayerNorm under RMS block norms
     swin_norm: bool = False
     parallel_residual: bool = False  # attention and FFN from one norm, summed (command-r)
@@ -169,6 +183,9 @@ class HParams:
     # FFN
     ffn_gated: bool = True  # gated GLU, else up (+bias) -> act -> down (+bias)
     ffn_fused_up: bool = False  # chatglm: [gate|up] fused in ffn_up
+    # apertus: per layer (alpha_n', alpha_p', beta, eps), the softplus
+    # transforms pre-applied (ggml_xielu, ggml.c:2712)
+    xielu_params: tuple = ()
 
     # MoE (Mixtral-style llama GGUFs carry it; build_moe_ffn's options)
     n_expert: int = 0
@@ -316,6 +333,55 @@ class HParams:
             # attention and FFN from the attention norm, summed onto the
             # input (falcon-40b's FFN reads its attn_norm_2 instead)
             hp.parallel_residual = True
+        if arch in ("mpt", "bloom"):
+            hp.f_max_alibi_bias = float(g("attention.max_alibi_bias", 8.0) or 8.0)
+        if arch == "mpt":
+            # the qkv clamp after the biases, the q/k LayerNorms (+bias)
+            # over the full projection width (llm_build_mpt)
+            hp.f_clamp_kqv = float(g("attention.clamp_kqv", 0.0) or 0.0)
+            hp.qk_norm_full = True
+        if arch == "jais":
+            # LayerNorm (+bias) over ALiBi attention with a 1/D scale, a gated
+            # SiLU FFN with biases (llm_build_jais)
+            hp.norm_type = "layer"
+            hp.f_max_alibi_bias = float(g("attention.max_alibi_bias", 8.0) or 8.0)
+            if n_embd_head_v:
+                hp.f_attention_scale = 1.0 / float(n_embd_head_v)
+        if arch == "refact":
+            # RMS norms and a gated SiLU FFN over ALiBi attention
+            hp.f_max_alibi_bias = 8.0
+        if arch == "baichuan" and hp.n_layer == 40:
+            # baichuan-13B: ALiBi and no rope (llm_build_baichuan's
+            # LLM_TYPE_13B branch); the 7B is a llama with NORM rope
+            hp.rope_type = -1
+            hp.f_max_alibi_bias = 8.0
+        if arch in ("nemotron", "arcee"):
+            # the non-gated squared-relu FFN (LLM_FFN_RELU_SQR), with biases
+            # and LayerNorms (+bias) for nemotron, over RMS norms for arcee
+            hp.ffn_gated = False
+            hp.act = "relu_sqr"
+            if arch == "nemotron":
+                hp.norm_type = "layer"
+        if arch == "apertus":
+            # the non-gated xIELU FFN with per-layer coefficients, the
+            # alphas' softplus pre-applied (ggml.c:2712-2726); the keys have
+            # no arch prefix
+            hp.ffn_gated = False
+            hp.act = "xielu"
+
+            def softplus(v):
+                return float(np.log1p(np.exp(v)))
+
+            def per_layer(key, default):
+                v = kv.get(key, default)
+                if isinstance(v, (list, tuple, np.ndarray)):
+                    return [float(x) for x in v]
+                return [float(v)] * hp.n_layer
+
+            a_n, a_p = per_layer("xielu.alpha_n", 0.8), per_layer("xielu.alpha_p", 0.8)
+            beta, eps = per_layer("xielu.beta", 0.5), per_layer("xielu.eps", -1e-6)
+            hp.xielu_params = tuple((b + softplus(an), softplus(ap), b, e)
+                                    for an, ap, b, e in zip(a_n, a_p, beta, eps))
         if arch == "gptneox":
             # the parallel residual by default, the FFN with its own
             # ffn_norm of the layer input (models/gptneox.cpp:68-110)

@@ -8,17 +8,23 @@ of glm4moe, dots1, ernie4_5-moe and bailingmoe2, the gemma and cohere
 families, llama4, hunyuan-moe, and the dense flag archs, qwen3, phi3,
 glm4, granite, minicpm, orion, stablelm, plamo, smollm3, hunyuan-dense,
 the non-gated phi2, falcon, gptneox, starcoder2, codeshell, gpt2 and
-starcoder, and the rest of hparams.FLAG_ARCHS; no parallel modes): token
-rows (times embd_scale; plus the learned position rows of gpt2 and
-starcoder) -> per layer [norm -> q/k/v (+bias) -> per-head q/k norm ->
+starcoder, the squared-relu and xIELU nemotron, arcee and apertus, the
+ALiBi mpt, bloom, jais, refact and baichuan-13B, and the rest of
+hparams.FLAG_ARCHS; no parallel modes): token rows (times embd_scale;
+plus the learned position rows of gpt2 and starcoder; then bloom's
+embedding LayerNorm) -> per layer [norm -> q/k/v (+bias) -> mpt's clamp
+and full-width q/k norms -> per-head q/k norm ->
 rope (none on a NoPE layer) -> hunyuan's per-head q/k norm, llama4's
 weightless one on its rope layers, llama4's Q temperature on its NoPE
 layers -> write K/V into the
-cache -> attention (with gpt-oss's per-head sinks, gemma2's softcap) ->
+cache -> attention (with gpt-oss's per-head sinks, gemma2's softcap, the
+ALiBi slopes times the mask's -|distance|) ->
 o-proj (+bias; post_attn_norm; times f_residual_scale) -> residual ->
 norm -> gated FFN (SiLU, or GELU for the gemmas; each projection +bias
-where the file has one), or the non-gated up (+bias) -> GELU -> down
-(+bias) of hp.ffn_gated False, or MoE FFN plus the
+where the file has one), or the non-gated up (+bias) -> activation ->
+down (+bias) of hp.ffn_gated False (GELU, nemotron's and arcee's squared
+ReLU, apertus's xIELU with its per-layer coefficients; FFN_ACTS, which
+refuses any other name), or MoE FFN plus the
 shared expert (qwen2moe: gated by its own sigmoid) (post_ffn_norm; times
 f_residual_scale) -> residual], final norm, lm_head, then output_bias,
 final_logit_scale and the final softcap in f32. The norms are RMS norms,
@@ -73,12 +79,13 @@ attention_auto (the flash kernels on CUDA tensors).
 
 from __future__ import annotations
 
+import math
 from dataclasses import replace
 
 import torch
 from torch import nn
 
-from ..ops.activations import gelu, silu
+from ..ops.activations import gelu, relu_sqr, silu, xielu
 from ..ops.attention import attention_auto
 from ..ops.cuda.fused_layer import fused_ok, fused_postattn, resolve_fused_layer
 from ..ops.cuda.qmm import quantized_matmul, resolve_tile_k
@@ -99,6 +106,41 @@ _FUSED_EXCLUDE = (
     "ffn_up_bias", "ffn_down_bias", "ffn_up_scale", "ffn_down_scale",
     "ffn_sub_norm", "_cvec", "_deepstack", "_xielu",
 )
+
+
+def _xielu_rows(x: torch.Tensor, w: dict) -> torch.Tensor:
+    a_n, a_p, beta, eps = w["_xielu"].unbind()
+    return xielu(x, a_n, a_p, beta, eps)
+
+
+# the FFN's activation by hp.act, on f32 values, with the layer's weights
+# (xielu reads its per-layer coefficients, w["_xielu"]); the JAX package's
+# branches, llama.py:846-863 and :880-883
+FFN_ACTS = {"silu": lambda x, w: silu(x), "gelu": lambda x, w: gelu(x),
+            "relu_sqr": lambda x, w: relu_sqr(x), "xielu": _xielu_rows}
+
+
+def ffn_act(hp: HParams):
+    """hp.act's activation from FFN_ACTS; any other name is refused by the
+    arch and the name (no activation stands in for another)."""
+    act = FFN_ACTS.get(hp.act)
+    if act is None:
+        raise NotImplementedError(
+            f"tpullama_torch: arch {hp.arch!r} with FFN activation {hp.act!r} is not ported")
+    return act
+
+
+def alibi_slopes(n_head: int, max_bias: float, device=None) -> torch.Tensor:
+    """ALiBi's per-head slopes over the full head count (ggml_soft_max_ext's
+    schedule, the JAX package's llama.py:255-275): n2 the largest power of
+    two <= n_head; head h < n2 takes m0^(h + 1), m0 = 2^(-max_bias / n2),
+    each head past n2 m1^(2 (h - n2) + 1), m1 = 2^(-max_bias / 2 / n2).
+    Returns (n_head,) f32."""
+    n2 = 1 << int(math.floor(math.log2(n_head)))
+    m0 = 2.0 ** (-max_bias / n2)
+    m1 = 2.0 ** (-max_bias / 2.0 / n2)
+    return torch.tensor([m0 ** (h + 1) if h < n2 else m1 ** (2 * (h - n2) + 1)
+                         for h in range(n_head)], dtype=torch.float32, device=device)
 
 
 def linear(x: torch.Tensor, w, meta=None, tile_k: int | None = None) -> torch.Tensor:
@@ -188,17 +230,19 @@ class LlamaLayer(nn.Module):
         self.hp = hp
         self.tile_k = tile_k
         self.nope = nope  # a NoPE layer of hp.no_rope_layer_step
+        self.act = ffn_act(hp)
         self.fused = (fused_layer and hp.pre_norm and not hp.parallel_residual
                       and hp.ffn_fused_up and hp.norm_type != "layer" and not hp.swin_norm
                       and "ffn_gate_inp" not in w and not hp.f_residual_scale
                       and "ffn_norm" in w and not any(k in w for k in _FUSED_EXCLUDE)
                       and fused_ok(hp, w, meta))
 
-    def forward(self, x, cos, sin, k_cache, v_cache, slots, mask, q_temp=None):
+    def forward(self, x, cos, sin, k_cache, v_cache, slots, mask, q_temp=None, alibi=None):
         """cos, sin: the layer's rope table, None for a layer without rope
         (a cohere2 full layer, a NoPE layer, or an arch without rope).
         q_temp: llama4's (B, T) f32 Q temperature, which a NoPE layer
-        multiplies into q."""
+        multiplies into q. alibi: the (Hq,) f32 ALiBi slopes, which
+        attention multiplies into the mask's -|distance| values."""
         hp, w, m, tk = self.hp, self.w, self.meta, self.tile_k
         sinks = w.get("attn_sinks")
         B, T, _ = x.shape
@@ -221,17 +265,26 @@ class LlamaLayer(nn.Module):
                 q = q + w["attn_q_bias"]
                 k = k + w["attn_k_bias"]
                 v = v + w["attn_v_bias"]
+        if hp.f_clamp_kqv:
+            # mpt: q, k and v clamped after their biases (ggml_clamp; the JAX
+            # package's llama.py:323-327)
+            c = hp.f_clamp_kqv
+            q, k, v = q.clamp(-c, c), k.clamp(-c, c), v.clamp(-c, c)
+        if "attn_q_norm" in w and hp.qk_norm_full:
+            # mpt: the q/k norms (+bias) over the full projection width,
+            # before the reshape (llama.py:336-339)
+            q, k = self.qk_norm(q, k)
         q = q.reshape(B, T, Hq, Dk)
         k = k.reshape(B, T, Hkv, Dk)
         v = v.reshape(B, T, Hkv, Dv)
-        if "attn_q_norm" in w and not hp.qk_norm_after_rope:
+        if "attn_q_norm" in w and not hp.qk_norm_full and not hp.qk_norm_after_rope:
             # per-head q/k norm before rope (qwen3moe, gemma3: RMS; a
-            # command-r file's: LayerNorm; the JAX package's llama.py:329-345)
+            # command-r file's: LayerNorm; the JAX package's llama.py:341-343)
             q, k = self.qk_norm(q, k)
         if cos is not None:
             q = apply_rope(q, cos, sin, hp.rope_type, hp.n_rot)
             k = apply_rope(k, cos, sin, hp.rope_type, hp.n_rot)
-        if "attn_q_norm" in w and hp.qk_norm_after_rope:
+        if "attn_q_norm" in w and not hp.qk_norm_full and hp.qk_norm_after_rope:
             # hunyuan: the per-head q/k norm after rope (llama.py:364-367)
             q, k = self.qk_norm(q, k)
         if hp.qk_norm_weightless and not self.nope:
@@ -253,12 +306,13 @@ class LlamaLayer(nn.Module):
                 scatter_rows(cache[1], slots, sv)
             att = attention_auto(q, k_cache[0], v_cache[0], mask=mask, scale=kq_scale,
                                  softcap=hp.attn_logit_softcap, sinks=sinks,
-                                 k_scale=k_cache[1], v_scale=v_cache[1])
+                                 alibi_slopes=alibi, k_scale=k_cache[1], v_scale=v_cache[1])
         else:
             scatter_rows(k_cache, slots, k)
             scatter_rows(v_cache, slots, v)
             att = attention_auto(q, k_cache, v_cache, mask=mask, scale=kq_scale,
-                                 softcap=hp.attn_logit_softcap, sinks=sinks)
+                                 softcap=hp.attn_logit_softcap, sinks=sinks,
+                                 alibi_slopes=alibi)
         att = att.reshape(B, T, Hq * Dv)
         if self.fused and B == 1 and T == 1:
             # the JAX package's fused branch (llama.py:683-700); it never
@@ -313,20 +367,20 @@ class LlamaLayer(nn.Module):
             if "ffn_gate_shexp" in w:
                 down = down + self.shared_expert(h)
         else:
-            act_fn = gelu if hp.act == "gelu" else silu
+            act_fn = self.act
             if hp.ffn_fused_up:
                 # fused gate+up (ggml_swiglu: first half activated, second linear)
                 up2 = linear(h, w["ffn_up"], m.get("ffn_up"), tk)
                 n_ff = up2.shape[-1] // 2
                 gate, up = up2[..., :n_ff], up2[..., n_ff:]
-                act = act_fn(gate.float()).to(gate.dtype) * up
+                act = act_fn(gate.float(), w).to(gate.dtype) * up
             elif not hp.ffn_gated:
                 # up (+bias) -> act in f32 -> down (+bias), no gate (the JAX
                 # package's llama.py:842-868)
                 up = linear(h, w["ffn_up"], m.get("ffn_up"), tk)
                 if "ffn_up_bias" in w:
                     up = up + w["ffn_up_bias"]
-                act = act_fn(up.float()).to(up.dtype)
+                act = act_fn(up.float(), w).to(up.dtype)
             else:
                 # the gated FFN, with each projection's bias where the file
                 # has one (llama.py:873-893)
@@ -336,7 +390,7 @@ class LlamaLayer(nn.Module):
                 up = linear(h, w["ffn_up"], m.get("ffn_up"), tk)
                 if "ffn_up_bias" in w:
                     up = up + w["ffn_up_bias"]
-                act = act_fn(gate.float()).to(gate.dtype) * up
+                act = act_fn(gate.float(), w).to(gate.dtype) * up
             down = linear(act, w["ffn_down"], m.get("ffn_down"), tk)
             if "ffn_down_bias" in w:
                 down = down + w["ffn_down_bias"]
@@ -349,12 +403,14 @@ class LlamaLayer(nn.Module):
         return x + down
 
     def qk_norm(self, q, k):
-        """The per-head q/k norms: LayerNorms under norm_type "layer" or
-        qk_norm_ln, else RMS norms."""
+        """The q/k norms (per head, or over the full width with
+        qk_norm_full): LayerNorms, with their biases where the file has
+        them, under norm_type "layer" or qk_norm_ln, else RMS norms (the
+        JAX package's llama.py:329-334)."""
         hp, w = self.hp, self.w
         if hp.norm_type == "layer" or hp.qk_norm_ln:
-            return (layer_norm(q, w["attn_q_norm"], eps=hp.f_norm_eps),
-                    layer_norm(k, w["attn_k_norm"], eps=hp.f_norm_eps))
+            return (layer_norm(q, w["attn_q_norm"], w.get("attn_q_norm_bias"), hp.f_norm_eps),
+                    layer_norm(k, w["attn_k_norm"], w.get("attn_k_norm_bias"), hp.f_norm_eps))
         return (rms_norm(q, w["attn_q_norm"], hp.f_norm_rms_eps),
                 rms_norm(k, w["attn_k_norm"], hp.f_norm_rms_eps))
 
@@ -404,11 +460,21 @@ class LlamaModel(nn.Module):
             stacks = params["layers"]
             weights = [{k: view(k, t, li) for k, t in stacks.items()}
                        for li in range(hp.n_layer)]
+            if hp.xielu_params:
+                # apertus: each layer's (alpha_n', alpha_p', beta, eps) row,
+                # as the JAX package's forward stacks them (llama.py:1036-1037)
+                rows = torch.tensor(hp.xielu_params, dtype=torch.float32,
+                                    device=params["tok_embd"].device)
+                for li, w in enumerate(weights):
+                    w["_xielu"] = rows[li]
         nope = hp.nope_layers
         self.layers = nn.ModuleList(
             LlamaLayer(w, lmeta, hp, self.fused_layer, self.qmm_tile_k, nope[li])
             for li, w in enumerate(weights))
         self.rp = rope_params(hp)
+        # ALiBi's per-head slopes, on the device once
+        self.alibi = (alibi_slopes(hp.n_head, hp.f_max_alibi_bias, params["tok_embd"].device)
+                      if hp.f_max_alibi_bias > 0.0 else None)
         # the SWA layers, and each layer's index in its stack of a two-stack
         # cache (the JAX package's _stack_idx)
         self.swa = tuple(bool(s) for s in hp.swa_layers) if any(hp.swa_layers) else ()
@@ -451,6 +517,10 @@ class LlamaModel(nn.Module):
             # row, as jnp.take wraps it (Context refuses an n_ctx past the
             # table's rows)
             x = x + p["position_embd"][positions.long()].to(x.dtype)
+        if "token_embd_norm" in p:
+            # bloom's embedding LayerNorm (+bias) (the JAX package's
+            # llama.py:199-207)
+            x = norm_fn(hp, x, p["token_embd_norm"], p.get("token_embd_norm_bias"))
         # each rope table the layers take, rope_freqs in both (Queue 3 item
         # 13); the JAX package's identity rotation of a layer without rope
         # (cohere2's full layers, NoPE layers) is no rotation here
@@ -476,7 +546,8 @@ class LlamaModel(nn.Module):
                 kc, vc, idx = kv_k[stack], kv_v[stack], self.stack_idx[li]
                 slots = cache_slots_swa if is_swa else cache_slots
             x = layer(x, *tables[self.rope_kinds[li]], layer_cache(kc, idx),
-                      layer_cache(vc, idx), slots, mask_swa if is_swa else mask_full, q_temp)
+                      layer_cache(vc, idx), slots, mask_swa if is_swa else mask_full, q_temp,
+                      self.alibi)
         x = norm_fn(hp, x, p.get("output_norm"), p.get("output_norm_bias"))
         embd = x.float() if return_embd else None
         if logit_rows is not None:

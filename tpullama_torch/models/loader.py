@@ -12,7 +12,8 @@ of hparams.FLAG_ARCHS: orion's and stablelm's LayerNorm biases
 (attn_norm, ffn_norm and output_norm), seed_oss's FFN norm stored as
 post_attention_norm, the FFN biases of the non-gated archs (and of a
 gated FFN that has them), falcon-40b's attn_norm_2, gpt2's and
-starcoder's learned position table; a file without output.weight, as
+starcoder's learned position table, bloom's embedding LayerNorm and
+mpt's full-width q/k LayerNorm biases; a file without output.weight, as
 gemma's, cohere's, glm4's, minicpm's and starcoder's tied ones are, takes
 the token table as its lm_head). Every tensor the file holds is mapped or
 refused by name, but the trailing NextN layers past hp.n_layer and every
@@ -76,6 +77,7 @@ from ..ops.cuda.qmm_gathered import PLANES_T_FIELDS
 from ..ops.qweights import (PACKED_TYPES, PlanarQuant, mxfp4_to_ar, repack, to_fourblock,
                             transpose_planes)
 from .hparams import HParams, check_arch
+from .llama import ffn_act
 
 # per-layer tensor suffixes of the llama family -> param names
 _LAYER_TENSORS = {
@@ -94,6 +96,9 @@ _LAYER_TENSORS = {
     "attn_v.bias": "attn_v_bias",
     "attn_q_norm.weight": "attn_q_norm",
     "attn_k_norm.weight": "attn_k_norm",
+    # the full-width q/k LayerNorms' biases (mpt)
+    "attn_q_norm.bias": "attn_q_norm_bias",
+    "attn_k_norm.bias": "attn_k_norm_bias",
     "ffn_norm.weight": "ffn_norm",
     "ffn_gate.weight": "ffn_gate",
     "ffn_up.weight": "ffn_up",
@@ -146,6 +151,9 @@ _TOP_TENSORS = {
     "rope_freqs.weight": "rope_freqs",
     # learned absolute positions (gpt2, starcoder), dense in `dtype`
     "position_embd.weight": "position_embd",
+    # the embedding LayerNorm after the token rows (bloom)
+    "token_embd_norm.weight": "token_embd_norm",
+    "token_embd_norm.bias": "token_embd_norm_bias",
 }
 # the archs whose MoE layers the port runs (ops/moe.py)
 _MOE_ARCHS = ("llama", "qwen2moe", "qwen3moe", "granitemoe", "glm4moe", "dots1", "ernie4_5-moe",
@@ -202,8 +210,10 @@ def check_supported(hp: HParams) -> None:
     and the MoE archs of _MOE_ARCHS, and sliding-window attention where a
     ported arch lays out its SWA layers (gpt-oss, gemma2, gemma3, cohere2;
     llama4's chunked windows); any other SWA model, and a chunked window
-    on another arch, by name with their ROADMAP item."""
+    on another arch, by name with their ROADMAP item; an FFN activation
+    outside models/llama.FFN_ACTS by the arch and its name."""
     check_arch(hp.arch)
+    ffn_act(hp)
     chunked_ok = hp.swa_type == "chunked" and hp.arch == "llama4"
     if hp.n_swa and (not hp.swa_layers or (hp.swa_type != "standard" and not chunked_ok)):
         what = "chunked attention" if hp.swa_type == "chunked" else "sliding-window attention"

@@ -50,6 +50,13 @@ def route(q, k) -> str:
     return "mma" if mma else "fma"
 
 
+def launch_name(kernel: str, int8: bool, slopes) -> str:
+    """The launch counter of an attention kernel's route: the kernel's
+    name, then "_int8" for an int8 cache and "_alibi" for a launch with
+    ALiBi slopes."""
+    return kernel + ("_int8" if int8 else "") + ("_alibi" if slopes is not None else "")
+
+
 def kv_code(k) -> int:
     """The kernels' K/V type flag: 0 f32, 1 bf16, 2 int8."""
     return {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}[k.dtype]

@@ -9,16 +9,18 @@ kernel cuts the (position, head) query rows of a kv head into tiles of 64
 (common.row_plan). An int8 cache comes with its per-(head, token) f32
 scales (k_scale, v_scale): bf16 q runs it on the tensor cores (the int8
 rows converted to bf16 in shared memory, exactly), f32 q as f32 FMAs; its
-launches count apart, as flash_attention_int8.
+launches count apart, as flash_attention_int8. A launch with ALiBi slopes
+(the kernel's ALiBi branch: each visible cell's mask value times its
+head's slope) counts apart too, with "_alibi" after the name.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .common import check_inputs, check_scales, flash_plain, kv_code
+from .common import check_inputs, check_scales, flash_plain, kv_code, launch_name
 
-LAUNCHES = {"flash_attention": 0, "flash_attention_int8": 0}
+LAUNCHES = {"flash_attention" + route: 0 for route in ("", "_int8", "_alibi", "_int8_alibi")}
 
 
 def flash_attention(q, k, v, mask, scale: float, softcap: float = 0.0,
@@ -43,5 +45,5 @@ def flash_attention(q, k, v, mask, scale: float, softcap: float = 0.0,
         int(q.dtype == torch.bfloat16), kv_code(k),
         ptr(q), ptr(k), ptr(v), ptr(m), ptr(slopes), ptr(sinks), ptr(k_scale), ptr(v_scale), ptr(out),
         B, Tq, Hq, Hkv, S, D, float(scale), float(softcap), stream()), "flash_attention")
-    LAUNCHES["flash_attention_int8" if int8 else "flash_attention"] += 1
+    LAUNCHES[launch_name("flash_attention", int8, slopes)] += 1
     return out

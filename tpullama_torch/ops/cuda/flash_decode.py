@@ -13,17 +13,18 @@ version (ops/cuda/common.flash_plain). An int8 cache comes with its
 per-(head, token) f32 scales (k_scale, v_scale): bf16 q runs it on the
 tensor cores (the chunk's int8 rows converted to bf16 in shared memory),
 f32 q as f32 FMAs; its launches count apart (flash_decode_int8,
-flash_decode_batched_int8).
+flash_decode_batched_int8), and so do those with ALiBi slopes, with
+"_alibi" after the name.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .common import CELLS, check_inputs, check_scales, flash_plain, kv_code
+from .common import CELLS, check_inputs, check_scales, flash_plain, kv_code, launch_name
 
-LAUNCHES = {"flash_decode": 0, "flash_decode_batched": 0, "flash_decode_int8": 0,
-            "flash_decode_batched_int8": 0}
+LAUNCHES = {f"{name}{route}": 0 for name in ("flash_decode", "flash_decode_batched")
+            for route in ("", "_int8", "_alibi", "_int8_alibi")}
 ROW_TILE = 16  # query rows per block in csrc/flash_decode.cu
 
 # per device: the kernel's int32 tickets, one per (row tile, kv head, batch
@@ -69,6 +70,5 @@ def flash_decode(q, k, v, mask, scale: float, softcap: float = 0.0,
         ptr(q), ptr(k), ptr(v), ptr(m), ptr(slopes), ptr(sinks), ptr(k_scale), ptr(v_scale),
         ptr(part_o), ptr(part_ml), ptr(tickets), ptr(out), B, Tq, Hq, Hkv, S, D,
         float(scale), float(softcap), stream()), "flash_decode")
-    name = "flash_decode" if B == 1 else "flash_decode_batched"
-    LAUNCHES[name + ("_int8" if int8 else "")] += 1
+    LAUNCHES[launch_name("flash_decode" if B == 1 else "flash_decode_batched", int8, slopes)] += 1
     return out

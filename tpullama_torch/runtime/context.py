@@ -283,7 +283,8 @@ class Context:
         """Shared core: record the new cells' positions (on a two-stack
         cache also the ring's, at each position's ring cell), build the
         additive mask (with SWA layers the pair of the causal mask and the
-        windowed one), run the model (which writes K/V in place)."""
+        windowed one; an ALiBi model's causal mask carries each visible
+        cell's -|distance|), run the model (which writes K/V in place)."""
         B, T = tokens.shape
         b_ix = torch.arange(B, device=self.device)[:, None]
         slots_swa = None
@@ -304,7 +305,14 @@ class Context:
             return (kp >= 0) & (kp <= q)
 
         vis = visible(kp_full)
-        mask = torch.where(vis, zero, neg)[:, None]
+        if self.hp.f_max_alibi_bias > 0.0:
+            # ALiBi: a visible cell carries -|kv_pos - q_pos|, which attention
+            # multiplies by each head's slope; a parked row (position -1)
+            # sees no cell (tpullama/runtime/context.py:374-379)
+            dist = (kp_full[:, None, :] - q).abs().to(torch.float32)
+            mask = torch.where(vis, -dist, neg)[:, None]
+        else:
+            mask = torch.where(vis, zero, neg)[:, None]
         if self.net.swa and self.hp.n_swa:
             n_swa = self.hp.n_swa
             vis_w = vis if kp_win is kp_full else visible(kp_win)
