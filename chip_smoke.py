@@ -26,8 +26,10 @@ Phases, each printing one JSON line with its seconds:
             the kernels' ALiBi branch with BLOOM's slopes under the
             Context's distance mask (-|dpos| on visible cells), against
             SDPA with the additive mask slope * -|dpos| (the same
-            function); every case with ALiBi slopes runs under that mask
-  model     a synthetic Llama-3-8B-shaped GGUF (8 of its 32 layers; Q4_K
+            function); every case with ALiBi slopes runs under that mask;
+            OLMo-2-1124-7B's Q4_K [gate] and down (11008 x 4096 and 4096 x
+            11008) at T = 4 and 1024
+  model     a synthetic Llama-3-8B-shaped GGUF (4 of its 32 layers; Q4_K
             layers, Q6_K output,
             Q4_K token table, random block bytes from a seed) is written
             to a temp dir and loaded packed onto the card
@@ -96,10 +98,11 @@ Phases, each printing one JSON line with its seconds:
             (LAYOUTS: attn_v/ffn_down Q6_K in the use_more_bits layers of
             8 (0, 3, 6, 7) and Q5_K in the others, so loaded dense; every
             other matrix Q5_K through the q1 set of
-            qmm_gemv/qmm_tiled); the 1-layer cross-check's CPU model is loaded with
-            and without the native host library (timed, the same bits),
-            and the 4 requests are run twice together (dense projections
-            are not batch-invariant); the profile checks the qmm launches
+            qmm_gemv/qmm_tiled); the 1-layer cut with its vocabulary cut
+            to 16384 rows is loaded with and without the native host
+            library (timed, the same bits), and the 4 requests are run
+            twice together (dense projections are not batch-invariant);
+            the profile checks the qmm launches
             of a decode step and of a prefill chunk
   quant_crosscheck
             1-layer cross-checks at Llama-3.2-1B's widths in the Q3_K_M-like,
@@ -177,8 +180,9 @@ Phases, each printing one JSON line with its seconds:
             table, dense bf16 on the card as the lm_head. The model phase's
             file serves the cross-check too: all 6 layers in f32, card
             against CPU, a 1400-token prompt in 256-token chunks wrapping
-            the ring of 1024 + 256 + 1 = 1281 cells, then the first 2
-            layers (SWA layers only) on one windowed stack. Served with 4
+            the ring of 1024 + 256 + 1 = 1281 cells, 8 greedy tokens, then
+            the first 2 layers (SWA layers only) on one windowed stack.
+            Served with 4
             slots at n_ctx 4096 on the two-stack cache
   cohere2_crosscheck
             the cross-check at command-r7b's widths (4 of its 32 layers: 3
@@ -240,6 +244,17 @@ Phases, each printing one JSON line with its seconds:
             against its own greedy loop; the profile checks that a step
             launches flash_decode_batched with slopes and a chunk
             flash_attention with slopes once per layer
+  olmo2_model, olmo2_crosscheck, olmo2_serve
+            the model, cross-check and serve phases on an allenai/OLMo-2-
+            1124-7B-shaped olmo2 model at 4 of its 32 layers: post-norm
+            blocks (attention and FFN read the residual stream, the post
+            norms norm their outputs), q/k RMS norms over the full 4096
+            width, 32 heads of 128 (MHA), NEOX rope, a gated SiLU FFN of
+            11008, every layer matrix Q4_K, the Q6_K lm_head (vocab 100352);
+            the cross-check runs 2 layers in f32; served with 4 slots at
+            n_ctx 4096; the profile checks that a step and a chunk run
+            every packed matrix through qmm and that fused_postattn never
+            runs
   int8kv    the served Llama model with an int8 KV cache against a bf16
             one: Contexts of 4 lanes of 8192 cells, bf16 activations,
             4 prompts of 6100-7000 tokens prefilled, a greedy burst of 32;
@@ -273,7 +288,8 @@ seq_add / seq_div on the card against the CPU, and a replayed step after
 seq_add against the eager step. The crosscheck, serve, http, spec, cli,
 quant_crosscheck, int8kv, int8kv_crosscheck, state, the MoE archs',
 GLM-4.5-Air's, gpt-oss's, gemma-3-12b's, command-r7b's, Qwen3-8B's,
-Llama-4-Scout's, phi-2's, bigcode/starcoder's and BLOOM-7b1's paths each run
+Llama-4-Scout's, phi-2's, bigcode/starcoder's, BLOOM-7b1's and
+OLMo-2-1124-7B's paths each run
 with every launch count set to 0 just before
 and read just after, and fail unless each kernel that path must run was launched. Then one JSON line lists every
 kernel with its launches on each path and its numbers at the served shape
@@ -318,7 +334,7 @@ ALL_PHASES = ("card", "build", "kernels", "model", "crosscheck", "serve", "graph
               "qwen3_model", "qwen3_crosscheck", "qwen3_serve", "llama4_model",
               "llama4_crosscheck", "llama4_ring", "llama4_serve", "phi2_model", "phi2_crosscheck",
               "phi2_serve", "starcoder_crosscheck", "bloom_model", "bloom_crosscheck",
-              "bloom_serve")
+              "bloom_serve", "olmo2_model", "olmo2_crosscheck", "olmo2_serve")
 
 
 # every line the run prints, whole, also goes to this file (the kernels
@@ -351,7 +367,7 @@ class Widths:
     """A llama-family configuration (n_expert > 0: a Mixtral-style MoE,
     whose n_ff is each expert's; arch "chatglm": fused biased [Q|K|V],
     fused [gate|up], n_rot rotated dims). LLAMA3_8B holds the published
-    widths of meta-llama/Meta-Llama-3-8B (config.json), cut to 8 of its
+    widths of meta-llama/Meta-Llama-3-8B (config.json), cut to 4 of its
     32 layers (every layer has the same shapes and launches);
     MIXTRAL_8X7B those
     of mistralai/Mixtral-8x7B-v0.1 (config.json; sliding window null), cut
@@ -510,7 +526,17 @@ class Widths:
     biased fused attn_qkv, attn_output, ffn_up and ffn_down with biases,
     no rope keys and no max_alibi_bias key), every layer matrix Q4_K and
     the tied token table Q6_K, cut to 8 of its 30 layers (every layer has
-    the same shapes and launches)."""
+    the same shapes and launches). The post-norm archs: OLMO2_7B holds
+    those of allenai/OLMo-2-1124-7B (config.json: hidden_size 4096, 32
+    layers, 32 heads of 128 over 32 KV heads (MHA), intermediate_size
+    11008 with SiLU, vocab_size 100352 untied, rms_norm_eps 1e-6,
+    rope_theta 500000, max_position_embeddings 4096; q/k RMS norms over
+    the full projection width, post-attention and post-feedforward norms
+    and no pre-norms), written as llama.cpp's converter writes them
+    (attn_q_norm and attn_k_norm of 4096, post_attention_norm and
+    post_ffw_norm, no attn_norm or ffn_norm), every layer matrix Q4_K
+    (11008 = 43 x 256), the lm_head Q6_K, cut to 4 of its 32 layers (every
+    layer has the same shapes and launches)."""
 
     n_embd: int = 4096
     n_layer: int = 32
@@ -546,7 +572,7 @@ class Widths:
         return self.head_dim or self.n_embd // self.n_head
 
 
-LLAMA3_8B = Widths(n_layer=8)
+LLAMA3_8B = Widths(n_layer=4)
 MIXTRAL_8X7B = Widths(n_layer=2, n_vocab=32000, rope_theta=1e6, n_ctx_train=32768,
                       n_expert=8, n_expert_used=2)
 CHATGLM3_6B = Widths(n_layer=7, n_head_kv=2, n_ff=13696, n_vocab=65024, rope_theta=10000.0,
@@ -612,6 +638,8 @@ STARCODER = Widths(n_embd=6144, n_layer=1, n_head=48, n_head_kv=1, n_ff=24576, n
                    embd_type="Q6_K")
 BLOOM_7B1 = Widths(n_embd=4096, n_layer=8, n_head=32, n_head_kv=32, n_ff=16384, n_vocab=250880,
                    rms_eps=1e-5, n_ctx_train=2048, arch="bloom", tied=True, embd_type="Q6_K")
+OLMO2_7B = Widths(n_embd=4096, n_layer=4, n_head=32, n_head_kv=32, n_ff=11008, n_vocab=100352,
+                  rope_theta=500000.0, rms_eps=1e-6, n_ctx_train=4096, arch="olmo2")
 
 
 def use_more_bits(il: int, n: int) -> bool:
@@ -865,7 +893,8 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
     weights and biases, the biased fused attn_qkv and attn_output, ffn_up
     and ffn_down with biases and no gate, phi2 no FFN norm and output.bias,
     starcoder the F16 position_embd, bloom token_embd_norm with its bias,
-    starcoder and bloom no rope keys."""
+    starcoder and bloom no rope keys; olmo2 its full-width q/k norms and
+    the post norms, and no pre-norm tensors (a post-norm block)."""
     from tpullama_torch.gguf import GGML_TYPE_TRAITS, GGMLType, GGUFWriter
 
     rng = np.random.default_rng(seed)
@@ -886,6 +915,7 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
               "synthetic-phi-2-shape" if a == "phi2" else
               "synthetic-starcoder-shape" if a == "starcoder" else
               "synthetic-bloom-7b1-shape" if a == "bloom" else
+              "synthetic-olmo-2-1124-7b-shape" if a == "olmo2" else
               "synthetic-openllama-3b-shape" if w.q8 else
               "synthetic-llama3.2-1b-shape" if w.tied else
               "synthetic-mixtral-8x7b-shape" if w.n_expert else "synthetic-llama3-8b-shape")
@@ -997,7 +1027,8 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
 
     for il in range(w.n_layer + w.nextn):
         p = f"blk.{il}."
-        norm(p + "attn_norm.weight", E)
+        if a != "olmo2":
+            norm(p + "attn_norm.weight", E)
         if nongated:
             bias(p + "attn_norm.bias", E)
             quant(p + "attn_qkv.weight", (hq + 2 * kv, E), Q4)
@@ -1017,16 +1048,20 @@ def write_llama_gguf(path: str, w: Widths, seed: int) -> None:
             if a in ("qwen3", "qwen3moe", "gemma3"):
                 norm(p + "attn_q_norm.weight", w.hd)
                 norm(p + "attn_k_norm.weight", w.hd)
+            if a == "olmo2":
+                # the q/k RMS norms over the full projection width
+                norm(p + "attn_q_norm.weight", hq)
+                norm(p + "attn_k_norm.weight", kv)
         quant(p + "attn_output.weight", (E, hq), Q4)
         if nongated:
             bias(p + "attn_output.bias", E)
         if a == "gpt-oss":
             bias(p + "attn_output.bias", E)
             bias(p + "attn_sinks.weight", w.n_head)
-        if a == "gemma3":
+        if a in ("gemma3", "olmo2"):
             norm(p + "post_attention_norm.weight", E)
             norm(p + "post_ffw_norm.weight", E)
-        if a not in ("cohere2", "phi2"):
+        if a not in ("cohere2", "phi2", "olmo2"):
             norm(p + ("post_attention_norm.weight" if a in ("glm4moe", "gpt-oss")
                       else "ffn_norm.weight"), E)
         if a in ("starcoder", "bloom"):
@@ -1088,23 +1123,50 @@ class Timer:
 
         self.torch = torch
         self.flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=device)
+        # host wall seconds by part of the phase: "kernel" and "library"
+        # timings (ms's `part`) and the plain versions' calls (once)
+        self.split: dict = {}
+
+    @contextlib.contextmanager
+    def wall(self, part: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.split[part] = self.split.get(part, 0.0) + time.perf_counter() - t0
 
     def flush_l2(self) -> None:
         self.flush.zero_()
 
-    def ms(self, fn, iters: int) -> float:
+    def once(self, fn):
+        """One call of fn after the flush, between CUDA events: (its
+        result, ms). A plain version runs once, for the comparison, and
+        that run's time is its `plain_ms`: the plain version is what the
+        kernel is checked against, not a yardstick of its speed."""
         torch = self.torch
-        fn()
-        fn()
-        torch.cuda.synchronize()
-        ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-              for _ in range(iters)]
-        for s, e in ev:
+        with self.wall("plain"):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             self.flush_l2()
             s.record()
-            fn()
+            out = fn()
             e.record()
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+        return out, s.elapsed_time(e)
+
+    def ms(self, fn, iters: int, part: str = "kernel") -> float:
+        torch = self.torch
+        with self.wall(part):
+            fn()
+            fn()
+            torch.cuda.synchronize()
+            ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in range(iters)]
+            for s, e in ev:
+                self.flush_l2()
+                s.record()
+                fn()
+                e.record()
+            torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in ev) / iters
 
 
@@ -1230,7 +1292,11 @@ def qmm_cases(timer, gen, device, out: list) -> None:
              (Q4, 7680, 2560, bf16, bf16, (4, 1024)),
              (Q4, 10240, 2560, bf16, bf16, (4, 1024)),
              (Q4, 2560, 10240, bf16, bf16, (4, 1024)),
-             (Q6, 51200, 2560, bf16, bf16, (4,))]
+             (Q6, 51200, 2560, bf16, bf16, (4,)),
+             # OLMo-2-1124-7B's [gate] (11008 x 4096) and down (4096 x
+             # 11008, K = 43 x 256): the B = 4 decode step and the chunk
+             (Q4, 11008, 4096, bf16, bf16, (4, 1024)),
+             (Q4, 4096, 11008, bf16, bf16, (4, 1024))]
     # the q1 / q2 sets (csrc/qmm_lowbit.cu) at the Llama FFN's shapes, the
     # decode step's T = 4 and the packed prefill chunk's T = 1024, then one
     # f32-x and one f32-scale case
@@ -1249,8 +1315,8 @@ def qmm_cases(timer, gen, device, out: list) -> None:
         for T in Ts:
             x = torch.randn((T, K), generator=gen, device=device).to(xdt)
             got = qmm.quantized_matmul(x, fields, qt, g, N, K)
-            want = qmm.quantized_matmul_plain(x, fields, qt, g, N, K)
-            torch.cuda.synchronize()
+            want, plain_ms = timer.once(lambda: qmm.quantized_matmul_plain(x, fields, qt, g,
+                                                                            N, K))
             err = float((got - want).abs().max())
             # f32 sums in another order: 1e-4 of the output's scale is far
             # above that and far below any layout or decode fault
@@ -1258,7 +1324,6 @@ def qmm_cases(timer, gen, device, out: list) -> None:
             check(bool(torch.isfinite(got).all()) and err <= tol,
                   f"qmm {qt.name} N={N} K={K} T={T}: err {err} > tol {tol}")
             ms = timer.ms(lambda: qmm.quantized_matmul(x, fields, qt, g, N, K), 20)
-            plain_ms = timer.ms(lambda: qmm.quantized_matmul_plain(x, fields, qt, g, N, K), 3)
             if w_lib is None:
                 # the yardstick: a cuBLAS product with the weight dequantized
                 # to the activation type ahead of time, in natural order
@@ -1266,7 +1331,7 @@ def qmm_cases(timer, gen, device, out: list) -> None:
                 w_lib = w.reshape(N, g, K // g).transpose(1, 2).reshape(N, K)
                 del w
             wl = w_lib.to(xdt)
-            lib_ms = timer.ms(lambda: torch.matmul(x, wl.T), 20)
+            lib_ms = timer.ms(lambda: torch.matmul(x, wl.T), 20, "library")
             del wl
             n_bytes = sum(nbytes(a) for a in fields.values()) + nbytes(x) + T * N * 4
             b_ms, b_by = bound_ms(n_bytes, 2.0 * T * N * K, "bf16" if xdt == bf16 else "f32")
@@ -1292,6 +1357,8 @@ def qmm_cases(timer, gen, device, out: list) -> None:
             elif (N, K) in ((7680, 2560), (10240, 2560), (2560, 10240), (51200, 2560)):
                 role = {7680: "attn_qkv", 10240: "ffn_up", 2560: "ffn_down", 51200: "output"}[N]
                 rec["case"] = f"phi2 {role} T={T}"
+            elif (N, K) in ((11008, 4096), (4096, 11008)):
+                rec["case"] = f"olmo2 {'ffn_gate' if N == 11008 else 'ffn_down'} T={T}"
             emit(rec)
             out.append(rec)
         del w_lib, fields
@@ -1356,16 +1423,15 @@ def ktiled_cases(timer, gen, device, out: list) -> None:
                     return qmm.quantized_matmul_ktiled_plain(x, fields, qt, 32, N, K, tile_k)
 
                 before = dict(qmm.LAUNCHES)
-                got, want = kern(), plain()
-                torch.cuda.synchronize()
+                got = kern()
+                want, plain_ms = timer.once(plain)
                 check(qmm.LAUNCHES[name] == before[name] + 1, f"{name} was not the route")
                 err = float((got - want).abs().max())
                 tol = 1e-4 * float(want.abs().max()) + 1e-5
                 check(bool(torch.isfinite(got).all()) and err <= tol,
                       f"{name} N={N} K={K} T={T} nk={tile_k}: err {err} > tol {tol}")
                 ms = timer.ms(kern, 20)
-                plain_ms = timer.ms(plain, 3)
-                lib_ms = timer.ms(lambda: torch.matmul(x, w_lib.T), 20)
+                lib_ms = timer.ms(lambda: torch.matmul(x, w_lib.T), 20, "library")
                 n_bytes = sum(nbytes(a) for a in fields.values()) + nbytes(x) + T * N * 4
                 b_ms, b_by = bound_ms(n_bytes, 2.0 * T * N * K, "bf16")
                 rec = {"phase": "kernels", "kernel": name, "route": qmm.route(name, T),
@@ -1429,8 +1495,8 @@ def fused_case(timer, gen, device, out: list, E: int, Dq: int, Fd: int) -> None:
         return F.silu(g[:, :Fd]) * g[:, Fd:], r1
 
     before = fused_layer.LAUNCHES["fused_postattn"]
-    (act, r1), (want_act, want_r1) = kern(), plain()
-    torch.cuda.synchronize()
+    act, r1 = kern()
+    (want_act, want_r1), plain_ms = timer.once(plain)
     check(fused_layer.LAUNCHES["fused_postattn"] == before + 1, "fused_postattn did not launch")
     errs, tols = [], []
     for got, want in ((act, want_act), (r1, want_r1)):
@@ -1440,9 +1506,8 @@ def fused_case(timer, gen, device, out: list, E: int, Dq: int, Fd: int) -> None:
         check(bool(torch.isfinite(got).all()) and errs[-1] <= tols[-1],
               f"fused_postattn E={E} Dq={Dq}: err {errs[-1]} > tol {tols[-1]}")
     ms = timer.ms(kern, 20)
-    plain_ms = timer.ms(plain, 3)
     unfused_ms = timer.ms(unfused, 20)
-    lib_ms = timer.ms(library, 20)
+    lib_ms = timer.ms(library, 20, "library")
     n_bytes = (sum(nbytes(a) for a in o.values()) + sum(nbytes(a) for a in gu.values())
                + nbytes(att) + nbytes(x) + nbytes(w) + nbytes(act) + nbytes(r1))
     b_ms, b_by = bound_ms(n_bytes, 2.0 * (E * Dq + 2 * Fd * E), "bf16")
@@ -1580,8 +1645,8 @@ def gathered_cases(timer, gen, device, out: list) -> None:
                     return qmm_gathered.quantized_matmul_gathered_plain(
                         x, fields, tiles, qt, g, N, K, tile_t=tt, planes_t=planes_t)
 
-                got, want = kern(), plain()
-                torch.cuda.synchronize()
+                got = kern()
+                want, plain_ms = timer.once(plain)
                 err = float((got - want).abs().max())
                 tol = 1e-4 * float(want.abs().max()) + 1e-5
                 check(bool(torch.isfinite(got).all()) and err <= tol,
@@ -1593,19 +1658,18 @@ def gathered_cases(timer, gen, device, out: list) -> None:
                     check(torch.equal(alone[0], got[0]),
                           f"{name} {qt.name} N={N}: tile 0 alone differs from its run")
                 ms = timer.ms(kern, 20)
-                plain_ms = timer.ms(plain, 3)
                 xb = x_slots.to(bf16)
                 if tt == 1 and S <= 32:
                     lib = "torch.bmm on the gathered bf16 expert weights"
                     w_sel = w_lib[sel.long()].transpose(1, 2)
-                    lib_ms = timer.ms(lambda: torch.bmm(xb[:, None, :], w_sel), 20)
+                    lib_ms = timer.ms(lambda: torch.bmm(xb[:, None, :], w_sel), 20, "library")
                     del w_sel
                 else:
                     lib = "torch.matmul per expert on its rows, summed"
                     lib_ms = 0.0
                     for e in range(E):
                         xe, we = xb[sel == e], w_lib[e]
-                        lib_ms += timer.ms(lambda: torch.matmul(xe, we.T), 10)
+                        lib_ms += timer.ms(lambda: torch.matmul(xe, we.T), 10, "library")
                 distinct = int(torch.unique(sel).numel())
                 n_bytes = distinct * per_expert + nbytes(x_slots) + S * N * 4
                 b_ms, b_by = bound_ms(n_bytes, 2.0 * S * N * K, "bf16")
@@ -1687,15 +1751,13 @@ def attn_case(timer, name, fn, q, k, v, mask, out, scales=None, case=None, **kw)
     if scales is not None:
         kw = dict(kw, k_scale=scales[0], v_scale=scales[1])
     got = fn(q, k, v, mask, scale, **kw)
-    want = flash_plain(q, k, v, mask, scale, **kw)
-    torch.cuda.synchronize()
+    want, plain_ms = timer.once(lambda: flash_plain(q, k, v, mask, scale, **kw))
     err = float((got.float() - want.float()).abs().max())
     # both sides compute in f32; a bf16 output may round one step apart
     tol = (2.0 ** -7 if q.dtype == torch.bfloat16 else 1e-5) * float(want.float().abs().max()) + 1e-6
     check(bool(torch.isfinite(got).all()) and err <= tol,
           f"{name} B={B} Tq={Tq} S={S}: err {err} > tol {tol}")
     ms = timer.ms(lambda: fn(q, k, v, mask, scale, **kw), 20)
-    plain_ms = timer.ms(lambda: flash_plain(q, k, v, mask, scale, **kw), 3)
     lib_ms = lib_call = None
     options = sorted(a for a in kw if a not in ("k_scale", "v_scale"))
     if options in ([], ["sinks"], ["alibi_slopes"]):
@@ -1718,7 +1780,7 @@ def attn_case(timer, name, fn, q, k, v, mask, out, scales=None, case=None, **kw)
             m_lib = torch.cat([m_lib.expand(B, Hq, Tq, S), sink], dim=-1)
             lib_call += " with a zero key column masked by the sinks"
         lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(
-            qt, k_lib, v_lib, attn_mask=m_lib, scale=scale, enable_gqa=True), 20)
+            qt, k_lib, v_lib, attn_mask=m_lib, scale=scale, enable_gqa=True), 20, "library")
         del k_lib, v_lib, m_lib
     vis = mask[:, 0] > NEG_HIDDEN  # (B, Tq, S)
     n_pairs = int(vis.sum())
@@ -2190,6 +2252,18 @@ def phase_model(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
               and {"token_embd_norm", "token_embd_norm_bias"} <= set(model.params),
               f"bloom's block: gated {hp.ffn_gated}, rope {hp.rope_type}, "
               f"ALiBi {hp.f_max_alibi_bias}")
+    elif widths.arch == "olmo2":
+        hp, layers = model.hparams, model.params["layers"]
+        check(set(lm) == attn | {"ffn_gate", "ffn_up", "ffn_down"}
+              and "output" in model.quant_meta, f"every layer matrix is packed: {sorted(lm)}")
+        check(not hp.pre_norm and hp.qk_norm_full and hp.rope_type == 2
+              and not {"attn_norm", "ffn_norm"} & set(layers)
+              and {"post_attn_norm", "post_ffn_norm"} <= set(layers)
+              and tuple(layers["attn_q_norm"].shape) == (widths.n_layer, widths.n_embd)
+              and tuple(layers["attn_k_norm"].shape) == (widths.n_layer,
+                                                         widths.n_head_kv * widths.hd),
+              f"olmo2's post-norm block: pre_norm {hp.pre_norm}, rope {hp.rope_type}, "
+              f"{sorted(layers)}")
     elif widths.arch == "chatglm":
         check(set(lm) == {"attn_qkv", "attn_output", "ffn_up"},
               f"attn_qkv, attn_output and ffn_up are packed: {sorted(lm)}")
@@ -2241,23 +2315,29 @@ def phase_model(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
 
 
 def card_reference(gpu):
-    """A CPU reference model from a card model's own weights: every tensor
-    and plane copied to the host as it is on the card, then
-    dense_reference. The card's and the host's runs then hold the same
-    bits of every weight, whatever the load did."""
+    """A CPU reference model from a card model's own weights: every dense
+    tensor copied to the host as it is on the card, then dense_reference,
+    which dequantizes each packed matrix's planes where they lie, on the
+    card, into dense host tensors. The card's and the host's runs then
+    hold the same bits of every weight, whatever the load did."""
     import copy
 
     from tpullama_torch.models import LoadedModel
 
     def host(t):
         if isinstance(t, dict):
-            return {k: host(v) for k, v in t.items()}
+            # a packed matrix's planes stay on the card for dense_reference
+            return t if set(t) <= PLANE_KEYS else {k: host(v) for k, v in t.items()}
         if isinstance(t, list):
             return [host(v) for v in t]
         return t.cpu()
 
     return dense_reference(LoadedModel(hparams=gpu.hparams, params=host(gpu.params), reader=None,
                                        vocab=gpu.vocab, quant_meta=copy.deepcopy(gpu.quant_meta)))
+
+
+# the planes of a packed matrix (ops/qweights.py's field names)
+PLANE_KEYS = {"q4", "q2", "q1", "q8", "q4_lut", "q4a", "q1r", "scale", "minv"}
 
 
 def dense_reference(model):
@@ -2273,14 +2353,29 @@ def dense_reference(model):
     the reference's experts run the dense expert branch (per pair at one
     token, sorted by expert at more) on those exact weights, where the
     plain gathered product would dequantize each selected expert again at
-    every call (~2 s for one of Llama-4-Scout's on the host). Returns the
-    model."""
+    every call (~2 s for one of Llama-4-Scout's on the host). The dense
+    rows reach the host through one reused page-locked buffer, then a
+    host copy on the host's threads (a copy from the card into pageable
+    memory runs at a fraction of the link's rate, and Scout's expert
+    stacks are 32 GB of f32). Returns the model."""
     import torch
 
     from tpullama_torch.ops.cuda import qmm
 
     via = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     checked = []
+    staging: list = []
+
+    def to_host(w, out):
+        """w (on `via`) into the host tensor `out` of its shape."""
+        if via.type != "cuda":
+            out.copy_(w)
+            return
+        if not staging or staging[0].numel() < w.numel():
+            staging[:] = [torch.empty(w.numel(), dtype=w.dtype, pin_memory=True)]
+        buf = staging[0][:w.numel()].view(w.shape)
+        buf.copy_(w)
+        out.copy_(buf)
 
     def stored(fields, m):
         """One matrix's planes dequantized on `via`, (rows, K) in natural
@@ -2301,7 +2396,10 @@ def dense_reference(model):
         return out
 
     def dense(fields, m):
-        return stored(fields, m)[:m.n_out].cpu()
+        w = stored(fields, m)[:m.n_out]
+        out = torch.empty(w.shape, dtype=w.dtype)
+        to_host(w, out)
+        return out
 
     qm = model.quant_meta or {}
     if "output" in qm:
@@ -2325,13 +2423,13 @@ def dense_reference(model):
         for part in parts:
             layers[part] = torch.empty((L, E, n, m.n_in), dtype=torch.float32)
         for i in range(L * E):
-            f = {k: v[i] for k, v in st.items()}
+            f = {k: v[i].to(via) for k, v in st.items()}
             if m.planes_t:  # (kcols, rows_p), the group rows padded to 16
                 f = {k: (v[:G] if k in ("scale", "minv") else v).T.contiguous()
                      for k, v in f.items()}
             w = stored(f, m)
             for part, r0 in parts.items():
-                layers[part][i // E, i % E].copy_(w[r0:r0 + n])
+                to_host(w[r0:r0 + n], layers[part][i // E, i % E])
     if not lm:
         qm.pop("layers", None)
     model.quant_meta = qm or None
@@ -2351,10 +2449,13 @@ def phase_crosscheck(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
     fourblock planes, must give the same tokens too. With `runtime_ops`,
     Context.embeddings of the prompt for each pooling (none, mean, cls,
     last) within the logits' tolerance formula, and the seq ops
-    (seq_ops_case) on the same two models. With `compare_native`, the CPU
-    model is loaded through the native host library and through the numpy
-    codecs, timed, and the two must hold the same bits. The prompt is
-    n_prompt tokens (a shorter one where the CPU's steps are slow)."""
+    (seq_ops_case) on the same two models. With `compare_native`, a copy of
+    the cut with its vocabulary cut to NATIVE_CUT_VOCAB rows (every tensor
+    type and codec path of the layout, its token table and lm_head a
+    fraction of their rows) is loaded through the native host library and
+    through the numpy codecs, timed, and the two must hold the same bits.
+    The prompt is n_prompt tokens (a shorter one where the CPU's steps are
+    slow)."""
     import torch
 
     from tpullama_torch.models import load_model
@@ -2372,13 +2473,20 @@ def phase_crosscheck(tmp: str, widths: Widths = LLAMA3_8B, device: str = "cuda",
                      fused_layer=fused_layer)
     load_s["native"] = time.perf_counter() - t1
     if compare_native:
-        t1 = time.perf_counter()
-        plain = load_model(path, dtype=torch.float32, device="cpu", packed=True,
-                           fused_layer=fused_layer, native=False)
-        load_s["numpy"] = time.perf_counter() - t1
-        check(same_params(cpu.params, plain.params),
+        cut = os.path.join(tmp, f"{phase}_vocab.gguf")
+        write_llama_gguf(cut, replace(widths, n_layer=n_layer, nextn=0,
+                                      n_vocab=NATIVE_CUT_VOCAB), seed=1)
+        loads = {}
+        for use_native in (True, False):
+            t1 = time.perf_counter()
+            loads[use_native] = load_model(cut, dtype=torch.float32, device="cpu", packed=True,
+                                           fused_layer=fused_layer, native=use_native)
+            load_s["native_cut_vocab" if use_native else "numpy_cut_vocab"] = (
+                time.perf_counter() - t1)
+        check(same_params(loads[True].params, loads[False].params),
               "the native and the numpy loads hold different parameters")
-        del plain
+        del loads
+        os.remove(cut)
     if not fused_layer and qmm_tile_k is None:
         dense_reference(cpu)
     os.remove(path)
@@ -2531,9 +2639,12 @@ def phase_swa_crosscheck(tmp: str, card: str, device: str = "cuda",
     from tpullama_torch.runtime import Context, ContextParams
 
     t0 = time.perf_counter()
+    models_split = {}
     if served is not None:
         gpu = f32_activations(served)
+        models_split["f32_activations"] = time.perf_counter() - t0
         cpu = card_reference(gpu)
+        models_split["card_reference"] = time.perf_counter() - t0 - models_split["f32_activations"]
     else:
         if path is None:
             path = os.path.join(tmp, f"{phase}.gguf")
@@ -2586,7 +2697,8 @@ def phase_swa_crosscheck(tmp: str, card: str, device: str = "cuda",
     out_f = greedy_continue(full, lf[-1], n_greedy)
     check(out_f == out_g, f"the ring's tokens {out_g} differ from swa_full's {out_f}")
     rec = {"phase": phase, "card": card, "layers": n_layer, "swa_layers": gpu.hparams.swa_layers,
-           "models_s": t_models, "served_weights": served is not None,
+           "models_s": t_models, "models_split_s": models_split,
+           "served_weights": served is not None,
            "prompt_tokens": n_prompt, "n_ctx": n_ctx, "n_ubatch": n_ubatch, "ring_cells": ring,
            "ring_wrapped": n_prompt > ring, "full_cells": cg._S, "prefill_max_abs_err": err,
            "tol": tol, "prefill_s": prefill_s, "greedy_tokens": out_g,
@@ -2797,6 +2909,10 @@ def same_params(a: dict, b: dict) -> bool:
 # the cross-check's layouts, at Llama-3.2-1B's widths with an untied Q6_K
 # output (LAYOUTS)
 QUANT_CROSS = ("Q3_K_M", "Q2_K", "Q5_0_Q5_1", "Q4_0", "IQ4_XS")
+# the vocabulary of the native-against-numpy load (phase_crosscheck's
+# compare_native): the numpy codecs' load of Llama-3-8B's 128256-row token
+# table and lm_head took 11 s on the card's host
+NATIVE_CUT_VOCAB = 16384
 
 
 def phase_quant_crosscheck(tmp: str, card: str, device: str = "cuda",
@@ -2965,16 +3081,19 @@ def phase_serve(model, card: str, phase: str = "serve", n_slots: int = 4,
 
 def phase_serve_profile(eng, prompt: str, card: str, phase: str = "serve_profile",
                         step_kernels: tuple = (), qmm_counts: tuple | None = None,
-                        gathered_routes: tuple = (), chunk_kernels: tuple = ()) -> None:
+                        gathered_routes: tuple = (), chunk_kernels: tuple = (),
+                        idle_kernels: tuple = ()) -> None:
     """torch.profiler over the served engine's Context, whose lanes still
     hold the requests: one packed B x 256 prefill chunk and one decode
     step of all B lanes. Then one more decode step with every launch count
     at 0: each kernel of `step_kernels` must have launched once per layer.
     With `qmm_counts` = (gemv, tiled), that step must launch qmm_gemv gemv
-    times and one more packed chunk qmm_tiled tiled times: every packed
-    matrix of the model went through the kernels; each kernel of
+    times and one more packed chunk qmm_tiled tiled times and qmm_gemv
+    gemv - tiled times (a packed output on the chunk's last rows): every
+    packed matrix of the model went through the kernels; each kernel of
     `chunk_kernels` must have launched once per layer in that chunk (it
-    needs `qmm_counts`). With `gathered_routes`
+    needs `qmm_counts`). None of `idle_kernels` may launch in the step, nor
+    in that chunk. With `gathered_routes`
     (the gathered kernels' names), one eager decode step and one more
     packed chunk, each with the launch counts at 0 and the MoE layers'
     gathered calls recorded: the step must launch those kernels on one-row
@@ -3058,12 +3177,20 @@ def phase_serve_profile(eng, prompt: str, card: str, phase: str = "serve_profile
     for name in chunk_kernels:
         check(chunk_counts[name] == n_layer,
               f"a prefill chunk launched {name} {chunk_counts[name]} times, not once per layer")
+    for name in idle_kernels:
+        n_chunk = chunk_counts[name] if qmm_counts is not None else 0
+        check(counts[name] == n_chunk == 0,
+              f"a decode step launched {name} {counts[name]} times and a prefill chunk "
+              f"{n_chunk}, not none")
     if qmm_counts is not None and ctx.device.type == "cuda":
         check(counts["qmm_gemv"] == qmm_counts[0],
               f"a decode step launched qmm_gemv {counts['qmm_gemv']} times, not {qmm_counts[0]}")
         check(chunk_counts["qmm_tiled"] == qmm_counts[1],
               f"a prefill chunk launched qmm_tiled {chunk_counts['qmm_tiled']} times, "
               f"not {qmm_counts[1]}")
+        check(chunk_counts["qmm_gemv"] == qmm_counts[0] - qmm_counts[1],
+              f"a prefill chunk launched qmm_gemv {chunk_counts['qmm_gemv']} times, "
+              f"not {qmm_counts[0] - qmm_counts[1]} (the packed output)")
 
 
 def replay_ms(prog, n: int = 8) -> float:
@@ -4505,6 +4632,10 @@ PATH_KERNELS = {
     "bloom_crosscheck": ("qmm_gemv", "qmm_tiled", "flash_attention_alibi", "flash_decode_alibi"),
     "bloom_serve": ("qmm_gemv", "qmm_tiled", "flash_attention_alibi",
                     "flash_decode_batched_alibi"),
+    # OLMo-2-1124-7B: every layer matrix Q4_K (K = 4096 and 11008), the
+    # Q6_K lm_head (N = 100352); attention at G = 1, D = 128
+    "olmo2_crosscheck": _DENSE_CROSS,
+    "olmo2_serve": _DENSE_SERVE,
     # lanes saved and loaded (f32 and int8 caches), the HTTP engine, the CLI
     "state": ("qmm_gemv", "qmm_tiled", "flash_attention", "flash_decode", "flash_decode_batched",
               "flash_attention_int8", "flash_decode_int8"),
@@ -4529,14 +4660,17 @@ PATHS = (("", LLAMA3_8B, 2, 4, {}),
          ("llama4_", LLAMA4_SCOUT, 4, 4, {}),  # the cross-check and ring read the model's file
          ("phi2_", PHI_2, 2, 4, {}),
          ("starcoder_", STARCODER, 1, 0, {}),  # the cross-check alone
-         ("bloom_", BLOOM_7B1, 2, 4, {}))
+         ("bloom_", BLOOM_7B1, 2, 4, {}),
+         ("olmo2_", OLMO2_7B, 2, 4, {}))
 # the cross-checks on the two-stack cache, with their options: gpt-oss's
 # 600-token prompt wraps its 385-cell ring; gemma-3-12b's 1400 tokens its
 # 1281-cell ring, then its first 2 layers (SWA layers only) run on one
-# windowed stack; command-r7b's ring of 4096 + 256 + 1 cells stands beside
-# the full stack only from n_ctx 8192 (its prompt does not wrap it)
+# windowed stack, 8 greedy tokens each (a CPU step reads the 4 GB f32 tied
+# table; the tokens echo the prompt's last, ROADMAP.md Queue 3);
+# command-r7b's ring of 4096 + 256 + 1 cells stands beside the full stack
+# only from n_ctx 8192 (its prompt does not wrap it)
 SWA_CROSS = {"gptoss_": {},
-             "gemma3_": dict(n_prompt=1400, n_ctx=2048, single_stack_layers=2),
+             "gemma3_": dict(n_prompt=1400, n_ctx=2048, single_stack_layers=2, n_greedy=8),
              "cohere2_": dict(n_prompt=64, n_ctx=8192),
              # Llama-4-Scout's ring stands from n_ctx 8450; the chunk of 8192
              # is crossed by llama4_ring on the card alone (a CPU prefill of
@@ -4553,8 +4687,9 @@ SERVE_OPTS = {"llama4_": dict(n_ctx=16384, lengths=(300, 550, 780, 8600), plain_
               # the profile's chunks and steps after them (~1300 tokens)
               "bloom_": dict(n_ctx=4608, lengths=(300, 550, 780, 3000), plain_greedy=True)}
 # the attention launches a served step and a prefill chunk must make once
-# per layer: BLOOM's through the kernels' ALiBi branch
-PROFILE_ATTENTION = {"bloom_": (("flash_decode_batched_alibi",), ("flash_attention_alibi",))}
+# per layer: BLOOM's through the kernels' ALiBi branch, OLMo-2's plain
+PROFILE_ATTENTION = {"bloom_": (("flash_decode_batched_alibi",), ("flash_attention_alibi",)),
+                     "olmo2_": (("flash_decode_batched",), ("flash_attention",))}
 # the cross-checks of a model with a learned position table: a prompt past
 # position 4096 (phase_positions_crosscheck)
 POSITIONS_CROSS = ("starcoder_",)
@@ -4665,27 +4800,42 @@ def main() -> int:
         t0 = time.perf_counter()
         timer = Timer(device)
         gen = torch.Generator(device=device).manual_seed(0)
-        qmm_cases(timer, gen, device, records)
-        ktiled_cases(timer, gen, device, records)
-        fused_cases(timer, gen, device, records)
-        gathered_cases(timer, gen, device, records)
-        attention_cases(timer, gen, device, records)
+        by_builder: dict = {}
+
+        def run_cases(label, cases, *args, **kw):
+            t1, parts = time.perf_counter(), dict(timer.split)
+            cases(timer, gen, device, records, *args, **kw)
+            row = by_builder.setdefault(label, {})
+            row["seconds"] = row.get("seconds", 0.0) + time.perf_counter() - t1
+            for part, sec in timer.split.items():
+                row[part] = row.get(part, 0.0) + sec - parts.get(part, 0.0)
+
+        run_cases("qmm", qmm_cases)
+        run_cases("ktiled", ktiled_cases)
+        run_cases("fused", fused_cases)
+        run_cases("gathered", gathered_cases)
+        run_cases("attention", attention_cases)
         # gpt-oss-20b's (64/8 heads, D = 64, sinks; ring 385 cells) and
         # gemma-3-12b's (16/8 heads, D = 256; ring 1281 cells, window 1024)
-        iswa_attention_cases(timer, gen, device, records, GPT_OSS_20B, "gptoss", sinks=True,
-                             int8=(False, True))
-        iswa_attention_cases(timer, gen, device, records, GEMMA3_12B, "gemma3")
+        run_cases("iswa", iswa_attention_cases, GPT_OSS_20B, "gptoss", sinks=True,
+                  int8=(False, True))
+        run_cases("iswa", iswa_attention_cases, GEMMA3_12B, "gemma3")
         # Llama-4-Scout's (40/8 heads, D = 128; full stack 16512 cells, the
         # chunked ring 8449)
-        chunked_attention_cases(timer, gen, device, records)
+        run_cases("chunked", chunked_attention_cases)
         # phi-2's (32 heads of 80, G = 1) and bigcode/starcoder's (48 heads
         # of 128 over one KV head)
-        nongated_attention_cases(timer, gen, device, records)
+        run_cases("nongated", nongated_attention_cases)
         # BLOOM-7b1's (32 heads of 128) through the ALiBi branch
-        alibi_attention_cases(timer, gen, device, records)
+        run_cases("alibi", alibi_attention_cases)
+        split = dict(timer.split)
         del timer
         torch.cuda.empty_cache()
-        emit({"phase": "kernels", "cases": len(records), "seconds": time.perf_counter() - t0})
+        # the phase's host seconds by case builder, and by part: the
+        # kernels' and library calls' timings and the plain versions' one
+        # call each, in all and within each builder
+        emit({"phase": "kernels", "cases": len(records), "seconds": time.perf_counter() - t0,
+              "seconds_by_builder": by_builder, "seconds_by_part": split})
 
     launches: dict = {}
     # the Llama path (and its HTTP server), the Mixtral path, the ChatGLM
@@ -4760,7 +4910,8 @@ def main() -> int:
                                     step_kernels=("qmm_ktiled", "fused_postattn") if fused
                                     else step_attn, qmm_counts=qmm_counts,
                                     gathered_routes=GATHERED_ROUTES.get(pre, ()),
-                                    chunk_kernels=chunk_attn)
+                                    chunk_kernels=chunk_attn,
+                                    idle_kernels=() if fused else ("fused_postattn",))
                 del eng
                 torch.cuda.empty_cache()
             if "graphs" in run:

@@ -51,15 +51,16 @@ def test_hparams_equal(tiny, arch):
     assert vars(t) == {k: getattr(j, k) for k in vars(t)}
 
 
-@pytest.mark.parametrize("arch", ["olmo", "mamba", "bert"])
+@pytest.mark.parametrize("arch", ["qwen2vl", "mamba", "bert"])
 def test_hparams_refuse_other_archs(tmp_path, arch):
     p = str(tmp_path / "m.gguf")
     make_tiny_llama_gguf(p, arch=arch, n_embd=64, n_ff=128, seed=5)
     JHParams.from_gguf(j_gguf.GGUFReader(p))  # the original reads it
     with pytest.raises(NotImplementedError, match=arch):
         THParams.from_gguf(t_gguf.GGUFReader(p))
-    if arch == "olmo":
-        # a flag-only arch of the JAX package's llama forward, by its item
+    if arch == "qwen2vl":
+        # an arch of the JAX package's llama forward waiting for M-RoPE, by
+        # its item
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
             THParams.from_gguf(t_gguf.GGUFReader(p))
 

@@ -10,8 +10,10 @@ hunyuan-moe, and the dense archs that run on those flags alone
 glm4, granite, minicpm, orion, stablelm, plamo, seed_oss, pangu-embedded,
 qwen, smollm3, hunyuan-dense, the non-gated FFN archs phi2, falcon,
 gptneox, starcoder2, codeshell, gpt2 and starcoder, the squared-relu and
-xIELU archs nemotron, arcee and apertus, and the ALiBi archs mpt, bloom,
-jais, refact and baichuan).
+xIELU archs nemotron, arcee and apertus, the ALiBi archs mpt, bloom,
+jais, refact and baichuan, the post-norm archs olmo2, exaone4 and
+chameleon's swin variant, olmo's weightless LayerNorms, chameleon and
+bitnet), and olmoe.
 
 The part of tpullama/models/hparams.py that the port reads. Key strings
 follow the reference's key-name table exactly (src/llama-arch.cpp:119-268);
@@ -31,7 +33,12 @@ their LayerNorms, phi2's, falcon's and gptneox's parallel residual, the
 rope-less gpt2 and starcoder, nemotron's and arcee's squared relu,
 apertus's per-layer xIELU coefficients, and the ALiBi slope ceiling of
 mpt, bloom, jais, refact and baichuan-13B with mpt's qkv clamp and
-full-width q/k norms and jais's 1/D attention scale). Other architectures' fields and
+full-width q/k norms and jais's 1/D attention scale, olmo's
+non-parametric LayerNorm and qkv clamp, olmo2's and olmoe's full-width
+q/k RMS norms, the post-norm blocks of olmo2, exaone4 and chameleon's
+swin variant, exaone4-32B's SWA layout with NoPE full layers, chameleon's
+per-head LayerNorm q/k norms, and olmoe's un-normalised top-k weights).
+Other architectures' fields and
 branches come across with the slice that ports them; until then from_gguf
 refuses them by name with their ROADMAP item.
 """
@@ -59,15 +66,16 @@ FLAG_ARCHS = ("qwen3", "mistral3", "internlm2", "xverse", "ernie4_5", "exaone", 
               "glm4", "granite", "minicpm", "orion", "stablelm", "plamo", "seed_oss",
               "pangu-embedded", "qwen", "smollm3", "hunyuan-dense", "phi2", "falcon",
               "gptneox", "starcoder2", "codeshell", "gpt2", "starcoder", "nemotron", "arcee",
-              "apertus", "mpt", "bloom", "jais", "refact", "baichuan")
+              "apertus", "mpt", "bloom", "jais", "refact", "baichuan", "olmo", "olmo2",
+              "exaone4", "chameleon", "bitnet")
 LLAMA_FAMILY = ("llama", "mistral", "qwen2", "chatglm", "qwen2moe", "qwen3moe", "granitemoe",
                 "glm4moe", "dots1", "ernie4_5-moe", "bailingmoe2", "gpt-oss", "gemma",
                 "gemma2", "gemma3", "command-r", "cohere2", "llama4",
-                "hunyuan-moe") + FLAG_ARCHS
+                "hunyuan-moe", "olmoe") + FLAG_ARCHS
 # the other MoE archs the JAX package runs through its llama forward, each
 # refused by name until its slice (ROADMAP.md Queue 1 item 5)
 MOE_NOT_PORTED = ("bailingmoe", "afmoe", "minimax-m2",
-                  "grovemoe", "olmoe", "phimoe", "dbrx", "grok", "arctic",
+                  "grovemoe", "phimoe", "dbrx", "grok", "arctic",
                   "qwen3vlmoe", "llada-moe", "smallthinker")
 # the dense archs the JAX package's tests run through its llama forward
 # from per-arch flags the port does not have yet, and the archs with a
@@ -75,8 +83,7 @@ MOE_NOT_PORTED = ("bailingmoe", "afmoe", "minimax-m2",
 # heads, MLA, gemma3n, the encoders, the recurrent and hybrid stacks,
 # diffusion, the audio decoder), each refused by name until its slice
 # (ROADMAP.md Queue 1 item 7)
-FLAG_NOT_PORTED = ("olmo", "olmo2", "exaone4", "chameleon", "bitnet", "qwen2vl", "qwen3vl",
-                   "cogvlm")
+FLAG_NOT_PORTED = ("qwen2vl", "qwen3vl", "cogvlm", "olmo3")
 OWN_FORWARD_NOT_PORTED = ("deci", "openelm", "deepseek2", "plm", "minicpm3", "gemma3n",
                           "bert", "nomic-bert", "nomic-bert-moe", "jina-bert-v2",
                           "jina-bert-v3", "neo-bert", "gemma-embedding", "t5", "t5encoder",
@@ -89,7 +96,7 @@ OWN_FORWARD_NOT_PORTED = ("deci", "openelm", "deepseek2", "plm", "minicpm3", "ge
 # split halves) for the rest
 _NORM_ROPE = ("llama", "llama4", "chatglm", "granitemoe", "ernie4_5-moe", "command-r",
               "cohere2", "internlm2", "minicpm", "xverse", "granite", "ernie4_5", "mistral3",
-              "glm4", "smollm3", "baichuan", "arcee")
+              "glm4", "smollm3", "baichuan", "arcee", "olmo", "chameleon")
 # LLAMA_ROPE_TYPE_NONE (-1): no rotation (the JAX package's NONE_ARCHES,
 # which wins over NORM_ARCHES for starcoder); the others of that set have
 # a forward of their own or come with their slice
@@ -172,11 +179,18 @@ class HParams:
     # "relu_sqr" (nemotron, arcee) | "xielu" (apertus)
     act: str = "silu"
     norm_type: str = "rms"  # "rms" | "layer" (command-r, cohere2: LayerNorm)
+    norm_nonparam: bool = False  # olmo: LayerNorms without weight or bias tensors
+    # False: no norm before attention and FFN, which read the residual
+    # stream; post norms norm their outputs (olmo2, exaone4, chameleon swin)
     pre_norm: bool = True
     no_rope_layer_step: int = 0  # every Nth layer is NoPE (smollm3, llama4)
     qk_norm_after_rope: bool = False  # hunyuan: the per-head q/k norms after rope
-    qk_norm_full: bool = False  # the q/k norms over the full projection width (mpt)
-    qk_norm_ln: bool = False  # per-head q/k norms as LayerNorm under RMS block norms
+    # the q/k norms over the full projection width (mpt, olmo2, olmoe)
+    qk_norm_full: bool = False
+    # per-head q/k norms as LayerNorm (+bias) under RMS block norms (chameleon)
+    qk_norm_ln: bool = False
+    # chameleon swin: attn_norm and ffn_norm norm the block outputs, and the
+    # FFN reads the normed attention output
     swin_norm: bool = False
     parallel_residual: bool = False  # attention and FFN from one norm, summed (command-r)
 
@@ -382,6 +396,42 @@ class HParams:
             beta, eps = per_layer("xielu.beta", 0.5), per_layer("xielu.eps", -1e-6)
             hp.xielu_params = tuple((b + softplus(an), softplus(ap), b, e)
                                     for an, ap, b, e in zip(a_n, a_p, beta, eps))
+        if arch == "olmo":
+            # non-parametric LayerNorms (no norm tensors at all), the qkv
+            # clamp, a gated SiLU FFN (llm_build_olmo)
+            hp.norm_type = "layer"
+            hp.norm_nonparam = True
+            hp.f_clamp_kqv = float(g("attention.clamp_kqv", 0.0) or 0.0)
+        if arch in ("olmo2", "olmoe"):
+            # full-width q/k RMS norms before the reshape; olmo2's blocks
+            # post-norm (llm_build_olmo2), olmoe's top-k weights
+            # un-normalised (llm_build_olmoe)
+            hp.qk_norm_full = True
+            if arch == "olmo2":
+                hp.pre_norm = False
+            else:
+                hp.moe_norm_topk = False
+        if arch == "exaone4":
+            # post-norm blocks with per-head q/k RMS norms before rope; at
+            # exactly 64 layers (32B) SWA layers il % 4 != 3, rope on them
+            # alone (the full layers NoPE, exaone4.cpp:37), window 4096 by
+            # default
+            hp.pre_norm = False
+            if hp.n_layer == 64:
+                hp.swa_layers = tuple(il % 4 != 3 for il in range(hp.n_layer))
+                hp.rope_freq_base_swa = hp.rope_freq_base
+                hp.rope_swa_only = True
+                if hp.n_swa == 0:
+                    hp.n_swa = 4096
+        if arch == "chameleon":
+            # per-head LayerNorm q/k norms with biases at torch's default
+            # eps, before rope (llama-model.cpp:1954-1958); the swin variant
+            # norms its block outputs
+            hp.qk_norm_ln = True
+            hp.f_norm_eps = 1e-5
+            hp.swin_norm = bool(g("swin_norm", False))
+            if hp.swin_norm:
+                hp.pre_norm = False
         if arch == "gptneox":
             # the parallel residual by default, the FFN with its own
             # ffn_norm of the layer input (models/gptneox.cpp:68-110)

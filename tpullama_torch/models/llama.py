@@ -9,25 +9,32 @@ families, llama4, hunyuan-moe, and the dense flag archs, qwen3, phi3,
 glm4, granite, minicpm, orion, stablelm, plamo, smollm3, hunyuan-dense,
 the non-gated phi2, falcon, gptneox, starcoder2, codeshell, gpt2 and
 starcoder, the squared-relu and xIELU nemotron, arcee and apertus, the
-ALiBi mpt, bloom, jais, refact and baichuan-13B, and the rest of
-hparams.FLAG_ARCHS; no parallel modes): token rows (times embd_scale;
+ALiBi mpt, bloom, jais, refact and baichuan-13B, the post-norm olmo2,
+exaone4 and chameleon swin, olmo, chameleon, bitnet, olmoe, and the rest
+of hparams.FLAG_ARCHS; no parallel modes): token rows (times embd_scale;
 plus the learned position rows of gpt2 and starcoder; then bloom's
-embedding LayerNorm) -> per layer [norm -> q/k/v (+bias) -> mpt's clamp
-and full-width q/k norms -> per-head q/k norm ->
+embedding LayerNorm) -> per layer [norm (none where hp.pre_norm is off:
+the residual stream itself) -> q/k/v (+bias; times bitnet's scales) ->
+mpt's and olmo's clamp, the full-width q/k norms of mpt, olmo2 and olmoe
+-> per-head q/k norm (chameleon's LayerNorms with biases) ->
 rope (none on a NoPE layer) -> hunyuan's per-head q/k norm, llama4's
 weightless one on its rope layers, llama4's Q temperature on its NoPE
 layers -> write K/V into the
 cache -> attention (with gpt-oss's per-head sinks, gemma2's softcap, the
-ALiBi slopes times the mask's -|distance|) ->
-o-proj (+bias; post_attn_norm; times f_residual_scale) -> residual ->
-norm -> gated FFN (SiLU, or GELU for the gemmas; each projection +bias
-where the file has one), or the non-gated up (+bias) -> activation ->
+ALiBi slopes times the mask's -|distance|) -> bitnet's attn_sub_norm ->
+o-proj (times bitnet's scale; +bias; post_attn_norm; times
+f_residual_scale) -> residual -> norm (a post-norm block's FFN reads the
+residual sum, chameleon swin's the normed attention output) -> gated FFN
+(SiLU, or GELU for the gemmas; each projection times bitnet's scale and
++bias where the file has them; bitnet's ffn_sub_norm before ffn_down),
+or the non-gated up (+bias) -> activation ->
 down (+bias) of hp.ffn_gated False (GELU, nemotron's and arcee's squared
 ReLU, apertus's xIELU with its per-layer coefficients; FFN_ACTS, which
 refuses any other name), or MoE FFN plus the
 shared expert (qwen2moe: gated by its own sigmoid) (post_ffn_norm; times
 f_residual_scale) -> residual], final norm, lm_head, then output_bias,
-final_logit_scale and the final softcap in f32. The norms are RMS norms,
+final_logit_scale and the final softcap in f32, and chameleon's image
+rows at the f32 minimum. The norms are RMS norms,
 or LayerNorms where hp.norm_type is "layer" (command-r, cohere2, orion,
 stablelm), each plus its bias where the file has one (orion's and
 stablelm's attn_norm, ffn_norm and output_norm). With
@@ -248,7 +255,9 @@ class LlamaLayer(nn.Module):
         B, T, _ = x.shape
         Hq, Hkv = hp.n_head, hp.n_head_kv
         Dk, Dv = hp.n_embd_head_k, hp.n_embd_head_v
-        h = norm_fn(hp, x, w["attn_norm"], w.get("attn_norm_bias"))
+        # a post-norm block (olmo2, exaone4, chameleon swin) feeds attention
+        # the residual stream itself; olmo's norms have no tensors
+        h = norm_fn(hp, x, w.get("attn_norm"), w.get("attn_norm_bias")) if hp.pre_norm else x
         h_attn = h
         if "attn_qkv" in w:
             # fused QKV (chatglm): rows [Q | K | V]
@@ -265,14 +274,20 @@ class LlamaLayer(nn.Module):
                 q = q + w["attn_q_bias"]
                 k = k + w["attn_k_bias"]
                 v = v + w["attn_v_bias"]
+        if "attn_q_scale" in w:
+            # bitnet: one-element scales after the products, as tensors (the
+            # JAX package's llama.py:317-322)
+            q = q * w["attn_q_scale"]
+            k = k * w["attn_k_scale"]
+            v = v * w["attn_v_scale"]
         if hp.f_clamp_kqv:
-            # mpt: q, k and v clamped after their biases (ggml_clamp; the JAX
-            # package's llama.py:323-327)
+            # mpt and olmo: q, k and v clamped after their biases and
+            # scales (ggml_clamp; the JAX package's llama.py:323-327)
             c = hp.f_clamp_kqv
             q, k, v = q.clamp(-c, c), k.clamp(-c, c), v.clamp(-c, c)
         if "attn_q_norm" in w and hp.qk_norm_full:
-            # mpt: the q/k norms (+bias) over the full projection width,
-            # before the reshape (llama.py:336-339)
+            # mpt, olmo2, olmoe: the q/k norms (+bias) over the full
+            # projection width, before the reshape (llama.py:336-339)
             q, k = self.qk_norm(q, k)
         q = q.reshape(B, T, Hq, Dk)
         k = k.reshape(B, T, Hkv, Dk)
@@ -314,6 +329,10 @@ class LlamaLayer(nn.Module):
                                  softcap=hp.attn_logit_softcap, sinks=sinks,
                                  alibi_slopes=alibi)
         att = att.reshape(B, T, Hq * Dv)
+        if "attn_sub_norm" in w:
+            # bitnet: an RMS norm of the attention output before the
+            # o-projection (llama.py:654-657)
+            att = rms_norm(att, w["attn_sub_norm"], hp.f_norm_rms_eps)
         if self.fused and B == 1 and T == 1:
             # the JAX package's fused branch (llama.py:683-700); it never
             # tests B and would take B * Dq columns for B > 1, so the port
@@ -325,6 +344,8 @@ class LlamaLayer(nn.Module):
             y = r1.reshape(1, 1, -1) + dn.float()
             return y.reshape(B, T, -1).to(x.dtype)
         att = linear(att, w["attn_output"], m.get("attn_output"), tk)
+        if "attn_output_scale" in w:
+            att = att * w["attn_output_scale"]
         if "attn_output_bias" in w:
             att = att + w["attn_output_bias"]
         if "post_attn_norm" in w:
@@ -343,7 +364,14 @@ class LlamaLayer(nn.Module):
                 h = h_attn
         else:
             x = x + att
-            h = norm_fn(hp, x, w["ffn_norm"], w.get("ffn_norm_bias"))
+            if hp.pre_norm:
+                h = norm_fn(hp, x, w.get("ffn_norm"), w.get("ffn_norm_bias"))
+            elif hp.swin_norm:
+                # chameleon swin: the FFN reads the post-normed attention
+                # output, not the residual sum (llama.py:724-729)
+                h = att
+            else:
+                h = x
         if "ffn_gate_inp" in w:
             # MoE branch (the JAX package's llama.py:734-817: the arch's
             # gating and norm_w, SiLU experts, then the shared expert)
@@ -385,13 +413,23 @@ class LlamaLayer(nn.Module):
                 # the gated FFN, with each projection's bias where the file
                 # has one (llama.py:873-893)
                 gate = linear(h, w["ffn_gate"], m.get("ffn_gate"), tk)
+                if "ffn_gate_scale" in w:  # bitnet's scales, before the biases
+                    gate = gate * w["ffn_gate_scale"]
                 if "ffn_gate_bias" in w:
                     gate = gate + w["ffn_gate_bias"]
                 up = linear(h, w["ffn_up"], m.get("ffn_up"), tk)
+                if "ffn_up_scale" in w:
+                    up = up * w["ffn_up_scale"]
                 if "ffn_up_bias" in w:
                     up = up + w["ffn_up_bias"]
                 act = act_fn(gate.float(), w).to(gate.dtype) * up
+                if "ffn_sub_norm" in w:
+                    # bitnet: an RMS norm between the GLU and ffn_down
+                    # (llama.py:871-891)
+                    act = rms_norm(act, w["ffn_sub_norm"], hp.f_norm_rms_eps)
             down = linear(act, w["ffn_down"], m.get("ffn_down"), tk)
+            if "ffn_down_scale" in w:
+                down = down * w["ffn_down_scale"]
             if "ffn_down_bias" in w:
                 down = down + w["ffn_down_bias"]
         if "post_ffn_norm" in w:
@@ -561,6 +599,11 @@ class LlamaModel(nn.Module):
             logits = logits * hp.final_logit_scale
         if hp.final_logit_softcap:
             logits = hp.final_logit_softcap * torch.tanh(logits / hp.final_logit_softcap)
+        if hp.arch == "chameleon":
+            # the image tokens' rows 4..8195 at the f32 minimum, on the device
+            # (models/chameleon.cpp:160-172; the JAX package's
+            # llama.py:1134-1139), so a replayed step's sampler sees them
+            logits[..., 4:8196] = torch.finfo(torch.float32).min
         return (logits, embd) if return_embd else logits
 
 

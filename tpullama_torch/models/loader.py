@@ -12,8 +12,12 @@ of hparams.FLAG_ARCHS: orion's and stablelm's LayerNorm biases
 (attn_norm, ffn_norm and output_norm), seed_oss's FFN norm stored as
 post_attention_norm, the FFN biases of the non-gated archs (and of a
 gated FFN that has them), falcon-40b's attn_norm_2, gpt2's and
-starcoder's learned position table, bloom's embedding LayerNorm and
-mpt's full-width q/k LayerNorm biases; a file without output.weight, as
+starcoder's learned position table, bloom's embedding LayerNorm,
+mpt's full-width q/k LayerNorm biases and chameleon's per-head ones
+((n_head, head_dim), as the file holds them), bitnet's one-element
+projection scales and its attention and FFN sub-norms, and chameleon's
+swin norms remapped per file onto the post norms; olmo's file has no norm
+tensors at all; a file without output.weight, as
 gemma's, cohere's, glm4's, minicpm's and starcoder's tied ones are, takes
 the token table as its lm_head). Every tensor the file holds is mapped or
 refused by name, but the trailing NextN layers past hp.n_layer and every
@@ -129,6 +133,17 @@ _LAYER_TENSORS = {
     "ffn_gate.bias": "ffn_gate_bias",
     "attn_norm_2.weight": "attn_norm_2",
     "attn_norm_2.bias": "attn_norm_2_bias",
+    # bitnet: one-element scales multiplied after each projection, and the
+    # RMS sub-norms before attn_output and before ffn_down
+    "attn_q.scale": "attn_q_scale",
+    "attn_k.scale": "attn_k_scale",
+    "attn_v.scale": "attn_v_scale",
+    "attn_output.scale": "attn_output_scale",
+    "ffn_gate.scale": "ffn_gate_scale",
+    "ffn_up.scale": "ffn_up_scale",
+    "ffn_down.scale": "ffn_down_scale",
+    "attn_sub_norm.weight": "attn_sub_norm",
+    "ffn_sub_norm.weight": "ffn_sub_norm",
 }
 # per-arch remaps of tensor suffixes onto forward roles: glm4moe, gpt-oss
 # and seed_oss normalize ffn_inp with post_attention_norm, the ffn_norm
@@ -138,6 +153,11 @@ _LAYER_TENSORS = {
 _ARCH_TENSOR_OVERRIDES = {"glm4moe": {"post_attention_norm.weight": "ffn_norm"},
                           "gpt-oss": {"post_attention_norm.weight": "ffn_norm"},
                           "seed_oss": {"post_attention_norm.weight": "ffn_norm"}}
+# chameleon's swin variant (hp.swin_norm, a key of the file): attn_norm and
+# ffn_norm norm the block outputs before the residual adds, the post norms'
+# slots (the JAX loader's per-file remap, loader.py:380-385;
+# models/chameleon.cpp:27,107-136)
+_SWIN_OVERRIDES = {"attn_norm.weight": "post_attn_norm", "ffn_norm.weight": "post_ffn_norm"}
 _EXPERT_TRIO = ("ffn_gate_exps", "ffn_up_exps", "ffn_down_exps")
 # the layer matrices the fused post-attention path reads in fourblock order
 _FOURBLOCK_KEYS = ("attn_output", "ffn_up", "ffn_down")
@@ -157,7 +177,7 @@ _TOP_TENSORS = {
 }
 # the archs whose MoE layers the port runs (ops/moe.py)
 _MOE_ARCHS = ("llama", "qwen2moe", "qwen3moe", "granitemoe", "glm4moe", "dots1", "ernie4_5-moe",
-              "bailingmoe2", "gpt-oss", "llama4", "hunyuan-moe")
+              "bailingmoe2", "gpt-oss", "llama4", "hunyuan-moe", "olmoe")
 
 # values dequantized per host batch when a large dense tensor is decoded
 _DENSE_ELEMS = 8192 * 4096
@@ -380,7 +400,8 @@ def load_model(source, dtype=torch.float32, device=None, packed: bool = False,
 
     layer_names: dict[int, dict[str, str]] = {}
     top: dict[str, str] = {}
-    overrides = _ARCH_TENSOR_OVERRIDES.get(hp.arch, {})
+    overrides = {**_ARCH_TENSOR_OVERRIDES.get(hp.arch, {}),
+                 **(_SWIN_OVERRIDES if hp.swin_norm else {})}
     skipped = 0
     pat = re.compile(r"^blk\.(\d+)\.(.+)$")
     for name in reader.tensors:
